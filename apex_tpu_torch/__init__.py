@@ -10,10 +10,14 @@ Every entry point runs on CUDA unless the caller passes ``device="cpu"``;
 on the CPU each kernel is replaced by its plain PyTorch version.  The
 package never imports JAX or ``apex_tpu``.
 
-What is ported so far: serving of the Llama family on one card —
-:mod:`~apex_tpu_torch.serving` over :mod:`~apex_tpu_torch.models.llama`,
-with the LayerNorm/RMSNorm forward kernel
-(:mod:`~apex_tpu_torch.ops.layer_norm`).
+What is ported so far, on one card: serving of the Llama family —
+:mod:`~apex_tpu_torch.serving` over :mod:`~apex_tpu_torch.models.llama` —
+and the model's uncached forward and ``labels=`` per-token loss
+(evaluation), with the LayerNorm/RMSNorm forward, flash attention forward
+and fused LM-head loss forward kernels
+(:mod:`~apex_tpu_torch.ops.layer_norm`,
+:mod:`~apex_tpu_torch.ops.flash_attention`,
+:mod:`~apex_tpu_torch.ops.fused_lm_head`).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,4 @@
-"""Llama-family causal LM for serving (counterpart of
-``apex_tpu/models/llama.py``).
+"""Llama-family causal LM (counterpart of ``apex_tpu/models/llama.py``).
 
 Embedding -> decoder stack (RMSNorm, grouped-query attention with rotary
 embeddings, RMSNorm, SwiGLU MLP) -> final RMSNorm -> LM head.  Every norm
@@ -10,12 +9,16 @@ Activations keep the Megatron ``[s, b, h]`` layout of the JAX model, so
 each intermediate compares with its counterpart directly; inputs are
 ``[b, s]`` token ids and logits come out ``[s, b, vocab]`` in fp32.
 
-Three modes, as in the JAX model:
+Four modes, as in the JAX model:
 
 - **uncached forward** (``kv_cache=None``): causal attention over the
-  input.  Its attention on the card is the flash attention kernel, which
-  comes with the training slice of the port; here it runs on the CPU
-  only, and a CUDA call raises.
+  input through :func:`~apex_tpu_torch.ops.flash_attention.flash_attention`
+  (on the card the flash attention forward kernel, one launch a layer; k
+  and v keep their kv heads, and each query head reads its group's).
+- **per-token loss** (``labels=`` ``[b, s]``, no cache): the same forward,
+  then :func:`~apex_tpu_torch.ops.fused_lm_head.fused_lm_head_loss` in
+  place of the logits (on the card the fused LM-head kernel, one launch);
+  returns the ``[b, s]`` fp32 loss, as the JAX model does at tp 1.
 - **chunked prefill** (``input_ids [1, s>1]``, ``slot``, ``position`` =
   the chunk's start offset): rope at the true positions, the chunk's K/V
   written into the cache, and the chunk attends the whole ``max_len``
@@ -26,8 +29,8 @@ Three modes, as in the JAX model:
 
 The cache is updated in place (see :mod:`apex_tpu_torch.serving.kv_cache`);
 the cached modes return ``(logits, kv_cache)`` like the JAX model, with
-the same cache object.  The training loss (``labels=``) comes with the
-training slice.
+the same cache object, and refuse ``labels``.  On the card every mode is
+inference-only: the backward kernels come with the training slice.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from torch import nn
 
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops._dispatch import resolve_device
+from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.fused_lm_head import fused_lm_head_loss
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
 from apex_tpu_torch.serving import kv_cache as kvc
 from apex_tpu_torch.transformer.tensor_parallel import (
@@ -211,16 +216,10 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(s, b, nkv, hd)
         qt = q.permute(1, 2, 0, 3)                           # [b, nq, s, hd]
         if kv_cache is None:
-            if x.is_cuda:
-                raise NotImplementedError(
-                    "the uncached forward's attention on the card is the "
-                    "flash attention kernel, which comes with the training "
-                    "slice of the port; serve through DecodeEngine, or run "
-                    "the uncached forward on the CPU")
-            kt = k.permute(1, 2, 0, 3)
-            vt = v.permute(1, 2, 0, 3)
-            bounds = torch.arange(s, device=x.device).expand(b, s)
-            ctx = _cached_attention(qt, kt, vt, bounds)
+            # [b, nkv, s, hd] views: the kernel reads kv head i // (nq/nkv)
+            # for query head i, the JAX model's jnp.repeat without the copy
+            ctx = flash_attention(qt, k.permute(1, 2, 0, 3),
+                                  v.permute(1, 2, 0, 3), causal=True)
         elif s == 1:
             kvc.append_token(kv_cache, layer_idx, k[0], v[0], position)
             kc, vc = kvc.decode_read(kv_cache, layer_idx)  # [b, max, nkv, hd]
@@ -289,16 +288,16 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None, *, kv_cache=None,
                 position=None, slot=None):
-        """Logits ``[s, b, vocab]`` (fp32); ``(logits, kv_cache)`` with a
-        cache: ``input_ids [1, s>1]`` + ``slot`` + int ``position`` (the
-        chunk's start offset, None for 0) prefills one chunk of one slot;
-        ``input_ids [slots, 1]`` + ``position [slots]`` runs one batched
-        decode step."""
+        """Logits ``[s, b, vocab]`` (fp32); with ``labels [b, s]`` the
+        per-token loss ``[b, s]`` (fp32) instead; ``(logits, kv_cache)``
+        with a cache: ``input_ids [1, s>1]`` + ``slot`` + int ``position``
+        (the chunk's start offset, None for 0) prefills one chunk of one
+        slot; ``input_ids [slots, 1]`` + ``position [slots]`` runs one
+        batched decode step."""
         cfg = self.config
-        if labels is not None:
-            raise NotImplementedError(
-                "the labels= training loss comes with the training slice "
-                "of the port (it runs the fused LM-head loss kernel)")
+        if kv_cache is not None and labels is not None:
+            raise ValueError("kv_cache is a serving-mode argument; "
+                             "labels is training-only")
         # [b, s, h] -> [s, b, h]; the norm kernel takes contiguous input
         x = self.embed_tokens(input_ids).transpose(0, 1).contiguous()
         s = x.shape[0]
@@ -321,6 +320,8 @@ class LlamaForCausalLM(nn.Module):
         x = self.norm(x)
         head = (self.embed_tokens.weight if cfg.tie_word_embeddings
                 else self.lm_head)
+        if labels is not None:
+            return fused_lm_head_loss(x, head.to(x.dtype), labels.T).T
         logits = parallel_lm_logits(x, head.to(x.dtype))
         if kv_cache is not None:
             return logits, kv_cache

@@ -6,12 +6,14 @@ library with a plain C interface, which :mod:`ctypes` loads::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/apex_tpu_torch/<name>-<hash>.so <name>.cu
 
-The library lands in ``build/apex_tpu_torch/`` beside the package (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source builds anew and an unchanged one is reused.  Importing this
-module builds nothing and needs no ``nvcc``: the build starts at the first
-launch on a CUDA tensor, or when a caller asks for it with
-:func:`build_all`, which starts one ``nvcc`` per source, all together.
+The sources share the device helpers in ``csrc/*.cuh``.  The library
+lands in ``build/apex_tpu_torch/`` beside the package (listed in
+``.gitignore``), named by a hash of the source, the shared headers and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused.  Importing this module builds nothing and needs no ``nvcc``: the
+build starts at the first launch on a CUDA tensor, or when a caller asks
+for it with :func:`build_all`, which starts one ``nvcc`` per source, all
+together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises if that is not 0.
@@ -55,9 +57,11 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(source: str) -> tuple:

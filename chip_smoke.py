@@ -16,20 +16,33 @@ ends the run with a non-zero exit and no result line:
    kernel's other code paths, and the main path's shapes; each result
    against the plain PyTorch version on the same inputs, at the stated
    tolerance.  Then the kernel, the plain version and the library call
-   (``F.rms_norm``) timed at the main path's shapes, on the device (calls
-   captured in a CUDA graph) and as the host issues them, beside the
-   least time the card could take (bytes over 3.35 TB/s).
-3. **End to end**: a small fp32 Llama served on the card against the same
-   weights served on the CPU (the port's plain path); then the
-   ``llama-1b`` card at full width and depth, bf16, weights from a seeded
-   ``torch.Generator`` on the card, behind ``DecodeEngine(slots=8,
-   max_len=2048, prefill_len=512)`` and the FIFO scheduler: 12 greedy
-   requests, prompts of 64-1024 tokens, 32 new tokens each.  The norm
-   kernel's launches over that run must equal ``(2L+1)`` times the model
-   calls (prefill chunks plus decode steps); one request rerun alone must
-   give the same stream.
-4. **Kernels line**: one JSON object with each kernel's launches on the
-   main path, error against its plain version, and times.
+   (``F.rms_norm``; ``F.scaled_dot_product_attention``; ``F.linear`` +
+   ``F.cross_entropy``) timed at the main path's shapes, on the device
+   (calls captured in a CUDA graph) and as the host issues them, beside
+   the least time the card could take (bytes over 3.35 TB/s, or bf16
+   operations over 989 TFLOP/s, the larger).
+3. **End to end**, two paths, each with the launch counts set to 0 just
+   before it and read just after:
+
+   - *serving*: a small fp32 Llama served on the card against the same
+     weights served on the CPU (the port's plain path); then the
+     ``llama-1b`` card at full width and depth, bf16, weights from a
+     seeded ``torch.Generator`` on the card, behind ``DecodeEngine(slots=8,
+     max_len=2048, prefill_len=512)`` and the FIFO scheduler: 12 greedy
+     requests, prompts of 64-1024 tokens, 32 new tokens each.  The norm
+     kernel's launches over that run must equal ``(2L+1)`` times the model
+     calls (prefill chunks plus decode steps), and no other kernel runs;
+     one request rerun alone must give the same stream.
+   - *evaluation*: a small fp32 Llama at head dim 64, uncached logits and
+     ``labels=`` loss on the card against the CPU; then the same
+     ``llama-1b`` model's ``model(ids, labels=labels)`` at b 4, s 2048
+     under ``inference_mode``: exactly 45 norm, 22 flash attention and 1
+     LM-head launches a forward, a finite loss that agrees with
+     ``F.cross_entropy`` over ``model(ids)``'s logits, the flash path
+     against the cached path on one 512-token prompt, and wall, tokens/s,
+     peak memory and a profile of one forward.
+4. **Kernels line**: one JSON object with each kernel's launches on its
+   path, error against its plain version, and times.
 
 The card's name and power limit (``nvidia-smi``) are printed on the line
 before the last; the last line is ``{"ok": true, "device": {...}}``.  A
@@ -114,6 +127,16 @@ def device_ms(fn, iters: int = 100) -> float:
 _MANTISSA_BITS = {"float32": 23, "bfloat16": 7, "float16": 10}
 
 
+def _ulp(x, dtype_name: str):
+    """One ulp of ``dtype_name`` at each |x| (subnormal spacing below)."""
+    import torch
+
+    # below the dtype's smallest normal the spacing stays that of tiny
+    tiny = torch.finfo(getattr(torch, dtype_name)).tiny
+    mag = x.float().abs().clamp_min(tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - _MANTISSA_BITS[dtype_name])
+
+
 def _ulp_err(actual, expected, dtype_name: str) -> float:
     """Largest |actual - expected| in units of its tolerance: one ulp of
     the output dtype at the larger magnitude (subnormals included) or
@@ -124,10 +147,7 @@ def _ulp_err(actual, expected, dtype_name: str) -> float:
     diff = (a - e).abs()
     if dtype_name == "float32":
         return float((diff / (1e-5 + 1e-5 * e.abs())).max())
-    # below the dtype's smallest normal the spacing stays that of tiny
-    tiny = torch.finfo(getattr(torch, dtype_name)).tiny
-    mag = torch.maximum(a.abs(), e.abs()).clamp_min(tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - _MANTISSA_BITS[dtype_name])
+    ulp = _ulp(torch.maximum(a.abs(), e.abs()), dtype_name)
     # near zero, LayerNorm's x - mean cancels: there the two sides' fp32
     # means (summed in another order) differ by ~1e-7, which is many ulps
     # of a tiny y, so the bound is one ulp or 1e-5 absolute, the larger
@@ -162,7 +182,8 @@ def check_layer_norm(device) -> float:
     for rms in (False, True):
         for xdt, wdt in (("bfloat16", "bfloat16"), ("float32", "float32"),
                          ("bfloat16", "float32")):
-            for n in (8, 512):
+            # a decode step over 8 slots, a prefill chunk, an eval forward
+            for n in (8, 512, 8192):
                 cases.append((rms, xdt, True, False, wdt, n, 2048, 0, True))
     worst_ulp, main_abs = 0.0, 0.0
     with torch.no_grad():
@@ -197,9 +218,10 @@ def check_layer_norm(device) -> float:
 
 
 def time_layer_norm(device):
-    """Kernel, plain version and F.rms_norm at the main path's shapes
+    """Kernel, plain version and F.rms_norm at the main paths' shapes
     (RMSNorm, bf16 input, bf16 weight, h = 2048): n = 8 (a decode step
-    over 8 slots) and n = 512 (a full prefill chunk)."""
+    over 8 slots), n = 512 (a full prefill chunk) and n = 8192 (the
+    evaluation forward, b 4 x s 2048)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as ln
@@ -207,7 +229,7 @@ def time_layer_norm(device):
     rows = []
     g = torch.Generator(device=device).manual_seed(2)
     with torch.no_grad():
-        for n in (8, 512):
+        for n in (8, 512, 8192):
             h = 2048
             x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
             w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(torch.bfloat16)
@@ -239,6 +261,306 @@ def time_layer_norm(device):
                "graph between CUDA events; host_bound_ms: 200 eager calls "
                "back to back after 20 warm-up calls; L2-warm")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the flash attention and LM-head kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+_DTYPES = ("float32", "bfloat16", "float16")
+# the main path's shapes: llama-1b, b 4, s 2048 (8,192 tokens)
+FLASH_MAIN = dict(b=4, h=32, hk=8, s=2048, d=64)
+HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
+
+
+def _tol_ratio(actual, expected, tol) -> float:
+    """Largest |actual - expected| / tol over the finite entries of
+    ``expected`` (``tol`` a number or a tensor like ``expected``); inf if a
+    NaN appears or the infinite entries differ."""
+    import torch
+
+    a, e = actual.float(), expected.float()
+    if torch.isnan(a).any() or torch.isnan(e).any():
+        return float("inf")
+    inf = torch.isinf(e)
+    if not torch.equal(inf, torch.isinf(a)) or not torch.equal(a[inf], e[inf]):
+        return float("inf")
+    fin = ~inf
+    if not fin.any():
+        return 0.0
+    if isinstance(tol, torch.Tensor):
+        tol = tol.float()[fin]
+    return float(((a[fin] - e[fin]).abs() / tol).max())
+
+
+def _flash_inputs(case, g, device):
+    import torch
+
+    dt = getattr(torch, case["dtype"])
+    b, h, hk, sq, sk, d = (case[k] for k in ("b", "h", "hk", "sq", "sk", "d"))
+
+    def rand(heads, s):
+        # the model's layout: [s, b, heads, d] viewed as [b, heads, s, d]
+        x = torch.randn(s, b, heads, d, generator=g, device=device)
+        return x.to(dt).permute(1, 2, 0, 3)
+
+    q, k = rand(h, sq), rand(hk, sk)
+    if case.get("probe"):
+        # v = identity (sk == d): o reads the dropped probabilities back
+        v = torch.eye(sk, d, device=device).to(dt).expand(b, hk, sk, d)
+        v = v.contiguous()
+    else:
+        v = rand(hk, sk)
+    seg = None
+    if case.get("seg") == "dead":
+        # queries of segment 9 see no key: o = 0, lse = +inf there
+        qs = torch.ones(b, sq, dtype=torch.int32, device=device)
+        qs[:, : sq // 4] = 9
+        ks = torch.ones(b, sk, dtype=torch.int32, device=device)
+        ks[:, sk // 2:] = 2
+        seg = (qs, ks)
+    elif case.get("seg") == "packed":
+        seg = ((torch.arange(sq, device=device) >= sq // 3).int().expand(b, sq),
+               (torch.arange(sk, device=device) >= sk // 3).int().expand(b, sk))
+        seg = tuple(t.contiguous() for t in seg)
+    return q, k, v, seg
+
+
+def check_flash_attention(device) -> dict:
+    """The flash forward kernel on the card against its plain version over
+    dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
+    ragged lengths, GQA, segment ids with fully-masked rows, dropout, and
+    the main path's shape; returns the main shape's errors."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for dt in _DTYPES:
+        for d in (64, 128):
+            base = dict(dtype=dt, d=d, b=2, h=4, hk=2)
+            for causal in (False, True):
+                for sq, sk in ((128, 128), (100, 260), (260, 100)):
+                    cases.append(dict(base, causal=causal, sq=sq, sk=sk))
+            cases.append(dict(base, causal=True, sq=96, sk=96, seg="dead"))
+            cases.append(dict(base, causal=False, sq=130, sk=70, seg="packed"))
+            # dropout with v = identity: the keep mask must match bit for bit
+            for causal, seed in ((False, 1234), (True, -7)):
+                cases.append(dict(base, causal=causal, sq=100, sk=d, probe=True,
+                                  rate=0.1, seed=seed))
+    cases.append(dict(dtype="float32", d=64, b=2, h=4, hk=2, causal=True,
+                      sq=100, sk=260, seg="packed", rate=0.1, seed=99))
+    cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
+                      sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    g = torch.Generator(device=device).manual_seed(11)
+    worst_o = worst_lse = 0.0
+    main = {}
+    with torch.inference_mode():
+        for case in cases:
+            q, k, v, seg = _flash_inputs(case, g, device)
+            rate, seed = case.get("rate", 0.0), case.get("seed")
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=case["causal"],
+                                            segment_ids=seg, dropout_rate=rate,
+                                            dropout_seed=seed)
+            torch.cuda.synchronize()
+            ro, rlse = fa._plain_forward(
+                q, k, v, causal=case["causal"],
+                q_segment_ids=None if seg is None else seg[0],
+                kv_segment_ids=None if seg is None else seg[1],
+                dropout_rate=rate, dropout_seed=seed)
+            if case["dtype"] == "float32":
+                o_tol = 1e-5 + 1e-5 * ro.float().abs()
+            else:
+                # the kernel rounds each (kept, rescaled) p to the operand
+                # dtype before p v: at most half an epsilon of it, so the
+                # error is within half an epsilon of sum_j p_ij |v_j| (the
+                # plain version on |v|, in fp32, with the same keep bits);
+                # below the normal range the rounding is absolute (fp16's
+                # subnormal half-spacing, fp32's flush for bf16); and each
+                # side rounds o once: two ulp of the output
+                dt = getattr(torch, case["dtype"])
+                half_eps = 2.0 ** -(_MANTISSA_BITS[case["dtype"]] + 1)
+                floor = max(torch.finfo(dt).tiny * half_eps,
+                            torch.finfo(torch.float32).tiny)
+                pv_abs, _ = fa._plain_forward(
+                    q.float(), k.float(), v.float().abs(),
+                    causal=case["causal"],
+                    q_segment_ids=None if seg is None else seg[0],
+                    kv_segment_ids=None if seg is None else seg[1],
+                    dropout_rate=rate, dropout_seed=seed)
+                vmax = float(v.float().abs().max())
+                o_tol = (half_eps * pv_abs
+                         + floor * case["sk"] * vmax / (1.0 - rate)
+                         + 2 * _ulp(ro, case["dtype"]))
+                del pv_abs
+            r_o = _tol_ratio(o, ro, o_tol)
+            r_lse = _tol_ratio(lse, rlse, 1e-5 + 1e-5 * rlse.abs())
+            pattern_ok = (not case.get("probe")
+                          or torch.equal(o == 0, ro == 0))
+            name = {k: case[k] for k in case if k not in ("b", "h", "hk")}
+            if r_o > 1.0 or r_lse > 1.0 or not pattern_ok:
+                raise AssertionError(
+                    f"flash_attention_fwd disagrees with its plain version: "
+                    f"{name}: o at {r_o:.3f} x tol, lse at {r_lse:.3f} x "
+                    f"tol, dropout keep pattern equal: {pattern_ok}")
+            worst_o, worst_lse = max(worst_o, r_o), max(worst_lse, r_lse)
+            if case.get("main"):
+                main = dict(
+                    o_max_abs_err=float((o.float() - ro.float()).abs().max()),
+                    lse_max_abs_err=float((lse - rlse).abs().max()),
+                    o_tol_ratio=r_o, lse_tol_ratio=r_lse)
+            del o, lse, ro, rlse
+    out = dict(kernel="flash_attention_fwd", cases=len(cases),
+               worst_o_tol_ratio=worst_o, worst_lse_tol_ratio=worst_lse,
+               main_shape=main,
+               tolerance="fp32 o within 1e-5 + 1e-5|ref|; bf16/fp16 o_ij "
+                         "within eps/2 * sum_j p_ij |v_j| (the kernel rounds p "
+                         "to the operand dtype) + the dtype's least p spacing "
+                         "* sk * max|v| / (1 - rate) + 2 ulp(ref); lse within "
+                         "1e-5 + 1e-5|ref|, +inf rows equal; dropout with v = "
+                         "identity: o == 0 exactly where the plain version's is")
+    log("phase2-check", **out)
+    return out
+
+
+def check_lm_head(device) -> dict:
+    """The fused LM-head kernel on the card against its plain version over
+    dtypes, token counts and vocabularies off the 128 tile, hidden sizes,
+    labels -100 and vocab, and the main path's shape."""
+    import torch
+    from apex_tpu_torch.ops import fused_lm_head as lh
+
+    cases = [dict(dtype=dt, t=t, vocab=vocab, hid=hid)
+             for dt in _DTYPES
+             for t, vocab, hid in ((1, 1000, 64), (300, 1000, 136),
+                                   (257, 32000, 256), (128, 256, 2048))]
+    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True))
+    g = torch.Generator(device=device).manual_seed(12)
+    worst, main = 0.0, {}
+    with torch.inference_mode():
+        for case in cases:
+            dt = getattr(torch, case["dtype"])
+            t, vocab, hid = case["t"], case["vocab"], case["hid"]
+            h = torch.randn(t, hid, generator=g, device=device).to(dt)
+            # the model's head init (0.02) at the main shape, unit logits else
+            std = 0.02 if case.get("main") else hid ** -0.5
+            e = (torch.randn(vocab, hid, generator=g, device=device) * std).to(dt)
+            lab = torch.randint(0, vocab, (t,), generator=g, device=device)
+            lab[::7] = -100
+            lab[3::11] = vocab
+            lab[5::13] = vocab - 1
+            loss, lse = lh.fused_lm_head_fwd(h, e, lab)
+            torch.cuda.synchronize()
+            rloss, rlse = lh._plain_forward(h, e, lab)
+            # fp32 sums of up to 2048 products and 32000 exponentials,
+            # taken in another order on the two sides
+            r = max(_tol_ratio(loss, rloss, 1e-4 + 1e-5 * rloss.abs()),
+                    _tol_ratio(lse, rlse, 1e-4 + 1e-5 * rlse.abs()))
+            out_of_range = (lab < 0) | (lab >= vocab)
+            ignored_is_lse = torch.equal(loss[out_of_range], lse[out_of_range])
+            if r > 1.0 or not ignored_is_lse:
+                raise AssertionError(
+                    f"fused_lm_head_fwd disagrees with its plain version: "
+                    f"{case}: {r:.3f} x tol, out-of-range labels give lse: "
+                    f"{ignored_is_lse}")
+            worst = max(worst, r)
+            if case.get("main"):
+                main = dict(
+                    loss_max_abs_err=float((loss - rloss).abs().max()),
+                    lse_max_abs_err=float((lse - rlse).abs().max()),
+                    tol_ratio=r)
+    out = dict(kernel="fused_lm_head_fwd", cases=len(cases),
+               worst_tol_ratio=worst, main_shape=main,
+               tolerance="loss and lse within 1e-4 + 1e-5|ref|; an "
+                         "out-of-range label's loss equals its lse exactly")
+    log("phase2-check", **out)
+    return out
+
+
+def _timed(calls: dict, graph_iters: int, big: tuple = ()) -> dict:
+    """Device ms of each call: a CUDA graph of ``graph_iters`` calls, in
+    turns (each name, then the first again), except the ``big`` ones,
+    timed eagerly between CUDA events (their temporaries are GBs)."""
+    out = {k: (time_ms(fn, iters=3, warmup=1) if k in big
+               else device_ms(fn, iters=graph_iters))
+           for k, fn in calls.items()}
+    first = next(iter(calls))
+    out[first + "_again"] = device_ms(calls[first], iters=graph_iters)
+    return out
+
+
+def time_flash_attention(device) -> dict:
+    """Kernel, plain version and SDPA at the main path's shape: causal,
+    bf16, [4, 32, 2048, 64] over 8 kv heads, in the model's layout."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, h, hk, s, d = (FLASH_MAIN[k] for k in ("b", "h", "hk", "s", "d"))
+    g = torch.Generator(device=device).manual_seed(13)
+    q, k, v = (torch.randn(s, b, n, d, generator=g, device=device)
+               .to(torch.bfloat16).permute(1, 2, 0, 3) for n in (h, hk, hk))
+    with torch.inference_mode():
+        calls = {
+            "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            "plain": lambda: fa._plain_forward(q, k, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)}
+        dev = _timed(calls, 20, big=("plain",))
+        host = time_ms(calls["kernel"], iters=20, warmup=3)
+    # the causal pairs each product needs, two products of 2 d operations
+    pairs = s * (s + 1) // 2
+    flops = 2 * 2 * b * h * pairs * d
+    nbytes = 2 * (b * h * s * d * 2 + 2 * b * hk * s * d) + 4 * b * h * s
+    row = _row(dev, host, flops, nbytes, 989e12)
+    row.update(shape=dict(FLASH_MAIN, causal=True, dtype="bfloat16"),
+               flops=flops, bytes=nbytes)
+    log("phase2-time", kernel="flash_attention_fwd", **row)
+    return row
+
+
+def time_lm_head(device) -> dict:
+    """Kernel, plain version and F.linear + F.cross_entropy at the main
+    path's shape: T 8192, h 2048, vocab 32000, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import fused_lm_head as lh
+
+    t, hid, vocab = HEAD_MAIN["t"], HEAD_MAIN["hid"], HEAD_MAIN["vocab"]
+    g = torch.Generator(device=device).manual_seed(14)
+    h = torch.randn(t, hid, generator=g, device=device).to(torch.bfloat16)
+    e = (torch.randn(vocab, hid, generator=g, device=device) * 0.02
+         ).to(torch.bfloat16)
+    lab = torch.randint(0, vocab, (t,), generator=g, device=device)
+    with torch.inference_mode():
+        calls = {
+            "kernel": lambda: lh.fused_lm_head_fwd(h, e, lab),
+            "plain": lambda: lh._plain_forward(h, e, lab),
+            "library": lambda: F.cross_entropy(F.linear(h, e), lab,
+                                               reduction="none")}
+        dev = _timed(calls, 20, big=("plain",))
+        host = time_ms(calls["kernel"], iters=20, warmup=3)
+    flops = 2 * t * vocab * hid
+    nbytes = 2 * (t * hid + vocab * hid) + 8 * t + 2 * 4 * t
+    row = _row(dev, host, flops, nbytes, 989e12)
+    row.update(shape=dict(HEAD_MAIN, dtype="bfloat16"), flops=flops,
+               bytes=nbytes)
+    log("phase2-time", kernel="fused_lm_head_fwd", **row)
+    return row
+
+
+def _row(dev: dict, host_ms: float, flops: float, nbytes: float,
+         peak_flops: float) -> dict:
+    bound_ops = flops / peak_flops * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=min(dev["kernel"], dev["kernel_again"]),
+                ms_runs=[dev["kernel"], dev["kernel_again"]],
+                plain_ms=dev["plain"], library_ms=dev["library"],
+                host_issued_ms=host_ms, bound_ms=max(bound_ops, bound_bytes),
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                timing="ms/library_ms: device time, 20 calls in one CUDA "
+                       "graph between CUDA events; plain_ms: 3 eager calls "
+                       "between CUDA events (GBs of temporaries); "
+                       "host_issued_ms: 20 eager calls back to back; L2-warm")
 
 
 # ---------------------------------------------------------------------------
@@ -302,20 +624,29 @@ def small_reference_check(device) -> dict:
     return out
 
 
-def llama_1b(device) -> dict:
+def build_llama_1b(device):
+    """The ``llama-1b`` card, bf16, weights from a seeded generator on the
+    card; returns ``(model, init_s)``."""
+    import torch
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = LlamaForCausalLM(LlamaConfig.llama_1b(), dtype=torch.bfloat16,
+                             device=device, generator=gen)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def llama_1b(device, model, init_s) -> dict:
+    """Serving: the FIFO scheduler over ``DecodeEngine`` on ``model``.  Its
+    path runs the norm kernel only."""
     import torch
     from apex_tpu_torch import serving as sv
-    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.ops import layer_norm as ln
 
-    cfg = LlamaConfig.llama_1b()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device=device,
-                             generator=gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
     engine = sv.DecodeEngine(model, slots=8, max_len=2048, prefill_len=512,
                              device=device)
@@ -342,10 +673,11 @@ def llama_1b(device) -> dict:
         raise AssertionError(
             f"layer_norm_fwd launched {launches[ln.LAYER_NORM_FWD.name]} "
             f"times, expected (2L+1) x (chunks + steps) = {expected}")
-    for k in _dispatch.KERNELS:
-        if k.launches == 0:
-            raise AssertionError(f"kernel {k.name} never launched on the "
-                                 f"main path")
+    # the cached modes attend in plain PyTorch and return logits: the
+    # serving path launches the norm kernel and no other
+    if {k: n for k, n in launches.items() if n} != {
+            ln.LAYER_NORM_FWD.name: expected}:
+        raise AssertionError(f"serving path launches: {launches}")
     if sorted(results) != sorted(r.rid for r in requests):
         raise AssertionError(f"served {sorted(results)}")
     for r in requests:
@@ -441,6 +773,173 @@ def profile_steps(engine, cfg) -> dict:
     return out
 
 
+def small_eval_check(device) -> dict:
+    """A small fp32 Llama at head dim 64 (so its attention is the flash
+    kernel), with a separate head and with a tied embedding: the same
+    weights on the card and on the CPU give uncached logits and the
+    ``labels=`` per-token loss within 1e-4."""
+    import torch
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    out = {}
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 512, (2, 100), generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    for tied in (False, True):
+        cfg = LlamaConfig(vocab_size=512, hidden_size=128,
+                          intermediate_size=256, num_hidden_layers=2,
+                          num_attention_heads=2, num_key_value_heads=1,
+                          max_position_embeddings=256,
+                          tie_word_embeddings=tied)
+        cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                     generator=torch.Generator().manual_seed(7))
+        gpu_model = LlamaForCausalLM(cfg, device=device)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        with torch.inference_mode():
+            res = {}
+            for name, model, dev in (("cpu", cpu_model, "cpu"),
+                                     ("cuda", gpu_model, device)):
+                res[name] = (model(ids.to(dev)).cpu(),
+                             model(ids.to(dev), labels=labels.to(dev)).cpu())
+        err = dict(logits=float((res["cpu"][0] - res["cuda"][0]).abs().max()),
+                   loss=float((res["cpu"][1] - res["cuda"][1]).abs().max()))
+        if max(err.values()) > 1e-4:
+            raise AssertionError(f"small Llama (tied={tied}): card against "
+                                 f"CPU {err} (> 1e-4)")
+        out["tied" if tied else "lm_head"] = err
+    out["tolerance"] = 1e-4
+    log("phase3-eval-reference", **out)
+    return out
+
+
+def llama_1b_eval(device, model) -> dict:
+    """Evaluation: ``model(ids, labels=labels)`` at b 4, s 2048 (labels =
+    ids rolled by one) under ``inference_mode``, with the exact launches of
+    one forward; the fused loss against ``F.cross_entropy`` over the
+    model's logits; the flash path against the cached path on one
+    512-token prompt; wall, tokens/s, peak memory and a profile."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.serving import kv_cache as kvc
+
+    cfg = model.config
+    b, s = 4, 2048
+    g = torch.Generator().manual_seed(8)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(device)
+    labels = torch.roll(ids, -1, dims=1)
+    layers = cfg.num_hidden_layers
+    expected = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                lh.FUSED_LM_HEAD_FWD.name: 1}
+    with torch.inference_mode():
+        model(ids, labels=labels)                    # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        loss = model(ids, labels=labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _dispatch.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        if launches != expected:
+            raise AssertionError(f"one eval forward launched {launches}, "
+                                 f"expected {expected}")
+        if tuple(loss.shape) != (b, s) or loss.dtype != torch.float32 \
+                or not torch.isfinite(loss).all():
+            raise AssertionError(f"eval loss {loss.dtype} {tuple(loss.shape)}"
+                                 f" finite={bool(torch.isfinite(loss).all())}")
+        logits = model(ids)                          # [s, b, vocab] fp32
+        ce = F.cross_entropy(logits.permute(1, 2, 0), labels,
+                             reduction="none")
+        ce_err = float((loss - ce).abs().max())
+        del logits, ce
+        if ce_err > 2e-3:
+            raise AssertionError(f"fused loss against F.cross_entropy over "
+                                 f"the logits: {ce_err} (> 2e-3)")
+        # the two attention paths: flash (uncached) against the cached
+        # prefill's fp32 attention, on one 512-token prompt
+        prompt = ids[:1, :512]
+        flash_logits = model(prompt)
+        cache = kvc.init_cache(cfg, slots=1, max_len=512, dtype=torch.bfloat16,
+                               device=device)
+        cached_logits, _ = model(prompt, kv_cache=cache, slot=0, position=0)
+        diff = (flash_logits - cached_logits).abs()
+        scale = float(cached_logits.abs().max())
+        paths = dict(max_abs_diff=float(diff.max()),
+                     mean_abs_diff=float(diff.mean()), max_abs_logit=scale,
+                     top1_agreement=float((flash_logits.argmax(-1)
+                                           == cached_logits.argmax(-1))
+                                          .float().mean()))
+        if paths["max_abs_diff"] > 0.05 * scale:
+            raise AssertionError(f"flash and cached attention paths differ: "
+                                 f"{paths} (max > 0.05 x max|logit|)")
+        del flash_logits, cached_logits, cache, diff
+    # the least time of the forward: its products at the bf16 rate (every
+    # weight but the embedding lookup, twice a token, and the causal
+    # attention pairs of each layer)
+    weights = sum(p.numel() for p in model.parameters()) - \
+        model.embed_tokens.weight.numel()
+    if cfg.tie_word_embeddings:
+        weights += model.embed_tokens.weight.numel()
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    flops = (2 * weights * b * s + layers * 4 * b * cfg.num_attention_heads
+             * (s * (s + 1) // 2) * hd)
+    out = dict(config="llama-1b", batch=b, seq=s, tokens=b * s,
+               dtype="bfloat16", launches=launches, expected=expected,
+               loss_mean=float(loss.mean()), wall_ms=wall * 1e3,
+               tokens_per_s=b * s / wall, flops=flops,
+               bound_ms=flops / 989e12 * 1e3, peak_mem_bytes=peak,
+               fused_vs_cross_entropy_max_abs=ce_err,
+               fused_vs_cross_entropy_tol=2e-3, flash_vs_cached=paths,
+               flash_vs_cached_tol="max |diff| <= 0.05 x max|logit|")
+    log("phase3-eval", **out)
+    out["profile"] = profile_eval(model, ids, labels)
+    return out
+
+
+def profile_eval(model, ids, labels) -> dict:
+    """One ``labels=`` forward timed on the host (ending in a synchronize)
+    and traced with ``torch.profiler``: device busy time against the traced
+    and the unprofiled wall, and the kernels that take most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(ids, labels=labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(ids, labels=labels)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    out = dict(
+        wall_ms=wall_ms, traced_wall_ms=traced_ms,
+        device_busy_ms=busy_ms if kernels else "not measured",
+        device_idle_share_traced=(1 - busy_ms / traced_ms) if kernels
+        else "not measured",
+        device_idle_share_unprofiled=(1 - busy_ms / wall_ms) if kernels
+        else "not measured",
+        top_kernels=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                     for e in top])
+    log("phase3-eval-profile", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -449,7 +948,9 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from apex_tpu_torch.ops import _build, _dispatch
-    from apex_tpu_torch.ops import layer_norm as ln  # registers its kernel
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -470,9 +971,16 @@ def main() -> int:
 
     max_err = check_layer_norm(device)
     timings = time_layer_norm(device)
+    flash_check = check_flash_attention(device)
+    head_check = check_lm_head(device)
+    flash_time = time_flash_attention(device)
+    head_time = time_lm_head(device)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     reference = small_reference_check(device)
-    e2e = llama_1b(device)
+    eval_reference = small_eval_check(device)
+    model, init_s = build_llama_1b(device)
+    e2e = llama_1b(device, model, init_s)
+    evaluation = llama_1b_eval(device, model)
 
     decode_row = next(r for r in timings if r["n"] == 8)
     kernels = {"kernels": [dict(
@@ -483,9 +991,27 @@ def main() -> int:
         max_abs_err=max_err, ms=decode_row["ms"],
         plain_ms=decode_row["plain_ms"], bound_ms=decode_row["bound_ms"],
         bound_by=decode_row["bound_by"], library_ms=decode_row["library_ms"],
+        main_path="serving", launches_by_path=dict(
+            serving=e2e["launches"][ln.LAYER_NORM_FWD.name],
+            evaluation=evaluation["launches"][ln.LAYER_NORM_FWD.name]),
         shapes=timings)]}
-    report = dict(nvidia_smi=smi, clocks_after_timing=clocks,
-                  reference=reference, llama_1b=e2e, kernels=kernels,
+    for k, check, row, err in (
+            (fa.FLASH_ATTENTION_FWD, flash_check, flash_time,
+             flash_check["main_shape"]["o_max_abs_err"]),
+            (lh.FUSED_LM_HEAD_FWD, head_check, head_time,
+             head_check["main_shape"]["loss_max_abs_err"])):
+        kernels["kernels"].append(dict(
+            name=k.name, route="cuda", source=f"apex_tpu_torch/csrc/{k.source}",
+            replaces=k.replaces.split()[0],
+            launches=evaluation["launches"][k.name], max_abs_err=err,
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            main_path="evaluation", shape=row["shape"]))
+    report = dict(nvidia_smi=smi, clocks_after_timing=clocks, build_s=build_s,
+                  kernel_checks=[flash_check, head_check],
+                  kernel_times=[flash_time, head_time],
+                  reference=reference, eval_reference=eval_reference,
+                  llama_1b=e2e, evaluation=evaluation, kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -1,0 +1,210 @@
+"""apex_tpu_torch.ops.flash_attention against apex_tpu.ops.flash_attention.
+
+The same numpy inputs (fixed seeds) go through the JAX function, whose
+Pallas forward runs in interpret mode (``APEX_TPU_KERNELS=interpret``,
+d = 64 and small ``block_q`` / ``block_k`` so that ``_kernel_ok`` holds and
+the grid has several blocks), and through the port's plain version on the
+CPU.  ``o`` comes from ``flash_attention`` on both sides, ``lse`` from the
+JAX ``_pallas_fwd`` and the port's ``flash_attention_fwd``.  Tolerances:
+``o`` and ``lse`` at ``atol = rtol = 1e-5`` in fp32 (the two sides sum in
+another order); the dropout keep bits are compared for equality.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.ops import flash_attention as jfa
+from apex_tpu_torch.ops import flash_attention as tfa
+
+BLOCK = 16
+
+# name: (b, h, hk, sq, sk, causal, segments, dropout_rate, seed)
+CASES = {
+    "full": (2, 2, 2, 32, 32, False, None, 0.0, None),
+    "causal": (2, 2, 2, 32, 32, True, None, 0.0, None),
+    "causal_sq_lt_sk": (1, 2, 2, 16, 48, True, None, 0.0, None),
+    "causal_sq_gt_sk": (1, 2, 2, 48, 16, True, None, 0.0, None),
+    "segments_packed": (2, 2, 2, 32, 32, False, "packed", 0.0, None),
+    "segments_dead_rows": (2, 2, 2, 32, 32, True, "pair", 0.0, None),
+    "dropout": (2, 2, 2, 32, 32, True, None, 0.25, 7),
+    "dropout_negative_seed": (1, 2, 2, 32, 48, False, "packed", 0.1, -123457),
+}
+
+
+def _inputs(b, h, hk, sq, sk, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hk, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _segments(kind, b, sq, sk):
+    """``packed``: two packed sequences per row (self-attention ids);
+    ``pair``: q ids with a value no key carries, so those rows see no key."""
+    if kind is None:
+        return None, None
+    if kind == "packed":
+        qs = (np.arange(sq)[None] >= sq // 3).astype(np.int32).repeat(b, 0)
+        ks = (np.arange(sk)[None] >= sk // 3).astype(np.int32).repeat(b, 0)
+        return qs, ks
+    qs = np.ones((b, sq), np.int32)
+    qs[:, : sq // 4] = 9                          # no key is in segment 9
+    ks = np.ones((b, sk), np.int32)
+    ks[:, sk // 2:] = 2
+    return qs, ks
+
+
+def _jax_side(q, k, v, causal, qs, ks, rate, seed, monkeypatch):
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    h, hk = q.shape[1], k.shape[1]
+    jq = jnp.asarray(q)
+    jk = jnp.asarray(np.repeat(k, h // hk, axis=1))
+    jv = jnp.asarray(np.repeat(v, h // hk, axis=1))
+    if qs is None:
+        seg = jqs = jks = None
+    else:
+        jqs, jks = jnp.asarray(qs), jnp.asarray(ks)
+        seg = jqs if _self_attention(qs, ks) else (jqs, jks)
+    assert jfa._kernel_ok(jq, jk, BLOCK, BLOCK)
+    o = jfa.flash_attention(jq, jk, jv, causal=causal, segment_ids=seg,
+                            dropout_rate=rate, dropout_seed=seed,
+                            block_q=BLOCK, block_k=BLOCK)
+    jseed = jnp.atleast_1d(jnp.asarray(0 if seed is None else seed,
+                                       jnp.int32))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    _, lse = jfa._pallas_fwd(jq, jk, jv, jqs, jks, jseed, causal, scale,
+                             BLOCK, BLOCK, rate)
+    return np.asarray(o), np.asarray(lse)
+
+
+def _self_attention(qs, ks) -> bool:
+    """One ``[b, s]`` id tensor serves both sides."""
+    return qs.shape == ks.shape and bool((qs == ks).all())
+
+
+def _torch_segments(qs, ks):
+    if qs is None:
+        return None
+    if _self_attention(qs, ks):
+        return torch.from_numpy(qs)
+    return torch.from_numpy(qs), torch.from_numpy(ks)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_matches_jax(case, monkeypatch):
+    b, h, hk, sq, sk, causal, seg, rate, seed = CASES[case]
+    q, k, v = _inputs(b, h, hk, sq, sk)
+    qs, ks = _segments(seg, b, sq, sk)
+    ref_o, ref_lse = _jax_side(q, k, v, causal, qs, ks, rate, seed,
+                               monkeypatch)
+    o, lse = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, segment_ids=_torch_segments(qs, ks),
+        dropout_rate=rate, dropout_seed=seed)
+    assert o.dtype == torch.float32 and tuple(o.shape) == ref_o.shape
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == ref_lse.shape
+    np.testing.assert_allclose(o.numpy(), ref_o, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=1e-5, rtol=1e-5)
+    if seg == "pair" or (causal and sq > sk):
+        dead = np.isinf(ref_lse)
+        assert dead.any()
+        assert (lse.numpy()[dead] == np.inf).all()
+        assert (o.numpy()[dead] == 0.0).all()
+
+
+def test_gqa_reads_the_groups_kv_head(monkeypatch):
+    """k and v with fewer heads than q equal the JAX call on K/V repeated
+    per group (the JAX model's jnp.repeat)."""
+    q, k, v = _inputs(2, 4, 2, 32, 32, seed=3)
+    ref_o, ref_lse = _jax_side(q, k, v, True, None, None, 0.0, None,
+                               monkeypatch)
+    o, lse = tfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(o.numpy(), ref_o, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=1e-5, rtol=1e-5)
+    rep = tfa.flash_attention(torch.from_numpy(q),
+                              torch.from_numpy(np.repeat(k, 2, axis=1)),
+                              torch.from_numpy(np.repeat(v, 2, axis=1)),
+                              causal=True)
+    np.testing.assert_array_equal(o.numpy(), rep.numpy())
+
+
+@pytest.mark.parametrize("seed", [-2**31, -123457, -1, 0, 1, 7, 2**31 - 1])
+def test_hash_keep_bits_match_jax(seed):
+    """The port's _fmix32 / _hash_keep in int64 arithmetic against the JAX
+    uint32 ones, over a grid of coordinates (small and large) and rates;
+    an int32 seed wraps to uint32 as jnp.asarray(seed, uint32) does."""
+    rng = np.random.default_rng(5)
+    g = np.arange(6, dtype=np.uint32).reshape(6, 1, 1)
+    qpos = np.concatenate([np.arange(20), rng.integers(0, 2**31, 12)]
+                          ).astype(np.uint32).reshape(1, -1, 1)
+    kpos = np.concatenate([np.arange(20), rng.integers(0, 2**31, 12)]
+                          ).astype(np.uint32).reshape(1, 1, -1)
+    jseed = jnp.asarray(jnp.asarray(seed, jnp.int32), jnp.uint32)
+    t = {n: torch.from_numpy(a.astype(np.int64)) for n, a in
+         (("g", g), ("q", qpos), ("k", kpos))}
+    mixed = np.asarray(jfa._fmix32(jseed ^ jnp.asarray(qpos)))
+    ours = tfa._fmix32(tfa._seed_bits(seed) ^ t["q"])
+    np.testing.assert_array_equal(ours.numpy(), mixed.astype(np.int64))
+    for rate in (0.1, 0.5, 0.9):
+        ref = np.asarray(jfa._hash_keep(jseed, jnp.asarray(g),
+                                        jnp.asarray(qpos), jnp.asarray(kpos),
+                                        rate))
+        keep = tfa._hash_keep(seed, t["g"], t["q"], t["k"], rate)
+        np.testing.assert_array_equal(keep.numpy(), ref)
+
+
+def test_dropout_keeps_the_seeded_bits():
+    """The plain version's dropout: dropped entries are exactly those the
+    hash drops (V = identity reads P back), kept ones scaled by
+    1 / (1 - rate), and a different seed drops others."""
+    sq = sk = d = 64
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((1, 1, sq, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 1, sk, d)).astype(np.float32))
+    eye = torch.eye(sk, d).view(1, 1, sk, d)
+    p = tfa.flash_attention(q, k, eye)
+    pd = tfa.flash_attention(q, k, eye, dropout_rate=0.5, dropout_seed=11)
+    keep = tfa._hash_keep(11, torch.zeros(1, 1, 1, 1, dtype=torch.int64),
+                          torch.arange(sq).view(1, 1, sq, 1),
+                          torch.arange(sk).view(1, 1, 1, sk), 0.5)
+    assert 0.3 < keep.float().mean() < 0.7
+    np.testing.assert_array_equal((pd != 0).numpy(), keep.numpy())
+    torch.testing.assert_close(pd[keep], p[keep] / 0.5, atol=1e-6, rtol=1e-6)
+    other = tfa.flash_attention(q, k, eye, dropout_rate=0.5, dropout_seed=12)
+    assert not torch.equal(other != 0, pd != 0)
+
+
+def test_argument_checks():
+    q = torch.zeros(1, 1, 8, 64)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tfa.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        tfa.flash_attention(q, q, q, dropout_rate=1.0, dropout_seed=0)
+
+
+def test_plain_version_is_differentiable_on_cpu():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs(1, 2, 1, 16, 16, seed=8))
+    o = tfa.flash_attention(q, k, v, causal=True)
+    o.square().sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert k.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card():
+    """The CUDA kernel against its plain version on the card (chip_smoke.py
+    runs the full grid of variants); skipped on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(2, 4, 2, 40, 72))
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+        ro, rlse = tfa._plain_forward(q, k, v, causal=True)
+    torch.testing.assert_close(o, ro, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)

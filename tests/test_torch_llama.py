@@ -147,7 +147,73 @@ def test_cached_attention_matches_jax(m):
         np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-def test_training_loss_raises(torch_model):
+# head dim 64 and 512 tokens: the JAX model runs its Pallas flash forward
+# and fused LM-head forward (interpret mode), not their jnp fallbacks
+FLASH_CFG = dict(vocab_size=320, hidden_size=128, intermediate_size=256,
+                 num_hidden_layers=2, num_attention_heads=2,
+                 num_key_value_heads=1, max_position_embeddings=512)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["lm_head", "tied"])
+def flash_pair(request):
+    """(JAX model, numpy params, port model) on the same weights, with a
+    separate ``lm_head`` or the tied embedding as the head."""
+    cfg = dict(FLASH_CFG, tie_word_embeddings=request.param)
+    model = JaxLlama(JaxLlamaConfig(**cfg))
+    params = jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 4), jnp.int32)))
+    ours = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
+    ours.load_state_dict(llama_params_from_jax(params, ours.config))
+    return model, params, ours.eval()
+
+
+def _ids_and_labels(seed=4, b=2, s=256):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, FLASH_CFG["vocab_size"], (b, s)).astype(np.int32)
+    return ids, np.roll(ids, -1, axis=1)     # next-token targets
+
+
+def test_uncached_logits_match_jax_flash(flash_pair):
+    """b * s = 512 at head dim 64: the JAX side's attention is its Pallas
+    flash forward (interpret mode), the port's the flash plain version."""
+    model, params, ours = flash_pair
+    ids, _ = _ids_and_labels()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_KERNELS", "interpret")
+        ref = np.asarray(model.apply(params, jnp.asarray(ids)))
+    with torch.no_grad():
+        got = ours(torch.from_numpy(ids).long())
+    assert tuple(got.shape) == ref.shape == (256, 2, FLASH_CFG["vocab_size"])
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_labels_loss_matches_jax(flash_pair):
+    """``model(ids, labels=labels)`` returns the [b, s] fp32 per-token loss
+    of the JAX model's fused LM-head path (tp 1), within 1e-4."""
+    model, params, ours = flash_pair
+    ids, labels = _ids_and_labels(seed=5)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_KERNELS", "interpret")
+        ref = np.asarray(model.apply(params, jnp.asarray(ids),
+                                     labels=jnp.asarray(labels)))
+    with torch.no_grad():
+        got = ours(torch.from_numpy(ids).long(),
+                   labels=torch.from_numpy(labels).long())
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (2, 256)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-5)
+    # the loss is the cross-entropy of the model's own logits
+    with torch.no_grad():
+        logits = ours(torch.from_numpy(ids).long())
+    ce = torch.nn.functional.cross_entropy(
+        logits.permute(1, 2, 0), torch.from_numpy(labels).long(),
+        reduction="none")
+    np.testing.assert_allclose(got.numpy(), ce.numpy(), atol=1e-4, rtol=1e-5)
+
+
+def test_labels_with_kv_cache_raises(torch_model):
+    from apex_tpu_torch.serving import init_cache
+
+    cache = init_cache(torch_model.config, slots=1, max_len=8, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training"):
-        torch_model(ids, labels=ids)
+    with pytest.raises(ValueError, match="labels"):
+        torch_model(ids, labels=ids, kv_cache=cache, slot=0, position=0)

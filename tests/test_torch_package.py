@@ -32,7 +32,8 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "import apex_tpu_torch, apex_tpu_torch.serving, "
         "apex_tpu_torch.models, apex_tpu_torch.normalization, "
         "apex_tpu_torch.transformer.tensor_parallel, "
-        "apex_tpu_torch.ops.layer_norm, apex_tpu_torch.ops.rope\n"
+        "apex_tpu_torch.ops.layer_norm, apex_tpu_torch.ops.rope, "
+        "apex_tpu_torch.ops.flash_attention, apex_tpu_torch.ops.fused_lm_head\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
@@ -75,3 +76,34 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         sv.DecodeEngine(model, slots=1, max_len=8, prefill_len=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sv.init_cache(cfg, slots=1, max_len=8)
+
+
+# every kernel of the port: (name, the JAX file:function of its table row)
+_KERNELS = [
+    ("layer_norm_fwd", "apex_tpu/ops/layer_norm.py", "_fwd_kernel"),
+    ("flash_attention_fwd", "apex_tpu/ops/flash_attention.py", "_fwd_kernel"),
+    ("fused_lm_head_fwd", "apex_tpu/ops/fused_lm_head.py", "_fwd_kernel"),
+]
+
+
+@pytest.mark.parametrize("name,jax_file,jax_fn", _KERNELS,
+                         ids=[k[0] for k in _KERNELS])
+def test_kernel_registry(name, jax_file, jax_fn):
+    """``_dispatch.KERNELS`` lists the kernel once, its source is under
+    ``csrc/``, and ``replaces`` points at the Pallas kernel function: the
+    named line of the JAX file defines it."""
+    from apex_tpu_torch.ops import _build, _dispatch
+
+    assert [k.name for k in _dispatch.KERNELS] == [k[0] for k in _KERNELS]
+
+    found = [k for k in _dispatch.KERNELS if k.name == name]
+    assert len(found) == 1, [k.name for k in _dispatch.KERNELS]
+    kernel = found[0]
+    assert kernel.source.endswith(".cu")
+    assert (_build.CSRC / kernel.source).is_file()
+    assert _build.CSRC == ROOT / "apex_tpu_torch" / "csrc"
+    where, fn = kernel.replaces.split()
+    path, line = where.split(":")
+    assert (path, fn) == (jax_file, jax_fn)
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith(f"def {fn}("), text
