@@ -12,12 +12,14 @@ package never imports JAX or ``apex_tpu``.
 
 What is ported so far, on one card: serving of the Llama family —
 :mod:`~apex_tpu_torch.serving` over :mod:`~apex_tpu_torch.models.llama` —
-and the model's uncached forward and ``labels=`` per-token loss
-(evaluation), with the LayerNorm/RMSNorm forward, flash attention forward
-and fused LM-head loss forward kernels
+the model's uncached forward and ``labels=`` per-token loss (evaluation),
+and its training: the loss's backward through the LayerNorm/RMSNorm,
+flash attention and fused LM-head kernels, forward and backward
 (:mod:`~apex_tpu_torch.ops.layer_norm`,
 :mod:`~apex_tpu_torch.ops.flash_attention`,
-:mod:`~apex_tpu_torch.ops.fused_lm_head`).
+:mod:`~apex_tpu_torch.ops.fused_lm_head`), and
+:class:`~apex_tpu_torch.optimizers.FusedAdam`
+(:mod:`~apex_tpu_torch.examples.llama_pretrain` drives it).
 """
 
 __version__ = "0.1.0"

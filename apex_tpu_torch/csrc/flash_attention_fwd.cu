@@ -72,24 +72,6 @@ struct Params {
   float keep_scale;
 };
 
-// the hardware 2^x (relative error about 2^-22, -inf -> 0, results below
-// 2^-126 flushed to 0): the probabilities are rounded to bf16/fp16 before
-// p v anyway, and their sum and lse stay within the stated 1e-5
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // the number of key tiles of width bn a query tile [q0, q_end) must visit
 __device__ __forceinline__ int key_tiles(const Params& p, int q0, int q_end, int bn) {
   int kmax = p.sk - 1;
@@ -137,12 +119,14 @@ flash_fwd_mma(const Params p) {
   T* Vs = Ks + 2 * kBN * SD;                       // [2][kBN][SD]
   int* Kseg = reinterpret_cast<int*>(Vs + 2 * kBN * SD);   // [2][kBN]
 
-  const int bh = blockIdx.y;
+  // blocks start in x-fastest order: x is the (batch, head) and y the
+  // query tile, so the heaviest tiles of every head start first (causal:
+  // the last query tiles see the most keys) and the light ones fill the
+  // tail of the grid
+  const int bh = blockIdx.x;
   const int bi = bh / p.h, hi = bh % p.h;
   const int khi = hi / (p.h / p.hk);
-  // causal: the last query tiles see the most keys, so they start first
-  // and the light ones fill the tail of the grid
-  const int q_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q_tile = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = q_tile * kBM;
   const int q_end = min(q0 + kBM, p.sq);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -457,7 +441,7 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kBM - 1) / kBM, p.b * p.h);
+  const dim3 grid(p.b * p.h, (p.sq + kBM - 1) / kBM);
   flash_fwd_mma<T, D><<<grid, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -496,7 +480,8 @@ extern "C" int apex_flash_attention_fwd(
     float scale, int causal, int dropout, unsigned seed, unsigned threshold,
     float keep_scale, int dtype, void* stream) {
   if (b < 1 || h < 1 || hk < 1 || h % hk || sq < 1 || sk < 1) return cudaErrorInvalidValue;
-  if (b * h > 65535) return cudaErrorInvalidValue;   // grid.y
+  // grid.y: (batch, head) of the fp32 kernel, query tiles of the mma one
+  if (b * h > 65535 || (sq + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;
   if ((qseg == nullptr) != (kseg == nullptr)) return cudaErrorInvalidValue;
   Params p{q, k, v, o, static_cast<float*>(lse),
            static_cast<const int*>(qseg), static_cast<const int*>(kseg),

@@ -35,55 +35,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "common.cuh"
 
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+namespace {
 
 // fp32 values of its row that a lane keeps in registers
 constexpr int kRegFloats = 64;
 constexpr int kMaxWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-constexpr int pack_align(int bytes) { return bytes > 16 ? 16 : bytes; }
-
-// N consecutive values moved as one (or two) vector accesses
-template <typename T, int N>
-struct alignas(pack_align(sizeof(T) * N)) Pack {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
-  const Pack<T, N> pk = *reinterpret_cast<const Pack<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f32(pk.v[i]);
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_f32(T* p, const float (&in)[N]) {
-  Pack<T, N> pk;
-#pragma unroll
-  for (int i = 0; i < N; ++i) pk.v[i] = from_f32<T>(in[i]);
-  *reinterpret_cast<Pack<T, N>*>(p) = pk;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // y = (x - mean) * rstd * w + b for the VEC values of chunk c, stored as TX
 template <typename TX, typename TW, typename TB, int VEC>
@@ -202,17 +160,6 @@ struct Args {
   bool rms;
   cudaStream_t stream;
 };
-
-bool aligned(const void* p, int bytes) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
-}
-
-int sm_count() {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
 
 template <typename TX, typename TW, typename TB>
 cudaError_t launch(const Args& a) {

@@ -1,6 +1,6 @@
 // Warp-level tensor-core and copy primitives shared by the kernels in this
-// directory: the dtype codes of their C interfaces, mma.sync m16n8k16 on
-// bf16 or fp16 operands with fp32 accumulation, ldmatrix, and cp.async.
+// directory: mma.sync m16n8k16 on bf16 or fp16 operands with fp32
+// accumulation, ldmatrix (plain and transposed), and cp.async.
 // Included by the .cu sources; _build.py hashes every .cuh here into each
 // library's name, so an edit here rebuilds them all.
 
@@ -10,10 +10,9 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-namespace {
+#include "common.cuh"
 
-// the `dtype` argument of the C entry points
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+namespace {
 
 // c += a b for one m16n8k16 tile (a row-major, b column-major), and the
 // packing of two fp32 values into one operand register

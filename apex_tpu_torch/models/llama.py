@@ -29,8 +29,14 @@ Four modes, as in the JAX model:
 
 The cache is updated in place (see :mod:`apex_tpu_torch.serving.kv_cache`);
 the cached modes return ``(logits, kv_cache)`` like the JAX model, with
-the same cache object, and refuse ``labels``.  On the card every mode is
-inference-only: the backward kernels come with the training slice.
+the same cache object, and refuse ``labels``.
+
+The uncached modes are differentiable: under autograd each norm, the
+flash attention and the fused LM head run their backward kernels on the
+card (their plain versions on the CPU), the embedding's gradient sums the
+lookup's and, with ``tie_word_embeddings``, the head's.  Training drives
+``model(ids, labels=labels).mean().backward()`` (see
+:mod:`apex_tpu_torch.examples.llama_pretrain`).
 """
 
 from __future__ import annotations

@@ -37,8 +37,9 @@ def _canon(normalized_shape: Shape) -> Tuple[int, ...]:
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` dims
-    (apex.normalization.FusedLayerNorm).  ``memory_efficient`` is kept for
-    the backward that comes with training; the forward is the same."""
+    (apex.normalization.FusedLayerNorm).  ``memory_efficient`` makes the
+    backward save the output ``y`` in place of the input and recover
+    ``xhat = (y - bias) / scale`` from it; the forward is the same."""
 
     def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
                  elementwise_affine: bool = True,
@@ -67,7 +68,8 @@ class FusedLayerNorm(nn.Module):
 
 class FusedRMSNorm(nn.Module):
     """RMSNorm over the trailing ``normalized_shape`` dims
-    (apex.normalization.FusedRMSNorm)."""
+    (apex.normalization.FusedRMSNorm).  ``memory_efficient`` as in
+    :class:`FusedLayerNorm`."""
 
     def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
                  elementwise_affine: bool = True,

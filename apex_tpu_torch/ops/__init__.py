@@ -4,8 +4,9 @@ kernel and a CPU tensor to the plain version; ``_build`` compiles the
 CUDA sources in ``csrc/`` on first use.
 
 Importing this package registers every kernel in ``_dispatch.KERNELS``,
-in the order they were ported: the LayerNorm/RMSNorm forward, the flash
-attention forward and the fused LM-head loss forward."""
+module by module, each forward before its backward: the LayerNorm/RMSNorm
+forward and backward, the flash attention forward, dq and dk/dv, and the
+fused LM-head loss forward, dH and dE."""
 
 from apex_tpu_torch.ops import layer_norm  # noqa: F401  (registers first)
 from apex_tpu_torch.ops import flash_attention, fused_lm_head  # noqa: F401

@@ -40,7 +40,7 @@ class Kernel:
     launches: int = 0
 
 
-#: every kernel of the package, in the order they were ported
+#: every kernel of the package, module by module (see ``ops/__init__.py``)
 KERNELS: List[Kernel] = []
 
 

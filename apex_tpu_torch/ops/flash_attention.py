@@ -1,11 +1,15 @@
-"""Flash attention forward: a CUDA kernel and its plain version.
+"""Flash attention, forward and backward: CUDA kernels and their plain
+versions.
 
-Counterpart of ``apex_tpu/ops/flash_attention.py`` (forward only).  On
-CUDA tensors the forward is the hand-written kernel
-``csrc/flash_attention_fwd.cu``, which replaces the Pallas ``_fwd_kernel``;
-on CPU tensors it is :func:`mha_reference`, the counterpart of the JAX
-``mha_reference``, with :func:`_fmix32` / :func:`_hash_keep` carried over
-bit for bit.  Both keep the JAX semantics:
+Counterpart of ``apex_tpu/ops/flash_attention.py``.  On CUDA tensors the
+forward is the hand-written kernel ``csrc/flash_attention_fwd.cu`` (the
+Pallas ``_fwd_kernel``) and the backward the two kernels of
+``csrc/flash_attention_bwd.cu`` (the Pallas ``_dq_kernel`` and
+``_dkv_kernel``); on CPU tensors they are :func:`_plain_forward` (whose
+``o`` is :func:`mha_reference`, the counterpart of the JAX
+``mha_reference``) and :func:`_plain_backward`, the math of the JAX
+``_pallas_bwd``, with :func:`_fmix32` / :func:`_hash_keep` carried over bit
+for bit.  All keep the JAX semantics:
 
 - layout ``[b, h, sq, d]`` for q and ``[b, hk, sk, d]`` for k and v;
 - causal masking aligned to the last query (``col <= row + (sk - sq)``);
@@ -23,10 +27,10 @@ Grouped-query attention: k and v may carry fewer heads than q
 which is what repeating each kv head ``h / hk`` times (the JAX model's
 ``jnp.repeat``) computes, without the copy.
 
-On CUDA the forward is inference-only: the dq and dk/dv kernels come with
-the training slice of the port, so a CUDA call that would record a
-gradient raises ``NotImplementedError``.  On the CPU, autograd through the
-plain version works.
+A call that records a gradient goes through :class:`_FlashFunction`,
+which saves q, k, v, o, lse and the seed (never the scores); its backward
+recomputes the probabilities from lse.  A call that records none runs the
+forward alone and saves nothing.
 """
 
 from __future__ import annotations
@@ -39,13 +43,22 @@ import torch
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
 
-__all__ = ["flash_attention", "flash_attention_fwd", "mha_reference",
-           "FLASH_ATTENTION_FWD"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "mha_reference", "FLASH_ATTENTION_FWD", "FLASH_ATTENTION_DQ",
+           "FLASH_ATTENTION_DKV"]
 
 FLASH_ATTENTION_FWD = register(Kernel(
     name="flash_attention_fwd", source="flash_attention_fwd.cu",
     symbol="apex_flash_attention_fwd",
     replaces="apex_tpu/ops/flash_attention.py:191 _fwd_kernel"))
+FLASH_ATTENTION_DQ = register(Kernel(
+    name="flash_attention_dq", source="flash_attention_bwd.cu",
+    symbol="apex_flash_attention_dq",
+    replaces="apex_tpu/ops/flash_attention.py:323 _dq_kernel"))
+FLASH_ATTENTION_DKV = register(Kernel(
+    name="flash_attention_dkv", source="flash_attention_bwd.cu",
+    symbol="apex_flash_attention_dkv",
+    replaces="apex_tpu/ops/flash_attention.py:367 _dkv_kernel"))
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -102,6 +115,12 @@ def _hash_keep(seed: int, g, qpos, kpos, rate: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working type: fp32, or fp64 for fp64
+    input (the CPU's ``gradcheck``)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def _split_segments(segment_ids):
     if segment_ids is None:
         return None, None
@@ -123,16 +142,8 @@ def _plain_forward(q, k, v, *, causal=False, q_segment_ids=None,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     scale = (1.0 / d ** 0.5) if scale is None else scale
-    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    valid = None
-    if causal:
-        row = torch.arange(sq, device=q.device)[:, None]
-        col = torch.arange(sk, device=q.device)[None, :]
-        valid = (col <= row + (sk - sq))[None, None]
-    if q_segment_ids is not None:
-        seg = (q_segment_ids[:, None, :, None]
-               == kv_segment_ids[:, None, None, :])
-        valid = seg if valid is None else valid & seg
+    s = torch.matmul(_acc(q) * scale, _acc(k).transpose(-1, -2))
+    valid = _valid(q.device, sq, sk, causal, q_segment_ids, kv_segment_ids)
     if valid is not None:
         s = torch.where(valid, s, _NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
@@ -145,14 +156,69 @@ def _plain_forward(q, k, v, *, causal=False, q_segment_ids=None,
         p = torch.where(any_valid, p, 0.0)
         lse = torch.where(any_valid[..., 0], lse, torch.inf)
     if dropout_rate > 0.0:
-        dev = q.device
-        g = torch.arange(b * h, dtype=torch.int64, device=dev).view(b, h, 1, 1)
-        qpos = torch.arange(sq, dtype=torch.int64, device=dev).view(1, 1, sq, 1)
-        kpos = torch.arange(sk, dtype=torch.int64, device=dev).view(1, 1, 1, sk)
-        keep = _hash_keep(dropout_seed, g, qpos, kpos, dropout_rate)
+        keep = _keep(q.device, b, h, sq, sk, dropout_seed, dropout_rate)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-    out = torch.matmul(p, v.float())
+    out = torch.matmul(p, _acc(v))
     return out.to(q.dtype), lse
+
+
+def _valid(device, sq, sk, causal, q_segment_ids, kv_segment_ids):
+    """The ``[b | 1, 1, sq, sk]`` bool mask of visible (query, key) pairs,
+    or None when every pair is visible."""
+    valid = None
+    if causal:
+        row = torch.arange(sq, device=device)[:, None]
+        col = torch.arange(sk, device=device)[None, :]
+        valid = (col <= row + (sk - sq))[None, None]
+    if q_segment_ids is not None:
+        seg = (q_segment_ids[:, None, :, None]
+               == kv_segment_ids[:, None, None, :])
+        valid = seg if valid is None else valid & seg
+    return valid
+
+
+def _keep(device, b, h, sq, sk, seed, rate):
+    """The dropout keep bits ``[b, h, sq, sk]`` of the counter hash."""
+    g = torch.arange(b * h, dtype=torch.int64, device=device).view(b, h, 1, 1)
+    qpos = torch.arange(sq, dtype=torch.int64, device=device).view(1, 1, sq, 1)
+    kpos = torch.arange(sk, dtype=torch.int64, device=device).view(1, 1, 1, sk)
+    return _hash_keep(seed, g, qpos, kpos, rate)
+
+
+def _plain_backward(q, k, v, o, lse, do, *, causal=False, q_segment_ids=None,
+                    kv_segment_ids=None, scale=None, dropout_rate=0.0,
+                    dropout_seed=None):
+    """``(dq, dk, dv)`` with the math of the JAX ``_pallas_bwd``: delta =
+    rowsum(do o), p = exp(s scale - lse) (0 on a dead row, whose lse is
+    +inf), dv = p_kept^T do, ds = p (dp_kept - delta), dq = scale ds k,
+    dk = scale ds^T q; a kv head's dk and dv sum its query group."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    q32, do32 = _acc(q), _acc(do)
+    k32 = _acc(k).repeat_interleave(rep, dim=1)
+    v32 = _acc(v).repeat_interleave(rep, dim=1)
+    delta = torch.sum(do32 * _acc(o), dim=-1, keepdim=True)
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    valid = _valid(q.device, sq, sk, causal, q_segment_ids, kv_segment_ids)
+    if valid is not None:
+        s = torch.where(valid, s, _NEG_INF)
+    p = torch.exp(s - lse[..., None].to(s.dtype))
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    p_kept = p
+    if dropout_rate > 0.0:
+        keep = _keep(q.device, b, h, sq, sk, dropout_seed, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        p_kept = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds = p * (dp - delta)
+    dq = scale * torch.matmul(ds, k32)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q32)
+    dv = torch.matmul(p_kept.transpose(-1, -2), do32)
+    dk = dk.view(b, hk, rep, sk, d).sum(2)
+    dv = dv.view(b, hk, rep, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mha_reference(q, k, v, *, causal=False, q_segment_ids=None,
@@ -168,7 +234,7 @@ def mha_reference(q, k, v, *, causal=False, q_segment_ids=None,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -184,30 +250,73 @@ def _symbol():
     return fn
 
 
-def _check_operand(t: torch.Tensor, what: str, dtype, device):
+def _bwd_symbol(kernel: Kernel):
+    """The dq or dk/dv entry point; both take one argument list."""
+    fn = getattr(_build.library(kernel.source), kernel.symbol)
+    if fn.argtypes is None:
+        vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        fn.argtypes = ([vp] * 12 + [i] * 6 + [vp]
+                       + [ctypes.c_float, i, i, u, u, ctypes.c_float, i, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operand(t: torch.Tensor, what: str, dtype, device,
+                   op: str = "flash_attention_fwd"):
     if t.device != device:
-        raise ValueError(f"flash_attention_fwd: {what} lies on {t.device}, "
-                         f"q on {device}")
+        raise ValueError(f"{op}: {what} lies on {t.device}, q on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"flash_attention_fwd: {what} dtype {t.dtype} != "
-                        f"q dtype {dtype}")
+        raise TypeError(f"{op}: {what} dtype {t.dtype} != q dtype {dtype}")
     if t.dim() != 4 or t.stride(-1) != 1:
-        raise ValueError(f"flash_attention_fwd: {what} must be 4-d with a "
-                         f"unit last stride, got shape {tuple(t.shape)} "
-                         f"strides {t.stride()}")
+        raise ValueError(f"{op}: {what} must be 4-d with a unit last stride, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
     if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-        raise ValueError(f"flash_attention_fwd: {what} must start on 16 "
-                         f"bytes with strides that are multiples of 8 "
-                         f"elements, got strides {t.stride()}")
+        raise ValueError(f"{op}: {what} must start on 16 bytes with strides "
+                         f"that are multiples of 8 elements, got strides "
+                         f"{t.stride()}")
 
 
-def _check_segments(seg, b: int, s: int, what: str, device):
+def _check_segments(seg, b: int, s: int, what: str, device, op: str):
     if tuple(seg.shape) != (b, s):
-        raise ValueError(f"flash_attention_fwd: {what} shape "
-                         f"{tuple(seg.shape)} != ({b}, {s})")
+        raise ValueError(f"{op}: {what} shape {tuple(seg.shape)} != ({b}, {s})")
     if seg.device != device:
-        raise ValueError(f"flash_attention_fwd: {what} lies on "
-                         f"{seg.device}, q on {device}")
+        raise ValueError(f"{op}: {what} lies on {seg.device}, q on {device}")
+
+
+def _check_qkv(q, k, v, qseg, kseg, op: str):
+    """The checks the forward and backward kernels share; returns the
+    segment ids as contiguous int32 (or None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{op}: q lies on {q.device}, the kernels take CUDA "
+                         f"tensors")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op}: dtype {q.dtype} is not fp32, bf16 or fp16")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(t, what, q.dtype, q.device, op)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{op}: head dim {d} is not one of {_HEAD_DIMS}")
+    if (k.shape[0], k.shape[3]) != (b, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not agree")
+    if hk < 1 or h % hk:
+        raise ValueError(f"{op}: {h} query heads over {hk} kv heads")
+    if min(b, h, sq, sk) < 1:
+        raise ValueError(f"{op}: empty input, q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if (qseg is None) != (kseg is None):
+        raise ValueError(f"{op}: give both segment-id tensors or neither")
+    if qseg is not None:
+        # ids of any integer dtype; the kernels read int32
+        qseg = qseg.to(torch.int32).contiguous()
+        kseg = kseg.to(torch.int32).contiguous()
+        _check_segments(qseg, b, sq, "q_segment_ids", q.device, op)
+        _check_segments(kseg, b, sk, "kv_segment_ids", q.device, op)
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{op}: q lies on {q.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return qseg, kseg
 
 
 def _kernel_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
@@ -215,38 +324,9 @@ def _kernel_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     """Launch the CUDA kernel; returns ``(o, lse)``.  ``o`` has q's
     strides, ``lse`` is a contiguous ``[b, h, sq]`` fp32 tensor.  Raises
     on anything the kernel does not take."""
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention_fwd: dtype {q.dtype} is not fp32, "
-                        f"bf16 or fp16")
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, what, q.dtype, q.device)
+    qseg, kseg = _check_qkv(q, k, v, qseg, kseg, "flash_attention_fwd")
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} is not one of "
-                         f"{_HEAD_DIMS}")
-    if (k.shape[0], k.shape[3]) != (b, d) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
-    if hk < 1 or h % hk:
-        raise ValueError(f"flash_attention_fwd: {h} query heads over {hk} "
-                         f"kv heads")
-    if min(b, h, sq, sk) < 1:
-        raise ValueError(f"flash_attention_fwd: empty input, q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    if (qseg is None) != (kseg is None):
-        raise ValueError("flash_attention_fwd: give both segment-id tensors "
-                         "or neither")
-    if qseg is not None:
-        # ids of any integer dtype; the kernel reads int32
-        qseg = qseg.to(torch.int32).contiguous()
-        kseg = kseg.to(torch.int32).contiguous()
-        _check_segments(qseg, b, sq, "q_segment_ids", q.device)
-        _check_segments(kseg, b, sk, "kv_segment_ids", q.device)
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"flash_attention_fwd: q lies on {q.device}, the "
-                         f"current device is cuda:"
-                         f"{torch.cuda.current_device()}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     seed = 0 if dropout_seed is None else _seed_bits(dropout_seed)
@@ -266,6 +346,60 @@ def _kernel_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     return o, lse
 
 
+def _empty_like_strided(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor with ``t``'s shape, dtype and strides."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device)
+
+
+class _BwdLaunch:
+    """The argument list of the two backward kernels for one call, with
+    their outputs: ``dq`` with q's strides, ``dk`` and ``dv`` with k's and
+    v's, and ``delta`` (fp32 ``[b, h, sq]``, written by dq, read by
+    dk/dv).  :meth:`launch` runs one kernel; dq must run first."""
+
+    def __init__(self, q, k, v, o, lse, do, qseg, kseg, causal, scale,
+                 dropout_rate, dropout_seed):
+        op = "flash_attention_bwd"
+        qseg, kseg = _check_qkv(q, k, v, qseg, kseg, op)
+        for t, what in ((o, "o"), (do, "do")):
+            _check_operand(t, what, q.dtype, q.device, op)
+            if t.shape != q.shape:
+                raise ValueError(f"{op}: {what} shape {tuple(t.shape)} != q "
+                                 f"shape {tuple(q.shape)}")
+        b, h, sq, d = q.shape
+        hk, sk = k.shape[1], k.shape[2]
+        if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
+                or not lse.is_contiguous() or lse.device != q.device):
+            raise ValueError(f"{op}: lse must be contiguous fp32 "
+                             f"({b}, {h}, {sq}) on {q.device}, got "
+                             f"{lse.dtype} {tuple(lse.shape)}")
+        self.dq, self.dk, self.dv = (_empty_like_strided(t) for t in (q, k, v))
+        self.delta = torch.empty((b, h, sq), dtype=torch.float32,
+                                 device=q.device)
+        # the tensors behind the raw pointers below stay alive with the call
+        self._keep = (q, k, v, o, lse, do, qseg, kseg)
+        strides = [st for t in (q, k, v, o, do, self.dq, self.dk, self.dv)
+                   for st in t.stride()[:3]]
+        self._strides = (ctypes.c_longlong * 24)(*strides)
+        seed = 0 if dropout_seed is None else _seed_bits(dropout_seed)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        self._args = (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), self.delta.data_ptr(), ptr(qseg),
+            ptr(kseg), self.dq.data_ptr(), self.dk.data_ptr(),
+            self.dv.data_ptr(), b, h, hk, sq, sk, d, self._strides,
+            float(scale), int(causal), int(dropout_rate > 0.0), seed,
+            _threshold(dropout_rate), float(1.0 / (1.0 - dropout_rate)),
+            _DTYPE_CODES[q.dtype])
+
+    def launch(self, kernel: Kernel) -> None:
+        status = _bwd_symbol(kernel)(*self._args,
+                                     torch.cuda.current_stream().cuda_stream)
+        _build.check(status, kernel.name)
+        kernel.launches += 1
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -280,30 +414,85 @@ def _check_dropout(dropout_rate, dropout_seed) -> float:
     return dropout_rate
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = False, segment_ids=None,
-                        scale: Optional[float] = None,
+def _forward(q, k, v, qseg, kseg, causal, scale, dropout_rate, dropout_seed):
+    if kernel_path(q, k, v, qseg, kseg):
+        return _kernel_forward(q, k, v, qseg, kseg, causal, scale,
+                               dropout_rate, dropout_seed)
+    return _plain_forward(q, k, v, causal=causal, q_segment_ids=qseg,
+                          kv_segment_ids=kseg, scale=scale,
+                          dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        segment_ids=None, scale: Optional[float] = None,
                         dropout_rate: float = 0.0, dropout_seed=None):
-    """``(o, lse)``: ``o [b, h, sq, d]`` in q's dtype and ``lse [b, h,
-    sq]`` in fp32 (``+inf`` on a fully-masked row).  The kernel for CUDA
-    tensors, the plain version for CPU ones; arguments as in
+    """``(dq, dk, dv)`` for the forward's ``o`` and ``lse`` and the
+    upstream ``do`` (like ``o``, any strides with a unit last one); the
+    kernels for CUDA tensors (dq with q's strides, dk and dv with k's and
+    v's), the plain version for CPU ones.  Other arguments as in
     :func:`flash_attention`."""
     qseg, kseg = _split_segments(segment_ids)
     d = q.shape[-1]
     scale = (1.0 / d ** 0.5) if scale is None else float(scale)
     dropout_rate = _check_dropout(dropout_rate, dropout_seed)
-    if kernel_path(q, k, v, qseg, kseg):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention_fwd on CUDA is inference-only: the dq and "
-                "dk/dv kernels come with the training slice of the port.  "
-                "Run under torch.no_grad()/inference_mode(), or on the CPU")
-        return _kernel_forward(q, k, v, qseg, kseg, causal, scale,
-                               dropout_rate, dropout_seed)
-    return _plain_forward(q, k, v, causal=causal, q_segment_ids=qseg,
-                          kv_segment_ids=kseg, scale=scale,
-                          dropout_rate=dropout_rate,
-                          dropout_seed=dropout_seed)
+    if kernel_path(q, k, v, o, lse, do, qseg, kseg):
+        call = _BwdLaunch(q, k, v, o, lse, do, qseg, kseg, causal, scale,
+                          dropout_rate, dropout_seed)
+        call.launch(FLASH_ATTENTION_DQ)
+        call.launch(FLASH_ATTENTION_DKV)
+        return call.dq, call.dk, call.dv
+    return _plain_backward(q, k, v, o, lse, do, causal=causal,
+                           q_segment_ids=qseg, kv_segment_ids=kseg,
+                           scale=scale, dropout_rate=dropout_rate,
+                           dropout_seed=dropout_seed)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Flash attention under autograd: returns ``(o, lse)`` (lse carries no
+    gradient) and saves q, k, v, o, lse, the segment ids and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, causal, scale, dropout_rate,
+                dropout_seed):
+        o, lse = _forward(q, k, v, qseg, kseg, causal, scale, dropout_rate,
+                          dropout_seed)
+        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
+        ctx.args = (causal, scale, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+        causal, scale, dropout_rate, dropout_seed = ctx.args
+        if do.stride(-1) != 1:
+            # the kernels read rows of do; autograd may hand over another
+            # layout (an expanded zero-stride gradient, say)
+            do = do.contiguous()
+        seg = None if qseg is None else (qseg, kseg)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, segment_ids=seg, scale=scale,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = False, segment_ids=None,
+                        scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, dropout_seed=None):
+    """``(o, lse)``: ``o [b, h, sq, d]`` in q's dtype and ``lse [b, h,
+    sq]`` in fp32 (``+inf`` on a fully-masked row).  The kernel for CUDA
+    tensors, the plain version for CPU ones; ``o`` is differentiable
+    (through :class:`_FlashFunction`) when q, k or v needs a gradient.
+    Arguments as in :func:`flash_attention`."""
+    qseg, kseg = _split_segments(segment_ids)
+    d = q.shape[-1]
+    scale = (1.0 / d ** 0.5) if scale is None else float(scale)
+    dropout_rate = _check_dropout(dropout_rate, dropout_seed)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashFunction.apply(q, k, v, qseg, kseg, causal, scale,
+                                    dropout_rate, dropout_seed)
+    return _forward(q, k, v, qseg, kseg, causal, scale, dropout_rate,
+                    dropout_seed)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
@@ -316,8 +505,9 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     None, one ``[b, s]`` int tensor, or a ``(q_seg, kv_seg)`` pair;
     ``scale`` defaults to ``1/sqrt(d)``; ``dropout_rate > 0`` needs an int
     ``dropout_seed``.  Returns ``[b, h, sq, d]`` in q's dtype; a
-    fully-masked row gives zeros.  The kernel takes d = 64 or 128 and
-    fp32, bf16 or fp16, and raises on anything else."""
+    fully-masked row gives zeros.  Differentiable in q, k and v.  The
+    kernels take d = 64 or 128 and fp32, bf16 or fp16, and raise on
+    anything else."""
     return flash_attention_fwd(q, k, v, causal=causal,
                                segment_ids=segment_ids, scale=scale,
                                dropout_rate=dropout_rate,

@@ -1,24 +1,28 @@
-"""Fused LayerNorm / RMSNorm forward: a CUDA kernel and its plain version.
+"""Fused LayerNorm / RMSNorm, forward and backward: CUDA kernels and their
+plain versions.
 
-Counterpart of ``apex_tpu/ops/layer_norm.py`` (forward only).  On a CUDA
-tensor the forward is the hand-written kernel ``csrc/layer_norm_fwd.cu``,
-which replaces the Pallas ``_fwd_kernel``; on a CPU tensor it is
-:func:`_plain_forward`, the counterpart of ``_jnp_forward``.  Both keep the
-mixed-dtype rule: statistics and the affine step run in fp32, ``y`` is
-cast back to ``x.dtype``, and the weight and bias may be fp32, bf16 or fp16
-independently of ``x``.  Each returns ``(y, mean, rstd)``.
+Counterpart of ``apex_tpu/ops/layer_norm.py``.  On CUDA tensors the
+forward is the hand-written kernel ``csrc/layer_norm_fwd.cu`` (the Pallas
+``_fwd_kernel``) and the backward ``csrc/layer_norm_bwd.cu`` (the Pallas
+``_bwd_kernel``); on CPU tensors they are :func:`_plain_forward` and
+:func:`_plain_backward`, the counterparts of ``_jnp_forward`` and the jnp
+branch of ``_norm_bwd``.  All keep the mixed-dtype rule: statistics, the
+affine step and the gradients run in fp32, ``y`` and ``dx`` are cast back
+to ``x.dtype``, ``dw`` and ``db`` to the weight's and bias's dtypes, and
+the weight and bias may be fp32, bf16 or fp16 independently of ``x``.
 
-On CUDA the forward is inference-only: the backward kernel (the Pallas
-``_bwd_kernel``) comes with the training slice of the port, so a CUDA
-call that would record a gradient raises ``NotImplementedError``.  On the
-CPU, autograd through the plain version works.  ``memory_efficient`` only
-changes what a backward saves, so the forward accepts it and computes the
-same ``y``.
+A call that records a gradient goes through :class:`_NormFunction`, which
+saves ``x`` (or, with ``memory_efficient``, the output ``y``, from which
+the backward recovers ``xhat = (y - b) / w``) with ``mean`` and ``rstd``,
+as the JAX ``_norm_fwd`` does.  A call that records none (under
+``no_grad``/``inference_mode``, or on tensors that need no gradient) runs
+the forward alone and saves nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -27,14 +31,28 @@ from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
-           "fused_rms_norm_affine", "layer_norm_fwd", "LAYER_NORM_FWD"]
+           "fused_rms_norm_affine", "layer_norm_fwd", "layer_norm_bwd",
+           "LAYER_NORM_FWD", "LAYER_NORM_BWD"]
 
 LAYER_NORM_FWD = register(Kernel(
     name="layer_norm_fwd", source="layer_norm_fwd.cu",
     symbol="apex_layer_norm_fwd",
     replaces="apex_tpu/ops/layer_norm.py:84 _fwd_kernel"))
+LAYER_NORM_BWD = register(Kernel(
+    name="layer_norm_bwd", source="layer_norm_bwd.cu",
+    symbol="apex_layer_norm_bwd",
+    replaces="apex_tpu/ops/layer_norm.py:113 _bwd_kernel"))
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# shared memory a block may use on Hopper, and the backward's blocks an SM
+_SMEM_MAX = 232448
+_BWD_BLOCKS_PER_SM = 3
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working type: fp32, or fp64 for fp64
+    input (the CPU's ``gradcheck``)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
 
 
 # ---------------------------------------------------------------------------
@@ -43,9 +61,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _plain_forward(x2d, weight, bias, eps: float, rms_only: bool):
-    x32 = x2d.float()
+    x32 = _acc(x2d)
     if rms_only:
-        mean = torch.zeros(x32.shape[:-1], dtype=torch.float32,
+        mean = torch.zeros(x32.shape[:-1], dtype=x32.dtype,
                            device=x32.device)
         var = torch.mean(x32 * x32, dim=-1)
         xhat = x32 * torch.rsqrt(var + eps)[..., None]
@@ -57,14 +75,45 @@ def _plain_forward(x2d, weight, bias, eps: float, rms_only: bool):
     rstd = torch.rsqrt(var + eps)
     y = xhat
     if weight is not None:
-        y = y * weight.float()
+        y = y * _acc(weight)
     if bias is not None:
-        y = y + bias.float()
+        y = y + _acc(bias)
     return y.to(x2d.dtype), mean, rstd
 
 
+def _plain_backward(dy2d, saved, mean, rstd, weight, bias, rms_only: bool,
+                    memory_efficient: bool):
+    """``(dx, dw, db)`` for ``dy2d [n, h]``: ``saved`` is ``x``, or ``y``
+    when ``memory_efficient`` (then ``xhat = (y - b) / w``).  ``dw`` and
+    ``db`` are None without a weight or bias."""
+    s32 = _acc(saved)
+    if memory_efficient:
+        xhat = s32
+        if weight is not None:
+            if bias is not None:
+                xhat = xhat - _acc(bias)
+            xhat = xhat / _acc(weight)
+    elif rms_only:
+        xhat = s32 * rstd[:, None]
+    else:
+        xhat = (s32 - mean[:, None]) * rstd[:, None]
+    h = xhat.shape[-1]
+    dy32 = _acc(dy2d)
+    wdy = dy32 * _acc(weight) if weight is not None else dy32
+    c2 = torch.sum(wdy * xhat, dim=-1, keepdim=True) / h
+    if rms_only:
+        dx = (wdy - xhat * c2) * rstd[:, None]
+    else:
+        c1 = torch.sum(wdy, dim=-1, keepdim=True) / h
+        dx = (wdy - c1 - xhat * c2) * rstd[:, None]
+    dw = (torch.sum(dy32 * xhat, dim=0).to(weight.dtype)
+          if weight is not None else None)
+    db = torch.sum(dy32, dim=0).to(bias.dtype) if bias is not None else None
+    return dx.to(dy2d.dtype), dw, db
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -79,18 +128,48 @@ def _symbol():
     return fn
 
 
-def _check_operand(t: torch.Tensor, what: str, h: Optional[int] = None):
+def _bwd_symbol():
+    fn = getattr(_build.library(LAYER_NORM_BWD.source), LAYER_NORM_BWD.symbol)
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 8 + [vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_grid(n: int, h: int, affine: bool, sms: int):
+    """``(warps, blocks)`` of the backward's row pass.  With a weight each
+    warp keeps fp32 column sums of ``2 h`` floats in shared memory: the
+    most warps (up to 4) whose sums leave room for three blocks an SM, and
+    three blocks an SM, each striding over the rows (every block adds one
+    partial row to the second pass).  Without a weight, 8 warps and a
+    block per 8 rows.  Raises for an ``h`` whose sums do not fit."""
+    if not affine:
+        return 8, math.ceil(n / 8)
+    per_warp = 2 * h * 4
+    if per_warp > _SMEM_MAX:
+        raise ValueError(f"layer_norm_bwd: h = {h} needs {per_warp} bytes of "
+                         f"shared memory for one warp's column sums; the "
+                         f"card has {_SMEM_MAX}")
+    warps = 4
+    while warps > 1 and warps * per_warp > _SMEM_MAX // _BWD_BLOCKS_PER_SM:
+        warps //= 2
+    return warps, max(1, min(math.ceil(n / warps), _BWD_BLOCKS_PER_SM * sms))
+
+
+def _check_operand(t: torch.Tensor, what: str, h: Optional[int] = None,
+                   op: str = "layer_norm_fwd"):
     if t.device.type != "cuda":
-        raise ValueError(f"layer_norm_fwd: {what} lies on {t.device}, "
+        raise ValueError(f"{op}: {what} lies on {t.device}, "
                          f"the kernel takes CUDA tensors")
     if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"layer_norm_fwd: {what} dtype {t.dtype} is not "
+        raise TypeError(f"{op}: {what} dtype {t.dtype} is not "
                         f"fp32, bf16 or fp16")
     if not t.is_contiguous():
-        raise ValueError(f"layer_norm_fwd: {what} is not contiguous; make "
+        raise ValueError(f"{op}: {what} is not contiguous; make "
                          f"it contiguous where it is produced")
     if h is not None and tuple(t.shape) != (h,):
-        raise ValueError(f"layer_norm_fwd: {what} shape {tuple(t.shape)} "
+        raise ValueError(f"{op}: {what} shape {tuple(t.shape)} "
                          f"!= ({h},)")
 
 
@@ -114,12 +193,6 @@ def layer_norm_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
             if t.device != x2d.device:
                 raise ValueError(f"layer_norm_fwd: {what} on {t.device}, "
                                  f"x on {x2d.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x2d, weight, bias)):
-        raise NotImplementedError(
-            "layer_norm_fwd on CUDA is inference-only: the backward kernel "
-            "comes with the training slice of the port.  Run under "
-            "torch.no_grad()/inference_mode(), or on the CPU")
     if x2d.device.index != torch.cuda.current_device():
         raise ValueError(f"layer_norm_fwd: x lies on {x2d.device}, the "
                          f"current device is cuda:"
@@ -138,6 +211,64 @@ def layer_norm_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     _build.check(status, "layer_norm_fwd")
     LAYER_NORM_FWD.launches += 1
     return y, mean, rstd
+
+
+def layer_norm_bwd(dy2d: torch.Tensor, saved: torch.Tensor,
+                   mean: torch.Tensor, rstd: torch.Tensor,
+                   weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                   rms_only: bool, memory_efficient: bool):
+    """Launch the CUDA backward on ``dy2d [n, h]`` and the saved ``x`` (or
+    ``y`` when ``memory_efficient``) of the same shape and dtype, with the
+    forward's fp32 ``mean`` and ``rstd [n]``; returns ``(dx, dw, db)``,
+    ``dw``/``db`` None without a weight/bias.  Raises on anything the
+    kernel does not take, as :func:`layer_norm_fwd` does."""
+    op = "layer_norm_bwd"
+    _check_operand(dy2d, "dy", op=op)
+    if dy2d.dim() != 2 or dy2d.shape[0] < 1 or dy2d.shape[1] < 1:
+        raise ValueError(f"{op}: dy must be [n>=1, h>=1], got "
+                         f"{tuple(dy2d.shape)}")
+    n, h = dy2d.shape
+    _check_operand(saved, "saved input", op=op)
+    if saved.shape != dy2d.shape or saved.dtype != dy2d.dtype:
+        raise ValueError(f"{op}: saved input {saved.dtype} "
+                         f"{tuple(saved.shape)} against dy {dy2d.dtype} "
+                         f"{tuple(dy2d.shape)}")
+    for t, what in ((mean, "mean"), (rstd, "rstd")):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{op}: {what} must be contiguous fp32 ({n},), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if bias is not None and weight is None:
+        raise ValueError(f"{op}: a bias needs a weight")
+    for t, what in ((saved, "saved input"), (mean, "mean"), (rstd, "rstd"),
+                    (weight, "weight"), (bias, "bias")):
+        if t is not None:
+            if t is weight or t is bias:
+                _check_operand(t, what, h, op=op)
+            if t.device != dy2d.device:
+                raise ValueError(f"{op}: {what} on {t.device}, dy on "
+                                 f"{dy2d.device}")
+    if dy2d.device.index != torch.cuda.current_device():
+        raise ValueError(f"{op}: dy lies on {dy2d.device}, the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    sms = torch.cuda.get_device_properties(dy2d.device).multi_processor_count
+    warps, blocks = bwd_grid(n, h, weight is not None, sms)
+    dx = torch.empty_like(dy2d)
+    dw = torch.empty_like(weight) if weight is not None else None
+    db = torch.empty_like(bias) if bias is not None else None
+    part = (torch.empty((blocks, 2, h), dtype=torch.float32,
+                        device=dy2d.device) if weight is not None else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    status = _bwd_symbol()(
+        dy2d.data_ptr(), saved.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        ptr(weight), ptr(bias), dx.data_ptr(), ptr(dw), ptr(db), ptr(part),
+        n, h, int(rms_only), int(memory_efficient), _DTYPE_CODES[dy2d.dtype],
+        -1 if weight is None else _DTYPE_CODES[weight.dtype],
+        -1 if bias is None else _DTYPE_CODES[bias.dtype], warps, blocks,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(status, op)
+    LAYER_NORM_BWD.launches += 1
+    return dx, dw, db
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +292,51 @@ def _norm_forward(x, weight, bias, eps: float, rms_only: bool):
     return y2d.view(x.shape), mean, rstd
 
 
+def _norm_backward(dy, saved, mean, rstd, weight, bias, rms_only: bool,
+                   memory_efficient: bool):
+    """``(dx, dw, db)`` for ``dy`` shaped like the forward's ``x``; the
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    h = dy.shape[-1]
+    if kernel_path(dy, saved, weight, bias):
+        dx, dw, db = layer_norm_bwd(dy.reshape(-1, h), saved.view(-1, h),
+                                    mean, rstd, weight, bias, rms_only,
+                                    memory_efficient)
+    else:
+        dx, dw, db = _plain_backward(dy.reshape(-1, h), saved.reshape(-1, h),
+                                     mean, rstd, weight, bias, rms_only,
+                                     memory_efficient)
+    return dx.view(dy.shape), dw, db
+
+
+class _NormFunction(torch.autograd.Function):
+    """The norm under autograd: the forward kernel (or plain version)
+    forward, the backward kernel (or plain version) backward.  Saves ``x``,
+    or ``y`` when ``memory_efficient``, with ``mean`` and ``rstd``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, rms_only, memory_efficient):
+        y, mean, rstd = _norm_forward(x, weight, bias, eps, rms_only)
+        ctx.rms_only, ctx.memory_efficient = rms_only, memory_efficient
+        ctx.save_for_backward(y if memory_efficient else x, mean, rstd,
+                              weight, bias)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved, mean, rstd, weight, bias = ctx.saved_tensors
+        # autograd hands over a gradient in whatever layout its producer
+        # left; the kernel reads rows
+        dx, dw, db = _norm_backward(dy.contiguous(), saved, mean, rstd,
+                                    weight, bias, ctx.rms_only,
+                                    ctx.memory_efficient)
+        return dx, dw, db, None, None, None
+
+
 def _norm(x, weight, bias, eps, rms_only, memory_efficient):
-    del memory_efficient            # a backward-only choice; see module doc
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _NormFunction.apply(x, weight, bias, eps, rms_only,
+                                   memory_efficient)
     return _norm_forward(x, weight, bias, eps, rms_only)[0]
 
 

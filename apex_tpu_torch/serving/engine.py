@@ -147,7 +147,10 @@ class DecodeEngine:
             # cache); fp32 for a tree with no float leaves
             floats = [p.dtype for p in params if p.dtype.is_floating_point]
             cache_dtype = floats[0] if floats else torch.float32
-        self.model = model.eval().requires_grad_(False)
+        # eval mode only: the model calls run under inference_mode, so the
+        # caller's parameters keep requires_grad and the model stays
+        # trainable after it has been served
+        self.model = model.eval()
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.prefill_len = int(prefill_len)

@@ -52,6 +52,7 @@ fuller report goes to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -564,6 +565,581 @@ def _row(dev: dict, host_ms: float, flops: float, nbytes: float,
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24          # fp32 unit roundoff
+EPS_SUM = 2.0 ** -16      # relative error allowed for an fp32 sum or exp
+
+
+def _half_eps(dtype_name: str) -> float:
+    """The rounding of a product's operand to ``dtype_name``: half an
+    epsilon (0 for fp32, which the kernels do not round)."""
+    if dtype_name == "float32":
+        return 0.0
+    return 2.0 ** -(_MANTISSA_BITS[dtype_name] + 1)
+
+
+def _sub_floor(dtype_name: str) -> float:
+    """The absolute rounding error below ``dtype_name``'s normal range:
+    half its least subnormal spacing (fp32's least normal for bf16, whose
+    kernels flush to zero there)."""
+    import torch
+
+    if dtype_name == "float32":
+        return 0.0
+    dt = getattr(torch, dtype_name)
+    return max(torch.finfo(dt).tiny * _half_eps(dtype_name),
+               torch.finfo(torch.float32).tiny)
+
+
+def _norm_bwd_tol(dy, saved, mean, rstd, w, b, rms, mem_eff):
+    """Per-element bounds of ``(dx, dw, db)``: both sides compute in fp32
+    and sum in another order.  dx: the row sums c1, c2 (h terms) within
+    2 sqrt(h) u32 of their terms' absolute sums, four roundings of the
+    elementwise step, then 1 ulp of the output; dw, db: the column sums
+    (n terms, each within 4 u32) within (2 sqrt(n) + 4) u32 of the sums of
+    |terms|, then 1 ulp of their dtype."""
+    s32, dy32 = saved.float(), dy.float()
+    if mem_eff:
+        xhat = s32
+        if w is not None:
+            xhat = (xhat - (b.float() if b is not None else 0.0)) / w.float()
+    elif rms:
+        xhat = s32 * rstd[:, None]
+    else:
+        xhat = (s32 - mean[:, None]) * rstd[:, None]
+    n, h = dy.shape
+    wdy = dy32 * w.float() if w is not None else dy32
+    c1 = wdy.abs().sum(-1, keepdim=True) / h
+    c2 = (wdy * xhat).abs().sum(-1, keepdim=True) / h
+    dx_err = U32 * rstd[:, None] * (4 * (wdy.abs() + c1 + xhat.abs() * c2)
+                                    + 2 * h ** 0.5 * (c1 + xhat.abs() * c2))
+    k = (2 * n ** 0.5 + 4) * U32
+    dw_err = k * (dy32 * xhat).abs().sum(0) if w is not None else None
+    db_err = k * dy32.abs().sum(0) if b is not None else None
+    return dx_err, dw_err, db_err
+
+
+def _ulp_tol(err, ref, actual, dtype_name: str):
+    """``err`` plus one ulp of ``dtype_name`` at the larger of |ref| and
+    |actual| (the two sides may round one value to neighbours)."""
+    import torch
+
+    return err + _ulp(torch.maximum(ref.float().abs(), actual.float().abs()),
+                      dtype_name)
+
+
+def check_layer_norm_bwd(device) -> dict:
+    """The norm backward kernel on the card against its plain version over
+    LN/RMS, dtypes, affine variants (none, weight, weight and bias, in
+    weight dtypes independent of x), ``memory_efficient``, ragged and
+    unaligned shapes, a row longer than the forward's registers and an
+    input off a 16-byte boundary, and the main path's shape (n 8192, h
+    2048, x bf16, scale fp32); returns the main shape's errors."""
+    import torch
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+    cases = []
+    for rms in (False, True):
+        for xdt in dtypes:
+            for has_w, has_b, wdt in ((False, False, None),
+                                      (True, False, "float32"),
+                                      (True, False, "bfloat16"),
+                                      (True, True, "float32"),
+                                      (True, True, "bfloat16"),
+                                      (True, True, "float16")):
+                for mem_eff in (False, True):
+                    for n, h, offset in ((3, 128, 0), (16, 256, 0), (3, 200, 0),
+                                         (16, 200, 0), (5, 5000, 0), (7, 256, 1),
+                                         (600, 256, 0)):
+                        cases.append((rms, xdt, has_w, has_b, wdt, mem_eff, n, h,
+                                      offset, False))
+    for xdt, wdt in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+                     ("float32", "float32")):
+        for n in (512, 8192):
+            cases.append((True, xdt, True, False, wdt, False, n, 2048, 0,
+                          xdt == "bfloat16" and wdt == "float32" and n == 8192))
+    g = torch.Generator(device=device).manual_seed(21)
+    worst = {"dx": 0.0, "dw": 0.0, "db": 0.0}
+    main = {}
+    with torch.no_grad():
+        for rms, xdt, has_w, has_b, wdt, mem_eff, n, h, offset, is_main in cases:
+            buf = torch.randn(n * h + offset, generator=g, device=device) * 2 + 0.5
+            x = buf.to(dtypes[xdt])[offset:].view(n, h)
+            w = ((1 + 0.1 * torch.randn(h, generator=g, device=device))
+                 .to(dtypes[wdt]) if has_w else None)
+            b = ((0.1 * torch.randn(h, generator=g, device=device))
+                 .to(dtypes[wdt]) if has_b else None)
+            y, mean, rstd = ln._plain_forward(x, w, b, 1e-5, rms)
+            dy = torch.randn(n, h, generator=g, device=device).to(dtypes[xdt])
+            saved = y if mem_eff else x
+            if offset:
+                # the saved tensor off 16 bytes as well: the scalar path
+                sbuf = torch.empty(n * h + offset, dtype=saved.dtype,
+                                   device=device)
+                sbuf[offset:] = saved.reshape(-1)
+                saved = sbuf[offset:].view(n, h)
+            dx, dw, db = ln.layer_norm_bwd(dy, saved, mean, rstd, w, b, rms,
+                                           mem_eff)
+            torch.cuda.synchronize()
+            rdx, rdw, rdb = ln._plain_backward(dy, saved, mean, rstd, w, b,
+                                               rms, mem_eff)
+            ex, ew, eb = _norm_bwd_tol(dy, saved, mean, rstd, w, b, rms,
+                                       mem_eff)
+            r = {"dx": _tol_ratio(dx, rdx, _ulp_tol(ex, rdx, dx, xdt))}
+            if has_w:
+                r["dw"] = _tol_ratio(dw, rdw, _ulp_tol(ew, rdw, dw, wdt))
+                if dw.dtype != w.dtype:
+                    r["dw"] = float("inf")
+            if has_b:
+                r["db"] = _tol_ratio(db, rdb, _ulp_tol(eb, rdb, db, wdt))
+            case = dict(rms=rms, x=xdt, w=wdt if has_w else None, bias=has_b,
+                        memory_efficient=mem_eff, n=n, h=h, offset=offset)
+            if max(r.values()) > 1.0:
+                raise AssertionError(
+                    f"layer_norm_bwd disagrees with its plain version: {case}: "
+                    f"{r} x tolerance")
+            for k, v in r.items():
+                worst[k] = max(worst[k], v)
+            if is_main:
+                main = dict(dx_max_abs_err=float((dx.float() - rdx.float()).abs().max()),
+                            dw_max_abs_err=float((dw.float() - rdw.float()).abs().max()),
+                            tol_ratio=r)
+    out = dict(kernel="layer_norm_bwd", cases=len(cases),
+               worst_tol_ratio=worst, main_shape=main,
+               tolerance="fp32 on both sides, summed in another order: dx "
+                         "within u32 rstd (4 (|w dy| + c1 + |xhat| c2) + "
+                         "2 sqrt(h) (c1 + |xhat| c2)) + 1 ulp (c1, c2 the "
+                         "row means of |w dy| and |w dy xhat|); dw, db within "
+                         "(2 sqrt(n) + 4) u32 sum|dy xhat| (sum|dy|) + 1 ulp "
+                         "of their dtype; u32 = 2^-24")
+    log("phase2-check", **out)
+    return out
+
+
+def _flash_bwd_tol(q, k, v, lse, do, delta, dq_ref, dk_ref, dv_ref, case,
+                   scale, qseg, kseg):
+    """Per-element bounds of ``(dq, dk, dv)``.  The kernels round ds and
+    p_kept to the operand dtype before their products (half an epsilon u
+    of each operand: u (|ds| |k|) and the like, on the plain version's
+    values), the dtype's least subnormal spacing bounds what that rounding
+    loses below the normal range, and every fp32 quantity (s, p through
+    2^x, dp, delta and the sums of the products) is within EPS_SUM of its
+    terms' absolute sums; then 2 ulp of the output.  Computed one batch
+    element at a time, in fp32."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    dt = case["dtype"]
+    u, floor = _half_eps(dt), _sub_floor(dt)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    rep = h // hk
+    rate = case.get("rate", 0.0)
+    ks = 1.0 / (1.0 - rate)
+    tq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    tk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    tv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        q1 = q[bi:bi + 1].float()
+        k1 = k[bi:bi + 1].float().repeat_interleave(rep, 1)
+        v1 = v[bi:bi + 1].float().repeat_interleave(rep, 1)
+        do1 = do[bi:bi + 1].float()
+        s = torch.matmul(q1, k1.transpose(-1, -2)) * scale
+        valid = fa._valid(q.device, sq, sk, case["causal"],
+                          None if qseg is None else qseg[bi:bi + 1],
+                          None if kseg is None else kseg[bi:bi + 1])
+        if valid is not None:
+            s = torch.where(valid, s, fa._NEG_INF)
+        p = torch.exp(s - lse[bi:bi + 1, ..., None])
+        del s
+        if valid is not None:
+            p = torch.where(valid, p, 0.0)
+        keep = None
+        if rate > 0.0:
+            keep = fa._keep(q.device, b, h, sq, sk, case["seed"],
+                            rate)[bi:bi + 1]
+        dp = torch.matmul(do1, v1.transpose(-1, -2))
+        dpk = dp if keep is None else torch.where(keep, dp * ks, 0.0)
+        pk = p if keep is None else torch.where(keep, p * ks, 0.0)
+        dpa = torch.matmul(do1.abs(), v1.abs().transpose(-1, -2))
+        if keep is not None:
+            dpa = torch.where(keep, dpa * ks, 0.0)
+        dl = delta[bi:bi + 1, ..., None]
+        ds = p * (dpk - dl)
+        # p within EPS_SUM (1 + scale |q||k|) relative; dp and delta within
+        # EPS_SUM of their absolute sums: the error scale of ds
+        pe = 1 + torch.matmul(q1.abs(), k1.abs().transpose(-1, -2)) * scale
+        a = p * (pe * (dpk.abs() + dl.abs()) + dpa + dl.abs())
+        pe = pk.abs() * pe
+        del dpk, dp, dpa
+        ka, qa, doa = k1.abs(), q1.abs(), do1.abs()
+        nq = float(qa.max()) if qa.numel() else 0.0
+        nk = float(ka.max()) if ka.numel() else 0.0
+        nd = float(doa.max()) if doa.numel() else 0.0
+        tq[bi:bi + 1] = scale * (u * torch.matmul(ds.abs(), ka)
+                                 + EPS_SUM * torch.matmul(a, ka)
+                                 + floor * sk * nk)
+        dk_t = scale * (u * torch.matmul(ds.abs().transpose(-1, -2), qa)
+                        + EPS_SUM * torch.matmul(a.transpose(-1, -2), qa)
+                        + floor * sq * nq)
+        dv_t = (u * torch.matmul(pk.abs().transpose(-1, -2), doa)
+                + EPS_SUM * torch.matmul(pe.transpose(-1, -2), doa)
+                + floor * sq * nd)
+        tk[bi:bi + 1] = dk_t.view(1, hk, rep, sk, d).sum(2)
+        tv[bi:bi + 1] = dv_t.view(1, hk, rep, sk, d).sum(2)
+        del p, pk, pe, ds, a, dk_t, dv_t
+    return (tq + 2 * _ulp(dq_ref, dt), tk + 2 * _ulp(dk_ref, dt),
+            tv + 2 * _ulp(dv_ref, dt))
+
+
+def check_flash_attention_bwd(device) -> dict:
+    """The dq and dk/dv kernels on the card against the plain backward on
+    the same (q, k, v, o, lse, do), over the forward check's variants
+    (dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
+    ragged lengths, GQA, segment ids with fully-masked rows, dropout) and
+    the main path's shape, with q, k, v and do in the model's layout;
+    returns the main shape's errors."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for dt in _DTYPES:
+        for d in (64, 128):
+            base = dict(dtype=dt, d=d, b=2, h=4, hk=2)
+            for causal in (False, True):
+                for sq, sk in ((128, 128), (100, 260), (260, 100)):
+                    cases.append(dict(base, causal=causal, sq=sq, sk=sk))
+            cases.append(dict(base, causal=True, sq=96, sk=96, seg="dead"))
+            cases.append(dict(base, causal=False, sq=130, sk=70, seg="packed"))
+            for causal, seed in ((False, 1234), (True, -7)):
+                cases.append(dict(base, causal=causal, sq=100, sk=150,
+                                  rate=0.1, seed=seed))
+    cases.append(dict(dtype="float32", d=64, b=2, h=4, hk=2, causal=True,
+                      sq=100, sk=260, seg="packed", rate=0.1, seed=99))
+    cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
+                      sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    g = torch.Generator(device=device).manual_seed(22)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    main = {}
+    with torch.no_grad():
+        for case in cases:
+            q, k, v, seg = _flash_inputs(case, g, device)
+            rate, seed = case.get("rate", 0.0), case.get("seed")
+            scale = 1.0 / case["d"] ** 0.5
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=case["causal"],
+                                            segment_ids=seg, dropout_rate=rate,
+                                            dropout_seed=seed)
+            # do in the model's layout, like o
+            do = torch.randn(o.permute(2, 0, 1, 3).shape, generator=g,
+                             device=device).to(q.dtype).permute(1, 2, 0, 3)
+            dq, dk, dv = fa.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=case["causal"], segment_ids=seg,
+                dropout_rate=rate, dropout_seed=seed)
+            torch.cuda.synchronize()
+            if dq.stride() != q.stride() or dk.stride() != k.stride() \
+                    or dv.stride() != v.stride():
+                raise AssertionError(f"flash backward strides: {case}")
+            qseg, kseg = (None, None) if seg is None else seg
+            ref = fa._plain_backward(q, k, v, o, lse, do, causal=case["causal"],
+                                     q_segment_ids=qseg, kv_segment_ids=kseg,
+                                     dropout_rate=rate, dropout_seed=seed)
+            delta = (do.float() * o.float()).sum(-1)
+            tols = _flash_bwd_tol(q, k, v, lse, do, delta, *ref, case, scale,
+                                  qseg, kseg)
+            r = {n: _tol_ratio(a, e, t) for n, a, e, t in
+                 zip(("dq", "dk", "dv"), (dq, dk, dv), ref, tols)}
+            name = {kk: case[kk] for kk in case if kk not in ("b", "h", "hk")}
+            if max(r.values()) > 1.0:
+                raise AssertionError(
+                    f"flash attention backward disagrees with its plain "
+                    f"version: {name}: {r} x tolerance")
+            for n, x in r.items():
+                worst[n] = max(worst[n], x)
+            if case.get("main"):
+                main = {f"{n}_max_abs_err": float((a.float() - e.float()).abs().max())
+                        for n, a, e in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+                main["tol_ratio"] = r
+            del q, k, v, o, lse, do, dq, dk, dv, ref, tols
+    out = dict(kernel="flash_attention_dq + flash_attention_dkv",
+               cases=len(cases), worst_tol_ratio=worst, main_shape=main,
+               tolerance="dq within scale (u |ds| |k| + 2^-16 A |k| + "
+                         "floor sk max|k|), dk likewise with q, dv within "
+                         "u |p_kept|^T |do| + 2^-16 P^T |do| + floor sq "
+                         "max|do|, "
+                         "each + 2 ulp: u half an epsilon of the dtype "
+                         "(0 for fp32; the kernels round ds and p_kept), A = "
+                         "p ((1 + scale |q||k|) (|dp_kept| + |delta|) + "
+                         "|do||v| + |delta|) and P = |p_kept| (1 + scale "
+                         "|q||k|) the error scales of ds and p_kept, floor "
+                         "the dtype's half least subnormal spacing; GQA "
+                         "bounds summed over the group")
+    log("phase2-check", **out)
+    return out
+
+
+def _head_bwd_tol(h, e, labels, lse, gvec, dh_ref, de_ref, dt):
+    """Per-element bounds of ``(dh, de)``: the kernels round dlog to the
+    operand dtype (u |dlog| |E|, u |dlog|^T |H|); the recomputed logits
+    and lse are within EPS_SUM of |H||E|^T and its row max, which moves p
+    by that much relative (E = p |g| (|H||E|^T + rowmax)); the fp32 sums
+    of the products within EPS_SUM; then 2 ulp."""
+    import torch
+
+    u, floor = _half_eps(dt), _sub_floor(dt)
+    h32, e32 = h.float(), e.float()
+    logits = torch.matmul(h32, e32.t())
+    p = torch.exp(logits - lse[:, None])
+    del logits
+    cols = torch.arange(e.shape[0], device=h.device)
+    dlog = (p - (labels.long()[:, None] == cols[None, :]).float()) * gvec[:, None]
+    habs, eabs = h32.abs(), e32.abs()
+    l1 = torch.matmul(habs, eabs.t())
+    err = p * gvec.abs()[:, None] * (l1 + l1.amax(-1, keepdim=True))
+    del l1, p
+    dl = dlog.abs()
+    del dlog
+    dh_t = (u * torch.matmul(dl, eabs) + EPS_SUM * torch.matmul(err + dl, eabs)
+            + floor * e.shape[0] * float(eabs.max()))
+    de_t = (u * torch.matmul(dl.t(), habs)
+            + EPS_SUM * torch.matmul((err + dl).t(), habs)
+            + floor * h.shape[0] * float(habs.max()))
+    return dh_t + 2 * _ulp(dh_ref, dt), de_t + 2 * _ulp(de_ref, dt)
+
+
+def check_lm_head_bwd(device) -> dict:
+    """The dH and dE kernels on the card against the plain backward on the
+    same (H, E, labels, lse, g) over the forward check's dtypes, token
+    counts and vocabularies off the tile, hidden sizes, labels -100 and
+    vocab, with a non-uniform g, and the main path's shape."""
+    import torch
+    from apex_tpu_torch.ops import fused_lm_head as lh
+
+    cases = [dict(dtype=dt, t=t, vocab=vocab, hid=hid)
+             for dt in _DTYPES
+             for t, vocab, hid in ((1, 1000, 64), (300, 1000, 136),
+                                   (257, 32000, 256), (128, 256, 2048))]
+    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True))
+    g = torch.Generator(device=device).manual_seed(23)
+    worst = {"dh": 0.0, "de": 0.0}
+    main = {}
+    with torch.no_grad():
+        for case in cases:
+            dt = getattr(torch, case["dtype"])
+            t, vocab, hid = case["t"], case["vocab"], case["hid"]
+            h = torch.randn(t, hid, generator=g, device=device).to(dt)
+            std = 0.02 if case.get("main") else hid ** -0.5
+            e = (torch.randn(vocab, hid, generator=g, device=device) * std).to(dt)
+            lab = torch.randint(0, vocab, (t,), generator=g, device=device)
+            lab[::7] = -100
+            lab[3::11] = vocab
+            lab[5::13] = vocab - 1
+            # a non-uniform upstream cotangent, of both signs
+            gvec = torch.randn(t, generator=g, device=device) / t
+            _, lse = lh.fused_lm_head_fwd(h, e, lab)
+            dh, de = lh.fused_lm_head_bwd(h, e, lab, lse, gvec)
+            torch.cuda.synchronize()
+            rdh, rde = lh._plain_backward(h, e, lab, lse, gvec)
+            tdh, tde = _head_bwd_tol(h, e, lab, lse, gvec, rdh.float(),
+                                     rde.float(), case["dtype"])
+            r = {"dh": _tol_ratio(dh, rdh, tdh), "de": _tol_ratio(de, rde, tde)}
+            if max(r.values()) > 1.0:
+                raise AssertionError(
+                    f"fused LM-head backward disagrees with its plain version: "
+                    f"{case}: {r} x tolerance")
+            for n, x in r.items():
+                worst[n] = max(worst[n], x)
+            if case.get("main"):
+                main = dict(dh_max_abs_err=float((dh.float() - rdh.float()).abs().max()),
+                            de_max_abs_err=float((de.float() - rde.float()).abs().max()),
+                            tol_ratio=r)
+            del h, e, dh, de, rdh, rde, tdh, tde
+    out = dict(kernel="fused_lm_head_dh + fused_lm_head_de", cases=len(cases),
+               worst_tol_ratio=worst, main_shape=main,
+               tolerance="dH within u |dlog| |E| + 2^-16 (err + |dlog|) |E| + "
+                         "floor V max|E|, dE likewise with H, each + 2 ulp: u "
+                         "half an epsilon of the dtype (0 for fp32; the "
+                         "kernels round dlog), err = p |g| (|H||E|^T + its "
+                         "row max) the recomputed logits' and lse's error "
+                         "scale, floor the dtype's half least subnormal spacing")
+    log("phase2-check", **out)
+    return out
+
+
+def _fwd_bwd_minus_fwd(fwd, grads_of, device_iters: int = 10) -> float:
+    """Device ms of a library call's backward: forward + backward minus
+    forward, each a CUDA graph of ``device_iters`` calls."""
+    import torch
+
+    def both():
+        out = fwd()
+        torch.autograd.grad(out, grads_of[0], grads_of[1])
+
+    return device_ms(both, iters=device_iters) - device_ms(fwd, iters=device_iters)
+
+
+def time_layer_norm_bwd(device) -> dict:
+    """The backward kernel, the plain version and F.rms_norm's backward at
+    the main path's shape: n 8192, h 2048, x bf16, scale fp32 (O2)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    n, h = 8192, 2048
+    g = torch.Generator(device=device).manual_seed(24)
+    x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(h, generator=g, device=device)
+    dy = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+    with torch.no_grad():
+        _, mean, rstd = ln.layer_norm_fwd(x, w, None, 1e-5, True)
+    calls = {
+        "kernel": lambda: ln.layer_norm_bwd(dy, x, mean, rstd, w, None, True,
+                                            False),
+        "plain": lambda: ln._plain_backward(dy, x, mean, rstd, w, None, True,
+                                            False)}
+    with torch.no_grad():
+        dev = _timed(calls, 50)
+        host = time_ms(calls["kernel"], iters=100, warmup=10)
+    xr = x.detach().requires_grad_()
+    wr = w.detach().requires_grad_()
+    dev["library"] = _fwd_bwd_minus_fwd(
+        lambda: F.rms_norm(xr, (h,), wr, 1e-5), ((xr, wr), dy))
+    # each input read once, each output written once: dy, x, w, mean, rstd;
+    # dx, dw.  About 12 fp32 operations an element.
+    nbytes = 2 * n * h * 3 + 4 * h * 2 + 4 * n * 2
+    flops = 12 * n * h
+    row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S)
+    row.update(shape=dict(n=n, h=h, x="bfloat16", scale="float32", rms=True),
+               bytes=nbytes, flops=flops,
+               library_call="F.rms_norm forward + backward minus forward "
+                            "(CUDA graphs of 10)")
+    log("phase2-time", kernel="layer_norm_bwd", **row)
+    return row
+
+
+def time_flash_attention_bwd(device) -> dict:
+    """dq and dk/dv each, the plain backward and SDPA's backward at the
+    main path's shape (causal, bf16, [4, 32, 2048, 64] over 8 kv heads, in
+    the model's layout); returns ``{"dq": row, "dkv": row}``."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, h, hk, s, d = (FLASH_MAIN[k] for k in ("b", "h", "hk", "s", "d"))
+    g = torch.Generator(device=device).manual_seed(25)
+    q, k, v, do = (torch.randn(s, b, n, d, generator=g, device=device)
+                   .to(torch.bfloat16).permute(1, 2, 0, 3) for n in (h, hk, hk, h))
+    scale = 1.0 / d ** 0.5
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        call = fa._BwdLaunch(q, k, v, o, lse, do, None, None, True, scale,
+                             0.0, None)
+        call.launch(fa.FLASH_ATTENTION_DQ)          # delta for dk/dv
+        plain = lambda: fa._plain_backward(q, k, v, o, lse, do, causal=True)
+        dev_plain = time_ms(plain, iters=3, warmup=1)
+        rows = {}
+        for name, kern in (("dq", fa.FLASH_ATTENTION_DQ),
+                           ("dkv", fa.FLASH_ATTENTION_DKV)):
+            fn = lambda kern=kern: call.launch(kern)
+            rows[name] = dict(kernel=device_ms(fn, iters=20),
+                              kernel_again=None,
+                              host=time_ms(fn, iters=20, warmup=3))
+        for name, kern in (("dq", fa.FLASH_ATTENTION_DQ),
+                           ("dkv", fa.FLASH_ATTENTION_DKV)):
+            rows[name]["kernel_again"] = device_ms(
+                lambda kern=kern: call.launch(kern), iters=20)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    library = _fwd_bwd_minus_fwd(
+        lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                               enable_gqa=True),
+        ((qr, kr, vr), do))
+    pairs = s * (s + 1) // 2
+    prod = 2 * b * h * pairs * d              # one causal product
+    out = {}
+    for name, nprod, nbytes in (
+            # q, k, v, o, do, lse read; dq, delta written
+            ("dq", 3, 2 * (3 * b * h * s * d + 2 * b * hk * s * d)
+             + 4 * 2 * b * h * s),
+            # q, k, v, do, lse, delta read; dk, dv written
+            ("dkv", 4, 2 * (2 * b * h * s * d + 4 * b * hk * s * d)
+             + 4 * 2 * b * h * s)):
+        r = rows[name]
+        dev = dict(kernel=r["kernel"], kernel_again=r["kernel_again"],
+                   plain=dev_plain, library=library)
+        row = _row(dev, r["host"], nprod * prod, nbytes, 989e12)
+        row.update(shape=dict(FLASH_MAIN, causal=True, dtype="bfloat16"),
+                   flops=nprod * prod, bytes=nbytes,
+                   plain_and_library_compute="dq, dk and dv together",
+                   library_call="F.scaled_dot_product_attention(is_causal, "
+                                "enable_gqa) forward + backward minus forward "
+                                "(CUDA graphs of 10)")
+        log("phase2-time", kernel=f"flash_attention_{name}", **row)
+        out[name] = row
+    return out
+
+
+def time_lm_head_bwd(device) -> dict:
+    """dH and dE each, the plain backward and F.linear + F.cross_entropy's
+    backward at the main path's shape (T 8192, h 2048, V 32000, bf16, a
+    uniform g as the mean gives); returns ``{"dh": row, "de": row}``."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import fused_lm_head as lh
+
+    t, hid, vocab = HEAD_MAIN["t"], HEAD_MAIN["hid"], HEAD_MAIN["vocab"]
+    g = torch.Generator(device=device).manual_seed(26)
+    h = torch.randn(t, hid, generator=g, device=device).to(torch.bfloat16)
+    e = (torch.randn(vocab, hid, generator=g, device=device) * 0.02
+         ).to(torch.bfloat16)
+    lab = torch.randint(0, vocab, (t,), generator=g, device=device)
+    gvec = torch.full((t,), 1.0 / t, device=device)
+    with torch.no_grad():
+        _, lse = lh.fused_lm_head_fwd(h, e, lab)
+        call = lh._BwdLaunch(h, e, lab, lse, gvec)
+        call.launch(lh.FUSED_LM_HEAD_DH)            # dlog for dE
+        dev_plain = time_ms(lambda: lh._plain_backward(h, e, lab, lse, gvec),
+                            iters=3, warmup=1)
+        rows = {}
+        for name, kern in (("dh", lh.FUSED_LM_HEAD_DH),
+                           ("de", lh.FUSED_LM_HEAD_DE)):
+            fn = lambda kern=kern: call.launch(kern)
+            rows[name] = dict(kernel=device_ms(fn, iters=10),
+                              host=time_ms(fn, iters=10, warmup=2))
+        for name, kern in (("dh", lh.FUSED_LM_HEAD_DH),
+                           ("de", lh.FUSED_LM_HEAD_DE)):
+            rows[name]["kernel_again"] = device_ms(
+                lambda kern=kern: call.launch(kern), iters=10)
+    hr, er = h.detach().requires_grad_(), e.detach().requires_grad_()
+    library = _fwd_bwd_minus_fwd(
+        lambda: F.cross_entropy(F.linear(hr, er), lab, reduction="none"),
+        ((hr, er), gvec), device_iters=5)
+    prod = 2 * t * vocab * hid
+    vp = -(-vocab // 64) * 64
+    out = {}
+    for name, nprod, nbytes in (
+            # the logits recompute and dlog E; H, E, labels, lse, g read,
+            # dlog written and read, dH written
+            ("dh", 2, 2 * (2 * t * hid + vocab * hid) + 12 * t
+             + 2 * 2 * t * vp),
+            # dlog^T H: dlog and H read, dE written
+            ("de", 1, 2 * (t * vp + t * hid + vocab * hid))):
+        r = rows[name]
+        dev = dict(kernel=r["kernel"], kernel_again=r["kernel_again"],
+                   plain=dev_plain, library=library)
+        row = _row(dev, r["host"], nprod * prod, nbytes, 989e12)
+        row.update(shape=dict(HEAD_MAIN, dtype="bfloat16"), flops=nprod * prod,
+                   bytes=nbytes, plain_and_library_compute="dH and dE together",
+                   library_call="F.linear + F.cross_entropy forward + "
+                                "backward minus forward (CUDA graphs of 5)")
+        log("phase2-time", kernel=f"fused_lm_head_{name}", **row)
+        out[name] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
 
@@ -638,6 +1214,19 @@ def build_llama_1b(device):
     return model, time.perf_counter() - t0
 
 
+def _drop_side_stream_workspaces() -> None:
+    """Free what the timing phases leave allocated: cuBLAS keeps a
+    workspace for every stream it ran on (each CUDA graph above was
+    captured on a side stream of its own), and a path's peak memory would
+    count them.  The caller warms up after this, so that its measured run
+    finds the allocator and the main stream's workspace ready."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
 def llama_1b(device, model, init_s) -> dict:
     """Serving: the FIFO scheduler over ``DecodeEngine`` on ``model``.  Its
     path runs the norm kernel only."""
@@ -650,6 +1239,7 @@ def llama_1b(device, model, init_s) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     engine = sv.DecodeEngine(model, slots=8, max_len=2048, prefill_len=512,
                              device=device)
+    _drop_side_stream_workspaces()
     # warm-up (cuBLAS handles, allocator): one short request, discarded
     serve(engine, [sv.Request("warm", list(range(1, 65)), max_new_tokens=2)], sv)
     engine.reset()
@@ -836,8 +1426,10 @@ def llama_1b_eval(device, model) -> dict:
                 fa.FLASH_ATTENTION_FWD.name: layers,
                 lh.FUSED_LM_HEAD_FWD.name: 1}
     with torch.inference_mode():
+        _drop_side_stream_workspaces()
         model(ids, labels=labels)                    # warm-up, not counted
         torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _dispatch.reset_launches()
         t0 = time.perf_counter()
@@ -846,7 +1438,7 @@ def llama_1b_eval(device, model) -> dict:
         wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in _dispatch.KERNELS}
         peak = torch.cuda.max_memory_allocated()
-        if launches != expected:
+        if {k: n for k, n in launches.items() if n} != expected:
             raise AssertionError(f"one eval forward launched {launches}, "
                                  f"expected {expected}")
         if tuple(loss.shape) != (b, s) or loss.dtype != torch.float32 \
@@ -894,6 +1486,7 @@ def llama_1b_eval(device, model) -> dict:
                loss_mean=float(loss.mean()), wall_ms=wall * 1e3,
                tokens_per_s=b * s / wall, flops=flops,
                bound_ms=flops / 989e12 * 1e3, peak_mem_bytes=peak,
+               allocated_before_bytes=allocated_before,
                fused_vs_cross_entropy_max_abs=ce_err,
                fused_vs_cross_entropy_tol=2e-3, flash_vs_cached=paths,
                flash_vs_cached_tol="max |diff| <= 0.05 x max|logit|")
@@ -940,6 +1533,263 @@ def profile_eval(model, ids, labels) -> dict:
     return out
 
 
+def small_train_check(device) -> dict:
+    """A small fp32 Llama at head dim 64 (so every kernel of the training
+    path runs), with a separate head and with a tied embedding: the same
+    weights on the card and on the CPU give the ``labels=`` loss and every
+    parameter's gradient, then the losses and parameters of 3 FusedAdam
+    steps, each within its stated tolerance."""
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    out = {}
+    ids = torch.randint(0, 512, (2, 100), generator=torch.Generator().manual_seed(9))
+    for tied in (False, True):
+        cfg = LlamaConfig(vocab_size=512, hidden_size=128,
+                          intermediate_size=256, num_hidden_layers=2,
+                          num_attention_heads=2, num_key_value_heads=1,
+                          max_position_embeddings=256,
+                          tie_word_embeddings=tied)
+        cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                     generator=torch.Generator().manual_seed(10))
+        gpu_model = LlamaForCausalLM(cfg, device=device)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        res = {}
+        for name, model, dev in (("cpu", cpu_model, "cpu"),
+                                 ("cuda", gpu_model, device)):
+            x = ids.to(dev)
+            loss = model(x, labels=torch.roll(x, -1, dims=1)).mean()
+            loss.backward()
+            loss = loss.detach()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+            opt = FusedAdam(model.parameters(), lr=1e-3)
+            losses = [float(train_step(model, opt, x)) for _ in range(3)]
+            params = {n: p.detach().cpu().clone()
+                      for n, p in model.named_parameters()}
+            res[name] = (float(loss), grads, losses, params)
+        c, d = res["cpu"], res["cuda"]
+        lr, steps = 1e-3, 3
+        # Adam divides each gradient by its own size: a gradient error of
+        # up to the gradient tolerance ng moves an element's step by up to
+        # lr ng / (|g| + ng), so each parameter is held to 1e-5 plus that
+        param_ratio = 0.0
+        for n in c[3]:
+            ng = 1e-4 * c[1][n].abs().max()
+            tol = 1e-5 + steps * lr * ng / (c[1][n].abs() + ng + 1e-30)
+            param_ratio = max(param_ratio,
+                              float(((d[3][n] - c[3][n]).abs() / tol).max()))
+        grad_ratio = max(
+            float(((d[1][n] - c[1][n]).abs()
+                   / (1e-4 * c[1][n].abs().max() + 1e-4 * c[1][n].abs()
+                      + 1e-9)).max())
+            for n in c[1])
+        err = dict(loss=abs(c[0] - d[0]),
+                   grad_tol_ratio=grad_ratio,
+                   step_losses=max(abs(a - b) for a, b in zip(c[2], d[2])),
+                   params_after_3_steps=max(float((d[3][n] - c[3][n]).abs().max())
+                                            for n in c[3]),
+                   params_tol_ratio=param_ratio, params=len(c[1]))
+        if (err["loss"] > 1e-5 or grad_ratio > 1.0 or err["step_losses"] > 1e-4
+                or param_ratio > 1.0):
+            raise AssertionError(f"small Llama training (tied={tied}): card "
+                                 f"against CPU {err}")
+        if not c[2][-1] < c[2][0]:
+            raise AssertionError(f"small Llama: loss did not fall {c[2]}")
+        out["tied" if tied else "lm_head"] = err
+    out["tolerance"] = ("loss 1e-5; each gradient within 1e-4 (max|g_ref| + "
+                        "|g_ref|) of the CPU's (fp32, sums in another "
+                        "order); losses of 3 FusedAdam steps (lr 1e-3) 1e-4; "
+                        "each parameter after them within 1e-5 + 3 lr ng / "
+                        "(|g| + ng), ng = 1e-4 max|g_ref| the gradient "
+                        "tolerance: Adam divides each gradient by its own "
+                        "size, so a gradient near the noise of its fp32 "
+                        "sums moves its element by a larger share of lr")
+    log("phase3-train-reference", **out)
+    return out
+
+
+TRAIN_STEPS = 6        # timed steps after one warm-up (bench.py's llama-1b card)
+
+
+def _step_flops(model, b: int, s: int) -> float:
+    """bench.py's model FLOPs of one training step: 6 N per token plus the
+    causal attention term 12 L h s / 2 per token, times the tokens."""
+    cfg = model.config
+    n = sum(p.numel() for p in model.parameters())
+    per_token = 6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size * s // 2
+    return float(per_token * b * s)
+
+
+def llama_1b_train(device) -> dict:
+    """Training: the ``llama-1b`` card, fp32 init from a seeded generator
+    on the card, O2 cast (2-d parameters bf16, norm scales fp32),
+    ``FusedAdam(lr=1e-3, state_dtype=bf16)``, one fixed batch b 4 x s 2048
+    with labels the ids rolled by one; 1 warm-up step, then 6 timed steps
+    with the launches of each step checked exactly; a falling, finite loss;
+    step wall, tokens/s, MFU against 989 TFLOP/s, peak memory and a profile
+    of one step."""
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast, train_step
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = LlamaConfig.llama_1b()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = o2_cast(LlamaForCausalLM(cfg, device=device, generator=gen))
+    opt = FusedAdam(model.parameters(), lr=1e-3, state_dtype=torch.bfloat16)
+    b, s = 4, 2048
+    ids = torch.randint(0, cfg.vocab_size, (b, s),
+                        generator=torch.Generator().manual_seed(8)).to(device)
+    layers = cfg.num_hidden_layers
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                fa.FLASH_ATTENTION_DQ.name: layers,
+                fa.FLASH_ATTENTION_DKV.name: layers,
+                lh.FUSED_LM_HEAD_FWD.name: 1,
+                lh.FUSED_LM_HEAD_DH.name: 1,
+                lh.FUSED_LM_HEAD_DE.name: 1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0 = float(train_step(model, opt, ids))       # warm-up, not counted
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in _dispatch.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
+        if step != per_step:
+            raise AssertionError(f"training step {i} launched {step}, "
+                                 f"expected {per_step}")
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, [loss0] + losses)) or not losses[-1] < loss0 \
+            or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"llama-1b training loss {loss0} then {losses}: "
+                             f"not finite and falling")
+    flops = _step_flops(model, b, s)
+    med = statistics.median(step_ms)
+    out = dict(config="llama-1b", batch=b, seq=s, tokens=b * s,
+               precision="O2: 2-d parameters bf16, norm scales fp32; "
+                         "FusedAdam(lr=1e-3, state_dtype=bf16)",
+               params=sum(p.numel() for p in model.parameters()),
+               warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
+               step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=b * s / (med / 1e3), flops_per_step=flops,
+               bound_ms=flops / 989e12 * 1e3,
+               mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
+               allocated_before_bytes=allocated_before,
+               launches=launches, launches_per_step=per_step)
+    log("phase3-train", **out)
+    out["profile"] = profile_train(model, opt, ids, med)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    """The kind of a device kernel, by its name: one of the port's kernels,
+    cuBLAS, or PyTorch's own elementwise, copy and reduction kernels."""
+    for key, kind in (("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
+                      ("flash_dkv", "flash dk/dv"), ("ln_fwd", "norm forward"),
+                      ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
+                      ("dlog_", "head dH"), ("gemm_mma<", "head dH/dE products")):
+        if key in name:
+            return kind
+    if "nvjet" in name or "gemm" in name or "xmma" in name or "cutlass" in name:
+        return "cuBLAS"
+    if "copy" in name:
+        return "copies and casts"
+    if "reduce" in name:
+        return "reductions"
+    return "elementwise"
+
+
+def _step_phases(model, opt, ids) -> dict:
+    """One more step, its phases each ended by a synchronize on the host
+    clock: the forward and loss, the backward, the optimizer."""
+    import torch
+
+    labels = torch.roll(ids, -1, dims=1)
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model(ids, labels=labels).mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                optimizer_ms=(t3 - t2) * 1e3)
+
+
+def profile_train(model, opt, ids, step_ms: float) -> dict:
+    """One training step traced with ``torch.profiler``: device busy time
+    (the kernels' summed self time) against the traced wall and the
+    unprofiled median step (``step_ms``), device time by kind of kernel,
+    the kernels that take most, and one more step split into its phases
+    on the host clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, ids)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernel rows only: the optimizer's step shows on the device
+    # timeline as a user annotation spanning its kernels, which would count
+    # them twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
+    by_kind = {}
+    for e in kernels:
+        kind = _kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    out = dict(
+        traced_wall_ms=traced_ms, unprofiled_step_ms=step_ms,
+        device_ms_by_kind=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        phases_ms=_step_phases(model, opt, ids),
+        device_idle_share_unprofiled=(1 - busy_ms / step_ms) if kernels
+        else "not measured",
+        device_busy_ms=busy_ms if kernels else "not measured",
+        device_idle_share_traced=(1 - busy_ms / traced_ms) if kernels
+        else "not measured",
+        top_kernels=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                     for e in top])
+    log("phase3-train-profile", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -957,7 +1807,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     smi = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
-    libs = _build.build_all(k.source for k in _dispatch.KERNELS)
+    libs = _build.build_all(sorted({k.source for k in _dispatch.KERNELS}))
     build_s = time.perf_counter() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -975,43 +1825,69 @@ def main() -> int:
     head_check = check_lm_head(device)
     flash_time = time_flash_attention(device)
     head_time = time_lm_head(device)
+    norm_bwd_check = check_layer_norm_bwd(device)
+    flash_bwd_check = check_flash_attention_bwd(device)
+    head_bwd_check = check_lm_head_bwd(device)
+    norm_bwd_time = time_layer_norm_bwd(device)
+    flash_bwd_time = time_flash_attention_bwd(device)
+    head_bwd_time = time_lm_head_bwd(device)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     reference = small_reference_check(device)
     eval_reference = small_eval_check(device)
+    train_reference = small_train_check(device)
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
+    del model
+    torch.cuda.empty_cache()
+    training = llama_1b_train(device)
+
+    def by_path(name):
+        return dict(serving=e2e["launches"][name],
+                    evaluation=evaluation["launches"][name],
+                    training=training["launches"][name])
+
+    def entry(k, err, row, **extra):
+        return dict(name=k.name, route="cuda",
+                    source=f"apex_tpu_torch/csrc/{k.source}",
+                    replaces=k.replaces.split()[0],
+                    launches=training["launches"][k.name], max_abs_err=err,
+                    ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row["library_ms"], main_path="training",
+                    launches_by_path=by_path(k.name), **extra)
 
     decode_row = next(r for r in timings if r["n"] == 8)
-    kernels = {"kernels": [dict(
-        name=ln.LAYER_NORM_FWD.name, route="cuda",
-        source=f"apex_tpu_torch/csrc/{ln.LAYER_NORM_FWD.source}",
-        replaces=ln.LAYER_NORM_FWD.replaces.split()[0],
-        launches=e2e["launches"][ln.LAYER_NORM_FWD.name],
-        max_abs_err=max_err, ms=decode_row["ms"],
-        plain_ms=decode_row["plain_ms"], bound_ms=decode_row["bound_ms"],
-        bound_by=decode_row["bound_by"], library_ms=decode_row["library_ms"],
-        main_path="serving", launches_by_path=dict(
-            serving=e2e["launches"][ln.LAYER_NORM_FWD.name],
-            evaluation=evaluation["launches"][ln.LAYER_NORM_FWD.name]),
-        shapes=timings)]}
-    for k, check, row, err in (
-            (fa.FLASH_ATTENTION_FWD, flash_check, flash_time,
-             flash_check["main_shape"]["o_max_abs_err"]),
-            (lh.FUSED_LM_HEAD_FWD, head_check, head_time,
-             head_check["main_shape"]["loss_max_abs_err"])):
-        kernels["kernels"].append(dict(
-            name=k.name, route="cuda", source=f"apex_tpu_torch/csrc/{k.source}",
-            replaces=k.replaces.split()[0],
-            launches=evaluation["launches"][k.name], max_abs_err=err,
-            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
-            main_path="evaluation", shape=row["shape"]))
+    nb, fb, hb = (norm_bwd_check["main_shape"], flash_bwd_check["main_shape"],
+                  head_bwd_check["main_shape"])
+    kernels = {"kernels": [
+        entry(ln.LAYER_NORM_FWD, max_err, decode_row, shapes=timings,
+              timed_shape="n = 8 (a decode step); n = 512, 8192 in shapes"),
+        entry(ln.LAYER_NORM_BWD, max(nb["dx_max_abs_err"], nb["dw_max_abs_err"]),
+              norm_bwd_time, shape=norm_bwd_time["shape"]),
+        entry(fa.FLASH_ATTENTION_FWD, flash_check["main_shape"]["o_max_abs_err"],
+              flash_time, shape=flash_time["shape"]),
+        entry(fa.FLASH_ATTENTION_DQ, fb["dq_max_abs_err"], flash_bwd_time["dq"],
+              shape=flash_bwd_time["dq"]["shape"]),
+        entry(fa.FLASH_ATTENTION_DKV, max(fb["dk_max_abs_err"], fb["dv_max_abs_err"]),
+              flash_bwd_time["dkv"], shape=flash_bwd_time["dkv"]["shape"]),
+        entry(lh.FUSED_LM_HEAD_FWD, head_check["main_shape"]["loss_max_abs_err"],
+              head_time, shape=head_time["shape"]),
+        entry(lh.FUSED_LM_HEAD_DH, hb["dh_max_abs_err"], head_bwd_time["dh"],
+              shape=head_bwd_time["dh"]["shape"]),
+        entry(lh.FUSED_LM_HEAD_DE, hb["de_max_abs_err"], head_bwd_time["de"],
+              shape=head_bwd_time["de"]["shape"]),
+    ]}
+    if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
+        raise AssertionError("the kernels line does not list every kernel")
     report = dict(nvidia_smi=smi, clocks_after_timing=clocks, build_s=build_s,
-                  kernel_checks=[flash_check, head_check],
-                  kernel_times=[flash_time, head_time],
+                  kernel_checks=[flash_check, head_check, norm_bwd_check,
+                                 flash_bwd_check, head_bwd_check],
+                  kernel_times=[flash_time, head_time, norm_bwd_time,
+                                flash_bwd_time, head_bwd_time],
                   reference=reference, eval_reference=eval_reference,
-                  llama_1b=e2e, evaluation=evaluation, kernels=kernels,
+                  train_reference=train_reference, llama_1b=e2e,
+                  evaluation=evaluation, training=training, kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

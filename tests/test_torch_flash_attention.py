@@ -208,3 +208,140 @@ def test_kernel_matches_plain_version_on_card():
         ro, rlse = tfa._plain_forward(q, k, v, causal=True)
     torch.testing.assert_close(o, ro, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward (training slice)
+# ---------------------------------------------------------------------------
+
+
+def _jax_grads(q, k, v, causal, qs, ks, rate, seed, do, monkeypatch):
+    """dq and the per-kv-head dk, dv of the JAX ``flash_attention`` (its
+    Pallas dq and dk/dv kernels in interpret mode) on K/V repeated per
+    group, as the JAX model calls it; the repeated heads' grads are summed
+    over each group."""
+    import jax
+
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    h, hk = q.shape[1], k.shape[1]
+    rep = h // hk
+    if qs is None:
+        seg = None
+    else:
+        jqs, jks = jnp.asarray(qs), jnp.asarray(ks)
+        seg = jqs if _self_attention(qs, ks) else (jqs, jks)
+
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=causal, segment_ids=seg,
+                                   dropout_rate=rate, dropout_seed=seed,
+                                   block_q=BLOCK, block_k=BLOCK)
+
+    jk = jnp.asarray(np.repeat(k, rep, axis=1))
+    jv = jnp.asarray(np.repeat(v, rep, axis=1))
+    assert jfa._kernel_ok(jnp.asarray(q), jk, BLOCK, BLOCK)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jk, jv)
+    dq, dk, dv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    b, _, sk, d = k.shape
+    return (dq, dk.reshape(b, hk, rep, sk, d).sum(2),
+            dv.reshape(b, hk, rep, sk, d).sum(2))
+
+
+def _torch_grads(q, k, v, causal, qs, ks, rate, seed, do):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal=causal,
+                            segment_ids=_torch_segments(qs, ks),
+                            dropout_rate=rate, dropout_seed=seed)
+    o.backward(torch.from_numpy(do))
+    return tq.grad.numpy(), tk.grad.numpy(), tv.grad.numpy()
+
+
+# the forward's cases plus grouped-query attention (4 query heads over 2)
+_BWD_CASES = dict(CASES, gqa=(2, 4, 2, 32, 32, True, None, 0.0, None),
+                  gqa_dropout=(1, 4, 1, 32, 48, True, "packed", 0.2, 5))
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_backward_matches_jax_grad(case, monkeypatch):
+    """dq, dk, dv of the port's plain backward (through ``_FlashFunction``
+    on the CPU) against ``jax.vjp`` of the JAX ``flash_attention``: causal,
+    segment ids with dead rows, dropout with the same seed, sq != sk, and
+    GQA, where the port's kv-head grads equal JAX's repeated-head grads
+    summed over each group.  fp32; atol = rtol = 1e-5 (sums over 16-48
+    keys and rows taken in another order)."""
+    b, h, hk, sq, sk, causal, seg, rate, seed = _BWD_CASES[case]
+    q, k, v = _inputs(b, h, hk, sq, sk, seed=21)
+    do = np.random.default_rng(22).standard_normal(q.shape).astype(np.float32)
+    qs, ks = _segments(seg, b, sq, sk)
+    ref = _jax_grads(q, k, v, causal, qs, ks, rate, seed, do, monkeypatch)
+    ours = _torch_grads(q, k, v, causal, qs, ks, rate, seed, do)
+    for name, o, r in zip(("dq", "dk", "dv"), ours, ref):
+        assert o.shape == r.shape, name
+        np.testing.assert_allclose(o, r, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_backward_function_equals_direct_call():
+    """``flash_attention_bwd`` on the forward's o and lse gives what
+    autograd through ``flash_attention`` gives."""
+    q, k, v = _inputs(1, 4, 2, 24, 40, seed=23)
+    do = np.random.default_rng(24).standard_normal(q.shape).astype(np.float32)
+    ours = _torch_grads(q, k, v, True, None, None, 0.1, 3, do)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal=True, dropout_rate=0.1,
+                                     dropout_seed=3)
+    direct = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=True,
+                                     dropout_rate=0.1, dropout_seed=3)
+    for a, b in zip(ours, direct):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("causal,segments,rate", [
+    (True, False, 0.0), (False, True, 0.0), (True, True, 0.3)])
+def test_flash_function_gradcheck(causal, segments, rate):
+    """``_FlashFunction`` in float64, with GQA and sq != sk, against finite
+    differences (dead rows, whose lse is +inf, included by the segments);
+    head dim 16, which only the plain version takes."""
+    rng = np.random.default_rng(25)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((1, 4, 6, 16), (1, 2, 9, 16), (1, 2, 9, 16)))
+    seg = None
+    if segments:
+        seg = (torch.tensor([[0, 0, 1, 1, 1, 7]]),
+               torch.tensor([[0, 0, 0, 1, 1, 1, 1, 1, 1]]))
+    fn = lambda q, k, v: tfa.flash_attention(q, k, v, causal=causal,
+                                             segment_ids=seg,
+                                             dropout_rate=rate,
+                                             dropout_seed=9 if rate else None)
+    assert torch.autograd.gradcheck(fn, (q, k, v))
+
+
+def test_no_graph_without_grad():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 8, 8, seed=26))
+    assert tfa.flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v).grad_fn is None
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    assert o.grad_fn is not None and not lse.requires_grad
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 8, 8, seed=27))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._BwdLaunch(q, k, v, o, lse, o, None, None, False, 0.125, 0.0, None)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_version_on_card():
+    """The dq and dk/dv kernels against the plain backward on the card
+    (chip_smoke.py runs the full grid); skipped on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(2, 4, 2, 40, 72))
+    do = torch.randn_like(q)
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+        ours = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        ref = tfa._plain_backward(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

@@ -117,3 +117,114 @@ def test_kernel_matches_plain_version_on_card():
         rloss, rlse = tlh._plain_forward(h, e, lab)
     torch.testing.assert_close(loss, rloss, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward (training slice)
+# ---------------------------------------------------------------------------
+
+
+def _cotangent(lead=(T,), seed=30):
+    """A non-uniform per-token cotangent of both signs."""
+    return (np.random.default_rng(seed).standard_normal(lead) / 64).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("vocab", [1000, 1537])
+def test_backward_matches_jax_grad(vocab, monkeypatch):
+    """dH and dE of the port's plain backward (through ``_HeadFunction``
+    on the CPU) against ``jax.vjp`` of the JAX ``fused_lm_head_loss`` (its
+    Pallas dH and dE kernels in interpret mode) under a non-uniform
+    cotangent, with labels -100 and vocab and a vocabulary off the tile.
+    fp32 at atol = rtol = 1e-5."""
+    import jax
+
+    h, e, lab = _inputs(vocab, seed=31)
+    g = _cotangent()
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    assert jlh._kernel_ok(T, HID, 512)
+    _, vjp = jax.vjp(lambda h, e: jlh.fused_lm_head_loss(h, e, jnp.asarray(lab)),
+                     jnp.asarray(h), jnp.asarray(e))
+    ref_dh, ref_de = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    th = torch.from_numpy(h).requires_grad_()
+    te = torch.from_numpy(e).requires_grad_()
+    tlh.fused_lm_head_loss(th, te, torch.from_numpy(lab)).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(th.grad.numpy(), ref_dh, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(te.grad.numpy(), ref_de, atol=1e-5, rtol=1e-5)
+
+
+def test_out_of_range_labels_put_no_minus_one():
+    """A label outside [0, vocab) matches no column: its token's dlog is
+    the softmax times g alone, so the gradient equals a materialised
+    computation whose one-hot ignores those labels."""
+    vocab = 300
+    h, e, lab = _inputs(vocab, lead=(64,), seed=32)
+    g = _cotangent((64,), seed=33)
+    th, te, tl, tg = (torch.from_numpy(a) for a in (h, e, lab, g))
+    _, lse = tlh.fused_lm_head_fwd(th, te, tl)
+    dh, de = tlh.fused_lm_head_bwd(th, te, tl, lse, tg)
+    logits = h.astype(np.float64) @ e.astype(np.float64).T
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    onehot = np.zeros_like(p)
+    ok = (lab >= 0) & (lab < vocab)
+    onehot[np.arange(64)[ok], lab[ok]] = 1.0
+    dlog = (p - onehot) * g[:, None]
+    assert (~ok).sum() > 0
+    np.testing.assert_allclose(dh.numpy(), dlog @ e, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(de.numpy(), dlog.T @ h, atol=1e-5, rtol=1e-5)
+
+
+def test_head_function_gradcheck():
+    """``_HeadFunction`` in float64 against finite differences, labels
+    -100 and vocab included, under a non-uniform cotangent."""
+    rng = np.random.default_rng(34)
+    h = torch.from_numpy(rng.standard_normal((7, 16))).requires_grad_()
+    e = torch.from_numpy(rng.standard_normal((11, 16))).requires_grad_()
+    lab = torch.tensor([0, 3, -100, 11, 10, 5, 2])
+    w = torch.from_numpy(rng.standard_normal(7))
+    assert torch.autograd.gradcheck(
+        lambda h, e: tlh.fused_lm_head_loss(h, e, lab) * w, (h, e))
+
+
+def test_tied_table_gradient_sums_both_uses():
+    """A table used as the embedding and as the head gets both gradients
+    (the tied Llama head)."""
+    h, e, lab = _inputs(50, lead=(8,), seed=35)
+    te = torch.from_numpy(e).requires_grad_()
+    ids = torch.from_numpy(lab.clip(0, 49)).long()
+    x = torch.nn.functional.embedding(ids, te) + torch.from_numpy(h)
+    tlh.fused_lm_head_loss(x, te, torch.from_numpy(lab)).sum().backward()
+    te2 = torch.from_numpy(e).requires_grad_()
+    x2 = torch.nn.functional.embedding(ids, te2) + torch.from_numpy(h)
+    logits = x2 @ te2.t()
+    lse = torch.logsumexp(logits, -1)
+    tl = torch.from_numpy(lab).long()
+    ok = (tl >= 0) & (tl < 50)
+    tgt = torch.where(ok, logits.gather(1, tl.clamp(0, 49)[:, None])[:, 0], 0.0)
+    (lse - tgt).sum().backward()
+    np.testing.assert_allclose(te.grad.numpy(), te2.grad.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    h, e, lab = (torch.from_numpy(a) for a in _inputs(64, lead=(8,)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tlh._BwdLaunch(h, e, lab, torch.zeros(8), torch.ones(8))
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_version_on_card():
+    """The dH and dE kernels against the plain backward on the card
+    (chip_smoke.py runs the full grid); skipped on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    h, e, lab = (torch.from_numpy(a).cuda() for a in _inputs(1000))
+    g = torch.from_numpy(_cotangent()).cuda()
+    with torch.no_grad():
+        _, lse = tlh.fused_lm_head_fwd(h, e, lab)
+        ours = tlh.fused_lm_head_bwd(h, e, lab, lse, g)
+        ref = tlh._plain_backward(h, e, lab, lse, g)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

@@ -227,3 +227,163 @@ def test_kernel_matches_plain_version_on_card():
             ours = tln._norm_forward(*args, 1e-5, False)
             ref = tln._plain_forward(*args, 1e-5, False)
         _check(tuple(t.cpu() for t in ours), tuple(t.cpu() for t in ref), xdt)
+
+
+# ---------------------------------------------------------------------------
+# the backward (training slice)
+# ---------------------------------------------------------------------------
+
+
+def _grads_both(x, w, b, dy, *, rms, mem_eff, xdt="float32", wdt="float32"):
+    """(port (dx, dw, db), JAX (dx, dw, db)) for the same inputs and
+    cotangent: the port through ``_NormFunction`` on the CPU (its plain
+    backward), JAX through ``jax.vjp`` of its custom-vjp ``_norm`` with the
+    Pallas kernels in interpret mode."""
+    import jax
+
+    tx = _to_torch(x, xdt).requires_grad_()
+    tw = None if w is None else _to_torch(w, wdt).requires_grad_()
+    tb = None if b is None else _to_torch(b, wdt).requires_grad_()
+    y = tln._norm(tx, tw, tb, 1e-5, rms, mem_eff)
+    y.backward(_to_torch(dy, xdt))
+    ours = (tx.grad, None if tw is None else tw.grad,
+            None if tb is None else tb.grad)
+
+    args = [jnp.asarray(x, _JNP[xdt])] + [
+        jnp.asarray(a, _JNP[wdt]) for a in (w, b) if a is not None]
+
+    def f(*a):
+        return jln._norm(a[0], a[1] if w is not None else None,
+                         a[2] if b is not None else None, 1e-5, rms, mem_eff)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_KERNELS", "interpret")
+        _, vjp = jax.vjp(f, *args)
+        grads = vjp(jnp.asarray(dy, _JNP[xdt]))
+    ref = (grads[0], grads[1] if w is not None else None,
+           grads[2] if b is not None else None)
+    return ours, ref
+
+
+# (rms, weight?, bias?): RMSNorm takes no bias
+_BWD_AFFINE = [pytest.param(rms, w, b, id=f"{'rms' if rms else 'ln'}-{name}")
+               for rms in (False, True)
+               for w, b, name in ((False, False, "plain"), (True, False, "w"),
+                                  (True, True, "w+b"))
+               if not (rms and b)]
+
+
+@pytest.mark.parametrize("mem_eff", [False, True], ids=["x", "memeff"])
+@pytest.mark.parametrize("rms,has_w,has_b", _BWD_AFFINE)
+def test_plain_backward_matches_jax_grad(rms, has_w, has_b, mem_eff):
+    """dx, dγ, dβ of the port's plain backward against ``jax.vjp`` of the
+    JAX ``_norm`` (its Pallas ``_bwd_kernel`` in interpret mode), over
+    LN/RMS, affine/bias and ``memory_efficient`` (the saved ``y`` and
+    ``xhat = (y - b) / w``), at a ragged 5-row n; fp32 at 1e-5."""
+    x, w, b = _inputs(5, 128, seed=11)
+    dy = np.random.default_rng(12).standard_normal((5, 128)).astype(np.float32)
+    ours, ref = _grads_both(x, w if has_w else None, b if has_b else None, dy,
+                            rms=rms, mem_eff=mem_eff)
+    for o, r in zip(ours, ref):
+        if r is None:
+            assert o is None
+            continue
+        np.testing.assert_allclose(_np32(o), _np32(r), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_mixed_dtype_backward_matches_jax_grad(rms):
+    """The O2 case: x bf16 with an fp32 scale (and bias).  dx in bf16
+    within one bf16 ulp (the two sides round the same fp32 value), dγ and
+    dβ in the weight's fp32 at 1e-5."""
+    x, w, b = _inputs(16, 256, seed=13)
+    dy = np.random.default_rng(14).standard_normal((16, 256)).astype(np.float32)
+    ours, ref = _grads_both(x, w, None if rms else b, dy, rms=rms,
+                            mem_eff=False, xdt="bfloat16", wdt="float32")
+    assert ours[0].dtype == torch.bfloat16 and ours[1].dtype == torch.float32
+    assert_ulp_close(ours[0], ref[0], "bfloat16")
+    for o, r in zip(ours[1:], ref[1:]):
+        if r is not None:
+            np.testing.assert_allclose(_np32(o), _np32(r), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mem_eff", [False, True], ids=["x", "memeff"])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_norm_function_gradcheck(rms, mem_eff):
+    """``_NormFunction`` in float64 (its plain forward and backward on the
+    CPU) against finite differences."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((4, 12))).requires_grad_()
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(12)).requires_grad_()
+    b = (None if rms
+         else torch.from_numpy(0.1 * rng.standard_normal(12)).requires_grad_())
+    args = (x, w) if rms else (x, w, b)
+    fn = lambda *a: tln._NormFunction.apply(
+        a[0], a[1], None if rms else a[2], 1e-5, rms, mem_eff)
+    assert torch.autograd.gradcheck(fn, args)
+
+
+def test_memory_efficient_saves_the_output():
+    """With ``memory_efficient`` the graph keeps ``y``, not ``x``."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(3, 128, seed=16))
+    x.requires_grad_()
+    for mem_eff in (False, True):
+        y = tln._norm(x, w, b, 1e-5, False, mem_eff)
+        saved = y.grad_fn.saved_tensors[0]
+        assert saved.data_ptr() == (y if mem_eff else x).data_ptr()
+
+
+def test_no_graph_without_grad():
+    """Under ``no_grad`` (and on tensors that need no gradient) the
+    forward runs alone: no autograd node, nothing saved."""
+    x, w, _ = (torch.from_numpy(a) for a in _inputs(3, 128, seed=17))
+    with torch.no_grad():
+        assert tln._norm(x.requires_grad_(), w, None, 1e-5, True, False).grad_fn is None
+    assert tln._norm(x.detach(), w, None, 1e-5, True, False).grad_fn is None
+
+
+@pytest.mark.parametrize("n,h,affine", [(8192, 2048, True), (8, 2048, True),
+                                        (5, 5000, True), (100, 13000, True),
+                                        (8192, 2048, False)])
+def test_bwd_grid_fits_shared_memory(n, h, affine):
+    """The row pass's warps and blocks: the per-warp column sums fit with
+    three blocks an SM (one warp at the least), three blocks an SM, and
+    every row has a warp."""
+    warps, blocks = tln.bwd_grid(n, h, affine, sms=132)
+    assert 1 <= warps <= 8 and blocks >= 1
+    if affine:
+        assert warps * 2 * h * 4 <= tln._SMEM_MAX // 3 or warps == 1
+        assert blocks <= 3 * 132
+    else:
+        assert blocks * warps >= n
+
+
+def test_bwd_grid_rejects_rows_too_long():
+    with pytest.raises(ValueError, match="shared memory"):
+        tln.bwd_grid(4, 40000, True, sms=132)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    x = torch.randn(3, 128)
+    launches = tln.LAYER_NORM_BWD.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layer_norm_bwd(x, x, torch.zeros(3), torch.ones(3), None, None,
+                           True, False)
+    assert tln.LAYER_NORM_BWD.launches == launches
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_version_on_card():
+    """The CUDA backward against its plain version, on the card
+    (chip_smoke.py runs the full grid); skipped on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _inputs(37, 200)
+    dy = np.random.default_rng(18).standard_normal((37, 200)).astype(np.float32)
+    tx, tw, tb, tdy = (torch.from_numpy(a).cuda() for a in (x, w, b, dy))
+    with torch.no_grad():
+        _, mean, rstd = tln._plain_forward(tx, tw, tb, 1e-5, False)
+        ours = tln.layer_norm_bwd(tdy, tx, mean, rstd, tw, tb, False, False)
+        ref = tln._plain_backward(tdy, tx, mean, rstd, tw, tb, False, False)
+    for o, r in zip(ours, ref):
+        torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)

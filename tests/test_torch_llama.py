@@ -217,3 +217,139 @@ def test_labels_with_kv_cache_raises(torch_model):
     ids = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="labels"):
         torch_model(ids, labels=ids, kv_cache=cache, slot=0, position=0)
+
+
+# ---------------------------------------------------------------------------
+# training (the third slice): gradients, FusedAdam steps, the driver
+# ---------------------------------------------------------------------------
+
+
+def _jax_loss_and_grads(model, params, ids, labels):
+    """``jax.value_and_grad`` of the mean ``labels=`` loss, as
+    examples/llama/pretrain.py's ``loss_fn`` (Pallas kernels in interpret
+    mode), with the grads as a port ``state_dict``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_KERNELS", "interpret")
+        loss, grads = jax.value_and_grad(
+            lambda p: model.apply(p, jnp.asarray(ids),
+                                  labels=jnp.asarray(labels)).mean())(params)
+    return float(loss), grads
+
+
+def test_loss_and_every_grad_match_jax(flash_pair):
+    """The mean ``labels=`` loss and the gradient of every parameter
+    (projections, norm scales, embedding, and the separate head or the
+    tied table, whose gradient sums the lookup's and the head's) against
+    ``jax.value_and_grad`` on the same weights, b * s = 512 at head dim 64
+    so that JAX runs its Pallas forward and backward kernels.  fp32: loss
+    at 1e-5, each gradient within 1e-4 of its largest entry plus 1e-4 of
+    itself (sums over 512 tokens taken in another order)."""
+    model, params, ours = flash_pair
+    ids, labels = _ids_and_labels(seed=6)
+    ref_loss, jgrads = _jax_loss_and_grads(model, params, ids, labels)
+    ref = llama_params_from_jax(jax.tree.map(np.asarray, jgrads), ours.config)
+    ours.zero_grad(set_to_none=True)
+    loss = ours(torch.from_numpy(ids).long(),
+                labels=torch.from_numpy(labels).long()).mean()
+    loss.backward()
+    assert abs(float(loss.detach()) - ref_loss) < 1e-5
+    grads = {n: p.grad for n, p in ours.named_parameters()}
+    assert set(grads) == set(ref)
+    for name, g in grads.items():
+        r = ref[name].numpy()
+        assert g is not None, name
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=name)
+    ours.zero_grad(set_to_none=True)
+
+
+def test_three_step_trajectory_matches_jax():
+    """Three steps of ``train_step`` with FusedAdam against the JAX step of
+    examples/llama/pretrain.py:126-136 at dp = tp = 1 (value_and_grad of
+    the mean loss, then ``FusedAdam.step``), from the same weights on one
+    fixed batch: the losses at 1e-5, and the parameters and both moments
+    (carried over by the same converter) after the steps.  An element's
+    Adam step is g / (|g| + eps)-like, so a gradient near the noise of its
+    fp32 sums moves its element by a larger share of lr: each element is
+    held to 1e-6 + 3 lr ng / (|g1| + ng), ng = 1e-4 max|g1| the gradient
+    tolerance above and g1 the first step's gradient."""
+    from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    lr, steps = 1e-3, 3
+    cfg = dict(FLASH_CFG)
+    model = JaxLlama(JaxLlamaConfig(**cfg))
+    params = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 4), jnp.int32))
+    ids, labels = _ids_and_labels(seed=7)
+    jopt = JaxFusedAdam(lr=lr)
+    jstate = jopt.init(params)
+    jlosses, g1 = [], None
+    for _ in range(steps):
+        loss, grads = _jax_loss_and_grads(model, params, ids, labels)
+        g1 = grads if g1 is None else g1
+        params, jstate = jopt.step(grads, params, jstate)
+        jlosses.append(loss)
+
+    ours = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
+    init = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 4), jnp.int32))
+    ours.load_state_dict(llama_params_from_jax(jax.tree.map(np.asarray, init),
+                                               ours.config))
+    opt = FusedAdam(ours.parameters(), lr=lr)
+    tids = torch.from_numpy(ids).long()
+    losses = [float(train_step(ours, opt, tids)) for _ in range(steps)]
+    np.testing.assert_allclose(losses, jlosses, atol=1e-5, rtol=0)
+    assert losses[-1] < losses[0]
+
+    conv = lambda tree: llama_params_from_jax(jax.tree.map(np.asarray, tree),
+                                              ours.config)
+    ref_p, ref_m, ref_v = conv(params), conv(jstate[0].exp_avg), conv(
+        jstate[0].exp_avg_sq)
+    grad1 = conv(g1)
+    for name, p in ours.named_parameters():
+        g = np.abs(grad1[name].numpy())
+        ng = 1e-4 * g.max()
+        tol = 1e-6 + steps * lr * ng / (g + ng + 1e-30)
+        assert (np.abs(p.detach().numpy() - ref_p[name].numpy()) <= tol).all(), name
+        st = opt.state[p]
+        np.testing.assert_allclose(st["exp_avg"].numpy(), ref_m[name].numpy(),
+                                   rtol=1e-4, atol=1e-4 * g.max(), err_msg=name)
+        np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
+                                   ref_v[name].numpy(), rtol=1e-3,
+                                   atol=1e-4 * g.max() ** 2, err_msg=name)
+
+
+def test_o2_cast_keeps_norm_scales_fp32():
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+
+    model = o2_cast(LlamaForCausalLM(LlamaConfig(**CFG), device="cpu"))
+    for name, p in model.named_parameters():
+        want = torch.bfloat16 if p.dim() >= 2 else torch.float32
+        assert p.dtype == want, name
+    # the O2 model trains: bf16 activations, fp32 norm-scale gradients
+    ids = torch.randint(0, CFG["vocab_size"], (2, 8))
+    model(ids, labels=torch.roll(ids, -1, 1)).mean().backward()
+    assert model.norm.scale.grad.dtype == torch.float32
+    assert model.embed_tokens.weight.grad.dtype == torch.bfloat16
+
+
+def test_pretrain_driver_on_cpu_loss_falls(capsys):
+    """``llama_pretrain.main`` on ``--device cpu`` at a tiny size: the
+    loss falls (it raises otherwise), with the bf16 O2 precision too."""
+    from apex_tpu_torch.examples import llama_pretrain
+
+    argv = ["--device", "cpu", "--layers", "2", "--steps", "3", "--seq", "32",
+            "--batch", "2", "--vocab", "128"]
+    last = llama_pretrain.main(argv)
+    assert np.isfinite(last)
+    last_o2 = llama_pretrain.main(argv + ["--o2", "--lr", "1e-2"])
+    assert np.isfinite(last_o2)
+    assert "llama pretrain OK" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--tp", "--pp"])
+def test_pretrain_driver_refuses_model_parallelism(flag):
+    from apex_tpu_torch.examples import llama_pretrain
+
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        llama_pretrain.main(["--device", "cpu", flag, "2"])

@@ -33,7 +33,8 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.models, apex_tpu_torch.normalization, "
         "apex_tpu_torch.transformer.tensor_parallel, "
         "apex_tpu_torch.ops.layer_norm, apex_tpu_torch.ops.rope, "
-        "apex_tpu_torch.ops.flash_attention, apex_tpu_torch.ops.fused_lm_head\n"
+        "apex_tpu_torch.ops.flash_attention, apex_tpu_torch.ops.fused_lm_head, "
+        "apex_tpu_torch.optimizers, apex_tpu_torch.examples.llama_pretrain\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
@@ -78,11 +79,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         sv.init_cache(cfg, slots=1, max_len=8)
 
 
-# every kernel of the port: (name, the JAX file:function of its table row)
+# every kernel of the port, module by module: (name, the JAX file:function
+# of its table row)
 _KERNELS = [
     ("layer_norm_fwd", "apex_tpu/ops/layer_norm.py", "_fwd_kernel"),
+    ("layer_norm_bwd", "apex_tpu/ops/layer_norm.py", "_bwd_kernel"),
     ("flash_attention_fwd", "apex_tpu/ops/flash_attention.py", "_fwd_kernel"),
+    ("flash_attention_dq", "apex_tpu/ops/flash_attention.py", "_dq_kernel"),
+    ("flash_attention_dkv", "apex_tpu/ops/flash_attention.py", "_dkv_kernel"),
     ("fused_lm_head_fwd", "apex_tpu/ops/fused_lm_head.py", "_fwd_kernel"),
+    ("fused_lm_head_dh", "apex_tpu/ops/fused_lm_head.py", "_dh_kernel"),
+    ("fused_lm_head_de", "apex_tpu/ops/fused_lm_head.py", "_de_kernel"),
 ]
 
 

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from apex_tpu import serving as jsv
 from apex_tpu.models import LlamaConfig as JaxLlamaConfig
@@ -207,3 +208,23 @@ def test_scheduler_submit_guards(served):
         sv.ContinuousBatchingScheduler(served["teng"]).submit(
             sv.Request("c", [1] * 100, max_new_tokens=40))
 
+
+
+def test_engine_leaves_the_callers_model_trainable(served):
+    """Building a DecodeEngine puts the model in eval mode only: its
+    parameters keep requires_grad (every engine call runs under
+    inference_mode, so nothing records a gradient there), the served
+    streams are those of the first run, and the model still trains."""
+    teng = served["teng"]
+    model = teng.model
+    assert not model.training
+    assert all(p.requires_grad for p in model.parameters())
+    sched = sv.ContinuousBatchingScheduler(teng)
+    for i, p in enumerate(served["prompts"]):
+        sched.submit(sv.Request(f"r{i}", p, max_new_tokens=NEW_TOKENS))
+    assert {r: res.tokens for r, res in sched.run().items()} == \
+        served["torch_streams"]
+    ids = torch.tensor([served["prompts"][1]])
+    model(ids, labels=torch.roll(ids, -1, 1)).mean().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    model.zero_grad(set_to_none=True)
