@@ -19,7 +19,13 @@ flash attention and fused LM-head kernels, forward and backward
 :mod:`~apex_tpu_torch.ops.flash_attention`,
 :mod:`~apex_tpu_torch.ops.fused_lm_head`), and
 :class:`~apex_tpu_torch.optimizers.FusedAdam`
-(:mod:`~apex_tpu_torch.examples.llama_pretrain` drives it).
+(:mod:`~apex_tpu_torch.examples.llama_pretrain` drives it); and GPT
+training: :class:`~apex_tpu_torch.transformer.testing.GPTModel` with
+flash attention or the fused scaled/masked softmax
+(:mod:`~apex_tpu_torch.ops.softmax`), under
+:class:`~apex_tpu_torch.optimizers.FusedLAMB`, unpacked or over the packed
+LAMB kernel (:mod:`~apex_tpu_torch.ops.packed_update`)
+(:mod:`~apex_tpu_torch.examples.gpt_pretrain` drives it).
 """
 
 __version__ = "0.1.0"

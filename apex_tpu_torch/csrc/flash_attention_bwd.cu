@@ -120,8 +120,8 @@ constexpr int kPad = 8;        // shared row padding (elements): conflict-free l
 // blocks an SM the register budget is set for: at d = 64, three (168
 // registers, a few bytes spilled) measured faster than two (230-234
 // registers) by 12-19%, and four (128 registers) spilled hundreds of bytes
-// and ran slower than both
-constexpr int min_blocks(int d) { return d == 64 ? 3 : 2; }
+// and ran slower than both; d = 32 keeps the d = 64 budget
+constexpr int min_blocks(int d) { return d <= 64 ? 3 : 2; }
 
 // rows [row0, row0 + 64) of a [rows, D] operand (row stride `rs` elements)
 // into shared memory with row stride D + kPad; rows >= n_rows are zeroed
@@ -759,7 +759,7 @@ bool make_params(Params& p, const void* q, const void* k, const void* v, const v
 // dk, dv (24 values), unit last stride; 16-bit operands start on 16 bytes
 // with strides that are multiples of 8.  lse and delta [b, h, sq] fp32
 // contiguous; qseg [b, sq] and kseg [b, sk] int32 or both null.  dtype: 0
-// fp32, 1 bf16, 2 fp16; d: 64 or 128.
+// fp32, 1 bf16, 2 fp16; d: 32, 64 or 128.
 //
 // apex_flash_attention_dq writes dq and delta; apex_flash_attention_dkv
 // reads delta as dq wrote it and writes dk and dv.  Each launches on
@@ -778,6 +778,7 @@ extern "C" int apex_flash_attention_dq(FLASH_BWD_ARGS) {
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 32: return (int)launch_dq<32>(dtype, p, s);
     case 64: return (int)launch_dq<64>(dtype, p, s);
     case 128: return (int)launch_dq<128>(dtype, p, s);
   }
@@ -791,6 +792,7 @@ extern "C" int apex_flash_attention_dkv(FLASH_BWD_ARGS) {
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 32: return (int)launch_dkv<32>(dtype, p, s);
     case 64: return (int)launch_dkv<64>(dtype, p, s);
     case 128: return (int)launch_dkv<128>(dtype, p, s);
   }

@@ -36,8 +36,8 @@
 // fp32 inputs take a separate CUDA-core kernel in full fp32 (never TF32):
 // one warp per query row, 32 keys a step.
 //
-// Template parameters are only the element type and the head dim (64 or
-// 128): six instantiations.  Causal, segments and dropout are runtime
+// Template parameters are only the element type and the head dim (32, 64
+// or 128): nine instantiations.  Causal, segments and dropout are runtime
 // arguments.
 //
 // C interface (loaded with ctypes): apex_flash_attention_fwd returns
@@ -108,9 +108,10 @@ __device__ __forceinline__ void load_tile(T* smem, const T* base, int64_t rs, in
 }
 
 // at d = 64 the registers are held to 128 a thread so that four blocks (16
-// warps) share an SM: measured faster than three blocks at 155 registers
+// warps) share an SM: measured faster than three blocks at 155 registers;
+// d = 32 keeps half the accumulators and the same budget
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32, D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(kWarps * 32, D <= 64 ? 4 : 2)
 flash_fwd_mma(const Params p) {
   constexpr int SD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -469,7 +470,7 @@ cudaError_t by_dtype(int dtype, const Params& p, cudaStream_t stream) {
 // row) given and a unit last stride; o like q (its own strides); lse
 // [b, h, sq] fp32 contiguous; qseg [b, sq] and kseg [b, sk] int32 or both
 // null.  16-bit operands start on 16 bytes with strides that are multiples
-// of 8.  dtype: 0 fp32, 1 bf16, 2 fp16; d: 64 or 128.  Launches on `stream`
+// of 8.  dtype: 0 fp32, 1 bf16, 2 fp16; d: 32, 64 or 128.  Launches on `stream`
 // and returns cudaGetLastError().
 extern "C" int apex_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -491,6 +492,7 @@ extern "C" int apex_flash_attention_fwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
+    case 32: err = by_dtype<32>(dtype, p, s); break;
     case 64: err = by_dtype<64>(dtype, p, s); break;
     case 128: err = by_dtype<128>(dtype, p, s); break;
     default: err = cudaErrorInvalidValue;

@@ -11,9 +11,9 @@ and a :class:`~apex_tpu_torch.optimizers.FusedAdam` update.  ``--o2``
 applies the precision of ``bench.py``'s ``llama-1b`` card (:func:`o2_cast`
 and bf16 optimizer moments).
 
-On the card the flash attention kernels take head dims 64 and 128 only,
-and the JAX driver's defaults (hidden 128 over 4 heads) give 32: there the
-run raises rather than falling back; pass e.g. ``--heads 2``.  Tensor and
+On the card the flash attention kernels take head dims 32, 64 and 128,
+so the JAX trainer's defaults (hidden 128 over 4 heads, head dim 32) run
+there; another head dim raises rather than falling back.  Tensor and
 pipeline parallelism (``--tp``/``--pp`` > 1) need NCCL and come with a
 later slice of the port; they raise.
 """
@@ -61,9 +61,8 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
-        epilog="On the card the flash attention kernels take head dims 64 "
-               "and 128: the default hidden 128 over 4 heads (head dim 32) "
-               "raises there; pass e.g. --heads 2.")
+        epilog="On the card the flash attention kernels take head dims 32, "
+               "64 and 128; another head dim raises there.")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--heads", type=int, default=4)

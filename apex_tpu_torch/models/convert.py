@@ -1,10 +1,12 @@
-"""Carry Llama weights over from a flax parameter tree.
+"""Carry Llama and GPT weights over from a flax parameter tree.
 
-:func:`llama_params_from_jax` takes the JAX model's parameter tree as a
-nested dict of **numpy arrays** (``jax.tree.map(np.asarray, params)`` on
-the JAX side; this module never sees JAX) and returns a ``state_dict`` for
-:class:`~apex_tpu_torch.models.llama.LlamaForCausalLM`.  Every transpose
-is written out:
+:func:`llama_params_from_jax` and :func:`gpt_params_from_jax` take the JAX
+model's parameter tree as a nested dict of **numpy arrays**
+(``jax.tree.map(np.asarray, params)`` on the JAX side; this module never
+sees JAX) and return a ``state_dict`` for
+:class:`~apex_tpu_torch.models.llama.LlamaForCausalLM` or
+:class:`~apex_tpu_torch.transformer.testing.GPTModel`.  Every transpose is
+written out.  Llama:
 
 ==========================================  ==========================================
 flax leaf                                   torch key
@@ -16,8 +18,23 @@ flax leaf                                   torch key
 ``lm_head`` ``[vocab, h]``                  ``lm_head`` ``[vocab, h]``
 ==========================================  ==========================================
 
-It raises on a leaf it does not consume and on a leaf it expects but does
-not find.
+GPT (``lm`` the flax ``language_model``, ``t.`` the torch
+``language_model.transformer.``; the QKV columns keep their order, each
+head's q, k and v adjacent, as the JAX model splits them):
+
+==================================================  ==========================================
+flax leaf                                           torch key
+==================================================  ==========================================
+``lm/embedding/word_embeddings/embedding`` [V, h]   ``language_model.embedding.word_embeddings.weight``
+``lm/embedding/position_embeddings`` [s, h]         ``language_model.embedding.position_embeddings``
+``lm/transformer/layer_i/.../kernel`` [in, out]     ``t.layers.i.....weight`` [out, in]
+``lm/transformer/layer_i/.../bias``                 ``t.layers.i.....bias``
+``lm/transformer/layer_i/<norm>/{scale,bias}``      ``t.layers.i.<norm>.{scale,bias}``
+``lm/transformer/final_layernorm/{scale,bias}``     ``t.final_layernorm.{scale,bias}``
+==================================================  ==========================================
+
+Each raises on a leaf it does not consume and on a leaf it expects but
+does not find.
 """
 
 from __future__ import annotations
@@ -29,7 +46,7 @@ import torch
 
 from apex_tpu_torch.models.llama import LlamaConfig
 
-__all__ = ["llama_params_from_jax"]
+__all__ = ["llama_params_from_jax", "gpt_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -72,21 +89,62 @@ def _expected(config: LlamaConfig) -> Dict[str, tuple]:
     return m
 
 
-def llama_params_from_jax(tree: Mapping, config: LlamaConfig
-                          ) -> Dict[str, torch.Tensor]:
-    """A CPU ``state_dict`` for ``LlamaForCausalLM(config)`` from the flax
-    tree (with or without its top-level ``"params"`` collection)."""
+def _convert(tree: Mapping, expected: Dict[str, tuple], what: str
+             ) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    expected = _expected(config)
     extra = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
     if extra or missing:
-        raise ValueError(f"flax Llama tree does not match {config}: "
-                         f"unconsumed {extra}, missing {missing}")
+        raise ValueError(f"flax {what} tree does not match: unconsumed "
+                         f"{extra}, missing {missing}")
     state = {}
     for path, (key, transpose) in expected.items():
         arr = np.asarray(flat[path])
         state[key] = _tensor(arr.T if transpose else arr)
     return state
+
+
+def llama_params_from_jax(tree: Mapping, config: LlamaConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for ``LlamaForCausalLM(config)`` from the flax
+    tree (with or without its top-level ``"params"`` collection)."""
+    return _convert(tree, _expected(config), f"Llama ({config})")
+
+
+def _gpt_expected(num_layers: int, position_embedding: bool
+                  ) -> Dict[str, tuple]:
+    """flax path -> (torch key, transpose?) for a GPT of ``num_layers``."""
+    src, dst = "language_model", "language_model"
+    m = {f"{src}/embedding/word_embeddings/embedding":
+         (f"{dst}.embedding.word_embeddings.weight", False)}
+    if position_embedding:
+        m[f"{src}/embedding/position_embeddings"] = (
+            f"{dst}.embedding.position_embeddings", False)
+    norms = ("input_layernorm", "post_attention_layernorm")
+    linears = ("self_attention/query_key_value", "self_attention/dense",
+               "mlp/dense_h_to_4h", "mlp/dense_4h_to_h")
+    for i in range(num_layers):
+        s, d = f"{src}/transformer/layer_{i}", f"{dst}.transformer.layers.{i}"
+        for norm in norms:
+            for leaf in ("scale", "bias"):
+                m[f"{s}/{norm}/{leaf}"] = (f"{d}.{norm}.{leaf}", False)
+        for lin in linears:
+            key = lin.replace("/", ".")
+            m[f"{s}/{lin}/kernel"] = (f"{d}.{key}.weight", True)
+            m[f"{s}/{lin}/bias"] = (f"{d}.{key}.bias", False)
+    for leaf in ("scale", "bias"):
+        m[f"{src}/transformer/final_layernorm/{leaf}"] = (
+            f"{dst}.transformer.final_layernorm.{leaf}", False)
+    return m
+
+
+def gpt_params_from_jax(tree: Mapping, num_layers: int,
+                        apply_rope: bool = False) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for ``GPTModel(num_layers=num_layers,
+    apply_rope=apply_rope, ...)`` from the flax tree of the JAX
+    ``GPTModel`` (with or without its ``"params"`` collection).  RoPE
+    models have no position table."""
+    return _convert(tree, _gpt_expected(num_layers, not apply_rope),
+                    f"GPT ({num_layers} layers, apply_rope={apply_rope})")

@@ -1,0 +1,58 @@
+"""Multi-tensor apply: one operation over a whole tree of tensors
+(counterpart of ``apex_tpu/multi_tensor_apply/__init__.py``, the
+``amp_C`` family's ``multi_tensor_l2norm``, ``multi_tensor_scale`` and
+``multi_tensor_axpby``).
+
+Plain PyTorch over the tree's leaves, as the JAX functions are jnp tree
+maps.  The calls are functional: each returns its result and an overflow
+flag (a 0-d bool tensor on the device, never read on the host) in place of
+the CUDA originals' mutated ``noop_flag``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from apex_tpu_torch.utils.packing import tree_leaves
+from apex_tpu_torch.utils.tree_math import tree_axpby, tree_l2norm, tree_scale
+
+__all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm"]
+
+
+def _nonfinite(tree: Any) -> torch.Tensor:
+    """True if any leaf holds an inf or a NaN (the amp_C overflow check)."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((), dtype=torch.bool)
+    flags = [~torch.all(torch.isfinite(l)) for l in leaves]
+    return torch.stack(flags).any()
+
+
+def _no_overflow(tree: Any) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves else None
+    return torch.zeros((), dtype=torch.bool, device=device)
+
+
+def multi_tensor_scale(tree: Any, scale, check_overflow: bool = True):
+    """``out = tree * scale``; returns ``(out, found_inf)``
+    (``amp_C.multi_tensor_scale``, the amp loss scaler's unscale)."""
+    out = tree_scale(tree, scale)
+    return out, _nonfinite(tree) if check_overflow else _no_overflow(tree)
+
+
+def multi_tensor_axpby(a, x: Any, b, y: Any, check_overflow: bool = True):
+    """``out = a * x + b * y``; returns ``(out, found_inf)``
+    (``amp_C.multi_tensor_axpby``)."""
+    out = tree_axpby(a, x, b, y)
+    if check_overflow:
+        return out, _nonfinite(x) | _nonfinite(y)
+    return out, _no_overflow(x)
+
+
+def multi_tensor_l2norm(tree: Any, per_tensor: bool = False):
+    """Global L2 norm (and with ``per_tensor`` the per-tensor norms), in
+    fp32 (``amp_C.multi_tensor_l2norm``, used by FusedLAMB)."""
+    return tree_l2norm(tree, per_leaf=per_tensor)

@@ -63,7 +63,7 @@ FLASH_ATTENTION_DKV = register(Kernel(
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +506,7 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     ``scale`` defaults to ``1/sqrt(d)``; ``dropout_rate > 0`` needs an int
     ``dropout_seed``.  Returns ``[b, h, sq, d]`` in q's dtype; a
     fully-masked row gives zeros.  Differentiable in q, k and v.  The
-    kernels take d = 64 or 128 and fp32, bf16 or fp16, and raise on
+    kernels take d = 32, 64 or 128 and fp32, bf16 or fp16, and raise on
     anything else."""
     return flash_attention_fwd(q, k, v, causal=causal,
                                segment_ids=segment_ids, scale=scale,

@@ -2,8 +2,9 @@
 ``apex_tpu/optimizers/_common.py``).
 
 The JAX package's master weights and its capturable ``grad_scale`` /
-``found_inf`` step arguments come with the mixed-precision (amp) work of
-the GPT training slice of the port; until then they raise here.
+``found_inf`` step arguments come with the port's mixed-precision (amp)
+slice (``amp/policy.py``, ``amp/scaler.py``), the one after GPT training;
+until then they raise here.
 """
 
 from __future__ import annotations
@@ -28,5 +29,5 @@ def later_slice(what: str) -> NotImplementedError:
     """The error for an option of the JAX optimizers that the port has
     not reached yet."""
     return NotImplementedError(
-        f"{what} comes with the amp (mixed-precision) work of the GPT "
-        f"training slice of the port")
+        f"{what} comes with the port's mixed-precision (amp) slice, the "
+        f"one after GPT training (amp/policy.py, amp/scaler.py)")

@@ -46,10 +46,15 @@ def _matmul(x, weight):
 
 
 class _Linear(nn.Module):
+    """``skip_bias_add`` returns ``(x A, b)`` and leaves the bias add to the
+    caller (to fuse it with what follows), as the JAX layers do."""
+
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
-                 *, dtype: torch.dtype = torch.float32, device="cuda",
+                 *, skip_bias_add: bool = False,
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.skip_bias_add = skip_bias_add
         dev = resolve_device(device)
         self.weight = nn.Parameter(normal_(
             (output_size, input_size), 1.0 / math.sqrt(input_size),
@@ -60,6 +65,8 @@ class _Linear(nn.Module):
 
     def forward(self, x):
         y = _matmul(x, self.weight)
+        if self.skip_bias_add:
+            return y, self.bias
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

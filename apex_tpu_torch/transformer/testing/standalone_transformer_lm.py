@@ -1,0 +1,311 @@
+"""Standalone Megatron-style transformer LM (counterpart of
+``apex_tpu/transformer/testing/standalone_transformer_lm.py``).
+
+Embeddings, :class:`ParallelAttention` with two attention cores,
+:class:`ParallelMLP`, pre-LN :class:`ParallelTransformerLayer`\\ s and the
+final norm, at tensor-parallel size 1, over the port's tensor-parallel
+linears.  Activations keep the Megatron ``[s, b, h]`` layout of the JAX
+model, so each intermediate compares with its counterpart directly.
+
+The attention core is, as in the JAX module:
+
+- **flash** (``use_flash_attention`` and a causal mask without a 4-D mask,
+  or segment ids): :func:`~apex_tpu_torch.ops.flash_attention.flash_attention`,
+  the flash kernels forward and backward on the card;
+- **materialized** (otherwise: ``use_flash_attention=False``, or an
+  explicit ``attention_mask``): ``scores = q k^T`` in the activation dtype
+  (fp32 accumulation, then cast), :class:`FusedScaleMaskSoftmax` with scale
+  ``1 / sqrt(head_dim)`` (the fused softmax kernels on the card), and
+  ``probs v``.  The two products stay ``torch.matmul``, as the JAX package
+  leaves them to XLA.
+
+The fused ``query_key_value`` output is ``[s, b, heads, 3 * head_dim]``:
+each head's q, k and v are adjacent (the JAX ``reshape`` and ``split`` on
+the last axis), not three ``[heads, head_dim]`` blocks.
+
+What the JAX module also offers raises ``NotImplementedError``, each with
+the slice of the port that brings it: dropout (attention and hidden),
+context parallelism, mixture-of-experts MLPs, sequence parallelism and
+activation checkpointing (and its policies).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from apex_tpu_torch.ops._dispatch import resolve_device
+from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
+from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+from apex_tpu_torch.transformer.layers import FusedLayerNorm
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+    divide,
+    parallel_lm_logits,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
+
+__all__ = ["ParallelMLP", "ParallelAttention", "ParallelTransformerLayer",
+           "ParallelTransformer", "Embedding", "TransformerLanguageModel",
+           "parallel_lm_logits"]
+
+
+def _not_yet(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} comes with the {slice_} of the port")
+
+
+def _check_common(sequence_parallel_enabled: bool,
+                  context_parallel_axis: Optional[str] = None) -> None:
+    if sequence_parallel_enabled:
+        raise _not_yet("sequence parallelism", "tensor-parallel slice")
+    if context_parallel_axis is not None:
+        raise _not_yet("context parallelism (ring attention)",
+                       "multi-card slice")
+
+
+class ParallelMLP(nn.Module):
+    """``h -> ffn`` (column) ``-> gelu -> ffn -> h`` (row); the column
+    layer's bias is added just before ``gelu(approximate="tanh")``."""
+
+    def __init__(self, hidden_size: int, ffn_hidden_size: Optional[int] = None,
+                 sequence_parallel_enabled: bool = False, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_common(sequence_parallel_enabled)
+        ffn = ffn_hidden_size or 4 * hidden_size
+        kw = dict(dtype=params_dtype, device=device, generator=generator)
+        self.dense_h_to_4h = ColumnParallelLinear(hidden_size, ffn,
+                                                  skip_bias_add=True, **kw)
+        self.dense_4h_to_h = RowParallelLinear(ffn, hidden_size, **kw)
+
+    def forward(self, x):
+        h, bias = self.dense_h_to_4h(x)
+        h = nn.functional.gelu(h + bias.to(h.dtype), approximate="tanh")
+        return self.dense_4h_to_h(h)
+
+
+def _rope_freqs(s: int, dim: int, offset=0, *, device=None) -> torch.Tensor:
+    """``[s, 1, 1, dim]`` rotary frequencies for positions ``offset ..
+    offset + s - 1`` (the JAX module's own ``_rope_freqs``, base 10000)."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=device) / dim))
+    t = torch.arange(s, dtype=torch.float32, device=device) + offset
+    f = torch.outer(t, inv)
+    return torch.cat([f, f], dim=-1)[:, None, None, :]
+
+
+class ParallelAttention(nn.Module):
+    """Multi-head self-attention on ``[s, b, h]`` activations."""
+
+    def __init__(self, hidden_size: int, num_attention_heads: int,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 attention_dropout: float = 0.0, apply_rope: bool = False,
+                 use_flash_attention: bool = True,
+                 sequence_parallel_enabled: bool = False,
+                 context_parallel_axis: Optional[str] = None, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_common(sequence_parallel_enabled, context_parallel_axis)
+        if attention_dropout > 0.0:
+            raise _not_yet("attention dropout in the transformer layers",
+                           "training-options slice")
+        self.hidden_size = hidden_size
+        self.num_attention_heads = num_attention_heads
+        self.head_dim = divide(hidden_size, num_attention_heads)
+        self.attn_mask_type = attn_mask_type
+        self.apply_rope = apply_rope
+        self.use_flash_attention = use_flash_attention
+        kw = dict(dtype=params_dtype, device=device, generator=generator)
+        self.query_key_value = ColumnParallelLinear(hidden_size,
+                                                    3 * hidden_size, **kw)
+        self.dense = RowParallelLinear(hidden_size, hidden_size, **kw)
+
+    def forward(self, x, attention_mask=None, segment_ids=None):
+        s, b = x.shape[0], x.shape[1]
+        np_, hd = self.num_attention_heads, self.head_dim
+        qkv = self.query_key_value(x).view(s, b, np_, 3 * hd)
+        q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd] each
+        if self.apply_rope:
+            freqs = _rope_freqs(s, hd, device=x.device)
+            q = fused_apply_rotary_pos_emb(q, freqs)
+            k = fused_apply_rotary_pos_emb(k, freqs)
+        qt, kt, vt = (t.permute(1, 2, 0, 3) for t in (q, k, v))  # [b, np, s, hd]
+        scale = 1.0 / float(hd) ** 0.5      # the JAX expression, bit for bit
+        causal = self.attn_mask_type == AttnMaskType.causal
+        use_flash = self.use_flash_attention and (
+            segment_ids is not None or (causal and attention_mask is None))
+        if use_flash:
+            ctx = flash_attention(qt, kt, vt, causal=causal,
+                                  segment_ids=segment_ids, scale=scale)
+        else:
+            scores = torch.matmul(qt, kt.transpose(-1, -2))  # [b, np, s, s]
+            softmax = FusedScaleMaskSoftmax(
+                input_in_bf16=qt.dtype == torch.bfloat16,
+                input_in_fp16=qt.dtype == torch.float16,
+                attn_mask_type=self.attn_mask_type, scale=scale)
+            ctx = torch.matmul(softmax(scores, attention_mask), vt)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
+        return self.dense(ctx)
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN block: LN -> attention -> + residual -> LN -> MLP -> +
+    residual."""
+
+    def __init__(self, hidden_size: int, num_attention_heads: int,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 hidden_dropout: float = 0.0, apply_rope: bool = False,
+                 use_flash_attention: bool = True,
+                 sequence_parallel_enabled: bool = False,
+                 context_parallel_axis: Optional[str] = None,
+                 moe_num_experts: Optional[int] = None, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if hidden_dropout > 0.0:
+            raise _not_yet("hidden dropout in the transformer layers",
+                           "training-options slice")
+        if moe_num_experts:
+            raise _not_yet("mixture-of-experts MLPs", "expert-parallel slice")
+        dev = resolve_device(device)
+        self.input_layernorm = FusedLayerNorm(
+            hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
+            device=dev)
+        self.self_attention = ParallelAttention(
+            hidden_size, num_attention_heads, attn_mask_type=attn_mask_type,
+            apply_rope=apply_rope, use_flash_attention=use_flash_attention,
+            sequence_parallel_enabled=sequence_parallel_enabled,
+            context_parallel_axis=context_parallel_axis,
+            params_dtype=params_dtype, device=dev, generator=generator)
+        self.post_attention_layernorm = FusedLayerNorm(
+            hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
+            device=dev)
+        self.mlp = ParallelMLP(hidden_size, params_dtype=params_dtype,
+                               device=dev, generator=generator)
+
+    def forward(self, x, attention_mask=None, segment_ids=None):
+        attn = self.self_attention(self.input_layernorm(x), attention_mask,
+                                   segment_ids)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class ParallelTransformer(nn.Module):
+    """A stack of ``num_layers`` layers (``layers.i``) and, with
+    ``final_layernorm``, the final LayerNorm."""
+
+    def __init__(self, num_layers: int, hidden_size: int,
+                 num_attention_heads: int,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 apply_rope: bool = False, use_flash_attention: bool = True,
+                 activations_checkpoint: bool = False,
+                 activations_checkpoint_policy: Optional[str] = None,
+                 sequence_parallel_enabled: bool = False,
+                 context_parallel_axis: Optional[str] = None,
+                 moe_num_experts: Optional[int] = None,
+                 final_layernorm: bool = True, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if activations_checkpoint or activations_checkpoint_policy:
+            raise _not_yet("activation checkpointing (and its policies)",
+                           "memory slice")
+        dev = resolve_device(device)
+        self.layers = nn.ModuleList(
+            ParallelTransformerLayer(
+                hidden_size, num_attention_heads,
+                attn_mask_type=attn_mask_type, apply_rope=apply_rope,
+                use_flash_attention=use_flash_attention,
+                sequence_parallel_enabled=sequence_parallel_enabled,
+                context_parallel_axis=context_parallel_axis,
+                moe_num_experts=moe_num_experts, params_dtype=params_dtype,
+                device=dev, generator=generator)
+            for _ in range(num_layers))
+        self.final_layernorm = (FusedLayerNorm(hidden_size, device=dev)
+                                if final_layernorm else None)
+
+    def forward(self, x, attention_mask=None, segment_ids=None):
+        for layer in self.layers:
+            x = layer(x, attention_mask, segment_ids)
+        if self.final_layernorm is not None:
+            x = self.final_layernorm(x)
+        return x
+
+
+class Embedding(nn.Module):
+    """Token embedding plus learned positions (RoPE models skip the
+    position table): ``[b, s]`` ids to ``[s, b, h]`` activations."""
+
+    def __init__(self, hidden_size: int, vocab_size: int,
+                 max_sequence_length: int, use_position_embedding: bool = True,
+                 sequence_parallel_enabled: bool = False, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_common(sequence_parallel_enabled)
+        dev = resolve_device(device)
+        self.word_embeddings = VocabParallelEmbedding(
+            vocab_size, hidden_size, dtype=params_dtype, device=dev,
+            generator=generator)
+        self.position_embeddings = (
+            nn.Parameter(normal_((max_sequence_length, hidden_size), 0.02,
+                                 dtype=params_dtype, device=dev,
+                                 generator=generator))
+            if use_position_embedding else None)
+
+    def forward(self, input_ids, position_ids=None):
+        emb = self.word_embeddings(input_ids)
+        if self.position_embeddings is not None:
+            if position_ids is None:
+                position_ids = torch.arange(input_ids.shape[1],
+                                            device=input_ids.device)[None, :]
+            emb = emb + self.position_embeddings[position_ids].to(emb.dtype)
+        # [b, s, h] -> [s, b, h]; the norm kernel takes contiguous input
+        return emb.transpose(0, 1).contiguous()
+
+
+class TransformerLanguageModel(nn.Module):
+    """:class:`Embedding` then :class:`ParallelTransformer`: ``[b, s]`` ids
+    to ``[s, b, h]`` hidden states after the final norm."""
+
+    def __init__(self, num_layers: int, hidden_size: int,
+                 num_attention_heads: int, vocab_size: int,
+                 max_sequence_length: int,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 apply_rope: bool = False, use_flash_attention: bool = True,
+                 activations_checkpoint: bool = False,
+                 activations_checkpoint_policy: Optional[str] = None,
+                 sequence_parallel_enabled: bool = False,
+                 context_parallel_axis: Optional[str] = None,
+                 moe_num_experts: Optional[int] = None, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        kw = dict(params_dtype=params_dtype, device=dev, generator=generator)
+        self.embedding = Embedding(
+            hidden_size, vocab_size, max_sequence_length,
+            use_position_embedding=not apply_rope,
+            sequence_parallel_enabled=sequence_parallel_enabled, **kw)
+        self.transformer = ParallelTransformer(
+            num_layers, hidden_size, num_attention_heads,
+            attn_mask_type=attn_mask_type, apply_rope=apply_rope,
+            use_flash_attention=use_flash_attention,
+            activations_checkpoint=activations_checkpoint,
+            activations_checkpoint_policy=activations_checkpoint_policy,
+            sequence_parallel_enabled=sequence_parallel_enabled,
+            context_parallel_axis=context_parallel_axis,
+            moe_num_experts=moe_num_experts, **kw)
+
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                segment_ids=None):
+        x = self.embedding(input_ids, position_ids)
+        return self.transformer(x, attention_mask, segment_ids)

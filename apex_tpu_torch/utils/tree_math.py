@@ -1,0 +1,50 @@
+"""Reductions and elementwise math over trees of tensors (counterpart of
+``apex_tpu/utils/tree_math.py``).
+
+A tree is a tensor, or a list, tuple or dict of trees (dict keys taken
+in sorted order, as ``jax.tree_util`` takes them); see
+:func:`apex_tpu_torch.utils.packing.tree_leaves`.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from apex_tpu_torch.utils.packing import tree_leaves, tree_map
+
+__all__ = ["tree_l2norm", "tree_scale", "tree_axpby"]
+
+
+def tree_scale(tree: Any, scale) -> Any:
+    """``x * scale`` per leaf, the scale taken in each leaf's dtype."""
+    return tree_map(lambda x: x * torch.as_tensor(scale, dtype=x.dtype,
+                                                  device=x.device), tree)
+
+
+def tree_axpby(a, x: Any, b, y: Any) -> Any:
+    """``a * x + b * y`` per leaf (``amp_C.multi_tensor_axpby``), the
+    coefficients taken in ``x``'s dtype."""
+    xs, ys = tree_leaves(x), tree_leaves(y)
+    out = iter([torch.as_tensor(a, dtype=xi.dtype, device=xi.device) * xi
+                + torch.as_tensor(b, dtype=xi.dtype, device=xi.device) * yi
+                for xi, yi in zip(xs, ys)])
+    return tree_map(lambda _: next(out), x)
+
+
+def tree_l2norm(tree: Any, per_leaf: bool = False):
+    """Global (and with ``per_leaf`` per-leaf) L2 norm, in fp32
+    (``amp_C.multi_tensor_l2norm``): each leaf's norm accumulates its
+    squares in fp32, and the global norm is the root of their squares'
+    sum.  Returns a 0-d fp32 tensor on the leaves' device, and with
+    ``per_leaf`` the list of per-leaf norms too."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        zero = torch.zeros((), dtype=torch.float32)
+        return (zero, []) if per_leaf else zero
+    norms = [torch.linalg.vector_norm(l, dtype=torch.float32) for l in leaves]
+    total = torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    if per_leaf:
+        return total, norms
+    return total

@@ -15,13 +15,16 @@ ends the run with a non-zero exit and no result line:
    tensors on the card, over the variants the CPU tests cover, the
    kernel's other code paths, and the main path's shapes; each result
    against the plain PyTorch version on the same inputs, at the stated
-   tolerance.  Then the kernel, the plain version and the library call
-   (``F.rms_norm``; ``F.scaled_dot_product_attention``; ``F.linear`` +
-   ``F.cross_entropy``) timed at the main path's shapes, on the device
-   (calls captured in a CUDA graph) and as the host issues them, beside
-   the least time the card could take (bytes over 3.35 TB/s, or bf16
-   operations over 989 TFLOP/s, the larger).
-3. **End to end**, two paths, each with the launch counts set to 0 just
+   tolerance (a softmax row above the kernel's maximum must raise).  Then
+   the kernel, the plain version and the library call (``F.rms_norm``;
+   ``F.scaled_dot_product_attention``; ``F.linear`` + ``F.cross_entropy``;
+   ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB)
+   timed at the main path's shapes, on the device (calls captured in a
+   CUDA graph, or eager between CUDA events where a call moves GBs) and
+   as the host issues them, beside the least time the card could take
+   (bytes over 3.35 TB/s, or operations over the bf16 or fp32 peak, the
+   larger).
+3. **End to end**, five paths, each with the launch counts set to 0 just
    before it and read just after:
 
    - *serving*: a small fp32 Llama served on the card against the same
@@ -41,8 +44,21 @@ ends the run with a non-zero exit and no result line:
      ``F.cross_entropy`` over ``model(ids)``'s logits, the flash path
      against the cached path on one 512-token prompt, and wall, tokens/s,
      peak memory and a profile of one forward.
+   - *training*: a small fp32 Llama's loss, gradients and 3 FusedAdam
+     steps on the card against the CPU; then ``llama-1b`` (O2, bf16
+     moments) 1 + 6 steps at b 4, s 2048 with exact launches a step.
+   - *GPT training*: a small fp32 GPT in both attention cores, loss,
+     gradients and 3 packed FusedLAMB steps on the card against the CPU;
+     then GPT-2-large (``bench.py``'s ``large`` card, O2, b 8, s 1024) 1 +
+     6 steps in two forms with exact launches a step: the kernel path
+     (materialized attention through the fused softmax, packed LAMB:
+     73/73 norm, 36/36 softmax, 1/1/1 head, 1 LAMB phase 1) and the
+     flagship (flash attention, unpacked LAMB with bf16 moments: 73/73
+     norm, 36/36/36 flash, 1/1/1 head); a loss that falls every step,
+     step wall, tokens/s, MFU, idle share, peak memory and a profile.
 4. **Kernels line**: one JSON object with each kernel's launches on its
-   path, error against its plain version, and times.
+   main path (and on every path), error against its plain version, and
+   times.
 
 The card's name and power limit (``nvidia-smi``) are printed on the line
 before the last; the last line is ``{"ok": true, "device": {...}}``.  A
@@ -337,7 +353,7 @@ def check_flash_attention(device) -> dict:
 
     cases = []
     for dt in _DTYPES:
-        for d in (64, 128):
+        for d in (32, 64, 128):
             base = dict(dtype=dt, d=d, b=2, h=4, hk=2)
             for causal in (False, True):
                 for sq, sk in ((128, 128), (100, 260), (260, 100)):
@@ -808,7 +824,7 @@ def check_flash_attention_bwd(device) -> dict:
 
     cases = []
     for dt in _DTYPES:
-        for d in (64, 128):
+        for d in (32, 64, 128):
             base = dict(dtype=dt, d=d, b=2, h=4, hk=2)
             for causal in (False, True):
                 for sq, sk in ((128, 128), (100, 260), (260, 100)):
@@ -1137,6 +1153,321 @@ def time_lm_head_bwd(device) -> dict:
         log("phase2-time", kernel=f"fused_lm_head_{name}", **row)
         out[name] = row
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the fused softmax and packed LAMB kernels against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+# GPT-2-large's attention scores: b 8, 20 heads, s 1024, head dim 64
+# (bench.py:81-84), bf16 under O2, causal, no explicit mask
+SOFTMAX_MAIN = dict(b=8, h=20, sq=1024, sk=1024)
+SOFTMAX_SCALE = 1.0 / 64 ** 0.5
+def gpt2_large_numel() -> tuple:
+    """``(parameters, packed length)`` of GPT-2-large (``bench.py``'s
+    ``large`` card): the tied embedding, the position table, 36 layers (two
+    LayerNorms, QKV, dense and the 4h MLP, with biases) and the final
+    LayerNorm; packed to 1024."""
+    from apex_tpu_torch.examples.gpt_pretrain import LARGE
+
+    L, h = LARGE["layers"], LARGE["hidden"]
+    per_layer = 4 * h + (3 * h * h + 3 * h) + (h * h + h) + \
+        (4 * h * h + 4 * h) + (4 * h * h + h)
+    n = LARGE["vocab"] * h + LARGE["seq"] * h + L * per_layer + 2 * h
+    return n, -(-n // 1024) * 1024
+
+
+def _softmax_case_inputs(case, g, device):
+    import torch
+
+    dt = getattr(torch, case["dtype"])
+    b, h, sq, sk = (case[k] for k in ("b", "h", "sq", "sk"))
+    off = case.get("offset", 0)
+    # an offset of one element puts x off its 16-byte boundary (the
+    # kernel's scalar path); the model's scores are contiguous
+    x = ((torch.randn(b * h * sq * sk + off, generator=g, device=device) * 3)
+         .to(dt)[off:].view(b, h, sq, sk))
+    if case.get("low"):
+        # every scaled score far below the fill: y past the causal edge is
+        # not 0, and the backward must read the whole row
+        x = (x.float() - 15000).to(dt)
+    mask = None
+    if case.get("mask"):
+        mask = torch.rand(b, 1, sq, sk, generator=g, device=device) < 0.3
+        mask[:, :, ::5] = True                     # fully masked rows
+        if case["mask"] == "broadcast":
+            mask = mask[:1]
+    return x, mask
+
+
+def _softmax_bwd_tol(y, dy, scale):
+    """Per-element bound of dx: the row's fp32 inner product within
+    EPS_SUM of its terms' absolute sum, the elementwise step's roundings,
+    then one ulp of the output (and fp32's least normal near zero)."""
+    y32, dy32 = y.float(), dy.float()
+    s_abs = (y32 * dy32).abs().sum(-1, keepdim=True)
+    dot = (y32 * dy32).sum(-1, keepdim=True)
+    err = scale * y32.abs() * (EPS_SUM * s_abs + 2.0 ** -20 * (dy32.abs() + dot.abs()))
+    return err + 1e-30
+
+
+def check_softmax(device) -> dict:
+    """The softmax forward and backward kernels on the card against their
+    plain versions over dtypes, no mask / causal / a mask with fully
+    masked rows / both, sq = sk, sq < sk, sq > sk (the causal zero rows),
+    an odd sk, rows longer than the registers (the looping variant, up to
+    the maximum of 16384), a broadcast mask, an input off its 16-byte
+    boundary, sk = 1, causal scores far below the fill (the backward reads
+    past the edge), and the main path's shape; a row above the maximum
+    must raise.  Returns the main shape's errors."""
+    import torch
+    from apex_tpu_torch.ops import softmax as sm
+
+    cases = []
+    for dt in _DTYPES:
+        for causal, mask in ((False, None), (True, None), (False, "rows"),
+                             (True, "rows")):
+            for b, h, sq, sk in ((2, 3, 128, 128), (2, 2, 100, 260),
+                                 (2, 2, 260, 100), (1, 2, 33, 77),
+                                 (1, 2, 7, 1001), (1, 2, 16, 3000),
+                                 (1, 1, 4, sm.MAX_SK)):
+                cases.append(dict(dtype=dt, causal=causal, mask=mask, b=b,
+                                  h=h, sq=sq, sk=sk))
+        cases.append(dict(dtype=dt, causal=False, mask="broadcast", b=2, h=2,
+                          sq=64, sk=200))
+        cases.append(dict(dtype=dt, causal=True, mask=None, b=2, h=2, sq=64,
+                          sk=128, offset=1))
+        cases.append(dict(dtype=dt, causal=True, mask=None, b=1, h=2, sq=8,
+                          sk=1))
+        for sq, sk in ((64, 200), (16, 3000)):
+            cases.append(dict(dtype=dt, causal=True, mask=None, b=1, h=2,
+                              sq=sq, sk=sk, low=True))
+    cases.append(dict(SOFTMAX_MAIN, dtype="bfloat16", causal=True, mask=None,
+                      main=True))
+    g = torch.Generator(device=device).manual_seed(31)
+    worst_y = worst_dx = 0.0
+    main = {}
+    with torch.no_grad():
+        for case in cases:
+            x, mask = _softmax_case_inputs(case, g, device)
+            scale = SOFTMAX_SCALE if case.get("main") else 0.7
+            y = sm.softmax_fwd(x, scale, mask, case["causal"])
+            torch.cuda.synchronize()
+            ry = sm._plain_forward(x, scale, mask, case["causal"])
+            # exp and the row sum in fp32 on both sides, in another order
+            y_tol = EPS_SUM * ry.float().abs() + 1e-30
+            if case["dtype"] != "float32":
+                y_tol = _ulp_tol(y_tol, ry, y, case["dtype"])
+            r_y = _tol_ratio(y, ry, y_tol)
+            dead = ry.float().sum(-1) == 0
+            zeros_ok = bool((y[dead] == 0).all())
+            dy = torch.randn(x.shape, generator=g, device=device).to(x.dtype)
+            dx = sm.softmax_bwd(y, dy, scale, case["causal"])
+            torch.cuda.synchronize()
+            rdx = sm._plain_backward(y, dy, scale)
+            dx_tol = _softmax_bwd_tol(y, dy, scale)
+            if case["dtype"] != "float32":
+                dx_tol = _ulp_tol(dx_tol, rdx, dx, case["dtype"])
+            r_dx = _tol_ratio(dx, rdx, dx_tol)
+            name = {k: case[k] for k in case if k not in ("b", "h")}
+            if r_y > 1.0 or r_dx > 1.0 or not zeros_ok:
+                raise AssertionError(
+                    f"scaled softmax disagrees with its plain version: "
+                    f"{name}: y at {r_y:.3f} x tol, dx at {r_dx:.3f} x tol, "
+                    f"rows with no valid key all zero: {zeros_ok}")
+            worst_y, worst_dx = max(worst_y, r_y), max(worst_dx, r_dx)
+            if case.get("main"):
+                main = dict(y_max_abs_err=float((y.float() - ry.float()).abs().max()),
+                            dx_max_abs_err=float((dx.float() - rdx.float()).abs().max()),
+                            y_tol_ratio=r_y, dx_tol_ratio=r_dx)
+            del x, y, ry, dy, dx, rdx
+        too_long = torch.zeros(1, 1, 1, sm.MAX_SK + 1, device=device)
+        try:
+            sm.softmax_fwd(too_long, 1.0, None, False)
+            raised = False
+        except ValueError:
+            raised = True
+        if not raised:
+            raise AssertionError(f"softmax_fwd took sk = {sm.MAX_SK + 1}, "
+                                 f"above its stated maximum")
+    out = dict(kernel="scaled_softmax_fwd/bwd", cases=len(cases),
+               worst_y_tol_ratio=worst_y, worst_dx_tol_ratio=worst_dx,
+               main_shape=main, raises_above_max_sk=raised,
+               tolerance="y within 2^-16|ref| (+ 1 ulp of bf16/fp16); rows "
+                         "with no valid key exactly 0; dx within scale|y| "
+                         "(2^-16 sum_j|y_j dy_j| + 2^-20 (|dy| + |y.dy|)) "
+                         "(+ 1 ulp of bf16/fp16)")
+    log("phase2-check", **out)
+    return out
+
+
+def time_softmax(device) -> dict:
+    """Forward and backward kernels, plain versions and library calls at
+    the main path's shape (x bf16 [8, 20, 1024, 1024], causal, scale 1/8):
+    ``torch.softmax`` of a pre-masked input and
+    ``aten._softmax_backward_data``.  Returns ``{"fwd": row, "bwd": row}``."""
+    import torch
+    from apex_tpu_torch.ops import softmax as sm
+
+    b, h, sq, sk = (SOFTMAX_MAIN[k] for k in ("b", "h", "sq", "sk"))
+    scale = SOFTMAX_SCALE
+    g = torch.Generator(device=device).manual_seed(32)
+    x = (torch.randn(b, h, sq, sk, generator=g, device=device) * 3).to(torch.bfloat16)
+    dy = torch.randn(b, h, sq, sk, generator=g, device=device).to(torch.bfloat16)
+    tri = torch.ones(sq, sk, dtype=torch.bool, device=device).tril(sk - sq)
+    x_masked = torch.where(tri, x.float() * scale, -10000.0).to(torch.bfloat16)
+    elems = b * h * sq * sk
+    # the causal triangle's elements: all the forward needs to read of x,
+    # and all the backward needs of y and dy where y is 0 past the edge
+    # (the backward reads one y past each row's edge to see that)
+    valid = b * h * int(tri.sum())
+    probes = b * h * int((tri.sum(-1) < sk).sum())
+    out = {}
+    with torch.inference_mode():
+        y = sm.softmax_fwd(x, scale, None, True)
+        if bool(torch.where(tri, 0, y).any()):
+            raise AssertionError("y is not 0 past the causal edge at the main "
+                                 "shape: the backward's bound reads all of it")
+        for name, calls, nbytes, flops in (
+                ("fwd", {"kernel": lambda: sm.softmax_fwd(x, scale, None, True),
+                         "plain": lambda: sm._plain_forward(x, scale, None, True),
+                         "library": lambda: torch.softmax(x_masked, -1)},
+                 2 * valid + 2 * elems, 8 * elems),
+                ("bwd", {"kernel": lambda: sm.softmax_bwd(y, dy, scale, True),
+                         "plain": lambda: sm._plain_backward(y, dy, scale),
+                         "library": lambda: torch.ops.aten._softmax_backward_data(
+                             dy, y, -1, torch.bfloat16)},
+                 2 * 2 * valid + 2 * probes + 2 * elems, 5 * valid)):
+            dev = _timed(calls, 20, big=("plain",))
+            host = time_ms(calls["kernel"], iters=20, warmup=3)
+            row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S)
+            row.update(shape=dict(SOFTMAX_MAIN, causal=True, dtype="bfloat16"),
+                       bytes=nbytes, flops=flops,
+                       library_call=("torch.softmax of the pre-masked scores"
+                                     if name == "fwd" else
+                                     "aten._softmax_backward_data"),
+                       bytes_note=("x's causal triangle read, y written"
+                                   if name == "fwd" else
+                                   "y's and dy's causal triangles and one y a "
+                                   "row read, dx written"))
+            log("phase2-time", kernel=f"scaled_softmax_{name}", **row)
+            out[name] = row
+    return out
+
+
+def check_lamb_phase1(device) -> dict:
+    """The LAMB phase-1 kernel on the card against its plain version over
+    gradient and parameter dtypes, both ``adam_w_mode``s, an n that is a
+    multiple of the vector width, one that is not (the tail), buffers off
+    their 16-byte boundary (the scalar path), a clip factor from a device
+    tensor, and the main path's length (GPT-2-large, fp32).  Returns the
+    main case's errors."""
+    import torch
+    from apex_tpu_torch.ops import packed_update as pu
+
+    _, main_n = gpt2_large_numel()
+    cases = [dict(g=gd, p=pd, adam_w=aw, n=n, offset=off)
+             for gd, pd in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                            ("float16", "float32"), ("bfloat16", "float32"))
+             for aw in (True, False)
+             for n, off in ((1024 * 37, 0), (1000003, 0), (4099, 1))]
+    cases.append(dict(g="float32", p="float32", adam_w=True, n=main_n,
+                      offset=0, main=True))
+    gen = torch.Generator(device=device).manual_seed(33)
+    clip = torch.tensor(1.7, device=device)
+    worst, main = 0.0, {}
+    with torch.no_grad():
+        for case in cases:
+            n, off = case["n"], case["offset"]
+
+            def buf(scale, dtype=torch.float32, positive=False):
+                t = torch.randn(n + off, generator=gen, device=device) * scale
+                return (t.abs() if positive else t).to(dtype)
+
+            g = buf(0.1, getattr(torch, case["g"]))[off:]
+            p = buf(1.0, getattr(torch, case["p"]))[off:]
+            m_buf, v_buf = buf(0.01), buf(1e-3, positive=True)
+            m, v = m_buf[off:], v_buf[off:]
+            s = pu.lamb_scalars(0.9, 0.1, 0.999, 1e-6, 0.01, 0.19, 0.002,
+                                clip, device)
+            rm, rv, ru = pu._plain_phase1(g, p, m, v, s, case["adam_w"])
+            mk_buf, vk_buf = m_buf.clone(), v_buf.clone()
+            mk, vk = mk_buf[off:], vk_buf[off:]
+            u = pu.lamb_phase1(g, p, mk, vk, s, case["adam_w"])
+            torch.cuda.synchronize()
+            # a few fp32 roundings apart (contracted multiply-adds)
+            wp = 0.01 * p.float().abs()
+            tol_m = 2.0 ** -21 * (0.9 * m.abs() + 0.1 * (g.float().abs() / 1.7
+                                                         + wp)) + 1e-30
+            tol_v = 2.0 ** -21 * (0.999 * v + 0.001 * (g.float().abs() / 1.7
+                                                       + wp) ** 2) + 1e-30
+            # u carries m's and v's errors through (m / bc1) / (sqrt(v /
+            # bc2) + eps), the latter halved by the root
+            tol_u = ((tol_m / 0.19) / (torch.sqrt(rv / 0.002) + 1e-6)
+                     + 0.5 * ru.abs() * tol_v / (rv + 1e-30)
+                     + 2.0 ** -19 * (ru.abs() + wp) + 1e-30)
+            r = max(_tol_ratio(mk, rm, tol_m), _tol_ratio(vk, rv, tol_v),
+                    _tol_ratio(u, ru, tol_u))
+            if r > 1.0:
+                raise AssertionError(f"lamb_phase1 disagrees with its plain "
+                                     f"version: {case}: {r:.3f} x tol")
+            worst = max(worst, r)
+            if case.get("main"):
+                main = dict(m_max_abs_err=float((mk - rm).abs().max()),
+                            v_max_abs_err=float((vk - rv).abs().max()),
+                            u_max_abs_err=float((u - ru).abs().max()),
+                            tol_ratio=r)
+            del g, p, m_buf, v_buf, m, v, rm, rv, ru, mk_buf, vk_buf, mk, vk, u
+            torch.cuda.empty_cache()
+    out = dict(kernel="lamb_phase1", cases=len(cases), worst_tol_ratio=worst,
+               main_shape=main,
+               tolerance="m within 2^-21 (b1|m| + b3(|g|/clip + wd|p|)); v "
+                         "within 2^-21 (b2 v + (1-b2)(|g|/clip + wd|p|)^2); "
+                         "u within m's and v's bounds carried through the "
+                         "update, plus 2^-19 (|u| + wd|p|)")
+    log("phase2-check", **out)
+    return out
+
+
+def time_lamb_phase1(device) -> dict:
+    """The phase-1 kernel and its plain version over GPT-2-large's packed
+    fp32 buffers (g, p, m, v of the padded length), eagerly between CUDA
+    events (each call moves GBs).  No single PyTorch call computes the
+    function, so there is no library time."""
+    import torch
+    from apex_tpu_torch.ops import packed_update as pu
+
+    _, n = gpt2_large_numel()
+    gen = torch.Generator(device=device).manual_seed(34)
+    g = torch.randn(n, generator=gen, device=device) * 0.1
+    p = torch.randn(n, generator=gen, device=device)
+    m = torch.randn(n, generator=gen, device=device) * 0.01
+    v = (torch.randn(n, generator=gen, device=device) * 1e-3).abs_()
+    s = pu.lamb_scalars(0.9, 0.1, 0.999, 1e-6, 0.01, 0.19, 0.002,
+                        torch.tensor(1.7, device=device), device)
+    with torch.no_grad():
+        kernel = lambda: pu.lamb_phase1(g, p, m, v, s, True)
+        dev = dict(kernel=time_ms(kernel, iters=10, warmup=2),
+                   plain=time_ms(lambda: pu._plain_phase1(g, p, m, v, s, True),
+                                 iters=3, warmup=1),
+                   library=None)
+        dev["kernel_again"] = time_ms(kernel, iters=10, warmup=1)
+        host = dev["kernel"]
+    nbytes = 28 * n          # g, p, m, v read; m, v, u written; all fp32
+    flops = 15 * n
+    row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S)
+    row.update(shape=dict(n=n, dtype="float32", model="gpt2-large"),
+               bytes=nbytes, flops=flops,
+               timing="ms: 10 eager calls between CUDA events (each moves "
+                      "21.7 GB; launch overhead is negligible); plain_ms: 3",
+               library_call=None,
+               library_note="no single PyTorch call computes LAMB's moments "
+                            "and raw update")
+    log("phase2-time", kernel="lamb_phase1", **row)
+    del g, p, m, v
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1663,17 +1994,20 @@ def llama_1b_train(device) -> dict:
     allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _dispatch.reset_launches()
-    step_ms, losses = [], []
+    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
     for i in range(TRAIN_STEPS):
         before = {k.name: k.launches for k in _dispatch.KERNELS}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.process_time()
         loss = train_step(model, opt, ids)
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
-        if step != per_step:
+        if _nonzero(step) != per_step:
             raise AssertionError(f"training step {i} launched {step}, "
                                  f"expected {per_step}")
     launches = {k.name: k.launches for k in _dispatch.KERNELS}
@@ -1690,6 +2024,11 @@ def llama_1b_train(device) -> dict:
                params=sum(p.numel() for p in model.parameters()),
                warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
                step_ms=step_ms, step_ms_median=med,
+               # the host's time to issue each step (and its CPU time
+               # then): near step_ms, the step is host-bound
+               step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
+               device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
+                   "num_device_alloc", 0) - allocs0,
                tokens_per_s=b * s / (med / 1e3), flops_per_step=flops,
                bound_ms=flops / 989e12 * 1e3,
                mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
@@ -1702,13 +2041,21 @@ def llama_1b_train(device) -> dict:
     return out
 
 
+def _nonzero(counts: dict) -> dict:
+    """The kernels that launched, with their counts."""
+    return {k: n for k, n in counts.items() if n}
+
+
 def _kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name: one of the port's kernels,
     cuBLAS, or PyTorch's own elementwise, copy and reduction kernels."""
     for key, kind in (("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
                       ("flash_dkv", "flash dk/dv"), ("ln_fwd", "norm forward"),
                       ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
-                      ("dlog_", "head dH"), ("gemm_mma<", "head dH/dE products")):
+                      ("dlog_", "head dH"), ("gemm_mma<", "head dH/dE products"),
+                      ("softmax_fwd_kernel", "softmax forward"),
+                      ("softmax_bwd_kernel", "softmax backward"),
+                      ("lamb_phase1_kernel", "LAMB phase 1")):
         if key in name:
             return kind
     if "nvjet" in name or "gemm" in name or "xmma" in name or "cutlass" in name:
@@ -1720,33 +2067,43 @@ def _kernel_kind(name: str) -> str:
     return "elementwise"
 
 
-def _step_phases(model, opt, ids) -> dict:
-    """One more step, its phases each ended by a synchronize on the host
-    clock: the forward and loss, the backward, the optimizer."""
+def _step_phases(model, opt, ids, repeats: int = 3) -> dict:
+    """``repeats`` more steps, each split into its phases (the forward and
+    loss, the backward, the optimizer) on the host clock: ``*_ms`` ends in
+    a synchronize, ``*_issue_ms`` when the host has issued the phase's
+    work, ``*_cpu_ms`` is the process's CPU time while it issued.  A phase
+    whose issue time is near its wall is host-bound; one whose CPU time is
+    well under its issue time waited for a core (or for the device)."""
     import torch
 
     labels = torch.roll(ids, -1, dims=1)
-    opt.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss = model(ids, labels=labels).mean()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loss.backward()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    opt.step()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    return dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
-                optimizer_ms=(t3 - t2) * 1e3)
+    out = {}
+    for _ in range(repeats):
+        opt.zero_grad(set_to_none=True)
+        for name, fn in (
+                ("forward", lambda: model(ids, labels=labels).mean()),
+                ("backward", lambda: loss.backward()),
+                ("optimizer", lambda: opt.step())):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            res = fn()
+            t1, c1 = time.perf_counter(), time.process_time()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if name == "forward":
+                loss = res
+            for key, v in ((f"{name}_ms", t2 - t0), (f"{name}_issue_ms", t1 - t0),
+                           (f"{name}_cpu_ms", c1 - c0)):
+                out.setdefault(key, []).append(v * 1e3)
+    return out
 
 
-def profile_train(model, opt, ids, step_ms: float) -> dict:
+def profile_train(model, opt, ids, step_ms: float,
+                  tag: str = "phase3-train-profile") -> dict:
     """One training step traced with ``torch.profiler``: device busy time
     (the kernels' summed self time) against the traced wall and the
     unprofiled median step (``step_ms``), device time by kind of kernel,
-    the kernels that take most, and one more step split into its phases
+    the kernels that take most, and three more steps split into their phases
     on the host clock."""
     import torch
     from torch.autograd import DeviceType
@@ -1786,7 +2143,184 @@ def profile_train(model, opt, ids, step_ms: float) -> dict:
         else "not measured",
         top_kernels=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
                      for e in top])
-    log("phase3-train-profile", **out)
+    log(tag, **out)
+    return out
+
+
+def small_gpt_check(device) -> dict:
+    """A small fp32 GPT (2 layers, hidden 128, 2 heads of 64, vocab 512,
+    b 2 x s 128) in both attention cores, flash and the fused softmax: the
+    same weights on the card and on the CPU give the ``labels=`` loss and
+    every parameter's gradient (the tied embedding's included), then the
+    losses and parameters of 3 ``FusedLAMB(packed=True)`` steps, each
+    within its stated tolerance."""
+    import torch
+    from apex_tpu_torch.examples.gpt_pretrain import train_step
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    cfg = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
+               vocab_size=512, max_sequence_length=128)
+    ids = torch.randint(0, 512, (2, 128), generator=torch.Generator().manual_seed(35))
+    out = {}
+    for flash in (True, False):
+        cpu_model = GPTModel(**cfg, use_flash_attention=flash, device="cpu",
+                             generator=torch.Generator().manual_seed(36))
+        gpu_model = GPTModel(**cfg, use_flash_attention=flash, device=device)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        res = {}
+        for name, model, dev in (("cpu", cpu_model, "cpu"),
+                                 ("cuda", gpu_model, device)):
+            x = ids.to(dev)
+            loss = model(x, labels=torch.roll(x, -1, dims=1)).mean()
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+            opt = FusedLAMB(model.parameters(), lr=1e-3, packed=True)
+            losses = [float(train_step(model, opt, x)) for _ in range(3)]
+            params = {n: p.detach().cpu().clone()
+                      for n, p in model.named_parameters()}
+            res[name] = (float(loss.detach()), grads, losses, params)
+        c, d = res["cpu"], res["cuda"]
+        lr, steps = 1e-3, 3
+        # LAMB, like Adam, divides each gradient by its own size before the
+        # trust ratio (at most about 1 here) scales it: as small_train_check
+        param_ratio = 0.0
+        for n in c[3]:
+            ng = 1e-4 * c[1][n].abs().max()
+            tol = 1e-5 + steps * lr * ng / (c[1][n].abs() + ng + 1e-30)
+            param_ratio = max(param_ratio,
+                              float(((d[3][n] - c[3][n]).abs() / tol).max()))
+        grad_ratio = max(
+            float(((d[1][n] - c[1][n]).abs()
+                   / (1e-4 * c[1][n].abs().max() + 1e-4 * c[1][n].abs()
+                      + 1e-9)).max())
+            for n in c[1])
+        err = dict(loss=abs(c[0] - d[0]), grad_tol_ratio=grad_ratio,
+                   step_losses=max(abs(a - b) for a, b in zip(c[2], d[2])),
+                   params_after_3_steps=max(float((d[3][n] - c[3][n]).abs().max())
+                                            for n in c[3]),
+                   params_tol_ratio=param_ratio, params=len(c[1]))
+        if (err["loss"] > 1e-5 or grad_ratio > 1.0 or err["step_losses"] > 1e-4
+                or param_ratio > 1.0):
+            raise AssertionError(f"small GPT (flash={flash}): card against "
+                                 f"CPU {err}")
+        if not c[2][-1] < c[2][0]:
+            raise AssertionError(f"small GPT: loss did not fall {c[2]}")
+        out["flash" if flash else "fused_softmax"] = err
+    out["tolerance"] = ("loss 1e-5; each gradient within 1e-4 (max|g_ref| + "
+                        "|g_ref|); losses of 3 packed FusedLAMB steps (lr "
+                        "1e-3) 1e-4; each parameter within 1e-5 + 3 lr ng / "
+                        "(|g| + ng), ng = 1e-4 max|g_ref|")
+    log("phase3-gpt-reference", **out)
+    return out
+
+
+def gpt2_large_train(device, form: str) -> dict:
+    """GPT-2-large training (``bench.py``'s ``large`` card: 36 x 1280, 20
+    heads, vocab 50304, b 8 x s 1024), fp32 init from a seeded generator on
+    the card, O2 cast, ``FusedLAMB(lr=1e-3)``, one fixed batch with labels
+    the ids rolled by one; 1 warm-up step, then 6 timed steps with the
+    launches of each step checked exactly, in one of two forms:
+
+    - ``"kernel"``: the materialized attention core (the fused softmax
+      kernels) and the packed LAMB (the phase-1 kernel, fp32 flat moments);
+    - ``"flagship"``: flash attention and the unpacked LAMB with bf16
+      moments, as ``bench.py`` runs it.
+
+    A falling, finite loss; step wall, tokens/s, MFU against 989 TFLOP/s,
+    peak memory and a profile of one step."""
+    import torch
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import packed_update as pu
+    from apex_tpu_torch.ops import softmax as sm
+
+    c = gpt_pretrain.LARGE
+    kernel_path = form == "kernel"
+    model, opt = gpt_pretrain.build(c["layers"], c["hidden"], c["heads"],
+                                    c["vocab"], c["seq"], flash=not kernel_path,
+                                    packed_lamb=kernel_path, device=device)
+    b, s, layers = c["batch"], c["seq"], c["layers"]
+    ids = torch.randint(0, c["vocab"], (b, s),
+                        generator=torch.Generator().manual_seed(8)).to(device)
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                lh.FUSED_LM_HEAD_FWD.name: 1,
+                lh.FUSED_LM_HEAD_DH.name: 1,
+                lh.FUSED_LM_HEAD_DE.name: 1}
+    if kernel_path:
+        per_step.update({sm.SCALED_SOFTMAX_FWD.name: layers,
+                         sm.SCALED_SOFTMAX_BWD.name: layers,
+                         pu.LAMB_PHASE1.name: 1})
+    else:
+        per_step.update({fa.FLASH_ATTENTION_FWD.name: layers,
+                         fa.FLASH_ATTENTION_DQ.name: layers,
+                         fa.FLASH_ATTENTION_DKV.name: layers})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0 = float(gpt_pretrain.train_step(model, opt, ids))   # warm-up
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in _dispatch.KERNELS}
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        loss = gpt_pretrain.train_step(model, opt, ids)
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
+        if _nonzero(step) != per_step:
+            raise AssertionError(f"GPT-2-large ({form}) step {i} launched "
+                                 f"{step}, expected {per_step}")
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, [loss0] + losses)) or not losses[0] < loss0 \
+            or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"GPT-2-large ({form}) loss {loss0} then "
+                             f"{losses}: not finite and falling every step")
+    n = sum(p.numel() for p in model.parameters())
+    if n != gpt2_large_numel()[0]:
+        raise AssertionError(f"GPT-2-large has {n} parameters, the phase-2 "
+                             f"LAMB buffers assumed {gpt2_large_numel()[0]}")
+    # bench.py:2423's model FLOPs: 6 N a token plus the causal attention
+    # term 12 L h s / 2, times the tokens
+    flops = float((6 * n + 12 * layers * c["hidden"] * s // 2) * b * s)
+    med = statistics.median(step_ms)
+    out = dict(config="gpt2-large", form=form,
+               attention="materialized (fused softmax kernels)" if kernel_path
+               else "flash", optimizer="FusedLAMB(lr=1e-3, packed=True), fp32 "
+               "flat moments" if kernel_path else "FusedLAMB(lr=1e-3, "
+               "state_dtype=bf16), unpacked",
+               batch=b, seq=s, tokens=b * s,
+               precision="O2: 2-d parameters bf16, biases and LayerNorm fp32",
+               params=n, warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
+               step_ms=step_ms, step_ms_median=med,
+               # the host's time to issue each step (and its CPU time
+               # then): near step_ms, the step is host-bound
+               step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
+               device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
+                   "num_device_alloc", 0) - allocs0,
+               tokens_per_s=b * s / (med / 1e3), flops_per_step=flops,
+               bound_ms=flops / 989e12 * 1e3,
+               mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
+               allocated_before_bytes=allocated_before,
+               launches=launches, launches_per_step=per_step)
+    log(f"phase3-gpt-{form}", **out)
+    out["profile"] = profile_train(model, opt, ids, med,
+                                   tag=f"phase3-gpt-{form}-profile")
+    del model, opt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1801,6 +2335,8 @@ def main() -> int:
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import packed_update as pu
+    from apex_tpu_torch.ops import softmax as sm
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -1831,31 +2367,36 @@ def main() -> int:
     norm_bwd_time = time_layer_norm_bwd(device)
     flash_bwd_time = time_flash_attention_bwd(device)
     head_bwd_time = time_lm_head_bwd(device)
+    softmax_check = check_softmax(device)
+    lamb_check = check_lamb_phase1(device)
+    softmax_time = time_softmax(device)
+    lamb_time = time_lamb_phase1(device)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     reference = small_reference_check(device)
     eval_reference = small_eval_check(device)
     train_reference = small_train_check(device)
+    gpt_reference = small_gpt_check(device)
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
     del model
     torch.cuda.empty_cache()
     training = llama_1b_train(device)
+    gpt_kernel = gpt2_large_train(device, "kernel")
+    gpt_flagship = gpt2_large_train(device, "flagship")
+    paths = dict(serving=e2e, evaluation=evaluation, training=training,
+                 gpt_kernel_path=gpt_kernel, gpt_flagship=gpt_flagship)
 
-    def by_path(name):
-        return dict(serving=e2e["launches"][name],
-                    evaluation=evaluation["launches"][name],
-                    training=training["launches"][name])
-
-    def entry(k, err, row, **extra):
+    def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
                     source=f"apex_tpu_torch/csrc/{k.source}",
                     replaces=k.replaces.split()[0],
-                    launches=training["launches"][k.name], max_abs_err=err,
-                    ms=row["ms"], plain_ms=row["plain_ms"],
+                    launches=paths[main_path]["launches"][k.name],
+                    max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=row["library_ms"], main_path="training",
-                    launches_by_path=by_path(k.name), **extra)
+                    library_ms=row["library_ms"], main_path=main_path,
+                    launches_by_path={p: r["launches"][k.name]
+                                      for p, r in paths.items()}, **extra)
 
     decode_row = next(r for r in timings if r["n"] == 8)
     nb, fb, hb = (norm_bwd_check["main_shape"], flash_bwd_check["main_shape"],
@@ -1877,17 +2418,30 @@ def main() -> int:
               shape=head_bwd_time["dh"]["shape"]),
         entry(lh.FUSED_LM_HEAD_DE, hb["de_max_abs_err"], head_bwd_time["de"],
               shape=head_bwd_time["de"]["shape"]),
+        entry(sm.SCALED_SOFTMAX_FWD, softmax_check["main_shape"]["y_max_abs_err"],
+              softmax_time["fwd"], main_path="gpt_kernel_path",
+              shape=softmax_time["fwd"]["shape"]),
+        entry(sm.SCALED_SOFTMAX_BWD, softmax_check["main_shape"]["dx_max_abs_err"],
+              softmax_time["bwd"], main_path="gpt_kernel_path",
+              shape=softmax_time["bwd"]["shape"]),
+        entry(pu.LAMB_PHASE1, max(lamb_check["main_shape"][k] for k in (
+            "m_max_abs_err", "v_max_abs_err", "u_max_abs_err")),
+              lamb_time, main_path="gpt_kernel_path", shape=lamb_time["shape"]),
     ]}
     if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
         raise AssertionError("the kernels line does not list every kernel")
     report = dict(nvidia_smi=smi, clocks_after_timing=clocks, build_s=build_s,
                   kernel_checks=[flash_check, head_check, norm_bwd_check,
-                                 flash_bwd_check, head_bwd_check],
+                                 flash_bwd_check, head_bwd_check,
+                                 softmax_check, lamb_check],
                   kernel_times=[flash_time, head_time, norm_bwd_time,
-                                flash_bwd_time, head_bwd_time],
+                                flash_bwd_time, head_bwd_time, softmax_time,
+                                lamb_time],
                   reference=reference, eval_reference=eval_reference,
-                  train_reference=train_reference, llama_1b=e2e,
-                  evaluation=evaluation, training=training, kernels=kernels,
+                  train_reference=train_reference, gpt_reference=gpt_reference,
+                  llama_1b=e2e, evaluation=evaluation, training=training,
+                  gpt2_large_kernel_path=gpt_kernel,
+                  gpt2_large_flagship=gpt_flagship, kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -1,0 +1,217 @@
+"""apex_tpu_torch's GPT (standalone_transformer_lm + standalone_gpt) against
+apex_tpu's on carried-over weights.
+
+One JAX ``GPTModel`` (2 layers, hidden 128, 2 heads of 64, vocab 512,
+sequence 128, fp32) is initialised in JAX; its parameters go to the port
+through numpy and ``gpt_params_from_jax``.  The JAX side runs its Pallas
+kernels (LayerNorm, flash attention or the fused softmax, the fused LM
+head) in interpret mode; batch 4 x 128 tokens (T 512) meets the head
+kernel's gate.  Token ids come from numpy with a fixed seed.  Tolerances:
+logits and per-token losses at ``atol = 1e-4`` (fp32 through two layers,
+sums taken in another order); each gradient within ``1e-4 max|g| +
+1e-4 |g|`` of the JAX one; a 3-step ``FusedLAMB(packed=True)`` trajectory's
+losses at ``1e-4`` and its parameters at ``atol = 1e-5`` (lr 1e-3: the
+steps move each parameter by ~lr, and the trust ratios divide norms whose
+fp32 sums differ in order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.optimizers import FusedLAMB as JaxFusedLAMB
+from apex_tpu.transformer.testing import GPTModel as JaxGPT
+from apex_tpu_torch.examples import gpt_pretrain
+from apex_tpu_torch.models import gpt_params_from_jax
+from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.transformer import testing as ttesting
+from apex_tpu_torch.transformer.testing import GPTModel
+from apex_tpu_torch.transformer.testing import standalone_transformer_lm as tlm
+
+CFG = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
+           vocab_size=512, max_sequence_length=128)
+B, S = 4, 128
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    model = JaxGPT(**CFG)
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    return jax.tree.map(np.asarray, params)
+
+
+def _ids(seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, CFG["vocab_size"], (B, S)).astype(np.int32)
+    return ids, np.roll(ids, -1, axis=1)
+
+
+def _torch_model(params, flash: bool) -> GPTModel:
+    model = GPTModel(**CFG, use_flash_attention=flash, device="cpu")
+    model.load_state_dict(gpt_params_from_jax(params, CFG["num_layers"]))
+    return model
+
+
+def _jax_loss_fn(flash: bool, ids, labels):
+    model = JaxGPT(**CFG, use_flash_attention=flash)
+    return lambda p: model.apply(p, jnp.asarray(ids),
+                                 labels=jnp.asarray(labels)).mean()
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "fused-softmax"])
+def test_logits_and_loss_match_jax(monkeypatch, jax_params, flash):
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    ids, labels = _ids(1)
+    jmodel = JaxGPT(**CFG, use_flash_attention=flash)
+    ref_logits = np.asarray(jmodel.apply(jax_params, jnp.asarray(ids)))
+    ref_loss = np.asarray(jmodel.apply(jax_params, jnp.asarray(ids),
+                                       labels=jnp.asarray(labels)))
+    model = _torch_model(jax_params, flash)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(ids).long())
+        loss = model(torch.from_numpy(ids).long(),
+                     labels=torch.from_numpy(labels).long())
+    assert tuple(logits.shape) == (S, B, CFG["vocab_size"])
+    assert logits.dtype == torch.float32 and tuple(loss.shape) == (B, S)
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(loss.numpy(), ref_loss, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "fused-softmax"])
+def test_every_gradient_matches_jax(monkeypatch, jax_params, flash):
+    """Every parameter's gradient, the tied word embedding's (lookup plus
+    head) included."""
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    ids, labels = _ids(2)
+    ref_loss, ref_grads = jax.value_and_grad(
+        _jax_loss_fn(flash, ids, labels))(jax.tree.map(jnp.asarray, jax_params))
+    ref = gpt_params_from_jax(jax.tree.map(np.asarray, ref_grads),
+                              CFG["num_layers"])
+    model = _torch_model(jax_params, flash)
+    loss = model(torch.from_numpy(ids).long(),
+                 labels=torch.from_numpy(labels).long()).mean()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), atol=1e-5)
+    named = dict(model.named_parameters())
+    assert set(named) == set(ref)
+    for name, p in named.items():
+        g, r = p.grad.numpy(), ref[name].numpy()
+        tol = 1e-4 * np.abs(r).max() + 1e-4 * np.abs(r)
+        assert (np.abs(g - r) <= tol).all(), (name, np.abs(g - r).max())
+    emb = named["language_model.embedding.word_embeddings.weight"].grad
+    assert emb.abs().sum(dim=1).gt(0).sum() > len(np.unique(ids))  # head rows
+
+
+def test_packed_lamb_trajectory_matches_jax(monkeypatch, jax_params):
+    """Three steps of the fused-softmax model under FusedLAMB(packed=True)
+    against the JAX model under the JAX packed FusedLAMB."""
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    ids, labels = _ids(3)
+    loss_fn = _jax_loss_fn(False, ids, labels)
+    jopt = JaxFusedLAMB(lr=1e-3, packed=True)
+    jparams = jax.tree.map(jnp.asarray, jax_params)
+    jstate = jopt.init(jparams)
+    ref_losses = []
+    for _ in range(3):
+        loss, grads = jax.value_and_grad(loss_fn)(jparams)
+        jparams, jstate = jopt.step(grads, jparams, jstate)
+        ref_losses.append(float(loss))
+    model = _torch_model(jax_params, False)
+    opt = FusedLAMB(model.parameters(), lr=1e-3, packed=True)
+    losses = [float(gpt_pretrain.train_step(model, opt,
+                                            torch.from_numpy(ids).long()))
+              for _ in range(3)]
+    np.testing.assert_allclose(losses, ref_losses, atol=1e-4)
+    assert losses[-1] < losses[0]
+    ref = gpt_params_from_jax(jax.tree.map(np.asarray, jparams),
+                              CFG["num_layers"])
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_qkv_split_keeps_each_heads_q_k_v_adjacent():
+    """The fused QKV output [s, b, np, 3 hd] splits per head, as the JAX
+    model's reshape and split on the last axis."""
+    attn = tlm.ParallelAttention(8, 2, device="cpu")
+    seen = {}
+    orig = tlm.FusedScaleMaskSoftmax.forward
+
+    def spy(self, scores, mask=None):
+        seen["scores"] = scores
+        return orig(self, scores, mask)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlm.FusedScaleMaskSoftmax, "forward", spy)
+        attn.use_flash_attention = False
+        x = torch.randn(3, 1, 8)
+        attn(x)
+    qkv = attn.query_key_value(x).view(3, 1, 2, 12)
+    q, k = qkv[..., 0:4], qkv[..., 4:8]
+    want = torch.einsum("sbnd,tbnd->bnst", q, k)
+    torch.testing.assert_close(seen["scores"], want)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tlm.ParallelAttention(8, 2, attention_dropout=0.1, device="cpu")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tlm.ParallelTransformerLayer(8, 2, hidden_dropout=0.1, device="cpu")
+    with pytest.raises(NotImplementedError, match="context parallelism"):
+        tlm.ParallelAttention(8, 2, context_parallel_axis="cp", device="cpu")
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        tlm.ParallelTransformerLayer(8, 2, moe_num_experts=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        GPTModel(sequence_parallel_enabled=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        GPTModel(activations_checkpoint=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        GPTModel(activations_checkpoint_policy="dots", device="cpu")
+    from apex_tpu_torch.transformer.layers import FusedLayerNorm
+    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+        FusedLayerNorm(8, sequence_parallel_enabled=True, device="cpu")
+
+
+def test_rope_model_matches_jax(monkeypatch):
+    """apply_rope=True: no position table, rotary q and k (the module's own
+    base-10000 frequencies) through the flash core."""
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    cfg = dict(CFG, num_layers=1)
+    jmodel = JaxGPT(**cfg, apply_rope=True)
+    params = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32)))
+    ids, _ = _ids(4)
+    ref = np.asarray(jmodel.apply(params, jnp.asarray(ids)))
+    model = GPTModel(**cfg, apply_rope=True, device="cpu")
+    model.load_state_dict(gpt_params_from_jax(params, 1, apply_rope=True))
+    with torch.no_grad():
+        out = model(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_converter_rejects_missing_and_extra_keys(jax_params):
+    tree = jax.tree.map(lambda a: a, jax_params)["params"]
+    lm = dict(tree["language_model"])
+    tr = dict(lm["transformer"])
+    tr.pop("layer_1")
+    with pytest.raises(ValueError, match="missing.*layer_1"):
+        gpt_params_from_jax({"language_model": dict(lm, transformer=tr)}, 2)
+    with pytest.raises(ValueError, match="unconsumed.*position_embeddings"):
+        gpt_params_from_jax(tree, 2, apply_rope=True)
+    # a flax kernel [in, out] arrives as a torch weight [out, in]
+    sd = gpt_params_from_jax(tree, 2)
+    k = tree["language_model"]["transformer"]["layer_0"]["self_attention"][
+        "query_key_value"]["kernel"]
+    w = sd["language_model.transformer.layers.0.self_attention."
+           "query_key_value.weight"]
+    np.testing.assert_array_equal(w.numpy(), np.asarray(k).T)
+
+
+def test_gpt_pretrain_main_on_the_cpu():
+    for argv in ([], ["--no-flash", "--packed-lamb"]):
+        last = gpt_pretrain.main(["--device", "cpu", "--steps", "3",
+                                  "--seq", "64", "--batch", "2", *argv])
+        assert np.isfinite(last)
+    assert ttesting.gpt_model_provider(device="cpu", num_layers=1).num_layers == 1

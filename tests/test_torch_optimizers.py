@@ -141,10 +141,10 @@ def test_unsupported_options_raise():
     p = [torch.nn.Parameter(torch.ones(2))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="GPT training slice"):
+    with pytest.raises(NotImplementedError, match=r"mixed-precision \(amp\) slice"):
         FusedAdam(p, master_weights=True)
     opt = FusedAdam(p)
-    with pytest.raises(NotImplementedError, match="GPT training slice"):
+    with pytest.raises(NotImplementedError, match=r"mixed-precision \(amp\) slice"):
         opt.step(grad_scale=torch.tensor(2.0))
-    with pytest.raises(NotImplementedError, match="GPT training slice"):
+    with pytest.raises(NotImplementedError, match=r"mixed-precision \(amp\) slice"):
         opt.step(found_inf=torch.tensor(False))

@@ -34,7 +34,16 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.tensor_parallel, "
         "apex_tpu_torch.ops.layer_norm, apex_tpu_torch.ops.rope, "
         "apex_tpu_torch.ops.flash_attention, apex_tpu_torch.ops.fused_lm_head, "
-        "apex_tpu_torch.optimizers, apex_tpu_torch.examples.llama_pretrain\n"
+        "apex_tpu_torch.optimizers, apex_tpu_torch.examples.llama_pretrain, "
+        "apex_tpu_torch.ops.softmax, apex_tpu_torch.ops.packed_update, "
+        "apex_tpu_torch.transformer.enums, "
+        "apex_tpu_torch.transformer.functional, "
+        "apex_tpu_torch.transformer.layers, "
+        "apex_tpu_torch.transformer.testing, "
+        "apex_tpu_torch.transformer.testing.standalone_transformer_lm, "
+        "apex_tpu_torch.utils.packing, apex_tpu_torch.utils.tree_math, "
+        "apex_tpu_torch.multi_tensor_apply, "
+        "apex_tpu_torch.examples.gpt_pretrain\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
@@ -77,6 +86,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         sv.DecodeEngine(model, slots=1, max_len=8, prefill_len=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sv.init_cache(cfg, slots=1, max_len=8)
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTModel()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gpt_pretrain.main(["--steps", "1"])
 
 
 # every kernel of the port, module by module: (name, the JAX file:function
@@ -90,6 +106,9 @@ _KERNELS = [
     ("fused_lm_head_fwd", "apex_tpu/ops/fused_lm_head.py", "_fwd_kernel"),
     ("fused_lm_head_dh", "apex_tpu/ops/fused_lm_head.py", "_dh_kernel"),
     ("fused_lm_head_de", "apex_tpu/ops/fused_lm_head.py", "_de_kernel"),
+    ("scaled_softmax_fwd", "apex_tpu/ops/softmax.py", "_fwd_kernel"),
+    ("scaled_softmax_bwd", "apex_tpu/ops/softmax.py", "_bwd_kernel"),
+    ("lamb_phase1", "apex_tpu/ops/packed_update.py", "_lamb_phase1_kernel"),
 ]
 
 
