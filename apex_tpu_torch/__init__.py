@@ -25,7 +25,12 @@ flash attention or the fused scaled/masked softmax
 (:mod:`~apex_tpu_torch.ops.softmax`), under
 :class:`~apex_tpu_torch.optimizers.FusedLAMB`, unpacked or over the packed
 LAMB kernel (:mod:`~apex_tpu_torch.ops.packed_update`)
-(:mod:`~apex_tpu_torch.examples.gpt_pretrain` drives it).
+(:mod:`~apex_tpu_torch.examples.gpt_pretrain` drives it); and OpenFold's
+MSA row attention with pair bias:
+:mod:`~apex_tpu_torch.contrib.openfold_triton` (``attention_core`` over
+the pair-bias attention kernels of
+:mod:`~apex_tpu_torch.ops.pair_bias_attention`, forward, dq, dk/dv and
+d(bias); ``LayerNormSmallShapeOptImpl``; ``FusedAdamSWA``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,4 @@
+"""apex_tpu_torch.contrib: the specialized modules of ``apex_tpu.contrib``,
+ported one at a time.  Ported so far: :mod:`.openfold_triton` (the
+Evoformer attention core over the pair-bias attention kernels,
+``LayerNormSmallShapeOptImpl`` and ``FusedAdamSWA``)."""

@@ -18,13 +18,16 @@ ends the run with a non-zero exit and no result line:
    tolerance (a softmax row above the kernel's maximum must raise).  Then
    the kernel, the plain version and the library call (``F.rms_norm``;
    ``F.scaled_dot_product_attention``; ``F.linear`` + ``F.cross_entropy``;
-   ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB)
-   timed at the main path's shapes, on the device (calls captured in a
-   CUDA graph, or eager between CUDA events where a call moves GBs) and
-   as the host issues them, beside the least time the card could take
-   (bytes over 3.35 TB/s, or operations over the bf16 or fp32 peak, the
-   larger).
-3. **End to end**, five paths, each with the launch counts set to 0 just
+   ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB;
+   SDPA with the pair bias and mask fill as one float mask for the
+   pair-bias kernels) timed at the main path's shapes, on the device
+   (calls captured in a CUDA graph, or eager between CUDA events where a
+   call moves GBs) and as the host issues them, beside the least time the
+   card could take (bytes over 3.35 TB/s, or operations over the bf16 or
+   fp32 peak, and for the pair-bias kernels their exponentials over the
+   SFU rate: the largest).  The pair-bias kernels and the materialized
+   route are also timed at the two routing shapes, N_res 256 and 1024.
+3. **End to end**, six paths, each with the launch counts set to 0 just
    before it and read just after:
 
    - *serving*: a small fp32 Llama served on the card against the same
@@ -56,6 +59,17 @@ ends the run with a non-zero exit and no result line:
      flagship (flash attention, unpacked LAMB with bf16 moments: 73/73
      norm, 36/36/36 flash, 1/1/1 head); a loss that falls every step,
      step wall, tokens/s, MFU, idle share, peak memory and a profile.
+   - *openfold*: a small fp32 MSA-row attention block with pair bias at
+     N_res 1024 (routed to the pair-bias kernels): loss, every gradient
+     (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
+     against the CPU; then four such blocks at OpenFold's Evoformer widths
+     (c_m 256, c_z 128, 8 heads of 32, N_seq 128, N_res 1024, bf16, 10%
+     of the MSA masked) trained 1 + 6 steps under ``FusedAdamSWA``:
+     exactly 4/4/4/4 pair-bias forward, dq, dk/dv and dbias and 8/8 norm
+     launches a step, a loss that falls every step, step wall, idle
+     share, device time by kind, peak memory; and one block at the
+     training crop (N_res 256), which routes to the materialized path:
+     no pair-bias launch.
 4. **Kernels line**: one JSON object with each kernel's launches on its
    main path (and on every path), error against its plain version, and
    times.
@@ -77,6 +91,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 rate outside tensor cores
+# exp2 results a second: 16 a clock on each of the 132 SMs (the CUDA
+# programming guide's throughput table, compute capability 9.0) at the
+# H100 SXM's 1.98 GHz boost clock
+MUFU_EXP_PER_S = 132 * 16 * 1.98e9
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -566,18 +584,26 @@ def time_lm_head(device) -> dict:
 
 
 def _row(dev: dict, host_ms: float, flops: float, nbytes: float,
-         peak_flops: float) -> dict:
-    bound_ops = flops / peak_flops * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+         peak_flops: float, exps: float = 0.0, timing: str = None) -> dict:
+    """A kernel's times beside its bound: the largest of its bytes over
+    the memory rate, its products over ``peak_flops`` and its
+    exponentials (``exps``) over the SFU rate.  ``bound_by`` is
+    ``"bytes"`` or ``"operations"``; ``bound_term`` says which."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "products": flops / peak_flops * 1e3,
+             "exponentials": exps / MUFU_EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
     return dict(ms=min(dev["kernel"], dev["kernel_again"]),
                 ms_runs=[dev["kernel"], dev["kernel_again"]],
                 plain_ms=dev["plain"], library_ms=dev["library"],
-                host_issued_ms=host_ms, bound_ms=max(bound_ops, bound_bytes),
-                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
-                timing="ms/library_ms: device time, 20 calls in one CUDA "
-                       "graph between CUDA events; plain_ms: 3 eager calls "
-                       "between CUDA events (GBs of temporaries); "
-                       "host_issued_ms: 20 eager calls back to back; L2-warm")
+                host_issued_ms=host_ms, bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term,
+                timing=timing or
+                "ms/library_ms: device time, 20 calls in one CUDA "
+                "graph between CUDA events; plain_ms: 3 eager calls "
+                "between CUDA events (GBs of temporaries); "
+                "host_issued_ms: 20 eager calls back to back; L2-warm")
 
 
 # ---------------------------------------------------------------------------
@@ -2049,7 +2075,11 @@ def _nonzero(counts: dict) -> dict:
 def _kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name: one of the port's kernels,
     cuBLAS, or PyTorch's own elementwise, copy and reduction kernels."""
-    for key, kind in (("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
+    for key, kind in (("pair_bias_fwd", "pair-bias forward"),
+                      ("pair_bias_dq", "pair-bias dq"),
+                      ("pair_bias_dkv", "pair-bias dk/dv"),
+                      ("pair_bias_dbias", "pair-bias dbias"),
+                      ("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
                       ("flash_dkv", "flash dk/dv"), ("ln_fwd", "norm forward"),
                       ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
                       ("dlog_", "head dH"), ("gemm_mma<", "head dH/dE products"),
@@ -2098,24 +2128,20 @@ def _step_phases(model, opt, ids, repeats: int = 3) -> dict:
     return out
 
 
-def profile_train(model, opt, ids, step_ms: float,
-                  tag: str = "phase3-train-profile") -> dict:
-    """One training step traced with ``torch.profiler``: device busy time
-    (the kernels' summed self time) against the traced wall and the
-    unprofiled median step (``step_ms``), device time by kind of kernel,
-    the kernels that take most, and three more steps split into their phases
-    on the host clock."""
+def _profile(step_fn, step_ms: float) -> dict:
+    """One call of ``step_fn`` (a training step) traced with
+    ``torch.profiler``: device busy time (the kernels' summed self time)
+    against the traced wall and the unprofiled median step (``step_ms``),
+    device time by kind of kernel, and the kernels that take most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from apex_tpu_torch.examples.llama_pretrain import train_step
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(model, opt, ids)
+        step_fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     # device-side kernel rows only: the optimizer's step shows on the device
@@ -2132,10 +2158,9 @@ def profile_train(model, opt, ids, step_ms: float,
     for e in kernels:
         kind = _kernel_kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
-    out = dict(
+    return dict(
         traced_wall_ms=traced_ms, unprofiled_step_ms=step_ms,
         device_ms_by_kind=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-        phases_ms=_step_phases(model, opt, ids),
         device_idle_share_unprofiled=(1 - busy_ms / step_ms) if kernels
         else "not measured",
         device_busy_ms=busy_ms if kernels else "not measured",
@@ -2143,6 +2168,16 @@ def profile_train(model, opt, ids, step_ms: float,
         else "not measured",
         top_kernels=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
                      for e in top])
+
+
+def profile_train(model, opt, ids, step_ms: float,
+                  tag: str = "phase3-train-profile") -> dict:
+    """One training step traced (``_profile``), and three more steps split
+    into their phases on the host clock."""
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+
+    out = _profile(lambda: train_step(model, opt, ids), step_ms)
+    out["phases_ms"] = _step_phases(model, opt, ids)
     log(tag, **out)
     return out
 
@@ -2324,6 +2359,691 @@ def gpt2_large_train(device, form: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the pair-bias attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# OpenFold's MSA row attention with pair bias at the Evoformer widths
+# (openfold/config.py: c_m 256, c_z 128, 8 heads x c_hidden_msa_att 32),
+# N_seq 128 (max_msa_clusters in training), N_res 1024 (the shortest
+# length the JAX routing sends to the kernel), b 1, bf16, 10% of the MSA
+# positions masked
+OPENFOLD = dict(b=1, n_seq=128, n_res=1024, c_m=256, c_z=128, heads=8,
+                c_hidden=32, blocks=4, mask_rate=0.1)
+PAIR_BIAS_MAIN = dict(r=OPENFOLD["n_seq"], b=OPENFOLD["b"], h=OPENFOLD["heads"],
+                      s=OPENFOLD["n_res"], d=OPENFOLD["c_hidden"])
+
+
+def _pair_bias_inputs(case, g, device):
+    """q, k, v, do ``[r*b, h, s, d]`` (``layout="openfold"``: views of
+    ``[R, s, h, d]``, the heads split from a linear's output), bias ``[b,
+    h, s, s]``, all 0.5 N(0, 1), and a kv mask with R row 1 fully masked
+    (``dead``)."""
+    import torch
+
+    dt = getattr(torch, case["dtype"])
+    bdt = getattr(torch, case.get("bias_dtype", case["dtype"]))
+    r, b, h, s, d = (case[k] for k in ("r", "b", "h", "s", "d"))
+    R = r * b
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=device) * 0.5
+
+    def operand():
+        if case.get("layout") == "openfold":
+            return rand(R, s, h, d).to(dt).permute(0, 2, 1, 3)
+        return rand(R, h, s, d).to(dt)
+
+    q, k, v, do = (operand() for _ in range(4))
+    bias = rand(b, h, s, s).to(bdt)
+    mask = None
+    if case.get("mask", True):
+        mask = torch.rand(R, s, generator=g, device=device) >= case.get(
+            "mask_rate", 0.2)
+        if case.get("dead", True):
+            mask[1] = False
+    return q, k, v, bias, mask, do
+
+
+def _pair_bias_bwd_tol(q, k, v, bias, mask, lse, do, delta, refs, case,
+                       scale):
+    """Per-element bounds of ``(dq, dk, dv, dbias)``, as the flash
+    backward's (``_flash_bwd_tol``) with the bias in the exponent: the
+    kernels round ds and p to the operand dtype before dq, dk and dv (u
+    |ds| |k| and the like), the dtype's least subnormal spacing bounds
+    what that loses below the normal range, and every fp32 quantity (s
+    with the bias, p through 2^x, dp, delta and the sums) is within
+    EPS_SUM of its terms' absolute sums; dbias sums its fp32 ds over the r
+    rows unrounded.  Then 2 ulp of each output's dtype.  One R row at a
+    time, in fp32."""
+    import torch
+
+    dt = case["dtype"]
+    u, floor = _half_eps(dt), _sub_floor(dt)
+    R, h, s, d = q.shape
+    b = bias.shape[0]
+    tq, tk, tv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    tdb = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
+    for i in range(R):
+        q1, k1, v1, do1 = (t[i].float() for t in (q, k, v, do))
+        b1 = bias[i % b].float()
+        sc = torch.matmul(q1, k1.transpose(-1, -2)) * scale + b1
+        valid = None if mask is None else mask[i][None, None, :]
+        if valid is not None:
+            sc = torch.where(valid, sc, -1e30)
+        p = torch.exp(sc - lse[i][..., None])
+        del sc
+        dp = torch.matmul(do1, v1.transpose(-1, -2))
+        dpa = torch.matmul(do1.abs(), v1.abs().transpose(-1, -2))
+        dl = delta[i][..., None]
+        ds = p * (dp - dl)
+        pe = 1 + torch.matmul(q1.abs(), k1.abs().transpose(-1, -2)) * scale \
+            + b1.abs()
+        a = p * (pe * (dp.abs() + dl.abs()) + dpa + dl.abs())
+        pe = p * pe
+        del dp, dpa
+        qa, ka, doa = q1.abs(), k1.abs(), do1.abs()
+        tq[i] = scale * (u * torch.matmul(ds.abs(), ka)
+                         + EPS_SUM * torch.matmul(a, ka) + floor * s * float(ka.max()))
+        tk[i] = scale * (u * torch.matmul(ds.abs().transpose(-1, -2), qa)
+                         + EPS_SUM * torch.matmul(a.transpose(-1, -2), qa)
+                         + floor * s * float(qa.max()))
+        tv[i] = (u * torch.matmul(p.transpose(-1, -2), doa)
+                 + EPS_SUM * torch.matmul(pe.transpose(-1, -2), doa)
+                 + floor * s * float(doa.max()))
+        tdb[i % b] += EPS_SUM * a
+        del p, ds, a, pe
+    dq_r, dk_r, dv_r, db_r = refs
+    return (tq + 2 * _ulp(dq_r, dt), tk + 2 * _ulp(dk_r, dt),
+            tv + 2 * _ulp(dv_r, dt),
+            tdb + 2 * _ulp(db_r, case.get("bias_dtype", dt)))
+
+
+def check_pair_bias(device) -> dict:
+    """The four pair-bias kernels on the card against the plain forward
+    and backward on the same inputs: fp32/bf16/fp16; d 8/16/32/64/128
+    (zero-padded to 16/32/64/128 inside); s 128, 1000 (a ragged tile),
+    1024, 2048, and 100 and 1001 (bias rows not staged in shared memory);
+    mask on and off with a fully masked R row; b 1 and 2
+    (the bias tiling over rows-major R); scale 0.7 and 1; an fp32 bias
+    beside 16-bit q/k/v; the openfold layout (strided views); and the
+    main path's shape.  dbias must be the same bits on two calls, and
+    d = 136 must raise.  Returns the main shape's errors."""
+    import torch
+    from apex_tpu_torch.ops import pair_bias_attention as pb
+
+    cases = []
+    for dt in _DTYPES:
+        for d in (8, 16, 32, 64, 128):
+            cases.append(dict(dtype=dt, d=d, s=128, r=3, b=2, h=2, scale=0.7))
+        for s in (1000, 1024, 2048):
+            cases.append(dict(dtype=dt, d=32, s=s, r=2, b=1, h=2, scale=1.0,
+                              layout="openfold"))
+        # bias rows that are not whole 16-byte chunks: read from global
+        # memory by each lane, not staged (s 100 in 16 bits, s 1001)
+        for s in (100, 1001):
+            cases.append(dict(dtype=dt, d=32, s=s, r=3, b=2, h=2, scale=0.7))
+        cases.append(dict(dtype=dt, d=64, s=1000, r=2, b=2, h=2, scale=0.7,
+                          mask=False))
+        cases.append(dict(dtype=dt, d=128, s=1000, r=2, b=2, h=1, scale=1.0))
+        cases.append(dict(dtype=dt, d=16, s=1024, r=2, b=2, h=2, scale=1.0,
+                          bias_dtype="bfloat16" if dt == "float32"
+                          else "float32"))
+    cases.append(dict(PAIR_BIAS_MAIN, dtype="bfloat16", scale=1.0,
+                      layout="openfold", mask_rate=OPENFOLD["mask_rate"],
+                      dead=False, main=True))
+    g = torch.Generator(device=device).manual_seed(51)
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dbias": 0.0}
+    main = {}
+    with torch.no_grad():
+        for case in cases:
+            q, k, v, bias, mask, do = _pair_bias_inputs(case, g, device)
+            scale = case["scale"]
+            o, lse = pb.pair_bias_flash_attention_fwd(q, k, v, bias, mask, scale)
+            grads = pb.pair_bias_flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                                     mask, scale)
+            db_again = pb.pair_bias_flash_attention_bwd(
+                q, k, v, bias, o, lse, do, mask, scale)[3]
+            torch.cuda.synchronize()
+            name = {kk: case[kk] for kk in case if kk not in ("r", "h")}
+            if grads[0].stride() != q.stride() or grads[1].stride() != k.stride():
+                raise AssertionError(f"pair-bias backward strides: {name}")
+            ro, rlse = pb._plain_forward(q, k, v, bias, mask, scale)
+            if case["dtype"] == "float32":
+                o_tol = 1e-5 + 1e-5 * ro.float().abs()
+            else:
+                # the kernel rounds p to the operand dtype before p v (as
+                # the flash forward's check, _flash_inputs' cases)
+                pv_abs, _ = pb._plain_forward(q.float(), k.float(),
+                                              v.float().abs(), bias.float(),
+                                              mask, scale)
+                o_tol = (_half_eps(case["dtype"]) * pv_abs
+                         + _sub_floor(case["dtype"]) * case["s"]
+                         * float(v.float().abs().max())
+                         + 2 * _ulp(ro, case["dtype"]))
+                del pv_abs
+            r = {"o": _tol_ratio(o, ro, o_tol),
+                 "lse": _tol_ratio(lse, rlse, 1e-5 + 1e-5 * rlse.abs())}
+            o_err = float((o.float() - ro.float()).abs().max())
+            del ro, rlse, o_tol
+            refs = pb._plain_backward(q, k, v, bias, mask, o, lse, do, scale)
+            delta = (do.float() * o.float()).sum(-1)
+            tols = _pair_bias_bwd_tol(q, k, v, bias, mask, lse, do, delta,
+                                      refs, case, scale)
+            for n, a, e, t in zip(("dq", "dk", "dv", "dbias"), grads, refs,
+                                  tols):
+                r[n] = _tol_ratio(a, e, t)
+            same = torch.equal(grads[3], db_again)
+            dead_ok = mask is None or not case.get("dead", True) or (
+                bool((o[1] == 0).all()) and bool(torch.isinf(lse[1]).all()))
+            if max(r.values()) > 1.0 or not same or not dead_ok:
+                raise AssertionError(
+                    f"pair-bias attention disagrees with its plain version: "
+                    f"{name}: {r} x tolerance, dbias the same bits on two "
+                    f"calls: {same}, fully masked row o = 0, lse = inf: "
+                    f"{dead_ok}")
+            for n, x in r.items():
+                worst[n] = max(worst[n], x)
+            if case.get("main"):
+                main = {f"{n}_max_abs_err": float((a.float() - e.float()).abs().max())
+                        for n, a, e in zip(("dq", "dk", "dv", "dbias"), grads,
+                                           refs)}
+                main.update(o_max_abs_err=o_err, tol_ratio=r)
+            del q, k, v, bias, mask, do, o, lse, grads, db_again, refs, tols
+        wide = torch.zeros(2, 1, 64, 136, device=device, dtype=torch.bfloat16)
+        try:
+            pb.pair_bias_flash_attention_fwd(
+                wide, wide, wide, torch.zeros(1, 1, 64, 64, device=device))
+        except ValueError as err:
+            d136 = str(err)
+        else:
+            raise AssertionError("pair-bias attention took head dim 136")
+    torch.cuda.empty_cache()
+    out = dict(kernel="pair_bias_attention_fwd + dq + dkv + dbias",
+               cases=len(cases), worst_tol_ratio=worst, main_shape=main,
+               dbias_bit_identical_over_two_calls=True, d136_raises=d136,
+               tolerance="fp32 o within 1e-5 + 1e-5|ref|; bf16/fp16 o_ij "
+                         "within eps/2 sum_j p_ij |v_j| + floor s max|v| + "
+                         "2 ulp(ref); lse within 1e-5 + 1e-5|ref|, +inf rows "
+                         "equal; dq within scale (u |ds| |k| + 2^-16 A |k| + "
+                         "floor s max|k|), dk likewise with q, dv within u "
+                         "p^T |do| + 2^-16 (p E)^T |do| + floor s max|do|, "
+                         "dbias within 2^-16 sum_t A_t, each + 2 ulp: u half "
+                         "an epsilon of the dtype (0 for fp32), E = 1 + scale "
+                         "|q||k|^T + |bias| the exponent's error scale, A = p "
+                         "(E (|dp| + |delta|) + |do||v|^T + |delta|) that of "
+                         "ds, floor the dtype's half least subnormal spacing")
+    log("phase2-check", **out)
+    return out
+
+
+def time_pair_bias(device) -> dict:
+    """The four kernels, the plain forward and backward, and
+    ``F.scaled_dot_product_attention`` at the main path's shape (R 128, h
+    8, s 1024, d 32, bf16, q/k/v in the openfold layout, 10% of the keys
+    masked); returns ``{"fwd": row, "dq": row, "dkv": row, "dbias":
+    row}``.  The library call takes the bias and the mask fill as one
+    float ``attn_mask`` of ``[R, h, s, s]`` (bias tiled over the r rows
+    plus -inf at masked keys): that tensor (2.1 GB in bf16) and, in the
+    backward, its gradient of the same size are what it materializes; it
+    then leaves dbias's sum over the r rows to the caller (not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import pair_bias_attention as pb
+
+    c = PAIR_BIAS_MAIN
+    R, h, s, d = c["r"] * c["b"], c["h"], c["s"], c["d"]
+    g = torch.Generator(device=device).manual_seed(52)
+    case = dict(c, dtype="bfloat16", layout="openfold", dead=False,
+                mask_rate=OPENFOLD["mask_rate"])
+    q, k, v, bias, mask, do = _pair_bias_inputs(case, g, device)
+    rows = {}
+    with torch.no_grad():
+        fwd = lambda: pb.pair_bias_flash_attention_fwd(q, k, v, bias, mask)
+        o, lse = fwd()
+        call = pb._Launch(q, k, v, bias, mask, 1.0, o=o, lse=lse, do=do)
+        call.launch(pb.PAIR_BIAS_DQ)                 # delta for the other two
+        fns = {"fwd": fwd}
+        for name, kern in (("dq", pb.PAIR_BIAS_DQ), ("dkv", pb.PAIR_BIAS_DKV),
+                           ("dbias", pb.PAIR_BIAS_DBIAS)):
+            fns[name] = lambda kern=kern: call.launch(kern)
+        for name, fn in fns.items():
+            rows[name] = dict(kernel=device_ms(fn, iters=20),
+                              host=time_ms(fn, iters=20, warmup=3))
+        for name, fn in fns.items():
+            rows[name]["kernel_again"] = device_ms(fn, iters=20)
+        # bias reuse: the forward with a bias plane of its own for each MSA
+        # row (b = R, 2.1 GB, each plane read by one row only) against the
+        # shared plane, which all r rows read; what the shared plane saves
+        # is what its reuse (in L2) buys
+        own = torch.randn(R, h, s, s, generator=g, device=device).to(
+            torch.bfloat16)
+        reuse = dict(shared_ms=device_ms(fwd, iters=20), per_row_ms=device_ms(
+            lambda: pb.pair_bias_flash_attention_fwd(q, k, v, own, mask),
+            iters=20), per_row_bias_bytes=own.numel() * 2,
+            shared_bias_bytes=bias.numel() * 2)
+        del own
+        plain_fwd = time_ms(lambda: pb._plain_forward(q, k, v, bias, mask),
+                            iters=3, warmup=1)
+        plain_bwd = time_ms(lambda: pb._plain_backward(q, k, v, bias, mask, o,
+                                                       lse, do), iters=2,
+                            warmup=1)
+        torch.cuda.empty_cache()
+    # the library call: one float mask [R, h, s, s], the bias tiled over
+    # the rows plus -inf at the masked keys
+    fill = torch.zeros(R, 1, 1, s, device=device).masked_fill(
+        ~mask[:, None, None, :], float("-inf"))
+    am = (bias.float().repeat(R // c["b"], 1, 1, 1) + fill).to(torch.bfloat16)
+    del fill
+    library = {}
+    try:
+        with torch.no_grad():
+            library["fwd"] = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=am, scale=1.0), iters=5)
+        qr, kr, vr, amr = (t.detach().requires_grad_() for t in (q, k, v, am))
+        library["bwd"] = _fwd_bwd_minus_fwd(
+            lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=amr,
+                                                   scale=1.0),
+            ((qr, kr, vr, amr), do), device_iters=5)
+        library_error = None
+        del qr, kr, vr, amr
+    except RuntimeError as err:          # a yardstick only: record why
+        library_error = str(err)[:300]
+    del am
+    torch.cuda.empty_cache()
+    # what this run's data needs: every query against the valid keys
+    pairs = h * s * int(mask.sum())
+    prod = 2 * pairs * d                              # one product
+    qkv = 2 * R * h * s * d                           # one [R, h, s, d] bf16
+    stats = 4 * R * h * s                             # one fp32 [R, h, s]
+    plane = 2 * c["b"] * h * s * s                    # the bias (or dbias)
+    out = {}
+    for name, nprod, nbytes in (
+            # q, k, v, bias, mask read; o, lse written
+            ("fwd", 2, 4 * qkv + plane + R * s + stats),
+            # q, k, v, o, do, bias, mask, lse read; dq, delta written
+            ("dq", 3, 6 * qkv + plane + R * s + 2 * stats),
+            # q, k, v, do, bias, mask, lse, delta read; dk, dv written
+            ("dkv", 4, 6 * qkv + plane + R * s + 2 * stats),
+            # q, k, v, do, bias, mask, lse, delta read; dbias written
+            ("dbias", 2, 4 * qkv + 2 * plane + R * s + 2 * stats)):
+        r = rows[name]
+        dev = dict(kernel=r["kernel"], kernel_again=r["kernel_again"],
+                   plain=plain_fwd if name == "fwd" else plain_bwd,
+                   library=library.get("fwd" if name == "fwd" else "bwd"))
+        row = _row(dev, r["host"], nprod * prod, nbytes, 989e12, exps=pairs,
+                   timing="ms: device time, 20 calls in one CUDA graph "
+                          "between CUDA events; plain_ms: 2-3 eager calls "
+                          "between CUDA events (GBs of temporaries); "
+                          "library_ms: CUDA graphs of 5; host_issued_ms: 20 "
+                          "eager calls back to back; L2-warm")
+        row.update(shape=dict(PAIR_BIAS_MAIN, dtype="bfloat16",
+                              valid_keys=int(mask.sum()), keys=R * s),
+                   flops=nprod * prod, exponentials=pairs, bytes=nbytes,
+                   library_error=library_error,
+                   library_call="F.scaled_dot_product_attention(q, k, v, "
+                                "attn_mask=[R, h, s, s] bf16 bias + mask fill"
+                                + (")" if name == "fwd" else
+                                   ") forward + backward minus forward (its "
+                                   "dq, dk, dv and d(attn_mask))"))
+        if name == "fwd":
+            row["bias_reuse"] = reuse
+        else:
+            row["plain_and_library_compute"] = "dq, dk, dv and dbias together"
+        log("phase2-time", kernel=f"pair_bias_attention_{name}", **row)
+        out[name] = row
+    return out
+
+
+def time_openfold_routes(device) -> dict:
+    """The card's own evidence on the routing gate: at ``[1, 128, 8, s,
+    32]`` bf16 for s = 256 (the Evoformer training crop, which
+    ``attention_core`` sends to the materialized route) and 1024 (which
+    it sends to the kernels), the pair-bias kernels called directly and
+    the materialized route, forward and forward + backward (q, k, v and
+    the bias), each timed eagerly between CUDA events over 5 calls."""
+    import torch
+    from apex_tpu_torch.contrib import openfold_triton as tof
+    from apex_tpu_torch.ops import pair_bias_attention as pb
+
+    b, r, h, d = 1, OPENFOLD["n_seq"], OPENFOLD["heads"], OPENFOLD["c_hidden"]
+    g = torch.Generator(device=device).manual_seed(53)
+    out = {}
+    for s in (256, 1024):
+        q, k, v = (torch.randn(b, r, h, s, d, generator=g, device=device)
+                   .to(torch.bfloat16) * 0.3 for _ in range(3))
+        bias = torch.randn(b, 1, h, s, s, generator=g, device=device).to(
+            torch.bfloat16)
+        mask = torch.rand(b, r, 1, 1, s, generator=g, device=device) >= 0.1
+        do = torch.randn(b, r, h, s, d, generator=g, device=device).to(
+            torch.bfloat16)
+        kv_mask = mask[:, :, 0, 0, :].transpose(0, 1).reshape(r * b, s)
+        flat = lambda x: x.transpose(0, 1).reshape(r * b, h, s, d)
+
+        def kernel(q, k, v, bias):
+            o = pb.pair_bias_flash_attention(flat(q), flat(k), flat(v),
+                                             bias[:, 0], kv_mask)
+            return o.reshape(r, b, h, s, d).transpose(0, 1)
+
+        def material(q, k, v, bias):
+            return tof._materialized(q, k, v, mask, bias, 1e9)
+
+        row = {}
+        for route, fn in (("kernel", kernel), ("materialized", material)):
+            with torch.no_grad():
+                row[f"{route}_fwd_ms"] = time_ms(lambda: fn(q, k, v, bias),
+                                                 iters=5, warmup=2)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+
+            def both():
+                torch.autograd.grad(fn(*leaves), leaves, do)
+
+            row[f"{route}_fwd_bwd_ms"] = time_ms(both, iters=5, warmup=2)
+            del leaves
+            torch.cuda.empty_cache()
+        out[f"s{s}"] = row
+        del q, k, v, bias, mask, do, kv_mask
+    out["timing"] = ("eager, CUDA events around 5 calls after 2 warm-up "
+                     "calls; the kernel route includes the flattening "
+                     "copies attention_core makes")
+    log("phase2-openfold-routes", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the openfold path (MSA row attention with pair bias, training)
+# ---------------------------------------------------------------------------
+
+
+def openfold_weights(c_m, c_z, h, d, g, device, dtype):
+    """One block's weights, as OpenFold's MSARowAttentionWithPairBias has
+    them: the two LayerNorms, the pair-bias linear z -> h and q, k, v
+    without bias, the gate and output linears with bias; random from a
+    seeded generator (linears at fan_in^-1/2)."""
+    import torch
+
+    lin = lambda o, i: torch.randn(o, i, generator=g, device=device) * i ** -0.5
+    vec = lambda n, sd: sd * torch.randn(n, generator=g, device=device)
+    w = {"ln_m_w": 1 + vec(c_m, 0.1), "ln_m_b": vec(c_m, 0.1),
+         "ln_z_w": 1 + vec(c_z, 0.1), "ln_z_b": vec(c_z, 0.1),
+         "w_z": lin(h, c_z), "w_q": lin(h * d, c_m), "w_k": lin(h * d, c_m),
+         "w_v": lin(h * d, c_m), "w_g": lin(h * d, c_m), "b_g": vec(h * d, 0.1),
+         "w_o": lin(c_m, h * d), "b_o": vec(c_m, 0.1)}
+    return {k: t.to(dtype).requires_grad_() for k, t in w.items()}
+
+
+def msa_row_block(m, z, w, mask, h):
+    """MSA row attention with pair bias, from the port's public API and
+    ``F.linear``: m ``[b, r, s, c_m]``, z ``[b, s, s, c_z]``, mask ``[b, r,
+    1, 1, s]``; returns the new m (a residual over the gated attention)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib import openfold_triton as tof
+
+    c_m, c_z = m.shape[-1], z.shape[-1]
+    d = w["w_q"].shape[0] // h
+    mn = tof.LayerNormSmallShapeOptImpl.apply(m, (c_m,), w["ln_m_w"], w["ln_m_b"])
+    zn = tof.LayerNormSmallShapeOptImpl.apply(z, (c_z,), w["ln_z_w"], w["ln_z_b"])
+    bias = F.linear(zn, w["w_z"]).permute(0, 3, 1, 2).unsqueeze(1)
+    heads = lambda x: x.view(*x.shape[:-1], h, d).transpose(-2, -3)
+    q = heads(F.linear(mn, w["w_q"])) * d ** -0.5
+    k, v = heads(F.linear(mn, w["w_k"])), heads(F.linear(mn, w["w_v"]))
+    o = tof.attention_core(q, k, v, mask, bias).transpose(-2, -3)
+    gate = torch.sigmoid(F.linear(mn, w["w_g"], w["b_g"])).view(o.shape)
+    return m + F.linear((o * gate).flatten(-2), w["w_o"], w["b_o"])
+
+
+def _openfold_loss(blocks, m, z, mask, target, h):
+    import torch
+
+    x = m
+    for w in blocks:
+        x = msa_row_block(x, z, w, mask, h)
+    return torch.mean((x.float() - target) ** 2)
+
+
+def small_openfold_check(device) -> dict:
+    """A small fp32 block (b 1, r 2, 2 heads of 8, c_m 16, c_z 8) at N_res
+    1024, so that ``attention_core`` routes it to the pair-bias kernels:
+    the same weights and inputs on the card and on the CPU give the loss,
+    every weight's gradient and z's (which reaches the loss only through
+    the bias), then the losses and weights of 3 ``FusedAdamSWA`` steps."""
+    import torch
+    from apex_tpu_torch.contrib.openfold_triton import (AdamMathType,
+                                                        FusedAdamSWA)
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import pair_bias_attention as pb
+
+    b, r, s, c_m, c_z, h, d = 1, 2, 1024, 16, 8, 2, 8
+    g = torch.Generator().manual_seed(54)
+    m = torch.randn(b, r, s, c_m, generator=g)
+    z = torch.randn(b, s, s, c_z, generator=g)
+    mask = torch.rand(b, r, 1, 1, s, generator=g) >= 0.1
+    target = torch.randn(b, r, s, c_m, generator=g)
+    w0 = openfold_weights(c_m, c_z, h, d, g, "cpu", torch.float32)
+    lr, steps = 1e-3, 3
+    res = {}
+    for dev in ("cpu", device):
+        # fresh leaves on each side: the optimizer updates them in place
+        w = {k: t.detach().clone().to(dev).requires_grad_()
+             for k, t in w0.items()}
+        tz = z.clone().to(dev).requires_grad_()
+        args = (m.to(dev), tz, mask.to(dev), target.to(dev), h)
+        _dispatch.reset_launches()
+        loss = _openfold_loss([w], *args)
+        loss.backward()
+        launched = pb.PAIR_BIAS_DBIAS.launches
+        # copies: on the CPU .cpu() is the tensor itself, and z's grad
+        # keeps accumulating over the steps below
+        grads = {k: t.grad.detach().cpu().clone() for k, t in w.items()}
+        grads["z"] = tz.grad.detach().cpu().clone()
+        opt = FusedAdamSWA(list(w.values()), lr=lr,
+                           adam_math_mode=AdamMathType.ApexAdamW,
+                           swa_decay_rate=0.9)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            step_loss = _openfold_loss([w], *args)
+            step_loss.backward()
+            opt.step()
+            losses.append(float(step_loss.detach()))
+        res[str(dev)] = (float(loss.detach()), grads, losses,
+                         {k: t.detach().cpu() for k, t in w.items()},
+                         [t.cpu() for t in opt.swa_state_dict()], launched)
+    c, dd = res["cpu"], res[str(device)]
+    if dd[5] != 1 or c[5] != 0:
+        raise AssertionError(f"small openfold block: dbias launches card "
+                             f"{dd[5]}, CPU {c[5]}: not routed to the kernels")
+    # ln_z_b shifts all of a query row's scores alike: its gradient is zero
+    # in exact arithmetic and rounding noise on each side, so Adam's steps
+    # on it follow that noise; it is held to the noise and to 2 lr a step
+    noise = 1e-5 * float(c[1]["w_z"].abs().max())
+    grad_ratio, param_ratio, by_grad = 0.0, 0.0, {}
+    for n in c[1]:
+        if n == "ln_z_b":
+            by_grad[n] = max(float(dd[1][n].abs().max()) / noise,
+                             float(c[1][n].abs().max()) / noise)
+            grad_ratio = max(grad_ratio, by_grad[n])
+            param_ratio = max(param_ratio, float(
+                (dd[3][n] - c[3][n]).abs().max()) / (2 * steps * lr))
+            continue
+        by_grad[n] = float(
+            ((dd[1][n] - c[1][n]).abs()
+             / (1e-4 * c[1][n].abs().max() + 1e-4 * c[1][n].abs() + 1e-9)).max())
+        grad_ratio = max(grad_ratio, by_grad[n])
+        if n == "z":
+            continue
+        ng = 1e-4 * c[1][n].abs().max()
+        tol = 1e-5 + steps * lr * ng / (c[1][n].abs() + ng + 1e-30)
+        param_ratio = max(param_ratio,
+                          float(((dd[3][n] - c[3][n]).abs() / tol).max()))
+    err = dict(loss=abs(c[0] - dd[0]), grad_tol_ratio=grad_ratio,
+               grad_tol_ratio_by_name=by_grad,
+               step_losses=max(abs(a - b_) for a, b_ in zip(c[2], dd[2])),
+               params_tol_ratio=param_ratio,
+               swa_max_abs_err=max(float((a - b_).abs().max())
+                                   for a, b_ in zip(c[4], dd[4])),
+               losses_cpu=c[2], grads=len(c[1]))
+    if (err["loss"] > 1e-5 * abs(c[0]) or grad_ratio > 1.0
+            or err["step_losses"] > 1e-5 * abs(c[0]) or param_ratio > 1.0):
+        raise AssertionError(f"small openfold block: card against CPU {err}")
+    if not c[2][-1] < c[2][0]:
+        raise AssertionError(f"small openfold block: loss did not fall {c[2]}")
+    err["tolerance"] = ("loss and step losses 1e-5 relative; each gradient "
+                        "(z's included) within 1e-4 (max|g_ref| + |g_ref|); "
+                        "each weight after 3 FusedAdamSWA (AdamW, lr 1e-3) "
+                        "steps within 1e-5 + 3 lr ng / (|g| + ng), ng = 1e-4 "
+                        "max|g_ref|; ln_z_b, whose gradient is zero in exact "
+                        "arithmetic, within 1e-5 max|g_w_z| (gradient) and 2 "
+                        "lr a step (weight)")
+    log("phase3-openfold-reference", **err)
+    return err
+
+
+def _openfold_phases(blocks, opt, args, h, repeats: int = 3) -> dict:
+    """``repeats`` more steps split into forward (and loss), backward and
+    optimizer on the host clock, as ``_step_phases``."""
+    import torch
+
+    out = {}
+    for _ in range(repeats):
+        opt.zero_grad(set_to_none=True)
+        for name, fn in (("forward", lambda: _openfold_loss(blocks, *args, h)),
+                         ("backward", lambda: loss.backward()),
+                         ("optimizer", lambda: opt.step())):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            res = fn()
+            t1, c1 = time.perf_counter(), time.process_time()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if name == "forward":
+                loss = res
+            for key, v in ((f"{name}_ms", t2 - t0), (f"{name}_issue_ms", t1 - t0),
+                           (f"{name}_cpu_ms", c1 - c0)):
+                out.setdefault(key, []).append(v * 1e3)
+    return out
+
+
+def openfold_train(device) -> dict:
+    """The openfold path: four MSA-row attention blocks with pair bias at
+    the Evoformer widths (``OPENFOLD``), each with its own bf16 weights
+    from a seeded generator on the card, all sharing z; the MSE of the
+    final m against a fixed seeded target; ``backward()``;
+    ``FusedAdamSWA(lr=1e-3, ApexAdamW, swa_decay_rate=0.9)`` over the
+    blocks' weights.  1 warm-up step, then 6 timed steps with exact
+    launches each (4 pair-bias forward, dq, dk/dv and dbias; 8 norm
+    forward and backward; nothing else of the port's) and a loss that
+    falls every step; step wall, host issue, peak memory and a profile.
+    Then one block at the Evoformer training crop (N_res 256), which the
+    JAX routing sends to the materialized path: no pair-bias launch."""
+    import torch
+    from apex_tpu_torch.contrib.openfold_triton import (AdamMathType,
+                                                        FusedAdamSWA)
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import pair_bias_attention as pb
+
+    c = OPENFOLD
+    b, r, s, h, d = c["b"], c["n_seq"], c["n_res"], c["heads"], c["c_hidden"]
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(55)
+    blocks = [openfold_weights(c["c_m"], c["c_z"], h, d, g, device, bf16)
+              for _ in range(c["blocks"])]
+    m = torch.randn(b, r, s, c["c_m"], generator=g, device=device).to(bf16)
+    z = torch.randn(b, s, s, c["c_z"], generator=g, device=device).to(bf16)
+    mask = torch.rand(b, r, 1, 1, s, generator=g, device=device) >= c["mask_rate"]
+    target = torch.randn(b, r, s, c["c_m"], generator=g, device=device)
+    args = (m, z, mask, target)
+    params = [p for w in blocks for p in w.values()]
+    opt = FusedAdamSWA(params, lr=1e-3, adam_math_mode=AdamMathType.ApexAdamW,
+                       swa_decay_rate=0.9)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _openfold_loss(blocks, *args, h)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    n = c["blocks"]
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * n, ln.LAYER_NORM_BWD.name: 2 * n,
+                pb.PAIR_BIAS_FWD.name: n, pb.PAIR_BIAS_DQ.name: n,
+                pb.PAIR_BIAS_DKV.name: n, pb.PAIR_BIAS_DBIAS.name: n}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0 = float(step())                           # warm-up
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in _dispatch.KERNELS}
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        loss = step()
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        launched = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
+        if _nonzero(launched) != per_step:
+            raise AssertionError(f"openfold step {i} launched {launched}, "
+                                 f"expected {per_step}")
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, [loss0] + losses)) or not losses[0] < loss0 \
+            or not all(a > b_ for a, b_ in zip(losses, losses[1:])):
+        raise AssertionError(f"openfold loss {loss0} then {losses}: not finite "
+                             f"and falling every step")
+    med = statistics.median(step_ms)
+    out = dict(config="openfold MSA row attention with pair bias",
+               widths=dict(c), precision="bf16 weights, activations and pair "
+               "bias; fp32 loss, FusedAdamSWA fp32 masters and average",
+               optimizer="FusedAdamSWA(lr=1e-3, ApexAdamW, swa_decay_rate=0.9)",
+               params=sum(p.numel() for p in params), tensors=len(params),
+               masked_positions=int((~mask).sum()), positions=mask.numel(),
+               warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
+               step_ms=step_ms, step_ms_median=med, step_issue_ms=issue_ms,
+               step_issue_cpu_ms=issue_cpu_ms, peak_mem_bytes=peak,
+               allocated_before_bytes=allocated_before,
+               launches=launches, launches_per_step=per_step)
+    log("phase3-openfold", **out)
+    out["profile"] = _profile(step, med)
+    out["profile"]["phases_ms"] = _openfold_phases(blocks, opt, args, h)
+    log("phase3-openfold-profile", **out["profile"])
+
+    # the Evoformer training crop: routed to the materialized path
+    crop = 256
+    _dispatch.reset_launches()
+    wc = blocks[0]
+    mc = m[:, :, :crop].contiguous()
+    zc = z[:, :crop, :crop].contiguous()
+    maskc = mask[..., :crop].contiguous()
+    loss_c = torch.mean((msa_row_block(mc, zc, wc, maskc, h).float()
+                         - target[:, :, :crop]) ** 2)
+    loss_c.backward()
+    torch.cuda.synchronize()
+    crop_launches = _nonzero({k.name: k.launches for k in _dispatch.KERNELS})
+    expected = {ln.LAYER_NORM_FWD.name: 2, ln.LAYER_NORM_BWD.name: 2}
+    loss_c = float(loss_c.detach())
+    if crop_launches != expected or not math.isfinite(loss_c):
+        raise AssertionError(f"openfold block at N_res {crop}: launches "
+                             f"{crop_launches}, expected {expected}; loss "
+                             f"{loss_c}")
+    out["crop_256"] = dict(launches=crop_launches, loss=loss_c,
+                           route="materialized (attention_core's s >= 1024 "
+                                 "gate)")
+    log("phase3-openfold-crop", **out["crop_256"])
+    opt.zero_grad(set_to_none=True)
+    del blocks, opt, params, m, z, mask, target, args
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2336,6 +3056,7 @@ def main() -> int:
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import packed_update as pu
+    from apex_tpu_torch.ops import pair_bias_attention as pb
     from apex_tpu_torch.ops import softmax as sm
 
     t_start = time.perf_counter()
@@ -2371,11 +3092,15 @@ def main() -> int:
     lamb_check = check_lamb_phase1(device)
     softmax_time = time_softmax(device)
     lamb_time = time_lamb_phase1(device)
+    pair_bias_check = check_pair_bias(device)
+    pair_bias_time = time_pair_bias(device)
+    routes_time = time_openfold_routes(device)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     reference = small_reference_check(device)
     eval_reference = small_eval_check(device)
     train_reference = small_train_check(device)
     gpt_reference = small_gpt_check(device)
+    openfold_reference = small_openfold_check(device)
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
@@ -2384,8 +3109,10 @@ def main() -> int:
     training = llama_1b_train(device)
     gpt_kernel = gpt2_large_train(device, "kernel")
     gpt_flagship = gpt2_large_train(device, "flagship")
+    openfold = openfold_train(device)
     paths = dict(serving=e2e, evaluation=evaluation, training=training,
-                 gpt_kernel_path=gpt_kernel, gpt_flagship=gpt_flagship)
+                 gpt_kernel_path=gpt_kernel, gpt_flagship=gpt_flagship,
+                 openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -2401,6 +3128,7 @@ def main() -> int:
     decode_row = next(r for r in timings if r["n"] == 8)
     nb, fb, hb = (norm_bwd_check["main_shape"], flash_bwd_check["main_shape"],
                   head_bwd_check["main_shape"])
+    pbm = pair_bias_check["main_shape"]
     kernels = {"kernels": [
         entry(ln.LAYER_NORM_FWD, max_err, decode_row, shapes=timings,
               timed_shape="n = 8 (a decode step); n = 512, 8192 in shapes"),
@@ -2427,21 +3155,38 @@ def main() -> int:
         entry(pu.LAMB_PHASE1, max(lamb_check["main_shape"][k] for k in (
             "m_max_abs_err", "v_max_abs_err", "u_max_abs_err")),
               lamb_time, main_path="gpt_kernel_path", shape=lamb_time["shape"]),
+        entry(pb.PAIR_BIAS_FWD, pbm["o_max_abs_err"], pair_bias_time["fwd"],
+              main_path="openfold", shape=pair_bias_time["fwd"]["shape"],
+              bound_term=pair_bias_time["fwd"]["bound_term"]),
+        entry(pb.PAIR_BIAS_DQ, pbm["dq_max_abs_err"], pair_bias_time["dq"],
+              main_path="openfold", shape=pair_bias_time["dq"]["shape"],
+              bound_term=pair_bias_time["dq"]["bound_term"]),
+        entry(pb.PAIR_BIAS_DKV, max(pbm["dk_max_abs_err"], pbm["dv_max_abs_err"]),
+              pair_bias_time["dkv"], main_path="openfold",
+              shape=pair_bias_time["dkv"]["shape"],
+              bound_term=pair_bias_time["dkv"]["bound_term"]),
+        entry(pb.PAIR_BIAS_DBIAS, pbm["dbias_max_abs_err"],
+              pair_bias_time["dbias"], main_path="openfold",
+              shape=pair_bias_time["dbias"]["shape"],
+              bound_term=pair_bias_time["dbias"]["bound_term"]),
     ]}
     if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
         raise AssertionError("the kernels line does not list every kernel")
     report = dict(nvidia_smi=smi, clocks_after_timing=clocks, build_s=build_s,
                   kernel_checks=[flash_check, head_check, norm_bwd_check,
                                  flash_bwd_check, head_bwd_check,
-                                 softmax_check, lamb_check],
+                                 softmax_check, lamb_check, pair_bias_check],
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
-                                lamb_time],
+                                lamb_time, pair_bias_time],
+                  openfold_routes=routes_time,
+                  openfold_reference=openfold_reference,
                   reference=reference, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
                   gpt2_large_kernel_path=gpt_kernel,
-                  gpt2_large_flagship=gpt_flagship, kernels=kernels,
+                  gpt2_large_flagship=gpt_flagship, openfold=openfold,
+                  kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.testing.standalone_transformer_lm, "
         "apex_tpu_torch.utils.packing, apex_tpu_torch.utils.tree_math, "
         "apex_tpu_torch.multi_tensor_apply, "
-        "apex_tpu_torch.examples.gpt_pretrain\n"
+        "apex_tpu_torch.examples.gpt_pretrain, "
+        "apex_tpu_torch.ops.pair_bias_attention, apex_tpu_torch.contrib, "
+        "apex_tpu_torch.contrib.openfold_triton, "
+        "apex_tpu_torch.contrib.openfold_triton.fused_adam_swa\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
@@ -109,6 +112,14 @@ _KERNELS = [
     ("scaled_softmax_fwd", "apex_tpu/ops/softmax.py", "_fwd_kernel"),
     ("scaled_softmax_bwd", "apex_tpu/ops/softmax.py", "_bwd_kernel"),
     ("lamb_phase1", "apex_tpu/ops/packed_update.py", "_lamb_phase1_kernel"),
+    ("pair_bias_attention_fwd", "apex_tpu/ops/pair_bias_attention.py",
+     "_fwd_kernel"),
+    ("pair_bias_attention_dq", "apex_tpu/ops/pair_bias_attention.py",
+     "_dq_kernel"),
+    ("pair_bias_attention_dkv", "apex_tpu/ops/pair_bias_attention.py",
+     "_dkv_kernel"),
+    ("pair_bias_attention_dbias", "apex_tpu/ops/pair_bias_attention.py",
+     "_dbias_kernel"),
 ]
 
 
