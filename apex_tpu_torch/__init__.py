@@ -30,7 +30,15 @@ MSA row attention with pair bias:
 :mod:`~apex_tpu_torch.contrib.openfold_triton` (``attention_core`` over
 the pair-bias attention kernels of
 :mod:`~apex_tpu_torch.ops.pair_bias_attention`, forward, dq, dk/dv and
-d(bias); ``LayerNormSmallShapeOptImpl``; ``FusedAdamSWA``).
+d(bias); ``LayerNormSmallShapeOptImpl``; ``FusedAdamSWA``); and mixed
+precision: :mod:`~apex_tpu_torch.amp` (``initialize`` with the O0, O2 and
+O3 policies, the dynamic loss scaler on the device),
+:mod:`~apex_tpu_torch.fp16_utils` (``FP16Optimizer``), fp32 master
+weights and the capturable ``step(grad_scale=, found_inf=)`` in every
+fused optimizer, and :class:`~apex_tpu_torch.optimizers.FusedAdagrad`,
+with the packed Adam and Adagrad kernels of
+:mod:`~apex_tpu_torch.ops.packed_update`
+(:mod:`~apex_tpu_torch.examples.simple` drives the amp flow).
 """
 
 __version__ = "0.1.0"

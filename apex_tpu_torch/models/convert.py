@@ -35,18 +35,26 @@ flax leaf                                           torch key
 
 Each raises on a leaf it does not consume and on a leaf it expects but
 does not find.
+
+Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
+``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
+moment tree, and the fp32 masters when it keeps them) into a port
+optimizer's ``state``, by the same name map as the weights; a JAX
+``LossScaler.state_dict`` loads into the port's scaler as it is
+(``LossScaler.load_state_dict``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.models.llama import LlamaConfig
 
-__all__ = ["llama_params_from_jax", "gpt_params_from_jax"]
+__all__ = ["llama_params_from_jax", "gpt_params_from_jax",
+           "load_jax_optimizer_state"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -148,3 +156,57 @@ def gpt_params_from_jax(tree: Mapping, num_layers: int,
     models have no position table."""
     return _convert(tree, _gpt_expected(num_layers, not apply_rope),
                     f"GPT ({num_layers} layers, apply_rope={apply_rope})")
+
+
+# the fields of the JAX optimizers' inner states beside ``step``, each the
+# port's state key of the same name
+_STATE_FIELDS = ("exp_avg", "exp_avg_sq", "sum_sq")
+
+
+def load_jax_optimizer_state(
+        opt: torch.optim.Optimizer, named_params: Mapping[str, torch.Tensor],
+        state, tree_to_torch: Optional[Callable[[Mapping],
+                                                Dict[str, torch.Tensor]]] = None
+) -> None:
+    """Put a JAX fused optimizer's state into ``opt.state``.
+
+    ``state`` is the JAX ``(inner, MasterState)`` pair with its arrays as
+    numpy (``jax.tree.map(np.asarray, state)``): ``inner`` a named tuple
+    with ``step`` and moment trees (``exp_avg``, ``exp_avg_sq`` or
+    ``sum_sq``).  ``tree_to_torch`` maps one tree of the JAX parameters'
+    structure to ``{torch name: tensor}`` (e.g. ``lambda t:
+    llama_params_from_jax(t, config)``; by default the tree is a flat dict
+    already keyed by the torch names of ``named_params``).  A moment that
+    is one flat array (a packed optimizer's) goes to the state of the
+    group's first parameter; the step becomes the group's one int32 tensor
+    on the device, in every parameter's state; the masters, when the JAX state holds them, each
+    parameter's ``master_param``.  Every tensor lands on its parameter's
+    device in the dtype the JAX state has."""
+    inner, masters = state
+    to_torch = tree_to_torch or (lambda t: {k: _tensor(v) for k, v in t.items()})
+    fields = dict(inner._asdict())
+    step = int(np.asarray(fields.pop("step")))
+    trees = {}
+    for name, value in fields.items():
+        if name not in _STATE_FIELDS:
+            raise ValueError(f"JAX optimizer state field {name!r} has no "
+                             f"port counterpart")
+        trees[name] = (to_torch(value) if isinstance(value, Mapping)
+                       else _tensor(value))
+    master_params = getattr(masters, "master_params", None)
+    if master_params is not None:
+        trees["master_param"] = to_torch(master_params)
+    names = {id(p): n for n, p in named_params.items()}
+    for group in opt.param_groups:
+        params = group["params"]
+        shared = torch.tensor(step, dtype=torch.int32, device=params[0].device)
+        for i, p in enumerate(params):
+            name = names[id(p)]
+            st = opt.state[p]
+            for key, tree in trees.items():
+                if isinstance(tree, torch.Tensor):      # one flat buffer
+                    if i == 0:
+                        st[key] = tree.to(p.device)
+                else:
+                    st[key] = tree[name].to(p.device)
+            st["step"] = shared

@@ -1,7 +1,8 @@
 """Multi-tensor apply: one operation over a whole tree of tensors
 (counterpart of ``apex_tpu/multi_tensor_apply/__init__.py``, the
-``amp_C`` family's ``multi_tensor_l2norm``, ``multi_tensor_scale`` and
-``multi_tensor_axpby``).
+``amp_C`` family's ``multi_tensor_l2norm``, ``multi_tensor_scale``,
+``multi_tensor_axpby`` and ``multi_tensor_unscale_l2norm``, and the
+``multi_tensor_applier`` trampoline).
 
 Plain PyTorch over the tree's leaves, as the JAX functions are jnp tree
 maps.  The calls are functional: each returns its result and an overflow
@@ -18,7 +19,9 @@ import torch
 from apex_tpu_torch.utils.packing import tree_leaves
 from apex_tpu_torch.utils.tree_math import tree_axpby, tree_l2norm, tree_scale
 
-__all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm"]
+__all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
+           "multi_tensor_unscale_l2norm", "MultiTensorApply",
+           "multi_tensor_applier"]
 
 
 def _nonfinite(tree: Any) -> torch.Tensor:
@@ -56,3 +59,30 @@ def multi_tensor_l2norm(tree: Any, per_tensor: bool = False):
     """Global L2 norm (and with ``per_tensor`` the per-tensor norms), in
     fp32 (``amp_C.multi_tensor_l2norm``, used by FusedLAMB)."""
     return tree_l2norm(tree, per_leaf=per_tensor)
+
+
+def multi_tensor_unscale_l2norm(tree: Any, inv_scale, per_tensor: bool = False):
+    """``tree * inv_scale`` and its L2 norm (and with ``per_tensor`` the
+    per-tensor norms), in fp32 (``amp_C.multi_tensor_unscale_l2norm``);
+    returns ``(unscaled, norm)`` or ``(unscaled, (norm, per_tensor_norms))``."""
+    unscaled = tree_scale(tree, inv_scale)
+    return unscaled, tree_l2norm(unscaled, per_leaf=per_tensor)
+
+
+class MultiTensorApply:
+    """The ``multi_tensor_applier`` trampoline
+    (``apex/multi_tensor_apply/multi_tensor_apply.py``): the original
+    calls ``applier(op, noop_flag, tensor_lists, *args)``; here ``op`` is
+    one of the functions above (or any callable) and the call is
+    functional.  ``chunk_size`` is kept for the API and not used."""
+
+    available = True
+
+    def __init__(self, chunk_size: int = 2048 * 32):
+        self.chunk_size = chunk_size
+
+    def __call__(self, op, *args, **kwargs):
+        return op(*args, **kwargs)
+
+
+multi_tensor_applier = MultiTensorApply()

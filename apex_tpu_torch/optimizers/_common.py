@@ -1,40 +1,44 @@
 """Shared pieces of the fused optimizers (counterpart of
 ``apex_tpu/optimizers/_common.py``).
 
-:func:`unscale_grads` and :func:`apply_if_finite` are the capturable step
-arguments of the JAX optimizers, on the device with no host sync:
-``FusedAdamSWA`` (``contrib/openfold_triton``) takes ``grad_scale`` and
-``found_inf`` through them.  ``FusedAdam``'s and ``FusedLAMB``'s master
-weights and step arguments come with the port's mixed-precision (amp)
-slice (``amp/policy.py``, ``amp/scaler.py``); until then they raise here.
+:class:`FusedOptimizer` is the capturable step of the JAX
+``FusedOptimizer.step`` with fp32 master weights, in the port's idiom (a
+``torch.optim.Optimizer`` that updates in place).  One step:
+
+1. each gradient unscaled in fp32 (:func:`unscale_grads`, divided by
+   ``grad_scale``);
+2. the update computed on the fp32 masters (``master_weights=True``) or on
+   the parameters, by the subclass's ``_update``;
+3. every value kept as it was where ``found_inf`` is true
+   (:func:`commit`: a select on the device, no host sync);
+4. the masters copied back into the parameters, each in its own dtype.
+
+Each group's step counter is one int32 tensor on the device, shared by
+the states of the group's parameters (``state["step"]``): it advances only
+on a step that is applied, and the bias corrections come from it on the
+device (:func:`bias_corrections`), once a group, not once a parameter.
+``FusedAdamSWA`` (``contrib/openfold_triton``) uses :func:`unscale_grads`,
+:func:`apply_if_finite` and :func:`bias_corrections` on its own.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["apply_if_finite", "bias_corrections", "later_slice",
-           "unscale_grads"]
+__all__ = ["FusedOptimizer", "apply_if_finite", "bias_corrections", "commit",
+           "is_half", "master_copy", "unscale_grads"]
 
 
-def bias_corrections(step: Union[int, torch.Tensor], beta1: float,
-                     beta2: float):
-    """``(1 - beta1**step, 1 - beta2**step)`` computed in fp32, as the JAX
-    ``bias_corrections`` computes them from its int32 step.  For an int
-    step, two Python floats (each exactly an fp32 value); for a step held
-    in a tensor, two fp32 tensors on its device (no host sync)."""
-    if isinstance(step, torch.Tensor):
-        # a Python base and constant enter the fp32 ops as fp32 values; no
-        # tensor is made on the host
-        t = step.to(torch.float32)
-        return 1.0 - torch.pow(beta1, t), 1.0 - torch.pow(beta2, t)
-    t = torch.tensor(float(step), dtype=torch.float32)
-    one = torch.tensor(1.0, dtype=torch.float32)
-    bc1 = one - torch.tensor(beta1, dtype=torch.float32) ** t
-    bc2 = one - torch.tensor(beta2, dtype=torch.float32) ** t
-    return float(bc1), float(bc2)
+def bias_corrections(step: torch.Tensor, beta1: float, beta2: float):
+    """``(1 - beta1**step, 1 - beta2**step)`` as two fp32 tensors on the
+    step's device, computed in fp32 as the JAX ``bias_corrections``
+    computes them from its int32 step (no host sync)."""
+    # a Python base and constant enter the fp32 ops as fp32 values; no
+    # tensor is made on the host
+    t = step.to(torch.float32)
+    return 1.0 - torch.pow(beta1, t), 1.0 - torch.pow(beta2, t)
 
 
 def unscale_grads(grads: Sequence[torch.Tensor],
@@ -67,9 +71,139 @@ def apply_if_finite(found_inf: Optional[torch.Tensor],
     return [torch.where(skip, o, n) for n, o in zip(new, old)]
 
 
-def later_slice(what: str) -> NotImplementedError:
-    """The error for an option of the JAX optimizers that the port has
-    not reached yet."""
-    return NotImplementedError(
-        f"{what} comes with the port's mixed-precision (amp) slice, the "
-        f"one after GPT training (amp/policy.py, amp/scaler.py)")
+def commit(dst: torch.Tensor, new: torch.Tensor,
+           skip: Optional[torch.Tensor]) -> None:
+    """Write ``new`` into ``dst`` (in ``dst``'s dtype), or, with a 0-d
+    bool ``skip`` on the device, ``skip ? dst : new``: a true flag leaves
+    ``dst``'s bits as they were."""
+    if skip is None:
+        dst.copy_(new)
+    else:
+        torch.where(skip, dst, new.to(dst.dtype), out=dst)
+
+
+def master_copy(p: torch.Tensor) -> torch.Tensor:
+    """An fp32 master copy of ``p`` that never aliases it: ``.float()`` of
+    an fp32 parameter (a norm scale O2 keeps in fp32) would be the
+    parameter itself, and the master and model values would be one."""
+    return p.detach().to(torch.float32, copy=True)
+
+
+def is_half(x: torch.Tensor) -> bool:
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+#: one group's work: (group, the parameters it updates, their fp32
+#: unscaled gradients, the tensors the update writes: masters or the
+#: parameters themselves)
+Work = Tuple[dict, List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
+
+
+class FusedOptimizer(torch.optim.Optimizer):
+    """Base of the fused optimizers: the capturable step with master
+    weights (see the module docstring).  A subclass implements
+    ``_update(work, skip)``, which updates each group's ``work`` targets
+    and its own state through :func:`commit` (so a true ``skip`` keeps
+    every bit) and advances the group's step with :meth:`_advance`.
+    ``packed`` is the packed path's contract: a step updates every
+    parameter of a group, so each needs a gradient."""
+
+    def __init__(self, params, defaults: dict, master_weights: bool = False,
+                 packed: bool = False):
+        super().__init__(params, defaults)
+        self.master_weights = master_weights
+        self.packed = packed
+
+    def _params_to_update(self, group: dict) -> List[torch.Tensor]:
+        """The parameters a step updates: those with a gradient (with
+        ``packed``, all of the group's, raising if one has none)."""
+        if not self.packed:
+            return [p for p in group["params"] if p.grad is not None]
+        if any(p.grad is None for p in group["params"]):
+            raise ValueError(f"{type(self).__name__}(packed=True) updates "
+                             f"every parameter of a group: each needs a "
+                             f"gradient")
+        return list(group["params"])
+
+    def _update(self, work: List[Work], skip: Optional[torch.Tensor]) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure: Optional[Callable] = None, *,
+             grad_scale: Union[None, float, torch.Tensor] = None,
+             found_inf: Union[None, bool, torch.Tensor] = None):
+        """One update of every parameter that has a gradient; returns the
+        closure's loss when one is given.  ``grad_scale`` divides the
+        (loss-scaled) gradients in fp32 before the update; a true
+        ``found_inf`` (a 0-d tensor on the device, never read on the host)
+        leaves the parameters, the masters, the optimizer state and the
+        step counter as they were."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if found_inf is not None and not isinstance(found_inf, torch.Tensor):
+            if found_inf:          # a host flag that is set: nothing moves
+                return loss
+            found_inf = None
+        skip = None if found_inf is None else found_inf.to(torch.bool)
+        work = []
+        for group in self.param_groups:
+            params = self._params_to_update(group)
+            if not params:
+                continue
+            grads = unscale_grads([p.grad for p in params], grad_scale)
+            targets = ([self._master(p) for p in params]
+                       if self.master_weights else params)
+            work.append((group, params, grads, targets))
+        self._update(work, skip)
+        if self.master_weights:
+            for _, params, _, masters in work:
+                for p, m in zip(params, masters):
+                    p.copy_(m)
+        return loss
+
+    def _master(self, p: torch.Tensor) -> torch.Tensor:
+        state = self.state[p]
+        if "master_param" not in state:
+            state["master_param"] = master_copy(p)
+        return state["master_param"]
+
+    def _group_step(self, params: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The group's int32 step counter on the device: the one its
+        parameters' states share, or a new 0 for a group never stepped."""
+        for p in params:
+            step = self.state[p].get("step") if p in self.state else None
+            if step is not None:
+                return step
+        return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+    @staticmethod
+    def _advance(step: torch.Tensor, skip: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+        """Advance ``step`` by one in place, unless ``skip``; returns the
+        step the update used (``step + 1``)."""
+        nxt = step + 1
+        commit(step, nxt, skip)
+        return nxt
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, then each state
+        tensor back in its saved dtype (torch casts every floating one to
+        its parameter's dtype, and these optimizers keep fp32 masters and
+        moments beside half parameters), and each group's step counter
+        one tensor again, shared by its parameters' states."""
+        super().load_state_dict(state_dict)
+        saved_ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, p in zip(saved_ids, params):
+            for key, val in state_dict["state"].get(i, {}).items():
+                if isinstance(val, torch.Tensor):
+                    self.state[p][key] = val.to(device=p.device, copy=True)
+        for group in self.param_groups:
+            shared = None
+            for p in group["params"]:
+                state = self.state.get(p)
+                if state and "step" in state:
+                    shared = state["step"] if shared is None else shared
+                    state["step"] = shared

@@ -33,27 +33,36 @@ Two paths, as in the JAX class:
   the group's first parameter.  ``state_dtype`` other than fp32 raises, as
   in the JAX class, and so does a parameter without a gradient.
 
-Unlike the JAX optimizer, which returns new arrays, this one updates the
-parameters and its state in place.  ``amsgrad=True`` raises as the JAX
-class does; ``master_weights=True`` and the ``grad_scale`` / ``found_inf``
-step arguments raise ``NotImplementedError`` until the port's amp work.
+The step is :class:`~apex_tpu_torch.optimizers._common.FusedOptimizer`'s,
+on both paths: ``master_weights=True`` runs the update on fp32 masters
+(``state["master_param"]``), ``step(grad_scale=, found_inf=)`` unscales the
+gradients first (the clip factor comes from the unscaled ones) and, where
+``found_inf`` is true, keeps every value and the group's step counter as
+they were, on the device: the clip factor and the trust ratios are
+computed but not applied.  Unlike the JAX optimizer, which returns new
+arrays, this one updates the parameters and its state in place.
+``amsgrad=True`` raises as the JAX class does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import List
 
 import torch
 
 from apex_tpu_torch.ops.packed_update import packed_lamb_update
-from apex_tpu_torch.optimizers._common import bias_corrections, later_slice
+from apex_tpu_torch.optimizers._common import (
+    FusedOptimizer,
+    bias_corrections,
+    commit,
+)
 from apex_tpu_torch.utils.packing import make_packed_spec, pack_pytree
 from apex_tpu_torch.utils.tree_math import tree_l2norm
 
 __all__ = ["FusedLAMB"]
 
 
-class FusedLAMB(torch.optim.Optimizer):
+class FusedLAMB(FusedOptimizer):
     def __init__(self, params, lr: float = 1e-3, bias_correction: bool = True,
                  betas=(0.9, 0.999), eps: float = 1e-6,
                  weight_decay: float = 0.01, amsgrad: bool = False,
@@ -66,16 +75,14 @@ class FusedLAMB(torch.optim.Optimizer):
         if packed and state_dtype != torch.float32:
             raise ValueError("packed=True keeps fp32 flat-buffer state; "
                              "state_dtype applies to the unpacked path only")
-        if master_weights:
-            raise later_slice("FusedLAMB(master_weights=True)")
         defaults = dict(lr=lr, bias_correction=bias_correction, betas=betas,
                         eps=eps, weight_decay=weight_decay,
                         grad_averaging=grad_averaging)
-        super().__init__(params, defaults)
+        super().__init__(params, defaults, master_weights=master_weights,
+                         packed=packed)
         self.adam_w_mode = adam_w_mode
         self.max_grad_norm = max_grad_norm
         self.use_nvlamb = use_nvlamb
-        self.packed = packed
         self.state_dtype = state_dtype
 
     def _clip(self, grads: List[torch.Tensor]):
@@ -86,104 +93,83 @@ class FusedLAMB(torch.optim.Optimizer):
         norm = tree_l2norm(grads)
         return torch.clamp(norm / self.max_grad_norm, min=1.0)
 
-    @torch.no_grad()
-    def step(self, closure: Optional[Callable] = None, *, grad_scale=None,
-             found_inf=None):
-        """One update of every parameter that has a gradient (with
-        ``packed``, of every parameter); returns the closure's loss when one
-        is given."""
-        if grad_scale is not None or found_inf is not None:
-            raise later_slice("FusedLAMB.step(grad_scale=, found_inf=)")
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        if self.packed:
-            self._packed_step()
-        else:
-            self._unpacked_step()
-        return loss
+    def _update(self, work, skip) -> None:
+        # the global norm runs over every group's unscaled gradients
+        clip = self._clip([g for _, _, grads, _ in work for g in grads])
+        for group, params, grads, targets in work:
+            b1, b2 = group["betas"]
+            hyper = dict(lr=group["lr"], beta1=b1, beta2=b2,
+                         beta3=1.0 - b1 if group["grad_averaging"] else 1.0,
+                         eps=group["eps"], weight_decay=group["weight_decay"])
+            step = self._group_step(params)
+            nxt = self._advance(step, skip)
+            bc1, bc2 = (bias_corrections(nxt, b1, b2)
+                        if group["bias_correction"] else (1.0, 1.0))
+            if self.packed:
+                self._packed_group(params, grads, targets, step, clip, bc1,
+                                   bc2, hyper, skip)
+            else:
+                self._unpacked_group(params, grads, targets, step, clip, bc1,
+                                     bc2, hyper, skip)
 
     # -- the packed path -----------------------------------------------------
 
-    def _packed_step(self):
-        flat_grads = []
-        for group in self.param_groups:
-            params = group["params"]
-            if any(p.grad is None for p in params):
-                raise ValueError("FusedLAMB(packed=True) updates every "
-                                 "parameter of a group: each needs a gradient")
-            flat_grads.append(pack_pytree([p.grad for p in params],
-                                          dtype=torch.float32).flat)
-        clip = self._clip(flat_grads)
-        for group, flat_g in zip(self.param_groups, flat_grads):
-            params = group["params"]
-            if not params:
-                continue
-            spec = make_packed_spec(list(params))
-            state = self.state[params[0]]
-            if not state:
-                state["step"] = 0
-                state["exp_avg"] = torch.zeros(spec.padded_total,
-                                               dtype=torch.float32,
-                                               device=flat_g.device)
-                state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
-            state["step"] += 1
-            b1, b2 = group["betas"]
-            bc1, bc2 = (bias_corrections(state["step"], b1, b2)
-                        if group["bias_correction"] else (1.0, 1.0))
-            flat_p = pack_pytree(list(params), dtype=torch.float32).flat
-            packed_lamb_update(
-                flat_g, flat_p, state["exp_avg"], state["exp_avg_sq"],
-                spec=spec, lr=group["lr"], beta1=b1, beta2=b2,
-                beta3=1.0 - b1 if group["grad_averaging"] else 1.0,
-                eps=group["eps"], weight_decay=group["weight_decay"],
-                bias_correction1=bc1, bias_correction2=bc2, global_clip=clip,
-                adam_w_mode=self.adam_w_mode, use_nvlamb=self.use_nvlamb)
-            for p, o, n in zip(params, spec.offsets, spec.sizes):
-                p.copy_(flat_p[o:o + n].view_as(p))
+    def _packed_group(self, params, grads, targets, step, clip, bc1, bc2,
+                      hyper, skip):
+        spec = make_packed_spec(list(targets))
+        state = self.state[params[0]]
+        if "exp_avg" not in state:
+            state["step"] = step
+            state["exp_avg"] = torch.zeros(spec.padded_total,
+                                           dtype=torch.float32,
+                                           device=targets[0].device)
+            state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+        m, v = state["exp_avg"], state["exp_avg_sq"]
+        # phase 1 writes the moments in place: keep the old ones for a
+        # skipped step
+        old = None if skip is None else (m.clone(), v.clone())
+        flat_g = pack_pytree(list(grads), dtype=torch.float32).flat
+        flat_p = pack_pytree(list(targets), dtype=torch.float32).flat
+        packed_lamb_update(
+            flat_g, flat_p, m, v, spec=spec, bias_correction1=bc1,
+            bias_correction2=bc2, global_clip=clip,
+            adam_w_mode=self.adam_w_mode, use_nvlamb=self.use_nvlamb, **hyper)
+        if old is not None:
+            torch.where(skip, old[0], m, out=m)
+            torch.where(skip, old[1], v, out=v)
+        for t, o, n in zip(targets, spec.offsets, spec.sizes):
+            commit(t, flat_p[o:o + n].view_as(t), skip)
 
     # -- the unpacked path ---------------------------------------------------
 
-    def _unpacked_step(self):
-        grads = [p.grad for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
-        if not grads:
-            return
-        clip = self._clip(grads)
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            b3 = 1.0 - b1 if group["grad_averaging"] else 1.0
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["exp_avg"] = torch.zeros_like(
-                        p, dtype=self.state_dtype,
-                        memory_format=torch.preserve_format)
-                    state["exp_avg_sq"] = torch.zeros_like(
-                        p, dtype=self.state_dtype,
-                        memory_format=torch.preserve_format)
-                state["step"] += 1
-                bc1, bc2 = (bias_corrections(state["step"], b1, b2)
-                            if group["bias_correction"] else (1.0, 1.0))
-                self._update(p, p.grad, state["exp_avg"], state["exp_avg_sq"],
-                             clip, group["lr"], b1, b2, b3, group["eps"],
-                             group["weight_decay"], bc1, bc2)
+    def _unpacked_group(self, params, grads, targets, step, clip, bc1, bc2,
+                        hyper, skip):
+        for p, g, t in zip(params, grads, targets):
+            state = self.state[p]
+            if "exp_avg" not in state:
+                state["step"] = step
+                state["exp_avg"] = torch.zeros_like(
+                    p, dtype=self.state_dtype,
+                    memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, dtype=self.state_dtype,
+                    memory_format=torch.preserve_format)
+            m, v = state["exp_avg"], state["exp_avg_sq"]
+            news = self._lamb(t, g, m, v, clip, bc1, bc2, **hyper)
+            for dst, new in zip((t, m, v), news):
+                commit(dst, new, skip)
 
-    def _update(self, p, g, m, v, clip, lr, b1, b2, b3, eps, wd, bc1, bc2):
-        # fp32 working copies of p, m and v (an fp32 tensor is its own)
-        p32 = p.float() if p.dtype != torch.float32 else p
-        m32 = m.float() if m.dtype != torch.float32 else m
-        v32 = v.float() if v.dtype != torch.float32 else v
-        g32 = g.float() / clip                 # a new tensor: g is not written
+    def _lamb(self, p, g, m, v, clip, bc1, bc2, *, lr, beta1, beta2, beta3,
+              eps, weight_decay):
+        """New fp32 ``(p, m, v)``; the inputs are not written."""
+        wd = weight_decay
+        p32 = p.float()
+        g32 = g / clip                         # a new tensor: g is not written
         if not self.adam_w_mode and wd:
             g32.add_(p32, alpha=wd)
-        m32.mul_(b1).add_(g32, alpha=b3)
-        v32.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
-        update = torch.div(m32, bc1).div_(v32.div(bc2).sqrt_().add_(eps))
+        m_new = m.float().mul(beta1).add_(g32, alpha=beta3)
+        v_new = v.float().mul(beta2).addcmul_(g32, g32, value=1.0 - beta2)
+        update = torch.div(m_new, bc1).div_(v_new.div(bc2).sqrt_().add_(eps))
         if self.adam_w_mode and wd:
             update.add_(p32, alpha=wd)
         if wd or self.use_nvlamb:
@@ -191,9 +177,5 @@ class FusedLAMB(torch.optim.Optimizer):
             u_norm = torch.linalg.vector_norm(update)
             ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                                 1.0)
-            p32.addcmul_(update, ratio, value=-lr)
-        else:
-            p32.add_(update, alpha=-lr)
-        for dst, src in ((p, p32), (m, m32), (v, v32)):
-            if dst is not src:
-                dst.copy_(src)
+            return p32.addcmul(update, ratio, value=-lr), m_new, v_new
+        return p32.add(update, alpha=-lr), m_new, v_new

@@ -48,7 +48,25 @@ from apex_tpu_torch.serving.kv_cache import (
     release_slot,
 )
 
-__all__ = ["DecodeEngine", "default_prefill_buckets", "token_seed"]
+__all__ = ["DecodeEngine", "default_prefill_buckets", "no_tf32",
+           "token_seed"]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for matrix products and convolutions
+    (``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.backends.cudnn.allow_tf32``) inside the block; both flags as
+    they were after it, however it ends."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def default_prefill_buckets(prefill_len: int, floor: int = 16) -> tuple:
@@ -91,10 +109,10 @@ class DecodeEngine:
 
     ``device`` defaults to CUDA and must be where ``model``'s weights
     are; the engine never moves them.  It puts the model in eval mode and
-    turns its parameters' gradients off.  On CUDA it turns TF32 off for
-    matrix products and convolutions
-    (``torch.backends.cuda.matmul.allow_tf32 = False``,
-    ``torch.backends.cudnn.allow_tf32 = False``), so fp32 runs in fp32.
+    leaves its parameters' ``requires_grad`` as they are (the model calls
+    run under ``inference_mode``).  On CUDA each model call runs with TF32
+    off for matrix products and convolutions (:func:`no_tf32`), so fp32
+    runs in fp32; the process's flags are restored after each call.
     """
 
     def __init__(self, model, *, slots: int = 8, max_len: int = 512,
@@ -139,9 +157,6 @@ class DecodeEngine:
             raise ValueError(f"model weights lie on {sorted(wrong)}, the "
                              f"engine runs on {self.device}: move the model "
                              f"first")
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         if cache_dtype is None:
             # serve in the weights' own precision (bf16 weights -> bf16
             # cache); fp32 for a tree with no float leaves
@@ -160,13 +175,21 @@ class DecodeEngine:
                                  device=self.device)
         self._lengths_host = np.zeros((self.slots,), np.int64)
         self._sampler = torch.Generator(device=self.device)
-        # model calls run with the engine's card as the current device
-        self._on_device = (torch.cuda.device(self.device)
-                           if self.device.type == "cuda"
-                           else contextlib.nullcontext())
+        # model calls run with the engine's card as the current device and
+        # TF32 off
+        self._cuda = self.device.type == "cuda"
         # model calls made, for callers that account per call
         self.prefill_chunks = 0
         self.decode_steps = 0
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The engine's card as the current device and TF32 off, on CUDA."""
+        if not self._cuda:
+            yield
+            return
+        with torch.cuda.device(self.device), no_tf32():
+            yield
 
     # ---- cache/slot state ------------------------------------------------
     def lengths(self) -> np.ndarray:
@@ -220,7 +243,7 @@ class DecodeEngine:
                 f"max_len {self.max_len}")
         ids = torch.zeros((1, bucket), dtype=torch.long)
         ids[0, :n] = torch.as_tensor(list(tokens), dtype=torch.long)
-        with self._on_device, torch.inference_mode():
+        with self._on_device(), torch.inference_mode():
             logits, _ = self.model(ids.to(self.device), kv_cache=self._cache,
                                    slot=slot, position=offset)
             commit_slot_length(self._cache, slot, offset + n)
@@ -274,7 +297,7 @@ class DecodeEngine:
                 f"token as their whole context")
         ids = torch.as_tensor(np.asarray(tokens, np.int64)).to(self.device)
         step = torch.as_tensor(act.astype(np.int32)).to(self.device)
-        with self._on_device, torch.inference_mode():
+        with self._on_device(), torch.inference_mode():
             logits, _ = self.model(ids[:, None], kv_cache=self._cache,
                                    position=self._cache.lengths)
             self._cache.lengths += step
@@ -294,7 +317,7 @@ class DecodeEngine:
         and token index.  Returns a host int64 array."""
         temps = np.asarray(temperatures, np.float32)
         top_ks = np.asarray(top_ks, np.int64)
-        with self._on_device, torch.inference_mode():
+        with self._on_device(), torch.inference_mode():
             out = torch.argmax(logits, dim=-1)
             for i in np.flatnonzero(temps > 0):
                 row = logits[i].float()

@@ -14,7 +14,14 @@ import torch
 
 from apex_tpu_torch.utils.packing import tree_leaves, tree_map
 
-__all__ = ["tree_l2norm", "tree_scale", "tree_axpby"]
+__all__ = ["tree_add", "tree_axpby", "tree_cast", "tree_l2norm", "tree_scale",
+           "tree_zeros_like"]
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    """``a + b`` per leaf (two trees of one structure)."""
+    bs = iter(tree_leaves(b))
+    return tree_map(lambda x: x + next(bs), a)
 
 
 def tree_scale(tree: Any, scale) -> Any:
@@ -48,3 +55,15 @@ def tree_l2norm(tree: Any, per_leaf: bool = False):
     if per_leaf:
         return total, norms
     return total
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    """Every leaf in ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_zeros_like(tree: Any, dtype: torch.dtype = None) -> Any:
+    """Zeros of each leaf's shape, in ``dtype`` (each leaf's own when
+    None), on the leaf's device."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
+                                          device=x.device), tree)

@@ -19,15 +19,22 @@ ends the run with a non-zero exit and no result line:
    the kernel, the plain version and the library call (``F.rms_norm``;
    ``F.scaled_dot_product_attention``; ``F.linear`` + ``F.cross_entropy``;
    ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB;
-   SDPA with the pair bias and mask fill as one float mask for the
-   pair-bias kernels) timed at the main path's shapes, on the device
+   ``torch._fused_adamw_`` and ``torch._fused_adagrad_`` over one flat
+   tensor for the packed Adam and Adagrad (when this PyTorch has a CUDA
+   kernel for it); SDPA with the pair bias and mask fill as one float mask
+   for the pair-bias kernels) timed at the main path's shapes, on the device
    (calls captured in a CUDA graph, or eager between CUDA events where a
    call moves GBs) and as the host issues them, beside the least time the
    card could take (bytes over 3.35 TB/s, or operations over the bf16 or
    fp32 peak, and for the pair-bias kernels their exponentials over the
    SFU rate: the largest).  The pair-bias kernels and the materialized
    route are also timed at the two routing shapes, N_res 256 and 1024.
-3. **End to end**, six paths, each with the launch counts set to 0 just
+   The packed Adam and Adagrad kernels are checked over p fp32/bf16/fp16,
+   g fp32/bf16, both modes, weight decay, ``noop`` 0 and 1 (1 must leave
+   every buffer's bits) and n = 1 to past one grid stride, and checked and
+   timed at Llama-1B's packed fp32 masters (1.123 B elements), before any
+   model is built.
+3. **End to end**, nine paths, each with the launch counts set to 0 just
    before it and read just after:
 
    - *serving*: a small fp32 Llama served on the card against the same
@@ -50,6 +57,23 @@ ends the run with a non-zero exit and no result line:
    - *training*: a small fp32 Llama's loss, gradients and 3 FusedAdam
      steps on the card against the CPU; then ``llama-1b`` (O2, bf16
      moments) 1 + 6 steps at b 4, s 2048 with exact launches a step.
+   - *amp*: a small fp32 Llama under ``amp.initialize(..., "O2",
+     half_dtype=torch.float16)`` and the dynamic scaler, 4 steps card
+     against CPU (loss, ``found_inf``, scaler state at every step; masters,
+     moments, parameters after), step 0 overflowing on its own and step 2
+     by a written inf; then ``llama-1b`` at full width and depth in fp16
+     O2, b 4, s 2048, 1 + 6 steps in three optimizer forms:
+     ``FusedAdam(master_weights=True)``, ``FusedAdagrad(packed=True,
+     master_weights=True)`` (the packed Adagrad kernel) and
+     ``packed_adam_update`` over the masters packed once (the packed Adam
+     kernel, ``noop_flag=found_inf``).  Each: exact launches a step (45/22/1
+     forward, 45/22/22/1/1 backward, 1 packed update in the last two), the
+     unscale, optimizer step and scaler update under
+     ``set_sync_debug_mode("error")``, an inf written at one step which
+     must keep every parameter, master, state tensor and the step counter
+     bit for bit, halve the scale and leave ``unskipped``; a loss that ends
+     lower than it began; step wall, issue time, real overflows, idle
+     share, peak memory.
    - *GPT training*: a small fp32 GPT in both attention cores, loss,
      gradients and 3 packed FusedLAMB steps on the card against the CPU;
      then GPT-2-large (``bench.py``'s ``large`` card, O2, b 8, s 1024) 1 +
@@ -1497,6 +1521,296 @@ def time_lamb_phase1(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the packed Adam and Adagrad kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the step scalars of the checks and timings: step 2 of Adam at betas
+# (0.9, 0.999) gives bias corrections 0.19 and ~0.002
+ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, bc1=0.19,
+                  bc2=0.002)
+ADAGRAD_HYPER = dict(lr=1e-2, eps=1e-10)
+
+
+def llama_1b_numel() -> int:
+    """Parameters of the ``llama-1b`` card (``bench.py:103-108``): the
+    embedding and the separate head, 22 layers (q, k, v, o over 8 kv heads
+    of 64, the SwiGLU MLP, two RMSNorm scales) and the final norm: 1.123 B,
+    a multiple of 1024, so its packed length is the same."""
+    from apex_tpu_torch.models import LlamaConfig
+
+    c = LlamaConfig.llama_1b()
+    h, kv = c.hidden_size, c.kv_heads * (c.hidden_size // c.num_attention_heads)
+    per_layer = 2 * h * h + 2 * h * kv + 3 * h * c.intermediate_size + 2 * h
+    return 2 * c.vocab_size * h + c.num_hidden_layers * per_layer + h
+
+
+def _adam_tols(g, p, m, v, rp, rm, rv, wd, p_dtype):
+    """Per-element tolerances of the packed Adam kernel against its plain
+    version: the kernel contracts multiply-adds, so each fp32 result sits
+    a few roundings from the plain one, and an error in m or v carries
+    through the update (v's halved by the root)."""
+    import torch
+
+    h = ADAM_HYPER
+    g32, p32 = g.float(), p.float()
+    ga = g32.abs() + wd * p32.abs()
+    tol_m = 2.0 ** -21 * (h["beta1"] * m.abs() + (1 - h["beta1"]) * ga) + 1e-30
+    tol_v = 2.0 ** -21 * (h["beta2"] * v + (1 - h["beta2"]) * ga * ga) + 1e-30
+    denom = torch.sqrt(rv / h["bc2"]) + h["eps"]
+    u = (rm / h["bc1"]) / denom
+    tol_u = (tol_m / h["bc1"] / denom + 0.5 * u.abs() * tol_v / (rv + 1e-30)
+             + 2.0 ** -19 * (u.abs() + wd * p32.abs()))
+    tol_p = h["lr"] * tol_u + 2.0 ** -21 * rp.float().abs() + 1e-30
+    if p_dtype != "float32":
+        # a few fp32 roundings apart can put p on either side of a rounding
+        # boundary of its own dtype
+        tol_p = tol_p + _ulp(rp, p_dtype)
+    return tol_p, tol_m, tol_v
+
+
+def _adagrad_tols(g, p, h_old, rp, rh, wd, p_dtype):
+    """Per-element tolerances of the packed Adagrad kernel against its
+    plain version (contracted multiply-adds; h's error halved by the
+    root in the update)."""
+    import torch
+
+    hy = ADAGRAD_HYPER
+    ga = g.float().abs() + wd * p.float().abs()
+    tol_h = 2.0 ** -21 * (h_old + ga * ga) + 1e-30
+    u = ga / (torch.sqrt(rh) + hy["eps"])
+    tol_u = (u * (0.5 * tol_h / (rh + 1e-30) + 2.0 ** -20)
+             + 2.0 ** -20 * wd * p.float().abs())
+    tol_p = hy["lr"] * tol_u + 2.0 ** -21 * rp.float().abs() + 1e-30
+    if p_dtype != "float32":
+        tol_p = tol_p + _ulp(rp, p_dtype)
+    return tol_p, tol_h
+
+
+def _packed_inputs(n, off, g_dtype, p_dtype, gen, device, kind):
+    """g, p and the fp32 state (m and v, or h) of one case, each ``off``
+    elements past its allocation's start (off 1: not 16-byte aligned)."""
+    import torch
+
+    def buf(scale, dtype=torch.float32, positive=False):
+        t = torch.randn(n + off, generator=gen, device=device) * scale
+        return (t.abs() if positive else t).to(dtype)[off:]
+
+    x = dict(g=buf(0.1, getattr(torch, g_dtype)),
+             p=buf(1.0, getattr(torch, p_dtype)))
+    if kind == "adam":
+        x.update(m=buf(0.01), v=buf(1e-3, positive=True))
+    else:
+        x.update(h=buf(1e-2, positive=True))
+    return x
+
+
+def _run_packed(kind, x, adam_w, wd, noop, device):
+    """The kernel on copies of the case's buffers (the flag and a bias
+    correction as device tensors); returns the updated copies, in the
+    order of the plain version's outputs."""
+    import torch
+    from apex_tpu_torch.ops import packed_update as pu
+
+    flag = torch.tensor(bool(noop), device=device)
+    if kind == "adam":
+        h = ADAM_HYPER
+        p, m, v = x["p"].clone(), x["m"].clone(), x["v"].clone()
+        return pu.packed_adam_update(
+            x["g"], p, m, v, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
+            eps=h["eps"], weight_decay=wd, bias_correction1=h["bc1"],
+            bias_correction2=torch.tensor(h["bc2"], device=device),
+            noop_flag=flag, adam_w_mode=adam_w)
+    h = ADAGRAD_HYPER
+    p, hh = x["p"].clone(), x["h"].clone()
+    return pu.packed_adagrad_update(x["g"], p, hh, lr=h["lr"], eps=h["eps"],
+                                    weight_decay=wd, adagrad_w_mode=adam_w,
+                                    noop_flag=flag)
+
+
+def _plain_packed(kind, x, adam_w, wd, device, sl=slice(None)):
+    """The plain version on the case's buffers (or a slice of them)."""
+    from apex_tpu_torch.ops import packed_update as pu
+
+    if kind == "adam":
+        h = ADAM_HYPER
+        s = pu.adam_scalars(h["lr"], h["beta1"], h["beta2"], h["eps"], wd,
+                            h["bc1"], h["bc2"], 0.0, device)
+        return pu._plain_adam(x["g"][sl], x["p"][sl], x["m"][sl], x["v"][sl],
+                              s, adam_w)
+    h = ADAGRAD_HYPER
+    s = pu.adagrad_scalars(h["lr"], h["eps"], wd, 0.0, device)
+    return pu._plain_adagrad(x["g"][sl], x["p"][sl], x["h"][sl], s, adam_w)
+
+
+def _packed_ratio(kind, x, got, ref, wd, p_dtype, sl=slice(None)) -> float:
+    if kind == "adam":
+        tols = _adam_tols(x["g"][sl], x["p"][sl], x["m"][sl], x["v"][sl],
+                          *ref, wd, p_dtype)
+    else:
+        tols = _adagrad_tols(x["g"][sl], x["p"][sl], x["h"][sl], *ref, wd,
+                             p_dtype)
+    return max(_tol_ratio(o[sl], r, t) for o, r, t in zip(got, ref, tols))
+
+
+def check_packed_updates(device) -> dict:
+    """The packed Adam and Adagrad kernels on the card against their plain
+    versions over p fp32/bf16/fp16, g fp32/bf16, both modes, weight decay 0
+    and 0.01, noop 0 and 1 (a set flag must leave every buffer's bits as
+    they were), n = 1, 1000, 1024 and 2,000,003 (odd, past one grid
+    stride), two unaligned cases (the scalar path, fp16 g); then the main
+    path's length, Llama-1B's packed fp32 masters (1.123 B elements),
+    compared in slices of 2^26.  Returns each kernel's cases and main
+    errors."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    out = {}
+    with torch.no_grad():
+        for kind in ("adam", "adagrad"):
+            names = ("p", "m", "v") if kind == "adam" else ("p", "h")
+            cases = [dict(g=gd, p=pd, adam_w=aw, wd=wd, noop=noop, n=n, off=0)
+                     for gd in ("float32", "bfloat16")
+                     for pd in ("float32", "bfloat16", "float16")
+                     for aw in (True, False) for wd in (0.0, 0.01)
+                     for noop in (0, 1) for n in (1, 1000, 1024, 2_000_003)]
+            cases += [dict(g="float16", p="float32", adam_w=True, wd=0.01,
+                           noop=0, n=4099, off=1),
+                      dict(g="bfloat16", p="float16", adam_w=False, wd=0.01,
+                           noop=1, n=4099, off=1)]
+            worst = 0.0
+            for case in cases:
+                x = _packed_inputs(case["n"], case["off"], case["g"],
+                                   case["p"], gen, device, kind)
+                got = _run_packed(kind, x, case["adam_w"], case["wd"],
+                                  case["noop"], device)
+                torch.cuda.synchronize()
+                if case["noop"]:
+                    if not all(torch.equal(a, x[k]) for a, k in zip(got, names)):
+                        raise AssertionError(f"packed_{kind} with noop 1 "
+                                             f"changed a buffer: {case}")
+                    continue
+                ref = _plain_packed(kind, x, case["adam_w"], case["wd"], device)
+                r = _packed_ratio(kind, x, got, ref, case["wd"], case["p"])
+                if r > 1.0:
+                    raise AssertionError(f"packed_{kind} disagrees with its "
+                                         f"plain version: {case}: {r:.3f} x "
+                                         f"tol")
+                worst = max(worst, r)
+            # the main path: Llama-1B's fp32 masters, AdamW / L2 Adagrad
+            n = llama_1b_numel()
+            x = _packed_inputs(n, 0, "float32", "float32", gen, device, kind)
+            got = _run_packed(kind, x, True, 0.0, 0, device)
+            torch.cuda.synchronize()
+            errs = {k: 0.0 for k in names}
+            main_worst, step = 0.0, 1 << 26
+            for a in range(0, n, step):
+                sl = slice(a, min(a + step, n))
+                ref = _plain_packed(kind, x, True, 0.0, device, sl)
+                main_worst = max(main_worst, _packed_ratio(
+                    kind, x, got, ref, 0.0, "float32", sl))
+                for k, o, r in zip(names, got, ref):
+                    errs[k] = max(errs[k], float((o[sl] - r).abs().max()))
+                del ref
+            if main_worst > 1.0:
+                raise AssertionError(f"packed_{kind} at Llama-1B's length "
+                                     f"disagrees: {main_worst:.3f} x tol")
+            del x, got
+            torch.cuda.empty_cache()
+            out[kind] = dict(
+                kernel=f"packed_{kind}", cases=len(cases) + 1,
+                worst_tol_ratio=max(worst, main_worst),
+                main_shape=dict(n=n, dtype="float32", tol_ratio=main_worst,
+                                **{f"{k}_max_abs_err": e
+                                   for k, e in errs.items()}),
+                tolerance="fp32 results a few roundings apart (contracted "
+                          "multiply-adds): each moment within 2^-21 of its "
+                          "terms' magnitudes; the update within those "
+                          "carried through, plus 2^-19 of itself; p within "
+                          "lr times that plus 2^-21 |p|, plus one ulp of "
+                          "its dtype for bf16/fp16; noop 1: every buffer's "
+                          "bits unchanged")
+            log("phase2-check", **out[kind])
+    return out
+
+
+def time_packed_updates(device) -> dict:
+    """The packed Adam and Adagrad kernels at Llama-1B's packed fp32
+    masters (1.123 B elements; four 4.5 GB buffers), eagerly between CUDA
+    events (each call moves 22-31 GB), beside their bytes bounds (28 and 20
+    bytes an element), their plain versions and the library calls:
+    ``torch._fused_adamw_`` over the one flat tensor (the same function
+    with its arithmetic regrouped); ``torch._fused_adagrad_`` where this
+    PyTorch has a CUDA kernel for it, else none."""
+    import torch
+    from apex_tpu_torch.ops import packed_update as pu
+
+    n = llama_1b_numel()
+    gen = torch.Generator(device=device).manual_seed(36)
+    g = torch.randn(n, generator=gen, device=device) * 0.1
+    p = torch.randn(n, generator=gen, device=device)
+    out = {}
+    with torch.no_grad():
+        for kind in ("adam", "adagrad"):
+            step = torch.tensor(2.0, device=device)
+            if kind == "adam":
+                h = ADAM_HYPER
+                m = torch.randn(n, generator=gen, device=device) * 0.01
+                v = (torch.randn(n, generator=gen, device=device) * 1e-3).abs_()
+                s = pu.adam_scalars(h["lr"], h["beta1"], h["beta2"], h["eps"],
+                                    0.0, h["bc1"], h["bc2"], 0.0, device)
+                kernel = lambda: pu._kernel_adam(g, p, m, v, s, True)
+                plain = lambda: pu._plain_adam(g, p, m, v, s, True)
+                lib_op = "aten::_fused_adamw_"
+                library = lambda: torch._fused_adamw_(
+                    [p], [g], [m], [v], [], [step], lr=h["lr"],
+                    beta1=h["beta1"], beta2=h["beta2"], weight_decay=0.0,
+                    eps=h["eps"], amsgrad=False, maximize=False)
+                nbytes, flops = 28 * n, 16 * n
+            else:
+                h = ADAGRAD_HYPER
+                hh = (torch.randn(n, generator=gen, device=device) * 1e-2).abs_()
+                s = pu.adagrad_scalars(h["lr"], h["eps"], 0.0, 0.0, device)
+                kernel = lambda: pu._kernel_adagrad(g, p, hh, s, False)
+                plain = lambda: pu._plain_adagrad(g, p, hh, s, False)
+                lib_op = "aten::_fused_adagrad_"
+                library = lambda: torch._fused_adagrad_(
+                    [p], [g], [hh], [step], lr=h["lr"], lr_decay=0.0,
+                    weight_decay=0.0, eps=h["eps"], maximize=False)
+                nbytes, flops = 20 * n, 7 * n
+            # whether this PyTorch registers a CUDA kernel for the library
+            # op (torch's fused Adagrad has been CPU-only)
+            has_lib = torch._C._dispatch_has_kernel_for_dispatch_key(
+                lib_op, "CUDA")
+            dev = dict(kernel=time_ms(kernel, iters=10, warmup=2),
+                       plain=time_ms(plain, iters=3, warmup=1),
+                       library=(time_ms(library, iters=10, warmup=2)
+                                if has_lib else None))
+            dev["kernel_again"] = time_ms(kernel, iters=10, warmup=1)
+            row = _row(dev, dev["kernel"], flops, nbytes, FP32_OPS_PER_S)
+            row.update(shape=dict(n=n, dtype="float32", model="llama-1b"),
+                       bytes=nbytes, flops=flops,
+                       timing=f"ms/library_ms: 10 eager calls between CUDA "
+                              f"events (each moves {nbytes / 1e9:.1f} GB; "
+                              f"launch overhead is negligible); plain_ms: 3",
+                       library_call=(f"torch.{lib_op.split('::')[1]} over the "
+                                     f"one flat tensor" if has_lib else None),
+                       library_note=None if has_lib else
+                       f"none: this PyTorch ({torch.__version__}) has no CUDA "
+                       f"kernel for {lib_op} (CPU only)")
+            log("phase2-time", kernel=f"packed_{kind}", **row)
+            out[kind] = row
+            del kernel, plain, library, s
+            if kind == "adam":
+                del m, v
+            else:
+                del hh
+            torch.cuda.empty_cache()
+    del g, p
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
 
@@ -2360,6 +2674,339 @@ def gpt2_large_train(device, form: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: mixed precision (amp O2, fp16, the dynamic loss scaler)
+# ---------------------------------------------------------------------------
+
+AMP_LR = 1e-3
+AMP_FORCED = 2      # the timed step whose gradients get an inf written in
+
+
+class AmpTrainer:
+    """The amp O2 fp16 step of ``examples/simple`` on a Llama behind
+    ``amp.initialize``, with one of three optimizer forms:
+
+    - ``adam``: ``FusedAdam(master_weights=True)`` (plain PyTorch);
+    - ``adagrad``: ``FusedAdagrad(packed=True, master_weights=True)``, the
+      packed Adagrad kernel over the group's flat fp32 masters;
+    - ``packed_adam``: the masters packed once into one flat fp32 buffer
+      with flat moments, each step ``packed_adam_update(...,
+      noop_flag=found_inf)`` (the packed Adam kernel, as
+      ``tests/test_dense_mlp.py`` drives the JAX one), the masters then
+      copied back into the parameters.
+
+    A step: the loss's mean (fp16, O2's output cast) scaled in fp32, its
+    backward, optionally an inf written into one gradient, then
+    ``found_inf``, the optimizer step with ``grad_scale`` and ``found_inf``
+    and the scaler's update, those three on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises)."""
+
+    def __init__(self, model, form: str):
+        import torch
+        from apex_tpu_torch import amp
+        from apex_tpu_torch.optimizers import FusedAdagrad, FusedAdam
+        from apex_tpu_torch.utils.packing import make_packed_spec, pack_pytree
+
+        self.device = next(model.parameters()).device
+        self.amped = amp.initialize(model, "O2", half_dtype=torch.float16)
+        self.model, self.form = model, form
+        self.params = list(model.parameters())
+        self.scaler, self.state = self.amped.scaler, self.amped.scaler_state
+        self.opt = None
+        if form == "adam":
+            self.opt = FusedAdam(self.params, lr=AMP_LR, master_weights=True)
+        elif form == "adagrad":
+            self.opt = FusedAdagrad(self.params, lr=AMP_LR, master_weights=True,
+                                    packed=True)
+        elif form == "packed_adam":
+            with torch.no_grad():
+                self.spec = make_packed_spec(self.params)
+                self.flat = pack_pytree(self.params, dtype=torch.float32).flat
+            self.m = torch.zeros_like(self.flat)
+            self.v = torch.zeros_like(self.flat)
+            self.step_count = torch.zeros((), dtype=torch.int32,
+                                          device=self.device)
+        else:
+            raise ValueError(f"unknown form {form!r}")
+
+    def _packed_adam(self, found_inf, scale):
+        import torch
+        from apex_tpu_torch.ops.packed_update import packed_adam_update
+        from apex_tpu_torch.optimizers._common import bias_corrections, commit
+        from apex_tpu_torch.utils.packing import pack_pytree
+
+        flat_g = pack_pytree([p.grad for p in self.params],
+                             dtype=torch.float32).flat
+        flat_g.mul_(1.0 / scale)
+        nxt = self.step_count + 1
+        bc1, bc2 = bias_corrections(nxt, 0.9, 0.999)
+        packed_adam_update(flat_g, self.flat, self.m, self.v, lr=AMP_LR,
+                           beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
+                           bias_correction1=bc1, bias_correction2=bc2,
+                           noop_flag=found_inf)
+        commit(self.step_count, nxt, found_inf)
+        for p, o, n in zip(self.params, self.spec.offsets, self.spec.sizes):
+            p.copy_(self.flat[o:o + n].view_as(p))
+
+    def step(self, ids, labels, force_inf: bool = False):
+        """One step; returns ``(loss, found_inf, scaler_state)``, device
+        tensors (nothing is read on the host)."""
+        import torch
+
+        self.model.zero_grad(set_to_none=True)
+        loss = self.amped.model(ids, labels=labels).mean()
+        state = self.state
+        self.scaler.scale_loss(loss, state).backward()
+        if force_inf:
+            self.params[0].grad.view(-1)[0] = float("inf")
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            found = self.scaler.has_overflow([p.grad for p in self.params])
+            with torch.no_grad():
+                if self.opt is not None:
+                    self.opt.step(grad_scale=state.scale, found_inf=found)
+                else:
+                    self._packed_adam(found, state.scale)
+            self.state = self.scaler.update(state, found)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        return loss.detach(), found, self.state
+
+    def tensors(self) -> dict:
+        """Every tensor a step writes: parameters, masters, optimizer state
+        and step counter."""
+        out = {f"param.{i}": p for i, p in enumerate(self.params)}
+        if self.opt is None:
+            out.update(masters=self.flat, exp_avg=self.m, exp_avg_sq=self.v,
+                       step=self.step_count)
+            return out
+        for i, p in enumerate(self.params):
+            for k, t in self.opt.state[p].items():
+                out[f"{k}.{i}"] = t
+        return out
+
+    def masters(self) -> list:
+        if self.opt is None:
+            return [self.flat[o:o + n].view_as(p) for p, o, n in
+                    zip(self.params, self.spec.offsets, self.spec.sizes)]
+        return [self.opt.state[p]["master_param"] for p in self.params]
+
+
+def small_amp_check(device) -> dict:
+    """A small Llama (fp32 weights, head dim 64, 2 layers) under
+    ``amp.initialize(..., "O2", half_dtype=torch.float16)`` and the
+    dynamic scaler, ``FusedAdam(master_weights=True)``, 4 steps on the card
+    and on the CPU from the same weights: step 0 overflows on its own (the
+    mean's cotangent, 2**16, is past fp16's largest value), step 2 by an
+    inf written into one gradient.  Card against CPU at every step: the
+    loss, ``found_inf`` and every scaler field; after the steps the masters,
+    the moments and the parameters."""
+    import torch
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    ids = torch.randint(0, 512, (2, 100), generator=torch.Generator().manual_seed(9))
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(11))
+    gpu_model = LlamaForCausalLM(cfg, device=device)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    steps, forced = 4, 2
+    res = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("cuda", gpu_model, device)):
+        tr = AmpTrainer(model, "adam")
+        x = ids.to(dev)
+        y = torch.roll(x, -1, dims=1)
+        log_, g1 = [], None
+        for i in range(steps):
+            scale = tr.state.scale
+            loss, found, st = tr.step(x, y, force_inf=(i == forced))
+            if g1 is None and not bool(found):
+                # the first applied step's unscaled gradients, for the bound
+                g1 = [p.grad.float().cpu() / float(scale) for p in tr.params]
+            log_.append((float(loss), bool(found),
+                         [t.item() for t in st]))
+        res[name] = dict(log=log_, g1=g1,
+                         masters=[m.detach().cpu() for m in tr.masters()],
+                         m=[tr.opt.state[p]["exp_avg"].cpu() for p in tr.params],
+                         v=[tr.opt.state[p]["exp_avg_sq"].cpu() for p in tr.params],
+                         params=[p.detach().cpu() for p in tr.params])
+    c, d = res["cpu"], res["cuda"]
+    flags = [f for _, f, _ in c["log"]]
+    if flags != [True, False, True, False] or \
+            [f for _, f, _ in d["log"]] != flags:
+        raise AssertionError(f"small amp: found_inf card {d['log']} CPU "
+                             f"{c['log']}")
+    loss_ratio = max(abs(a[0] - b[0]) / (2.0 ** -8 * abs(b[0]))
+                     for a, b in zip(d["log"], c["log"]))
+    if loss_ratio > 1.0 or [s for _, _, s in d["log"]] != \
+            [s for _, _, s in c["log"]]:
+        raise AssertionError(f"small amp: card {d['log']} CPU {c['log']}")
+    ratio = dict(masters=0.0, m=0.0, v=0.0)
+    for i, g in enumerate(c["g1"]):
+        ga = g.abs()
+        ng = 2.0 ** -7 * float(ga.max())
+        tol = 1e-6 + 4 * AMP_LR * ng / (ga + ng)
+        ratio["masters"] = max(ratio["masters"], float(
+            ((d["masters"][i] - c["masters"][i]).abs() / tol).max()))
+        ratio["m"] = max(ratio["m"], float(
+            (d["m"][i] - c["m"][i]).abs().max()) / ng)
+        ratio["v"] = max(ratio["v"], float(
+            (d["v"][i] - c["v"][i]).abs().max()) / (2 * ng * float(ga.max())))
+        for k in ("cpu", "cuda"):
+            p = res[k]["params"][i]
+            if not torch.equal(p, res[k]["masters"][i].to(p.dtype)):
+                raise AssertionError(f"small amp ({k}): parameter {i} is not "
+                                     f"its master cast")
+    if max(ratio.values()) > 1.0:
+        raise AssertionError(f"small amp: card against CPU {ratio}")
+    out = dict(steps=steps, forced_step=forced, found_inf=flags,
+               losses_cuda=[l for l, _, _ in d["log"]],
+               losses_cpu=[l for l, _, _ in c["log"]],
+               scaler_states=[s for _, _, s in d["log"]],
+               loss_tol_ratio=loss_ratio, tol_ratios=ratio,
+               tolerance="losses (fp16 means) within 2^-8 |loss|; found_inf "
+                         "and every scaler field equal; masters within 1e-6 "
+                         "+ 4 lr ng / (|g1| + ng), m within ng, v within 2 ng "
+                         "max|g1|, ng = 2^-7 max|g1| (g1 the first applied "
+                         "step's gradient): fp16 kernels and the CPU's plain "
+                         "versions round at other places, and an element "
+                         "whose gradient lies within ng of 0 may take each "
+                         "side's Adam step its own way; each parameter its "
+                         "master cast, on both")
+    log("phase3-amp-reference", **out)
+    return out
+
+
+def llama_1b_amp_train(device, form: str) -> dict:
+    """The ``llama-1b`` card at full width and depth in fp16 O2 under the
+    dynamic scaler (``AmpTrainer``, one optimizer form), weights from a
+    seeded generator on the card, one fixed batch b 4 x s 2048: 1 warm-up
+    step (it overflows at 2**16 on its own), then 6 timed steps with the
+    launches of each checked exactly; at timed step ``AMP_FORCED`` an inf
+    is written into one gradient: that step must leave every parameter,
+    master, optimizer state tensor and the step counter bit for bit, halve
+    the scale and leave ``unskipped``.  The loss after the applied steps
+    must end below the first one.  Step wall, host issue, steps skipped by
+    real overflows, peak memory and a traced step."""
+    import torch
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import packed_update as pu
+
+    cfg = LlamaConfig.llama_1b()
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    tr = AmpTrainer(LlamaForCausalLM(cfg, device=device, generator=gen), form)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = 4, 2048
+    ids = torch.randint(0, cfg.vocab_size, (b, s),
+                        generator=torch.Generator().manual_seed(8)).to(device)
+    labels = torch.roll(ids, -1, dims=1)
+    layers = cfg.num_hidden_layers
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                fa.FLASH_ATTENTION_DQ.name: layers,
+                fa.FLASH_ATTENTION_DKV.name: layers,
+                lh.FUSED_LM_HEAD_FWD.name: 1,
+                lh.FUSED_LM_HEAD_DH.name: 1,
+                lh.FUSED_LM_HEAD_DE.name: 1}
+    if form == "adagrad":
+        per_step[pu.PACKED_ADAGRAD.name] = 1
+    elif form == "packed_adam":
+        per_step[pu.PACKED_ADAM.name] = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = tr.step(ids, labels)                 # warm-up, not counted
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    step_ms, issue_ms, issue_cpu_ms, results = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in _dispatch.KERNELS}
+        forced = i == AMP_FORCED
+        if forced:
+            snap = {k: t.detach().cpu() for k, t in tr.tensors().items()}
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        results.append(tr.step(ids, labels, force_inf=forced))
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if forced:
+            changed = [k for k, t in tr.tensors().items()
+                       if not torch.equal(t.detach().cpu(), snap[k])]
+            del snap
+            if changed:
+                raise AssertionError(f"amp {form}: the forced overflow step "
+                                     f"changed {changed[:5]}")
+        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
+        if _nonzero(step) != per_step:
+            raise AssertionError(f"amp {form} step {i} launched {step}, "
+                                 f"expected {per_step}")
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    # read on the host only now, after the run
+    loss0, found0 = float(warm[0]), bool(warm[1])
+    losses = [float(l) for l, _, _ in results]
+    founds = [bool(f) for _, f, _ in results]
+    states = [[t.item() for t in st] for _, _, st in results]
+    prev = [t.item() for t in warm[2]] if AMP_FORCED == 0 else \
+        states[AMP_FORCED - 1]
+    halved = states[AMP_FORCED][0] == max(prev[0] / 2, 1.0)
+    if not founds[AMP_FORCED] or not halved or \
+            states[AMP_FORCED][3] != prev[3]:
+        raise AssertionError(f"amp {form}: forced overflow at step "
+                             f"{AMP_FORCED}: found {founds}, states "
+                             f"{states}, before {prev}")
+    applied = [i for i, f in enumerate(founds) if not f]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < loss0 or \
+            not applied:
+        raise AssertionError(f"amp {form}: losses {loss0} then {losses}, "
+                             f"found_inf {founds}: not falling")
+    med = statistics.median(step_ms)
+    out = dict(config="llama-1b", form=form, batch=b, seq=s, tokens=b * s,
+               precision="amp O2 fp16 (norm scales fp32), fp32 masters, "
+                         "dynamic loss scaler from 2**16",
+               optimizer={"adam": "FusedAdam(lr=1e-3, master_weights=True)",
+                          "adagrad": "FusedAdagrad(lr=1e-3, packed=True, "
+                                     "master_weights=True)",
+                          "packed_adam": "packed_adam_update over the masters "
+                                         "packed once (lr=1e-3), noop_flag="
+                                         "found_inf"}[form],
+               params=sum(p.numel() for p in tr.params), init_s=init_s,
+               warmup_loss=loss0, warmup_found_inf=found0, warmup_ms=warm_ms,
+               losses=losses, found_inf=founds, scaler_states=states,
+               scaler_fields=["scale", "growth_tracker", "hysteresis_tracker",
+                              "unskipped"],
+               forced_step=AMP_FORCED,
+               real_overflow_steps=[i for i, f in enumerate(founds)
+                                    if f and i != AMP_FORCED],
+               warmup_real_overflow=found0,
+               step_ms=step_ms, step_ms_median=med, step_issue_ms=issue_ms,
+               step_issue_cpu_ms=issue_cpu_ms,
+               tokens_per_s=b * s / (med / 1e3), peak_mem_bytes=peak,
+               launches=launches, launches_per_step=per_step)
+    log(f"phase3-amp-{form}", **out)
+    out["profile"] = _profile(lambda: tr.step(ids, labels), med)
+    log(f"phase3-amp-{form}-profile", **out["profile"])
+    del tr, ids, labels, warm, results
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2: the pair-bias attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3092,6 +3739,8 @@ def main() -> int:
     lamb_check = check_lamb_phase1(device)
     softmax_time = time_softmax(device)
     lamb_time = time_lamb_phase1(device)
+    packed_check = check_packed_updates(device)
+    packed_time = time_packed_updates(device)
     pair_bias_check = check_pair_bias(device)
     pair_bias_time = time_pair_bias(device)
     routes_time = time_openfold_routes(device)
@@ -3101,18 +3750,21 @@ def main() -> int:
     train_reference = small_train_check(device)
     gpt_reference = small_gpt_check(device)
     openfold_reference = small_openfold_check(device)
+    amp_reference = small_amp_check(device)
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
     del model
     torch.cuda.empty_cache()
     training = llama_1b_train(device)
+    amp_paths = {f"amp_{form}": llama_1b_amp_train(device, form)
+                 for form in ("adam", "adagrad", "packed_adam")}
     gpt_kernel = gpt2_large_train(device, "kernel")
     gpt_flagship = gpt2_large_train(device, "flagship")
     openfold = openfold_train(device)
     paths = dict(serving=e2e, evaluation=evaluation, training=training,
-                 gpt_kernel_path=gpt_kernel, gpt_flagship=gpt_flagship,
-                 openfold=openfold)
+                 **amp_paths, gpt_kernel_path=gpt_kernel,
+                 gpt_flagship=gpt_flagship, openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -3155,6 +3807,16 @@ def main() -> int:
         entry(pu.LAMB_PHASE1, max(lamb_check["main_shape"][k] for k in (
             "m_max_abs_err", "v_max_abs_err", "u_max_abs_err")),
               lamb_time, main_path="gpt_kernel_path", shape=lamb_time["shape"]),
+        entry(pu.PACKED_ADAM, max(v for k, v in packed_check["adam"][
+            "main_shape"].items() if k.endswith("_max_abs_err")),
+              packed_time["adam"], main_path="amp_packed_adam",
+              shape=packed_time["adam"]["shape"],
+              library_call=packed_time["adam"]["library_call"]),
+        entry(pu.PACKED_ADAGRAD, max(v for k, v in packed_check["adagrad"][
+            "main_shape"].items() if k.endswith("_max_abs_err")),
+              packed_time["adagrad"], main_path="amp_adagrad",
+              shape=packed_time["adagrad"]["shape"],
+              library_call=packed_time["adagrad"]["library_call"]),
         entry(pb.PAIR_BIAS_FWD, pbm["o_max_abs_err"], pair_bias_time["fwd"],
               main_path="openfold", shape=pair_bias_time["fwd"]["shape"],
               bound_term=pair_bias_time["fwd"]["bound_term"]),
@@ -3175,15 +3837,18 @@ def main() -> int:
     report = dict(nvidia_smi=smi, clocks_after_timing=clocks, build_s=build_s,
                   kernel_checks=[flash_check, head_check, norm_bwd_check,
                                  flash_bwd_check, head_bwd_check,
-                                 softmax_check, lamb_check, pair_bias_check],
+                                 softmax_check, lamb_check, packed_check,
+                                 pair_bias_check],
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
-                                lamb_time, pair_bias_time],
+                                lamb_time, packed_time, pair_bias_time],
                   openfold_routes=routes_time,
                   openfold_reference=openfold_reference,
+                  amp_reference=amp_reference,
                   reference=reference, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
+                  **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,
                   kernels=kernels,

@@ -353,3 +353,106 @@ def test_pretrain_driver_refuses_model_parallelism(flag):
 
     with pytest.raises(NotImplementedError, match="NCCL"):
         llama_pretrain.main(["--device", "cpu", flag, "2"])
+
+
+# ---------------------------------------------------------------------------
+# mixed precision (the amp slice): fp16 O2 under the dynamic loss scaler
+# ---------------------------------------------------------------------------
+
+
+def test_amp_o2_fp16_steps_match_jax():
+    """Four steps of the amp O2 flow in fp16 with the dynamic scaler and
+    ``FusedAdam(master_weights=True)``, port against JAX from the same
+    weights, b * s = 512 at head dim 64 (the JAX Pallas kernels in
+    interpret mode): the per-token loss comes out of the model in fp16
+    (O2's output cast) before its mean is scaled in fp32.  Step 0
+    overflows on its own (the mean's cotangent, 2**16, is past fp16's
+    largest value), step 2 by an inf written into one gradient; both are
+    skipped and halve the scale.  The losses equal and the overflow flags
+    and every scaler field the same at every step; the fp32 masters after
+    the two applied steps within 1e-6 + 4 lr ng / (|g1| + ng) and the
+    moments within ng (m) and 2 ng max|g1| (v), ng = 2^-8 max|g1| a few
+    fp16 roundings of the gradient (measured: 2.1e-3 max|g1|): an element
+    whose gradient lies within ng of 0 may take each side's Adam step in
+    its own direction.  Each fp16 parameter is its master cast."""
+    from apex_tpu import amp as jamp
+    from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    lr, steps, force = 1e-3, 4, 2
+    cfg = dict(FLASH_CFG)
+    model = JaxLlama(JaxLlamaConfig(**cfg))
+    init = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 4), jnp.int32))
+    ids, labels = _ids_and_labels(seed=7)
+
+    jamped = jamp.initialize(model.apply, init, opt_level="O2",
+                             half_dtype=jnp.float16)
+    scaler, sst, params = jamped.scaler, jamped.scaler_state, jamped.params
+    jopt = JaxFusedAdam(lr=lr, master_weights=True)
+    jstate = jopt.init(params)
+    jlog, g1 = [], None
+    for i in range(steps):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("APEX_TPU_KERNELS", "interpret")
+            scaled, grads = jax.value_and_grad(lambda p: scaler.scale_loss(
+                jamped.apply(p, jnp.asarray(ids),
+                             labels=jnp.asarray(labels)).mean(), sst))(params)
+        loss = scaled / sst.scale          # the scale is a power of 2: exact
+        if i == force:
+            grads = jax.tree.map(lambda g: g, grads)
+            head = grads["params"]["lm_head"]
+            grads["params"]["lm_head"] = head.at[0, 0].set(jnp.inf)
+        grads, found = scaler.unscale(grads, sst)
+        if g1 is None and not bool(found):
+            g1 = grads
+        params, jstate = jopt.step(grads, params, jstate, found_inf=found)
+        sst = scaler.update(sst, found)
+        jlog.append((float(loss), bool(found), sst))
+
+    ours = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
+    ours.load_state_dict(llama_params_from_jax(jax.tree.map(np.asarray, init),
+                                               ours.config))
+    amped = amp.initialize(ours, "O2", half_dtype=torch.float16)
+    opt = FusedAdam(ours.parameters(), lr=lr, master_weights=True)
+    state = amped.scaler_state
+    tids, tlab = torch.from_numpy(ids).long(), torch.from_numpy(labels).long()
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = amped.model(tids, labels=tlab).mean()
+        assert loss.dtype == torch.float16
+        amped.scaler.scale_loss(loss, state).backward()
+        if i == force:
+            ours.lm_head.grad[0, 0] = float("inf")
+        found = amped.scaler.has_overflow([p.grad for p in ours.parameters()])
+        opt.step(grad_scale=state.scale, found_inf=found)
+        state = amped.scaler.update(state, found)
+        jloss, jfound, jsst = jlog[i]
+        assert float(loss.detach()) == jloss and bool(found) == jfound
+        for f in ("scale", "growth_tracker", "hysteresis_tracker",
+                  "unskipped"):
+            assert getattr(state, f).item() == np.asarray(
+                getattr(jsst, f)).item(), (i, f)
+    assert [f for _, f, _ in jlog] == [True, False, True, False]
+    assert float(state.scale) == 2.0 ** 14 and int(state.unskipped) == 2
+
+    conv = lambda tree: llama_params_from_jax(jax.tree.map(np.asarray, tree),
+                                              ours.config)
+    ref_master, ref_m, ref_v = (conv(jstate[1].master_params),
+                                conv(jstate[0].exp_avg),
+                                conv(jstate[0].exp_avg_sq))
+    grad1 = conv(g1)
+    for name, p in ours.named_parameters():
+        st = opt.state[p]
+        assert int(st["step"]) == 2
+        assert torch.equal(p.detach(), st["master_param"].to(p.dtype)), name
+        g = grad1[name].float().abs().numpy()
+        ng = 2.0 ** -8 * g.max()
+        tol = 1e-6 + 4 * lr * ng / (g + ng)
+        diff = np.abs(st["master_param"].numpy() - ref_master[name].numpy())
+        assert (diff <= tol).all(), (name, (diff / tol).max())
+        np.testing.assert_allclose(st["exp_avg"].numpy(), ref_m[name].numpy(),
+                                   rtol=0, atol=ng, err_msg=name)
+        np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
+                                   ref_v[name].numpy(), rtol=0,
+                                   atol=2 * ng * g.max(), err_msg=name)

@@ -46,7 +46,11 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.examples.gpt_pretrain, "
         "apex_tpu_torch.ops.pair_bias_attention, apex_tpu_torch.contrib, "
         "apex_tpu_torch.contrib.openfold_triton, "
-        "apex_tpu_torch.contrib.openfold_triton.fused_adam_swa\n"
+        "apex_tpu_torch.contrib.openfold_triton.fused_adam_swa, "
+        "apex_tpu_torch.amp, apex_tpu_torch.amp.policy, "
+        "apex_tpu_torch.amp.scaler, apex_tpu_torch.fp16_utils, "
+        "apex_tpu_torch.optimizers.fused_adagrad, "
+        "apex_tpu_torch.examples.simple, apex_tpu_torch.models.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
@@ -96,6 +100,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         GPTModel()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gpt_pretrain.main(["--steps", "1"])
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.examples import simple
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simple.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LossScaler().init()
 
 
 # every kernel of the port, module by module: (name, the JAX file:function
@@ -112,6 +123,8 @@ _KERNELS = [
     ("scaled_softmax_fwd", "apex_tpu/ops/softmax.py", "_fwd_kernel"),
     ("scaled_softmax_bwd", "apex_tpu/ops/softmax.py", "_bwd_kernel"),
     ("lamb_phase1", "apex_tpu/ops/packed_update.py", "_lamb_phase1_kernel"),
+    ("packed_adam", "apex_tpu/ops/packed_update.py", "_adam_kernel"),
+    ("packed_adagrad", "apex_tpu/ops/packed_update.py", "_adagrad_kernel"),
     ("pair_bias_attention_fwd", "apex_tpu/ops/pair_bias_attention.py",
      "_fwd_kernel"),
     ("pair_bias_attention_dq", "apex_tpu/ops/pair_bias_attention.py",

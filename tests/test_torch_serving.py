@@ -228,3 +228,78 @@ def test_engine_leaves_the_callers_model_trainable(served):
     model(ids, labels=torch.roll(ids, -1, 1)).mean().backward()
     assert all(p.grad is not None for p in model.parameters())
     model.zero_grad(set_to_none=True)
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, True), (True, False)])
+def test_no_tf32_restores_both_flags(flags):
+    """``no_tf32`` turns both TF32 flags off inside its block and puts
+    each back as it was after it, also when the block raises."""
+    from apex_tpu_torch.serving.engine import no_tf32
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        with no_tf32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+        with pytest.raises(RuntimeError, match="inside"):
+            with no_tf32():
+                raise RuntimeError("inside")
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _serve_and_read_flags(model, device):
+    eng = sv.DecodeEngine(model, device=device, **ENGINE)
+    after_build = (torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32)
+    sched = sv.ContinuousBatchingScheduler(eng)
+    sched.submit(sv.Request("a", [1, 2, 3], max_new_tokens=2))
+    sched.run()
+    return after_build, (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32)
+
+
+def test_engine_leaves_the_process_tf32_flags(served):
+    """Building a DecodeEngine and serving through it leaves both TF32
+    flags as the process set them (the JAX engine changes no global
+    state)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        for flags in ((True, True), (False, False)):
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+            assert _serve_and_read_flags(served["teng"].model, "cpu") == (
+                flags, flags)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+def test_engine_on_card_leaves_the_process_tf32_flags(served):
+    """The same on the card, where the engine's model calls run with TF32
+    off and the flags come back after each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model = served["teng"].model
+    cuda_model = type(model)(model.config, device="cuda")
+    cuda_model.load_state_dict(model.state_dict())
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = (True, True)
+        assert _serve_and_read_flags(cuda_model, "cuda") == (
+            (True, True), (True, True))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
