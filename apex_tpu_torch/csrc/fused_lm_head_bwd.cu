@@ -10,55 +10,50 @@
 // kernels round it, and fp32 accumulation.  A label outside [0, V) matches
 // no column, so it puts no -1 anywhere (and no gradient into a column).
 //
-// Bound: operations.  At the main path's shape (T 8192, h 2048, V 32000,
-// bf16) the logits recompute and each product are 2 T V h = 1.07 TFLOP:
-// the Pallas kernels recompute the logits in both, 2.15 TFLOP each, about
-// 2.17 ms each at the tensor-core rate (989 TFLOP/s); H and E are 33.5 and
-// 131 MB.
+// Bound: operations.  The backward is three products of 2 T V h each: the
+// logits recompute H E^T, dH = dlog E and dE = dlog^T H, 1.07 TFLOP each at
+// the main path's shape (T 8192, h 2048, V 32000, bf16), 3.26 ms in all at
+// the tensor-core rate (989 TFLOP/s): 2.17 ms for the dH call (recompute +
+// dH), 1.09 ms for the dE call.  Beside them the bytes: H and E read (33.5
+// and 131 MB), and dlog [T, Vp] in the input dtype (Vp = V rounded up to
+// 64: 524 MB) written once and read twice, 1.57 GB, about 0.47 ms at 3.35
+// TB/s, which the products' time covers.  The Pallas kernels recompute the
+// logits in both dH and dE (four products); keeping them from the forward,
+// as the library does, would hold [T, V] fp32 logits (1 GB) from the
+// forward to the backward, which is what the fused head exists to avoid.
 //
-// Design for that bound.  The TPU kernels keep a [tokens, h] or [vocab, h]
-// fp32 accumulator (1-8 MB) in VMEM across a sequential grid and recompute
-// the logits in each.  A Hopper block has 227 KB of shared memory and a
-// [128, 2048] fp32 tile alone is 1 MB, so a block that owns a slice of dH
-// or dE would have to recompute the full-h logits tile once per slice (16
-// times at h 2048).  Instead the logits are recomputed once and dlog is
-// written to device memory in the input dtype (T x Vp x 2 bytes, Vp = V
-// rounded up to 64: 524 MB at the main shape, written once and read twice,
-// about 0.47 ms of traffic at 3.35 TB/s), and both gradients are then plain
-// tiled products that fill the card on their own (1,024 and 4,000 blocks):
-// - dH (one C call, counted once): a logits kernel that computes H E^T
-//   tile by tile (128 x 128 a block, h in steps of 64 through a 3-stage
-//   cp.async ring, 4 warps of 64 x 64 on mma.sync m16n8k16, the tile in
-//   registers, the forward kernel's tiling) and writes dlog from the
-//   registers; then the product dH = dlog E.
-// - dE: the product dE = dlog^T H, reading dlog transposed.
-// Both products are one tiled kernel (128 x 128 a block, k in steps of 32,
-// 3-stage cp.async ring, ldmatrix with or without .trans by the operand's
-// layout).  So the backward costs three 1.07 TFLOP products in place of the
-// Pallas kernels' four, plus the dlog traffic.  fp32 inputs take CUDA-core
-// kernels in full fp32 (never TF32), with an fp32 dlog.
+// Design for that bound.  A Hopper block has 227 KB of shared memory, so
+// the TPU kernels' [tokens, h] or [vocab, h] fp32 accumulator resident
+// across a sequential grid has no counterpart: the logits are recomputed
+// once and dlog goes through device memory, and every product is one tiled
+// GEMM that fills the card on its own.  All three run on wgmma_sm90.cuh's
+// mainloop (TMA into a 4-stage ring of 128-byte-swizzled 48 KB stages,
+// mbarriers, one producer warp, two consumer warpgroups of m64n256k16
+// wgmma, 128 x 256 tiles, fp32 accumulators in registers): the operand
+// path that reaches the tensor cores' rate, where mma.sync from ldmatrix
+// saturates near two thirds of it.  Operand layouts, no transposed copies:
+// - logits H E^T: H and E both K-major; the epilogue turns the accumulators
+//   into dlog = (2^(s log2e - lse log2e) - onehot) g (the hardware exp2),
+//   zeros in the pad columns [V, Vp), in the input dtype, staged through
+//   the free ring and stored in 16-byte pieces (as every product's tile);
+// - dH = dlog E (same C call as the logits, counted once): dlog K-major, E
+//   MN-major (rows of E run along h);
+// - dE = dlog^T H: dlog MN-major (read as [T, Vp] boxes), H MN-major.
+// TMA fills ragged T, V and h with zeros; each output tile is owned by one
+// block, so a call gives the same bits every time.  fp32 inputs take
+// CUDA-core kernels in full fp32 (never TF32), with an fp32 dlog.
 //
 // C interface (loaded with ctypes): apex_fused_lm_head_dh and
 // apex_fused_lm_head_de return cudaGetLastError() after their launches, 0
-// on success.
+// on success, and cudaErrorInvalidValue for a shape they do not take or a
+// tensor map that cuTensorMapEncodeTiled refuses.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// the logits and dlog: bf16 / fp16 on tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
-constexpr int kWarpsN = 2;                 // 2 x 2 warps, each 64 rows x 64 columns
-constexpr int kThreads = 32 * 2 * kWarpsN;
-constexpr int kNT = kBN / kWarpsN / 8;     // n8 tiles a warp
-constexpr int kSK = kBK + 8;   // shared row stride (elements): conflict-free ldmatrix
 
 struct DlogArgs {
   const void* h;       // [T, hid]
@@ -71,116 +66,6 @@ struct DlogArgs {
   int V, hid, vp;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dlog_mma(const DlogArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Hs = reinterpret_cast<T*>(smem_raw);          // [kStages][kBM][kSK]
-  T* Es = Hs + kStages * kBM * kSK;                // [kStages][kBN][kSK]
-
-  const int64_t t0 = (int64_t)blockIdx.x * kBM;
-  const int v0 = blockIdx.y * kBN;
-  const int nk = (a.hid + kBK - 1) / kBK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int gq = lane >> 2, tig = lane & 3;
-  const T* H = static_cast<const T*>(a.h);
-  const T* E = static_cast<const T*>(a.e);
-
-  auto load = [&](int it, int stage) {
-    const int k0 = it * kBK;
-    T* hs = Hs + stage * kBM * kSK;
-    T* es = Es + stage * kBN * kSK;
-#pragma unroll
-    for (int i = 0; i < kBM * kBK / 8 / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-      const bool kin = k0 + c < a.hid;
-      const bool hin = kin && t0 + r < a.T;
-      cp_async16(hs + r * kSK + c, hin ? H + (t0 + r) * a.hid + k0 + c : H, hin);
-      const bool ein = kin && v0 + r < a.V;
-      cp_async16(es + r * kSK + c, ein ? E + (int64_t)(v0 + r) * a.hid + k0 + c : E, ein);
-    }
-  };
-
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = it + kStages - 1;
-    if (nxt < nk) load(nxt, nxt % kStages);
-    cp_async_commit();
-    const T* hs = Hs + (it % kStages) * kBM * kSK;
-    const T* es = Es + (it % kStages) * kBN * kSK;
-    const int mi = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], hs + (wm * 64 + mt * 16 + (mi & 1) * 8 + (lane & 7)) * kSK +
-                                kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, es + (wn * kNT * 8 + np * 16 + (mi >> 1) * 8 + (lane & 7)) * kSK +
-                            kk * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          MmaOp<T>::run(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          MmaOp<T>::run(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // dlog from the registers; the padded columns [V, vp) get zeros
-  T* D = static_cast<T*>(a.dlog);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int64_t row = t0 + wm * 64 + (r >> 1) * 16 + gq + (r & 1) * 8;
-    if (row >= a.T) continue;
-    const int lab = a.labels[row];
-    const float lse = a.lse[row], gr = a.g[row];
-    const int mt = r >> 1, half = r & 1;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = v0 + wn * kNT * 8 + nt * 8 + tig * 2;
-      if (col >= a.vp) continue;
-      float out[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = col + e;
-        out[e] = c < a.V ? (expf(acc[mt][nt][half * 2 + e] - lse) - (c == lab ? 1.f : 0.f)) * gr
-                         : 0.f;
-      }
-      *reinterpret_cast<uint32_t*>(D + row * a.vp + col) = MmaOp<T>::pack(out[0], out[1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the products: C[m, n] = sum_k A[m, k] B[k, n], bf16 / fp16 on tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kGK = 32;                  // k a stage
-constexpr int kSA = kGK + 8;             // A tile [kBM][kSA] (A stored m-major)
-constexpr int kSAT = kBM + 8;            // A tile [kGK][kSAT] (A stored k-major)
-constexpr int kSB = kBN + 8;             // B tile [kGK][kSB]
-
 struct GemmArgs {
   const void* a;       // A[m, k] at a + m * lda + k, or a + k * lda + m (a_kmajor)
   const void* b;       // B[k, n] at b + k * ldb + n
@@ -191,115 +76,6 @@ struct GemmArgs {
   int b_rows;          // B's valid rows (k)
   int64_t lda, ldb, ldc;
 };
-
-template <typename T, bool AK>
-__global__ void __launch_bounds__(kThreads)
-gemm_mma(const GemmArgs g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kATile = AK ? kGK * kSAT : kBM * kSA;
-  T* As = reinterpret_cast<T*>(smem_raw);          // [kStages][kATile]
-  T* Bs = As + kStages * kATile;                   // [kStages][kGK][kSB]
-
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int nk = (g.K + kGK - 1) / kGK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int gq = lane >> 2, tig = lane & 3;
-  const T* A = static_cast<const T*>(g.a);
-  const T* B = static_cast<const T*>(g.b);
-
-  auto load = [&](int it, int stage) {
-    const int k0 = it * kGK;
-    T* as = As + stage * kATile;
-    T* bs = Bs + stage * kGK * kSB;
-    // A: kBM x kGK values, 16-byte chunks along its contiguous dim
-#pragma unroll
-    for (int i = 0; i < kBM * kGK / 8 / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      if (AK) {
-        const int r = idx / (kBM / 8), c = (idx % (kBM / 8)) * 8;     // r: k, c: m
-        const bool in = k0 + r < g.a_rows && m0 + c < g.a_cols;
-        cp_async16(as + r * kSAT + c, in ? A + (int64_t)(k0 + r) * g.lda + m0 + c : A, in);
-      } else {
-        const int r = idx / (kGK / 8), c = (idx % (kGK / 8)) * 8;     // r: m, c: k
-        const bool in = m0 + r < g.a_rows && k0 + c < g.a_cols;
-        cp_async16(as + r * kSA + c, in ? A + (int64_t)(m0 + r) * g.lda + k0 + c : A, in);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kGK * kBN / 8 / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kBN / 8), c = (idx % (kBN / 8)) * 8;       // r: k, c: n
-      const bool in = k0 + r < g.b_rows && n0 + c < g.N;
-      cp_async16(bs + r * kSB + c, in ? B + (int64_t)(k0 + r) * g.ldb + n0 + c : B, in);
-    }
-  };
-
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = it + kStages - 1;
-    if (nxt < nk) load(nxt, nxt % kStages);
-    cp_async_commit();
-    const T* as = As + (it % kStages) * kATile;
-    const T* bs = Bs + (it % kStages) * kGK * kSB;
-    const int mi = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int mrow = wm * 64 + mt * 16;
-        if (AK)
-          ldmatrix_x4_trans(af[mt], as + (kk * 16 + (mi >> 1) * 8 + (lane & 7)) * kSAT + mrow +
-                                        (mi & 1) * 8);
-        else
-          ldmatrix_x4(af[mt], as + (mrow + (mi & 1) * 8 + (lane & 7)) * kSA + kk * 16 +
-                                  (mi >> 1) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, bs + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kSB + wn * kNT * 8 +
-                                  np * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          MmaOp<T>::run(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          MmaOp<T>::run(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  T* C = static_cast<T*>(g.c);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = m0 + wm * 64 + (r >> 1) * 16 + gq + (r & 1) * 8;
-    if (row >= g.M) continue;
-    const int mt = r >> 1, half = r & 1;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = n0 + wn * kNT * 8 + nt * 8 + tig * 2;
-      if (col < g.N)
-        *reinterpret_cast<uint32_t*>(C + (int64_t)row * g.ldc + col) =
-            MmaOp<T>::pack(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores, full fp32
@@ -417,44 +193,112 @@ gemm_f32(const GemmArgs g) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / fp16: the epilogues of the three products on wgmma_sm90.cuh
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the logits tile's epilogue: dlog [T, vp] from the accumulators; the
+// padded columns [V, vp) get zeros
+template <typename T>
+struct DlogStore {
+  T* out;
+  int64_t rows;
+  int cols;                 // vp
+  int V;
+  const int* labels;
+  const float* lse;
+  const float* g;
+
+  __device__ __forceinline__ void stage(float (&acc)[128], int64_t row0, int col0, int tid,
+                                        T* tile) const {
+    const int lane = tid % 32;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * (tid / 32) + lane / 4 + 8 * half;
+      const int64_t row = row0 + r;
+      if (row >= rows) continue;      // never stored; its label is not read
+      const int lab = labels[row];
+      const float shift = lse[row] * kLog2e, gr = g[row];
+#pragma unroll
+      for (int j = 0; j < kGemmBN / 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        float out[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + c + e;
+          out[e] = col < V ? (fast_exp2(fmaf(acc[4 * j + 2 * half + e], kLog2e, -shift)) -
+                              (col == lab ? 1.f : 0.f)) * gr
+                           : 0.f;
+        }
+        store_f32<T, 2>(tile + r * kGemmTileLd + c, out);
+      }
+    }
+  }
+};
+
+// a product's epilogue: the tile rounded to T, into C [rows, cols]
+template <typename T>
+struct TileStore {
+  T* out;
+  int64_t rows;
+  int cols;
+
+  __device__ __forceinline__ void stage(float (&acc)[128], int64_t, int, int tid, T* tile) const {
+    const int lane = tid % 32;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * (tid / 32) + lane / 4 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < kGemmBN / 8; ++j) {
+        const float out[2] = {acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]};
+        store_f32<T, 2>(tile + r * kGemmTileLd + 8 * j + 2 * (lane % 4), out);
+      }
+    }
+  }
+};
+
+// the logits with dlog as their epilogue, then dh [T, hid] = dlog [T, vp] e
+template <typename T>
+cudaError_t half_dh(const DlogArgs& a, void* dh, cudaStream_t stream) {
+  CUtensorMap h_k, e_k, dlog_k, e_mn;
+  if (!tensor_map<T>(&h_k, a.h, a.T, a.hid, kGemmBM) ||
+      !tensor_map<T>(&e_k, a.e, a.V, a.hid, kGemmBN) ||
+      !tensor_map<T>(&dlog_k, a.dlog, a.T, a.vp, kGemmBM) ||
+      !tensor_map<T>(&e_mn, a.e, a.V, a.hid, 64))
+    return cudaErrorInvalidValue;
+  const DlogStore<T> dlog{static_cast<T*>(a.dlog), a.T, a.vp, a.V, a.labels, a.lse, a.g};
+  const cudaError_t err =
+      launch_wgmma_gemm<T, false, false>(h_k, e_k, a.T, a.vp, a.hid, dlog, stream);
+  if (err != cudaSuccess) return err;
+  // e's rows past V read as zeros, as do dlog's pad columns
+  return launch_wgmma_gemm<T, false, true>(dlog_k, e_mn, a.T, a.hid, a.vp,
+                                           TileStore<T>{static_cast<T*>(dh), a.T, a.hid},
+                                           stream);
+}
+
+// de [V, hid] = dlog^T [V, T] h [T, hid]
+template <typename T>
+cudaError_t half_de(const void* dlog, const void* h, void* de, int64_t tokens, int V, int hid,
+                    int vp, cudaStream_t stream) {
+  CUtensorMap dlog_mn, h_mn;
+  if (!tensor_map<T>(&dlog_mn, dlog, tokens, vp, 64) ||
+      !tensor_map<T>(&h_mn, h, tokens, hid, 64))
+    return cudaErrorInvalidValue;
+  return launch_wgmma_gemm<T, true, true>(dlog_mn, h_mn, V, hid, tokens,
+                                          TileStore<T>{static_cast<T*>(de), V, hid}, stream);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T, bool AK>
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  constexpr int kATile = AK ? kGK * kSAT : kBM * kSA;
-  const size_t smem = (size_t)kStages * (kATile + kGK * kSB) * sizeof(T);
-  // the attribute is per device: set it on every launch, for the current one
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_mma<T, AK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.M + kBM - 1) / kBM, (g.N + kBN - 1) / kBN);
-  gemm_mma<T, AK><<<grid, kThreads, smem, stream>>>(g);
-  return cudaGetLastError();
-}
-
-template <bool AK>
-cudaError_t gemm(int dtype, const GemmArgs& g, cudaStream_t stream) {
-  switch (dtype) {
-    case kF32: {
-      const dim3 grid((g.M + kFM - 1) / kFM, (g.N + kFN - 1) / kFN);
-      gemm_f32<AK><<<grid, 256, 0, stream>>>(g);
-      return cudaGetLastError();
-    }
-    case kBF16: return launch_gemm<__nv_bfloat16, AK>(g, stream);
-    case kF16: return launch_gemm<__half, AK>(g, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_dlog(const DlogArgs& a, cudaStream_t stream) {
-  const size_t smem = (size_t)kStages * (kBM + kBN) * kSK * sizeof(T);
-  const cudaError_t err = cudaFuncSetAttribute(
-      dlog_mma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((a.T + kBM - 1) / kBM), (a.vp + kBN - 1) / kBN);
-  dlog_mma<T><<<grid, kThreads, smem, stream>>>(a);
+cudaError_t gemm_fp32(bool a_kmajor, const GemmArgs& g, cudaStream_t stream) {
+  const dim3 grid((g.M + kFM - 1) / kFM, (g.N + kFN - 1) / kFN);
+  if (a_kmajor)
+    gemm_f32<true><<<grid, 256, 0, stream>>>(g);
+  else
+    gemm_f32<false><<<grid, 256, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -478,22 +322,19 @@ extern "C" int apex_fused_lm_head_dh(const void* h, const void* e, const void* l
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DlogArgs a{h, e, static_cast<const int*>(labels), static_cast<const float*>(lse),
                    static_cast<const float*>(g), dlog, (int64_t)T, V, hid, vp};
-  cudaError_t err;
   switch (dtype) {
-    case kF32: {
-      const dim3 grid((unsigned)((T + kFM - 1) / kFM), (vp + kFN - 1) / kFN);
-      dlog_f32<<<grid, 256, 0, s>>>(a);
-      err = cudaGetLastError();
-      break;
-    }
-    case kBF16: err = launch_dlog<__nv_bfloat16>(a, s); break;
-    case kF16: err = launch_dlog<__half>(a, s); break;
-    default: err = cudaErrorInvalidValue;
+    case kBF16: return (int)half_dh<__nv_bfloat16>(a, dh, s);
+    case kF16: return (int)half_dh<__half>(a, dh, s);
+    case kF32: break;
+    default: return cudaErrorInvalidValue;
   }
+  const dim3 grid((unsigned)((T + kFM - 1) / kFM), (vp + kFN - 1) / kFN);
+  dlog_f32<<<grid, 256, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // dh [T, hid] = dlog [T, vp] e [vp, hid]; e's rows past V read as 0
   const GemmArgs gm{dlog, e, dh, (int)T, hid, vp, (int)T, vp, V, vp, hid, hid};
-  return (int)gemm<false>(dtype, gm, s);
+  return (int)gemm_fp32(false, gm, s);
 }
 
 // dlog [T, vp] as apex_fused_lm_head_dh wrote it; h [T, hid]; de [V, hid]
@@ -502,7 +343,14 @@ extern "C" int apex_fused_lm_head_dh(const void* h, const void* e, const void* l
 extern "C" int apex_fused_lm_head_de(const void* dlog, const void* h, void* de, long long T,
                                      int V, int hid, int vp, int dtype, void* stream) {
   if (!shapes_ok(T, V, hid, vp)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBF16: return (int)half_de<__nv_bfloat16>(dlog, h, de, T, V, hid, vp, s);
+    case kF16: return (int)half_de<__half>(dlog, h, de, T, V, hid, vp, s);
+    case kF32: break;
+    default: return cudaErrorInvalidValue;
+  }
   // de [V, hid] = dlog^T [V, T] h [T, hid]; dlog read k-major (row t, column v)
   const GemmArgs gm{dlog, h, de, V, hid, (int)T, (int)T, vp, (int)T, vp, hid, hid};
-  return (int)gemm<true>(dtype, gm, static_cast<cudaStream_t>(stream));
+  return (int)gemm_fp32(true, gm, s);
 }

@@ -10,8 +10,9 @@ hand-written kernel ``csrc/fused_lm_head_fwd.cu`` (the Pallas
 ``_de_kernel``); on CPU tensors they are :func:`_plain_forward`, whose
 loss is the JAX ``lm_head_loss_reference``, and :func:`_plain_backward`.
 The backward kernels write ``dlog`` once in the input dtype (the logits
-are recomputed once, not in each of dH and dE as on the TPU; see the
-source's note).
+are recomputed once, not in each of dH and dE as on the TPU); for bf16
+and fp16 its three products (the logits, dH, dE) run on the TMA and
+``wgmma`` mainloop of ``csrc/wgmma_sm90.cuh`` (see the sources' notes).
 
 The label contract is the JAX one: a label outside ``[0, vocab)`` (an
 ignore id such as ``-100``, or ``vocab``) gets a target logit of exactly
@@ -40,8 +41,8 @@ from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
 
 __all__ = ["fused_lm_head_loss", "fused_lm_head_fwd", "fused_lm_head_bwd",
-           "lm_head_loss_reference", "FUSED_LM_HEAD_FWD", "FUSED_LM_HEAD_DH",
-           "FUSED_LM_HEAD_DE"]
+           "lm_head_loss_reference", "padded_vocab", "FUSED_LM_HEAD_FWD",
+           "FUSED_LM_HEAD_DH", "FUSED_LM_HEAD_DE"]
 
 FUSED_LM_HEAD_FWD = register(Kernel(
     name="fused_lm_head_fwd", source="fused_lm_head_fwd.cu",
@@ -157,11 +158,10 @@ def _check_operand(t: torch.Tensor, what: str, dtype, device,
 
 
 def _check_head(h2, e, labels, op: str):
-    """The checks the forward and backward kernels share; returns the
-    labels as contiguous int32."""
-    if h2.device.type != "cuda":
-        raise ValueError(f"{op}: hidden lies on {h2.device}, the kernels take "
-                         f"CUDA tensors")
+    """The checks the forward and backward kernels share: the operands'
+    dtypes, shapes and layout first (the backward's tensor maps read rows
+    of 16-byte-aligned, contiguous operands), then their device; returns
+    the labels as contiguous int32."""
     if h2.dtype not in _DTYPE_CODES:
         raise TypeError(f"{op}: dtype {h2.dtype} is not fp32, bf16 or fp16")
     _check_operand(h2, "hidden", h2.dtype, h2.device, op)
@@ -175,11 +175,22 @@ def _check_head(h2, e, labels, op: str):
     if tuple(labels.shape) != (t,) or labels.device != h2.device:
         raise ValueError(f"{op}: labels shape {tuple(labels.shape)} on "
                          f"{labels.device} != ({t},) on {h2.device}")
+    if h2.device.type != "cuda":
+        raise ValueError(f"{op}: hidden lies on {h2.device}, the kernels take "
+                         f"CUDA tensors")
     if h2.device.index != torch.cuda.current_device():
         raise ValueError(f"{op}: hidden lies on {h2.device}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
     # ids of any integer dtype; the kernels read int32
     return labels.to(torch.int32).contiguous()
+
+
+def padded_vocab(vocab: int) -> int:
+    """Vp, the width of the backward's ``dlog [T, Vp]`` scratch: the vocab
+    rounded up to 64, so that its rows are whole 128-byte boxes of 16-bit
+    values for the wgmma products' tensor maps; the kernels write zeros in
+    the columns ``[vocab, Vp)``."""
+    return -(-vocab // 64) * 64
 
 
 def _kernel_forward(h2, e, labels):
@@ -219,7 +230,7 @@ class _BwdLaunch:
                                  f"({t},) on {h2.device}, got {x.dtype} "
                                  f"{tuple(x.shape)}")
         vocab = e.shape[0]
-        self.vp = -(-vocab // 64) * 64
+        self.vp = padded_vocab(vocab)
         self.dlog = torch.empty((t, self.vp), dtype=h2.dtype, device=h2.device)
         self.dh = torch.empty_like(h2)
         self.de = torch.empty_like(e)

@@ -29,6 +29,12 @@ ends the run with a non-zero exit and no result line:
    fp32 peak, and for the pair-bias kernels their exponentials over the
    SFU rate: the largest).  The pair-bias kernels and the materialized
    route are also timed at the two routing shapes, N_res 256 and 1024.
+   The head backward is also checked at GPT-2-large's head shape, in fp16
+   at the main shape, off every tile edge and for the same bits on a
+   repeated call, and timed at both models' head shapes with the dH call
+   split into its two kernels (``torch.profiler``) and each product's
+   TFLOP/s beside cuBLAS ``torch.matmul`` on the same product (a
+   yardstick the port never calls).
    The packed Adam and Adagrad kernels are checked over p fp32/bf16/fp16,
    g fp32/bf16, both modes, weight decay, ``noop`` 0 and 1 (1 must leave
    every buffer's bits) and n = 1 to past one grid stride, and checked and
@@ -330,6 +336,8 @@ _DTYPES = ("float32", "bfloat16", "float16")
 # the main path's shapes: llama-1b, b 4, s 2048 (8,192 tokens)
 FLASH_MAIN = dict(b=4, h=32, hk=8, s=2048, d=64)
 HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
+# GPT-2-large's head at b 8, s 1024 (bench.py:81-84): vocab 50257, Vp 50304
+HEAD_GPT = dict(t=8192, hid=1280, vocab=50257)
 
 
 def _tol_ratio(actual, expected, tol) -> float:
@@ -947,12 +955,17 @@ def check_flash_attention_bwd(device) -> dict:
     return out
 
 
+AMP_LOSS_SCALE = 2.0 ** 15   # the fp16 amp paths' loss scale after warm-up
+MAX_MEDIAN_TOL_SHARE = 1 / 3  # a head-backward tolerance's median over |ref|'s
+
+
 def _head_bwd_tol(h, e, labels, lse, gvec, dh_ref, de_ref, dt):
     """Per-element bounds of ``(dh, de)``: the kernels round dlog to the
-    operand dtype (u |dlog| |E|, u |dlog|^T |H|); the recomputed logits
-    and lse are within EPS_SUM of |H||E|^T and its row max, which moves p
-    by that much relative (E = p |g| (|H||E|^T + rowmax)); the fp32 sums
-    of the products within EPS_SUM; then 2 ulp."""
+    operand dtype (u |dlog| |E|, u |dlog|^T |H|, and the dtype's subnormal
+    floor for each dlog below twice its least normal); the recomputed
+    logits and lse are within EPS_SUM of |H||E|^T and its row max, which
+    moves p by that much relative (E = p |g| (|H||E|^T + rowmax)); the fp32
+    sums of the products within EPS_SUM; then 2 ulp."""
     import torch
 
     u, floor = _half_eps(dt), _sub_floor(dt)
@@ -968,11 +981,14 @@ def _head_bwd_tol(h, e, labels, lse, gvec, dh_ref, de_ref, dt):
     del l1, p
     dl = dlog.abs()
     del dlog
-    dh_t = (u * torch.matmul(dl, eabs) + EPS_SUM * torch.matmul(err + dl, eabs)
-            + floor * e.shape[0] * float(eabs.max()))
+    dh_t = u * torch.matmul(dl, eabs) + EPS_SUM * torch.matmul(err + dl, eabs)
     de_t = (u * torch.matmul(dl.t(), habs)
-            + EPS_SUM * torch.matmul((err + dl).t(), habs)
-            + floor * h.shape[0] * float(habs.max()))
+            + EPS_SUM * torch.matmul((err + dl).t(), habs))
+    if floor:
+        # the kernel's dlog may lie a rounding below the reference's
+        sub = (dl < 2 * torch.finfo(getattr(torch, dt)).tiny).float()
+        dh_t += floor * torch.matmul(sub, eabs)
+        de_t += floor * torch.matmul(sub.t(), habs)
     return dh_t + 2 * _ulp(dh_ref, dt), de_t + 2 * _ulp(de_ref, dt)
 
 
@@ -980,7 +996,12 @@ def check_lm_head_bwd(device) -> dict:
     """The dH and dE kernels on the card against the plain backward on the
     same (H, E, labels, lse, g) over the forward check's dtypes, token
     counts and vocabularies off the tile, hidden sizes, labels -100 and
-    vocab, with a non-uniform g, and the main path's shape."""
+    vocab, with a non-uniform g; the main path's shape in bf16 and fp16,
+    GPT-2-large's head shape, T, V and h off every tile edge of the wgmma
+    products (T 129, V 50257, h 1288), and two calls on the same inputs,
+    which must give dH and dE bit for bit.  fp16 cases take the fp16 amp
+    path's cotangent (times its loss scale), and every case's tolerance
+    must have a median well under |ref|'s, so that zeros would fail."""
     import torch
     from apex_tpu_torch.ops import fused_lm_head as lh
 
@@ -988,23 +1009,31 @@ def check_lm_head_bwd(device) -> dict:
              for dt in _DTYPES
              for t, vocab, hid in ((1, 1000, 64), (300, 1000, 136),
                                    (257, 32000, 256), (128, 256, 2048))]
-    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True))
+    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True, model_init=True))
+    cases.append(dict(HEAD_MAIN, dtype="float16", model_init=True))
+    cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
+    cases += [dict(dtype=dt, t=129, vocab=50257, hid=1288)
+              for dt in ("bfloat16", "float16")]
     g = torch.Generator(device=device).manual_seed(23)
     worst = {"dh": 0.0, "de": 0.0}
+    worst_med = {dt: {"dh": 0.0, "de": 0.0} for dt in _DTYPES}
     main = {}
     with torch.no_grad():
         for case in cases:
             dt = getattr(torch, case["dtype"])
             t, vocab, hid = case["t"], case["vocab"], case["hid"]
             h = torch.randn(t, hid, generator=g, device=device).to(dt)
-            std = 0.02 if case.get("main") else hid ** -0.5
+            std = 0.02 if case.get("model_init") else hid ** -0.5
             e = (torch.randn(vocab, hid, generator=g, device=device) * std).to(dt)
             lab = torch.randint(0, vocab, (t,), generator=g, device=device)
             lab[::7] = -100
             lab[3::11] = vocab
             lab[5::13] = vocab - 1
-            # a non-uniform upstream cotangent, of both signs
+            # a non-uniform upstream cotangent, of both signs; in fp16 times
+            # the amp path's loss scale, as its fp16 O2 head gets it
             gvec = torch.randn(t, generator=g, device=device) / t
+            if case["dtype"] == "float16":
+                gvec *= AMP_LOSS_SCALE
             _, lse = lh.fused_lm_head_fwd(h, e, lab)
             dh, de = lh.fused_lm_head_bwd(h, e, lab, lse, gvec)
             torch.cuda.synchronize()
@@ -1016,21 +1045,45 @@ def check_lm_head_bwd(device) -> dict:
                 raise AssertionError(
                     f"fused LM-head backward disagrees with its plain version: "
                     f"{case}: {r} x tolerance")
+            # a tolerance near the values would pass zeros or a misread type
+            med = {n: float(tol.median() / ref.float().abs().median())
+                   for n, tol, ref in (("dh", tdh, rdh), ("de", tde, rde))}
+            if max(med.values()) > MAX_MEDIAN_TOL_SHARE:
+                raise AssertionError(
+                    f"fused LM-head backward: the tolerance's median is not "
+                    f"under {MAX_MEDIAN_TOL_SHARE} of the values' in {case}: "
+                    f"{med}")
             for n, x in r.items():
                 worst[n] = max(worst[n], x)
+                worst_med[case["dtype"]][n] = max(worst_med[case["dtype"]][n],
+                                                  med[n])
             if case.get("main"):
                 main = dict(dh_max_abs_err=float((dh.float() - rdh.float()).abs().max()),
                             de_max_abs_err=float((de.float() - rde.float()).abs().max()),
                             tol_ratio=r)
+                dh2, de2 = lh.fused_lm_head_bwd(h, e, lab, lse, gvec)
+                main["repeat_bitwise"] = bool(torch.equal(dh, dh2)
+                                              and torch.equal(de, de2))
+                if not main["repeat_bitwise"]:
+                    raise AssertionError(
+                        "fused LM-head backward: two calls on the same inputs "
+                        "gave different bits")
+                del dh2, de2
             del h, e, dh, de, rdh, rde, tdh, tde
     out = dict(kernel="fused_lm_head_dh + fused_lm_head_de", cases=len(cases),
-               worst_tol_ratio=worst, main_shape=main,
+               worst_tol_ratio=worst, worst_median_tol_share=worst_med,
+               main_shape=main,
                tolerance="dH within u |dlog| |E| + 2^-16 (err + |dlog|) |E| + "
-                         "floor V max|E|, dE likewise with H, each + 2 ulp: u "
-                         "half an epsilon of the dtype (0 for fp32; the "
-                         "kernels round dlog), err = p |g| (|H||E|^T + its "
-                         "row max) the recomputed logits' and lse's error "
-                         "scale, floor the dtype's half least subnormal spacing")
+                         "floor [|dlog| < 2 tiny] |E|, dE likewise with H, "
+                         "each + 2 ulp: u half an epsilon of the dtype (0 for "
+                         "fp32; the kernels round dlog), err = p |g| "
+                         "(|H||E|^T + its row max) the recomputed logits' and "
+                         "lse's error scale, floor the dtype's half least "
+                         "subnormal spacing below its least normal tiny; g "
+                         "randn / T, times the loss scale 2^15 in fp16; the "
+                         "tolerance's median under "
+                         f"{MAX_MEDIAN_TOL_SHARE} of |ref|'s in every case; "
+                         "a repeated call equal bit for bit")
     log("phase2-check", **out)
     return out
 
@@ -1147,16 +1200,53 @@ def time_flash_attention_bwd(device) -> dict:
     return out
 
 
-def time_lm_head_bwd(device) -> dict:
-    """dH and dE each, the plain backward and F.linear + F.cross_entropy's
-    backward at the main path's shape (T 8192, h 2048, V 32000, bf16, a
-    uniform g as the mean gives); returns ``{"dh": row, "de": row}``."""
+def _traced_kernels(fn, reps: int = 1):
+    """``fn`` called ``reps`` times under ``torch.profiler``: the traced
+    wall ms a call, and the device-side kernel rows with time of their own
+    (not the operators' rows, which carry their kernels' time too, nor
+    user annotations such as the optimizer's step, which span kernels on
+    the device timeline: either would count them twice)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    return traced_ms, kernels
+
+
+def _kernel_device_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each CUDA kernel that ``fn`` launches, traced
+    (``_traced_kernels``) over ``calls`` calls after one untraced call."""
+    fn()
+    _, kernels = _traced_kernels(fn, calls)
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}
+
+
+def _time_head_bwd_shape(shape: dict, seed: int, device) -> dict:
+    """dH and dE at one head shape (bf16, a uniform g as the mean gives):
+    each C call's device time, the dH call split into its two kernels (the
+    logits with dlog, then the dH product) by the profiler, each product's
+    TFLOP/s, cuBLAS ``torch.matmul`` on the same three products (a
+    yardstick the port never calls), the plain backward and F.linear +
+    F.cross_entropy's backward; returns ``{"dh": row, "de": row}``."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import fused_lm_head as lh
 
-    t, hid, vocab = HEAD_MAIN["t"], HEAD_MAIN["hid"], HEAD_MAIN["vocab"]
-    g = torch.Generator(device=device).manual_seed(26)
+    t, hid, vocab = shape["t"], shape["hid"], shape["vocab"]
+    g = torch.Generator(device=device).manual_seed(seed)
     h = torch.randn(t, hid, generator=g, device=device).to(torch.bfloat16)
     e = (torch.randn(vocab, hid, generator=g, device=device) * 0.02
          ).to(torch.bfloat16)
@@ -1178,30 +1268,77 @@ def time_lm_head_bwd(device) -> dict:
                            ("de", lh.FUSED_LM_HEAD_DE)):
             rows[name]["kernel_again"] = device_ms(
                 lambda kern=kern: call.launch(kern), iters=10)
+        split = _kernel_device_ms(lambda: call.launch(lh.FUSED_LM_HEAD_DH))
+        part_ms = {"logits_dlog": sum(v for k, v in split.items() if "DlogStore" in k),
+                   "dh_product": sum(v for k, v in split.items() if "TileStore" in k)}
+        # cuBLAS on the operands the kernels work on: E padded to Vp rows,
+        # so the logits have the Vp pitch of dlog, and dlog in full
+        ep = torch.zeros(call.vp, hid, dtype=e.dtype, device=device)
+        ep[:vocab] = e
+        cublas = {"logits": device_ms(lambda: torch.matmul(h, ep.t()), iters=10),
+                  "dh": device_ms(lambda: torch.matmul(call.dlog, ep), iters=10),
+                  "de": device_ms(lambda: torch.matmul(call.dlog.t(), h), iters=10)}
     hr, er = h.detach().requires_grad_(), e.detach().requires_grad_()
     library = _fwd_bwd_minus_fwd(
         lambda: F.cross_entropy(F.linear(hr, er), lab, reduction="none"),
         ((hr, er), gvec), device_iters=5)
     prod = 2 * t * vocab * hid
-    vp = -(-vocab // 64) * 64
+    dlog_bytes = 2 * t * lh.padded_vocab(vocab)
+    de_ms = min(rows["de"]["kernel"], rows["de"]["kernel_again"])
+    tflops = {k: prod / ms / 1e9 if ms else "not measured" for k, ms in (
+        ("logits", part_ms["logits_dlog"]), ("dh", part_ms["dh_product"]),
+        ("de", de_ms))}
+    # each part's bound: its product, or its bytes (H, E, labels, lse and g
+    # read and dlog written; dlog and E read and dH written)
+    part_bound = {
+        "logits_dlog": max(prod / 989e12, (2 * (t * hid + vocab * hid) + 12 * t
+                                           + dlog_bytes) / HBM_BYTES_PER_S) * 1e3,
+        "dh_product": max(prod / 989e12, (dlog_bytes + 2 * (vocab * hid + t * hid))
+                          / HBM_BYTES_PER_S) * 1e3}
     out = {}
     for name, nprod, nbytes in (
             # the logits recompute and dlog E; H, E, labels, lse, g read,
             # dlog written and read, dH written
-            ("dh", 2, 2 * (2 * t * hid + vocab * hid) + 12 * t
-             + 2 * 2 * t * vp),
+            ("dh", 2, 2 * (2 * t * hid + vocab * hid) + 12 * t + 2 * dlog_bytes),
             # dlog^T H: dlog and H read, dE written
-            ("de", 1, 2 * (t * vp + t * hid + vocab * hid))):
+            ("de", 1, dlog_bytes + 2 * (t * hid + vocab * hid))):
         r = rows[name]
         dev = dict(kernel=r["kernel"], kernel_again=r["kernel_again"],
                    plain=dev_plain, library=library)
         row = _row(dev, r["host"], nprod * prod, nbytes, 989e12)
-        row.update(shape=dict(HEAD_MAIN, dtype="bfloat16"), flops=nprod * prod,
+        row.update(shape=dict(shape, dtype="bfloat16"), flops=nprod * prod,
                    bytes=nbytes, plain_and_library_compute="dH and dE together",
                    library_call="F.linear + F.cross_entropy forward + "
                                 "backward minus forward (CUDA graphs of 5)")
-        log("phase2-time", kernel=f"fused_lm_head_{name}", **row)
+        if name == "dh":
+            row.update(split_ms=part_ms, split_bound_ms=part_bound,
+                       tflops={k: tflops[k] for k in ("logits", "dh")},
+                       cublas_matmul_ms={k: cublas[k] for k in ("logits", "dh")},
+                       split_timing="torch.profiler, 5 calls of the dH call")
+        else:
+            row.update(tflops={"de": tflops["de"]},
+                       cublas_matmul_ms={"de": cublas["de"]})
+        row["cublas_call"] = ("torch.matmul on the same product over the "
+                              "kernels' Vp = vocab rounded up to 64, bf16 out "
+                              "(logits H Ep^T, dlog Ep, dlog^T H with E "
+                              "zero-padded to Ep [Vp, h]; CUDA graphs of 10); "
+                              "a yardstick, never called by the port")
         out[name] = row
+    return out
+
+
+def time_lm_head_bwd(device) -> dict:
+    """dH and dE at the main path's shape (T 8192, h 2048, V 32000) and at
+    GPT-2-large's head (T 8192, h 1280, V 50257), each as
+    ``_time_head_bwd_shape`` gives it; returns ``{"dh": row, "de": row}``
+    at the main shape with ``"gpt2_large"`` beside them."""
+    out = _time_head_bwd_shape(HEAD_MAIN, 26, device)
+    for name in ("dh", "de"):
+        log("phase2-time", kernel=f"fused_lm_head_{name}", **out[name])
+    out["gpt2_large"] = _time_head_bwd_shape(HEAD_GPT, 27, device)
+    for name in ("dh", "de"):
+        log("phase2-time", kernel=f"fused_lm_head_{name}",
+            **out["gpt2_large"][name])
     return out
 
 
@@ -1981,8 +2118,6 @@ def profile_steps(engine, cfg) -> dict:
     traced with ``torch.profiler``: device busy time (the kernels' summed
     self time) against the traced wall, and the kernels that take most."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     rng = torch.Generator().manual_seed(5)
     prompts = [torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
@@ -2007,18 +2142,7 @@ def profile_steps(engine, cfg) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step()
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / reps
-        # device-side events only: an operator's row also carries its
-        # kernels' time, which would count them twice
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0]
+        traced_ms, kernels = _traced_kernels(step, reps)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         out[name] = dict(
@@ -2171,8 +2295,6 @@ def profile_eval(model, ids, labels) -> dict:
     and traced with ``torch.profiler``: device busy time against the traced
     and the unprofiled wall, and the kernels that take most."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -2180,15 +2302,7 @@ def profile_eval(model, ids, labels) -> dict:
         model(ids, labels=labels)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(ids, labels=labels)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+        traced_ms, kernels = _traced_kernels(lambda: model(ids, labels=labels))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = dict(
@@ -2396,7 +2510,10 @@ def _kernel_kind(name: str) -> str:
                       ("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
                       ("flash_dkv", "flash dk/dv"), ("ln_fwd", "norm forward"),
                       ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
-                      ("dlog_", "head dH"), ("gemm_mma<", "head dH/dE products"),
+                      ("DlogStore", "head logits + dlog"),
+                      ("dlog_f32", "head logits + dlog"),
+                      ("TileStore", "head dH/dE products"),
+                      ("gemm_f32", "head dH/dE products"),
                       ("softmax_fwd_kernel", "softmax forward"),
                       ("softmax_bwd_kernel", "softmax backward"),
                       ("lamb_phase1_kernel", "LAMB phase 1")):
@@ -2447,25 +2564,7 @@ def _profile(step_fn, step_ms: float) -> dict:
     ``torch.profiler``: device busy time (the kernels' summed self time)
     against the traced wall and the unprofiled median step (``step_ms``),
     device time by kind of kernel, and the kernels that take most."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    # device-side kernel rows only: the optimizer's step shows on the device
-    # timeline as a user annotation spanning its kernels, which would count
-    # them twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
+    traced_ms, kernels = _traced_kernels(step_fn)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
     by_kind = {}
@@ -3795,9 +3894,12 @@ def main() -> int:
         entry(lh.FUSED_LM_HEAD_FWD, head_check["main_shape"]["loss_max_abs_err"],
               head_time, shape=head_time["shape"]),
         entry(lh.FUSED_LM_HEAD_DH, hb["dh_max_abs_err"], head_bwd_time["dh"],
-              shape=head_bwd_time["dh"]["shape"]),
+              shape=head_bwd_time["dh"]["shape"],
+              **{k: head_bwd_time["dh"][k] for k in (
+                  "split_ms", "tflops", "cublas_matmul_ms")}),
         entry(lh.FUSED_LM_HEAD_DE, hb["de_max_abs_err"], head_bwd_time["de"],
-              shape=head_bwd_time["de"]["shape"]),
+              shape=head_bwd_time["de"]["shape"],
+              **{k: head_bwd_time["de"][k] for k in ("tflops", "cublas_matmul_ms")}),
         entry(sm.SCALED_SOFTMAX_FWD, softmax_check["main_shape"]["y_max_abs_err"],
               softmax_time["fwd"], main_path="gpt_kernel_path",
               shape=softmax_time["fwd"]["shape"]),

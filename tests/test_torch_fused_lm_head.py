@@ -96,13 +96,18 @@ def test_plain_version_is_differentiable_on_cpu():
 
 
 @pytest.mark.parametrize("tokens,vocab", [(1, 1), (512, 32000), (8192, 32000),
-                                          (8192, 128256), (37, 1000)])
+                                          (8192, 128256), (37, 1000), (1, 64),
+                                          (129, 50257), (8192, 50257)])
 def test_vocab_split_covers_the_vocab_once(tokens, vocab):
-    """The kernel's chunks: multiples of the 128-column tile, none empty,
-    together covering the vocab."""
+    """The forward kernel's chunks: multiples of the 128-column tile, none
+    empty, together covering the vocab; and the backward's dlog width Vp:
+    the vocab rounded up to 64, so every row is a whole number of the
+    tensor maps' 128-byte boxes of 16-bit values."""
     chunk, nsplit = tlh.vocab_split(tokens, vocab, sms=132)
     assert chunk % 128 == 0 and nsplit >= 1
     assert chunk * (nsplit - 1) < vocab <= chunk * nsplit
+    vp = tlh.padded_vocab(vocab)
+    assert (vp * 2) % 128 == 0 and vocab <= vp < vocab + 64
 
 
 @pytest.mark.cuda
@@ -214,17 +219,129 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
         tlh._BwdLaunch(h, e, lab, torch.zeros(8), torch.ones(8))
 
 
+# ---------------------------------------------------------------------------
+# the backward kernels' host side: operand checks, library names
+# ---------------------------------------------------------------------------
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte line."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+_BAD_OPERANDS = {
+    "hidden_not_multiple_of_8": (
+        lambda: (torch.zeros(8, 12, dtype=torch.bfloat16),
+                 torch.zeros(64, 12, dtype=torch.bfloat16)),
+        ValueError, "multiple of 8"),
+    "embedding_off_16_bytes": (
+        lambda: (torch.zeros(8, 128, dtype=torch.bfloat16),
+                 _misaligned((64, 128), torch.bfloat16)),
+        ValueError, "16 bytes"),
+    "hidden_off_16_bytes": (
+        lambda: (_misaligned((8, 128), torch.float16),
+                 torch.zeros(64, 128, dtype=torch.float16)),
+        ValueError, "16 bytes"),
+    "hidden_not_contiguous": (
+        lambda: (torch.zeros(128, 8, dtype=torch.bfloat16).t(),
+                 torch.zeros(64, 128, dtype=torch.bfloat16)),
+        ValueError, "contiguous"),
+    "hidden_sizes_differ": (
+        lambda: (torch.zeros(8, 128, dtype=torch.bfloat16),
+                 torch.zeros(64, 136, dtype=torch.bfloat16)),
+        ValueError, "one hidden size"),
+    "empty_vocab": (
+        lambda: (torch.zeros(8, 128, dtype=torch.float16),
+                 torch.zeros(0, 128, dtype=torch.float16)),
+        ValueError, "V >= 1"),
+    "mixed_dtypes": (
+        lambda: (torch.zeros(8, 128, dtype=torch.bfloat16),
+                 torch.zeros(64, 128, dtype=torch.float16)),
+        TypeError, "dtype"),
+    "float64": (
+        lambda: (torch.zeros(8, 128, dtype=torch.float64),
+                 torch.zeros(64, 128, dtype=torch.float64)),
+        TypeError, "fp32, bf16 or fp16"),
+}
+
+
+@pytest.mark.parametrize("op", ["forward", "backward"])
+@pytest.mark.parametrize("case", sorted(_BAD_OPERANDS))
+def test_kernel_wrappers_refuse_what_the_tensor_maps_cannot_read(case, op):
+    """The wrappers check dtype, shape and layout before the device, so a
+    hidden size off 8 or differing between the operands, an empty vocab,
+    an operand off 16 bytes or not contiguous, or mixed dtypes raise on
+    any host, before anything is built or launched."""
+    make, err, match = _BAD_OPERANDS[case]
+    h, e = make()
+    lab = torch.zeros(h.shape[0], dtype=torch.int32)
+    with pytest.raises(err, match=match):
+        if op == "forward":
+            tlh._kernel_forward(h, e, lab)
+        else:
+            tlh._BwdLaunch(h, e, lab, torch.zeros(h.shape[0]),
+                           torch.ones(h.shape[0]))
+
+
+@pytest.mark.parametrize("source", ["fused_lm_head_bwd.cu",
+                                    "fused_lm_head_fwd.cu",
+                                    "layer_norm_fwd.cu"])
+def test_a_header_edit_renames_every_library(source, tmp_path, monkeypatch):
+    """Every csrc/*.cuh enters each library's name: editing the new
+    mainloop header builds every source anew, not only the one that
+    includes it."""
+    import shutil
+
+    from apex_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._target(source)
+    with open(csrc / "wgmma_sm90.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = _build._target(source)
+    assert before != after and before.parent == after.parent
+
+
 @pytest.mark.cuda
-def test_backward_kernels_match_plain_version_on_card():
-    """The dH and dE kernels against the plain backward on the card
-    (chip_smoke.py runs the full grid); skipped on a host without one."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("tokens,vocab,hid", [(T, 1000, HID), (129, 1537, 136)])
+def test_backward_kernels_match_plain_version_on_card(dtype, tokens, vocab,
+                                                      hid):
+    """The dH and dE kernels against the plain backward on the card, fp32
+    and the two 16-bit types, T and V off every tile edge (chip_smoke.py
+    runs the full grid); two calls give the same bits.  fp32 at atol =
+    rtol = 1e-5; bf16/fp16 at 4 units of the dtype times max|ref| absolute
+    and 2 units relative (the kernels round dlog to the dtype); skipped on
+    a host without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    h, e, lab = (torch.from_numpy(a).cuda() for a in _inputs(1000))
-    g = torch.from_numpy(_cotangent()).cuda()
+    rng = np.random.default_rng(36)
+    dt = getattr(torch, dtype)
+    h = torch.from_numpy(rng.standard_normal((tokens, hid)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((vocab, hid)) * hid ** -0.5
+                          ).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, vocab, tokens).astype(np.int32))
+    lab[::7] = -100
+    h, e, lab = h.to(dt).cuda(), e.to(dt).cuda(), lab.cuda()
+    g = torch.from_numpy(_cotangent((tokens,))).cuda()
+    if dtype == "float16":
+        # the fp16 amp path's cotangent, randn times its loss scale 2^15
+        # over the tokens, which keeps dlog in fp16's normal range
+        g = g * (64 * 2.0 ** 15 / tokens)
     with torch.no_grad():
         _, lse = tlh.fused_lm_head_fwd(h, e, lab)
         ours = tlh.fused_lm_head_bwd(h, e, lab, lse, g)
+        again = tlh.fused_lm_head_bwd(h, e, lab, lse, g)
         ref = tlh._plain_backward(h, e, lab, lse, g)
-    for a, b in zip(ours, ref):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    unit = {"float32": 0.0, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}[dtype]
+    for a, b, c in zip(ours, ref, again):
+        assert torch.equal(a, c)
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        else:
+            torch.testing.assert_close(
+                a.float(), b.float(), rtol=2 * unit,
+                atol=4 * unit * float(b.float().abs().max()))
