@@ -36,6 +36,7 @@ forward alone and saves nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -64,6 +65,11 @@ _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128)
+# the backward kernels' tiles (csrc/flash_attention_bwd.cu): a block owns
+# kBlockRows rows (queries for dq, keys for dk/dv), the other operands
+# stream in tiles of kTileRows rows
+_BLOCK_ROWS = 128
+_TILE_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -255,10 +261,54 @@ def _bwd_symbol(kernel: Kernel):
     fn = getattr(_build.library(kernel.source), kernel.symbol)
     if fn.argtypes is None:
         vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        fn.argtypes = ([vp] * 12 + [i] * 6 + [vp]
+        fn.argtypes = ([vp] * 12 + [i] * 6 + [vp, vp]
                        + [ctypes.c_float, i, i, u, u, ctypes.c_float, i, vp])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _tma_geometry(shape, strides, dtype, rows: int) -> tuple:
+    """The rank-4 TMA map of a 16-bit ``[b, heads, s, d]`` operand with
+    element ``strides``, read in boxes of ``rows`` rows, as the backward
+    kernels' ``flash_tensor_map`` (``csrc/flash_sm90.cuh``) takes it: 12
+    values, the dims ``(d, s, heads, b)``, the byte strides of s, heads and
+    b, the box ``(columns, rows, 1, 1)`` and the swizzle span in bytes.  A
+    box row is one swizzle span: 64 columns (128 bytes) for d = 64 and 128
+    (which reads two boxes side by side), 32 (64 bytes) for d = 32.  A
+    dimension of extent 1 takes the packed stride (TMA steps over none of
+    it); any other stride must be a positive multiple of 16 bytes, as TMA
+    requires, or this raises."""
+    b, n, s, d = shape
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"TMA maps are for bf16 and fp16 operands, not {dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS}")
+    if strides[3] != 1:
+        raise ValueError(f"the last stride must be 1, got strides {tuple(strides)}")
+    esize = 2
+    byte_strides = []
+    packed = d * esize
+    for extent, st in ((s, strides[2]), (n, strides[1]), (b, strides[0])):
+        st = st * esize if extent > 1 else packed
+        if st <= 0 or st % 16:
+            raise ValueError(f"TMA needs strides that are positive multiples of 16 "
+                             f"bytes, got element strides {tuple(strides)} for "
+                             f"shape {tuple(shape)}")
+        byte_strides.append(st)
+        packed = st * extent
+    row_bytes = min(d * esize, 128)
+    return (d, s, n, b, *byte_strides, row_bytes // esize, rows, 1, 1, row_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _tma_maps(dtype, parts: tuple):
+    """One kernel's four maps, ``parts`` a tuple of ``(shape, strides,
+    rows)``, as the 48 values of its C argument.  Cached: every layer of a
+    model passes the same shapes and strides, so the geometry is worked out
+    once and not on every call of a training step."""
+    return (ctypes.c_longlong * 48)(
+        *(x for shape, strides, rows in parts
+          for x in _tma_geometry(shape, strides, dtype, rows)))
 
 
 def _check_operand(t: torch.Tensor, what: str, dtype, device,
@@ -356,7 +406,9 @@ class _BwdLaunch:
     """The argument list of the two backward kernels for one call, with
     their outputs: ``dq`` with q's strides, ``dk`` and ``dv`` with k's and
     v's, and ``delta`` (fp32 ``[b, h, sq]``, written by dq, read by
-    dk/dv).  :meth:`launch` runs one kernel; dq must run first."""
+    dk/dv); for 16-bit inputs each kernel's four TMA maps
+    (:func:`_tma_maps`).  :meth:`launch` runs one kernel; dq must run
+    first."""
 
     def __init__(self, q, k, v, o, lse, do, qseg, kseg, causal, scale,
                  dropout_rate, dropout_seed):
@@ -377,24 +429,41 @@ class _BwdLaunch:
         self.dq, self.dk, self.dv = (_empty_like_strided(t) for t in (q, k, v))
         self.delta = torch.empty((b, h, sq), dtype=torch.float32,
                                  device=q.device)
+        # the 16-bit kernels read q, k, v and do through TMA maps, which
+        # step over no dimension of stride 0: a broadcast one is copied
+        if q.dtype != torch.float32:
+            q, k, v, do = (t if all(st or n == 1 for n, st in
+                                    zip(t.shape, t.stride())) else t.contiguous()
+                           for t in (q, k, v, do))
         # the tensors behind the raw pointers below stay alive with the call
         self._keep = (q, k, v, o, lse, do, qseg, kseg)
         strides = [st for t in (q, k, v, o, do, self.dq, self.dk, self.dv)
                    for st in t.stride()[:3]]
         self._strides = (ctypes.c_longlong * 24)(*strides)
+        self._maps = {FLASH_ATTENTION_DQ.name: None, FLASH_ATTENTION_DKV.name: None}
+        if q.dtype != torch.float32:
+            part = lambda t, rows: (tuple(t.shape), t.stride(), rows)
+            self._maps[FLASH_ATTENTION_DQ.name] = _tma_maps(q.dtype, (
+                part(q, _BLOCK_ROWS), part(do, _BLOCK_ROWS),
+                part(k, _TILE_ROWS), part(v, _TILE_ROWS)))
+            self._maps[FLASH_ATTENTION_DKV.name] = _tma_maps(q.dtype, (
+                part(k, _BLOCK_ROWS), part(v, _BLOCK_ROWS),
+                part(q, _TILE_ROWS), part(do, _TILE_ROWS)))
         seed = 0 if dropout_seed is None else _seed_bits(dropout_seed)
         ptr = lambda t: None if t is None else t.data_ptr()
-        self._args = (
+        self._head = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), self.delta.data_ptr(), ptr(qseg),
             ptr(kseg), self.dq.data_ptr(), self.dk.data_ptr(),
-            self.dv.data_ptr(), b, h, hk, sq, sk, d, self._strides,
+            self.dv.data_ptr(), b, h, hk, sq, sk, d, self._strides)
+        self._tail = (
             float(scale), int(causal), int(dropout_rate > 0.0), seed,
             _threshold(dropout_rate), float(1.0 / (1.0 - dropout_rate)),
             _DTYPE_CODES[q.dtype])
 
     def launch(self, kernel: Kernel) -> None:
-        status = _bwd_symbol(kernel)(*self._args,
+        status = _bwd_symbol(kernel)(*self._head, self._maps[kernel.name],
+                                     *self._tail,
                                      torch.cuda.current_stream().cuda_stream)
         _build.check(status, kernel.name)
         kernel.launches += 1

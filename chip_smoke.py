@@ -29,6 +29,11 @@ ends the run with a non-zero exit and no result line:
    fp32 peak, and for the pair-bias kernels their exponentials over the
    SFU rate: the largest).  The pair-bias kernels and the materialized
    route are also timed at the two routing shapes, N_res 256 and 1024.
+   The flash backward is also checked at GPT-2-large's flagship shape and
+   for the same bits on a repeated call at the main shape, timed at both
+   models' shapes with each kernel's TFLOP/s and the host side of a call,
+   and its bf16/fp16 kernels' SASS must hold ``HGMMA`` and ``UTMALDG`` and
+   no ``HMMA`` (``cuobjdump``), with ptxas's registers and spills reported.
    The head backward is also checked at GPT-2-large's head shape, in fp16
    at the main shape, off every tile edge and for the same bits on a
    repeated call, and timed at both models' head shapes with the dH call
@@ -335,6 +340,9 @@ def time_layer_norm(device):
 _DTYPES = ("float32", "bfloat16", "float16")
 # the main path's shapes: llama-1b, b 4, s 2048 (8,192 tokens)
 FLASH_MAIN = dict(b=4, h=32, hk=8, s=2048, d=64)
+# GPT-2-large's flagship attention (bench.py:81-84): b 8, 20 heads of 64,
+# s 1024, no GQA
+FLASH_GPT = dict(b=8, h=20, hk=20, s=1024, d=64)
 HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
 # GPT-2-large's head at b 8, s 1024 (bench.py:81-84): vocab 50257, Vp 50304
 HEAD_GPT = dict(t=8192, hid=1280, vocab=50257)
@@ -874,9 +882,10 @@ def check_flash_attention_bwd(device) -> dict:
     """The dq and dk/dv kernels on the card against the plain backward on
     the same (q, k, v, o, lse, do), over the forward check's variants
     (dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
-    ragged lengths, GQA, segment ids with fully-masked rows, dropout) and
-    the main path's shape, with q, k, v and do in the model's layout;
-    returns the main shape's errors."""
+    ragged lengths, GQA, segment ids with fully-masked rows, dropout), the
+    main path's shape and GPT-2-large's flagship shape, with q, k, v and do
+    in the model's layout, and a repeated call at the main shape equal bit
+    for bit; returns the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import flash_attention as fa
 
@@ -896,9 +905,12 @@ def check_flash_attention_bwd(device) -> dict:
                       sq=100, sk=260, seg="packed", rate=0.1, seed=99))
     cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
                       sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
+                      sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
     g = torch.Generator(device=device).manual_seed(22)
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     main = {}
+    repeat_equal = None
     with torch.no_grad():
         for case in cases:
             q, k, v, seg = _flash_inputs(case, g, device)
@@ -937,9 +949,20 @@ def check_flash_attention_bwd(device) -> dict:
                 main = {f"{n}_max_abs_err": float((a.float() - e.float()).abs().max())
                         for n, a, e in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
                 main["tol_ratio"] = r
+                # each output tile is one block's, summed in one order
+                again = fa.flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=case["causal"],
+                    segment_ids=seg, dropout_rate=rate, dropout_seed=seed)
+                repeat_equal = all(torch.equal(a, b) for a, b in
+                                   zip((dq, dk, dv), again))
+                if not repeat_equal:
+                    raise AssertionError("flash attention backward: a repeated "
+                                         "call at the main shape differs")
+                del again
             del q, k, v, o, lse, do, dq, dk, dv, ref, tols
     out = dict(kernel="flash_attention_dq + flash_attention_dkv",
                cases=len(cases), worst_tol_ratio=worst, main_shape=main,
+               main_repeat_bit_equal=repeat_equal,
                tolerance="dq within scale (u |ds| |k| + 2^-16 A |k| + "
                          "floor sk max|k|), dk likewise with q, dv within "
                          "u |p_kept|^T |do| + 2^-16 P^T |do| + floor sq "
@@ -950,7 +973,8 @@ def check_flash_attention_bwd(device) -> dict:
                          "|do||v| + |delta|) and P = |p_kept| (1 + scale "
                          "|q||k|) the error scales of ds and p_kept, floor "
                          "the dtype's half least subnormal spacing; GQA "
-                         "bounds summed over the group")
+                         "bounds summed over the group; a repeated call at "
+                         "the main shape equal bit for bit")
     log("phase2-check", **out)
     return out
 
@@ -1139,16 +1163,16 @@ def time_layer_norm_bwd(device) -> dict:
     return row
 
 
-def time_flash_attention_bwd(device) -> dict:
-    """dq and dk/dv each, the plain backward and SDPA's backward at the
-    main path's shape (causal, bf16, [4, 32, 2048, 64] over 8 kv heads, in
-    the model's layout); returns ``{"dq": row, "dkv": row}``."""
+def _time_flash_bwd_shape(shape: dict, seed: int, device) -> dict:
+    """dq and dk/dv each, the plain backward and SDPA's backward at one
+    shape (causal, bf16, in the model's layout); returns ``{"dq": row,
+    "dkv": row}``, each row with its TFLOP/s and host-side times."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
 
-    b, h, hk, s, d = (FLASH_MAIN[k] for k in ("b", "h", "hk", "s", "d"))
-    g = torch.Generator(device=device).manual_seed(25)
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    g = torch.Generator(device=device).manual_seed(seed)
     q, k, v, do = (torch.randn(s, b, n, d, generator=g, device=device)
                    .to(torch.bfloat16).permute(1, 2, 0, 3) for n in (h, hk, hk, h))
     scale = 1.0 / d ** 0.5
@@ -1170,10 +1194,25 @@ def time_flash_attention_bwd(device) -> dict:
                            ("dkv", fa.FLASH_ATTENTION_DKV)):
             rows[name]["kernel_again"] = device_ms(
                 lambda kern=kern: call.launch(kern), iters=20)
+        # the host side alone: the wall of 20 calls before the card ends
+        # them (their device time exceeds it, so no call waits on the queue)
+        host_side = {}
+        for what, fn in (
+                ("call", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal=True)),
+                ("dq_launch", lambda: call.launch(fa.FLASH_ATTENTION_DQ)),
+                ("dkv_launch", lambda: call.launch(fa.FLASH_ATTENTION_DKV))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host_side[what + "_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+            torch.cuda.synchronize()
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     library = _fwd_bwd_minus_fwd(
         lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                               enable_gqa=True),
+                                               enable_gqa=hk != h),
         ((qr, kr, vr), do))
     pairs = s * (s + 1) // 2
     prod = 2 * b * h * pairs * d              # one causal product
@@ -1189,14 +1228,128 @@ def time_flash_attention_bwd(device) -> dict:
         dev = dict(kernel=r["kernel"], kernel_again=r["kernel_again"],
                    plain=dev_plain, library=library)
         row = _row(dev, r["host"], nprod * prod, nbytes, 989e12)
-        row.update(shape=dict(FLASH_MAIN, causal=True, dtype="bfloat16"),
+        row.update(shape=dict(shape, causal=True, dtype="bfloat16"),
                    flops=nprod * prod, bytes=nbytes,
+                   tflops=nprod * prod / row["ms"] / 1e9,
+                   host_side=host_side,
                    plain_and_library_compute="dq, dk and dv together",
                    library_call="F.scaled_dot_product_attention(is_causal, "
                                 "enable_gqa) forward + backward minus forward "
                                 "(CUDA graphs of 10)")
-        log("phase2-time", kernel=f"flash_attention_{name}", **row)
         out[name] = row
+    out["sum_ms"] = out["dq"]["ms"] + out["dkv"]["ms"]
+    out["library_tflops"] = 5 * prod / library / 1e9
+    return out
+
+
+def time_flash_attention_bwd(device) -> dict:
+    """dq and dk/dv at the main path's shape (causal, bf16, [4, 32, 2048,
+    64] over 8 kv heads) and at GPT-2-large's flagship shape ([8, 20, 1024,
+    64]), in the model's layout, with SDPA's backward beside each; returns
+    the main shape's ``{"dq": row, "dkv": row}`` with the GPT shape's under
+    ``"gpt2_large"``."""
+    out = _time_flash_bwd_shape(FLASH_MAIN, 25, device)
+    out["gpt2_large"] = _time_flash_bwd_shape(FLASH_GPT, 26, device)
+    for shape, rows in (("llama_1b", out), ("gpt2_large", out["gpt2_large"])):
+        for name in ("dq", "dkv"):
+            log("phase2-time", kernel=f"flash_attention_{name}", at=shape,
+                **rows[name])
+    return out
+
+
+def start_flash_bwd_ptxas():
+    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_attention_bwd.cu`` (into
+    ``build/``, beside the libraries' build); :func:`flash_bwd_registers`
+    reads it."""
+    from apex_tpu_torch.ops import _build
+
+    out = os.path.join(ROOT, "build", "flash_bwd_ptxas.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+           str(_build.CSRC / "flash_attention_bwd.cu")]
+    log_file = open(out + ".log", "w+")
+    return subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                            text=True), log_file
+
+
+def _flash_kernel_name(mangled: str):
+    """``(kernel, dtype, d)`` of a mangled backward kernel name, or None."""
+    import re
+
+    m = re.search(r"(flash_(?:dq|dkv)_(?:wgmma|f32))", mangled)
+    d = re.search(r"Li(32|64|128)E", mangled)
+    if not m or not d:
+        return None
+    dtype = ("bfloat16" if "__nv_bfloat16" in mangled
+             else "float16" if "__half" in mangled else "float32")
+    return m.group(1), dtype, int(d.group(1))
+
+
+def flash_bwd_registers(proc) -> dict:
+    """Registers and spills of each backward kernel (ptxas, from
+    :func:`start_flash_bwd_ptxas`) and its ``HGMMA`` / ``UTMALDG`` / ``HMMA``
+    instruction counts (``cuobjdump -sass`` of the built library).  Fails
+    unless every bf16 and fp16 dq and dk/dv kernel runs on wgmma fed by TMA
+    and no mma.sync."""
+    import re
+    from apex_tpu_torch.ops import _build
+
+    proc, log_file = proc
+    proc.wait()
+    log_file.seek(0)
+    log_text = log_file.read()
+    log_file.close()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+    kernels, cur = {}, None
+    for line in log_text.splitlines():
+        if "serialized" in line:
+            # ptxas's C7512 note: the function's wgmma run one at a time
+            m = re.search(r"function '([^']+)'", line)
+            name = m and _flash_kernel_name(m.group(1))
+            if name:
+                kernels.setdefault(name, {})["wgmma_serialized"] = True
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = _flash_kernel_name(m.group(1))
+            if cur is not None:
+                kernels.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            kernels[cur].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernels[cur]["registers"] = int(m.group(1))
+    lib = _build._target("flash_attention_bwd.cu")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        name = _flash_kernel_name(chunk.split("\n", 1)[0])
+        if name is None:
+            continue
+        kernels.setdefault(name, {}).update(
+            hgmma=chunk.count("HGMMA"), utmaldg=chunk.count("UTMALDG"),
+            hmma=chunk.count("HMMA"))
+    rows = {f"{k}/{dt}/d{d}": v for (k, dt, d), v in sorted(kernels.items())}
+    for kern in ("flash_dq_wgmma", "flash_dkv_wgmma"):
+        for dt in ("bfloat16", "float16"):
+            for d in (32, 64, 128):
+                r = rows.get(f"{kern}/{dt}/d{d}", {})
+                if not (r.get("hgmma") and r.get("utmaldg")) or r.get("hmma"):
+                    raise AssertionError(
+                        f"{kern} {dt} d {d}: expected HGMMA and UTMALDG and no "
+                        f"HMMA in its SASS, got {r}")
+    out = dict(kernels=rows, registers_note="ptxas's registers a thread and "
+               "spill bytes; the 16-bit kernels run 288 threads (two consumer "
+               "warpgroups, one producer warp); wgmma_serialized: ptxas's "
+               "C7512 note that the function's wgmma run one at a time")
+    log("phase2-flash-bwd-registers", **out)
     return out
 
 
@@ -3810,6 +3963,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     smi = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
+    ptxas = start_flash_bwd_ptxas()
     libs = _build.build_all(sorted({k.source for k in _dispatch.KERNELS}))
     build_s = time.perf_counter() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3833,6 +3987,7 @@ def main() -> int:
     head_bwd_check = check_lm_head_bwd(device)
     norm_bwd_time = time_layer_norm_bwd(device)
     flash_bwd_time = time_flash_attention_bwd(device)
+    flash_bwd_regs = flash_bwd_registers(ptxas)
     head_bwd_time = time_lm_head_bwd(device)
     softmax_check = check_softmax(device)
     lamb_check = check_lamb_phase1(device)
@@ -3888,9 +4043,11 @@ def main() -> int:
         entry(fa.FLASH_ATTENTION_FWD, flash_check["main_shape"]["o_max_abs_err"],
               flash_time, shape=flash_time["shape"]),
         entry(fa.FLASH_ATTENTION_DQ, fb["dq_max_abs_err"], flash_bwd_time["dq"],
-              shape=flash_bwd_time["dq"]["shape"]),
+              shape=flash_bwd_time["dq"]["shape"],
+              tflops=flash_bwd_time["dq"]["tflops"]),
         entry(fa.FLASH_ATTENTION_DKV, max(fb["dk_max_abs_err"], fb["dv_max_abs_err"]),
-              flash_bwd_time["dkv"], shape=flash_bwd_time["dkv"]["shape"]),
+              flash_bwd_time["dkv"], shape=flash_bwd_time["dkv"]["shape"],
+              tflops=flash_bwd_time["dkv"]["tflops"]),
         entry(lh.FUSED_LM_HEAD_FWD, head_check["main_shape"]["loss_max_abs_err"],
               head_time, shape=head_time["shape"]),
         entry(lh.FUSED_LM_HEAD_DH, hb["dh_max_abs_err"], head_bwd_time["dh"],
@@ -3944,6 +4101,7 @@ def main() -> int:
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
                                 lamb_time, packed_time, pair_bias_time],
+                  flash_bwd_registers=flash_bwd_regs,
                   openfold_routes=routes_time,
                   openfold_reference=openfold_reference,
                   amp_reference=amp_reference,

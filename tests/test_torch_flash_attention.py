@@ -345,3 +345,75 @@ def test_backward_kernels_match_plain_version_on_card():
         ref = tfa._plain_backward(q, k, v, o, lse, do, causal=True)
     for a, b in zip(ours, ref):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' TMA map geometry (host side, pure Python)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tma_geometry_of_the_models_layout(d):
+    """The model hands the kernels ``[s, b, heads, d]`` viewed as ``[b,
+    heads, s, d]``: the map's dims run (d, s, heads, b) and its byte
+    strides follow the view, whatever their order; a box row is one
+    swizzle span (64 columns, 128 bytes; 32 columns, 64 bytes at d 32)."""
+    s, b, h = 40, 3, 4
+    x = torch.empty(s, b, h, d, dtype=torch.bfloat16).permute(1, 2, 0, 3)
+    geo = tfa._tma_geometry(x.shape, x.stride(), x.dtype, tfa._TILE_ROWS)
+    cols = min(d, 64)
+    assert geo == (d, s, h, b, 2 * b * h * d, 2 * d, 2 * h * d,
+                   cols, tfa._TILE_ROWS, 1, 1, 2 * cols)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tma_geometry_of_a_contiguous_tensor(d, dtype):
+    b, h, s = 2, 3, 100
+    x = torch.empty(b, h, s, d, dtype=dtype)
+    geo = tfa._tma_geometry(x.shape, x.stride(), dtype, tfa._BLOCK_ROWS)
+    assert geo[:4] == (d, s, h, b)
+    assert geo[4:7] == (2 * d, 2 * s * d, 2 * h * s * d)
+    assert geo[7:] == (min(d, 64), tfa._BLOCK_ROWS, 1, 1, 2 * min(d, 64))
+
+
+def test_tma_geometry_packs_the_stride_of_a_unit_dimension():
+    """TMA steps over no dimension of extent 1, so its stride (any value a
+    view may carry) becomes the packed one."""
+    x = torch.empty(1, 1, 1, 64, dtype=torch.float16)
+    x = x.as_strided(x.shape, (7, 5, 3, 1))
+    geo = tfa._tma_geometry(x.shape, x.stride(), x.dtype, 64)
+    assert geo[4:7] == (128, 128, 128)
+
+
+@pytest.mark.parametrize("strides", [(4 * 68 * 40, 68 * 40, 68, 1),
+                                     (4 * 64 * 40, 64 * 40, 0, 1),
+                                     (4 * 64 * 40 + 4, 64 * 40, 64, 1)])
+def test_tma_geometry_refuses_strides_off_16_bytes(strides):
+    """A stride that is not a positive multiple of 16 bytes (a row of 68
+    bf16 values, a broadcast row, a batch stride off by 8 bytes) raises."""
+    with pytest.raises(ValueError, match="16"):
+        tfa._tma_geometry((2, 4, 40, 64), strides, torch.bfloat16, 64)
+
+
+def test_tma_geometry_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError):
+        tfa._tma_geometry((1, 1, 8, 64), (512, 512, 64, 1), torch.float32, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._tma_geometry((1, 1, 8, 48), (384, 384, 48, 1), torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="last stride"):
+        tfa._tma_geometry((1, 1, 8, 64), (1024, 1024, 128, 2), torch.bfloat16, 64)
+
+
+def test_tma_maps_are_the_geometries_and_cached():
+    """A kernel's C argument is its four operands' geometries in order,
+    worked out once for each shape and strides."""
+    q = torch.empty(64, 2, 4, 64, dtype=torch.bfloat16).permute(1, 2, 0, 3)
+    k = torch.empty(2, 2, 64, 64, dtype=torch.bfloat16)
+    parts = tuple((tuple(t.shape), t.stride(), rows)
+                  for t, rows in ((q, 128), (q, 128), (k, 64), (k, 64)))
+    maps = tfa._tma_maps(torch.bfloat16, parts)
+    expect = [x for shape, strides, rows in parts
+              for x in tfa._tma_geometry(shape, strides, torch.bfloat16, rows)]
+    assert list(maps) == expect and len(expect) == 48
+    assert tfa._tma_maps(torch.bfloat16, parts) is maps
