@@ -185,31 +185,10 @@ struct BwdSmem {
   static constexpr int kVecs = kRing + kStages * kStage;      // [3][kStages][kTileRows] 32-bit
   static constexpr int kRowVec = kVecs + 3 * kStages * kTileRows * 4;   // [kBlockRows] fp32
   static constexpr int kBars = kRowVec + kBlockRows * 4;
-  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kBytes = 1024 + kBars + FlashRing<kStages>::kBytes;
 };
 
-struct Ring {
-  uint32_t bars;
-  __device__ uint32_t once() const { return bars; }
-  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (1 + kStages + s); }
-};
-
-// `once` completes on one arrival and its bytes; `full` on the producer
-// warp's 32 lanes (lane 0's with the stage's bytes: the other lanes store
-// the stage's vectors before they arrive) and `empty` on one arrival from
-// each consumer warpgroup
-__device__ __forceinline__ void init_ring(const Ring& r) {
-  if (threadIdx.x == 0) {
-    mbar_init(r.once(), 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(r.full(s), 32);
-      mbar_init(r.empty(s), 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
+using Ring = FlashRing<kStages>;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)

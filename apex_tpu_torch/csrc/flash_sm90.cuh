@@ -21,8 +21,15 @@
 // holds rows 16 w + lane / 4 and 8 more, columns 8 i + 2 (lane % 4) and
 // the next) is the m16n8k16 A fragment's, k16 step by k16 step.
 //
-// Included by flash_attention_bwd.cu; _build.py hashes every .cuh here into
-// each library's name, so an edit here rebuilds them all.
+// The kernels' block: two warpgroups of 64 rows each read the tiles one
+// warp streams through a ring of full/empty mbarriers (FlashRing): a
+// producer warp of its own in the backward, the first warp of the first
+// warpgroup in the forward.
+//
+// Included by flash_attention_fwd.cu (the forward: s = q k^T by SS, o +=
+// p v by RS with v read MN-major) and flash_attention_bwd.cu (dq, and dk
+// with dv); _build.py hashes every .cuh here into each library's name, so
+// an edit here rebuilds them all.
 
 #pragma once
 
@@ -92,6 +99,34 @@ template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int box_rows, int kk) {
   constexpr int RB = FlashTile<D>::kRowBytes;
   return flash_desc<D>(tile + kk * 16 * RB, box_rows * RB, 8 * RB);
+}
+
+// The barriers of a block's ring of S streamed stages: `once` (the tiles
+// loaded once), then full[S] and empty[S].  `once` completes on one
+// arrival and its bytes; `full` on the loading warp's 32 lanes (lane 0's
+// with the stage's bytes: the other lanes store the stage's vectors
+// before they arrive) and `empty` on one arrival from each of the two
+// warpgroups that read the stage.
+template <int S>
+struct FlashRing {
+  static constexpr int kBytes = (1 + 2 * S) * 8;
+  uint32_t bars;
+  __device__ uint32_t once() const { return bars; }
+  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (1 + S + s); }
+};
+
+template <int S>
+__device__ __forceinline__ void init_ring(const FlashRing<S>& r) {
+  if (threadIdx.x == 0) {
+    mbar_init(r.once(), 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(r.full(s), 32);
+      mbar_init(r.empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
 // keeps the compiler from moving accumulator reads or writes across it

@@ -202,6 +202,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // padded columns [V, vp) get zeros
 template <typename T>
 struct DlogStore {
+  static constexpr bool kStores = true;
   T* out;
   int64_t rows;
   int cols;                 // vp
@@ -240,6 +241,7 @@ struct DlogStore {
 // a product's epilogue: the tile rounded to T, into C [rows, cols]
 template <typename T>
 struct TileStore {
+  static constexpr bool kStores = true;
   T* out;
   int64_t rows;
   int cols;

@@ -15,35 +15,50 @@
 // labels and output and 32 + 131 MB of H and E, so the tensor-core rate
 // (989 TFLOP/s in bf16) sets the least time: about 1.09 ms.
 //
-// Design for that bound.  The vocab is split across blocks so that the grid
-// fills the 132 SMs in several waves: block (i, s) owns 128 tokens and one
-// chunk of the vocab (a multiple of 128 columns, chosen by the caller; at
-// the main shape 64 x 32 blocks, about eight waves of two blocks an SM, so
-// the last wave's idle SMs cost little).  It loops over the
-// chunk's 128-column vocab tiles, and for each over h in steps of 64: the
-// H and E tiles stream through a 3-stage cp.async ring in shared memory, and
-// 4 warps (2 x 2, each 64 tokens x 64 columns) run mma.sync m16n8k16 on bf16
-// or fp16 operands with fp32 accumulation, so the logits tile lives only in
-// registers.  When a vocab tile is complete, each lane folds its logits into
-// a running (max, sum of exp, target) per row in registers (the vocab tail
-// past V is masked there), and the tile's registers start over.  At the end
-// the lanes and warps of a row merge their triples, and the block writes one
-// partial (m, l, t) per token for its chunk.  A second pass merges the
-// chunks of each token: lse = M + log(sum l exp(m - M)), loss = lse - sum t.
-// The partials are 12 bytes per token per chunk, in a workspace the caller
-// allocates.  fp32 inputs take a separate CUDA-core kernel in full fp32
-// (never TF32), with the same partials and the same second pass.
+// Design for that bound.  The logits product is wgmma_sm90.cuh's GEMM
+// mainloop, the one the head backward runs its logits through: H and E
+// both K-major, TMA into a 4-stage ring of 128-byte-swizzled stages, one
+// producer warp, two consumer warpgroups of wgmma m64n256k16 with fp32
+// accumulators in registers, one 128 x 256 tile of the logits a block.
+// Its epilogue (PartialsStore) never stores the tile: each thread folds
+// its two rows' 64 columns into a (max, sum of exp, target) triple per row
+// (2^x in log2 units on the hardware exp2), the four lanes of a row merge
+// theirs with quad shuffles, and one lane writes the row's triple for this
+// vocab tile to a workspace ws [3, ceil(V / 256), T] (12 bytes a token and
+// tile: 12.3 MB at the main shape, 19.4 MB at GPT-2-large's V 50257) that
+// the caller allocates.  The two consumer warpgroups own different rows,
+// so no merge crosses warpgroups.  A second pass merges each token's tiles:
+// lse = M + log(sum l exp(m - M)), loss = lse - sum t; a block takes 32
+// tokens, eight warps over the tiles, and merges the eight partials in
+// shared memory, in one order, so a call gives the same bits every time.
+// fp32 inputs take a separate CUDA-core kernel in full fp32 (never TF32),
+// writing the same partials over the same 256-column tiles for the same
+// second pass.
+//
+// What bit, and what the design does about it:
+// - The ragged last vocab tile: TMA fills E's rows past V with zeros, whose
+//   logits read 0 (GPT-2-large's V = 50257 leaves 175 such columns).  On
+//   that tile alone the epilogue masks columns >= V out of the max and the
+//   sum, and a label matches a column only inside [0, V).
+// - The mainloop's store of the tile to C: the epilogue's compile-time
+//   kStores = false removes it, and the two barriers around it, from this
+//   instantiation; the head backward's epilogues keep theirs.
+// - The merge pass: one thread a token over ceil(V / 256) tiles (125 at the
+//   main shape) would loop on 32 blocks; eight warps a token group split
+//   the loop, and the eight partials merge in shared memory.
 //
 // One call of the C entry point launches the tile kernel and its merge pass.
 //
 // C interface (loaded with ctypes): apex_fused_lm_head_fwd returns
-// cudaGetLastError() after the launches, 0 on success.
+// cudaGetLastError() after the launches, 0 on success, and
+// cudaErrorInvalidValue for a shape it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -69,183 +84,93 @@ __device__ __forceinline__ void merge(float& m, float& l, float& t, float m2, fl
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores
+// bf16 / fp16: the logits on wgmma_sm90.cuh, reduced in the epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
-constexpr int kWarpsN = 2;                 // 2 x 2 warps, each 64 tokens x 64 columns
-constexpr int kThreads = 32 * 2 * kWarpsN;
-constexpr int kNT = kBN / kWarpsN / 8;     // n8 tiles a warp
-constexpr int kSK = kBK + 8;   // shared row stride (elements): conflict-free ldmatrix
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lm_head_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Hs = reinterpret_cast<T*>(smem_raw);          // [kStages][kBM][kSK]
-  T* Es = Hs + kStages * kBM * kSK;                // [kStages][kBN][kSK]
+// The logits tile's epilogue: no store of C; each row's (max, sum of exp,
+// target) over the tile's columns inside [0, V), into ws [3, tiles, rows]
+// at the tile's index col0 / kGemmBN.
+struct PartialsStore {
+  static constexpr bool kStores = false;
+  float* ws;
+  int64_t rows;             // T
+  int V;
+  int tiles;                // ceil(V / kGemmBN)
+  const int* labels;
 
-  const int64_t t0 = (int64_t)blockIdx.x * kBM;
-  const int split = blockIdx.y;
-  const int v_begin = split * a.chunk;
-  const int v_end = min(a.V, v_begin + a.chunk);
-  const int n_vt = (v_end - v_begin + kBN - 1) / kBN;
-  const int nk = (a.hid + kBK - 1) / kBK;
-  const int total = n_vt * nk;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int g = lane >> 2, tig = lane & 3;
-  const T* H = static_cast<const T*>(a.h);
-  const T* E = static_cast<const T*>(a.e);
-
-  auto load = [&](int it, int stage) {
-    const int v0 = v_begin + (it / nk) * kBN;
-    const int k0 = (it % nk) * kBK;
-    T* hs = Hs + stage * kBM * kSK;
-    T* es = Es + stage * kBN * kSK;
+  // element i of `acc` lies at row row0 + 16 (tid / 32) + (tid % 32) / 4 +
+  // 8 ((i / 2) % 2), column col0 + 8 (i / 4) + 2 (tid % 4) + i % 2
+  __device__ __forceinline__ void stage(float (&acc)[128], int64_t row0, int col0,
+                                        int tid) const {
+    const int lane = tid % 32;
+    const int c0 = col0 + 2 * (lane % 4);         // this lane's first column
+    // only the last tile reaches past V; there its zero-filled columns drop out
+    const bool ragged = col0 + kGemmBN > V;
 #pragma unroll
-    for (int i = 0; i < kBM * kBK / 8 / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-      const bool kin = k0 + c < a.hid;
-      const bool hin = kin && t0 + r < a.T;
-      cp_async16(hs + r * kSK + c, hin ? H + (t0 + r) * a.hid + k0 + c : H, hin);
-      const bool ein = kin && v0 + r < v_end;
-      cp_async16(es + r * kSK + c, ein ? E + (int64_t)(v0 + r) * a.hid + k0 + c : E, ein);
-    }
-  };
-
-  // this lane's 8 rows: row(r) = t0 + wm * 64 + (r >> 1) * 16 + g + (r & 1) * 8
-  int lab[8];
-  float m[8], l[8], t[8];
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = row0 + 16 * (tid / 32) + lane / 4 + 8 * half;
+      int lab = row < rows ? labels[row] : -1;
+      if (lab >= V) lab = -1;                     // matches no column, pad or not
+      float mx = -CUDART_INF_F, tgt = 0.f;
+      if (ragged) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int64_t row = t0 + wm * 64 + (r >> 1) * 16 + g + (r & 1) * 8;
-    lab[r] = row < a.T ? a.labels[row] : -1;
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-    t[r] = 0.f;
-  }
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load(s, s);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = it + kStages - 1;
-    if (nxt < total) load(nxt, nxt % kStages);
-    cp_async_commit();
-
-    const T* hs = Hs + (it % kStages) * kBM * kSK;
-    const T* es = Es + (it % kStages) * kBN * kSK;
-    const int mi = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], hs + (wm * 64 + mt * 16 + (mi & 1) * 8 + (lane & 7)) * kSK +
-                                kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, es + (wn * kNT * 8 + np * 16 + (mi >> 1) * 8 + (lane & 7)) * kSK +
-                            kk * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          MmaOp<T>::run(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          MmaOp<T>::run(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-
-    if (it % nk == nk - 1) {
-      // a vocab tile is complete: fold it into the rows' running triples
-      const int v0 = v_begin + (it / nk) * kBN + wn * kNT * 8;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int mt = r >> 1, half = r & 1;
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
+        for (int j = 0; j < kGemmBN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = v0 + nt * 8 + tig * 2 + e;
-            const float x = acc[mt][nt][half * 2 + e];
-            if (col < v_end) {
-              mx = fmaxf(mx, x);
-              if (col == lab[r]) t[r] += x;
-            }
+            const int col = c0 + 8 * j + e;
+            float& x = acc[4 * j + 2 * half + e];
+            x = col < V ? x : -CUDART_INF_F;
+            mx = fmaxf(mx, x);
+            tgt = col == lab ? x : tgt;
           }
-        if (mx != -CUDART_INF_F) {
-          const float mn = fmaxf(m[r], mx);
-          float sum = 0.f;
+      } else {
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
+        for (int j = 0; j < kGemmBN / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = v0 + nt * 8 + tig * 2 + e;
-              if (col < v_end) sum += expf(acc[mt][nt][half * 2 + e] - mn);
-            }
-          l[r] = l[r] * expf(m[r] - mn) + sum;
-          m[r] = mn;
-        }
+          for (int e = 0; e < 2; ++e) {
+            const float x = acc[4 * j + 2 * half + e];
+            mx = fmaxf(mx, x);
+            tgt = c0 + 8 * j + e == lab ? x : tgt;
+          }
       }
+      // sum of e^(x - mx) as 2^(x log2e - mx log2e); a lane with no column
+      // inside V (mx = -inf) sums zeros
+      const float shift = mx == -CUDART_INF_F ? 0.f : mx * kLog2e;
+      float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kGemmBN / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < kNT; ++j)
+        for (int e = 0; e < 2; ++e)
+          sum += fast_exp2(fmaf(acc[4 * j + 2 * half + e], kLog2e, -shift));
+      float m = mx, l = sum, t = tgt;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+      for (int x = 1; x <= 2; x <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, x);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l, x);
+        const float t2 = __shfl_xor_sync(0xffffffffu, t, x);
+        merge(m, l, t, m2, l2, t2);
+      }
+      if (lane % 4 == 0 && row < rows) {
+        const int64_t at = (int64_t)(col0 / kGemmBN) * rows + row;
+        ws[at] = m;
+        ws[(int64_t)tiles * rows + at] = l;
+        ws[2 * (int64_t)tiles * rows + at] = t;
+      }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is free: reuse it for the merge
+};
 
-  // merge the four lanes of a row, then the warps (wn) of a row
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], o);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[r], o);
-      const float t2 = __shfl_xor_sync(0xffffffffu, t[r], o);
-      merge(m[r], l[r], t[r], m2, l2, t2);
-    }
-  float* Sm = reinterpret_cast<float*>(smem_raw);  // [kWarpsN][kBM] each
-  float* Sl = Sm + kWarpsN * kBM;
-  float* St = Sl + kWarpsN * kBM;
-  if (tig == 0) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = wm * 64 + (r >> 1) * 16 + g + (r & 1) * 8;
-      Sm[wn * kBM + row] = m[r];
-      Sl[wn * kBM + row] = l[r];
-      St[wn * kBM + row] = t[r];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kBM && t0 + threadIdx.x < a.T) {
-    const int row = threadIdx.x;
-    float mm = Sm[row], ll = Sl[row], tt = St[row];
-    for (int w = 1; w < kWarpsN; ++w) merge(mm, ll, tt, Sm[w * kBM + row], Sl[w * kBM + row], St[w * kBM + row]);
-    const int64_t at = (int64_t)split * a.T + t0 + row;
-    a.ws[at] = mm;
-    a.ws[(int64_t)a.nsplit * a.T + at] = ll;
-    a.ws[2 * (int64_t)a.nsplit * a.T + at] = tt;
-  }
+// the logits H E^T over 128 x 256 tiles, each reduced to ws by PartialsStore
+template <typename T>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap h_k, e_k;
+  if (!tensor_map<T>(&h_k, a.h, a.T, a.hid, kGemmBM) ||
+      !tensor_map<T>(&e_k, a.e, a.V, a.hid, kGemmBN))
+    return cudaErrorInvalidValue;
+  const PartialsStore epi{a.ws, a.T, a.V, a.nsplit, a.labels};
+  return launch_wgmma_gemm<T, false, false>(h_k, e_k, a.T, a.V, a.hid, epi, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -344,66 +269,67 @@ lm_head_f32(const Args a) {
   }
 }
 
-// the second pass: merge each token's chunks
-__global__ void lm_head_merge(const float* __restrict__ ws, int nsplit, int64_t T,
-                              float* __restrict__ loss, float* __restrict__ lse) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= T) return;
+// ---------------------------------------------------------------------------
+// the second pass: merge each token's vocab tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeTokens = 32;   // tokens a block, one a lane
+constexpr int kMergeWays = 8;      // warps a block, each over every eighth tile
+
+__global__ void __launch_bounds__(kMergeTokens * kMergeWays)
+lm_head_merge(const float* __restrict__ ws, int nsplit, int64_t T, float* __restrict__ loss,
+              float* __restrict__ lse) {
+  __shared__ float part[3][kMergeWays][kMergeTokens];
+  const int x = threadIdx.x % kMergeTokens, y = threadIdx.x / kMergeTokens;
+  const int64_t i = (int64_t)blockIdx.x * kMergeTokens + x;
   float m = -CUDART_INF_F, l = 0.f, t = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const int64_t at = (int64_t)s * T + i;
-    merge(m, l, t, ws[at], ws[(int64_t)nsplit * T + at], ws[2 * (int64_t)nsplit * T + at]);
-  }
+  if (i < T)
+    for (int s = y; s < nsplit; s += kMergeWays) {
+      const int64_t at = (int64_t)s * T + i;
+      merge(m, l, t, ws[at], ws[(int64_t)nsplit * T + at], ws[2 * (int64_t)nsplit * T + at]);
+    }
+  part[0][y][x] = m;
+  part[1][y][x] = l;
+  part[2][y][x] = t;
+  __syncthreads();
+  if (y != 0 || i >= T) return;
+  for (int w = 1; w < kMergeWays; ++w) merge(m, l, t, part[0][w][x], part[1][w][x], part[2][w][x]);
   const float out = m + logf(l);
   lse[i] = out;
   loss[i] = out - t;
-}
-
-template <typename T>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)kStages * (kBM + kBN) * kSK * sizeof(T);
-  // the attribute is per device: set it on every launch, for the current one
-  const cudaError_t err = cudaFuncSetAttribute(
-      lm_head_mma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((a.T + kBM - 1) / kBM), a.nsplit);
-  lm_head_mma<T><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // h [T, hid] and e [V, hid] contiguous, of one dtype (0 fp32, 1 bf16, 2
 // fp16), 16-byte aligned, hid % 8 == 0; labels [T] int32; loss and lse [T]
-// fp32; ws [3, nsplit, T] fp32 scratch.  Split s covers vocab columns
-// [s * chunk, (s + 1) * chunk); chunk is a multiple of 128 and nsplit *
-// chunk >= V.  Launches on `stream` and returns cudaGetLastError().
+// fp32; ws [3, tiles, T] fp32 scratch, tiles = ceil(V / 256): tile s covers
+// vocab columns [256 s, 256 (s + 1)).  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int apex_fused_lm_head_fwd(const void* h, const void* e, const void* labels,
                                       void* loss, void* lse, void* ws, long long T,
-                                      int V, int hid, int chunk, int nsplit, int dtype,
-                                      void* stream) {
-  if (T < 1 || V < 1 || hid < 8 || hid % 8 || chunk < 128 || chunk % 128 || nsplit < 1 ||
-      (long long)chunk * (nsplit - 1) >= V || (long long)chunk * nsplit < V ||
-      nsplit > 65535)
+                                      int V, int hid, int tiles, int dtype, void* stream) {
+  if (T < 1 || T > 0x7fffffffLL || V < 1 || hid < 8 || hid % 8 ||
+      tiles != (V + kGemmBN - 1) / kGemmBN || tiles > 65535)
     return cudaErrorInvalidValue;
   const Args a{h, e, static_cast<const int*>(labels), static_cast<float*>(ws),
-               (int64_t)T, V, hid, chunk, nsplit};
+               (int64_t)T, V, hid, kGemmBN, tiles};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case kF32: {
-      const dim3 grid((unsigned)((T + kFM - 1) / kFM), nsplit);
+      const dim3 grid((unsigned)((T + kFM - 1) / kFM), tiles);
       lm_head_f32<<<grid, 256, 0, s>>>(a);
       err = cudaGetLastError();
       break;
     }
-    case kBF16: err = launch_mma<__nv_bfloat16>(a, s); break;
-    case kF16: err = launch_mma<__half>(a, s); break;
+    case kBF16: err = launch_wgmma<__nv_bfloat16>(a, s); break;
+    case kF16: err = launch_wgmma<__half>(a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  lm_head_merge<<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(ws), nsplit, (int64_t)T, static_cast<float*>(loss),
-      static_cast<float*>(lse));
+  lm_head_merge<<<(unsigned)((T + kMergeTokens - 1) / kMergeTokens), kMergeTokens * kMergeWays,
+                  0, s>>>(static_cast<const float*>(ws), tiles, (int64_t)T,
+                          static_cast<float*>(loss), static_cast<float*>(lse));
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 // swizzled shared-memory stages, completion on mbarriers, wgmma from shared
 // memory into fp32 registers, the output tile handed to an epilogue functor.
 // The fused LM-head backward runs its three products through it (the logits
-// H E^T, dH = dlog E, dE = dlog^T H).
+// H E^T with dlog as their epilogue, dH = dlog E, dE = dlog^T H), and the
+// forward its logits H E^T, whose epilogue reduces each row of the tile to
+// a (max, sum of exp, target) triple and stores no tile (kStores false).
 //
 // A block computes one 128 x 256 tile of C[M, N] = sum_k A[m, k] B[k, n] in
 // 16-bit operands (bf16 or fp16) with fp32 accumulation, k in steps of 64:
@@ -16,8 +18,8 @@
 //   thread, one commit group a stage, at most two groups in flight; a
 //   stage goes back to the producer (its `empty` barrier, one arrive per
 //   warpgroup) once the group that read it has completed; after the last
-//   stage the ring holds the output tile, so the epilogue stores whole
-//   rows in 16-byte pieces (a warp's stores straight from the wgmma
+//   stage the ring holds the output tile, so a storing epilogue writes
+//   whole rows in 16-byte pieces (a warp's stores straight from the wgmma
 //   fragments would each write 16 bytes into 8 rows).
 // Each output tile is owned by one block: no split-K, no atomics, so a call
 // gives the same bits every time.  Blocks walk the tiles in bands of
@@ -190,15 +192,17 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 // C[M, N] = A[M, K] B[K, N] tile by tile.  A is read K-major (kAMN false:
 // A[m, k] at row m, column k of map_a's matrix) or MN-major (kAMN: row k,
 // column m); B K-major (kBMN false: row n, column k) or MN-major (kBMN: row
-// k, column n).  The epilogue writes the tile to C [rows, cols] (the
-// Epilogue's `out`, `rows` and `cols`; cols a multiple of 8, the row
-// pitch): its stage() gets each consumer thread's 128 accumulators with the
-// first row of its warpgroup's 64, the tile's first column, the thread's
-// index in the warpgroup and the warpgroup's 64 rows of the staged tile in
-// shared memory, where it writes each value in the output type: element i
-// lies at row 16 (tid / 32) + (tid % 32) / 4 + 8 ((i / 2) % 2), column 8
-// (i / 4) + 2 (tid % 4) + i % 2.  The kernel then stores the tile's rows
-// and columns inside C in 16-byte pieces.
+// k, column n).  Each consumer thread hands its 128 accumulators to the
+// Epilogue's stage() with the first row of its warpgroup's 64, the tile's
+// first column and the thread's index in the warpgroup: element i lies at
+// row 16 (tid / 32) + (tid % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +
+// 2 (tid % 4) + i % 2.  An Epilogue with kStores true writes the tile to C
+// [rows, cols] (its `out`, `rows` and `cols`; cols a multiple of 8, the row
+// pitch): stage() also gets the warpgroup's 64 rows of the staged tile in
+// shared memory, where it writes each value in the output type, and the
+// kernel then stores the tile's rows and columns inside C in 16-byte
+// pieces.  One with kStores false reduces the tile in registers itself
+// (the head forward's PartialsStore): no barrier, no staging, no store.
 template <typename T, bool kAMN, bool kBMN, class Epilogue>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 wgmma_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
@@ -288,20 +292,26 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CU
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    // both consumer warpgroups are past their last wgmma and every load has
-    // landed: the ring holds the output tile now, rows kGemmTileLd apart
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    T* tile = reinterpret_cast<T*>(gemm_smem + (base - smem_u32(gemm_smem)));
-    epi.stage(acc, static_cast<int64_t>(m0) + 64 * c, n0, threadIdx.x % 128,
-              tile + 64 * c * kGemmTileLd);
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    // then to C in 16-byte pieces, a warp to 512 bytes of a row
-    for (int i = threadIdx.x - 128; i < kGemmBM * kGemmBN / 8; i += 256) {
-      const int r = i / (kGemmBN / 8), q = 8 * (i % (kGemmBN / 8));
-      const int64_t row = m0 + r;
-      if (row < epi.rows && n0 + q < epi.cols)
-        *reinterpret_cast<uint4*>(epi.out + row * epi.cols + n0 + q) =
-            *reinterpret_cast<const uint4*>(tile + r * kGemmTileLd + q);
+    if constexpr (Epilogue::kStores) {
+      // both consumer warpgroups are past their last wgmma and every load
+      // has landed: the ring holds the output tile now, rows kGemmTileLd
+      // apart
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      T* tile = reinterpret_cast<T*>(gemm_smem + (base - smem_u32(gemm_smem)));
+      epi.stage(acc, static_cast<int64_t>(m0) + 64 * c, n0, threadIdx.x % 128,
+                tile + 64 * c * kGemmTileLd);
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      // then to C in 16-byte pieces, a warp to 512 bytes of a row
+      for (int i = threadIdx.x - 128; i < kGemmBM * kGemmBN / 8; i += 256) {
+        const int r = i / (kGemmBN / 8), q = 8 * (i % (kGemmBN / 8));
+        const int64_t row = m0 + r;
+        if (row < epi.rows && n0 + q < epi.cols)
+          *reinterpret_cast<uint4*>(epi.out + row * epi.cols + n0 + q) =
+              *reinterpret_cast<const uint4*>(tile + r * kGemmTileLd + q);
+      }
+    } else {
+      // an epilogue that reduces the tile in registers: C is never written
+      epi.stage(acc, static_cast<int64_t>(m0) + 64 * c, n0, threadIdx.x % 128);
     }
   }
 }

@@ -5,11 +5,13 @@ Counterpart of ``apex_tpu/ops/flash_attention.py``.  On CUDA tensors the
 forward is the hand-written kernel ``csrc/flash_attention_fwd.cu`` (the
 Pallas ``_fwd_kernel``) and the backward the two kernels of
 ``csrc/flash_attention_bwd.cu`` (the Pallas ``_dq_kernel`` and
-``_dkv_kernel``); on CPU tensors they are :func:`_plain_forward` (whose
-``o`` is :func:`mha_reference`, the counterpart of the JAX
-``mha_reference``) and :func:`_plain_backward`, the math of the JAX
-``_pallas_bwd``, with :func:`_fmix32` / :func:`_hash_keep` carried over bit
-for bit.  All keep the JAX semantics:
+``_dkv_kernel``); for bf16 and fp16 all three read their operands through
+TMA maps (:func:`_tma_geometry`) and run their products on ``wgmma``
+(``csrc/flash_sm90.cuh``), fp32 on CUDA cores.  On CPU tensors they are
+:func:`_plain_forward` (whose ``o`` is :func:`mha_reference`, the
+counterpart of the JAX ``mha_reference``) and :func:`_plain_backward`, the
+math of the JAX ``_pallas_bwd``, with :func:`_fmix32` / :func:`_hash_keep`
+carried over bit for bit.  All keep the JAX semantics:
 
 - layout ``[b, h, sq, d]`` for q and ``[b, hk, sk, d]`` for k and v;
 - causal masking aligned to the last query (``col <= row + (sk - sq)``);
@@ -65,9 +67,9 @@ _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128)
-# the backward kernels' tiles (csrc/flash_attention_bwd.cu): a block owns
-# kBlockRows rows (queries for dq, keys for dk/dv), the other operands
-# stream in tiles of kTileRows rows
+# the 16-bit kernels' tiles (csrc/flash_attention_{fwd,bwd}.cu): a block
+# owns kBlockRows rows (queries for the forward and dq, keys for dk/dv),
+# the other operands stream in tiles of kTileRows rows
 _BLOCK_ROWS = 128
 _TILE_ROWS = 64
 
@@ -249,7 +251,7 @@ def _symbol():
                  FLASH_ATTENTION_FWD.symbol)
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([vp] * 7 + [i] * 6 + [ll] * 12
+        fn.argtypes = ([vp] * 7 + [i] * 6 + [ll] * 12 + [vp]
                        + [ctypes.c_float, i, i, ctypes.c_uint, ctypes.c_uint,
                           ctypes.c_float, i, vp])
         fn.restype = ctypes.c_int
@@ -269,7 +271,7 @@ def _bwd_symbol(kernel: Kernel):
 
 def _tma_geometry(shape, strides, dtype, rows: int) -> tuple:
     """The rank-4 TMA map of a 16-bit ``[b, heads, s, d]`` operand with
-    element ``strides``, read in boxes of ``rows`` rows, as the backward
+    element ``strides``, read in boxes of ``rows`` rows, as the 16-bit
     kernels' ``flash_tensor_map`` (``csrc/flash_sm90.cuh``) takes it: 12
     values, the dims ``(d, s, heads, b)``, the byte strides of s, heads and
     b, the box ``(columns, rows, 1, 1)`` and the swizzle span in bytes.  A
@@ -302,13 +304,28 @@ def _tma_geometry(shape, strides, dtype, rows: int) -> tuple:
 
 @functools.lru_cache(maxsize=64)
 def _tma_maps(dtype, parts: tuple):
-    """One kernel's four maps, ``parts`` a tuple of ``(shape, strides,
-    rows)``, as the 48 values of its C argument.  Cached: every layer of a
-    model passes the same shapes and strides, so the geometry is worked out
-    once and not on every call of a training step."""
-    return (ctypes.c_longlong * 48)(
+    """One kernel's maps, ``parts`` a tuple of ``(shape, strides, rows)``
+    (three for the forward, four for each backward kernel), as the 12
+    values a map of its C argument.  Cached: every layer of a model passes
+    the same shapes and strides, so the geometry is worked out once and not
+    on every call of a training step."""
+    return (ctypes.c_longlong * (12 * len(parts)))(
         *(x for shape, strides, rows in parts
           for x in _tma_geometry(shape, strides, dtype, rows)))
+
+
+def _tma_part(t: torch.Tensor, rows: int) -> tuple:
+    """``(shape, strides, rows)`` of one operand, as :func:`_tma_maps`
+    takes it."""
+    return tuple(t.shape), t.stride(), rows
+
+
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where it has a zero stride over more than
+    one element (a broadcast): TMA steps over no such dimension."""
+    if all(st or n == 1 for n, st in zip(t.shape, t.stride())):
+        return t
+    return t.contiguous()
 
 
 def _check_operand(t: torch.Tensor, what: str, dtype, device,
@@ -334,11 +351,10 @@ def _check_segments(seg, b: int, s: int, what: str, device, op: str):
 
 
 def _check_qkv(q, k, v, qseg, kseg, op: str):
-    """The checks the forward and backward kernels share; returns the
-    segment ids as contiguous int32 (or None)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{op}: q lies on {q.device}, the kernels take CUDA "
-                         f"tensors")
+    """The checks of dtype, shape and layout the forward and backward
+    kernels share (the device comes after, in :func:`_check_device`, so
+    that these raise on any host); returns the segment ids as contiguous
+    int32 (or None)."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{op}: dtype {q.dtype} is not fp32, bf16 or fp16")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
@@ -363,20 +379,36 @@ def _check_qkv(q, k, v, qseg, kseg, op: str):
         kseg = kseg.to(torch.int32).contiguous()
         _check_segments(qseg, b, sq, "q_segment_ids", q.device, op)
         _check_segments(kseg, b, sk, "kv_segment_ids", q.device, op)
+    return qseg, kseg
+
+
+def _check_device(q, op: str):
+    """Raise unless q lies on the current CUDA device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{op}: q lies on {q.device}, the kernels take CUDA "
+                         f"tensors")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"{op}: q lies on {q.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    return qseg, kseg
 
 
 def _kernel_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
                     dropout_rate: float, dropout_seed):
     """Launch the CUDA kernel; returns ``(o, lse)``.  ``o`` has q's
     strides, ``lse`` is a contiguous ``[b, h, sq]`` fp32 tensor.  Raises
-    on anything the kernel does not take."""
-    qseg, kseg = _check_qkv(q, k, v, qseg, kseg, "flash_attention_fwd")
+    on anything the kernel does not take: for bf16 and fp16, also on a
+    layout its TMA maps cannot read (:func:`_tma_geometry`), on any host."""
+    op = "flash_attention_fwd"
+    qseg, kseg = _check_qkv(q, k, v, qseg, kseg, op)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    maps = None
+    if q.dtype != torch.float32:
+        q, k, v = (_tma_readable(t) for t in (q, k, v))
+        maps = _tma_maps(q.dtype, (_tma_part(q, _BLOCK_ROWS),
+                                   _tma_part(k, _TILE_ROWS),
+                                   _tma_part(v, _TILE_ROWS)))
+    _check_device(q, op)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     seed = 0 if dropout_seed is None else _seed_bits(dropout_seed)
@@ -387,7 +419,7 @@ def _kernel_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
         None if kseg is None else kseg.data_ptr(),
         b, h, hk, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), int(causal), int(dropout_rate > 0.0), seed,
+        maps, float(scale), int(causal), int(dropout_rate > 0.0), seed,
         _threshold(dropout_rate), float(1.0 / (1.0 - dropout_rate)),
         _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream().cuda_stream)
@@ -426,29 +458,25 @@ class _BwdLaunch:
             raise ValueError(f"{op}: lse must be contiguous fp32 "
                              f"({b}, {h}, {sq}) on {q.device}, got "
                              f"{lse.dtype} {tuple(lse.shape)}")
+        self._maps = {FLASH_ATTENTION_DQ.name: None, FLASH_ATTENTION_DKV.name: None}
+        if q.dtype != torch.float32:
+            # the 16-bit kernels read q, k, v and do through TMA maps
+            q, k, v, do = (_tma_readable(t) for t in (q, k, v, do))
+            self._maps[FLASH_ATTENTION_DQ.name] = _tma_maps(q.dtype, (
+                _tma_part(q, _BLOCK_ROWS), _tma_part(do, _BLOCK_ROWS),
+                _tma_part(k, _TILE_ROWS), _tma_part(v, _TILE_ROWS)))
+            self._maps[FLASH_ATTENTION_DKV.name] = _tma_maps(q.dtype, (
+                _tma_part(k, _BLOCK_ROWS), _tma_part(v, _BLOCK_ROWS),
+                _tma_part(q, _TILE_ROWS), _tma_part(do, _TILE_ROWS)))
+        _check_device(q, op)
         self.dq, self.dk, self.dv = (_empty_like_strided(t) for t in (q, k, v))
         self.delta = torch.empty((b, h, sq), dtype=torch.float32,
                                  device=q.device)
-        # the 16-bit kernels read q, k, v and do through TMA maps, which
-        # step over no dimension of stride 0: a broadcast one is copied
-        if q.dtype != torch.float32:
-            q, k, v, do = (t if all(st or n == 1 for n, st in
-                                    zip(t.shape, t.stride())) else t.contiguous()
-                           for t in (q, k, v, do))
         # the tensors behind the raw pointers below stay alive with the call
         self._keep = (q, k, v, o, lse, do, qseg, kseg)
         strides = [st for t in (q, k, v, o, do, self.dq, self.dk, self.dv)
                    for st in t.stride()[:3]]
         self._strides = (ctypes.c_longlong * 24)(*strides)
-        self._maps = {FLASH_ATTENTION_DQ.name: None, FLASH_ATTENTION_DKV.name: None}
-        if q.dtype != torch.float32:
-            part = lambda t, rows: (tuple(t.shape), t.stride(), rows)
-            self._maps[FLASH_ATTENTION_DQ.name] = _tma_maps(q.dtype, (
-                part(q, _BLOCK_ROWS), part(do, _BLOCK_ROWS),
-                part(k, _TILE_ROWS), part(v, _TILE_ROWS)))
-            self._maps[FLASH_ATTENTION_DKV.name] = _tma_maps(q.dtype, (
-                part(k, _BLOCK_ROWS), part(v, _BLOCK_ROWS),
-                part(q, _TILE_ROWS), part(do, _TILE_ROWS)))
         seed = 0 if dropout_seed is None else _seed_bits(dropout_seed)
         ptr = lambda t: None if t is None else t.data_ptr()
         self._head = (

@@ -9,10 +9,13 @@ hand-written kernel ``csrc/fused_lm_head_fwd.cu`` (the Pallas
 ``csrc/fused_lm_head_bwd.cu`` (the Pallas ``_dh_kernel`` and
 ``_de_kernel``); on CPU tensors they are :func:`_plain_forward`, whose
 loss is the JAX ``lm_head_loss_reference``, and :func:`_plain_backward`.
-The backward kernels write ``dlog`` once in the input dtype (the logits
-are recomputed once, not in each of dH and dE as on the TPU); for bf16
-and fp16 its three products (the logits, dH, dE) run on the TMA and
-``wgmma`` mainloop of ``csrc/wgmma_sm90.cuh`` (see the sources' notes).
+For bf16 and fp16 the forward's logits product runs on the TMA and
+``wgmma`` mainloop of ``csrc/wgmma_sm90.cuh``, whose epilogue reduces each
+128 x 256 tile to per-token partials in a workspace (:func:`_workspace`)
+that a second pass merges.  The backward kernels write ``dlog`` once in
+the input dtype (the logits are recomputed once, not in each of dH and dE
+as on the TPU); for bf16 and fp16 its three products (the logits, dH, dE)
+run on the same mainloop (see the sources' notes).
 
 The label contract is the JAX one: a label outside ``[0, vocab)`` (an
 ignore id such as ``-100``, or ``vocab``) gets a target logit of exactly
@@ -33,7 +36,6 @@ not be uniform.  A call that records none runs the forward alone.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -58,7 +60,7 @@ FUSED_LM_HEAD_DE = register(Kernel(
     replaces="apex_tpu/ops/fused_lm_head.py:198 _de_kernel"))
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_TILE = 128          # the kernel's token and vocab tile (bf16/fp16 path)
+_VOCAB_TILE = 256    # the forward kernels' vocab tile: one workspace entry each
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +119,7 @@ def _symbol():
                  FUSED_LM_HEAD_FWD.symbol)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 6 + [ctypes.c_longlong] + [i] * 5 + [vp]
+        fn.argtypes = [vp] * 6 + [ctypes.c_longlong] + [i] * 4 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -132,15 +134,18 @@ def _bwd_symbol(kernel: Kernel):
     return fn
 
 
-def vocab_split(tokens: int, vocab: int, sms: int):
-    """``(chunk, nsplit)``: the vocab columns each block covers and the
-    number of chunks.  The grid aims at 16 blocks per SM, about eight
-    waves of the two that fit at once, so the last wave's idle SMs cost
-    little.  ``chunk`` is a multiple of the 128-column tile."""
-    tiles = math.ceil(vocab / _TILE)
-    want = max(1, min(tiles, math.ceil(16 * sms / math.ceil(tokens / _TILE))))
-    per = math.ceil(tiles / want)
-    return per * _TILE, math.ceil(tiles / per)
+def vocab_tiles(vocab: int) -> int:
+    """The forward kernels' vocab tiles: 256 columns each, the last one
+    ragged; tile ``s`` covers columns ``[256 s, 256 (s + 1))``."""
+    return -(-vocab // _VOCAB_TILE)
+
+
+def _workspace(tokens: int, vocab: int, device) -> torch.Tensor:
+    """The forward kernels' fp32 scratch ``[3, vocab_tiles, tokens]``: each
+    token's (max, sum of exp, target) over each vocab tile, which the
+    kernel's second pass merges (12.3 MB at 8,192 tokens and vocab 32000)."""
+    return torch.empty((3, vocab_tiles(vocab), tokens), dtype=torch.float32,
+                       device=device)
 
 
 def _check_operand(t: torch.Tensor, what: str, dtype, device,
@@ -199,14 +204,12 @@ def _kernel_forward(h2, e, labels):
     labels = _check_head(h2, e, labels, "fused_lm_head_fwd")
     t, hid = h2.shape
     vocab = e.shape[0]
-    sms = torch.cuda.get_device_properties(h2.device).multi_processor_count
-    chunk, nsplit = vocab_split(t, vocab, sms)
     loss = torch.empty((t,), dtype=torch.float32, device=h2.device)
     lse = torch.empty((t,), dtype=torch.float32, device=h2.device)
-    ws = torch.empty((3, nsplit, t), dtype=torch.float32, device=h2.device)
+    ws = _workspace(t, vocab, h2.device)
     status = _symbol()(
         h2.data_ptr(), e.data_ptr(), labels.data_ptr(), loss.data_ptr(),
-        lse.data_ptr(), ws.data_ptr(), t, vocab, hid, chunk, nsplit,
+        lse.data_ptr(), ws.data_ptr(), t, vocab, hid, ws.shape[1],
         _DTYPE_CODES[h2.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(status, "fused_lm_head_fwd")
     FUSED_LM_HEAD_FWD.launches += 1

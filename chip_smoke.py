@@ -29,11 +29,17 @@ ends the run with a non-zero exit and no result line:
    fp32 peak, and for the pair-bias kernels their exponentials over the
    SFU rate: the largest).  The pair-bias kernels and the materialized
    route are also timed at the two routing shapes, N_res 256 and 1024.
-   The flash backward is also checked at GPT-2-large's flagship shape and
-   for the same bits on a repeated call at the main shape, timed at both
-   models' shapes with each kernel's TFLOP/s and the host side of a call,
-   and its bf16/fp16 kernels' SASS must hold ``HGMMA`` and ``UTMALDG`` and
-   no ``HMMA`` (``cuobjdump``), with ptxas's registers and spills reported.
+   The flash forward and backward are also checked at GPT-2-large's
+   flagship shape and for the same bits on a repeated call at the main
+   shape, and timed at both models' shapes with each kernel's TFLOP/s and
+   the host side of a call.  The head forward is also checked at
+   GPT-2-large's head shape (V 50257) and for the same bits on a repeated
+   call, and timed at both head shapes with its TFLOP/s beside the library
+   call's and cuBLAS ``torch.matmul`` on the logits product (a yardstick
+   the port never calls).  The bf16/fp16 flash forward, dq, dk/dv and head
+   forward kernels' SASS must hold ``HGMMA`` and ``UTMALDG`` and no
+   ``HMMA``, and the flash and head forwards' libraries no ``HMMA`` at all
+   (``cuobjdump``), with ptxas's registers and spills reported.
    The head backward is also checked at GPT-2-large's head shape, in fp16
    at the main shape, off every tile edge and for the same bits on a
    repeated call, and timed at both models' head shapes with the dH call
@@ -404,8 +410,9 @@ def _flash_inputs(case, g, device):
 def check_flash_attention(device) -> dict:
     """The flash forward kernel on the card against its plain version over
     dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
-    ragged lengths, GQA, segment ids with fully-masked rows, dropout, and
-    the main path's shape; returns the main shape's errors."""
+    ragged lengths, GQA, segment ids with fully-masked rows, dropout, the
+    main path's shape and GPT-2-large's flagship shape, and a repeated call
+    at the main shape equal bit for bit; returns the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import flash_attention as fa
 
@@ -426,9 +433,12 @@ def check_flash_attention(device) -> dict:
                       sq=100, sk=260, seg="packed", rate=0.1, seed=99))
     cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
                       sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
+                      sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
     g = torch.Generator(device=device).manual_seed(11)
     worst_o = worst_lse = 0.0
     main = {}
+    repeat_equal = None
     with torch.inference_mode():
         for case in cases:
             q, k, v, seg = _flash_inputs(case, g, device)
@@ -483,24 +493,34 @@ def check_flash_attention(device) -> dict:
                     o_max_abs_err=float((o.float() - ro.float()).abs().max()),
                     lse_max_abs_err=float((lse - rlse).abs().max()),
                     o_tol_ratio=r_o, lse_tol_ratio=r_lse)
+                # each row is one warpgroup's, summed in one order
+                o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=case["causal"])
+                repeat_equal = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+                if not repeat_equal:
+                    raise AssertionError("flash_attention_fwd: a repeated call "
+                                         "at the main shape differs")
+                del o2, lse2
             del o, lse, ro, rlse
     out = dict(kernel="flash_attention_fwd", cases=len(cases),
                worst_o_tol_ratio=worst_o, worst_lse_tol_ratio=worst_lse,
-               main_shape=main,
+               main_shape=main, main_repeat_bit_equal=repeat_equal,
                tolerance="fp32 o within 1e-5 + 1e-5|ref|; bf16/fp16 o_ij "
                          "within eps/2 * sum_j p_ij |v_j| (the kernel rounds p "
                          "to the operand dtype) + the dtype's least p spacing "
                          "* sk * max|v| / (1 - rate) + 2 ulp(ref); lse within "
                          "1e-5 + 1e-5|ref|, +inf rows equal; dropout with v = "
-                         "identity: o == 0 exactly where the plain version's is")
+                         "identity: o == 0 exactly where the plain version's is; "
+                         "a repeated call at the main shape equal bit for bit")
     log("phase2-check", **out)
     return out
 
 
 def check_lm_head(device) -> dict:
     """The fused LM-head kernel on the card against its plain version over
-    dtypes, token counts and vocabularies off the 128 tile, hidden sizes,
-    labels -100 and vocab, and the main path's shape."""
+    dtypes, token counts and vocabularies off the 128 and 256 tiles, hidden
+    sizes, labels -100, vocab - 1 and vocab, the main path's shape,
+    GPT-2-large's head shape (V 50257: 175 pad columns in the last vocab
+    tile), and a repeated call at the main shape equal bit for bit."""
     import torch
     from apex_tpu_torch.ops import fused_lm_head as lh
 
@@ -508,7 +528,8 @@ def check_lm_head(device) -> dict:
              for dt in _DTYPES
              for t, vocab, hid in ((1, 1000, 64), (300, 1000, 136),
                                    (257, 32000, 256), (128, 256, 2048))]
-    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True))
+    cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True, model_init=True))
+    cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
     g = torch.Generator(device=device).manual_seed(12)
     worst, main = 0.0, {}
     with torch.inference_mode():
@@ -516,8 +537,9 @@ def check_lm_head(device) -> dict:
             dt = getattr(torch, case["dtype"])
             t, vocab, hid = case["t"], case["vocab"], case["hid"]
             h = torch.randn(t, hid, generator=g, device=device).to(dt)
-            # the model's head init (0.02) at the main shape, unit logits else
-            std = 0.02 if case.get("main") else hid ** -0.5
+            # the model's head init (0.02) at the models' shapes, unit
+            # logits else
+            std = 0.02 if case.get("model_init") else hid ** -0.5
             e = (torch.randn(vocab, hid, generator=g, device=device) * std).to(dt)
             lab = torch.randint(0, vocab, (t,), generator=g, device=device)
             lab[::7] = -100
@@ -543,10 +565,19 @@ def check_lm_head(device) -> dict:
                     loss_max_abs_err=float((loss - rloss).abs().max()),
                     lse_max_abs_err=float((lse - rlse).abs().max()),
                     tol_ratio=r)
+                # each tile's partials and each token's merge in one order
+                loss2, lse2 = lh.fused_lm_head_fwd(h, e, lab)
+                main["repeat_bitwise"] = bool(torch.equal(loss, loss2)
+                                              and torch.equal(lse, lse2))
+                if not main["repeat_bitwise"]:
+                    raise AssertionError("fused_lm_head_fwd: two calls on the "
+                                         "same inputs gave different bits")
+            del h, e, loss, lse, rloss, rlse
     out = dict(kernel="fused_lm_head_fwd", cases=len(cases),
                worst_tol_ratio=worst, main_shape=main,
                tolerance="loss and lse within 1e-4 + 1e-5|ref|; an "
-                         "out-of-range label's loss equals its lse exactly")
+                         "out-of-range label's loss equals its lse exactly; "
+                         "a repeated call at the main shape equal bit for bit")
     log("phase2-check", **out)
     return out
 
@@ -563,15 +594,32 @@ def _timed(calls: dict, graph_iters: int, big: tuple = ()) -> dict:
     return out
 
 
-def time_flash_attention(device) -> dict:
-    """Kernel, plain version and SDPA at the main path's shape: causal,
-    bf16, [4, 32, 2048, 64] over 8 kv heads, in the model's layout."""
+def _host_side_ms(fn, calls: int = 20) -> float:
+    """The host side of one call: the wall of ``calls`` calls issued back
+    to back, before the card ends them (the launch queue, far deeper than
+    ``calls`` launches, never makes the host wait)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def _time_flash_fwd_shape(shape: dict, seed: int, device) -> dict:
+    """Kernel, plain version and SDPA at one shape (causal, bf16, in the
+    model's layout), with each one's TFLOP/s and the host side of a
+    call."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
 
-    b, h, hk, s, d = (FLASH_MAIN[k] for k in ("b", "h", "hk", "s", "d"))
-    g = torch.Generator(device=device).manual_seed(13)
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    g = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(s, b, n, d, generator=g, device=device)
                .to(torch.bfloat16).permute(1, 2, 0, 3) for n in (h, hk, hk))
     with torch.inference_mode():
@@ -579,29 +627,48 @@ def time_flash_attention(device) -> dict:
             "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
             "plain": lambda: fa._plain_forward(q, k, v, causal=True),
             "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)}
+                q, k, v, is_causal=True, enable_gqa=hk != h)}
         dev = _timed(calls, 20, big=("plain",))
         host = time_ms(calls["kernel"], iters=20, warmup=3)
+        host_side = _host_side_ms(calls["kernel"])
     # the causal pairs each product needs, two products of 2 d operations
     pairs = s * (s + 1) // 2
     flops = 2 * 2 * b * h * pairs * d
     nbytes = 2 * (b * h * s * d * 2 + 2 * b * hk * s * d) + 4 * b * h * s
     row = _row(dev, host, flops, nbytes, 989e12)
-    row.update(shape=dict(FLASH_MAIN, causal=True, dtype="bfloat16"),
-               flops=flops, bytes=nbytes)
-    log("phase2-time", kernel="flash_attention_fwd", **row)
+    row.update(shape=dict(shape, causal=True, dtype="bfloat16"), flops=flops,
+               bytes=nbytes, tflops=flops / row["ms"] / 1e9,
+               library_tflops=flops / dev["library"] / 1e9,
+               call_host_side_ms=host_side,
+               library_call="F.scaled_dot_product_attention(is_causal, "
+                            "enable_gqa)")
     return row
 
 
-def time_lm_head(device) -> dict:
-    """Kernel, plain version and F.linear + F.cross_entropy at the main
-    path's shape: T 8192, h 2048, vocab 32000, bf16."""
+def time_flash_attention(device) -> dict:
+    """Kernel, plain version and SDPA at the main path's shape (causal,
+    bf16, [4, 32, 2048, 64] over 8 kv heads) and at GPT-2-large's flagship
+    shape ([8, 20, 1024, 64]), in the model's layout; returns the main
+    shape's row with the GPT shape's under ``"gpt2_large"``."""
+    row = _time_flash_fwd_shape(FLASH_MAIN, 13, device)
+    log("phase2-time", kernel="flash_attention_fwd", at="llama_1b", **row)
+    gpt = _time_flash_fwd_shape(FLASH_GPT, 15, device)
+    log("phase2-time", kernel="flash_attention_fwd", at="gpt2_large", **gpt)
+    row["gpt2_large"] = gpt
+    return row
+
+
+def _time_head_fwd_shape(shape: dict, seed: int, device) -> dict:
+    """Kernel, plain version and F.linear + F.cross_entropy at one head
+    shape (bf16, the model's head init), with each one's TFLOP/s on the
+    logits product, the host side of a call, and cuBLAS ``torch.matmul``
+    on the same product (a yardstick the port never calls)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import fused_lm_head as lh
 
-    t, hid, vocab = HEAD_MAIN["t"], HEAD_MAIN["hid"], HEAD_MAIN["vocab"]
-    g = torch.Generator(device=device).manual_seed(14)
+    t, hid, vocab = shape["t"], shape["hid"], shape["vocab"]
+    g = torch.Generator(device=device).manual_seed(seed)
     h = torch.randn(t, hid, generator=g, device=device).to(torch.bfloat16)
     e = (torch.randn(vocab, hid, generator=g, device=device) * 0.02
          ).to(torch.bfloat16)
@@ -614,12 +681,38 @@ def time_lm_head(device) -> dict:
                                                reduction="none")}
         dev = _timed(calls, 20, big=("plain",))
         host = time_ms(calls["kernel"], iters=20, warmup=3)
+        host_side = _host_side_ms(calls["kernel"])
+        # cuBLAS on E zero-padded to Vp rows, as the head backward's
+        # yardstick: an odd leading dimension (V 50257) reads ~7 x slower
+        ep = torch.zeros(lh.padded_vocab(vocab), hid, dtype=e.dtype, device=device)
+        ep[:vocab] = e
+        cublas = device_ms(lambda: torch.matmul(h, ep.t()), iters=20)
     flops = 2 * t * vocab * hid
     nbytes = 2 * (t * hid + vocab * hid) + 8 * t + 2 * 4 * t
     row = _row(dev, host, flops, nbytes, 989e12)
-    row.update(shape=dict(HEAD_MAIN, dtype="bfloat16"), flops=flops,
-               bytes=nbytes)
-    log("phase2-time", kernel="fused_lm_head_fwd", **row)
+    row.update(shape=dict(shape, dtype="bfloat16"), flops=flops, bytes=nbytes,
+               tflops=flops / row["ms"] / 1e9,
+               library_tflops=flops / dev["library"] / 1e9,
+               cublas_matmul_ms=cublas, cublas_tflops=flops / cublas / 1e9,
+               call_host_side_ms=host_side,
+               workspace_bytes=3 * 4 * t * lh.vocab_tiles(vocab),
+               library_call="F.cross_entropy(F.linear(h, e), reduction='none')",
+               cublas_call="torch.matmul(h, ep.t()) with E zero-padded to Vp = "
+                           "V rounded up to 64 rows, bf16 logits [T, Vp] (CUDA "
+                           "graph of 20); a yardstick, never called by the port")
+    return row
+
+
+def time_lm_head(device) -> dict:
+    """Kernel, plain version and F.linear + F.cross_entropy at the main
+    path's shape (T 8192, h 2048, vocab 32000) and at GPT-2-large's head
+    (T 8192, h 1280, vocab 50257), bf16; returns the main shape's row with
+    the GPT shape's under ``"gpt2_large"``."""
+    row = _time_head_fwd_shape(HEAD_MAIN, 14, device)
+    log("phase2-time", kernel="fused_lm_head_fwd", at="llama_1b", **row)
+    gpt = _time_head_fwd_shape(HEAD_GPT, 16, device)
+    log("phase2-time", kernel="fused_lm_head_fwd", at="gpt2_large", **gpt)
+    row["gpt2_large"] = gpt
     return row
 
 
@@ -1194,21 +1287,11 @@ def _time_flash_bwd_shape(shape: dict, seed: int, device) -> dict:
                            ("dkv", fa.FLASH_ATTENTION_DKV)):
             rows[name]["kernel_again"] = device_ms(
                 lambda kern=kern: call.launch(kern), iters=20)
-        # the host side alone: the wall of 20 calls before the card ends
-        # them (their device time exceeds it, so no call waits on the queue)
-        host_side = {}
-        for what, fn in (
-                ("call", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                        causal=True)),
-                ("dq_launch", lambda: call.launch(fa.FLASH_ATTENTION_DQ)),
-                ("dkv_launch", lambda: call.launch(fa.FLASH_ATTENTION_DKV))):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                fn()
-            host_side[what + "_ms"] = (time.perf_counter() - t0) * 1e3 / 20
-            torch.cuda.synchronize()
+        host_side = {what + "_ms": _host_side_ms(fn) for what, fn in (
+            ("call", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal=True)),
+            ("dq_launch", lambda: call.launch(fa.FLASH_ATTENTION_DQ)),
+            ("dkv_launch", lambda: call.launch(fa.FLASH_ATTENTION_DKV)))}
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     library = _fwd_bwd_minus_fwd(
         lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
@@ -1257,99 +1340,133 @@ def time_flash_attention_bwd(device) -> dict:
     return out
 
 
-def start_flash_bwd_ptxas():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_attention_bwd.cu`` (into
-    ``build/``, beside the libraries' build); :func:`flash_bwd_registers`
-    reads it."""
+# the sources whose 16-bit kernels run on wgmma fed by TMA, and nothing on
+# mma.sync: the flash forward and backward and the head forward
+WGMMA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                 "fused_lm_head_fwd.cu")
+WGMMA_KERNELS = (("flash_fwd_wgmma", (32, 64, 128)), ("flash_dq_wgmma", (32, 64, 128)),
+                 ("flash_dkv_wgmma", (32, 64, 128)), ("lm_head_fwd_wgmma", (None,)))
+
+
+def start_ptxas():
+    """Start ``nvcc -Xptxas -v`` on each of ``WGMMA_SOURCES`` (into
+    ``build/``, beside the libraries' build, one process each);
+    :func:`wgmma_registers` reads them."""
     from apex_tpu_torch.ops import _build
 
-    out = os.path.join(ROOT, "build", "flash_bwd_ptxas.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-           str(_build.CSRC / "flash_attention_bwd.cu")]
-    log_file = open(out + ".log", "w+")
-    return subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
-                            text=True), log_file
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    jobs = []
+    for source in WGMMA_SOURCES:
+        out = os.path.join(ROOT, "build", f"ptxas_{source[:-3]}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+               str(_build.CSRC / source)]
+        log_file = open(out + ".log", "w+")
+        jobs.append((subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                                      text=True), log_file))
+    return jobs
 
 
-def _flash_kernel_name(mangled: str):
-    """``(kernel, dtype, d)`` of a mangled backward kernel name, or None."""
+def _kernel_name(mangled: str):
+    """``(kernel, dtype, d)`` of a mangled kernel name of ``WGMMA_SOURCES``
+    (d None for the head forward's logits product), or None."""
     import re
 
-    m = re.search(r"(flash_(?:dq|dkv)_(?:wgmma|f32))", mangled)
-    d = re.search(r"Li(32|64|128)E", mangled)
-    if not m or not d:
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32))", mangled)
+    if m:
+        d = re.search(r"Li(32|64|128)E", mangled)
+        if not d:
+            return None
+        kernel, d = m.group(1), int(d.group(1))
+    elif "wgmma_gemm" in mangled and "PartialsStore" in mangled:
+        kernel, d = "lm_head_fwd_wgmma", None
+    elif "lm_head_f32" in mangled:
+        kernel, d = "lm_head_f32", None
+    else:
         return None
     dtype = ("bfloat16" if "__nv_bfloat16" in mangled
              else "float16" if "__half" in mangled else "float32")
-    return m.group(1), dtype, int(d.group(1))
+    return kernel, dtype, d
 
 
-def flash_bwd_registers(proc) -> dict:
-    """Registers and spills of each backward kernel (ptxas, from
-    :func:`start_flash_bwd_ptxas`) and its ``HGMMA`` / ``UTMALDG`` / ``HMMA``
-    instruction counts (``cuobjdump -sass`` of the built library).  Fails
-    unless every bf16 and fp16 dq and dk/dv kernel runs on wgmma fed by TMA
-    and no mma.sync."""
+def wgmma_registers(jobs) -> dict:
+    """Registers and spills of each kernel of ``WGMMA_SOURCES`` (ptxas,
+    from :func:`start_ptxas`) and its ``HGMMA`` / ``UTMALDG`` / ``HMMA``
+    instruction counts (``cuobjdump -sass`` of the built libraries).  Fails
+    unless every bf16 and fp16 flash forward, dq, dk/dv and head-forward
+    kernel runs on wgmma fed by TMA, and unless no kernel of the flash
+    forward's or the head forward's library holds an ``HMMA`` (mma.sync)."""
     import re
     from apex_tpu_torch.ops import _build
 
-    proc, log_file = proc
-    proc.wait()
-    log_file.seek(0)
-    log_text = log_file.read()
-    log_file.close()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
-    kernels, cur = {}, None
-    for line in log_text.splitlines():
-        if "serialized" in line:
-            # ptxas's C7512 note: the function's wgmma run one at a time
-            m = re.search(r"function '([^']+)'", line)
-            name = m and _flash_kernel_name(m.group(1))
-            if name:
-                kernels.setdefault(name, {})["wgmma_serialized"] = True
-            continue
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur = _flash_kernel_name(m.group(1))
-            if cur is not None:
-                kernels.setdefault(cur, {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            kernels[cur].update(spill_stores=int(m.group(1)),
-                                spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            kernels[cur]["registers"] = int(m.group(1))
-    lib = _build._target("flash_attention_bwd.cu")
+    kernels = {}
+    for proc, log_file in jobs:
+        proc.wait()
+        log_file.seek(0)
+        log_text = log_file.read()
+        log_file.close()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+        cur = None
+        for line in log_text.splitlines():
+            if "serialized" in line:
+                # ptxas's C7512 note: the function's wgmma run one at a time
+                m = re.search(r"function '([^']+)'", line)
+                name = m and _kernel_name(m.group(1))
+                if name:
+                    kernels.setdefault(name, {})["wgmma_serialized"] = True
+                continue
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = _kernel_name(m.group(1))
+                if cur is not None:
+                    kernels.setdefault(cur, {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                kernels[cur].update(spill_stores=int(m.group(1)),
+                                    spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels[cur]["registers"] = int(m.group(1))
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    for chunk in sass.split("Function : ")[1:]:
-        name = _flash_kernel_name(chunk.split("\n", 1)[0])
-        if name is None:
-            continue
-        kernels.setdefault(name, {}).update(
-            hgmma=chunk.count("HGMMA"), utmaldg=chunk.count("UTMALDG"),
-            hmma=chunk.count("HMMA"))
-    rows = {f"{k}/{dt}/d{d}": v for (k, dt, d), v in sorted(kernels.items())}
-    for kern in ("flash_dq_wgmma", "flash_dkv_wgmma"):
+    library_hmma = {}
+    for source in WGMMA_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source))],
+                              check=True, capture_output=True, text=True).stdout
+        library_hmma[source] = sass.count("HMMA")
+        for chunk in sass.split("Function : ")[1:]:
+            name = _kernel_name(chunk.split("\n", 1)[0])
+            if name is None:
+                continue
+            kernels.setdefault(name, {}).update(
+                hgmma=chunk.count("HGMMA"), utmaldg=chunk.count("UTMALDG"),
+                hmma=chunk.count("HMMA"))
+    rows = {"/".join([k, dt] + ([f"d{d}"] if d else [])): v
+            for (k, dt, d), v in sorted(kernels.items(), key=str)}
+    for kern, dims in WGMMA_KERNELS:
         for dt in ("bfloat16", "float16"):
-            for d in (32, 64, 128):
-                r = rows.get(f"{kern}/{dt}/d{d}", {})
+            for d in dims:
+                key = "/".join([kern, dt] + ([f"d{d}"] if d else []))
+                r = rows.get(key, {})
                 if not (r.get("hgmma") and r.get("utmaldg")) or r.get("hmma"):
                     raise AssertionError(
-                        f"{kern} {dt} d {d}: expected HGMMA and UTMALDG and no "
-                        f"HMMA in its SASS, got {r}")
-    out = dict(kernels=rows, registers_note="ptxas's registers a thread and "
-               "spill bytes; the 16-bit kernels run 288 threads (two consumer "
-               "warpgroups, one producer warp); wgmma_serialized: ptxas's "
-               "C7512 note that the function's wgmma run one at a time")
-    log("phase2-flash-bwd-registers", **out)
+                        f"{key}: expected HGMMA and UTMALDG and no HMMA in its "
+                        f"SASS, got {r}")
+    for source in ("flash_attention_fwd.cu", "fused_lm_head_fwd.cu"):
+        if library_hmma[source]:
+            raise AssertionError(f"{source}: {library_hmma[source]} HMMA "
+                                 f"(mma.sync) instructions in its library")
+    out = dict(kernels=rows, library_hmma=library_hmma,
+               registers_note="ptxas's registers a thread and spill bytes; the "
+               "16-bit flash backward kernels run 288 threads (two consumer "
+               "warpgroups, one producer warp), the flash forward 256 (two "
+               "warpgroups; two blocks an SM at d <= 64, at most 128 "
+               "registers), the head forward 384 (a producer and two "
+               "consumer warpgroups, setmaxnreg 40/232); wgmma_serialized: "
+               "ptxas's C7512 note that the function's wgmma run one at a time")
+    log("phase2-wgmma-registers", **out)
     return out
 
 
@@ -2663,6 +2780,7 @@ def _kernel_kind(name: str) -> str:
                       ("flash_fwd", "flash forward"), ("flash_dq", "flash dq"),
                       ("flash_dkv", "flash dk/dv"), ("ln_fwd", "norm forward"),
                       ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
+                      ("PartialsStore", "head forward"),
                       ("DlogStore", "head logits + dlog"),
                       ("dlog_f32", "head logits + dlog"),
                       ("TileStore", "head dH/dE products"),
@@ -3963,7 +4081,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     smi = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
-    ptxas = start_flash_bwd_ptxas()
+    ptxas = start_ptxas()
     libs = _build.build_all(sorted({k.source for k in _dispatch.KERNELS}))
     build_s = time.perf_counter() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3987,7 +4105,7 @@ def main() -> int:
     head_bwd_check = check_lm_head_bwd(device)
     norm_bwd_time = time_layer_norm_bwd(device)
     flash_bwd_time = time_flash_attention_bwd(device)
-    flash_bwd_regs = flash_bwd_registers(ptxas)
+    wgmma_regs = wgmma_registers(ptxas)
     head_bwd_time = time_lm_head_bwd(device)
     softmax_check = check_softmax(device)
     lamb_check = check_lamb_phase1(device)
@@ -4041,7 +4159,9 @@ def main() -> int:
         entry(ln.LAYER_NORM_BWD, max(nb["dx_max_abs_err"], nb["dw_max_abs_err"]),
               norm_bwd_time, shape=norm_bwd_time["shape"]),
         entry(fa.FLASH_ATTENTION_FWD, flash_check["main_shape"]["o_max_abs_err"],
-              flash_time, shape=flash_time["shape"]),
+              flash_time, shape=flash_time["shape"], tflops=flash_time["tflops"],
+              gpt2_large={k: flash_time["gpt2_large"][k] for k in (
+                  "ms", "tflops", "bound_ms", "library_ms", "library_tflops")}),
         entry(fa.FLASH_ATTENTION_DQ, fb["dq_max_abs_err"], flash_bwd_time["dq"],
               shape=flash_bwd_time["dq"]["shape"],
               tflops=flash_bwd_time["dq"]["tflops"]),
@@ -4049,7 +4169,11 @@ def main() -> int:
               flash_bwd_time["dkv"], shape=flash_bwd_time["dkv"]["shape"],
               tflops=flash_bwd_time["dkv"]["tflops"]),
         entry(lh.FUSED_LM_HEAD_FWD, head_check["main_shape"]["loss_max_abs_err"],
-              head_time, shape=head_time["shape"]),
+              head_time, shape=head_time["shape"], tflops=head_time["tflops"],
+              cublas_matmul_ms=head_time["cublas_matmul_ms"],
+              gpt2_large={k: head_time["gpt2_large"][k] for k in (
+                  "ms", "tflops", "bound_ms", "library_ms", "library_tflops",
+                  "cublas_matmul_ms")}),
         entry(lh.FUSED_LM_HEAD_DH, hb["dh_max_abs_err"], head_bwd_time["dh"],
               shape=head_bwd_time["dh"]["shape"],
               **{k: head_bwd_time["dh"][k] for k in (
@@ -4101,7 +4225,7 @@ def main() -> int:
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
                                 lamb_time, packed_time, pair_bias_time],
-                  flash_bwd_registers=flash_bwd_regs,
+                  wgmma_registers=wgmma_regs,
                   openfold_routes=routes_time,
                   openfold_reference=openfold_reference,
                   amp_reference=amp_reference,

@@ -197,16 +197,37 @@ def test_plain_version_is_differentiable_on_cpu():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_matches_plain_version_on_card(dtype):
     """The CUDA kernel against its plain version on the card (chip_smoke.py
-    runs the full grid of variants); skipped on a host without one."""
+    runs the full grid of variants), fp32 on the CUDA-core kernel and the
+    two 16-bit types on the TMA + wgmma one, at chip_smoke.py's
+    tolerances: fp32 o at 1e-5 + 1e-5 |ref|; a 16-bit o within half an
+    epsilon of sum_j p_ij |v_j| (the kernel rounds p to the operand dtype)
+    plus the dtype's least p spacing times sk max|v| and 2 ulp of the
+    output; lse at 1e-5 + 1e-5 |ref|.  Skipped on a host without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(2, 4, 2, 40, 72))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt)
+               for a in _inputs(2, 4, 2, 40, 72))
     with torch.no_grad():
         o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
         ro, rlse = tfa._plain_forward(q, k, v, causal=True)
-    torch.testing.assert_close(o, ro, atol=1e-5, rtol=1e-5)
+        if dtype == "float32":
+            tol = 1e-5 + 1e-5 * ro.abs()
+        else:
+            bits = {"bfloat16": 7, "float16": 10}[dtype]
+            half_eps = 2.0 ** -(bits + 1)
+            floor = max(torch.finfo(dt).tiny * half_eps,
+                        torch.finfo(torch.float32).tiny)
+            pv_abs, _ = tfa._plain_forward(q.float(), k.float(),
+                                           v.float().abs(), causal=True)
+            mag = ro.float().abs().clamp_min(torch.finfo(dt).tiny)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+            tol = (half_eps * pv_abs + floor * 72 * float(v.float().abs().max())
+                   + 2 * ulp)
+    assert ((o.float() - ro.float()).abs() <= tol).all()
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
 
 
@@ -348,7 +369,7 @@ def test_backward_kernels_match_plain_version_on_card():
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' TMA map geometry (host side, pure Python)
+# the 16-bit kernels' TMA map geometry (host side, pure Python)
 # ---------------------------------------------------------------------------
 
 
@@ -405,15 +426,60 @@ def test_tma_geometry_refuses_what_the_kernels_do_not_take():
         tfa._tma_geometry((1, 1, 8, 64), (1024, 1024, 128, 2), torch.bfloat16, 64)
 
 
-def test_tma_maps_are_the_geometries_and_cached():
-    """A kernel's C argument is its four operands' geometries in order,
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_tma_maps_are_the_geometries_and_cached(kernel):
+    """A kernel's C argument is its operands' geometries in order, 12
+    values each (the forward's q, k, v; each backward kernel's four),
     worked out once for each shape and strides."""
     q = torch.empty(64, 2, 4, 64, dtype=torch.bfloat16).permute(1, 2, 0, 3)
     k = torch.empty(2, 2, 64, 64, dtype=torch.bfloat16)
-    parts = tuple((tuple(t.shape), t.stride(), rows)
-                  for t, rows in ((q, 128), (q, 128), (k, 64), (k, 64)))
+    operands = ((q, 128), (k, 64), (k, 64))
+    if kernel == "backward":
+        operands = ((q, 128), (q, 128), (k, 64), (k, 64))
+    parts = tuple(tfa._tma_part(t, rows) for t, rows in operands)
     maps = tfa._tma_maps(torch.bfloat16, parts)
     expect = [x for shape, strides, rows in parts
               for x in tfa._tma_geometry(shape, strides, torch.bfloat16, rows)]
-    assert list(maps) == expect and len(expect) == 48
+    assert list(maps) == expect and len(expect) == 12 * len(operands)
     assert tfa._tma_maps(torch.bfloat16, parts) is maps
+
+
+def _strided(shape, strides, dtype, offset=0):
+    """A view of ``shape`` with element ``strides``, ``offset`` elements into
+    a buffer that starts on 16 bytes."""
+    n = offset + sum((e - 1) * st for e, st in zip(shape, strides)) + 1
+    return torch.zeros(n, dtype=dtype)[offset:].as_strided(shape, strides)
+
+
+# name: (make (q, k, v), error or None): None means the wrapper gets as far
+# as the device, which on this host is the CPU and raises "CUDA"
+_FWD_LAYOUTS = {
+    "row_of_68_bf16": (lambda: (_strided((2, 4, 40, 64), (4 * 68 * 40, 68 * 40, 68, 1),
+                                         torch.bfloat16),) * 3, "16 bytes"),
+    "batch_stride_off_fp16": (lambda: (_strided((2, 4, 40, 64), (4 * 64 * 40 + 4, 64 * 40, 64, 1),
+                                                torch.float16),) * 3, "16 bytes"),
+    "q_off_16_bytes": (lambda: (_strided((1, 2, 40, 64), (2 * 40 * 64, 40 * 64, 64, 1),
+                                         torch.bfloat16, offset=4),
+                                torch.zeros(1, 2, 40, 64, dtype=torch.bfloat16),
+                                torch.zeros(1, 2, 40, 64, dtype=torch.bfloat16)), "16 bytes"),
+    "models_layout_bf16": (lambda: tuple(torch.zeros(40, 2, 4, 64, dtype=torch.bfloat16)
+                                         .permute(1, 2, 0, 3) for _ in range(3)), None),
+    "broadcast_kv_head_fp16": (lambda: (torch.zeros(1, 4, 40, 64, dtype=torch.float16),
+                                        torch.zeros(1, 1, 40, 64, dtype=torch.float16)
+                                        .expand(1, 4, 40, 64),
+                                        torch.zeros(1, 4, 40, 64, dtype=torch.float16)), None),
+    "fp32_cuda_cores": (lambda: tuple(torch.zeros(1, 2, 40, 32) for _ in range(3)), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FWD_LAYOUTS))
+def test_forward_wrapper_refuses_what_the_maps_cannot_read(case):
+    """The forward wrapper checks layouts before the device, so a 16-bit
+    operand whose start or strides are off 16 bytes raises on any host;
+    one the maps can read (the model's permuted layout, a broadcast kv head,
+    which is copied first) and fp32 (its CUDA-core kernel takes no maps)
+    get as far as the device check."""
+    make, match = _FWD_LAYOUTS[case]
+    q, k, v = make()
+    with pytest.raises(ValueError, match=match or "CUDA"):
+        tfa._kernel_forward(q, k, v, None, None, True, 0.125, 0.0, None)

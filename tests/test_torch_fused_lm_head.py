@@ -98,30 +98,42 @@ def test_plain_version_is_differentiable_on_cpu():
 @pytest.mark.parametrize("tokens,vocab", [(1, 1), (512, 32000), (8192, 32000),
                                           (8192, 128256), (37, 1000), (1, 64),
                                           (129, 50257), (8192, 50257)])
-def test_vocab_split_covers_the_vocab_once(tokens, vocab):
-    """The forward kernel's chunks: multiples of the 128-column tile, none
-    empty, together covering the vocab; and the backward's dlog width Vp:
-    the vocab rounded up to 64, so every row is a whole number of the
-    tensor maps' 128-byte boxes of 16-bit values."""
-    chunk, nsplit = tlh.vocab_split(tokens, vocab, sms=132)
-    assert chunk % 128 == 0 and nsplit >= 1
-    assert chunk * (nsplit - 1) < vocab <= chunk * nsplit
+def test_vocab_tiles_cover_the_vocab_once(tokens, vocab):
+    """The forward kernels' workspace: one (max, sum, target) triple per
+    token and 256-column vocab tile, the tiles none empty and together
+    covering the vocab; and the backward's dlog width Vp: the vocab rounded
+    up to 64, so every row is a whole number of the tensor maps' 128-byte
+    boxes of 16-bit values."""
+    tiles = tlh.vocab_tiles(vocab)
+    assert 256 * (tiles - 1) < vocab <= 256 * tiles
+    ws = tlh._workspace(tokens, vocab, torch.device("meta"))
+    assert ws.shape == (3, tiles, tokens) and ws.dtype == torch.float32
     vp = tlh.padded_vocab(vocab)
     assert (vp * 2) % 128 == 0 and vocab <= vp < vocab + 64
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_matches_plain_version_on_card(dtype):
     """The CUDA kernel against its plain version on the card (chip_smoke.py
-    runs the full grid of variants); skipped on a host without one."""
+    runs the full grid of variants): fp32 on the CUDA-core kernel at 1e-5
+    + 1e-5 |ref|, the two 16-bit types on the TMA + wgmma logits at
+    chip_smoke.py's 1e-4 + 1e-5 |ref| (fp32 sums of exponentials in another
+    order, on the hardware exp2); an out-of-range label's loss is its lse
+    exactly.  Skipped on a host without a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
     h, e, lab = (torch.from_numpy(a).cuda() for a in _inputs(1000))
+    h, e = h.to(dt), e.to(dt)
     with torch.no_grad():
         loss, lse = tlh.fused_lm_head_fwd(h, e, lab)
         rloss, rlse = tlh._plain_forward(h, e, lab)
-    torch.testing.assert_close(loss, rloss, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    atol = 1e-5 if dtype == "float32" else 1e-4
+    torch.testing.assert_close(loss, rloss, atol=atol, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=atol, rtol=1e-5)
+    out = (lab < 0) | (lab >= 1000)
+    assert torch.equal(loss[out], lse[out])
 
 
 # ---------------------------------------------------------------------------
