@@ -27,9 +27,10 @@
 // warpgroup in the forward.
 //
 // Included by flash_attention_fwd.cu (the forward: s = q k^T by SS, o +=
-// p v by RS with v read MN-major) and flash_attention_bwd.cu (dq, and dk
-// with dv); _build.py hashes every .cuh here into each library's name, so
-// an edit here rebuilds them all.
+// p v by RS with v read MN-major), flash_attention_bwd.cu (dq, and dk
+// with dv) and pair_bias_attention_fwd.cu (the forward's products, with
+// the bias tile as a third streamed operand); _build.py hashes every .cuh
+// here into each library's name, so an edit here rebuilds them all.
 
 #pragma once
 

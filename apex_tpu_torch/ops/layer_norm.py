@@ -11,6 +11,13 @@ affine step and the gradients run in fp32, ``y`` and ``dx`` are cast back
 to ``x.dtype``, ``dw`` and ``db`` to the weight's and bias's dtypes, and
 the weight and bias may be fp32, bf16 or fp16 independently of ``x``.
 
+The forward kernel's grid is chosen here, by :func:`fwd_grid`, as the
+backward's is by :func:`bwd_grid`: the lanes a row, the 16-byte vectors of
+it a lane keeps in registers, the warps a block and the blocks.  A weight
+and a bias of two different dtypes are both widened to fp32 before the
+forward's launch (exact: the kernel computes in fp32), so its C interface
+takes one dtype for the pair.
+
 A call that records a gradient goes through :class:`_NormFunction`, which
 saves ``x`` (or, with ``memory_efficient``, the output ``y``, from which
 the backward recovers ``xhat = (y - b) / w``) with ``mean`` and ``rstd``,
@@ -22,6 +29,7 @@ the forward alone and saves nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -47,6 +55,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # shared memory a block may use on Hopper, and the backward's blocks an SM
 _SMEM_MAX = 232448
 _BWD_BLOCKS_PER_SM = 3
+# the forward (csrc/layer_norm_fwd.cu): at most 8 warps a block; the 16-
+# byte vectors of a row a lane may keep in registers (64 values), the
+# counts instantiated, and the blocks an SM each count's registers allow
+# (the kernel's __launch_bounds__, fwd_blocks_per_sm: the current row and
+# the next take 8 registers a vector); a CPU test holds both to the source
+_FWD_WARPS = 8
+_FWD_MAX_VALUES = 64
+_FWD_VECS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
+_REGS_PER_SM = 65536
+
+
+def _fwd_blocks_per_sm(vecs: int) -> int:
+    return 4 if vecs <= 2 else 3 if vecs <= 4 else 2 if vecs <= 8 else 1
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -122,8 +143,7 @@ def _symbol():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, vp]
+                       ctypes.c_float] + [ctypes.c_int] * 7 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -155,6 +175,36 @@ def bwd_grid(n: int, h: int, affine: bool, sms: int):
     while warps > 1 and warps * per_warp > _SMEM_MAX // _BWD_BLOCKS_PER_SM:
         warps //= 2
     return warps, max(1, min(math.ceil(n / warps), _BWD_BLOCKS_PER_SM * sms))
+
+
+def fwd_grid(n: int, h: int, dtype: torch.dtype, sms: int):
+    """``(lanes, vecs, warps, blocks)`` of the forward for ``x [n, h]`` of
+    ``dtype``: a row to a group of ``lanes`` lanes (8, 16 or 32, the fewest
+    that keep a lane at 4 vectors or under, so several short rows share a
+    warp), ``vecs`` 16-byte vectors of it a lane in registers (the least
+    instantiated count that covers the row), ``warps`` a block and
+    ``blocks``: the most warps (up to 8) that still give every SM a block,
+    and no more blocks than the registers let be resident at once, each
+    warp striding over its rows.  ``vecs`` 0 is the streaming kernel: rows
+    longer than 64 values a lane, or an ``h`` that is not whole vectors."""
+    per_vec = 16 // dtype.itemsize
+    nvec = h // per_vec
+    lanes, vecs = 32, 0
+    if h % per_vec == 0 and nvec <= 32 * (_FWD_MAX_VALUES // per_vec):
+        lanes = 8 if nvec <= 32 else 16 if nvec <= 64 else 32
+        vecs = next(v for v in _FWD_VECS if v * lanes >= nvec)
+    per_sm = _fwd_blocks_per_sm(vecs) if vecs else 2
+    warps_needed = math.ceil(n / (32 // lanes))
+    warps = _FWD_WARPS
+    while warps > 1 and math.ceil(warps_needed / warps) < sms:
+        warps //= 2
+    blocks = max(1, min(math.ceil(warps_needed / warps), per_sm * sms))
+    return lanes, vecs, warps, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_operand(t: torch.Tensor, what: str, h: Optional[int] = None,
@@ -197,6 +247,10 @@ def layer_norm_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
         raise ValueError(f"layer_norm_fwd: x lies on {x2d.device}, the "
                          f"current device is cuda:"
                          f"{torch.cuda.current_device()}")
+    if bias is not None and bias.dtype != weight.dtype:
+        weight, bias = weight.float(), bias.float()
+    lanes, vecs, warps, blocks = fwd_grid(n, h, x2d.dtype,
+                                          _sm_count(x2d.device.index))
     y = torch.empty_like(x2d)
     mean = torch.empty((n,), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty((n,), dtype=torch.float32, device=x2d.device)
@@ -206,8 +260,7 @@ def layer_norm_fwd(x2d: torch.Tensor, weight: Optional[torch.Tensor],
         mean.data_ptr(), rstd.data_ptr(), n, h, float(eps), int(rms_only),
         _DTYPE_CODES[x2d.dtype],
         -1 if weight is None else _DTYPE_CODES[weight.dtype],
-        -1 if bias is None else _DTYPE_CODES[bias.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        lanes, vecs, warps, blocks, torch.cuda.current_stream().cuda_stream)
     _build.check(status, "layer_norm_fwd")
     LAYER_NORM_FWD.launches += 1
     return y, mean, rstd
@@ -251,8 +304,8 @@ def layer_norm_bwd(dy2d: torch.Tensor, saved: torch.Tensor,
     if dy2d.device.index != torch.cuda.current_device():
         raise ValueError(f"{op}: dy lies on {dy2d.device}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    sms = torch.cuda.get_device_properties(dy2d.device).multi_processor_count
-    warps, blocks = bwd_grid(n, h, weight is not None, sms)
+    warps, blocks = bwd_grid(n, h, weight is not None,
+                             _sm_count(dy2d.device.index))
     dx = torch.empty_like(dy2d)
     dw = torch.empty_like(weight) if weight is not None else None
     db = torch.empty_like(bias) if bias is not None else None

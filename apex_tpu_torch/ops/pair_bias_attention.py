@@ -26,6 +26,21 @@ A call that records a gradient goes through :class:`_PairBiasFunction`,
 which saves q, k, v, the bias, the mask, o and lse (never the scores); its
 backward recomputes the probabilities from lse.
 
+The 16-bit forward reads q, k, v and the bias through TMA maps
+(:func:`_tma_geometry`, :func:`_bias_geometry`): q, k and v through maps of
+their own strides, which TMA needs to be positive multiples of 16 bytes
+(an axis of extent 1 excepted).  A broadcast view (a zero stride over more
+than one element) is copied first (:func:`_tma_readable`), in the backward
+too, whose gradients take the operands' strides; a row, head or R stride
+that is not whole 16-byte chunks raises, naming the stride.  The
+bias goes through a map of its contiguous ``[b, h, s, s]`` where its rows
+are whole 16-byte chunks (``s`` a multiple of 8 in 16 bits, of 4 in fp32),
+and by each lane's own loads elsewhere.  The kv mask goes through a map of
+its bytes (:func:`_mask_geometry`), a padded copy where its rows are not
+whole 16-byte chunks (``s`` not a multiple of 16) and all ones where there
+is no mask (:func:`_mask_bytes`): a workspace of ``R`` rows of ``s``
+rounded up to 16 bytes, made only then.
+
 One difference from the JAX function, on purpose: where the JAX
 ``pair_bias_flash_attention`` finds a shape its TPU kernel does not take,
 it quietly computes :func:`pair_bias_reference` instead; here a CUDA
@@ -37,6 +52,7 @@ any of the three, independently), and raise on anything else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -66,6 +82,11 @@ PAIR_BIAS_DBIAS = register(Kernel(
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128
+# the rows of every box the 16-bit forward's maps read: a warpgroup's
+# queries, a key tile, a bias box's rows; and the keys of a tile, the
+# bytes of a mask box
+_BOX_ROWS = 64
+_MASK_BOX = 64
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +182,129 @@ def _plain_backward(q, k, v, bias, mask, o, lse, do, scale: float = 1.0):
 
 
 def _symbol(kernel: Kernel):
-    """One of the four entry points; all take one argument list."""
+    """One of the four entry points; all take one argument list, and the
+    forward the geometry of its maps after it."""
     fn = getattr(_build.library(kernel.source), kernel.symbol)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 13 + [i] * 5 + [vp, ctypes.c_float, i, i, vp]
+        fn.argtypes = [vp] * 13 + [i] * 5 + [vp, ctypes.c_float, i, i, vp] + (
+            [vp] if kernel is PAIR_BIAS_FWD else [])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _padded_head_dim(d: int) -> int:
+    """The head dim the 16-bit forward's tiles hold (32, 64 or 128); TMA
+    fills the columns past ``d`` with zeros."""
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def _tma_geometry(shape, strides, dtype, rows: int = _BOX_ROWS) -> tuple:
+    """The rank-4 TMA map of a 16-bit ``[R, h, s, d]`` operand with element
+    ``strides``, as ``encode_map`` (``csrc/pair_bias_attention_fwd.cu``)
+    takes it: 12 values, the dims ``(d, s, h, R)``, the byte strides of s,
+    h and R, the box ``(columns, rows, 1, 1)`` and the swizzle span in
+    bytes.  The box is as wide as a swizzle span of the padded head dim (32
+    columns, 64 bytes, up to d = 32; else 64 columns, 128 bytes, read twice
+    side by side at d > 64), its columns past ``d`` zero-filled.  An axis of
+    extent 1 takes the packed stride (TMA steps over none of it); any other
+    stride must be a positive multiple of 16 bytes, as TMA requires, or this
+    raises naming it."""
+    R, h, s, d = shape
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"TMA maps are for bf16 and fp16 operands, not {dtype}")
+    if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not a multiple of 8 up to "
+                         f"{_MAX_HEAD_DIM}")
+    if strides[3] != 1:
+        raise ValueError(f"the last stride must be 1, got strides "
+                         f"{tuple(strides)}")
+    esize = 2
+    byte_strides = []
+    packed = d * esize
+    for axis, extent, st in (("row", s, strides[2]), ("head", h, strides[1]),
+                             ("R", R, strides[0])):
+        st = st * esize if extent > 1 else packed
+        if st <= 0 or st % 16:
+            raise ValueError(
+                f"TMA needs strides that are positive multiples of 16 bytes: "
+                f"the {axis} stride is {st} bytes (element strides "
+                f"{tuple(strides)}, shape {tuple(shape)})")
+        byte_strides.append(st)
+        packed = st * extent
+    span = 64 if _padded_head_dim(d) == 32 else 128
+    return (d, s, h, R, *byte_strides, span // esize, rows, 1, 1, span)
+
+
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where it has a zero stride over more than
+    one element (a broadcast): TMA steps over no such dimension."""
+    if all(st or n == 1 for n, st in zip(t.shape, t.stride())):
+        return t
+    return t.contiguous()
+
+
+def _bias_staged(s: int, dtype) -> bool:
+    """True where a bias row of ``s`` values is whole 16-byte chunks, which
+    a TMA map can read (and the 16-bit forward stages); elsewhere each lane
+    loads its bias values itself."""
+    return s * dtype.itemsize % 16 == 0
+
+
+def _bias_geometry(shape, dtype) -> tuple:
+    """The rank-4 map of the contiguous bias ``[b, h, s, s]`` as
+    :func:`_tma_geometry` lays it out: dims ``(s, s, h, b)``, boxes of 64
+    rows by 128 bytes (64 16-bit or 32 fp32 columns), 128-byte swizzle."""
+    b, h, s, _ = shape
+    if not _bias_staged(s, dtype):
+        raise ValueError(f"a bias row of {s} {dtype} values is not whole "
+                         f"16-byte chunks: no TMA map reads it")
+    es = dtype.itemsize
+    return (s, s, h, b, s * es, s * s * es, h * s * s * es, 128 // es,
+            _BOX_ROWS, 1, 1, 128)
+
+
+def _mask_row_bytes(s: int) -> int:
+    """The row stride of the mask bytes the 16-bit forward reads: ``s``
+    rounded up to 16 bytes, as TMA requires."""
+    return -(-s // 16) * 16
+
+
+def _mask_geometry(R: int, s: int) -> tuple:
+    """The map of the mask bytes ``[R, s]`` in rows of
+    :func:`_mask_row_bytes` (as rank 4, two unit axes): dims ``(s, R, 1,
+    1)``, boxes of one row of 64 bytes (a key tile), no swizzle; keys past
+    ``s`` read as 0, masked."""
+    row = _mask_row_bytes(s)
+    return (s, R, 1, 1, row, row * R, row * R, _MASK_BOX, 1, 1, 1, 0)
+
+
+def _mask_bytes(mask, R: int, s: int, device) -> torch.Tensor:
+    """The kv mask as the 16-bit forward's map reads it: ``[R, s]`` bytes
+    (nonzero = attend) in rows of :func:`_mask_row_bytes`, starting on 16
+    bytes.  ``mask`` (``[R, s]`` bytes) itself where it is laid out so,
+    else a padded copy; all ones where there is no mask."""
+    row = _mask_row_bytes(s)
+    if mask is not None and row == s and mask.data_ptr() % 16 == 0:
+        return mask
+    out = torch.zeros((R, row), dtype=torch.uint8, device=device)
+    out[:, :s] = 1 if mask is None else mask
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _tma_maps(dtype, parts: tuple, bias_shape: tuple, bias_dtype):
+    """The forward's five maps as the 60 values of its ``maps`` argument:
+    q, k, v (``parts``, each ``(shape, strides)``), the bias, or zeros
+    where it is not staged, and the mask bytes (:func:`_mask_geometry`).
+    Cached: every block of a model passes the same shapes and strides."""
+    bias = (_bias_geometry(bias_shape, bias_dtype)
+            if _bias_staged(bias_shape[-1], bias_dtype) else (0,) * 12)
+    R, _, s, _ = parts[0][0]
+    return (ctypes.c_longlong * 60)(
+        *(x for shape, strides in parts
+          for x in _tma_geometry(shape, strides, dtype)), *bias,
+        *_mask_geometry(R, s))
 
 
 def _check_operand(t: torch.Tensor, what: str, like: torch.Tensor, op: str):
@@ -228,8 +365,14 @@ class _Launch:
     def __init__(self, q, k, v, bias, mask, scale, o=None, lse=None, do=None):
         op = "pair_bias_attention_" + ("fwd" if do is None else "bwd")
         mask = _check_kernel_inputs(q, k, v, bias, mask, op)
+        # a broadcast operand is copied: the forward's maps cannot step over
+        # it, and the backward's gradients take its strides
+        q, k, v = (_tma_readable(t) for t in (q, k, v))
+        tma = do is None and q.dtype != torch.float32
         R, h, s, d = q.shape
         stats = (R, h, s)
+        if tma:
+            mask = _mask_bytes(mask, R, s, q.device)
         if do is None:
             o = torch.empty_like(q)
             lse = torch.empty(stats, dtype=torch.float32, device=q.device)
@@ -253,6 +396,11 @@ class _Launch:
         strides = [st for t in operands
                    for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
         self._strides = (ctypes.c_longlong * 24)(*strides)
+        self._maps = None
+        if tma:
+            self._maps = _tma_maps(
+                q.dtype, tuple((tuple(t.shape), t.stride()) for t in (q, k, v)),
+                tuple(bias.shape), bias.dtype)
         # the tensors behind the raw pointers below stay alive with the call
         self._keep = (q, k, v, bias, mask, o, lse, do)
         ptr = lambda t: None if t is None else t.data_ptr()
@@ -264,8 +412,10 @@ class _Launch:
             _DTYPE_CODES[bias.dtype])
 
     def launch(self, kernel: Kernel) -> None:
+        maps = (self._maps,) if kernel is PAIR_BIAS_FWD else ()
         status = _symbol(kernel)(*self._args,
-                                 torch.cuda.current_stream().cuda_stream)
+                                 torch.cuda.current_stream().cuda_stream,
+                                 *maps)
         _build.check(status, kernel.name)
         kernel.launches += 1
 

@@ -16,7 +16,8 @@ ends the run with a non-zero exit and no result line:
    kernel's other code paths, and the main path's shapes; each result
    against the plain PyTorch version on the same inputs, at the stated
    tolerance (a softmax row above the kernel's maximum must raise).  Then
-   the kernel, the plain version and the library call (``F.rms_norm``;
+   the kernel, the plain version and the library call (``F.rms_norm``, and
+   ``F.layer_norm`` at GPT-2-large's and OpenFold's LayerNorm shapes;
    ``F.scaled_dot_product_attention``; ``F.linear`` + ``F.cross_entropy``;
    ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB;
    ``torch._fused_adamw_`` and ``torch._fused_adagrad_`` over one flat
@@ -36,10 +37,11 @@ ends the run with a non-zero exit and no result line:
    GPT-2-large's head shape (V 50257) and for the same bits on a repeated
    call, and timed at both head shapes with its TFLOP/s beside the library
    call's and cuBLAS ``torch.matmul`` on the logits product (a yardstick
-   the port never calls).  The bf16/fp16 flash forward, dq, dk/dv and head
-   forward kernels' SASS must hold ``HGMMA`` and ``UTMALDG`` and no
-   ``HMMA``, and the flash and head forwards' libraries no ``HMMA`` at all
-   (``cuobjdump``), with ptxas's registers and spills reported.
+   the port never calls).  The bf16/fp16 flash forward, dq, dk/dv, head
+   forward and pair-bias forward kernels' SASS must hold ``HGMMA`` and
+   ``UTMALDG`` and no ``HMMA``, and the flash, head and pair-bias forwards'
+   libraries no ``HMMA`` at all (``cuobjdump``), with ptxas's registers and
+   spills reported (the norm forward's beside them).
    The head backward is also checked at GPT-2-large's head shape, in fp16
    at the main shape, off every tile edge and for the same bits on a
    repeated call, and timed at both models' head shapes with the dH call
@@ -261,6 +263,11 @@ def check_layer_norm(device) -> float:
             # a decode step over 8 slots, a prefill chunk, an eval forward
             for n in (8, 512, 8192):
                 cases.append((rms, xdt, True, False, wdt, n, 2048, 0, True))
+    # the LayerNorms of the other paths, bf16 with a bf16 weight and bias:
+    # OpenFold's pair (z, h 128) and MSA (m, h 256) rows, several to a warp,
+    # and GPT-2-large's h 1280
+    for n, h in NORM_LN_SHAPES.values():
+        cases.append((False, "bfloat16", True, True, "bfloat16", n, h, 0, False))
     worst_ulp, main_abs = 0.0, 0.0
     with torch.no_grad():
         for rms, xdt, has_w, has_b, wdt, n, h, offset, main in cases:
@@ -293,39 +300,56 @@ def check_layer_norm(device) -> float:
     return main_abs
 
 
+# the LayerNorm shapes (n, h) of the GPT and OpenFold paths: GPT-2-large's
+# b 8 x s 1024 at h 1280; OpenFold's MSA rows m (N_seq 128 x N_res 1024, c_m
+# 256) and pair rows z (N_res^2, c_z 128)
+NORM_LN_SHAPES = {"gpt2_large": (8192, 1280), "openfold_m": (131072, 256),
+                  "openfold_z": (1048576, 128)}
+
+
 def time_layer_norm(device):
-    """Kernel, plain version and F.rms_norm at the main paths' shapes
-    (RMSNorm, bf16 input, bf16 weight, h = 2048): n = 8 (a decode step
-    over 8 slots), n = 512 (a full prefill chunk) and n = 8192 (the
-    evaluation forward, b 4 x s 2048)."""
+    """Kernel, plain version and the library call at the main paths'
+    shapes: RMSNorm with ``F.rms_norm`` (bf16 input, bf16 weight, h =
+    2048) at n = 8 (a decode step over 8 slots), n = 512 (a full prefill
+    chunk) and n = 8192 (the evaluation forward, b 4 x s 2048); LayerNorm
+    with ``F.layer_norm`` (bf16 input, bf16 weight and bias) at
+    ``NORM_LN_SHAPES``."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as ln
 
     rows = []
     g = torch.Generator(device=device).manual_seed(2)
+    shapes = [(None, n, 2048, True) for n in (8, 512, 8192)] + [
+        (name, n, h, False) for name, (n, h) in NORM_LN_SHAPES.items()]
     with torch.no_grad():
-        for n in (8, 512, 8192):
-            h = 2048
+        for name, n, h, rms in shapes:
             x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
             w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(torch.bfloat16)
+            b = None if rms else (0.1 * torch.randn(h, generator=g, device=device)).to(
+                torch.bfloat16)
             calls = {
-                "kernel": lambda: ln.layer_norm_fwd(x, w, None, 1e-5, True),
-                "plain": lambda: ln._plain_forward(x, w, None, 1e-5, True),
-                "library": lambda: F.rms_norm(x, (h,), w, 1e-5)}
+                "kernel": lambda: ln.layer_norm_fwd(x, w, b, 1e-5, rms),
+                "plain": lambda: ln._plain_forward(x, w, b, 1e-5, rms),
+                "library": (lambda: F.rms_norm(x, (h,), w, 1e-5)) if rms else
+                           (lambda: F.layer_norm(x, (h,), w, b, 1e-5))}
             # device times in turns (kernel, plain, library, kernel), then
             # the host-bound back-to-back times
             dev = {k: device_ms(fn) for k, fn in calls.items()}
             kernel_again = device_ms(calls["kernel"])
             host = {k: time_ms(fn) for k, fn in calls.items()}
-            # each input read once, each output written once: x, w; y,
-            # mean, rstd.  About 6 fp32 operations per element.
-            nbytes = 2 * n * h + 2 * h + 2 * n * h + 2 * 4 * n
+            # each input read once, each output written once: x, w (and
+            # b); y, mean, rstd.  About 6 fp32 operations per element.
+            nbytes = 2 * n * h + 2 * h * (1 if rms else 2) + 2 * n * h + 2 * 4 * n
             ops = 6 * n * h
             bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ops = ops / FP32_OPS_PER_S * 1e3
             rows.append(dict(
-                n=n, h=h, ms=min(dev["kernel"], kernel_again),
+                n=n, h=h, norm="rms" if rms else "layer_norm", path=name,
+                grid=ln.fwd_grid(n, h, torch.bfloat16, torch.cuda.get_device_properties(
+                    device).multi_processor_count),
+                library_call="F.rms_norm" if rms else "F.layer_norm",
+                ms=min(dev["kernel"], kernel_again),
                 ms_runs=[dev["kernel"], kernel_again],
                 plain_ms=dev["plain"], library_ms=dev["library"],
                 host_bound_ms=host,
@@ -1341,22 +1365,29 @@ def time_flash_attention_bwd(device) -> dict:
 
 
 # the sources whose 16-bit kernels run on wgmma fed by TMA, and nothing on
-# mma.sync: the flash forward and backward and the head forward
+# mma.sync: the flash forward and backward, the head forward and the
+# pair-bias forward; the norm forward's ptxas registers are logged beside
+# them (no products: no instruction gate)
 WGMMA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-                 "fused_lm_head_fwd.cu")
+                 "fused_lm_head_fwd.cu", "pair_bias_attention_fwd.cu")
+PTXAS_SOURCES = WGMMA_SOURCES + ("layer_norm_fwd.cu",)
 WGMMA_KERNELS = (("flash_fwd_wgmma", (32, 64, 128)), ("flash_dq_wgmma", (32, 64, 128)),
-                 ("flash_dkv_wgmma", (32, 64, 128)), ("lm_head_fwd_wgmma", (None,)))
+                 ("flash_dkv_wgmma", (32, 64, 128)), ("lm_head_fwd_wgmma", (None,)),
+                 ("pair_bias_fwd_wgmma", (32, 64, 128)))
+# the libraries that hold no HMMA (mma.sync) at all
+NO_HMMA_SOURCES = ("flash_attention_fwd.cu", "fused_lm_head_fwd.cu",
+                   "pair_bias_attention_fwd.cu")
 
 
 def start_ptxas():
-    """Start ``nvcc -Xptxas -v`` on each of ``WGMMA_SOURCES`` (into
+    """Start ``nvcc -Xptxas -v`` on each of ``PTXAS_SOURCES`` (into
     ``build/``, beside the libraries' build, one process each);
     :func:`wgmma_registers` reads them."""
     from apex_tpu_torch.ops import _build
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     jobs = []
-    for source in WGMMA_SOURCES:
+    for source in PTXAS_SOURCES:
         out = os.path.join(ROOT, "build", f"ptxas_{source[:-3]}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
                str(_build.CSRC / source)]
@@ -1367,16 +1398,27 @@ def start_ptxas():
 
 
 def _kernel_name(mangled: str):
-    """``(kernel, dtype, d)`` of a mangled kernel name of ``WGMMA_SOURCES``
-    (d None for the head forward's logits product), or None."""
+    """``(kernel, dtype, d)`` of a mangled kernel name of ``PTXAS_SOURCES``
+    (d None for the head forward's logits product; for the norm forward's
+    register path, its vectors a lane), or None."""
     import re
 
-    m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32))", mangled)
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32)|pair_bias_fwd_(?:wgmma|f32))",
+                  mangled)
+    m_ln = re.search(r"ln_fwd_rowsI(f|13__nv_bfloat16|6__half)", mangled)
     if m:
         d = re.search(r"Li(32|64|128)E", mangled)
         if not d:
             return None
         kernel, d = m.group(1), int(d.group(1))
+    elif m_ln:
+        # ln_fwd_rows<TX, TW, NV>: x's dtype comes first in the name
+        nv = re.search(r"Li(\d+)E", mangled)
+        if not nv:
+            return None
+        dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                 "6__half": "float16"}[m_ln.group(1)]
+        return "ln_fwd_rows", dtype, f"nv{nv.group(1)}"
     elif "wgmma_gemm" in mangled and "PartialsStore" in mangled:
         kernel, d = "lm_head_fwd_wgmma", None
     elif "lm_head_f32" in mangled:
@@ -1423,13 +1465,15 @@ def wgmma_registers(jobs) -> dict:
                 continue
             if cur is None:
                 continue
+            # (the largest over the kernels one key stands for)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
-                kernels[cur].update(spill_stores=int(m.group(1)),
-                                    spill_loads=int(m.group(2)))
+                for key, val in (("spill_stores", m.group(1)), ("spill_loads", m.group(2))):
+                    kernels[cur][key] = max(kernels[cur].get(key, 0), int(val))
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                kernels[cur]["registers"] = int(m.group(1))
+                kernels[cur]["registers"] = max(kernels[cur].get("registers", 0),
+                                                int(m.group(1)))
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     library_hmma = {}
     for source in WGMMA_SOURCES:
@@ -1443,7 +1487,7 @@ def wgmma_registers(jobs) -> dict:
             kernels.setdefault(name, {}).update(
                 hgmma=chunk.count("HGMMA"), utmaldg=chunk.count("UTMALDG"),
                 hmma=chunk.count("HMMA"))
-    rows = {"/".join([k, dt] + ([f"d{d}"] if d else [])): v
+    rows = {"/".join([k, dt] + ([d if isinstance(d, str) else f"d{d}"] if d else [])): v
             for (k, dt, d), v in sorted(kernels.items(), key=str)}
     for kern, dims in WGMMA_KERNELS:
         for dt in ("bfloat16", "float16"):
@@ -1454,7 +1498,7 @@ def wgmma_registers(jobs) -> dict:
                     raise AssertionError(
                         f"{key}: expected HGMMA and UTMALDG and no HMMA in its "
                         f"SASS, got {r}")
-    for source in ("flash_attention_fwd.cu", "fused_lm_head_fwd.cu"):
+    for source in NO_HMMA_SOURCES:
         if library_hmma[source]:
             raise AssertionError(f"{source}: {library_hmma[source]} HMMA "
                                  f"(mma.sync) instructions in its library")
@@ -1464,8 +1508,13 @@ def wgmma_registers(jobs) -> dict:
                "warpgroups, one producer warp), the flash forward 256 (two "
                "warpgroups; two blocks an SM at d <= 64, at most 128 "
                "registers), the head forward 384 (a producer and two "
-               "consumer warpgroups, setmaxnreg 40/232); wgmma_serialized: "
-               "ptxas's C7512 note that the function's wgmma run one at a time")
+               "consumer warpgroups, setmaxnreg 40/232), the pair-bias "
+               "forward 256 (two warpgroups; two blocks an SM at d <= 32, at "
+               "most 128 registers); ln_fwd_rows/<x dtype>/nv<N>: the norm "
+               "forward's register path, N 16-byte vectors a lane (the "
+               "largest over its three weight dtypes); "
+               "wgmma_serialized: ptxas's C7512 note that the function's wgmma "
+               "run one at a time")
     log("phase2-wgmma-registers", **out)
     return out
 
@@ -3481,18 +3530,20 @@ def check_pair_bias(device) -> dict:
     """The four pair-bias kernels on the card against the plain forward
     and backward on the same inputs: fp32/bf16/fp16; d 8/16/32/64/128
     (zero-padded to 16/32/64/128 inside); s 128, 1000 (a ragged tile),
-    1024, 2048, and 100 and 1001 (bias rows not staged in shared memory);
-    mask on and off with a fully masked R row; b 1 and 2
+    1024, 2048, 16400 (bf16, d 128), and 100 and 1001 (bias rows not staged
+    in shared memory); mask on and off with a fully masked R row; b 1 and 2
     (the bias tiling over rows-major R); scale 0.7 and 1; an fp32 bias
-    beside 16-bit q/k/v; the openfold layout (strided views); and the
-    main path's shape.  dbias must be the same bits on two calls, and
+    beside 16-bit q/k/v (d 16, and d 128 at s 1000 and 1024); the openfold
+    layout (strided views); and the main path's shape.  dbias must be the same bits on two calls, and
     d = 136 must raise.  Returns the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import pair_bias_attention as pb
 
     cases = []
     for dt in _DTYPES:
-        for d in (8, 16, 32, 64, 128):
+        # d 8, 16 and 24: the 16-bit forward's TMA boxes of 32 columns read
+        # zeros past d
+        for d in (8, 16, 24, 32, 64, 128):
             cases.append(dict(dtype=dt, d=d, s=128, r=3, b=2, h=2, scale=0.7))
         for s in (1000, 1024, 2048):
             cases.append(dict(dtype=dt, d=32, s=s, r=2, b=1, h=2, scale=1.0,
@@ -3507,6 +3558,16 @@ def check_pair_bias(device) -> dict:
         cases.append(dict(dtype=dt, d=16, s=1024, r=2, b=2, h=2, scale=1.0,
                           bias_dtype="bfloat16" if dt == "float32"
                           else "float32"))
+        if dt != "float32":
+            # the 16-bit forward's largest ring: d 128 with an fp32 bias
+            # (four bias boxes a stage), at a ragged s and a whole one
+            for s in (1000, 1024):
+                cases.append(dict(dtype=dt, d=128, s=s, r=2, b=2, h=1,
+                                  scale=0.7, bias_dtype="float32"))
+    # a long s at d 128: the 16-bit forward's shared memory does not grow
+    # with s (a ragged last tile, bias rows staged)
+    cases.append(dict(dtype="bfloat16", d=128, s=16400, r=2, b=1, h=1,
+                      scale=0.7))
     cases.append(dict(PAIR_BIAS_MAIN, dtype="bfloat16", scale=1.0,
                       layout="openfold", mask_rate=OPENFOLD["mask_rate"],
                       dead=False, main=True))
@@ -3568,6 +3629,26 @@ def check_pair_bias(device) -> dict:
                                            refs)}
                 main.update(o_max_abs_err=o_err, tol_ratio=r)
             del q, k, v, bias, mask, do, o, lse, grads, db_again, refs, tols
+        # broadcast q, k, v (a zero head stride) are copied, for the 16-bit
+        # forward's maps and for the backward's gradients (which take the
+        # operands' strides): the same bits as from contiguous copies
+        bq, bk, bv = (torch.randn(2, 1, 200, 32, generator=g, device=device)
+                      .to(torch.bfloat16).expand(2, 4, 200, 32)
+                      for _ in range(3))
+        bb = torch.randn(2, 4, 200, 200, generator=g, device=device)
+        bm = torch.rand(2, 200, generator=g, device=device) >= 0.2
+        bdo = torch.randn(2, 4, 200, 32, generator=g, device=device).to(torch.bfloat16)
+        got = pb.pair_bias_flash_attention_fwd(bq, bk, bv, bb, bm, 0.7)
+        got += pb.pair_bias_flash_attention_bwd(bq, bk, bv, bb, got[0], got[1], bdo,
+                                                bm, 0.7)
+        cq, ck, cv = (t.contiguous() for t in (bq, bk, bv))
+        want = pb.pair_bias_flash_attention_fwd(cq, ck, cv, bb, bm, 0.7)
+        want += pb.pair_bias_flash_attention_bwd(cq, ck, cv, bb, want[0], want[1], bdo,
+                                                 bm, 0.7)
+        if not all(torch.equal(a, e) for a, e in zip(got, want)):
+            raise AssertionError("pair-bias attention of broadcast q, k, v differs "
+                                 "from that of their contiguous copies")
+        del bq, bk, bv, bb, bm, bdo, cq, ck, cv, got, want
         wide = torch.zeros(2, 1, 64, 136, device=device, dtype=torch.bfloat16)
         try:
             pb.pair_bias_flash_attention_fwd(
@@ -3580,6 +3661,7 @@ def check_pair_bias(device) -> dict:
     out = dict(kernel="pair_bias_attention_fwd + dq + dkv + dbias",
                cases=len(cases), worst_tol_ratio=worst, main_shape=main,
                dbias_bit_identical_over_two_calls=True, d136_raises=d136,
+               broadcast_qkv_same_bits_as_copies=True,
                tolerance="fp32 o within 1e-5 + 1e-5|ref|; bf16/fp16 o_ij "
                          "within eps/2 sum_j p_ij |v_j| + floor s max|v| + "
                          "2 ulp(ref); lse within 1e-5 + 1e-5|ref|, +inf rows "

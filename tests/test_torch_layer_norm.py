@@ -387,3 +387,125 @@ def test_backward_kernel_matches_plain_version_on_card():
         ref = tln._plain_backward(tdy, tx, mean, rstd, tw, tb, False, False)
     for o, r in zip(ours, ref):
         torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's grid (chosen on the host, so it is held here)
+# ---------------------------------------------------------------------------
+
+# every (n, h) the card-side checks and timings run (chip_smoke.py), the
+# paths' shapes first: Llama's RMSNorm, GPT-2-large's and OpenFold's
+# LayerNorms
+_FWD_SHAPES = [(8, 2048), (512, 2048), (8192, 2048), (8192, 1280),
+               (131072, 256), (1048576, 128), (3, 128), (16, 256), (3, 200),
+               (16, 200), (5, 5000), (7, 256), (1, 1), (37, 200), (3, 5)]
+
+
+def _rows_visited(n, lanes, warps, blocks):
+    """The rows the kernel's warps visit, as it strides: warp w's group g
+    takes rows (w * per_warp + g) + k * step."""
+    per_warp = 32 // lanes
+    step = blocks * warps * per_warp
+    return [r0 + grp for w in range(blocks * warps)
+            for r0 in range(w * per_warp, n, step) for grp in range(per_warp)
+            if r0 + grp < n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,h", _FWD_SHAPES)
+def test_fwd_grid_covers_every_row_once(n, h, dtype):
+    """Every row is visited by exactly one lane group; the vectors a lane
+    keeps cover the row (or the streaming kernel takes it); warps and
+    blocks within the kernel's limits."""
+    lanes, vecs, warps, blocks = tln.fwd_grid(n, h, dtype, sms=132)
+    assert lanes in (8, 16, 32) and 1 <= warps <= 8 and blocks >= 1
+    per_vec = 16 // dtype.itemsize
+    if vecs:
+        assert vecs in tln._FWD_VECS and h % per_vec == 0
+        assert lanes * vecs >= h // per_vec
+        assert vecs * per_vec <= tln._FWD_MAX_VALUES
+    else:
+        assert lanes == 32
+        assert h % per_vec or h // per_vec > 32 * tln._FWD_MAX_VALUES // per_vec
+    if n <= 200000:
+        assert sorted(_rows_visited(n, lanes, warps, blocks)) == list(range(n))
+    else:
+        # the warps' first rows tile one step of rows: each row once
+        assert blocks * warps * (32 // lanes) <= n
+
+
+@pytest.mark.parametrize("n,h,lanes", [(1048576, 128, 8), (131072, 256, 8),
+                                       (64, 512, 16), (8192, 1280, 32),
+                                       (8192, 2048, 32)])
+def test_fwd_grid_gives_short_rows_several_a_warp(n, h, lanes):
+    """OpenFold's bf16 rows (h 128, 256) take 8 lanes each, four rows a
+    warp; longer rows more lanes, up to the whole warp."""
+    assert tln.fwd_grid(n, h, torch.bfloat16, sms=132)[0] == lanes
+
+
+@pytest.mark.parametrize("n,h", _FWD_SHAPES)
+def test_fwd_grid_fits_the_registers_the_kernel_declares(n, h):
+    """The kernel declares ``__launch_bounds__(256, fwd_blocks_per_sm(NV))``:
+    the grid launches no more blocks than those can be resident at once
+    (one wave, each warp striding), and a lane's two rows of NV vectors (8
+    registers a vector) take at most half of the registers that bound
+    leaves a thread."""
+    for dtype in (torch.float32, torch.bfloat16):
+        lanes, vecs, warps, blocks = tln.fwd_grid(n, h, dtype, sms=132)
+        per_sm = tln._fwd_blocks_per_sm(vecs) if vecs else 2
+        assert blocks <= per_sm * 132
+        if vecs:
+            budget = tln._REGS_PER_SM // (32 * tln._FWD_WARPS * per_sm)
+            assert 8 * vecs <= budget // 2
+
+
+def test_fwd_grid_spreads_a_decode_step_over_the_sms():
+    """n 8 rows of 2048 (a decode step over 8 slots): one warp a block,
+    eight blocks, so each row's loads start on an SM of their own."""
+    assert tln.fwd_grid(8, 2048, torch.bfloat16, sms=132) == (32, 8, 1, 8)
+
+
+def test_forward_kernel_wrapper_refuses_cpu_tensors():
+    x = torch.randn(3, 128)
+    w = torch.ones(128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layer_norm_fwd(x, w, torch.zeros(128), 1e-5, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(1048576, 128), (131072, 256), (8192, 1280)])
+def test_kernel_matches_plain_version_on_card_layer_norm_regimes(n, h):
+    """The forward kernel at OpenFold's pair and MSA rows (several rows a
+    warp) and GPT-2-large's h 1280 (LayerNorm, bf16, bf16 weight and
+    bias), against its plain version; skipped on a host without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _inputs(n, h, seed=19)
+    args = [_to_torch(a, "bfloat16").cuda() for a in (x, w, b)]
+    with torch.no_grad():
+        ours = tln.layer_norm_fwd(*args, 1e-5, False)
+        ref = tln._plain_forward(*args, 1e-5, False)
+    _check(tuple(t.cpu() for t in ours), tuple(t.cpu() for t in ref), "bfloat16")
+
+
+def test_fwd_grid_tables_match_the_kernel_source():
+    """The host's copy of the forward kernel's occupancy table and its
+    instantiated vector counts are the source's: ``fwd_blocks_per_sm``
+    (the kernel's ``__launch_bounds__``) and the ``launch_rows<TX, TW, NV>``
+    that ``launch`` dispatches to."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tln.__file__).resolve().parents[1] / "csrc"
+           / "layer_norm_fwd.cu").read_text()
+    body = re.search(r"int fwd_blocks_per_sm\(int nv\) \{ return (.*?); \}",
+                     src).group(1)
+    steps = [(int(a), int(b)) for a, b in re.findall(r"nv <= (\d+) \? (\d+) :", body)]
+    default = int(body.rsplit(":", 1)[1])
+    assert steps
+    for nv in range(1, 17):
+        want = next((b for a, b in steps if nv <= a), default)
+        assert tln._fwd_blocks_per_sm(nv) == want, nv
+    counts = {int(v) for v in re.findall(r"return launch_rows<TX, TW, (\d+)>", src)}
+    assert sorted(counts) == sorted(tln._FWD_VECS)

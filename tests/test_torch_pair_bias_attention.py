@@ -234,3 +234,176 @@ def test_kernels_match_plain_version_on_card():
     for a, r_ in zip(grads, ref):
         torch.testing.assert_close(a, r_, atol=2e-4, rtol=2e-4)
     assert torch.equal(grads[3], again[3])
+
+
+# ---------------------------------------------------------------------------
+# the 16-bit forward's TMA maps (worked out on the host, so held here)
+# ---------------------------------------------------------------------------
+
+
+def test_tma_geometry_of_openfold_strided_layout():
+    """OpenFold's q, k, v are ``[R, s, h, d]`` viewed as ``[R, h, s, d]``:
+    the map steps rows by ``h d``, heads by ``d`` and R by ``s h d``
+    elements, in bytes; boxes of 32 columns (64 bytes, the 64-byte
+    swizzle) by 64 rows at d 32."""
+    R, s, h, d = 128, 1024, 8, 32
+    q = torch.zeros(R, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    assert tpb._tma_geometry(tuple(q.shape), q.stride(), q.dtype) == (
+        d, s, h, R, 2 * h * d, 2 * d, 2 * s * h * d, 32, 64, 1, 1, 64)
+
+
+@pytest.mark.parametrize("d,cols,span", [(8, 32, 64), (24, 32, 64), (32, 32, 64),
+                                         (40, 64, 128), (64, 64, 128),
+                                         (72, 64, 128), (128, 64, 128)])
+def test_tma_geometry_of_contiguous_layout(d, cols, span):
+    """A contiguous ``[R, h, s, d]``: dims (d, s, h, R), packed byte
+    strides; the box is as wide as the padded head dim's swizzle span (32
+    columns up to d 32, else 64), its columns past d read as zeros."""
+    R, h, s = 6, 2, 100
+    q = torch.zeros(R, h, s, d, dtype=torch.float16)
+    assert tpb._tma_geometry(tuple(q.shape), q.stride(), q.dtype) == (
+        d, s, h, R, 2 * d, 2 * s * d, 2 * h * s * d, cols, 64, 1, 1, span)
+
+
+def test_tma_geometry_takes_the_packed_stride_of_a_unit_axis():
+    """An axis of extent 1 steps over nothing: its stride may be anything
+    (here 0) and the map takes the packed one."""
+    g = tpb._tma_geometry((1, 2, 64, 16), (0, 1024, 16, 1), torch.bfloat16)
+    assert g[4:7] == (32, 2048, 4096)
+
+
+@pytest.mark.parametrize("strides,axis", [((2048, 1024, 12, 1), "row"),
+                                          ((2048, 4, 16, 1), "head"),
+                                          ((0, 1024, 16, 1), "R")])
+def test_tma_geometry_raises_on_a_stride_off_16_bytes(strides, axis):
+    """TMA steps in whole 16-byte chunks: a stride that is not a positive
+    multiple of 16 bytes (or a broadcast's 0) raises, naming it."""
+    with pytest.raises(ValueError, match=f"the {axis} stride is"):
+        tpb._tma_geometry((2, 2, 128, 8), strides, torch.bfloat16)
+
+
+def test_tma_geometry_refuses_fp32_and_wide_heads():
+    with pytest.raises(TypeError, match="bf16 and fp16"):
+        tpb._tma_geometry((2, 2, 64, 32), (4096, 2048, 32, 1), torch.float32)
+    with pytest.raises(ValueError, match="head dim 136"):
+        tpb._tma_geometry((2, 2, 64, 136), (17408, 8704, 136, 1), torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,dtype,staged", [(1024, torch.bfloat16, True),
+                                            (128, torch.float16, True),
+                                            (1000, torch.float32, True),
+                                            (100, torch.bfloat16, False),
+                                            (1001, torch.float32, False),
+                                            (1001, torch.bfloat16, False),
+                                            (100, torch.float32, True)])
+def test_unstaged_bias_rows_take_the_lane_read_path(s, dtype, staged):
+    """A bias row of whole 16-byte chunks rides in the ring by TMA (its map:
+    dims (s, s, h, b), boxes of 64 rows by 128 bytes); any other row is
+    read by each lane from device memory: the maps carry zeros in its place
+    and no map of it can be made."""
+    assert tpb._bias_staged(s, dtype) is staged
+    part = ((6, 2, s, 32), (2 * s * 32, s * 32, 32, 1))
+    maps = list(tpb._tma_maps(torch.bfloat16, (part,) * 3, (3, 2, s, s), dtype))
+    assert len(maps) == 60 and maps[:36] == list(
+        tpb._tma_geometry(*part, torch.bfloat16)) * 3
+    assert tuple(maps[48:]) == tpb._mask_geometry(6, s)
+    if staged:
+        es = dtype.itemsize
+        assert tuple(maps[36:48]) == (s, s, 2, 3, s * es, s * s * es,
+                                      2 * s * s * es, 128 // es, 64, 1, 1, 128)
+    else:
+        assert maps[36:48] == [0] * 12
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            tpb._bias_geometry((3, 2, s, s), dtype)
+
+
+@pytest.mark.parametrize("s,row", [(1024, 1024), (100, 112), (1001, 1008),
+                                   (16, 16), (1, 16)])
+def test_mask_geometry_steps_rows_of_whole_16_bytes(s, row):
+    """The mask bytes' map: dims (s, R, 1, 1), rows ``s`` rounded up to 16
+    bytes (TMA's stride unit), boxes of one row of 64 bytes, no swizzle."""
+    assert tpb._mask_row_bytes(s) == row
+    assert tpb._mask_geometry(6, s) == (s, 6, 1, 1, row, 6 * row, 6 * row,
+                                        64, 1, 1, 1, 0)
+
+
+@pytest.mark.parametrize("s", [1024, 100, 1001])
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "none"])
+def test_mask_bytes_are_the_mask_in_whole_16_byte_rows(s, with_mask):
+    """The forward's mask bytes: the mask itself where its rows are whole
+    16-byte chunks, a zero-padded copy where not (the padding reads as
+    masked, as keys past s), all ones where there is no mask."""
+    R = 3
+    mask = None
+    if with_mask:
+        mask = (torch.rand(R, s, generator=torch.Generator().manual_seed(s))
+                > 0.2).view(torch.uint8)
+    got = tpb._mask_bytes(mask, R, s, torch.device("cpu"))
+    row = tpb._mask_row_bytes(s)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (R, row)
+    assert got.is_contiguous()
+    if mask is not None and row == s and mask.data_ptr() % 16 == 0:
+        assert got is mask
+    want = torch.ones(R, s, dtype=torch.uint8) if mask is None else mask
+    assert torch.equal(got[:, :s], want)
+    assert not got[:, s:].any()
+
+
+def test_tma_readable_copies_only_a_broadcast():
+    """The 16-bit forward copies an operand with a zero stride over more
+    than one element (TMA steps over none); a strided view, or a zero
+    stride on an axis of extent 1, goes through as it is."""
+    view = torch.zeros(4, 64, 2, 16, dtype=torch.bfloat16).transpose(1, 2)
+    assert tpb._tma_readable(view) is view
+    unit = torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16).expand(1, 2, 64, 16)
+    assert tpb._tma_readable(unit) is unit
+    one = torch.zeros(4, 1, 64, 16, dtype=torch.bfloat16).as_strided(
+        (4, 1, 64, 16), (1024, 0, 16, 1))
+    assert tpb._tma_readable(one) is one
+    wide = torch.randn(4, 1, 64, 16).to(torch.bfloat16).expand(4, 2, 64, 16)
+    got = tpb._tma_readable(wide)
+    assert got.is_contiguous() and torch.equal(got, wide)
+    assert tpb._tma_geometry(tuple(got.shape), got.stride(), got.dtype)[4:7] == (
+        32, 2048, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("s,d,bias_dtype", [(100, 8, None), (128, 24, None),
+                                            (200, 64, None),
+                                            (1000, 128, "float32")])
+def test_16bit_forward_matches_plain_version_on_card(dtype, s, d, bias_dtype):
+    """The TMA + wgmma forward in 16 bits against the plain version on the
+    card, in OpenFold's strided layout: d 8 and 24 (TMA's boxes read zeros
+    past d), s 100 (bias rows read by each lane) and 128, 200 (staged, a
+    ragged tile), d 128 with an fp32 bias (the largest ring), a fully
+    masked row.  o_ij within eps/2 sum_j p_ij |v_j| + floor s max|v| + 2
+    ulp(ref), chip_smoke.py's bound (p and v round to the 16-bit dtype
+    before p v: eps/2 half the dtype's epsilon, floor half its least
+    subnormal spacing, fp32's least normal for bf16); lse within 1e-5 +
+    1e-5 |ref|, +inf on the masked row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v, bias, mask, _ = _inputs(2, 3, 2, s, d, True, seed=9)
+    dt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(dt).cuda().transpose(1, 2).contiguous()
+                  .transpose(1, 2) for a in (q, k, v))
+    tb = torch.from_numpy(bias).to(getattr(torch, bias_dtype or dtype)).cuda()
+    tm = torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        o, lse = tpb.pair_bias_flash_attention_fwd(tq, tk, tv, tb, tm, 0.7)
+        ro, rlse = tpb._plain_forward(tq, tk, tv, tb, tm, 0.7)
+        pv_abs, _ = tpb._plain_forward(tq.float(), tk.float(), tv.float().abs(),
+                                       tb.float(), tm, 0.7)
+    fi = torch.finfo(dt)
+    half_eps = fi.eps / 2
+    floor = max(fi.tiny * half_eps, torch.finfo(torch.float32).tiny)
+    ref = ro.float()
+    mantissa = int(round(-np.log2(fi.eps)))
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(fi.tiny))) - mantissa)
+    tol = half_eps * pv_abs + floor * s * float(tv.float().abs().max()) + 2 * ulp
+    assert bool(((o.float() - ref).abs() <= tol).all())
+    assert torch.equal(torch.isinf(lse), torch.isinf(rlse))
+    assert bool(torch.isinf(lse[1]).all()) and bool((o[1] == 0).all())
+    fin = ~torch.isinf(rlse)
+    torch.testing.assert_close(lse[fin], rlse[fin], atol=1e-5, rtol=1e-5)
