@@ -2,7 +2,7 @@
 // dtype codes of the C interfaces, fp32 conversions of the three element
 // types, 16-byte vector loads and stores, warp sums, the dropout counter
 // hash, and the hardware 2^x.  Included by the .cu sources (directly or
-// through mma_sm90.cuh); _build.py hashes every .cuh here into each
+// through wgmma_sm90.cuh); _build.py hashes every .cuh here into each
 // library's name, so an edit here rebuilds them all.
 
 #pragma once

@@ -28,9 +28,10 @@
 //
 // Included by flash_attention_fwd.cu (the forward: s = q k^T by SS, o +=
 // p v by RS with v read MN-major), flash_attention_bwd.cu (dq, and dk
-// with dv) and pair_bias_attention_fwd.cu (the forward's products, with
-// the bias tile as a third streamed operand); _build.py hashes every .cuh
-// here into each library's name, so an edit here rebuilds them all.
+// with dv) and, through pair_bias.cuh, pair_bias_attention_fwd.cu and
+// pair_bias_attention_bwd.cu (the same products, with the bias tile as a
+// third streamed operand); _build.py hashes every .cuh here into each
+// library's name, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -106,8 +107,8 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int box_rows, in
 // loaded once), then full[S] and empty[S].  `once` completes on one
 // arrival and its bytes; `full` on the loading warp's 32 lanes (lane 0's
 // with the stage's bytes: the other lanes store the stage's vectors
-// before they arrive) and `empty` on one arrival from each of the two
-// warpgroups that read the stage.
+// before they arrive) and `empty` on `releases` arrivals: by default one
+// from each of the two warpgroups that read the stage.
 template <int S>
 struct FlashRing {
   static constexpr int kBytes = (1 + 2 * S) * 8;
@@ -118,12 +119,12 @@ struct FlashRing {
 };
 
 template <int S>
-__device__ __forceinline__ void init_ring(const FlashRing<S>& r) {
+__device__ __forceinline__ void init_ring(const FlashRing<S>& r, uint32_t releases = 2) {
   if (threadIdx.x == 0) {
     mbar_init(r.once(), 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(r.full(s), 32);
-      mbar_init(r.empty(s), 2);
+      mbar_init(r.empty(s), releases);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }

@@ -1,6 +1,8 @@
 // What the pair-bias attention kernels (pair_bias_attention_fwd.cu and
-// pair_bias_attention_bwd.cu) share: their one argument list, the tile
-// loads, the warp-level products, and the bias term of a score tile.
+// pair_bias_attention_bwd.cu) share: their one argument list, the bias
+// words of a score tile in the wgmma accumulator layout (from a staged
+// 128-byte-swizzled box or from device memory), and the TMA maps of the
+// 16-bit kernels (on flash_sm90.cuh).
 //
 // Layout.  q, k, v (and o, do, dq, dk, dv) are [R, h, s, d] with R = r * b
 // rows-major: R index t * b + bi is MSA row t of batch element bi, so the
@@ -22,7 +24,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -36,7 +38,7 @@ struct Params {
   const void* k;
   const void* v;
   const void* bias;       // [b, h, s, s] contiguous, bias_dtype
-  const uint8_t* mask;    // [R, s] contiguous, or null
+  const uint8_t* mask;    // [R, s] bytes in rows mask_ld apart, or null
   void* o;                // written by the forward, read by dq
   float* lse;             // [R, h, s]
   const void* dout;       // do
@@ -49,9 +51,10 @@ struct Params {
   int64_t st[kOperands][3];
   float scale;
   int bias_dtype;
+  int64_t mask_ld;        // the mask's row stride in bytes: s, or the 16-bit map's
   // bias rows are whole 16-byte chunks (s * element size % 16 == 0): the
-  // kernels stage bias tiles in shared memory with cp.async; else each
-  // lane reads its values from global memory
+  // 16-bit kernels stream bias tiles by TMA; else each lane reads its values
+  // from device memory
   bool staged;
 };
 
@@ -66,14 +69,6 @@ __device__ __forceinline__ float load_elem(const unsigned char* base, int64_t i,
   if (dt == kF32) return reinterpret_cast<const float*>(base)[i];
   if (dt == kBF16) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[i]);
   return __half2float(reinterpret_cast<const __half*>(base)[i]);
-}
-
-// elements i and i + 1 (i even, the tensor's start aligned): one load
-__device__ __forceinline__ float2 load_pair(const unsigned char* base, int64_t i, int dt) {
-  if (dt == kF32) return reinterpret_cast<const float2*>(base)[i >> 1];
-  if (dt == kBF16)
-    return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(base)[i >> 1]);
-  return __half22float2(reinterpret_cast<const __half2*>(base)[i >> 1]);
 }
 
 __device__ __forceinline__ void store_elem(unsigned char* base, int64_t i, int dt, float v) {
@@ -91,193 +86,177 @@ __device__ __forceinline__ void store_pair(unsigned char* base, int64_t i, int d
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 tiles for mma.sync m16n8k16
+// bf16 / fp16: the tiles the TMA + wgmma kernels stream (flash_sm90.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;        // rows a block (queries; keys in dk/dv)
-constexpr int kBN = 64;        // columns a tile
-constexpr int kWarps = 4;      // 16 rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // shared row padding (elements): conflict-free ldmatrix
+constexpr int kWgRows = 64;        // rows a consumer warpgroup owns; a box's rows
+constexpr int kKeys = 64;          // keys (or queries) a streamed tile
+constexpr int kBlockQueries = 2 * kWgRows;
+constexpr int kBiasBox = kWgRows * 128;   // one bias box: 64 rows of 128 bytes
+constexpr int kMaskBox = 128;             // a stage's mask bytes, 128-byte aligned
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may take on Hopper
 
-// rows [row0, row0 + 64) of a [rows, d] operand (row stride `rs` elements)
-// into shared memory as [64][D + kPad]; rows >= n_rows and columns >= d
-// (d a multiple of 8, D the next of 16/32/64/128) are zero-filled
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* smem, const T* base, int64_t rs, int row0,
-                                          int n_rows, int d) {
-  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
-#pragma unroll
-  for (int c = threadIdx.x; c < kBM * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool in = row0 + r < n_rows && col < d;
-    const T* src = in ? base + (int64_t)(row0 + r) * rs + col : base;
-    cp_async16(smem + r * (D + kPad) + col, src, in);
-  }
+// a 16-bit pair (the lower element in the low half) as two fp32 values
+__device__ __forceinline__ float2 pair_f32(uint32_t w, bool bf16) {
+  if (bf16) return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  __half2 h;
+  *reinterpret_cast<uint32_t*>(&h) = w;
+  return __half22float2(h);
 }
 
-// this warp's 16 rows of a [64][SD] tile as m16n8k16 A fragments
-template <typename T, int D>
-__device__ __forceinline__ void a_frags(uint32_t (&f)[D / 16][4], const T* tile, int warp,
-                                        int lane) {
-  constexpr int SD = D + kPad;
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldmatrix_x4(f[kc], tile + (warp * 16 + (mi & 1) * 8 + (lane & 7)) * SD + kc * 16 +
-                           (mi >> 1) * 8);
-}
-
-// acc[16 x 64] = A[16 x D] B^T, B a [64][SD] tile of 64 rows of D
-template <typename T, int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[kBN / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const T* bt, int lane) {
-  constexpr int SD = D + kPad;
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-    for (int np = 0; np < kBN / 16; ++np) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, bt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * SD + kc * 16 + (mi & 1) * 8);
-      MmaOp<T>::run(acc[2 * np], a[kc], bfr[0], bfr[1]);
-      MmaOp<T>::run(acc[2 * np + 1], a[kc], bfr[2], bfr[3]);
-    }
-  }
-}
-
-// out[16 x D] += X[16 x 64] B, X in accumulator layout (rounded to T here),
-// B a [64][SD] tile of 64 rows of D
-template <typename T, int D>
-__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4], const float (&x)[kBN / 8][4],
-                                       const T* bt, int lane) {
-  constexpr int SD = D + kPad;
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kc = 0; kc < kBN / 16; ++kc) {
-    uint32_t pa[4];
-    pa[0] = MmaOp<T>::pack(x[2 * kc][0], x[2 * kc][1]);
-    pa[1] = MmaOp<T>::pack(x[2 * kc][2], x[2 * kc][3]);
-    pa[2] = MmaOp<T>::pack(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    pa[3] = MmaOp<T>::pack(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, bt + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * SD + dp * 16 +
-                                 (mi >> 1) * 8);
-      MmaOp<T>::run(out[2 * dp], pa, bfr[0], bfr[1]);
-      MmaOp<T>::run(out[2 * dp + 1], pa, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// rows row_a and row_a + 8 of an fp32 accumulator [16 x D], times `mul`,
-// stored as T at base + row * rs, columns < d only (rows >= n_rows skipped)
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, int64_t rs, int row_a, int n_rows, int d,
-                                           const float (&acc)[D / 8][4], float mul, int tig) {
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    if (i * 8 >= d) break;
-    const int col = i * 8 + tig * 2;
-    if (row_a < n_rows)
-      *reinterpret_cast<uint32_t*>(base + (int64_t)row_a * rs + col) =
-          MmaOp<T>::pack(acc[i][0] * mul, acc[i][1] * mul);
-    if (row_a + 8 < n_rows)
-      *reinterpret_cast<uint32_t*>(base + (int64_t)(row_a + 8) * rs + col) =
-          MmaOp<T>::pack(acc[i][2] * mul, acc[i][3] * mul);
-  }
-}
-
-// A bias tile staged in shared memory: [64][kBiasStride] elements (8 of
-// padding a row keep the lanes' reads below free of bank conflicts)
-constexpr int kBiasStride = kBN + 8;
-
-__host__ __device__ constexpr int bias_tile_bytes(int esize) { return kBM * kBiasStride * esize; }
-
-// rows [row0, row0 + 64) x columns [col0, col0 + 64) of the bias plane
-// `bb` into shared memory with cp.async (p.staged: a row is whole 16-byte
-// chunks, so a chunk lies wholly inside or outside the plane); outside,
-// zeros
-__device__ __forceinline__ void stage_bias_tile(unsigned char* smem, const Params& p,
-                                                const unsigned char* bb, int row0, int col0) {
-  const int esize = p.bias_dtype == kF32 ? 4 : 2;
-  const int per_chunk = 16 / esize, chunks = kBN / per_chunk;
-  for (int c = threadIdx.x; c < kBM * chunks; c += kThreads) {
-    const int r = c / chunks, cc = (c % chunks) * per_chunk;
-    const bool in = row0 + r < p.s && col0 + cc < p.s;
-    const unsigned char* src = in ? bb + ((int64_t)(row0 + r) * p.s + col0 + cc) * esize : bb;
-    cp_async16(smem + (r * kBiasStride + cc) * esize, src, in);
-  }
-}
-
-// the mask term of the 64 columns from col0 of R row mrow (null: no mask):
-// 0 where the key is valid, -inf where it is masked or past s; threads
-// 0-63 store it (plain loads: read after the next barrier)
-__device__ __forceinline__ void stage_mask_term(float* madd, const Params& p,
-                                                const uint8_t* mrow, int col0) {
-  if (threadIdx.x < kBN) {
-    const int col = col0 + threadIdx.x;
-    madd[threadIdx.x] =
-        col < p.s && (mrow == nullptr || mrow[col] != 0) ? 0.f : -CUDART_INF_F;
-  }
-}
-
-// bias_tile's term from a staged tile and mask term
-__device__ __forceinline__ void bias_tile_smem(float (&add)[kBN / 8][4], const Params& p,
-                                               const unsigned char* bs, const float* madd,
-                                               int warp, int gr, int tig) {
-#pragma unroll
-  for (int n = 0; n < kBN / 8; ++n) {
-    const int col = n * 8 + tig * 2;
-    const float2 m = *reinterpret_cast<const float2*>(madd + col);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float2 b = load_pair(bs, (warp * 16 + gr + half * 8) * kBiasStride + col,
-                                 p.bias_dtype);
-      add[n][half * 2] = fmaf(b.x, kLog2e, m.x);
-      add[n][half * 2 + 1] = fmaf(b.y, kLog2e, m.y);
-    }
-  }
-}
-
-// The bias term (log2 units) of this lane's entries of a [16 x 64] score
-// tile in accumulator layout: rows row_a (c < 2) and row_a + 8 (c >= 2) of
-// the bias plane `bb`, columns k0 + n * 8 + tig * 2 + (c & 1).  A column
-// past s or masked out (mrow[col] == 0, mrow null = no mask) gets -inf; a
-// row past s gets 0 (its lse is +inf, or it is never stored).
-__device__ __forceinline__ void bias_tile(float (&add)[kBN / 8][4], const Params& p,
-                                          const unsigned char* bb, const uint8_t* mrow,
-                                          int row_a, int k0, int tig) {
+// The raw bias words of this lane's 32 accumulator entries (rows row_a and
+// row_a + 8 of the plane `bb`, columns k0 + 8 (i / 4) + 2 tig + (i & 1)) from
+// device memory: entry i = 4 n + 2 half + e; for fp32 one value a word, for
+// 16 bits the pair (e = 0, 1) in word 4 n + 2 half.  Zero past s.  Group m
+// holds words 8 m ... 8 m + 7 (n = 2 m, 2 m + 1).
+__device__ __forceinline__ void bias_group_global(uint32_t (&w)[8], const Params& p,
+                                                  const unsigned char* bb, int row_a, int k0,
+                                                  int tig, int m) {
   const bool pairs = (p.s & 1) == 0;
 #pragma unroll
-  for (int n = 0; n < kBN / 8; ++n) {
-    const int col = k0 + n * 8 + tig * 2;
+  for (int nn = 0; nn < 2; ++nn) {
+    const int col = k0 + (2 * m + nn) * 8 + tig * 2;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row_a + half * 8;
-      float b0 = 0.f, b1 = 0.f;
+      uint32_t w0 = 0, w1 = 0;
       if (row < p.s) {
-        const int64_t i = (int64_t)row * p.s + col;
-        if (pairs && col < p.s) {
-          const float2 v = load_pair(bb, i, p.bias_dtype);
-          b0 = v.x;
-          b1 = v.y;
+        const int64_t e = (int64_t)row * p.s + col;
+        if (p.bias_dtype == kF32) {
+          const uint32_t* src = reinterpret_cast<const uint32_t*>(bb) + e;
+          if (pairs && col < p.s) {
+            const uint2 v = *reinterpret_cast<const uint2*>(src);
+            w0 = v.x;
+            w1 = v.y;
+          } else {
+            if (col < p.s) w0 = src[0];
+            if (col + 1 < p.s) w1 = src[1];
+          }
         } else {
-          if (col < p.s) b0 = load_elem(bb, i, p.bias_dtype);
-          if (col + 1 < p.s) b1 = load_elem(bb, i + 1, p.bias_dtype);
+          const uint16_t* src = reinterpret_cast<const uint16_t*>(bb) + e;
+          if (pairs && col < p.s) {
+            w0 = *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            w0 = (col < p.s ? src[0] : 0u) | (col + 1 < p.s ? (uint32_t)src[1] << 16 : 0u);
+          }
         }
       }
-      const bool ok0 = col < p.s && (mrow == nullptr || mrow[col] != 0);
-      const bool ok1 = col + 1 < p.s && (mrow == nullptr || mrow[col + 1] != 0);
-      add[n][half * 2] = ok0 ? b0 * kLog2e : -CUDART_INF_F;
-      add[n][half * 2 + 1] = ok1 ? b1 * kLog2e : -CUDART_INF_F;
+      w[4 * nn + 2 * half] = w0;
+      w[4 * nn + 2 * half + 1] = w1;
     }
   }
+}
+
+// The same words from a staged bias tile: 64-row boxes of 128-byte rows,
+// 128-byte swizzled (chunk j of row r at j ^ (r % 8)), one box of 64 16-bit
+// columns or two of 32 fp32 ones; this warp's rows warp * 16 + g (+ 8)
+__device__ __forceinline__ void bias_group_smem(uint32_t (&w)[8], const unsigned char* tile,
+                                                bool f32, int warp, int g, int tig, int m) {
+#pragma unroll
+  for (int nn = 0; nn < 2; ++nn) {
+    const int n = 2 * m + nn;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + g + half * 8;
+      if (f32) {
+        const int chunk = 2 * (n & 3) + (tig >> 1);
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            tile + (n >> 2) * kBiasBox + r * 128 + ((chunk ^ g) << 4) + 8 * (tig & 1));
+        w[4 * nn + 2 * half] = v.x;
+        w[4 * nn + 2 * half + 1] = v.y;
+      } else {
+        w[4 * nn + 2 * half] =
+            *reinterpret_cast<const uint32_t*>(tile + r * 128 + ((n ^ g) << 4) + 4 * tig);
+      }
+    }
+  }
+}
+
+// all 32 words of either
+__device__ __forceinline__ void bias_words_global(uint32_t (&w)[32], const Params& p,
+                                                  const unsigned char* bb, int row_a, int k0,
+                                                  int tig) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    uint32_t g8[8];
+    bias_group_global(g8, p, bb, row_a, k0, tig, m);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[8 * m + j] = g8[j];
+  }
+}
+
+__device__ __forceinline__ void bias_words_smem(uint32_t (&w)[32], const unsigned char* tile,
+                                                bool f32, int warp, int g, int tig) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    uint32_t g8[8];
+    bias_group_smem(g8, tile, f32, warp, g, tig, m);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[8 * m + j] = g8[j];
+  }
+}
+
+// A rank-4 map from its geometry, 12 values as ops/pair_bias_attention.py's
+// _tma_geometry gives them: dims (innermost first), the byte strides of the
+// outer three, the box and the swizzle span in bytes (64 or 128; 0 for
+// none).  False if the box or span is not the one the kernel reads, or the
+// encoder refuses.
+inline bool encode_map(CUtensorMap* map, const void* base, const long long* g,
+                       CUtensorMapDataType type, int box_cols, int box_rows, int span) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || base == nullptr || g[7] != box_cols || g[8] != box_rows ||
+      g[9] != 1 || g[10] != 1 || g[11] != span)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2],
+                              (cuuint64_t)g[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline CUtensorMapDataType map_type(int dtype) {
+  return dtype == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// The maps a 16-bit kernel reads, from `maps` (ops/pair_bias_attention.py's
+// _tma_maps; 12 values each, `n` of them): q, k, v (and do), [R, h, s, d] in
+// boxes of 64 rows by the padded head dim's box columns; the bias [b, h, s,
+// s] in boxes of 64 rows by 128 bytes, where it is staged (else q's map
+// stands in, never read); the kv mask's bytes [R, s] in boxes of one row of
+// kKeys bytes, whose row stride becomes p.mask_ld.  False for a geometry
+// that is not the kernels' or that the encoder refuses.
+template <int D>
+bool encode_maps(CUtensorMap* m, int n, Params& p, int dtype, const long long* maps) {
+  constexpr int kCols = FlashTile<D>::kBoxCols, kSpan = FlashTile<D>::kRowBytes;
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  const long long* mb = maps + 12 * (n - 1);    // the mask's
+  const long long* bg = mb - 12;                // the bias's
+  if (maps == nullptr || mb[0] != p.s || mb[1] != p.R ||
+      !encode_map(&m[n - 1], p.mask, mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, kKeys, 1, 0))
+    return false;
+  for (int i = 0; i < n - 2; ++i)
+    if (maps[12 * i] != p.d || !encode_map(&m[i], bases[i], maps + 12 * i, map_type(dtype),
+                                           kCols, kWgRows, kSpan))
+      return false;
+  const int esize = p.bias_dtype == kF32 ? 4 : 2;
+  if (p.staged) {
+    if (bg[0] != p.s || bg[1] != p.s ||
+        !encode_map(&m[n - 2], p.bias, bg, map_type(p.bias_dtype), 128 / esize, kWgRows, 128))
+      return false;
+  } else {
+    m[n - 2] = m[0];   // never read
+  }
+  p.mask_ld = mb[4];
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -321,6 +300,7 @@ bool make_params(Params& p, const void* q, const void* k, const void* v, const v
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.scale = scale;
   p.bias_dtype = bias_dtype;
+  p.mask_ld = s;
   p.staged = ((int64_t)s * (bias_dtype == kF32 ? 4 : 2)) % 16 == 0;
   return true;
 }

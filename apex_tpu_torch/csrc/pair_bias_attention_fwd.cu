@@ -91,20 +91,13 @@
 // cudaErrorInvalidValue for a shape it does not take or a map that is not
 // the kernel's or that cuTensorMapEncodeTiled refuses.
 
-#include "flash_sm90.cuh"
 #include "pair_bias.cuh"
 
 namespace {
 
-constexpr int kWgRows = 64;        // queries a consumer warpgroup owns; a box's rows
-constexpr int kKeys = 64;          // keys a streamed tile
 constexpr int kStages = 3;         // streamed tiles in flight
-constexpr int kBlockQueries = 2 * kWgRows;
-constexpr int kBiasBox = kWgRows * 128;   // one bias box: 64 rows of 128 bytes
-constexpr int kMaskBox = 128;             // a stage's mask bytes, 128-byte aligned
 
 constexpr int kFwdThreads = 256;   // two consumer warpgroups
-constexpr int kSmemMax = 232448;   // dynamic shared memory a block may take on Hopper
 
 // A block: one R row by two 64-query halves, one consumer warpgroup each,
 // warp 0 also issuing the loads.  Shared memory, from a 1024-byte boundary
@@ -131,80 +124,6 @@ struct FwdSmem {
 };
 // the most it takes, whatever s: d 128 with an fp32 bias (four boxes a stage)
 static_assert(FwdSmem<128>{4}.bytes() <= kSmemMax, "the ring does not fit");
-
-// a 16-bit pair (the lower element in the low half) as two fp32 values
-__device__ __forceinline__ float2 pair_f32(uint32_t w, bool bf16) {
-  if (bf16) return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-  __half2 h;
-  *reinterpret_cast<uint32_t*>(&h) = w;
-  return __half22float2(h);
-}
-
-// The raw bias words of this lane's 32 accumulator entries (rows row_a and
-// row_a + 8 of the plane `bb`, columns k0 + 8 (i / 4) + 2 tig + (i & 1)) from
-// device memory: entry i = 4 n + 2 half + e; for fp32 one value a word, for
-// 16 bits the pair (e = 0, 1) in word 4 n + 2 half.  Zero past s.
-__device__ __forceinline__ void bias_words_global(uint32_t (&w)[32], const Params& p,
-                                                  const unsigned char* bb, int row_a, int k0,
-                                                  int tig) {
-  const bool pairs = (p.s & 1) == 0;
-#pragma unroll
-  for (int n = 0; n < kKeys / 8; ++n) {
-    const int col = k0 + n * 8 + tig * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row_a + half * 8;
-      uint32_t w0 = 0, w1 = 0;
-      if (row < p.s) {
-        const int64_t e = (int64_t)row * p.s + col;
-        if (p.bias_dtype == kF32) {
-          const uint32_t* src = reinterpret_cast<const uint32_t*>(bb) + e;
-          if (pairs && col < p.s) {
-            const uint2 v = *reinterpret_cast<const uint2*>(src);
-            w0 = v.x;
-            w1 = v.y;
-          } else {
-            if (col < p.s) w0 = src[0];
-            if (col + 1 < p.s) w1 = src[1];
-          }
-        } else {
-          const uint16_t* src = reinterpret_cast<const uint16_t*>(bb) + e;
-          if (pairs && col < p.s) {
-            w0 = *reinterpret_cast<const uint32_t*>(src);
-          } else {
-            w0 = (col < p.s ? src[0] : 0u) | (col + 1 < p.s ? (uint32_t)src[1] << 16 : 0u);
-          }
-        }
-      }
-      w[4 * n + 2 * half] = w0;
-      w[4 * n + 2 * half + 1] = w1;
-    }
-  }
-}
-
-// The same words from a staged bias tile: 64-row boxes of 128-byte rows,
-// 128-byte swizzled (chunk j of row r at j ^ (r % 8)), one box of 64 16-bit
-// columns or two of 32 fp32 ones; this warp's rows warp * 16 + g (+ 8)
-__device__ __forceinline__ void bias_words_smem(uint32_t (&w)[32], const unsigned char* tile,
-                                                bool f32, int warp, int g, int tig) {
-#pragma unroll
-  for (int n = 0; n < kKeys / 8; ++n) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = warp * 16 + g + half * 8;
-      if (f32) {
-        const int chunk = 2 * (n & 3) + (tig >> 1);
-        const uint2 v = *reinterpret_cast<const uint2*>(
-            tile + (n >> 2) * kBiasBox + r * 128 + ((chunk ^ g) << 4) + 8 * (tig & 1));
-        w[4 * n + 2 * half] = v.x;
-        w[4 * n + 2 * half + 1] = v.y;
-      } else {
-        w[4 * n + 2 * half] =
-            *reinterpret_cast<const uint32_t*>(tile + r * 128 + ((n ^ g) << 4) + 4 * tig);
-      }
-    }
-  }
-}
 
 // two blocks an SM at d <= 32 (at most 128 registers a thread), one above
 template <typename T, int D>
@@ -537,68 +456,19 @@ pair_bias_fwd_f32(const Params p) {
   if (lane == 0) p.lse[(int64_t)g * p.s + row] = l > 0.f ? m + logf(l) : CUDART_INF_F;
 }
 
-// A rank-4 map from its geometry, 12 values as ops/pair_bias_attention.py's
-// _tma_geometry gives them: dims (innermost first), the byte strides of the
-// outer three, the box and the swizzle span in bytes (64 or 128; 0 for
-// none).  False if the box or span is not the one the kernel reads, or the
-// encoder refuses.
-bool encode_map(CUtensorMap* map, const void* base, const long long* g, CUtensorMapDataType type,
-                int box_cols, int box_rows, int span) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr || base == nullptr || g[7] != box_cols || g[8] != box_rows ||
-      g[9] != 1 || g[10] != 1 || g[11] != span)
-    return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1], (cuuint64_t)g[2],
-                              (cuuint64_t)g[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5], (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-CUtensorMapDataType map_type(int dtype) {
-  return dtype == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-         : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-}
-
 template <typename T, int D>
-cudaError_t launch_wgmma(const Params& p, int dtype, const long long* maps, cudaStream_t stream) {
-  // maps: q, k and v (dims[0] the head dim d, read in boxes of kBoxCols
-  // columns, the ones past d zero-filled), then the bias (s x s, boxes of
-  // 128 bytes) where it is staged, every box 64 rows; then the mask bytes
-  // (s x R, boxes of one row of kKeys bytes, no swizzle)
-  constexpr int kCols = FlashTile<D>::kBoxCols, kSpan = FlashTile<D>::kRowBytes;
-  CUtensorMap mq, mk, mv, mb, mm;
-  if (maps == nullptr || maps[0] != p.d || maps[12] != p.d || maps[24] != p.d ||
-      maps[48] != p.s || maps[49] != p.R ||
-      !encode_map(&mq, p.q, maps, map_type(dtype), kCols, kWgRows, kSpan) ||
-      !encode_map(&mk, p.k, maps + 12, map_type(dtype), kCols, kWgRows, kSpan) ||
-      !encode_map(&mv, p.v, maps + 24, map_type(dtype), kCols, kWgRows, kSpan) ||
-      !encode_map(&mm, p.mask, maps + 48, CU_TENSOR_MAP_DATA_TYPE_UINT8, kKeys, 1, 0))
-    return cudaErrorInvalidValue;
-  const int esize = p.bias_dtype == kF32 ? 4 : 2;
-  if (p.staged) {
-    if (maps[36] != p.s || maps[37] != p.s ||
-        !encode_map(&mb, p.bias, maps + 36, map_type(p.bias_dtype), 128 / esize, kWgRows, 128))
-      return cudaErrorInvalidValue;
-  } else {
-    mb = mq;   // never read
-  }
-  const FwdSmem<D> L{p.staged ? 2 * (esize == 4 ? 2 : 1) : 0};
+cudaError_t launch_wgmma(Params p, int dtype, const long long* maps, cudaStream_t stream) {
+  // maps (pair_bias.cuh's encode_maps): q, k, v, the bias, the mask bytes
+  CUtensorMap m[5];
+  if (!encode_maps<D>(m, 5, p, dtype, maps)) return cudaErrorInvalidValue;
+  const FwdSmem<D> L{p.staged ? 2 * (p.bias_dtype == kF32 ? 2 : 1) : 0};
   const auto kernel = pair_bias_fwd_wgmma<T, D>;
   // the attribute is per device: set it on every launch, for the current one
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes());
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + kBlockQueries - 1) / kBlockQueries, p.h, p.R);
-  kernel<<<grid, kFwdThreads, L.bytes(), stream>>>(mq, mk, mv, mb, mm, p, L);
+  kernel<<<grid, kFwdThreads, L.bytes(), stream>>>(m[0], m[1], m[2], m[3], m[4], p, L);
   return cudaGetLastError();
 }
 

@@ -26,20 +26,23 @@ A call that records a gradient goes through :class:`_PairBiasFunction`,
 which saves q, k, v, the bias, the mask, o and lse (never the scores); its
 backward recomputes the probabilities from lse.
 
-The 16-bit forward reads q, k, v and the bias through TMA maps
-(:func:`_tma_geometry`, :func:`_bias_geometry`): q, k and v through maps of
-their own strides, which TMA needs to be positive multiples of 16 bytes
-(an axis of extent 1 excepted).  A broadcast view (a zero stride over more
-than one element) is copied first (:func:`_tma_readable`), in the backward
-too, whose gradients take the operands' strides; a row, head or R stride
-that is not whole 16-byte chunks raises, naming the stride.  The
-bias goes through a map of its contiguous ``[b, h, s, s]`` where its rows
-are whole 16-byte chunks (``s`` a multiple of 8 in 16 bits, of 4 in fp32),
-and by each lane's own loads elsewhere.  The kv mask goes through a map of
-its bytes (:func:`_mask_geometry`), a padded copy where its rows are not
-whole 16-byte chunks (``s`` not a multiple of 16) and all ones where there
-is no mask (:func:`_mask_bytes`): a workspace of ``R`` rows of ``s``
-rounded up to 16 bytes, made only then.
+The 16-bit kernels, forward and backward, read q, k, v (the backward do
+too) and the bias through TMA maps (:func:`_tma_geometry`,
+:func:`_bias_geometry`): q, k and v through maps of their own strides,
+which TMA needs to be positive multiples of 16 bytes (an axis of extent 1
+excepted).  A broadcast view (a zero stride over more than one element) is
+copied first (:func:`_tma_readable`), in the backward too, whose gradients
+take the operands' strides; a row, head or R stride that is not whole
+16-byte chunks raises, naming the stride.  The backward takes ``do`` as
+autograd hands it over and ``o`` as the caller does, with any strides: each
+is copied where no map can step over it (:func:`_map_ready`).  The bias
+goes through a map of its contiguous ``[b, h, s, s]`` where its rows are
+whole 16-byte chunks (``s`` a multiple of 8 in 16 bits, of 4 in fp32), and
+by each lane's own loads elsewhere.  The kv mask goes through a map of its
+bytes (:func:`_mask_geometry`), a padded copy where its rows are not whole
+16-byte chunks (``s`` not a multiple of 16) and all ones where there is no
+mask (:func:`_mask_bytes`): a workspace of ``R`` rows of ``s`` rounded up
+to 16 bytes, made only then.
 
 One difference from the JAX function, on purpose: where the JAX
 ``pair_bias_flash_attention`` finds a shape its TPU kernel does not take,
@@ -182,13 +185,12 @@ def _plain_backward(q, k, v, bias, mask, o, lse, do, scale: float = 1.0):
 
 
 def _symbol(kernel: Kernel):
-    """One of the four entry points; all take one argument list, and the
-    forward the geometry of its maps after it."""
+    """One of the four entry points; all take one argument list and, after
+    it, the geometry of the 16-bit kernels' maps."""
     fn = getattr(_build.library(kernel.source), kernel.symbol)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 13 + [i] * 5 + [vp, ctypes.c_float, i, i, vp] + (
-            [vp] if kernel is PAIR_BIAS_FWD else [])
+        fn.argtypes = [vp] * 13 + [i] * 5 + [vp, ctypes.c_float, i, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -244,6 +246,21 @@ def _tma_readable(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _map_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where a map cannot step over it as it is
+    (nor the dq kernel's 16-byte row loads of ``o`` and ``do``): a last
+    stride other than 1, a start off 16 bytes, or another stride over more
+    than one element that is not a positive multiple of 16 bytes (a
+    broadcast's 0 among them).  The backward takes ``do``, which autograd
+    hands over with any strides, and ``o`` through it."""
+    es = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            n == 1 or (st > 0 and st * es % 16 == 0)
+            for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def _bias_staged(s: int, dtype) -> bool:
     """True where a bias row of ``s`` values is whole 16-byte chunks, which
     a TMA map can read (and the 16-bit forward stages); elsewhere each lane
@@ -265,7 +282,7 @@ def _bias_geometry(shape, dtype) -> tuple:
 
 
 def _mask_row_bytes(s: int) -> int:
-    """The row stride of the mask bytes the 16-bit forward reads: ``s``
+    """The row stride of the mask bytes the 16-bit kernels read: ``s``
     rounded up to 16 bytes, as TMA requires."""
     return -(-s // 16) * 16
 
@@ -280,7 +297,7 @@ def _mask_geometry(R: int, s: int) -> tuple:
 
 
 def _mask_bytes(mask, R: int, s: int, device) -> torch.Tensor:
-    """The kv mask as the 16-bit forward's map reads it: ``[R, s]`` bytes
+    """The kv mask as the 16-bit kernels' map reads it: ``[R, s]`` bytes
     (nonzero = attend) in rows of :func:`_mask_row_bytes`, starting on 16
     bytes.  ``mask`` (``[R, s]`` bytes) itself where it is laid out so,
     else a padded copy; all ones where there is no mask."""
@@ -294,28 +311,37 @@ def _mask_bytes(mask, R: int, s: int, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=64)
 def _tma_maps(dtype, parts: tuple, bias_shape: tuple, bias_dtype):
-    """The forward's five maps as the 60 values of its ``maps`` argument:
-    q, k, v (``parts``, each ``(shape, strides)``), the bias, or zeros
-    where it is not staged, and the mask bytes (:func:`_mask_geometry`).
-    Cached: every block of a model passes the same shapes and strides."""
+    """A 16-bit kernel's maps as the values of its ``maps`` argument, 12 a
+    map: ``parts`` (each ``(shape, strides)``: q, k, v for the forward's 60
+    values, and do for the backward's 72), the bias, or zeros where it is
+    not staged, and the mask bytes (:func:`_mask_geometry`).  Cached: every
+    block of a model passes the same shapes and strides."""
     bias = (_bias_geometry(bias_shape, bias_dtype)
             if _bias_staged(bias_shape[-1], bias_dtype) else (0,) * 12)
     R, _, s, _ = parts[0][0]
-    return (ctypes.c_longlong * 60)(
+    return (ctypes.c_longlong * (12 * (len(parts) + 2)))(
         *(x for shape, strides in parts
           for x in _tma_geometry(shape, strides, dtype)), *bias,
         *_mask_geometry(R, s))
 
 
-def _check_operand(t: torch.Tensor, what: str, like: torch.Tensor, op: str):
+def _check_operand(t: torch.Tensor, what: str, like: torch.Tensor, op: str,
+                   laid_out: bool = True):
+    """``t`` lies where q does, in its dtype and shape and, where
+    ``laid_out``, with a unit last stride, a start on 16 bytes and strides
+    that are multiples of 8 elements."""
     if t.device != like.device:
         raise ValueError(f"{op}: {what} lies on {t.device}, q on {like.device}")
     if t.dtype != like.dtype:
         raise TypeError(f"{op}: {what} dtype {t.dtype} != q dtype {like.dtype}")
-    if t.shape != like.shape or t.stride(-1) != 1:
-        raise ValueError(f"{op}: {what} must be {tuple(like.shape)} with a "
-                         f"unit last stride, got {tuple(t.shape)} strides "
-                         f"{t.stride()}")
+    if t.shape != like.shape:
+        raise ValueError(f"{op}: {what} must be {tuple(like.shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not laid_out:
+        return
+    if t.stride(-1) != 1:
+        raise ValueError(f"{op}: {what} must have a unit last stride, got "
+                         f"strides {t.stride()}")
     if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
         raise ValueError(f"{op}: {what} must start on 16 bytes with strides "
                          f"that are multiples of 8 elements, got strides "
@@ -368,7 +394,7 @@ class _Launch:
         # a broadcast operand is copied: the forward's maps cannot step over
         # it, and the backward's gradients take its strides
         q, k, v = (_tma_readable(t) for t in (q, k, v))
-        tma = do is None and q.dtype != torch.float32
+        tma = q.dtype != torch.float32
         R, h, s, d = q.shape
         stats = (R, h, s)
         if tma:
@@ -379,7 +405,8 @@ class _Launch:
             grads = (None,) * 5
         else:
             for t, what in ((o, "o"), (do, "do")):
-                _check_operand(t, what, q, op)
+                _check_operand(t, what, q, op, laid_out=False)
+            o, do = _map_ready(o), _map_ready(do)
             if (lse.dtype != torch.float32 or tuple(lse.shape) != stats
                     or not lse.is_contiguous() or lse.device != q.device):
                 raise ValueError(f"{op}: lse must be contiguous fp32 {stats} "
@@ -399,7 +426,8 @@ class _Launch:
         self._maps = None
         if tma:
             self._maps = _tma_maps(
-                q.dtype, tuple((tuple(t.shape), t.stride()) for t in (q, k, v)),
+                q.dtype, tuple((tuple(t.shape), t.stride())
+                               for t in (q, k, v, do) if t is not None),
                 tuple(bias.shape), bias.dtype)
         # the tensors behind the raw pointers below stay alive with the call
         self._keep = (q, k, v, bias, mask, o, lse, do)
@@ -412,10 +440,9 @@ class _Launch:
             _DTYPE_CODES[bias.dtype])
 
     def launch(self, kernel: Kernel) -> None:
-        maps = (self._maps,) if kernel is PAIR_BIAS_FWD else ()
         status = _symbol(kernel)(*self._args,
                                  torch.cuda.current_stream().cuda_stream,
-                                 *maps)
+                                 self._maps)
         _build.check(status, kernel.name)
         kernel.launches += 1
 
@@ -442,7 +469,7 @@ def pair_bias_flash_attention_fwd(q, k, v, bias, mask=None,
 def pair_bias_flash_attention_bwd(q, k, v, bias, o, lse, do, mask=None,
                                   scale: Optional[float] = None):
     """``(dq, dk, dv, dbias)`` for the forward's ``o`` and ``lse`` and the
-    upstream ``do`` (like ``o``, any strides with a unit last one): the
+    upstream ``do`` (like ``o``, with any strides): the
     dq, dk/dv and dbias kernels for CUDA tensors (dq first: it writes the
     delta the other two read), the plain version for CPU ones."""
     scale = 1.0 if scale is None else float(scale)
@@ -468,11 +495,10 @@ class _PairBiasFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # do comes with whatever strides autograd gives it (an expanded
+        # zero-stride gradient, say): the wrapper copies it where the
+        # kernels cannot read it as it is
         q, k, v, bias, mask, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            # the kernels read rows of do; autograd may hand over another
-            # layout (an expanded zero-stride gradient, say)
-            do = do.contiguous()
         dq, dk, dv, dbias = pair_bias_flash_attention_bwd(
             q, k, v, bias, o, lse, do, mask, ctx.scale)
         return dq, dk, dv, dbias, None, None

@@ -1,6 +1,7 @@
-"""Time one tree's norm forward and pair-bias forward kernels on the card.
+"""Time one tree's norm forward and pair-bias attention kernels, and with
+``--openfold`` its OpenFold training step, on the card.
 
-    python3 apex_tpu_torch/tools/norm_pb_compare.py ROOT [ROOT ...]
+    python3 apex_tpu_torch/tools/norm_pb_compare.py [--openfold] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository (``.`` or a ``git archive`` of
 another commit, unpacked under ``build/``).  Each runs in a process of its
@@ -13,13 +14,20 @@ its kernels built from its own ``csrc``.  Each prints one JSON line:
   evaluation forward), with ``F.rms_norm`` beside it; LayerNorm with a bf16
   bias at GPT-2-large's n 8192 x h 1280 and OpenFold's m (131,072 x 256)
   and z (1,048,576 x 128), with ``F.layer_norm`` beside it;
-- the pair-bias forward at OpenFold's main shape (R 128, h 8, s 1024, d 32,
-  bf16, q/k/v strided views of ``[R, s, h, d]``, 10% of the keys masked),
-  with SDPA beside it (the bias tiled over the rows plus the mask fill as
-  one ``[R, h, s, s]`` bf16 ``attn_mask``);
+- the pair-bias forward and its dq, dk/dv and dbias kernels at OpenFold's
+  main shape (R 128, h 8, s 1024, d 32, bf16, q/k/v/do strided views of
+  ``[R, s, h, d]``, a bf16 bias ``[1, 8, 1024, 1024]``, 10% of the keys
+  masked), with SDPA's forward and backward (forward + backward minus
+  forward) beside them (the bias tiled over the rows plus the mask fill
+  as one ``[R, h, s, s]`` bf16 ``attn_mask``);
 
-each call's device ms (a CUDA graph of 20 calls, three readings), with the
-card's name and power limit.
+each call's device ms (a CUDA graph of 20 calls, three readings; the
+library's two), with the card's name and power limit.  With
+``--openfold``, also the tree's own ``chip_smoke.py``'s ``openfold_train``
+(four MSA-row attention blocks at the Evoformer widths, N_seq 128, N_res
+1024, bf16, ``FusedAdamSWA``, 1 + 6 steps): the steps' wall and host-issue
+ms, the peak memory, the launches a step, and the profiled step's device
+busy ms, idle share and device ms by kind.
 """
 
 import json
@@ -33,71 +41,131 @@ NORM = (("rms", 8, 2048), ("rms", 512, 2048), ("rms", 8192, 2048),
         ("layer_norm", 8192, 1280), ("layer_norm", 131072, 256),
         ("layer_norm", 1048576, 128))
 PAIR_BIAS = dict(R=128, h=8, s=1024, d=32, mask_rate=0.1)
+SOURCES = ["layer_norm_fwd.cu", "pair_bias_attention_fwd.cu", "pair_bias_attention_bwd.cu"]
+OPENFOLD_SOURCES = ["layer_norm_bwd.cu"]
 
 
-def measure(root: str) -> dict:
-    """The readings of the tree at ``root`` (run in a fresh process)."""
-    sys.path.insert(0, root)
+def _norm(out, g, dev) -> None:
     import torch
     import torch.nn.functional as F
 
-    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import layer_norm as ln
+
+    for norm, n, h in NORM:
+        x = torch.randn(n, h, generator=g, device=dev).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(torch.bfloat16)
+        if norm == "rms":
+            fn = lambda: ln.layer_norm_fwd(x, w, None, 1e-5, True)
+            lib = lambda: F.rms_norm(x, (h,), w, 1e-5)
+        else:
+            b = (0.1 * torch.randn(h, generator=g, device=dev)).to(torch.bfloat16)
+            fn = lambda: ln.layer_norm_fwd(x, w, b, 1e-5, False)
+            lib = lambda: F.layer_norm(x, (h,), w, b, 1e-5)
+        out[f"{norm}_n{n}_h{h}"] = {
+            "ms": [_device_ms(fn) for _ in range(3)],
+            "library_ms": [_device_ms(lib) for _ in range(2)]}
+
+
+def _pair_bias(out, g, dev) -> None:
+    import torch
+    import torch.nn.functional as F
+
     from apex_tpu_torch.ops import pair_bias_attention as pb
 
-    if not ln.__file__.startswith(root):
-        raise RuntimeError(f"imported {ln.__file__}, not the tree at {root}")
-    _build.build_all(["layer_norm_fwd.cu", "pair_bias_attention_fwd.cu"])
+    c = PAIR_BIAS
+    R, h, s, d = c["R"], c["h"], c["s"], c["d"]
+    q, k, v, do = (torch.randn(R, s, h, d, generator=g, device=dev)
+                   .mul(0.5).to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    bias = (torch.randn(1, h, s, s, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    mask = torch.rand(R, s, generator=g, device=dev) >= c["mask_rate"]
+    fill = torch.zeros(R, 1, 1, s, device=dev).masked_fill(
+        ~mask[:, None, None, :], float("-inf"))
+    am = (bias.float().repeat(R, 1, 1, 1) + fill).to(torch.bfloat16)
+    del fill
+    with torch.inference_mode():
+        fwd = lambda: pb.pair_bias_flash_attention_fwd(q, k, v, bias, mask)
+        o, lse = fwd()
+        call = pb._Launch(q, k, v, bias, mask, 1.0, o=o, lse=lse, do=do)
+        call.launch(pb.PAIR_BIAS_DQ)                 # delta for the other two
+        out["pair_bias_fwd"] = {
+            "ms": [_device_ms(fwd) for _ in range(3)],
+            "sdpa_ms": [_device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=am, scale=1.0), iters=5) for _ in range(2)]}
+        for name, kern in (("dq", pb.PAIR_BIAS_DQ), ("dkv", pb.PAIR_BIAS_DKV),
+                           ("dbias", pb.PAIR_BIAS_DBIAS)):
+            out[f"pair_bias_{name}"] = {
+                "ms": [_device_ms(lambda: call.launch(kern)) for _ in range(3)]}
+    del call, o, lse
+    # SDPA's backward: its forward and backward minus its forward, both
+    # with inputs that need gradients (which take another kernel than the
+    # forward alone)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, am)]
+    sdpa = lambda: F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+    both = lambda: torch.autograd.grad(sdpa(), leaves, do)
+    fwd_ms = [_device_ms(sdpa, iters=5) for _ in range(2)]
+    both_ms = [_device_ms(both, iters=5) for _ in range(2)]
+    out["pair_bias_bwd_sdpa_ms"] = [b - f for b, f in zip(both_ms, fwd_ms)]
+
+
+def _openfold(out, dev) -> None:
+    import torch
+
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as chip_smoke.py's main
+    torch.backends.cudnn.allow_tf32 = False
+    got = chip_smoke.openfold_train(dev)
+    prof = got["profile"]
+    out["openfold"] = {
+        "step_ms": got["step_ms"], "step_ms_median": got["step_ms_median"],
+        "step_issue_ms": got["step_issue_ms"], "peak_mem_bytes": got["peak_mem_bytes"],
+        "launches_per_step": got["launches_per_step"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+        "device_ms_by_kind": prof["device_ms_by_kind"]}
+
+
+def measure(root: str, openfold: bool) -> dict:
+    """The readings of the tree at ``root`` (run in a fresh process)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from apex_tpu_torch.ops import _build
+
+    if not _build.__file__.startswith(root):
+        raise RuntimeError(f"imported {_build.__file__}, not the tree at {root}")
+    _build.build_all(SOURCES + (OPENFOLD_SOURCES if openfold else []))
     dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"root": root, "nvidia_smi": smi}
     g = torch.Generator(device=dev).manual_seed(15)
     with torch.inference_mode():
-        for norm, n, h in NORM:
-            x = torch.randn(n, h, generator=g, device=dev).to(torch.bfloat16)
-            w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(torch.bfloat16)
-            if norm == "rms":
-                fn = lambda: ln.layer_norm_fwd(x, w, None, 1e-5, True)
-                lib = lambda: F.rms_norm(x, (h,), w, 1e-5)
-            else:
-                b = (0.1 * torch.randn(h, generator=g, device=dev)).to(torch.bfloat16)
-                fn = lambda: ln.layer_norm_fwd(x, w, b, 1e-5, False)
-                lib = lambda: F.layer_norm(x, (h,), w, b, 1e-5)
-            out[f"{norm}_n{n}_h{h}"] = {
-                "ms": [_device_ms(fn) for _ in range(3)],
-                "library_ms": [_device_ms(lib) for _ in range(2)]}
-        c = PAIR_BIAS
-        R, h, s, d = c["R"], c["h"], c["s"], c["d"]
-        q, k, v = (torch.randn(R, s, h, d, generator=g, device=dev)
-                   .mul(0.5).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-        bias = (torch.randn(1, h, s, s, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-        mask = torch.rand(R, s, generator=g, device=dev) >= c["mask_rate"]
-        fn = lambda: pb.pair_bias_flash_attention_fwd(q, k, v, bias, mask)
-        fill = torch.zeros(R, 1, 1, s, device=dev).masked_fill(
-            ~mask[:, None, None, :], float("-inf"))
-        am = (bias.float().repeat(R, 1, 1, 1) + fill).to(torch.bfloat16)
-        del fill
-        out["pair_bias_fwd"] = {
-            "ms": [_device_ms(fn) for _ in range(3)],
-            "sdpa_ms": [_device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=am, scale=1.0), iters=5) for _ in range(2)]}
+        _norm(out, g, dev)
+    _pair_bias(out, g, dev)
+    if openfold:
+        torch.cuda.empty_cache()
+        _openfold(out, dev)
     return out
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--one":
-        print(json.dumps(measure(os.path.abspath(argv[2]))), flush=True)
+    if len(argv) >= 3 and argv[1] == "--one":
+        print(json.dumps(measure(os.path.abspath(argv[2]), "--openfold" in argv[3:])),
+              flush=True)
         return 0
-    if len(argv) < 2:
+    flags = [a for a in argv[1:] if a == "--openfold"]
+    roots = [a for a in argv[1:] if a != "--openfold"]
+    if not roots:
         print(__doc__, file=sys.stderr)
         return 2
-    for root in argv[1:]:
+    for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                               root], capture_output=True, text=True)
+                               root, *flags], capture_output=True, text=True)
         if proc.returncode:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
+            print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
         print(proc.stdout.strip().splitlines()[-1], flush=True)
     return 0

@@ -1366,17 +1366,21 @@ def time_flash_attention_bwd(device) -> dict:
 
 # the sources whose 16-bit kernels run on wgmma fed by TMA, and nothing on
 # mma.sync: the flash forward and backward, the head forward and the
-# pair-bias forward; the norm forward's ptxas registers are logged beside
-# them (no products: no instruction gate)
+# pair-bias forward and backward; the norm forward's ptxas registers are
+# logged beside them (no products: no instruction gate)
 WGMMA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-                 "fused_lm_head_fwd.cu", "pair_bias_attention_fwd.cu")
+                 "fused_lm_head_fwd.cu", "pair_bias_attention_fwd.cu",
+                 "pair_bias_attention_bwd.cu")
 PTXAS_SOURCES = WGMMA_SOURCES + ("layer_norm_fwd.cu",)
 WGMMA_KERNELS = (("flash_fwd_wgmma", (32, 64, 128)), ("flash_dq_wgmma", (32, 64, 128)),
                  ("flash_dkv_wgmma", (32, 64, 128)), ("lm_head_fwd_wgmma", (None,)),
-                 ("pair_bias_fwd_wgmma", (32, 64, 128)))
+                 ("pair_bias_fwd_wgmma", (32, 64, 128)),
+                 ("pair_bias_dq_wgmma", (32, 64, 128)),
+                 ("pair_bias_dkv_wgmma", (32, 64, 128)),
+                 ("pair_bias_dbias_wgmma", (32, 64, 128)))
 # the libraries that hold no HMMA (mma.sync) at all
 NO_HMMA_SOURCES = ("flash_attention_fwd.cu", "fused_lm_head_fwd.cu",
-                   "pair_bias_attention_fwd.cu")
+                   "pair_bias_attention_fwd.cu", "pair_bias_attention_bwd.cu")
 
 
 def start_ptxas():
@@ -1403,8 +1407,8 @@ def _kernel_name(mangled: str):
     register path, its vectors a lane), or None."""
     import re
 
-    m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32)|pair_bias_fwd_(?:wgmma|f32))",
-                  mangled)
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32)"
+                  r"|pair_bias_(?:fwd|dq|dkv|dbias)_(?:wgmma|f32))", mangled)
     m_ln = re.search(r"ln_fwd_rowsI(f|13__nv_bfloat16|6__half)", mangled)
     if m:
         d = re.search(r"Li(32|64|128)E", mangled)
@@ -1510,7 +1514,8 @@ def wgmma_registers(jobs) -> dict:
                "registers), the head forward 384 (a producer and two "
                "consumer warpgroups, setmaxnreg 40/232), the pair-bias "
                "forward 256 (two warpgroups; two blocks an SM at d <= 32, at "
-               "most 128 registers); ln_fwd_rows/<x dtype>/nv<N>: the norm "
+               "most 128 registers), the pair-bias dq, dk/dv and dbias 288 "
+               "(two consumer warpgroups, one producer warp); ln_fwd_rows/<x dtype>/nv<N>: the norm "
                "forward's register path, N 16-byte vectors a lane (the "
                "largest over its three weight dtypes); "
                "wgmma_serialized: ptxas's C7512 note that the function's wgmma "
@@ -2278,8 +2283,181 @@ def serve(engine, requests, sv):
     t0 = time.perf_counter()
     results = sched.run()
     import torch
-    torch.cuda.synchronize()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
     return results, time.perf_counter() - t0
+
+
+class ChunkLog:
+    """Logs an engine's prefill chunks, ``(slot, tokens)`` in call order,
+    while it is entered (the engine's own ``prefill_chunk`` runs as it
+    is)."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def __enter__(self):
+        inner = self.engine.prefill_chunk
+
+        def logged(slot, tokens):
+            self.calls.append((slot, list(tokens)))
+            return inner(slot, tokens)
+
+        self.engine.prefill_chunk = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.prefill_chunk
+
+    def chunks_of(self, prompt) -> tuple:
+        """``(slot, lengths)``: the slot that cached ``prompt`` and its
+        chunks' lengths, in order.  The first chunk is found by its tokens,
+        the rest are that slot's next chunks (a slot holds one request
+        until it finishes)."""
+        prompt, slot, out = list(prompt), None, []
+        for s, tokens in self.calls:
+            if slot is None and tokens == prompt[:len(tokens)]:
+                slot = s
+            if s == slot and sum(out) < len(prompt):
+                if tokens != prompt[sum(out):sum(out) + len(tokens)]:
+                    raise AssertionError(f"slot {s}: a chunk of another prompt")
+                out.append(len(tokens))
+        if sum(out) != len(prompt):
+            raise AssertionError(f"the prompt's chunks not found: {out}")
+        return slot, out
+
+
+def serve_in_chunks(engine, request, slot: int, chunks, forced=None) -> tuple:
+    """``request`` served alone on the engine, reset first: its prompt
+    cached at ``slot`` in chunks of the given lengths, then decoded as the
+    scheduler decodes (one step computes every slot's row, this one
+    active) and sampled as it samples.  With ``forced`` (a token stream),
+    each decode step is fed ``forced``'s token in place of its own.
+    Returns ``(tokens, logits, x)``: the sampled tokens, each step's fp32
+    logits ``[steps, vocab]`` and the final norm's output row that the
+    logits were computed from (``[steps, hidden]``, fp32)."""
+    import numpy as np
+    import torch
+
+    got = {}
+    hook = engine.model.norm.register_forward_hook(
+        lambda mod, args, out: got.__setitem__("x", out))
+    r = request
+
+    def sample(logits, index):
+        return int(engine.sample(logits, [r.seed], [index], [r.temperature],
+                                 [r.top_k])[0])
+    try:
+        engine.reset()
+        pos = 0
+        for n in chunks:
+            logits = engine.prefill_chunk(slot, r.prompt[pos:pos + n])
+            pos += n
+        steps, xs = [logits], [got["x"][chunks[-1] - 1, 0].float()]
+        tokens = [sample(logits[None], 0)]
+        while len(tokens) < r.max_new_tokens and not (
+                r.eos_id is not None and tokens[-1] == r.eos_id):
+            ids = np.zeros((engine.slots,), np.int64)
+            active = np.zeros((engine.slots,), bool)
+            ids[slot] = tokens[-1] if forced is None else forced[len(tokens) - 1]
+            active[slot] = True
+            logits = engine.decode(ids, active)
+            steps.append(logits[slot])
+            xs.append(got["x"][0, slot].float())
+            tokens.append(sample(logits[[slot]], len(tokens)))
+    finally:
+        hook.remove()
+    return tokens, torch.stack(steps), torch.stack(xs)
+
+
+def serving_alone_checks(engine, probe, batched, chunk_log, sv) -> dict:
+    """That a request served alone repeats its batched run, in two checks.
+    The scheduler spends one prefill budget a step over every admitted
+    request (the JAX package's rule), so in the batched run the probe's
+    prompt was cut into other chunks than alone; other chunks are other
+    bucket shapes, whose products may round differently (on the card the
+    first op whose bits differ is layer 0's MLP down projection, a cuBLAS
+    product whose algorithm follows M).  Decode computes every slot's row
+    whatever is active, so the batch does not enter it.
+
+    1. Served alone in the batched run's chunks and slot
+       (:func:`serve_in_chunks`): the batched greedy stream, bit for bit.
+    2. Served alone in its own chunks, as the scheduler serves it alone, and
+       fed the batched stream: each step's logits within tol_j = (2L + 1) u
+       sqrt(sum_i x_i^2 E_ji^2) of the batched chunks', u = 2^-8 the bf16
+       unit roundoff, x the final norm's output and E the head: each of the
+       2L residual adds and the final norm rounds to bf16, and where the two
+       runs round one of them differently, their x differ by up to u
+       relative in each element, which moves logit j = x . E_j by about u
+       sqrt(sum_i x_i^2 E_ji^2) (the differences' signs independent of E's),
+       the 2L + 1 of them added at most linearly.  A top-2 swap needs the
+       margin to move by more than the two logits' tolerances, so the fed
+       run must pick the batched token wherever its or the batched run's
+       top-2 margin exceeds them, and the stream the scheduler gives alone
+       must equal the batched one up to the first step where it does not.
+       The scheduler's alone run is held bit for bit too: to the stream
+       :func:`serve_in_chunks` gives in the same chunks and slot, unforced.
+    Returns what the log records."""
+    import torch
+
+    slot, chunks = chunk_log.chunks_of(probe.prompt)
+    n, step = len(probe.prompt), engine.prefill_len
+    own = [min(step, n - i) for i in range(0, n, step)]
+    tokens, logits, x = serve_in_chunks(engine, probe, slot, chunks)
+    if tokens != batched:
+        raise AssertionError(f"{probe.rid} served alone in its batched chunks "
+                             f"{chunks} gave another stream: {tokens} vs {batched}")
+    engine.reset()
+    with ChunkLog(engine) as alone_log:
+        alone = serve(engine, [probe], sv)[0][probe.rid].tokens
+    alone_slot, alone_chunks = alone_log.chunks_of(probe.prompt)
+    if alone_chunks != own:
+        raise AssertionError(f"{probe.rid} served alone in chunks {alone_chunks}, "
+                             f"not its own {own}")
+    replay = serve_in_chunks(engine, probe, alone_slot, own)[0]
+    if alone != replay:
+        raise AssertionError(f"{probe.rid} served alone by the scheduler and "
+                             f"replayed in the same chunks and slot gave other "
+                             f"streams: {alone} vs {replay}")
+    fed, fed_logits, _ = serve_in_chunks(engine, probe, alone_slot, own, forced=tokens)
+    model, cfg = engine.model, engine.model.config
+    head = (model.embed_tokens.weight if cfg.tie_word_embeddings
+            else model.lm_head).detach().float()
+    tol = (2 * cfg.num_hidden_layers + 1) * 2.0 ** -8 * (
+        (x ** 2) @ (head ** 2).t()).sqrt()
+    ratio = float(((fed_logits - logits).abs() / tol).max())
+    if ratio > 1:
+        raise AssertionError(f"{probe.rid} served alone in its own chunks {own}: "
+                             f"logits off the batched chunks' by {ratio} x tolerance")
+    near_tie = []
+    for i in range(len(tokens)):
+        tie = False
+        for row in (logits[i], fed_logits[i]):
+            top = row.topk(2)
+            tie |= float(top.values[0] - top.values[1]) <= float(tol[i, top.indices].sum())
+        near_tie.append(tie)
+    swapped = [i for i, (a, b) in enumerate(zip(fed, tokens)) if a != b]
+    if any(not near_tie[i] for i in swapped):
+        raise AssertionError(f"{probe.rid} fed the batched stream picked other tokens "
+                             f"at steps {swapped}, not all near ties: {near_tie}")
+    first_tie = near_tie.index(True) if True in near_tie else len(tokens)
+    parts = next((i for i, (a, b) in enumerate(zip(alone, batched)) if a != b),
+                 None if len(alone) == len(batched) else min(len(alone), len(batched)))
+    if parts is not None and parts < first_tie:
+        raise AssertionError(f"{probe.rid} served alone parts from its batched "
+                             f"stream at step {parts}, before the first near tie "
+                             f"(step {first_tie}): {alone} vs {batched}")
+    return dict(probe=probe.rid, batched_chunks=chunks, alone_chunks=own, slot=slot,
+                alone_in_batched_chunks_identical=True,
+                logits_tol_ratio=ratio, max_abs_logit_diff=float(
+                    (fed_logits - logits).abs().max()),
+                near_tie_steps=[i for i, tie in enumerate(near_tie) if tie],
+                fed_token_swaps=swapped, alone_identical=alone == batched,
+                alone_equals_its_chunks_replayed=True,
+                alone_parts_at=parts,
+                tolerance="tol_j = (2L + 1) 2^-8 sqrt(sum_i x_i^2 E_ji^2), x the "
+                          "final norm's output, E the head; a near tie: the top-2 "
+                          "margin within the two logits' tolerances")
 
 
 def small_reference_check(device) -> dict:
@@ -2380,7 +2558,8 @@ def llama_1b(device, model, init_s) -> dict:
     chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
     torch.cuda.reset_peak_memory_stats()
     _dispatch.reset_launches()
-    results, wall = serve(engine, requests, sv)
+    with ChunkLog(engine) as chunk_log:
+        results, wall = serve(engine, requests, sv)
     launches = {k.name: k.launches for k in _dispatch.KERNELS}
     chunks = engine.prefill_chunks - chunks0
     steps = engine.decode_steps - steps0
@@ -2405,14 +2584,10 @@ def llama_1b(device, model, init_s) -> dict:
     generated = sum(len(res.tokens) for res in results.values())
     decode_rates = [(len(res.tokens) - 1) / (res.total_s - res.ttft_s)
                     for res in results.values()]
-    # one request again, alone: the same greedy stream
+    # the longest request again, alone: its batched stream (two checks)
     probe = max(requests, key=lambda r: len(r.prompt))
-    engine.reset()
-    alone, _ = serve(engine, [probe], sv)
-    if alone[probe.rid].tokens != results[probe.rid].tokens:
-        raise AssertionError(f"{probe.rid} alone gave another stream: "
-                             f"{alone[probe.rid].tokens} vs "
-                             f"{results[probe.rid].tokens}")
+    alone = serving_alone_checks(engine, probe, results[probe.rid].tokens,
+                                 chunk_log, sv)
     out = dict(
         config="llama-1b", layers=cfg.num_hidden_layers,
         hidden=cfg.hidden_size, params=n_params, dtype="bfloat16",
@@ -2424,7 +2599,7 @@ def llama_1b(device, model, init_s) -> dict:
         peak_mem_bytes=peak, prefill_chunks=chunks, decode_steps=steps,
         launches=launches, expected_norm_launches=expected,
         norm_launches_per_decode_step=2 * cfg.num_hidden_layers + 1,
-        rerun_alone_identical=True, probe=probe.rid)
+        served_alone=alone)
     log("phase3-llama-1b", **out)
     out["profile"] = profile_steps(engine, cfg)
     return out
@@ -3438,11 +3613,14 @@ OPENFOLD = dict(b=1, n_seq=128, n_res=1024, c_m=256, c_z=128, heads=8,
                 c_hidden=32, blocks=4, mask_rate=0.1)
 PAIR_BIAS_MAIN = dict(r=OPENFOLD["n_seq"], b=OPENFOLD["b"], h=OPENFOLD["heads"],
                       s=OPENFOLD["n_res"], d=OPENFOLD["c_hidden"])
+# dbias launches at the main shape, each held to the first call's bits
+PAIR_BIAS_DBIAS_REPEATS = 50
 
 
 def _pair_bias_inputs(case, g, device):
     """q, k, v, do ``[r*b, h, s, d]`` (``layout="openfold"``: views of
-    ``[R, s, h, d]``, the heads split from a linear's output), bias ``[b,
+    ``[R, s, h, d]``, the heads split from a linear's output;
+    ``do_layout="odd_rows"``: do's rows ``d + 4`` values apart), bias ``[b,
     h, s, s]``, all 0.5 N(0, 1), and a kv mask with R row 1 fully masked
     (``dead``)."""
     import torch
@@ -3461,6 +3639,9 @@ def _pair_bias_inputs(case, g, device):
         return rand(R, h, s, d).to(dt)
 
     q, k, v, do = (operand() for _ in range(4))
+    if case.get("do_layout") == "odd_rows":
+        # rows d + 4 values apart: off 16 bytes, no map can step over them
+        do = rand(R, h, s, d + 4).to(dt)[..., :d]
     bias = rand(b, h, s, s).to(bdt)
     mask = None
     if case.get("mask", True):
@@ -3533,8 +3714,13 @@ def check_pair_bias(device) -> dict:
     1024, 2048, 16400 (bf16, d 128), and 100 and 1001 (bias rows not staged
     in shared memory); mask on and off with a fully masked R row; b 1 and 2
     (the bias tiling over rows-major R); scale 0.7 and 1; an fp32 bias
-    beside 16-bit q/k/v (d 16, and d 128 at s 1000 and 1024); the openfold
-    layout (strided views); and the main path's shape.  dbias must be the same bits on two calls, and
+    beside 16-bit q/k/v (d 16, and d 128 at s 1000 and 1024, the latter
+    also in the openfold layout with a do whose rows no map can step over);
+    the openfold layout (strided views); and the main path's shape.  dbias
+    must be the same bits on two calls, and at the main shape on
+    PAIR_BIAS_DBIAS_REPEATS more launches; broadcast q, k, v, and a do with
+    strides no map takes (rows off 16 bytes, a zero head stride, a last
+    stride other than 1), must give the same bits as contiguous copies; and
     d = 136 must raise.  Returns the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import pair_bias_attention as pb
@@ -3559,11 +3745,17 @@ def check_pair_bias(device) -> dict:
                           bias_dtype="bfloat16" if dt == "float32"
                           else "float32"))
         if dt != "float32":
-            # the 16-bit forward's largest ring: d 128 with an fp32 bias
-            # (four bias boxes a stage), at a ragged s and a whole one
+            # the 16-bit kernels' largest rings: d 128 with an fp32 bias
+            # (four bias boxes a stage), at a ragged s and a whole one; then
+            # the same in the openfold layout with a do no map can read
+            # (the backward copies it)
             for s in (1000, 1024):
                 cases.append(dict(dtype=dt, d=128, s=s, r=2, b=2, h=1,
                                   scale=0.7, bias_dtype="float32"))
+            for s in (1000, 1024):
+                cases.append(dict(dtype=dt, d=128, s=s, r=2, b=2, h=2,
+                                  scale=0.7, bias_dtype="float32",
+                                  layout="openfold", do_layout="odd_rows"))
     # a long s at d 128: the 16-bit forward's shared memory does not grow
     # with s (a ragged last tile, bias rows staged)
     cases.append(dict(dtype="bfloat16", d=128, s=16400, r=2, b=1, h=1,
@@ -3613,6 +3805,15 @@ def check_pair_bias(device) -> dict:
                                   tols):
                 r[n] = _tol_ratio(a, e, t)
             same = torch.equal(grads[3], db_again)
+            if case.get("main"):
+                # at the main shape, dbias again and again: a stage handed
+                # back before its last reads would show as other bits
+                call = pb._Launch(q, k, v, bias, mask, scale, o=o, lse=lse, do=do)
+                call.launch(pb.PAIR_BIAS_DQ)
+                for _ in range(PAIR_BIAS_DBIAS_REPEATS):
+                    call.launch(pb.PAIR_BIAS_DBIAS)
+                    same &= torch.equal(grads[3], call.dbias)
+                del call
             dead_ok = mask is None or not case.get("dead", True) or (
                 bool((o[1] == 0).all()) and bool(torch.isinf(lse[1]).all()))
             if max(r.values()) > 1.0 or not same or not dead_ok:
@@ -3648,7 +3849,26 @@ def check_pair_bias(device) -> dict:
         if not all(torch.equal(a, e) for a, e in zip(got, want)):
             raise AssertionError("pair-bias attention of broadcast q, k, v differs "
                                  "from that of their contiguous copies")
-        del bq, bk, bv, bb, bm, bdo, cq, ck, cv, got, want
+        # a do that autograd may hand over with strides no map takes (rows
+        # off 16 bytes, a broadcast over the heads, a last stride other
+        # than 1): copied by the wrapper, the same bits as a contiguous do
+        odd_do = {
+            "rows_off_16_bytes": torch.randn(2, 4, 200, 36, generator=g,
+                                             device=device).to(torch.bfloat16)[..., :32],
+            "broadcast_heads": torch.randn(2, 1, 200, 32, generator=g, device=device)
+            .to(torch.bfloat16).expand(2, 4, 200, 32),
+            "last_stride_200": torch.randn(2, 4, 32, 200, generator=g, device=device)
+            .to(torch.bfloat16).transpose(-1, -2)}
+        for name, sdo in odd_do.items():
+            got = pb.pair_bias_flash_attention_bwd(cq, ck, cv, bb, want[0], want[1],
+                                                   sdo, bm, 0.7)
+            ref = pb.pair_bias_flash_attention_bwd(cq, ck, cv, bb, want[0], want[1],
+                                                   sdo.contiguous(), bm, 0.7)
+            if not all(torch.equal(a, e) for a, e in zip(got, ref)):
+                raise AssertionError(f"pair-bias backward with a do of strides "
+                                     f"{tuple(sdo.stride())} ({name}) differs from "
+                                     f"that of its contiguous copy")
+        del bq, bk, bv, bb, bm, bdo, cq, ck, cv, got, want, odd_do, sdo, ref
         wide = torch.zeros(2, 1, 64, 136, device=device, dtype=torch.bfloat16)
         try:
             pb.pair_bias_flash_attention_fwd(
@@ -3660,8 +3880,12 @@ def check_pair_bias(device) -> dict:
     torch.cuda.empty_cache()
     out = dict(kernel="pair_bias_attention_fwd + dq + dkv + dbias",
                cases=len(cases), worst_tol_ratio=worst, main_shape=main,
-               dbias_bit_identical_over_two_calls=True, d136_raises=d136,
+               dbias_bit_identical_over_two_calls=True,
+               dbias_main_shape_repeats_bit_identical=PAIR_BIAS_DBIAS_REPEATS,
+               d136_raises=d136,
                broadcast_qkv_same_bits_as_copies=True,
+               odd_do_same_bits_as_copies=["rows_off_16_bytes",
+                                           "broadcast_heads", "last_stride_200"],
                tolerance="fp32 o within 1e-5 + 1e-5|ref|; bf16/fp16 o_ij "
                          "within eps/2 sum_j p_ij |v_j| + floor s max|v| + "
                          "2 ulp(ref); lse within 1e-5 + 1e-5|ref|, +inf rows "

@@ -407,3 +407,147 @@ def test_16bit_forward_matches_plain_version_on_card(dtype, s, d, bias_dtype):
     assert bool(torch.isinf(lse[1]).all()) and bool((o[1] == 0).all())
     fin = ~torch.isinf(rlse)
     torch.testing.assert_close(lse[fin], rlse[fin], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the 16-bit backward's maps and operands (worked out on the host)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["openfold", "contiguous"])
+def test_backward_maps_add_do_to_the_forward_maps(layout):
+    """The backward's 72 map values: q, k, v and do through maps of their
+    own strides (do's from do, which may be laid out unlike q), then the
+    bias and the mask bytes, as the forward's 60 lay them out."""
+    R, h, s, d = 6, 2, 1024, 32
+    if layout == "openfold":
+        q = torch.zeros(R, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    else:
+        q = torch.zeros(R, h, s, d, dtype=torch.bfloat16)
+    do = torch.zeros(R, h, s, d, dtype=torch.bfloat16)
+    part = lambda t: (tuple(t.shape), t.stride())
+    fwd = list(tpb._tma_maps(torch.bfloat16, (part(q),) * 3, (3, h, s, s),
+                             torch.bfloat16))
+    bwd = list(tpb._tma_maps(torch.bfloat16, (part(q),) * 3 + (part(do),),
+                             (3, h, s, s), torch.bfloat16))
+    assert len(fwd) == 60 and len(bwd) == 72
+    assert bwd[:36] == fwd[:36] and bwd[48:] == fwd[36:]
+    assert tuple(bwd[36:48]) == (d, s, h, R, 2 * d, 2 * s * d, 2 * h * s * d,
+                                 32, 64, 1, 1, 64)
+    if layout == "openfold":
+        assert tuple(bwd[:12]) == (d, s, h, R, 2 * h * d, 2 * d, 2 * s * h * d,
+                                   32, 64, 1, 1, 64)
+
+
+def test_map_ready_copies_do_and_o_only_where_no_map_steps_over_them():
+    """The backward reads do (any strides, as autograd hands it over) and o
+    through maps and 16-byte row loads: a view a map can step over goes
+    through as it is (contiguous, OpenFold's strided view, a zero stride on
+    an axis of extent 1); rows off 16 bytes, a broadcast, a last stride
+    other than 1 and a start off 16 bytes take a contiguous copy."""
+    base = torch.randn(4, 2, 64, 16).to(torch.bfloat16)
+    as_is = {
+        "contiguous": base,
+        "openfold": torch.randn(4, 64, 2, 16).to(torch.bfloat16).transpose(1, 2),
+        "unit_axis_zero_stride": torch.randn(1, 2, 64, 16).to(torch.bfloat16)
+        .as_strided((1, 2, 64, 16), (0, 1024, 16, 1)),
+        "fp32_rows_of_16_bytes": torch.randn(4, 2, 64, 8)[..., :4],
+    }
+    copied = {
+        "rows_off_16_bytes": torch.randn(4, 2, 64, 20).to(torch.bfloat16)[..., :16],
+        "broadcast_heads": base[:, :1].expand(4, 2, 64, 16),
+        "last_stride_not_1": torch.randn(4, 2, 16, 64).to(torch.bfloat16)
+        .transpose(-1, -2),
+        "start_off_16_bytes": torch.randn(4 * 2 * 64 * 16 + 1).to(torch.bfloat16)[1:]
+        .view(4, 2, 64, 16),
+    }
+    for name, t in as_is.items():
+        assert tpb._map_ready(t) is t, name
+    for name, t in copied.items():
+        got = tpb._map_ready(t)
+        assert got is not t and got.is_contiguous(), name
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, t), name
+        assert tpb._map_ready(got) is got, name
+
+
+def _swizzled_box(rows, row_bytes=128):
+    """A [64 rows x 128 bytes] box as TMA's 128-byte swizzle lays it out in
+    shared memory: the 16-byte chunk c of row r at chunk c ^ (r % 8)."""
+    out = np.zeros(64 * 128, np.uint8)
+    for r in range(64):
+        for c in range(8):
+            dst = r * 128 + ((c ^ (r % 8)) << 4)
+            out[dst:dst + 16] = rows[r, 16 * c:16 * c + 16]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32], ids=["16bit", "fp32"])
+def test_transposed_bias_reads_of_the_dkv_kernel(dtype):
+    """The dk/dv kernel's bias tile arrives as the forward's boxes, [64
+    queries x 128 bytes of keys], 128-byte swizzled, while its accumulator
+    rows are keys: each lane reads its entries transposed
+    (``bias_words_smem_t`` in ``csrc/pair_bias_attention_bwd.cu``, whose
+    addressing this mirrors).  Lane (g, tig) of warp w needs bias[query 8 n
+    + 2 tig + e][key 16 w + g + 8 half] at word 4 n + 2 half (+ e in fp32;
+    16 bits: e = 0 low, e = 1 high).  16 bits: ldmatrix.x4.trans, lane L
+    giving the row address of 8 x 8 matrix L / 8's row L % 8; each 8-lane
+    phase must touch 8 distinct 16-byte bank groups.  fp32: one 32-bit load
+    a value, the warp's 32 lanes on 32 banks or one word."""
+    rng = np.random.default_rng(3)
+    per_box = 128 // np.dtype(dtype).itemsize          # keys a box
+    boxes = 64 // per_box                               # a warpgroup's 64 keys
+    bias = rng.integers(0, 2 ** 16, (64, 64)).astype(dtype)   # [query, key]
+    smem = np.concatenate([_swizzled_box(
+        bias[:, b * per_box:(b + 1) * per_box].copy().view(np.uint8).reshape(64, 128))
+        for b in range(boxes)])
+
+    def word(addr):
+        return int(smem[addr:addr + 4].view(np.uint32)[0])
+
+    for warp in range(4):
+        got = np.zeros((32, 32), np.uint64)
+        if dtype == np.uint16:
+            for m in range(4):
+                addrs = []
+                for lane in range(32):
+                    mi, rr = lane >> 3, lane & 7
+                    n, half = 2 * m + (mi >> 1), mi & 1
+                    addrs.append((8 * n + rr) * 128 + (((2 * warp + half) ^ rr) << 4))
+                for ph in range(4):
+                    groups = {(a // 16) % 8 for a in addrs[8 * ph:8 * ph + 8]}
+                    assert len(groups) == 8, (warp, m, ph)
+                for lane in range(32):
+                    g, tig = lane >> 2, lane & 3
+                    for j in range(4):
+                        lo = smem[addrs[8 * j + 2 * tig] + 2 * g:][:2].view(np.uint16)[0]
+                        hi = smem[addrs[8 * j + 2 * tig + 1] + 2 * g:][:2].view(np.uint16)[0]
+                        got[lane, 4 * (2 * m + (j >> 1)) + 2 * (j & 1)] = \
+                            int(lo) | int(hi) << 16
+        else:
+            for n in range(8):
+                for half in range(2):
+                    for e in range(2):
+                        addrs = []
+                        for lane in range(32):
+                            g, tig = lane >> 2, lane & 3
+                            chunk = (warp & 1) * 4 + 2 * half + (g >> 2)
+                            row = 8 * n + 2 * tig + e
+                            addrs.append((warp >> 1) * 64 * 128 + row * 128
+                                         + ((chunk ^ (row & 7)) << 4) + 4 * (g & 3))
+                            got[lane, 4 * n + 2 * half + e] = word(addrs[-1])
+                        banks = {}
+                        for a in addrs:
+                            banks.setdefault((a // 4) % 32, set()).add(a)
+                        assert all(len(v) == 1 for v in banks.values()), (warp, n, half, e)
+        for lane in range(32):
+            g, tig = lane >> 2, lane & 3
+            for n in range(8):
+                for half in range(2):
+                    key = 16 * warp + g + 8 * half
+                    q0 = 8 * n + 2 * tig
+                    if dtype == np.uint16:
+                        want = int(bias[q0, key]) | int(bias[q0 + 1, key]) << 16
+                        assert got[lane, 4 * n + 2 * half] == want
+                    else:
+                        assert got[lane, 4 * n + 2 * half] == bias[q0, key]
+                        assert got[lane, 4 * n + 2 * half + 1] == bias[q0 + 1, key]
