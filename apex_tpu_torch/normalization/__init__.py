@@ -22,9 +22,9 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_rms_norm_affine,
 )
 
-__all__ = ["FusedLayerNorm", "FusedRMSNorm", "fused_layer_norm",
-           "fused_layer_norm_affine", "fused_rms_norm",
-           "fused_rms_norm_affine"]
+__all__ = ["FusedLayerNorm", "FusedRMSNorm", "MixedFusedLayerNorm",
+           "MixedFusedRMSNorm", "fused_layer_norm", "fused_layer_norm_affine",
+           "fused_rms_norm", "fused_rms_norm_affine"]
 
 Shape = Union[int, Sequence[int]]
 
@@ -92,3 +92,28 @@ class FusedRMSNorm(nn.Module):
         return fused_rms_norm_affine(x, self.scale, self.normalized_shape,
                                      self.eps,
                                      memory_efficient=self.memory_efficient)
+
+
+class MixedFusedLayerNorm(FusedLayerNorm):
+    """Megatron's mixed-dtype LayerNorm (apex.normalization.
+    MixedFusedLayerNorm): the parameters stay fp32 while the input may be
+    bf16 or fp16.  The kernels take a weight and bias of any dtype beside
+    any input dtype, so this subclass only pins the parameters to fp32."""
+
+    def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
+                 elementwise_affine: bool = True,
+                 memory_efficient: bool = False, *, device="cuda"):
+        super().__init__(normalized_shape, eps, elementwise_affine,
+                         memory_efficient, dtype=torch.float32, device=device)
+
+
+class MixedFusedRMSNorm(FusedRMSNorm):
+    """Megatron's mixed-dtype RMSNorm (apex.normalization.MixedFusedRMSNorm):
+    fp32 parameters beside a bf16 or fp16 input, as
+    :class:`MixedFusedLayerNorm`."""
+
+    def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
+                 elementwise_affine: bool = True,
+                 memory_efficient: bool = False, *, device="cuda"):
+        super().__init__(normalized_shape, eps, elementwise_affine,
+                         memory_efficient, dtype=torch.float32, device=device)

@@ -52,9 +52,11 @@ LAYER_NORM_BWD = register(Kernel(
     replaces="apex_tpu/ops/layer_norm.py:113 _bwd_kernel"))
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# shared memory a block may use on Hopper, and the backward's blocks an SM
+# shared memory a block may use on Hopper, an SM's in all, and what the
+# card keeps of it for each resident block
 _SMEM_MAX = 232448
-_BWD_BLOCKS_PER_SM = 3
+_SMEM_SM = 233472
+_SMEM_BLOCK_RESERVED = 1024
 # the forward (csrc/layer_norm_fwd.cu): at most 8 warps a block; the 16-
 # byte vectors of a row a lane may keep in registers (64 values), the
 # counts instantiated, and the blocks an SM each count's registers allow
@@ -64,10 +66,40 @@ _FWD_WARPS = 8
 _FWD_MAX_VALUES = 64
 _FWD_VECS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
 _REGS_PER_SM = 65536
+# the backward (csrc/layer_norm_bwd.cu): the register form's threads a
+# block (kThreads), the vector counts instantiated (up to kMaxVecs), the
+# rows each count keeps in shared memory (bwd_stages) and the blocks an SM
+# its registers allow (bwd_blocks_per_sm, its __launch_bounds__), its
+# static shared memory (the row sums across warps); the streaming form's
+# blocks an SM; a CPU test holds them to the source
+_BWD_THREADS = 256
+_BWD_VECS = (1, 2, 3, 4)
+_BWD_STATIC_SMEM = 2 * 8 * 2 * 4
+_BWD_STREAM_BLOCKS_PER_SM = 3
 
 
 def _fwd_blocks_per_sm(vecs: int) -> int:
     return 4 if vecs <= 2 else 3 if vecs <= 4 else 2 if vecs <= 8 else 1
+
+
+def _bwd_stages(vecs: int) -> int:
+    return 2 if vecs >= 3 else 3
+
+
+def _bwd_blocks_per_sm(vecs: int) -> int:
+    return 3 if vecs <= 2 else 2
+
+
+def _bwd_smem(h: int, threads: int, vecs: int, rows: int, affine: bool,
+              bias: bool, memory_efficient: bool) -> int:
+    """The register form's dynamic shared memory (``rows_smem`` in the
+    source): the weight (and, for ``memory_efficient``, the bias) as fp32,
+    then ``_bwd_stages(vecs)`` rows of each thread's ``vecs`` chunks of dy
+    and s and its row's mean and rstd; after the rows, the block's column
+    sums ``[rows, 1 + bias, h]`` fp32 reuse it."""
+    staged = 4 * h * (1 + (memory_efficient and bias)) if affine else 0
+    loop = -(-staged // 16) * 16 + _bwd_stages(vecs) * threads * (32 * vecs + 8)
+    return max(loop, rows * (1 + bias) * h * 4 if affine else 0)
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -152,29 +184,78 @@ def _bwd_symbol():
     fn = getattr(_build.library(LAYER_NORM_BWD.source), LAYER_NORM_BWD.symbol)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 8 + [vp]
+        fn.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 11 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def bwd_grid(n: int, h: int, affine: bool, sms: int):
-    """``(warps, blocks)`` of the backward's row pass.  With a weight each
-    warp keeps fp32 column sums of ``2 h`` floats in shared memory: the
-    most warps (up to 4) whose sums leave room for three blocks an SM, and
-    three blocks an SM, each striding over the rows (every block adds one
-    partial row to the second pass).  Without a weight, 8 warps and a
-    block per 8 rows.  Raises for an ``h`` whose sums do not fit."""
+def _bwd_rows_grid(n: int, h: int, lanes: int, wn: int, vecs: int,
+                   affine: bool, bias: bool, memory_efficient: bool,
+                   sms: int):
+    """``(warps, blocks)`` of the register form for rows of ``lanes`` x
+    ``wn`` threads, ``vecs`` vectors each (see :func:`bwd_grid`)."""
+    per_warp = 32 // lanes
+    groups = math.ceil(n / per_warp)          # row groups of wn warps
+    per_block = _BWD_THREADS // 32 // wn      # row groups a block
+    while per_block > 1 and math.ceil(groups / per_block) < sms:
+        per_block //= 2
+    warps = per_block * wn
+    smem = _bwd_smem(h, 32 * warps, vecs, per_block * per_warp, affine, bias,
+                     memory_efficient)
+    per_sm = min(_bwd_blocks_per_sm(vecs), _SMEM_SM // (
+        smem + _BWD_STATIC_SMEM + _SMEM_BLOCK_RESERVED))
+    strides = math.ceil(groups / per_block)      # a block's rows at once
+    rounds = math.ceil(strides / min(strides, per_sm * sms))
+    return warps, math.ceil(strides / rounds)
+
+
+def bwd_grid(n: int, h: int, dtype: torch.dtype, affine: bool, bias: bool,
+             memory_efficient: bool, aligned: bool, sms: int):
+    """``(lanes, wn, vecs, warps, blocks)`` of the backward for ``dy [n,
+    h]`` of ``dtype``.
+
+    The register form (``vecs`` 1-4): a row to ``lanes`` x ``wn`` threads:
+    ``lanes`` 8 for a row of up to 8 vectors, 16 up to 32 (OpenFold's h
+    128 and 256 in 16 bits: two rows a warp, 1 or 2 vectors a thread), 32
+    beyond, and ``wn`` warps where a row is longer than 32 lanes x 4
+    vectors (Llama's h 2048 and GPT-2-large's h 1280: two), each thread
+    ``vecs`` 16-byte vectors of it (the least instantiated count that
+    covers the row); ``warps`` a block: the most (up to 8) that still give
+    every SM a block; ``blocks``: no more than the registers and shared
+    memory let be resident at once, each striding over the rows, and as
+    few as take the same number of strides, so that no block walks one
+    stride more than the others.  It takes whole, 16-byte aligned vectors
+    (``aligned``: dy and the saved input) of rows up to 256 threads x 4
+    vectors.
+
+    Otherwise the streaming form (``vecs`` 0, a warp a row): with a weight
+    each warp keeps fp32 column sums of ``(1 + bias) h`` floats in shared
+    memory, so the most warps (up to 4) whose sums leave room for three
+    blocks an SM, and three blocks an SM; without, 8 warps and a block per
+    8 rows.  Raises for an ``h`` whose sums do not fit."""
+    per_vec = 16 // dtype.itemsize
+    nvec = h // per_vec
+    max_vecs = _BWD_VECS[-1]
+    if aligned and h % per_vec == 0 and nvec <= _BWD_THREADS * max_vecs:
+        lanes = 8 if nvec <= 8 else 16 if nvec <= 32 else 32
+        wn = 1
+        while lanes * wn * max_vecs < nvec:
+            wn *= 2
+        vecs = next(v for v in _BWD_VECS if lanes * wn * v >= nvec)
+        return (lanes, wn, vecs) + _bwd_rows_grid(
+            n, h, lanes, wn, vecs, affine, bias, memory_efficient, sms)
     if not affine:
-        return 8, math.ceil(n / 8)
-    per_warp = 2 * h * 4
+        return 32, 1, 0, 8, math.ceil(n / 8)
+    per_warp = (1 + bias) * h * 4
     if per_warp > _SMEM_MAX:
         raise ValueError(f"layer_norm_bwd: h = {h} needs {per_warp} bytes of "
                          f"shared memory for one warp's column sums; the "
                          f"card has {_SMEM_MAX}")
     warps = 4
-    while warps > 1 and warps * per_warp > _SMEM_MAX // _BWD_BLOCKS_PER_SM:
+    while warps > 1 and warps * per_warp > _SMEM_MAX // _BWD_STREAM_BLOCKS_PER_SM:
         warps //= 2
-    return warps, max(1, min(math.ceil(n / warps), _BWD_BLOCKS_PER_SM * sms))
+    return 32, 1, 0, warps, max(1, min(math.ceil(n / warps),
+                                       _BWD_STREAM_BLOCKS_PER_SM * sms))
 
 
 def fwd_grid(n: int, h: int, dtype: torch.dtype, sms: int):
@@ -304,21 +385,24 @@ def layer_norm_bwd(dy2d: torch.Tensor, saved: torch.Tensor,
     if dy2d.device.index != torch.cuda.current_device():
         raise ValueError(f"{op}: dy lies on {dy2d.device}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    warps, blocks = bwd_grid(n, h, weight is not None,
-                             _sm_count(dy2d.device.index))
+    aligned = dy2d.data_ptr() % 16 == 0 and saved.data_ptr() % 16 == 0
+    lanes, wn, vecs, warps, blocks = bwd_grid(
+        n, h, dy2d.dtype, weight is not None, bias is not None,
+        memory_efficient, aligned, _sm_count(dy2d.device.index))
     dx = torch.empty_like(dy2d)
     dw = torch.empty_like(weight) if weight is not None else None
     db = torch.empty_like(bias) if bias is not None else None
-    part = (torch.empty((blocks, 2, h), dtype=torch.float32,
-                        device=dy2d.device) if weight is not None else None)
+    part = (torch.empty((blocks, 1 + (bias is not None), h),
+                        dtype=torch.float32, device=dy2d.device)
+            if weight is not None else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     status = _bwd_symbol()(
         dy2d.data_ptr(), saved.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         ptr(weight), ptr(bias), dx.data_ptr(), ptr(dw), ptr(db), ptr(part),
         n, h, int(rms_only), int(memory_efficient), _DTYPE_CODES[dy2d.dtype],
         -1 if weight is None else _DTYPE_CODES[weight.dtype],
-        -1 if bias is None else _DTYPE_CODES[bias.dtype], warps, blocks,
-        torch.cuda.current_stream().cuda_stream)
+        -1 if bias is None else _DTYPE_CODES[bias.dtype], lanes, wn, vecs,
+        warps, blocks, torch.cuda.current_stream().cuda_stream)
     _build.check(status, op)
     LAYER_NORM_BWD.launches += 1
     return dx, dw, db

@@ -1,5 +1,5 @@
-"""Time one tree's norm forward and pair-bias attention kernels, and with
-``--openfold`` its OpenFold training step, on the card.
+"""Time one tree's norm forward and backward and pair-bias attention
+kernels, and with ``--openfold`` its OpenFold training step, on the card.
 
     python3 apex_tpu_torch/tools/norm_pb_compare.py [--openfold] ROOT [ROOT ...]
 
@@ -14,6 +14,11 @@ its kernels built from its own ``csrc``.  Each prints one JSON line:
   evaluation forward), with ``F.rms_norm`` beside it; LayerNorm with a bf16
   bias at GPT-2-large's n 8192 x h 1280 and OpenFold's m (131,072 x 256)
   and z (1,048,576 x 128), with ``F.layer_norm`` beside it;
+- the norm backward at the paths' shapes (``chip_smoke.NORM_BWD_SHAPES``'s,
+  x bf16: Llama-1B's RMSNorm with an fp32 scale, GPT-2-large's LayerNorm
+  with an fp32 weight and bias, OpenFold's m and z rows with bf16 ones),
+  with ``F.rms_norm`` / ``F.layer_norm``'s backward (forward + backward
+  minus forward, the weight and bias cast to x's dtype) beside it;
 - the pair-bias forward and its dq, dk/dv and dbias kernels at OpenFold's
   main shape (R 128, h 8, s 1024, d 32, bf16, q/k/v/do strided views of
   ``[R, s, h, d]``, a bf16 bias ``[1, 8, 1024, 1024]``, 10% of the keys
@@ -40,9 +45,15 @@ from flash_bwd_compare import _device_ms
 NORM = (("rms", 8, 2048), ("rms", 512, 2048), ("rms", 8192, 2048),
         ("layer_norm", 8192, 1280), ("layer_norm", 131072, 256),
         ("layer_norm", 1048576, 128))
+# (name, n, h, rms, weight dtype): chip_smoke.NORM_BWD_SHAPES, kept here so
+# that a parent tree's own chip_smoke.py need not have them
+NORM_BWD = (("llama_1b", 8192, 2048, True, "float32"),
+            ("gpt2_large", 8192, 1280, False, "float32"),
+            ("openfold_m", 131072, 256, False, "bfloat16"),
+            ("openfold_z", 1048576, 128, False, "bfloat16"))
 PAIR_BIAS = dict(R=128, h=8, s=1024, d=32, mask_rate=0.1)
-SOURCES = ["layer_norm_fwd.cu", "pair_bias_attention_fwd.cu", "pair_bias_attention_bwd.cu"]
-OPENFOLD_SOURCES = ["layer_norm_bwd.cu"]
+SOURCES = ["layer_norm_fwd.cu", "layer_norm_bwd.cu", "pair_bias_attention_fwd.cu",
+           "pair_bias_attention_bwd.cu"]
 
 
 def _norm(out, g, dev) -> None:
@@ -64,6 +75,34 @@ def _norm(out, g, dev) -> None:
         out[f"{norm}_n{n}_h{h}"] = {
             "ms": [_device_ms(fn) for _ in range(3)],
             "library_ms": [_device_ms(lib) for _ in range(2)]}
+
+
+def _norm_bwd(out, g, dev) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for name, n, h, rms, wdt in NORM_BWD:
+        x = torch.randn(n, h, generator=g, device=dev).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtypes[wdt])
+        b = None if rms else (0.1 * torch.randn(h, generator=g, device=dev)).to(dtypes[wdt])
+        dy = torch.randn(n, h, generator=g, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            _, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-5, rms)
+            fn = lambda: ln.layer_norm_bwd(dy, x, mean, rstd, w, b, rms, False)
+            ms = [_device_ms(fn) for _ in range(3)]
+        leaves = [x.detach().requires_grad_(), w.to(x.dtype).requires_grad_()]
+        if rms:
+            lib = lambda: F.rms_norm(leaves[0], (h,), leaves[1], 1e-5)
+        else:
+            leaves.append(b.to(x.dtype).requires_grad_())
+            lib = lambda: F.layer_norm(leaves[0], (h,), leaves[1], leaves[2], 1e-5)
+        both = lambda: torch.autograd.grad(lib(), leaves, dy)
+        out[f"norm_bwd_{name}"] = {
+            "ms": ms, "library_ms": [_device_ms(both, 10) - _device_ms(lib, 10)
+                                     for _ in range(2)]}
 
 
 def _pair_bias(out, g, dev) -> None:
@@ -134,7 +173,7 @@ def measure(root: str, openfold: bool) -> dict:
 
     if not _build.__file__.startswith(root):
         raise RuntimeError(f"imported {_build.__file__}, not the tree at {root}")
-    _build.build_all(SOURCES + (OPENFOLD_SOURCES if openfold else []))
+    _build.build_all(SOURCES)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -144,6 +183,7 @@ def measure(root: str, openfold: bool) -> dict:
     g = torch.Generator(device=dev).manual_seed(15)
     with torch.inference_mode():
         _norm(out, g, dev)
+    _norm_bwd(out, g, dev)
     _pair_bias(out, g, dev)
     if openfold:
         torch.cuda.empty_cache()

@@ -829,41 +829,83 @@ def _ulp_tol(err, ref, actual, dtype_name: str):
                       dtype_name)
 
 
+# the norm backward at the paths' shapes: (name, n, h, rms, weight dtype,
+# bias dtype, launches a step on its path) -- Llama-1B's RMSNorm (b 4 x s
+# 2048, O2: the scale fp32), GPT-2-large's LayerNorm (O2 keeps its weight
+# and bias fp32) and OpenFold's (NORM_LN_SHAPES, bf16 weight and bias); x bf16
+NORM_BWD_SHAPES = (("llama_1b", 8192, 2048, True, "float32", None, 45),
+                   ("gpt2_large", *NORM_LN_SHAPES["gpt2_large"], False, "float32",
+                    "float32", 73),
+                   ("openfold_m", *NORM_LN_SHAPES["openfold_m"], False, "bfloat16",
+                    "bfloat16", 4),
+                   ("openfold_z", *NORM_LN_SHAPES["openfold_z"], False, "bfloat16",
+                    "bfloat16", 4))
+
+
 def check_layer_norm_bwd(device) -> dict:
     """The norm backward kernel on the card against its plain version over
     LN/RMS, dtypes, affine variants (none, weight, weight and bias, in
     weight dtypes independent of x), ``memory_efficient``, ragged and
-    unaligned shapes, a row longer than the forward's registers and an
-    input off a 16-byte boundary, and the main path's shape (n 8192, h
-    2048, x bf16, scale fp32); returns the main shape's errors."""
+    unaligned shapes, a row longer than the register form takes and an
+    input off a 16-byte boundary (the streaming form); the register form's
+    edges: 8-, 16- and 32-lane groups at n not a multiple of a block's rows,
+    rows split over 2, 4 and 8 warps (h 1280, 2048, 8192), the last h the
+    register form takes and the first past it (bf16 and fp32), n below the
+    rows in flight and n = 1; the paths' shapes (``NORM_BWD_SHAPES``), the
+    Llama-1B one (n 8192, h 2048, x bf16, scale fp32) the main; and the same
+    bits over 50 launches at the Llama-1B and OpenFold z shapes.  Returns
+    the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import layer_norm as ln
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float16": torch.float16}
+    affines = ((False, False, None), (True, False, "float32"),
+               (True, False, "bfloat16"), (True, True, "float32"),
+               (True, True, "bfloat16"), (True, True, "float16"))
+    # (rms, x, weight?, bias?, weight dtype, memory_efficient, n, h, offset,
+    # main?)
     cases = []
     for rms in (False, True):
         for xdt in dtypes:
-            for has_w, has_b, wdt in ((False, False, None),
-                                      (True, False, "float32"),
-                                      (True, False, "bfloat16"),
-                                      (True, True, "float32"),
-                                      (True, True, "bfloat16"),
-                                      (True, True, "float16")):
+            for has_w, has_b, wdt in affines:
                 for mem_eff in (False, True):
                     for n, h, offset in ((3, 128, 0), (16, 256, 0), (3, 200, 0),
                                          (16, 200, 0), (5, 5000, 0), (7, 256, 1),
-                                         (600, 256, 0)):
+                                         (600, 256, 0), (1000, 128, 0), (1, 128, 0)):
                         cases.append((rms, xdt, has_w, has_b, wdt, mem_eff, n, h,
                                       offset, False))
-    for xdt, wdt in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
-                     ("float32", "float32")):
+    # the register form's edges, LayerNorm with a weight and bias (every
+    # weight dtype) and RMSNorm with a weight: 16 lanes (h 128, 256 in 16
+    # bits, 1 and 2 vectors a thread; fp32 h 128), 8 (h 64 and 32 in 16
+    # bits, fp32 h 32), 32 in one warp (16-bit h 512, fp32 h 256), several
+    # blocks' worth of rows at n not a multiple of a block's 16 rows; rows
+    # over 2 warps (h 1280, 3 vectors; h 2048), 4 (fp32 2048) and 8 (bf16
+    # 8192, fp32 4096: the last h the register form takes) and the first h
+    # past it (8256, 4128: the streaming form); n 1 and n below a block's
+    # rows
+    for rms, has_b in ((False, True), (True, False)):
+        for xdt in ("bfloat16", "float32", "float16"):
+            for wdt in ("float32", "bfloat16", "float16"):
+                for n, h in ((5000, 128), (1001, 256), (999, 512), (77, 64),
+                             (1003, 32), (333, 1280), (100, 2048), (1, 2048),
+                             (3, 1280)):
+                    cases.append((rms, xdt, True, has_b, wdt, False, n, h, 0, False))
+            for n, h in (((5, 8192), (2, 8256), (1, 8192)) if xdt != "float32"
+                         else ((5, 4096), (2, 4128), (1, 4096))):
+                cases.append((rms, xdt, True, has_b, "float32", False, n, h, 0, False))
+                cases.append((rms, xdt, True, has_b, "float32", True, n, h, 0, False))
+    for name, n, h, rms, wdt, bdt, _ in NORM_BWD_SHAPES:
+        cases.append((rms, "bfloat16", True, bdt is not None, wdt, False, n, h, 0,
+                      name == "llama_1b"))
+    for xdt, wdt in (("bfloat16", "bfloat16"), ("float32", "float32")):
         for n in (512, 8192):
-            cases.append((True, xdt, True, False, wdt, False, n, 2048, 0,
-                          xdt == "bfloat16" and wdt == "float32" and n == 8192))
+            cases.append((True, xdt, True, False, wdt, False, n, 2048, 0, False))
     g = torch.Generator(device=device).manual_seed(21)
     worst = {"dx": 0.0, "dw": 0.0, "db": 0.0}
+    forms = {}
     main = {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.no_grad():
         for rms, xdt, has_w, has_b, wdt, mem_eff, n, h, offset, is_main in cases:
             buf = torch.randn(n * h + offset, generator=g, device=device) * 2 + 0.5
@@ -895,20 +937,48 @@ def check_layer_norm_bwd(device) -> dict:
                     r["dw"] = float("inf")
             if has_b:
                 r["db"] = _tol_ratio(db, rdb, _ulp_tol(eb, rdb, db, wdt))
+            grid = ln.bwd_grid(n, h, dtypes[xdt], has_w, has_b, mem_eff,
+                               offset == 0, sms)
             case = dict(rms=rms, x=xdt, w=wdt if has_w else None, bias=has_b,
-                        memory_efficient=mem_eff, n=n, h=h, offset=offset)
+                        memory_efficient=mem_eff, n=n, h=h, offset=offset,
+                        grid=grid)
             if max(r.values()) > 1.0:
                 raise AssertionError(
                     f"layer_norm_bwd disagrees with its plain version: {case}: "
                     f"{r} x tolerance")
             for k, v in r.items():
                 worst[k] = max(worst[k], v)
+            form = ("register, %d lanes x %d warps, %d vectors" % grid[:3]
+                    if grid[2] else "streaming")
+            forms[form] = forms.get(form, 0) + 1
             if is_main:
                 main = dict(dx_max_abs_err=float((dx.float() - rdx.float()).abs().max()),
                             dw_max_abs_err=float((dw.float() - rdw.float()).abs().max()),
-                            tol_ratio=r)
-    out = dict(kernel="layer_norm_bwd", cases=len(cases),
+                            tol_ratio=r, grid=grid)
+    repeats = {}
+    for name, n, h, rms, wdt, bdt, _ in NORM_BWD_SHAPES:
+        if name not in ("llama_1b", "openfold_z"):
+            continue
+        x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(dtypes[wdt])
+        b = None if bdt is None else (0.1 * torch.randn(
+            h, generator=g, device=device)).to(dtypes[bdt])
+        dy = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            _, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-5, rms)
+            first = ln.layer_norm_bwd(dy, x, mean, rstd, w, b, rms, False)
+            same = 0
+            for _ in range(50):
+                again = ln.layer_norm_bwd(dy, x, mean, rstd, w, b, rms, False)
+                same += all(torch.equal(a, c) for a, c in zip(first, again)
+                            if a is not None)
+        if same != 50:
+            raise AssertionError(f"layer_norm_bwd at {name}: {50 - same} of 50 "
+                                 f"repeated launches gave other bits")
+        repeats[name] = same
+    out = dict(kernel="layer_norm_bwd", cases=len(cases), forms=forms,
                worst_tol_ratio=worst, main_shape=main,
+               same_bits_of_50_launches=repeats,
                tolerance="fp32 on both sides, summed in another order: dx "
                          "within u32 rstd (4 (|w dy| + c1 + |xhat| c2) + "
                          "2 sqrt(h) (c1 + |xhat| c2)) + 1 ulp (c1, c2 the "
@@ -1242,42 +1312,78 @@ def _fwd_bwd_minus_fwd(fwd, grads_of, device_iters: int = 10) -> float:
 
 
 def time_layer_norm_bwd(device) -> dict:
-    """The backward kernel, the plain version and F.rms_norm's backward at
-    the main path's shape: n 8192, h 2048, x bf16, scale fp32 (O2)."""
+    """The backward kernel, the plain version and the library call's
+    backward (``F.rms_norm`` / ``F.layer_norm``, forward + backward minus
+    forward) at the paths' shapes (``NORM_BWD_SHAPES``), each beside its
+    bytes bound and its launches a step, with the call's time split into
+    its row and column passes (``torch.profiler``); the Llama-1B row first
+    (the main path's), the others under ``shapes``."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as ln
 
-    n, h = 8192, 2048
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     g = torch.Generator(device=device).manual_seed(24)
-    x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
-    w = 1 + 0.1 * torch.randn(h, generator=g, device=device)
-    dy = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
-    with torch.no_grad():
-        _, mean, rstd = ln.layer_norm_fwd(x, w, None, 1e-5, True)
-    calls = {
-        "kernel": lambda: ln.layer_norm_bwd(dy, x, mean, rstd, w, None, True,
-                                            False),
-        "plain": lambda: ln._plain_backward(dy, x, mean, rstd, w, None, True,
-                                            False)}
-    with torch.no_grad():
-        dev = _timed(calls, 50)
-        host = time_ms(calls["kernel"], iters=100, warmup=10)
-    xr = x.detach().requires_grad_()
-    wr = w.detach().requires_grad_()
-    dev["library"] = _fwd_bwd_minus_fwd(
-        lambda: F.rms_norm(xr, (h,), wr, 1e-5), ((xr, wr), dy))
-    # each input read once, each output written once: dy, x, w, mean, rstd;
-    # dx, dw.  About 12 fp32 operations an element.
-    nbytes = 2 * n * h * 3 + 4 * h * 2 + 4 * n * 2
-    flops = 12 * n * h
-    row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S)
-    row.update(shape=dict(n=n, h=h, x="bfloat16", scale="float32", rms=True),
-               bytes=nbytes, flops=flops,
-               library_call="F.rms_norm forward + backward minus forward "
-                            "(CUDA graphs of 10)")
-    log("phase2-time", kernel="layer_norm_bwd", **row)
-    return row
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for name, n, h, rms, wdt, bdt, per_step in NORM_BWD_SHAPES:
+        x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(dtypes[wdt])
+        b = None if bdt is None else (0.1 * torch.randn(
+            h, generator=g, device=device)).to(dtypes[bdt])
+        dy = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            _, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-5, rms)
+        calls = {
+            "kernel": lambda: ln.layer_norm_bwd(dy, x, mean, rstd, w, b, rms,
+                                                False),
+            "plain": lambda: ln._plain_backward(dy, x, mean, rstd, w, b, rms,
+                                                False)}
+        with torch.no_grad():
+            dev = _timed(calls, 50, big=("plain",) if n * h > 2 ** 26 else ())
+            host = time_ms(calls["kernel"], iters=100, warmup=10)
+            # the row pass and the column pass, each kernel's own device time
+            split = {("rows" if "ln_bwd_rows" in k else "cols" if "ln_bwd_cols" in k
+                      else k): v for k, v in _kernel_device_ms(calls["kernel"], 10).items()}
+        xr = x.detach().requires_grad_()
+        wr = w.detach().requires_grad_()
+        if rms:
+            dev["library"] = _fwd_bwd_minus_fwd(
+                lambda: F.rms_norm(xr, (h,), wr, 1e-5), ((xr, wr), dy))
+        else:
+            # F.layer_norm takes a weight and bias of x's dtype only
+            wr = w.to(x.dtype).requires_grad_()
+            br = b.to(x.dtype).requires_grad_()
+            dev["library"] = _fwd_bwd_minus_fwd(
+                lambda: F.layer_norm(xr, (h,), wr, br, 1e-5), ((xr, wr, br), dy))
+        del xr, wr
+        # each input read once, each output written once: dy, x, rstd (and
+        # mean for LayerNorm), the weight; dx, dw (and db).  About 12 fp32
+        # operations an element.
+        wsize, bsize = dtypes[wdt].itemsize, 0 if bdt is None else dtypes[bdt].itemsize
+        nbytes = 2 * n * h * 3 + 4 * n * (1 if rms else 2) + h * (2 * wsize + bsize)
+        flops = 12 * n * h
+        row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S,
+                   timing="ms: device time, 50 calls in one CUDA graph between "
+                          "CUDA events, twice in turns with the plain version; "
+                          "plain_ms: the same, or 3 eager calls between CUDA "
+                          "events past 2^26 elements; library_ms: forward + "
+                          "backward minus forward, CUDA graphs of 10; "
+                          "host_issued_ms: 100 eager calls; L2-warm")
+        row.update(path=name, launches_per_step=per_step, split_ms=split,
+                   shape=dict(n=n, h=h, x="bfloat16", weight=wdt, bias=bdt, rms=rms),
+                   grid=ln.bwd_grid(n, h, torch.bfloat16, True, bdt is not None,
+                                    False, True, sms),
+                   bytes=nbytes, flops=flops, bound_share=row["bound_ms"] / row["ms"],
+                   library_call=("F.rms_norm" if rms else "F.layer_norm, its "
+                                 "weight and bias cast to x's dtype,")
+                   + " forward + backward minus forward (CUDA graphs of 10)")
+        rows.append(row)
+        del x, dy, mean, rstd, calls
+    log("phase2-time", kernel="layer_norm_bwd", rows=rows)
+    main = dict(rows[0])
+    main["shapes"] = rows[1:]
+    return main
 
 
 def _time_flash_bwd_shape(shape: dict, seed: int, device) -> dict:
@@ -1366,12 +1472,13 @@ def time_flash_attention_bwd(device) -> dict:
 
 # the sources whose 16-bit kernels run on wgmma fed by TMA, and nothing on
 # mma.sync: the flash forward and backward, the head forward and the
-# pair-bias forward and backward; the norm forward's ptxas registers are
-# logged beside them (no products: no instruction gate)
+# pair-bias forward and backward; the norm forward's and backward's ptxas
+# registers are logged beside them (no products: no instruction gate; the
+# backward's register form must not spill)
 WGMMA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                  "fused_lm_head_fwd.cu", "pair_bias_attention_fwd.cu",
                  "pair_bias_attention_bwd.cu")
-PTXAS_SOURCES = WGMMA_SOURCES + ("layer_norm_fwd.cu",)
+PTXAS_SOURCES = WGMMA_SOURCES + ("layer_norm_fwd.cu", "layer_norm_bwd.cu")
 WGMMA_KERNELS = (("flash_fwd_wgmma", (32, 64, 128)), ("flash_dq_wgmma", (32, 64, 128)),
                  ("flash_dkv_wgmma", (32, 64, 128)), ("lm_head_fwd_wgmma", (None,)),
                  ("pair_bias_fwd_wgmma", (32, 64, 128)),
@@ -1410,6 +1517,12 @@ def _kernel_name(mangled: str):
     m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:wgmma|f32)"
                   r"|pair_bias_(?:fwd|dq|dkv|dbias)_(?:wgmma|f32))", mangled)
     m_ln = re.search(r"ln_fwd_rowsI(f|13__nv_bfloat16|6__half)", mangled)
+    m_lnb = re.search(r"ln_bwd_rowsI(f|13__nv_bfloat16|6__half)Lb([01])ELi(\d+)E", mangled)
+    dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
+    if m_lnb:
+        # ln_bwd_rows<TX, HAS_B, NV>
+        return ("ln_bwd_rows", dtypes[m_lnb.group(1)],
+                f"nv{m_lnb.group(3)}" + ("+bias" if m_lnb.group(2) == "1" else ""))
     if m:
         d = re.search(r"Li(32|64|128)E", mangled)
         if not d:
@@ -1420,9 +1533,7 @@ def _kernel_name(mangled: str):
         nv = re.search(r"Li(\d+)E", mangled)
         if not nv:
             return None
-        dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16",
-                 "6__half": "float16"}[m_ln.group(1)]
-        return "ln_fwd_rows", dtype, f"nv{nv.group(1)}"
+        return "ln_fwd_rows", dtypes[m_ln.group(1)], f"nv{nv.group(1)}"
     elif "wgmma_gemm" in mangled and "PartialsStore" in mangled:
         kernel, d = "lm_head_fwd_wgmma", None
     elif "lm_head_f32" in mangled:
@@ -1502,6 +1613,11 @@ def wgmma_registers(jobs) -> dict:
                     raise AssertionError(
                         f"{key}: expected HGMMA and UTMALDG and no HMMA in its "
                         f"SASS, got {r}")
+    ln_bwd = {k: v for k, v in rows.items() if k.startswith("ln_bwd_rows/")}
+    if len(ln_bwd) != 3 * 2 * 4 or any(
+            v.get("spill_stores") or v.get("spill_loads") for v in ln_bwd.values()):
+        raise AssertionError(f"the norm backward's register form: expected its 24 "
+                             f"kernels without spills, got {ln_bwd}")
     for source in NO_HMMA_SOURCES:
         if library_hmma[source]:
             raise AssertionError(f"{source}: {library_hmma[source]} HMMA "
@@ -1517,7 +1633,9 @@ def wgmma_registers(jobs) -> dict:
                "most 128 registers), the pair-bias dq, dk/dv and dbias 288 "
                "(two consumer warpgroups, one producer warp); ln_fwd_rows/<x dtype>/nv<N>: the norm "
                "forward's register path, N 16-byte vectors a lane (the "
-               "largest over its three weight dtypes); "
+               "largest over its three weight dtypes); ln_bwd_rows/<x dtype>/"
+               "nv<N>[+bias]: the norm backward's register form (256 threads, "
+               "2-3 blocks an SM), no spill allowed; "
                "wgmma_serialized: ptxas's C7512 note that the function's wgmma "
                "run one at a time")
     log("phase2-wgmma-registers", **out)
@@ -4463,7 +4581,10 @@ def main() -> int:
         entry(ln.LAYER_NORM_FWD, max_err, decode_row, shapes=timings,
               timed_shape="n = 8 (a decode step); n = 512, 8192 in shapes"),
         entry(ln.LAYER_NORM_BWD, max(nb["dx_max_abs_err"], nb["dw_max_abs_err"]),
-              norm_bwd_time, shape=norm_bwd_time["shape"]),
+              norm_bwd_time, shape=norm_bwd_time["shape"],
+              shapes=[{k: r[k] for k in ("path", "shape", "ms", "bound_ms", "plain_ms",
+                                         "library_ms", "launches_per_step")}
+                      for r in norm_bwd_time["shapes"]]),
         entry(fa.FLASH_ATTENTION_FWD, flash_check["main_shape"]["o_max_abs_err"],
               flash_time, shape=flash_time["shape"], tflops=flash_time["tflops"],
               gpt2_large={k: flash_time["gpt2_large"][k] for k in (

@@ -11,6 +11,8 @@ larger, compared in fp32 (the two sides may round the same fp32 value to
 neighbouring bf16 values when it lies near a rounding boundary).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +20,11 @@ import torch
 
 from apex_tpu.normalization import FusedLayerNorm as JaxFusedLayerNorm
 from apex_tpu.normalization import FusedRMSNorm as JaxFusedRMSNorm
+from apex_tpu.normalization import MixedFusedLayerNorm as JaxMixedFusedLayerNorm
+from apex_tpu.normalization import MixedFusedRMSNorm as JaxMixedFusedRMSNorm
 from apex_tpu.ops import layer_norm as jln
-from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+from apex_tpu_torch.normalization import (FusedLayerNorm, FusedRMSNorm,
+                                          MixedFusedLayerNorm, MixedFusedRMSNorm)
 from apex_tpu_torch.ops import _build, _dispatch
 from apex_tpu_torch.ops import layer_norm as tln
 
@@ -172,6 +177,48 @@ def test_modules_match_flax_modules():
                              jnp.asarray(x))
         np.testing.assert_allclose(tmod(torch.from_numpy(x)).detach().numpy(),
                                    np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mixed", ["layer_norm", "rms_norm"])
+def test_mixed_modules_match_flax_modules(mixed):
+    """MixedFusedLayerNorm / MixedFusedRMSNorm: fp32 parameters beside a
+    bf16 input, against the flax modules with the same parameters (their
+    Pallas kernels in interpret mode), forward and backward.  y and dx in
+    bf16 within one bf16 ulp (the two sides round the same fp32 value);
+    the parameters' gradients in fp32 at 1e-5."""
+    import jax
+
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal((2, 8, 128)) * 2 + 0.5).astype(np.float32)
+    cot = rng.standard_normal((2, 8, 128)).astype(np.float32)
+    jmod, tmod = ((JaxMixedFusedLayerNorm((128,)), MixedFusedLayerNorm(128, device="cpu"))
+                  if mixed == "layer_norm" else
+                  (JaxMixedFusedRMSNorm((128,)), MixedFusedRMSNorm(128, device="cpu")))
+    params = {"scale": (1 + 0.1 * rng.standard_normal(128)).astype(np.float32)}
+    if mixed == "layer_norm":
+        params["bias"] = (0.1 * rng.standard_normal(128)).astype(np.float32)
+    assert {k: v.dtype for k, v in tmod.named_parameters()} == {
+        k: torch.float32 for k in params}
+    tmod.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    tx = _to_torch(x, "bfloat16").requires_grad_()
+    y = tmod(tx)
+    y.backward(_to_torch(cot, "bfloat16"))
+
+    def f(p, xj):
+        return jmod.apply({"params": p}, xj)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_KERNELS", "interpret")
+        jp = {k: jnp.asarray(v) for k, v in params.items()}
+        ref, vjp = jax.vjp(f, jp, jnp.asarray(x, jnp.bfloat16))
+        gp, gx = vjp(jnp.asarray(cot, jnp.bfloat16))
+    assert y.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert_ulp_close(y.detach(), ref, "bfloat16")
+    assert_ulp_close(tx.grad, gx, "bfloat16")
+    for k, v in tmod.named_parameters():
+        assert v.grad.dtype == torch.float32
+        np.testing.assert_allclose(v.grad.numpy(), _np32(gp[k]),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_cpu_autograd_through_plain_version():
@@ -346,12 +393,28 @@ def test_no_graph_without_grad():
                                         (5, 5000, True), (100, 13000, True),
                                         (8192, 2048, False)])
 def test_bwd_grid_fits_shared_memory(n, h, affine):
-    """The row pass's warps and blocks: the per-warp column sums fit with
-    three blocks an SM (one warp at the least), three blocks an SM, and
-    every row has a warp."""
-    warps, blocks = tln.bwd_grid(n, h, affine, sms=132)
+    """The backward's grid fits the card.  The register form (bf16 rows of
+    2048, the paths' width): its shared memory, rows in flight and then
+    the block's column sums, fits a block and leaves room for the blocks
+    an SM it launches, no more blocks than those, and every row has a row
+    group.  The streaming form (h 5000 and 13000: not whole 16-byte
+    vectors in bf16): the per-warp column sums fit with three blocks an SM
+    (one warp at the least) and three blocks an SM; without a weight, a
+    warp a row."""
+    lanes, wn, vecs, warps, blocks = tln.bwd_grid(
+        n, h, torch.bfloat16, affine, True, False, True, sms=132)
     assert 1 <= warps <= 8 and blocks >= 1
-    if affine:
+    if vecs:
+        per_warp = 32 // lanes
+        rows = warps // wn * per_warp
+        smem = tln._bwd_smem(h, 32 * warps, vecs, rows, affine, True, False)
+        per_block = smem + tln._BWD_STATIC_SMEM + tln._SMEM_BLOCK_RESERVED
+        assert smem <= tln._SMEM_MAX
+        assert blocks <= 132 * min(tln._bwd_blocks_per_sm(vecs),
+                                   tln._SMEM_SM // per_block)
+        assert blocks * rows >= min(n, 132 * rows)
+        assert math.ceil(n / rows) >= blocks
+    elif affine:
         assert warps * 2 * h * 4 <= tln._SMEM_MAX // 3 or warps == 1
         assert blocks <= 3 * 132
     else:
@@ -359,8 +422,15 @@ def test_bwd_grid_fits_shared_memory(n, h, affine):
 
 
 def test_bwd_grid_rejects_rows_too_long():
+    """A row whose column sums do not fit one warp's shared memory in the
+    streaming form raises: with a bias (two sums a column) past h 29056,
+    without one past h 58112."""
     with pytest.raises(ValueError, match="shared memory"):
-        tln.bwd_grid(4, 40000, True, sms=132)
+        tln.bwd_grid(4, 40000, torch.bfloat16, True, True, False, True, sms=132)
+    with pytest.raises(ValueError, match="shared memory"):
+        tln.bwd_grid(4, 60000, torch.bfloat16, True, False, False, True, sms=132)
+    assert tln.bwd_grid(4, 40000, torch.bfloat16, True, False, False, True,
+                        sms=132)[2] == 0
 
 
 def test_backward_kernel_wrapper_refuses_cpu_tensors():
@@ -387,6 +457,163 @@ def test_backward_kernel_matches_plain_version_on_card():
         ref = tln._plain_backward(tdy, tx, mean, rstd, tw, tb, False, False)
     for o, r in zip(ours, ref):
         torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's grid (chosen on the host, so it is held here)
+# ---------------------------------------------------------------------------
+
+# every (n, h) the card-side checks and timings run the backward at
+# (chip_smoke.py), the paths' shapes first
+_BWD_SHAPES = [(8192, 2048), (8192, 1280), (131072, 256), (1048576, 128),
+               (512, 2048), (3, 128), (16, 256), (3, 200), (16, 200),
+               (5, 5000), (7, 256), (600, 256), (1000, 128), (1, 128),
+               (5000, 128), (1001, 256), (999, 512), (77, 64), (1003, 32),
+               (333, 1280),
+               (100, 2048), (1, 2048), (3, 1280), (5, 8192), (2, 8256),
+               (1, 8192), (5, 4096), (2, 4128), (1, 4096)]
+
+
+def _bwd_threads(lanes, wn, warps):
+    """Each thread's (row slot, place in its row) as the register form
+    computes them: slot = (warp / wn) (32 / lanes) + lane / lanes, sub =
+    (warp % wn) lanes + lane % lanes."""
+    per_warp = 32 // lanes
+    return [((warp // wn) * per_warp + lane // lanes,
+             (warp % wn) * lanes + lane % lanes)
+            for warp in range(warps) for lane in range(32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,h", _BWD_SHAPES)
+def test_bwd_grid_covers_every_row_once(n, h, dtype):
+    """The register form's threads, as the kernel maps them: each (row
+    slot, place in the row) once in a block; each 16-byte chunk of a row
+    once among a row's threads (chunk sub + lanes wn k, k < vecs); each
+    row once among the blocks' strides (block b's iteration i takes rows
+    (b + i blocks) rows_a_block + slot), and no block more strides than
+    the others but one, in as few blocks as that takes.  The streaming form
+    (vecs 0) takes rows that are too long, not whole vectors, and nothing
+    else."""
+    lanes, wn, vecs, warps, blocks = tln.bwd_grid(n, h, dtype, True, True,
+                                                  False, True, sms=132)
+    per_vec = 16 // dtype.itemsize
+    nvec = h // per_vec
+    if not vecs:
+        assert (lanes, wn) == (32, 1)
+        assert h % per_vec or nvec > tln._BWD_THREADS * tln._BWD_VECS[-1]
+        return
+    assert lanes in (8, 16, 32) and wn in (1, 2, 4, 8) and vecs in tln._BWD_VECS
+    assert wn == 1 or lanes == 32
+    assert warps % wn == 0 and 1 <= warps <= 8
+    rows = warps // wn * (32 // lanes)
+    pairs = _bwd_threads(lanes, wn, warps)
+    assert sorted(pairs) == [(r, t) for r in range(rows)
+                             for t in range(lanes * wn)]
+    chunks = sorted(sub + lanes * wn * k for sub in range(lanes * wn)
+                    for k in range(vecs) if sub + lanes * wn * k < nvec)
+    assert chunks == list(range(nvec))
+    iters = math.ceil(n / (blocks * rows))
+    seen = ((np.arange(blocks)[:, None, None]
+             + np.arange(iters)[None, :, None] * blocks) * rows
+            + np.arange(rows)[None, None, :]).ravel()
+    seen = seen[seen < n]
+    assert np.array_equal(np.bincount(seen, minlength=n), np.ones(n, np.int64))
+    # no block is left without a row, and the strides are balanced
+    strides = math.ceil(n / rows)
+    rounds = math.ceil(strides / blocks)
+    assert blocks <= strides and blocks == math.ceil(strides / rounds)
+
+
+@pytest.mark.parametrize("n,h,rms,grid", [
+    (8192, 2048, True, (32, 2, 4, 8, 256)),     # Llama-1B, bf16, scale fp32
+    (8192, 1280, False, (32, 2, 3, 8, 256)),    # GPT-2-large
+    (131072, 256, False, (16, 1, 2, 8, 391)),   # OpenFold m
+    (1048576, 128, False, (16, 1, 1, 8, 395))])  # OpenFold z
+def test_bwd_grid_at_the_paths_shapes(n, h, rms, grid):
+    """The form at each main path's shape (x bf16): rows of 2048 and 1280
+    over two warps of 32 lanes, 4 and 3 vectors a thread, two blocks an SM;
+    OpenFold's rows of 256 and 128 to 16 lanes (two rows a warp), 2 and 1
+    vectors a thread, three blocks an SM; on 132 SMs, as few blocks as walk
+    the rows in the same number of strides."""
+    assert tln.bwd_grid(n, h, torch.bfloat16, True, not rms, False, True,
+                        sms=132) == grid
+
+
+def test_bwd_grid_takes_the_streaming_form_from_the_shape():
+    """The register form ends at 256 threads x 4 vectors (bf16 h 8192,
+    fp32 h 4096); past it, at an h that is not whole vectors, or for an
+    input off 16 bytes, the streaming form.  Small n keeps the register
+    form, with fewer warps, so each row has an SM of its own."""
+    grid = lambda n, h, dt, aligned=True: tln.bwd_grid(
+        n, h, dt, True, True, False, aligned, sms=132)
+    assert grid(5, 8192, torch.bfloat16)[:3] == (32, 8, 4)
+    assert grid(5, 8256, torch.bfloat16)[2] == 0
+    assert grid(5, 4096, torch.float32)[:3] == (32, 8, 4)
+    assert grid(5, 4128, torch.float32)[2] == 0
+    assert grid(5, 200, torch.bfloat16)[:3] == (16, 1, 2)
+    assert grid(5, 202, torch.bfloat16)[2] == 0
+    assert grid(7, 256, torch.bfloat16, aligned=False)[2] == 0
+    assert grid(1, 128, torch.bfloat16) == (16, 1, 1, 1, 1)
+    assert grid(3, 64, torch.bfloat16)[:3] == (8, 1, 1)
+    assert grid(1, 2048, torch.bfloat16) == (32, 2, 4, 2, 1)
+
+
+@pytest.mark.parametrize("n,h", _BWD_SHAPES)
+def test_bwd_grid_fits_the_registers_the_kernel_declares(n, h):
+    """The register form declares ``__launch_bounds__(256,
+    bwd_blocks_per_sm(NV))``: the grid launches no more blocks than those
+    (and its shared memory) let be resident at once, and a thread's column
+    sums (2 vecs VEC fp32, with a bias) take at most half of the registers
+    that bound leaves it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        lanes, wn, vecs, warps, blocks = tln.bwd_grid(
+            n, h, dtype, True, True, True, True, sms=132)
+        if not vecs:
+            continue
+        per_sm = tln._bwd_blocks_per_sm(vecs)
+        assert blocks <= per_sm * 132
+        budget = tln._REGS_PER_SM // (tln._BWD_THREADS * per_sm)
+        assert 2 * vecs * (16 // dtype.itemsize) <= budget // 2
+        rows = warps // wn * (32 // lanes)
+        smem = tln._bwd_smem(h, 32 * warps, vecs, rows, True, True, True)
+        assert blocks <= 132 * (tln._SMEM_SM // (
+            smem + tln._BWD_STATIC_SMEM + tln._SMEM_BLOCK_RESERVED))
+
+
+def test_bwd_grid_tables_match_the_kernel_source():
+    """The host's copy of the backward's constants is the source's: threads
+    a block, the vector counts ``launch_rows_b`` instantiates, the stages
+    ``bwd_stages`` and the register table ``bwd_blocks_per_sm`` (its
+    ``__launch_bounds__``) of each, the per-thread bytes of a stage and the
+    static shared memory."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tln.__file__).resolve().parents[1] / "csrc"
+           / "layer_norm_bwd.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kThreads") == tln._BWD_THREADS
+    assert const("kMaxVecs") == tln._BWD_VECS[-1]
+    counts = {int(v) for v in re.findall(
+        r"return launch_rows_nv<TX, HAS_B, (\d+)>", src)}
+    assert sorted(counts) == list(tln._BWD_VECS)
+    stages = re.search(r"int bwd_stages\(int nv\) \{ return nv >= (\d+) \? (\d+) : "
+                       r"(\d+); \}", src).groups()
+    body = re.search(r"int bwd_blocks_per_sm\(int nv\) \{ return (.*?); \}",
+                     src).group(1)
+    steps = [(int(a), int(b)) for a, b in re.findall(r"nv <= (\d+) \? (\d+) :", body)]
+    default = int(body.rsplit(":", 1)[1])
+    assert steps
+    for nv in tln._BWD_VECS:
+        want = next((b for a, b in steps if nv <= a), default)
+        assert tln._bwd_blocks_per_sm(nv) == want, nv
+        assert tln._bwd_stages(nv) == int(stages[1] if nv >= int(stages[0])
+                                          else stages[2]), nv
+    assert "(size_t)threads * (32 * nv + 8)" in src
+    assert "__shared__ float red[2][kMaxWarps][2];" in src
+    assert tln._BWD_STATIC_SMEM == 2 * const("kMaxWarps") * 2 * 4
 
 
 # ---------------------------------------------------------------------------
