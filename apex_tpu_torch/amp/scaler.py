@@ -77,7 +77,8 @@ class LossScaler:
         """A 0-d bool on the device, true if any gradient of the tree holds
         an inf or a NaN (apex's ``LossScaler.has_overflow``): the
         ``found_inf`` of a step whose optimizer unscales the gradients
-        itself (``opt.step(grad_scale=state.scale, found_inf=...)``)."""
+        itself (``opt.step(grad_scale=state.scale, found_inf=...)``): on
+        CUDA one ``mt_scale`` check over every gradient, with no output."""
         return _nonfinite(grads)
 
     def unscale(self, grads: Any, state: LossScalerState):

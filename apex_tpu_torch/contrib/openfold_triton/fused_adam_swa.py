@@ -4,12 +4,14 @@ update, as a ``torch.optim.Optimizer``.
 Counterpart of ``apex_tpu/contrib/openfold_triton/fused_adam_swa.py``, in
 the port's optimizer idiom: ``FusedAdamSWA(params, lr=..., ...)`` and
 ``opt.step()``, updating the parameters and the state in place (the JAX
-class returns new arrays).  Each parameter's state holds what the JAX
-``AdamSWAState`` holds: ``step`` and ``n_averaged`` (int32 tensors on the
-parameter's device), ``exp_avg`` and ``exp_avg_sq`` (fp32), the fp32
-master copy ``state_params`` that the update runs on (so steps below a
-half-precision parameter's resolution are kept), and the fp32 average
-``swa_params``.  For each parameter with a gradient, in fp32:
+class returns new arrays).  The state holds what the JAX ``AdamSWAState``
+holds: ``step`` and ``n_averaged``, one int32 tensor a group on the
+device, shared by its parameters' states (the JAX state holds one scalar
+for the whole tree; a parameter whose first gradient comes late takes the
+group's counters), and for each parameter ``exp_avg`` and ``exp_avg_sq``
+(fp32), the fp32 master copy ``state_params`` that the update runs on (so
+steps below a half-precision parameter's resolution are kept), and the
+fp32 average ``swa_params``.  For each parameter with a gradient, in fp32:
 
     g = grad / grad_scale
     g = g + wd * p                      (ApexAdam, PyTorchAdam: L2 into g)
@@ -21,25 +23,31 @@ half-precision parameter's resolution are kept), and the fp32 average
 
 with ``bc1, bc2 = 1 - b1**step, 1 - b2**step`` (1 without
 ``bias_correction``), the average taken once ``step > swa_start_step``,
-and the parameter stored back as ``p`` in its own dtype.  ``grad_scale``
-and ``found_inf`` stay on the device: a true ``found_inf`` leaves the
-parameters and all the state as they were, with no host sync.  The
-expressions are the JAX function's, in its order, so the two agree to
-fp32 rounding.  There is no Pallas kernel behind the JAX class: this is
-plain PyTorch on every device.
+and the parameter stored back as ``p`` in its own dtype.  On CUDA a
+group's step is one launch of the multi-tensor kernel ``mt_adam`` in its
+SWA mode (:func:`apex_tpu_torch.ops.multi_tensor.adam`: the gradient read
+in place and multiplied by ``1 / grad_scale`` on the device, the master,
+moments, average and half parameter written in one pass); on the CPU its
+plain version, a parameter at a time.  ``grad_scale`` and ``found_inf``
+stay on the device: a true ``found_inf`` leaves the parameters and all the
+state as they were (the kernel returns before any load), with no host
+sync.  The expressions are the JAX function's, in its order, so the two
+agree to fp32 rounding.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers._common import (
-    apply_if_finite,
     bias_corrections,
-    unscale_grads,
+    commit,
+    inv_scale,
+    restore_state,
 )
 
 __all__ = ["AdamMathType", "FusedAdamSWA"]
@@ -67,13 +75,23 @@ class FusedAdamSWA(torch.optim.Optimizer):
         self._swa_weight = float(torch.tensor(1.0) - torch.tensor(
             swa_decay_rate, dtype=torch.float32))
 
-    def _state(self, p: torch.Tensor) -> dict:
+    def _counters(self, params: Sequence[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The group's int32 ``step`` and ``n_averaged`` on the device: the
+        ones its parameters' states share, or new zeros."""
+        for p in params:
+            state = self.state.get(p)
+            if state:
+                return state["step"], state["n_averaged"]
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=params[0].device)
+        return zero(), zero()
+
+    def _state(self, p: torch.Tensor, step, n_averaged) -> dict:
         state = self.state[p]
         if not state:
-            zero = lambda dt: torch.zeros((), dtype=dt, device=p.device)
             master = lambda: p.detach().clone().float()
-            state["step"] = zero(torch.int32)
-            state["n_averaged"] = zero(torch.int32)
+            state["step"] = step
+            state["n_averaged"] = n_averaged
             state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
             state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
             state["state_params"] = master()
@@ -90,47 +108,49 @@ class FusedAdamSWA(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        if found_inf is not None and not isinstance(found_inf, torch.Tensor):
+            if found_inf:          # a host flag that is set: nothing moves
+                return loss
+            found_inf = None
+        skip = None if found_inf is None else found_inf.to(torch.bool)
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
-            for p, g in zip(params, unscale_grads([p.grad for p in params],
-                                                  grad_scale)):
-                self._update(p, g, self._state(p), group, found_inf)
+            if params:
+                self._update(params, group, grad_scale, skip)
         return loss
 
-    def _update(self, p, g, state, group, found_inf) -> None:
+    def _update(self, params, group, grad_scale, skip) -> None:
         b1, b2 = group["betas"]
-        lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
-        mode = self.adam_math_mode
-        step = state["step"] + 1
-        if group["bias_correction"]:
-            bc1, bc2 = bias_corrections(step, b1, b2)
-        else:
-            bc1 = bc2 = torch.ones((), dtype=torch.float32, device=p.device)
-        p32, m, v = state["state_params"], state["exp_avg"], state["exp_avg_sq"]
-        if mode in (AdamMathType.ApexAdam, AdamMathType.PyTorchAdam):
-            g = g + wd * p32
-        m_new = b1 * m + (1.0 - b1) * g
-        v_new = b2 * v + (1.0 - b2) * g * g
-        if mode is AdamMathType.PyTorchAdam:
-            denom = torch.sqrt(v_new) / torch.sqrt(bc2) + eps
-            p_new = p32 - (lr / bc1) * (m_new / denom)
-        else:
-            update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-            if mode is AdamMathType.ApexAdamW:
-                update = update + wd * p32
-            p_new = p32 - lr * update
-        # the average of the new master values, past swa_start_step; the
-        # first one copies them through
-        n_avg, swa = state["n_averaged"], state["swa_params"]
-        do_swa = step > self.swa_start_step
-        averaged = torch.where(n_avg == 0, p_new,
-                               swa + self._swa_weight * (p_new - swa))
-        swa_new = torch.where(do_swa, averaged, swa)
-        n_new = n_avg + do_swa.to(torch.int32)
-        olds = [p, p32, m, v, swa, state["step"], n_avg]
-        news = [p_new.to(p.dtype), p_new, m_new, v_new, swa_new, step, n_new]
-        for dst, val in zip(olds, apply_if_finite(found_inf, news, olds)):
-            dst.copy_(val)
+        step, n_avg = self._counters(params)
+        states = [self._state(p, step, n_avg) for p in params]
+        nxt = step + 1
+        bc1, bc2 = (bias_corrections(nxt, b1, b2) if group["bias_correction"]
+                    else (None, None))
+        mode = {AdamMathType.ApexAdam: mt.SWA_APEX_ADAM,
+                AdamMathType.ApexAdamW: mt.SWA_APEX_ADAMW,
+                AdamMathType.PyTorchAdam: mt.SWA_PYTORCH_ADAM}[
+                    self.adam_math_mode]
+        mt.adam([p.grad for p in params], [s["state_params"] for s in states],
+                [s["exp_avg"] for s in states], [s["exp_avg_sq"] for s in states],
+                mode=mode, lr=group["lr"], beta1=b1, beta2=b2, eps=group["eps"],
+                weight_decay=group["weight_decay"],
+                inv_scale=inv_scale(grad_scale, params[0].device), bc1=bc1,
+                bc2=bc2, noop=skip, copy=params,
+                swa=[s["swa_params"] for s in states], step=nxt,
+                n_averaged=n_avg, swa_weight=self._swa_weight,
+                swa_start_step=self.swa_start_step)
+        # the counters move after the kernel has read them
+        n_new = n_avg + (nxt > self.swa_start_step).to(torch.int32)
+        commit(n_avg, n_new, skip)
+        commit(step, nxt, skip)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, then each state tensor
+        in its saved dtype (fp32 masters, moments and averages beside half
+        parameters) and ``step`` and ``n_averaged`` one tensor a group
+        again."""
+        super().load_state_dict(state_dict)
+        restore_state(self, state_dict, shared=("step", "n_averaged"))
 
     def swa_state_dict(self) -> List[torch.Tensor]:
         """The averaged model: each parameter's fp32 SWA average, in the

@@ -158,9 +158,12 @@ def gpt_params_from_jax(tree: Mapping, num_layers: int,
                     f"GPT ({num_layers} layers, apply_rope={apply_rope})")
 
 
-# the fields of the JAX optimizers' inner states beside ``step``, each the
-# port's state key of the same name
-_STATE_FIELDS = ("exp_avg", "exp_avg_sq", "sum_sq")
+# the fields of the JAX optimizers' inner states beside ``step`` (and
+# FusedMixedPrecisionLamb's ``lr``), each the port's state key of the same
+# name: Adam's and LAMB's moments, Adagrad's sum, SGD's momentum buffer,
+# NovoGrad's moments (its ``exp_avg_sq`` one scalar a tensor, or the packed
+# ``[num_leaves + 1]``)
+_STATE_FIELDS = ("exp_avg", "exp_avg_sq", "sum_sq", "momentum_buffer")
 
 
 def load_jax_optimizer_state(
@@ -172,8 +175,10 @@ def load_jax_optimizer_state(
 
     ``state`` is the JAX ``(inner, MasterState)`` pair with its arrays as
     numpy (``jax.tree.map(np.asarray, state)``): ``inner`` a named tuple
-    with ``step`` and moment trees (``exp_avg``, ``exp_avg_sq`` or
-    ``sum_sq``).  ``tree_to_torch`` maps one tree of the JAX parameters'
+    with ``step`` and moment trees (``exp_avg``, ``exp_avg_sq``, ``sum_sq``
+    or ``momentum_buffer``; NovoGrad's ``exp_avg_sq`` a tree of scalars), and
+    for ``FusedMixedPrecisionLamb`` its device ``lr``, which goes to
+    ``opt.set_lr``.  ``tree_to_torch`` maps one tree of the JAX parameters'
     structure to ``{torch name: tensor}`` (e.g. ``lambda t:
     llama_params_from_jax(t, config)``; by default the tree is a flat dict
     already keyed by the torch names of ``named_params``).  A moment that
@@ -186,6 +191,12 @@ def load_jax_optimizer_state(
     to_torch = tree_to_torch or (lambda t: {k: _tensor(v) for k, v in t.items()})
     fields = dict(inner._asdict())
     step = int(np.asarray(fields.pop("step")))
+    if "lr" in fields:
+        lr = float(np.asarray(fields.pop("lr")))
+        if not hasattr(opt, "set_lr"):
+            raise ValueError(f"JAX optimizer state holds a device lr; "
+                             f"{type(opt).__name__} has no set_lr")
+        opt.set_lr(lr)
     trees = {}
     for name, value in fields.items():
         if name not in _STATE_FIELDS:

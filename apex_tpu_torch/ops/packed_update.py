@@ -20,9 +20,14 @@ table of tensor pointers.
   Pallas ``_lamb_phase1_kernel``) or :func:`_plain_phase1`.  Scalars
   ``[beta1, beta3, beta2, eps, wd, bc1, bc2, clip]`` (:func:`lamb_scalars`).
 - **LAMB phase 2** (per-tensor trust ratios ``||p|| / ||u||`` and the
-  apply): plain PyTorch, as it is XLA in the JAX package: one norm per leaf
-  over its slice of the flat buffer, and the apply on each slice, so no
-  per-element segment-id array is built.
+  apply), XLA in the JAX package: one ``mt_l2norm`` over the leaves' views
+  of ``p`` and of the update (their per-tensor norms), then ``mt_lamb``'s
+  stage 2 over the same views (:mod:`apex_tpu_torch.ops.multi_tensor`; on
+  the CPU their plain versions, a leaf at a time), so no per-element
+  segment-id array is built.
+- **NovoGrad** (:func:`packed_novograd_update`): plain PyTorch on every
+  device, as the JAX function is jnp with no Pallas kernel: per-leaf sums
+  of squares over the leaves' slices and an elementwise chain.
 
 The step scalars reach each kernel as a small fp32 tensor on the device,
 so neither the bias corrections, the clip factor (computed from the global
@@ -47,8 +52,8 @@ from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
 from apex_tpu_torch.utils.packing import PackedSpec
 
 __all__ = ["packed_adam_update", "packed_adagrad_update",
-           "packed_lamb_update", "adam_scalars", "adagrad_scalars",
-           "lamb_phase1", "lamb_scalars", "per_leaf_norms", "LAMB_PHASE1",
+           "packed_lamb_update", "packed_novograd_update", "adam_scalars", "adagrad_scalars",
+           "lamb_phase1", "lamb_scalars", "LAMB_PHASE1",
            "PACKED_ADAM", "PACKED_ADAGRAD"]
 
 LAMB_PHASE1 = register(Kernel(
@@ -335,15 +340,6 @@ def _leaf_slices(x: torch.Tensor, spec: PackedSpec) -> Sequence[torch.Tensor]:
     return [x[o:o + s] for o, s in zip(spec.offsets, spec.sizes)]
 
 
-def per_leaf_norms(x32: torch.Tensor, spec: PackedSpec) -> torch.Tensor:
-    """``[num_leaves]`` fp32 L2 norms, one per leaf's slice of the flat
-    buffer (the JAX ``per_leaf_sqnorms``, rooted)."""
-    if not spec.num_leaves:
-        return torch.zeros(0, dtype=torch.float32, device=x32.device)
-    return torch.stack([torch.linalg.vector_norm(s, dtype=torch.float32)
-                        for s in _leaf_slices(x32, spec)])
-
-
 @torch.no_grad()
 def packed_lamb_update(flat_grad, flat_param, flat_m, flat_v, *,
                        spec: PackedSpec, lr: float, beta1: float,
@@ -360,26 +356,71 @@ def packed_lamb_update(flat_grad, flat_param, flat_m, flat_v, *,
     returns new arrays, this one returns its updated inputs
     ``(flat_param, flat_m, flat_v)``.  The bias corrections and the clip
     factor may be 0-d tensors on the buffers' device."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
     scalars = lamb_scalars(beta1, beta3, beta2, eps, weight_decay,
                            bias_correction1, bias_correction2, global_clip,
                            flat_param.device)
     update = lamb_phase1(flat_grad, flat_param, flat_m, flat_v, scalars,
                          adam_w_mode)
     p32 = flat_param if flat_param.dtype == torch.float32 else flat_param.float()
-    if weight_decay or use_nvlamb:
-        p_norms = per_leaf_norms(p32, spec)
-        u_norms = per_leaf_norms(update, spec)
-        ratios = torch.where((p_norms > 0) & (u_norms > 0), p_norms / u_norms,
-                             1.0)
-        steps = ratios * lr            # lr * ratio in fp32, one per leaf
-        for i, (pv, uv) in enumerate(zip(_leaf_slices(p32, spec),
-                                         _leaf_slices(update, spec))):
-            pv.addcmul_(uv, steps[i], value=-1.0)
-        # the padding, a leaf of its own with ratio 1 (its update is 0
-        # while its gradient and moments stay 0)
-        p32[spec.total:].add_(update[spec.total:], alpha=-lr)
-    else:
-        p32.add_(update, alpha=-lr)
+    # each leaf's slice, then the padding as a leaf of its own with ratio 1
+    # (its update is 0 while its gradient and moments stay 0)
+    n = spec.num_leaves
+    ps, us = _leaf_slices(p32, spec), _leaf_slices(update, spec)
+    if p32.numel() > spec.total:
+        ps.append(p32[spec.total:])
+        us.append(update[spec.total:])
+    norms = None
+    if (weight_decay or use_nvlamb) and n:
+        # one norm a leaf: p's slices, then the update's
+        norms = mt.l2norm(ps[:n] + us[:n]).per_tensor
+    mt.lamb_apply(ps, us, lr=lr, norms=norms, n_ratio=n)
     if p32 is not flat_param:
         flat_param.copy_(p32)
     return flat_param, flat_m, flat_v
+
+
+@torch.no_grad()
+def packed_novograd_update(flat_grad, flat_param, flat_m, seg_v, *,
+                           spec: PackedSpec, lr: Scalar, beta1: float,
+                           beta2: float, beta3: float, eps: float,
+                           weight_decay: float, bias_correction1: Scalar,
+                           bias_correction2: Scalar,
+                           is_first_step: Union[bool, torch.Tensor],
+                           init_zero: bool = False,
+                           reg_inside_moment: bool = False):
+    """One packed FusedNovoGrad step over flat 1-D buffers laid out by
+    ``spec`` (the JAX ``packed_novograd_update``, with the leaves' offsets
+    in place of its segment ids): ``seg_v`` is the per-tensor second moment
+    ``[num_leaves + 1]`` (its last slot the padding's).  Plain PyTorch on
+    every device, as the JAX function is jnp with no Pallas kernel: each
+    leaf's ``sum(g^2)`` over its slice, then one elementwise chain.  Like
+    the JAX function it writes nothing and returns ``(new_param, new_m,
+    new_seg_v)``, the parameter in ``flat_param``'s dtype; the bias
+    corrections and ``is_first_step`` may be 0-d tensors on the buffers'
+    device."""
+    p32 = flat_param.float()
+    g = flat_grad.float()
+    sizes = list(spec.sizes) + [flat_grad.numel() - spec.total]
+    starts = list(spec.offsets) + [spec.total]
+    g_sq = torch.stack([torch.sum(g[o:o + n] * g[o:o + n])
+                        for o, n in zip(starts, sizes)])
+    v_upd = beta2 * seg_v + (1.0 - beta2) * g_sq
+    v_init = torch.zeros_like(g_sq) if init_zero else g_sq
+    if isinstance(is_first_step, torch.Tensor):
+        v_new = torch.where(is_first_step, v_init, v_upd)
+    else:
+        v_new = v_init if is_first_step else v_upd
+    denom = torch.sqrt(v_new / bias_correction2) + eps
+    # each segment's denominator over its elements (the JAX take(seg_ids))
+    per_element = torch.cat([d.expand(n) for d, n in zip(denom.unbind(), sizes)])
+    g_hat = g / per_element
+    if weight_decay and reg_inside_moment:
+        g_hat = g_hat + weight_decay * p32
+    m_new = beta1 * flat_m + beta3 * g_hat
+    update = m_new / bias_correction1
+    if weight_decay and not reg_inside_moment:
+        update = update + weight_decay * p32
+    p_new = p32 - lr * update
+    return p_new.to(flat_param.dtype), m_new, v_new

@@ -5,20 +5,26 @@
 ``FusedOptimizer.step`` with fp32 master weights, in the port's idiom (a
 ``torch.optim.Optimizer`` that updates in place).  One step:
 
-1. each gradient unscaled in fp32 (:func:`unscale_grads`, divided by
-   ``grad_scale``);
+1. each gradient unscaled in fp32 (divided by ``grad_scale``): on CUDA
+   inside the multi-tensor kernels, which read the gradient in place and
+   multiply it by a device ``1 / grad_scale`` (:func:`inv_scale`), with no
+   fp32 copy; on the packed paths in the flat fp32 buffer they are packed
+   into (:func:`pack_unscaled`); elsewhere by :func:`unscale_grads`;
 2. the update computed on the fp32 masters (``master_weights=True``) or on
    the parameters, by the subclass's ``_update``;
-3. every value kept as it was where ``found_inf`` is true
-   (:func:`commit`: a select on the device, no host sync);
-4. the masters copied back into the parameters, each in its own dtype.
+3. every value kept as it was where ``found_inf`` is true (the kernels'
+   ``noop``, or :func:`commit`: a select on the device; no host sync);
+4. the masters copied back into the parameters, each in its own dtype
+   (fused into ``mt_adam`` and ``mt_lamb``'s pass; :meth:`_copy_back`
+   elsewhere).
 
 Each group's step counter is one int32 tensor on the device, shared by
 the states of the group's parameters (``state["step"]``): it advances only
 on a step that is applied, and the bias corrections come from it on the
 device (:func:`bias_corrections`), once a group, not once a parameter.
-``FusedAdamSWA`` (``contrib/openfold_triton``) uses :func:`unscale_grads`,
-:func:`apply_if_finite` and :func:`bias_corrections` on its own.
+``FusedAdamSWA`` (``contrib/openfold_triton``) uses :func:`inv_scale`,
+:func:`commit`, :func:`bias_corrections` and :func:`restore_state` on its
+own.
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["FusedOptimizer", "apply_if_finite", "bias_corrections", "commit",
-           "is_half", "master_copy", "unscale_grads"]
+from apex_tpu_torch.utils.packing import pack_pytree
+
+__all__ = ["FusedOptimizer", "bias_corrections", "commit",
+           "inv_scale", "is_half", "master_copy", "pack_unscaled",
+           "restore_state", "unscale_grads"]
 
 
 def bias_corrections(step: torch.Tensor, beta1: float, beta2: float):
@@ -57,18 +66,30 @@ def unscale_grads(grads: Sequence[torch.Tensor],
     return [g * inv for g in g32]
 
 
-def apply_if_finite(found_inf: Optional[torch.Tensor],
-                    new: Sequence[torch.Tensor],
-                    old: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """``found_inf ? old : new`` for each pair (the capturable skip): for
-    a flag in a tensor, a select on its device with no host sync; a true
-    flag keeps every value as it was.  Without a flag, ``new``."""
-    if found_inf is None:
-        return list(new)
-    if not isinstance(found_inf, torch.Tensor):
-        return list(old if found_inf else new)
-    skip = found_inf.to(torch.bool)
-    return [torch.where(skip, o, n) for n, o in zip(new, old)]
+def inv_scale(grad_scale: Union[None, float, torch.Tensor], device
+              ) -> Optional[torch.Tensor]:
+    """``1 / grad_scale`` as a 0-d fp32 tensor on ``device`` (the reciprocal
+    taken in fp32, as :func:`unscale_grads` takes it), the multiplier the
+    multi-tensor kernels apply to each gradient; None without a scale."""
+    if grad_scale is None:
+        return None
+    if isinstance(grad_scale, torch.Tensor):
+        return torch.reciprocal(grad_scale.to(device=device,
+                                              dtype=torch.float32))
+    inv = float(1.0 / torch.tensor(grad_scale, dtype=torch.float32))
+    return torch.full((), inv, dtype=torch.float32, device=device)
+
+
+def pack_unscaled(grads: Sequence[torch.Tensor],
+                  grad_scale: Union[None, float, torch.Tensor]
+                  ) -> torch.Tensor:
+    """The gradients packed into one flat fp32 buffer
+    (:func:`~apex_tpu_torch.utils.packing.pack_pytree`) and multiplied by
+    :func:`inv_scale` there: the products :func:`unscale_grads` forms, with
+    no fp32 copy of each gradient first (the packed paths' input)."""
+    flat = pack_pytree(list(grads), dtype=torch.float32).flat
+    inv = inv_scale(grad_scale, flat.device)
+    return flat if inv is None else flat.mul_(inv)
 
 
 def commit(dst: torch.Tensor, new: torch.Tensor,
@@ -93,18 +114,44 @@ def is_half(x: torch.Tensor) -> bool:
     return x.dtype in (torch.bfloat16, torch.float16)
 
 
-#: one group's work: (group, the parameters it updates, their fp32
-#: unscaled gradients, the tensors the update writes: masters or the
-#: parameters themselves)
+#: one group's work: (group, the parameters it updates, their gradients as
+#: they are, the tensors the update writes: masters or the parameters
+#: themselves)
 Work = Tuple[dict, List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
+
+
+def restore_state(opt: torch.optim.Optimizer, state_dict: dict,
+                  shared: Sequence[str] = ("step",)) -> None:
+    """After ``torch.optim.Optimizer.load_state_dict``: each state tensor
+    back in its saved dtype (torch casts every floating one to its
+    parameter's dtype, and these optimizers keep fp32 masters and moments
+    beside half parameters), and each key of ``shared`` one tensor a group
+    again, shared by its parameters' states."""
+    saved_ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for i, p in zip(saved_ids, params):
+        for key, val in state_dict["state"].get(i, {}).items():
+            if isinstance(val, torch.Tensor):
+                opt.state[p][key] = val.to(device=p.device, copy=True)
+    for group in opt.param_groups:
+        for key in shared:
+            first = None
+            for p in group["params"]:
+                state = opt.state.get(p)
+                if state and key in state:
+                    first = state[key] if first is None else first
+                    state[key] = first
 
 
 class FusedOptimizer(torch.optim.Optimizer):
     """Base of the fused optimizers: the capturable step with master
     weights (see the module docstring).  A subclass implements
-    ``_update(work, skip)``, which updates each group's ``work`` targets
-    and its own state through :func:`commit` (so a true ``skip`` keeps
-    every bit) and advances the group's step with :meth:`_advance`.
+    ``_update(work, skip, grad_scale)``, which unscales the gradients (in a
+    kernel or by :func:`unscale_grads`), updates each group's ``work``
+    targets and its own state so that a true ``skip`` keeps every bit (a
+    kernel's ``noop``, or :func:`commit`), advances the group's step with
+    :meth:`_advance`, and copies masters back (:meth:`_copy_back`) where
+    its kernel does not.
     ``packed`` is the packed path's contract: a step updates every
     parameter of a group, so each needs a gradient."""
 
@@ -125,7 +172,8 @@ class FusedOptimizer(torch.optim.Optimizer):
                              f"gradient")
         return list(group["params"])
 
-    def _update(self, work: List[Work], skip: Optional[torch.Tensor]) -> None:
+    def _update(self, work: List[Work], skip: Optional[torch.Tensor],
+                grad_scale: Union[None, float, torch.Tensor]) -> None:
         raise NotImplementedError
 
     @torch.no_grad()
@@ -152,16 +200,20 @@ class FusedOptimizer(torch.optim.Optimizer):
             params = self._params_to_update(group)
             if not params:
                 continue
-            grads = unscale_grads([p.grad for p in params], grad_scale)
             targets = ([self._master(p) for p in params]
                        if self.master_weights else params)
-            work.append((group, params, grads, targets))
-        self._update(work, skip)
-        if self.master_weights:
-            for _, params, _, masters in work:
-                for p, m in zip(params, masters):
-                    p.copy_(m)
+            work.append((group, params, [p.grad for p in params], targets))
+        self._update(work, skip, grad_scale)
         return loss
+
+    def _copy_back(self, params: Sequence[torch.Tensor],
+                   targets: Sequence[torch.Tensor]) -> None:
+        """With ``master_weights``, each master copied into its parameter
+        in the parameter's dtype (a skipped step left both as they were,
+        so the copy gives the parameter its own bits back)."""
+        if self.master_weights:
+            for p, m in zip(params, targets):
+                p.copy_(m)
 
     def _master(self, p: torch.Tensor) -> torch.Tensor:
         state = self.state[p]
@@ -194,16 +246,4 @@ class FusedOptimizer(torch.optim.Optimizer):
         moments beside half parameters), and each group's step counter
         one tensor again, shared by its parameters' states."""
         super().load_state_dict(state_dict)
-        saved_ids = [i for g in state_dict["param_groups"] for i in g["params"]]
-        params = [p for g in self.param_groups for p in g["params"]]
-        for i, p in zip(saved_ids, params):
-            for key, val in state_dict["state"].get(i, {}).items():
-                if isinstance(val, torch.Tensor):
-                    self.state[p][key] = val.to(device=p.device, copy=True)
-        for group in self.param_groups:
-            shared = None
-            for p in group["params"]:
-                state = self.state.get(p)
-                if state and "step" in state:
-                    shared = state["step"] if shared is None else shared
-                    state["step"] = shared
+        restore_state(self, state_dict)

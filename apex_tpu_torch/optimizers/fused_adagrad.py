@@ -40,7 +40,12 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch.ops.packed_update import packed_adagrad_update
-from apex_tpu_torch.optimizers._common import FusedOptimizer, commit
+from apex_tpu_torch.optimizers._common import (
+    FusedOptimizer,
+    commit,
+    pack_unscaled,
+    unscale_grads,
+)
 from apex_tpu_torch.utils.packing import make_packed_spec, pack_pytree
 
 __all__ = ["FusedAdagrad"]
@@ -55,14 +60,16 @@ class FusedAdagrad(FusedOptimizer):
                          packed=packed)
         self.adagrad_w_mode = adagrad_w_mode
 
-    def _update(self, work, skip) -> None:
+    def _update(self, work, skip, grad_scale) -> None:
         for group, params, grads, targets in work:
             step = self._group_step(params)
             hyper = dict(lr=group["lr"], eps=group["eps"],
                          weight_decay=group["weight_decay"])
             if self.packed:
-                self._packed_group(params, grads, targets, step, hyper, skip)
+                self._packed_group(params, pack_unscaled(grads, grad_scale),
+                                   targets, step, hyper, skip)
             else:
+                grads = unscale_grads(grads, grad_scale)
                 for p, g, t in zip(params, grads, targets):
                     state = self.state[p]
                     if "sum_sq" not in state:
@@ -75,8 +82,9 @@ class FusedAdagrad(FusedOptimizer):
                     commit(t, p_new, skip)
                     commit(h, h_new, skip)
             self._advance(step, skip)
+            self._copy_back(params, targets)
 
-    def _packed_group(self, params, grads, targets, step, hyper, skip):
+    def _packed_group(self, params, flat_g, targets, step, hyper, skip):
         spec = make_packed_spec(list(targets))
         state = self.state[params[0]]
         if "sum_sq" not in state:
@@ -86,8 +94,7 @@ class FusedAdagrad(FusedOptimizer):
                                           device=targets[0].device)
         flat_p = pack_pytree(list(targets), dtype=torch.float32).flat
         packed_adagrad_update(
-            pack_pytree(list(grads), dtype=torch.float32).flat, flat_p,
-            state["sum_sq"], adagrad_w_mode=self.adagrad_w_mode,
+            flat_g, flat_p, state["sum_sq"], adagrad_w_mode=self.adagrad_w_mode,
             noop_flag=skip, **hyper)
         # a skipped step left flat_p as packed, so each target gets its own
         # bits back

@@ -16,23 +16,27 @@ with ``bc1, bc2 = 1 - b1**step, 1 - b2**step`` (1 without
 ``bias_correction``) from the group's step counter on the device; ``p`` is
 stored back in its own dtype and ``m`` and ``v`` in ``state_dtype`` (bf16
 moments halve the state and its traffic).  The update is a memory-bound
-pass over every parameter, so it runs as few fp32 passes as plain PyTorch
-allows: ``mul``/``add_``, ``addcmul_`` for ``v`` and one ``addcdiv`` for
-``p - lr u`` (AdamW's decay as ``p (1 - lr wd)`` first, ``bc1`` folded
-into the denominator).  That regroups the JAX function's roundings, so the
-two agree to fp32 rounding, not bit for bit.
+pass over every parameter: on CUDA one launch of the multi-tensor kernel
+``mt_adam`` (:func:`apex_tpu_torch.ops.multi_tensor.adam`) over every
+tensor of a group, which reads each gradient in place (multiplied by ``1 /
+grad_scale`` on the device), updates the target, m and v and, with
+``master_weights``, writes the new master into the half parameter in the
+same pass; on the CPU its plain version, a parameter at a time with as few
+fp32 passes as plain PyTorch allows (``mul``/``add_``, ``addcmul_`` for
+``v`` and one ``addcdiv`` for ``p - lr u``, AdamW's decay as ``p (1 - lr
+wd)`` first, ``bc1`` folded into the denominator), which the kernel follows
+term for term.  That regroups the JAX function's roundings, so the two
+agree to fp32 rounding, not bit for bit.
 
 The step is :class:`~apex_tpu_torch.optimizers._common.FusedOptimizer`'s:
 ``master_weights=True`` keeps an fp32 master of each parameter
-(``state["master_param"]``) that the update runs on, copied back into the
-parameter after it; ``step(grad_scale=, found_inf=)`` unscales the
+(``state["master_param"]``) that the update runs on, copied into the
+parameter by the same pass; ``step(grad_scale=, found_inf=)`` unscales the
 gradients and, where ``found_inf`` is true, keeps every value and the step
-counter as they were, on the device.  Unlike the JAX optimizer, which
-returns new arrays, this one updates the parameters and its state
-(``exp_avg``, ``exp_avg_sq``, ``step``, ``master_param``) in place.  There
-is no Pallas kernel behind the JAX ``FusedAdam``: this is plain PyTorch on
-every device (the packed kernel, ``ops.packed_update.packed_adam_update``,
-is called on flat buffers directly).  ``amsgrad=True`` raises as the JAX
+counter as they were, on the device (the kernel's ``noop``: it returns
+before any load).  Unlike the JAX optimizer, which returns new arrays, this
+one updates the parameters and its state (``exp_avg``, ``exp_avg_sq``,
+``step``, ``master_param``) in place.  ``amsgrad=True`` raises as the JAX
 class does.
 """
 
@@ -40,10 +44,11 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers._common import (
     FusedOptimizer,
     bias_corrections,
-    commit,
+    inv_scale,
 )
 
 __all__ = ["FusedAdam"]
@@ -63,10 +68,9 @@ class FusedAdam(FusedOptimizer):
         self.adam_w_mode = adam_w_mode
         self.state_dtype = state_dtype
 
-    def _update(self, work, skip) -> None:
+    def _update(self, work, skip, grad_scale) -> None:
         for group, params, grads, targets in work:
             b1, b2 = group["betas"]
-            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
             step = self._group_step(params)
             for p in params:
                 state = self.state[p]
@@ -79,28 +83,13 @@ class FusedAdam(FusedOptimizer):
                         p, dtype=self.state_dtype,
                         memory_format=torch.preserve_format)
             nxt = self._advance(step, skip)
-            if group["bias_correction"]:
-                bc1, bc2 = bias_corrections(nxt, b1, b2)
-            else:
-                bc1 = bc2 = 1.0
-            for p, g, t in zip(params, grads, targets):
-                state = self.state[p]
-                m, v = state["exp_avg"], state["exp_avg_sq"]
-                p_new, m_new, v_new = self._adam(t, g, m, v, lr, b1, b2, eps,
-                                                 wd, bc1, bc2)
-                for dst, new in ((t, p_new), (m, m_new), (v, v_new)):
-                    commit(dst, new, skip)
-
-    def _adam(self, p, g, m, v, lr, b1, b2, eps, wd, bc1, bc2):
-        """New fp32 ``(p, m, v)``; the inputs are not written.  ``g`` is
-        fp32; an fp32 op on a bf16/fp16 operand widens it exactly, as
-        ``.float()`` would."""
-        p32 = p.float()
-        if not self.adam_w_mode and wd:
-            g = p32.mul(wd).add_(g)
-        m_new = m.float().mul(b1).add_(g, alpha=1.0 - b1)
-        v_new = v.float().mul(b2).addcmul_(g, g, value=1.0 - b2)
-        denom = v_new.div(bc2).sqrt_().add_(eps).mul_(bc1)
-        if self.adam_w_mode and wd:
-            p32 = p32.mul(1.0 - lr * wd)
-        return p32.addcdiv(m_new, denom, value=-lr), m_new, v_new
+            bc1, bc2 = (bias_corrections(nxt, b1, b2)
+                        if group["bias_correction"] else (None, None))
+            mt.adam(grads, targets, [self.state[p]["exp_avg"] for p in params],
+                    [self.state[p]["exp_avg_sq"] for p in params],
+                    mode=mt.ADAMW if self.adam_w_mode else mt.ADAM_L2,
+                    lr=group["lr"], beta1=b1, beta2=b2, eps=group["eps"],
+                    weight_decay=group["weight_decay"],
+                    inv_scale=inv_scale(grad_scale, params[0].device),
+                    bc1=bc1, bc2=bc2, noop=skip,
+                    copy=params if self.master_weights else None)

@@ -21,9 +21,15 @@ for the card.
 
 Two paths, as in the JAX class:
 
-- **unpacked** (the default): per-parameter plain PyTorch on every device,
-  as the JAX path is plain jnp; ``m`` and ``v`` stored in ``state_dtype``
-  (fp32 or bf16: bf16 halves the state and its traffic), computed in fp32.
+- **unpacked** (the default): on CUDA the global norm is one ``mt_l2norm``
+  over every gradient and each group's update one ``mt_lamb`` (stage 1:
+  the moments and each chunk's ``||p||^2`` and ``||u||^2``; stage 2: the
+  trust ratios and the apply, the update recomputed, so no fp32 buffer the
+  size of the model is kept), each gradient read in place; on the CPU
+  their plain versions, a parameter at a time
+  (:mod:`apex_tpu_torch.ops.multi_tensor`).  ``m`` and ``v`` stored in
+  ``state_dtype`` (fp32 or bf16: bf16 halves the state and its traffic),
+  computed in fp32.
 - **packed** (``packed=True``): each group's gradients and parameters are
   concatenated into flat fp32 buffers (:mod:`apex_tpu_torch.utils.packing`)
   and updated by :func:`~apex_tpu_torch.ops.packed_update.packed_lamb_update`,
@@ -31,11 +37,14 @@ Two paths, as in the JAX class:
   each parameter is copied back in its own dtype.  The flat fp32 ``m`` and
   ``v`` (``exp_avg``, ``exp_avg_sq``) and the ``step`` live in the state of
   the group's first parameter.  ``state_dtype`` other than fp32 raises, as
-  in the JAX class, and so does a parameter without a gradient.
+  in the JAX class, and so does a parameter without a gradient.  Phase 2
+  (the per-leaf norms and the apply) runs ``mt_l2norm`` and ``mt_lamb``'s
+  stage 2 over the leaves' views of the flat buffers on CUDA.
 
 The step is :class:`~apex_tpu_torch.optimizers._common.FusedOptimizer`'s,
 on both paths: ``master_weights=True`` runs the update on fp32 masters
-(``state["master_param"]``), ``step(grad_scale=, found_inf=)`` unscales the
+(``state["master_param"]``; on CUDA unpacked, copied into the parameter by
+``mt_lamb``'s pass), ``step(grad_scale=, found_inf=)`` unscales the
 gradients first (the clip factor comes from the unscaled ones) and, where
 ``found_inf`` is true, keeps every value and the group's step counter as
 they were, on the device: the clip factor and the trust ratios are
@@ -46,18 +55,20 @@ arrays, this one updates the parameters and its state in place.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops.packed_update import packed_lamb_update
 from apex_tpu_torch.optimizers._common import (
     FusedOptimizer,
     bias_corrections,
     commit,
+    inv_scale,
+    pack_unscaled,
 )
 from apex_tpu_torch.utils.packing import make_packed_spec, pack_pytree
-from apex_tpu_torch.utils.tree_math import tree_l2norm
 
 __all__ = ["FusedLAMB"]
 
@@ -85,17 +96,21 @@ class FusedLAMB(FusedOptimizer):
         self.use_nvlamb = use_nvlamb
         self.state_dtype = state_dtype
 
-    def _clip(self, grads: List[torch.Tensor]):
-        """The global-norm clip factor, a 0-d fp32 tensor on the device (or
-        1.0 without ``max_grad_norm``)."""
+    def _clip(self, grads: List[torch.Tensor], inv: Optional[torch.Tensor]):
+        """The global-norm clip factor of the unscaled gradients (``grads *
+        inv``), a 0-d fp32 tensor on the device (``mt_l2norm`` on CUDA), or
+        None (1) without ``max_grad_norm``."""
         if not self.max_grad_norm:
-            return 1.0
-        norm = tree_l2norm(grads)
+            return None
+        norm = mt.l2norm(grads, inv).total
         return torch.clamp(norm / self.max_grad_norm, min=1.0)
 
-    def _update(self, work, skip) -> None:
+    def _update(self, work, skip, grad_scale) -> None:
+        if not work:
+            return
+        inv = inv_scale(grad_scale, work[0][1][0].device)
         # the global norm runs over every group's unscaled gradients
-        clip = self._clip([g for _, _, grads, _ in work for g in grads])
+        clip = self._clip([g for _, _, grads, _ in work for g in grads], inv)
         for group, params, grads, targets in work:
             b1, b2 = group["betas"]
             hyper = dict(lr=group["lr"], beta1=b1, beta2=b2,
@@ -104,17 +119,18 @@ class FusedLAMB(FusedOptimizer):
             step = self._group_step(params)
             nxt = self._advance(step, skip)
             bc1, bc2 = (bias_corrections(nxt, b1, b2)
-                        if group["bias_correction"] else (1.0, 1.0))
+                        if group["bias_correction"] else (None, None))
             if self.packed:
-                self._packed_group(params, grads, targets, step, clip, bc1,
-                                   bc2, hyper, skip)
+                self._packed_group(params, pack_unscaled(grads, grad_scale),
+                                   targets, step, clip, bc1, bc2, hyper, skip)
+                self._copy_back(params, targets)
             else:
-                self._unpacked_group(params, grads, targets, step, clip, bc1,
-                                     bc2, hyper, skip)
+                self._unpacked_group(params, grads, targets, step, clip, inv,
+                                     bc1, bc2, hyper, skip)
 
     # -- the packed path -----------------------------------------------------
 
-    def _packed_group(self, params, grads, targets, step, clip, bc1, bc2,
+    def _packed_group(self, params, flat_g, targets, step, clip, bc1, bc2,
                       hyper, skip):
         spec = make_packed_spec(list(targets))
         state = self.state[params[0]]
@@ -128,11 +144,12 @@ class FusedLAMB(FusedOptimizer):
         # phase 1 writes the moments in place: keep the old ones for a
         # skipped step
         old = None if skip is None else (m.clone(), v.clone())
-        flat_g = pack_pytree(list(grads), dtype=torch.float32).flat
         flat_p = pack_pytree(list(targets), dtype=torch.float32).flat
         packed_lamb_update(
-            flat_g, flat_p, m, v, spec=spec, bias_correction1=bc1,
-            bias_correction2=bc2, global_clip=clip,
+            flat_g, flat_p, m, v, spec=spec,
+            bias_correction1=1.0 if bc1 is None else bc1,
+            bias_correction2=1.0 if bc2 is None else bc2,
+            global_clip=1.0 if clip is None else clip,
             adam_w_mode=self.adam_w_mode, use_nvlamb=self.use_nvlamb, **hyper)
         if old is not None:
             torch.where(skip, old[0], m, out=m)
@@ -142,9 +159,9 @@ class FusedLAMB(FusedOptimizer):
 
     # -- the unpacked path ---------------------------------------------------
 
-    def _unpacked_group(self, params, grads, targets, step, clip, bc1, bc2,
-                        hyper, skip):
-        for p, g, t in zip(params, grads, targets):
+    def _unpacked_group(self, params, grads, targets, step, clip, inv, bc1,
+                        bc2, hyper, skip):
+        for p in params:
             state = self.state[p]
             if "exp_avg" not in state:
                 state["step"] = step
@@ -154,28 +171,9 @@ class FusedLAMB(FusedOptimizer):
                 state["exp_avg_sq"] = torch.zeros_like(
                     p, dtype=self.state_dtype,
                     memory_format=torch.preserve_format)
-            m, v = state["exp_avg"], state["exp_avg_sq"]
-            news = self._lamb(t, g, m, v, clip, bc1, bc2, **hyper)
-            for dst, new in zip((t, m, v), news):
-                commit(dst, new, skip)
-
-    def _lamb(self, p, g, m, v, clip, bc1, bc2, *, lr, beta1, beta2, beta3,
-              eps, weight_decay):
-        """New fp32 ``(p, m, v)``; the inputs are not written."""
-        wd = weight_decay
-        p32 = p.float()
-        g32 = g / clip                         # a new tensor: g is not written
-        if not self.adam_w_mode and wd:
-            g32.add_(p32, alpha=wd)
-        m_new = m.float().mul(beta1).add_(g32, alpha=beta3)
-        v_new = v.float().mul(beta2).addcmul_(g32, g32, value=1.0 - beta2)
-        update = torch.div(m_new, bc1).div_(v_new.div(bc2).sqrt_().add_(eps))
-        if self.adam_w_mode and wd:
-            update.add_(p32, alpha=wd)
-        if wd or self.use_nvlamb:
-            p_norm = torch.linalg.vector_norm(p32)
-            u_norm = torch.linalg.vector_norm(update)
-            ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
-                                1.0)
-            return p32.addcmul(update, ratio, value=-lr), m_new, v_new
-        return p32.add(update, alpha=-lr), m_new, v_new
+        mt.lamb(grads, targets, [self.state[p]["exp_avg"] for p in params],
+                [self.state[p]["exp_avg_sq"] for p in params],
+                adam_w_mode=self.adam_w_mode,
+                use_ratio=bool(hyper["weight_decay"] or self.use_nvlamb),
+                inv_scale=inv, clip=clip, bc1=bc1, bc2=bc2, noop=skip,
+                copy=params if self.master_weights else None, **hyper)

@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.utils.packing import tree_leaves, tree_map
 
 __all__ = ["tree_add", "tree_axpby", "tree_cast", "tree_l2norm", "tree_scale",
@@ -40,21 +41,21 @@ def tree_axpby(a, x: Any, b, y: Any) -> Any:
     return tree_map(lambda _: next(out), x)
 
 
-def tree_l2norm(tree: Any, per_leaf: bool = False):
+def tree_l2norm(tree: Any, per_leaf: bool = False, device=None):
     """Global (and with ``per_leaf`` per-leaf) L2 norm, in fp32
-    (``amp_C.multi_tensor_l2norm``): each leaf's norm accumulates its
-    squares in fp32, and the global norm is the root of their squares'
-    sum.  Returns a 0-d fp32 tensor on the leaves' device, and with
-    ``per_leaf`` the list of per-leaf norms too."""
+    (``amp_C.multi_tensor_l2norm``): each leaf's squares summed in fp32,
+    the global norm the root of those sums' sum; on CUDA one ``mt_l2norm``
+    over every leaf (:mod:`apex_tpu_torch.ops.multi_tensor`).  Returns a
+    0-d fp32 tensor on the leaves' device (on ``device`` for a tree with
+    no leaves), and with ``per_leaf`` the list of per-leaf norms too."""
     leaves = tree_leaves(tree)
     if not leaves:
-        zero = torch.zeros((), dtype=torch.float32)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
         return (zero, []) if per_leaf else zero
-    norms = [torch.linalg.vector_norm(l, dtype=torch.float32) for l in leaves]
-    total = torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    norms = mt.l2norm(leaves)
     if per_leaf:
-        return total, norms
-    return total
+        return norms.total, list(norms.per_tensor.unbind())
+    return norms.total
 
 
 def tree_cast(tree: Any, dtype: torch.dtype) -> Any:

@@ -53,6 +53,22 @@ ends the run with a non-zero exit and no result line:
    every buffer's bits) and n = 1 to past one grid stride, and checked and
    timed at Llama-1B's packed fp32 masters (1.123 B elements), before any
    model is built.
+   The multi-tensor kernels (``mt_l2norm``, ``mt_scale``, ``mt_adam``,
+   ``mt_lamb``; ``csrc/multi_tensor.cu``) are checked over tensor counts 1,
+   3, 6 and 200 (400 chunks), sizes 1, 7, one chunk, one chunk + 1 and
+   sizes not multiples of 8, an unaligned list, g/p in fp32/bf16/fp16 and
+   m/v in fp32/bf16, both Adam modes, the three SWA modes with
+   ``n_averaged`` 0 and 2, LAMB with and without NVLAMB, weight decay, the
+   clip and a device lr, the master copy-back, ``noop`` 1 (every bit
+   kept), an inf for the flags, and the same bits on a repeated
+   ``mt_l2norm`` and ``mt_lamb``; then timed at the main paths' real
+   parameter lists (Llama-1B bf16 and its fp16 masters form, GPT-2-large's
+   unpacked LAMB, OpenFold's four blocks) beside the bytes bound, the
+   plain version, the plain version captured in one CUDA graph, and the
+   library's list call (``torch._fused_adamw_``,
+   ``torch._amp_foreach_non_finite_check_and_unscale_``,
+   ``torch._foreach_norm``), each also held against its plain version on a
+   sub-list of its real list.
 3. **End to end**, nine paths, each with the launch counts set to 0 just
    before it and read just after:
 
@@ -74,8 +90,11 @@ ends the run with a non-zero exit and no result line:
      against the cached path on one 512-token prompt, and wall, tokens/s,
      peak memory and a profile of one forward.
    - *training*: a small fp32 Llama's loss, gradients and 3 FusedAdam
-     steps on the card against the CPU; then ``llama-1b`` (O2, bf16
-     moments) 1 + 6 steps at b 4, s 2048 with exact launches a step.
+     steps on the card against the CPU, and 3 steps of each of
+     ``FusedSGD``, ``FusedNovoGrad``, ``FusedMixedPrecisionLamb`` and
+     ``clip_grad_norm_`` + ``FusedSGD`` with their multi-tensor launches
+     exact; then ``llama-1b`` (O2, bf16 moments) 1 + 6 steps at b 4, s 2048
+     with exact launches a step (``mt_adam`` 1).
    - *amp*: a small fp32 Llama under ``amp.initialize(..., "O2",
      half_dtype=torch.float16)`` and the dynamic scaler, 4 steps card
      against CPU (loss, ``found_inf``, scaler state at every step; masters,
@@ -86,7 +105,8 @@ ends the run with a non-zero exit and no result line:
      master_weights=True)`` (the packed Adagrad kernel) and
      ``packed_adam_update`` over the masters packed once (the packed Adam
      kernel, ``noop_flag=found_inf``).  Each: exact launches a step (45/22/1
-     forward, 45/22/22/1/1 backward, 1 packed update in the last two), the
+     forward, 45/22/22/1/1 backward, ``mt_scale`` 1 for the overflow check,
+     ``mt_adam`` 1 in the first form and 1 packed update in the last two), the
      unscale, optimizer step and scaler update under
      ``set_sync_debug_mode("error")``, an inf written at one step which
      must keep every parameter, master, state tensor and the step counter
@@ -98,9 +118,10 @@ ends the run with a non-zero exit and no result line:
      then GPT-2-large (``bench.py``'s ``large`` card, O2, b 8, s 1024) 1 +
      6 steps in two forms with exact launches a step: the kernel path
      (materialized attention through the fused softmax, packed LAMB:
-     73/73 norm, 36/36 softmax, 1/1/1 head, 1 LAMB phase 1) and the
-     flagship (flash attention, unpacked LAMB with bf16 moments: 73/73
-     norm, 36/36/36 flash, 1/1/1 head); a loss that falls every step,
+     73/73 norm, 36/36 softmax, 1/1/1 head, 1 LAMB phase 1, 2 ``mt_l2norm``
+     and 1 ``mt_lamb``) and the flagship (flash attention, unpacked LAMB
+     with bf16 moments: 73/73 norm, 36/36/36 flash, 1/1/1 head, 1
+     ``mt_l2norm``, 1 ``mt_lamb``); a loss that falls every step,
      step wall, tokens/s, MFU, idle share, peak memory and a profile.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
@@ -108,8 +129,8 @@ ends the run with a non-zero exit and no result line:
      against the CPU; then four such blocks at OpenFold's Evoformer widths
      (c_m 256, c_z 128, 8 heads of 32, N_seq 128, N_res 1024, bf16, 10%
      of the MSA masked) trained 1 + 6 steps under ``FusedAdamSWA``:
-     exactly 4/4/4/4 pair-bias forward, dq, dk/dv and dbias and 8/8 norm
-     launches a step, a loss that falls every step, step wall, idle
+     exactly 4/4/4/4 pair-bias forward, dq, dk/dv and dbias, 8/8 norm
+     and 1 ``mt_adam`` launches a step, a loss that falls every step, step wall, idle
      share, device time by kind, peak memory; and one block at the
      training crop (N_res 256), which routes to the materialized path:
      no pair-bias launch.
@@ -2390,6 +2411,868 @@ def time_packed_updates(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the multi-tensor kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+MT_CHUNK = 1 << 16
+# per element of one thread's run of a chunk: kMtThreads 512 x kMtVec 8
+MT_THREAD_TERMS = 8 * -(-MT_CHUNK // (512 * 8))
+MT_SIZE_LISTS = {
+    "one": (4099,),
+    "three": (1, 7, MT_CHUNK + 1),
+    "six": (1, 7, MT_CHUNK, MT_CHUNK + 1, 4099, 3 * MT_CHUNK - 5),
+    # 200 tensors and 400 chunks: past one table of Apex's (110 tensors,
+    # 320 chunks a launch)
+    "many": (1, 7, 4099, MT_CHUNK + 1, 4 * MT_CHUNK + 5) * 40,
+}
+MT_ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8)
+MT_LAMB_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6)
+
+
+def _mt_tensors(sizes, dtype, gen, device, scale=1.0, positive=False, off=0):
+    """One list of tensors of ``sizes`` in ``dtype`` (name or dtype), each
+    ``off`` elements past its allocation's start (off 1: not 16-byte
+    aligned, the kernels' one-element path)."""
+    import torch
+
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    out = []
+    for n in sizes:
+        t = torch.randn(n + off, generator=gen, device=device) * scale
+        out.append((t.abs() if positive else t).to(dt)[off:])
+    return out
+
+
+def _mt_norm_rel(n: int) -> float:
+    """Relative tolerance of a sum of ``n`` squares taken by mt_l2norm
+    (a thread's run of ``MT_THREAD_TERMS`` terms, the block's tree of
+    about 32 levels of warps and lanes, the tensor's chunk partials in
+    turn) against torch.sum's cascade (about 2 log2 n levels): each level
+    one fp32 rounding."""
+    chunks = max(1, -(-n // MT_CHUNK))
+    return U32 * (MT_THREAD_TERMS + 32 + chunks + 2 * math.log2(n + 1))
+
+
+def _mt_adam_tols(g, p, m, v, ref, case, inv, bc1, bc2):
+    """Per-element tolerances of mt_adam against its plain version, from
+    what each side rounds: nvcc contracts multiply-adds, so each fp32
+    moment sits within a few roundings of its terms (the decayed moment's
+    one, the gradient term's three with the gradient's own scale and L2
+    roundings, squared into v) on each side;
+    the update carries the moments' errors (v's halved by the root) plus
+    a few roundings of its own; p within lr times that plus 2^-21 of
+    itself; every value stored in 16 bits may land on the other side of a
+    rounding boundary (one ulp of its dtype)."""
+    import torch
+
+    h = MT_ADAM_HYPER
+    b1, b2, lr, eps, wd = h["beta1"], h["beta2"], h["lr"], h["eps"], case["wd"]
+    mode = case["mode"]
+    ga = g.float().abs() * inv + wd * p.float().abs()
+    m32, v32 = m.float(), v.float()
+    # each side: b1 m, (1 - b1) g and their sum one rounding each, g's own
+    # two (the scale, the L2 decay) carried in, and into v squared; twice
+    tol_m = 2.0 ** -22 * b1 * m32.abs() + 2.0 ** -21 * (1 - b1) * ga + 1e-30
+    tol_v = 2.0 ** -22 * b2 * v32 + 2.0 ** -20 * (1 - b2) * ga * ga + 1e-30
+    rm, rv = ref["m"].float(), ref["v"].float()
+    if mode == "pytorch":
+        denom = (torch.sqrt(rv) / math.sqrt(bc2) + eps) * bc1
+    else:
+        denom = (torch.sqrt(rv / bc2) + eps) * bc1
+    u = rm / denom
+    tol_u = (tol_m / denom + 0.5 * u.abs() * tol_v / (rv + 1e-30)
+             + 2.0 ** -21 * (u.abs() + wd * p.float().abs()))
+    rp = ref["p"].float()
+    tol_p = lr * tol_u + 2.0 ** -21 * (rp.abs() + lr * u.abs()) + 1e-30
+    tols = {"m": tol_m, "v": tol_v}
+    for k in ("m", "v"):
+        if ref[k].dtype != torch.float32:
+            tols[k] = tols[k] + _ulp(ref[k], str(ref[k].dtype)[6:])
+    tols["p"] = tol_p + (_ulp(rp, str(ref["p"].dtype)[6:])
+                         if ref["p"].dtype != torch.float32 else 0.0)
+    if "copy" in ref:
+        tols["copy"] = tol_p + (_ulp(ref["copy"], str(ref["copy"].dtype)[6:])
+                                if ref["copy"].dtype != torch.float32 else 0.0)
+    if "swa" in ref:
+        w = case["swa_weight"]
+        tols["swa"] = (tol_p if case["n_averaged"] == 0 else
+                       w * tol_p + 2.0 ** -22 * (ref["swa"].abs() + rp.abs()))
+    return tols
+
+
+def _mt_lamb_tols(g, p, m, v, ref, case, inv, clip, bc1, bc2):
+    """Per-element tolerances of mt_lamb against its plain version: the
+    scaled and clipped gradient has the same bits on both sides; the
+    moments and the update a few roundings apart as in ``_mt_adam_tols``
+    (plus one ulp of a 16-bit moment); the trust ratio carries both norms'
+    summation order (``_mt_norm_rel``) and the update's error summed over
+    the tensor; p within lr ratio times the update's error plus 2^-22 of
+    its terms, plus one ulp where it is stored in 16 bits."""
+    import torch
+
+    h = MT_LAMB_HYPER
+    b1, b2, b3, lr, eps = (h[k] for k in ("beta1", "beta2", "beta3", "lr",
+                                          "eps"))
+    wd = case["wd"]
+    g32 = g.float() * inv / clip
+    p32 = p.float()
+    ga = g32.abs() + (0.0 if case["adam_w"] else wd * p32.abs())
+    tol_m = 2.0 ** -22 * b1 * m.float().abs() + 2.0 ** -21 * b3 * ga + 1e-30
+    tol_v = (2.0 ** -22 * b2 * v.float() + 2.0 ** -20 * (1 - b2) * ga * ga
+             + 1e-30)
+    rm, rv = ref["m"].float(), ref["v"].float()
+    d = torch.sqrt(rv / bc2) + eps
+    u = (rm / bc1) / d + (wd * p32 if case["adam_w"] else 0.0)
+    tol_u = (tol_m / bc1 / d + 0.5 * (rm / bc1 / d).abs() * tol_v / (rv + 1e-30)
+             + 2.0 ** -22 * (u.abs() + wd * p32.abs()))
+    ratio, rel = 1.0, 0.0
+    if case["use_ratio"]:
+        pn, un = float(torch.linalg.vector_norm(p32)), float(
+            torch.linalg.vector_norm(u))
+        if pn > 0 and un > 0:
+            ratio = pn / un
+            n = p.numel()
+            rel = (_mt_norm_rel(n) + float(torch.linalg.vector_norm(tol_u)) / un
+                   + 2.0 ** -22)
+    rp = ref["p"].float()
+    tol_p = (lr * ratio * (tol_u + u.abs() * rel)
+             + 2.0 ** -22 * (rp.abs() + lr * ratio * u.abs()) + 1e-30)
+    tols = {"m": tol_m, "v": tol_v}
+    for k in ("m", "v"):
+        if ref[k].dtype != torch.float32:
+            tols[k] = tols[k] + _ulp(ref[k], str(ref[k].dtype)[6:])
+    half = lambda t: _ulp(t, str(t.dtype)[6:]) if t.dtype != torch.float32 else 0.0
+    tols["p"] = tol_p + half(ref["p"])
+    if "copy" in ref:
+        tols["copy"] = tol_p + half(ref["copy"])
+    return tols
+
+
+def _mt_ratio(got: dict, ref: dict, tols: list) -> float:
+    """The worst |got - ref| / tol over every list and tensor."""
+    worst = 0.0
+    for key in ref[0]:
+        for gt, rt, tt in zip(got, ref, tols):
+            worst = max(worst, _tol_ratio(gt[key], rt[key], tt[key]))
+    return worst
+
+
+def _mt_state(sizes, dt, gen, device, off=0):
+    """g, p, m, v lists of one case: g ~ 0.5 x 64 (a loss-scaled gradient),
+    p ~ 1, m ~ 0.01, v ~ |1e-3| (v > 0)."""
+    g = _mt_tensors(sizes, dt["g"], gen, device, 32.0, off=off)
+    p = _mt_tensors(sizes, dt["p"], gen, device, 1.0, off=off)
+    m = _mt_tensors(sizes, dt["mv"], gen, device, 0.01, off=off)
+    v = _mt_tensors(sizes, dt["mv"], gen, device, 1e-3, positive=True, off=off)
+    return g, p, m, v
+
+
+def _mt_run_adam(fn, g, p, m, v, scalars, copy_dtype=None, swa=None):
+    """The kernel or plain version on copies of the case's tensors;
+    returns one dict a tensor of the outputs."""
+    import torch
+
+    tp, tm, tv = ([t.clone() for t in lst] for lst in (p, m, v))
+    copy = (None if copy_dtype is None else
+            [t.to(copy_dtype) for t in p])
+    ts = None if swa is None else [t.clone() for t in swa]
+    fn(g, tp, tm, tv, copy, ts, **scalars)
+    torch.cuda.synchronize()
+    out = [dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)]
+    for i, o in enumerate(out):
+        if copy is not None:
+            o["copy"] = copy[i]
+        if ts is not None:
+            o["swa"] = ts[i]
+    return out
+
+
+def check_multi_tensor(device) -> dict:
+    """The four multi-tensor kernels on the card against their plain
+    versions (``ops/multi_tensor.py``), over tensor counts 1, 3, 6 and 200
+    (400 chunks: past one table of Apex's), sizes 1, 7, one chunk, one
+    chunk + 1 and sizes not multiples of 8, one unaligned list (the
+    one-element path); g in fp32/bf16/fp16, p in fp32/bf16/fp16, m and v
+    in fp32/bf16; both Adam modes with and without weight decay, the three
+    SWA modes with ``n_averaged`` 0 and 2, LAMB with and without NVLAMB,
+    weight decay and the clip, with a master copy-back; ``noop`` 1 keeps
+    every bit; an inf in one tensor sets the scale and norm flags; the
+    same bits on a repeated ``mt_l2norm`` and ``mt_lamb``.  Tolerances per
+    element from what each side rounds (``_mt_adam_tols``,
+    ``_mt_lamb_tols``, ``_mt_norm_rel``); ``mt_scale`` bit for bit."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=device).manual_seed(71)
+    dts = ("float32", "bfloat16", "float16")
+    out = {}
+    with torch.no_grad():
+        # -- mt_l2norm -------------------------------------------------------
+        worst, cases = 0.0, 0
+        for count, sizes in MT_SIZE_LISTS.items():
+            for dt in dts:
+                for inv in (None, 2.0 ** -6):
+                    for off in ((0, 1) if count == "six" else (0,)):
+                        xs = _mt_tensors(sizes, dt, gen, device, 8.0, off=off)
+                        inv_t = mt.device_scalar(inv, device)
+                        got = mt._kernel_l2norm(xs, inv_t)
+                        again = mt._kernel_l2norm(xs, inv_t)
+                        ref = mt._plain_l2norm(xs, inv_t)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(got.total, again.total) and
+                                torch.equal(got.per_tensor, again.per_tensor)):
+                            raise AssertionError(f"mt_l2norm: not the same bits "
+                                                 f"twice ({count}, {dt})")
+                        rel = torch.tensor([_mt_norm_rel(n) / 2 + U32
+                                            for n in sizes], device=device)
+                        r = _tol_ratio(got.per_tensor, ref.per_tensor,
+                                       rel * ref.per_tensor + 1e-30)
+                        r = max(r, _tol_ratio(got.total, ref.total, (
+                            max(_mt_norm_rel(n) for n in sizes)
+                            + U32 * (len(sizes) + 32)) / 2 * ref.total + 1e-30))
+                        if r > 1.0 or int(got.flag) or int(ref.flag):
+                            raise AssertionError(f"mt_l2norm ({count}, {dt}, "
+                                                 f"inv {inv}, off {off}): {r:.3f}"
+                                                 f" x tol, flags {int(got.flag)}"
+                                                 f" / {int(ref.flag)}")
+                        worst, cases = max(worst, r), cases + 1
+        xs = _mt_tensors(MT_SIZE_LISTS["six"], "bfloat16", gen, device)
+        xs[4][100] = float("inf")
+        if int(mt._kernel_l2norm(xs, None).flag) != 1:
+            raise AssertionError("mt_l2norm: an inf did not set the flag")
+        out["mt_l2norm"] = dict(cases=cases + 1, worst_tol_ratio=worst,
+                                tolerance="each norm within (its sum's rounding "
+                                "levels x 2^-24) / 2 + 2^-24 relative; the same "
+                                "bits on a second call; the flag on an inf")
+        log("phase2-check", kernel="mt_l2norm", **out["mt_l2norm"])
+
+        # -- mt_scale --------------------------------------------------------
+        cases = 0
+        for count, sizes in MT_SIZE_LISTS.items():
+            for din, dout in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                              ("float16", "float32"), ("float32", "bfloat16"),
+                              ("float16", "float16")):
+                for s in (0.3, torch.tensor(2.0 ** -10, device=device)):
+                    xs = _mt_tensors(sizes, din, gen, device, 4.0)
+                    if cases % 3 == 0:
+                        xs[len(xs) // 2].view(-1)[0] = float("inf")
+                    want = [torch.empty_like(x, dtype=getattr(torch, dout))
+                            for x in xs]
+                    got = [torch.empty_like(w) for w in want]
+                    flag = mt._kernel_scale(xs, got, s, True)
+                    ref_flag = mt._plain_scale(xs, want, s, True)
+                    only = mt._kernel_scale(xs, None, 1.0, True)
+                    inplace = [x.clone() for x in xs]
+                    mt._kernel_scale(inplace, inplace, s, False)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    if din == dout:
+                        same = same and all(torch.equal(a, b)
+                                            for a, b in zip(inplace, want))
+                    if not same or bool(flag) != bool(ref_flag) or \
+                            bool(only) != bool(ref_flag):
+                        raise AssertionError(f"mt_scale ({count}, {din} -> "
+                                             f"{dout}, {s}): outputs equal "
+                                             f"{same}, flags {bool(flag)} / "
+                                             f"{bool(only)} / {bool(ref_flag)}")
+                    cases += 1
+        out["mt_scale"] = dict(cases=cases, worst_tol_ratio=0.0,
+                               tolerance="bit for bit (one fp32 product, "
+                               "rounded to the output's dtype, on both sides); "
+                               "the flag as the plain version's, with and "
+                               "without an output, on an inf in one tensor")
+        log("phase2-check", kernel="mt_scale", **out["mt_scale"])
+
+        # -- mt_adam ---------------------------------------------------------
+        worst, cases = 0.0, 0
+        inv_v, bc1_v, bc2_v = 1.0 / 64, 0.19, 0.002
+        scal = lambda **kw: dict(
+            lr=MT_ADAM_HYPER["lr"], beta1=MT_ADAM_HYPER["beta1"],
+            beta2=MT_ADAM_HYPER["beta2"], eps=MT_ADAM_HYPER["eps"],
+            inv_scale=torch.tensor(inv_v, device=device),
+            bc1=torch.tensor(bc1_v, device=device),
+            bc2=torch.tensor(bc2_v, device=device), noop=None, step=None,
+            n_averaged=None, swa_weight=0.0, swa_start_step=0, **kw)
+        adam_cases = [dict(mode=mode, wd=wd, g=gd, p=pd, mv=sd, count="six",
+                           off=0, copy=None)
+                      for mode in ("l2", "adamw") for wd in (0.0, 0.01)
+                      for gd in dts for pd in dts
+                      for sd in ("float32", "bfloat16")]
+        adam_cases += [dict(mode="adamw", wd=0.01, g="float16", p="float32",
+                            mv="float32", count=c, off=0, copy="float16")
+                       for c in ("one", "three", "many")]
+        adam_cases += [dict(mode="l2", wd=0.01, g="bfloat16", p="float32",
+                            mv="bfloat16", count="six", off=1,
+                            copy="bfloat16")]
+        for case in adam_cases:
+            sizes = MT_SIZE_LISTS[case["count"]]
+            g, p, m, v = _mt_state(sizes, case, gen, device, case["off"])
+            kw = scal(mode=mt.ADAMW if case["mode"] == "adamw" else mt.ADAM_L2,
+                      weight_decay=case["wd"])
+            copy_dt = case["copy"] and getattr(torch, case["copy"])
+            got = _mt_run_adam(mt._kernel_adam, g, p, m, v, kw, copy_dt)
+            ref = _mt_run_adam(mt._plain_adam, g, p, m, v, kw, copy_dt)
+            tols = [_mt_adam_tols(*x, r, case, inv_v, bc1_v, bc2_v)
+                    for x, r in zip(zip(g, p, m, v), ref)]
+            r = _mt_ratio(got, ref, tols)
+            if r > 1.0:
+                raise AssertionError(f"mt_adam disagrees with its plain "
+                                     f"version: {case}: {r:.3f} x tol")
+            worst, cases = max(worst, r), cases + 1
+        for mode, mt_mode in (("apex", mt.SWA_APEX_ADAM),
+                              ("apexw", mt.SWA_APEX_ADAMW),
+                              ("pytorch", mt.SWA_PYTORCH_ADAM)):
+            for n_avg in (0, 2):
+                for gd, cd in (("bfloat16", "bfloat16"), ("float32", "float16")):
+                    case = dict(mode=mode, wd=0.01, g=gd, p="float32",
+                                mv="float32", n_averaged=n_avg, swa_weight=0.2)
+                    sizes = MT_SIZE_LISTS["six"]
+                    g, p, m, v = _mt_state(sizes, case, gen, device)
+                    swa = _mt_tensors(sizes, "float32", gen, device)
+                    kw = scal(mode=mt_mode, weight_decay=0.01)
+                    kw.update(step=torch.tensor(3, dtype=torch.int32,
+                                                device=device),
+                              n_averaged=torch.tensor(n_avg, dtype=torch.int32,
+                                                      device=device),
+                              swa_weight=0.2, swa_start_step=1)
+                    got = _mt_run_adam(mt._kernel_adam, g, p, m, v, kw,
+                                       getattr(torch, cd), swa)
+                    ref = _mt_run_adam(mt._plain_adam, g, p, m, v, kw,
+                                       getattr(torch, cd), swa)
+                    tols = [_mt_adam_tols(*x, r, case, inv_v, bc1_v, bc2_v)
+                            for x, r in zip(zip(g, p, m, v), ref)]
+                    r = _mt_ratio(got, ref, tols)
+                    if r > 1.0:
+                        raise AssertionError(f"mt_adam (SWA) disagrees with "
+                                             f"its plain version: {case}: "
+                                             f"{r:.3f} x tol")
+                    worst, cases = max(worst, r), cases + 1
+        # noop 1: no bit moves
+        case = dict(mode="adamw", wd=0.01, g="float16", p="float32",
+                    mv="bfloat16")
+        g, p, m, v = _mt_state(MT_SIZE_LISTS["six"], case, gen, device)
+        kw = scal(mode=mt.ADAMW, weight_decay=0.01)
+        kw["noop"] = torch.tensor(True, device=device)
+        got = _mt_run_adam(mt._kernel_adam, g, p, m, v, kw, torch.float16)
+        if not all(torch.equal(o["p"], a) and torch.equal(o["m"], b) and
+                   torch.equal(o["v"], c) and torch.equal(o["copy"],
+                                                          a.to(torch.float16))
+                   for o, a, b, c in zip(got, p, m, v)):
+            raise AssertionError("mt_adam with noop 1 changed a buffer")
+        out["mt_adam"] = dict(
+            cases=cases + 1, worst_tol_ratio=worst,
+            tolerance="contracted multiply-adds: each fp32 moment within "
+                      "2^-22 of its decayed term plus 2^-21 (m) or 2^-20 (v) "
+                      "of its gradient term; the update within "
+                      "those carried through (v's halved by the root) plus "
+                      "2^-21 of itself; p within lr times that plus 2^-21 "
+                      "|p|; the SWA average within its weight times p's; "
+                      "one ulp more for every value stored in 16 bits; noop "
+                      "1: every buffer's bits unchanged")
+        log("phase2-check", kernel="mt_adam", **out["mt_adam"])
+
+        # -- mt_lamb ---------------------------------------------------------
+        worst, cases = 0.0, 0
+        lamb_dts = (("bfloat16", "bfloat16", "bfloat16", None),
+                    ("float32", "float32", "float32", None),
+                    ("float16", "float32", "float32", "float16"),
+                    ("bfloat16", "float32", "bfloat16", "bfloat16"))
+        lamb_cases = [dict(wd=wd, use_ratio=bool(wd or nv), nvlamb=nv,
+                           clip=clip, adam_w=aw, g=gd, p=pd, mv=sd, copy=cd,
+                           count="six")
+                      for wd, nv in ((0.01, False), (0.0, True), (0.0, False))
+                      for clip in (1.0, 1.7) for aw in (True, False)
+                      for gd, pd, sd, cd in lamb_dts]
+        lamb_cases += [dict(wd=0.01, use_ratio=True, nvlamb=False, clip=1.7,
+                            adam_w=True, g="bfloat16", p="float32",
+                            mv="float32", copy="bfloat16", count=c)
+                       for c in ("one", "three", "many")]
+        for i, case in enumerate(lamb_cases):
+            sizes = MT_SIZE_LISTS[case["count"]]
+            g, p, m, v = _mt_state(sizes, case, gen, device)
+            h = MT_LAMB_HYPER
+            kw = dict(lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
+                      beta3=h["beta3"], eps=h["eps"], weight_decay=case["wd"],
+                      adam_w_mode=case["adam_w"], use_ratio=case["use_ratio"],
+                      inv_scale=torch.tensor(inv_v, device=device),
+                      clip=(None if case["clip"] == 1.0 else
+                            torch.tensor(case["clip"], device=device)),
+                      bc1=torch.tensor(bc1_v, device=device),
+                      bc2=torch.tensor(bc2_v, device=device), noop=None)
+            if i % 4 == 0:
+                # a learning rate on the device (FusedMixedPrecisionLamb)
+                kw["lr"] = torch.tensor(h["lr"], device=device)
+            runs = []
+            for fn in (mt._kernel_lamb, mt._kernel_lamb, mt._plain_lamb):
+                tp, tm, tv = ([t.clone() for t in lst] for lst in (p, m, v))
+                copy = (None if case["copy"] is None else
+                        [t.to(getattr(torch, case["copy"])) for t in p])
+                fn(g, tp, tm, tv, copy, **kw)
+                torch.cuda.synchronize()
+                runs.append([dict(p=a, m=b, v=c, **({} if copy is None else
+                                                    {"copy": copy[j]}))
+                             for j, (a, b, c) in enumerate(zip(tp, tm, tv))])
+            got, again, ref = runs
+            if not all(torch.equal(a[k], b[k]) for a, b in zip(got, again)
+                       for k in a):
+                raise AssertionError(f"mt_lamb: not the same bits twice: "
+                                     f"{case}")
+            tols = [_mt_lamb_tols(*x, r, case, inv_v, case["clip"], bc1_v, bc2_v)
+                    for x, r in zip(zip(g, p, m, v), ref)]
+            r = _mt_ratio(got, ref, tols)
+            if r > 1.0:
+                raise AssertionError(f"mt_lamb disagrees with its plain "
+                                     f"version: {case}: {r:.3f} x tol")
+            worst, cases = max(worst, r), cases + 1
+        # noop 1, and the apply form (the packed LAMB's phase 2)
+        case = lamb_cases[-1]
+        g, p, m, v = _mt_state(MT_SIZE_LISTS["six"], case, gen, device)
+        tp, tm, tv = ([t.clone() for t in lst] for lst in (p, m, v))
+        copy = [t.bfloat16() for t in p]
+        mt._kernel_lamb(g, tp, tm, tv, copy, lr=1e-3, beta1=0.9, beta2=0.999,
+                        beta3=0.1, eps=1e-6, weight_decay=0.01,
+                        adam_w_mode=True, use_ratio=True, inv_scale=None,
+                        clip=None, bc1=None, bc2=None,
+                        noop=torch.tensor(True, device=device))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tp + tm + tv + copy, p + m + v + [t.bfloat16() for t in p])):
+            raise AssertionError("mt_lamb with noop 1 changed a buffer")
+        ps = _mt_tensors(MT_SIZE_LISTS["six"], "float32", gen, device)
+        us = _mt_tensors(MT_SIZE_LISTS["six"], "float32", gen, device, 0.01)
+        n_ratio = len(ps) - 1
+        norms = mt._kernel_l2norm(ps[:n_ratio] + us[:n_ratio], None).per_tensor
+        got, ref = [t.clone() for t in ps], [t.clone() for t in ps]
+        mt._kernel_lamb_apply(got, us, 1e-3, norms, n_ratio)
+        mt._plain_lamb_apply(ref, us, 1e-3, norms, n_ratio)
+        torch.cuda.synchronize()
+        # the same ratio on both sides (one division of the same norms), so
+        # p - step u differs only by the product's rounding (fused or not)
+        steps = [1e-3 * (float(norms[i] / norms[n_ratio + i])
+                         if i < n_ratio else 1.0) for i in range(len(ps))]
+        apply_r = max(_tol_ratio(a, b, 2.0 ** -22 * (b.abs() + st * u.abs())
+                                 + 1e-30)
+                      for a, b, u, st in zip(got, ref, us, steps))
+        if apply_r > 1.0:
+            raise AssertionError(f"mt_lamb's apply form: {apply_r:.3f} x tol")
+        out["mt_lamb"] = dict(
+            cases=cases + 2, worst_tol_ratio=max(worst, apply_r),
+            tolerance="the clipped gradient the same bits; each fp32 moment "
+                      "within 2^-22 of its decayed term plus 2^-21 (m) or "
+                      "2^-20 (v) of its gradient term; the update "
+                      "within those carried through plus 2^-22 of its terms; "
+                      "the trust ratio within both norms' summation order "
+                      "(_mt_norm_rel) and the update's summed error; p within "
+                      "lr ratio times the update's error plus 2^-22 of its "
+                      "terms; one ulp more for every value stored in 16 bits; "
+                      "the same bits on a second call; noop 1: every buffer's "
+                      "bits unchanged")
+        log("phase2-check", kernel="mt_lamb", **out["mt_lamb"])
+    return out
+
+
+def mt_param_lists() -> dict:
+    """The parameter lists the multi-tensor kernels walk on the main paths,
+    ``name -> [(shape, dtype)]`` in the model's order: Llama-1B under O2
+    (matrices bf16, RMSNorm scales fp32; 201 tensors), GPT-2-large under O2
+    (matrices bf16, biases and LayerNorms fp32; 436 tensors) and the four
+    OpenFold blocks (bf16; 48 tensors)."""
+    from apex_tpu_torch.examples.gpt_pretrain import LARGE
+    from apex_tpu_torch.models import LlamaConfig
+
+    bf, f32 = "bfloat16", "float32"
+    c = LlamaConfig.llama_1b()
+    h, ffn = c.hidden_size, c.intermediate_size
+    kv = c.num_key_value_heads * (h // c.num_attention_heads)
+    llama = [((c.vocab_size, h), bf)]
+    for _ in range(c.num_hidden_layers):
+        llama += [((h,), f32), ((h, h), bf), ((kv, h), bf), ((kv, h), bf),
+                  ((h, h), bf), ((h,), f32), ((ffn, h), bf), ((ffn, h), bf),
+                  ((h, ffn), bf)]
+    llama += [((h,), f32), ((c.vocab_size, h), bf)]
+    h = LARGE["hidden"]
+    gpt = [((LARGE["vocab"], h), bf), ((LARGE["seq"], h), bf)]
+    for _ in range(LARGE["layers"]):
+        gpt += [((h,), f32), ((h,), f32), ((3 * h, h), bf), ((3 * h,), f32),
+                ((h, h), bf), ((h,), f32), ((h,), f32), ((h,), f32),
+                ((4 * h, h), bf), ((4 * h,), f32), ((h, 4 * h), bf),
+                ((h,), f32)]
+    gpt += [((h,), f32), ((h,), f32)]
+    o = OPENFOLD
+    hd = o["heads"] * o["c_hidden"]
+    block = [((o["c_m"],), bf), ((o["c_m"],), bf), ((o["c_z"],), bf),
+             ((o["c_z"],), bf), ((o["heads"], o["c_z"]), bf),
+             ((hd, o["c_m"]), bf), ((hd, o["c_m"]), bf), ((hd, o["c_m"]), bf),
+             ((hd, o["c_m"]), bf), ((hd,), bf), ((o["c_m"], hd), bf),
+             ((o["c_m"],), bf)]
+    return dict(llama_1b=llama, gpt2_large=gpt,
+                openfold=block * o["blocks"])
+
+
+def mt_table_bytes() -> int:
+    """Device bytes the multi-tensor tables hold (the cache of the last 64
+    tables and those kept for captured CUDA graphs): counted in a path's
+    peak beside its own tensors."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    tables = {id(t.words): t.words for t in
+              list(mt._TABLES.values()) + mt._CAPTURED}
+    return sum(w.numel() * w.element_size() for w in tables.values())
+
+
+def _graph_ms(fn, replays: int = 3) -> float:
+    """Device ms of one call of ``fn`` captured in a CUDA graph (its
+    launches replayed without the host), between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / replays
+
+
+def _mt_list_tensors(spec, gen, device, scale=1.0, positive=False, dtype=None):
+    import torch
+
+    out = []
+    for shape, dt in spec:
+        t = torch.randn(shape, generator=gen, device=device) * scale
+        out.append((t.abs_() if positive else t).to(
+            getattr(torch, dtype or dt)))
+    return out
+
+
+def _mt_bytes(*lists, writes=()) -> int:
+    """Bytes a pass must move: every tensor of ``lists`` read once, every
+    one of ``writes`` written once."""
+    return sum(t.numel() * t.element_size() for lst in (*lists, *writes)
+               for t in lst)
+
+
+def _mt_time(kernel, plain, library, nbytes, graph_plain=True) -> dict:
+    """The kernel (a CUDA graph of 20 calls, or 10 eager calls between CUDA
+    events where a call moves more than 1 GB), the plain version (3 eager
+    calls), the plain version captured in one CUDA graph, and the library
+    call, beside the bytes bound."""
+    big = nbytes > 1e9
+    k = (lambda: time_ms(kernel, iters=10, warmup=2)) if big else \
+        (lambda: device_ms(kernel, iters=20))
+    dev = dict(kernel=k(), plain=time_ms(plain, iters=3, warmup=1))
+    dev["graph_plain"] = _graph_ms(plain) if graph_plain else None
+    dev["library"] = (time_ms(library, iters=10, warmup=2) if big else
+                      device_ms(library, iters=20)) if library else None
+    dev["kernel_again"] = k()
+    row = _row(dev, _host_side_ms(kernel, calls=10), 0.0, nbytes,
+               FP32_OPS_PER_S, timing=(
+                   "ms/library_ms: " + ("10 eager calls between CUDA events "
+                                        "(each moves GBs)" if big else
+                                        "20 calls in one CUDA graph") +
+                   "; plain_ms: 3 eager calls (its launches issued one by "
+                   "one: the host's rate); graph_plain_ms: one plain call "
+                   "captured in a CUDA graph, 3 replays"))
+    row.update(graph_plain_ms=dev["graph_plain"], bytes=nbytes)
+    return row
+
+
+def time_multi_tensor(device) -> dict:
+    """The four multi-tensor kernels at the main paths' real parameter lists
+    (``mt_param_lists``), each beside its bytes bound, its plain version,
+    the plain version captured in a CUDA graph (the launches alone gone)
+    and the library's list call as a yardstick the port never calls:
+
+    - Llama-1B bf16 (O2, bf16 moments): ``mt_adam`` against
+      ``torch._fused_adamw_`` (one call a dtype: bf16 matrices, fp32
+      scales, moments in each one's dtype);
+    - Llama-1B fp16 amp: ``mt_adam`` over fp32 masters with the fp16
+      copy-back against ``torch._fused_adamw_`` over the masters and fp32
+      copies of the gradients; ``mt_scale``'s check over the fp16
+      gradients against ``torch._amp_foreach_non_finite_check_and_unscale_``
+      (which also writes them back, times 1);
+    - GPT-2-large (O2, bf16 moments): ``mt_l2norm`` over the gradients
+      against ``torch._foreach_norm``; ``mt_lamb`` (both stages), no library
+      call;
+    - OpenFold's four blocks: ``mt_adam`` in its SWA mode (ApexAdamW)
+      against ``torch._fused_adamw_`` over the fp32 masters and fp32 copies
+      of the gradients (no average).
+
+    Each kernel is also held against its plain version on a sub-list of
+    its real list (the first tensors up to 200 M elements), and its max
+    abs error reported."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    lists = mt_param_lists()
+    gen = torch.Generator(device=device).manual_seed(73)
+    h = MT_ADAM_HYPER
+    out = {}
+
+    def sub(n_tensors_list):
+        total, k = 0, 0
+        for t in n_tensors_list:
+            if total + t.numel() > 200_000_000 and k:
+                break
+            total, k = total + t.numel(), k + 1
+        return k
+
+    def adam_kw(mode, **extra):
+        return dict(mode=mode, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
+                    eps=h["eps"], weight_decay=0.01,
+                    inv_scale=extra.pop("inv_scale", None),
+                    bc1=torch.tensor(0.19, device=device),
+                    bc2=torch.tensor(0.002, device=device), noop=None,
+                    step=extra.pop("step", None),
+                    n_averaged=extra.pop("n_averaged", None),
+                    swa_weight=extra.pop("swa_weight", 0.0),
+                    swa_start_step=0)
+
+    def adam_err(g, p, m, v, copy, swa, kw, k):
+        """Max abs error and tolerance ratio of mt_adam against its plain
+        version over the first ``k`` tensors (copies)."""
+        runs = []
+        for fn in (mt._kernel_adam, mt._plain_adam):
+            tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
+            tc = None if copy is None else [t.clone() for t in copy[:k]]
+            ts = None if swa is None else [t.clone() for t in swa[:k]]
+            fn(g[:k], tp, tm, tv, tc, ts, **kw)
+            torch.cuda.synchronize()
+            runs.append([dict(p=a, m=b, v=c, **({} if tc is None else
+                                                {"copy": tc[j]}),
+                              **({} if ts is None else {"swa": ts[j]}))
+                         for j, (a, b, c) in enumerate(zip(tp, tm, tv))])
+        got, ref = runs
+        case = dict(mode={mt.SWA_PYTORCH_ADAM: "pytorch"}.get(kw["mode"], "x"),
+                    wd=kw["weight_decay"], n_averaged=1,
+                    swa_weight=kw["swa_weight"])
+        inv = 1.0 if kw["inv_scale"] is None else float(kw["inv_scale"])
+        tols = [_mt_adam_tols(*x, r, case, inv, 0.19, 0.002)
+                for x, r in zip(zip(g[:k], p[:k], m[:k], v[:k]), ref)]
+        err = max(float((a[key].float() - b[key].float()).abs().max())
+                  for a, b in zip(got, ref) for key in a)
+        return err, _mt_ratio(got, ref, tols)
+
+    with torch.no_grad():
+        # -- Llama-1B bf16: mt_adam, bf16 moments ----------------------------
+        spec = lists["llama_1b"]
+        p = _mt_list_tensors(spec, gen, device)
+        g = _mt_list_tensors(spec, gen, device, 0.01)
+        m = _mt_list_tensors(spec, gen, device, 1e-3, dtype="bfloat16")
+        v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
+                             dtype="bfloat16")
+        kw = adam_kw(mt.ADAMW)
+        err, ratio = adam_err(g, p, m, v, None, None, kw, sub(p))
+        if ratio > 1.0:
+            raise AssertionError(f"mt_adam at Llama-1B's list: {ratio:.3f} x tol")
+        groups = {}
+        for i, t in enumerate(p):
+            groups.setdefault(t.dtype, []).append(i)
+        lib_m = [torch.zeros_like(t) for t in p]
+        lib_v = [torch.zeros_like(t) for t in p]
+        steps = [torch.tensor(2.0, device=device) for _ in p]
+
+        def fused_lib(params, grads, ms, vs, st, idx_groups):
+            for idx in idx_groups:
+                torch._fused_adamw_([params[i] for i in idx],
+                                    [grads[i] for i in idx],
+                                    [ms[i] for i in idx], [vs[i] for i in idx],
+                                    [], [st[i] for i in idx], lr=h["lr"],
+                                    beta1=h["beta1"], beta2=h["beta2"],
+                                    weight_decay=0.01, eps=h["eps"],
+                                    amsgrad=False, maximize=False)
+
+        nbytes = _mt_bytes(g, p, m, v, writes=(p, m, v))
+        row = _mt_time(lambda: mt._kernel_adam(g, p, m, v, None, None, **kw),
+                       lambda: mt._plain_adam(g, p, m, v, None, None, **kw),
+                       lambda: fused_lib(p, g, lib_m, lib_v, steps,
+                                         list(groups.values())), nbytes)
+        row.update(list="llama-1b bf16 (O2, bf16 moments)", tensors=len(p),
+                   elements=sum(t.numel() for t in p),
+                   max_abs_err=err, tol_ratio=ratio,
+                   checked_tensors=sub(p),
+                   library_call="torch._fused_adamw_, one call a dtype "
+                                "(its moments in the parameter's dtype)")
+        out["adam_llama_bf16"] = row
+        log("phase2-time", kernel="mt_adam", **row)
+        del p, g, m, v, lib_m, lib_v, steps
+        torch.cuda.empty_cache()
+
+        # -- Llama-1B fp16 amp: masters, fp16 copy-back; mt_scale's check ----
+        half = [(s, "float16" if dt == "bfloat16" else dt) for s, dt in spec]
+        copy = _mt_list_tensors(half, gen, device)
+        masters = [t.float() for t in copy]
+        g = _mt_list_tensors(half, gen, device, 0.01 * 2 ** 15)
+        m = _mt_list_tensors(spec, gen, device, 1e-3, dtype="float32")
+        v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
+                             dtype="float32")
+        inv = torch.tensor(2.0 ** -15, device=device)
+        kw = adam_kw(mt.ADAMW, inv_scale=inv)
+        err, ratio = adam_err(g, masters, m, v, copy, None, kw, sub(masters))
+        if ratio > 1.0:
+            raise AssertionError(f"mt_adam at the fp16 masters' list: "
+                                 f"{ratio:.3f} x tol")
+        g32 = [t.float() for t in g]
+        lib_steps = [torch.tensor(2.0, device=device) for _ in masters]
+        nbytes = _mt_bytes(g, masters, m, v, writes=(masters, m, v, copy))
+        row = _mt_time(
+            lambda: mt._kernel_adam(g, masters, m, v, copy, None, **kw),
+            lambda: mt._plain_adam(g, masters, m, v, copy, None, **kw),
+            lambda: torch._fused_adamw_(
+                masters, g32, m, v, [], lib_steps, lr=h["lr"],
+                beta1=h["beta1"], beta2=h["beta2"], weight_decay=0.01,
+                eps=h["eps"], amsgrad=False, maximize=False, grad_scale=inv),
+            nbytes)
+        row.update(list="llama-1b fp16 amp (fp32 masters, fp16 copy-back)",
+                   tensors=len(masters), elements=sum(t.numel() for t in masters),
+                   max_abs_err=err, tol_ratio=ratio,
+                   checked_tensors=sub(masters),
+                   library_call="torch._fused_adamw_ over the masters and fp32 "
+                                "copies of the gradients (grad_scale; no "
+                                "copy-back)")
+        out["adam_llama_fp16_masters"] = row
+        log("phase2-time", kernel="mt_adam", **row)
+        del masters, m, v, g32, lib_steps, copy
+        torch.cuda.empty_cache()
+        found = torch.zeros((), device=device)
+        one = torch.ones((), device=device)
+        flag_ref = mt._plain_scale(g, None, 1.0, True)
+        flag = mt._kernel_scale(g, None, 1.0, True)
+        if bool(flag) != bool(flag_ref):
+            raise AssertionError("mt_scale's check at the fp16 list")
+        row = _mt_time(
+            lambda: mt._kernel_scale(g, None, 1.0, True),
+            lambda: mt._plain_scale(g, None, 1.0, True),
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                g, found, one), _mt_bytes(g))
+        row.update(list="llama-1b fp16 amp gradients (the overflow check)",
+                   tensors=len(g), elements=sum(t.numel() for t in g),
+                   max_abs_err=0.0, flag=bool(flag),
+                   library_call="torch._amp_foreach_non_finite_check_and_"
+                                "unscale_ (writes the gradients back, times 1)")
+        out["scale_llama_fp16_check"] = row
+        log("phase2-time", kernel="mt_scale", **row)
+        del g, found, one
+        torch.cuda.empty_cache()
+
+        # -- GPT-2-large unpacked LAMB: mt_l2norm and mt_lamb ----------------
+        spec = lists["gpt2_large"]
+        p = _mt_list_tensors(spec, gen, device)
+        g = _mt_list_tensors(spec, gen, device, 0.01)
+        m = _mt_list_tensors(spec, gen, device, 1e-3, dtype="bfloat16")
+        v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
+                             dtype="bfloat16")
+        got, ref = mt._kernel_l2norm(g, None), mt._plain_l2norm(g, None)
+        torch.cuda.synchronize()
+        norm_err = float((got.per_tensor - ref.per_tensor).abs().max())
+        norm_rel = float(((got.per_tensor - ref.per_tensor).abs()
+                          / ref.per_tensor.clamp_min(1e-30)).max())
+        if norm_rel > max(_mt_norm_rel(t.numel()) for t in g):
+            raise AssertionError(f"mt_l2norm at GPT-2-large's list: relative "
+                                 f"error {norm_rel}")
+        row = _mt_time(lambda: mt._kernel_l2norm(g, None),
+                       lambda: mt._plain_l2norm(g, None),
+                       lambda: torch._foreach_norm(g), _mt_bytes(g))
+        row.update(list="gpt2-large gradients (O2)", tensors=len(g),
+                   elements=sum(t.numel() for t in g), max_abs_err=norm_err,
+                   max_rel_err=norm_rel,
+                   library_call="torch._foreach_norm (per-tensor norms; the "
+                                "global norm not taken)")
+        out["l2norm_gpt2_large"] = row
+        log("phase2-time", kernel="mt_l2norm", **row)
+        clip = torch.tensor(1.3, device=device)
+        lkw = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                   weight_decay=0.01, adam_w_mode=True, use_ratio=True,
+                   inv_scale=None, clip=clip,
+                   bc1=torch.tensor(0.19, device=device),
+                   bc2=torch.tensor(0.002, device=device), noop=None)
+        k = sub(p)
+        runs = []
+        for fn in (mt._kernel_lamb, mt._plain_lamb):
+            tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
+            fn(g[:k], tp, tm, tv, None, **lkw)
+            torch.cuda.synchronize()
+            runs.append([dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)])
+        case = dict(wd=0.01, use_ratio=True, adam_w=True)
+        tols = [_mt_lamb_tols(*x, r, case, 1.0, 1.3, 0.19, 0.002)
+                for x, r in zip(zip(g[:k], p[:k], m[:k], v[:k]), runs[1])]
+        lamb_ratio = _mt_ratio(runs[0], runs[1], tols)
+        lamb_err = max(float((a[key].float() - b[key].float()).abs().max())
+                       for a, b in zip(*runs) for key in a)
+        del runs, tp, tm, tv
+        if lamb_ratio > 1.0:
+            raise AssertionError(f"mt_lamb at GPT-2-large's list: "
+                                 f"{lamb_ratio:.3f} x tol")
+        row = _mt_time(lambda: mt._kernel_lamb(g, p, m, v, None, **lkw),
+                       lambda: mt._plain_lamb(g, p, m, v, None, **lkw),
+                       None, _mt_bytes(g, p, m, v, writes=(p, m, v)))
+        row.update(list="gpt2-large unpacked LAMB (O2, bf16 moments)",
+                   tensors=len(p), elements=sum(t.numel() for t in p),
+                   max_abs_err=lamb_err, tol_ratio=lamb_ratio,
+                   checked_tensors=k, library_call=None,
+                   library_note="none: no single PyTorch call computes LAMB",
+                   bytes_moved_by_the_kernel=_mt_bytes(g, p, m, v, g, p, m, v,
+                                                       writes=(p, m, v)))
+        out["lamb_gpt2_large"] = row
+        log("phase2-time", kernel="mt_lamb", **row)
+        del p, g, m, v
+        torch.cuda.empty_cache()
+
+        # -- OpenFold: mt_adam's SWA mode ------------------------------------
+        spec = lists["openfold"]
+        copy = _mt_list_tensors(spec, gen, device)
+        masters = [t.float() for t in copy]
+        swa = [t.clone() for t in masters]
+        g = _mt_list_tensors(spec, gen, device, 0.01)
+        m = _mt_list_tensors(spec, gen, device, 1e-3, dtype="float32")
+        v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
+                             dtype="float32")
+        kw = adam_kw(mt.SWA_APEX_ADAMW,
+                     step=torch.tensor(3, dtype=torch.int32, device=device),
+                     n_averaged=torch.tensor(2, dtype=torch.int32,
+                                             device=device),
+                     swa_weight=0.1)
+        err, ratio = adam_err(g, masters, m, v, copy, swa, kw, len(g))
+        if ratio > 1.0:
+            raise AssertionError(f"mt_adam (SWA) at OpenFold's list: "
+                                 f"{ratio:.3f} x tol")
+        g32 = [t.float() for t in g]
+        lib_steps = [torch.tensor(2.0, device=device) for _ in masters]
+        row = _mt_time(
+            lambda: mt._kernel_adam(g, masters, m, v, copy, swa, **kw),
+            lambda: mt._plain_adam(g, masters, m, v, copy, swa, **kw),
+            lambda: torch._fused_adamw_(
+                masters, g32, m, v, [], lib_steps, lr=h["lr"],
+                beta1=h["beta1"], beta2=h["beta2"], weight_decay=0.01,
+                eps=h["eps"], amsgrad=False, maximize=False),
+            _mt_bytes(g, masters, m, v, swa, writes=(masters, m, v, swa, copy)))
+        row.update(list="openfold 4 blocks (FusedAdamSWA, ApexAdamW)",
+                   tensors=len(g), elements=sum(t.numel() for t in g),
+                   max_abs_err=err, tol_ratio=ratio,
+                   library_call="torch._fused_adamw_ over the masters and fp32 "
+                                "copies of the gradients (no average, no "
+                                "copy-back)")
+        out["adam_swa_openfold"] = row
+        log("phase2-time", kernel="mt_adam", **row)
+        del copy, masters, swa, g, m, v, g32, lib_steps
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
 
@@ -3008,6 +3891,148 @@ def small_train_check(device) -> dict:
     return out
 
 
+def small_optimizer_checks(device) -> dict:
+    """The optimizers and the clip that this port adds, 3 steps each on a
+    small fp32 Llama (2 layers, hidden 128, head dim 64), card against CPU
+    from the same weights: ``FusedSGD`` (momentum, nesterov, weight decay),
+    ``FusedNovoGrad``, ``FusedMixedPrecisionLamb`` (masters, the clip, the
+    device lr) and ``clip_grad_norm_`` before a plain ``FusedSGD`` step.
+    Each step's losses within 1e-4; each parameter within 1e-5 plus the
+    first step's gradient tolerance carried through the optimizer's update
+    (ng = 1e-4 max|g| an element, as ``small_train_check`` holds the
+    gradients; the later steps' gradients, taken at parameters already
+    apart, held to twice that); the clip's totals within the norm's share
+    of it; the multi-tensor launches of every step on the card exact."""
+    import torch
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import (FusedMixedPrecisionLamb,
+                                           FusedNovoGrad, FusedSGD)
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    ids = torch.randint(0, 512, (2, 100), generator=torch.Generator().manual_seed(9))
+    base = LlamaForCausalLM(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(12))
+    steps = 3
+
+    def clip_step(model, opt, x):
+        labels = torch.roll(x, -1, dims=1)
+        opt.zero_grad(set_to_none=True)
+        loss = model(x, labels=labels).mean()
+        loss.backward()
+        total = clip_grad_norm_(model.parameters(), 0.05)
+        opt.step()
+        return loss.detach(), total
+
+    forms = {
+        "sgd": (lambda ps: FusedSGD(ps, lr=0.05, momentum=0.9, nesterov=True,
+                                    weight_decay=0.01), {}),
+        "novograd": (lambda ps: FusedNovoGrad(ps, lr=1e-3, weight_decay=0.01),
+                     {mt.MT_L2NORM.name: 1}),
+        "mp_lamb": (lambda ps: FusedMixedPrecisionLamb(ps, lr=1e-3),
+                    {mt.MT_L2NORM.name: 1, mt.MT_LAMB.name: 1}),
+        "clip_grad_norm_": (lambda ps: FusedSGD(ps, lr=0.1),
+                            {mt.MT_L2NORM.name: 1, mt.MT_SCALE.name: 1}),
+    }
+    out = {}
+    for name, (make, per_step) in forms.items():
+        res = {}
+        for dev in ("cpu", device):
+            model = LlamaForCausalLM(cfg, device=dev)
+            model.load_state_dict(base.state_dict())
+            x = ids.to(dev)
+            # the first step's gradients, for the bound
+            model(x, labels=torch.roll(x, -1, dims=1)).mean().backward()
+            g1 = {n: p.grad.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+            opt = make(list(model.parameters()))
+            losses, totals, launches = [], [], []
+            for _ in range(steps):
+                before = {k.name: k.launches for k in _dispatch.KERNELS}
+                if name == "clip_grad_norm_":
+                    loss, total = clip_step(model, opt, x)
+                    totals.append(float(total))
+                else:
+                    loss = train_step(model, opt, x)
+                losses.append(float(loss))
+                launches.append({k.name: k.launches - before[k.name]
+                                 for k in _dispatch.KERNELS
+                                 if k.name.startswith("mt_")
+                                 and k.launches != before[k.name]})
+            res["cpu" if dev == "cpu" else "cuda"] = dict(
+                g1=g1, losses=losses, totals=totals, launches=launches,
+                params={n: p.detach().cpu().clone()
+                        for n, p in model.named_parameters()})
+        c, d = res["cpu"], res["cuda"]
+        if any(l != per_step for l in d["launches"]):
+            raise AssertionError(f"small {name}: multi-tensor launches a step "
+                                 f"{d['launches']}, expected {per_step}")
+        ratio = 0.0
+        for n, p_ref in c["params"].items():
+            g = c["g1"][n]
+            ga = g.abs()
+            gmax = float(ga.max())
+            ng = 1e-4 * gmax + 1e-30
+            dg = 1e-4 * (gmax + ga)
+            if name == "sgd":
+                # lr (g + mu buf), buf summing the steps' gradients
+                tol = 2 * steps * 0.05 * 4 * dg
+            elif name == "clip_grad_norm_":
+                # lr coef g: coef <= 1, its relative error the total's
+                n_all = sum(t.numel() for t in c["g1"].values())
+                gm = max(float(t.abs().max()) for t in c["g1"].values())
+                tot = math.sqrt(sum(float((t.double() ** 2).sum())
+                                    for t in c["g1"].values()))
+                rel = 1e-4 * (1 + math.sqrt(n_all) * gm / tot)
+                tol = 2 * steps * 0.1 * (dg + ga * rel)
+            elif name == "novograd":
+                # lr m / bc1 with m a sum of g / ||g||: 20 lr a step at most
+                # (bc1 = 1 - 0.95^t), g / ||g|| within dg / ||g|| plus |g|
+                # ||dg|| / ||g||^2
+                gn = float(torch.linalg.vector_norm(g)) + 1e-30
+                dn = float(torch.linalg.vector_norm(dg))
+                tol = 2 * steps * 20 * 1e-3 * (dg / gn + ga * dn / gn ** 2)
+            else:
+                # Adam-like u (an element's error ng / (|g| + ng)) times a
+                # trust ratio of at most 2
+                tol = 2 * steps * 1e-3 * 2 * ng / (ga + ng)
+            tol = tol + 1e-5
+            ratio = max(ratio, float(((d["params"][n] - p_ref).abs()
+                                      / tol).max()))
+        loss_err = max(abs(a - b) for a, b in zip(c["losses"], d["losses"]))
+        total_ratio = 0.0
+        if totals := c["totals"]:
+            n_all = sum(t.numel() for t in c["g1"].values())
+            gm = max(float(t.abs().max()) for t in c["g1"].values())
+            total_ratio = max(abs(a - b) / (2e-4 * (b + math.sqrt(n_all) * gm))
+                              for a, b in zip(d["totals"], totals))
+        if ratio > 1.0 or loss_err > 1e-4 or total_ratio > 1.0:
+            raise AssertionError(f"small {name}: card against CPU: params "
+                                 f"{ratio:.3f} x tol, losses {loss_err}, "
+                                 f"clip totals {total_ratio:.3f} x tol")
+        out[name] = dict(params_tol_ratio=ratio, loss_err=loss_err,
+                         losses_cuda=d["losses"], losses_cpu=c["losses"],
+                         clip_totals_cuda=d["totals"],
+                         clip_totals_tol_ratio=total_ratio,
+                         mt_launches_per_step=d["launches"][0])
+    out["tolerance"] = ("losses 1e-4; each parameter within 1e-5 plus its "
+                        "first gradient's tolerance (1e-4 (max|g| + |g|)) "
+                        "carried through the update: SGD lr (1 + mu + ...) "
+                        "<= 4 lr a step; NovoGrad 20 lr / ||g|| a step; the "
+                        "mixed-precision LAMB's Adam-like ng / (|g| + ng) "
+                        "times lr and a trust ratio <= 2; the clipped SGD lr "
+                        "times the coefficient's relative error; twice that "
+                        "for the later steps; the clip totals within 2e-4 "
+                        "(total + sqrt(N) max|g|)")
+    log("phase3-optimizers-reference", **out)
+    return out
+
+
 TRAIN_STEPS = 6        # timed steps after one warm-up (bench.py's llama-1b card)
 
 
@@ -3035,6 +4060,7 @@ def llama_1b_train(device) -> dict:
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.optimizers import FusedAdam
 
     cfg = LlamaConfig.llama_1b()
@@ -3052,7 +4078,8 @@ def llama_1b_train(device) -> dict:
                 fa.FLASH_ATTENTION_DKV.name: layers,
                 lh.FUSED_LM_HEAD_FWD.name: 1,
                 lh.FUSED_LM_HEAD_DH.name: 1,
-                lh.FUSED_LM_HEAD_DE.name: 1}
+                lh.FUSED_LM_HEAD_DE.name: 1,
+                mt.MT_ADAM.name: 1}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss0 = float(train_step(model, opt, ids))       # warm-up, not counted
@@ -3099,6 +4126,7 @@ def llama_1b_train(device) -> dict:
                bound_ms=flops / 989e12 * 1e3,
                mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
                allocated_before_bytes=allocated_before,
+               mt_table_bytes=mt_table_bytes(),
                launches=launches, launches_per_step=per_step)
     log("phase3-train", **out)
     out["profile"] = profile_train(model, opt, ids, med)
@@ -3115,7 +4143,11 @@ def _nonzero(counts: dict) -> dict:
 def _kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name: one of the port's kernels,
     cuBLAS, or PyTorch's own elementwise, copy and reduction kernels."""
-    for key, kind in (("pair_bias_fwd", "pair-bias forward"),
+    for key, kind in (("mt_l2norm", "multi-tensor l2norm"),
+                      ("mt_scale", "multi-tensor scale"),
+                      ("mt_adam", "multi-tensor Adam"),
+                      ("mt_lamb", "multi-tensor LAMB"),
+                      ("pair_bias_fwd", "pair-bias forward"),
                       ("pair_bias_dq", "pair-bias dq"),
                       ("pair_bias_dkv", "pair-bias dk/dv"),
                       ("pair_bias_dbias", "pair-bias dbias"),
@@ -3297,6 +4329,7 @@ def gpt2_large_train(device, form: str) -> dict:
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.ops import packed_update as pu
     from apex_tpu_torch.ops import softmax as sm
 
@@ -3314,13 +4347,17 @@ def gpt2_large_train(device, form: str) -> dict:
                 lh.FUSED_LM_HEAD_DH.name: 1,
                 lh.FUSED_LM_HEAD_DE.name: 1}
     if kernel_path:
+        # the clip norm, phase 1, then phase 2's per-leaf norms and apply
         per_step.update({sm.SCALED_SOFTMAX_FWD.name: layers,
                          sm.SCALED_SOFTMAX_BWD.name: layers,
-                         pu.LAMB_PHASE1.name: 1})
+                         pu.LAMB_PHASE1.name: 1, mt.MT_L2NORM.name: 2,
+                         mt.MT_LAMB.name: 1})
     else:
+        # the clip norm, then both LAMB stages in one call
         per_step.update({fa.FLASH_ATTENTION_FWD.name: layers,
                          fa.FLASH_ATTENTION_DQ.name: layers,
-                         fa.FLASH_ATTENTION_DKV.name: layers})
+                         fa.FLASH_ATTENTION_DKV.name: layers,
+                         mt.MT_L2NORM.name: 1, mt.MT_LAMB.name: 1})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss0 = float(gpt_pretrain.train_step(model, opt, ids))   # warm-up
@@ -3376,6 +4413,7 @@ def gpt2_large_train(device, form: str) -> dict:
                bound_ms=flops / 989e12 * 1e3,
                mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
                allocated_before_bytes=allocated_before,
+               mt_table_bytes=mt_table_bytes(),
                launches=launches, launches_per_step=per_step)
     log(f"phase3-gpt-{form}", **out)
     out["profile"] = profile_train(model, opt, ids, med,
@@ -3611,6 +4649,7 @@ def llama_1b_amp_train(device, form: str) -> dict:
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.ops import packed_update as pu
 
     cfg = LlamaConfig.llama_1b()
@@ -3631,8 +4670,12 @@ def llama_1b_amp_train(device, form: str) -> dict:
                 fa.FLASH_ATTENTION_DKV.name: layers,
                 lh.FUSED_LM_HEAD_FWD.name: 1,
                 lh.FUSED_LM_HEAD_DH.name: 1,
-                lh.FUSED_LM_HEAD_DE.name: 1}
-    if form == "adagrad":
+                lh.FUSED_LM_HEAD_DE.name: 1,
+                # LossScaler.has_overflow: mt_scale's check
+                mt.MT_SCALE.name: 1}
+    if form == "adam":
+        per_step[mt.MT_ADAM.name] = 1
+    elif form == "adagrad":
         per_step[pu.PACKED_ADAGRAD.name] = 1
     elif form == "packed_adam":
         per_step[pu.PACKED_ADAM.name] = 1
@@ -3709,6 +4752,7 @@ def llama_1b_amp_train(device, form: str) -> dict:
                step_ms=step_ms, step_ms_median=med, step_issue_ms=issue_ms,
                step_issue_cpu_ms=issue_cpu_ms,
                tokens_per_s=b * s / (med / 1e3), peak_mem_bytes=peak,
+               mt_table_bytes=mt_table_bytes(),
                launches=launches, launches_per_step=per_step)
     log(f"phase3-amp-{form}", **out)
     out["profile"] = _profile(lambda: tr.step(ids, labels), med)
@@ -4375,7 +5419,8 @@ def openfold_train(device) -> dict:
     ``FusedAdamSWA(lr=1e-3, ApexAdamW, swa_decay_rate=0.9)`` over the
     blocks' weights.  1 warm-up step, then 6 timed steps with exact
     launches each (4 pair-bias forward, dq, dk/dv and dbias; 8 norm
-    forward and backward; nothing else of the port's) and a loss that
+    forward and backward; 1 ``mt_adam``, the optimizer's one launch over
+    its 48 tensors; nothing else of the port's) and a loss that
     falls every step; step wall, host issue, peak memory and a profile.
     Then one block at the Evoformer training crop (N_res 256), which the
     JAX routing sends to the materialized path: no pair-bias launch."""
@@ -4384,6 +5429,7 @@ def openfold_train(device) -> dict:
                                                         FusedAdamSWA)
     from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.ops import pair_bias_attention as pb
 
     c = OPENFOLD
@@ -4411,7 +5457,8 @@ def openfold_train(device) -> dict:
     n = c["blocks"]
     per_step = {ln.LAYER_NORM_FWD.name: 2 * n, ln.LAYER_NORM_BWD.name: 2 * n,
                 pb.PAIR_BIAS_FWD.name: n, pb.PAIR_BIAS_DQ.name: n,
-                pb.PAIR_BIAS_DKV.name: n, pb.PAIR_BIAS_DBIAS.name: n}
+                pb.PAIR_BIAS_DKV.name: n, pb.PAIR_BIAS_DBIAS.name: n,
+                mt.MT_ADAM.name: 1}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss0 = float(step())                           # warm-up
@@ -4451,6 +5498,7 @@ def openfold_train(device) -> dict:
                step_ms=step_ms, step_ms_median=med, step_issue_ms=issue_ms,
                step_issue_cpu_ms=issue_cpu_ms, peak_mem_bytes=peak,
                allocated_before_bytes=allocated_before,
+               mt_table_bytes=mt_table_bytes(),
                launches=launches, launches_per_step=per_step)
     log("phase3-openfold", **out)
     out["profile"] = _profile(step, med)
@@ -4496,6 +5544,7 @@ def main() -> int:
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.ops import packed_update as pu
     from apex_tpu_torch.ops import pair_bias_attention as pb
     from apex_tpu_torch.ops import softmax as sm
@@ -4537,6 +5586,8 @@ def main() -> int:
     lamb_time = time_lamb_phase1(device)
     packed_check = check_packed_updates(device)
     packed_time = time_packed_updates(device)
+    mt_check = check_multi_tensor(device)
+    mt_time = time_multi_tensor(device)
     pair_bias_check = check_pair_bias(device)
     pair_bias_time = time_pair_bias(device)
     routes_time = time_openfold_routes(device)
@@ -4547,6 +5598,7 @@ def main() -> int:
     gpt_reference = small_gpt_check(device)
     openfold_reference = small_openfold_check(device)
     amp_reference = small_amp_check(device)
+    optimizer_reference = small_optimizer_checks(device)
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
@@ -4572,6 +5624,20 @@ def main() -> int:
                     library_ms=row["library_ms"], main_path=main_path,
                     launches_by_path={p: r["launches"][k.name]
                                       for p, r in paths.items()}, **extra)
+
+    def mt_entry(k, key, main_path, others=()):
+        row = mt_time[key]
+        return entry(k, row["max_abs_err"], row, main_path=main_path,
+                     list=row["list"], tensors=row["tensors"],
+                     elements=row["elements"],
+                     graph_plain_ms=row["graph_plain_ms"],
+                     library_call=row["library_call"],
+                     cases=mt_check[k.name]["cases"],
+                     worst_tol_ratio=mt_check[k.name]["worst_tol_ratio"],
+                     lists={o: {f: mt_time[o][f] for f in (
+                         "list", "ms", "bound_ms", "plain_ms", "graph_plain_ms",
+                         "library_ms", "library_call", "max_abs_err")}
+                            for o in others})
 
     decode_row = next(r for r in timings if r["n"] == 8)
     nb, fb, hb = (norm_bwd_check["main_shape"], flash_bwd_check["main_shape"],
@@ -4641,6 +5707,13 @@ def main() -> int:
               pair_bias_time["dbias"], main_path="openfold",
               shape=pair_bias_time["dbias"]["shape"],
               bound_term=pair_bias_time["dbias"]["bound_term"]),
+        # the multi-tensor kernels, with no pallas_call counterpart: each
+        # timed at its main path's list, the others in lists
+        mt_entry(mt.MT_L2NORM, "l2norm_gpt2_large", "gpt_flagship"),
+        mt_entry(mt.MT_SCALE, "scale_llama_fp16_check", "amp_adam"),
+        mt_entry(mt.MT_ADAM, "adam_llama_bf16", "training",
+                 ("adam_llama_fp16_masters", "adam_swa_openfold")),
+        mt_entry(mt.MT_LAMB, "lamb_gpt2_large", "gpt_flagship"),
     ]}
     if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
         raise AssertionError("the kernels line does not list every kernel")
@@ -4648,14 +5721,16 @@ def main() -> int:
                   kernel_checks=[flash_check, head_check, norm_bwd_check,
                                  flash_bwd_check, head_bwd_check,
                                  softmax_check, lamb_check, packed_check,
-                                 pair_bias_check],
+                                 pair_bias_check, mt_check],
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
-                                lamb_time, packed_time, pair_bias_time],
+                                lamb_time, packed_time, pair_bias_time,
+                                mt_time],
                   wgmma_registers=wgmma_regs,
                   openfold_routes=routes_time,
                   openfold_reference=openfold_reference,
                   amp_reference=amp_reference,
+                  optimizer_reference=optimizer_reference,
                   reference=reference, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,

@@ -241,6 +241,53 @@ def test_fused_adam_swa_skip_leaves_everything():
     assert opt.swa_state_dict()[0].dtype == torch.float32
 
 
+def test_fused_adam_swa_one_counter_per_group_with_a_late_gradient():
+    """``step`` and ``n_averaged`` are one tensor a group, shared by its
+    parameters' states, as the JAX state holds one for the tree.  A bias
+    whose first gradient comes at step 3 takes the group's counters: on the
+    JAX side the tree grows from ``[w]`` to ``[w, b]`` after two steps, the
+    bias's moments zero and its master and average its fp32 copy.  3 steps
+    of ApexAdamW against the JAX class."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((6, 5)).astype(np.float32)
+    b = rng.standard_normal(5).astype(np.float32)
+    gw = [rng.standard_normal((6, 5)).astype(np.float32) for _ in range(3)]
+    gb = rng.standard_normal(5).astype(np.float32)
+    kw = dict(lr=1e-2, weight_decay=0.01, swa_decay_rate=0.8,
+              adam_math_mode=jof.AdamMathType.ApexAdamW)
+    jopt = jof.FusedAdamSWA(**kw)
+    ps = [jnp.asarray(w)]
+    state = jopt.init(ps)
+    for g in gw[:2]:
+        ps, state = jopt.step([jnp.asarray(g)], ps, state)
+    jb = jnp.asarray(b)
+    zeros = jnp.zeros_like(jb)
+    state = type(state)(state.step, state.n_averaged,
+                             state.exp_avg + [zeros], state.exp_avg_sq + [zeros],
+                             state.swa_params + [jb], state.state_params + [jb])
+    ps, state = jopt.step([jnp.asarray(gw[2]), jnp.asarray(gb)], ps + [jb],
+                          state)
+
+    tw, tb = (torch.nn.Parameter(torch.from_numpy(a.copy())) for a in (w, b))
+    opt = tof.FusedAdamSWA([tw, tb], **dict(kw, adam_math_mode=
+                                            tof.AdamMathType.ApexAdamW))
+    for i, g in enumerate(gw):
+        tw.grad = torch.from_numpy(g.copy())
+        tb.grad = torch.from_numpy(gb.copy()) if i == 2 else None
+        opt.step()
+    sw, sb = opt.state[tw], opt.state[tb]
+    assert sw["step"] is sb["step"] and sw["n_averaged"] is sb["n_averaged"]
+    assert int(sw["step"]) == int(state.step) == 3
+    assert int(sw["n_averaged"]) == int(state.n_averaged) == 3
+    f32 = dict(rtol=1e-6, atol=1e-7)
+    for i, (p, st) in enumerate(((tw, sw), (tb, sb))):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ps[i]), **f32)
+        for key in ("exp_avg", "exp_avg_sq", "state_params", "swa_params"):
+            np.testing.assert_allclose(st[key].numpy(),
+                                       np.asarray(getattr(state, key)[i]),
+                                       err_msg=key, **f32)
+
+
 # ---------------------------------------------------------------------------
 # the MSA row attention with pair bias, composed from the public functions
 # ---------------------------------------------------------------------------

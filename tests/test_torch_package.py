@@ -136,6 +136,18 @@ _KERNELS = [
 ]
 
 
+# the port's kernels with no Pallas counterpart: each ``replaces`` names the
+# JAX function whose tree-wide pass it stands for
+_PORT_KERNELS = [
+    ("mt_l2norm", "apex_tpu/multi_tensor_apply/__init__.py",
+     "multi_tensor_l2norm"),
+    ("mt_scale", "apex_tpu/multi_tensor_apply/__init__.py",
+     "multi_tensor_scale"),
+    ("mt_adam", "apex_tpu/optimizers/fused_adam.py", "_update"),
+    ("mt_lamb", "apex_tpu/optimizers/fused_lamb.py", "_update"),
+]
+
+
 @pytest.mark.parametrize("name,jax_file,jax_fn", _KERNELS,
                          ids=[k[0] for k in _KERNELS])
 def test_kernel_registry(name, jax_file, jax_fn):
@@ -144,7 +156,8 @@ def test_kernel_registry(name, jax_file, jax_fn):
     named line of the JAX file defines it."""
     from apex_tpu_torch.ops import _build, _dispatch
 
-    assert [k.name for k in _dispatch.KERNELS] == [k[0] for k in _KERNELS]
+    assert [k.name for k in _dispatch.KERNELS] == \
+        [k[0] for k in _KERNELS + _PORT_KERNELS]
 
     found = [k for k in _dispatch.KERNELS if k.name == name]
     assert len(found) == 1, [k.name for k in _dispatch.KERNELS]
@@ -157,3 +170,32 @@ def test_kernel_registry(name, jax_file, jax_fn):
     assert (path, fn) == (jax_file, jax_fn)
     text = (ROOT / path).read_text().splitlines()[int(line) - 1]
     assert text.startswith(f"def {fn}("), text
+
+
+@pytest.mark.parametrize("name,jax_file,jax_fn", _PORT_KERNELS,
+                         ids=[k[0] for k in _PORT_KERNELS])
+def test_port_kernel_registry(name, jax_file, jax_fn):
+    """The multi-tensor kernels: each listed once, its source under
+    ``csrc/``, and ``replaces`` pointing at the JAX function or method whose
+    tree-wide pass it stands for: the named line defines it, and no
+    ``pallas_call`` lies in its body."""
+    from apex_tpu_torch.ops import _build, _dispatch
+
+    found = [k for k in _dispatch.KERNELS if k.name == name]
+    assert len(found) == 1, [k.name for k in _dispatch.KERNELS]
+    kernel = found[0]
+    assert kernel.source.endswith(".cu")
+    assert (_build.CSRC / kernel.source).is_file()
+    where, fn = kernel.replaces.split()
+    path, line = where.split(":")
+    assert (path, fn) == (jax_file, jax_fn)
+    lines = (ROOT / path).read_text().splitlines()
+    head = lines[int(line) - 1]
+    assert head.lstrip().startswith(f"def {fn}("), head
+    indent = len(head) - len(head.lstrip())
+    body = []
+    for text in lines[int(line):]:
+        if text.strip() and len(text) - len(text.lstrip()) <= indent:
+            break
+        body.append(text)
+    assert body and not any("pallas_call" in t for t in body)
