@@ -18,10 +18,13 @@ loop over the pytree, with no Pallas kernel behind it:
   read in place and multiplied by a device ``inv_scale``, the master's copy
   into the half parameter fused in.
 - :func:`lamb` (``mt_lamb``): ``FusedLAMB`` and ``FusedMixedPrecisionLamb``
-  in two stages (the moments and per-chunk ``||p||^2``, ``||u||^2``; then
-  the trust ratio and the apply, the update recomputed, so no fp32 buffer
-  the size of the model is kept); and :func:`lamb_apply`, stage 2 alone
-  over given updates and norms (the packed LAMB's phase 2).
+  in one cooperative launch over a plan of groups (:func:`lamb_plan`: runs
+  of tensors whose g, p, m and v fit :data:`LAMB_BUDGET`), each group in two
+  stages around a grid barrier (the moments and each span's ``||p||^2``,
+  ``||u||^2``; then the trust ratio and the apply, the update recomputed
+  while L2 still holds the group, so no fp32 buffer the size of the model
+  is kept); and :func:`lamb_apply`, the apply alone over given updates and
+  norms (the packed LAMB's phase 2), one pass over the chunks.
 
 Every step scalar that changes between steps (the bias corrections, the
 inverse loss scale, the clip factor, a tensor learning rate, the step and
@@ -41,14 +44,18 @@ their storage, and gradients usually come back at the same addresses from
 the caching allocator; on a miss the table is built again in new pinned
 memory (an earlier asynchronous copy may still read the old one).  A table
 built or used while a CUDA graph is captured is kept for the process's
-life, since the graph reads it on every replay.
+life, since the graph reads it on every replay.  Its chunk is chosen from
+the list when it is built (:func:`choose_chunk`): 65,536 elements unless
+that leaves some of the card's resident blocks without a chunk, as on
+OpenFold's 48 small tensors; ``mt_lamb``'s table also carries its group
+plan.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,10 +63,14 @@ import torch
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
 
-__all__ = ["MT_L2NORM", "MT_SCALE", "MT_ADAM", "MT_LAMB", "CHUNK", "L2Norm",
+__all__ = ["MT_L2NORM", "MT_SCALE", "MT_ADAM", "MT_LAMB", "CHUNK",
+           "MIN_CHUNK", "LAMB_BUDGET", "LAMB_NARROW", "LAMB_TEAMS", "L2Norm",
+           "LambPlan",
            "ADAM_L2", "ADAMW", "SWA_APEX_ADAM", "SWA_APEX_ADAMW",
-           "SWA_PYTORCH_ADAM", "adam", "device_scalar",
-           "l2norm", "lamb", "lamb_apply", "scale", "table_words"]
+           "SWA_PYTORCH_ADAM", "adam", "choose_chunk", "device_scalar",
+           "l2norm", "lamb", "lamb_apply", "lamb_blocks", "lamb_plan",
+           "lamb_list_plan", "lamb_ring",
+           "resident_blocks", "scale", "table_words"]
 
 MT_L2NORM = register(Kernel(
     name="mt_l2norm", source="multi_tensor.cu", symbol="apex_mt_l2norm",
@@ -74,8 +85,15 @@ MT_LAMB = register(Kernel(
     name="mt_lamb", source="multi_tensor.cu", symbol="apex_mt_lamb",
     replaces="apex_tpu/optimizers/fused_lamb.py:134 _update"))
 
-#: elements a chunk (the last chunk of a tensor holds the rest)
+#: elements a chunk at most (the last chunk of a tensor holds the rest)
 CHUNK = 1 << 16
+#: the smallest chunk a short list is cut into
+MIN_CHUNK = 1 << 11
+#: mt_lamb's group budget B: the bytes of g, p, m and v a group may hold,
+#: the last B of each group's stage-1 reads marked to stay in L2 for stage
+#: 2 (chosen among 0-40 MB by ``tools/lamb_variants.py`` on an H100, where
+#: they all read within 0.2 ms)
+LAMB_BUDGET = 16 << 20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # mt_adam's modes (csrc/multi_tensor.cu AdamMode)
@@ -88,6 +106,23 @@ Lists = Sequence[Sequence[Optional[torch.Tensor]]]
 # ---------------------------------------------------------------------------
 # the table
 # ---------------------------------------------------------------------------
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def choose_chunk(sizes: Sequence[int], resident: int) -> int:
+    """The walker's chunk for tensors of ``sizes``: :data:`CHUNK` where
+    that cuts them into at least ``resident`` chunks (the card's resident
+    blocks, so every block of the grid has one), else the largest power of
+    two no smaller than :data:`MIN_CHUNK` that does (:data:`MIN_CHUNK` if
+    none does)."""
+    chunk = CHUNK
+    while chunk > MIN_CHUNK and sum(_ceil(int(n), chunk)
+                                    for n in sizes) < resident:
+        chunk //= 2
+    return chunk
 
 
 def table_words(ptrs: Sequence[Sequence[int]], sizes: Sequence[int],
@@ -118,12 +153,195 @@ def table_words(ptrs: Sequence[Sequence[int]], sizes: Sequence[int],
     return np.concatenate([rows.reshape(-1), (tensor << 32) | index]), C
 
 
+#: a group of at most this many (padded) elements is walked by one block,
+#: with no barrier among blocks
+LAMB_NARROW = 4 * 512 * 8
+#: the teams mt_lamb's grid is cut into, each walking its own wide groups:
+#: fewer blocks a barrier and a longer span each (chosen among 1-12 by
+#: ``tools/lamb_variants.py`` on an H100: 22 blocks a team)
+LAMB_TEAMS = 6
+
+
+class LambPlan(NamedTuple):
+    """``mt_lamb``'s group plan (:func:`lamb_plan`): ``words`` as the kernel
+    reads them, and their parts: each group's ``(first, end)`` tensors, its
+    span ``S`` (each team block's elements) and padded elements ``E``, each
+    tensor's virtual offset in its group and ``[b_lo, b_end)``, the team
+    blocks whose spans reach it (a wide group's tensors); ``order``, the
+    wide groups then the narrow ones, each in table order (``wide`` of
+    them wide); ``team_groups``, the wide ordinals team by team (team
+    ``k``'s at ``[team_first[k], team_first[k + 1])``); and ``pieces[wi,
+    bt]``, the tensors ``[first, end)`` whose elements reach team block
+    ``bt``'s span ``[bt S, bt S + S)`` of the ``wi``-th wide group."""
+
+    words: np.ndarray
+    groups: List[Tuple[int, int]]
+    span: List[int]
+    padded: List[int]
+    offsets: np.ndarray
+    blocks: np.ndarray
+    order: List[int]
+    wide: int
+    teams: int
+    team_first: List[int]
+    team_groups: List[int]
+    pieces: np.ndarray
+
+
+def lamb_plan(sizes: Sequence[int], elem_bytes: Sequence[int], budget: int,
+              blocks: int, teams: int = 1) -> LambPlan:
+    """Cut ``T = len(sizes)`` tensors into groups for ``mt_lamb`` over
+    ``blocks`` blocks: runs of consecutive tensors whose bytes
+    (``sizes[t] * elem_bytes[t]``, g, p, m and v together) fit ``budget``, a
+    tensor larger than ``budget`` a group of its own.  In a group the
+    tensors lie end to end, each padded to 8 elements (``E`` in all).  A
+    group of at most :data:`LAMB_NARROW` elements is narrow: one block
+    walks it whole.  The ``blocks`` are cut into ``teams`` teams of ``Gt =
+    blocks / teams``; each wide group goes to the team with the fewest
+    bytes so far, and all of that team's blocks walk it, team block ``bt``
+    the span ``[bt S, bt S + S)``, ``S`` a multiple of 8 (so every span
+    starts 16-byte aligned in every list).  Words (int64): 4 a group (first
+    | end << 32, S, E, bytes), T offsets, T block ranges (b_lo | b_end <<
+    32), the order, the teams' starts (teams + 1), the wide ordinals team
+    by team, then the pieces (first | end << 32), wide group by wide
+    group."""
+    if teams < 1 or blocks % teams:
+        raise ValueError(f"lamb_plan: {blocks} blocks in {teams} teams")
+    Gt = blocks // teams
+    T = len(sizes)
+    sizes = [int(n) for n in sizes]
+    bounds, start, held = [], 0, 0
+    for t in range(T):
+        nb = sizes[t] * int(elem_bytes[t])
+        if t > start and held + nb > budget:
+            bounds.append((start, t))
+            start, held = t, 0
+        held += nb
+    if T:
+        bounds.append((start, T))
+    desc = np.zeros((len(bounds), 4), dtype=np.int64)
+    offsets = np.zeros(T, dtype=np.int64)
+    ranges = np.zeros(T, dtype=np.int64)
+    spans, padded, wide, narrow, pieces = [], [], [], [], []
+    for gi, (t0, t1) in enumerate(bounds):
+        n = np.asarray(sizes[t0:t1], dtype=np.int64)
+        pad = -(-n // 8) * 8
+        off = np.concatenate([[0], np.cumsum(pad)[:-1]]).astype(np.int64)
+        E = int(pad.sum())
+        S = max(8, _ceil(_ceil(E, Gt), 8) * 8)
+        offsets[t0:t1] = off
+        nbytes = sum(sizes[t] * int(elem_bytes[t]) for t in range(t0, t1))
+        desc[gi] = (t0 | (t1 << 32), S, E, nbytes)
+        spans.append(S)
+        padded.append(E)
+        if E <= LAMB_NARROW:
+            narrow.append(gi)
+            continue
+        wide.append(gi)
+        lo = np.minimum(E, np.arange(Gt, dtype=np.int64) * S)
+        hi = np.minimum(E, lo + S)
+        # the first tensor whose real elements end past lo; the first from
+        # there that starts at hi or later
+        first = np.searchsorted(off + n, lo, side="right")
+        end = np.maximum(first, np.searchsorted(off, hi, side="left"))
+        pieces.append((t0 + first) | ((t0 + end) << 32))
+        b_lo = off // S
+        b_end = np.where(n > 0, (off + n - 1) // S + 1, b_lo)
+        ranges[t0:t1] = np.where(n > 0, b_lo | (b_end << 32), 0)
+    # each wide group to the team with the fewest bytes so far
+    held_by = [0] * teams
+    team_of = []
+    for gi in wide:
+        k = held_by.index(min(held_by))
+        team_of.append(k)
+        held_by[k] += int(desc[gi, 3])
+    team_groups = sorted(range(len(wide)), key=lambda q: (team_of[q], q))
+    team_first = [sum(1 for k in team_of if k < tm) for tm in range(teams + 1)]
+    piece_words = (np.stack(pieces) if pieces
+                   else np.zeros((0, Gt), dtype=np.int64))
+    words = np.concatenate([desc.reshape(-1), offsets, ranges,
+                            np.asarray(wide + narrow + team_first + team_groups,
+                                       dtype=np.int64),
+                            piece_words.reshape(-1)])
+    return LambPlan(words, bounds, spans, padded, offsets, ranges,
+                    wide + narrow, len(wide), teams, team_first, team_groups,
+                    piece_words)
+
+
+_BLOCKS: Dict[str, int] = {}
+
+
+def _blocks(symbol: str) -> int:
+    """A resident-block count the library computes once (sm count times
+    the occupancy at 512 threads)."""
+    got = _BLOCKS.get(symbol)
+    if got is None:
+        fn = getattr(_build.library(MT_ADAM.source), symbol)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        got = _BLOCKS[symbol] = int(fn())
+    return got
+
+
+def resident_blocks() -> int:
+    """The most blocks any walker kernel keeps resident on the current
+    card: the chunk count a list should reach (:func:`choose_chunk`)."""
+    return _blocks("apex_mt_resident_blocks")
+
+
+def lamb_ring(lists: Sequence[Sequence[torch.Tensor]]) -> int:
+    """``mt_lamb``'s ring of g, p, m and v (``lists[:4]``): each list's
+    16-byte chunks an 8-element vector (2 where the list holds an fp32
+    tensor, else 1), 2 bits a list."""
+    code = 0
+    for l, xs in enumerate(lists[:4]):
+        code |= (2 if any(x.dtype == torch.float32 for x in xs) else 1) << (2 * l)
+    return code
+
+
+def lamb_list_plan(lists: Sequence[Sequence[torch.Tensor]], budget: int
+                   ) -> Tuple[LambPlan, int, int]:
+    """The plan ``mt_lamb`` walks for its lists (g, p, m, v first) on the
+    current card under ``budget``, with its ring and grid: what the table
+    carries."""
+    ring = lamb_ring(lists)
+    blocks = lamb_blocks(ring)
+    teams = LAMB_TEAMS if blocks % LAMB_TEAMS == 0 else 1
+    rows = list(zip(*lists[:4]))
+    plan = lamb_plan([row[0].numel() for row in rows],
+                     [sum(t.element_size() for t in row) for row in rows],
+                     budget, blocks, teams)
+    return plan, ring, blocks
+
+
+def lamb_blocks(ring: int) -> int:
+    """The grid of ``mt_lamb``'s cooperative launch on the current card
+    with ``ring`` (:func:`lamb_ring`; the ring's shared memory sets the
+    occupancy): the blocks its plan splits each group over."""
+    key = f"apex_mt_lamb_blocks/{ring}"
+    got = _BLOCKS.get(key)
+    if got is None:
+        fn = _build.library(MT_LAMB.source).apex_mt_lamb_blocks
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        got = _BLOCKS[key] = int(fn(ring))
+        if got < 1:
+            raise RuntimeError(f"mt_lamb: no resident block with ring {ring}")
+    return got
+
+
 class _Table(NamedTuple):
-    words: torch.Tensor      # int64, on the device
+    words: torch.Tensor      # int64, on the device (then the plan's words)
     host: torch.Tensor       # the pinned source of its copy
     T: int
     L: int
     C: int
+    chunk: int
+    plan_at: int             # mt_lamb: the plan's first word, else -1
+    groups: int              # mt_lamb: the plan's groups, else 0
+    wide: int                # mt_lamb: its wide groups, else 0
+    teams: int               # mt_lamb: the teams of its grid, else 1
+    ring: int                # mt_lamb: its ring (lamb_ring), else 0
+    blocks: int              # mt_lamb: the grid it was planned for, else 0
+    budget: int              # mt_lamb: the budget it was planned for
 
 
 _TABLES: "collections.OrderedDict[tuple, _Table]" = collections.OrderedDict()
@@ -131,15 +349,17 @@ _TABLES_KEPT = 64
 _CAPTURED: List[_Table] = []
 
 
-def _table(op: str, lists: Lists, allowed: Sequence[Sequence[torch.dtype]]
-           ) -> Tuple[_Table, torch.device]:
+def _table(op: str, lists: Lists, allowed: Sequence[Sequence[torch.dtype]],
+           lamb_budget: Optional[int] = None) -> Tuple[_Table, torch.device]:
     """The device table of ``lists`` (``L`` lists of ``T`` tensors, None
-    where an optional list has no tensor) and their device.  A table is
-    cached under the current device and every tensor's address, size,
-    dtype and contiguity, so a hit is a set of tensors ``_check_lists``
-    passed before; a miss is checked, then built."""
+    where an optional list has no tensor) and their device, with
+    ``mt_lamb``'s group plan for ``lamb_budget`` where one is given.  A
+    table is cached under the current device, the budget and every
+    tensor's address, size, dtype and contiguity, so a hit is a set of
+    tensors ``_check_lists`` passed before; a miss is checked, then
+    built."""
     device = torch.device("cuda", torch.cuda.current_device())
-    key = (device.index, len(lists), len(lists[0]),
+    key = (device.index, lamb_budget, len(lists), len(lists[0]),
            tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
                  if t is not None else None for xs in lists for t in xs))
     tab = _TABLES.get(key)
@@ -151,10 +371,18 @@ def _table(op: str, lists: Lists, allowed: Sequence[Sequence[torch.dtype]]
         codes = [[_DTYPE_CODES[t.dtype] if t is not None else 0 for t in row]
                  for row in rows]
         sizes = [next(t for t in row if t is not None).numel() for row in rows]
-        words, C = table_words(ptrs, sizes, codes)
+        chunk = choose_chunk(sizes, resident_blocks())
+        words, C = table_words(ptrs, sizes, codes, chunk)
+        plan_at, groups, wide, ring, blocks, teams = -1, 0, 0, 0, 0, 1
+        if lamb_budget is not None:
+            plan, ring, blocks = lamb_list_plan(lists, lamb_budget)
+            plan_at, groups, wide = words.size, len(plan.groups), plan.wide
+            teams = plan.teams
+            words = np.concatenate([words, plan.words])
         host = torch.from_numpy(words).pin_memory()
         tab = _Table(host.to(device, non_blocking=True), host, len(rows),
-                     len(lists), C)
+                     len(lists), C, chunk, plan_at, groups, wide, teams,
+                     ring, blocks, -1 if lamb_budget is None else lamb_budget)
         _TABLES[key] = tab
         if len(_TABLES) > _TABLES_KEPT:
             _TABLES.popitem(last=False)
@@ -249,6 +477,10 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _HEAD = [_vp, _i, _i, _i, _i]           # table words, T, L, C, chunk
 
 
+def _head(tab: _Table) -> tuple:
+    return tab.words.data_ptr(), tab.T, tab.L, tab.C, tab.chunk
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -290,7 +522,7 @@ def _kernel_l2norm(xs, inv_scale) -> L2Norm:
     out = torch.empty(tab.T + 1, dtype=torch.float32, device=device)
     flag = torch.empty(1, dtype=torch.int32, device=device)
     status = _symbol(MT_L2NORM, _HEAD + [_vp] * 4 + [_vp])(
-        tab.words.data_ptr(), tab.T, tab.L, tab.C, CHUNK, _ptr(inv_scale),
+        *_head(tab), _ptr(inv_scale),
         partials.data_ptr(), out.data_ptr(), flag.data_ptr(), _stream())
     _build.check(status, "mt_l2norm")
     MT_L2NORM.launches += 1
@@ -335,7 +567,7 @@ def _kernel_scale(xs, outs, scale_, check: bool) -> Optional[torch.Tensor]:
     ptr, value = ((scale_.data_ptr(), 0.0) if isinstance(scale_, torch.Tensor)
                   else (None, float(scale_)))
     status = _symbol(MT_SCALE, _HEAD + [_vp, _f, _vp, _vp])(
-        tab.words.data_ptr(), tab.T, tab.L, tab.C, CHUNK, ptr, value,
+        *_head(tab), ptr, value,
         _ptr(flag), _stream())
     _build.check(status, "mt_scale")
     MT_SCALE.launches += 1
@@ -460,7 +692,7 @@ def _kernel_adam(g, p, m, v, copy, swa, *, mode, lr, beta1, beta2, eps,
     if tab.C == 0:
         return
     status = _symbol(MT_ADAM, _HEAD + [_i] + [_f] * 9 + [_i] + [_vp] * 7)(
-        tab.words.data_ptr(), tab.T, tab.L, tab.C, CHUNK, mode, lr, beta1,
+        *_head(tab), mode, lr, beta1,
         beta2, 1.0 - beta1, 1.0 - beta2, eps, weight_decay,
         1.0 - lr * weight_decay, swa_weight, swa_start_step, _ptr(inv_scale),
         _ptr(bc1), _ptr(bc2), _ptr(noop), _ptr(step), _ptr(n_averaged),
@@ -526,8 +758,9 @@ def _apply_step(p32, update, step_):
 
 def _plain_lamb(g, p, m, v, copy, *, lr, beta1, beta2, beta3, eps,
                 weight_decay, adam_w_mode, use_ratio, inv_scale, clip, bc1,
-                bc2, noop) -> None:
+                bc2, noop, n_ratio=None) -> None:
     wd = weight_decay
+    n_ratio = len(g) if n_ratio is None else n_ratio
     bc1 = 1.0 if bc1 is None else bc1
     bc2 = 1.0 if bc2 is None else bc2
     clip = 1.0 if clip is None else clip
@@ -545,7 +778,7 @@ def _plain_lamb(g, p, m, v, copy, *, lr, beta1, beta2, beta3, eps,
         if adam_w_mode and wd:
             update.add_(p32, alpha=wd)
         step_ = lr
-        if use_ratio:
+        if use_ratio and i < n_ratio:
             p_norm, u_norm = _sqnorm(p32), _sqnorm(update)
             ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                                 1.0)
@@ -558,16 +791,12 @@ def _plain_lamb(g, p, m, v, copy, *, lr, beta1, beta2, beta3, eps,
             _commit(dst, new, noop)
 
 
-def _lamb_symbol():
-    return _symbol(MT_LAMB, _HEAD + [_i] + [_f] * 7 + [_i] * 3 + [_vp] * 9)
-
-
 def _kernel_lamb(g, p, m, v, copy, *, lr, beta1, beta2, beta3, eps,
                  weight_decay, adam_w_mode, use_ratio, inv_scale, clip, bc1,
-                 bc2, noop) -> None:
+                 bc2, noop, n_ratio=None) -> None:
     T = len(g)
     lists = [g, p, m, v, [None] * T if copy is None else copy]
-    tab, device = _table("mt_lamb", lists, [_ANY] * 5)
+    tab, device = _table("mt_lamb", lists, [_ANY] * 5, LAMB_BUDGET)
     lr_ptr = lr if isinstance(lr, torch.Tensor) else None
     _check_scalars("mt_lamb", device, inv_scale=(inv_scale, torch.float32),
                    clip=(clip, torch.float32), bc1=(bc1, torch.float32),
@@ -575,15 +804,19 @@ def _kernel_lamb(g, p, m, v, copy, *, lr, beta1, beta2, beta3, eps,
                    noop=(noop, torch.bool))
     if tab.C == 0:
         return
-    partials = (torch.empty(2 * tab.C, dtype=torch.float32, device=device)
-                if use_ratio else None)
-    status = _lamb_symbol()(
-        tab.words.data_ptr(), tab.T, tab.L, tab.C, CHUNK, 0, beta1, beta3,
-        beta2, 1.0 - beta2, eps, weight_decay,
+    # partials, ratios, each wide group's two barrier counters (zeroed by
+    # the launch)
+    scratch = torch.empty(2 * (tab.wide * (tab.blocks // tab.teams) + T) + T
+                          + 2 * max(tab.wide, 1),
+                          dtype=torch.float32, device=device)
+    status = _symbol(MT_LAMB, _HEAD + [_vp] + [_i] * 5 + [ctypes.c_longlong]
+                     + [_f] * 7 + [_i] * 3 + [_vp] * 8)(
+        *_head(tab), tab.words.data_ptr() + 8 * tab.plan_at, tab.groups,
+        tab.wide, tab.teams, tab.blocks, tab.ring, tab.budget, beta1, beta3, beta2, 1.0 - beta2, eps, weight_decay,
         0.0 if lr_ptr is not None else float(lr), int(adam_w_mode),
-        int(use_ratio),
-        tab.T, _ptr(inv_scale), _ptr(clip), _ptr(bc1), _ptr(bc2),
-        _ptr(lr_ptr), _ptr(noop), None, _ptr(partials), _stream())
+        int(use_ratio), T if n_ratio is None else n_ratio, _ptr(inv_scale),
+        _ptr(clip), _ptr(bc1), _ptr(bc2), _ptr(lr_ptr), _ptr(noop),
+        scratch.data_ptr(), _stream())
     _build.check(status, "mt_lamb")
     MT_LAMB.launches += 1
 
@@ -639,10 +872,10 @@ def _kernel_lamb_apply(p, u, lr, norms, n_ratio) -> None:
                          f"[{2 * n_ratio}] tensor on {device}")
     if tab.C == 0:
         return
-    status = _lamb_symbol()(
-        tab.words.data_ptr(), tab.T, tab.L, tab.C, CHUNK, 1, 0.0, 0.0, 0.0,
-        0.0, 0.0, 0.0, float(lr), 0, int(norms is not None), n_ratio, None,
-        None, None, None, None, None, _ptr(norms), None, _stream())
+    fn = getattr(_build.library(MT_LAMB.source), "apex_mt_lamb_apply")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _HEAD + [_f, _i, _vp, _vp], ctypes.c_int
+    status = fn(*_head(tab), float(lr), n_ratio, _ptr(norms), _stream())
     _build.check(status, "mt_lamb")
     MT_LAMB.launches += 1
 

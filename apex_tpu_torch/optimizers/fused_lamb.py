@@ -22,10 +22,12 @@ for the card.
 Two paths, as in the JAX class:
 
 - **unpacked** (the default): on CUDA the global norm is one ``mt_l2norm``
-  over every gradient and each group's update one ``mt_lamb`` (stage 1:
-  the moments and each chunk's ``||p||^2`` and ``||u||^2``; stage 2: the
-  trust ratios and the apply, the update recomputed, so no fp32 buffer the
-  size of the model is kept), each gradient read in place; on the CPU
+  over every gradient and each group's update one ``mt_lamb`` launch
+  (tensor group by tensor group: stage 1, the moments and the
+  ``||p||^2``, ``||u||^2`` partials; stage 2 after a barrier, the trust
+  ratios and the apply, the update recomputed while L2 still holds the
+  group, so no fp32 buffer the size of the model is kept), each gradient
+  read in place; on the CPU
   their plain versions, a parameter at a time
   (:mod:`apex_tpu_torch.ops.multi_tensor`).  ``m`` and ``v`` stored in
   ``state_dtype`` (fp32 or bf16: bf16 halves the state and its traffic),

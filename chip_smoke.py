@@ -2415,8 +2415,9 @@ def time_packed_updates(device) -> dict:
 # ---------------------------------------------------------------------------
 
 MT_CHUNK = 1 << 16
-# per element of one thread's run of a chunk: kMtThreads 512 x kMtVec 8
-MT_THREAD_TERMS = 8 * -(-MT_CHUNK // (512 * 8))
+# mt_lamb's threads a block (csrc/multi_tensor.cu kLambThreads): a thread's
+# run of a span, in its norms' tolerance
+MT_LAMB_THREADS = 512
 MT_SIZE_LISTS = {
     "one": (4099,),
     "three": (1, 7, MT_CHUNK + 1),
@@ -2425,6 +2426,9 @@ MT_SIZE_LISTS = {
     # 320 chunks a launch)
     "many": (1, 7, 4099, MT_CHUNK + 1, 4 * MT_CHUNK + 5) * 40,
 }
+# mt_lamb's grouped walk: one tensor past the 32 MB budget (bf16 g, p, m,
+# v: 8 bytes an element) among 80 small ones, a group of its own
+MT_LAMB_BIG = (1, 4099) * 20 + (5_000_003,) + (7, MT_CHUNK + 1) * 20
 MT_ADAM_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8)
 MT_LAMB_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6)
 
@@ -2443,14 +2447,70 @@ def _mt_tensors(sizes, dtype, gen, device, scale=1.0, positive=False, off=0):
     return out
 
 
-def _mt_norm_rel(n: int) -> float:
-    """Relative tolerance of a sum of ``n`` squares taken by mt_l2norm
-    (a thread's run of ``MT_THREAD_TERMS`` terms, the block's tree of
-    about 32 levels of warps and lanes, the tensor's chunk partials in
-    turn) against torch.sum's cascade (about 2 log2 n levels): each level
-    one fp32 rounding."""
-    chunks = max(1, -(-n // MT_CHUNK))
-    return U32 * (MT_THREAD_TERMS + 32 + chunks + 2 * math.log2(n + 1))
+def _mt_norm_rel(n: int, chunk: int = MT_CHUNK, parts=None,
+                 threads: int = 512) -> float:
+    """Relative tolerance of a sum of ``n`` squares taken by a walker
+    kernel over pieces of at most ``chunk`` elements (a thread's run of 8
+    terms for every ``threads`` x 8 elements of its piece, the block's tree
+    of about 32 levels of warps and lanes, the tensor's ``parts`` partials
+    in turn, one a chunk where not given) against torch.sum's cascade
+    (about 2 log2 n levels): each level one fp32 rounding."""
+    terms = 8 * -(-min(chunk, max(n, 1)) // (threads * 8))
+    parts = max(1, -(-n // chunk)) if parts is None else parts
+    return U32 * (terms + 32 + parts + 2 * math.log2(n + 1))
+
+
+def _mt_chunk(sizes) -> int:
+    """The chunk the walker's table takes for a list of ``sizes`` on this
+    card (``ops/multi_tensor.py`` ``choose_chunk``)."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    return mt.choose_chunk(sizes, mt.resident_blocks())
+
+
+def _mt_lamb_norm_rels(lists, n_ratio=None) -> list:
+    """Per tensor of mt_lamb's lists (g, p, m, v), the relative tolerance
+    of its two norms' sums (``_mt_norm_rel`` over its group's spans: a
+    thread's run of one span, the tensor's span partials in turn; a narrow
+    group's tensor by one block whole), or None for a tensor past
+    ``n_ratio`` (ratio 1, no norm taken)."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    sizes = [t.numel() for t in lists[0]]
+    plan = mt.lamb_list_plan(lists, mt.LAMB_BUDGET)[0]
+    out = []
+    for gi, (t0, t1) in enumerate(plan.groups):
+        narrow = plan.padded[gi] <= mt.LAMB_NARROW     # one block, one part
+        S = plan.span[gi]
+        for t in range(t0, t1):
+            off, n = int(plan.offsets[t]), sizes[t]
+            parts = (off + n - 1) // S - off // S + 1 if n else 1
+            out.append(_mt_norm_rel(n, max(n, 1), 1, MT_LAMB_THREADS)
+                       if narrow else
+                       _mt_norm_rel(n, S, parts, MT_LAMB_THREADS))
+    n_ratio = len(sizes) if n_ratio is None else n_ratio
+    return [r if t < n_ratio else None for t, r in enumerate(out)]
+
+
+def mt_lamb_floor_ms(lists, budget, writes) -> float:
+    """The least DRAM time of mt_lamb's grouped walk over ``lists`` (g, p,
+    m, v; ``writes`` the lists it stores): each group's stage-1 reads,
+    stage 2's reads again less what L2 keeps of them (at most ``budget``
+    bytes a group), and the writes once, at 3.35 TB/s.  Its 14-byte-an-
+    element roofline (one pass) stays the kernels line's bound."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    sizes = [t.numel() for t in lists[0]]
+    read = [sum(lst[t].element_size() for lst in lists[:4]) * sizes[t]
+            for t in range(len(sizes))]
+    write = [sum(lst[t].element_size() for lst in writes) * sizes[t]
+             for t in range(len(sizes))]
+    plan = mt.lamb_list_plan(lists, budget)[0]
+    total = 0
+    for t0, t1 in plan.groups:
+        r = sum(read[t0:t1])
+        total += 2 * r + sum(write[t0:t1]) - min(r, budget)
+    return total / HBM_BYTES_PER_S * 1e3
 
 
 def _mt_adam_tols(g, p, m, v, ref, case, inv, bc1, bc2):
@@ -2500,14 +2560,18 @@ def _mt_adam_tols(g, p, m, v, ref, case, inv, bc1, bc2):
     return tols
 
 
-def _mt_lamb_tols(g, p, m, v, ref, case, inv, clip, bc1, bc2):
+def _mt_lamb_tols(g, p, m, v, ref, case, inv, clip, bc1, bc2, norm_rel):
     """Per-element tolerances of mt_lamb against its plain version: the
-    scaled and clipped gradient has the same bits on both sides; the
-    moments and the update a few roundings apart as in ``_mt_adam_tols``
+    scaled and clipped gradient within three fp32 roundings (the kernel
+    multiplies by a reciprocal of clip where the plain version divides:
+    inside the moments' gradient terms below); the moments and the update
+    (its products by 1/bc1 and 1/bc2 each three roundings from a quotient)
+    a few roundings apart as in ``_mt_adam_tols``
     (plus one ulp of a 16-bit moment); the trust ratio carries both norms'
-    summation order (``_mt_norm_rel``) and the update's error summed over
-    the tensor; p within lr ratio times the update's error plus 2^-22 of
-    its terms, plus one ulp where it is stored in 16 bits."""
+    summation order (``norm_rel``, from ``_mt_lamb_norm_rels``; None: the
+    tensor takes ratio 1) and the update's error summed over the tensor; p
+    within lr ratio times the update's error plus 2^-22 of its terms, plus
+    one ulp where it is stored in 16 bits."""
     import torch
 
     h = MT_LAMB_HYPER
@@ -2526,13 +2590,12 @@ def _mt_lamb_tols(g, p, m, v, ref, case, inv, clip, bc1, bc2):
     tol_u = (tol_m / bc1 / d + 0.5 * (rm / bc1 / d).abs() * tol_v / (rv + 1e-30)
              + 2.0 ** -22 * (u.abs() + wd * p32.abs()))
     ratio, rel = 1.0, 0.0
-    if case["use_ratio"]:
+    if case["use_ratio"] and norm_rel is not None:
         pn, un = float(torch.linalg.vector_norm(p32)), float(
             torch.linalg.vector_norm(u))
         if pn > 0 and un > 0:
             ratio = pn / un
-            n = p.numel()
-            rel = (_mt_norm_rel(n) + float(torch.linalg.vector_norm(tol_u)) / un
+            rel = (norm_rel + float(torch.linalg.vector_norm(tol_u)) / un
                    + 2.0 ** -22)
     rp = ref["p"].float()
     tol_p = (lr * ratio * (tol_u + u.abs() * rel)
@@ -2623,12 +2686,13 @@ def check_multi_tensor(device) -> dict:
                                 torch.equal(got.per_tensor, again.per_tensor)):
                             raise AssertionError(f"mt_l2norm: not the same bits "
                                                  f"twice ({count}, {dt})")
-                        rel = torch.tensor([_mt_norm_rel(n) / 2 + U32
+                        chunk = _mt_chunk(sizes)
+                        rel = torch.tensor([_mt_norm_rel(n, chunk) / 2 + U32
                                             for n in sizes], device=device)
                         r = _tol_ratio(got.per_tensor, ref.per_tensor,
                                        rel * ref.per_tensor + 1e-30)
                         r = max(r, _tol_ratio(got.total, ref.total, (
-                            max(_mt_norm_rel(n) for n in sizes)
+                            max(_mt_norm_rel(n, chunk) for n in sizes)
                             + U32 * (len(sizes) + 32)) / 2 * ref.total + 1e-30))
                         if r > 1.0 or int(got.flag) or int(ref.flag):
                             raise AssertionError(f"mt_l2norm ({count}, {dt}, "
@@ -2747,6 +2811,38 @@ def check_multi_tensor(device) -> dict:
                                              f"its plain version: {case}: "
                                              f"{r:.3f} x tol")
                     worst, cases = max(worst, r), cases + 1
+        # every mode at OpenFold's list, which the table cuts into chunks
+        # smaller than 64 K (its 48 tensors give fewer chunks than blocks)
+        sizes = [math.prod(s) for s, _ in mt_param_lists()["openfold"]]
+        if _mt_chunk(sizes) >= MT_CHUNK:
+            raise AssertionError("OpenFold's list kept 64 K chunks")
+        for mode, mt_mode in (("l2", mt.ADAM_L2), ("adamw", mt.ADAMW),
+                              ("apex", mt.SWA_APEX_ADAM),
+                              ("apexw", mt.SWA_APEX_ADAMW),
+                              ("pytorch", mt.SWA_PYTORCH_ADAM)):
+            swa_mode = mt_mode >= mt.SWA_APEX_ADAM
+            case = dict(mode=mode, wd=0.01, g="bfloat16", p="float32",
+                        mv="float32", n_averaged=2, swa_weight=0.2)
+            g, p, m, v = _mt_state(sizes, case, gen, device)
+            swa = _mt_tensors(sizes, "float32", gen, device) if swa_mode else None
+            kw = scal(mode=mt_mode, weight_decay=0.01)
+            if swa_mode:
+                kw.update(step=torch.tensor(3, dtype=torch.int32, device=device),
+                          n_averaged=torch.tensor(2, dtype=torch.int32,
+                                                  device=device),
+                          swa_weight=0.2, swa_start_step=1)
+            got = _mt_run_adam(mt._kernel_adam, g, p, m, v, kw, torch.bfloat16,
+                               swa)
+            ref = _mt_run_adam(mt._plain_adam, g, p, m, v, kw, torch.bfloat16,
+                               swa)
+            tols = [_mt_adam_tols(*x, r, case, inv_v, bc1_v, bc2_v)
+                    for x, r in zip(zip(g, p, m, v), ref)]
+            r = _mt_ratio(got, ref, tols)
+            if r > 1.0:
+                raise AssertionError(f"mt_adam at OpenFold's list disagrees "
+                                     f"with its plain version: {case}: "
+                                     f"{r:.3f} x tol")
+            worst, cases = max(worst, r), cases + 1
         # noop 1: no bit moves
         case = dict(mode="adamw", wd=0.01, g="float16", p="float32",
                     mv="bfloat16")
@@ -2787,8 +2883,30 @@ def check_multi_tensor(device) -> dict:
                             adam_w=True, g="bfloat16", p="float32",
                             mv="float32", copy="bfloat16", count=c)
                        for c in ("one", "three", "many")]
+        # the grouped walk: a tensor past the budget among many small ones;
+        # the 200-tensor list under a 256 KB budget (groups of a few
+        # tensors straddled by the blocks' spans); fp32 moments with
+        # n_ratio < T (the tensors past it take ratio 1)
+        lamb_cases += [dict(wd=0.01, use_ratio=True, nvlamb=False, clip=1.7,
+                            adam_w=True, g="bfloat16", p="bfloat16",
+                            mv="bfloat16", copy=None, count="big"),
+                       dict(wd=0.01, use_ratio=True, nvlamb=False, clip=1.7,
+                            adam_w=False, g="bfloat16", p="float32",
+                            mv="bfloat16", copy="bfloat16", count="many",
+                            budget=1 << 18),
+                       dict(wd=0.01, use_ratio=True, nvlamb=False, clip=1.7,
+                            adam_w=True, g="float16", p="float32",
+                            mv="float32", copy="float16", count="many",
+                            n_ratio=150),
+                       dict(wd=0.0, use_ratio=True, nvlamb=True, clip=1.0,
+                            adam_w=True, g="bfloat16", p="bfloat16",
+                            mv="float32", copy=None, count="big",
+                            n_ratio=30)]
+        budget0 = mt.LAMB_BUDGET
         for i, case in enumerate(lamb_cases):
-            sizes = MT_SIZE_LISTS[case["count"]]
+            sizes = (MT_LAMB_BIG if case["count"] == "big" else
+                     MT_SIZE_LISTS[case["count"]])
+            mt.LAMB_BUDGET = case.get("budget", budget0)
             g, p, m, v = _mt_state(sizes, case, gen, device)
             h = MT_LAMB_HYPER
             kw = dict(lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
@@ -2798,7 +2916,8 @@ def check_multi_tensor(device) -> dict:
                       clip=(None if case["clip"] == 1.0 else
                             torch.tensor(case["clip"], device=device)),
                       bc1=torch.tensor(bc1_v, device=device),
-                      bc2=torch.tensor(bc2_v, device=device), noop=None)
+                      bc2=torch.tensor(bc2_v, device=device), noop=None,
+                      n_ratio=case.get("n_ratio"))
             if i % 4 == 0:
                 # a learning rate on the device (FusedMixedPrecisionLamb)
                 kw["lr"] = torch.tensor(h["lr"], device=device)
@@ -2817,13 +2936,46 @@ def check_multi_tensor(device) -> dict:
                        for k in a):
                 raise AssertionError(f"mt_lamb: not the same bits twice: "
                                      f"{case}")
-            tols = [_mt_lamb_tols(*x, r, case, inv_v, case["clip"], bc1_v, bc2_v)
-                    for x, r in zip(zip(g, p, m, v), ref)]
+            rels = _mt_lamb_norm_rels([g, p, m, v], case.get("n_ratio"))
+            tols = [_mt_lamb_tols(*x, r, case, inv_v, case["clip"], bc1_v,
+                                  bc2_v, rel)
+                    for x, r, rel in zip(zip(g, p, m, v), ref, rels)]
+            mt.LAMB_BUDGET = budget0
             r = _mt_ratio(got, ref, tols)
             if r > 1.0:
                 raise AssertionError(f"mt_lamb disagrees with its plain "
                                      f"version: {case}: {r:.3f} x tol")
             worst, cases = max(worst, r), cases + 1
+        # one call captured in a CUDA graph: replayed, the eager call's bits
+        case = lamb_cases[-3]
+        g, p, m, v = _mt_state(MT_SIZE_LISTS["many"], case, gen, device)
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                  weight_decay=0.01, adam_w_mode=True, use_ratio=True,
+                  inv_scale=torch.tensor(inv_v, device=device),
+                  clip=torch.tensor(1.7, device=device),
+                  bc1=torch.tensor(bc1_v, device=device),
+                  bc2=torch.tensor(bc2_v, device=device), noop=None)
+        eager = [[t.clone() for t in lst] for lst in (p, m, v)]
+        mt._kernel_lamb(g, *eager, None, **kw)
+        state = [[t.clone() for t in lst] for lst in (p, m, v)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mt._kernel_lamb(g, *state, None, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            mt._kernel_lamb(g, *state, None, **kw)
+        for dst, src in zip((x for lst in state for x in lst),
+                            (x for lst in (p, m, v) for x in lst)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        del graph
+        if not all(torch.equal(a, b) for la, lb in zip(state, eager)
+                   for a, b in zip(la, lb)):
+            raise AssertionError("mt_lamb replayed from a CUDA graph: not "
+                                 "the eager call's bits")
         # noop 1, and the apply form (the packed LAMB's phase 2)
         case = lamb_cases[-1]
         g, p, m, v = _mt_state(MT_SIZE_LISTS["six"], case, gen, device)
@@ -2856,17 +3008,20 @@ def check_multi_tensor(device) -> dict:
         if apply_r > 1.0:
             raise AssertionError(f"mt_lamb's apply form: {apply_r:.3f} x tol")
         out["mt_lamb"] = dict(
-            cases=cases + 2, worst_tol_ratio=max(worst, apply_r),
-            tolerance="the clipped gradient the same bits; each fp32 moment "
+            cases=cases + 3, worst_tol_ratio=max(worst, apply_r),
+            tolerance="the clipped gradient within 3 fp32 roundings (a "
+                      "reciprocal of clip, multiplied); each fp32 moment "
                       "within 2^-22 of its decayed term plus 2^-21 (m) or "
                       "2^-20 (v) of its gradient term; the update "
                       "within those carried through plus 2^-22 of its terms; "
                       "the trust ratio within both norms' summation order "
-                      "(_mt_norm_rel) and the update's summed error; p within "
+                      "(_mt_lamb_norm_rels) and the update's summed error; p "
+                      "within "
                       "lr ratio times the update's error plus 2^-22 of its "
                       "terms; one ulp more for every value stored in 16 bits; "
-                      "the same bits on a second call; noop 1: every buffer's "
-                      "bits unchanged")
+                      "the same bits on a second call and on a CUDA graph's "
+                      "replay; noop 1: every buffer's bits unchanged",
+            budget=mt.LAMB_BUDGET)
         log("phase2-check", kernel="mt_lamb", **out["mt_lamb"])
     return out
 
@@ -3180,7 +3335,8 @@ def time_multi_tensor(device) -> dict:
         norm_err = float((got.per_tensor - ref.per_tensor).abs().max())
         norm_rel = float(((got.per_tensor - ref.per_tensor).abs()
                           / ref.per_tensor.clamp_min(1e-30)).max())
-        if norm_rel > max(_mt_norm_rel(t.numel()) for t in g):
+        chunk = _mt_chunk([t.numel() for t in g])
+        if norm_rel > max(_mt_norm_rel(t.numel(), chunk) for t in g):
             raise AssertionError(f"mt_l2norm at GPT-2-large's list: relative "
                                  f"error {norm_rel}")
         row = _mt_time(lambda: mt._kernel_l2norm(g, None),
@@ -3207,8 +3363,10 @@ def time_multi_tensor(device) -> dict:
             torch.cuda.synchronize()
             runs.append([dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)])
         case = dict(wd=0.01, use_ratio=True, adam_w=True)
-        tols = [_mt_lamb_tols(*x, r, case, 1.0, 1.3, 0.19, 0.002)
-                for x, r in zip(zip(g[:k], p[:k], m[:k], v[:k]), runs[1])]
+        rels = _mt_lamb_norm_rels([g[:k], p[:k], m[:k], v[:k]])
+        tols = [_mt_lamb_tols(*x, r, case, 1.0, 1.3, 0.19, 0.002, rel)
+                for x, r, rel in zip(zip(g[:k], p[:k], m[:k], v[:k]), runs[1],
+                                     rels)]
         lamb_ratio = _mt_ratio(runs[0], runs[1], tols)
         lamb_err = max(float((a[key].float() - b[key].float()).abs().max())
                        for a, b in zip(*runs) for key in a)
@@ -3219,13 +3377,20 @@ def time_multi_tensor(device) -> dict:
         row = _mt_time(lambda: mt._kernel_lamb(g, p, m, v, None, **lkw),
                        lambda: mt._plain_lamb(g, p, m, v, None, **lkw),
                        None, _mt_bytes(g, p, m, v, writes=(p, m, v)))
+        plan, _, grid = mt.lamb_list_plan([g, p, m, v], mt.LAMB_BUDGET)
+        floor = mt_lamb_floor_ms([g, p, m, v], mt.LAMB_BUDGET, (p, m, v))
         row.update(list="gpt2-large unpacked LAMB (O2, bf16 moments)",
                    tensors=len(p), elements=sum(t.numel() for t in p),
                    max_abs_err=lamb_err, tol_ratio=lamb_ratio,
                    checked_tensors=k, library_call=None,
                    library_note="none: no single PyTorch call computes LAMB",
-                   bytes_moved_by_the_kernel=_mt_bytes(g, p, m, v, g, p, m, v,
-                                                       writes=(p, m, v)))
+                   budget=mt.LAMB_BUDGET, groups=len(plan.groups),
+                   wide_groups=plan.wide,
+                   grid=grid, teams=plan.teams, floor_ms=floor,
+                   floor_note="DRAM floor under LAMB's per-tensor dependence: "
+                              "stage 2 re-reads each group less the budget "
+                              "L2 keeps; bound_ms is the one-pass roofline",
+                   floor_share=floor / row["ms"])
         out["lamb_gpt2_large"] = row
         log("phase2-time", kernel="mt_lamb", **row)
         del p, g, m, v
@@ -3259,7 +3424,18 @@ def time_multi_tensor(device) -> dict:
                 beta1=h["beta1"], beta2=h["beta2"], weight_decay=0.01,
                 eps=h["eps"], amsgrad=False, maximize=False),
             _mt_bytes(g, masters, m, v, swa, writes=(masters, m, v, swa, copy)))
+        # the same call on 64 K chunks, the walker's only chunk before the
+        # table chose one for the list
+        min_chunk, mt.MIN_CHUNK = mt.MIN_CHUNK, mt.CHUNK
+        mt._TABLES.clear()
+        at_64k = device_ms(
+            lambda: mt._kernel_adam(g, masters, m, v, copy, swa, **kw), iters=20)
+        mt.MIN_CHUNK = min_chunk
+        mt._TABLES.clear()
+        chunk = _mt_chunk([t.numel() for t in g])
         row.update(list="openfold 4 blocks (FusedAdamSWA, ApexAdamW)",
+                   chunk=chunk, chunks=sum(-(-t.numel() // chunk) for t in g),
+                   resident_blocks=mt.resident_blocks(), ms_at_64k_chunks=at_64k,
                    tensors=len(g), elements=sum(t.numel() for t in g),
                    max_abs_err=err, tol_ratio=ratio,
                    library_call="torch._fused_adamw_ over the masters and fp32 "

@@ -6,7 +6,8 @@ versions of the four multi-tensor kernels against the JAX package.
   each tensor's chunks lie at its row's first chunk, in order, and the
   row's meta word carries each list's dtype code and the alignment bit;
   over tensor counts, sizes (0, 1, 7, a chunk, a chunk + 1, not multiples
-  of 8), chunk sizes and empty lists.
+  of 8), chunk sizes (the chunk ``choose_chunk`` takes for OpenFold's
+  list among them) and empty lists.
 - The plain versions (the CPU path) against the JAX functions on the same
   numpy inputs: ``l2norm`` against ``multi_tensor_l2norm`` and
   ``multi_tensor_unscale_l2norm`` (fp32 sums in another order: rtol 1e-6);
@@ -99,6 +100,11 @@ _CASES = [
     (list(range(0, 300, 7)), 16),
     ([3 * 64 - 5] * 200, 64),
 ]
+# the chunk the table chooses for a short list (OpenFold's 48 tensors of at
+# most 64 K elements, four blocks of 512 on each of 132 SMs) and a long one
+_OPENFOLD = [256, 256, 128, 128, 1024] + [1 << 16] * 4 + [256, 1 << 16, 256]
+_CASES += [(sizes, mt.choose_chunk(sizes, 528))
+           for sizes in (_OPENFOLD * 4, [5, 1 << 20, 3 * 2048 + 1] * 3)]
 
 
 @pytest.mark.parametrize("sizes,chunk", _CASES,
