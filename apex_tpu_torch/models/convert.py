@@ -36,6 +36,17 @@ flax leaf                                           torch key
 Each raises on a leaf it does not consume and on a leaf it expects but
 does not find.
 
+A leaf may be a JAX ``QTensor`` (``apex_tpu.serving.quant``: an int8
+payload ``q``, fp32 ``scale`` per output channel, its reduced ``axis``),
+as ``quantize_params`` leaves the projections and the LM head of a
+quantized serving tree.  It becomes the two buffers of the port's
+:class:`~apex_tpu_torch.serving.quant.QTensor` under the weight's key,
+``<key>.q`` (the payload, transposed as the weight is) and
+``<key>.scale`` (the same scales): a ``state_dict`` for the quantized
+model ``quantize_params(LlamaForCausalLM(config))``, so a checkpoint
+quantized in JAX serves in the port.  The leaf is recognised by its
+fields; this module imports nothing of JAX.
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -109,15 +120,35 @@ def _convert(tree: Mapping, expected: Dict[str, tuple], what: str
                          f"{extra}, missing {missing}")
     state = {}
     for path, (key, transpose) in expected.items():
-        arr = np.asarray(flat[path])
+        leaf = flat[path]
+        if _is_qtensor(leaf):
+            # the flax kernel [in, out] reduces its input axis 0, the head
+            # [vocab, h] its axis 1: either way one scale an output row of
+            # the torch weight
+            want = 0 if transpose else 1
+            if int(leaf.axis) != want:
+                raise ValueError(f"{path}: quantized over axis {leaf.axis}, "
+                                 f"not the input axis {want}")
+            q = np.asarray(leaf.q)
+            state[f"{key}.q"] = _tensor(q.T if transpose else q)
+            state[f"{key}.scale"] = _tensor(np.asarray(leaf.scale))
+            continue
+        arr = np.asarray(leaf)
         state[key] = _tensor(arr.T if transpose else arr)
     return state
+
+
+def _is_qtensor(leaf) -> bool:
+    """A JAX ``QTensor`` leaf, known by its fields."""
+    return all(hasattr(leaf, f) for f in ("q", "scale", "axis", "dtype_name"))
 
 
 def llama_params_from_jax(tree: Mapping, config: LlamaConfig
                           ) -> Dict[str, torch.Tensor]:
     """A CPU ``state_dict`` for ``LlamaForCausalLM(config)`` from the flax
-    tree (with or without its top-level ``"params"`` collection)."""
+    tree (with or without its top-level ``"params"`` collection); for
+    ``quantize_params(LlamaForCausalLM(config))`` when the tree holds
+    ``QTensor`` leaves."""
     return _convert(tree, _expected(config), f"Llama ({config})")
 
 

@@ -27,9 +27,15 @@ Four modes, as in the JAX model:
   rope at each slot's depth, K/V appended at ``position``, attention over
   the masked cache.
 
-The cache is updated in place (see :mod:`apex_tpu_torch.serving.kv_cache`);
-the cached modes return ``(logits, kv_cache)`` like the JAX model, with
-the same cache object, and refuse ``labels``.
+The cache is updated in place: a dense one
+(:mod:`apex_tpu_torch.serving.kv_cache`) or a paged block pool
+(:mod:`apex_tpu_torch.serving.paged_kv_cache`), fp or int8, told apart by
+its type; both hand attention the same ``[max_len]``-extent rows, so the
+two give the same bits.  The cached modes return ``(logits, kv_cache)``
+like the JAX model, with the same cache object, and refuse ``labels``.
+A quantized model (:func:`apex_tpu_torch.serving.quant.quantize_params`)
+dequantizes each projection's weight, and the head's, right before its
+product.
 
 The uncached modes are differentiable: under autograd each norm, the
 flash attention and the fused LM head run their backward kernels on the
@@ -53,6 +59,8 @@ from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_lm_head import fused_lm_head_loss
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
 from apex_tpu_torch.serving import kv_cache as kvc
+from apex_tpu_torch.serving import paged_kv_cache as pkv
+from apex_tpu_torch.serving.quant import QTensor
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -227,8 +235,18 @@ class LlamaAttention(nn.Module):
             ctx = flash_attention(qt, k.permute(1, 2, 0, 3),
                                   v.permute(1, 2, 0, 3), causal=True)
         elif s == 1:
-            kvc.append_token(kv_cache, layer_idx, k[0], v[0], position)
-            kc, vc = kvc.decode_read(kv_cache, layer_idx)  # [b, max, nkv, hd]
+            # a paged cache writes through the slot tables and reads the
+            # same [max_len]-extent rows back, as the dense cache hands
+            # them out; the int8 caches quantize on write and dequantize
+            # on read, so attention never spells a scale.  Inactive lanes
+            # reach a paged append as position -1: it drops their write
+            if isinstance(kv_cache, pkv.PagedKVCache):
+                pkv.paged_append(kv_cache, layer_idx, k[0], v[0], position)
+                kc, vc = pkv.decode_view(kv_cache, layer_idx)
+            else:
+                kvc.append_token(kv_cache, layer_idx, k[0], v[0], position)
+                kc, vc = kvc.decode_read(kv_cache, layer_idx)
+            # [b, max, nkv, hd]
             ctx = _decode_attention(qt, kc.to(q.dtype).permute(0, 2, 1, 3),
                                     vc.to(q.dtype).permute(0, 2, 1, 3),
                                     position)
@@ -236,10 +254,16 @@ class LlamaAttention(nn.Module):
             if b != 1:
                 raise ValueError(f"prefill expects one slot per call (b=1), "
                                  f"got b={b}")
-            kvc.prefill_into_slot(kv_cache, layer_idx, slot, k[:, 0], v[:, 0],
-                                  start=position)
-            kc, vc = kvc.slot_read(kv_cache, layer_idx, slot)  # [max, nkv, hd]
+            if isinstance(kv_cache, pkv.PagedKVCache):
+                pkv.paged_prefill_write(kv_cache, layer_idx, slot, k[:, 0],
+                                        v[:, 0], start=position)
+                kc, vc = pkv.prefill_view(kv_cache, layer_idx, slot)
+            else:
+                kvc.prefill_into_slot(kv_cache, layer_idx, slot, k[:, 0],
+                                      v[:, 0], start=position)
+                kc, vc = kvc.slot_read(kv_cache, layer_idx, slot)
             bounds = (position + torch.arange(s, device=x.device))[None]
+            # [max, nkv, hd]
             ctx = _cached_attention(qt, kc.to(q.dtype).permute(1, 0, 2)[None],
                                     vc.to(q.dtype).permute(1, 0, 2)[None],
                                     bounds)
@@ -326,6 +350,8 @@ class LlamaForCausalLM(nn.Module):
         x = self.norm(x)
         head = (self.embed_tokens.weight if cfg.tie_word_embeddings
                 else self.lm_head)
+        if isinstance(head, QTensor):         # an int8 serving head
+            head = head.dequantize()
         if labels is not None:
             return fused_lm_head_loss(x, head.to(x.dtype), labels.T).T
         logits = parallel_lm_logits(x, head.to(x.dtype))

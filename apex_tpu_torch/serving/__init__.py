@@ -1,14 +1,48 @@
 """Serving for the Llama family on one card (counterpart of
-``apex_tpu.serving``, its dense single-chip FIFO path):
-:class:`DecodeEngine` over a dense :mod:`~apex_tpu_torch.serving.kv_cache`,
-and :class:`ContinuousBatchingScheduler` on top."""
+``apex_tpu.serving``, its single-chip path): :class:`DecodeEngine` over a
+dense (:mod:`~apex_tpu_torch.serving.kv_cache`) or paged
+(:mod:`~apex_tpu_torch.serving.paged_kv_cache`) KV cache, fp or int8
+(:mod:`~apex_tpu_torch.serving.quant`), and
+:class:`ContinuousBatchingScheduler` on top, with cross-request prefix
+caching (:mod:`~apex_tpu_torch.serving.prefix_cache`)."""
 
 from apex_tpu_torch.serving.engine import (
     DecodeEngine,
     default_prefill_buckets,
     token_seed,
 )
-from apex_tpu_torch.serving.kv_cache import KVCache, init_cache
+from apex_tpu_torch.serving.kv_cache import (
+    KVCache,
+    QuantKVCache,
+    init_cache,
+    init_quant_cache,
+    value_dtype,
+)
+from apex_tpu_torch.serving.paged_kv_cache import (
+    BlockPoolExhausted,
+    PagedCacheConfig,
+    PagedCacheManager,
+    PagedKVCache,
+    QuantPagedKVCache,
+    blocks_per_slot,
+    bytes_per_block,
+    init_paged_cache,
+    init_quant_paged_cache,
+)
+from apex_tpu_torch.serving.prefix_cache import PrefixCache, PrefixCacheConfig
+from apex_tpu_torch.serving.quant import (
+    QTensor,
+    QuantConfig,
+    QuantLinear,
+    dequant_params,
+    evaluate_quant,
+    is_quantized,
+    kv_bytes_per_token,
+    max_logit_error,
+    param_bytes,
+    quantize_params,
+    stream_agreement,
+)
 from apex_tpu_torch.serving.scheduler import (
     ContinuousBatchingScheduler,
     QueueFull,
@@ -19,6 +53,13 @@ from apex_tpu_torch.serving.scheduler import (
 )
 
 __all__ = ["DecodeEngine", "default_prefill_buckets", "token_seed",
-           "KVCache", "init_cache", "ContinuousBatchingScheduler",
-           "QueueFull", "Request", "RequestPhase", "RequestResult",
-           "SchedulerStalled"]
+           "KVCache", "QuantKVCache", "init_cache", "init_quant_cache",
+           "value_dtype", "BlockPoolExhausted", "PagedCacheConfig",
+           "PagedCacheManager", "PagedKVCache", "QuantPagedKVCache",
+           "blocks_per_slot", "bytes_per_block", "init_paged_cache",
+           "init_quant_paged_cache", "PrefixCache", "PrefixCacheConfig",
+           "QTensor", "QuantConfig", "QuantLinear", "dequant_params",
+           "evaluate_quant", "is_quantized", "kv_bytes_per_token",
+           "max_logit_error", "param_bytes", "quantize_params",
+           "stream_agreement", "ContinuousBatchingScheduler", "QueueFull",
+           "Request", "RequestPhase", "RequestResult", "SchedulerStalled"]

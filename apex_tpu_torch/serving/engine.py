@@ -1,25 +1,44 @@
 """DecodeEngine: bucketed chunked prefill + batched single-token decode
-over a dense KV cache.
+over a dense or paged, fp or int8 KV cache.
 
-Counterpart of the dense, single-chip part of
-``apex_tpu/serving/engine.py``.  The engine wraps a
-:class:`~apex_tpu_torch.models.llama.LlamaForCausalLM` whose weights live
-on the engine's device:
+Counterpart of the single-chip part of ``apex_tpu/serving/engine.py``.
+The engine wraps a :class:`~apex_tpu_torch.models.llama.LlamaForCausalLM`
+whose weights live on the engine's device:
 
 - **prefill**: a prompt is cached in ``prefill_len``-sized chunks, each
   padded to the smallest covering bucket of ``prefill_buckets``; a
-  chunk's causal block attends everything the slot already cached, so
-  splitting a prompt changes no result.  The returned logits are the fp32
-  next-token distribution after the chunk's last real token.
+  chunk's causal block attends everything the slot already cached.  The
+  returned logits are the fp32 next-token distribution after the chunk's
+  last real token.
 - **decode**: one step for every slot at once; inactive lanes still
-  compute (one shape per step) and write their K/V at their slot's
-  length, but their lengths do not advance, so the write stays masked
-  until the next prefill chunk overwrites it.
+  compute (one shape per step).  On a dense cache they write their K/V
+  at their slot's length, which does not advance, so the write stays
+  masked until the next prefill chunk overwrites it; on a paged cache
+  they carry position -1 and their write goes to the pool's sink block.
 
-There is no jit: the JAX program bodies ``_prefill`` and ``_decode`` are
-plain methods here, run under ``torch.inference_mode()``.  The cache is
-updated in place.  A host mirror of the slot lengths lets every call
-check slot bounds and capacity without reading the device.
+Options, each off by default:
+
+- ``paged=PagedCacheConfig(...)``: a global block pool and per-slot
+  block tables (:mod:`~apex_tpu_torch.serving.paged_kv_cache`), managed
+  on the host by a :class:`PagedCacheManager`; the device tables are
+  brought up to date only when the manager changed them.  Serving equals
+  the dense engine's bit for bit.
+- ``quant=QuantConfig(weights=, kv=)``: int8 projections and LM head
+  (a float model is quantized into the engine's own copy; a quantized
+  one is taken as it is) and an int8 KV cache, dense or paged
+  (:mod:`~apex_tpu_torch.serving.quant`).
+- prefix reuse: :meth:`DecodeEngine.read_region` /
+  :meth:`DecodeEngine.capture_slot` / :meth:`DecodeEngine.restore_prefix`
+  on a dense cache, :meth:`DecodeEngine.alias_prefix` /
+  :meth:`DecodeEngine.fork_slot` on a paged one, and
+  ``prefill(resume=)`` over what they placed.
+
+There is no jit: the JAX program bodies are plain methods here, run
+under ``torch.inference_mode()``, and the JAX engine's ``*_compiles``
+counters (its bounded jit caches) have nothing to count, so they are
+left out.  The cache is updated in place.  A host mirror of the slot
+lengths lets every call check slot bounds and capacity without reading
+the device.
 
 Sampling is a function of ``(logits, seed, token index, temperature,
 top_k)``: a sampled row reseeds the engine's ``torch.Generator`` from the
@@ -28,9 +47,8 @@ replays to the same stream.  ``temperature <= 0`` is greedy.  The draws
 are PyTorch's, not ``jax.random``'s, so a sampled stream repeats under a
 fixed seed but differs from the JAX engine's.
 
-Paged caches, tensor parallelism, quantization and speculative decoding
-come with later slices of the port; their arguments raise
-``NotImplementedError``.
+Tensor parallelism and speculative decoding come with later slices of
+the port; ``tp=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,7 +63,24 @@ from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.serving.kv_cache import (
     commit_slot_length,
     init_cache,
+    init_quant_cache,
+    read_slot_region,
     release_slot,
+    value_dtype,
+    write_slot_region,
+)
+from apex_tpu_torch.serving.paged_kv_cache import (
+    PagedCacheConfig,
+    PagedCacheManager,
+    blocks_per_slot,
+    copy_block,
+    init_paged_cache,
+    init_quant_paged_cache,
+)
+from apex_tpu_torch.serving.quant import (
+    QuantConfig,
+    is_quantized,
+    quantize_params,
 )
 
 __all__ = ["DecodeEngine", "default_prefill_buckets", "no_tf32",
@@ -113,19 +148,19 @@ class DecodeEngine:
     run under ``inference_mode``).  On CUDA each model call runs with TF32
     off for matrix products and convolutions (:func:`no_tf32`), so fp32
     runs in fp32; the process's flags are restored after each call.
+    ``paged`` and ``quant`` are as in the module docstring; with
+    ``quant.weights`` on a float model, :attr:`model` is the engine's
+    quantized copy and the caller's model is left as it was.
     """
 
     def __init__(self, model, *, slots: int = 8, max_len: int = 512,
                  prefill_len: int = 64,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  cache_dtype: Optional[torch.dtype] = None,
-                 device="cuda", paged=None, tp=None, quant=None):
-        for name, value, slice_name in (
-                ("paged", paged, "paged-serving"),
-                ("tp", tp, "tensor-parallel serving"),
-                ("quant", quant, "quantized serving")):
-            if value is not None:
-                raise _not_yet(name, slice_name)
+                 device="cuda", paged: Optional[PagedCacheConfig] = None,
+                 tp=None, quant: Optional[QuantConfig] = None):
+        if tp is not None:
+            raise _not_yet("tp", "tensor-parallel serving")
         self.device = resolve_device(device)
         if prefill_len < 2:
             raise ValueError("prefill_len must be >= 2 (a length-1 "
@@ -151,29 +186,76 @@ class DecodeEngine:
                 f"the largest prefill bucket must equal prefill_len "
                 f"{prefill_len} (it is the full-chunk shape), got "
                 f"{buckets}")
-        params = list(model.parameters())
-        wrong = {str(p.device) for p in params if p.device != self.device}
+        if quant is not None:
+            if quant.allreduce:
+                raise ValueError(
+                    "QuantConfig(allreduce=True) without tp= — the "
+                    "quantized collective replaces the per-layer tp "
+                    "psum pair; a single-chip engine has no psum to "
+                    "quantize")
+            if quant.kv and cache_dtype is not None:
+                raise ValueError(
+                    "cache_dtype with QuantConfig(kv=True) — the KV-"
+                    "int8 cache owns its storage dtype (int8 payload "
+                    "+ fp32 scales); drop one of the two")
+        tensors = list(model.parameters()) + list(model.buffers())
+        wrong = {str(t.device) for t in tensors if t.device != self.device}
         if wrong:
             raise ValueError(f"model weights lie on {sorted(wrong)}, the "
                              f"engine runs on {self.device}: move the model "
                              f"first")
         if cache_dtype is None:
             # serve in the weights' own precision (bf16 weights -> bf16
-            # cache); fp32 for a tree with no float leaves
-            floats = [p.dtype for p in params if p.dtype.is_floating_point]
+            # cache); fp32 for a tree with no float leaves.  Read before
+            # quantizing: the first float parameter is then the embedding
+            floats = [p.dtype for p in model.parameters()
+                      if p.dtype.is_floating_point]
             cache_dtype = floats[0] if floats else torch.float32
+        if quant is not None and quant.weights and not is_quantized(model):
+            model = quantize_params(model)
         # eval mode only: the model calls run under inference_mode, so the
         # caller's parameters keep requires_grad and the model stays
         # trainable after it has been served
         self.model = model.eval()
+        self.quant = quant
+        self.paged = paged
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.prefill_len = int(prefill_len)
         self.prefill_buckets = buckets
-        self._cache = init_cache(model.config, slots=self.slots,
-                                 max_len=self.max_len, dtype=cache_dtype,
-                                 device=self.device)
+        kv_int8 = quant is not None and quant.kv
+        cfg = model.config
+        self._pager: Optional[PagedCacheManager] = None
+        if paged is not None:
+            bs = int(paged.block_size)
+            if bs > max_len:
+                raise ValueError(
+                    f"paged block_size {bs} exceeds max_len {max_len}")
+            nblk = paged.num_blocks
+            if nblk is None:
+                # dense-capacity parity: every slot can still fill to
+                # max_len with zero sharing (plus the null block)
+                nblk = self.slots * blocks_per_slot(max_len, bs) + 1
+            self._pager = PagedCacheManager(
+                slots=self.slots, max_len=self.max_len, block_size=bs,
+                num_blocks=int(nblk))
+            kw = dict(slots=self.slots, max_len=self.max_len, block_size=bs,
+                      num_blocks=int(nblk), device=self.device)
+            self._cache = (init_quant_paged_cache(cfg, **kw) if kv_int8
+                           else init_paged_cache(cfg, dtype=cache_dtype, **kw))
+            self._pager.consume_dirty()     # the device holds this snapshot
+        elif kv_int8:
+            self._cache = init_quant_cache(cfg, slots=self.slots,
+                                           max_len=self.max_len,
+                                           device=self.device)
+        else:
+            self._cache = init_cache(cfg, slots=self.slots,
+                                     max_len=self.max_len, dtype=cache_dtype,
+                                     device=self.device)
         self._lengths_host = np.zeros((self.slots,), np.int64)
+        # slots whose K/V arrived by restore_prefix / alias_prefix (slot ->
+        # restored tokens): the only slots prefill() resumes mid-prompt
+        self._restored: dict = {}
         self._sampler = torch.Generator(device=self.device)
         # model calls run with the engine's card as the current device and
         # TF32 off
@@ -184,14 +266,21 @@ class DecodeEngine:
 
     @contextlib.contextmanager
     def _on_device(self):
-        """The engine's card as the current device and TF32 off, on CUDA."""
+        """The engine's card as the current device and TF32 off, on CUDA;
+        no autograd recording either way."""
         if not self._cuda:
-            yield
+            with torch.inference_mode():
+                yield
             return
-        with torch.cuda.device(self.device), no_tf32():
+        with torch.cuda.device(self.device), no_tf32(), \
+                torch.inference_mode():
             yield
 
     # ---- cache/slot state ------------------------------------------------
+    @property
+    def cache(self):
+        return self._cache
+
     def lengths(self) -> np.ndarray:
         """Per-slot valid-token counts (0 = free), from the host mirror."""
         return self._lengths_host.copy()
@@ -209,15 +298,27 @@ class DecodeEngine:
             raise ValueError(f"slot {slot} out of range [0, {self.slots})")
 
     def release(self, slot: int) -> None:
-        """Evict a slot (O(1)); its bytes stay masked until overwritten."""
+        """Evict a slot (O(1)); its bytes stay masked until overwritten.
+        A paged engine also drops the slot's block references: blocks
+        shared with a prefix-cache entry or another slot survive, the
+        rest go back to the pool."""
         self._check_slot(slot)
         release_slot(self._cache, slot)
         self._lengths_host[slot] = 0
+        self._restored.pop(slot, None)
+        if self._pager is not None:
+            self._pager.release(slot)
+            self._flush_tables()
 
     def reset(self) -> None:
         """Free every slot (keeps the cache allocation)."""
         self._cache.lengths.zero_()
         self._lengths_host[:] = 0
+        self._restored.clear()
+        if self._pager is not None:
+            for slot in range(self.slots):
+                self._pager.release(slot)
+            self._flush_tables()
 
     def bucket_for(self, n: int) -> int:
         """Smallest prefill bucket covering an ``n``-token chunk."""
@@ -225,6 +326,134 @@ class DecodeEngine:
             raise ValueError(f"chunk length {n} not in [1, "
                              f"{self.prefill_len}]")
         return next(b for b in self.prefill_buckets if b >= n)
+
+    # ---- the block pool (None / empty / refusing on a dense engine) ------
+    @property
+    def block_pool(self) -> Optional[PagedCacheManager]:
+        """The host block manager (allocation, refcounts, tables), or
+        ``None`` on a dense engine."""
+        return self._pager
+
+    @property
+    def block_size(self) -> Optional[int]:
+        return None if self._pager is None else self._pager.block_size
+
+    def free_blocks(self) -> Optional[int]:
+        """Unallocated pool blocks (``None`` on a dense engine)."""
+        return None if self._pager is None else self._pager.free_blocks
+
+    def block_pool_utilization(self) -> float:
+        """Allocated pool blocks / allocatable blocks (0.0 when dense)."""
+        return 0.0 if self._pager is None else self._pager.utilization
+
+    def slot_block_ids(self, slot: int) -> list:
+        """The pool blocks behind a slot, in token order: what a paged
+        prefix cache captures, by reference."""
+        self._check_slot(slot)
+        if self._pager is None:
+            raise ValueError("slot_block_ids on a dense engine — "
+                             "construct with paged=PagedCacheConfig(...)")
+        return self._pager.slot_block_ids(slot)
+
+    def block_stats(self) -> dict:
+        """Cumulative pool accounting (allocations, frees, copies on
+        write, aliased blocks, high-water mark); empty when dense."""
+        return {} if self._pager is None else self._pager.stats()
+
+    def set_block_reclaim(self, callback) -> None:
+        """Install the pool's last-resort reclaim hook (``(n_blocks) ->
+        freed``), called once before an allocation raises
+        ``BlockPoolExhausted``: the scheduler wires prefix-cache eviction
+        here."""
+        if self._pager is None:
+            raise ValueError("set_block_reclaim on a dense engine")
+        self._pager.reclaim = callback
+
+    @property
+    def cow_copies(self) -> int:
+        """Copy-on-write block copies made so far (0 when dense)."""
+        return 0 if self._pager is None else self._pager.cow_total
+
+    def _flush_tables(self, *, with_lengths: bool = False) -> None:
+        """Bring the device tables up to the host mirror, in one small
+        host-to-device copy, only when the manager changed them; with
+        ``with_lengths`` the committed lengths go over too (alias and
+        fork commit a table and a length together)."""
+        if self._pager is not None and self._pager.consume_dirty():
+            self._cache.tables.copy_(
+                torch.from_numpy(self._pager.table_snapshot()))
+        if with_lengths:
+            self._cache.lengths.copy_(
+                torch.from_numpy(self._lengths_host.astype(np.int32)))
+
+    def _ensure_paged(self, writes) -> None:
+        """Before a write: allocate the blocks the spans ``(slot, start,
+        stop)`` need, copy every shared block they write into (before the
+        write lands), and bring the device tables up to date once for
+        all of them."""
+        if self._pager is None:
+            return
+        pairs = []
+        for slot, start, stop in writes:
+            pairs.extend(self._pager.ensure(slot, start, stop))
+        if pairs:
+            with self._on_device():
+                for src, dst in pairs:
+                    copy_block(self._cache, src, dst)
+        self._flush_tables()
+
+    def alias_prefix(self, slot: int, block_ids: Sequence[int],
+                     length: int) -> None:
+        """Prefix reuse with no copy: point a free slot's table at blocks
+        already in the pool and commit ``length`` valid tokens (the paged
+        replacement of :meth:`restore_prefix`).  Each block gains a
+        reference, and the slot's later writes into a shared block copy
+        it first.  Then ``prefill(..., resume=length)`` (or
+        ``prefill_chunk``) continues the prompt."""
+        self._check_slot(slot)
+        if self._pager is None:
+            raise ValueError("alias_prefix on a dense engine — use "
+                             "restore_prefix (copy-based) instead")
+        if self._lengths_host[slot]:
+            raise ValueError(
+                f"slot {slot} is occupied ({self._lengths_host[slot]} "
+                f"tokens); release() it before aliasing into it")
+        length = int(length)
+        if not 1 <= length <= self.max_len - 1:
+            raise ValueError(
+                f"aliased prefix of {length} tokens not in [1, "
+                f"{self.max_len - 1}] (the resume chunk must still fit)")
+        bs = self._pager.block_size
+        want = blocks_per_slot(length, bs)
+        if len(block_ids) != want:
+            raise ValueError(
+                f"{len(block_ids)} blocks cannot hold exactly {length} "
+                f"tokens at block_size {bs} (want {want})")
+        self._pager.alias(slot, block_ids, length)
+        self._lengths_host[slot] = length
+        self._restored[slot] = length
+        self._flush_tables(with_lengths=True)
+
+    def fork_slot(self, src: int, dst: int) -> None:
+        """Branch a live stream: share every block of ``src`` into free
+        slot ``dst`` (refcounts only) and commit the same length.  The
+        first write either stream makes into a shared block (the tail
+        block both append into, too) copies it, so the streams stay
+        bit-isolated."""
+        self._check_slot(src)
+        self._check_slot(dst)
+        if self._pager is None:
+            raise ValueError("fork_slot on a dense engine — the dense "
+                             "layout has no shareable blocks")
+        if not self._lengths_host[src]:
+            raise ValueError(f"fork of empty slot {src}")
+        if self._lengths_host[dst]:
+            raise ValueError(
+                f"slot {dst} is occupied ({self._lengths_host[dst]} "
+                f"tokens); release() it before forking into it")
+        self._pager.fork(src, dst)
+        self._lengths_host[dst] = self._lengths_host[src]
+        self._flush_tables(with_lengths=True)
 
     # ---- model calls -----------------------------------------------------
     def prefill_chunk(self, slot: int, tokens: Sequence[int]) -> torch.Tensor:
@@ -243,7 +472,11 @@ class DecodeEngine:
                 f"max_len {self.max_len}")
         ids = torch.zeros((1, bucket), dtype=torch.long)
         ids[0, :n] = torch.as_tensor(list(tokens), dtype=torch.long)
-        with self._on_device(), torch.inference_mode():
+        # paged: the real rows' blocks allocated (and copied where shared)
+        # before the write; bucket padding past the frontier goes to the
+        # sink
+        self._ensure_paged([(slot, offset, offset + n)])
+        with self._on_device():
             logits, _ = self.model(ids.to(self.device), kv_cache=self._cache,
                                    slot=slot, position=offset)
             commit_slot_length(self._cache, slot, offset + n)
@@ -255,24 +488,46 @@ class DecodeEngine:
     def prefill(self, slot: int, tokens: Sequence[int], *,
                 resume: int = 0) -> torch.Tensor:
         """Fill ``slot`` with a whole prompt (chunked as needed); return
-        its fp32 next-token logits ``[vocab]``.  ``resume`` (resuming over
-        a restored prefix) comes with prefix caching in a later slice of
-        the port: only 0 is taken."""
-        if resume:
-            raise _not_yet("resume", "prefix-caching")
+        its fp32 next-token logits ``[vocab]``.
+
+        ``resume`` continues mid-prompt over what :meth:`restore_prefix`
+        or :meth:`alias_prefix` placed in the slot: it must equal that
+        length, ``tokens`` is still the whole prompt, and only
+        ``tokens[resume:]`` is computed.  Any other nonzero offset is
+        refused: clobbering (or trusting) a live stream silently is the
+        corruption these guards exist for."""
         self._check_slot(slot)
+        resume = int(resume)
         n = len(tokens)
         if not 1 <= n <= self.max_len:
             raise ValueError(f"prompt length {n} not in [1, "
                              f"{self.max_len}] (cache capacity)")
-        if self._lengths_host[slot]:
+        if resume:
+            if (self._restored.get(slot) != resume
+                    or self._lengths_host[slot] != resume):
+                raise ValueError(
+                    f"prefill(resume={resume}) on slot {slot}: the slot "
+                    f"holds {self._lengths_host[slot]} tokens of which "
+                    f"{self._restored.get(slot, 0)} are engine-restored "
+                    f"— resume must equal the restore_prefix() length "
+                    f"exactly")
+            if n <= resume:
+                raise ValueError(
+                    f"prompt of {n} tokens has no suffix past "
+                    f"the {resume} restored tokens — at least the final "
+                    f"prompt token must be computed to produce the "
+                    f"next-token logits")
+            # validated: the slot is a live stream from here on (a
+            # refused call leaves the mark for a corrected retry)
+            self._restored.pop(slot, None)
+        elif self._lengths_host[slot]:
             raise ValueError(
                 f"slot {slot} is occupied ({self._lengths_host[slot]} "
                 f"tokens); release() it before prefilling — silently "
                 f"clobbering a live stream is the corruption class these "
                 f"guards exist for")
         logits = None
-        for start in range(0, n, self.prefill_len):
+        for start in range(resume, n, self.prefill_len):
             logits = self.prefill_chunk(
                 slot, tokens[start:start + self.prefill_len])
         return logits
@@ -295,16 +550,117 @@ class DecodeEngine:
                 f"slots {np.flatnonzero(empty).tolist()} are active but "
                 f"never prefilled — a decode step would expose a garbage "
                 f"token as their whole context")
+        # paged: one allocation pass for every active lane and at most one
+        # table copy (none on a step that crosses no block boundary)
+        self._ensure_paged([(int(s), int(self._lengths_host[s]),
+                             int(self._lengths_host[s]) + 1)
+                            for s in np.flatnonzero(act)])
         ids = torch.as_tensor(np.asarray(tokens, np.int64)).to(self.device)
         step = torch.as_tensor(act.astype(np.int32)).to(self.device)
-        with self._on_device(), torch.inference_mode():
+        with self._on_device():
+            position = self._cache.lengths
+            if self._pager is not None:
+                # inactive lanes at -1: their writes go to the sink
+                position = torch.where(step.bool(), position,
+                                       torch.full_like(position, -1))
             logits, _ = self.model(ids[:, None], kv_cache=self._cache,
-                                   position=self._cache.lengths)
+                                   position=position)
             self._cache.lengths += step
             out = logits[0].float()
         self._lengths_host[act] += 1
         self.decode_steps += 1
         return out
+
+    # ---- prefix reuse on a dense cache: capture and restore ---------------
+    def read_region(self, slot: int, start: int, stop: int) -> tuple:
+        """Rows ``[start, stop)`` of a slot's K/V across every layer,
+        ``(k, v)`` ``[layers, stop - start, kv_heads, head_dim]``: owned
+        copies on the engine's device, safe to keep across later calls
+        (dequantized fp32 from an int8 cache).  Only valid rows are handed
+        out: the span must lie inside the slot's committed length."""
+        self._check_slot(slot)
+        if self._pager is not None:
+            raise ValueError(
+                "read_region on a paged engine — prefix capture is "
+                "by-reference there (slot_block_ids + refcounts), not "
+                "by copy")
+        start, stop = int(start), int(stop)
+        if not 0 <= start < stop <= int(self._lengths_host[slot]):
+            raise ValueError(
+                f"region [{start}, {stop}) outside slot {slot}'s valid "
+                f"length {int(self._lengths_host[slot])} — rows past the "
+                f"committed length are masked garbage and must never be "
+                f"handed out")
+        with self._on_device():
+            return read_slot_region(self._cache, slot, start, stop)
+
+    def capture_slot(self, slot: int) -> tuple:
+        """A live slot's whole valid K/V on the host, ``(k, v, length)``
+        with ``k`` / ``v`` CPU tensors ``[layers, length, kv_heads,
+        head_dim]`` (dequantized fp32 from an int8 cache):
+        :meth:`restore_prefix` of them into a free slot gives back the
+        slot's cache state (an int8 payload bit for bit).  Dense engines
+        only: a paged slot is captured by reference."""
+        self._check_slot(slot)
+        if self._pager is not None:
+            raise ValueError(
+                "capture_slot on a paged engine — capture by reference "
+                "instead (slot_block_ids + block_pool.ref; resume via "
+                "alias_prefix)")
+        length = int(self._lengths_host[slot])
+        if length < 1:
+            raise ValueError(f"capture of empty slot {slot}")
+        k, v = self.read_region(slot, 0, length)
+        return k.cpu(), v.cpu(), length
+
+    def restore_prefix(self, slot: int, kv, length: int) -> None:
+        """Put captured K/V back into a free slot: after the call the slot
+        holds ``length`` cached tokens, the rows given (requantized by an
+        int8 cache, whose payload comes back bit for bit), and
+        ``prefill(..., resume=length)`` continues the prompt.  ``kv`` is
+        ``(k, v)`` ``[layers, >= length, kv_heads, head_dim]``; ``length``
+        is at most ``max_len - 1`` (the resume chunk must fit)."""
+        self._check_slot(slot)
+        if self._pager is not None:
+            raise ValueError(
+                "restore_prefix on a paged engine — hits alias shared "
+                "blocks zero-copy (alias_prefix), never write K/V back")
+        if self._lengths_host[slot]:
+            raise ValueError(
+                f"slot {slot} is occupied ({self._lengths_host[slot]} "
+                f"tokens); release() it before restoring into it")
+        k, v = kv
+        length = int(length)
+        layers = self._cache.num_layers
+        tail = tuple(self._cache.k.shape[3:])          # (kv_heads, head_dim)
+        for name, arr in (("k", k), ("v", v)):
+            shape = tuple(arr.shape)
+            if (len(shape) != 4 or shape[0] != layers
+                    or shape[2:] != tail):
+                raise ValueError(
+                    f"restore {name} shape {shape} does not match the "
+                    f"cache's [layers={layers}, n, kv_heads={tail[0]}, "
+                    f"head_dim={tail[1]}] layout")
+        if not 1 <= length <= min(k.shape[1], v.shape[1]):
+            raise ValueError(
+                f"restore length {length} not in [1, "
+                f"{min(k.shape[1], v.shape[1])}] (rows provided)")
+        if length > self.max_len - 1:
+            raise ValueError(
+                f"restored prefix of {length} tokens leaves no room in "
+                f"a max_len={self.max_len} cache for the resume chunk "
+                f"that must produce the next-token logits")
+        # the value dtype, not the storage dtype: int8 staging would
+        # destroy the captured rows before the requantize
+        dtype = value_dtype(self._cache)
+        with self._on_device():
+            write_slot_region(
+                self._cache, slot, 0,
+                k[:, :length].to(device=self.device, dtype=dtype),
+                v[:, :length].to(device=self.device, dtype=dtype))
+            commit_slot_length(self._cache, slot, length)
+        self._lengths_host[slot] = length
+        self._restored[slot] = length
 
     # ---- sampling --------------------------------------------------------
     def sample(self, logits: torch.Tensor, seeds, indices, temperatures,
@@ -317,7 +673,7 @@ class DecodeEngine:
         and token index.  Returns a host int64 array."""
         temps = np.asarray(temperatures, np.float32)
         top_ks = np.asarray(top_ks, np.int64)
-        with self._on_device(), torch.inference_mode():
+        with self._on_device():
             out = torch.argmax(logits, dim=-1)
             for i in np.flatnonzero(temps > 0):
                 row = logits[i].float()

@@ -73,14 +73,31 @@ ends the run with a non-zero exit and no result line:
    before it and read just after:
 
    - *serving*: a small fp32 Llama served on the card against the same
-     weights served on the CPU (the port's plain path); then the
+     weights served on the CPU (the port's plain path), dense and in each
+     of the forms below (paged, int8 dense and paged, prefix-cached dense
+     and paged: streams equal, first-token logits within 1e-4, int8
+     weights bit for bit, int8 KV within one quantization step); then the
      ``llama-1b`` card at full width and depth, bf16, weights from a
      seeded ``torch.Generator`` on the card, behind ``DecodeEngine(slots=8,
      max_len=2048, prefill_len=512)`` and the FIFO scheduler: 12 greedy
-     requests, prompts of 64-1024 tokens, 32 new tokens each.  The norm
-     kernel's launches over that run must equal ``(2L+1)`` times the model
-     calls (prefill chunks plus decode steps), and no other kernel runs;
-     one request rerun alone must give the same stream.
+     requests, prompts of 64-1024 tokens, 32 new tokens each.  In every
+     serving run the norm kernel's launches must equal ``(2L+1)`` times the
+     model calls (prefill chunks plus decode steps), and no other kernel
+     runs.  One request rerun alone must give the same stream.  Then the
+     same requests paged (``PagedCacheConfig(block_size=16)``): with the
+     default pool the dense run's chunks, streams and chunk logits bit for
+     bit, the pool empty after; with 8 x 64 + 1 blocks all finished within
+     the pool and the longest request equal to its dense replay alone.
+     Then 12 requests sharing a 1024-token prefix (tails of 64-512) with
+     and without ``prefix_caching=PrefixCacheConfig(max_tokens=16384)``,
+     paged (hits alias the donor's blocks) and dense (restored rows equal
+     the captured ones): 11 hits, 1 miss, 11 x 1024 saved tokens,
+     first-token logits within the bf16 tolerance of the alone checks and
+     streams equal up to the first near tie.  After the evaluation path,
+     the int8 copy of the model (``QuantConfig(weights=True, kv=True)``),
+     the bf16 model freed: the 12 requests served, bytes and peak memory,
+     and the longest request fed the bf16 stream: max |logit error| < 0.5
+     and agreement >= 0.9 where the bf16 top-2 margin exceeds 0.1.
    - *evaluation*: a small fp32 Llama at head dim 64, uncached logits and
      ``labels=`` loss on the card against the CPU; then the same
      ``llama-1b`` model's ``model(ids, labels=labels)`` at b 4, s 2048
@@ -145,6 +162,7 @@ fuller report goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3467,18 +3485,19 @@ def serve(engine, requests, sv):
 
 class ChunkLog:
     """Logs an engine's prefill chunks, ``(slot, tokens)`` in call order,
-    while it is entered (the engine's own ``prefill_chunk`` runs as it
-    is)."""
+    and the logits each returned (``logits``), while it is entered (the
+    engine's own ``prefill_chunk`` runs as it is)."""
 
     def __init__(self, engine):
-        self.engine, self.calls = engine, []
+        self.engine, self.calls, self.logits = engine, [], []
 
     def __enter__(self):
         inner = self.engine.prefill_chunk
 
         def logged(slot, tokens):
             self.calls.append((slot, list(tokens)))
-            return inner(slot, tokens)
+            self.logits.append(inner(slot, tokens))
+            return self.logits[-1]
 
         self.engine.prefill_chunk = logged
         return self
@@ -3597,22 +3616,13 @@ def serving_alone_checks(engine, probe, batched, chunk_log, sv) -> dict:
                              f"replayed in the same chunks and slot gave other "
                              f"streams: {alone} vs {replay}")
     fed, fed_logits, _ = serve_in_chunks(engine, probe, alone_slot, own, forced=tokens)
-    model, cfg = engine.model, engine.model.config
-    head = (model.embed_tokens.weight if cfg.tie_word_embeddings
-            else model.lm_head).detach().float()
-    tol = (2 * cfg.num_hidden_layers + 1) * 2.0 ** -8 * (
-        (x ** 2) @ (head ** 2).t()).sqrt()
+    tol = bf16_logit_tol(engine.model, x)
     ratio = float(((fed_logits - logits).abs() / tol).max())
     if ratio > 1:
         raise AssertionError(f"{probe.rid} served alone in its own chunks {own}: "
                              f"logits off the batched chunks' by {ratio} x tolerance")
-    near_tie = []
-    for i in range(len(tokens)):
-        tie = False
-        for row in (logits[i], fed_logits[i]):
-            top = row.topk(2)
-            tie |= float(top.values[0] - top.values[1]) <= float(tol[i, top.indices].sum())
-        near_tie.append(tie)
+    near_tie = [a or b for a, b in zip(near_ties(logits, tol),
+                                       near_ties(fed_logits, tol))]
     swapped = [i for i, (a, b) in enumerate(zip(fed, tokens)) if a != b]
     if any(not near_tie[i] for i in swapped):
         raise AssertionError(f"{probe.rid} fed the batched stream picked other tokens "
@@ -3635,6 +3645,535 @@ def serving_alone_checks(engine, probe, batched, chunk_log, sv) -> dict:
                 tolerance="tol_j = (2L + 1) 2^-8 sqrt(sum_i x_i^2 E_ji^2), x the "
                           "final norm's output, E the head; a near tie: the top-2 "
                           "margin within the two logits' tolerances")
+
+
+def serving_requests(vocab: int) -> list:
+    """The serving phase's 12 greedy requests: prompts of 64-1024 tokens
+    drawn from a seeded generator, 32 new tokens each."""
+    import torch
+    from apex_tpu_torch import serving as sv
+
+    rng = torch.Generator().manual_seed(4)
+    lens = torch.randint(64, 1025, (12,), generator=rng).tolist()
+    return [sv.Request(f"q{i}", torch.randint(0, vocab, (n,),
+                                              generator=rng).tolist(),
+                       max_new_tokens=32)
+            for i, n in enumerate(lens)]
+
+
+def prefix_requests(vocab: int, prefix_len: int = 1024, lo: int = 64,
+                    hi: int = 512, n: int = 12, new_tokens: int = 32) -> list:
+    """``n`` greedy requests that share one ``prefix_len``-token prefix (a
+    system prompt), each with its own tail of ``lo``-``hi`` tokens."""
+    import torch
+    from apex_tpu_torch import serving as sv
+
+    rng = torch.Generator().manual_seed(6)
+    prefix = torch.randint(0, vocab, (prefix_len,), generator=rng).tolist()
+    tails = torch.randint(lo, hi + 1, (n,), generator=rng).tolist()
+    return [sv.Request(f"p{i}", prefix + torch.randint(
+        0, vocab, (t,), generator=rng).tolist(), max_new_tokens=new_tokens)
+            for i, t in enumerate(tails)]
+
+
+class StreamLog:
+    """Records, while entered, each request's next-token logits and the
+    final norm's output row they came from, step by step: the first from
+    the prefill chunk that completes its prompt, then one a decode step.
+    The engine's own calls run as they are; ``sched`` says which request
+    a slot holds."""
+
+    def __init__(self, engine, sched, requests):
+        self.engine, self.sched = engine, sched
+        self.prompt_len = {r.rid: len(r.prompt) for r in requests}
+        self.logits, self.x = {}, {}
+
+    def __enter__(self):
+        import numpy as np
+
+        eng, got = self.engine, {}
+        self._hook = eng.model.norm.register_forward_hook(
+            lambda mod, args, out: got.__setitem__("x", out))
+        inner_chunk, inner_decode = eng.prefill_chunk, eng.decode
+
+        def chunk(slot, tokens):
+            offset = int(eng.lengths()[slot])
+            logits = inner_chunk(slot, tokens)
+            rid = self.sched.active_slots[slot]
+            if offset + len(tokens) == self.prompt_len[rid]:
+                self.logits[rid] = [logits]
+                self.x[rid] = [got["x"][len(tokens) - 1, 0].float()]
+            return logits
+
+        def decode(tokens, active):
+            logits = inner_decode(tokens, active)
+            rids = self.sched.active_slots
+            for slot in np.flatnonzero(np.asarray(active, bool)).tolist():
+                self.logits[rids[slot]].append(logits[slot])
+                self.x[rids[slot]].append(got["x"][0, slot].float())
+            return logits
+
+        # inside a ChunkLog, whose wrapper is an attribute of the engine
+        self._saved = {k: eng.__dict__.get(k) for k in ("prefill_chunk",
+                                                       "decode")}
+        eng.prefill_chunk, eng.decode = chunk, decode
+        return self
+
+    def __exit__(self, *exc):
+        self._hook.remove()
+        for name, saved in self._saved.items():
+            if saved is None:
+                delattr(self.engine, name)
+            else:
+                setattr(self.engine, name, saved)
+
+    def stacked(self, rid) -> tuple:
+        """``(logits [steps, vocab], x [steps, hidden])`` of one request."""
+        import torch
+
+        return torch.stack(self.logits[rid]), torch.stack(self.x[rid])
+
+
+def bf16_logit_tol(model, x):
+    """tol_j = (2L + 1) 2^-8 sqrt(sum_i x_i^2 E_ji^2) for each row of
+    ``x`` (the final norm's output), E the head: the bound
+    :func:`serving_alone_checks` derives for two bf16 runs that round some
+    of their 2L residual adds and their final norm differently."""
+    cfg = model.config
+    head = (model.embed_tokens.weight if cfg.tie_word_embeddings
+            else model.lm_head)
+    if hasattr(head, "dequantize"):
+        head = head.dequantize()
+    head = head.detach().float()
+    return (2 * cfg.num_hidden_layers + 1) * 2.0 ** -8 * (
+        (x ** 2) @ (head ** 2).t()).sqrt()
+
+
+def near_ties(logits, tol) -> list:
+    """Per step: the top-2 margin within the two logits' tolerances."""
+    out = []
+    for row, t in zip(logits, tol):
+        top = row.topk(2)
+        out.append(float(top.values[0] - top.values[1])
+                   <= float(t[top.indices].sum()))
+    return out
+
+
+def compare_streams(model, ref, got, label) -> dict:
+    """Hold the run ``got`` to the run ``ref`` (both :func:`serve_logged`
+    results over the same requests): each request's first-token logits
+    within :func:`bf16_logit_tol` of the reference's, and its greedy
+    stream equal to the reference's up to the first step at which either
+    run's top-2 margin is within tolerance (a near tie, where rounding may
+    pick either token; until the streams part, both runs' logits at a step
+    come from the same context).  Returns what the log records."""
+    worst, parts_at, tie_at = 0.0, {}, {}
+    for rid, a in sorted(ref["streams"].items()):
+        b = got["streams"][rid]
+        lr, xr = ref["stream_log"].stacked(rid)
+        lg, _ = got["stream_log"].stacked(rid)
+        tol = bf16_logit_tol(model, xr)
+        ratio = float(((lg[0] - lr[0]).abs() / tol[0]).max())
+        worst = max(worst, ratio)
+        if ratio > 1:
+            raise AssertionError(f"{label} {rid}: first-token logits off the "
+                                 f"reference by {ratio} x tolerance")
+        parts = next((i for i, (s, t) in enumerate(zip(a, b)) if s != t),
+                     None if len(a) == len(b) else min(len(a), len(b)))
+        n = len(a) if parts is None else parts + 1
+        ties = [p or q for p, q in zip(near_ties(lr[:n], tol[:n]),
+                                       near_ties(lg[:n], tol[:n]))]
+        first_tie = ties.index(True) if True in ties else None
+        if parts is not None and (first_tie is None or parts < first_tie):
+            raise AssertionError(f"{label} {rid}: stream parts from the "
+                                 f"reference at step {parts}, before any near "
+                                 f"tie: {b} vs {a}")
+        parts_at[rid], tie_at[rid] = parts, first_tie
+    return dict(first_token_logits_tol_ratio_max=worst,
+                parts_at={k: v for k, v in parts_at.items() if v is not None},
+                streams_identical=all(v is None for v in parts_at.values()),
+                first_near_tie=tie_at)
+
+
+def norm_launch_gate(engine, launches, chunks, steps, label) -> int:
+    """On the card: the norm forward kernel launched exactly ``(2L + 1) x
+    (chunks + steps)`` times and no other kernel (the cached modes attend
+    in plain PyTorch, the int8 projections dequantize in plain PyTorch,
+    and serving takes logits).  Off the card nothing launches.  Returns
+    the expected count."""
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    expected = (2 * engine.model.config.num_hidden_layers + 1) * (
+        chunks + steps)
+    if engine.device.type == "cuda" and {
+            k: n for k, n in launches.items() if n} != {
+            ln.LAYER_NORM_FWD.name: expected}:
+        raise AssertionError(f"{label}: launches {launches}, expected only "
+                             f"{ln.LAYER_NORM_FWD.name} x {expected}")
+    return expected
+
+
+def serve_logged(engine, requests, sv, *, prefix=None, first=0,
+                 after_first=None, label="serving") -> dict:
+    """Serve ``requests`` through a fresh scheduler (``prefix_caching=
+    prefix``), with the kernel counts set to 0 just before and its chunks
+    (:class:`ChunkLog`) and streams (:class:`StreamLog`) logged; holds the
+    norm-launch gate and checks every stream.  The first ``first``
+    requests are submitted alone and served until their prompts are
+    cached (then ``after_first(sched)`` runs) before the rest come."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    sched = sv.ContinuousBatchingScheduler(engine, prefix_caching=prefix)
+    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    _dispatch.reset_launches()
+    with ChunkLog(engine) as chunk_log, \
+            StreamLog(engine, sched, requests) as stream_log:
+        t0 = time.perf_counter()
+        for r in requests[:first]:
+            sched.submit(r)
+        while sched.prefill_backlog:
+            sched.step()
+        if after_first is not None:
+            after_first(sched)
+        for r in requests[first:]:
+            sched.submit(r)
+        results = sched.run()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = engine.prefill_chunks - chunks0
+    steps = engine.decode_steps - steps0
+    if sorted(results) != sorted(r.rid for r in requests):
+        raise AssertionError(f"{label}: served {sorted(results)}")
+    vocab = engine.model.config.vocab_size
+    for r in requests:
+        toks = results[r.rid].tokens
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label} {r.rid}: bad stream {toks}")
+    ttft = sorted(res.ttft_s for res in results.values())
+    return dict(
+        sched=sched, results=results, chunk_log=chunk_log,
+        stream_log=stream_log,
+        streams={k: v.tokens for k, v in results.items()},
+        summary=dict(wall_s=wall, ttft_p50_s=statistics.median(ttft),
+                     ttft_max_s=max(ttft), prefill_chunks=chunks,
+                     decode_steps=steps, launches=launches,
+                     expected_norm_launches=norm_launch_gate(
+                         engine, launches, chunks, steps, label)))
+
+
+def paged_checks(model, requests, dense, sv, device, **engine_kw) -> dict:
+    """Paged serving against the dense run ``dense`` (a
+    :func:`serve_logged` result over the same requests).
+
+    1. The default pool (dense-capacity parity): the chunk log, every
+       stream and every chunk's logits (the first-token ones among them)
+       equal the dense engine's bit for bit; the pool holds no block after
+       the run.
+    2. A pool of about half that (``slots x 64 + 1`` blocks of 16): every
+       request finishes, the pool's high-water mark stays within it, and
+       the longest request's stream equals, bit for bit, that request
+       replayed alone on a dense engine in the chunks it got
+       (:func:`serve_in_chunks`)."""
+    import torch
+
+    out = {}
+    slots = engine_kw["slots"]
+    for name, num_blocks in (("default_pool", None),
+                             ("tight_pool", slots * 64 + 1)):
+        engine = sv.DecodeEngine(model, paged=sv.PagedCacheConfig(
+            block_size=16, num_blocks=num_blocks), device=device, **engine_kw)
+        run = serve_logged(engine, requests, sv, label=f"paged {name}")
+        pool = engine.block_pool
+        if pool.used_blocks or pool.high_water > pool.num_blocks - 1:
+            raise AssertionError(f"{name}: {pool.used_blocks} blocks used "
+                                 f"after run(), high water {pool.high_water}")
+        out[name] = dict(num_blocks=pool.num_blocks,
+                         high_water=pool.high_water, **run["summary"],
+                         streams_identical_to_dense=run["streams"] == dense[
+                             "streams"])
+        del engine
+        if num_blocks is None:
+            if run["chunk_log"].calls != dense["chunk_log"].calls:
+                raise AssertionError("paged serving cut other chunks than "
+                                     "dense")
+            if run["streams"] != dense["streams"]:
+                raise AssertionError(f"paged streams differ from dense: "
+                                     f"{run['streams']} vs {dense['streams']}")
+            for a, b in zip(run["chunk_log"].logits,
+                            dense["chunk_log"].logits):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"paged chunk logits differ from dense by "
+                        f"{float((a - b).abs().max())}")
+            out[name]["chunks_and_logits_identical_to_dense"] = True
+            continue
+        probe = max(requests, key=lambda r: len(r.prompt))
+        slot, chunks = run["chunk_log"].chunks_of(probe.prompt)
+        alone = serve_in_chunks(sv.DecodeEngine(model, device=device,
+                                                **engine_kw),
+                                probe, slot, chunks)[0]
+        if alone != run["streams"][probe.rid]:
+            raise AssertionError(f"{name}: {probe.rid} replayed alone on the "
+                                 f"dense engine in its chunks {chunks} gave "
+                                 f"{alone}, served {run['streams'][probe.rid]}")
+        out[name].update(probe=probe.rid, probe_slot=slot,
+                         probe_chunks=chunks, probe_equals_dense_alone=True)
+    return out
+
+
+def prefix_checks(model, requests, sv, device, *, paged: bool,
+                  max_tokens: int = 16384, **engine_kw) -> dict:
+    """The shared-prefix workload with and without
+    ``prefix_caching=PrefixCacheConfig(max_tokens)``, on a paged engine
+    (hits alias the donor's blocks) or a dense one (capture by
+    ``read_region``, restore by ``restore_prefix``).  The first request is
+    served alone until its prompt is cached, then the rest come: every
+    other request must hit, with the whole prefix saved.  Paged: each
+    hit's table begins with the donor's block ids, and no block is copied
+    on write.  Dense: the restored rows equal the captured ones bit for
+    bit.  Both: :func:`compare_streams` against the run without prefix
+    caching."""
+    import torch
+
+    kw = dict(device=device, **engine_kw)
+    if paged:
+        kw["paged"] = sv.PagedCacheConfig(block_size=16)
+    prefix_len = len(os.path.commonprefix([r.prompt for r in requests]))
+    base = serve_logged(sv.DecodeEngine(model, **kw), requests, sv, first=1,
+                        label="without prefix caching")
+    engine = sv.DecodeEngine(model, **kw)
+    donor, checked = {}, []
+    if paged:
+        def after_first(sched):
+            (slot,) = sched.active_slots
+            donor["ids"] = engine.slot_block_ids(slot)[:prefix_len // 16]
+
+        inner = engine.alias_prefix
+
+        def alias(slot, block_ids, length):
+            inner(slot, block_ids, length)
+            checked.append(engine.slot_block_ids(slot)[:len(donor["ids"])]
+                           == donor["ids"])
+        engine.alias_prefix = alias
+    else:
+        after_first = None
+        inner = engine.restore_prefix
+
+        def restore(slot, kv, length):
+            inner(slot, kv, length)
+            k, v = engine.read_region(slot, 0, length)
+            checked.append(torch.equal(k, kv[0][:, :length])
+                           and torch.equal(v, kv[1][:, :length]))
+        engine.restore_prefix = restore
+    run = serve_logged(engine, requests, sv,
+                       prefix=sv.PrefixCacheConfig(max_tokens=max_tokens),
+                       first=1, after_first=after_first,
+                       label="with prefix caching")
+    # the wrapper refers to the engine: drop it, or the engine, its cache
+    # and the model stay alive in a reference cycle
+    del engine.__dict__["alias_prefix" if paged else "restore_prefix"]
+    stats = run["sched"].stats()
+    n = len(requests)
+    block = run["sched"].prefix_cache.block_size
+    saved = prefix_len // block * block
+    if stats != dict(prefix_hits=n - 1, prefix_misses=1,
+                     prefix_saved_tokens=(n - 1) * saved):
+        raise AssertionError(f"prefix stats {stats}, expected {n - 1} hits, "
+                             f"1 miss, {(n - 1) * saved} saved tokens")
+    if len(checked) != n - 1 or not all(checked):
+        raise AssertionError(f"{'aliased tables' if paged else 'restored rows'}"
+                             f" not the donor's: {checked}")
+    if engine.cow_copies:
+        raise AssertionError(f"{engine.cow_copies} blocks copied on write")
+    out = dict(
+        paged=paged, requests=n, prefix_tokens=prefix_len, block_size=block,
+        stats=stats, prefix_cache=run["sched"].prefix_cache.stats(),
+        with_prefix=run["summary"], without_prefix=base["summary"],
+        **compare_streams(model, base, run,
+                          "paged prefix" if paged else "dense prefix"),
+        tolerance="first-token logits within tol_j = (2L + 1) 2^-8 sqrt(sum_i "
+                  "x_i^2 E_ji^2) of the run without prefix caching; streams "
+                  "equal up to the first near tie")
+    out["hits_aliased_not_copied" if paged else "restored_rows_identical"] = True
+    return out
+
+
+def int8_reference(model, probe, sv, device, **engine_kw) -> tuple:
+    """What the int8 phase compares with, taken while the bf16 model is
+    alive: ``probe``'s greedy stream on the bf16 engine, cached in its own
+    chunks, with each step's logits; the model's and its cache's bytes.
+    Returns ``(quantize_params(model), reference)``."""
+    engine = sv.DecodeEngine(model, device=device, **engine_kw)
+    n, step = len(probe.prompt), engine.prefill_len
+    own = [min(step, n - i) for i in range(0, n, step)]
+    stream, logits, _ = serve_in_chunks(engine, probe, 0, own)
+    ref = dict(stream=stream, logits=logits.float().cpu(), chunks=own,
+               param_bytes=sv.param_bytes(model),
+               kv_bytes_per_token=sv.kv_bytes_per_token(engine.cache))
+    engine.reset()
+    return sv.quantize_params(model), ref
+
+
+def int8_checks(qmodel, requests, ref, sv, device, **engine_kw) -> dict:
+    """``quant=QuantConfig(weights=True, kv=True)`` serves the requests
+    (the norm-launch gate; peak memory with the bf16 model freed).  On the
+    longest request, fed the bf16 engine's stream in the same chunks (the
+    JAX tests' teacher forcing): max |logit - bf16 logit| < 0.5, the JAX
+    package's bar, and the picks agree with the bf16 stream at >= 0.9 of
+    the positions whose bf16 top-2 margin exceeds 0.1 (random weights put
+    many positions near a tie); the agreement over every position is
+    reported beside it."""
+    import torch
+
+    at_start = "not measured"
+    gc.collect()                # no engine of the bf16 model left alive
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()
+        if at_start >= ref["param_bytes"]:
+            raise AssertionError(f"{at_start} bytes allocated before the int8 "
+                                 f"engine: the bf16 model is still resident")
+    engine = sv.DecodeEngine(qmodel, quant=sv.QuantConfig(weights=True,
+                                                          kv=True),
+                             device=device, **engine_kw)
+    if engine.model is not qmodel:
+        raise AssertionError("the engine quantized a quantized model again")
+    run = serve_logged(engine, requests, sv, label="int8")
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else "not measured")
+    probe = max(requests, key=lambda r: len(r.prompt))
+    picks, logits, _ = serve_in_chunks(engine, probe, 0, ref["chunks"],
+                                       forced=ref["stream"])
+    ref_logits = ref["logits"]
+    err = float((logits.float().cpu() - ref_logits).abs().max())
+    top = ref_logits.topk(2).values
+    clear = ((top[:, 0] - top[:, 1]) > 0.1).tolist()
+    agree = [p == t for p, t in zip(picks, ref["stream"])]
+    clear_agree = sum(a for a, c in zip(agree, clear) if c) / max(sum(clear), 1)
+    if not err < 0.5:
+        raise AssertionError(f"int8: max |logit error| {err} >= 0.5")
+    if clear_agree < 0.9:
+        raise AssertionError(f"int8: agreement {clear_agree} < 0.9 at the "
+                             f"{sum(clear)} positions with a bf16 top-2 "
+                             f"margin over 0.1")
+    return dict(
+        param_bytes_bf16=ref["param_bytes"],
+        param_bytes_int8=sv.param_bytes(qmodel),
+        kv_bytes_per_token_bf16=ref["kv_bytes_per_token"],
+        kv_bytes_per_token_int8=sv.kv_bytes_per_token(engine.cache),
+        mem_at_start_bytes=at_start, peak_mem_bytes_bf16_model_freed=peak,
+        **run["summary"],
+        probe=probe.rid, max_abs_logit_err=err,
+        agreement_margin_over_0_1=clear_agree,
+        positions_margin_over_0_1=sum(clear),
+        agreement_all_positions=sv.stream_agreement(ref["stream"], picks),
+        bars="max |logit error| < 0.5; agreement >= 0.9 where the bf16 "
+             "top-2 margin > 0.1")
+
+
+def small_serving_forms_check(device) -> dict:
+    """A small fp32 Llama, the same weights on the card and on the CPU,
+    served in each new form: paged (``PagedCacheConfig(block_size=16)``),
+    int8 (weights and KV, dense and paged) and prefix-cached (dense and
+    paged), over six requests that share a 48-token prefix (the first
+    served alone until its prompt is cached, so the other five hit).  The
+    streams must be equal and the first-token logits within 1e-4; the
+    int8 weights equal bit for bit (one quantization of the same fp32
+    weights), and each int8 KV value within one quantization step of its
+    row's scale of the CPU's: card and CPU compute K and V in another
+    order, and an input that lies on a rounding boundary goes to the
+    neighbouring code.  Where a code differs, the logits of the int8 forms
+    move with it and are reported, not held to 1e-4."""
+    import torch
+    from apex_tpu_torch import serving as sv
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    models = {"cpu": LlamaForCausalLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0))}
+    models["cuda"] = LlamaForCausalLM(cfg, device=device)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    requests = prefix_requests(cfg.vocab_size, prefix_len=48, lo=5, hi=20,
+                               n=6, new_tokens=8)
+    paged = sv.PagedCacheConfig(block_size=16)
+    int8 = sv.QuantConfig(weights=True, kv=True)
+    forms = dict(paged=dict(paged=paged), int8=dict(quant=int8),
+                 int8_paged=dict(quant=int8, paged=paged),
+                 prefix_dense=dict(prefix=sv.PrefixCacheConfig()),
+                 prefix_paged=dict(paged=paged,
+                                   prefix=sv.PrefixCacheConfig()))
+    out = {}
+    for name, form in forms.items():
+        prefix = form.pop("prefix", None)
+        runs, engines = {}, {}
+        for dev in ("cpu", "cuda"):
+            engines[dev] = sv.DecodeEngine(
+                models[dev], slots=2, max_len=128, prefill_len=32,
+                device="cpu" if dev == "cpu" else device, **form)
+            runs[dev] = serve_logged(engines[dev], requests, sv, prefix=prefix,
+                                     first=1, label=f"small {name} {dev}")
+        if runs["cpu"]["streams"] != runs["cuda"]["streams"]:
+            raise AssertionError(f"small {name}: streams differ card/CPU: "
+                                 f"{runs['cuda']['streams']} vs "
+                                 f"{runs['cpu']['streams']}")
+        if prefix is not None and runs["cuda"]["sched"].stats()[
+                "prefix_hits"] != len(requests) - 1:
+            raise AssertionError(f"small {name}: "
+                                 f"{runs['cuda']['sched'].stats()}")
+        err = max(float((runs["cuda"]["stream_log"].logits[r][0].cpu()
+                         - runs["cpu"]["stream_log"].logits[r][0]).abs().max())
+                  for r in runs["cpu"]["streams"])
+        row = dict(first_token_logit_max_abs_err=err, streams_identical=True)
+        if "quant" in form:
+            row.update(int8_card_vs_cpu(*(engines[d] for d in ("cuda", "cpu"))))
+        if err > 1e-4 and not row.get("kv_codes_differing"):
+            raise AssertionError(f"small {name}: first-token logits on the "
+                                 f"card differ from the CPU by {err} (> 1e-4)")
+        out[name] = row
+    out["tolerance"] = ("first-token logits 1e-4; int8 weights bit for bit; "
+                        "int8 KV one quantization step of the row's scale")
+    log("phase3-serving-forms-reference", **out)
+    return out
+
+
+def int8_card_vs_cpu(card, cpu) -> dict:
+    """The int8 weights of two engines bit for bit, and their int8 KV
+    caches within one quantization step: codes at most 1 apart and each
+    dequantized value within its row's scale of the other's."""
+    import torch
+    from apex_tpu_torch import serving as sv
+
+    for (name, a), b in zip(card.model.state_dict().items(),
+                            cpu.model.state_dict().values()):
+        if a.dtype == torch.int8 and not torch.equal(a.cpu(), b):
+            raise AssertionError(f"int8 weight {name} differs card/CPU")
+    flips = 0
+    for kind in ("k", "v"):
+        qa, qb = getattr(card.cache, kind).cpu(), getattr(cpu.cache, kind)
+        sa = getattr(card.cache, f"{kind}_scale").cpu()
+        sb = getattr(cpu.cache, f"{kind}_scale")
+        if isinstance(cpu.cache, sv.PagedKVCache):
+            # the sink block takes dropped rows in any order: never read
+            qa, qb, sa, sb = (t[:, :-1] for t in (qa, qb, sa, sb))
+        codes = (qa.int() - qb.int()).abs()
+        deq = (qa.float() * sa[..., None] - qb.float() * sb[..., None]).abs()
+        # one step of the larger scale, and the scales' own difference
+        # over the 127 codes
+        step = (torch.maximum(sa, sb) + 127 * (sa - sb).abs())[..., None]
+        if int(codes.max()) > 1 or bool((deq > step).any()):
+            raise AssertionError(f"int8 {kind} cache card/CPU: codes up to "
+                                 f"{int(codes.max())} apart")
+        flips += int((codes > 0).sum())
+    return dict(int8_weights_identical=True, kv_codes_differing=flips,
+                kv_within_one_step=True)
 
 
 def small_reference_check(device) -> dict:
@@ -3710,75 +4249,76 @@ def _drop_side_stream_workspaces() -> None:
 
 
 def llama_1b(device, model, init_s) -> dict:
-    """Serving: the FIFO scheduler over ``DecodeEngine`` on ``model``.  Its
-    path runs the norm kernel only."""
+    """Serving ``model`` at full width: the FIFO scheduler over the dense
+    ``DecodeEngine`` (12 requests; the longest again alone, two checks;
+    a profile), then the same requests paged (:func:`paged_checks`), then
+    the shared-prefix workload with and without prefix caching, paged and
+    dense (:func:`prefix_checks`).  Each run launches the norm kernel
+    only, ``(2L + 1) x (chunks + steps)`` times."""
     import torch
     from apex_tpu_torch import serving as sv
-    from apex_tpu_torch.ops import _dispatch
-    from apex_tpu_torch.ops import layer_norm as ln
 
     cfg = model.config
     n_params = sum(p.numel() for p in model.parameters())
-    engine = sv.DecodeEngine(model, slots=8, max_len=2048, prefill_len=512,
-                             device=device)
+    kw = dict(slots=8, max_len=2048, prefill_len=512)
+    engine = sv.DecodeEngine(model, device=device, **kw)
     _drop_side_stream_workspaces()
     # warm-up (cuBLAS handles, allocator): one short request, discarded
     serve(engine, [sv.Request("warm", list(range(1, 65)), max_new_tokens=2)], sv)
     engine.reset()
 
-    rng = torch.Generator().manual_seed(4)
-    lens = torch.randint(64, 1025, (12,), generator=rng).tolist()
-    requests = [sv.Request(f"q{i}", torch.randint(0, cfg.vocab_size, (n,),
-                                                  generator=rng).tolist(),
-                           max_new_tokens=32)
-                for i, n in enumerate(lens)]
-    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    requests = serving_requests(cfg.vocab_size)
+    lens = [len(r.prompt) for r in requests]
     torch.cuda.reset_peak_memory_stats()
-    _dispatch.reset_launches()
-    with ChunkLog(engine) as chunk_log:
-        results, wall = serve(engine, requests, sv)
-    launches = {k.name: k.launches for k in _dispatch.KERNELS}
-    chunks = engine.prefill_chunks - chunks0
-    steps = engine.decode_steps - steps0
+    dense = serve_logged(engine, requests, sv)
     peak = torch.cuda.max_memory_allocated()
-    expected = (2 * cfg.num_hidden_layers + 1) * (chunks + steps)
-    if launches[ln.LAYER_NORM_FWD.name] != expected:
-        raise AssertionError(
-            f"layer_norm_fwd launched {launches[ln.LAYER_NORM_FWD.name]} "
-            f"times, expected (2L+1) x (chunks + steps) = {expected}")
-    # the cached modes attend in plain PyTorch and return logits: the
-    # serving path launches the norm kernel and no other
-    if {k: n for k, n in launches.items() if n} != {
-            ln.LAYER_NORM_FWD.name: expected}:
-        raise AssertionError(f"serving path launches: {launches}")
-    if sorted(results) != sorted(r.rid for r in requests):
-        raise AssertionError(f"served {sorted(results)}")
-    for r in requests:
-        toks = results[r.rid].tokens
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{r.rid}: bad stream {toks}")
-    ttft = sorted(res.ttft_s for res in results.values())
+    results, summary = dense["results"], dense["summary"]
+    wall = summary["wall_s"]
     generated = sum(len(res.tokens) for res in results.values())
     decode_rates = [(len(res.tokens) - 1) / (res.total_s - res.ttft_s)
                     for res in results.values()]
     # the longest request again, alone: its batched stream (two checks)
     probe = max(requests, key=lambda r: len(r.prompt))
     alone = serving_alone_checks(engine, probe, results[probe.rid].tokens,
-                                 chunk_log, sv)
+                                 dense["chunk_log"], sv)
     out = dict(
         config="llama-1b", layers=cfg.num_hidden_layers,
         hidden=cfg.hidden_size, params=n_params, dtype="bfloat16",
         init_s=init_s, requests=len(requests), prompt_lens=lens,
         new_tokens=32, prompt_tokens=sum(lens), wall_s=wall,
-        ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+        ttft_p50_s=summary["ttft_p50_s"], ttft_max_s=summary["ttft_max_s"],
         output_tok_s=generated / wall,
         decode_tok_s_per_stream_p50=statistics.median(decode_rates),
-        peak_mem_bytes=peak, prefill_chunks=chunks, decode_steps=steps,
-        launches=launches, expected_norm_launches=expected,
+        peak_mem_bytes=peak, prefill_chunks=summary["prefill_chunks"],
+        decode_steps=summary["decode_steps"], launches=summary["launches"],
+        expected_norm_launches=summary["expected_norm_launches"],
         norm_launches_per_decode_step=2 * cfg.num_hidden_layers + 1,
         served_alone=alone)
     log("phase3-llama-1b", **out)
     out["profile"] = profile_steps(engine, cfg)
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["paged"] = paged_checks(model, requests, dense, sv, device, **kw)
+    log("phase3-serving-paged", **out["paged"])
+    shared = prefix_requests(cfg.vocab_size)
+    for form, paged in (("prefix_paged", True), ("prefix_dense", False)):
+        out[form] = prefix_checks(model, shared, sv, device, paged=paged, **kw)
+        log(f"phase3-serving-{form.replace('_', '-')}", **out[form])
+    out["paged_and_prefix_s"] = time.perf_counter() - t0
+    return out
+
+
+def llama_1b_int8(device, qmodel, ref) -> dict:
+    """int8 serving of the quantized ``llama-1b`` (:func:`int8_checks`),
+    the bf16 model freed; ``ref`` from :func:`int8_reference`."""
+    from apex_tpu_torch import serving as sv
+
+    t0 = time.perf_counter()
+    out = int8_checks(qmodel, serving_requests(qmodel.config.vocab_size),
+                      ref, sv, device, slots=8, max_len=2048, prefill_len=512)
+    out["phase_s"] = time.perf_counter() - t0
+    log("phase3-serving-int8", **out)
     return out
 
 
@@ -5769,6 +6309,7 @@ def main() -> int:
     routes_time = time_openfold_routes(device)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     reference = small_reference_check(device)
+    forms_reference = small_serving_forms_check(device)
     eval_reference = small_eval_check(device)
     train_reference = small_train_check(device)
     gpt_reference = small_gpt_check(device)
@@ -5778,7 +6319,15 @@ def main() -> int:
     model, init_s = build_llama_1b(device)
     e2e = llama_1b(device, model, init_s)
     evaluation = llama_1b_eval(device, model)
+    from apex_tpu_torch import serving as sv
+    qmodel, int8_ref = int8_reference(
+        model, max(serving_requests(model.config.vocab_size),
+                   key=lambda r: len(r.prompt)),
+        sv, device, slots=8, max_len=2048, prefill_len=512)
     del model
+    torch.cuda.empty_cache()
+    int8 = llama_1b_int8(device, qmodel, int8_ref)
+    del qmodel
     torch.cuda.empty_cache()
     training = llama_1b_train(device)
     amp_paths = {f"amp_{form}": llama_1b_amp_train(device, form)
@@ -5786,7 +6335,11 @@ def main() -> int:
     gpt_kernel = gpt2_large_train(device, "kernel")
     gpt_flagship = gpt2_large_train(device, "flagship")
     openfold = openfold_train(device)
-    paths = dict(serving=e2e, evaluation=evaluation, training=training,
+    paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
+                 serving_paged_tight=e2e["paged"]["tight_pool"],
+                 serving_prefix_paged=e2e["prefix_paged"]["with_prefix"],
+                 serving_prefix_dense=e2e["prefix_dense"]["with_prefix"],
+                 serving_int8=int8, evaluation=evaluation, training=training,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)
 
@@ -5907,7 +6460,8 @@ def main() -> int:
                   openfold_reference=openfold_reference,
                   amp_reference=amp_reference,
                   optimizer_reference=optimizer_reference,
-                  reference=reference, eval_reference=eval_reference,
+                  reference=reference, forms_reference=forms_reference,
+                  llama_1b_int8=int8, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},

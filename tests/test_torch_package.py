@@ -50,7 +50,10 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.amp, apex_tpu_torch.amp.policy, "
         "apex_tpu_torch.amp.scaler, apex_tpu_torch.fp16_utils, "
         "apex_tpu_torch.optimizers.fused_adagrad, "
-        "apex_tpu_torch.examples.simple, apex_tpu_torch.models.convert\n"
+        "apex_tpu_torch.examples.simple, apex_tpu_torch.models.convert, "
+        "apex_tpu_torch.amp.quant, apex_tpu_torch.serving.quant, "
+        "apex_tpu_torch.serving.paged_kv_cache, "
+        "apex_tpu_torch.serving.prefix_cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"

@@ -184,14 +184,14 @@ def test_engine_rejects_bad_construction(served, kw, match):
         sv.DecodeEngine(served["teng"].model, **args)
 
 
-@pytest.mark.parametrize("name", ["tp", "paged", "quant"])
+@pytest.mark.parametrize("name", ["tp"])
 def test_engine_options_of_later_slices_raise(served, name):
     with pytest.raises(NotImplementedError, match=name):
         sv.DecodeEngine(served["teng"].model, device="cpu",
                         **{name: object()}, **ENGINE)
 
 
-@pytest.mark.parametrize("name", ["speculation", "prefix_caching", "policy"])
+@pytest.mark.parametrize("name", ["speculation", "policy"])
 def test_scheduler_options_of_later_slices_raise(served, name):
     with pytest.raises(NotImplementedError, match=name):
         sv.ContinuousBatchingScheduler(served["teng"], **{name: object()})
