@@ -4,10 +4,15 @@ dense (:mod:`~apex_tpu_torch.serving.kv_cache`) or paged
 (:mod:`~apex_tpu_torch.serving.paged_kv_cache`) KV cache, fp or int8
 (:mod:`~apex_tpu_torch.serving.quant`), and
 :class:`ContinuousBatchingScheduler` on top, with cross-request prefix
-caching (:mod:`~apex_tpu_torch.serving.prefix_cache`)."""
+caching (:mod:`~apex_tpu_torch.serving.prefix_cache`), speculative
+decoding (:mod:`~apex_tpu_torch.serving.draft`), the control plane
+(:mod:`~apex_tpu_torch.serving.policy`) and an open-loop load generator
+(:mod:`~apex_tpu_torch.serving.loadgen`)."""
 
+from apex_tpu_torch.serving.draft import SpeculationConfig, adapt_k, propose
 from apex_tpu_torch.serving.engine import (
     DecodeEngine,
+    default_draft_buckets,
     default_prefill_buckets,
     token_seed,
 )
@@ -17,6 +22,20 @@ from apex_tpu_torch.serving.kv_cache import (
     init_cache,
     init_quant_cache,
     value_dtype,
+)
+from apex_tpu_torch.serving.loadgen import (
+    LoadGenerator,
+    LoadgenResult,
+    OpenLoopWorkload,
+    VirtualClock,
+    burst_arrivals,
+    chain_hooks,
+    make_workload,
+    mixed_length_prompts,
+    poisson_arrivals,
+    shared_prefix_prompts,
+    uniform_arrivals,
+    zero_overlap_prompts,
 )
 from apex_tpu_torch.serving.paged_kv_cache import (
     BlockPoolExhausted,
@@ -29,6 +48,7 @@ from apex_tpu_torch.serving.paged_kv_cache import (
     init_paged_cache,
     init_quant_paged_cache,
 )
+from apex_tpu_torch.serving.policy import SchedulingPolicy, WeightedRoundRobin
 from apex_tpu_torch.serving.prefix_cache import PrefixCache, PrefixCacheConfig
 from apex_tpu_torch.serving.quant import (
     QTensor,
@@ -44,22 +64,31 @@ from apex_tpu_torch.serving.quant import (
     stream_agreement,
 )
 from apex_tpu_torch.serving.scheduler import (
+    SERVED_REASONS,
     ContinuousBatchingScheduler,
     QueueFull,
     Request,
     RequestPhase,
     RequestResult,
     SchedulerStalled,
+    StreamExport,
 )
 
-__all__ = ["DecodeEngine", "default_prefill_buckets", "token_seed",
-           "KVCache", "QuantKVCache", "init_cache", "init_quant_cache",
-           "value_dtype", "BlockPoolExhausted", "PagedCacheConfig",
-           "PagedCacheManager", "PagedKVCache", "QuantPagedKVCache",
-           "blocks_per_slot", "bytes_per_block", "init_paged_cache",
-           "init_quant_paged_cache", "PrefixCache", "PrefixCacheConfig",
-           "QTensor", "QuantConfig", "QuantLinear", "dequant_params",
-           "evaluate_quant", "is_quantized", "kv_bytes_per_token",
-           "max_logit_error", "param_bytes", "quantize_params",
-           "stream_agreement", "ContinuousBatchingScheduler", "QueueFull",
-           "Request", "RequestPhase", "RequestResult", "SchedulerStalled"]
+__all__ = ["DecodeEngine", "default_draft_buckets", "default_prefill_buckets",
+           "token_seed", "KVCache", "QuantKVCache", "init_cache",
+           "init_quant_cache", "value_dtype", "BlockPoolExhausted",
+           "PagedCacheConfig", "PagedCacheManager", "PagedKVCache",
+           "QuantPagedKVCache", "blocks_per_slot", "bytes_per_block",
+           "init_paged_cache", "init_quant_paged_cache", "PrefixCache",
+           "PrefixCacheConfig", "QTensor", "QuantConfig", "QuantLinear",
+           "dequant_params", "evaluate_quant", "is_quantized",
+           "kv_bytes_per_token", "max_logit_error", "param_bytes",
+           "quantize_params", "stream_agreement", "SpeculationConfig",
+           "adapt_k", "propose", "ContinuousBatchingScheduler", "QueueFull",
+           "Request", "RequestPhase", "RequestResult", "SchedulerStalled",
+           "StreamExport", "SchedulingPolicy", "WeightedRoundRobin",
+           "SERVED_REASONS", "LoadGenerator", "LoadgenResult",
+           "OpenLoopWorkload", "VirtualClock", "burst_arrivals",
+           "chain_hooks", "make_workload", "mixed_length_prompts",
+           "poisson_arrivals", "shared_prefix_prompts", "uniform_arrivals",
+           "zero_overlap_prompts"]

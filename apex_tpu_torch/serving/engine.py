@@ -32,6 +32,10 @@ Options, each off by default:
   on a dense cache, :meth:`DecodeEngine.alias_prefix` /
   :meth:`DecodeEngine.fork_slot` on a paged one, and
   ``prefill(resume=)`` over what they placed.
+- speculation: :meth:`DecodeEngine.verify_draft` scores a drafted
+  continuation in one cached forward of ``bucket + 1`` rows (the drafts
+  padded to ``draft_buckets``), accepts on the device and commits the
+  accepted length there.
 
 There is no jit: the JAX program bodies are plain methods here, run
 under ``torch.inference_mode()``, and the JAX engine's ``*_compiles``
@@ -47,8 +51,8 @@ replays to the same stream.  ``temperature <= 0`` is greedy.  The draws
 are PyTorch's, not ``jax.random``'s, so a sampled stream repeats under a
 fixed seed but differs from the JAX engine's.
 
-Tensor parallelism and speculative decoding come with later slices of
-the port; ``tp=`` raises ``NotImplementedError``.
+Tensor parallelism comes with a later slice of the port; ``tp=`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ from apex_tpu_torch.serving.quant import (
     quantize_params,
 )
 
-__all__ = ["DecodeEngine", "default_prefill_buckets", "no_tf32",
-           "token_seed"]
+__all__ = ["DecodeEngine", "default_draft_buckets",
+           "default_prefill_buckets", "no_tf32", "token_seed"]
 
 
 @contextlib.contextmanager
@@ -122,6 +126,22 @@ def default_prefill_buckets(prefill_len: int, floor: int = 16) -> tuple:
     return tuple(out)
 
 
+def default_draft_buckets(max_draft: int) -> tuple:
+    """Power-of-two draft-length table ``(1, 2, 4, ..., max_draft)``.
+
+    A k-token draft is padded to the smallest covering bucket (the verify
+    forward is ``bucket + 1`` rows: the pending token plus the padded
+    draft), so the verify shapes stay logarithmic in ``max_draft``."""
+    if max_draft < 1:
+        raise ValueError(f"max_draft must be >= 1, got {max_draft}")
+    out, b = [], 1
+    while b < max_draft:
+        out.append(b)
+        b *= 2
+    out.append(max_draft)
+    return tuple(out)
+
+
 def token_seed(seed: int, index: int) -> int:
     """The generator seed of the ``index``-th generated token of a request
     seeded with ``seed`` (the port's counterpart of ``fold_in``)."""
@@ -156,6 +176,7 @@ class DecodeEngine:
     def __init__(self, model, *, slots: int = 8, max_len: int = 512,
                  prefill_len: int = 64,
                  prefill_buckets: Optional[Sequence[int]] = None,
+                 draft_buckets: Optional[Sequence[int]] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  device="cuda", paged: Optional[PagedCacheConfig] = None,
                  tp=None, quant: Optional[QuantConfig] = None):
@@ -186,6 +207,21 @@ class DecodeEngine:
                 f"the largest prefill bucket must equal prefill_len "
                 f"{prefill_len} (it is the full-chunk shape), got "
                 f"{buckets}")
+        if draft_buckets is None:
+            # a verify writes bucket + 1 rows, so the widest default draft
+            # must leave room in even the smallest cache
+            draft_buckets = default_draft_buckets(min(8, int(max_len) - 1))
+        dbuckets = tuple(int(b) for b in draft_buckets)
+        if not dbuckets or list(dbuckets) != sorted(set(dbuckets)):
+            raise ValueError(f"draft_buckets must be non-empty, strictly "
+                             f"ascending ints, got {dbuckets}")
+        if dbuckets[0] < 1:
+            raise ValueError(f"draft buckets must be >= 1 (a 0-token draft "
+                             f"has nothing to verify), got {dbuckets}")
+        if dbuckets[-1] >= int(max_len):
+            raise ValueError(
+                f"largest draft bucket {dbuckets[-1]} must be < max_len "
+                f"{max_len} (a verify writes bucket+1 rows into the cache)")
         if quant is not None:
             if quant.allreduce:
                 raise ValueError(
@@ -223,6 +259,7 @@ class DecodeEngine:
         self.max_len = int(max_len)
         self.prefill_len = int(prefill_len)
         self.prefill_buckets = buckets
+        self.draft_buckets = dbuckets
         kv_int8 = quant is not None and quant.kv
         cfg = model.config
         self._pager: Optional[PagedCacheManager] = None
@@ -263,6 +300,7 @@ class DecodeEngine:
         # model calls made, for callers that account per call
         self.prefill_chunks = 0
         self.decode_steps = 0
+        self.verify_calls = 0
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -327,6 +365,19 @@ class DecodeEngine:
                              f"{self.prefill_len}]")
         return next(b for b in self.prefill_buckets if b >= n)
 
+    @property
+    def max_draft(self) -> int:
+        """Widest draft :meth:`verify_draft` accepts (the largest draft
+        bucket)."""
+        return self.draft_buckets[-1]
+
+    def draft_bucket_for(self, k: int) -> int:
+        """Smallest draft bucket covering a ``k``-token draft."""
+        if not 1 <= k <= self.draft_buckets[-1]:
+            raise ValueError(f"draft length {k} not in [1, "
+                             f"{self.draft_buckets[-1]}]")
+        return next(b for b in self.draft_buckets if b >= k)
+
     # ---- the block pool (None / empty / refusing on a dense engine) ------
     @property
     def block_pool(self) -> Optional[PagedCacheManager]:
@@ -364,7 +415,7 @@ class DecodeEngine:
         """Install the pool's last-resort reclaim hook (``(n_blocks) ->
         freed``), called once before an allocation raises
         ``BlockPoolExhausted``: the scheduler wires prefix-cache eviction
-        here."""
+        here, and ``None`` unhooks it."""
         if self._pager is None:
             raise ValueError("set_block_reclaim on a dense engine")
         self._pager.reclaim = callback
@@ -570,6 +621,68 @@ class DecodeEngine:
         self._lengths_host[act] += 1
         self.decode_steps += 1
         return out
+
+    def verify_draft(self, slot: int, tokens: Sequence[int]) -> tuple:
+        """One speculative verify: score ``tokens`` (the slot's pending
+        last-sampled token followed by 1..``max_draft`` drafted
+        candidates) in one cached forward, accept the longest draft
+        prefix the model's greedy argmax agrees with, and roll the slot
+        back to the accepted depth.
+
+        The forward is the chunked-prefill path at the slot's offset over
+        ``bucket + 1`` rows (the draft padded to the smallest covering
+        ``draft_buckets`` entry), row ``i`` bounded at ``offset + i``, and
+        keeps every row's fp32 logits.  The argmax, the acceptance (a
+        cumulative product over the real draft rows) and the length
+        commit ``offset + accepted + 1`` run on the device; the host reads
+        ``accepted`` and the argmaxes once.
+
+        Returns ``(accepted, greedy, logits)``: ``accepted`` draft tokens
+        accepted (0: immediate rejection); ``greedy[i]`` the argmax after
+        ``tokens[:i+1]`` (a host int64 array), so the step emits
+        ``tokens[1:1+accepted] + [greedy[accepted]]``; ``logits`` the
+        per-row fp32 distributions ``[bucket+1, vocab]`` on the engine's
+        device (rows past ``accepted`` scored rejected or padded context).
+        After the call the slot holds ``offset + accepted + 1`` tokens: the
+        pending token and the accepted draft are cached and the bonus token
+        is the new pending one, as after a plain decode step.  On a paged
+        engine the blocks the real rows need are allocated first, padded
+        rows go to the sink, and a rollback leaves the surplus blocks owned
+        by the slot."""
+        self._check_slot(slot)
+        k = len(tokens) - 1
+        if k < 1:
+            raise ValueError(
+                f"verify_draft needs the pending token plus >= 1 draft "
+                f"token, got {len(tokens)} token(s) — with no draft to "
+                f"verify, run the plain decode step")
+        bucket = self.draft_bucket_for(k)    # raises past max_draft
+        offset = int(self._lengths_host[slot])
+        if offset == 0:
+            raise ValueError(
+                f"slot {slot} was never prefilled — a verify would expose "
+                f"garbage as its whole context")
+        if offset + k + 1 > self.max_len:
+            raise ValueError(
+                f"verify of {k + 1} tokens at offset {offset} overruns "
+                f"cache max_len {self.max_len}")
+        ids = torch.zeros((1, bucket + 1), dtype=torch.long)
+        ids[0, :k + 1] = torch.as_tensor(list(tokens), dtype=torch.long)
+        self._ensure_paged([(slot, offset, offset + k + 1)])
+        with self._on_device():
+            ids = ids.to(self.device)
+            logits, _ = self.model(ids, kv_cache=self._cache, slot=slot,
+                                   position=offset)
+            rows = logits[:, 0].float()                  # [bucket+1, vocab]
+            greedy = torch.argmax(rows, dim=-1)
+            match = greedy[:k] == ids[0, 1:k + 1]
+            accepted = torch.cumprod(match.long(), dim=0).sum()
+            self._cache.lengths[slot] = offset + 1 + accepted
+            read = torch.cat([accepted[None], greedy]).cpu().numpy()
+        a = int(read[0])
+        self._lengths_host[slot] = offset + a + 1
+        self.verify_calls += 1
+        return a, read[1:].astype(np.int64), rows
 
     # ---- prefix reuse on a dense cache: capture and restore ---------------
     def read_region(self, slot: int, start: int, stop: int) -> tuple:

@@ -75,8 +75,10 @@ ends the run with a non-zero exit and no result line:
    - *serving*: a small fp32 Llama served on the card against the same
      weights served on the CPU (the port's plain path), dense and in each
      of the forms below (paged, int8 dense and paged, prefix-cached dense
-     and paged: streams equal, first-token logits within 1e-4, int8
-     weights bit for bit, int8 KV within one quantization step); then the
+     and paged, speculative dense and paged, under a scheduling policy
+     dense and paged: streams equal, first-token logits within 1e-4, the
+     speculation and control-plane counts equal, int8 weights bit for
+     bit, int8 KV within one quantization step); then the
      ``llama-1b`` card at full width and depth, bf16, weights from a
      seeded ``torch.Generator`` on the card, behind ``DecodeEngine(slots=8,
      max_len=2048, prefill_len=512)`` and the FIFO scheduler: 12 greedy
@@ -93,7 +95,24 @@ ends the run with a non-zero exit and no result line:
      paged (hits alias the donor's blocks) and dense (restored rows equal
      the captured ones): 11 hits, 1 miss, 11 x 1024 saved tokens,
      first-token logits within the bf16 tolerance of the alone checks and
-     streams equal up to the first near tie.  After the evaluation path,
+     streams equal up to the first near tie.  Then speculation
+     (``SpeculationConfig(max_draft=8)``) against plain decode, dense and
+     paged, over 12 quoted-context requests (a 128-384-token passage twice,
+     64 new tokens) and the 12 random ones: streams equal up to the first
+     near tie, verifies counted as model calls in the launch gate, and
+     ``verify_draft`` fed a plain stream's true and corrupted
+     continuations (8 and 3 accepted, up to a near tie).  Then the control
+     plane: an open-loop workload on a virtual clock (16 batch requests,
+     then 8 priority-5 paid ones and 4 whose deadline expires in the
+     queue) under ``SchedulingPolicy`` and FIFO, dense and paged: >= 1
+     preempted, all resumed, the 4 shed, served streams equal to FIFO's up
+     to the first near tie, the same decisions dense and paged, the paid
+     p99 TTFT lower under the policy; ``close()`` frees a caching
+     scheduler's pool blocks for its successor.  Then failover: 8 streams
+     exported mid-decode from one dense engine and adopted by another over
+     the same model, with their captured rows and requeued, streams equal
+     to the uninterrupted run's up to the first near tie.  After the
+     evaluation path,
      the int8 copy of the model (``QuantConfig(weights=True, kv=True)``),
      the bf16 model freed: the 12 requests served, bytes and peak memory,
      and the longest request fed the bf16 stream: max |logit error| < 0.5
@@ -162,6 +181,7 @@ fuller report goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -3676,12 +3696,31 @@ def prefix_requests(vocab: int, prefix_len: int = 1024, lo: int = 64,
             for i, t in enumerate(tails)]
 
 
+def quoted_requests(vocab: int, lo: int = 128, hi: int = 384, n: int = 12,
+                    new_tokens: int = 64) -> list:
+    """``n`` greedy "quoted-context" requests: a seeded passage of
+    ``lo``-``hi`` tokens, then the same passage again (the RAG and
+    code-edit traffic prompt lookup drafts from), ``new_tokens`` new."""
+    import torch
+    from apex_tpu_torch import serving as sv
+
+    rng = torch.Generator().manual_seed(7)
+    lens = torch.randint(lo, hi + 1, (n,), generator=rng).tolist()
+    out = []
+    for i, length in enumerate(lens):
+        passage = torch.randint(0, vocab, (length,), generator=rng).tolist()
+        out.append(sv.Request(f"s{i}", passage + passage,
+                              max_new_tokens=new_tokens))
+    return out
+
+
 class StreamLog:
     """Records, while entered, each request's next-token logits and the
     final norm's output row they came from, step by step: the first from
-    the prefill chunk that completes its prompt, then one a decode step.
-    The engine's own calls run as they are; ``sched`` says which request
-    a slot holds."""
+    the prefill chunk that completes its prompt, then one a decode step,
+    or the rows of a speculative verify that gave emitted tokens (the
+    accepted draft and the bonus token).  The engine's own calls run as
+    they are; ``sched`` says which request a slot holds."""
 
     def __init__(self, engine, sched, requests):
         self.engine, self.sched = engine, sched
@@ -3695,6 +3734,7 @@ class StreamLog:
         self._hook = eng.model.norm.register_forward_hook(
             lambda mod, args, out: got.__setitem__("x", out))
         inner_chunk, inner_decode = eng.prefill_chunk, eng.decode
+        inner_verify = eng.verify_draft
 
         def chunk(slot, tokens):
             offset = int(eng.lengths()[slot])
@@ -3708,15 +3748,25 @@ class StreamLog:
         def decode(tokens, active):
             logits = inner_decode(tokens, active)
             rids = self.sched.active_slots
+            # a stream adopted mid-decode starts its log here
             for slot in np.flatnonzero(np.asarray(active, bool)).tolist():
-                self.logits[rids[slot]].append(logits[slot])
-                self.x[rids[slot]].append(got["x"][0, slot].float())
+                self.logits.setdefault(rids[slot], []).append(logits[slot])
+                self.x.setdefault(rids[slot], []).append(
+                    got["x"][0, slot].float())
             return logits
 
+        def verify(slot, tokens):
+            accepted, greedy, rows = inner_verify(slot, tokens)
+            rid = self.sched.active_slots[slot]
+            self.logits.setdefault(rid, []).extend(rows[:accepted + 1])
+            self.x.setdefault(rid, []).extend(
+                got["x"][:accepted + 1, 0].float())
+            return accepted, greedy, rows
+
         # inside a ChunkLog, whose wrapper is an attribute of the engine
-        self._saved = {k: eng.__dict__.get(k) for k in ("prefill_chunk",
-                                                       "decode")}
-        eng.prefill_chunk, eng.decode = chunk, decode
+        self._saved = {k: eng.__dict__.get(k) for k in (
+            "prefill_chunk", "decode", "verify_draft")}
+        eng.prefill_chunk, eng.decode, eng.verify_draft = chunk, decode, verify
         return self
 
     def __exit__(self, *exc):
@@ -3795,16 +3845,17 @@ def compare_streams(model, ref, got, label) -> dict:
                 first_near_tie=tie_at)
 
 
-def norm_launch_gate(engine, launches, chunks, steps, label) -> int:
+def norm_launch_gate(engine, launches, chunks, steps, label,
+                     verifies: int = 0) -> int:
     """On the card: the norm forward kernel launched exactly ``(2L + 1) x
-    (chunks + steps)`` times and no other kernel (the cached modes attend
-    in plain PyTorch, the int8 projections dequantize in plain PyTorch,
-    and serving takes logits).  Off the card nothing launches.  Returns
-    the expected count."""
+    (chunks + steps + verifies)`` times (one model call each) and no other
+    kernel (the cached modes attend in plain PyTorch, the int8 projections
+    dequantize in plain PyTorch, and serving takes logits).  Off the card
+    nothing launches.  Returns the expected count."""
     from apex_tpu_torch.ops import layer_norm as ln
 
     expected = (2 * engine.model.config.num_hidden_layers + 1) * (
-        chunks + steps)
+        chunks + steps + verifies)
     if engine.device.type == "cuda" and {
             k: n for k, n in launches.items() if n} != {
             ln.LAYER_NORM_FWD.name: expected}:
@@ -3814,18 +3865,21 @@ def norm_launch_gate(engine, launches, chunks, steps, label) -> int:
 
 
 def serve_logged(engine, requests, sv, *, prefix=None, first=0,
-                 after_first=None, label="serving") -> dict:
+                 after_first=None, label="serving", **sched_kw) -> dict:
     """Serve ``requests`` through a fresh scheduler (``prefix_caching=
-    prefix``), with the kernel counts set to 0 just before and its chunks
-    (:class:`ChunkLog`) and streams (:class:`StreamLog`) logged; holds the
-    norm-launch gate and checks every stream.  The first ``first``
-    requests are submitted alone and served until their prompts are
-    cached (then ``after_first(sched)`` runs) before the rest come."""
+    prefix`` and ``sched_kw``: ``speculation``, ``policy``), with the
+    kernel counts set to 0 just before and its chunks (:class:`ChunkLog`)
+    and streams (:class:`StreamLog`) logged; holds the norm-launch gate
+    and checks every stream.  The first ``first`` requests are submitted
+    alone and served until their prompts are cached (then
+    ``after_first(sched)`` runs) before the rest come."""
     import torch
     from apex_tpu_torch.ops import _dispatch
 
-    sched = sv.ContinuousBatchingScheduler(engine, prefix_caching=prefix)
+    sched = sv.ContinuousBatchingScheduler(engine, prefix_caching=prefix,
+                                           **sched_kw)
     chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    verifies0 = engine.verify_calls
     _dispatch.reset_launches()
     with ChunkLog(engine) as chunk_log, \
             StreamLog(engine, sched, requests) as stream_log:
@@ -3845,6 +3899,10 @@ def serve_logged(engine, requests, sv, *, prefix=None, first=0,
     launches = {k.name: k.launches for k in _dispatch.KERNELS}
     chunks = engine.prefill_chunks - chunks0
     steps = engine.decode_steps - steps0
+    verifies = engine.verify_calls - verifies0
+    if sched.spec_stats["dispatches"] != verifies:
+        raise AssertionError(f"{label}: {verifies} verifies, spec_stats "
+                             f"{sched.spec_stats}")
     if sorted(results) != sorted(r.rid for r in requests):
         raise AssertionError(f"{label}: served {sorted(results)}")
     vocab = engine.model.config.vocab_size
@@ -3860,9 +3918,12 @@ def serve_logged(engine, requests, sv, *, prefix=None, first=0,
         streams={k: v.tokens for k, v in results.items()},
         summary=dict(wall_s=wall, ttft_p50_s=statistics.median(ttft),
                      ttft_max_s=max(ttft), prefill_chunks=chunks,
-                     decode_steps=steps, launches=launches,
+                     decode_steps=steps, verifies=verifies,
+                     scheduler_steps=sched.steps_run,
+                     spec_stats=sched.spec_stats,
+                     control_stats=sched.control_stats, launches=launches,
                      expected_norm_launches=norm_launch_gate(
-                         engine, launches, chunks, steps, label)))
+                         engine, launches, chunks, steps, label, verifies)))
 
 
 def paged_checks(model, requests, dense, sv, device, **engine_kw) -> dict:
@@ -4002,6 +4063,399 @@ def prefix_checks(model, requests, sv, device, *, paged: bool,
     return out
 
 
+SPEC_MAX_DRAFT = 8
+CONTROL_STEP_S = 0.25      # the control plane's virtual seconds a step
+
+
+def forced_draft_check(engine, probe, sv) -> dict:
+    """``verify_draft`` fed drafts whose acceptance does not rest on how
+    repetitive random weights are: ``probe``'s plain greedy stream alone
+    (:func:`serve_in_chunks`, its own chunks, slot 0) gives the true
+    continuation.  Fed tokens 0-8 of it (pending token and an 8-token
+    draft) the verify must accept all 8 or stop at a near tie; fed the
+    same draft corrupted at position 3 it must accept 3.  Either way the
+    slot then holds ``offset + accepted + 1`` rows, the verify rows are
+    within :func:`bf16_logit_tol` of the plain run's logits at the same
+    depths, and so is the next decode's row (fed the plain token)."""
+    import numpy as np
+
+    n, step = len(probe.prompt), engine.prefill_len
+    own = [min(step, n - i) for i in range(0, n, step)]
+    tokens, logits, x = serve_in_chunks(engine, probe, 0, own)
+    tol = bf16_logit_tol(engine.model, x)
+    ties = near_ties(logits, tol)
+    out = {}
+    for name, corrupt in (("true_continuation", None), ("corrupted_at_3", 3)):
+        engine.reset()
+        pos = 0
+        for c in own:
+            engine.prefill_chunk(0, probe.prompt[pos:pos + c])
+            pos += c
+        draft = list(tokens[1:SPEC_MAX_DRAFT + 1])
+        if corrupt is not None:
+            draft[corrupt] = (draft[corrupt] + 1) % engine.model.config.vocab_size
+        offset = int(engine.lengths()[0])
+        accepted, greedy, rows = engine.verify_draft(0, [tokens[0]] + draft)
+        want = len(draft) if corrupt is None else corrupt
+        # a row that rejects below ``want`` must sit on a near tie of the
+        # plain run (row i predicts stream token i + 1)
+        if accepted > want or (accepted < want and not ties[accepted + 1]):
+            raise AssertionError(f"forced draft {name}: accepted {accepted}, "
+                                 f"expected {want} (near ties {ties[:10]})")
+        length = int(engine.lengths()[0])
+        if length != offset + accepted + 1 or int(
+                engine.cache.lengths[0]) != length:
+            raise AssertionError(f"forced draft {name}: slot length {length}, "
+                                 f"device {int(engine.cache.lengths[0])}, "
+                                 f"expected {offset + accepted + 1}")
+        ratio = float(((rows[:accepted + 1].float() - logits[1:accepted + 2])
+                       .abs() / tol[1:accepted + 2]).max())
+        ids = np.zeros((engine.slots,), np.int64)
+        active = np.zeros((engine.slots,), bool)
+        ids[0], active[0] = tokens[accepted + 1], True
+        nxt = engine.decode(ids, active)[0]
+        next_ratio = float(((nxt - logits[accepted + 2]).abs()
+                            / tol[accepted + 2]).max())
+        if ratio > 1 or next_ratio > 1:
+            raise AssertionError(f"forced draft {name}: verify rows off the "
+                                 f"plain logits by {ratio} x tolerance, the "
+                                 f"next decode by {next_ratio}")
+        out[name] = dict(drafted=len(draft), accepted=accepted,
+                         bonus_is_plain_token=int(greedy[accepted])
+                         == tokens[accepted + 1],
+                         verify_rows_tol_ratio=ratio,
+                         next_decode_tol_ratio=next_ratio)
+    engine.reset()
+    return out
+
+
+def spec_checks(model, sv, device, *, paged: bool, **engine_kw) -> dict:
+    """Speculative decoding (``SpeculationConfig(max_draft=8)``) against
+    plain decode, in one call, on a dense or a paged engine (1,025 blocks
+    of 16), over two request sets: 12 quoted-context requests
+    (:func:`quoted_requests`) and the 12 random-prompt ones
+    (:func:`serving_requests`, incompressible: mostly the fall-back to
+    plain decode).  Each speculative stream equals its plain one up to the
+    first near tie (:func:`compare_streams`); the quoted set's verifies
+    ran; the norm-launch gate counts verifies as model calls.  Then the
+    forced-draft check (:func:`forced_draft_check`)."""
+    kw = dict(device=device, **engine_kw)
+    if paged:
+        kw["paged"] = sv.PagedCacheConfig(block_size=16)
+    engine = sv.DecodeEngine(model, **kw)
+    form = "paged" if paged else "dense"
+    vocab = model.config.vocab_size
+    out = dict(paged=paged, max_draft=SPEC_MAX_DRAFT,
+               num_blocks=engine.block_pool.num_blocks if paged else None)
+    for name, requests in (("quoted", quoted_requests(vocab)),
+                           ("random", serving_requests(vocab))):
+        plain = serve_logged(engine, requests, sv,
+                             label=f"{form} {name} plain")
+        spec = serve_logged(engine, requests, sv,
+                            speculation=sv.SpeculationConfig(
+                                max_draft=SPEC_MAX_DRAFT),
+                            label=f"{form} {name} speculative")
+        stats = spec["sched"].spec_stats
+        if name == "quoted" and not stats["dispatches"]:
+            raise AssertionError(f"{form} {name}: no verify ran: {stats}")
+        if paged and (engine.block_pool.used_blocks or engine.cow_copies):
+            raise AssertionError(f"{form} {name}: {engine.block_pool.used_blocks}"
+                                 f" blocks used after, {engine.cow_copies} "
+                                 f"copies on write")
+        out[name] = dict(
+            requests=len(requests),
+            prompt_tokens=sum(len(r.prompt) for r in requests),
+            new_tokens=requests[0].max_new_tokens,
+            plain=plain["summary"], speculative=spec["summary"],
+            tokens_per_verify=(stats["emitted"] / stats["dispatches"]
+                               if stats["dispatches"] else None),
+            acceptance=(stats["accepted"] / stats["drafted"]
+                        if stats["drafted"] else None),
+            wall_ratio_spec_over_plain=spec["summary"]["wall_s"]
+            / plain["summary"]["wall_s"],
+            **compare_streams(model, plain, spec,
+                              f"{form} {name} speculative"))
+        log(f"phase3-serving-spec-{form}-{name}", **out[name])
+    probe = quoted_requests(vocab)[0]
+    out["forced_draft"] = forced_draft_check(engine, probe, sv)
+    out["tolerance"] = ("streams equal to plain decode up to the first near "
+                        "tie; first-token and verify logits within tol_j = "
+                        "(2L + 1) 2^-8 sqrt(sum_i x_i^2 E_ji^2)")
+    del engine
+    return out
+
+
+def control_workload(vocab: int, sv):
+    """The control plane's open-loop workload (virtual seconds): at t 0,
+    16 priority-0 requests of tenant ``batch``, prompts of 64-1,024
+    tokens; at t 5, 8 priority-5 requests of tenant ``paid`` (prompts of
+    64-512, deadline 20 s) and 4 priority-0 ``batch`` requests whose 0.5 s
+    deadline runs out in the queue.  64 new tokens each, greedy, no
+    ``eos_id``."""
+    import torch
+
+    rng = torch.Generator().manual_seed(9)
+
+    def prompt(lo, hi):
+        n = int(torch.randint(lo, hi + 1, (1,), generator=rng))
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    reqs, arrivals = [], []
+    for i in range(16):
+        reqs.append(sv.Request(f"b{i}", prompt(64, 1024), max_new_tokens=64,
+                               tenant="batch"))
+        arrivals.append(0.0)
+    for i in range(8):
+        reqs.append(sv.Request(f"p{i}", prompt(64, 512), max_new_tokens=64,
+                               priority=5, tenant="paid", deadline_s=20.0))
+        arrivals.append(5.0)
+    for i in range(4):
+        reqs.append(sv.Request(f"e{i}", prompt(64, 512), max_new_tokens=64,
+                               tenant="batch", deadline_s=0.5))
+        arrivals.append(5.0)
+    return sv.OpenLoopWorkload(requests=tuple(reqs), arrivals=tuple(arrivals),
+                               deadlines=tuple(r.deadline_s for r in reqs))
+
+
+def serve_open_loop(engine, workload, sv, *, policy, label) -> dict:
+    """``workload`` through :class:`LoadGenerator` on a ``VirtualClock``
+    (``CONTROL_STEP_S`` a step) over a fresh scheduler (``policy``), with
+    the kernel counts set to 0 just before and the streams logged
+    (:class:`StreamLog`); holds the norm-launch gate."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    sched = sv.ContinuousBatchingScheduler(engine, max_queue=64, policy=policy,
+                                           clock=sv.VirtualClock())
+    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    _dispatch.reset_launches()
+    with StreamLog(engine, sched, list(workload.requests)) as stream_log:
+        t0 = time.perf_counter()
+        out = sv.LoadGenerator(sched, workload,
+                               step_time_s=CONTROL_STEP_S).run()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = engine.prefill_chunks - chunks0
+    steps = engine.decode_steps - steps0
+    served = {rid: r.tokens for rid, r in out.results.items()
+              if r.finish_reason in sv.SERVED_REASONS}
+    by_class = {}
+    for cls, rids in (("paid", [r.rid for r in workload.requests
+                                if r.priority == 5]),
+                      ("batch", [r.rid for r in workload.requests
+                                 if r.priority == 0 and r.rid in served])):
+        ttft = sorted(out.results[r].ttft_s for r in rids if r in served)
+        by_class[cls] = dict(served=len(ttft), ttft_p50_s=statistics.median(
+            ttft) if ttft else None, ttft_p99_s=_nearest_rank(ttft, 0.99))
+    return dict(
+        sched=sched, out=out, stream_log=stream_log, streams=served,
+        decisions={rid: (r.finish_reason, r.preemptions, len(r.tokens))
+                   for rid, r in sorted(out.results.items())},
+        summary=dict(wall_s=wall, virtual_s=out.duration_s,
+                     scheduler_steps=out.steps, goodput=out.goodput,
+                     completed=out.completed, offered=out.offered,
+                     control_stats=sched.control_stats, ttft_by_class=by_class,
+                     prefill_chunks=chunks, decode_steps=steps,
+                     launches=launches,
+                     expected_norm_launches=norm_launch_gate(
+                         engine, launches, chunks, steps, label)))
+
+
+def _nearest_rank(sorted_values, q):
+    """The nearest-rank ``q`` quantile of a sorted list (None if empty)."""
+    if not sorted_values:
+        return None
+    return sorted_values[max(0, math.ceil(q * len(sorted_values)) - 1)]
+
+
+def control_checks(model, sv, device, **engine_kw) -> dict:
+    """The control plane at full width, dense and paged (default pool):
+    :func:`control_workload` under ``SchedulingPolicy(tenant_weights=
+    {"paid": 3.0})`` and under FIFO (``policy=None``).  Gates: under the
+    policy ``preempted >= 1``, ``resumed == preempted`` and the 4 expiring
+    requests shed; every served stream, preempted ones included, equal to
+    its FIFO run's up to the first near tie (:func:`compare_streams`); the
+    decisions (each result's finish reason, preemptions and token count)
+    equal between the dense and paged runs; the paid requests' p99 TTFT
+    lower under the policy; the paged pool empty after each run.  Then on
+    the paged engine the scheduler's ``close()`` (:func:`close_check`)."""
+    vocab = model.config.vocab_size
+    workload = control_workload(vocab, sv)
+    expiring = {r.rid for r in workload.requests if r.deadline_s == 0.5}
+    paid = {r.rid for r in workload.requests if r.priority == 5}
+    out, runs = {}, {}
+    for form in ("dense", "paged"):
+        kw = dict(device=device, **engine_kw)
+        if form == "paged":
+            kw["paged"] = sv.PagedCacheConfig(block_size=16)
+        engine = sv.DecodeEngine(model, **kw)
+        for name, policy in (("fifo", None), ("policy", sv.SchedulingPolicy(
+                tenant_weights={"paid": 3.0}))):
+            run = serve_open_loop(engine, workload, sv, policy=policy,
+                                  label=f"control {form} {name}")
+            runs[form, name] = run
+            if form == "paged" and engine.block_pool.used_blocks:
+                raise AssertionError(f"control paged {name}: "
+                                     f"{engine.block_pool.used_blocks} blocks "
+                                     f"used after the run")
+        stats = runs[form, "policy"]["sched"].control_stats
+        shed = {rid for rid, d in runs[form, "policy"]["decisions"].items()
+                if d[0] == "shed"}
+        if not (stats["preempted"] >= 1 and stats["resumed"] == stats[
+                "preempted"] and stats["shed"] == len(expiring)
+                and shed == expiring):
+            raise AssertionError(f"control {form}: {stats}, shed {sorted(shed)}")
+        fifo, pol = runs[form, "fifo"], runs[form, "policy"]
+        common = sorted(set(fifo["streams"]) & set(pol["streams"]))
+        cmp = compare_streams(
+            model, dict(streams={r: fifo["streams"][r] for r in common},
+                        stream_log=fifo["stream_log"]),
+            dict(streams={r: pol["streams"][r] for r in common},
+                 stream_log=pol["stream_log"]), f"control {form} policy")
+        p99 = {n: runs[form, n]["summary"]["ttft_by_class"]["paid"][
+            "ttft_p99_s"] for n in ("fifo", "policy")}
+        if not p99["policy"] < p99["fifo"]:
+            raise AssertionError(f"control {form}: paid p99 TTFT {p99}")
+        resumed = sorted(r for r, d in pol["decisions"].items()
+                         if d[0] == "preempted-resumed")
+        out[form] = dict(fifo=fifo["summary"], policy=pol["summary"],
+                         preempted_resumed=resumed,
+                         paid_p99_ttft_virtual_s=p99, **cmp)
+        log(f"phase3-serving-control-{form}", **out[form])
+        if form == "paged":
+            out["close"] = close_check(engine, sv)
+        del engine
+    for name in ("fifo", "policy"):
+        if runs["dense", name]["decisions"] != runs["paged", name]["decisions"]:
+            raise AssertionError(f"control {name}: dense and paged decided "
+                                 f"differently")
+    out.update(workload=dict(requests=len(workload.requests), paid=len(paid),
+                             expiring=len(expiring),
+                             fingerprint=workload.schedule_fingerprint(),
+                             step_virtual_s=CONTROL_STEP_S),
+               decisions_equal_dense_paged=True,
+               tolerance="served streams equal to the FIFO run's up to the "
+                         "first near tie; first-token logits within tol_j = "
+                         "(2L + 1) 2^-8 sqrt(sum_i x_i^2 E_ji^2)")
+    return out
+
+
+def close_check(engine, sv) -> dict:
+    """``close()`` on a caching scheduler over a paged engine: the cache's
+    blocks go back to the pool (``used_blocks`` 0) and the reclaim hook is
+    unwired; a successor caching scheduler then starts from a free pool
+    (the same hits and misses as the first, the same streams)."""
+    pool = engine.block_pool
+    requests = prefix_requests(engine.model.config.vocab_size, n=4,
+                               new_tokens=8)
+    runs = []
+    for _ in range(2):
+        if pool.used_blocks or pool.reclaim is not None:
+            raise AssertionError(f"close: {pool.used_blocks} blocks used, "
+                                 f"reclaim {pool.reclaim} before a scheduler")
+        run = serve_logged(engine, requests, sv, prefix=sv.PrefixCacheConfig(),
+                           first=1, label="close check")
+        cache = run["sched"].prefix_cache
+        held = pool.used_blocks
+        if not held or held != len(cache):
+            raise AssertionError(f"close: {held} blocks used for "
+                                 f"{len(cache)} cache entries")
+        run["sched"].close()
+        run["sched"].close()
+        if pool.used_blocks or pool.reclaim is not None or len(cache):
+            raise AssertionError(f"close: {pool.used_blocks} blocks used after "
+                                 f"close(), reclaim {pool.reclaim}")
+        runs.append(dict(streams=run["streams"], stats=run["sched"].stats(),
+                         blocks_held_before_close=held))
+    if runs[0] != runs[1]:
+        raise AssertionError(f"close: the successor differs: {runs}")
+    return dict(blocks_held_before_close=runs[0]["blocks_held_before_close"],
+                blocks_after_close=0, successor_identical=True,
+                prefix_stats=runs[0]["stats"])
+
+
+def export_adopt_checks(model, requests, sv, device, **engine_kw) -> dict:
+    """Failover between two dense engines over the one model object (a
+    cache of their own each): ``requests`` served on the donor until each
+    is decoding with 8 tokens or more, then ``export_streams`` (with
+    ``capture=True``: host copies of each stream's rows, restored by the
+    adopter, which decodes on; with ``capture=False``: requeued and
+    computed again), ``adopt_stream`` on the other scheduler, and run to
+    the end.  Every stream equals the uninterrupted run's up to the first
+    near tie (:func:`compare_streams`, the logits of both engines'
+    parts); the donor is closed and free."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    donor_eng = sv.DecodeEngine(model, device=device, **engine_kw)
+    target_eng = sv.DecodeEngine(model, device=device, **engine_kw)
+    ref = serve_logged(donor_eng, requests, sv, label="export reference")
+    out = dict(requests=len(requests),
+               cache_bytes_per_engine=sv.kv_bytes_per_token(donor_eng.cache)
+               * engine_kw["slots"] * engine_kw["max_len"])
+    for capture in (True, False):
+        donor_eng.reset()
+        target_eng.reset()
+        donor = sv.ContinuousBatchingScheduler(donor_eng)
+        target = sv.ContinuousBatchingScheduler(target_eng)
+        counts0 = [(e.prefill_chunks, e.decode_steps)
+                   for e in (donor_eng, target_eng)]
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with StreamLog(donor_eng, donor, requests) as dlog:
+            for r in requests:
+                donor.submit(r)
+            while any(donor.progress_of(r.rid) < 8 for r in requests):
+                donor.step()
+            exports = donor.export_streams(capture=capture)
+        donor.close()
+        if donor.active_count or donor_eng.free_slots() != list(
+                range(donor_eng.slots)):
+            raise AssertionError("export left the donor busy")
+        with StreamLog(target_eng, target, requests) as tlog:
+            for e in exports:
+                if not target.adopt_stream(e):
+                    raise AssertionError(f"adopt {e.request.rid} refused")
+            results = target.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _dispatch.KERNELS}
+        chunks = sum(e.prefill_chunks - c for e, (c, _) in zip(
+            (donor_eng, target_eng), counts0))
+        steps = sum(e.decode_steps - s for e, (_, s) in zip(
+            (donor_eng, target_eng), counts0))
+        merged = StreamLog(None, None, [])
+        for r in requests:
+            rid = r.rid
+            if capture:
+                merged.logits[rid] = dlog.logits[rid] + tlog.logits[rid]
+                merged.x[rid] = dlog.x[rid] + tlog.x[rid]
+            else:
+                merged.logits[rid], merged.x[rid] = tlog.logits[rid], tlog.x[rid]
+        got = dict(streams={k: v.tokens for k, v in results.items()},
+                   stream_log=merged)
+        name = "capture" if capture else "requeue"
+        preempted = sorted({v.preemptions for v in results.values()})
+        if preempted != [int(capture)] or any(
+                (e.kv is not None) != capture for e in exports):
+            raise AssertionError(f"export {name}: preemptions {preempted}")
+        out[name] = dict(
+            wall_s=wall, exported=len(exports),
+            tokens_at_export=sorted(len(e.tokens) for e in exports),
+            captured_bytes=sum(e.kv[0].numel() * e.kv[0].element_size() * 2
+                               for e in exports if e.kv is not None),
+            prefill_chunks=chunks, decode_steps=steps, launches=launches,
+            expected_norm_launches=norm_launch_gate(
+                donor_eng, launches, chunks, steps, f"export {name}"),
+            **compare_streams(model, ref, got, f"export {name}"))
+        log(f"phase3-serving-export-{name}", **out[name])
+    del donor_eng, target_eng
+    return out
+
+
 def int8_reference(model, probe, sv, device, **engine_kw) -> tuple:
     """What the int8 phase compares with, taken while the bf16 model is
     alive: ``probe``'s greedy stream on the bf16 engine, cached in its own
@@ -4082,8 +4536,13 @@ def small_serving_forms_check(device) -> dict:
     served in each new form: paged (``PagedCacheConfig(block_size=16)``),
     int8 (weights and KV, dense and paged) and prefix-cached (dense and
     paged), over six requests that share a 48-token prefix (the first
-    served alone until its prompt is cached, so the other five hit).  The
-    streams must be equal and the first-token logits within 1e-4; the
+    served alone until its prompt is cached, so the other five hit);
+    speculative (``SpeculationConfig(max_draft=8)``, dense and paged) over
+    six quoted-context requests; and under ``SchedulingPolicy()`` (dense
+    and paged) over the six shared-prefix requests, the last two at
+    priority 5 (they preempt).  The streams must be equal and the
+    first-token logits within 1e-4, and the counts (``spec_stats``,
+    ``control_stats``, verifies, decode steps, chunks) equal; the
     int8 weights equal bit for bit (one quantization of the same fp32
     weights), and each int8 KV value within one quantization step of its
     row's scale of the CPU's: card and CPU compute K and V in another
@@ -4103,23 +4562,39 @@ def small_serving_forms_check(device) -> dict:
     models["cuda"].load_state_dict(models["cpu"].state_dict())
     requests = prefix_requests(cfg.vocab_size, prefix_len=48, lo=5, hi=20,
                                n=6, new_tokens=8)
+    # the last two at priority 5: with both slots decoding they preempt
+    ranked = requests[:4] + [dataclasses.replace(r, priority=5)
+                             for r in requests[4:]]
+    quoted = quoted_requests(cfg.vocab_size, lo=16, hi=40, n=6, new_tokens=8)
     paged = sv.PagedCacheConfig(block_size=16)
     int8 = sv.QuantConfig(weights=True, kv=True)
     forms = dict(paged=dict(paged=paged), int8=dict(quant=int8),
                  int8_paged=dict(quant=int8, paged=paged),
                  prefix_dense=dict(prefix=sv.PrefixCacheConfig()),
                  prefix_paged=dict(paged=paged,
-                                   prefix=sv.PrefixCacheConfig()))
+                                   prefix=sv.PrefixCacheConfig()),
+                 spec=dict(sched=dict(speculation=sv.SpeculationConfig(
+                     max_draft=8)), requests=quoted),
+                 spec_paged=dict(paged=paged, sched=dict(
+                     speculation=sv.SpeculationConfig(max_draft=8)),
+                     requests=quoted),
+                 policy=dict(sched=dict(policy=sv.SchedulingPolicy()),
+                             requests=ranked),
+                 policy_paged=dict(paged=paged, sched=dict(
+                     policy=sv.SchedulingPolicy()), requests=ranked))
     out = {}
     for name, form in forms.items():
         prefix = form.pop("prefix", None)
+        sched_kw = form.pop("sched", {})
+        reqs = form.pop("requests", requests)
         runs, engines = {}, {}
         for dev in ("cpu", "cuda"):
             engines[dev] = sv.DecodeEngine(
                 models[dev], slots=2, max_len=128, prefill_len=32,
                 device="cpu" if dev == "cpu" else device, **form)
-            runs[dev] = serve_logged(engines[dev], requests, sv, prefix=prefix,
-                                     first=1, label=f"small {name} {dev}")
+            runs[dev] = serve_logged(engines[dev], reqs, sv, prefix=prefix,
+                                     first=1, label=f"small {name} {dev}",
+                                     **sched_kw)
         if runs["cpu"]["streams"] != runs["cuda"]["streams"]:
             raise AssertionError(f"small {name}: streams differ card/CPU: "
                                  f"{runs['cuda']['streams']} vs "
@@ -4128,10 +4603,22 @@ def small_serving_forms_check(device) -> dict:
                 "prefix_hits"] != len(requests) - 1:
             raise AssertionError(f"small {name}: "
                                  f"{runs['cuda']['sched'].stats()}")
+        counts = {dev: {k: runs[dev]["summary"][k] for k in (
+            "spec_stats", "control_stats", "verifies", "decode_steps",
+            "prefill_chunks")} for dev in runs}
+        if counts["cpu"] != counts["cuda"]:
+            raise AssertionError(f"small {name}: card {counts['cuda']}, CPU "
+                                 f"{counts['cpu']}")
+        if "speculation" in sched_kw and not counts["cuda"]["verifies"]:
+            raise AssertionError(f"small {name}: no verify ran")
+        if "policy" in sched_kw and not counts["cuda"]["control_stats"][
+                "preempted"]:
+            raise AssertionError(f"small {name}: nothing was preempted")
         err = max(float((runs["cuda"]["stream_log"].logits[r][0].cpu()
                          - runs["cpu"]["stream_log"].logits[r][0]).abs().max())
                   for r in runs["cpu"]["streams"])
-        row = dict(first_token_logit_max_abs_err=err, streams_identical=True)
+        row = dict(first_token_logit_max_abs_err=err, streams_identical=True,
+                   **counts["cuda"])
         if "quant" in form:
             row.update(int8_card_vs_cpu(*(engines[d] for d in ("cuda", "cpu"))))
         if err > 1e-4 and not row.get("kv_codes_differing"):
@@ -4253,8 +4740,10 @@ def llama_1b(device, model, init_s) -> dict:
     ``DecodeEngine`` (12 requests; the longest again alone, two checks;
     a profile), then the same requests paged (:func:`paged_checks`), then
     the shared-prefix workload with and without prefix caching, paged and
-    dense (:func:`prefix_checks`).  Each run launches the norm kernel
-    only, ``(2L + 1) x (chunks + steps)`` times."""
+    dense (:func:`prefix_checks`), speculation dense and paged
+    (:func:`spec_checks`), the control plane (:func:`control_checks`) and
+    failover (:func:`export_adopt_checks`).  Each run launches the norm
+    kernel only, ``(2L + 1) x (chunks + steps + verifies)`` times."""
     import torch
     from apex_tpu_torch import serving as sv
 
@@ -4306,6 +4795,17 @@ def llama_1b(device, model, init_s) -> dict:
         out[form] = prefix_checks(model, shared, sv, device, paged=paged, **kw)
         log(f"phase3-serving-{form.replace('_', '-')}", **out[form])
     out["paged_and_prefix_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for form, paged in (("spec_dense", False), ("spec_paged", True)):
+        out[form] = spec_checks(model, sv, device, paged=paged, **kw)
+    out["spec_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["control"] = control_checks(model, sv, device, **kw)
+    out["control_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["export"] = export_adopt_checks(model, requests[:kw["slots"]], sv,
+                                        device, **kw)
+    out["export_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6339,6 +6839,12 @@ def main() -> int:
                  serving_paged_tight=e2e["paged"]["tight_pool"],
                  serving_prefix_paged=e2e["prefix_paged"]["with_prefix"],
                  serving_prefix_dense=e2e["prefix_dense"]["with_prefix"],
+                 **{f"serving_spec_{f}_{n}": e2e[f"spec_{f}"][n]["speculative"]
+                    for f in ("dense", "paged") for n in ("quoted", "random")},
+                 **{f"serving_control_{f}_{n}": e2e["control"][f][n]
+                    for f in ("dense", "paged") for n in ("fifo", "policy")},
+                 **{f"serving_export_{n}": e2e["export"][n]
+                    for n in ("capture", "requeue")},
                  serving_int8=int8, evaluation=evaluation, training=training,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)

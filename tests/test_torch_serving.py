@@ -193,8 +193,25 @@ def test_engine_options_of_later_slices_raise(served, name):
 
 @pytest.mark.parametrize("name", ["speculation", "policy"])
 def test_scheduler_options_of_later_slices_raise(served, name):
-    with pytest.raises(NotImplementedError, match=name):
-        sv.ContinuousBatchingScheduler(served["teng"], **{name: object()})
+    """The scheduler options the speculative and control-plane slice
+    brought refuse what the JAX scheduler refuses: a draft wider than the
+    engine's draft bucket table, and a tenant weight that is not
+    positive."""
+    if name == "speculation":
+        with pytest.raises(ValueError, match="draft bucket table"):
+            sv.ContinuousBatchingScheduler(
+                served["teng"], speculation=sv.SpeculationConfig(
+                    max_draft=served["teng"].max_draft + 1))
+        with pytest.raises(ValueError, match="draft bucket table"):
+            jsv.ContinuousBatchingScheduler(
+                served["jeng"], speculation=jsv.SpeculationConfig(
+                    max_draft=served["jeng"].max_draft + 1))
+    else:
+        for pkg in (sv, jsv):
+            with pytest.raises(ValueError, match="weights must be > 0"):
+                pkg.ContinuousBatchingScheduler(
+                    served["teng"] if pkg is sv else served["jeng"],
+                    policy=pkg.SchedulingPolicy(tenant_weights={"a": 0.0}))
 
 
 def test_scheduler_submit_guards(served):

@@ -23,6 +23,9 @@ engine against apex_tpu.serving on the same weights.
   on the first decode step, and both sharers' logits equal a 2-slot dense
   run's bit for bit.  A tight pool holds admission back and still serves
   the dense streams; an exhausted pool raises.
+- **``close()``**: a caching scheduler's close gives its cached blocks back
+  to the pool and unhooks only its own reclaim callback, as in the JAX
+  test of the same name.
 
 The model is the one of ``tests/test_torch_serving.py``: 2 layers, hidden
 128, 4 heads over 2 kv heads, vocab 256, fp32, initialised in JAX.
@@ -348,3 +351,51 @@ def test_paged_engine_guards(models):
     with pytest.raises(ValueError, match="exceeds max_len"):
         sv.DecodeEngine(models[2], device="cpu", **ENGINE,
                         paged=sv.PagedCacheConfig(block_size=256))
+
+
+def test_scheduler_close_releases_cache_blocks_and_reclaim_hook(models):
+    """``close()`` on a caching paged scheduler drops every cached pool
+    block's reference and unhooks the reclaim callback it installed; a
+    successor caching scheduler over the same engine starts from an empty
+    pool and serves the same stream; ``close()`` with work in flight
+    refuses; closing an older scheduler leaves a newer one's hook in
+    place.  The JAX test of the same name, step for step."""
+    paged = sv.DecodeEngine(models[2], device="cpu", slots=2, max_len=128,
+                            prefill_len=32,
+                            paged=sv.PagedCacheConfig(block_size=16))
+    prompt = [int(t) for t in np.random.default_rng(21).integers(
+        0, CFG["vocab_size"], 40)]
+    pool = paged.block_pool
+
+    def fleet():
+        sched = sv.ContinuousBatchingScheduler(
+            paged, prefix_caching=sv.PrefixCacheConfig())
+        sched.submit(sv.Request("a", prompt, max_new_tokens=3))
+        return sched, sched.run()["a"].tokens
+
+    sched, want = fleet()
+    assert len(sched.prefix_cache) == 2          # two whole blocks cached
+    assert pool.used_blocks == 2                 # ...holding pool refs
+    assert pool.reclaim is not None
+    sched.close()
+    assert len(sched.prefix_cache) == 0
+    assert pool.used_blocks == 0
+    assert pool.reclaim is None
+    sched.close()                                # idempotent once drained
+    sched2, got = fleet()
+    assert got == want
+    sched2.close()
+    assert pool.used_blocks == 0
+    sched3 = sv.ContinuousBatchingScheduler(
+        paged, prefix_caching=sv.PrefixCacheConfig())
+    sched3.submit(sv.Request("q", prompt, max_new_tokens=1))
+    with pytest.raises(RuntimeError, match="queued"):
+        sched3.close()
+    sched3.run()
+    sched4 = sv.ContinuousBatchingScheduler(
+        paged, prefix_caching=sv.PrefixCacheConfig())
+    sched3.close()
+    assert pool.reclaim is not None              # sched4's hook survives
+    assert pool.reclaim == sched4.prefix_cache.evict_blocks
+    sched4.close()
+    assert pool.reclaim is None and pool.used_blocks == 0
