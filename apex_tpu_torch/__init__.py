@@ -42,3 +42,9 @@ with the packed Adam and Adagrad kernels of
 """
 
 __version__ = "0.1.0"
+
+from apex_tpu_torch._logging import _install_rank_aware_logging, set_logging_level
+
+# The rank-aware handler on the ``apex_tpu_torch`` logger, installed at
+# import as the JAX package installs its own.
+_install_rank_aware_logging()

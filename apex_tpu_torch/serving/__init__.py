@@ -7,7 +7,17 @@ dense (:mod:`~apex_tpu_torch.serving.kv_cache`) or paged
 caching (:mod:`~apex_tpu_torch.serving.prefix_cache`), speculative
 decoding (:mod:`~apex_tpu_torch.serving.draft`), the control plane
 (:mod:`~apex_tpu_torch.serving.policy`) and an open-loop load generator
-(:mod:`~apex_tpu_torch.serving.loadgen`)."""
+(:mod:`~apex_tpu_torch.serving.loadgen`).
+
+The engine, scheduler and load generator emit the JAX package's
+``serving_*`` and ``loadgen_*`` events through
+:func:`~apex_tpu_torch._logging.emit_event`; :mod:`apex_tpu_torch.obs`
+turns them into metrics (``prometheus_text()``), per-request records
+(:class:`~apex_tpu_torch.obs.RequestTraceRecorder`) and p50/p95/p99
+TTFT / TPOT / queue-wait and goodput reports
+(:func:`~apex_tpu_torch.obs.build_report`).  The serving faults a load
+run can inject through ``step_hook=`` are in
+:mod:`apex_tpu_torch.resilience.fault_injection`."""
 
 from apex_tpu_torch.serving.draft import SpeculationConfig, adapt_k, propose
 from apex_tpu_torch.serving.engine import (

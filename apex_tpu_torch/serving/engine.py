@@ -52,7 +52,12 @@ are PyTorch's, not ``jax.random``'s, so a sampled stream repeats under a
 fixed seed but differs from the JAX engine's.
 
 Tensor parallelism comes with a later slice of the port; ``tp=`` raises
-``NotImplementedError``.
+``NotImplementedError`` and :attr:`DecodeEngine.tp_size` is 1.
+
+Events (:func:`~apex_tpu_torch._logging.emit_event`), as the JAX engine
+emits them: ``serving_quant_enabled`` once at construction with
+``quant=``, and ``serving_block_cow`` with the count of copy-on-write
+pairs whenever a write copies shared blocks.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from apex_tpu_torch._logging import emit_event
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.serving.kv_cache import (
     commit_slot_length,
@@ -301,6 +307,13 @@ class DecodeEngine:
         self.prefill_chunks = 0
         self.decode_steps = 0
         self.verify_calls = 0
+        if quant is not None:
+            # quant=None emits nothing: the default event stream stays
+            # the fp engine's
+            emit_event("serving_quant_enabled",
+                       weights=bool(quant.weights), kv=bool(quant.kv),
+                       allreduce=bool(quant.allreduce), tp=self.tp_size,
+                       paged=self._pager is not None)
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -357,6 +370,12 @@ class DecodeEngine:
             for slot in range(self.slots):
                 self._pager.release(slot)
             self._flush_tables()
+
+    @property
+    def tp_size(self) -> int:
+        """Mesh width the serving calls run over: 1 until ``tp=`` is
+        ported."""
+        return 1
 
     def bucket_for(self, n: int) -> int:
         """Smallest prefill bucket covering an ``n``-token chunk."""
@@ -451,6 +470,7 @@ class DecodeEngine:
             with self._on_device():
                 for src, dst in pairs:
                     copy_block(self._cache, src, dst)
+            emit_event("serving_block_cow", blocks=len(pairs))
         self._flush_tables()
 
     def alias_prefix(self, slot: int, block_ids: Sequence[int],

@@ -25,9 +25,12 @@ generator, deterministic end to end:
   the run is sleep-free and every latency an exact multiple of the step.
 
 Goodput (requests served in full within their deadline / requests
-offered) is the overload metric.  The JAX module's events (run started,
-request shed, run finished) and its goodput gauge wait for the port of
-``obs/``; what they carry is in :class:`LoadgenResult`.
+offered) is the overload metric.  A run emits ``loadgen_started``, one
+``loadgen_request_shed`` per arrival a full queue turned away, and
+``loadgen_finished``, with the JAX module's payloads; a deadline-carrying
+workload also sets the ``apex_serving_goodput_ratio`` gauge
+(:mod:`apex_tpu_torch.obs.bridge`).  :class:`LoadgenResult` carries the
+same counts, with the workload's fingerprint and offered rate.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from apex_tpu_torch._logging import emit_event
 from apex_tpu_torch.serving.scheduler import (
     SERVED_REASONS,
     QueueFull,
@@ -303,7 +307,7 @@ class LoadgenResult:
     deadlines are enforced from arrival, not from (possibly later)
     submission, so a step boundary's submit lag can never quietly extend
     a deadline.  ``fingerprint`` and ``offered_rps`` are the workload's
-    (what the JAX module's start event carries)."""
+    (what the ``loadgen_started`` event carries)."""
 
     offered: int
     completed: int                         # results with FULL service
@@ -388,6 +392,10 @@ class LoadGenerator:
         rejected: List[str] = []
         submit_stamps: Dict[str, float] = {}
         steps = 0
+        emit_event("loadgen_started", offered=n,
+                   fingerprint=wl.schedule_fingerprint(),
+                   offered_rps=(None if wl.offered_rps == float("inf")
+                                else round(wl.offered_rps, 6)))
 
         def pending() -> bool:
             # suspended (preempted) streams are live work: a policy
@@ -409,6 +417,8 @@ class LoadGenerator:
                     # open-loop: the arrival process never slows down
                     # for the system — a full queue sheds the request
                     rejected.append(req.rid)
+                    emit_event("loadgen_request_shed", rid=req.rid,
+                               queue_depth=sched.queue_depth)
                 i += 1
             if i >= n and not pending():
                 break                       # everything shed or done
@@ -456,10 +466,23 @@ class LoadGenerator:
             met[req.rid] = bool(
                 deadline is None
                 or finish_abs - arrivals[req.rid] <= deadline)
-        return LoadgenResult(offered=n, completed=served,
-                             rejected=rejected, results=results,
-                             deadlines=deadlines, arrivals=arrivals,
-                             met_deadline=met, duration_s=duration_s,
-                             steps=steps,
-                             fingerprint=wl.schedule_fingerprint(),
-                             offered_rps=wl.offered_rps)
+        out = LoadgenResult(offered=n, completed=served,
+                            rejected=rejected, results=results,
+                            deadlines=deadlines, arrivals=arrivals,
+                            met_deadline=met, duration_s=duration_s,
+                            steps=steps,
+                            fingerprint=wl.schedule_fingerprint(),
+                            offered_rps=wl.offered_rps)
+        goodput = out.goodput
+        if goodput is not None:
+            # only a deadline-carrying workload touches the gauge: the
+            # default metric stream stays as it was
+            from apex_tpu_torch.obs import bridge as obs_bridge
+
+            obs_bridge.SERVING_GOODPUT.set(goodput)
+        emit_event("loadgen_finished", offered=n,
+                   completed=out.completed, shed=len(rejected),
+                   steps=steps, duration_s=round(duration_s, 6),
+                   goodput=(None if goodput is None
+                            else round(goodput, 6)))
+        return out

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from apex_tpu_torch._logging import emit_event
 from apex_tpu_torch.amp.quant import dequantize_int8, quantize_int8
 from apex_tpu_torch.transformer.tensor_parallel.layers import _Linear, _matmul
 
@@ -253,8 +254,9 @@ def evaluate_quant(ref_tokens, quant_tokens, *, ref_logits=None,
     """Score a quantized stream against its fp reference: ``agreement``,
     ``tokens`` compared, ``max_logit_error`` (with both logit stacks),
     ``bytes_per_token`` / ``capacity_ratio`` (with the byte accounting).
-    Returns the dict (the JAX function also publishes it as an event;
-    the port has no event stream)."""
+    Publishes the dict as the ``serving_quant_eval`` event, which the obs
+    bridge turns into the ``apex_serving_quant_*`` metrics, and returns
+    it."""
     out: dict = {
         "agreement": stream_agreement(ref_tokens, quant_tokens),
         "tokens": min(len(ref_tokens), len(quant_tokens)),
@@ -266,4 +268,5 @@ def evaluate_quant(ref_tokens, quant_tokens, *, ref_logits=None,
         if fp_bytes_per_token:
             out["capacity_ratio"] = float(fp_bytes_per_token) / float(
                 bytes_per_token)
+    emit_event("serving_quant_eval", **out)
     return out

@@ -60,11 +60,26 @@ Sampling draws from per-request seeds (see
 deadlines only, never token choice.  Preemption keeps a stream's token
 count, so its draws are the same after a resume.
 
-The JAX scheduler's event stream and metrics bridge are not carried
-over: what its events carry is kept in counters here, read by
-:meth:`~ContinuousBatchingScheduler.stats` (prefix hits, misses, saved
-tokens), :attr:`~ContinuousBatchingScheduler.spec_stats` and
-:attr:`~ContinuousBatchingScheduler.control_stats`.
+- **Telemetry**: every ``serving_*`` event of the JAX scheduler, with its
+  payload, at the same step boundary, through
+  :func:`~apex_tpu_torch._logging.emit_event` (the obs bridge turns them
+  into metrics; a :class:`~apex_tpu_torch.obs.RequestTraceRecorder` into
+  per-request records); ``serving_step`` every ``log_interval`` steps.
+  The current-state gauges of :mod:`apex_tpu_torch.obs.bridge` (queue
+  depth, slot occupancy, cache utilization, prefill backlog, and with
+  their features prefix cached tokens, block-pool utilization, tenant
+  in-flight and speculation speedup) are set every step.  ``name=``
+  stamps ``replica`` on every event and mirrors the gauges into
+  ``{replica=name}`` series.  Every field comes from host state the
+  scheduler already holds: telemetry reads nothing from the device.  Two
+  departures from the JAX scheduler: a verify that finishes its request
+  emits ``serving_spec_verify`` before the ``serving_request_finished``
+  it causes (the JAX scheduler emits them the other way round, so its
+  request-trace recorder drops that verify), and
+  ``apex_serving_decode_compiles`` is never set (nothing here compiles).
+  :meth:`~ContinuousBatchingScheduler.stats` (prefix hits, misses, saved
+  tokens), :attr:`~ContinuousBatchingScheduler.spec_stats` and
+  :attr:`~ContinuousBatchingScheduler.control_stats` keep the same counts.
 """
 
 from __future__ import annotations
@@ -77,6 +92,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from apex_tpu_torch._logging import emit_event
+from apex_tpu_torch.obs import bridge as obs_bridge
 from apex_tpu_torch.serving.draft import SpeculationConfig, adapt_k, propose
 from apex_tpu_torch.serving.engine import DecodeEngine
 from apex_tpu_torch.serving.paged_kv_cache import (
@@ -226,15 +243,24 @@ class ContinuousBatchingScheduler:
     ``speculation`` and ``policy`` are as in the module docstring; without
     them the scheduler is the FIFO one.  ``clock`` stamps every latency
     and deadline (a :class:`~apex_tpu_torch.serving.loadgen.VirtualClock`
-    makes them exact).
+    makes them exact).  ``log_interval`` is the period, in steps, of the
+    ``serving_step`` event; ``name`` makes this scheduler a named replica:
+    every event carries ``replica=name`` and the per-step gauges get a
+    ``{replica=name}`` series beside the unlabeled one.
     """
 
     def __init__(self, engine: DecodeEngine, *, max_queue: int = 64,
+                 log_interval: int = 32,
                  prefill_budget: Optional[int] = None,
                  speculation: Optional[SpeculationConfig] = None,
                  prefix_caching: Optional[PrefixCacheConfig] = None,
                  policy: Optional[SchedulingPolicy] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 name: Optional[str] = None):
+        if name is not None and (not isinstance(name, str) or not name):
+            raise ValueError(
+                f"scheduler name must be a non-empty string (it becomes "
+                f"the bounded 'replica' metric label), got {name!r}")
         if prefill_budget is None:
             prefill_budget = engine.prefill_len
         if prefill_budget < 1:
@@ -247,7 +273,11 @@ class ContinuousBatchingScheduler:
                 f"the engine's draft bucket table (max {engine.max_draft})"
                 f" — widen draft_buckets or narrow the config")
         self.engine = engine
+        self.name = name
+        if name is not None:
+            obs_bridge.register_replica(name)
         self.max_queue = int(max_queue)
+        self.log_interval = max(1, int(log_interval))
         self.prefill_budget = int(prefill_budget)
         self.speculation = speculation
         self.policy = policy
@@ -273,9 +303,19 @@ class ContinuousBatchingScheduler:
         self.prefix_saved_tokens = 0
         self._spec = dict(dispatches=0, drafted=0, accepted=0, emitted=0)
         self._control = dict(preempted=0, resumed=0, cancelled=0, shed=0)
+        # every tenant seen under a policy: the in-flight gauge reads 0
+        # for one with nothing in flight
+        self._tenants_seen: set = set()
         # checkpoint step of the weights served (None: unknown); set once
         # weight reload is ported
         self.weights_step: Optional[int] = None
+
+    def _emit(self, kind: str, **fields) -> None:
+        """Every serving event this scheduler emits, stamped with
+        ``replica`` when the scheduler is named."""
+        if self.name is not None:
+            fields["replica"] = self.name
+        emit_event(kind, **fields)
 
     def _make_prefix_cache(self, config: PrefixCacheConfig) -> PrefixCache:
         engine = self.engine
@@ -355,6 +395,10 @@ class ContinuousBatchingScheduler:
             raise QueueFull(f"queue at capacity ({self.max_queue})")
         self._queue.append((request, self._clock()))
         self._live_rids.add(rid)
+        if self.policy is not None:
+            self._tenants_seen.add(request.tenant)
+        self._emit("serving_request_queued", rid=rid, prompt_tokens=n,
+                   queue_depth=len(self._queue))
 
     # ---- introspection ---------------------------------------------------
     @property
@@ -497,6 +541,10 @@ class ContinuousBatchingScheduler:
                      draft_k=self._draft_k(request))
         self._active[slot] = st
         self._admit_seq += 1
+        self._emit("serving_request_admitted", rid=request.rid, slot=slot,
+                   prompt_tokens=len(request.prompt),
+                   queue_depth=len(self._queue),
+                   queue_wait_s=round(self._clock() - t_submit, 6))
         if self.prefix_cache is not None:
             self._match_and_restore(st)
 
@@ -537,7 +585,7 @@ class ContinuousBatchingScheduler:
             return None
         return min(victims, key=lambda st: (st.request.priority, -st.seq))
 
-    def _preempt(self, st: _Active) -> None:
+    def _preempt(self, st: _Active, *, by_priority: int) -> None:
         """Evict an active DECODE stream losslessly: capture its cache
         (dense: ``capture_slot`` to host memory; paged: one reference on
         each of its blocks, no bytes move), release the slot, and park
@@ -562,6 +610,10 @@ class ContinuousBatchingScheduler:
         st.preemptions += 1
         self._suspended.append(sus)
         self._control["preempted"] += 1
+        self._emit("serving_request_preempted", rid=st.request.rid,
+                   slot=slot, priority=st.request.priority,
+                   by_priority=by_priority, new_tokens=len(st.tokens),
+                   cached_tokens=length)
 
     def _resume(self, sus: _Suspended, slot: int) -> None:
         """Put a suspended stream back into a free slot: dense, the
@@ -578,6 +630,9 @@ class ContinuousBatchingScheduler:
         st.slot = slot
         self._active[slot] = st
         self._control["resumed"] += 1
+        self._emit("serving_request_resumed", rid=st.request.rid,
+                   slot=slot, cached_tokens=sus.length,
+                   suspended_s=round(self._clock() - sus.t_suspended, 6))
 
     def _admit_policy(self) -> None:
         """Policy admission: serve the highest priority class with an
@@ -632,7 +687,7 @@ class ContinuousBatchingScheduler:
                     if snap is not None:
                         self._wrr.restore(snap)
                     break
-                self._preempt(victim)
+                self._preempt(victim, by_priority=best)
                 free = self._free_slots()
             if res_best:
                 self._suspended.pop(qi)
@@ -658,6 +713,11 @@ class ContinuousBatchingScheduler:
                 self._terminal_result(request, t_submit, t_first=0.0,
                                       tokens=[], reason="shed")
                 shed.append(request.rid)
+                # the depth of the queue as the walk found it
+                self._emit("serving_request_shed", rid=request.rid,
+                           deadline_s=request.deadline_s,
+                           waited_s=round(now - t_submit, 6),
+                           new_tokens=0, queue_depth=len(self._queue))
             else:
                 keep.append((request, t_submit))
         self._queue = keep
@@ -671,6 +731,11 @@ class ContinuousBatchingScheduler:
                                       reason="shed",
                                       preemptions=st.preemptions)
                 shed.append(st.request.rid)
+                self._emit("serving_request_shed", rid=st.request.rid,
+                           deadline_s=st.request.deadline_s,
+                           waited_s=round(now - st.t_submit, 6),
+                           new_tokens=len(st.tokens),
+                           queue_depth=len(self._queue))
             else:
                 keep_s.append(sus)
         self._suspended = keep_s
@@ -711,6 +776,8 @@ class ContinuousBatchingScheduler:
                 self._terminal_result(request, t_submit, t_first=0.0,
                                       tokens=[], reason="cancelled")
                 self._control["cancelled"] += 1
+                self._emit("serving_request_cancelled", rid=rid,
+                           phase="queued", new_tokens=0)
                 return True
         for i, sus in enumerate(self._suspended):
             if sus.st.request.rid == rid:
@@ -722,6 +789,8 @@ class ContinuousBatchingScheduler:
                                       reason="cancelled",
                                       preemptions=st.preemptions)
                 self._control["cancelled"] += 1
+                self._emit("serving_request_cancelled", rid=rid,
+                           phase="suspended", new_tokens=len(st.tokens))
                 return True
         for slot, st in list(self._active.items()):
             if st.request.rid == rid:
@@ -736,6 +805,9 @@ class ContinuousBatchingScheduler:
                                       reason="cancelled",
                                       preemptions=st.preemptions)
                 self._control["cancelled"] += 1
+                self._emit("serving_request_cancelled", rid=rid,
+                           phase=("decode" if st.tokens else "prefill"),
+                           new_tokens=len(st.tokens))
                 return True
         if rid in self._results:
             return False
@@ -809,6 +881,11 @@ class ContinuousBatchingScheduler:
                 raise QueueFull(f"queue at capacity ({self.max_queue})")
             self._queue.append((request, exp.t_submit))
             self._live_rids.add(request.rid)
+            if self.policy is not None:
+                self._tenants_seen.add(request.tenant)
+            self._emit("serving_request_queued", rid=request.rid,
+                       prompt_tokens=len(request.prompt),
+                       queue_depth=len(self._queue))
             return True
         if self._paged:
             raise ValueError(
@@ -828,6 +905,10 @@ class ContinuousBatchingScheduler:
             preemptions=exp.preemptions + 1)
         self._admit_seq += 1
         self._live_rids.add(request.rid)
+        if self.policy is not None:
+            self._tenants_seen.add(request.tenant)
+        self._emit("serving_request_resumed", rid=request.rid, slot=slot,
+                   cached_tokens=exp.length, suspended_s=None)
         return True
 
     def close(self) -> None:
@@ -859,16 +940,23 @@ class ContinuousBatchingScheduler:
         pin the matched entries until the prompt is cached; prefill then
         spends the budget on the rest only."""
         cache = self.prefix_cache
-        covered, entries = cache.match(st.request.prompt)
+        request = st.request
+        covered, entries = cache.match(request.prompt)
         if not covered:
             self.prefix_misses += 1
+            self._emit("serving_prefix_miss", rid=request.rid,
+                       prompt_tokens=len(request.prompt))
             return
+        t0 = self._clock()
         if self._paged:
             self.engine.alias_prefix(st.slot, [e.block_id for e in entries],
                                      covered)
+            self._emit("serving_block_alias", rid=request.rid,
+                       blocks=len(entries), saved_tokens=covered)
         else:
             self.engine.restore_prefix(st.slot, cache.gather_kv(entries),
                                        covered)
+        dt = self._clock() - t0
         cache.acquire(entries)
         st.pinned = list(entries)
         st.prompt_pos = covered
@@ -876,6 +964,10 @@ class ContinuousBatchingScheduler:
         st.blocks_cached = len(entries)
         self.prefix_hits += 1
         self.prefix_saved_tokens += covered
+        self._emit("serving_prefix_hit", rid=request.rid,
+                   saved_tokens=covered, blocks=len(entries),
+                   prompt_tokens=len(request.prompt),
+                   duration_s=round(dt, 6))
 
     def _pin(self, st: _Active, entries) -> None:
         for entry in entries:
@@ -963,10 +1055,16 @@ class ContinuousBatchingScheduler:
                 chunk = min(st.prompt_remaining, self.engine.prefill_len,
                             budget)
                 offset = st.prompt_pos
+                t0 = self._clock()
                 logits = self.engine.prefill_chunk(
                     st.slot, st.request.prompt[offset:offset + chunk])
+                dt = self._clock() - t0
                 st.prompt_pos = offset + chunk
                 budget -= chunk
+                self._emit("serving_prefill_chunk", rid=st.request.rid,
+                           bucket=self.engine.bucket_for(chunk),
+                           chunk_tokens=chunk, offset_tokens=offset,
+                           duration_s=round(dt, 6))
                 if self.prefix_cache is not None:
                     self._offer_blocks(st)
                 if not st.prompt_remaining:
@@ -977,33 +1075,54 @@ class ContinuousBatchingScheduler:
                     if self.prefix_cache is not None:
                         # the prompt is cached: its chain needs no pin
                         self._release_pins(st)
+                    self._emit("serving_first_token", rid=st.request.rid,
+                               ttft_s=round(st.t_first - st.t_submit, 6))
                     if self._finish_if_done(st):
                         finished.append(st.request.rid)
             if budget <= 0:
                 break
         return finished
 
-    def _finish_if_done(self, st: _Active) -> bool:
+    @staticmethod
+    def _done(st: _Active) -> bool:
+        """Whether ``st``'s last token ends its stream (EOS or length)."""
         request = st.request
-        done_eos = (request.eos_id is not None and st.tokens
-                    and st.tokens[-1] == request.eos_id)
-        done_len = len(st.tokens) >= request.max_new_tokens
-        if not (done_eos or done_len):
+        return bool((request.eos_id is not None and st.tokens
+                     and st.tokens[-1] == request.eos_id)
+                    or len(st.tokens) >= request.max_new_tokens)
+
+    def _finish_if_done(self, st: _Active) -> bool:
+        if not self._done(st):
             return False
-        total = max(self._clock() - st.t_submit, 1e-9)
+        request = st.request
+        done_eos = (request.eos_id is not None
+                    and st.tokens[-1] == request.eos_id)
+        now = self._clock()
+        total = max(now - st.t_submit, 1e-9)
         # a stream that survived a preemption got its whole service, and
         # says so: its latencies include the suspension
         reason = "eos" if done_eos else "length"
         if st.preemptions:
             reason = "preempted-resumed"
-        self._results[request.rid] = RequestResult(
+        result = RequestResult(
             rid=request.rid, tokens=list(st.tokens), finish_reason=reason,
             ttft_s=st.t_first - st.t_submit, total_s=total,
             tokens_per_s=len(st.tokens) / total,
             preemptions=st.preemptions)
+        self._results[request.rid] = result
         st.phase = RequestPhase.DONE
         self._active.pop(st.slot, None)
         self.engine.release(st.slot)     # immediate slot reuse
+        # per_token_ms is the decode path only (first token to finish):
+        # queue wait and prefill are in ttft_s
+        decode_s = max(now - st.t_first, 0.0)
+        decode_steps = max(len(st.tokens) - 1, 1)
+        self._emit("serving_request_finished", rid=request.rid,
+                   finish_reason=result.finish_reason,
+                   new_tokens=len(result.tokens),
+                   tokens_per_s=round(result.tokens_per_s, 3),
+                   per_token_ms=round(decode_s / decode_steps * 1e3, 3),
+                   weights_step=self.weights_step)
         return True
 
     def _spec_work(self, decoding: Dict[int, _Active]) -> tuple:
@@ -1036,19 +1155,32 @@ class ContinuousBatchingScheduler:
                             ngram_max=cfg.ngram_max, ngram_min=cfg.ngram_min)
             if not draft:
                 continue
+            t0 = self._clock()
             accepted, greedy, _ = self.engine.verify_draft(
                 slot, [st.tokens[-1]] + draft)
+            dt = self._clock() - t0
             consumed.add(slot)
             st.draft_k = adapt_k(st.draft_k, len(draft), accepted, cfg)
             self._spec["dispatches"] += 1
             self._spec["drafted"] += len(draft)
             self._spec["accepted"] += accepted
+            n_emitted = 0
             for tok in draft[:accepted] + [int(greedy[accepted])]:
                 st.tokens.append(int(tok))
-                self._spec["emitted"] += 1
-                if self._finish_if_done(st):
-                    finished.append(request.rid)
+                n_emitted += 1
+                if self._done(st):
                     break
+            self._spec["emitted"] += n_emitted
+            # the verify's event comes before the finish it causes, so a
+            # request's events read in the order things happened (the
+            # JAX scheduler finishes first, and its request-trace
+            # recorder, finding the record closed, drops the verify)
+            self._emit("serving_spec_verify", rid=request.rid,
+                       bucket=self.engine.draft_bucket_for(len(draft)),
+                       drafted=len(draft), accepted=accepted,
+                       emitted=n_emitted, duration_s=round(dt, 6))
+            if self._finish_if_done(st):
+                finished.append(request.rid)
         return finished, consumed
 
     def step(self) -> List[str]:
@@ -1077,14 +1209,58 @@ class ContinuousBatchingScheduler:
                 active[slot] = True
             logits = self.engine.decode(tokens, active)
             slots = sorted(decoding)
-            states = [decoding[s] for s in slots]
-            sampled = self._sample(logits, states, slots)
-            for st, tok in zip(states, sampled):
-                st.tokens.append(int(tok))
+            sampled = dict(zip(slots, self._sample(
+                logits, [decoding[s] for s in slots], slots)))
+            # streams finish in slot-admission order, as in the JAX
+            # scheduler, so two finishing in one step emit in its order
+            for slot, st in decoding.items():
+                st.tokens.append(int(sampled[slot]))
                 if self._finish_if_done(st):
                     finished.append(st.request.rid)
         self._step_index += 1
+        self._publish_step()
         return finished
+
+    def _publish_step(self) -> None:
+        """The current-state gauges, every step, and ``serving_step``
+        every ``log_interval`` steps: all from host state (the engine's
+        length mirror, the pool's counts, the scheduler's own), so no
+        telemetry reads the device.  Gauges of an unused feature (prefix
+        cache, paged pool, policy, speculation) stay unset."""
+        occupancy = len(self._active) / max(self.engine.slots, 1)
+        cache_util = self.engine.cache_utilization()
+        backlog = self.prefill_backlog
+        spec = self._spec
+        series = [{}] if self.name is None else [{}, {"replica": self.name}]
+        for labels in series:
+            obs_bridge.SERVING_QUEUE_DEPTH.set(len(self._queue), **labels)
+            obs_bridge.SERVING_SLOT_OCCUPANCY.set(occupancy, **labels)
+            obs_bridge.SERVING_CACHE_UTILIZATION.set(cache_util, **labels)
+            obs_bridge.SERVING_PREFILL_BACKLOG.set(backlog, **labels)
+            if self.prefix_cache is not None:
+                obs_bridge.SERVING_PREFIX_CACHED_TOKENS.set(
+                    self.prefix_cache.cached_tokens, **labels)
+            if self._paged:
+                obs_bridge.SERVING_BLOCK_POOL_UTILIZATION.set(
+                    self.engine.block_pool_utilization(), **labels)
+            if spec["dispatches"]:
+                # tokens a verify: 1.0 is plain decode's rate
+                obs_bridge.SERVING_SPEC_SPEEDUP.set(
+                    spec["emitted"] / spec["dispatches"], **labels)
+            if self.policy is not None and not labels:
+                # every tenant ever seen, so one with nothing in flight
+                # reads 0 (unlabeled by replica, as in the JAX scheduler)
+                counts = self._tenant_inflight()
+                for tenant in self._tenants_seen:
+                    obs_bridge.SERVING_TENANT_INFLIGHT.set(
+                        counts.get(tenant, 0), tenant=tenant)
+        if self._step_index % self.log_interval == 0:
+            self._emit("serving_step", step=self._step_index,
+                       queue_depth=len(self._queue),
+                       active_slots=len(self._active),
+                       slot_occupancy=round(occupancy, 4),
+                       cache_utilization=round(cache_util, 6),
+                       prefill_backlog=backlog, tp=self.engine.tp_size)
 
     def _derived_step_bound(self) -> int:
         """A generous progress bound for :meth:`run`: every step of a

@@ -111,8 +111,19 @@ ends the run with a non-zero exit and no result line:
      scheduler's pool blocks for its successor.  Then failover: 8 streams
      exported mid-decode from one dense engine and adopted by another over
      the same model, with their captured rows and requeued, streams equal
-     to the uninterrupted run's up to the first near tie.  After the
-     evaluation path,
+     to the uninterrupted run's up to the first near tie.  Then the
+     observability layer (``phase3-serving-obs-*`` lines): the control
+     plane's policy run again with a request recorder, a span recorder and
+     a capture sink installed (decisions, streams and logits bit for bit
+     the first run's, the same norm launches), its records, metrics,
+     Perfetto export and Prometheus text reconciled with the scheduler
+     and the load generator, the dense quoted speculation run's records
+     against its verify events, the chaos acceptance run (slow steps, a
+     stalled stream, a cancel storm; FIFO against the policy), a
+     real-clock Poisson run's TTFT / TPOT / queue-wait percentiles, the
+     telemetry's cost, and ``start_torch_profiler`` around three decode
+     steps (the trace names the norm kernel; as many device-to-host copies
+     with the telemetry on as off).  After the evaluation path,
      the int8 copy of the model (``QuantConfig(weights=True, kv=True)``),
      the bf16 model freed: the 12 requests served, bytes and peak memory,
      and the longest request fed the bf16 stream: max |logit error| < 0.5
@@ -4129,7 +4140,8 @@ def forced_draft_check(engine, probe, sv) -> dict:
     return out
 
 
-def spec_checks(model, sv, device, *, paged: bool, **engine_kw) -> dict:
+def spec_checks(model, sv, device, *, paged: bool, observe=None,
+                **engine_kw) -> dict:
     """Speculative decoding (``SpeculationConfig(max_draft=8)``) against
     plain decode, in one call, on a dense or a paged engine (1,025 blocks
     of 16), over two request sets: 12 quoted-context requests
@@ -4138,7 +4150,10 @@ def spec_checks(model, sv, device, *, paged: bool, **engine_kw) -> dict:
     plain decode).  Each speculative stream equals its plain one up to the
     first near tie (:func:`compare_streams`); the quoted set's verifies
     ran; the norm-launch gate counts verifies as model calls.  Then the
-    forced-draft check (:func:`forced_draft_check`)."""
+    forced-draft check (:func:`forced_draft_check`).  With ``observe`` (a
+    dict), the quoted set's speculative run has a request recorder and a
+    capture sink installed, and :func:`spec_reconciled` holds them to the
+    scheduler; its result goes into ``observe``."""
     kw = dict(device=device, **engine_kw)
     if paged:
         kw["paged"] = sv.PagedCacheConfig(block_size=16)
@@ -4151,10 +4166,14 @@ def spec_checks(model, sv, device, *, paged: bool, **engine_kw) -> dict:
                            ("random", serving_requests(vocab))):
         plain = serve_logged(engine, requests, sv,
                              label=f"{form} {name} plain")
-        spec = serve_logged(engine, requests, sv,
-                            speculation=sv.SpeculationConfig(
-                                max_draft=SPEC_MAX_DRAFT),
-                            label=f"{form} {name} speculative")
+        watch = observe is not None and name == "quoted"
+        with Watched(enabled=watch) as watched:
+            spec = serve_logged(engine, requests, sv,
+                                speculation=sv.SpeculationConfig(
+                                    max_draft=SPEC_MAX_DRAFT),
+                                label=f"{form} {name} speculative")
+        if watch:
+            observe.update(spec_reconciled(watched, spec["sched"]))
         stats = spec["sched"].spec_stats
         if name == "quoted" and not stats["dispatches"]:
             raise AssertionError(f"{form} {name}: no verify ran: {stats}")
@@ -4217,22 +4236,25 @@ def control_workload(vocab: int, sv):
                                deadlines=tuple(r.deadline_s for r in reqs))
 
 
-def serve_open_loop(engine, workload, sv, *, policy, label) -> dict:
+def serve_open_loop(engine, workload, sv, *, policy, label, clock=None,
+                    step_hook=None) -> dict:
     """``workload`` through :class:`LoadGenerator` on a ``VirtualClock``
-    (``CONTROL_STEP_S`` a step) over a fresh scheduler (``policy``), with
-    the kernel counts set to 0 just before and the streams logged
+    (``clock``, a fresh one by default; ``CONTROL_STEP_S`` a step) over a
+    fresh scheduler (``policy``), with ``step_hook`` after each step, the
+    kernel counts set to 0 just before and the streams logged
     (:class:`StreamLog`); holds the norm-launch gate."""
     import torch
     from apex_tpu_torch.ops import _dispatch
 
-    sched = sv.ContinuousBatchingScheduler(engine, max_queue=64, policy=policy,
-                                           clock=sv.VirtualClock())
+    sched = sv.ContinuousBatchingScheduler(
+        engine, max_queue=64, policy=policy,
+        clock=sv.VirtualClock() if clock is None else clock)
     chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
     _dispatch.reset_launches()
     with StreamLog(engine, sched, list(workload.requests)) as stream_log:
         t0 = time.perf_counter()
-        out = sv.LoadGenerator(sched, workload,
-                               step_time_s=CONTROL_STEP_S).run()
+        out = sv.LoadGenerator(sched, workload, step_time_s=CONTROL_STEP_S,
+                               step_hook=step_hook).run()
         if engine.device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -4270,7 +4292,7 @@ def _nearest_rank(sorted_values, q):
     return sorted_values[max(0, math.ceil(q * len(sorted_values)) - 1)]
 
 
-def control_checks(model, sv, device, **engine_kw) -> dict:
+def control_checks(model, sv, device, keep=None, **engine_kw) -> dict:
     """The control plane at full width, dense and paged (default pool):
     :func:`control_workload` under ``SchedulingPolicy(tenant_weights=
     {"paid": 3.0})`` and under FIFO (``policy=None``).  Gates: under the
@@ -4280,7 +4302,9 @@ def control_checks(model, sv, device, **engine_kw) -> dict:
     decisions (each result's finish reason, preemptions and token count)
     equal between the dense and paged runs; the paid requests' p99 TTFT
     lower under the policy; the paged pool empty after each run.  Then on
-    the paged engine the scheduler's ``close()`` (:func:`close_check`)."""
+    the paged engine the scheduler's ``close()`` (:func:`close_check`).
+    With ``keep`` (a dict), the dense engine and its two runs stay in it
+    (``engine``, ``fifo``, ``policy``) for :func:`obs_checks`."""
     vocab = model.config.vocab_size
     workload = control_workload(vocab, sv)
     expiring = {r.rid for r in workload.requests if r.deadline_s == 0.5}
@@ -4326,6 +4350,8 @@ def control_checks(model, sv, device, **engine_kw) -> dict:
         log(f"phase3-serving-control-{form}", **out[form])
         if form == "paged":
             out["close"] = close_check(engine, sv)
+        elif keep is not None:
+            keep.update(engine=engine, fifo=fifo, policy=pol)
         del engine
     for name in ("fifo", "policy"):
         if runs["dense", name]["decisions"] != runs["paged", name]["decisions"]:
@@ -4453,6 +4479,482 @@ def export_adopt_checks(model, requests, sv, device, **engine_kw) -> dict:
             **compare_streams(model, ref, got, f"export {name}"))
         log(f"phase3-serving-export-{name}", **out[name])
     del donor_eng, target_eng
+    return out
+
+
+OBS_SLOW_STEPS = (10, 30)   # chaos: scheduler steps inflated by 1.0 virtual s
+OBS_STALL = ("b3", 3)       # chaos: the stalled rid, cancelled after 3 tokens
+OBS_STORM = (40, 2, 0)      # chaos: the cancel storm's step, count and seed
+OBS_RATE = 4.0              # real clock: Poisson arrivals a second
+OBS_DEADLINE_S = 10.0       # real clock: each request's deadline from arrival
+OBS_EMIT_CALLS = 10_000
+
+
+class Watched:
+    """While entered, the whole telemetry stack on: the default registry
+    zeroed, a :class:`RequestTraceRecorder` on ``clock``, a
+    :class:`TraceRecorder` with one span around the block (the bridge
+    stamps every event onto it) and a capture sink (``events``); on exit
+    ``snapshot`` holds the registry.  ``enabled=False`` installs nothing
+    (the bridge alone, as always)."""
+
+    def __init__(self, clock=time.monotonic, *, enabled=True,
+                 span="phase3-serving-obs"):
+        self.clock, self.enabled, self.span = clock, enabled, span
+        self.events, self.snapshot = [], None
+
+    def __enter__(self):
+        import contextlib
+
+        from apex_tpu_torch import _logging, obs
+
+        self.rec = obs.RequestTraceRecorder(clock=self.clock)
+        self.trace = obs.TraceRecorder()
+        self._stack = contextlib.ExitStack()
+        if self.enabled:
+            obs.metrics.reset()
+            self.rec.install()
+            self._stack.callback(self.rec.uninstall)
+            obs.install_recorder(self.trace)
+            self._stack.callback(obs.uninstall_recorder)
+            _logging.add_event_sink(self.events.append)
+            self._stack.callback(_logging.remove_event_sink,
+                                 self.events.append)
+            self._stack.enter_context(obs.span(self.span))
+        return self
+
+    def __exit__(self, *exc):
+        from apex_tpu_torch import obs
+
+        self._stack.__exit__(*exc)
+        if self.enabled:
+            self.snapshot = obs.snapshot()
+        return False
+
+
+def spec_reconciled(watched, sched) -> dict:
+    """The speculative run's records against its events and the
+    scheduler: per rid, the record's verifies, drafted, accepted and
+    emitted tokens equal the sum of its ``serving_spec_verify`` events,
+    and the totals equal ``spec_stats``; every verify event comes before
+    its request's ``serving_request_finished`` (the order the JAX
+    scheduler gets wrong, losing the last verify from its records)."""
+    keys = ("dispatches", "drafted", "accepted", "emitted")
+    per_rid, finished_at, caused = {}, {}, 0
+    for i, e in enumerate(watched.events):
+        if e["event"] == "serving_request_finished":
+            finished_at[e["rid"]] = i
+    for i, e in enumerate(watched.events):
+        if e["event"] != "serving_spec_verify":
+            continue
+        st = per_rid.setdefault(e["rid"], dict.fromkeys(keys, 0))
+        st["dispatches"] += 1
+        for k in keys[1:]:
+            st[k] += e[k]
+        if not i < finished_at[e["rid"]]:
+            raise AssertionError(f"obs spec: {e['rid']}'s verify after its "
+                                 f"finish")
+        caused += finished_at[e["rid"]] == i + 1
+    records = watched.rec.records()
+    for r in records:
+        got = {k: r.spec.get(k, 0) for k in keys}
+        if got != per_rid.get(r.rid, dict.fromkeys(keys, 0)):
+            raise AssertionError(f"obs spec {r.rid}: record {got}, events "
+                                 f"{per_rid.get(r.rid)}")
+    totals = {k: sum(r.spec.get(k, 0) for r in records) for k in keys}
+    if totals != sched.spec_stats or watched.rec.open_records():
+        raise AssertionError(f"obs spec: records {totals}, scheduler "
+                             f"{sched.spec_stats}")
+    return dict(records=len(records), totals=totals,
+                verifies_that_finished_their_request=caused,
+                verify_events=sum(v["dispatches"] for v in per_rid.values()))
+
+
+def _serving_series_named(snapshot, text) -> list:
+    """The ``apex_serving_*`` metrics with a series set that the
+    Prometheus text has no sample line for (empty: all named)."""
+    lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    return [name for name, entry in snapshot.items()
+            if name.startswith("apex_serving_") and entry["series"]
+            and not any(ln.startswith(name) for ln in lines)]
+
+
+def obs_reconciled(watched, run, sv, paid_p99) -> dict:
+    """An open-loop run's telemetry against the scheduler and the load
+    generator (virtual clock): one record a request, each served one
+    complete with phases summing to its total and the scheduler's TTFT and
+    queue wait; ``apex_events_total{event=k}`` the capture sink's count of
+    ``k``; the preempted, cancelled, shed and prefix counters the
+    scheduler's; ``build_report``'s goodput the load generator's and its
+    paid p99 TTFT ``paid_p99``; the TTFT histogram's quantiles in the
+    exact samples' buckets; the Perfetto export one track a request; and
+    every ``apex_serving_*`` series set named by ``prometheus_text()``."""
+    import json
+    import tempfile
+
+    from apex_tpu_torch import obs
+    from apex_tpu_torch.obs import bridge
+    from apex_tpu_torch.obs.request_trace import PHASE_SUM_TOLERANCE_S
+
+    sched, lg = run["sched"], run["out"]
+    rec = watched.rec
+    records = {r.rid: r for r in rec.records()}
+    if rec.open_records() or set(records) != set(lg.results):
+        raise AssertionError(f"obs: records {sorted(records)}, open "
+                             f"{len(rec.open_records())}, results "
+                             f"{sorted(lg.results)}")
+    for rid, res in lg.results.items():
+        r = records[rid]
+        served = res.finish_reason in sv.SERVED_REASONS
+        if r.complete != served or r.finish_reason != res.finish_reason:
+            raise AssertionError(f"obs {rid}: record {r.to_dict()}, result "
+                                 f"{res.finish_reason}")
+        if not served:
+            continue
+        phases = r.queue_wait_s + r.prefill_s + r.decode_s
+        if (abs(phases - r.total_s) > PHASE_SUM_TOLERANCE_S
+                or r.ttft_s != res.ttft_s or r.total_s != res.total_s
+                or r.queue_wait_s != r.scheduler_queue_wait_s):
+            raise AssertionError(f"obs {rid}: record {r.to_dict()}, result "
+                                 f"{res}")
+    counts = {}
+    for e in watched.events:
+        counts[e["event"]] = counts.get(e["event"], 0) + 1
+    events_total = {s["labels"]["event"]: s["value"] for s in
+                    watched.snapshot["apex_events_total"]["series"]}
+    if events_total != counts:
+        raise AssertionError(f"obs: apex_events_total {events_total}, "
+                             f"events {counts}")
+    stats, prefix = sched.control_stats, sched.stats()
+    counters = dict(preempted=bridge.SERVING_PREEMPTED.value(),
+                    cancelled=bridge.SERVING_CANCELLED.value(),
+                    shed=bridge.SERVING_SHED.value(),
+                    prefix_hits=bridge.SERVING_PREFIX_HITS.value(),
+                    prefix_misses=bridge.SERVING_PREFIX_MISSES.value())
+    if counters != dict(preempted=stats["preempted"],
+                        cancelled=stats["cancelled"], shed=stats["shed"],
+                        prefix_hits=prefix["prefix_hits"],
+                        prefix_misses=prefix["prefix_misses"]):
+        raise AssertionError(f"obs: counters {counters}, scheduler {stats}, "
+                             f"{prefix}")
+    kw = dict(offered=lg.offered, deadlines=lg.deadlines,
+              arrivals=lg.arrivals, duration_s=lg.duration_s)
+    report = obs.build_report(list(records.values()), **kw)
+    paid = [r for r in records.values() if r.rid.startswith("p")]
+    paid_report = obs.build_report(paid)
+    if report.goodput != lg.goodput or paid_report.ttft["p99"] != paid_p99:
+        raise AssertionError(f"obs: goodput {report.goodput} vs "
+                             f"{lg.goodput}, paid p99 {paid_report.ttft} vs "
+                             f"{paid_p99}")
+    ttft = [r.ttft_s for r in records.values() if r.complete]
+    cross = obs.crosscheck_quantiles(ttft, bridge.SERVING_TTFT)
+    if not (cross["aligned"] and all(
+            q["agree"] for q in cross["quantiles"].values())):
+        raise AssertionError(f"obs: TTFT histogram {cross}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "requests.trace.json")
+        rec.export(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    tracks = {e["tid"] for e in trace if e.get("ph") == "X"}
+    named = {e["args"]["name"] for e in trace if e.get("ph") == "M"
+             and e["name"] == "thread_name"}
+    if len(tracks) != len(records) or named != set(records):
+        raise AssertionError(f"obs: {len(tracks)} tracks, {len(named)} names "
+                             f"for {len(records)} requests")
+    unnamed = _serving_series_named(watched.snapshot, obs.prometheus_text())
+    if unnamed:
+        raise AssertionError(f"obs: prometheus_text() lacks {unnamed}")
+    return dict(records=len(records), served_complete=len(ttft),
+                event_kinds=counts, counters=counters,
+                goodput=report.goodput, paid_ttft_p99_s=paid_p99,
+                ttft_crosscheck=cross["quantiles"], perfetto_tracks=len(tracks),
+                serving_series_set=sorted(
+                    n for n, e in watched.snapshot.items()
+                    if n.startswith("apex_serving_") and e["series"]))
+
+
+def _quantiles(report) -> dict:
+    return {name: {q: getattr(report, name)[q] for q in ("p50", "p95", "p99")}
+            for name in ("ttft", "tpot", "queue_wait")}
+
+
+def _profiled_decode_steps(engine, sv, telemetry: bool, logdir) -> dict:
+    """Three decode steps of a full batch (8 requests of 64 tokens, their
+    prompts cached first) under ``start_torch_profiler(logdir)`` /
+    ``stop_torch_profiler()``, with the whole telemetry stack on or the
+    bridge uninstalled; returns what the written trace names: norm kernel
+    launches and device-to-host copies."""
+    import json
+
+    import torch
+    from apex_tpu_torch.obs import bridge
+    from apex_tpu_torch.obs import trace as otrace
+
+    engine.reset()
+    sched = sv.ContinuousBatchingScheduler(engine)
+    for i in range(engine.slots):
+        sched.submit(sv.Request(f"pf{i}", list(range(1 + i, 65 + i)),
+                                max_new_tokens=16))
+    if not telemetry:
+        bridge.uninstall()
+    try:
+        with Watched(enabled=telemetry):
+            while sched.prefill_backlog:
+                sched.step()
+            torch.cuda.synchronize()
+            started = otrace.start_torch_profiler(logdir)
+            for _ in range(3):
+                sched.step()
+            torch.cuda.synchronize()
+            stopped = otrace.stop_torch_profiler()
+            sched.run()
+    finally:
+        bridge.install()
+    files = sorted(f for f in os.listdir(logdir) if f.startswith("trace_"))
+    if not (started and stopped and len(files) == 1):
+        raise AssertionError(f"obs profiler: start {started}, stop {stopped}, "
+                             f"files {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    norm = sum("ln_fwd" in k for k in kernels)
+    d2h = sum("DtoH" in e.get("name", "") for e in events
+              if e.get("cat") == "gpu_memcpy")
+    if not norm:
+        raise AssertionError(f"obs profiler: the trace names no norm kernel "
+                             f"({sorted(set(kernels))[:10]})")
+    return dict(trace_file=files[0], norm_launches=norm, d2h_copies=d2h,
+                kernels=len(kernels),
+                trace_bytes=os.path.getsize(os.path.join(logdir, files[0])))
+
+
+def obs_costs(engine, sv, inert, smi) -> dict:
+    """What the telemetry costs: microseconds an ``emit_event`` with the
+    log sink, the bridge and a request recorder installed (a prefill-chunk
+    event on an open record, ``OBS_EMIT_CALLS`` calls) and with the
+    bridge alone; events a decode step in the inert run; and the wall of
+    the 12-request dense serve with everything installed against the
+    bridge uninstalled and nothing else (interleaved, two of each,
+    median).  Printed, not gated: walls spread between calls."""
+    from apex_tpu_torch import _logging
+    from apex_tpu_torch.obs import bridge
+
+    def emit_us(recorder: bool) -> float:
+        with Watched(enabled=recorder) as w:
+            _logging.emit_event("serving_request_queued", rid="cost",
+                                prompt_tokens=512)
+            t0 = time.perf_counter()
+            for _ in range(OBS_EMIT_CALLS):
+                _logging.emit_event("serving_prefill_chunk", rid="cost",
+                                    bucket=512, chunk_tokens=512,
+                                    offset_tokens=0, duration_s=0.0125)
+            dt = time.perf_counter() - t0
+        if recorder and len(w.rec.open_records()[0].chunks) != OBS_EMIT_CALLS:
+            raise AssertionError("obs cost: the recorder missed events")
+        return dt / OBS_EMIT_CALLS * 1e6
+
+    requests = serving_requests(engine.model.config.vocab_size)
+    walls = {"on": [], "off": []}
+    for on in (True, False, True, False):
+        engine.reset()
+        if not on:
+            bridge.uninstall()
+        try:
+            with Watched(enabled=on):
+                _, wall = serve(engine, requests, sv)
+        finally:
+            bridge.install()
+        walls["on" if on else "off"].append(wall)
+    return dict(
+        emit_us_all_installed=emit_us(True), emit_us_bridge_only=emit_us(False),
+        emit_calls=OBS_EMIT_CALLS,
+        events_per_decode_step=inert["events"] / inert["decode_steps"],
+        events_per_scheduler_step=inert["events"] / inert["scheduler_steps"],
+        serve_walls_s=walls,
+        wall_ratio_on_over_off=statistics.median(walls["on"])
+        / statistics.median(walls["off"]), nvidia_smi=smi)
+
+
+def obs_checks(model, sv, device, control, spec, smi) -> dict:
+    """Phase ``phase3-serving-obs``: the observability layer at full width
+    on the control plane's dense engine and runs (``control``, kept by
+    :func:`control_checks`) and the dense quoted speculation run
+    (``spec``, from :func:`spec_checks`):
+
+    1. *inert*: :func:`control_workload` under the policy again, now with
+       a request recorder, a span recorder and a capture sink: decisions,
+       served streams and their logits equal the first run's bit for bit,
+       and the same norm launches;
+    2. *reconciled*: that run's telemetry (:func:`obs_reconciled`);
+    3. *speculation reconciled*: ``spec`` (:func:`spec_reconciled`);
+    4. *chaos*: the same workload under FIFO and the policy with two slow
+       steps, a stalled stream and a cancel storm (the JAX chaos acceptance
+       design): under the policy >= 1 preempted, all resumed, >= 1 shed;
+       every stalled or cancelled request reclaimed; served streams equal
+       the chaos-free FIFO run's up to the first near tie; the policy's
+       paid p99 TTFT below FIFO's and its goodput above (``build_report``
+       over the records);
+    5. *real clock*: the 12 serving requests, Poisson arrivals, on
+       ``time.monotonic``: the TTFT, TPOT and queue-wait percentiles and
+       goodput from the records (printed);
+    6. *cost* (:func:`obs_costs`, printed);
+    7. *profiler*: ``start_torch_profiler`` / ``stop_torch_profiler``
+       around 3 decode steps, telemetry on and off: both True, a trace
+       file naming the norm kernel, and as many device-to-host copies
+       with the telemetry on as off."""
+    import shutil
+    import tempfile
+
+    import torch
+    from apex_tpu_torch import obs
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.resilience import fault_injection as fi
+
+    engine, first, fifo = control["engine"], control["policy"], control["fifo"]
+    vocab = model.config.vocab_size
+    workload = control_workload(vocab, sv)
+    out = {}
+
+    def policy():
+        return sv.SchedulingPolicy(tenant_weights={"paid": 3.0})
+
+    engine.reset()
+    clock = sv.VirtualClock()
+    with Watched(clock) as watched:
+        run = serve_open_loop(engine, workload, sv, policy=policy(),
+                              label="obs inert", clock=clock)
+    if (run["decisions"] != first["decisions"]
+            or run["streams"] != first["streams"]
+            or run["summary"]["launches"] != first["summary"]["launches"]):
+        raise AssertionError("obs inert: the run with telemetry differs from "
+                             "the control run")
+    for rid in run["streams"]:
+        if not torch.equal(run["stream_log"].stacked(rid)[0],
+                           first["stream_log"].stacked(rid)[0]):
+            raise AssertionError(f"obs inert {rid}: logits differ")
+    summary = run["summary"]
+    out["inert"] = dict(
+        decisions_equal=True, streams_bit_identical=True,
+        logits_bit_identical=True, launches=summary["launches"],
+        expected_norm_launches=summary["expected_norm_launches"],
+        events=len(watched.events), decode_steps=summary["decode_steps"],
+        scheduler_steps=summary["scheduler_steps"],
+        spans=len(watched.trace.to_chrome_trace()["traceEvents"]),
+        wall_s=summary["wall_s"], control_wall_s=first["summary"]["wall_s"])
+    log("phase3-serving-obs-inert", **out["inert"])
+    out["reconciled"] = obs_reconciled(
+        watched, run, sv,
+        first["summary"]["ttft_by_class"]["paid"]["ttft_p99_s"])
+    log("phase3-serving-obs-reconciled", **out["reconciled"])
+    out["spec"] = spec
+    log("phase3-serving-obs-spec", **spec)
+
+    chaos = {}
+    for name, pol in (("fifo", None), ("policy", policy())):
+        engine.reset()
+        clock = sv.VirtualClock()
+        stall = fi.StallStream([OBS_STALL[0]], after_tokens=OBS_STALL[1])
+        storm = fi.CancelStorm([OBS_STORM[0]], count=OBS_STORM[1],
+                               seed=OBS_STORM[2])
+        hook = sv.chain_hooks(fi.SlowDecodeStep(OBS_SLOW_STEPS, 1.0,
+                                                clock=clock), stall, storm)
+        with Watched(clock) as watched:
+            crun = serve_open_loop(engine, workload, sv, policy=pol,
+                                   label=f"obs chaos {name}", clock=clock,
+                                   step_hook=hook)
+        sched, lg = crun["sched"], crun["out"]
+        hit = stall.stalled + storm.cancelled
+        if (not hit or sched.queue_depth or sched.active_count
+                or sched.suspended_count
+                or engine.free_slots() != list(range(engine.slots))
+                or any(lg.results[r].finish_reason != "cancelled"
+                       for r in hit)):
+            raise AssertionError(f"obs chaos {name}: {hit} not reclaimed")
+        records = watched.rec.records()
+        report = obs.build_report(
+            records, offered=lg.offered, deadlines=lg.deadlines,
+            arrivals=lg.arrivals, duration_s=lg.duration_s)
+        paid = sorted(r.ttft_s for r in records
+                      if r.rid.startswith("p") and r.complete)
+        common = sorted(set(fifo["streams"]) & set(crun["streams"]))
+        cmp = compare_streams(
+            model, dict(streams={r: fifo["streams"][r] for r in common},
+                        stream_log=fifo["stream_log"]),
+            dict(streams={r: crun["streams"][r] for r in common},
+                 stream_log=crun["stream_log"]), f"obs chaos {name}")
+        faults = [e for e in watched.events if e["event"] == "fault_injected"]
+        chaos[name] = dict(
+            summary=crun["summary"], stalled=stall.stalled,
+            storm_cancelled=storm.cancelled, fault_events=len(faults),
+            goodput_report=report.goodput, goodput=lg.goodput,
+            paid_ttft_p99_s=_nearest_rank(paid, 0.99),
+            paid_complete=len(paid), compared=len(common),
+            **_quantiles(report), **cmp)
+        log(f"phase3-serving-obs-chaos-{name}", **chaos[name])
+    stats = chaos["policy"]["summary"]["control_stats"]
+    if not (stats["preempted"] >= 1 and stats["resumed"] == stats["preempted"]
+            and stats["shed"] >= 1):
+        raise AssertionError(f"obs chaos policy: {stats}")
+    if not (chaos["policy"]["paid_ttft_p99_s"] < chaos["fifo"]["paid_ttft_p99_s"]
+            and chaos["policy"]["goodput_report"]
+            > chaos["fifo"]["goodput_report"]):
+        raise AssertionError(f"obs chaos: policy {chaos['policy']} against "
+                             f"FIFO {chaos['fifo']}")
+    out["chaos"] = chaos
+
+    requests = serving_requests(vocab)
+    wl = sv.OpenLoopWorkload(
+        requests=tuple(requests),
+        arrivals=sv.poisson_arrivals(len(requests), OBS_RATE, seed=11),
+        deadlines=(OBS_DEADLINE_S,) * len(requests))
+    engine.reset()
+    sched = sv.ContinuousBatchingScheduler(engine)
+    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    _dispatch.reset_launches()
+    with Watched() as watched:
+        t0 = time.perf_counter()
+        lg = sv.LoadGenerator(sched, wl).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = engine.prefill_chunks - chunks0
+    steps = engine.decode_steps - steps0
+    if lg.completed != len(requests):
+        raise AssertionError(f"obs real clock: {lg.completed} completed")
+    report = obs.build_report(watched.rec.records(), offered=lg.offered,
+                              deadlines=lg.deadlines, arrivals=lg.arrivals,
+                              duration_s=lg.duration_s)
+    out["real_clock"] = dict(
+        requests=len(requests), rate_per_s=OBS_RATE,
+        deadline_s=OBS_DEADLINE_S, wall_s=wall, duration_s=lg.duration_s,
+        goodput=report.goodput, completed=report.completed,
+        **_quantiles(report), throughput_rps=report.throughput_rps,
+        tokens_per_s=report.tokens_per_s, prefill_chunks=chunks,
+        decode_steps=steps, scheduler_steps=lg.steps, launches=launches,
+        expected_norm_launches=norm_launch_gate(
+            engine, launches, chunks, steps, "obs real clock"),
+        nvidia_smi=smi)
+    log("phase3-serving-obs-real-clock", **out["real_clock"])
+
+    out["cost"] = obs_costs(engine, sv, out["inert"], smi)
+    log("phase3-serving-obs-cost", **out["cost"])
+
+    tmp = tempfile.mkdtemp(prefix="obs_profile_")
+    try:
+        prof = {}
+        for name, on in (("telemetry_on", True), ("telemetry_off", False)):
+            logdir = os.path.join(tmp, name)
+            os.makedirs(logdir)
+            prof[name] = _profiled_decode_steps(engine, sv, on, logdir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if prof["telemetry_on"]["d2h_copies"] != prof["telemetry_off"]["d2h_copies"]:
+        raise AssertionError(f"obs profiler: device-to-host copies {prof}")
+    out["profiler"] = dict(
+        prof, decode_steps=3,
+        norm_launches_per_step=2 * model.config.num_hidden_layers + 1)
+    log("phase3-serving-obs-profiler", **out["profiler"])
     return out
 
 
@@ -4741,9 +5243,10 @@ def llama_1b(device, model, init_s) -> dict:
     a profile), then the same requests paged (:func:`paged_checks`), then
     the shared-prefix workload with and without prefix caching, paged and
     dense (:func:`prefix_checks`), speculation dense and paged
-    (:func:`spec_checks`), the control plane (:func:`control_checks`) and
-    failover (:func:`export_adopt_checks`).  Each run launches the norm
-    kernel only, ``(2L + 1) x (chunks + steps + verifies)`` times."""
+    (:func:`spec_checks`), the control plane (:func:`control_checks`), the
+    observability layer on them (:func:`obs_checks`) and failover
+    (:func:`export_adopt_checks`).  Each run launches the norm kernel only,
+    ``(2L + 1) x (chunks + steps + verifies)`` times."""
     import torch
     from apex_tpu_torch import serving as sv
 
@@ -4796,12 +5299,22 @@ def llama_1b(device, model, init_s) -> dict:
         log(f"phase3-serving-{form.replace('_', '-')}", **out[form])
     out["paged_and_prefix_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    spec_observed = {}
     for form, paged in (("spec_dense", False), ("spec_paged", True)):
-        out[form] = spec_checks(model, sv, device, paged=paged, **kw)
+        out[form] = spec_checks(model, sv, device, paged=paged,
+                                observe=None if paged else spec_observed,
+                                **kw)
     out["spec_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["control"] = control_checks(model, sv, device, **kw)
+    kept = {}
+    out["control"] = control_checks(model, sv, device, keep=kept, **kw)
     out["control_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["obs"] = obs_checks(model, sv, device, kept, spec_observed,
+                            nvidia_smi("name,power.limit"))
+    kept.clear()
+    torch.cuda.empty_cache()
+    out["obs_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["export"] = export_adopt_checks(model, requests[:kw["slots"]], sv,
                                         device, **kw)
@@ -6845,6 +7358,10 @@ def main() -> int:
                     for f in ("dense", "paged") for n in ("fifo", "policy")},
                  **{f"serving_export_{n}": e2e["export"][n]
                     for n in ("capture", "requeue")},
+                 serving_obs_inert=e2e["obs"]["inert"],
+                 **{f"serving_obs_chaos_{n}": e2e["obs"]["chaos"][n]["summary"]
+                    for n in ("fifo", "policy")},
+                 serving_obs_real_clock=e2e["obs"]["real_clock"],
                  serving_int8=int8, evaluation=evaluation, training=training,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)

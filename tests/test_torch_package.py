@@ -53,7 +53,13 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.examples.simple, apex_tpu_torch.models.convert, "
         "apex_tpu_torch.amp.quant, apex_tpu_torch.serving.quant, "
         "apex_tpu_torch.serving.paged_kv_cache, "
-        "apex_tpu_torch.serving.prefix_cache\n"
+        "apex_tpu_torch.serving.prefix_cache, apex_tpu_torch._logging, "
+        "apex_tpu_torch.obs, apex_tpu_torch.obs.alerts, "
+        "apex_tpu_torch.obs.bridge, apex_tpu_torch.obs.metrics, "
+        "apex_tpu_torch.obs.request_trace, apex_tpu_torch.obs.slo, "
+        "apex_tpu_torch.obs.trace, apex_tpu_torch.utils.serialization, "
+        "apex_tpu_torch.resilience, "
+        "apex_tpu_torch.resilience.fault_injection\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
         "print(bad)\n"
