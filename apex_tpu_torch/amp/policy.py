@@ -62,12 +62,25 @@ class PrecisionPolicy:
         if self.param_dtype == torch.float32:
             return model
         for name, p in model.named_parameters():
-            if self.keep_norm_fp32 and any(h in name.lower()
-                                           for h in _NORM_NAME_HINTS):
-                continue
-            if p.is_floating_point():
+            if p.is_floating_point() and not self._keeps_fp32(name):
                 p.data = p.data.to(self.param_dtype)
         return model
+
+    def cast_state_dict(self, state: dict) -> dict:
+        """A ``state_dict`` cast as :meth:`cast_params` casts the module's
+        parameters (the same dtype for every name); the caller's tensors
+        are not altered.  What the JAX ``cast_params`` does to a params
+        tree, for a restored checkpoint."""
+        if self.param_dtype == torch.float32:
+            return dict(state)
+        return {name: (t.to(self.param_dtype)
+                       if t.is_floating_point() and not self._keeps_fp32(name)
+                       else t)
+                for name, t in state.items()}
+
+    def _keeps_fp32(self, name: str) -> bool:
+        return self.keep_norm_fp32 and any(h in name.lower()
+                                           for h in _NORM_NAME_HINTS)
 
     def cast_inputs(self, *args):
         """Floating tensors of the arguments (trees included) in

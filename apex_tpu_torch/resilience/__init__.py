@@ -1,15 +1,82 @@
 """apex_tpu_torch.resilience: the port of ``apex_tpu.resilience``.
 
-So far only the serving fault injectors of
-:mod:`~apex_tpu_torch.resilience.fault_injection` (``SlowDecodeStep``,
-``StallStream``, ``CancelStorm``); checkpointing, the supervisor, retry,
-the data guard and the training faults wait for the resilience slice.
+So far:
+
+- validated atomic checkpoints of whole trees (v1:
+  :mod:`~apex_tpu_torch.resilience.checkpoint`), the same files as the
+  JAX package's, with the asynchronous writer of
+  :mod:`~apex_tpu_torch.resilience.async_checkpoint`;
+- classified retry with deterministic backoff
+  (:mod:`~apex_tpu_torch.resilience.retry`);
+- the supervisor's heartbeat file
+  (:mod:`~apex_tpu_torch.resilience.supervisor`);
+- the fault injectors of
+  :mod:`~apex_tpu_torch.resilience.fault_injection`: the serving faults,
+  the reload, fleet and rollout faults, and the checkpoint-writer crash.
+
+Sharded (v2) checkpoints, replica consistency, the guarded step, the
+data guard, the rest of the supervisor and the training faults wait for
+later slices.
 """
 
+from apex_tpu_torch.resilience.async_checkpoint import (
+    AsyncCheckpointer,
+    SaveFuture,
+    SaveVetoed,
+)
+from apex_tpu_torch.resilience.checkpoint import (
+    CheckpointError,
+    CheckpointManager,
+    LeafSnapshot,
+    TreeSnapshot,
+    latest_valid_step,
+    restore_checkpoint,
+    save_checkpoint,
+    snapshot_tree,
+    validate_checkpoint,
+)
 from apex_tpu_torch.resilience.fault_injection import (
     CancelStorm,
+    CrashCheckpointWriter,
+    SimulatedWriterCrash,
     SlowDecodeStep,
     StallStream,
 )
+from apex_tpu_torch.resilience.retry import (
+    RetryExhausted,
+    RetryPolicy,
+    TransientError,
+    is_transient,
+    retry_transient,
+)
+from apex_tpu_torch.resilience.supervisor import (
+    read_heartbeat,
+    write_heartbeat,
+)
 
-__all__ = ["CancelStorm", "SlowDecodeStep", "StallStream"]
+__all__ = [
+    "AsyncCheckpointer",
+    "SaveFuture",
+    "SaveVetoed",
+    "CheckpointError",
+    "CheckpointManager",
+    "LeafSnapshot",
+    "TreeSnapshot",
+    "latest_valid_step",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "snapshot_tree",
+    "validate_checkpoint",
+    "CrashCheckpointWriter",
+    "SimulatedWriterCrash",
+    "RetryExhausted",
+    "RetryPolicy",
+    "TransientError",
+    "is_transient",
+    "retry_transient",
+    "read_heartbeat",
+    "write_heartbeat",
+    "CancelStorm",
+    "SlowDecodeStep",
+    "StallStream",
+]

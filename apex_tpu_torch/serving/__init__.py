@@ -7,7 +7,14 @@ dense (:mod:`~apex_tpu_torch.serving.kv_cache`) or paged
 caching (:mod:`~apex_tpu_torch.serving.prefix_cache`), speculative
 decoding (:mod:`~apex_tpu_torch.serving.draft`), the control plane
 (:mod:`~apex_tpu_torch.serving.policy`) and an open-loop load generator
-(:mod:`~apex_tpu_torch.serving.loadgen`).
+(:mod:`~apex_tpu_torch.serving.loadgen`).  The weight lifecycle sits on
+top: :func:`load_serving_params` (:mod:`.weights`) boots from the newest
+valid checkpoint, :class:`HotReloader` (:mod:`.reload`) swaps a newer
+committed one in at a step boundary and rolls it back,
+:class:`ShadowABScheduler` mirrors traffic to a candidate arm,
+:class:`FleetRouter` (:mod:`.fleet`) serves N replicas with health checks
+and failover, and :class:`RollingReloadController` (:mod:`.rollout`)
+upgrades a fleet replica by replica behind a canary.
 
 The engine, scheduler and load generator emit the JAX package's
 ``serving_*`` and ``loadgen_*`` events through
@@ -26,6 +33,7 @@ from apex_tpu_torch.serving.engine import (
     default_prefill_buckets,
     token_seed,
 )
+from apex_tpu_torch.serving.fleet import FleetConfig, FleetRouter, ReplicaState
 from apex_tpu_torch.serving.kv_cache import (
     KVCache,
     QuantKVCache,
@@ -73,6 +81,20 @@ from apex_tpu_torch.serving.quant import (
     quantize_params,
     stream_agreement,
 )
+from apex_tpu_torch.serving.reload import (
+    ABConfig,
+    HotReloader,
+    ReloadOutcome,
+    ShadowABScheduler,
+    WeightWatcher,
+    assign_arm,
+)
+from apex_tpu_torch.serving.rollout import (
+    CanaryGate,
+    CanaryVerdict,
+    RollingReloadController,
+    RolloutConfig,
+)
 from apex_tpu_torch.serving.scheduler import (
     SERVED_REASONS,
     ContinuousBatchingScheduler,
@@ -83,6 +105,7 @@ from apex_tpu_torch.serving.scheduler import (
     SchedulerStalled,
     StreamExport,
 )
+from apex_tpu_torch.serving.weights import load_serving_params
 
 __all__ = ["DecodeEngine", "default_draft_buckets", "default_prefill_buckets",
            "token_seed", "KVCache", "QuantKVCache", "init_cache",
@@ -101,4 +124,8 @@ __all__ = ["DecodeEngine", "default_draft_buckets", "default_prefill_buckets",
            "OpenLoopWorkload", "VirtualClock", "burst_arrivals",
            "chain_hooks", "make_workload", "mixed_length_prompts",
            "poisson_arrivals", "shared_prefix_prompts", "uniform_arrivals",
-           "zero_overlap_prompts"]
+           "zero_overlap_prompts", "FleetConfig", "FleetRouter",
+           "ReplicaState", "ABConfig", "HotReloader", "ReloadOutcome",
+           "ShadowABScheduler", "WeightWatcher", "assign_arm", "CanaryGate",
+           "CanaryVerdict", "RollingReloadController", "RolloutConfig",
+           "load_serving_params"]

@@ -51,6 +51,18 @@ replays to the same stream.  ``temperature <= 0`` is greedy.  The draws
 are PyTorch's, not ``jax.random``'s, so a sampled stream repeats under a
 fixed seed but differs from the JAX engine's.
 
+Hot weight swap (:meth:`DecodeEngine.swap_params`, the engine surface of
+:mod:`~apex_tpu_torch.serving.reload`): the engine serves the tensors of
+:attr:`DecodeEngine.params`, a ``state_dict`` that starts as the model's
+own.  A swap rebinds this engine's tensors only: it never writes into
+the module's parameters, which other engines over the same module (a
+shadow arm, fleet replicas) and the rollback buffer still hold.  While
+an engine serves swapped tensors, each model call binds them into the
+module for the call and puts the module's own back after it.  The KV
+cache and the block tables are untouched by a swap, and the number of
+norm launches a model call makes does not change; the JAX engine's
+"zero new compiles" has those two witnesses here.
+
 Tensor parallelism comes with a later slice of the port; ``tp=`` raises
 ``NotImplementedError`` and :attr:`DecodeEngine.tp_size` is 1.
 
@@ -63,7 +75,8 @@ pairs whenever a write copies shared blocks.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+from collections import OrderedDict
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,6 +104,7 @@ from apex_tpu_torch.serving.quant import (
     QuantConfig,
     is_quantized,
     quantize_params,
+    quantize_state_dict,
 )
 
 __all__ = ["DecodeEngine", "default_draft_buckets",
@@ -303,6 +317,21 @@ class DecodeEngine:
         # model calls run with the engine's card as the current device and
         # TF32 off
         self._cuda = self.device.type == "cuda"
+        # the served weights: the module's own tensors by name, and where
+        # each one lives (submodule, its _parameters or _buffers dict, the
+        # attribute) so that swapped tensors can be bound for a call
+        self._own = OrderedDict(model.state_dict(keep_vars=True))
+        self._params = self._own
+        self._slots = []
+        for key in self._own:
+            prefix, _, attr = key.rpartition(".")
+            sub = model.get_submodule(prefix) if prefix else model
+            kind = "_parameters" if attr in sub._parameters else "_buffers"
+            self._slots.append((getattr(sub, kind), attr))
+        # monotonic weight-buffer generation: bumped by swap_params so
+        # host layers (the prefix cache's version tags, the reloader's
+        # rollback bookkeeping) can tell which weights produced a byte
+        self._weights_version = 0
         # model calls made, for callers that account per call
         self.prefill_chunks = 0
         self.decode_steps = 0
@@ -318,14 +347,92 @@ class DecodeEngine:
     @contextlib.contextmanager
     def _on_device(self):
         """The engine's card as the current device and TF32 off, on CUDA;
-        no autograd recording either way."""
+        no autograd recording either way; the served weights bound."""
         if not self._cuda:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._bound():
                 yield
             return
         with torch.cuda.device(self.device), no_tf32(), \
-                torch.inference_mode():
+                torch.inference_mode(), self._bound():
             yield
+
+    @contextlib.contextmanager
+    def _bound(self):
+        """The served tensors in the module for one model call, the
+        module's own put back after it (nothing to do while they are the
+        module's own)."""
+        if self._params is self._own:
+            yield
+            return
+        saved = [(slot, attr, slot[attr]) for slot, attr in self._slots]
+        try:
+            for (slot, attr), t in zip(self._slots, self._params.values()):
+                slot[attr] = t
+            yield
+        finally:
+            for slot, attr, t in saved:
+                slot[attr] = t
+
+    # ---- hot weight swap (serving/reload.py's engine surface) ------------
+    @property
+    def params(self) -> "OrderedDict[str, torch.Tensor]":
+        """The served weights, a ``state_dict`` by reference (the
+        model's own tensors until a swap)."""
+        return OrderedDict(self._params)
+
+    @property
+    def weights_version(self) -> int:
+        """Monotonic generation counter of the served weight buffer
+        (0 == the boot params; bumped by every :meth:`swap_params`,
+        including rollbacks)."""
+        return self._weights_version
+
+    def swap_params(self, params: Mapping[str, torch.Tensor]
+                    ) -> "OrderedDict[str, torch.Tensor]":
+        """Serve ``params`` (a ``state_dict``) from now on; returns the
+        displaced one (the caller's rollback copy).
+
+        The candidate must match the served weights exactly — the same
+        names, shapes and dtypes — so that a validated-but-wrong tree
+        (another model's checkpoint that happens to restore) is refused
+        here rather than served.  An int8 engine quantizes a float
+        candidate as its boot did (:func:`quantize_state_dict`); a
+        quantized one (the buffer this method returned) is taken as it
+        is.  A tensor off the engine's device is copied there; one on it
+        is taken by reference, never copied.  Nothing is written into the
+        module: the swap rebinds this engine's tensors, so another engine
+        over the same module serves on, bit for bit.  KV cache, block
+        tables and slot lengths are untouched: in-flight streams continue
+        under the new weights.  Call between model calls only (a
+        scheduler step boundary).
+        """
+        params = OrderedDict(params)
+        if (self.quant is not None and self.quant.weights
+                and set(params) != set(self._params)):
+            params = quantize_state_dict(params)
+        if set(params) != set(self._params):
+            missing = sorted(set(self._params) - set(params))[:5]
+            extra = sorted(set(params) - set(self._params))[:5]
+            raise ValueError(
+                f"swap_params: candidate names differ from the served "
+                f"weights (missing {missing}, unexpected {extra}) — a "
+                f"different model's weights cannot be hot-swapped")
+        new = OrderedDict()
+        for name, old in self._params.items():
+            t = params[name]
+            if tuple(t.shape) != tuple(old.shape) or t.dtype != old.dtype:
+                raise ValueError(
+                    f"swap_params: {name} is {tuple(t.shape)}/{t.dtype} "
+                    f"but the served weights have "
+                    f"{tuple(old.shape)}/{old.dtype} — a different "
+                    f"model's weights cannot be hot-swapped")
+            new[name] = t if t.device == self.device else t.to(self.device)
+        old = self._params
+        if all(new[k] is self._own[k] for k in new):
+            new = self._own                 # the module's own again
+        self._params = new
+        self._weights_version += 1
+        return OrderedDict(old)
 
     # ---- cache/slot state ------------------------------------------------
     @property

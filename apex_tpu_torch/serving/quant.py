@@ -44,7 +44,7 @@ from apex_tpu_torch.amp.quant import dequantize_int8, quantize_int8
 from apex_tpu_torch.transformer.tensor_parallel.layers import _Linear, _matmul
 
 __all__ = ["QuantConfig", "QTensor", "QuantLinear", "quantize_params",
-           "dequant_params", "is_quantized", "stream_agreement",
+           "quantize_state_dict", "dequant_params", "is_quantized", "stream_agreement",
            "max_logit_error", "kv_bytes_per_token", "param_bytes",
            "evaluate_quant"]
 
@@ -170,6 +170,27 @@ def quantize_params(model: nn.Module) -> nn.Module:
         del new.lm_head
         new.lm_head = QTensor.quantize(head, axis=1)
     return new
+
+
+def quantize_state_dict(state: dict) -> dict:
+    """A float ``state_dict`` in the layout of ``quantize_params(model)``:
+    every weight that function holds int8 (the projections of
+    ``_WEIGHT_QUANT_MODULES`` and an ``lm_head``, by name) becomes its
+    ``<name>.q`` payload and ``<name>.scale`` scales, quantized as it
+    quantizes them; every other tensor is kept as it is (by reference).
+    A hot reload hands an int8 engine a float checkpoint through this."""
+    out = {}
+    for name, t in state.items():
+        prefix, _, attr = name.rpartition(".")
+        if name == "lm_head" or (
+                attr == "weight"
+                and prefix.rsplit(".", 1)[-1] in _WEIGHT_QUANT_MODULES):
+            with torch.no_grad():
+                q, scale = quantize_int8(t.detach(), axis=1)
+            out[f"{name}.q"], out[f"{name}.scale"] = q, scale
+        else:
+            out[name] = t
+    return out
 
 
 def is_quantized(model: nn.Module) -> bool:

@@ -53,6 +53,13 @@ Counterpart of ``apex_tpu/serving/scheduler.py``:
   :meth:`~ContinuousBatchingScheduler.adopt_stream` takes one in on
   another scheduler (a dense capture restored mid-stream, or the bare
   request requeued).
+- **Hot weight swap**: :meth:`~ContinuousBatchingScheduler.swap_weights`
+  at a step boundary (the surface of :mod:`~apex_tpu_torch.serving.
+  reload`): in-flight streams continue under the new weights, the prefix
+  cache's version is bumped so no pre-swap K/V feeds a later admission,
+  and a stream admitted before the swap never offers its (hybrid) blocks.
+  :attr:`~ContinuousBatchingScheduler.weights_step` rides the stream
+  exports and the finished events.
 
 Sampling draws from per-request seeds (see
 :meth:`~apex_tpu_torch.serving.engine.DecodeEngine.sample`); the clock
@@ -183,6 +190,7 @@ class _Active:
     blocks_cached: int = 0
     pinned: List = dataclasses.field(default_factory=list)
     preemptions: int = 0     # lossless suspend/resume cycles survived
+    wv: int = 0              # engine weights_version at admission
 
     @property
     def prompt_remaining(self) -> int:
@@ -210,8 +218,10 @@ class StreamExport:
     preemptions: int = 0
     length: int = 0                   # cached rows at capture
     kv: Optional[tuple] = None        # dense (k, v) CPU tensors
-    # checkpoint step the donor served at export; None until weight
-    # reload is ported
+    # checkpoint step the donor served at export (None = unknown).  A
+    # capture is only faithful on an adopter serving the same step: the
+    # fleet router requeues a cross-version capture bare, so no stream
+    # decodes a hybrid of two weight versions
     weights_step: Optional[int] = None
 
 
@@ -306,8 +316,8 @@ class ContinuousBatchingScheduler:
         # every tenant seen under a policy: the in-flight gauge reads 0
         # for one with nothing in flight
         self._tenants_seen: set = set()
-        # checkpoint step of the weights served (None: unknown); set once
-        # weight reload is ported
+        # checkpoint step of the weights served (None: unknown): set by
+        # swap_weights(step=) and seeded by the HotReloader at boot
         self.weights_step: Optional[int] = None
 
     def _emit(self, kind: str, **fields) -> None:
@@ -538,7 +548,8 @@ class ContinuousBatchingScheduler:
         prefix (the FIFO and policy paths both admit here)."""
         st = _Active(request=request, slot=slot, seq=self._admit_seq,
                      tokens=[], t_submit=t_submit,
-                     draft_k=self._draft_k(request))
+                     draft_k=self._draft_k(request),
+                     wv=self.engine.weights_version)
         self._active[slot] = st
         self._admit_seq += 1
         self._emit("serving_request_admitted", rid=request.rid, slot=slot,
@@ -902,7 +913,8 @@ class ContinuousBatchingScheduler:
             tokens=list(exp.tokens), t_submit=exp.t_submit,
             t_first=exp.t_first, prompt_pos=len(request.prompt),
             phase=RequestPhase.DECODE, draft_k=self._draft_k(request),
-            preemptions=exp.preemptions + 1)
+            preemptions=exp.preemptions + 1,
+            wv=self.engine.weights_version)
         self._admit_seq += 1
         self._live_rids.add(request.rid)
         if self.policy is not None:
@@ -932,6 +944,30 @@ class ContinuousBatchingScheduler:
             if (self._paged and self.engine.block_pool.reclaim
                     is self._reclaim_hook):
                 self.engine.set_block_reclaim(None)
+
+    def swap_weights(self, params, *, step: Optional[int] = None):
+        """Hot-swap the engine's served weights at this step boundary;
+        returns the displaced ``state_dict`` (the caller's rollback copy).
+
+        Call between :meth:`step` calls only.  The swap is
+        :meth:`DecodeEngine.swap_params` (same names, shapes and dtypes,
+        or it raises), and in-flight streams are PRESERVED: decode state
+        (KV cache, block tables, lengths, sampler seeds) is
+        weight-independent, so active slots continue under the new
+        weights.  The prefix cache is version-bumped so no cached
+        pre-swap K/V can feed a post-swap admission; streams admitted
+        pre-swap stop offering their (now hybrid) blocks.
+
+        ``step`` records the candidate's checkpoint step in
+        :attr:`weights_step` (the :class:`~apex_tpu_torch.serving.reload.
+        HotReloader` passes it on every reload and rollback); a raw swap
+        with no ``step`` resets it to ``None``: the provenance is unknown.
+        """
+        old = self.engine.swap_params(params)
+        self.weights_step = None if step is None else int(step)
+        if self.prefix_cache is not None:
+            self.prefix_cache.bump_version()
+        return old
 
     # ---- prefix caching ----------------------------------------------------
     def _match_and_restore(self, st: _Active) -> None:
@@ -984,6 +1020,12 @@ class ContinuousBatchingScheduler:
         their pool block ids, on a dense one by one ``read_region`` of
         the chunk's new blocks (at most a chunk's worth a read).  Each is
         pinned until the prompt is cached."""
+        if st.wv != self.engine.weights_version:
+            # admitted before a hot weight swap: its remaining prefill
+            # rows are computed under the new weights over pre-swap
+            # context — self-consistent for the stream, but never clean
+            # new-weights prefill output, so never offered to the cache
+            return
         cache = self.prefix_cache
         block = cache.block_size
         total = st.prompt_pos // block     # complete blocks available

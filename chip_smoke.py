@@ -123,7 +123,30 @@ ends the run with a non-zero exit and no result line:
      real-clock Poisson run's TTFT / TPOT / queue-wait percentiles, the
      telemetry's cost, and ``start_torch_profiler`` around three decode
      steps (the trace names the norm kernel; as many device-to-host copies
-     with the telemetry on as off).  After the evaluation path,
+     with the telemetry on as off).  Then the weight lifecycle, its
+     checkpoints (2.25 GB each, at most three) in a temporary directory
+     under the checkout, removed however the run ends:
+     ``phase3-serving-reload`` (save and restore walls, the restore split
+     into read + CRC and host-to-device; the 12 requests served while an
+     ``AsyncCheckpointer`` publishes a perturbed step 200 and a
+     ``HotReloader`` swaps it in at a step boundary: nothing dropped,
+     ``weights_step`` 200 after, the requests admitted after the swap
+     held to a fresh engine on step 200, paged = dense bit for bit across
+     the swap, a one-byte-corrupt step 300 refused with the probe's logits
+     bit for bit, rollback bit for bit, a prefix-cache miss after the
+     version bump, a crashed writer's step never selected, the cache's
+     storage unmoved, the swap's host wall and the peak memory);
+     ``phase3-serving-shadow`` (``ShadowABScheduler`` at fraction 0.5:
+     users' streams = the incumbent alone bit for bit, the mirrored rids
+     = ``assign_arm``'s = a CPU dry run's, both arm reports);
+     ``phase3-serving-fleet`` (three replicas over the shared module, 24
+     requests, ``KillReplica`` and ``WedgeReplica``: the virtual numbers
+     = a CPU dry run's on a 2-layer model, every stream held to the
+     single-engine run); ``phase3-serving-rollout`` (a gated rolling
+     reload promoted, a ``RegressingWeights`` candidate halted by the
+     canary gate and rolled back, ``CorruptCandidateMidRollout`` refused,
+     ``KillCanary``; verdicts and virtual numbers = the CPU's, every swap
+     on an empty engine).  After the evaluation path,
      the int8 copy of the model (``QuantConfig(weights=True, kv=True)``),
      the bf16 model freed: the 12 requests served, bytes and peak memory,
      and the longest request fed the bf16 stream: max |logit error| < 0.5
@@ -4958,6 +4981,752 @@ def obs_checks(model, sv, device, control, spec, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the weight lifecycle at llama-1b: checkpoints, hot reload, shadow A/B, a
+# fleet of replicas and rolling reloads (host layers over the serving path)
+# ---------------------------------------------------------------------------
+
+RELOAD_BOOT, RELOAD_NEW, RELOAD_BAD = 100, 200, 300   # checkpoint steps
+RELOAD_PUBLISH_AT = 2      # traffic step at which step 200 is published
+RELOAD_WAIT_AT = 10        # ...and from which the writer is joined
+FLEET_KILL = ("r0", 6)     # fleet: KillReplica's replica and loadgen step
+FLEET_WEDGE = ("r1", 14)   # fleet: WedgeReplica's replica and loadgen step
+
+
+def perturbed(state, seed: int, device) -> "OrderedDict":
+    """A candidate: ``state`` (a ``state_dict``) with every projection
+    moved by half its init scale times seeded normal noise, in its own
+    dtype; the other tensors shared by reference."""
+    import torch
+    from collections import OrderedDict
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = OrderedDict()
+    for name, t in state.items():
+        if name.endswith("_proj.weight"):
+            noise = torch.randn(t.shape, generator=gen, device=t.device)
+            t = (t.float() + noise * (0.5 / t.shape[1] ** 0.5)).to(t.dtype)
+        out[name] = t
+    return out
+
+
+def tiny_cpu_llama(vocab: int):
+    """The CPU dry run's model: the card's vocabulary and context, 2
+    layers of width 64 (the fleet and rollout decisions depend on the
+    requests and the virtual clock, not on the logits)."""
+    import torch
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=2048)
+    return LlamaForCausalLM(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+
+
+def serve_hooked(engine, requests, sv, hook, *, label, setup=None,
+                 **sched_kw) -> dict:
+    """:func:`serve_logged` with ``setup(sched)`` before the first step
+    and ``hook(i, sched)`` after each scheduler step ``i`` (all requests
+    submitted up front): the kernel counts set to 0 just before, chunks
+    and streams logged, the norm-launch gate held, every stream checked
+    for length and range."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    sched = sv.ContinuousBatchingScheduler(engine, **sched_kw)
+    if setup is not None:
+        setup(sched)
+    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    _dispatch.reset_launches()
+    with ChunkLog(engine) as chunk_log, \
+            StreamLog(engine, sched, requests) as stream_log:
+        t0 = time.perf_counter()
+        for r in requests:
+            sched.submit(r)
+        i = 0
+        while sched.queue_depth or sched.active_count:
+            sched.step()
+            hook(i, sched)
+            i += 1
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = engine.prefill_chunks - chunks0
+    steps = engine.decode_steps - steps0
+    results = sched.results
+    vocab = engine.model.config.vocab_size
+    for r in requests:
+        toks = results[r.rid].tokens
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label} {r.rid}: bad stream {toks}")
+    return dict(sched=sched, results=results, chunk_log=chunk_log,
+                stream_log=stream_log,
+                streams={k: v.tokens for k, v in results.items()},
+                summary=dict(wall_s=wall, prefill_chunks=chunks,
+                             decode_steps=steps, scheduler_steps=i,
+                             launches=launches,
+                             expected_norm_launches=norm_launch_gate(
+                                 engine, launches, chunks, steps, label)))
+
+
+class Events:
+    """A capture sink on the port's event stream while entered."""
+
+    def __enter__(self):
+        from apex_tpu_torch import _logging
+
+        self.events, self._log = [], _logging
+        _logging.add_event_sink(self.events.append)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.remove_event_sink(self.events.append)
+
+    def of(self, kind) -> list:
+        return [e for e in self.events if e["event"] == kind]
+
+
+def _probe_logits(engine, prompt):
+    """The probe prompt's next-token logits on a reset engine."""
+    engine.reset()
+    logits = engine.prefill(0, prompt).clone()
+    engine.reset()
+    return logits
+
+
+def _cache_ptrs(engine) -> tuple:
+    cache = engine.cache
+    return tuple(getattr(cache, n).data_ptr() for n in (
+        "k", "v", "lengths", "tables") if getattr(cache, n, None) is not None)
+
+
+def reload_checks(model, requests, sv, device, root, **engine_kw) -> dict:
+    """Phase ``phase3-serving-reload``: the checkpoint layer and hot reload
+    at full width, under the 12-request workload.
+
+    1. Boot: ``save_checkpoint`` of the weights at step 100, then
+       ``load_serving_params`` onto the card (bit for bit the saved
+       weights), the engine serving them; the save and restore walls, the
+       restore split into read + CRC (a restore into CPU tensors) and
+       host-to-device.
+    2. Swap under traffic: while the workload runs, an
+       ``AsyncCheckpointer`` publishes the step-200 candidate at step 2
+       and a ``HotReloader`` polls it every step (joining the writer from
+       step 10 on), swapping it in at a step boundary.  No stream is
+       dropped; every ``weights_step`` after the swap is 200; the
+       requests admitted after it equal a fresh engine on step 200 serving
+       each alone (:func:`compare_streams`); a paged engine (1025 blocks)
+       given the same swap at the same step serves the same streams bit
+       for bit; the cache's storage is where it was; the norm launches are
+       ``2L + 1`` a model call.
+    3. A step-300 candidate with one byte of ``data.bin`` flipped is
+       refused, and the probe's logits are the pre-attempt ones bit for
+       bit; after a rollback they are those before the swap.
+    4. The prefix cache: a swap's version bump makes the next admission of
+       a cached prompt miss.
+    5. A ``CrashCheckpointWriter`` kills a save: no watcher selects it.
+    Returns the record and the live objects the later phases use."""
+    import shutil
+    import torch
+    from collections import OrderedDict
+    from apex_tpu_torch import resilience as rz
+    from apex_tpu_torch.resilience import fault_injection as fi
+
+    t_phase = time.perf_counter()
+    boot = OrderedDict(model.state_dict())
+    like = {"params": boot}
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rz.save_checkpoint(root, RELOAD_BOOT, {"params": boot})
+    out["save_s"] = time.perf_counter() - t0
+    # the boot restore into CPU tensors (read + CRC), then the engine's
+    # swap copies them onto the card (host-to-device)
+    cpu_like = {"params": OrderedDict(
+        (k, torch.empty(v.shape, dtype=v.dtype)) for k, v in boot.items())}
+    t0 = time.perf_counter()
+    restored, step = sv.load_serving_params(root, cpu_like,
+                                            params_key="params",
+                                            step=RELOAD_BOOT)
+    out["restore_read_crc_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = sum(t.nbytes for t in restored.values())
+    engine = sv.DecodeEngine(model, device=device, **engine_kw)
+    t0 = time.perf_counter()
+    engine.swap_params(restored)
+    torch.cuda.synchronize()
+    out["restore_h2d_s"] = time.perf_counter() - t0
+    out["restore_s"] = out["restore_read_crc_s"] + out["restore_h2d_s"]
+    restored = engine.params
+    del cpu_like
+    if step != RELOAD_BOOT or any(not torch.equal(restored[k], boot[k])
+                                  for k in boot):
+        raise AssertionError("the restored boot weights differ from the "
+                             "saved ones")
+    ptrs = _cache_ptrs(engine)
+    probe = max(requests, key=lambda r: len(r.prompt)).prompt
+    logits_boot = _probe_logits(engine, probe)
+
+    cand = perturbed(boot, RELOAD_NEW, device)
+    ac = rz.AsyncCheckpointer(rz.CheckpointManager(root, keep=3))
+    state = {}
+
+    def setup(sched):
+        state["rl"] = sv.HotReloader(
+            sched, root, like=like, params_key="params",
+            watcher=sv.WeightWatcher(root, checkpointer=ac),
+            current_step=RELOAD_BOOT)
+
+    def hook(i, sched):
+        rl = state["rl"]
+        if i == RELOAD_PUBLISH_AT:
+            state["future"] = ac.save(RELOAD_NEW, {"params": cand})
+        if "swap" in state or "future" not in state:
+            return
+        if i >= RELOAD_WAIT_AT:
+            ac.wait()
+        got = rl.maybe_reload()
+        if got is not None:
+            if not got.ok:
+                raise AssertionError(f"reload refused: {got.reason}")
+            state["swap"] = (i, got)
+
+    torch.cuda.reset_peak_memory_stats()
+    with Events() as ev:
+        dense = serve_hooked(engine, requests, sv, hook, setup=setup,
+                             label="reload dense")
+    peak = torch.cuda.max_memory_allocated()
+    if "swap" not in state:
+        raise AssertionError("reload: the candidate was never swapped in")
+    swap_at, swap = state["swap"]
+    rl, fut = state["rl"], state["future"]
+    if fut.error is not None or _cache_ptrs(engine) != ptrs:
+        raise AssertionError(f"reload: writer {fut.error}, cache moved")
+    # every weights_step after the swap is 200
+    swapped_i = next(i for i, e in enumerate(ev.events)
+                     if e["event"] == "serving_weights_swapped")
+    later = {e.get("weights_step") for e in ev.events[swapped_i:]
+             if "weights_step" in e}
+    if later != {RELOAD_NEW}:
+        raise AssertionError(f"weights_step after the swap: {later}")
+    admitted_after = [e["rid"] for e in ev.events[swapped_i:]
+                      if e["event"] == "serving_request_admitted"]
+    if not admitted_after:
+        raise AssertionError("no request was admitted after the swap")
+    # those requests held to a fresh engine booted on step 200, alone
+    fresh = sv.DecodeEngine(model, device=device, **engine_kw)
+    fresh.swap_params(engine.params)
+    alone = {}
+    for r in requests:
+        if r.rid in admitted_after:
+            one = serve_logged(fresh, [r], sv, label=f"fresh {r.rid}")
+            alone.setdefault("streams", {}).update(one["streams"])
+            merged = alone.setdefault("stream_log", StreamLog(None, None, []))
+            merged.logits.update(one["stream_log"].logits)
+            merged.x.update(one["stream_log"].x)
+    after = dict(streams={k: dense["streams"][k] for k in admitted_after},
+                 stream_log=dense["stream_log"])
+    fresh_check = compare_streams(model, alone, after, "reload fresh")
+    del fresh
+    # paged: the same swap at the same step, bit for bit
+    paged_eng = sv.DecodeEngine(model, device=device, paged=sv.PagedCacheConfig(
+        block_size=16), **engine_kw)
+    paged_eng.swap_params(restored)
+    new_params = engine.params
+
+    def paged_hook(i, sched):
+        if i == swap_at:
+            sched.swap_weights(new_params, step=RELOAD_NEW)
+
+    paged = serve_hooked(paged_eng, requests, sv, paged_hook,
+                         label="reload paged")
+    if paged["streams"] != dense["streams"]:
+        raise AssertionError("paged streams across the swap differ from "
+                             "dense")
+    num_blocks = paged_eng.block_pool.num_blocks
+    del paged_eng
+    del cand
+    logits_new = _probe_logits(engine, probe)
+    # a corrupt candidate: refused, the served weights untouched
+    bad = perturbed(boot, RELOAD_BAD, device)
+    t0 = time.perf_counter()
+    rz.save_checkpoint(root, RELOAD_BAD, {"params": bad})
+    save_bad_s = time.perf_counter() - t0
+    fi.corrupt_checkpoint(os.path.join(root, f"step_{RELOAD_BAD:010d}"),
+                          seed=0, nbytes=1)
+    refused = rl.reload(step=RELOAD_BAD)
+    if refused.ok or not torch.equal(_probe_logits(engine, probe),
+                                     logits_new):
+        raise AssertionError("the corrupt candidate changed the served "
+                             "weights")
+    rb = rl.rollback()
+    if not (rb.ok and rb.step == RELOAD_BOOT and torch.equal(
+            _probe_logits(engine, probe), logits_boot)):
+        raise AssertionError("the rollback did not restore the boot logits")
+    rl.rollback()                               # back on step 200
+    # the prefix cache: a version bump makes the next admission miss
+    sched = sv.ContinuousBatchingScheduler(
+        engine, prefix_caching=sv.PrefixCacheConfig())
+    p = sv.Request("pc0", probe[:512], max_new_tokens=2)
+    hits = []
+    for i, swap_between in enumerate((False, True)):
+        for j in range(2):
+            if swap_between and j == 0:
+                sched.swap_weights(sched.swap_weights(engine.params,
+                                                      step=RELOAD_NEW),
+                                   step=RELOAD_NEW)
+            sched.submit(sv.Request(f"pc{i}{j}", p.prompt, max_new_tokens=2))
+            before = sched.prefix_hits
+            sched.run()
+            hits.append(sched.prefix_hits - before)
+    sched.close()
+    if hits != [0, 1, 0, 1]:
+        raise AssertionError(f"prefix hits around a swap: {hits}")
+    # a writer crash: no watcher ever selects the partial step
+    crash = fi.CrashCheckpointWriter(after_records=3)
+    ac_crash = rz.AsyncCheckpointer(rz.CheckpointManager(root, keep=3),
+                                    progress_hook=crash)
+    fut_crash = ac_crash.save(400, {"params": boot})
+    fut_crash.join()
+    partial = [n for n in os.listdir(root) if n.startswith("tmp_")]
+    walk = sv.WeightWatcher(root).poll()
+    if not (isinstance(fut_crash.error, rz.SimulatedWriterCrash) and partial
+            and walk != 400 and sv.WeightWatcher(
+                root, checkpointer=ac_crash).poll() is None):
+        raise AssertionError(f"writer crash: {fut_crash.error}, {partial}, "
+                             f"{walk}")
+    for n in partial:
+        shutil.rmtree(os.path.join(root, n))
+    if _cache_ptrs(engine) != ptrs:
+        raise AssertionError("a swap moved the cache")
+    out.update(
+        requests=len(requests), swap_at_step=swap_at,
+        swap_s=swap.swap_s, swap_restore_s=swap.restore_s,
+        swap_validate_s=swap.validate_s,
+        async_snapshot_s=fut.snapshot_s, async_write_s=fut.write_s,
+        save_corrupt_candidate_s=save_bad_s, refused=refused.reason[:200],
+        dropped=len(requests) - len(dense["results"]),
+        admitted_after_swap=admitted_after, fresh_engine=fresh_check,
+        paged_num_blocks=num_blocks, paged_streams_identical=True,
+        rollback_swap_s=rb.swap_s, prefix_hits_around_swap=hits,
+        writer_crash_partial_dirs=len(partial), watcher_walk=walk,
+        cache_ptrs_unchanged=True, peak_mem_bytes=peak,
+        dense=dense["summary"], paged=paged["summary"],
+        launches={k: dense["summary"]["launches"][k]
+                  + paged["summary"]["launches"][k]
+                  for k in dense["summary"]["launches"]},
+        wall_s=time.perf_counter() - t_phase)
+    return out, dict(engine=engine, boot=boot, new_params=new_params,
+                     bad=bad)
+
+
+def shadow_run(model, new_params, bad_params, sv, device, requests,
+               **engine_kw) -> dict:
+    """One shadow A/B run on a ``VirtualClock``: an incumbent engine on
+    ``new_params``, a shadow one on ``bad_params`` (both over ``model``),
+    ``ABConfig(fraction=0.5)``, the requests in bursts of 4 a second;
+    then the incumbent alone on the same workload."""
+    from apex_tpu_torch import obs
+
+    def engine(params):
+        e = sv.DecodeEngine(model, device=device, **engine_kw)
+        e.swap_params(params)
+        return e
+
+    wl = sv.make_workload([r.prompt for r in requests],
+                          sv.burst_arrivals(len(requests), burst=4,
+                                            period_s=1.0),
+                          max_new_tokens=requests[0].max_new_tokens,
+                          rid_prefix="ab")
+    from apex_tpu_torch.ops import _dispatch
+
+    inc, shadow = engine(new_params), engine(bad_params)
+    clk = sv.VirtualClock()
+    ab = sv.ShadowABScheduler(
+        sv.ContinuousBatchingScheduler(inc, clock=clk),
+        sv.ContinuousBatchingScheduler(shadow, clock=clk),
+        sv.ABConfig(fraction=0.5))
+    rec = obs.RequestTraceRecorder(clock=clk).install()
+    _dispatch.reset_launches()
+    try:
+        out = sv.LoadGenerator(ab, wl, step_time_s=0.25).run()
+    finally:
+        rec.uninstall()
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = inc.prefill_chunks + shadow.prefill_chunks
+    steps = inc.decode_steps + shadow.decode_steps
+    gate = dict(prefill_chunks=chunks, decode_steps=steps, launches=launches,
+                expected_norm_launches=norm_launch_gate(
+                    inc, launches, chunks, steps, "shadow"))
+    del shadow
+    reports = ab.arm_reports(rec.records(), deadlines=out.deadlines,
+                             arrivals=out.arrivals, duration_s=out.duration_s)
+    inc.reset()
+    alone = sv.LoadGenerator(sv.ContinuousBatchingScheduler(
+        inc, clock=sv.VirtualClock()), wl, step_time_s=0.25).run()
+    return dict(ab=ab, out=out, alone=alone, reports=reports, workload=wl,
+                gate=gate)
+
+
+def shadow_checks(model, new_params, bad_params, sv, device, requests,
+                  **engine_kw) -> dict:
+    """Phase ``phase3-serving-shadow``: users' results equal the
+    incumbent serving alone bit for bit, the mirrored rids are
+    ``assign_arm``'s and the CPU dry run's, and both arm reports."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = shadow_run(model, new_params, bad_params, sv, device, requests,
+                      **engine_kw)
+    wall = time.perf_counter() - t0
+    ab, out = card["ab"], card["out"]
+    users = {k: v.tokens for k, v in out.results.items()}
+    if users != {k: v.tokens for k, v in card["alone"].results.items()}:
+        raise AssertionError("shadow: users' streams differ from the "
+                             "incumbent alone")
+    want = [r.rid for r in card["workload"].requests
+            if sv.assign_arm(r.rid, fraction=0.5, seed=0)]
+    tiny = tiny_cpu_llama(model.config.vocab_size)
+    cpu = shadow_run(tiny, tiny.state_dict(), tiny.state_dict(), sv, "cpu",
+                     requests, **engine_kw)
+    if not (ab.mirrored_rids == want == cpu["ab"].mirrored_rids
+            and ab.mirror_shed == 0):
+        raise AssertionError(f"shadow mirror {ab.mirrored_rids}, "
+                             f"assign_arm {want}, CPU "
+                             f"{cpu['ab'].mirrored_rids}")
+    differ = [r for r in ab.mirrored_rids if out.results[r].tokens
+              != ab.shadow.results["shadow:" + r].tokens]
+
+    def summary(rep):
+        return dict(offered=rep.offered, completed=rep.completed,
+                    ttft_p95_s=rep.ttft.get("p95"),
+                    tpot_p95_s=rep.tpot.get("p95"), goodput=rep.goodput)
+
+    reports = {k: summary(v) for k, v in card["reports"].items()}
+    gate = card["gate"]
+    del card
+    torch.cuda.empty_cache()
+    return dict(requests=len(requests), mirrored=ab.mirrored_rids,
+                mirrored_equal_assign_arm_and_cpu=True,
+                users_equal_incumbent_alone=True,
+                candidate_streams_differing=len(differ),
+                arm_reports=reports, **gate, wall_s=wall)
+
+
+def fleet_workload(vocab: int, sv, n: int = 24, new_tokens: int = 16):
+    """The fleet's 24 greedy requests: prompts of 64-512 tokens from a
+    seeded generator, 16 new tokens each, 8 arriving a second."""
+    import torch
+
+    rng = torch.Generator().manual_seed(18)
+    lens = torch.randint(64, 513, (n,), generator=rng).tolist()
+    prompts = [torch.randint(0, vocab, (k,), generator=rng).tolist()
+               for k in lens]
+    return sv.make_workload(prompts, sv.uniform_arrivals(n, 8.0),
+                            max_new_tokens=new_tokens, deadline_s=60.0,
+                            rid_prefix="f")
+
+
+def fleet_run(model, sv, device, wl, *, log_streams, **engine_kw) -> dict:
+    """Three dense replicas over ``model`` (its tensors shared), on a
+    ``VirtualClock`` stepped 0.25 s: the workload with ``KillReplica`` and
+    ``WedgeReplica`` (:data:`FLEET_KILL`, :data:`FLEET_WEDGE`).  Returns
+    the virtual numbers, and with ``log_streams`` each replica's
+    :class:`StreamLog`, the router and the launch accounting."""
+    import contextlib
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.resilience import fault_injection as fi
+
+    engines = [sv.DecodeEngine(model, device=device, **engine_kw)
+               for _ in range(3)]
+    clk = sv.VirtualClock()
+    scheds = {f"r{i}": sv.ContinuousBatchingScheduler(
+        e, clock=clk, log_interval=10 ** 9) for i, e in enumerate(engines)}
+    router = sv.FleetRouter(scheds, config=sv.FleetConfig(
+        suspect_after_s=0.5, dead_after_s=1.1))
+    faults = [fi.KillReplica(FLEET_KILL[0], at_step=FLEET_KILL[1]),
+              fi.WedgeReplica(FLEET_WEDGE[0], at_step=FLEET_WEDGE[1])]
+    _dispatch.reset_launches()
+    with Events() as ev, contextlib.ExitStack() as stack:
+        logs = ({n: stack.enter_context(StreamLog(s.engine, s, wl.requests))
+                 for n, s in scheds.items()} if log_streams else None)
+        t0 = time.perf_counter()
+        out = sv.LoadGenerator(router, wl, step_time_s=0.25,
+                               step_hook=sv.chain_hooks(*faults)).run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not all(f.killed if hasattr(f, "killed") else f.wedged
+               for f in faults):
+        raise AssertionError("fleet: a fault did not fire")
+    routed = {}
+    for e in ev.of("serving_fleet_routed"):
+        routed[e["replica"]] = routed.get(e["replica"], 0) + 1
+    virtual = dict(
+        routed=dict(sorted(routed.items())),
+        transitions=[(e["replica"], e["state"]) for e in ev.of(
+            "serving_fleet_replica_state")],
+        failovers=[(e["rid"], e["mode"]) for e in ev.of(
+            "serving_fleet_failover")],
+        resumes=[(e["rid"], e["replica"], e["mode"]) for e in ev.of(
+            "serving_fleet_resumed")],
+        fleet_stats=router.fleet_stats, completed=out.completed,
+        rejected=out.rejected, goodput=out.goodput, steps=out.steps,
+        finish=sorted({r.finish_reason for r in out.results.values()}))
+    return dict(virtual=virtual, logs=logs, router=router, out=out,
+                engines=engines, wall_s=wall, events=ev,
+                launches={k.name: k.launches for k in _dispatch.KERNELS})
+
+
+def fleet_checks(model, sv, device, **engine_kw) -> dict:
+    """Phase ``phase3-serving-fleet``: the fleet run at full width.  Its
+    virtual numbers (routed per replica, transitions, failovers, resumes,
+    shed, goodput) equal the CPU dry run's on a 2-layer model; every
+    served stream, each evacuated one included (a captured one merged
+    from its donor's and its adopter's logs), is held to the uninterrupted
+    single-engine run by :func:`compare_streams`; nothing admitted is
+    dropped; the norm launches are ``2L + 1`` a model call."""
+    import torch
+
+    wl = fleet_workload(model.config.vocab_size, sv)
+    t0 = time.perf_counter()
+    run = fleet_run(model, sv, device, wl, log_streams=True, **engine_kw)
+    cpu = fleet_run(tiny_cpu_llama(model.config.vocab_size), sv, "cpu", wl,
+                    log_streams=False, **engine_kw)
+    if run["virtual"] != cpu["virtual"]:
+        raise AssertionError(f"fleet virtual numbers {run['virtual']} differ "
+                             f"from the CPU's {cpu['virtual']}")
+    out = run["out"]
+    if out.rejected or out.completed != len(wl.requests):
+        raise AssertionError(f"fleet dropped work: {out.rejected}, "
+                             f"{out.completed}")
+    router, logs = run["router"], run["logs"]
+    resumes = run["events"].of("serving_fleet_resumed")
+    merged = StreamLog(None, None, [])
+    for r in wl.requests:
+        cur = router.placement_of(r.rid)
+        lg, xs = list(logs[cur].logits[r.rid]), list(logs[cur].x[r.rid])
+        for e in reversed([e for e in resumes if e["rid"] == r.rid]):
+            if e["mode"] != "capture-resume":
+                break
+            donor = logs[e["from_replica"]]
+            lg, xs = donor.logits[r.rid] + lg, donor.x[r.rid] + xs
+        merged.logits[r.rid], merged.x[r.rid] = lg, xs
+    engines, fleet_wall = run["engines"], run["wall_s"]
+    chunks = sum(e.prefill_chunks for e in engines)
+    steps = sum(e.decode_steps for e in engines)
+    launches = run["launches"]
+    expected = norm_launch_gate(engines[0], launches, chunks, steps, "fleet")
+    del run, logs
+    for e in engines:
+        e.reset()
+    del engines
+    torch.cuda.empty_cache()
+    ref_engine = sv.DecodeEngine(model, device=device, **engine_kw)
+    ref = serve_logged(ref_engine, wl.requests, sv, label="fleet reference")
+    del ref_engine
+    held = compare_streams(model, ref, dict(
+        streams={k: v.tokens for k, v in out.results.items()},
+        stream_log=merged), "fleet")
+    return dict(requests=len(wl.requests), replicas=3, kill=FLEET_KILL,
+                wedge=FLEET_WEDGE, **cpu["virtual"],
+                virtual_equal_cpu=True, wall_s=time.perf_counter() - t0,
+                fleet_run_wall_s=fleet_wall, prefill_chunks=chunks,
+                decode_steps=steps, launches=launches,
+                expected_norm_launches=expected, streams=held)
+
+
+def rollout_workload(vocab: int, sv, *, seed: int, n: int = 12,
+                     deadline_s: float = 60.0):
+    """A rollout window's traffic: 12 greedy requests of 64-256 prompt
+    tokens, 8 new tokens, 8 arriving a second."""
+    import torch
+
+    rng = torch.Generator().manual_seed(seed)
+    lens = torch.randint(64, 257, (n,), generator=rng).tolist()
+    prompts = [torch.randint(0, vocab, (k,), generator=rng).tolist()
+               for k in lens]
+    return sv.make_workload(prompts, sv.uniform_arrivals(n, 8.0),
+                            max_new_tokens=8, deadline_s=deadline_s,
+                            rid_prefix=f"ro{seed}-")
+
+
+def rollout_suite(model, boot, root, sv, device, **engine_kw) -> dict:
+    """The four rollouts over three replicas of ``model`` (booted on
+    ``boot``, step 100; step 200 committed under ``root``), each a
+    controller over one router with a ``CanaryGate`` and waves of one:
+
+    - ``good``: to step 200, promoted;
+    - ``regressing``: ``RegressingWeights`` published at step 300 and its
+      hook stalling whoever serves it: the canary fails its gate, the
+      rollout halts and rolls back, every replica on 200 again;
+    - ``corrupt``: to step 300 with ``CorruptCandidateMidRollout`` at
+      loadgen step 6, after the canary's restore: the next wave's restore
+      is refused and that replica stays on its old weights;
+    - ``kill_canary``: to step 100 (the boot weights, on disk since the
+      reload phase), ``KillCanary`` two window steps in: the rollout
+      halts, the canary's streams replay.
+
+    Every swap happens on an engine with no stream in its slots (no
+    request's tokens come from two steps).  Returns each rollout's
+    virtual numbers and walls."""
+    from apex_tpu_torch import obs
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.resilience import fault_injection as fi
+
+    vocab = model.config.vocab_size
+    engines = [sv.DecodeEngine(model, device=device, **engine_kw)
+               for _ in range(3)]
+    _dispatch.reset_launches()
+    own = engines[0].params
+    swaps = []
+    for e in engines:
+        inner = e.swap_params
+
+        def guarded(params, e=e, inner=inner):
+            if e.free_slots() != list(range(e.slots)):
+                raise AssertionError("a swap with streams in the slots")
+            swaps.append(1)
+            return inner(params)
+        e.swap_params = guarded
+    clk = sv.VirtualClock()
+    router = sv.FleetRouter({f"r{i}": sv.ContinuousBatchingScheduler(
+        e, clock=clk, log_interval=10 ** 9) for i, e in enumerate(engines)})
+    reloaders = {n: sv.HotReloader(router.replica(n), root,
+                                   like={"params": boot}, params_key="params",
+                                   current_step=RELOAD_BOOT)
+                 for n in router.replica_names}
+    results = {}
+
+    def rollout(name, target, gate_kw, cfg_kw, wl, faults=()):
+        t0 = time.perf_counter()
+        with Events() as ev, obs.recording_requests(clock=clk) as rec:
+            ctl = sv.RollingReloadController(
+                router, reloaders, recorder=rec, config=sv.RolloutConfig(
+                    step=target, health_window_steps=1,
+                    gate=sv.CanaryGate(**gate_kw), **cfg_kw))
+            hooks = [f(ctl) for f in faults]
+            ctl.start()
+            out = sv.LoadGenerator(router, wl, step_time_s=0.25,
+                                   step_hook=sv.chain_hooks(ctl, *hooks)).run()
+            steps = 0
+            while not ctl.done and steps < 300:
+                router.step()
+                clk.advance(0.25)
+                ctl.advance()
+                for h in hooks:
+                    h(10_000 + steps, router)
+                steps += 1
+        if not ctl.done:
+            raise AssertionError(f"rollout {name} never terminal")
+        for req in wl.requests:
+            res = out.results.get(req.rid)
+            if req.rid not in out.rejected and (
+                    res is None or res.finish_reason not in sv.SERVED_REASONS):
+                raise AssertionError(f"rollout {name}: {req.rid} dropped")
+        v = ctl.verdict
+        results[name] = dict(
+            state=ctl.state, abort=(ctl.abort_reason or "").split(": ")[0],
+            upgraded=ctl.upgraded,
+            verdict=None if v is None else dict(
+                passed=v.passed, canary=v.canary, baseline=v.baseline),
+            weights_steps=router.weights_steps, fleet_stats=router.fleet_stats,
+            completed=out.completed, goodput=out.goodput,
+            rolled_back=[e["names"] for e in ev.of(
+                "serving_rollout_rolled_back")],
+            stalls=[getattr(h, "stalls", None) for h in hooks])
+        results[name + "_walls"] = dict(
+            wall_s=time.perf_counter() - t0,
+            restore_s=[round(e["duration_s"], 3) for e in ev.of(
+                "serving_weights_loaded")],
+            swap_s=dict(ctl.swap_pauses))
+
+    gate = dict(ttft_ratio=3.0, completion_margin=0.5)
+    rollout("good", RELOAD_NEW, gate, dict(canary_fraction=0.34,
+                                           canary_window_steps=10),
+            rollout_workload(vocab, sv, seed=1))
+    resident = {n: sum(t.nbytes for k, t in router.replica(n).engine.params
+                       .items() if t.data_ptr() != own[k].data_ptr())
+                for n in router.replica_names}
+    fi.RegressingWeights.publish(root, boot, RELOAD_BAD)
+    rollout("regressing", RELOAD_BAD, {}, dict(canary_fraction=0.5,
+                                               canary_window_steps=12),
+            rollout_workload(vocab, sv, seed=2, deadline_s=5.0),
+            faults=[lambda c: fi.RegressingWeights(c, slow_every=2)])
+    rollout("corrupt", RELOAD_BAD, gate, dict(canary_fraction=0.34,
+                                              canary_window_steps=10),
+            rollout_workload(vocab, sv, seed=3),
+            faults=[lambda c: fi.CorruptCandidateMidRollout(
+                root, RELOAD_BAD, at_step=6)])
+    rollout("kill_canary", RELOAD_BOOT, dict(completion_margin=0.5),
+            dict(canary_fraction=0.5, canary_window_steps=10),
+            rollout_workload(vocab, sv, seed=4),
+            faults=[lambda c: fi.KillCanary(c, after_window_steps=2)])
+    want = {"good": ("promoted", ""),
+            "regressing": ("aborted", "canary_failed"),
+            "corrupt": ("aborted", "reload_refused:r1"),
+            "kill_canary": ("aborted", "replica_died:r0")}
+    for name, (st, reason) in want.items():
+        if (results[name]["state"], results[name]["abort"]) != (st, reason):
+            raise AssertionError(f"rollout {name}: {results[name]}")
+    if (results["good"]["weights_steps"] != {n: RELOAD_NEW for n in
+                                             ("r0", "r1", "r2")}
+            or results["regressing"]["weights_steps"] != {
+                n: RELOAD_NEW for n in ("r0", "r1", "r2")}
+            or results["corrupt"]["weights_steps"]["r1"] != RELOAD_NEW):
+        raise AssertionError(f"rollout weights steps: {results}")
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    chunks = sum(e.prefill_chunks for e in engines)
+    steps = sum(e.decode_steps for e in engines)
+    results["launch_gate"] = dict(
+        prefill_chunks=chunks, decode_steps=steps, launches=launches,
+        expected_norm_launches=norm_launch_gate(
+            engines[0], launches, chunks, steps, "rollout"))
+    results["swaps"] = len(swaps)
+    results["resident_weight_bytes_after_good"] = resident
+    results["kv_bytes_per_replica"] = int(sv.kv_bytes_per_token(
+        engines[0].cache) * engines[0].slots * engines[0].max_len)
+    return results
+
+
+def rollout_checks(model, boot, root, sv, device, **engine_kw) -> dict:
+    """Phase ``phase3-serving-rollout``: :func:`rollout_suite` on the card
+    and, on a 2-layer model, on the CPU; the verdicts and virtual numbers
+    equal."""
+    import tempfile
+    import torch
+    from apex_tpu_torch import resilience as rz
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = rollout_suite(model, boot, root, sv, device, **engine_kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tiny = tiny_cpu_llama(model.config.vocab_size)
+    tiny_boot = tiny.state_dict()
+    with tempfile.TemporaryDirectory(dir=ROOT) as cpu_root:
+        rz.save_checkpoint(cpu_root, RELOAD_BOOT, {"params": tiny_boot})
+        rz.save_checkpoint(cpu_root, RELOAD_NEW, {"params": perturbed(
+            tiny_boot, RELOAD_NEW, "cpu")})
+        cpu = rollout_suite(tiny, tiny_boot, cpu_root, sv, "cpu", **engine_kw)
+    names = ("good", "regressing", "corrupt", "kill_canary")
+    for n in names:             # (as JSON: an empty arm's p95 is NaN)
+        if json.dumps(card[n], sort_keys=True) != json.dumps(cpu[n],
+                                                              sort_keys=True):
+            raise AssertionError(f"rollout {n}: card {card[n]} vs CPU {cpu[n]}")
+    return dict(**{n: card[n] for n in names},
+                walls={n: card[n + "_walls"] for n in names},
+                verdicts_equal_cpu=True, swaps=card["swaps"],
+                **card["launch_gate"],
+                resident_weight_bytes_after_good=card[
+                    "resident_weight_bytes_after_good"],
+                kv_bytes_per_replica=card["kv_bytes_per_replica"],
+                peak_mem_bytes=peak, wall_s=wall)
+
+
 def int8_reference(model, probe, sv, device, **engine_kw) -> tuple:
     """What the int8 phase compares with, taken while the bf16 model is
     alive: ``probe``'s greedy stream on the bf16 engine, cached in its own
@@ -5244,8 +6013,9 @@ def llama_1b(device, model, init_s) -> dict:
     the shared-prefix workload with and without prefix caching, paged and
     dense (:func:`prefix_checks`), speculation dense and paged
     (:func:`spec_checks`), the control plane (:func:`control_checks`), the
-    observability layer on them (:func:`obs_checks`) and failover
-    (:func:`export_adopt_checks`).  Each run launches the norm kernel only,
+    observability layer on them (:func:`obs_checks`), failover
+    (:func:`export_adopt_checks`) and the weight lifecycle
+    (:func:`lifecycle_checks`).  Each run launches the norm kernel only,
     ``(2L + 1) x (chunks + steps + verifies)`` times."""
     import torch
     from apex_tpu_torch import serving as sv
@@ -5319,6 +6089,48 @@ def llama_1b(device, model, init_s) -> dict:
     out["export"] = export_adopt_checks(model, requests[:kw["slots"]], sv,
                                         device, **kw)
     out["export_s"] = time.perf_counter() - t0
+    out.update(lifecycle_checks(model, requests, sv, device, **kw))
+    return out
+
+
+def _compact(record):
+    """``record`` for the log: every ``launches`` dict cut to the kernels
+    that launched."""
+    if isinstance(record, dict):
+        return {k: (_nonzero(v) if k == "launches" else _compact(v))
+                for k, v in record.items()}
+    return record
+
+
+def lifecycle_checks(model, requests, sv, device, **kw) -> dict:
+    """The weight lifecycle's four phases, their checkpoints in a
+    temporary directory under the checkout (at most three steps at once,
+    2.25 GB each), removed however the phases end."""
+    import shutil
+    import tempfile
+    import torch
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT)
+    try:
+        out["reload"], live = reload_checks(model, requests, sv, device, root,
+                                            **kw)
+        log("phase3-serving-reload", **_compact(out["reload"]))
+        out["shadow"] = shadow_checks(model, live["new_params"], live["bad"],
+                                      sv, device, requests, **kw)
+        log("phase3-serving-shadow", **_compact(out["shadow"]))
+        boot = live["boot"]
+        del live
+        torch.cuda.empty_cache()
+        out["fleet"] = fleet_checks(model, sv, device, **kw)
+        log("phase3-serving-fleet", **_compact(out["fleet"]))
+        out["rollout"] = rollout_checks(model, boot, root, sv, device, **kw)
+        log("phase3-serving-rollout", **_compact(out["rollout"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["lifecycle_s"] = sum(out[k]["wall_s"] for k in (
+        "reload", "shadow", "fleet", "rollout"))
     return out
 
 
@@ -7362,6 +8174,9 @@ def main() -> int:
                  **{f"serving_obs_chaos_{n}": e2e["obs"]["chaos"][n]["summary"]
                     for n in ("fifo", "policy")},
                  serving_obs_real_clock=e2e["obs"]["real_clock"],
+                 serving_reload=e2e["reload"],
+                 serving_shadow=e2e["shadow"], serving_fleet=e2e["fleet"],
+                 serving_rollout=e2e["rollout"],
                  serving_int8=int8, evaluation=evaluation, training=training,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)

@@ -8,10 +8,11 @@ files instead, and hold the port's inventory to the JAX package's:
   single-registration rules (the documentation rule is left out: the
   docs describe the JAX package, and the inventory check below covers
   the port's names through JAX's), is registered by JAX with the same
-  kind, labels, scope labels and help, and every metric the JAX bridge
-  declares the port's bridge declares too;
-- the metrics JAX registers outside its bridge wait for the slices that
-  port their modules, and are listed here;
+  kind, labels, scope labels and help in the twin of the same file, and
+  every metric the JAX bridge declares the port's bridge declares too;
+- the metrics JAX registers outside its bridge are registered by the
+  port's twin of their file (the checkpoint layer's), or wait for the
+  slice that ports it (the supervisor's), listed here;
 - every event kind the port emits is one the JAX package emits, and has
   a bridge handler or an entry in the event lint's allowlist.
 """
@@ -28,31 +29,28 @@ sys.path.insert(0, str(ROOT / "tools"))
 import check_events  # noqa: E402
 import check_metrics  # noqa: E402
 
-#: metrics the JAX package registers outside ``obs/bridge.py``, by file:
-#: the supervisor's and checkpoint managers' own instruments, which come
-#: with the resilience slice
-WAITING = {
-    "apex_tpu/resilience/supervisor.py": {
-        "apex_step_duration_seconds", "apex_supervisor_steps_total",
-        "apex_heartbeat_age_seconds"},
+#: metrics the JAX package registers outside ``obs/bridge.py`` whose
+#: file the port has ported: registered by the port's twin of that file
+PORTED_ELSEWHERE = {
     "apex_tpu/resilience/checkpoint.py": {"apex_checkpoint_duration_seconds"},
     "apex_tpu/resilience/async_checkpoint.py": {
         "apex_checkpoint_inflight", "apex_checkpoint_backpressure_total"},
 }
 
+#: ...and those whose file waits for a later slice: the supervisor's own
+#: instruments, which come with the training-side resilience slice
+WAITING = {
+    "apex_tpu/resilience/supervisor.py": {
+        "apex_step_duration_seconds", "apex_supervisor_steps_total",
+        "apex_heartbeat_age_seconds"},
+}
+
 #: event kinds the port's bridge handles that nothing in the port emits
-#: yet: their emitters (weight loading and reload, the fleet router, the
-#: rollout controller, tensor-parallel serving and the training-side
-#: resilience layer) come with later slices
+#: yet: their emitters (tensor-parallel serving, the guarded step, replica
+#: consistency and the supervisor's watchdog) come with later slices
 HANDLED_NOT_YET_EMITTED = {
-    "retry_attempt", "retry_exhausted", "batch_skipped", "replica_desync",
-    "supervisor_failure", "watchdog_stall", "checkpoint_rejected",
-    "serving_tp_step", "serving_weights_loaded", "serving_weights_swapped",
-    "serving_fleet_routed", "serving_fleet_replica_state",
-    "serving_fleet_failover", "serving_fleet_resumed", "serving_fleet_shed",
-    "serving_rollout_started", "serving_rollout_replica_upgraded",
-    "serving_rollout_canary_verdict", "serving_rollout_halted",
-    "serving_rollout_rolled_back", "serving_rollout_promoted",
+    "serving_tp_step", "batch_skipped", "replica_desync",
+    "supervisor_failure", "watchdog_stall",
 }
 
 
@@ -85,10 +83,11 @@ def test_port_metrics_pass_the_metric_lint(port_regs):
 def test_every_port_metric_is_a_jax_metric(port_regs, jax_regs):
     jax_by_name = {r.name: r for r in jax_regs}
     for r in port_regs:
-        assert r.relpath == os.path.join("apex_tpu_torch", "obs",
-                                         "bridge.py"), r
         ref = jax_by_name.get(r.name)
         assert ref is not None, f"{r.name} is not a JAX metric"
+        # registered in the port's twin of the JAX file
+        assert r.relpath == ref.relpath.replace("apex_tpu", "apex_tpu_torch",
+                                                1), r
         assert (r.kind, r.labels) == (ref.kind, ref.labels), r.name
 
 
@@ -96,13 +95,18 @@ def test_jax_bridge_inventory_is_the_ports(port_regs, jax_regs):
     bridge = os.path.join("apex_tpu", "obs", "bridge.py")
     jax_bridge = [(r.name, r.kind, r.labels) for r in jax_regs
                   if r.relpath == bridge]
-    port = [(r.name, r.kind, r.labels) for r in port_regs]
+    port = [(r.name, r.kind, r.labels) for r in port_regs
+            if r.relpath == os.path.join("apex_tpu_torch", "obs",
+                                         "bridge.py")]
     assert port == jax_bridge             # same names, same order
 
 
 def test_live_instruments_match_jax():
     """Help text, label names, scope labels and buckets of every live
-    instrument the port's bridge registers, against JAX's."""
+    instrument the port registers (its bridge and its checkpoint layer),
+    against JAX's."""
+    import apex_tpu.resilience.async_checkpoint  # noqa: F401
+    import apex_tpu_torch.resilience.async_checkpoint  # noqa: F401
     from apex_tpu.obs import REGISTRY as JREG
     from apex_tpu_torch.obs import REGISTRY as TREG
 
@@ -122,7 +126,13 @@ def test_metrics_registered_elsewhere_wait_for_their_slices(port_regs,
     for r in jax_regs:
         if r.relpath != bridge:
             elsewhere[r.relpath].add(r.name)
-    assert dict(elsewhere) == WAITING
+    assert dict(elsewhere) == {**PORTED_ELSEWHERE, **WAITING}
+    port_elsewhere = defaultdict(set)
+    for r in port_regs:
+        if r.relpath != os.path.join("apex_tpu_torch", "obs", "bridge.py"):
+            port_elsewhere[r.relpath.replace("apex_tpu_torch", "apex_tpu",
+                                             1)].add(r.name)
+    assert dict(port_elsewhere) == PORTED_ELSEWHERE
     ported = {r.name for r in port_regs}
     assert not ported & set().union(*WAITING.values())
 
@@ -169,4 +179,17 @@ def test_serving_kinds_the_port_emits():
         "serving_request_finished", "serving_spec_verify", "serving_step",
         "serving_quant_enabled", "serving_block_cow", "serving_quant_eval",
         "loadgen_started", "loadgen_request_shed", "loadgen_finished",
-        "fault_injected", "serving_alert_firing", "serving_alert_resolved"}
+        "fault_injected", "serving_alert_firing", "serving_alert_resolved",
+        # the weight lifecycle, the fleet and rollouts
+        "serving_weights_loaded", "serving_weights_swapped",
+        "serving_reload_failed", "serving_fleet_routed",
+        "serving_fleet_replica_state", "serving_fleet_failover",
+        "serving_fleet_resumed", "serving_fleet_shed",
+        "serving_rollout_started", "serving_rollout_replica_upgraded",
+        "serving_rollout_canary_verdict", "serving_rollout_halted",
+        "serving_rollout_rolled_back", "serving_rollout_promoted",
+        # the checkpoint layer and retry
+        "checkpoint_snapshot", "checkpoint_saved", "checkpoint_rejected",
+        "checkpoint_restored", "checkpoint_backpressure",
+        "checkpoint_commit_vetoed", "retry_attempt", "retry_exhausted",
+        "retry_recovered"}

@@ -59,9 +59,15 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.obs.request_trace, apex_tpu_torch.obs.slo, "
         "apex_tpu_torch.obs.trace, apex_tpu_torch.utils.serialization, "
         "apex_tpu_torch.resilience, "
-        "apex_tpu_torch.resilience.fault_injection\n"
+        "apex_tpu_torch.resilience.fault_injection, "
+        "apex_tpu_torch.resilience.checkpoint, "
+        "apex_tpu_torch.resilience.async_checkpoint, "
+        "apex_tpu_torch.resilience.retry, "
+        "apex_tpu_torch.resilience.supervisor, "
+        "apex_tpu_torch.serving.weights, apex_tpu_torch.serving.reload, "
+        "apex_tpu_torch.serving.fleet, apex_tpu_torch.serving.rollout\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
