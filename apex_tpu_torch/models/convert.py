@@ -65,7 +65,7 @@ import torch
 from apex_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
-           "load_jax_optimizer_state"]
+           "load_jax_optimizer_state", "shard_state_dict"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -143,13 +143,36 @@ def _is_qtensor(leaf) -> bool:
     return all(hasattr(leaf, f) for f in ("q", "scale", "axis", "dtype_name"))
 
 
-def llama_params_from_jax(tree: Mapping, config: LlamaConfig
+def llama_params_from_jax(tree: Mapping, config: LlamaConfig, *,
+                          tp_rank: int = 0, tp_size: int = 1
                           ) -> Dict[str, torch.Tensor]:
     """A CPU ``state_dict`` for ``LlamaForCausalLM(config)`` from the flax
     tree (with or without its top-level ``"params"`` collection); for
     ``quantize_params(LlamaForCausalLM(config))`` when the tree holds
-    ``QTensor`` leaves."""
-    return _convert(tree, _expected(config), f"Llama ({config})")
+    ``QTensor`` leaves.  With ``tp_size > 1``, rank ``tp_rank``'s slice
+    of it (:func:`shard_state_dict`), for the model that rank builds in
+    its tensor-parallel region."""
+    state = _convert(tree, _expected(config), f"Llama ({config})")
+    if int(tp_size) == 1:
+        return state
+    from apex_tpu_torch.models.llama import validate_tp_divisibility
+
+    validate_tp_divisibility(config, tp_size)
+    return shard_state_dict(state, tp_rank, tp_size)
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], rank: int,
+                     size: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s slice of a whole Llama serving ``state_dict`` (float
+    or int8) for a tp world of ``size``: each sharded entry's block along
+    its split dim (:func:`~apex_tpu_torch.serving.engine.
+    tp_param_shardings`) as an owned copy, every other entry as it is."""
+    from apex_tpu_torch.serving.engine import tp_param_shardings
+
+    out = {}
+    for name, sl in tp_param_shardings(state, rank, size).items():
+        out[name] = state[name] if sl is None else sl.take(state[name])
+    return out
 
 
 def _gpt_expected(num_layers: int, position_embedding: bool

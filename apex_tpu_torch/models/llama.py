@@ -37,6 +37,19 @@ A quantized model (:func:`apex_tpu_torch.serving.quant.quantize_params`)
 dequantizes each projection's weight, and the head's, right before its
 product.
 
+**Tensor parallelism.** A model built inside a tensor-parallel region
+(:func:`~apex_tpu_torch.transformer.tensor_parallel.tensor_parallel_region`)
+is one rank's shard: q/k/v and gate/up split by output rows, o/down by
+input columns, the embedding and the LM head by vocab rows
+(:func:`tp_param_spec`), and each rank runs ``heads / tp`` query and
+``kv_heads / tp`` kv heads.  Called inside its region it returns its
+vocab shard of the logits, ``[s, b, vocab / tp]``; with ``labels`` the
+per-token loss of the fused LM-head kernel at world size 1, and of
+:func:`~apex_tpu_torch.transformer.tensor_parallel.parallel_lm_logits` +
+:func:`~apex_tpu_torch.transformer.tensor_parallel.vocab_parallel_cross_entropy`
+above it.  :func:`~apex_tpu_torch.models.convert.llama_params_from_jax`
+(``tp_rank=``, ``tp_size=``) gives a rank its slice of the JAX weights.
+
 The uncached modes are differentiable: under autograd each norm, the
 flash attention and the fused LM head run their backward kernels on the
 card (their plain versions on the CPU), the embedding's gradient sums the
@@ -61,17 +74,22 @@ from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
 from apex_tpu_torch.serving import kv_cache as kvc
 from apex_tpu_torch.serving import paged_kv_cache as pkv
 from apex_tpu_torch.serving.quant import QTensor
+from apex_tpu_torch.transformer.parallel_state import TENSOR_PARALLEL_AXIS
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
     divide,
     parallel_lm_logits,
+    shard_init,
+    tp_world_size,
+    vocab_parallel_cross_entropy,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaDecoderLayer",
-           "LlamaAttention", "LlamaMLP"]
+           "LlamaAttention", "LlamaMLP", "tp_param_spec",
+           "validate_tp_divisibility"]
 
 # masked attention scores (the JAX flash kernels' _NEG_INF): exp of a
 # masked score minus the row max underflows to exactly 0 in fp32
@@ -117,6 +135,57 @@ class LlamaConfig:
         return cls(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                    num_hidden_layers=22, num_attention_heads=32,
                    num_key_value_heads=8, max_position_embeddings=2048)
+
+
+# which weights the tensor-parallel layers shard, by module name: the model
+# owns this layout, and the engine, the weight loader and the sharded
+# checkpoints take their per-rank slices from tp_param_spec
+_TP_COLUMN_MODULES = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_TP_ROW_MODULES = ("o_proj", "down_proj")
+
+
+def tp_param_spec(name: str, axis_name: str = TENSOR_PARALLEL_AXIS) -> tuple:
+    """Partition spec of one ``state_dict`` entry of the model under a 1-D
+    tp mesh, in PyTorch's layout: a tuple with the mesh axis on the
+    sharded dim and ``None`` elsewhere (``()`` = replicated).
+
+    - ``embed_tokens.weight`` and ``lm_head``: ``[vocab / tp, h]`` ->
+      ``(axis, None)``;
+    - column-parallel weights (q/k/v/gate/up) ``[out / tp, in]`` ->
+      ``(axis, None)``, their biases ``(axis,)``;
+    - row-parallel weights (o/down) ``[out, in / tp]`` -> ``(None, axis)``;
+      their biases are added after the reduction, whole -> ``()``;
+    - everything else (the norm scales): ``()``.
+
+    The JAX ``tp_param_spec`` (``apex_tpu/models/llama.py:93``) states the
+    same split on flax's ``[in, out]`` kernels, so its column and row
+    specs are these transposed."""
+    if "embed_tokens" in name or "lm_head" in name:
+        return (axis_name, None)
+    module = name.rsplit(".", 2)[-2] if name.count(".") else ""
+    attr = name.rsplit(".", 1)[-1]
+    if module in _TP_COLUMN_MODULES:
+        return (axis_name, None) if attr == "weight" else (axis_name,)
+    if module in _TP_ROW_MODULES and attr == "weight":
+        return (None, axis_name)
+    return ()
+
+
+def validate_tp_divisibility(config: "LlamaConfig", tp: int) -> None:
+    """Raise ``ValueError`` unless every tp-sharded dimension divides by
+    ``tp``: attention heads and kv heads (the KV cache splits head-wise),
+    the vocab (embedding and LM head) and the MLP intermediate width."""
+    tp = int(tp)
+    for what, dim in (("num_attention_heads", config.num_attention_heads),
+                      ("kv_heads", config.kv_heads),
+                      ("vocab_size", config.vocab_size),
+                      ("intermediate_size", config.intermediate_size)):
+        if dim % tp:
+            raise ValueError(
+                f"{what}={dim} is not divisible by tp={tp} — every "
+                f"tensor-parallel shard must be equal-sized (heads, kv "
+                f"heads, vocab rows, and MLP intermediate columns are "
+                f"the sharded dimensions)")
 
 
 def _rope_freqs(s: int, dim: int, theta: float, offset=0, *,
@@ -188,11 +257,14 @@ class LlamaMLP(nn.Module):
         c = config
         kw = dict(bias=False, dtype=dtype, device=device, generator=generator)
         self.gate_proj = ColumnParallelLinear(c.hidden_size,
-                                              c.intermediate_size, **kw)
+                                              c.intermediate_size,
+                                              gather_output=False, **kw)
         self.up_proj = ColumnParallelLinear(c.hidden_size,
-                                            c.intermediate_size, **kw)
+                                            c.intermediate_size,
+                                            gather_output=False, **kw)
         self.down_proj = RowParallelLinear(c.intermediate_size,
-                                           c.hidden_size, **kw)
+                                           c.hidden_size,
+                                           input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down_proj(nn.functional.silu(self.gate_proj(x))
@@ -209,10 +281,12 @@ class LlamaAttention(nn.Module):
         self.head_dim = divide(c.hidden_size, c.num_attention_heads)
         kw = dict(bias=False, dtype=dtype, device=device, generator=generator)
         kv = c.kv_heads * self.head_dim
-        self.q_proj = ColumnParallelLinear(c.hidden_size, c.hidden_size, **kw)
-        self.k_proj = ColumnParallelLinear(c.hidden_size, kv, **kw)
-        self.v_proj = ColumnParallelLinear(c.hidden_size, kv, **kw)
-        self.o_proj = RowParallelLinear(c.hidden_size, c.hidden_size, **kw)
+        col = dict(gather_output=False, **kw)
+        self.q_proj = ColumnParallelLinear(c.hidden_size, c.hidden_size, **col)
+        self.k_proj = ColumnParallelLinear(c.hidden_size, kv, **col)
+        self.v_proj = ColumnParallelLinear(c.hidden_size, kv, **col)
+        self.o_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
+                                        input_is_parallel=True, **kw)
 
     def forward(self, x, freqs, *, kv_cache=None, layer_idx=None,
                 position=None, slot=None):
@@ -221,7 +295,10 @@ class LlamaAttention(nn.Module):
         in :meth:`LlamaForCausalLM.forward`; ``position`` is the decode
         ``[b]`` depth vector or the prefill chunk's int offset."""
         cfg = self.config
-        hd, nq, nkv = self.head_dim, cfg.num_attention_heads, cfg.kv_heads
+        # under tp each rank holds heads / tp query and kv heads
+        world = tp_world_size()
+        hd = self.head_dim
+        nq, nkv = cfg.num_attention_heads // world, cfg.kv_heads // world
         s, b = x.shape[0], x.shape[1]
         q = fused_apply_rotary_pos_emb(self.q_proj(x).view(s, b, nq, hd),
                                        freqs)
@@ -312,9 +389,11 @@ class LlamaForCausalLM(nn.Module):
         self.norm = FusedRMSNorm(config.hidden_size, eps=config.rms_norm_eps,
                                  **kw)
         if not config.tie_word_embeddings:
+            # vocab-sharded like the embedding ([vocab / tp, h] a rank)
             self.lm_head = nn.Parameter(normal_(
-                (config.vocab_size, config.hidden_size), 0.02,
-                generator=generator, **kw))
+                (divide(config.vocab_size, tp_world_size()),
+                 config.hidden_size), 0.02,
+                generator=shard_init(generator, dev), **kw))
 
     def forward(self, input_ids, labels=None, *, kv_cache=None,
                 position=None, slot=None):
@@ -352,9 +431,13 @@ class LlamaForCausalLM(nn.Module):
                 else self.lm_head)
         if isinstance(head, QTensor):         # an int8 serving head
             head = head.dequantize()
-        if labels is not None:
+        if labels is not None and tp_world_size() == 1:
             return fused_lm_head_loss(x, head.to(x.dtype), labels.T).T
         logits = parallel_lm_logits(x, head.to(x.dtype))
         if kv_cache is not None:
             return logits, kv_cache
-        return logits
+        if labels is None:
+            return logits
+        # above world size 1: the vocab-sharded logits and the
+        # vocab-parallel loss, as the JAX model
+        return vocab_parallel_cross_entropy(logits.transpose(0, 1), labels)

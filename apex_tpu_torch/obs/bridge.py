@@ -33,9 +33,10 @@ routing it through the event stream would tie its freshness to
 This is the port of ``apex_tpu.obs.bridge``: the whole metric inventory
 and handler table, so the slices still to come (weight reload, the
 fleet, rollouts, tensor parallelism, resilience) register nothing new.
-Two gauges are declared and never set here:
-``apex_serving_decode_compiles`` (the port compiles nothing) and
-``apex_serving_tp_size`` (no tensor-parallel serving yet).
+One gauge is declared and never set here:
+``apex_serving_decode_compiles`` (the port compiles nothing).
+``apex_serving_tp_size`` and ``apex_serving_collective_seconds`` are set
+from the ``serving_tp_step`` events of a ``DecodeEngine(tp=)``.
 """
 
 from __future__ import annotations

@@ -14,9 +14,12 @@ So far:
   :mod:`~apex_tpu_torch.resilience.fault_injection`: the serving faults,
   the reload, fleet and rollout faults, and the checkpoint-writer crash.
 
-Sharded (v2) checkpoints, replica consistency, the guarded step, the
-data guard, the rest of the supervisor and the training faults wait for
-later slices.
+- sharded (v2) checkpoints that restore onto any world
+  (:mod:`~apex_tpu_torch.resilience.elastic`), the same files as the JAX
+  package's, with the ``CorruptShardFile`` fault.
+
+Replica consistency, the guarded step, the data guard, the rest of the
+supervisor and the training faults wait for the training-side slice.
 """
 
 from apex_tpu_torch.resilience.async_checkpoint import (
@@ -35,8 +38,17 @@ from apex_tpu_torch.resilience.checkpoint import (
     snapshot_tree,
     validate_checkpoint,
 )
+from apex_tpu_torch.resilience.elastic import (
+    PartitionSpec,
+    ShardedCheckpointManager,
+    restore_sharded_checkpoint,
+    save_sharded_checkpoint,
+    snapshot_sharded_tree,
+    validate_sharded_checkpoint,
+)
 from apex_tpu_torch.resilience.fault_injection import (
     CancelStorm,
+    CorruptShardFile,
     CrashCheckpointWriter,
     SimulatedWriterCrash,
     SlowDecodeStep,
@@ -79,4 +91,11 @@ __all__ = [
     "CancelStorm",
     "SlowDecodeStep",
     "StallStream",
+    "CorruptShardFile",
+    "PartitionSpec",
+    "ShardedCheckpointManager",
+    "restore_sharded_checkpoint",
+    "save_sharded_checkpoint",
+    "snapshot_sharded_tree",
+    "validate_sharded_checkpoint",
 ]

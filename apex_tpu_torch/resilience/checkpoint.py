@@ -7,10 +7,16 @@ writes the same ``manifest.json`` records and the same ``data.bin`` bytes
 as the JAX package (timestamps and the mesh stamp aside), so a checkpoint
 written by either restores in the other.  A leaf restores onto its
 template's device and dtype; a bf16 leaf travels as its raw bits
-(:mod:`apex_tpu_torch.utils.serialization`).  Sharded (format 2)
-checkpoints come with the multi-card slice of the port: a step directory
-whose manifest says format 2 raises ``NotImplementedError``, which no
-fallback walk swallows.
+(:mod:`apex_tpu_torch.utils.serialization`).  A step directory in the
+sharded format (v2, :mod:`apex_tpu_torch.resilience.elastic`) validates
+shard by shard and restores through :func:`restore_checkpoint` too, so
+:func:`validate_checkpoint`, :func:`latest_valid_step` and the
+newest-valid walk take a root that mixes both formats (the JAX
+``restore_checkpoint`` rejects a v2 step and leaves it to its elastic
+module).  ``shardings=`` (``{keystr path: ShardSlice}``) restores only a
+rank's block of those leaves: from a v1 record the leaf is read (its CRC
+covers the whole record) and the block kept; from a v2 one only the shard
+records that overlap the block are read.
 
 Design constraints come straight from pod-scale operation (PAPERS.md:
 "Exploring the limits of Concurrency in ML Training on Google TPUs" —
@@ -96,10 +102,6 @@ _TMP_PREFIX = "tmp_"
 _MANIFEST = "manifest.json"
 _DATA = "data.bin"
 
-_V2_NOT_PORTED = ("sharded (format v2) checkpoint: v2 save and restore "
-                  "come with the multi-card slice of the port "
-                  "(apex_tpu.resilience.elastic)")
-
 _CKPT_SECONDS = obs_metrics.histogram(
     "apex_checkpoint_duration_seconds",
     "checkpoint operation wall time by op (save/validate/restore)",
@@ -169,10 +171,15 @@ def _fsync_dir(path: str) -> None:
 def _mesh_metadata(axis_sizes: Optional[dict] = None) -> Optional[dict]:
     """Mesh shape + world sizes as manifest ``mesh`` metadata, in the JAX
     package's schema.  ``axis_sizes`` (``{axis: size}``) keys the record;
-    when omitted it is the ``torch.distributed`` world as one ``dp`` axis,
-    and None without a process group.  (The port has no model-parallel
-    mesh yet, so the stamp is informational: a v1 tree is whole on every
-    rank and restores at any world size.)"""
+    when omitted it is the installed parallel state's
+    (:func:`~apex_tpu_torch.transformer.parallel_state.mesh_axis_sizes`),
+    else the ``torch.distributed`` world as one ``dp`` axis, and None
+    without a process group.  (The stamp is informational for a v1 tree:
+    it is whole on every rank and restores at any world size.)"""
+    if axis_sizes is None:
+        from apex_tpu_torch.transformer import parallel_state
+
+        axis_sizes = parallel_state.mesh_axis_sizes()
     if axis_sizes is None:
         if not (torch.distributed.is_available()
                 and torch.distributed.is_initialized()):
@@ -315,6 +322,7 @@ class LeafSnapshot:
     array: np.ndarray
     prng_key: bool = False
     dtype: Optional[str] = None     # None: array.dtype.name
+    spec: Any = None                # partition spec (sharded saves only)
 
     def __post_init__(self):
         if self.dtype is None:
@@ -636,13 +644,18 @@ def validate_checkpoint(ckpt_dir: str) -> None:
     """
     manifest = _read_manifest(ckpt_dir)
     if manifest.get("format_version") == _SHARDED_FORMAT_VERSION:
-        raise NotImplementedError(f"{ckpt_dir}: {_V2_NOT_PORTED}")
+        # v2 dirs validate shard by shard (tiling, then every CRC)
+        from apex_tpu_torch.resilience.elastic import _validate_shards
+
+        _validate_shards(ckpt_dir, manifest)
+        return
     with open(os.path.join(ckpt_dir, _DATA), "rb") as f:
         for rec in manifest["leaves"]:
             _read_record(f, rec, ckpt_dir)
 
 
-def _load_validated(ckpt_dir: str, like: Any) -> tuple[Any, int]:
+def _load_validated(ckpt_dir: str, like: Any,
+                    shardings: Optional[dict] = None) -> tuple[Any, int]:
     """Validate-and-load in ONE pass over the payload: structural checks
     up front, then each leaf streamed (seek+read per manifest record, so
     peak host memory is one leaf, not the whole payload) and CRC-verified
@@ -651,7 +664,10 @@ def _load_validated(ckpt_dir: str, like: Any) -> tuple[Any, int]:
     just to prove it good first."""
     manifest = _read_manifest(ckpt_dir)
     if manifest.get("format_version") == _SHARDED_FORMAT_VERSION:
-        raise NotImplementedError(f"{ckpt_dir}: {_V2_NOT_PORTED}")
+        from apex_tpu_torch.resilience.elastic import _load_validated_sharded
+
+        return _load_validated_sharded(ckpt_dir, like, shardings)
+    shardings = shardings or {}
     # (the JAX package refuses a v1 checkpoint saved on another mesh
     # shape; the port has no model-parallel mesh, so every v1 tree is
     # whole and the guard has nothing to protect)
@@ -679,13 +695,22 @@ def _load_validated(ckpt_dir: str, like: Any) -> tuple[Any, int]:
                     f"torch tree has no key leaf to restore it into")
             # spec check without reading the live template off its device
             want_shape, want_dtype = leaf_spec(tmpl)
+            sl = shardings.get(key)
+            if sl is not None:
+                # the template is the block; the record the whole leaf
+                want_shape = sl.whole_shape(want_shape)
             if (list(want_shape) != rec.get("shape")
                     or want_dtype != rec.get("dtype")):
                 raise CheckpointError(
                     f"{ckpt_dir}: leaf {key!r} is "
                     f"{rec.get('dtype')}{rec.get('shape')}, template wants "
                     f"{want_dtype}{list(want_shape)}")
-            return leaf_from_numpy(_read_record(f, rec, ckpt_dir), tmpl)
+            arr = _read_record(f, rec, ckpt_dir)
+            if sl is not None:
+                start, stop = sl.bounds(arr.shape[sl.dim])
+                arr = np.ascontiguousarray(
+                    arr[(slice(None),) * sl.dim + (slice(start, stop),)])
+            return leaf_from_numpy(arr, tmpl)
 
         tree = tree_map_with_path(load, like)
     return tree, manifest["step"]
@@ -734,7 +759,8 @@ def latest_valid_step(root: str) -> Optional[int]:
 
 @_observed("restore")
 def restore_checkpoint(root: str, like: Any, *,
-                       step: Optional[int] = None) -> tuple[Any, int]:
+                       step: Optional[int] = None,
+                       shardings: Optional[dict] = None) -> tuple[Any, int]:
     """Restore the newest *valid* checkpoint into ``like``'s structure.
 
     Returns ``(tree, step)``.  Invalid candidates (corrupt, truncated, or
@@ -742,7 +768,9 @@ def restore_checkpoint(root: str, like: Any, *,
     ``checkpoint_rejected`` event and the walk continues to older steps —
     the automatic-fallback contract.  ``step`` pins an exact step instead
     (no fallback).  Raises :class:`CheckpointError` when nothing valid
-    remains.
+    remains.  A v2 (sharded) candidate restores here too, reassembled
+    onto ``like`` (:mod:`~apex_tpu_torch.resilience.elastic`); with
+    ``shardings`` only the named leaves' blocks are restored.
     """
     candidates = ([step] if step is not None
                   else list(reversed(_list_steps(root))))
@@ -753,7 +781,7 @@ def restore_checkpoint(root: str, like: Any, *,
         try:
             # validation is fused into the load (structural checks, then
             # per-leaf CRC as each chunk is sliced) — one payload pass
-            tree, got_step = _load_validated(ckpt_dir, like)
+            tree, got_step = _load_validated(ckpt_dir, like, shardings)
         except CheckpointError as e:
             errors.append(str(e))
             emit_event("checkpoint_rejected", step=int(s), reason=str(e))
@@ -815,7 +843,7 @@ class CheckpointManager:
         if specs is not None:
             raise ValueError(
                 "CheckpointManager.snapshot takes no partition specs — "
-                "sharded saves come with the multi-card slice")
+                "use resilience.elastic.ShardedCheckpointManager")
         return snapshot_tree(tree)
 
     def write_snapshot(self, step: int, snapshot: TreeSnapshot, *,

@@ -37,10 +37,10 @@ rollout controller:
 
 :func:`corrupt_checkpoint` is the storage corruption of the JAX
 ``FaultInjector.corrupt_checkpoint`` (same offsets for the same seed).
-The JAX module's training faults (``FaultPlan`` / ``FaultInjector``,
-``SlowStep``, ``FlakyIterator``, ``CorruptBatch``), ``DesyncReplica``
-and the v2 ``CorruptShardFile`` wait for the training-side resilience
-and multi-card slices.
+``CorruptShardFile`` flips bytes inside one shard record of a sharded
+(v2) checkpoint.  The JAX module's training faults (``FaultPlan`` /
+``FaultInjector``, ``SlowStep``, ``FlakyIterator``, ``CorruptBatch``) and
+``DesyncReplica`` wait for the training-side resilience slice.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ import torch
 from apex_tpu_torch._logging import emit_event
 
 __all__ = ["CancelStorm", "CorruptCandidateMidRollout",
-           "CrashCheckpointWriter", "KillCanary", "KillReplica",
+           "CorruptShardFile", "CrashCheckpointWriter", "KillCanary", "KillReplica",
            "RegressingWeights", "ReloadStorm", "SimulatedWriterCrash",
            "SlowDecodeStep", "SlowReplica", "StallStream", "WedgeReplica",
            "corrupt_checkpoint"]
@@ -536,3 +536,65 @@ class CrashCheckpointWriter:
                        bytes=int(progress["bytes"]))
             raise SimulatedWriterCrash(int(progress["step"]),
                                        int(progress["record"]))
+
+
+class CorruptShardFile:
+    """Flip bytes inside exactly one shard record of a v2 checkpoint.
+
+    The damage stays inside the chosen shard's byte extent in
+    ``data.bin``; the manifest and every other shard are intact, so the
+    per-shard CRCs must localize it (validation names the shard's mesh
+    coordinates and leaf) and the restore walk must fall back to the
+    newest fully valid step.  ``leaf`` picks the victim leaf by keystr
+    substring (None: seed-chosen among leaves with non-empty shards);
+    ``shard`` indexes that leaf's non-empty shards.  Returns what was
+    damaged."""
+
+    def __init__(self, *, leaf=None, shard: int = 0, nbytes: int = 4,
+                 seed: int = 0):
+        if nbytes < 1:
+            raise ValueError(f"nbytes must be >= 1, got {nbytes}")
+        self.leaf = leaf
+        self.shard = int(shard)
+        self.nbytes = int(nbytes)
+        self.seed = int(seed)
+
+    def __call__(self, ckpt_dir: str) -> dict:
+        import json
+
+        with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest.get("format_version") != 2:
+            raise ValueError(
+                f"{ckpt_dir}: CorruptShardFile needs a sharded (v2) "
+                f"checkpoint, got format_version "
+                f"{manifest.get('format_version')}")
+        recs = [r for r in manifest["leaves"]
+                if r.get("shards")
+                and any(s.get("nbytes") for s in r["shards"])
+                and (self.leaf is None or str(self.leaf) in r["path"])]
+        if not recs:
+            raise ValueError(
+                f"{ckpt_dir}: no leaf matching {self.leaf!r} with a "
+                f"non-empty shard to corrupt")
+        rng = np.random.default_rng(self.seed)
+        rec = recs[int(rng.integers(len(recs)))]
+        shards = [s for s in rec["shards"] if s.get("nbytes")]
+        shard = shards[self.shard % len(shards)]
+        offsets = sorted(
+            int(shard["offset"]) + int(o)
+            for o in rng.choice(int(shard["nbytes"]),
+                                size=min(self.nbytes, int(shard["nbytes"])),
+                                replace=False))
+        path = os.path.join(ckpt_dir, "data.bin")
+        with open(path, "r+b") as f:
+            for off in offsets:
+                f.seek(off)
+                byte = f.read(1)[0]
+                f.seek(off)
+                f.write(bytes([byte ^ 0xFF]))
+        emit_event("fault_injected", fault="shard_corruption", path=path,
+                   leaf=rec["path"], coords=shard.get("coords"),
+                   offsets=offsets)
+        return {"leaf": rec["path"], "coords": shard.get("coords"),
+                "offsets": offsets}

@@ -29,17 +29,26 @@ run can inject through ``step_hook=`` are in
 from apex_tpu_torch.serving.draft import SpeculationConfig, adapt_k, propose
 from apex_tpu_torch.serving.engine import (
     DecodeEngine,
+    ShardSlice,
+    TPConfig,
     default_draft_buckets,
     default_prefill_buckets,
     token_seed,
+    tp_param_shardings,
 )
 from apex_tpu_torch.serving.fleet import FleetConfig, FleetRouter, ReplicaState
 from apex_tpu_torch.serving.kv_cache import (
     KVCache,
     QuantKVCache,
+    append_token,
     init_cache,
     init_quant_cache,
+    prefill_into_slot,
+    read_slot_region,
+    release_slot,
+    valid_token_mask,
     value_dtype,
+    write_slot_region,
 )
 from apex_tpu_torch.serving.loadgen import (
     LoadGenerator,
@@ -79,6 +88,8 @@ from apex_tpu_torch.serving.quant import (
     max_logit_error,
     param_bytes,
     quantize_params,
+    quantized_allreduce,
+    serving_param_spec,
     stream_agreement,
 )
 from apex_tpu_torch.serving.reload import (
@@ -128,4 +139,7 @@ __all__ = ["DecodeEngine", "default_draft_buckets", "default_prefill_buckets",
            "ReplicaState", "ABConfig", "HotReloader", "ReloadOutcome",
            "ShadowABScheduler", "WeightWatcher", "assign_arm", "CanaryGate",
            "CanaryVerdict", "RollingReloadController", "RolloutConfig",
-           "load_serving_params"]
+           "load_serving_params", "TPConfig", "ShardSlice",
+           "tp_param_shardings", "quantized_allreduce", "serving_param_spec",
+           "append_token", "prefill_into_slot", "read_slot_region",
+           "release_slot", "valid_token_mask", "write_slot_region"]

@@ -63,18 +63,47 @@ cache and the block tables are untouched by a swap, and the number of
 norm launches a model call makes does not change; the JAX engine's
 "zero new compiles" has those two witnesses here.
 
-Tensor parallelism comes with a later slice of the port; ``tp=`` raises
-``NotImplementedError`` and :attr:`DecodeEngine.tp_size` is 1.
+**Tensor parallelism** (``tp=TPConfig(size)``).  The JAX engine is one
+controller that wraps each program body in ``shard_map`` over a 1-D mesh.
+The port runs one process per rank over ``torch.distributed``, as PyTorch
+servers do: every rank builds the same model holding its shard (built
+inside :func:`~apex_tpu_torch.transformer.tensor_parallel.
+tensor_parallel_region` of the group), runs the same engine and the same
+scheduler over the same requests, and the host's decisions (admission,
+buckets, block tables, prefix keys, preemption) agree because each input
+to them is the same on every rank.  The engine binds its group around
+every model call, so the layers run Megatron's collectives (the
+row-parallel pair's all-reduce each layer, the embedding's); the logits'
+vocab shards are all-gathered before any argmax or draw, so every rank
+holds the same logits bit for bit.  Sampling at temperature > 0 draws
+from generators seeded alike on every rank (:func:`token_seed`) over
+those equal logits: every rank draws the same token with no collective
+a step.  The KV cache holds ``kv_heads / tp`` heads a rank, dense or
+paged, fp or int8 (scales split on the same axis); lengths and block
+tables are whole on every rank.  :meth:`DecodeEngine.capture_slot` and
+:meth:`DecodeEngine.read_region` all-gather the heads, so the host rows
+equal the JAX engine's (which reads the whole array) and any engine can
+take them; :meth:`DecodeEngine.restore_prefix` keeps the rank's heads of
+the rows it is given.  That is one collective a capture, none a step.
+Under ``quant=QuantConfig(allreduce=True)`` the row-parallel pair's
+all-reduce is :func:`~apex_tpu_torch.serving.quant.quantized_allreduce`.
+The group is NCCL for a CUDA engine and gloo for a CPU one; each rank
+binds its own card (``cuda:{local_rank}``).  A missing group, or one of
+another size, raises: the engine never serves ``tp=`` as ``tp=None``.
 
 Events (:func:`~apex_tpu_torch._logging.emit_event`), as the JAX engine
 emits them: ``serving_quant_enabled`` once at construction with
-``quant=``, and ``serving_block_cow`` with the count of copy-on-write
-pairs whenever a write copies shared blocks.
+``quant=``, ``serving_block_cow`` with the count of copy-on-write pairs
+whenever a write copies shared blocks, and under ``tp=`` one
+``serving_tp_step`` a decode step (``tp``, ``active``, ``duration_s``:
+the step's wall, which bounds its collectives' time from above).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import time
 from collections import OrderedDict
 from typing import Mapping, Optional, Sequence
 
@@ -105,10 +134,76 @@ from apex_tpu_torch.serving.quant import (
     is_quantized,
     quantize_params,
     quantize_state_dict,
+    quantized_allreduce,
+    serving_param_spec,
 )
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.tensor_parallel import mappings
 
-__all__ = ["DecodeEngine", "default_draft_buckets",
-           "default_prefill_buckets", "no_tf32", "token_seed"]
+__all__ = ["DecodeEngine", "TPConfig", "default_draft_buckets",
+           "default_prefill_buckets", "no_tf32", "token_seed",
+           "tp_param_shardings", "ShardSlice"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPConfig:
+    """Opt-in tensor-parallel serving over a ``size``-rank process group
+    (``DecodeEngine(..., tp=TPConfig(size=2))``); see the module
+    docstring.  ``tp=None`` keeps the single-card engine as it is."""
+
+    size: int
+
+    def __post_init__(self):
+        if int(self.size) < 1:
+            raise ValueError(f"tp size must be >= 1, got {self.size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSlice:
+    """The block of a whole leaf one rank keeps: block ``index`` of
+    ``count`` equal blocks along ``dim``."""
+
+    dim: int
+    index: int
+    count: int
+
+    def bounds(self, size: int) -> tuple:
+        """``(start, stop)`` along ``dim`` of a leaf ``size`` long there."""
+        if size % self.count:
+            raise ValueError(f"dim {self.dim} of size {size} does not "
+                             f"split into {self.count} blocks")
+        n = size // self.count
+        return self.index * n, (self.index + 1) * n
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``t``, an owned copy."""
+        start, stop = self.bounds(t.shape[self.dim])
+        return t.narrow(self.dim, start, stop - start).clone()
+
+    def whole_shape(self, shape) -> tuple:
+        """The whole leaf's shape, from this block's."""
+        out = list(shape)
+        out[self.dim] *= self.count
+        return tuple(out)
+
+
+def tp_param_shardings(params, rank: int, size: int) -> dict:
+    """The slice of each serving ``state_dict`` entry a tp rank keeps:
+    ``{name: ShardSlice or None}`` (None: whole on every rank), from
+    :func:`~apex_tpu_torch.serving.quant.serving_param_spec` (the model's
+    column/row layout, quant-aware).  The port's twin of the JAX
+    ``tp_param_shardings``, whose per-leaf ``NamedSharding`` places a
+    leaf on the mesh: here each rank holds its own slice.  Hand it to
+    :func:`~apex_tpu_torch.serving.weights.load_serving_params`
+    (``shardings=``) to restore only the rank's slice of a checkpoint, or
+    to :func:`~apex_tpu_torch.models.convert.shard_state_dict`."""
+    out = {}
+    for name in params:
+        spec = serving_param_spec(name)
+        dims = [d for d, e in enumerate(spec) if e is not None]
+        out[name] = (ShardSlice(dims[0], int(rank), int(size)) if dims
+                     else None)
+    return out
 
 
 @contextlib.contextmanager
@@ -168,12 +263,6 @@ def token_seed(seed: int, index: int) -> int:
     return (int(seed) % (1 << 32)) << 32 | (int(index) % (1 << 32))
 
 
-def _not_yet(name: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}= comes with the {slice_name} slice of the port; this "
-        f"engine serves the dense single-chip path")
-
-
 class DecodeEngine:
     """KV-cached incremental decoding for a Llama-family model.
 
@@ -199,9 +288,8 @@ class DecodeEngine:
                  draft_buckets: Optional[Sequence[int]] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  device="cuda", paged: Optional[PagedCacheConfig] = None,
-                 tp=None, quant: Optional[QuantConfig] = None):
-        if tp is not None:
-            raise _not_yet("tp", "tensor-parallel serving")
+                 tp: Optional[TPConfig] = None,
+                 quant: Optional[QuantConfig] = None):
         self.device = resolve_device(device)
         if prefill_len < 2:
             raise ValueError("prefill_len must be >= 2 (a length-1 "
@@ -243,7 +331,7 @@ class DecodeEngine:
                 f"largest draft bucket {dbuckets[-1]} must be < max_len "
                 f"{max_len} (a verify writes bucket+1 rows into the cache)")
         if quant is not None:
-            if quant.allreduce:
+            if quant.allreduce and tp is None:
                 raise ValueError(
                     "QuantConfig(allreduce=True) without tp= — the "
                     "quantized collective replaces the per-layer tp "
@@ -254,6 +342,28 @@ class DecodeEngine:
                     "cache_dtype with QuantConfig(kv=True) — the KV-"
                     "int8 cache owns its storage dtype (int8 payload "
                     "+ fp32 scales); drop one of the two")
+        self.tp = tp
+        self.quant = quant
+        self._group = None
+        self.tp_rank = 0
+        if tp is not None:
+            from apex_tpu_torch.models.llama import validate_tp_divisibility
+
+            validate_tp_divisibility(model.config, tp.size)
+            # raises unless the world is exactly tp.size ranks: no tp=
+            # engine ever serves as a tp=None one
+            self._group = parallel_state.serving_group(tp.size)
+            parallel_state.check_group_device(self._group, self.device)
+            self.tp_rank = torch.distributed.get_rank(self._group)
+            built = {getattr(m, "world") for m in model.modules()
+                     if hasattr(m, "world")}
+            if built != {int(tp.size)}:
+                raise ValueError(
+                    f"the model's layers were built for tp world "
+                    f"{sorted(built)}, the engine serves tp={tp.size}: "
+                    f"build each rank's model inside "
+                    f"tensor_parallel_region(group) and load its slice "
+                    f"(models.convert.shard_state_dict)")
         tensors = list(model.parameters()) + list(model.buffers())
         wrong = {str(t.device) for t in tensors if t.device != self.device}
         if wrong:
@@ -268,7 +378,10 @@ class DecodeEngine:
                       if p.dtype.is_floating_point]
             cache_dtype = floats[0] if floats else torch.float32
         if quant is not None and quant.weights and not is_quantized(model):
-            model = quantize_params(model)
+            # inside the group's region: a row shard's scales are the
+            # whole weight's
+            with self._region():
+                model = quantize_params(model)
         # eval mode only: the model calls run under inference_mode, so the
         # caller's parameters keep requires_grad and the model stays
         # trainable after it has been served
@@ -282,6 +395,10 @@ class DecodeEngine:
         self.draft_buckets = dbuckets
         kv_int8 = quant is not None and quant.kv
         cfg = model.config
+        if tp is not None:
+            # the cache holds this rank's kv heads
+            cfg = dataclasses.replace(
+                cfg, num_key_value_heads=cfg.kv_heads // int(tp.size))
         self._pager: Optional[PagedCacheManager] = None
         if paged is not None:
             bs = int(paged.block_size)
@@ -345,16 +462,59 @@ class DecodeEngine:
                        paged=self._pager is not None)
 
     @contextlib.contextmanager
+    def _region(self):
+        """The engine's tp group bound (and, under ``quant.allreduce``,
+        the quantized all-reduce of the row-parallel pair); nothing
+        without ``tp=``."""
+        if self._group is None:
+            yield
+            return
+        with mappings.tensor_parallel_region(self._group):
+            if self.quant is not None and self.quant.allreduce:
+                with mappings.override_forward_allreduce(
+                        quantized_allreduce):
+                    yield
+            else:
+                yield
+
+    @contextlib.contextmanager
     def _on_device(self):
         """The engine's card as the current device and TF32 off, on CUDA;
-        no autograd recording either way; the served weights bound."""
+        no autograd recording either way; the served weights and the tp
+        group bound."""
         if not self._cuda:
-            with torch.inference_mode(), self._bound():
+            with torch.inference_mode(), self._bound(), self._region():
                 yield
             return
         with torch.cuda.device(self.device), no_tf32(), \
-                torch.inference_mode(), self._bound():
+                torch.inference_mode(), self._bound(), self._region():
             yield
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The logits' vocab shards all-gathered (under ``tp=``), so
+        every rank argmaxes and samples the same rows."""
+        if self._group is None:
+            return logits
+        return mappings.gather_from_tensor_model_parallel_region(
+            logits, self._group)
+
+    def _whole_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """``[layers, n, kv_heads / tp, hd]`` rows with every rank's heads
+        gathered on axis 2 (under ``tp=``)."""
+        if self._group is None:
+            return t
+        return mappings._all_gather_dim(t, 2, self._group)
+
+    def _my_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of whole-head rows (under ``tp=``)."""
+        if self._group is None:
+            return t
+        return ShardSlice(2, self.tp_rank, int(self.tp.size)).take(t)
+
+    @property
+    def group(self):
+        """The tp process group, or ``None`` on a single-card engine."""
+        return self._group
 
     @contextlib.contextmanager
     def _bound(self):
@@ -409,7 +569,7 @@ class DecodeEngine:
         params = OrderedDict(params)
         if (self.quant is not None and self.quant.weights
                 and set(params) != set(self._params)):
-            params = quantize_state_dict(params)
+            params = quantize_state_dict(params, group=self._group)
         if set(params) != set(self._params):
             missing = sorted(set(self._params) - set(params))[:5]
             extra = sorted(set(params) - set(self._params))[:5]
@@ -480,9 +640,8 @@ class DecodeEngine:
 
     @property
     def tp_size(self) -> int:
-        """Mesh width the serving calls run over: 1 until ``tp=`` is
-        ported."""
-        return 1
+        """Ranks the serving calls run over (1 = single card)."""
+        return 1 if self.tp is None else int(self.tp.size)
 
     def bucket_for(self, n: int) -> int:
         """Smallest prefill bucket covering an ``n``-token chunk."""
@@ -658,7 +817,7 @@ class DecodeEngine:
             logits, _ = self.model(ids.to(self.device), kv_cache=self._cache,
                                    slot=slot, position=offset)
             commit_slot_length(self._cache, slot, offset + n)
-            last = logits[n - 1, 0].float()
+            last = self._whole_vocab(logits[n - 1, 0].float())
         self._lengths_host[slot] = offset + n
         self.prefill_chunks += 1
         return last
@@ -735,6 +894,7 @@ class DecodeEngine:
                             for s in np.flatnonzero(act)])
         ids = torch.as_tensor(np.asarray(tokens, np.int64)).to(self.device)
         step = torch.as_tensor(act.astype(np.int32)).to(self.device)
+        t0 = time.perf_counter()
         with self._on_device():
             position = self._cache.lengths
             if self._pager is not None:
@@ -744,7 +904,18 @@ class DecodeEngine:
             logits, _ = self.model(ids[:, None], kv_cache=self._cache,
                                    position=position)
             self._cache.lengths += step
-            out = logits[0].float()
+            out = self._whole_vocab(logits[0].float())
+        if self._group is not None:
+            # the step's wall: an upper bound on its collectives' time;
+            # tp=None emits nothing, so its event stream is unchanged
+            if self._cuda:
+                torch.cuda.synchronize(self.device)
+            replica = getattr(self, "name", None)
+            emit_event("serving_tp_step", tp=self.tp_size,
+                       active=int(act.sum()),
+                       duration_s=time.perf_counter() - t0,
+                       **({"replica": replica}
+                          if isinstance(replica, str) else {}))
         self._lengths_host[act] += 1
         self.decode_steps += 1
         return out
@@ -800,7 +971,8 @@ class DecodeEngine:
             ids = ids.to(self.device)
             logits, _ = self.model(ids, kv_cache=self._cache, slot=slot,
                                    position=offset)
-            rows = logits[:, 0].float()                  # [bucket+1, vocab]
+            # the whole vocab before the argmax decides, on every rank
+            rows = self._whole_vocab(logits[:, 0].float())  # [bucket+1, V]
             greedy = torch.argmax(rows, dim=-1)
             match = greedy[:k] == ids[0, 1:k + 1]
             accepted = torch.cumprod(match.long(), dim=0).sum()
@@ -832,13 +1004,14 @@ class DecodeEngine:
                 f"committed length are masked garbage and must never be "
                 f"handed out")
         with self._on_device():
-            return read_slot_region(self._cache, slot, start, stop)
+            k, v = read_slot_region(self._cache, slot, start, stop)
+            return self._whole_heads(k), self._whole_heads(v)
 
     def capture_slot(self, slot: int) -> tuple:
         """A live slot's whole valid K/V on the host, ``(k, v, length)``
         with ``k`` / ``v`` CPU tensors ``[layers, length, kv_heads,
-        head_dim]`` (dequantized fp32 from an int8 cache):
-        :meth:`restore_prefix` of them into a free slot gives back the
+        head_dim]`` (dequantized fp32 from an int8 cache; every rank's
+        heads under ``tp=``): :meth:`restore_prefix` of them into a free slot gives back the
         slot's cache state (an int8 payload bit for bit).  Dense engines
         only: a paged slot is captured by reference."""
         self._check_slot(slot)
@@ -872,7 +1045,9 @@ class DecodeEngine:
         k, v = kv
         length = int(length)
         layers = self._cache.num_layers
-        tail = tuple(self._cache.k.shape[3:])          # (kv_heads, head_dim)
+        # (kv_heads, head_dim): whole heads, under tp= too
+        tail = (int(self._cache.k.shape[3]) * self.tp_size,
+                int(self._cache.k.shape[4]))
         for name, arr in (("k", k), ("v", v)):
             shape = tuple(arr.shape)
             if (len(shape) != 4 or shape[0] != layers
@@ -896,8 +1071,10 @@ class DecodeEngine:
         with self._on_device():
             write_slot_region(
                 self._cache, slot, 0,
-                k[:, :length].to(device=self.device, dtype=dtype),
-                v[:, :length].to(device=self.device, dtype=dtype))
+                self._my_heads(k[:, :length]).to(device=self.device,
+                                                 dtype=dtype),
+                self._my_heads(v[:, :length]).to(device=self.device,
+                                                 dtype=dtype))
             commit_slot_length(self._cache, slot, length)
         self._lengths_host[slot] = length
         self._restored[slot] = length

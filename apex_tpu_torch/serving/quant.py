@@ -22,8 +22,18 @@ without it is the fp engine.  Two levers, both on the int8 primitives of
   survives capture -> restore bit for bit.
 
 ``QuantConfig(allreduce=True)`` (the quantized tensor-parallel psum)
-needs ``tp=``, which the port's engine does not take yet; the engine
-refuses it as the JAX engine refuses it without ``tp=``.
+needs ``tp=``: the engine runs :func:`quantized_allreduce` in place of
+the exact all-reduce of the per-layer ``row_linear`` pair (o_proj,
+down_proj) and refuses it without ``tp=``, as the JAX engine does.
+
+Under tensor parallelism each rank holds its shard of the int8 weights
+(:func:`serving_param_spec`): a payload shards like the weight it
+replaced, a scale with the output rows of column layers and the LM head,
+and whole on every rank for row layers.  A row layer's scale reduces over
+the whole input width, which no rank holds, so quantizing a row shard
+all-reduces the rows' amax (max) over the group first: every rank gets
+the scales of the whole weight, as the JAX engine quantizes the whole
+tree before sharding it.
 
 Acceptance is agreement, not bits: greedy streams against the fp engine
 at a high rate with a bounded per-position logit error
@@ -40,13 +50,18 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._logging import emit_event
-from apex_tpu_torch.amp.quant import dequantize_int8, quantize_int8
-from apex_tpu_torch.transformer.tensor_parallel.layers import _Linear, _matmul
+from apex_tpu_torch.amp.quant import INT8_QMAX, dequantize_int8, quantize_int8
+from apex_tpu_torch.transformer.parallel_state import TENSOR_PARALLEL_AXIS
+from apex_tpu_torch.transformer.tensor_parallel import mappings
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    RowParallelLinear,
+    _Linear,
+)
 
 __all__ = ["QuantConfig", "QTensor", "QuantLinear", "quantize_params",
            "quantize_state_dict", "dequant_params", "is_quantized", "stream_agreement",
            "max_logit_error", "kv_bytes_per_token", "param_bytes",
-           "evaluate_quant"]
+           "evaluate_quant", "serving_param_spec", "quantized_allreduce"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +97,12 @@ class QTensor(nn.Module):
         self.dtype = dtype
 
     @classmethod
-    def quantize(cls, weight: torch.Tensor, axis: int) -> "QTensor":
+    def quantize(cls, weight: torch.Tensor, axis: int,
+                 group=None) -> "QTensor":
+        """``group``: the input axis is split across its ranks (a row
+        shard), so the amax is all-reduced before the scale is taken."""
         with torch.no_grad():
-            q, scale = quantize_int8(weight.detach(), axis=axis)
+            q, scale = _quantize(weight.detach(), axis, group)
         return cls(q, scale, axis, weight.dtype)
 
     @property
@@ -104,26 +122,51 @@ class QTensor(nn.Module):
                 f"dtype={self.dtype}")
 
 
+def _quantize(x: torch.Tensor, axis: int, group=None):
+    """:func:`quantize_int8` over ``axis``; with a ``group`` of more than
+    one rank the amax is all-reduced (max) over it first, so the scale is
+    the whole weight's (the same arithmetic, step for step)."""
+    if group is None or torch.distributed.get_world_size(group) == 1:
+        return quantize_int8(x, axis=axis)
+    xf = x.float()
+    amax = torch.amax(xf.abs(), dim=axis, keepdim=True)
+    torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    scale = torch.where(amax > 0, amax / INT8_QMAX,
+                        torch.ones((), dtype=torch.float32, device=x.device))
+    q = torch.clamp(torch.round(xf / scale), -INT8_QMAX,
+                    INT8_QMAX).to(torch.int8)
+    return q, scale.squeeze(axis)
+
+
+# the float layer's attributes its product and collectives read
+_LAYER_ATTRS = ("skip_bias_add", "sequence_parallel_enabled", "world",
+                "gather_output", "input_is_parallel")
+
+
 class QuantLinear(nn.Module):
     """A projection whose ``weight`` is a :class:`QTensor` (``[out, in]``,
     one scale per output row): the forward dequantizes it to its original
-    dtype and runs the float layer's product.  ``float_cls`` is the layer
-    class it replaced, which :func:`dequant_params` builds again."""
+    dtype and runs the float layer's product and collectives.
+    ``float_cls`` is the layer class it replaced, which
+    :func:`dequant_params` builds again.  A row-parallel shard takes its
+    scales over the bound tensor-parallel group (:func:`_quantize`)."""
 
     def __init__(self, linear: _Linear):
         super().__init__()
         self.float_cls = type(linear)
-        self.skip_bias_add = linear.skip_bias_add
-        self.weight = QTensor.quantize(linear.weight, axis=1)
+        for attr in _LAYER_ATTRS:
+            if hasattr(linear, attr):
+                setattr(self, attr, getattr(linear, attr))
+        group = (mappings.bound_group()
+                 if isinstance(linear, RowParallelLinear) else None)
+        self.weight = QTensor.quantize(linear.weight, axis=1, group=group)
         self.bias = linear.bias
 
+    _finish = _Linear._finish
+
     def forward(self, x):
-        y = _matmul(x, self.weight.dequantize())
-        if self.skip_bias_add:
-            return y, self.bias
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        return self.float_cls._forward_with(self, x, self.weight.dequantize())
 
 
 # the projections quantize_params touches: per output channel, reducing
@@ -172,21 +215,24 @@ def quantize_params(model: nn.Module) -> nn.Module:
     return new
 
 
-def quantize_state_dict(state: dict) -> dict:
+def quantize_state_dict(state: dict, group=None) -> dict:
     """A float ``state_dict`` in the layout of ``quantize_params(model)``:
     every weight that function holds int8 (the projections of
     ``_WEIGHT_QUANT_MODULES`` and an ``lm_head``, by name) becomes its
     ``<name>.q`` payload and ``<name>.scale`` scales, quantized as it
     quantizes them; every other tensor is kept as it is (by reference).
-    A hot reload hands an int8 engine a float checkpoint through this."""
+    A hot reload hands an int8 engine a float checkpoint through this.
+    With ``group`` (a tp rank's shard dict) the row-parallel weights take
+    their scales over the group, as :class:`QuantLinear` does."""
     out = {}
     for name, t in state.items():
         prefix, _, attr = name.rpartition(".")
+        module = prefix.rsplit(".", 1)[-1]
         if name == "lm_head" or (
-                attr == "weight"
-                and prefix.rsplit(".", 1)[-1] in _WEIGHT_QUANT_MODULES):
+                attr == "weight" and module in _WEIGHT_QUANT_MODULES):
+            row = module in ("o_proj", "down_proj")
             with torch.no_grad():
-                q, scale = quantize_int8(t.detach(), axis=1)
+                q, scale = _quantize(t.detach(), 1, group if row else None)
             out[f"{name}.q"], out[f"{name}.scale"] = q, scale
         else:
             out[name] = t
@@ -207,7 +253,9 @@ def dequant_params(model: nn.Module) -> nn.Module:
         if isinstance(mod, QuantLinear):
             lin = mod.float_cls.__new__(mod.float_cls)
             nn.Module.__init__(lin)
-            lin.skip_bias_add = mod.skip_bias_add
+            for attr in _LAYER_ATTRS:
+                if hasattr(mod, attr):
+                    setattr(lin, attr, getattr(mod, attr))
             lin.weight = nn.Parameter(mod.weight.dequantize())
             lin.bias = mod.bias
             _set_submodule(new, name, lin)
@@ -216,6 +264,49 @@ def dequant_params(model: nn.Module) -> nn.Module:
         del new.lm_head
         new.lm_head = nn.Parameter(head.dequantize())
     return new
+
+
+# ---- tensor parallelism ----------------------------------------------------
+
+
+def serving_param_spec(name: str, axis_name: str = TENSOR_PARALLEL_AXIS
+                       ) -> tuple:
+    """Quant-aware tp partition spec of one serving ``state_dict`` entry
+    (``apex_tpu/serving/quant.py:207``), in the port's ``[out, in]``
+    layout.
+
+    Float entries take :func:`~apex_tpu_torch.models.llama.tp_param_spec`.
+    A quantized weight's ``<name>.q`` payload shards like ``<name>``; its
+    per-output-row ``<name>.scale`` follows the output rows: split for the
+    column layers and the LM head, whole for the row layers (their output
+    survives the all-reduce whole on every rank)."""
+    from apex_tpu_torch.models.llama import _TP_COLUMN_MODULES, tp_param_spec
+
+    if name.endswith(".q"):
+        return tp_param_spec(name[:-len(".q")], axis_name)
+    if name.endswith(".weight.scale") or name == "lm_head.scale":
+        module = name.split(".")[-3] if name.count(".") > 1 else "lm_head"
+        if module == "lm_head" or module in _TP_COLUMN_MODULES:
+            return (axis_name,)
+        return ()       # row layers: whole-output scales on every rank
+    return tp_param_spec(name, axis_name)
+
+
+def quantized_allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Grouped-scale int8 all-reduce (``apex_tpu/serving/quant.py:238``):
+    each rank quantizes its partial sum with one scale a last-dim row,
+    the int8 payloads and fp32 scales are all-gathered, and the sum of
+    the dequantized parts is taken in fp32 and cast back.
+
+    Plain PyTorch over two all-gathers (the JAX function is ``jnp``); on
+    the wire it moves ``(1 + 4 / h) / itemsize`` of the exact all-reduce's
+    bytes.  Every rank sums the same gathered parts in the same order, so
+    the result is the same on every rank."""
+    q, scale = quantize_int8(x, axis=-1)
+    qg = mappings._all_gather_dim(q[None], 0, group)       # [world, ..., h]
+    sg = mappings._all_gather_dim(scale[None], 0, group)   # [world, ...]
+    out = torch.sum(dequantize_int8(qg, sg, axis=-1), dim=0)
+    return out.to(x.dtype)
 
 
 # ---- acceptance accounting -----------------------------------------------

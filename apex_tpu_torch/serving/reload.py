@@ -218,8 +218,11 @@ class HotReloader:
     the restore; deterministic corruption propagates immediately into
     the refusal path.  ``like`` decides where the candidate lands: a
     template of tensors on the engine's card restores straight there, so
-    the swap moves nothing.  ``shardings`` raises until tensor-parallel
-    serving is ported.
+    the swap moves nothing.  ``shardings`` (a tp rank's
+    :func:`~apex_tpu_torch.serving.engine.tp_param_shardings`, with
+    ``like`` holding the rank's shard dict) restores only the rank's
+    slice of each candidate, v1 or v2, and the swap replaces the rank's
+    shard.
     """
 
     def __init__(self, scheduler, root: str, *, like: Any,
@@ -240,11 +243,7 @@ class HotReloader:
         self.watcher = watcher if watcher is not None else WeightWatcher(
             root, last_seen=current_step)
         self._clock = clock
-        if shardings is not None:
-            raise NotImplementedError(
-                "HotReloader(shardings=) comes with DecodeEngine(tp=) in "
-                "a later slice of the port")
-        self.shardings = None
+        self.shardings = shardings
         self._current_step = current_step
         self._previous: Optional[tuple] = None   # (params, step)
         self._staged: Optional[tuple] = None     # (params, step,

@@ -18,10 +18,16 @@ then casts it for half-precision serving, norm scales pinned fp32, as
 module.  The leaves restore onto the template's devices: a ``like`` of
 CUDA tensors (``model.state_dict()``) restores straight onto the card.
 
-``shardings=`` (restore onto a tensor-parallel mesh) comes with
-``DecodeEngine(tp=)`` and raises ``NotImplementedError`` until then; a
-step directory in the sharded (v2) format raises ``NotImplementedError``
-too (the multi-card slice of the port).
+A root may hold whole-tree (v1) and sharded (v2,
+:mod:`~apex_tpu_torch.resilience.elastic`) step directories; both
+restore.  ``shardings=`` (a tp rank's
+:func:`~apex_tpu_torch.serving.engine.tp_param_shardings`) restores only
+the rank's slice of each sharded weight, with no whole-model copy in host
+memory: from a v1 record the leaf is read (its CRC covers it whole) and
+the slice kept, from a v2 checkpoint only the shard records that overlap
+the slice are read.  The ``like`` template then holds the rank's shard
+dict (``model.state_dict()`` of the model it built in its tensor-parallel
+region), and the restored tensors land on its devices.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ __all__ = ["load_serving_params"]
 logger = get_logger("serving.weights")
 
 
-def _restore_newest_valid(root: str, like: Any, step: Optional[int]
+def _restore_newest_valid(root: str, like: Any, step: Optional[int],
+                          shardings: Optional[dict] = None
                           ) -> tuple[Any, int, dict, str]:
     """The newest-valid fallback walk.  Returns ``(tree, step, manifest,
     step_dir)``; raises :class:`CheckpointError` when nothing under
@@ -66,7 +73,9 @@ def _restore_newest_valid(root: str, like: Any, step: Optional[int]
             manifest = _ckpt._read_manifest(step_dir)
             logger.debug("serving weights from %s (format v%s)", step_dir,
                          manifest.get("format_version", 1))
-            tree, got = _ckpt.restore_checkpoint(root, like, step=got)
+            # v1 or v2: restore_checkpoint dispatches on the manifest
+            tree, got = _ckpt.restore_checkpoint(root, like, step=got,
+                                                 shardings=shardings)
             return tree, got, manifest, step_dir
         except CheckpointError as e:
             # newest-valid fallback walk, same contract as a training
@@ -98,8 +107,10 @@ def load_serving_params(root: str, like: Any, *,
         its :meth:`cast_state_dict` is applied to the selected
         ``state_dict`` (bf16 serving with fp32 norms under ``O2()``).
       step: pin an exact step instead of the newest-valid walk.
-      shardings: tensor-parallel placement; raises
-        ``NotImplementedError`` until ``DecodeEngine(tp=)`` is ported.
+      shardings: ``{name: ShardSlice or None}`` over the weights
+        subtree (:func:`~apex_tpu_torch.serving.engine.tp_param_shardings`
+        of this rank): restore only each named leaf's block.  ``like``'s
+        weights subtree then holds the blocks' shapes.
       quantize: apply :func:`~apex_tpu_torch.serving.quant.
         quantize_state_dict` after the policy cast — the projections and
         the LM head become their int8 ``.q`` / ``.scale`` pairs, the
@@ -109,13 +120,24 @@ def load_serving_params(root: str, like: Any, *,
     Returns ``(params, step)``.  Raises :class:`CheckpointError` when no
     valid checkpoint exists (or the pinned step is invalid).
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_serving_params(shardings=) restores onto a tensor-"
-            "parallel mesh, which comes with DecodeEngine(tp=) in a later "
-            "slice of the port")
     t0 = time.monotonic()
-    tree, got, manifest, step_dir = _restore_newest_valid(root, like, step)
+    paths = None
+    group = None
+    if shardings is not None:
+        prefix = "" if params_key is None else f"[{params_key!r}]"
+        paths = {f"{prefix}[{name!r}]": sl
+                 for name, sl in dict(shardings).items() if sl is not None}
+        if quantize:
+            from apex_tpu_torch.transformer import parallel_state
+
+            if not parallel_state.model_parallel_is_initialized():
+                raise ValueError(
+                    "quantize=True with shardings= quantizes a rank's "
+                    "slices, whose row-parallel scales are all-reduced "
+                    "over the tp group: install the parallel state first")
+            group = parallel_state.get_tensor_model_parallel_group()
+    tree, got, manifest, step_dir = _restore_newest_valid(root, like, step,
+                                                          paths)
     if params_key is not None:
         try:
             tree = tree[params_key]
@@ -128,7 +150,7 @@ def load_serving_params(root: str, like: Any, *,
     if quantize:
         from apex_tpu_torch.serving.quant import quantize_state_dict
 
-        tree = quantize_state_dict(tree)
+        tree = quantize_state_dict(tree, group=group)
     nbytes = sum(int(getattr(leaf, "nbytes", 0))
                  for _, leaf in tree_flatten_with_path(tree))
     # step + format + bytes + wall time: the reload observability
@@ -137,7 +159,9 @@ def load_serving_params(root: str, like: Any, *,
     # apex_serving_reload_duration_seconds from exactly this event
     emit_event("serving_weights_loaded", step=int(got),
                format_version=int(manifest.get("format_version", 1)),
-               sharded=False, params_key=params_key,
+               sharded=(manifest.get("format_version")
+                        == _ckpt._SHARDED_FORMAT_VERSION),
+               params_key=params_key,
                opt_level=getattr(policy, "opt_level", None),
                quantized=bool(quantize), bytes=nbytes, t0=t0)
     return tree, got

@@ -151,6 +151,24 @@ ends the run with a non-zero exit and no result line:
      the bf16 model freed: the 12 requests served, bytes and peak memory,
      and the longest request fed the bf16 stream: max |logit error| < 0.5
      and agreement >= 0.9 where the bf16 top-2 margin exceeds 0.1.
+     Before it, ``phase3-serving-tp``: tensor-parallel serving at world 1
+     under an NCCL group (a ``file://`` rendezvous in a temporary
+     directory, destroyed at the end): the 12 requests through
+     ``DecodeEngine(tp=TPConfig(1))``, dense and paged, equal the
+     ``tp=None`` dense run's streams and chunk logits bit for bit (an
+     all-reduce and an all-gather of one rank are exact), under the
+     norm-launch gate; the decode step's p50 with all 8 slots active under
+     tp 1 against ``tp=None`` (in turns) and the collectives a step; the
+     longest request fed the bf16 stream under ``QuantConfig(weights=True,
+     kv=True, allreduce=True)`` (max |logit error| < 0.5, agreement
+     printed); the evaluation forward at b 4, s 2048 inside the tp region
+     equal to the plain one bit for bit, with its exact launches; then
+     v2 checkpoints: the weights saved on a tp-4 grid from this one
+     process and validated, restored whole (equal to a v1 restore bit for
+     bit) and served by the tp engine, rank 2-of-4's block restored alone
+     (bytes read against a quarter of the sharded weights' bytes), and a
+     ``CorruptShardFile``-damaged newer step passed over by the
+     newest-valid walk.
    - *evaluation*: a small fp32 Llama at head dim 64, uncached logits and
      ``labels=`` loss on the card against the CPU; then the same
      ``llama-1b`` model's ``model(ids, labels=labels)`` at b 4, s 2048
@@ -6006,7 +6024,7 @@ def _drop_side_stream_workspaces() -> None:
     torch.cuda.empty_cache()
 
 
-def llama_1b(device, model, init_s) -> dict:
+def llama_1b(device, model, init_s, keep=None) -> dict:
     """Serving ``model`` at full width: the FIFO scheduler over the dense
     ``DecodeEngine`` (12 requests; the longest again alone, two checks;
     a profile), then the same requests paged (:func:`paged_checks`), then
@@ -6016,7 +6034,9 @@ def llama_1b(device, model, init_s) -> dict:
     observability layer on them (:func:`obs_checks`), failover
     (:func:`export_adopt_checks`) and the weight lifecycle
     (:func:`lifecycle_checks`).  Each run launches the norm kernel only,
-    ``(2L + 1) x (chunks + steps + verifies)`` times."""
+    ``(2L + 1) x (chunks + steps + verifies)`` times.  ``keep`` (a dict)
+    receives the dense run's streams and chunk logits, which the
+    tensor-parallel phase holds its runs to."""
     import torch
     from apex_tpu_torch import serving as sv
 
@@ -6057,6 +6077,9 @@ def llama_1b(device, model, init_s) -> dict:
         norm_launches_per_decode_step=2 * cfg.num_hidden_layers + 1,
         served_alone=alone)
     log("phase3-llama-1b", **out)
+    if keep is not None:
+        keep.update(streams=dense["streams"],
+                    chunk_logits=list(dense["chunk_log"].logits))
     out["profile"] = profile_steps(engine, cfg)
     del engine
     torch.cuda.empty_cache()
@@ -6230,6 +6253,332 @@ def small_eval_check(device) -> dict:
         out["tied" if tied else "lm_head"] = err
     out["tolerance"] = 1e-4
     log("phase3-eval-reference", **out)
+    return out
+
+
+def _decode_p50_ms(engine, prompts, steps: int = 24) -> float:
+    """p50 wall of one decode step with every slot active: each slot
+    prefilled with its prompt, then ``steps`` steps (3 more first, not
+    counted), each bracketed by ``torch.cuda.synchronize``."""
+    import numpy as np
+    import torch
+
+    engine.reset()
+    for slot, p in enumerate(prompts):
+        engine.prefill(slot, p)
+    toks = np.ones((engine.slots,), np.int64)
+    act = np.ones((engine.slots,), bool)
+    times = []
+    for i in range(steps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode(toks, act)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    engine.reset()
+    return statistics.median(times)
+
+
+def _decode_profile(engine, prompts, reps: int = 3) -> dict:
+    """One decode step with every slot active, traced ``reps`` times with
+    ``torch.profiler`` after one untraced step: the traced wall, device
+    busy time (the kernels' own time), the kernels and the host operators
+    that take most (self time a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.reset()
+    for slot, p in enumerate(prompts):
+        engine.prefill(slot, p)
+
+    def step():
+        engine.decode([1] * engine.slots, [True] * engine.slots)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / reps
+    engine.reset()
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    host = [e for e in rows if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return dict(
+        traced_wall_ms=traced_ms,
+        device_busy_ms=busy if kernels else "not measured",
+        top_kernels=[(e.key[:70], e.count // reps,
+                      e.self_device_time_total / 1e3 / reps) for e in sorted(
+                          kernels, key=lambda e: -e.self_device_time_total)[:5]],
+        top_host_ops=[(e.key[:70], e.count // reps,
+                       e.self_cpu_time_total / 1e3 / reps) for e in sorted(
+                           host, key=lambda e: -e.self_cpu_time_total)[:8]])
+
+
+def tp_checks(model, qmodel, dense_ref, int8_ref, probe, sv, device, smi,
+              **kw) -> dict:
+    """Phase ``phase3-serving-tp``: tensor-parallel serving at world 1 over
+    NCCL (see the module docstring).  ``dense_ref`` is the ``tp=None``
+    dense run of :func:`llama_1b` (streams, chunk logits), ``int8_ref``
+    the bf16 probe stream of :func:`int8_reference`, ``qmodel`` the int8
+    model.  The group and the checkpoints' temporary directory go however
+    the phase ends."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    out = dict(nvidia_smi=smi)
+    rdv = tempfile.mkdtemp(prefix="tp_rdv_")
+    root = tempfile.mkdtemp(prefix="ckpt_tp_", dir=ROOT)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(rdv, 'rendezvous')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        group = ps.serving_group(1)
+        tp = sv.TPConfig(size=1)
+        out["backend"] = str(dist.get_backend(group))
+        requests = serving_requests(cfg.vocab_size)
+        # ---- streams: tp 1, dense and paged, against tp=None dense ------
+        for form, extra in (("dense", {}), ("paged", dict(
+                paged=sv.PagedCacheConfig(block_size=16)))):
+            engine = sv.DecodeEngine(model, device=device, tp=tp, **kw,
+                                     **extra)
+            calls0 = mappings.collective_calls()
+            run = serve_logged(engine, requests, sv, label=f"tp1 {form}")
+            calls = mappings.collective_calls() - calls0
+            if run["streams"] != dense_ref["streams"]:
+                raise AssertionError(f"tp1 {form}: streams differ from the "
+                                     f"tp=None run")
+            logits = run["chunk_log"].logits
+            if len(logits) != len(dense_ref["chunk_logits"]) or not all(
+                    torch.equal(a, b) for a, b in
+                    zip(logits, dense_ref["chunk_logits"])):
+                raise AssertionError(f"tp1 {form}: chunk logits differ "
+                                     f"from the tp=None run")
+            summ = run["summary"]
+            out[form] = dict(streams_equal=True, chunk_logits_equal=True,
+                             wall_s=summ["wall_s"],
+                             prefill_chunks=summ["prefill_chunks"],
+                             decode_steps=summ["decode_steps"],
+                             launches=_nonzero(summ["launches"]),
+                             expected_norm_launches=summ[
+                                 "expected_norm_launches"],
+                             collectives=calls)
+            del engine, run
+        # ---- the decode step, tp 1 against tp=None, in turns ------------
+        prompts = [r.prompt[:64] for r in requests[:kw["slots"]]]
+        plain = sv.DecodeEngine(model, device=device, **kw)
+        tp1 = sv.DecodeEngine(model, device=device, tp=tp, **kw)
+        _decode_p50_ms(plain, prompts, steps=4)          # warm-up
+        _decode_p50_ms(tp1, prompts, steps=4)
+        turns = {"none": [], "tp1": []}
+        for name, eng in (("none", plain), ("tp1", tp1), ("tp1", tp1),
+                          ("none", plain)):
+            turns[name].append(_decode_p50_ms(eng, prompts))
+        for slot, p in enumerate(prompts):
+            tp1.prefill(slot, p)
+        calls0 = mappings.collective_calls()
+        tp1.decode([1] * kw["slots"], [True] * kw["slots"])
+        per_step = mappings.collective_calls() - calls0
+        tp1.reset()
+        profiles = {"none": _decode_profile(plain, prompts),
+                    "tp1": _decode_profile(tp1, prompts)}
+        if per_step != 2 * layers + 1:
+            raise AssertionError(f"a tp1 decode step issued {per_step} "
+                                 f"collectives, expected {2 * layers + 1}")
+        out["decode_step"] = dict(
+            p50_ms_none=turns["none"], p50_ms_tp1=turns["tp1"],
+            ratio=statistics.median(turns["tp1"])
+            / statistics.median(turns["none"]),
+            collectives_per_step=per_step,
+            row_linear_all_reduces_per_step=2 * layers,
+            logits_all_gathers_per_step=1, profiles=profiles)
+        del plain, tp1
+        torch.cuda.empty_cache()
+        # ---- the quantized all-reduce ----------------------------------
+        qeng = sv.DecodeEngine(qmodel, device=device, tp=tp,
+                               quant=sv.QuantConfig(weights=True, kv=True,
+                                                    allreduce=True), **kw)
+        if qeng.model is not qmodel:
+            raise AssertionError("the tp engine quantized the int8 model "
+                                 "again")
+        picks, logits, _ = serve_in_chunks(qeng, probe, 0, int8_ref["chunks"],
+                                           forced=int8_ref["stream"])
+        err = float((logits.float().cpu() - int8_ref["logits"]).abs().max())
+        if not err < 0.5:
+            raise AssertionError(f"tp1 quantized all-reduce: max |logit "
+                                 f"error| {err} >= 0.5")
+        out["quant_allreduce"] = dict(
+            max_abs_logit_err=err, bar="max |logit error| < 0.5",
+            agreement_all_positions=sv.stream_agreement(int8_ref["stream"],
+                                                        picks))
+        del qeng
+        torch.cuda.empty_cache()
+        # ---- the evaluation forward in the tp region --------------------
+        b, s = 4, 2048
+        g = torch.Generator().manual_seed(8)
+        ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(device)
+        labels = torch.roll(ids, -1, dims=1)
+        expected = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                    fa.FLASH_ATTENTION_FWD.name: layers,
+                    lh.FUSED_LM_HEAD_FWD.name: 1}
+        with torch.inference_mode():
+            plain_loss = model(ids, labels=labels)
+            with mappings.tensor_parallel_region(group):
+                model(ids, labels=labels)                # warm-up
+                torch.cuda.synchronize()
+                _dispatch.reset_launches()
+                t0 = time.perf_counter()
+                tp_loss = model(ids, labels=labels)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in _dispatch.KERNELS}
+        if device.type == "cuda" and {
+                k: n for k, n in launches.items() if n} != expected:
+            raise AssertionError(f"tp1 eval forward launched {launches}, "
+                                 f"expected {expected}")
+        if not torch.equal(plain_loss, tp_loss):
+            raise AssertionError("tp1 eval loss differs from the plain "
+                                 "forward's")
+        out["evaluation"] = dict(equal=True, wall_s=wall,
+                                 tok_s=b * s / wall,
+                                 launches=_nonzero(launches))
+        del plain_loss, tp_loss, ids, labels
+        # ---- v2 checkpoints ---------------------------------------------
+        out["checkpoints"] = tp_checkpoint_checks(model, requests, sv, device,
+                                                  root, tp, **kw)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(rdv, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-serving-tp", **out)
+    return out
+
+
+def tp_checkpoint_checks(model, requests, sv, device, root, tp,
+                         **kw) -> dict:
+    """The v2 part of ``phase3-serving-tp``: llama-1b's weights saved on a
+    tp-4 grid from one process (form (a)) and as v1, both validated and
+    restored whole onto the card (bit for bit equal), the v2 weights
+    swapped into the tp engine (its streams unchanged), rank 2-of-4's
+    block restored alone, and a corrupt newer step passed over."""
+    import torch
+    from apex_tpu_torch import resilience as rz
+    from apex_tpu_torch.models.llama import tp_param_spec
+    from apex_tpu_torch.resilience import elastic
+
+    out = {}
+    sd = model.state_dict()
+    state = {"params": sd}
+    specs = {"params": {k: elastic.PartitionSpec(*tp_param_spec(k))
+                        for k in sd}}
+    v1, v2 = os.path.join(root, "v1"), os.path.join(root, "v2")
+    t0 = time.perf_counter()
+    rz.save_checkpoint(v1, 1, state)
+    out["v1_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = rz.save_sharded_checkpoint(v2, 1, state, mesh={"tp": 4},
+                                      specs=specs)
+    out["v2_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rz.validate_sharded_checkpoint(path)
+    out["v2_validate_s"] = time.perf_counter() - t0
+    out["bytes"] = os.path.getsize(os.path.join(path, "data.bin"))
+    whole = sv.tp_param_shardings(sd, 0, 1)
+    t0 = time.perf_counter()
+    got2, step2 = sv.load_serving_params(v2, state, params_key="params",
+                                         shardings=whole)
+    torch.cuda.synchronize()
+    out["v2_restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got1, _ = sv.load_serving_params(v1, state, params_key="params")
+    torch.cuda.synchronize()
+    out["v1_restore_s"] = time.perf_counter() - t0
+    if step2 != 1 or not all(torch.equal(got2[k], got1[k]) and
+                             torch.equal(got2[k], sd[k]) for k in sd):
+        raise AssertionError("the v2 restore differs from the v1 restore")
+    del got1
+    engine = sv.DecodeEngine(model, device=device, tp=tp, **kw)
+    few = requests[:2]
+    before = serve(engine, few, sv)[0]
+    engine.swap_params(got2)
+    after = serve(engine, few, sv)[0]
+    if {k: v.tokens for k, v in before.items()} != {
+            k: v.tokens for k, v in after.items()}:
+        raise AssertionError("the tp engine on the v2 weights serves other "
+                             "streams")
+    del engine, got2, before, after
+    torch.cuda.empty_cache()
+    # rank 2 of 4 alone
+    sl = sv.tp_param_shardings(sd, 2, 4)
+
+    def block_like(t, piece):
+        if piece is None:
+            return t
+        shape = list(t.shape)
+        start, stop = piece.bounds(shape[piece.dim])
+        shape[piece.dim] = stop - start
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    like = {"params": {k: block_like(t, sl[k]) for k, t in sd.items()}}
+    read0 = elastic.shard_bytes_read()
+    t0 = time.perf_counter()
+    blk, _ = sv.load_serving_params(v2, like, params_key="params",
+                                    shardings=sl)
+    torch.cuda.synchronize()
+    out["block_restore_s"] = time.perf_counter() - t0
+    read = elastic.shard_bytes_read() - read0
+    for k, t in sd.items():
+        want = t if sl[k] is None else sl[k].take(t)
+        if not torch.equal(blk[k], want):
+            raise AssertionError(f"rank 2-of-4 block of {k} differs")
+    sharded = sum(t.numel() * t.element_size() for k, t in sd.items()
+                  if sl[k] is not None)
+    whole_only = sum(t.numel() * t.element_size() for k, t in sd.items()
+                     if sl[k] is None)
+    if read != sharded // 4 + whole_only:
+        raise AssertionError(f"block restore read {read} bytes, expected "
+                             f"{sharded // 4} + {whole_only}")
+    out["block"] = dict(bytes_read=read, sharded_bytes=sharded,
+                        read_over_sharded=read / sharded,
+                        replicated_bytes=whole_only)
+    del blk
+    # a corrupt newer step: the walk falls back one step
+    newer = rz.save_sharded_checkpoint(v2, 2, state, mesh={"tp": 4},
+                                       specs=specs)
+    dmg = rz.CorruptShardFile(leaf="q_proj", shard=2, seed=0)(newer)
+    latest = rz.latest_valid_step(v2)
+    got, step = sv.load_serving_params(v2, like, params_key="params",
+                                       shardings=sl)
+    if latest != 1 or step != 1:
+        raise AssertionError(f"after CorruptShardFile at step 2: latest "
+                             f"valid {latest}, restored {step}")
+    out["fallback"] = dict(corrupted=dmg["leaf"], coords=dmg["coords"],
+                           latest_valid_step=latest, restored_step=step)
+    del got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -8142,13 +8491,18 @@ def main() -> int:
     amp_reference = small_amp_check(device)
     optimizer_reference = small_optimizer_checks(device)
     model, init_s = build_llama_1b(device)
-    e2e = llama_1b(device, model, init_s)
+    dense_ref = {}
+    e2e = llama_1b(device, model, init_s, keep=dense_ref)
     evaluation = llama_1b_eval(device, model)
     from apex_tpu_torch import serving as sv
+    probe = max(serving_requests(model.config.vocab_size),
+                key=lambda r: len(r.prompt))
     qmodel, int8_ref = int8_reference(
-        model, max(serving_requests(model.config.vocab_size),
-                   key=lambda r: len(r.prompt)),
-        sv, device, slots=8, max_len=2048, prefill_len=512)
+        model, probe, sv, device, slots=8, max_len=2048, prefill_len=512)
+    serving_tp = tp_checks(model, qmodel, dense_ref, int8_ref, probe, sv,
+                           device, smi, slots=8, max_len=2048,
+                           prefill_len=512)
+    dense_ref.clear()
     del model
     torch.cuda.empty_cache()
     int8 = llama_1b_int8(device, qmodel, int8_ref)
@@ -8302,6 +8656,7 @@ def main() -> int:
                   llama_1b_int8=int8, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
+                  serving_tp=serving_tp,
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,

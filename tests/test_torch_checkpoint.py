@@ -341,21 +341,22 @@ def test_live_writer_registry_hides_a_step_in_flight(tmp_path):
 
 
 def test_v2_sharded_step_raises_not_implemented(tmp_path):
+    """A v2 (sharded) step written by the JAX package validates and
+    restores through the same four calls that once refused it, and the
+    v1 step beside it still restores."""
     from apex_tpu.resilience.elastic import save_sharded_checkpoint
 
     root = str(tmp_path)
     tck.save_checkpoint(root, 1, {"w": np.ones((4, 4), np.float32)})
-    save_sharded_checkpoint(root, 2, {"w": np.ones((4, 4), np.float32)})
+    w2 = np.arange(16, dtype=np.float32).reshape(4, 4)
+    save_sharded_checkpoint(root, 2, {"w": w2})
     like = {"w": torch.zeros(4, 4)}
     d2 = os.path.join(root, STEP.format(2))
-    for call in (lambda: tck.validate_checkpoint(d2),
-                 lambda: tck.restore_checkpoint(root, like),
-                 lambda: tck.restore_checkpoint(root, like, step=2),
-                 lambda: tck.latest_valid_step(root)):
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            call()
-    # not a CheckpointError: no fallback walk swallows it
-    assert not issubclass(NotImplementedError, trz.CheckpointError)
+    tck.validate_checkpoint(d2)
+    for got, step in (tck.restore_checkpoint(root, like),
+                      tck.restore_checkpoint(root, like, step=2)):
+        assert step == 2 and torch.equal(got["w"], torch.from_numpy(w2))
+    assert tck.latest_valid_step(root) == 2
     assert tck.restore_checkpoint(root, like, step=1)[1] == 1
 
 

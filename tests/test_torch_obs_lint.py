@@ -46,11 +46,11 @@ WAITING = {
 }
 
 #: event kinds the port's bridge handles that nothing in the port emits
-#: yet: their emitters (tensor-parallel serving, the guarded step, replica
-#: consistency and the supervisor's watchdog) come with later slices
+#: yet: their emitters (the guarded step, replica consistency and the
+#: supervisor's watchdog) come with the training-side resilience slice
 HANDLED_NOT_YET_EMITTED = {
-    "serving_tp_step", "batch_skipped", "replica_desync",
-    "supervisor_failure", "watchdog_stall",
+    "batch_skipped", "replica_desync", "supervisor_failure",
+    "watchdog_stall",
 }
 
 
@@ -178,6 +178,8 @@ def test_serving_kinds_the_port_emits():
         "serving_prefill_chunk", "serving_first_token",
         "serving_request_finished", "serving_spec_verify", "serving_step",
         "serving_quant_enabled", "serving_block_cow", "serving_quant_eval",
+        # tensor-parallel serving
+        "serving_tp_step",
         "loadgen_started", "loadgen_request_shed", "loadgen_finished",
         "fault_injected", "serving_alert_firing", "serving_alert_resolved",
         # the weight lifecycle, the fleet and rollouts

@@ -65,7 +65,13 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.resilience.retry, "
         "apex_tpu_torch.resilience.supervisor, "
         "apex_tpu_torch.serving.weights, apex_tpu_torch.serving.reload, "
-        "apex_tpu_torch.serving.fleet, apex_tpu_torch.serving.rollout\n"
+        "apex_tpu_torch.serving.fleet, apex_tpu_torch.serving.rollout, "
+        "apex_tpu_torch.transformer.parallel_state, "
+        "apex_tpu_torch.transformer.tensor_parallel.mappings, "
+        "apex_tpu_torch.transformer.tensor_parallel.cross_entropy, "
+        "apex_tpu_torch.transformer.tensor_parallel.utils, "
+        "apex_tpu_torch.transformer.testing.distributed, "
+        "apex_tpu_torch.resilience.elastic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"

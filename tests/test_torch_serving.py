@@ -186,9 +186,11 @@ def test_engine_rejects_bad_construction(served, kw, match):
 
 @pytest.mark.parametrize("name", ["tp"])
 def test_engine_options_of_later_slices_raise(served, name):
-    with pytest.raises(NotImplementedError, match=name):
+    """``tp=TPConfig(2)`` with no process group of that size raises with
+    the launch recipe: the engine never serves it as ``tp=None``."""
+    with pytest.raises(RuntimeError, match="init_process_group"):
         sv.DecodeEngine(served["teng"].model, device="cpu",
-                        **{name: object()}, **ENGINE)
+                        **{name: sv.TPConfig(size=2)}, **ENGINE)
 
 
 @pytest.mark.parametrize("name", ["speculation", "policy"])

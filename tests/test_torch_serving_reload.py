@@ -299,12 +299,27 @@ class TestEngineSwap:
         assert ref["layers.0.mlp.up_proj.weight"].dtype == torch.bfloat16
 
     def test_shardings_raise_until_tensor_parallel(self, params, tmp_path):
-        with pytest.raises(NotImplementedError):
-            sv.load_serving_params(str(tmp_path), _like(params),
-                                   shardings=object())
-        with pytest.raises(NotImplementedError):
-            sv.HotReloader(_sched(_engine(params, slots=2)), str(tmp_path),
-                           like=_like(params), shardings=object())
+        """``shardings=`` restores a tp rank's slice: rank 1 of 2 gets
+        its block of every sharded weight (whole norms), and a
+        ``HotReloader`` takes the same slices."""
+        rz.save_checkpoint(str(tmp_path), 1, {"params": params})
+        whole = _like(params)["params"]
+        sh = sv.tp_param_shardings(whole, 1, 2)
+        like = {"params": {k: (t if sh[k] is None else sh[k].take(t))
+                           for k, t in whole.items()}}
+        got, step = sv.load_serving_params(str(tmp_path), like,
+                                           params_key="params", shardings=sh)
+        assert step == 1
+        ref = _model(params).state_dict()
+        for k, t in got.items():
+            want = ref[k] if sh[k] is None else sh[k].take(ref[k])
+            assert torch.equal(t, want), k
+        assert sh["layers.0.self_attn.q_proj.weight"].dim == 0
+        assert sh["layers.0.mlp.down_proj.weight"].dim == 1
+        assert sh["norm.scale"] is None
+        rel = sv.HotReloader(_sched(_engine(params, slots=2)), str(tmp_path),
+                             like=like, params_key="params", shardings=sh)
+        assert rel.shardings is sh
 
     def test_quantize_restores_the_int8_layout(self, params, tmp_path):
         rz.save_checkpoint(str(tmp_path), 1, {"params": params})
