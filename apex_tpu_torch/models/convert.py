@@ -34,7 +34,11 @@ flax leaf                                           torch key
 ==================================================  ==========================================
 
 Each raises on a leaf it does not consume and on a leaf it expects but
-does not find.
+does not find.  With ``tp_size > 1`` each returns rank ``tp_rank``'s
+slice, for the model that rank builds in its tensor-parallel region:
+column weights (and their biases) split on ``[out]``, row weights on
+``[in]`` (their biases whole), the vocab-parallel embedding (and the
+Llama head) on its rows; everything else whole.
 
 A leaf may be a JAX ``QTensor`` (``apex_tpu.serving.quant``: an int8
 payload ``q``, fp32 ``scale`` per output channel, its reduced ``axis``),
@@ -202,14 +206,51 @@ def _gpt_expected(num_layers: int, position_embedding: bool
     return m
 
 
+# the GPT linears the tensor-parallel layers shard, by module name
+_GPT_COLUMN = ("query_key_value", "dense_h_to_4h")
+_GPT_ROW = ("self_attention.dense", "dense_4h_to_h")
+
+
+def _gpt_shard_dim(name: str):
+    """The dim a GPT ``state_dict`` entry splits on under tp, or None."""
+    if name.endswith("word_embeddings.weight"):
+        return 0
+    module, attr = name.rsplit(".", 1)
+    if module.endswith(_GPT_COLUMN):
+        return 0
+    if module.endswith(_GPT_ROW) and attr == "weight":
+        return 1
+    return None
+
+
 def gpt_params_from_jax(tree: Mapping, num_layers: int,
-                        apply_rope: bool = False) -> Dict[str, torch.Tensor]:
+                        apply_rope: bool = False, *, tp_rank: int = 0,
+                        tp_size: int = 1) -> Dict[str, torch.Tensor]:
     """A CPU ``state_dict`` for ``GPTModel(num_layers=num_layers,
     apply_rope=apply_rope, ...)`` from the flax tree of the JAX
     ``GPTModel`` (with or without its ``"params"`` collection).  RoPE
-    models have no position table."""
-    return _convert(tree, _gpt_expected(num_layers, not apply_rope),
-                    f"GPT ({num_layers} layers, apply_rope={apply_rope})")
+    models have no position table.  With ``tp_size > 1``, rank
+    ``tp_rank``'s slice of it: QKV and ``dense_h_to_4h`` on their output
+    rows (each rank whole heads: a head's q, k and v are adjacent), the
+    ``dense`` and ``dense_4h_to_h`` weights on their input columns, the
+    word embedding on its vocab rows."""
+    state = _convert(tree, _gpt_expected(num_layers, not apply_rope),
+                     f"GPT ({num_layers} layers, apply_rope={apply_rope})")
+    size, rank = int(tp_size), int(tp_rank)
+    if size == 1:
+        return state
+    out = {}
+    for name, t in state.items():
+        dim = _gpt_shard_dim(name)
+        if dim is None:
+            out[name] = t
+            continue
+        if t.shape[dim] % size:
+            raise ValueError(f"{name}: dim {dim} of size {t.shape[dim]} "
+                             f"does not split into {size} blocks")
+        n = t.shape[dim] // size
+        out[name] = t.narrow(dim, rank * n, n).clone()
+    return out
 
 
 # the fields of the JAX optimizers' inner states beside ``step`` (and

@@ -50,6 +50,16 @@ per-token loss of the fused LM-head kernel at world size 1, and of
 above it.  :func:`~apex_tpu_torch.models.convert.llama_params_from_jax`
 (``tp_rank=``, ``tp_size=``) gives a rank its slice of the JAX weights.
 
+**Sequence parallelism** (``sequence_parallel_enabled``, as in the JAX
+model): the embedding's output is scattered along the sequence, the
+column linears all-gather their input and the row linears reduce-scatter
+their output, so the norms and residuals run on the rank's ``[s / tp, b,
+h]`` block; the logits all-gather it back, and the loss is always the
+vocab-parallel one.  The norms are the JAX model's
+:class:`~apex_tpu_torch.normalization.FusedRMSNorm`, with no reduction
+over the group: under sequence parallelism each rank's norm-scale
+gradient covers its own block of the tokens, as JAX's does.
+
 The uncached modes are differentiable: under autograd each norm, the
 flash attention and the fused LM head run their backward kernels on the
 card (their plain versions on the CPU), the embedding's gradient sums the
@@ -81,6 +91,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     divide,
     parallel_lm_logits,
+    scatter_to_sequence_parallel_region,
     shard_init,
     tp_world_size,
     vocab_parallel_cross_entropy,
@@ -252,10 +263,12 @@ def _decode_attention(qt, kt, vt, position):
 class LlamaMLP(nn.Module):
     """SwiGLU: down( silu(gate(x)) * up(x) )."""
 
-    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None):
+    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None,
+                 sequence_parallel_enabled: bool = False):
         super().__init__()
         c = config
-        kw = dict(bias=False, dtype=dtype, device=device, generator=generator)
+        kw = dict(bias=False, dtype=dtype, device=device, generator=generator,
+                  sequence_parallel_enabled=sequence_parallel_enabled)
         self.gate_proj = ColumnParallelLinear(c.hidden_size,
                                               c.intermediate_size,
                                               gather_output=False, **kw)
@@ -274,12 +287,14 @@ class LlamaMLP(nn.Module):
 class LlamaAttention(nn.Module):
     """Grouped-query attention with rotary embeddings."""
 
-    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None):
+    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None,
+                 sequence_parallel_enabled: bool = False):
         super().__init__()
         c = config
         self.config = c
         self.head_dim = divide(c.hidden_size, c.num_attention_heads)
-        kw = dict(bias=False, dtype=dtype, device=device, generator=generator)
+        kw = dict(bias=False, dtype=dtype, device=device, generator=generator,
+                  sequence_parallel_enabled=sequence_parallel_enabled)
         kv = c.kv_heads * self.head_dim
         col = dict(gather_output=False, **kw)
         self.q_proj = ColumnParallelLinear(c.hidden_size, c.hidden_size, **col)
@@ -299,9 +314,11 @@ class LlamaAttention(nn.Module):
         world = tp_world_size()
         hd = self.head_dim
         nq, nkv = cfg.num_attention_heads // world, cfg.kv_heads // world
-        s, b = x.shape[0], x.shape[1]
-        q = fused_apply_rotary_pos_emb(self.q_proj(x).view(s, b, nq, hd),
-                                       freqs)
+        q = self.q_proj(x)
+        # the whole sequence: the column linears gather it under sequence
+        # parallelism
+        s, b = q.shape[0], q.shape[1]
+        q = fused_apply_rotary_pos_emb(q.view(s, b, nq, hd), freqs)
         k = fused_apply_rotary_pos_emb(self.k_proj(x).view(s, b, nkv, hd),
                                        freqs)
         v = self.v_proj(x).view(s, b, nkv, hd)
@@ -349,16 +366,19 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None):
+    def __init__(self, config: LlamaConfig, *, dtype, device, generator=None,
+                 sequence_parallel_enabled: bool = False):
         super().__init__()
         c = config
         kw = dict(dtype=dtype, device=device)
+        sp = dict(generator=generator,
+                  sequence_parallel_enabled=sequence_parallel_enabled)
         self.input_layernorm = FusedRMSNorm(c.hidden_size, eps=c.rms_norm_eps,
                                             **kw)
-        self.self_attn = LlamaAttention(c, generator=generator, **kw)
+        self.self_attn = LlamaAttention(c, **sp, **kw)
         self.post_attention_layernorm = FusedRMSNorm(
             c.hidden_size, eps=c.rms_norm_eps, **kw)
-        self.mlp = LlamaMLP(c, generator=generator, **kw)
+        self.mlp = LlamaMLP(c, **sp, **kw)
 
     def forward(self, x, freqs, **cache_kw):
         x = x + self.self_attn(self.input_layernorm(x), freqs, **cache_kw)
@@ -372,19 +392,24 @@ class LlamaForCausalLM(nn.Module):
     ``device`` defaults to CUDA, and ``generator`` (a ``torch.Generator``
     on that device) draws the initial weights: ``normal(0, 1/sqrt(in))``
     for the projections, ``normal(0, 0.02)`` for the embedding and head,
-    ones for the norm scales."""
+    ones for the norm scales.  ``sequence_parallel_enabled`` as in the
+    module docstring."""
 
     def __init__(self, config: LlamaConfig, *,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sequence_parallel_enabled: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
+        self.sequence_parallel_enabled = sequence_parallel_enabled
         kw = dict(dtype=dtype, device=dev)
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, generator=generator, **kw)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, generator=generator, **kw)
+            LlamaDecoderLayer(
+                config, generator=generator,
+                sequence_parallel_enabled=sequence_parallel_enabled, **kw)
             for _ in range(config.num_hidden_layers))
         self.norm = FusedRMSNorm(config.hidden_size, eps=config.rms_norm_eps,
                                  **kw)
@@ -407,9 +432,12 @@ class LlamaForCausalLM(nn.Module):
         if kv_cache is not None and labels is not None:
             raise ValueError("kv_cache is a serving-mode argument; "
                              "labels is training-only")
+        sp = self.sequence_parallel_enabled
         # [b, s, h] -> [s, b, h]; the norm kernel takes contiguous input
         x = self.embed_tokens(input_ids).transpose(0, 1).contiguous()
         s = x.shape[0]
+        if sp:
+            x = scatter_to_sequence_parallel_region(x)
         hd = cfg.hidden_size // cfg.num_attention_heads
         cache_kw = {}
         if kv_cache is None:
@@ -431,13 +459,14 @@ class LlamaForCausalLM(nn.Module):
                 else self.lm_head)
         if isinstance(head, QTensor):         # an int8 serving head
             head = head.dequantize()
-        if labels is not None and tp_world_size() == 1:
+        if labels is not None and tp_world_size() == 1 and not sp:
             return fused_lm_head_loss(x, head.to(x.dtype), labels.T).T
-        logits = parallel_lm_logits(x, head.to(x.dtype))
+        logits = parallel_lm_logits(x, head.to(x.dtype),
+                                    sequence_parallel_enabled=sp)
         if kv_cache is not None:
             return logits, kv_cache
         if labels is None:
             return logits
-        # above world size 1: the vocab-sharded logits and the
-        # vocab-parallel loss, as the JAX model
+        # above world size 1 or under sequence parallelism: the
+        # vocab-sharded logits and the vocab-parallel loss, as the JAX model
         return vocab_parallel_cross_entropy(logits.transpose(0, 1), labels)

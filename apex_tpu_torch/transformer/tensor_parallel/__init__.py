@@ -1,9 +1,14 @@
 """Tensor-parallel primitives over ``torch.distributed`` (counterpart of
-``apex_tpu.transformer.tensor_parallel``).  ``random``, ``data`` and
-``memory`` come with the tensor-parallel training slice."""
+``apex_tpu.transformer.tensor_parallel``): the mappings, the parallel
+layers, the vocab-parallel cross entropy, the RNG streams and
+``checkpoint``, the batch broadcast and the memory buffers."""
 
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.data import (
+    broadcast_data,
+    tp_replicated_rows,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
@@ -23,6 +28,18 @@ from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     scatter_to_sequence_parallel_region,
     scatter_to_tensor_model_parallel_region,
     tensor_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.memory import (
+    MemoryBuffer,
+    RingMemBuffer,
+)
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    CudaRNGStatesTracker,
+    RNGStatesTracker,
+    checkpoint,
+    get_rng_state_tracker,
+    model_parallel_cuda_manual_seed,
+    model_parallel_seed,
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import (
     VocabUtility,
@@ -50,4 +67,14 @@ __all__ = [
     "VocabUtility",
     "divide",
     "split_tensor_along_last_dim",
+    "broadcast_data",
+    "tp_replicated_rows",
+    "MemoryBuffer",
+    "RingMemBuffer",
+    "RNGStatesTracker",
+    "CudaRNGStatesTracker",
+    "get_rng_state_tracker",
+    "model_parallel_seed",
+    "model_parallel_cuda_manual_seed",
+    "checkpoint",
 ]

@@ -51,6 +51,7 @@ __all__ = [
     "override_forward_allreduce",
     "tensor_parallel_region",
     "bound_group",
+    "current_tp_group",
     "tp_world_size",
     "maybe_axis_index",
     "collective_calls",
@@ -85,6 +86,19 @@ def tensor_parallel_region(group=None):
 def bound_group():
     """The group bound by :func:`tensor_parallel_region`, or None."""
     return _REGION["group"]
+
+
+def current_tp_group():
+    """The tensor-parallel group a training primitive acts over: the bound
+    region's, else ``parallel_state``'s once it is initialized, else None
+    (one process)."""
+    if _REGION["group"] is not None:
+        return _REGION["group"]
+    from apex_tpu_torch.transformer import parallel_state
+
+    if parallel_state.model_parallel_is_initialized():
+        return parallel_state.get_tensor_model_parallel_group()
+    return None
 
 
 def tp_world_size(group=None) -> int:

@@ -2,13 +2,18 @@
 ``apex_tpu/transformer/testing/standalone_gpt.py``).
 
 :class:`GPTModel` is a causal :class:`TransformerLanguageModel` whose
-output head is the **tied** word embedding: with ``labels`` (at
-tensor-parallel size 1) the per-token loss goes through
-:func:`~apex_tpu_torch.ops.fused_lm_head.fused_lm_head_loss` on that table
-(the fused LM-head kernels on the card; the logits never reach memory),
-and the embedding's gradient is the sum of the lookup's and the head's;
-without labels the fp32 logits come from
-:func:`~apex_tpu_torch.transformer.tensor_parallel.parallel_lm_logits`.
+output head is the **tied** word embedding: with ``labels`` at
+tensor-parallel size 1 without sequence parallelism the per-token loss
+goes through :func:`~apex_tpu_torch.ops.fused_lm_head.fused_lm_head_loss`
+on that table (the fused LM-head kernels on the card; the logits never
+reach memory), and the embedding's gradient is the sum of the lookup's
+and the head's.  Otherwise, as in the JAX model, the fp32 logits of the
+rank's vocab shard come from
+:func:`~apex_tpu_torch.transformer.tensor_parallel.parallel_lm_logits`
+(which all-gathers the sequence under sequence parallelism), and with
+``labels`` the loss from
+:func:`~apex_tpu_torch.transformer.tensor_parallel.vocab_parallel_cross_entropy`
+over them.
 The repo's benchmark flagship (``bench.py``'s ``large`` card) is this
 model at GPT-2-large's widths; :mod:`apex_tpu_torch.examples.gpt_pretrain`
 trains it.
@@ -24,6 +29,10 @@ from torch import nn
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.fused_lm_head import fused_lm_head_loss
 from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.tensor_parallel import (
+    tp_world_size,
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerLanguageModel,
     parallel_lm_logits,
@@ -54,6 +63,7 @@ class GPTModel(nn.Module):
         self.vocab_size = vocab_size
         self.max_sequence_length = max_sequence_length
         self.use_flash_attention = use_flash_attention
+        self.sequence_parallel_enabled = sequence_parallel_enabled
         self.language_model = TransformerLanguageModel(
             num_layers, hidden_size, num_attention_heads, vocab_size,
             max_sequence_length, attn_mask_type=AttnMaskType.causal,
@@ -66,14 +76,20 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, labels=None, position_ids=None):
         """The per-token loss ``[b, s]`` (fp32) with ``labels [b, s]``, else
-        the logits ``[s, b, vocab]`` (fp32)."""
+        the logits ``[s, b, vocab / tp]`` (fp32)."""
         hidden = self.language_model(input_ids, position_ids)
-        # weight tying: the head reuses the embedding table
+        # weight tying: the head reuses the (vocab-parallel) embedding table
         word_emb = self.language_model.embedding.word_embeddings.weight
-        if labels is not None:
+        sp = self.sequence_parallel_enabled
+        if labels is not None and tp_world_size() == 1 and not sp:
             return fused_lm_head_loss(hidden, word_emb.to(hidden.dtype),
                                       labels.T).T       # [s, b] token order
-        return parallel_lm_logits(hidden, word_emb.to(hidden.dtype))
+        logits = parallel_lm_logits(hidden, word_emb.to(hidden.dtype),
+                                    sequence_parallel_enabled=sp)
+        if labels is None:
+            return logits
+        # [s, b, v / tp] -> [b, s, v / tp]
+        return vocab_parallel_cross_entropy(logits.transpose(0, 1), labels)
 
 
 def gpt_model_provider(pre_process: bool = True, post_process: bool = True,

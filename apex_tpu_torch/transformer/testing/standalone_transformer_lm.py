@@ -3,9 +3,22 @@
 
 Embeddings, :class:`ParallelAttention` with two attention cores,
 :class:`ParallelMLP`, pre-LN :class:`ParallelTransformerLayer`\\ s and the
-final norm, at tensor-parallel size 1, over the port's tensor-parallel
-linears.  Activations keep the Megatron ``[s, b, h]`` layout of the JAX
-model, so each intermediate compares with its counterpart directly.
+final norm, over the port's tensor-parallel linears.  Activations keep
+the Megatron ``[s, b, h]`` layout of the JAX model, so each intermediate
+compares with its counterpart directly.
+
+**Tensor parallelism.** Built inside a tensor-parallel region
+(:func:`~apex_tpu_torch.transformer.tensor_parallel.tensor_parallel_region`)
+the model is one rank's shard, as the JAX model under ``shard_map``: the
+QKV and ``dense_h_to_4h`` linears split by output rows (a rank holds
+``heads / tp`` whole heads), ``dense`` and ``dense_4h_to_h`` by input
+columns, the word embedding by vocab rows.  With
+``sequence_parallel_enabled`` the activations between the parallel
+linears are the rank's ``[s / tp, b, h]`` block of the sequence: the
+embedding's output is scattered along ``s``, each column linear
+all-gathers its input and each row linear reduce-scatters its output,
+and the LayerNorms sum their parameters' gradients over the group
+(:class:`~apex_tpu_torch.transformer.layers.FusedLayerNorm`).
 
 The attention core is, as in the JAX module:
 
@@ -25,8 +38,8 @@ the last axis), not three ``[heads, head_dim]`` blocks.
 
 What the JAX module also offers raises ``NotImplementedError``, each with
 the slice of the port that brings it: dropout (attention and hidden),
-context parallelism, mixture-of-experts MLPs, sequence parallelism and
-activation checkpointing (and its policies).
+context parallelism, mixture-of-experts MLPs and activation checkpointing
+(and its policies).
 """
 
 from __future__ import annotations
@@ -48,6 +61,8 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     divide,
     parallel_lm_logits,
+    scatter_to_sequence_parallel_region,
+    tp_world_size,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
 
@@ -60,10 +75,7 @@ def _not_yet(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(f"{what} comes with the {slice_} of the port")
 
 
-def _check_common(sequence_parallel_enabled: bool,
-                  context_parallel_axis: Optional[str] = None) -> None:
-    if sequence_parallel_enabled:
-        raise _not_yet("sequence parallelism", "tensor-parallel slice")
+def _check_cp(context_parallel_axis: Optional[str]) -> None:
     if context_parallel_axis is not None:
         raise _not_yet("context parallelism (ring attention)",
                        "multi-card slice")
@@ -71,19 +83,21 @@ def _check_common(sequence_parallel_enabled: bool,
 
 class ParallelMLP(nn.Module):
     """``h -> ffn`` (column) ``-> gelu -> ffn -> h`` (row); the column
-    layer's bias is added just before ``gelu(approximate="tanh")``."""
+    layer's bias is added just before ``gelu(approximate="tanh")``.  Under
+    tp the ``ffn`` activations stay the rank's columns between the two."""
 
     def __init__(self, hidden_size: int, ffn_hidden_size: Optional[int] = None,
                  sequence_parallel_enabled: bool = False, *,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_common(sequence_parallel_enabled)
         ffn = ffn_hidden_size or 4 * hidden_size
-        kw = dict(dtype=params_dtype, device=device, generator=generator)
-        self.dense_h_to_4h = ColumnParallelLinear(hidden_size, ffn,
-                                                  skip_bias_add=True, **kw)
-        self.dense_4h_to_h = RowParallelLinear(ffn, hidden_size, **kw)
+        kw = dict(dtype=params_dtype, device=device, generator=generator,
+                  sequence_parallel_enabled=sequence_parallel_enabled)
+        self.dense_h_to_4h = ColumnParallelLinear(
+            hidden_size, ffn, gather_output=False, skip_bias_add=True, **kw)
+        self.dense_4h_to_h = RowParallelLinear(ffn, hidden_size,
+                                               input_is_parallel=True, **kw)
 
     def forward(self, x):
         h, bias = self.dense_h_to_4h(x)
@@ -102,7 +116,9 @@ def _rope_freqs(s: int, dim: int, offset=0, *, device=None) -> torch.Tensor:
 
 
 class ParallelAttention(nn.Module):
-    """Multi-head self-attention on ``[s, b, h]`` activations."""
+    """Multi-head self-attention on ``[s, b, h]`` activations (``[s / tp,
+    b, h]`` under sequence parallelism); a rank attends with its ``heads /
+    tp`` heads over the whole sequence."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
@@ -113,7 +129,7 @@ class ParallelAttention(nn.Module):
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_common(sequence_parallel_enabled, context_parallel_axis)
+        _check_cp(context_parallel_axis)
         if attention_dropout > 0.0:
             raise _not_yet("attention dropout in the transformer layers",
                            "training-options slice")
@@ -123,15 +139,21 @@ class ParallelAttention(nn.Module):
         self.attn_mask_type = attn_mask_type
         self.apply_rope = apply_rope
         self.use_flash_attention = use_flash_attention
-        kw = dict(dtype=params_dtype, device=device, generator=generator)
-        self.query_key_value = ColumnParallelLinear(hidden_size,
-                                                    3 * hidden_size, **kw)
-        self.dense = RowParallelLinear(hidden_size, hidden_size, **kw)
+        kw = dict(dtype=params_dtype, device=device, generator=generator,
+                  sequence_parallel_enabled=sequence_parallel_enabled)
+        self.query_key_value = ColumnParallelLinear(
+            hidden_size, 3 * hidden_size, gather_output=False, **kw)
+        self.dense = RowParallelLinear(hidden_size, hidden_size,
+                                       input_is_parallel=True, **kw)
 
     def forward(self, x, attention_mask=None, segment_ids=None):
-        s, b = x.shape[0], x.shape[1]
-        np_, hd = self.num_attention_heads, self.head_dim
-        qkv = self.query_key_value(x).view(s, b, np_, 3 * hd)
+        # the rank's heads, over the whole sequence (gathered by the column
+        # linear under sequence parallelism)
+        np_ = self.num_attention_heads // tp_world_size()
+        hd = self.head_dim
+        qkv = self.query_key_value(x)
+        s, b = qkv.shape[0], qkv.shape[1]
+        qkv = qkv.view(s, b, np_, 3 * hd)
         q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd] each
         if self.apply_rope:
             freqs = _rope_freqs(s, hd, device=x.device)
@@ -188,8 +210,9 @@ class ParallelTransformerLayer(nn.Module):
         self.post_attention_layernorm = FusedLayerNorm(
             hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
             device=dev)
-        self.mlp = ParallelMLP(hidden_size, params_dtype=params_dtype,
-                               device=dev, generator=generator)
+        self.mlp = ParallelMLP(
+            hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
+            params_dtype=params_dtype, device=dev, generator=generator)
 
     def forward(self, x, attention_mask=None, segment_ids=None):
         attn = self.self_attention(self.input_layernorm(x), attention_mask,
@@ -229,8 +252,11 @@ class ParallelTransformer(nn.Module):
                 moe_num_experts=moe_num_experts, params_dtype=params_dtype,
                 device=dev, generator=generator)
             for _ in range(num_layers))
-        self.final_layernorm = (FusedLayerNorm(hidden_size, device=dev)
-                                if final_layernorm else None)
+        self.final_layernorm = (
+            FusedLayerNorm(hidden_size,
+                           sequence_parallel_enabled=sequence_parallel_enabled,
+                           device=dev)
+            if final_layernorm else None)
 
     def forward(self, x, attention_mask=None, segment_ids=None):
         for layer in self.layers:
@@ -242,7 +268,8 @@ class ParallelTransformer(nn.Module):
 
 class Embedding(nn.Module):
     """Token embedding plus learned positions (RoPE models skip the
-    position table): ``[b, s]`` ids to ``[s, b, h]`` activations."""
+    position table): ``[b, s]`` ids to ``[s, b, h]`` activations, the
+    rank's ``[s / tp, b, h]`` block under sequence parallelism."""
 
     def __init__(self, hidden_size: int, vocab_size: int,
                  max_sequence_length: int, use_position_embedding: bool = True,
@@ -250,7 +277,7 @@ class Embedding(nn.Module):
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_common(sequence_parallel_enabled)
+        self.sequence_parallel_enabled = sequence_parallel_enabled
         dev = resolve_device(device)
         self.word_embeddings = VocabParallelEmbedding(
             vocab_size, hidden_size, dtype=params_dtype, device=dev,
@@ -269,7 +296,10 @@ class Embedding(nn.Module):
                                             device=input_ids.device)[None, :]
             emb = emb + self.position_embeddings[position_ids].to(emb.dtype)
         # [b, s, h] -> [s, b, h]; the norm kernel takes contiguous input
-        return emb.transpose(0, 1).contiguous()
+        x = emb.transpose(0, 1).contiguous()
+        if self.sequence_parallel_enabled:
+            x = scatter_to_sequence_parallel_region(x)
+        return x
 
 
 class TransformerLanguageModel(nn.Module):

@@ -183,6 +183,25 @@ ends the run with a non-zero exit and no result line:
      ``clip_grad_norm_`` + ``FusedSGD`` with their multi-tensor launches
      exact; then ``llama-1b`` (O2, bf16 moments) 1 + 6 steps at b 4, s 2048
      with exact launches a step (``mt_adam`` 1).
+   - *tensor-parallel training* (``phase3-train-tp``): the same
+     ``llama-1b`` step through ``examples/llama_pretrain.py``'s
+     ``build_model`` / ``train_step`` under an NCCL group of world 1
+     (``--tp 1``: a ``file://`` rendezvous in a temporary directory,
+     destroyed at the end): a second ``tp=None`` run of 1 + 3 steps held
+     against the training phase's (are two runs bit for bit?), then the
+     tp-1 run (the model built in the tp region from its slice of the
+     seeded init, the batch through ``tp_replicated_rows`` and
+     ``broadcast_data``, the gradients and loss averaged over the dp
+     group) held to the ``tp=None`` losses and every parameter bit for
+     bit, or within the two ``tp=None`` runs' spread; each step's
+     launches equal the ``tp=None`` step's; the mappings' collectives a
+     step counted; step wall p50 against ``tp=None``, idle share, peak
+     memory and the host time of the collectives and autograd applies
+     from one profiled step.  Then fp16 amp O2 under ``GradScaler`` in
+     the region, 1 + 4 steps, an inf written at step 2: that step keeps
+     every parameter, master and moment bit for bit and halves the scale,
+     with the dp average, the overflow all-reduce, the update and the
+     scaler's update under ``set_sync_debug_mode("error")``.
    - *amp*: a small fp32 Llama under ``amp.initialize(..., "O2",
      half_dtype=torch.float16)`` and the dynamic scaler, 4 steps card
      against CPU (loss, ``found_inf``, scaler state at every step; masters,
@@ -6924,6 +6943,8 @@ def small_optimizer_checks(device) -> dict:
 
 
 TRAIN_STEPS = 6        # timed steps after one warm-up (bench.py's llama-1b card)
+TP_TRAIN_STEPS = 3     # steps after one warm-up, tp 1 against tp=None
+TP_AMP_STEPS = 4       # amp steps under GradScaler after one warm-up
 
 
 def _step_flops(model, b: int, s: int) -> float:
@@ -6935,14 +6956,16 @@ def _step_flops(model, b: int, s: int) -> float:
     return float(per_token * b * s)
 
 
-def llama_1b_train(device) -> dict:
+def llama_1b_train(device, keep=None) -> dict:
     """Training: the ``llama-1b`` card, fp32 init from a seeded generator
     on the card, O2 cast (2-d parameters bf16, norm scales fp32),
     ``FusedAdam(lr=1e-3, state_dtype=bf16)``, one fixed batch b 4 x s 2048
     with labels the ids rolled by one; 1 warm-up step, then 6 timed steps
     with the launches of each step checked exactly; a falling, finite loss;
     step wall, tokens/s, MFU against 989 TFLOP/s, peak memory and a profile
-    of one step."""
+    of one step.  ``keep`` (a dict) receives the losses of the warm-up and
+    the first ``TP_TRAIN_STEPS`` steps and a host copy of every parameter
+    after them, the ``tp=None`` reference of :func:`llama_1b_train_tp`."""
     import torch
     from apex_tpu_torch.examples.llama_pretrain import o2_cast, train_step
     from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -6993,6 +7016,12 @@ def llama_1b_train(device) -> dict:
         if _nonzero(step) != per_step:
             raise AssertionError(f"training step {i} launched {step}, "
                                  f"expected {per_step}")
+        if keep is not None and i == TP_TRAIN_STEPS - 1:
+            # to the host: a device copy would take memory and allocations
+            # from the steps that follow
+            keep.update(losses=[loss0] + losses, per_step=per_step,
+                        params={n: p.detach().cpu()
+                                for n, p in model.named_parameters()})
     launches = {k.name: k.launches for k in _dispatch.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     if not all(map(math.isfinite, [loss0] + losses)) or not losses[-1] < loss0 \
@@ -7022,6 +7051,242 @@ def llama_1b_train(device) -> dict:
     out["profile"] = profile_train(model, opt, ids, med)
     del model, opt
     torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train_run(cfg, device, ids, per_step, group=None,
+                  dp_group=None) -> dict:
+    """1 warm-up + ``TP_TRAIN_STEPS`` steps of ``llama_pretrain.train_step``
+    on the O2 model of ``llama_pretrain.build_model`` (seed 0; the shard
+    inside ``group``'s region when given, with the gradients and loss
+    averaged over ``dp_group``), ``FusedAdam(lr=1e-3, state_dtype=bf16)``:
+    the losses, each step's wall, issue time, mappings' collectives and
+    launches (checked against ``per_step``), peak memory, a host copy of
+    every parameter after the steps, and the model and optimizer."""
+    import contextlib
+
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import (
+        build_model,
+        o2_cast,
+        train_step,
+    )
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        mappings,
+        tensor_parallel_region,
+    )
+
+    t0 = time.perf_counter()
+    model = o2_cast(build_model(cfg, device=device, seed=0, group=group))
+    opt = FusedAdam(model.parameters(), lr=1e-3, state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    region = (contextlib.nullcontext() if group is None
+              else tensor_parallel_region(group))
+    step_ms, issue_ms, losses, collectives = [], [], [], []
+    launches = {k.name: 0 for k in _dispatch.KERNELS}
+    with region:
+        losses.append(train_step(model, opt, ids, dp_group=dp_group))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TP_TRAIN_STEPS):
+            before = {k.name: k.launches for k in _dispatch.KERNELS}
+            calls0 = mappings.collective_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, ids, dp_group=dp_group))
+            issue_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            collectives.append(mappings.collective_calls() - calls0)
+            step = {k.name: k.launches - before[k.name]
+                    for k in _dispatch.KERNELS}
+            launches = {k: n + step[k] for k, n in launches.items()}
+            if _nonzero(step) != per_step:
+                form = "tp=None" if group is None else "tp 1"
+                raise AssertionError(f"{form} training step {i} launched "
+                                     f"{step}, expected {per_step}")
+    return dict(losses=[float(l) for l in losses], step_ms=step_ms,
+                step_ms_p50=statistics.median(step_ms), step_issue_ms=issue_ms,
+                collectives_per_step=collectives, init_s=init_s,
+                launches=launches,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                params={n: p.detach().cpu()
+                        for n, p in model.named_parameters()},
+                model=model, opt=opt)
+
+
+def _host_profile(step_fn, step_ms: float) -> dict:
+    """One call of ``step_fn`` under ``torch.profiler``: device busy time
+    and idle share against the unprofiled ``step_ms``, and the host's own
+    time in the collectives (NCCL and ``c10d`` rows) and in the tp
+    mappings' autograd applies, forward and backward."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    host = [e for e in rows if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    comm = re.compile(r"nccl|record_param_comms|c10d::", re.IGNORECASE)
+    apply = re.compile(r"\b_(Copy|Reduce|Gather|Scatter|SPScatter|SPGather|"
+                       r"SPReduceScatter)(Backward)?\b")
+
+    def host_ms(pattern):
+        hits = [e for e in host if pattern.search(e.key)]
+        return (sum(e.self_cpu_time_total for e in hits) / 1e3,
+                sum(e.count for e in hits))
+
+    comm_ms, comm_n = host_ms(comm)
+    apply_ms, apply_n = host_ms(apply)
+    return dict(
+        traced_wall_ms=traced_ms, unprofiled_step_ms=step_ms,
+        device_busy_ms=busy if kernels else "not measured",
+        device_idle_share_unprofiled=(1 - busy / step_ms) if kernels
+        else "not measured",
+        collectives_host_ms=comm_ms, collectives_host_rows=comm_n,
+        mapping_applies_host_ms=apply_ms, mapping_applies_host_rows=apply_n,
+        top_host_ops=[(e.key[:70], e.count, e.self_cpu_time_total / 1e3)
+                      for e in sorted(host, key=lambda e:
+                                      -e.self_cpu_time_total)[:10]])
+
+
+def llama_1b_train_tp(device, ref: dict, smi: str) -> dict:
+    """Phase ``phase3-train-tp`` (see the module docstring): ``ref`` is
+    what :func:`llama_1b_train` kept (``keep=``): the ``tp=None`` losses
+    of the warm-up and ``TP_TRAIN_STEPS`` steps, every parameter after
+    them and the launches a step.  The NCCL group of world 1 and its
+    rendezvous directory go however the phase ends."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+    from apex_tpu_torch.models import LlamaConfig
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        broadcast_data,
+        tensor_parallel_region,
+        tp_replicated_rows,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama_1b()
+    b, s = 4, 2048
+    batch = torch.randint(0, cfg.vocab_size, (b, s),
+                          generator=torch.Generator().manual_seed(8))
+    per_step = ref["per_step"]
+    out = dict(nvidia_smi=smi, config="llama-1b", batch=b, seq=s,
+               precision="O2: 2-d parameters bf16, norm scales fp32; "
+                         "FusedAdam(lr=1e-3, state_dtype=bf16)",
+               steps=f"1 warm-up + {TP_TRAIN_STEPS}")
+    rdv = tempfile.mkdtemp(prefix="tp_train_rdv_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(rdv, 'rendezvous')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        out["sizes"] = ps.initialize_model_parallel(1)
+        group, dp_group = (ps.get_tensor_model_parallel_group(),
+                           ps.get_data_parallel_group())
+        out["backend"] = str(dist.get_backend(group))
+        # ---- a second tp=None run against the training phase's ----------
+        none = _tp_train_run(cfg, device, batch.to(device), per_step)
+        del none["model"], none["opt"]
+        torch.cuda.empty_cache()
+        spread = {n: float((none["params"][n].float()
+                            - ref["params"][n].float()).abs().max())
+                  for n in ref["params"]}
+        none_equal = (none["losses"] == ref["losses"] and all(
+            torch.equal(none["params"][n], ref["params"][n])
+            for n in ref["params"]))
+        log("phase3-train-tp-determinism", tp_none_runs_bitwise_equal=none_equal,
+            losses_first_run=ref["losses"], losses_second_run=none["losses"],
+            max_param_spread=max(spread.values()))
+        # ---- tp 1: the model's shard, the batch's dp rows ----------------
+        ids = broadcast_data(["ids"], {"ids": tp_replicated_rows(batch)},
+                             torch.int64, group, device=device)["ids"]
+        tp1 = _tp_train_run(cfg, device, ids, per_step, group, dp_group)
+        if none_equal:
+            bad = [n for n in ref["params"]
+                   if not torch.equal(tp1["params"][n], ref["params"][n])]
+            if tp1["losses"] != ref["losses"] or bad:
+                raise AssertionError(
+                    f"tp 1 differs from tp=None (two tp=None runs were bit "
+                    f"for bit): losses {tp1['losses']} against "
+                    f"{ref['losses']}, parameters {bad[:5]}")
+            held = "bit for bit"
+        else:
+            bad = [n for n in ref["params"]
+                   if float((tp1["params"][n].float() - ref["params"][n]
+                             .float()).abs().max()) > spread[n]]
+            loss_spread = max(abs(a - c) for a, c in
+                              zip(none["losses"], ref["losses"]))
+            loss_err = max(abs(a - c) for a, c in
+                           zip(tp1["losses"], ref["losses"]))
+            if bad or loss_err > loss_spread:
+                raise AssertionError(
+                    f"tp 1 outside the two tp=None runs' spread: losses "
+                    f"{loss_err} > {loss_spread}, parameters {bad[:5]}")
+            held = "within the two tp=None runs' spread"
+        dp_reductions = len({p.grad.dtype for p in tp1["model"].parameters()
+                             if p.grad is not None}) + 1
+        with tensor_parallel_region(group):
+            prof = _host_profile(
+                lambda: train_step(tp1["model"], tp1["opt"], ids,
+                                   dp_group=dp_group), tp1["step_ms_p50"])
+        out["tp1_against_none"] = held
+        out["tp_none_runs_bitwise_equal"] = none_equal
+        out["max_param_spread_between_none_runs"] = max(spread.values())
+        out["losses"] = dict(tp_none_first=ref["losses"],
+                             tp_none_second=none["losses"],
+                             tp1=tp1["losses"])
+        out["launches_per_step"] = per_step
+        out["collectives_per_step"] = tp1["collectives_per_step"]
+        out["dp_all_reduces_per_step"] = dp_reductions
+        out["step_ms"] = dict(tp_none=none["step_ms"], tp1=tp1["step_ms"])
+        out["step_ms_p50"] = dict(tp_none=none["step_ms_p50"],
+                                  tp1=tp1["step_ms_p50"])
+        out["step_p50_ratio_tp1_to_none"] = (tp1["step_ms_p50"]
+                                             / none["step_ms_p50"])
+        out["step_issue_ms"] = dict(tp_none=none["step_issue_ms"],
+                                    tp1=tp1["step_issue_ms"])
+        out["peak_mem_bytes"] = dict(tp_none=none["peak_mem_bytes"],
+                                     tp1=tp1["peak_mem_bytes"])
+        out["init_s"] = dict(tp_none=none["init_s"], tp1=tp1["init_s"])
+        out["profile_tp1"] = prof
+        out["launches"] = tp1["launches"]
+        log("phase3-train-tp", **out)
+        del tp1, none
+        torch.cuda.empty_cache()
+        # ---- fp16 amp O2 under GradScaler in the region ------------------
+        amp_out = llama_1b_amp_train(device, "adam", group=group,
+                                     dp_group=dp_group, steps=TP_AMP_STEPS,
+                                     tag="phase3-train-tp-amp")
+        out["amp"] = amp_out
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-train-tp-done", phase_s=out["phase_s"])
     return out
 
 
@@ -7338,9 +7603,15 @@ class AmpTrainer:
     backward, optionally an inf written into one gradient, then
     ``found_inf``, the optimizer step with ``grad_scale`` and ``found_inf``
     and the scaler's update, those three on the card under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises)."""
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises).
 
-    def __init__(self, model, form: str):
+    With ``dp_group`` (a tensor-parallel model, stepped inside its region)
+    the scaler is ``transformer.amp.GradScaler`` (its overflow flag
+    all-reduced over the tp group) and the gradients are averaged over
+    ``dp_group`` first (``llama_pretrain.average_gradients``), both under
+    the same sync check."""
+
+    def __init__(self, model, form: str, dp_group=None):
         import torch
         from apex_tpu_torch import amp
         from apex_tpu_torch.optimizers import FusedAdagrad, FusedAdam
@@ -7351,6 +7622,11 @@ class AmpTrainer:
         self.model, self.form = model, form
         self.params = list(model.parameters())
         self.scaler, self.state = self.amped.scaler, self.amped.scaler_state
+        self.dp_group = dp_group
+        if dp_group is not None:
+            from apex_tpu_torch.transformer.amp import GradScaler
+
+            self.scaler = GradScaler.from_scaler(self.scaler)
         self.opt = None
         if form == "adam":
             self.opt = FusedAdam(self.params, lr=AMP_LR, master_weights=True)
@@ -7402,6 +7678,12 @@ class AmpTrainer:
         if cuda:
             torch.cuda.set_sync_debug_mode("error")
         try:
+            if self.dp_group is not None:
+                from apex_tpu_torch.examples.llama_pretrain import (
+                    average_gradients,
+                )
+
+                average_gradients(self.params, self.dp_group)
             found = self.scaler.has_overflow([p.grad for p in self.params])
             with torch.no_grad():
                 if self.opt is not None:
@@ -7522,19 +7804,31 @@ def small_amp_check(device) -> dict:
     return out
 
 
-def llama_1b_amp_train(device, form: str) -> dict:
+def llama_1b_amp_train(device, form: str, *, group=None, dp_group=None,
+                       steps: int = TRAIN_STEPS,
+                       tag: str = "phase3-amp") -> dict:
     """The ``llama-1b`` card at full width and depth in fp16 O2 under the
     dynamic scaler (``AmpTrainer``, one optimizer form), weights from a
     seeded generator on the card, one fixed batch b 4 x s 2048: 1 warm-up
-    step (it overflows at 2**16 on its own), then 6 timed steps with the
-    launches of each checked exactly; at timed step ``AMP_FORCED`` an inf
-    is written into one gradient: that step must leave every parameter,
-    master, optimizer state tensor and the step counter bit for bit, halve
-    the scale and leave ``unskipped``.  The loss after the applied steps
-    must end below the first one.  Step wall, host issue, steps skipped by
-    real overflows, peak memory and a traced step."""
+    step (it overflows at 2**16 on its own), then ``steps`` timed steps
+    with the launches of each checked exactly; at timed step
+    ``AMP_FORCED`` an inf is written into one gradient: that step must
+    leave every parameter, master, optimizer state tensor and the step
+    counter bit for bit, halve the scale and leave ``unskipped``.  The
+    loss after the applied steps must end below the first one.  Step
+    wall, host issue, steps skipped by real overflows, peak memory (over
+    the steps but the forced one, which holds a device copy of what it
+    must keep) and,
+    outside a tp group, a traced step.  With ``group`` (a tensor-parallel
+    group, ``dp_group`` its data-parallel one) the model is
+    ``llama_pretrain.build_model``'s shard, stepped inside the group's
+    region under ``GradScaler`` (``AmpTrainer(dp_group=)``); the batch
+    goes through ``tp_replicated_rows`` and ``broadcast_data``."""
+    import contextlib
+
     import torch
-    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.examples.llama_pretrain import build_model
+    from apex_tpu_torch.models import LlamaConfig
     from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
@@ -7542,16 +7836,31 @@ def llama_1b_amp_train(device, form: str) -> dict:
     from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.ops import packed_update as pu
 
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        broadcast_data,
+        tensor_parallel_region,
+        tp_replicated_rows,
+    )
+
     cfg = LlamaConfig.llama_1b()
-    gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
-    tr = AmpTrainer(LlamaForCausalLM(cfg, device=device, generator=gen), form)
+    tr = AmpTrainer(build_model(cfg, device=device, seed=0, group=group),
+                    form, dp_group=dp_group)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     b, s = 4, 2048
     ids = torch.randint(0, cfg.vocab_size, (b, s),
-                        generator=torch.Generator().manual_seed(8)).to(device)
+                        generator=torch.Generator().manual_seed(8))
+    if group is None:
+        ids = ids.to(device)
+    else:
+        ids = broadcast_data(["ids"], {"ids": tp_replicated_rows(ids)},
+                             torch.int64, group, device=device)["ids"]
     labels = torch.roll(ids, -1, dims=1)
+
+    def region():
+        return (contextlib.nullcontext() if group is None
+                else tensor_parallel_region(group))
     layers = cfg.num_hidden_layers
     per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
                 ln.LAYER_NORM_BWD.name: 2 * layers + 1,
@@ -7571,28 +7880,36 @@ def llama_1b_amp_train(device, form: str) -> dict:
         per_step[pu.PACKED_ADAM.name] = 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    warm = tr.step(ids, labels)                 # warm-up, not counted
+    with region():
+        warm = tr.step(ids, labels)             # warm-up, not counted
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
     _dispatch.reset_launches()
     step_ms, issue_ms, issue_cpu_ms, results = [], [], [], []
-    for i in range(TRAIN_STEPS):
+    peak_unforced = 0
+    for i in range(steps):
         before = {k.name: k.launches for k in _dispatch.KERNELS}
         forced = i == AMP_FORCED
         if forced:
-            snap = {k: t.detach().cpu() for k, t in tr.tensors().items()}
+            # a device copy of every tensor the step writes (a copy to the
+            # host took seconds); the peak leaves out the forced step,
+            # which holds it
+            peak_unforced = torch.cuda.max_memory_allocated()
+            snap = {k: t.detach().clone() for k, t in tr.tensors().items()}
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.process_time()
-        results.append(tr.step(ids, labels, force_inf=forced))
+        with region():
+            results.append(tr.step(ids, labels, force_inf=forced))
         issue_ms.append((time.perf_counter() - t0) * 1e3)
         issue_cpu_ms.append((time.process_time() - c0) * 1e3)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if forced:
             changed = [k for k, t in tr.tensors().items()
-                       if not torch.equal(t.detach().cpu(), snap[k])]
+                       if not torch.equal(t.detach(), snap[k])]
             del snap
+            torch.cuda.reset_peak_memory_stats()
             if changed:
                 raise AssertionError(f"amp {form}: the forced overflow step "
                                      f"changed {changed[:5]}")
@@ -7601,7 +7918,7 @@ def llama_1b_amp_train(device, form: str) -> dict:
             raise AssertionError(f"amp {form} step {i} launched {step}, "
                                  f"expected {per_step}")
     launches = {k.name: k.launches for k in _dispatch.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_unforced, torch.cuda.max_memory_allocated())
     # read on the host only now, after the run
     loss0, found0 = float(warm[0]), bool(warm[1])
     losses = [float(l) for l, _, _ in results]
@@ -7644,9 +7961,13 @@ def llama_1b_amp_train(device, form: str) -> dict:
                tokens_per_s=b * s / (med / 1e3), peak_mem_bytes=peak,
                mt_table_bytes=mt_table_bytes(),
                launches=launches, launches_per_step=per_step)
-    log(f"phase3-amp-{form}", **out)
-    out["profile"] = _profile(lambda: tr.step(ids, labels), med)
-    log(f"phase3-amp-{form}-profile", **out["profile"])
+    if group is not None:
+        out["scaler"] = type(tr.scaler).__name__
+        out["backend"] = str(torch.distributed.get_backend(group))
+    log(f"{tag}-{form}", **out)
+    if group is None:
+        out["profile"] = _profile(lambda: tr.step(ids, labels), med)
+        log(f"{tag}-{form}-profile", **out["profile"])
     del tr, ids, labels, warm, results
     torch.cuda.empty_cache()
     return out
@@ -8508,7 +8829,11 @@ def main() -> int:
     int8 = llama_1b_int8(device, qmodel, int8_ref)
     del qmodel
     torch.cuda.empty_cache()
-    training = llama_1b_train(device)
+    train_ref = {}
+    training = llama_1b_train(device, keep=train_ref)
+    training_tp = llama_1b_train_tp(device, train_ref, smi)
+    train_ref.clear()
+    torch.cuda.empty_cache()
     amp_paths = {f"amp_{form}": llama_1b_amp_train(device, form)
                  for form in ("adam", "adagrad", "packed_adam")}
     gpt_kernel = gpt2_large_train(device, "kernel")
@@ -8532,6 +8857,7 @@ def main() -> int:
                  serving_shadow=e2e["shadow"], serving_fleet=e2e["fleet"],
                  serving_rollout=e2e["rollout"],
                  serving_int8=int8, evaluation=evaluation, training=training,
+                 training_tp=training_tp, training_tp_amp=training_tp["amp"],
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)
 
@@ -8656,7 +8982,7 @@ def main() -> int:
                   llama_1b_int8=int8, eval_reference=eval_reference,
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
-                  serving_tp=serving_tp,
+                  serving_tp=serving_tp, training_tp=training_tp,
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,

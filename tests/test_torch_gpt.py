@@ -163,15 +163,35 @@ def test_unported_options_raise():
         tlm.ParallelAttention(8, 2, context_parallel_axis="cp", device="cpu")
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tlm.ParallelTransformerLayer(8, 2, moe_num_experts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        GPTModel(sequence_parallel_enabled=True, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpointing"):
         GPTModel(activations_checkpoint=True, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpointing"):
         GPTModel(activations_checkpoint_policy="dots", device="cpu")
+    # sequence parallelism is ported: at world 1 (outside a tp region) it
+    # is the model without it, the logits bit for bit and the loss (the
+    # vocab-parallel cross entropy in place of the fused head) at 1e-5;
+    # tests/test_torch_tp_training.py holds it at tp 2 against JAX
+    cfg = dict(num_layers=1, hidden_size=16, num_attention_heads=2,
+               vocab_size=32, max_sequence_length=8, device="cpu")
+    base = GPTModel(**cfg, generator=torch.Generator().manual_seed(0))
+    sp = GPTModel(**cfg, sequence_parallel_enabled=True)
+    sp.load_state_dict(base.state_dict())
+    ids = torch.randint(0, 32, (2, 8), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        assert torch.equal(sp(ids), base(ids))
+        torch.testing.assert_close(sp(ids, labels=ids), base(ids, labels=ids),
+                                   rtol=0, atol=1e-5)
     from apex_tpu_torch.transformer.layers import FusedLayerNorm
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        FusedLayerNorm(8, sequence_parallel_enabled=True, device="cpu")
+    ln = FusedLayerNorm(8, device="cpu")
+    ln_sp = FusedLayerNorm(8, sequence_parallel_enabled=True, device="cpu")
+    with torch.no_grad():
+        ln.scale.uniform_(0.5, 1.5)
+        ln_sp.scale.copy_(ln.scale)
+    x = torch.randn(3, 8, generator=torch.Generator().manual_seed(2))
+    ln(x).square().sum().backward()
+    ln_sp(x).square().sum().backward()
+    assert torch.equal(ln.scale.grad, ln_sp.scale.grad)
+    assert torch.equal(ln.bias.grad, ln_sp.bias.grad)
 
 
 def test_rope_model_matches_jax(monkeypatch):

@@ -71,7 +71,11 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.tensor_parallel.cross_entropy, "
         "apex_tpu_torch.transformer.tensor_parallel.utils, "
         "apex_tpu_torch.transformer.testing.distributed, "
-        "apex_tpu_torch.resilience.elastic\n"
+        "apex_tpu_torch.resilience.elastic, "
+        "apex_tpu_torch.transformer.tensor_parallel.random, "
+        "apex_tpu_torch.transformer.tensor_parallel.data, "
+        "apex_tpu_torch.transformer.tensor_parallel.memory, "
+        "apex_tpu_torch.transformer.amp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
