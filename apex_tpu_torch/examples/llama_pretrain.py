@@ -1,10 +1,12 @@
-"""Llama pretraining driver: the counterpart of the 2-d ``dp x tp`` path of
-``examples/llama/pretrain.py``.
+"""Llama pretraining driver: the counterpart of ``examples/llama/pretrain.py``,
+its 2-d ``dp x tp`` path and its 3-d ``dp x pp x tp`` one (``--pp``).
 
     python -m apex_tpu_torch.examples.llama_pretrain [--layers 4] [--steps 10]
     python -m apex_tpu_torch.examples.llama_pretrain --device cpu
     torchrun --nproc-per-node 4 -m apex_tpu_torch.examples.llama_pretrain \\
         --device cpu --tp 2
+    torchrun --nproc-per-node 8 -m apex_tpu_torch.examples.llama_pretrain \\
+        --device cpu --tp 2 --pp 2 --micro-batch 2
 
 Synthetic next-token data: one fixed seeded batch, labels the ids rolled
 by one, so the loss falls by memorisation (the JAX driver asserts the
@@ -26,11 +28,25 @@ seeded init (:func:`build_model`), so every tp size trains the same
 model.  Each rank takes its dp rows of the one fixed batch
 (``tp_replicated_rows``), broadcast from its tp group's first rank
 (``broadcast_data``); after the backward the gradients and the loss are
-averaged over the dp group (:func:`average_gradients`, the JAX step's
-``pmean``), and FusedAdam updates the rank's shards.  Under ``--amp`` the
+averaged over the dp group (``tensor_parallel.all_reduce_gradients``
+and ``pipeline_parallel.utils.average_losses_across_data_parallel_group``,
+the JAX step's ``pmean``), and FusedAdam updates the rank's shards.  Under ``--amp`` the
 loss scaler is :class:`~apex_tpu_torch.transformer.amp.GradScaler`, whose
-overflow flag is shared by the tp group.  Pipeline parallelism (``--pp``
-> 1) raises: it comes with the port's ``pipeline_parallel``.
+overflow flag is shared by the tp group.
+
+**Pipeline parallelism** (``--pp N``, N > 1, exactly where the JAX driver
+takes its ``main_3d``): ``initialize_model_parallel(tp, N)`` cuts the
+world into dp x pp x tp in the JAX mesh's rank order (``--tp`` unset
+means 1), the decoder is cut into N stages of ``--layers / N`` layers
+(:mod:`apex_tpu_torch.models.llama_pipeline`, each stage its slice of the
+same seeded init), and each step is
+:func:`~apex_tpu_torch.models.llama_pipeline.make_llama_3d_train_step`
+over the 1F1B schedule: ``--n-micro`` microbatches of ``--micro-batch``
+rows a dp rank, so the global batch is ``micro-batch x dp x n-micro``
+(``--batch`` with ``--pp`` raises).  Sequence parallelism is on when tp >
+1, with the sequence-parallel gradients summed over tp (the JAX step
+leaves them partial).  ``--o2`` and ``--amp`` apply to the stages as to
+the 2-d model.
 
 On the card the flash attention kernels take head dims 32, 64 and 128,
 so the JAX trainer's defaults (hidden 128 over 4 heads, head dim 32) run
@@ -41,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import math
 import os
 from typing import Optional, Sequence
@@ -57,16 +74,20 @@ from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.amp import GradScaler
+from apex_tpu_torch.transformer.pipeline_parallel.utils import (
+    average_losses_across_data_parallel_group,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
+    all_reduce_gradients,
     broadcast_data,
     tensor_parallel_region,
     tp_replicated_rows,
 )
 
-__all__ = ["o2_cast", "build_model", "average_gradients", "train_step",
-           "amp_train_step", "main"]
+__all__ = ["o2_cast", "build_model", "train_step", "amp_train_step", "main"]
 
-_RECIPE = ("--tp needs one process a rank under torch.distributed: start it "
+_RECIPE = ("--tp and --pp need one process a rank under torch.distributed: "
+           "start it "
            "with torchrun, e.g. `torchrun --nproc-per-node 4 -m "
            "apex_tpu_torch.examples.llama_pretrain --device cpu --tp 2` "
            "(gloo on the CPU; NCCL with --device cuda, one card a process), "
@@ -109,30 +130,13 @@ def _params(opt: torch.optim.Optimizer) -> list:
     return [p for g in opt.param_groups for p in g["params"]]
 
 
-def average_gradients(params, group) -> None:
-    """Each gradient summed over ``group`` and divided by its size, in
-    place (the JAX step's ``pmean`` over ``dp``; gloo has no average):
-    one all-reduce a dtype, over the gradients of that dtype flattened."""
-    world = dist.get_world_size(group)
-    by_dtype = {}
-    for p in params:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = torch._utils._flatten_dense_tensors(grads)
-        dist.all_reduce(flat, group=group)
-        if world > 1:
-            flat.div_(world)
-        for g, f in zip(grads, torch._utils._unflatten_dense_tensors(
-                flat, grads)):
-            g.copy_(f)
-
-
-def _mean_over(loss: torch.Tensor, group) -> torch.Tensor:
-    out = loss.detach().reshape(1).clone()
-    dist.all_reduce(out, group=group)
-    world = dist.get_world_size(group)
-    return (out / world if world > 1 else out)[0]
+def _average_over_dp(params, loss, group) -> torch.Tensor:
+    """The gradients of ``params`` averaged over ``group`` in place (one
+    all-reduce a dtype) and the mean of ``loss`` over it: the JAX step's
+    ``pmean`` over ``dp``."""
+    all_reduce_gradients([p.grad for p in params if p.grad is not None],
+                         group, average=True)
+    return average_losses_across_data_parallel_group([loss], group)[0]
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
@@ -148,8 +152,7 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     loss.backward()
     loss = loss.detach()
     if dp_group is not None:
-        average_gradients(_params(opt), dp_group)
-        loss = _mean_over(loss, dp_group)
+        loss = _average_over_dp(_params(opt), loss, dp_group)
     opt.step()
     return loss
 
@@ -169,8 +172,7 @@ def amp_train_step(amped: amp.AmpState, opt: torch.optim.Optimizer,
     loss = loss.detach()
     params = _params(opt)
     if dp_group is not None:
-        average_gradients(params, dp_group)
-        loss = _mean_over(loss, dp_group)
+        loss = _average_over_dp(params, loss, dp_group)
     found_inf = scaler.has_overflow([p.grad for p in params])
     opt.step(grad_scale=state.scale, found_inf=found_inf)
     return loss, found_inf, scaler.update(state, found_inf)
@@ -188,15 +190,18 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ffn", type=int, default=352)
     ap.add_argument("--vocab", type=int, default=512)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--batch", type=int, default=8,
-                    help="global batch; a multiple of dp = world / tp")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (2-d path; default 8), a multiple of "
+                         "dp = world / tp.  With --pp > 1 the global batch "
+                         "is micro-batch * dp * n-micro: passing --batch "
+                         "there is an error")
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor parallel size: one process a rank under "
                          "torch.distributed (torchrun); unset, one process "
                          "at dp = tp = 1")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages; only 1 (pipeline_parallel is not "
-                         "ported yet)")
+                    help="pipeline stages; > 1 uses the 1F1B schedule over a "
+                         "dp x pp x tp world (one process a rank)")
     ap.add_argument("--micro-batch", type=int, default=2,
                     help="per-rank microbatch (pp > 1 only)")
     ap.add_argument("--n-micro", type=int, default=4,
@@ -240,14 +245,27 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     """Train ``--steps`` steps and return the last loss; raises unless it
     is finite and below the first."""
     args = _parser().parse_args(argv)
-    if args.pp > 1:
-        raise NotImplementedError(
-            f"--pp {args.pp}: pipeline parallelism comes with the port's "
-            f"pipeline_parallel (NCCL point-to-point between stages); this "
-            f"driver runs dp x tp")
     if args.o2 and args.amp:
         raise ValueError("--o2 (bf16) and --amp (fp16) are two precisions; "
                          "give one")
+    if args.pp > 1:
+        if args.batch is not None:
+            raise ValueError(
+                "--batch applies to the 2-d path only; with --pp the global "
+                "batch is --micro-batch * dp * --n-micro")
+        if args.layers % args.pp:
+            raise ValueError(f"--layers {args.layers} must divide by --pp "
+                             f"{args.pp}")
+        with _process_group(args.device):
+            device = resolve_device(args.device)
+            parallel_state.check_group_device(None, device)
+            parallel_state.initialize_model_parallel(args.tp or 1, args.pp)
+            try:
+                return _train_3d(args, device)
+            finally:
+                parallel_state.destroy_model_parallel()
+    if args.batch is None:
+        args.batch = 8
     if args.tp is None:
         return _train(args, resolve_device(args.device), None)
     with _process_group(args.device):
@@ -261,12 +279,89 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
             parallel_state.destroy_model_parallel()
 
 
-def _train(args, device: torch.device, group) -> float:
-    cfg = LlamaConfig(
+def _config(args) -> LlamaConfig:
+    return LlamaConfig(
         vocab_size=args.vocab, hidden_size=args.hidden,
         intermediate_size=args.ffn, num_hidden_layers=args.layers,
         num_attention_heads=args.heads, num_key_value_heads=args.kv_heads,
         max_position_embeddings=args.seq)
+
+
+def _report(losses_fn, steps: int, speak: bool, label: str) -> float:
+    """Run ``steps`` steps (``losses_fn()`` one step's loss), print every
+    other, and raise unless the last loss is finite and below the
+    first."""
+    first = last = None
+    for it in range(steps):
+        last = float(losses_fn())
+        first = last if first is None else first
+        if speak and (it % 2 == 0 or it == steps - 1):
+            print(f"step {it:3d}  loss {last:.4f}  {label}", flush=True)
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    if speak:
+        print(f"llama pretrain OK: {label.rsplit(' device', 1)[0]}, loss "
+              f"{first:.4f} -> {last:.4f}")
+    return last
+
+
+def _train_3d(args, device: torch.device) -> float:
+    """The port of the JAX driver's ``main_3d``: the 1F1B step of
+    :func:`make_llama_3d_train_step` on this rank's stage."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models.llama_pipeline import (
+        LlamaPipeConfig,
+        make_llama_3d_train_step,
+    )
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_pipelining_1f1b,
+    )
+
+    cfg = _config(args)
+    sizes = parallel_state.mesh_axis_sizes()
+    dp, pp, tp = sizes["dp"], sizes["pp"], sizes["tp"]
+    validate_tp_divisibility(cfg, tp)
+    pcfg = LlamaPipeConfig(config=cfg, layers_per_stage=args.layers // pp,
+                           sequence_parallel_enabled=tp > 1)
+    kw, scaler = {}, None
+    if args.amp:
+        policy = get_policy("O2", half_dtype=torch.float16)
+        scaler = GradScaler.from_scaler(policy.make_scaler())
+        kw = dict(cast=policy.cast_params, grad_scaler=scaler)
+        opt = functools.partial(FusedAdam, lr=args.lr, master_weights=True)
+    elif args.o2:
+        kw = dict(cast=o2_cast)
+        opt = functools.partial(FusedAdam, lr=args.lr,
+                                state_dtype=torch.bfloat16)
+    else:
+        opt = functools.partial(FusedAdam, lr=args.lr)
+    init_fn, train_step = make_llama_3d_train_step(
+        pcfg, opt, forward_backward_pipelining_1f1b, device=device, **kw)
+    spec, optimizer = init_fn(args.seed)
+    rng = np.random.default_rng(args.seed)
+    ids = rng.integers(0, args.vocab,
+                       (args.n_micro, args.micro_batch * dp, args.seq))
+    rows = slice(parallel_state.get_data_parallel_rank() * args.micro_batch,
+                 (parallel_state.get_data_parallel_rank() + 1)
+                 * args.micro_batch)
+    batches = {"ids": torch.from_numpy(ids[:, rows]).to(device),
+               "labels": torch.from_numpy(
+                   np.roll(ids, -1, axis=-1)[:, rows]).to(device)}
+    state = scaler.init(device) if scaler is not None else None
+
+    def step():
+        nonlocal state
+        if scaler is None:
+            return train_step(spec, optimizer, batches)
+        loss, _, state = train_step(spec, optimizer, batches, state)
+        return loss
+
+    return _report(step, args.steps, dist.get_rank() == 0,
+                   f"dp={dp} pp={pp} tp={tp} device={device.type}")
+
+
+def _train(args, device: torch.device, group) -> float:
+    cfg = _config(args)
     dp, tp, dp_group = 1, 1, None
     if group is not None:
         dp = parallel_state.get_data_parallel_world_size()
@@ -304,23 +399,12 @@ def _train(args, device: torch.device, group) -> float:
         def step():
             return train_step(model, opt, ids, dp_group=dp_group)
 
-    first = last = None
     speak = group is None or dist.get_rank() == 0
     region = (tensor_parallel_region(group) if group is not None
               else contextlib.nullcontext())
     with region:
-        for it in range(args.steps):
-            last = float(step())
-            first = last if first is None else first
-            if speak and (it % 2 == 0 or it == args.steps - 1):
-                print(f"step {it:3d}  loss {last:.4f}  dp={dp} tp={tp} "
-                      f"device={device.type}", flush=True)
-    if not (math.isfinite(last) and last < first):
-        raise AssertionError(f"loss did not fall: {first} -> {last}")
-    if speak:
-        print(f"llama pretrain OK: dp={dp} tp={tp}, loss {first:.4f} -> "
-              f"{last:.4f}")
-    return last
+        return _report(step, args.steps, speak,
+                       f"dp={dp} tp={tp} device={device.type}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,24 @@
 """Model families of the port (counterpart of ``apex_tpu.models``):
-:mod:`~apex_tpu_torch.models.llama` for serving, and
-:mod:`~apex_tpu_torch.models.convert` to carry flax weights over (Llama,
-and the GPT of :mod:`apex_tpu_torch.transformer.testing`)."""
+:mod:`~apex_tpu_torch.models.llama` for serving and training,
+:mod:`~apex_tpu_torch.models.llama_pipeline` for its pipeline-parallel
+stages, and :mod:`~apex_tpu_torch.models.convert` to carry flax weights
+over (Llama, its pipeline stages, and the GPT of
+:mod:`apex_tpu_torch.transformer.testing`)."""
 
 from apex_tpu_torch.models.convert import (
     gpt_params_from_jax,
     llama_params_from_jax,
+    llama_pipeline_params_from_jax,
 )
 from apex_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from apex_tpu_torch.models.llama_pipeline import (
+    LlamaPipeConfig,
+    build_llama_pipeline,
+    init_llama_pipeline_params,
+    make_llama_3d_train_step,
+)
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "gpt_params_from_jax",
-           "llama_params_from_jax"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipeConfig",
+           "build_llama_pipeline", "init_llama_pipeline_params",
+           "make_llama_3d_train_step", "gpt_params_from_jax",
+           "llama_params_from_jax", "llama_pipeline_params_from_jax"]

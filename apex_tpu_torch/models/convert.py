@@ -51,6 +51,16 @@ model ``quantize_params(LlamaForCausalLM(config))``, so a checkpoint
 quantized in JAX serves in the port.  The leaf is recognised by its
 fields; this module imports nothing of JAX.
 
+A pipeline stage (:mod:`apex_tpu_torch.models.llama_pipeline`):
+:func:`llama_pipeline_params_from_jax` takes one (pp, tp) rank's JAX tree
+``{"embed", "block", "head"}`` (already that rank's tp shard) and fills
+that rank's stage: ``block/layers_i/...`` as ``stage.layers.i....`` (the
+kernels transposed as above), ``embed/embed_tokens/embedding`` as
+``first.embed_tokens.weight`` on the first stage, ``head/norm/scale`` and
+``head/lm_head`` as ``last.norm.scale`` and ``last.lm_head`` on the last
+(both ``[vocab / tp, h]``).  The JAX tree holds the embedding and head on
+every stage; the other stages leave them.
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -69,7 +79,8 @@ import torch
 from apex_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
-           "load_jax_optimizer_state", "shard_state_dict"]
+           "llama_pipeline_params_from_jax", "load_jax_optimizer_state",
+           "shard_state_dict"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -163,6 +174,29 @@ def llama_params_from_jax(tree: Mapping, config: LlamaConfig, *,
 
     validate_tp_divisibility(config, tp_size)
     return shard_state_dict(state, tp_rank, tp_size)
+
+
+def llama_pipeline_params_from_jax(tree: Mapping, pcfg, *, pp_rank: int,
+                                   pp_size: int) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for stage ``pp_rank`` of ``pp_size`` of
+    ``build_llama_pipeline(pcfg)`` from one (pp, tp) rank's JAX tree (see
+    the module docstring)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(pcfg.config,
+                              num_hidden_layers=pcfg.layers_per_stage)
+    block = {path: (f"stage.{key}", t)
+             for path, (key, t) in _expected(cfg).items()
+             if path.startswith("layers_")}
+    state = _convert(tree["block"], block, f"Llama stage block ({cfg})")
+    if pp_rank == 0:
+        state.update(_convert(tree["embed"], {"embed_tokens/embedding": (
+            "first.embed_tokens.weight", False)}, "Llama stage embedding"))
+    if pp_rank == pp_size - 1:
+        state.update(_convert(tree["head"], {
+            "norm/scale": ("last.norm.scale", False),
+            "lm_head": ("last.lm_head", False)}, "Llama stage head"))
+    return state
 
 
 def shard_state_dict(state: Mapping[str, torch.Tensor], rank: int,

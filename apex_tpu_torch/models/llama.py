@@ -57,8 +57,12 @@ their output, so the norms and residuals run on the rank's ``[s / tp, b,
 h]`` block; the logits all-gather it back, and the loss is always the
 vocab-parallel one.  The norms are the JAX model's
 :class:`~apex_tpu_torch.normalization.FusedRMSNorm`, with no reduction
-over the group: under sequence parallelism each rank's norm-scale
-gradient covers its own block of the tokens, as JAX's does.
+over the group in the backward: each rank's norm-scale gradient covers
+its own block of the tokens, as JAX's does.  Under sequence parallelism
+the scales carry ``sequence_parallel = True``, and a trainer sums their
+gradients over the group with
+:func:`~apex_tpu_torch.transformer.tensor_parallel.allreduce_sequence_parallel_grads`
+after the backward (the JAX package leaves them partial).
 
 The uncached modes are differentiable: under autograd each norm, the
 flash attention and the fused LM head run their backward kernels on the
@@ -197,6 +201,16 @@ def validate_tp_divisibility(config: "LlamaConfig", tp: int) -> None:
                 f"tensor-parallel shard must be equal-sized (heads, kv "
                 f"heads, vocab rows, and MLP intermediate columns are "
                 f"the sharded dimensions)")
+
+
+def mark_sequence_parallel(*modules: nn.Module) -> None:
+    """Tag the parameters of ``modules`` (norms run on a rank's sequence
+    block) ``sequence_parallel = True``: their gradients are per-rank
+    partial sums until
+    :func:`~apex_tpu_torch.transformer.tensor_parallel.allreduce_sequence_parallel_grads`."""
+    for m in modules:
+        for p in m.parameters():
+            p.sequence_parallel = True
 
 
 def _rope_freqs(s: int, dim: int, theta: float, offset=0, *,
@@ -379,6 +393,9 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = FusedRMSNorm(
             c.hidden_size, eps=c.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(c, **sp, **kw)
+        if sequence_parallel_enabled:
+            mark_sequence_parallel(self.input_layernorm,
+                                   self.post_attention_layernorm)
 
     def forward(self, x, freqs, **cache_kw):
         x = x + self.self_attn(self.input_layernorm(x), freqs, **cache_kw)
@@ -413,6 +430,8 @@ class LlamaForCausalLM(nn.Module):
             for _ in range(config.num_hidden_layers))
         self.norm = FusedRMSNorm(config.hidden_size, eps=config.rms_norm_eps,
                                  **kw)
+        if sequence_parallel_enabled:
+            mark_sequence_parallel(self.norm)
         if not config.tie_word_embeddings:
             # vocab-sharded like the embedding ([vocab / tp, h] a rank)
             self.lm_head = nn.Parameter(normal_(

@@ -12,6 +12,8 @@ from apex_tpu_torch.transformer.tensor_parallel.data import (
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
+    all_reduce_gradients,
+    allreduce_sequence_parallel_grads,
     RowParallelLinear,
     VocabParallelEmbedding,
     parallel_lm_logits,
@@ -50,6 +52,8 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import (
 __all__ = [
     "vocab_parallel_cross_entropy",
     "ColumnParallelLinear",
+    "allreduce_sequence_parallel_grads",
+    "all_reduce_gradients",
     "parallel_lm_logits",
     "shard_init",
     "tp_world_size",

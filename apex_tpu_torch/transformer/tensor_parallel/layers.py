@@ -28,6 +28,16 @@ in / tp]``, its bias whole, added after the reduction); the embedding's
 - the embedding masks the ids outside its vocab range, looks the rest up
   and all-reduces (above world size 1).
 
+**Sequence-parallel gradients.**  Under sequence parallelism a rank sees
+``s / tp`` of the tokens, so a replicated parameter used on that block
+gets only its rank's part of the gradient: a row layer's bias (added
+after the reduce-scatter) here, and the Llama RMSNorm scales.  Such a
+parameter carries Megatron's ``sequence_parallel = True`` attribute, and
+:func:`allreduce_sequence_parallel_grads` sums their gradients over the
+tp group after the backward, so every rank holds the whole one.  The JAX
+package leaves them partial (``layers.py:214``); the port's trainers make
+the call (a deliberate difference).
+
 The projections are plain ``torch.matmul``, as the JAX package leaves
 them to XLA.  Fresh weights are drawn from an explicit
 ``torch.Generator``: ``normal(0, 1/sqrt(in))`` for the linears (the
@@ -64,7 +74,8 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import (
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "parallel_lm_logits", "normal_",
-           "maybe_axis_index", "shard_init", "tp_world_size"]
+           "maybe_axis_index", "shard_init", "tp_world_size",
+           "allreduce_sequence_parallel_grads", "all_reduce_gradients"]
 
 # odd 64-bit constant folded with the rank (the golden-ratio increment)
 _FOLD = 0x9E3779B97F4A7C15
@@ -200,6 +211,9 @@ class RowParallelLinear(_Linear):
                 "To enable `sequence_parallel_enabled`, "
                 "`input_is_parallel` must be `True`")
         self.input_is_parallel = input_is_parallel
+        if self.bias is not None and self.sequence_parallel_enabled:
+            # added whole to each rank's sequence block: partial gradients
+            self.bias.sequence_parallel = True
 
     def _forward_with(self, x, weight):
         world = _region_world(self)
@@ -265,3 +279,41 @@ def parallel_lm_logits(hidden, word_embeddings, group=None,
     if gather_output:
         logits = gather_from_tensor_model_parallel_region(logits, group)
     return logits
+
+
+def allreduce_sequence_parallel_grads(module, group=None) -> None:
+    """Sum over ``group`` (the bound or ``parallel_state``'s tp group by
+    default) the gradients of the parameters tagged ``sequence_parallel``
+    (see the module docstring), in place: one all-reduce a dtype, over
+    those gradients flattened.  ``module`` is an ``nn.Module`` or an
+    iterable of parameters.  Nothing is called when no tagged parameter
+    has a gradient."""
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+        current_tp_group,
+    )
+
+    params = (module.parameters() if isinstance(module, nn.Module)
+              else module)
+    grads = [p.grad for p in params
+             if getattr(p, "sequence_parallel", False) and p.grad is not None]
+    if grads:
+        all_reduce_gradients(
+            grads, current_tp_group() if group is None else group)
+
+
+def all_reduce_gradients(grads, group, *, average: bool = False) -> None:
+    """Sum ``grads`` over ``group`` in place, or with ``average`` divide
+    the sums by the group's size (gloo has no average): one all-reduce a
+    dtype, over the gradients of that dtype flattened."""
+    world = torch.distributed.get_world_size(group)
+    by_dtype = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch._utils._flatten_dense_tensors(same)
+        torch.distributed.all_reduce(flat, group=group)
+        if average and world > 1:
+            flat.div_(world)
+        for g, f in zip(same, torch._utils._unflatten_dense_tensors(
+                flat, same)):
+            g.copy_(f)

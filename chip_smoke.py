@@ -202,6 +202,28 @@ ends the run with a non-zero exit and no result line:
      every parameter, master and moment bit for bit and halves the scale,
      with the dp average, the overflow all-reduce, the update and the
      scaler's update under ``set_sync_debug_mode("error")``.
+   - *pipeline-parallel training* (``phase3-train-pp``): the same
+     ``llama-1b`` model and batch (4 microbatches of 1 x 2048, row by
+     row) through ``models.llama_pipeline.make_llama_3d_train_step``
+     (``o2_cast`` on the stage, ``FusedAdam(state_dtype=bf16)``) at dp 1
+     x pp 1 x tp 1 under an NCCL group of world 1, 1 + 3 steps with the
+     1F1B schedule called directly, again, and with
+     ``get_forward_backward_func(None, 1)`` (``no_pipelining``): exact
+     launches a step (the 1F1B forward tick and its backward tick's
+     recompute each run the stage: 2 x 45 x 4 norm forwards), no
+     point-to-point call, the two 1F1B runs bit for bit, ``no_pipelining``
+     within ``PP_LOSS_TOL`` (its warm-up loss within
+     ``PP_WARMUP_LOSS_TOL``) while ``no_pipelining`` with microbatch 0's
+     gradient dropped is not, the warm-up loss within
+     ``PP_HEAD_LOSS_TOL`` of ``LlamaForCausalLM``'s (the training
+     phase's) while the same head's product in bf16 is not, peak memory at 2 and 4 microbatches within
+     ``PP_PEAK_TOL``; the ``torch.distributed`` calls, mapping
+     collectives and walls of each step (beside the 2-d ``tp=None``
+     step's, in this call), idle share and the top host rows of one
+     profiled step; then fp16 amp under ``GradScaler``, 1 + 2 steps, an
+     inf written after the schedule at the last, which runs whole under
+     ``set_sync_debug_mode("error")``: every parameter, master and
+     moment keeps its bits and the scale halves.
    - *amp*: a small fp32 Llama under ``amp.initialize(..., "O2",
      half_dtype=torch.float16)`` and the dynamic scaler, 4 steps card
      against CPU (loss, ``found_inf``, scaler state at every step; masters,
@@ -390,8 +412,9 @@ def check_layer_norm(device) -> float:
     for rms in (False, True):
         for xdt, wdt in (("bfloat16", "bfloat16"), ("float32", "float32"),
                          ("bfloat16", "float32")):
-            # a decode step over 8 slots, a prefill chunk, an eval forward
-            for n in (8, 512, 8192):
+            # a decode step over 8 slots, a prefill chunk, one pipeline
+            # microbatch (1 x 2048), an eval forward
+            for n in (8, 512, 2048, 8192):
                 cases.append((rms, xdt, True, False, wdt, n, 2048, 0, True))
     # the LayerNorms of the other paths, bf16 with a bf16 weight and bias:
     # OpenFold's pair (z, h 128) and MSA (m, h 256) rows, several to a warp,
@@ -500,6 +523,8 @@ def time_layer_norm(device):
 _DTYPES = ("float32", "bfloat16", "float16")
 # the main path's shapes: llama-1b, b 4, s 2048 (8,192 tokens)
 FLASH_MAIN = dict(b=4, h=32, hk=8, s=2048, d=64)
+# the pipeline phase's: one microbatch of 1 x 2048 at llama-1b
+FLASH_PP = dict(FLASH_MAIN, b=1)
 # GPT-2-large's flagship attention (bench.py:81-84): b 8, 20 heads of 64,
 # s 1024, no GQA
 FLASH_GPT = dict(b=8, h=20, hk=20, s=1024, d=64)
@@ -565,8 +590,9 @@ def check_flash_attention(device) -> dict:
     """The flash forward kernel on the card against its plain version over
     dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
     ragged lengths, GQA, segment ids with fully-masked rows, dropout, the
-    main path's shape and GPT-2-large's flagship shape, and a repeated call
-    at the main shape equal bit for bit; returns the main shape's errors."""
+    main path's shape, the pipeline microbatch's (b 1) and GPT-2-large's
+    flagship shape, and a repeated call at the main shape equal bit for
+    bit; returns the main shape's errors."""
     import torch
     from apex_tpu_torch.ops import flash_attention as fa
 
@@ -587,6 +613,8 @@ def check_flash_attention(device) -> dict:
                       sq=100, sk=260, seg="packed", rate=0.1, seed=99))
     cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
                       sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    cases.append(dict(FLASH_PP, dtype="bfloat16", causal=True,
+                      sq=FLASH_PP["s"], sk=FLASH_PP["s"]))
     cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
                       sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
     g = torch.Generator(device=device).manual_seed(11)
@@ -982,7 +1010,8 @@ def check_layer_norm_bwd(device) -> dict:
     rows split over 2, 4 and 8 warps (h 1280, 2048, 8192), the last h the
     register form takes and the first past it (bf16 and fp32), n below the
     rows in flight and n = 1; the paths' shapes (``NORM_BWD_SHAPES``), the
-    Llama-1B one (n 8192, h 2048, x bf16, scale fp32) the main; and the same
+    Llama-1B one (n 8192, h 2048, x bf16, scale fp32) the main, and the
+    pipeline microbatch's (n 2048) at those dtypes; and the same
     bits over 50 launches at the Llama-1B and OpenFold z shapes.  Returns
     the main shape's errors."""
     import torch
@@ -1031,6 +1060,9 @@ def check_layer_norm_bwd(device) -> dict:
     for xdt, wdt in (("bfloat16", "bfloat16"), ("float32", "float32")):
         for n in (512, 8192):
             cases.append((True, xdt, True, False, wdt, False, n, 2048, 0, False))
+    # one pipeline microbatch (1 x 2048) at Llama-1B: x bf16, scale fp32
+    cases.append((True, "bfloat16", True, False, "float32", False, 2048, 2048,
+                  0, False))
     g = torch.Generator(device=device).manual_seed(21)
     worst = {"dx": 0.0, "dw": 0.0, "db": 0.0}
     forms = {}
@@ -1200,7 +1232,8 @@ def check_flash_attention_bwd(device) -> dict:
     the same (q, k, v, o, lse, do), over the forward check's variants
     (dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
     ragged lengths, GQA, segment ids with fully-masked rows, dropout), the
-    main path's shape and GPT-2-large's flagship shape, with q, k, v and do
+    main path's shape, the pipeline microbatch's (b 1) and GPT-2-large's
+    flagship shape, with q, k, v and do
     in the model's layout, and a repeated call at the main shape equal bit
     for bit; returns the main shape's errors."""
     import torch
@@ -1222,6 +1255,8 @@ def check_flash_attention_bwd(device) -> dict:
                       sq=100, sk=260, seg="packed", rate=0.1, seed=99))
     cases.append(dict(FLASH_MAIN, dtype="bfloat16", causal=True,
                       sq=FLASH_MAIN["s"], sk=FLASH_MAIN["s"], main=True))
+    cases.append(dict(FLASH_PP, dtype="bfloat16", causal=True,
+                      sq=FLASH_PP["s"], sk=FLASH_PP["s"]))
     cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
                       sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
     g = torch.Generator(device=device).manual_seed(22)
@@ -7290,6 +7325,457 @@ def llama_1b_train_tp(device, ref: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3: pipeline-parallel training (make_llama_3d_train_step at pp 1)
+# ---------------------------------------------------------------------------
+
+PP_STEPS = 3            # steps after one warm-up, each schedule
+PP_N_MICRO = 4          # microbatches of 1 x 2048: the training phase's b 4
+# 1F1B against no_pipelining: the same microbatches, gradients summed in
+# bf16 (1F1B, the parameters' dtype) against fp32 (no_pipelining); the
+# warm-up loss is computed before any update.  On an H100 at 700 W the
+# sound runs differ by at most 1.6e-3 over steps 1-3, and no_pipelining
+# with microbatch 0's gradient dropped by 0.071 at step 1 (1.13 at step 3)
+PP_WARMUP_LOSS_TOL = 1e-5
+PP_LOSS_TOL = 1e-2
+# the pipeline's vocab-parallel loss (fp32 logits) against
+# LlamaForCausalLM's fused head on the same weights and batch (b 1 calls
+# against one b 4 call): 1.9e-6 there (2 ulp of the loss), and 1.1e-5
+# with the head's product in bf16
+PP_HEAD_LOSS_TOL = 5e-6
+PP_PEAK_TOL = 0.05      # peak memory at n_micro 2 against 4, relative
+PP_AMP_STEPS = 2        # amp steps after one warm-up; an inf at the last
+
+
+class _DistCalls:
+    """Counts the ``torch.distributed`` collectives and point-to-point
+    batches issued inside the block (each is one NCCL call under an NCCL
+    group), by patching the module's functions and restoring them."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "broadcast", "barrier",
+             "batch_isend_irecv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = {}
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def counted(*a, **k):
+                self.counts[name] = self.counts.get(name, 0) + 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    @property
+    def total(self) -> int:
+        return sum(self.counts.values())
+
+
+def _pp_run(pcfg, device, batches, schedule, per_step, *, steps=PP_STEPS):
+    """``init_fn(0)`` and 1 warm-up + ``steps`` steps of
+    ``make_llama_3d_train_step(pcfg, FusedAdam(lr=1e-3, state_dtype=bf16),
+    schedule, cast=o2_cast)``: losses, each step's wall, issue time,
+    launches (checked against ``per_step``), mappings' collectives,
+    point-to-point batches and ``torch.distributed`` calls, peak memory,
+    a host copy of every parameter after the steps, and what the step
+    needs again (``spec``, ``opt``, ``train_step``)."""
+    import functools
+
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.models import make_llama_3d_train_step
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p,
+    )
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    t0 = time.perf_counter()
+    init_fn, train_step = make_llama_3d_train_step(
+        pcfg, functools.partial(FusedAdam, lr=1e-3,
+                                state_dtype=torch.bfloat16),
+        schedule, device=device, cast=o2_cast)
+    spec, opt = init_fn(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses = [train_step(spec, opt, batches)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, issue_ms, collectives, p2p_calls, dist_calls = [], [], [], [], []
+    launches = {k.name: 0 for k in _dispatch.KERNELS}
+    for i in range(steps):
+        before = {k.name: k.launches for k in _dispatch.KERNELS}
+        calls0, p0 = mappings.collective_calls(), p2p.p2p_calls()
+        torch.cuda.synchronize()
+        with _DistCalls() as dc:
+            t0 = time.perf_counter()
+            losses.append(train_step(spec, opt, batches))
+            issue_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        collectives.append(mappings.collective_calls() - calls0)
+        p2p_calls.append(p2p.p2p_calls() - p0)
+        dist_calls.append(dict(dc.counts, total=dc.total))
+        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
+        launches = {k: n + step[k] for k, n in launches.items()}
+        if _nonzero(step) != per_step:
+            raise AssertionError(f"{schedule.__name__} step {i} launched "
+                                 f"{step}, expected {per_step}")
+    return dict(losses=[float(l) for l in losses], step_ms=step_ms,
+                step_ms_p50=statistics.median(step_ms), step_issue_ms=issue_ms,
+                mapping_collectives_per_step=collectives,
+                p2p_calls_per_step=p2p_calls,
+                dist_calls_per_step=dist_calls, init_s=init_s,
+                launches=launches,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                params={n: p.detach().to("cpu", copy=True)
+                        for n, p in spec.named_parameters()},
+                spec=spec, opt=opt, train_step=train_step)
+
+
+def _drop_first_microbatch(schedule):
+    """``schedule`` with microbatch 0's gradient dropped (its loss still
+    counted, by a forward-only call): the off-by-one of a wrong
+    accumulation, whose losses the loss gate must refuse."""
+
+    def dropped(spec, batches, **kw):
+        n = batches["ids"].shape[0]
+        first = {k: v[:1] for k, v in batches.items()}
+        rest = {k: v[1:] for k, v in batches.items()}
+        loss0, _ = schedule(spec, first, forward_only=True, **kw)
+        loss, grads = schedule(spec, rest, **kw)
+        return (loss0 + (n - 1) * loss) / n, grads
+
+    return dropped
+
+
+def _pp_head_readings(pcfg, device, batches) -> dict:
+    """The mean loss of the stage on the seeded init, before any update,
+    with its head two ways: as the configuration runs it
+    (``parallel_lm_logits``: the final norm's output and ``lm_head`` up
+    to fp32, fp32 logits) and with the same product in bf16 (both
+    operands bf16, the logits rounded to bf16), the loss in fp32 both
+    times: what the head gate reads of a head computed in bf16."""
+    import functools
+
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.models import make_llama_3d_train_step
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        parallel_lm_logits,
+        tensor_parallel_region,
+        vocab_parallel_cross_entropy,
+    )
+
+    init_fn, _ = make_llama_3d_train_step(
+        pcfg, functools.partial(FusedAdam, lr=1e-3,
+                                state_dtype=torch.bfloat16),
+        None, device=device, cast=o2_cast)
+    spec, _ = init_fn(0)
+    head = spec.last
+    sums = {"fp32": 0.0, "bf16": 0.0}
+    n = batches["ids"].shape[0]
+    with torch.no_grad(), tensor_parallel_region(
+            ps.get_tensor_model_parallel_group()):
+        for i in range(n):
+            mb = {k: v[i] for k, v in batches.items()}
+            y = head.norm(spec.stage(spec.first(mb)))
+            for key, logits in (
+                    ("fp32", parallel_lm_logits(y, head.lm_head)),
+                    ("bf16", torch.matmul(y.bfloat16(),
+                                          head.lm_head.bfloat16().t()))):
+                sums[key] += float(vocab_parallel_cross_entropy(
+                    logits.float().transpose(0, 1), mb["labels"]).mean())
+    del spec, head
+    return {k: v / n for k, v in sums.items()}
+
+
+def _pp_amp(pcfg, device, batches) -> dict:
+    """fp16 amp O2 (the O2 policy's cast on the stage modules, fp32
+    masters) under ``GradScaler``: 1 warm-up + ``PP_AMP_STEPS`` steps of
+    the 1F1B 3-d step, an inf written into one gradient after the
+    schedule at the last step, which runs under
+    ``set_sync_debug_mode("error")``: every parameter, master and moment
+    keeps its bits and the scale halves."""
+    import functools
+
+    import torch
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import make_llama_3d_train_step
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.amp import GradScaler
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_pipelining_1f1b,
+    )
+
+    poison = [False]
+
+    def poisoned(spec, batches, **kw):
+        res = forward_backward_pipelining_1f1b(spec, batches, **kw)
+        if poison[0]:
+            # a fill: an indexed store of a host scalar copies it over
+            next(iter(spec.parameters())).grad.view(-1)[:1].fill_(
+                float("inf"))
+        return res
+
+    policy = get_policy("O2", half_dtype=torch.float16)
+    scaler = GradScaler.from_scaler(policy.make_scaler())
+    init_fn, train_step = make_llama_3d_train_step(
+        pcfg, functools.partial(FusedAdam, lr=AMP_LR, master_weights=True),
+        poisoned, device=device, cast=policy.cast_params, grad_scaler=scaler)
+    spec, opt = init_fn(0)
+    state = scaler.init(device)
+    results, step_ms = [], []
+    for i in range(PP_AMP_STEPS + 1):
+        forced = i == PP_AMP_STEPS
+        if forced:
+            params = spec.parameters()
+            snap = [p.detach().clone() for p in params] + [
+                t.detach().clone() for p in params
+                for t in opt.state[p].values()]
+            poison[0] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if forced:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, found, state = train_step(spec, opt, batches, state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        results.append((loss, found, state))
+    after = [p.detach() for p in params] + [
+        t.detach() for p in params for t in opt.state[p].values()]
+    kept = all(torch.equal(a, b) for a, b in zip(after, snap))
+    del snap
+    losses = [float(l) for l, _, _ in results]
+    founds = [bool(f) for _, f, _ in results]
+    scales = [float(s.scale) for _, _, s in results]
+    halved = scales[-1] == max(scales[-2] / 2, 1.0)
+    out = dict(precision="amp O2 fp16 (norm scales fp32), fp32 masters, "
+                         "GradScaler from 2**16",
+               losses=losses, found_inf=founds, scales=scales,
+               forced_step=PP_AMP_STEPS, forced_kept_every_bit=kept,
+               forced_halved_scale=halved, step_ms=step_ms,
+               sync_check="set_sync_debug_mode('error') over the whole "
+                          "forced step")
+    log("phase3-train-pp-amp", **out)
+    if not (kept and halved and founds[-1]):
+        raise AssertionError(f"pp amp: the forced overflow step kept every "
+                             f"bit {kept}, halved the scale {halved} "
+                             f"({scales}), found {founds}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"pp amp losses {losses}")
+    del spec, opt
+    return out
+
+
+def llama_1b_train_pp(device, ref: dict, smi: str) -> dict:
+    """Phase ``phase3-train-pp`` (see the module docstring): ``ref`` is
+    what :func:`llama_1b_train` kept (its warm-up loss is
+    ``LlamaForCausalLM``'s on the same weights and batch).  The NCCL
+    group of world 1 and its rendezvous directory go however the phase
+    ends."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.models import LlamaConfig, LlamaPipeConfig
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_pipelining_1f1b,
+        get_forward_backward_func,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama_1b()
+    b, s = PP_N_MICRO, 2048
+    batch = torch.randint(0, cfg.vocab_size, (b, s),
+                          generator=torch.Generator().manual_seed(8))
+    # microbatch i is row i of the training phase's batch
+    batches = {"ids": batch[:, None].to(device),
+               "labels": torch.roll(batch, -1, dims=1)[:, None].to(device)}
+    layers = cfg.num_hidden_layers
+    n = PP_N_MICRO
+    # the 1F1B forward tick runs the stage under no_grad, and its backward
+    # tick runs it again with grad before the backward
+    per_1f1b = {ln.LAYER_NORM_FWD.name: 2 * (2 * layers + 1) * n,
+                ln.LAYER_NORM_BWD.name: (2 * layers + 1) * n,
+                fa.FLASH_ATTENTION_FWD.name: 2 * layers * n,
+                fa.FLASH_ATTENTION_DQ.name: layers * n,
+                fa.FLASH_ATTENTION_DKV.name: layers * n,
+                mt.MT_ADAM.name: 1}
+    per_none = dict(per_1f1b, **{ln.LAYER_NORM_FWD.name: (2 * layers + 1) * n,
+                                 fa.FLASH_ATTENTION_FWD.name: layers * n})
+    # microbatch 0 forward only, the other three forward and backward
+    per_dropped = dict(per_none, **{
+        k.name: per_none[k.name] * (n - 1) // n
+        for k in (ln.LAYER_NORM_BWD, fa.FLASH_ATTENTION_DQ,
+                  fa.FLASH_ATTENTION_DKV)})
+    pcfg = LlamaPipeConfig(config=cfg, layers_per_stage=layers,
+                           sequence_parallel_enabled=False)
+    out = dict(nvidia_smi=smi, config="llama-1b", n_micro=n, micro_batch=1,
+               seq=s, precision="O2: 2-d parameters bf16, norm scales fp32; "
+                                 "FusedAdam(lr=1e-3, state_dtype=bf16)",
+               steps=f"1 warm-up + {PP_STEPS}", world="dp 1 x pp 1 x tp 1")
+    rdv = tempfile.mkdtemp(prefix="pp_train_rdv_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(rdv, 'rendezvous')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        out["sizes"] = ps.initialize_model_parallel(1, 1)
+        out["backend"] = str(dist.get_backend(
+            ps.get_pipeline_model_parallel_group()))
+        none_fn = get_forward_backward_func(None, 1)
+        runs = {}
+        for key, fn, per in (("1f1b", forward_backward_pipelining_1f1b,
+                              per_1f1b),
+                             ("1f1b_again", forward_backward_pipelining_1f1b,
+                              per_1f1b),
+                             ("no_pipelining", none_fn, per_none),
+                             ("dropped_microbatch",
+                              _drop_first_microbatch(none_fn), per_dropped)):
+            run = _pp_run(pcfg, device, batches, fn, per)
+            if key == "1f1b":
+                # one more step traced, and its torch.distributed calls
+                with _DistCalls() as dc:
+                    prof = _host_profile(
+                        lambda: run["train_step"](run["spec"], run["opt"],
+                                                  batches),
+                        run["step_ms_p50"])
+            if key == "1f1b_again":
+                # peak memory of one more step at 2 microbatches, then 4
+                for m in (2, 4):
+                    half = {k: v[:m] for k, v in batches.items()}
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    run["train_step"](run["spec"], run["opt"], half)
+                    torch.cuda.synchronize()
+                    run[f"peak_n_micro_{m}"] = torch.cuda.max_memory_allocated()
+            del run["spec"], run["opt"], run["train_step"]
+            runs[key] = run
+            torch.cuda.empty_cache()
+        one, two, none = runs["1f1b"], runs["1f1b_again"], runs["no_pipelining"]
+        # the wrong accumulation's reading: what the loss gate must refuse
+        wrong = runs.pop("dropped_microbatch")
+        wrong_loss_err = [abs(a - c) for a, c in zip(one["losses"],
+                                                       wrong["losses"])]
+        del wrong["params"]
+        bitwise = one["losses"] == two["losses"] and all(
+            torch.equal(one["params"][k], two["params"][k])
+            for k in one["params"])
+        loss_err = [abs(a - c) for a, c in zip(one["losses"],
+                                                 none["losses"])]
+        param_err = max(float((one["params"][k].float()
+                               - none["params"][k].float()).abs().max())
+                        for k in one["params"])
+        head_err = abs(one["losses"][0] - ref["losses"][0])
+        heads = _pp_head_readings(pcfg, device, batches)
+        head_err_bf16 = abs(heads["bf16"] - ref["losses"][0])
+        torch.cuda.empty_cache()
+        peak2, peak4 = two["peak_n_micro_2"], two["peak_n_micro_4"]
+        peak_rel = abs(peak4 - peak2) / peak4
+        # the 2-d tp=None step in this call, for its wall
+        ids = batch.to(device)
+        plain = _tp_train_run(cfg, device, ids, ref["per_step"])
+        del plain["model"], plain["opt"], plain["params"]
+        torch.cuda.empty_cache()
+        out.update(
+            losses={k: r["losses"] for k, r in runs.items()},
+            losses_llama_for_causal_lm=ref["losses"],
+            runs_1f1b_bitwise_equal=bitwise,
+            loss_err_1f1b_vs_no_pipelining=loss_err,
+            max_param_err_1f1b_vs_no_pipelining=param_err,
+            losses_dropped_microbatch=wrong["losses"],
+            loss_err_1f1b_vs_dropped_microbatch=wrong_loss_err,
+            warmup_loss_err_vs_llama_for_causal_lm=head_err,
+            warmup_loss_head_readings=heads,
+            warmup_loss_err_bf16_head_vs_llama_for_causal_lm=head_err_bf16,
+            tolerances=dict(warmup_loss=PP_WARMUP_LOSS_TOL, loss=PP_LOSS_TOL,
+                            head_loss=PP_HEAD_LOSS_TOL, peak=PP_PEAK_TOL),
+            launches_per_step={"1f1b": per_1f1b, "no_pipelining": per_none},
+            launches={k: r["launches"] for k, r in runs.items()},
+            p2p_calls_per_step={k: r["p2p_calls_per_step"]
+                                for k, r in runs.items()},
+            mapping_collectives_per_step={
+                k: r["mapping_collectives_per_step"] for k, r in runs.items()},
+            dist_calls_per_step={k: r["dist_calls_per_step"]
+                                 for k, r in runs.items()},
+            dist_calls_profiled_step=dict(dc.counts, total=dc.total),
+            step_ms={k: r["step_ms"] for k, r in runs.items()},
+            step_ms_p50=dict(one_f1b=one["step_ms_p50"],
+                             one_f1b_again=two["step_ms_p50"],
+                             no_pipelining=none["step_ms_p50"],
+                             tp_none=plain["step_ms_p50"]),
+            step_p50_ratio_1f1b_to_tp_none=(one["step_ms_p50"]
+                                            / plain["step_ms_p50"]),
+            step_issue_ms={k: r["step_issue_ms"] for k, r in runs.items()},
+            peak_mem_bytes=dict({k: r["peak_mem_bytes"]
+                                 for k, r in runs.items()},
+                                tp_none=plain["peak_mem_bytes"],
+                                n_micro_2=peak2, n_micro_4=peak4),
+            peak_rel_diff_n_micro_2_vs_4=peak_rel,
+            init_s={k: r["init_s"] for k, r in runs.items()},
+            profile_1f1b=prof)
+        log("phase3-train-pp", **out)
+        falling = all(r["losses"][-1] < r["losses"][0]
+                      and all(map(math.isfinite, r["losses"]))
+                      for r in runs.values())
+        bad = []
+        if not falling:
+            bad.append("losses not finite and falling")
+        if not bitwise:
+            bad.append("two 1F1B runs differ")
+        if loss_err[0] > PP_WARMUP_LOSS_TOL or max(loss_err) > PP_LOSS_TOL:
+            bad.append(f"1F1B vs no_pipelining losses {loss_err}")
+        if head_err > PP_HEAD_LOSS_TOL:
+            bad.append(f"warm-up loss vs LlamaForCausalLM {head_err}")
+        # each gate refuses the fault it is set against
+        if max(wrong_loss_err) <= PP_LOSS_TOL:
+            bad.append(f"the loss gate passes a dropped microbatch "
+                       f"{wrong_loss_err}")
+        if head_err_bf16 <= PP_HEAD_LOSS_TOL:
+            bad.append(f"the head gate passes a bf16 head {head_err_bf16}")
+        if any(c for r in runs.values() for c in r["p2p_calls_per_step"]):
+            bad.append("point-to-point calls at pp 1")
+        if peak_rel >= PP_PEAK_TOL:
+            bad.append(f"peak memory n_micro 2 {peak2} vs 4 {peak4}")
+        if bad:
+            raise AssertionError("phase3-train-pp: " + "; ".join(bad))
+        for r in runs.values():
+            del r["params"]
+        out["amp"] = _pp_amp(pcfg, device, batches)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-train-pp-done", phase_s=out["phase_s"])
+    return out
+
+
 def _nonzero(counts: dict) -> dict:
     """The kernels that launched, with their counts."""
     return {k: n for k, n in counts.items() if n}
@@ -7608,7 +8094,7 @@ class AmpTrainer:
     With ``dp_group`` (a tensor-parallel model, stepped inside its region)
     the scaler is ``transformer.amp.GradScaler`` (its overflow flag
     all-reduced over the tp group) and the gradients are averaged over
-    ``dp_group`` first (``llama_pretrain.average_gradients``), both under
+    ``dp_group`` first (``tensor_parallel.all_reduce_gradients``), both under
     the same sync check."""
 
     def __init__(self, model, form: str, dp_group=None):
@@ -7679,11 +8165,13 @@ class AmpTrainer:
             torch.cuda.set_sync_debug_mode("error")
         try:
             if self.dp_group is not None:
-                from apex_tpu_torch.examples.llama_pretrain import (
-                    average_gradients,
+                from apex_tpu_torch.transformer.tensor_parallel import (
+                    all_reduce_gradients,
                 )
 
-                average_gradients(self.params, self.dp_group)
+                all_reduce_gradients(
+                    [p.grad for p in self.params if p.grad is not None],
+                    self.dp_group, average=True)
             found = self.scaler.has_overflow([p.grad for p in self.params])
             with torch.no_grad():
                 if self.opt is not None:
@@ -8832,6 +9320,7 @@ def main() -> int:
     train_ref = {}
     training = llama_1b_train(device, keep=train_ref)
     training_tp = llama_1b_train_tp(device, train_ref, smi)
+    training_pp = llama_1b_train_pp(device, train_ref, smi)
     train_ref.clear()
     torch.cuda.empty_cache()
     amp_paths = {f"amp_{form}": llama_1b_amp_train(device, form)
@@ -8858,6 +9347,10 @@ def main() -> int:
                  serving_rollout=e2e["rollout"],
                  serving_int8=int8, evaluation=evaluation, training=training,
                  training_tp=training_tp, training_tp_amp=training_tp["amp"],
+                 training_pp_1f1b=dict(launches=training_pp["launches"][
+                     "1f1b"]),
+                 training_pp_no_pipelining=dict(launches=training_pp[
+                     "launches"]["no_pipelining"]),
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)
 
@@ -8983,6 +9476,7 @@ def main() -> int:
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
                   serving_tp=serving_tp, training_tp=training_tp,
+                  training_pp=training_pp,
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,

@@ -349,20 +349,16 @@ def test_pretrain_driver_on_cpu_loss_falls(capsys):
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
 def test_pretrain_driver_refuses_model_parallelism(flag, monkeypatch):
-    """``--tp`` with no ``torch.distributed`` world (none started, no
-    torchrun environment) raises with the torchrun recipe: it never falls
-    back to one process (``tests/test_torch_tp_training.py`` trains it in
-    a world).  ``--pp`` raises: pipeline parallelism is not ported."""
+    """``--tp`` or ``--pp`` with no ``torch.distributed`` world (none
+    started, no torchrun environment) raises with the torchrun recipe: it
+    never falls back to one process (``tests/test_torch_tp_training.py``
+    and ``tests/test_torch_pipeline_llama.py`` train them in worlds)."""
     from apex_tpu_torch.examples import llama_pretrain
 
     for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
-    if flag == "--tp":
-        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
-            llama_pretrain.main(["--device", "cpu", flag, "2"])
-    else:
-        with pytest.raises(NotImplementedError, match="pipeline_parallel"):
-            llama_pretrain.main(["--device", "cpu", flag, "2"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
+        llama_pretrain.main(["--device", "cpu", flag, "2"])
 
 
 # ---------------------------------------------------------------------------

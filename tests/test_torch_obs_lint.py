@@ -137,6 +137,30 @@ def test_metrics_registered_elsewhere_wait_for_their_slices(port_regs,
     assert not ported & set().union(*WAITING.values())
 
 
+def test_pipeline_timers_publish_into_the_bridge_gauge():
+    """The pipeline timers (``transformer/pipeline_parallel/_timers.py``,
+    ported with the pipeline slice) register no metric of their own in
+    either package: ``publish_metrics`` sets the bridge's
+    ``apex_timer_seconds`` series, region by region."""
+    from apex_tpu_torch.obs import REGISTRY as TREG
+    from apex_tpu_torch.obs.bridge import TIMER_SECONDS
+    from apex_tpu_torch.transformer.pipeline_parallel._timers import Timers
+
+    for pkg in ("apex_tpu", "apex_tpu_torch"):
+        path = ROOT / pkg / "transformer" / "pipeline_parallel" / "_timers.py"
+        text = path.read_text()
+        assert check_metrics.collect_from_source(
+            text, os.path.relpath(path, ROOT)) == []
+        assert "TIMER_SECONDS.set(" in text
+    timers = Timers("cpu")
+    with timers("lint-probe").timing():
+        pass
+    snap = timers.publish_metrics()
+    assert TREG.get("apex_timer_seconds") is TIMER_SECONDS
+    assert TIMER_SECONDS.value(region="lint-probe") == snap[
+        "lint-probe"]["total_s"]
+
+
 def _emits(package):
     out = []
     for path, rel in _sources(package):

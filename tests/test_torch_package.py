@@ -75,7 +75,15 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.tensor_parallel.random, "
         "apex_tpu_torch.transformer.tensor_parallel.data, "
         "apex_tpu_torch.transformer.tensor_parallel.memory, "
-        "apex_tpu_torch.transformer.amp\n"
+        "apex_tpu_torch.transformer.amp, "
+        "apex_tpu_torch.transformer.microbatches, "
+        "apex_tpu_torch.transformer._data, "
+        "apex_tpu_torch.transformer.pipeline_parallel, "
+        "apex_tpu_torch.transformer.pipeline_parallel.schedules, "
+        "apex_tpu_torch.transformer.pipeline_parallel.p2p_communication, "
+        "apex_tpu_torch.transformer.pipeline_parallel.utils, "
+        "apex_tpu_torch.transformer.pipeline_parallel._timers, "
+        "apex_tpu_torch.models.llama_pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -132,6 +140,22 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         simple.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LossScaler().init()
+    from apex_tpu_torch.models import (
+        LlamaPipeConfig,
+        build_llama_pipeline,
+        init_llama_pipeline_params,
+    )
+    from apex_tpu_torch.transformer.pipeline_parallel.utils import (
+        report_memory,
+    )
+
+    pcfg = LlamaPipeConfig(cfg, layers_per_stage=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_llama_pipeline(pcfg, pp_rank=0, pp_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_llama_pipeline_params(pcfg, pp_rank=0, pp_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        report_memory("probe")
 
 
 # every kernel of the port, module by module: (name, the JAX file:function

@@ -70,8 +70,14 @@ def _tp4_world(rank, world, inp):
     # ---- parallel state ------------------------------------------------
     with pytest.raises(RuntimeError, match="not divisible"):
         tps.initialize_model_parallel(3)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tps.initialize_model_parallel(2, 2)
+    with pytest.raises(RuntimeError, match="greater than 1"):
+        tps.initialize_model_parallel(2, 1, 2)
+    # pp 2 x tp 2: the JAX mesh's rank order, pipeline stage rank // 2
+    out["pp2"] = (tps.initialize_model_parallel(2, 2),
+                  tps.get_pipeline_model_parallel_rank(),
+                  tps.get_tensor_model_parallel_rank(),
+                  tps.is_pipeline_first_stage(), tps.is_pipeline_last_stage())
+    tps.destroy_model_parallel()
     assert not tps.model_parallel_is_initialized()
     out["sizes"] = tps.initialize_model_parallel(TP)
     out["state"] = (tps.get_tensor_model_parallel_world_size(),
@@ -239,6 +245,8 @@ def _ranks(port, key, i=None):
 
 def test_parallel_state(port):
     for rank, r in enumerate(port):
+        assert r["pp2"] == ({"dp": 1, "pp": 2, "tp": 2}, rank // 2,
+                            rank % 2, rank < 2, rank >= 2)
         assert r["sizes"] == {"dp": 1, "pp": 1, "tp": TP}
         st = r["state"]
         assert st[:8] == (TP, 1, 1, TP, rank, 0, 0, True)

@@ -133,6 +133,9 @@ def _tp2_world(rank, world, gpt_tree, llama_tree):
             gpt = GPTModel(**GCFG, sequence_parallel_enabled=sp, device="cpu")
             gpt.load_state_dict(state)
             out[f"gpt_sp{int(sp)}"] = _loss_and_grads(gpt, gids, glabels)
+    # the repair: the tagged gradients summed over the group
+    ttp.allreduce_sequence_parallel_grads(gpt, group)
+    out["gpt_sp1_repaired"] = _np_grads(gpt)
     cfg = LlamaConfig(**SP_CFG)
     with ttp.tensor_parallel_region(group):
         llama = LlamaForCausalLM(cfg, device="cpu",
@@ -140,6 +143,13 @@ def _tp2_world(rank, world, gpt_tree, llama_tree):
         llama.load_state_dict(llama_params_from_jax(
             llama_tree, cfg, tp_rank=rank, tp_size=2))
         out["llama_sp1"] = _loss_and_grads(llama, lids, llabels)
+    ttp.allreduce_sequence_parallel_grads(llama, group)
+    out["llama_sp1_repaired"] = _np_grads(llama)
+    out["tagged"] = sorted(
+        [f"llama.{n}" for n, p in llama.named_parameters()
+         if getattr(p, "sequence_parallel", False)]
+        + [f"gpt.{n}" for n, p in gpt.named_parameters()
+           if getattr(p, "sequence_parallel", False)])
     return out
 
 
@@ -411,7 +421,11 @@ def test_sp_replicated_grads_partial_in_the_reference(jx, tp2):
     reduce-scatter).  Their sum over the ranks is the whole model's
     gradient at world 1, and no rank holds it alone; the GPT LayerNorm
     parameters, passed through ``copy_to_tensor_model_parallel_region``,
-    hold it on every rank."""
+    hold it on every rank.  The port tags exactly those parameters
+    ``sequence_parallel``, and after its
+    ``allreduce_sequence_parallel_grads`` every rank holds the world-1
+    gradient of each (a deliberate difference from JAX), the rest
+    untouched."""
     cfg = LlamaConfig(**SP_CFG)
     whole = LlamaForCausalLM(cfg, device="cpu")
     whole.load_state_dict(llama_params_from_jax(jx.sp_llama_tree, cfg))
@@ -441,6 +455,21 @@ def test_sp_replicated_grads_partial_in_the_reference(jx, tp2):
             np.testing.assert_allclose(
                 tp2[r]["gpt_sp1"][1][n], gfull[n], rtol=1e-4,
                 atol=1e-4 * np.abs(gfull[n]).max(), err_msg=n)
+
+    # the port's repair: every rank holds the world-1 gradient
+    assert tp2[0]["tagged"] == tp2[1]["tagged"] == sorted(
+        [f"llama.{n}" for n in norms] + [f"gpt.{n}" for n in row_bias])
+    for key, names, ref in (("llama_sp1", norms, full),
+                            ("gpt_sp1", row_bias, gfull)):
+        for r in (0, 1):
+            fixed = tp2[r][f"{key}_repaired"]
+            for n in names:
+                np.testing.assert_allclose(
+                    fixed[n], ref[n], rtol=1e-4,
+                    atol=1e-4 * np.abs(ref[n]).max(), err_msg=f"{key} {n}")
+            for n, g in tp2[r][key][1].items():
+                if n not in names:
+                    np.testing.assert_array_equal(fixed[n], g, err_msg=n)
 
 
 def test_gpt_converter_slices_each_rank():
