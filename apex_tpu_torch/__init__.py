@@ -38,7 +38,11 @@ weights and the capturable ``step(grad_scale=, found_inf=)`` in every
 fused optimizer, and :class:`~apex_tpu_torch.optimizers.FusedAdagrad`,
 with the packed Adam and Adagrad kernels of
 :mod:`~apex_tpu_torch.ops.packed_update`
-(:mod:`~apex_tpu_torch.examples.simple` drives the amp flow).
+(:mod:`~apex_tpu_torch.examples.simple` drives the amp flow); and data
+parallelism: :mod:`~apex_tpu_torch.parallel` (``DistributedDataParallel``,
+``SyncBatchNorm``, ``LARC``) and the ZeRO-2 optimizers of
+:mod:`~apex_tpu_torch.contrib.optimizers`, with the ImageNet ResNet
+trainer (:mod:`~apex_tpu_torch.examples.imagenet_main`).
 """
 
 __version__ = "0.1.0"

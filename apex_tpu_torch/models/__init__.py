@@ -2,13 +2,15 @@
 :mod:`~apex_tpu_torch.models.llama` for serving and training,
 :mod:`~apex_tpu_torch.models.llama_pipeline` for its pipeline-parallel
 stages, and :mod:`~apex_tpu_torch.models.convert` to carry flax weights
-over (Llama, its pipeline stages, and the GPT of
-:mod:`apex_tpu_torch.transformer.testing`)."""
+over (Llama, its pipeline stages, the GPT of
+:mod:`apex_tpu_torch.transformer.testing` and the ImageNet example's
+ResNet)."""
 
 from apex_tpu_torch.models.convert import (
     gpt_params_from_jax,
     llama_params_from_jax,
     llama_pipeline_params_from_jax,
+    resnet_params_from_jax,
 )
 from apex_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from apex_tpu_torch.models.llama_pipeline import (
@@ -21,4 +23,5 @@ from apex_tpu_torch.models.llama_pipeline import (
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipeConfig",
            "build_llama_pipeline", "init_llama_pipeline_params",
            "make_llama_3d_train_step", "gpt_params_from_jax",
-           "llama_params_from_jax", "llama_pipeline_params_from_jax"]
+           "llama_params_from_jax", "llama_pipeline_params_from_jax",
+           "resnet_params_from_jax"]

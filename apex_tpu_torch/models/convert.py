@@ -61,6 +61,25 @@ kernels transposed as above), ``embed/embed_tokens/embedding`` as
 (both ``[vocab / tp, h]``).  The JAX tree holds the embedding and head on
 every stage; the other stages leave them.
 
+ResNet (:func:`resnet_params_from_jax`, the ImageNet example's model in
+:mod:`apex_tpu_torch.examples.imagenet_main`; ``B_i`` the flax
+``BottleneckBlock_i``, its ``Conv_j`` / ``SyncBatchNorm_j`` the torch
+``conv{j+1}`` / ``bn{j+1}`` for j < 3 and ``downsample_conv`` /
+``downsample_bn`` for j = 3):
+
+==================================================  ==========================================
+flax leaf                                           torch key
+==================================================  ==========================================
+``Conv_0/kernel`` ``[7, 7, 3, 64]`` (HWIO)          ``conv1.weight`` ``[64, 3, 7, 7]`` (OIHW)
+``SyncBatchNorm_0/{scale,bias}``                    ``bn1.{weight,bias}``
+batch_stats ``SyncBatchNorm_0/{mean,var}``          ``bn1.{running_mean,running_var}``
+``B_i/Conv_j/kernel`` (HWIO)                        ``blocks.i.<conv>.weight`` (OIHW)
+``B_i/SyncBatchNorm_j/...``                         ``blocks.i.<bn>....``
+``Dense_0/kernel`` ``[in, out]``, ``/bias``         ``fc.weight`` ``[out, in]``, ``fc.bias``
+==================================================  ==========================================
+
+Each batch norm's ``num_batches_tracked`` (which flax does not keep) is 0.
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -80,7 +99,7 @@ from apex_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "llama_pipeline_params_from_jax", "load_jax_optimizer_state",
-           "shard_state_dict"]
+           "shard_state_dict", "resnet_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -350,3 +369,53 @@ def load_jax_optimizer_state(
                 else:
                     st[key] = tree[name].to(p.device)
             st["step"] = shared
+
+
+def _resnet_key(path: str) -> str:
+    """The torch key of a flax ResNet path (see the module docstring)."""
+    parts = path.split("/")
+    names = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+             "Conv_3": "downsample_conv", "SyncBatchNorm_0": "bn1",
+             "SyncBatchNorm_1": "bn2", "SyncBatchNorm_2": "bn3",
+             "SyncBatchNorm_3": "downsample_bn", "Dense_0": "fc"}
+    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
+            "mean": "running_mean", "var": "running_var"}
+    prefix = []
+    if parts[0].startswith("BottleneckBlock_"):
+        prefix = ["blocks", parts[0][len("BottleneckBlock_"):]]
+        parts = parts[1:]
+    if len(parts) != 2 or parts[0] not in names or parts[1] not in leaf:
+        raise ValueError(f"flax ResNet leaf {path!r} has no torch key")
+    if not prefix and parts[0] in ("Conv_1", "Conv_2", "Conv_3",
+                                   "SyncBatchNorm_1", "SyncBatchNorm_2",
+                                   "SyncBatchNorm_3"):
+        raise ValueError(f"flax ResNet leaf {path!r} has no torch key")
+    return ".".join(prefix + [names[parts[0]], leaf[parts[1]]])
+
+
+def resnet_params_from_jax(params: Mapping,
+                           batch_stats: Optional[Mapping] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` of :class:`~apex_tpu_torch.examples.imagenet_main.
+    ResNet` from the flax ResNet's ``params`` and ``batch_stats`` (nested
+    dicts of numpy arrays; a variables dict ``{"params", "batch_stats"}``
+    may come alone as ``params``): convolution kernels HWIO -> OIHW, the
+    dense kernel ``[in, out]`` -> ``[out, in]``, batch norm scale, bias,
+    mean and var -> weight, bias, running_mean and running_var.  Raises on
+    a leaf it cannot place; a leaf the model lacks shows in
+    ``load_state_dict``."""
+    if batch_stats is None and set(params) == {"params", "batch_stats"}:
+        params, batch_stats = params["params"], params["batch_stats"]
+    state = {}
+    for path, arr in _flatten(params).items():
+        arr = np.asarray(arr)
+        key = _resnet_key(path)
+        if path.endswith("kernel"):
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        state[key] = _tensor(arr)
+    for path, arr in _flatten(batch_stats or {}).items():
+        key = _resnet_key(path)
+        state[key] = _tensor(np.asarray(arr))
+        bn = key.rsplit(".", 1)[0]
+        state[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return state

@@ -54,7 +54,8 @@ from apex_tpu_torch.utils.packing import PackedSpec
 __all__ = ["packed_adam_update", "packed_adagrad_update",
            "packed_lamb_update", "packed_novograd_update", "adam_scalars", "adagrad_scalars",
            "lamb_phase1", "lamb_scalars", "LAMB_PHASE1",
-           "PACKED_ADAM", "PACKED_ADAGRAD"]
+           "PACKED_ADAM", "PACKED_ADAGRAD", "segment_ids_for_spec",
+           "per_leaf_sqnorms"]
 
 LAMB_PHASE1 = register(Kernel(
     name="lamb_phase1", source="lamb_phase1.cu", symbol="apex_lamb_phase1",
@@ -334,6 +335,39 @@ def packed_adagrad_update(flat_grad, flat_param, flat_h, *, lr, eps,
 # ---------------------------------------------------------------------------
 # phase 2 and the whole step
 # ---------------------------------------------------------------------------
+
+
+def segment_ids_for_spec(spec: PackedSpec, device="cpu") -> torch.Tensor:
+    """The leaf index of each element of a flat buffer laid out by
+    ``spec`` (int32, ``[padded_total]``); the padding gets the dead
+    segment ``spec.num_leaves``.  Made on ``device`` from the leaves' end
+    offsets (``searchsorted`` over an ``arange``), as the JAX function
+    makes it on its device: only the small boundary table crosses from
+    the host."""
+    if spec.padded_total >= 2 ** 31:
+        raise NotImplementedError(
+            f"packed buffer of {spec.padded_total} elements exceeds int32 "
+            "segment-id range; shard the parameters (ZeRO) below 2**31 "
+            "elements per buffer")
+    ends = [o + s for o, s in zip(spec.offsets, spec.sizes)]
+    if list(spec.offsets[1:]) != ends[:-1]:
+        raise ValueError("segment_ids_for_spec requires a contiguous "
+                         "packed layout (offsets must tile sizes)")
+    boundaries = torch.tensor(ends, dtype=torch.int32, device=device)
+    return torch.searchsorted(
+        boundaries, torch.arange(spec.padded_total, dtype=torch.int32,
+                                 device=device),
+        right=True).to(torch.int32)
+
+
+def per_leaf_sqnorms(x32: torch.Tensor, spec: PackedSpec) -> torch.Tensor:
+    """Each leaf's ``sum(x^2)`` over its contiguous slice of the flat
+    buffer, then a 0 for the dead padding slot: ``[num_leaves + 1]``, the
+    JAX function's dense per-slice reductions (no scatter)."""
+    sums = [torch.sum(x32[o:o + s] * x32[o:o + s])
+            for o, s in zip(spec.offsets, spec.sizes)]
+    sums.append(torch.zeros((), dtype=x32.dtype, device=x32.device))
+    return torch.stack(sums)
 
 
 def _leaf_slices(x: torch.Tensor, spec: PackedSpec) -> Sequence[torch.Tensor]:

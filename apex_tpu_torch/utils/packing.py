@@ -11,6 +11,10 @@ in sorted order, as ``jax.tree_util`` takes them, so a flat buffer packed
 here lays the leaves out in the JAX package's order.  Leaves are laid end
 to end, each flattened in row-major order, and the buffer is padded with
 zeros to a multiple of ``pad_to`` elements.
+
+:func:`flatten_dense_tensors` / :func:`unflatten_dense_tensors` are the
+unpadded pair of ``apex_C.flatten`` / ``unflatten`` that the data-parallel
+wrapper's gradient buckets use (:mod:`apex_tpu_torch.parallel.distributed`).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 __all__ = ["PackedSpec", "PackedBuffer", "make_packed_spec", "pack_pytree",
-           "unpack_pytree", "tree_leaves", "tree_map"]
+           "unpack_pytree", "tree_leaves", "tree_map",
+           "flatten_dense_tensors", "unflatten_dense_tensors"]
 
 
 def _flatten(tree: Any, out: List[torch.Tensor]):
@@ -140,3 +145,20 @@ def unpack_pytree(flat: torch.Tensor, spec: PackedSpec) -> Any:
               for shape, dtype, o in zip(spec.shapes, spec.dtypes,
                                          spec.offsets)]
     return _unflatten(spec.treedef, iter(leaves))
+
+
+def flatten_dense_tensors(tensors) -> torch.Tensor:
+    """The tensors, each flattened in row-major order, laid end to end in
+    one 1-D buffer (``apex_C.flatten``); they share one dtype."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def unflatten_dense_tensors(flat: torch.Tensor, like) -> List[torch.Tensor]:
+    """``flat`` cut back into tensors shaped like ``like``, in order
+    (``apex_C.unflatten``): views of ``flat``."""
+    out, at = [], 0
+    for t in like:
+        n = t.numel()
+        out.append(flat[at:at + n].view(t.shape))
+        at += n
+    return out

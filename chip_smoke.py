@@ -224,6 +224,35 @@ ends the run with a non-zero exit and no result line:
      inf written after the schedule at the last, which runs whole under
      ``set_sync_debug_mode("error")``: every parameter, master and
      moment keeps its bits and the scale halves.
+   - *ZeRO* (``phase3-train-zero``): ``llama-1b`` with every parameter
+     bf16, b 4 x s 2048, 1 + 3 steps of ``DistributedFusedAdam(lr=1e-3,
+     state_dtype=bf16, store_param_remainders=True)`` over an NCCL group
+     of world 1, beside ``FusedAdam`` (fp32 masters, bf16 moments) from
+     the same weights in the same call: launches a step as in training
+     with no ``mt_adam`` under ZeRO, one reduce-scatter and one
+     all-gather a step and no all-reduce, the fp32 masters after the
+     warm-up step within ``ZERO_MASTER_TOL`` of FusedAdam's, the losses
+     within ``ZERO_LOSS_TOL``, the bf16 split and merge bit for bit (over
+     random words and over the state), a ``found_inf`` step that keeps
+     every parameter and the whole state; step walls, peak memory.
+   - *ResNet-50* (``phase3-resnet-reference``, ``phase3-train-resnet50``):
+     ``resnet10_ish`` at 32^2 x 8 in fp32, 3 steps card against CPU from
+     one init (``RESNET_SMALL_*_TOL``); then ``imagenet_main.
+     run_training`` of ResNet-50 (b 128 x 224^2, NHWC memory) over DDP
+     and SyncBatchNorm under an NCCL group of world 1, 1 + 8 steps in
+     bf16 O2 and in fp16 O2 with the dynamic scaler: a loss that ends
+     below where it began, ``mt_scale`` 1 a step in fp16 and no launch in
+     bf16, 108 all-reduces a step (53 batch norms forward and backward, 2
+     DDP buckets); images/s, step wall, MFU from the port's count of the
+     convolutions' and the head's FLOPs, peak memory; one profiled bf16
+     step (idle share, device time by kind); an inf written into one fp16
+     gradient keeps every parameter, master and momentum bit for bit and
+     halves the scale; and 3 bf16 steps with DDP + SyncBatchNorm against
+     3 without either (local batch norm in the same Welford form), with
+     cuDNN's deterministic algorithms: bit for bit.
+   - *LARC* (``phase3-larc``): ``LARC(FusedSGD)`` over ResNet-50's
+     parameter list and one step's gradients, card against CPU within
+     ``LARC_TOL``, 2 ``mt_l2norm`` launches on the card.
    - *amp*: a small fp32 Llama under ``amp.initialize(..., "O2",
      half_dtype=torch.float16)`` and the dynamic scaler, 4 steps card
      against CPU (loss, ``found_inf``, scaler state at every step; masters,
@@ -274,6 +303,7 @@ fuller report goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -7805,6 +7835,8 @@ def _kernel_kind(name: str) -> str:
                       ("lamb_phase1_kernel", "LAMB phase 1")):
         if key in name:
             return kind
+    if any(k in name for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "cuDNN"
     if "nvjet" in name or "gemm" in name or "xmma" in name or "cutlass" in name:
         return "cuBLAS"
     if "copy" in name:
@@ -9232,6 +9264,470 @@ def openfold_train(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3: data parallelism (parallel/, contrib/optimizers) at world 1
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH = 128      # bench.py's resnet50 card: b 128 x 224^2 x 3
+RESNET_STEPS = 8        # timed steps after one warm-up, each precision
+RESNET_BITS_STEPS = 3   # steps of the DDP + SyncBN run against local BN
+# resnet10_ish at 32^2 x 8, fp32 (O0, TF32 off), 3 steps card against the
+# CPU from one init: the losses, and every tensor of the state after the
+# steps relative to its largest value (on an H100 at 700 W: 1.2e-7 and
+# 4.4e-4, the latter a small batch-norm bias three SGD steps from 0)
+RESNET_SMALL_LOSS_TOL = 1e-5
+RESNET_SMALL_STATE_TOL = 2e-3
+# 53 batch norms: one all-reduce in each forward and each backward, and
+# the DDP buckets (bf16 convolutions and head, fp32 batch norms)
+RESNET_BN_LAYERS = 53
+ZERO_STEPS = 3          # steps after one warm-up, ZeRO and FusedAdam
+# ZeRO against FusedAdam from the same weights.  After the warm-up step
+# (the same parameters, so the same gradients) their fp32 masters differ
+# only by the two updates' fp32 rounding: within ZERO_MASTER_TOL of the
+# largest master.  Later losses drift apart because ZeRO's bf16 parameters
+# truncate the masters where FusedAdam's round them: on an H100 at 700 W
+# by 3.7e-3, 2.0e-2 and 2.3e-3 over 3 steps (a step without the update
+# keeps the loss 1.6 above FusedAdam's)
+ZERO_MASTER_TOL = 1e-6         # on an H100 at 700 W: 6.0e-8 (one ulp)
+ZERO_LOSS_TOL = 5e-2
+LARC_TOL = 1e-6         # LARC(FusedSGD) card against CPU, parameters
+
+
+@contextlib.contextmanager
+def _nccl_world(prefix: str):
+    """An NCCL group of world 1 over a ``file://`` rendezvous in a
+    temporary directory; the group and the directory go however the block
+    ends."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    rdv = tempfile.mkdtemp(prefix=prefix)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(rdv, 'rendezvous')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _launch_counts() -> dict:
+    from apex_tpu_torch.ops import _dispatch
+
+    return {k.name: k.launches for k in _dispatch.KERNELS}
+
+
+def _resnet_run(device, half: str, steps: int, **kw) -> dict:
+    """``imagenet_main.run_training`` of ResNet-50 at b 128 x 224^2, O2,
+    with the launches and ``torch.distributed`` calls it
+    made, its peak memory and its wall."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main as im
+    from apex_tpu_torch.ops import _dispatch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with _DistCalls() as calls:
+        res = im.run_training(
+            arch="resnet50", opt_level="O2", half=half,
+            loss_scale="dynamic" if half == "fp16" else None,
+            batch_size=RESNET_BATCH, image_size=224, num_classes=1000,
+            steps=steps, lr=0.1, seed=0, verbose=False, device=device, **kw)
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = _launch_counts()
+    res["dist_calls"] = dict(calls.counts)
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def _resnet_overflow_check(res: dict, device) -> dict:
+    """One more fp16 step of a trained run with an inf written into one
+    gradient after the backward: every parameter, master, momentum buffer
+    and the step counter keep their bits, and the scale halves."""
+    import torch
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import imagenet_main as im
+
+    model, opt, state = res["model"], res["optimizer"], res["scaler_state"]
+    net = res["net"]
+    policy = get_policy("O2", half_dtype=torch.float16)
+    scaler = policy.make_scaler()
+    images, labels = im._to_device(*im.synthetic_batch(
+        RESNET_BATCH, 224, 1000, 0), device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt_before = [{k: v.clone() for k, v in opt.state[p].items()}
+                  for p in model.parameters()]
+    scale0 = float(state.scale)
+    opt.zero_grad(set_to_none=True)
+    im.forward_backward(net, images, labels, policy, scaler, state)
+    next(p for p in model.parameters()).grad.view(-1)[0].fill_(float("inf"))
+    found_inf, state = im.apply_update(opt, policy, scaler, state)
+    kept = all(torch.equal(before[n], p) for n, p in model.named_parameters())
+    kept_state = all(torch.equal(v, opt.state[p][k])
+                     for p, st in zip(model.parameters(), opt_before)
+                     for k, v in st.items())
+    out = dict(found_inf=bool(found_inf), params_kept=kept,
+               optimizer_state_kept=kept_state, scale_before=scale0,
+               scale_after=float(state.scale))
+    if not (out["found_inf"] and kept and kept_state
+            and out["scale_after"] == scale0 / 2):
+        raise AssertionError(f"resnet50 fp16 forced overflow: {out}")
+    return out
+
+
+def _resnet_bits_check(device) -> dict:
+    """DDP + SyncBatchNorm over the NCCL group of world 1 against the
+    same run with neither (local batch norm in the Welford form the group
+    path merges), ``RESNET_BITS_STEPS`` bf16 steps each with cuDNN's
+    deterministic algorithms: the losses, every parameter and every
+    running statistic bit for bit (at one rank the collectives move
+    nothing)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for name, distributed in (("ddp_syncbn", True), ("local", False)):
+            res = _resnet_run(device, "bf16", RESNET_BITS_STEPS,
+                              distributed=distributed,
+                              use_fast_variance=False)
+            runs[name] = dict(
+                losses=res["losses"], dist_calls=res["dist_calls"],
+                state={k: v.detach().cpu()
+                       for k, v in res["model"].state_dict().items()})
+            del res
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    a, b = runs["ddp_syncbn"], runs["local"]
+    diff = [k for k in a["state"] if not torch.equal(a["state"][k],
+                                                      b["state"][k])]
+    out = dict(losses_ddp_syncbn=a["losses"], losses_local=b["losses"],
+               dist_calls_ddp_syncbn=a["dist_calls"],
+               dist_calls_local=b["dist_calls"],
+               tensors=len(a["state"]), tensors_differing=diff[:10],
+               bitwise_equal=a["losses"] == b["losses"] and not diff)
+    if not out["bitwise_equal"]:
+        raise AssertionError(f"resnet50 DDP + SyncBN at world 1 differs "
+                             f"from local BN: {out}")
+    return out
+
+
+def resnet_small_check(device) -> dict:
+    """``resnet10_ish`` at 32^2 x 8 in fp32 (O0), 3 steps of
+    ``run_training`` without DDP on the card and on the CPU from one
+    init (the CPU's seeded model): losses and every parameter after the
+    steps within ``RESNET_SMALL_LOSS_TOL`` and
+    ``RESNET_SMALL_STATE_TOL`` (each tensor relative to its largest
+    value)."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main as im
+
+    init = im.resnet10_ish(10, device="cpu", seed=0).state_dict()
+    kw = dict(arch="resnet10", opt_level="O0", batch_size=8, image_size=32,
+              num_classes=10, steps=3, lr=0.1, verbose=False,
+              distributed=False, init_state=init)
+    cpu = im.run_training(device="cpu", **kw)
+    card = im.run_training(device=device, **kw)
+    loss_err = max(abs(a - b) for a, b in zip(cpu["losses"], card["losses"]))
+    cs, gs = cpu["model"].state_dict(), card["model"].state_dict()
+    errs = {k: float((cs[k] - gs[k].cpu()).abs().max()
+                     / max(float(cs[k].abs().max()), 1e-12))
+            for k in cs if cs[k].is_floating_point()}
+    worst = max(errs, key=errs.get)
+    out = dict(losses_cpu=cpu["losses"], losses_card=card["losses"],
+               loss_max_abs_err=loss_err, state_max_rel_err=errs[worst],
+               worst_tensor=worst, loss_tol=RESNET_SMALL_LOSS_TOL,
+               state_tol=RESNET_SMALL_STATE_TOL)
+    if not (loss_err <= RESNET_SMALL_LOSS_TOL
+            and errs[worst] <= RESNET_SMALL_STATE_TOL):
+        raise AssertionError(f"resnet10_ish card vs CPU: {out}")
+    log("phase3-resnet-reference", **out)
+    return out
+
+
+def resnet50_train(device, smi: str) -> dict:
+    """Phase ``phase3-train-resnet50`` (see the module docstring)."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main as im
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    t_phase = time.perf_counter()
+    steps = 1 + RESNET_STEPS
+    out = dict(nvidia_smi=smi, config="resnet50", batch=RESNET_BATCH,
+               image_size=224, steps=f"1 warm-up + {RESNET_STEPS}",
+               precision="O2 (convolutions and head bf16 / fp16, batch norms "
+                         "fp32, FusedSGD fp32 masters), NHWC activations")
+    flops = im.conv_flops(im.ResNet(device="meta"), 224, RESNET_BATCH)
+    with _nccl_world("resnet_rdv_"):
+        for half in ("bf16", "fp16"):
+            res = _resnet_run(device, half, steps)
+            losses = res["losses"]
+            want = {mt.MT_SCALE.name: steps} if half == "fp16" else {}
+            calls = res["dist_calls"]
+            all_reduce = calls.get("all_reduce", 0)
+            step_p50 = statistics.median(res["step_ms"])
+            row = dict(
+                losses=losses, step_ms=res["step_ms"], step_ms_p50=step_p50,
+                imgs_per_s=RESNET_BATCH / (step_p50 / 1e3),
+                imgs_per_s_mean=res["imgs_per_sec"],
+                flops_per_step=flops, bound_ms=flops / 989e12 * 1e3,
+                mfu=flops / (step_p50 / 1e3) / 989e12,
+                peak_mem_bytes=res["peak_mem_bytes"],
+                real_overflows=sum(res["found_inf"]),
+                final_scale=res["final_scale"], wall_s=res["wall_s"],
+                dist_calls=calls, all_reduces_per_step=all_reduce / steps,
+                launches=res["launches"],
+                launches_per_step={k: n / steps for k, n in
+                                   _nonzero(res["launches"]).items()})
+            if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"resnet50 {half}: loss {losses} is not "
+                                     f"finite and falling")
+            if _nonzero(res["launches"]) != want:
+                raise AssertionError(f"resnet50 {half}: launches "
+                                     f"{_nonzero(res['launches'])}, expected "
+                                     f"{want}")
+            if all_reduce != steps * (2 * RESNET_BN_LAYERS + 2):
+                raise AssertionError(f"resnet50 {half}: {all_reduce} "
+                                     f"all-reduces in {steps} steps")
+            if half == "bf16":
+                model, opt = res["model"], res["optimizer"]
+                images, labels = im._to_device(*im.synthetic_batch(
+                    RESNET_BATCH, 224, 1000, 0), device)
+                policy = im.get_policy("O2", half_dtype=torch.bfloat16)
+                scaler = policy.make_scaler()
+                state = res["scaler_state"]
+                net = res["net"]
+                row["profile"] = _profile(
+                    lambda: im.train_step(net, opt, images, labels, policy,
+                                          scaler, state), step_p50)
+                del net, images, labels
+            else:
+                row["forced_overflow"] = _resnet_overflow_check(res, device)
+            out[half] = row
+            log(f"phase3-train-resnet50-{half}",
+                **{k: v for k, v in row.items() if k != "launches"})
+            del res
+            torch.cuda.empty_cache()
+        out["bits"] = _resnet_bits_check(device)
+        log("phase3-train-resnet50-bits", **out["bits"])
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-train-resnet50-done", phase_s=out["phase_s"])
+    return out
+
+
+def _zero_llama(device, opt_fn, per_step, steps: int, ids,
+                after_warmup=None) -> dict:
+    """``llama-1b`` with every parameter bf16 (the norm scales too: the
+    remainders rebuild fp32 masters from bf16 words), fp32 init from the
+    seeded generator, 1 warm-up + ``steps`` of ``llama_pretrain.
+    train_step`` under ``opt_fn(params)``: losses, walls, launches
+    (checked against ``per_step``) and ``torch.distributed`` calls a
+    step; ``after_warmup(opt)`` is called after the warm-up step."""
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import train_step
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.ops import _dispatch
+
+    cfg = LlamaConfig.llama_1b()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = LlamaForCausalLM(cfg, device=device, generator=gen).to(
+        torch.bfloat16)
+    opt = opt_fn(model.parameters())
+    torch.cuda.synchronize()
+    loss0 = float(train_step(model, opt, ids))
+    if after_warmup is not None:
+        after_warmup(opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, calls = [], [], []
+    for i in range(steps):
+        _dispatch.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _DistCalls() as dc:
+            loss = train_step(model, opt, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        calls.append(dict(dc.counts))
+        if _nonzero(_launch_counts()) != per_step:
+            raise AssertionError(f"zero llama-1b step {i} launched "
+                                 f"{_nonzero(_launch_counts())}, expected "
+                                 f"{per_step}")
+    return dict(model=model, opt=opt, warmup_loss=loss0, losses=losses,
+                step_ms=step_ms, step_ms_p50=statistics.median(step_ms),
+                dist_calls=calls, launches=_launch_counts(),
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def llama_1b_train_zero(device, smi: str) -> dict:
+    """Phase ``phase3-train-zero`` (see the module docstring)."""
+    import torch
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.contrib.optimizers._zero_base import (
+        _merge_bf16,
+        _split_bf16,
+    )
+    from apex_tpu_torch.examples.llama_pretrain import _params
+    from apex_tpu_torch.models import LlamaConfig
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils.packing import pack_pytree
+
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama_1b()
+    b, s, layers = 4, 2048, cfg.num_hidden_layers
+    ids = torch.randint(0, cfg.vocab_size, (b, s),
+                        generator=torch.Generator().manual_seed(8)).to(device)
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                fa.FLASH_ATTENTION_DQ.name: layers,
+                fa.FLASH_ATTENTION_DKV.name: layers,
+                lh.FUSED_LM_HEAD_FWD.name: 1, lh.FUSED_LM_HEAD_DH.name: 1,
+                lh.FUSED_LM_HEAD_DE.name: 1}
+    out = dict(nvidia_smi=smi, config="llama-1b", batch=b, seq=s,
+               steps=f"1 warm-up + {ZERO_STEPS}",
+               precision="every parameter bf16; lr 1e-3, bf16 moments; "
+                         "ZeRO: store_param_remainders; FusedAdam: fp32 "
+                         "masters")
+    # the round trip over every bit pattern's neighbourhood: random words
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 24,), dtype=torch.int64,
+                          generator=torch.Generator().manual_seed(3)
+                          ).to(torch.int32).to(device)
+    hi, lo = _split_bf16(words.view(torch.float32))
+    out["remainder_roundtrip_random_words"] = torch.equal(
+        _merge_bf16(hi, lo).view(torch.int32), words)
+    masters = {}
+
+    def zero_masters(opt):
+        flat = pack_pytree(_params(opt), dtype=torch.bfloat16, pad_to=1024).flat
+        masters["zero"] = _merge_bf16(flat, opt.zero_state.remainder_shard
+                                      )[:sum(p.numel() for p in _params(opt))
+                                        ].cpu()
+
+    def adam_masters(opt):
+        got = torch.cat([opt.state[p]["master_param"].reshape(-1)
+                         for p in _params(opt)])
+        want = masters.pop("zero").to(device)
+        masters["max_abs_diff"] = float((got - want).abs().max())
+        masters["max_abs"] = float(want.abs().max())
+
+    with _nccl_world("zero_rdv_") as group:
+        zero = _zero_llama(
+            device, lambda ps: DistributedFusedAdam(
+                ps, lr=1e-3, state_dtype=torch.bfloat16,
+                store_param_remainders=True, process_group=group),
+            per_step, ZERO_STEPS, ids, zero_masters)
+        model, opt = zero.pop("model"), zero.pop("opt")
+        st = opt.zero_state
+        flat = pack_pytree(_params(opt), dtype=torch.bfloat16,
+                           pad_to=1024).flat
+        hi, lo = _split_bf16(_merge_bf16(flat, st.remainder_shard))
+        out["remainder_roundtrip_state"] = (
+            torch.equal(hi.view(torch.int16), flat.view(torch.int16))
+            and torch.equal(lo, st.remainder_shard))
+        # a skipped step: found_inf keeps the parameters and the state
+        before = [p.detach().clone() for p in _params(opt)]
+        state_before = [t.clone() if t is not None else None for t in st]
+        labels = torch.roll(ids, -1, dims=1)
+        opt.zero_grad(set_to_none=True)
+        model(ids, labels=labels).mean().backward()
+        opt.step(found_inf=torch.ones((), dtype=torch.bool, device=device))
+        out["found_inf_kept"] = (
+            all(torch.equal(a, p) for a, p in zip(before, _params(opt)))
+            and all((a is None and c is None) or torch.equal(a, c)
+                    for a, c in zip(state_before, opt.zero_state)))
+        del model, opt, st, flat, hi, lo, before, state_before
+        torch.cuda.empty_cache()
+    adam = _zero_llama(
+        device, lambda ps: FusedAdam(ps, lr=1e-3, state_dtype=torch.bfloat16,
+                                     master_weights=True),
+        dict(per_step, **{mt.MT_ADAM.name: 1}), ZERO_STEPS, ids, adam_masters)
+    del adam["model"], adam["opt"]
+    torch.cuda.empty_cache()
+    out["zero"], out["fused_adam"] = zero, adam
+    out["loss_max_abs_diff"] = max(
+        abs(a - c) for a, c in zip([zero["warmup_loss"]] + zero["losses"],
+                                   [adam["warmup_loss"]] + adam["losses"]))
+    out["warmup_master_max_abs_diff"] = masters["max_abs_diff"]
+    out["warmup_master_rel_diff"] = masters["max_abs_diff"] / masters["max_abs"]
+    out["step_p50_ratio_zero_to_fused_adam"] = (zero["step_ms_p50"]
+                                                / adam["step_ms_p50"])
+    colls = [{k: c.get(k, 0) for k in ("reduce_scatter_tensor",
+                                       "all_gather_into_tensor",
+                                       "all_reduce")} for c in zero["dist_calls"]]
+    out["collectives_per_step"] = colls
+    out["launches"] = zero["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-train-zero", **{k: v for k, v in out.items()
+                                if k != "launches"})
+    if not (out["remainder_roundtrip_random_words"]
+            and out["remainder_roundtrip_state"] and out["found_inf_kept"]
+            and out["loss_max_abs_diff"] <= ZERO_LOSS_TOL
+            and out["warmup_master_rel_diff"] <= ZERO_MASTER_TOL
+            and all(c == {"reduce_scatter_tensor": 1,
+                          "all_gather_into_tensor": 1, "all_reduce": 0}
+                    for c in colls)
+            and zero["losses"][-1] < zero["warmup_loss"]):
+        raise AssertionError(f"phase3-train-zero gates: {out}")
+    return out
+
+
+def larc_check(device) -> dict:
+    """Phase ``phase3-larc``: ``LARC(FusedSGD(lr 0.1, momentum 0.9,
+    weight decay 1e-4))`` over ResNet-50's parameter list (fp32) and one
+    step's gradients (b 8 x 64^2 on the CPU), on the card and on the
+    CPU: ``mt_l2norm`` twice on the card, the parameters within
+    ``LARC_TOL`` (relative to the largest)."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main as im
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.parallel import LARC
+
+    model = im.resnet50(1000, device="cpu", seed=0)
+    images, labels = im._to_device(*im.synthetic_batch(8, 64, 1000, 0),
+                                   "cpu")
+    im.cross_entropy(model(images), labels).backward()
+    cpu = [p.detach().clone() for p in model.parameters()]
+    grads = [p.grad.clone() for p in model.parameters()]
+    results = {}
+    for dev in ("cpu", device):
+        ps = [torch.nn.Parameter(p.to(dev, copy=True)) for p in cpu]
+        for p, g in zip(ps, grads):
+            p.grad = g.to(dev, copy=True)
+        opt = LARC(FusedSGD(ps, lr=0.1, momentum=0.9, weight_decay=1e-4))
+        _dispatch.reset_launches()
+        opt.step()
+        results[str(dev)] = ([p.detach().cpu() for p in ps],
+                             _nonzero(_launch_counts()))
+    (pc, lc), (pg, lg) = results["cpu"], results[str(device)]
+    err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
+              for a, b in zip(pc, pg))
+    moved = max(float((a - b).abs().max()) for a, b in zip(pc, cpu))
+    out = dict(tensors=len(cpu), elements=sum(p.numel() for p in cpu),
+               max_rel_err=err, tol=LARC_TOL, max_update=moved,
+               launches_card=lg, launches_cpu=lc)
+    log("phase3-larc", **out)
+    if not (err <= LARC_TOL and moved > 0 and lg == {mt.MT_L2NORM.name: 2}
+            and not lc):
+        raise AssertionError(f"phase3-larc: {out}")
+    out["launches"] = {k: lg.get(k, 0) for k in _launch_counts()}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9323,6 +9819,10 @@ def main() -> int:
     training_pp = llama_1b_train_pp(device, train_ref, smi)
     train_ref.clear()
     torch.cuda.empty_cache()
+    training_zero = llama_1b_train_zero(device, smi)
+    resnet_reference = resnet_small_check(device)
+    resnet = resnet50_train(device, smi)
+    larc = larc_check(device)
     amp_paths = {f"amp_{form}": llama_1b_amp_train(device, form)
                  for form in ("adam", "adagrad", "packed_adam")}
     gpt_kernel = gpt2_large_train(device, "kernel")
@@ -9351,6 +9851,9 @@ def main() -> int:
                      "1f1b"]),
                  training_pp_no_pipelining=dict(launches=training_pp[
                      "launches"]["no_pipelining"]),
+                 training_zero=training_zero,
+                 resnet50_bf16=resnet["bf16"], resnet50_fp16=resnet["fp16"],
+                 larc=larc,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, openfold=openfold)
 
@@ -9476,7 +9979,9 @@ def main() -> int:
                   train_reference=train_reference, gpt_reference=gpt_reference,
                   llama_1b=e2e, evaluation=evaluation, training=training,
                   serving_tp=serving_tp, training_tp=training_tp,
-                  training_pp=training_pp,
+                  training_pp=training_pp, training_zero=training_zero,
+                  resnet_reference=resnet_reference, resnet50=resnet,
+                  larc=larc,
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,

@@ -83,7 +83,15 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.pipeline_parallel.p2p_communication, "
         "apex_tpu_torch.transformer.pipeline_parallel.utils, "
         "apex_tpu_torch.transformer.pipeline_parallel._timers, "
-        "apex_tpu_torch.models.llama_pipeline\n"
+        "apex_tpu_torch.models.llama_pipeline, apex_tpu_torch.parallel, "
+        "apex_tpu_torch.parallel.distributed, "
+        "apex_tpu_torch.parallel.sync_batchnorm, apex_tpu_torch.parallel.LARC, "
+        "apex_tpu_torch.contrib.optimizers, "
+        "apex_tpu_torch.contrib.optimizers._zero_base, "
+        "apex_tpu_torch.contrib.optimizers.distributed_fused_adam, "
+        "apex_tpu_torch.contrib.optimizers.distributed_fused_lamb, "
+        "apex_tpu_torch.examples.imagenet_main, "
+        "apex_tpu_torch.examples.imagenet_data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -156,6 +164,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         init_llama_pipeline_params(pcfg, pp_rank=0, pp_size=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         report_memory("probe")
+    from apex_tpu_torch.examples import imagenet_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imagenet_main.resnet10_ish(10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imagenet_main.run_training(distributed=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imagenet_main.main(["--steps", "1"])
 
 
 # every kernel of the port, module by module: (name, the JAX file:function
