@@ -1,4 +1,5 @@
-"""Carry Llama and GPT weights over from a flax parameter tree.
+"""Carry Llama, GPT, BERT, ViT and ResNet weights over from a flax
+parameter tree.
 
 :func:`llama_params_from_jax` and :func:`gpt_params_from_jax` take the JAX
 model's parameter tree as a nested dict of **numpy arrays**
@@ -80,6 +81,13 @@ batch_stats ``SyncBatchNorm_0/{mean,var}``          ``bn1.{running_mean,running_
 
 Each batch norm's ``num_batches_tracked`` (which flax does not keep) is 0.
 
+BERT (:func:`bert_params_from_jax`): the language model as for GPT, the
+heads' ``nn.Dense`` kernels transposed (``lm_head/Dense_0`` ->
+``lm_head.dense``, ``pooler/Dense_0`` -> ``pooler.dense``, ``binary_head``)
+and ``lm_head/layernorm``.  ViT (:func:`vit_params_from_jax`): the
+top-level leaves as they are, each layer's linears transposed and its two
+LayerNorms.
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -98,6 +106,7 @@ import torch
 from apex_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
+           "bert_params_from_jax", "vit_params_from_jax",
            "llama_pipeline_params_from_jax", "load_jax_optimizer_state",
            "shard_state_dict", "resnet_params_from_jax"]
 
@@ -304,6 +313,56 @@ def gpt_params_from_jax(tree: Mapping, num_layers: int,
         n = t.shape[dim] // size
         out[name] = t.narrow(dim, rank * n, n).clone()
     return out
+
+
+def bert_params_from_jax(tree: Mapping, num_layers: int,
+                         add_binary_head: bool = True
+                         ) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for ``BertModel(num_layers=num_layers,
+    add_binary_head=add_binary_head, ...)`` from the flax tree of the JAX
+    ``BertModel``: the language model as :func:`gpt_params_from_jax` maps
+    it, ``lm_head/Dense_0`` to ``lm_head.dense``, ``lm_head/layernorm`` to
+    ``lm_head.layernorm``, ``pooler/Dense_0`` to ``pooler.dense`` and
+    ``binary_head`` to ``binary_head`` (kernels ``[in, out]`` to weights
+    ``[out, in]``)."""
+    m = _gpt_expected(num_layers, True)
+    dense = {"lm_head/Dense_0": "lm_head.dense"}
+    if add_binary_head:
+        dense.update({"pooler/Dense_0": "pooler.dense",
+                      "binary_head": "binary_head"})
+    for src, dst in dense.items():
+        m[f"{src}/kernel"] = (f"{dst}.weight", True)
+        m[f"{src}/bias"] = (f"{dst}.bias", False)
+    for leaf in ("scale", "bias"):
+        m[f"lm_head/layernorm/{leaf}"] = (f"lm_head.layernorm.{leaf}", False)
+    return _convert(tree, m, f"BERT ({num_layers} layers)")
+
+
+def vit_params_from_jax(tree: Mapping, num_layers: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for a ``ViTForImageClassification`` of
+    ``num_layers`` layers from the flax tree of the JAX one: the top-level
+    leaves under their own names and layouts (``patch_kernel``
+    ``[p*p*C, h]`` keeps its patch order), ``layer_i/...`` as
+    ``layers.i....`` with each linear's kernel ``[in, out]`` as a weight
+    ``[out, in]`` and each LayerNorm's ``scale`` / ``bias``."""
+    m = {name: (name, False) for name in (
+        "patch_kernel", "patch_bias", "cls_token", "position_embeddings",
+        "classifier_kernel", "classifier_bias")}
+    for leaf in ("scale", "bias"):
+        m[f"layernorm/{leaf}"] = (f"layernorm.{leaf}", False)
+    linears = ("attention/query", "attention/key", "attention/value",
+               "attention/output", "intermediate", "output")
+    for i in range(num_layers):
+        s, d = f"layer_{i}", f"layers.{i}"
+        for lin in linears:
+            key = lin.replace("/", ".")
+            m[f"{s}/{lin}/kernel"] = (f"{d}.{key}.weight", True)
+            m[f"{s}/{lin}/bias"] = (f"{d}.{key}.bias", False)
+        for norm in ("layernorm_before", "layernorm_after"):
+            for leaf in ("scale", "bias"):
+                m[f"{s}/{norm}/{leaf}"] = (f"{d}.{norm}.{leaf}", False)
+    return _convert(tree, m, f"ViT ({num_layers} layers)")
 
 
 # the fields of the JAX optimizers' inner states beside ``step`` (and

@@ -101,6 +101,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
+from apex_tpu_torch.transformer.tensor_parallel.random import checkpoint
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaDecoderLayer",
            "LlamaAttention", "LlamaMLP", "tp_param_spec",
@@ -410,15 +411,20 @@ class LlamaForCausalLM(nn.Module):
     on that device) draws the initial weights: ``normal(0, 1/sqrt(in))``
     for the projections, ``normal(0, 0.02)`` for the embedding and head,
     ones for the norm scales.  ``sequence_parallel_enabled`` as in the
-    module docstring."""
+    module docstring.  ``activations_checkpoint`` recomputes each decoder
+    layer in the backward of a training call (no ``kv_cache``; serving
+    never recomputes), through
+    :func:`~apex_tpu_torch.transformer.tensor_parallel.checkpoint`."""
 
     def __init__(self, config: LlamaConfig, *,
                  dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 sequence_parallel_enabled: bool = False):
+                 sequence_parallel_enabled: bool = False,
+                 activations_checkpoint: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
+        self.activations_checkpoint = activations_checkpoint
         self.sequence_parallel_enabled = sequence_parallel_enabled
         kw = dict(dtype=dtype, device=dev)
         self.embed_tokens = VocabParallelEmbedding(
@@ -469,10 +475,15 @@ class LlamaForCausalLM(nn.Module):
             freqs = _rope_freqs(s, hd, cfg.rope_theta, offset=position,
                                 device=x.device)
             cache_kw = dict(kv_cache=kv_cache, position=position, slot=slot)
+        remat = (self.activations_checkpoint and kv_cache is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if kv_cache is not None:
                 cache_kw["layer_idx"] = i
-            x = layer(x, freqs, **cache_kw)
+            if remat:
+                x = checkpoint(layer, False, x, freqs)
+            else:
+                x = layer(x, freqs, **cache_kw)
         x = self.norm(x)
         head = (self.embed_tokens.weight if cfg.tie_word_embeddings
                 else self.lm_head)

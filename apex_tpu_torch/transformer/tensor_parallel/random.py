@@ -18,7 +18,9 @@
   recompute sees the RNG state the first call saw: the global states
   (``preserve_rng_state``), every ``torch.Generator`` passed among the
   arguments and the global tracker's streams, so it is bit for bit the
-  forward's.
+  forward's.  ``context_fn`` passes on to ``torch.utils.checkpoint``: a
+  selective context (``create_selective_checkpoint_contexts``) keeps the
+  outputs of the ops its policy saves and recomputes the rest.
 """
 
 from __future__ import annotations
@@ -145,12 +147,15 @@ model_parallel_cuda_manual_seed = model_parallel_seed
 
 
 def checkpoint(fn: Callable, distribute_saved_activations: bool = False,
-               *args):
+               *args,
+               context_fn: Callable = _torch_checkpoint.noop_context_fn):
     """``fn(*args)``, its activations recomputed in the backward instead of
     saved.  ``distribute_saved_activations`` is accepted and changes
     nothing: the inputs saved are the caller's tensors, which under
     sequence parallelism are already the rank's shard (the JAX function
-    accepts it the same way)."""
+    accepts it the same way).  ``context_fn`` (keyword only) is
+    ``torch.utils.checkpoint``'s: with a selective context the recompute
+    re-runs only the ops its policy does not save."""
     del distribute_saved_activations
     gens = [a for a in args if isinstance(a, torch.Generator)]
     before = [g.get_state() for g in gens]
@@ -176,4 +181,5 @@ def checkpoint(fn: Callable, distribute_saved_activations: bool = False,
             get_rng_state_tracker().set_states(now_tracker)
 
     return _torch_checkpoint.checkpoint(run, *args, use_reentrant=False,
-                                        preserve_rng_state=True)
+                                        preserve_rng_state=True,
+                                        context_fn=context_fn)

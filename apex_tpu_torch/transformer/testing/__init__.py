@@ -1,11 +1,17 @@
 """apex_tpu_torch.transformer.testing: the standalone models (counterpart
-of ``apex_tpu.transformer.testing``): the GPT and the transformer LM it is
-built from.  The BERT model and the argument/global-variable fixtures of
-the JAX package are not ported yet."""
+of ``apex_tpu.transformer.testing``): the GPT, the BERT and the
+transformer LM they are built from.  The Megatron harness's argument and
+global-variable fixtures (``arguments.py``, ``global_vars.py``,
+``commons.py``) are not ported yet."""
 
+from apex_tpu_torch.transformer.testing.standalone_bert import (
+    BertModel,
+    bert_model_provider,
+)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTModel,
     gpt_model_provider,
 )
 
-__all__ = ["GPTModel", "gpt_model_provider"]
+__all__ = ["BertModel", "bert_model_provider", "GPTModel",
+           "gpt_model_provider"]

@@ -15,8 +15,9 @@ rank's vocab shard come from
 :func:`~apex_tpu_torch.transformer.tensor_parallel.vocab_parallel_cross_entropy`
 over them.
 The repo's benchmark flagship (``bench.py``'s ``large`` card) is this
-model at GPT-2-large's widths; :mod:`apex_tpu_torch.examples.gpt_pretrain`
-trains it.
+model at GPT-2-large's widths, and its ``1.3b`` card this model at 24 x
+2048 with whole-layer recompute (``activations_checkpoint=True``);
+:mod:`apex_tpu_torch.examples.gpt_pretrain` trains them.
 """
 
 from __future__ import annotations
@@ -74,10 +75,16 @@ class GPTModel(nn.Module):
             params_dtype=params_dtype, device=resolve_device(device),
             generator=generator)
 
-    def forward(self, input_ids, labels=None, position_ids=None):
+    def forward(self, input_ids, labels=None, position_ids=None,
+                deterministic: bool = True, *,
+                dropout_generator: Optional[torch.Generator] = None):
         """The per-token loss ``[b, s]`` (fp32) with ``labels [b, s]``, else
-        the logits ``[s, b, vocab / tp]`` (fp32)."""
-        hidden = self.language_model(input_ids, position_ids)
+        the logits ``[s, b, vocab / tp]`` (fp32).  ``deterministic`` and
+        ``dropout_generator`` go to the layers (whose dropout rates this
+        model leaves at 0, as the JAX model does)."""
+        hidden = self.language_model(input_ids, position_ids,
+                                     deterministic=deterministic,
+                                     dropout_generator=dropout_generator)
         # weight tying: the head reuses the (vocab-parallel) embedding table
         word_emb = self.language_model.embedding.word_embeddings.weight
         sp = self.sequence_parallel_enabled

@@ -36,18 +36,37 @@ The fused ``query_key_value`` output is ``[s, b, heads, 3 * head_dim]``:
 each head's q, k and v are adjacent (the JAX ``reshape`` and ``split`` on
 the last axis), not three ``[heads, head_dim]`` blocks.
 
-What the JAX module also offers raises ``NotImplementedError``, each with
-the slice of the port that brings it: dropout (attention and hidden),
-context parallelism, mixture-of-experts MLPs and activation checkpointing
-(and its policies).
+**Dropout** (active only with ``deterministic=False``): the attention
+dropout of :class:`ParallelAttention` runs inside the flash kernels (the
+counter-hash keep bits of :mod:`apex_tpu_torch.ops.flash_attention`, one
+int seed a call) or, on the materialized path, on the probabilities; the
+hidden dropout of :class:`ParallelTransformerLayer` on the attention and
+MLP outputs before each residual add.  The seed and the masks come from
+the ``dropout_generator`` the caller passes to ``forward`` (a
+``torch.Generator`` on the activations' device), the counterpart of
+flax's ``rngs={"dropout": key}``: the same generator state gives the same
+masks.  The layer and the stack also take ``attention_dropout`` and hand
+it to their attention; the JAX layer leaves its attention at 0.
+
+**Activation recompute**: ``ParallelTransformer(activations_checkpoint=,
+activations_checkpoint_policy=)`` recomputes each layer in the backward
+under one of the JAX policies (:mod:`apex_tpu_torch.transformer.recompute`
+says what each re-runs and how); a recompute draws the forward's dropout
+masks again.
+
+Context parallelism and mixture-of-experts MLPs raise
+``NotImplementedError``, each with the slice of the port that brings it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+
+from apex_tpu_torch.transformer import recompute
 
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
@@ -65,6 +84,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     tp_world_size,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
+from apex_tpu_torch.transformer.tensor_parallel.random import checkpoint
 
 __all__ = ["ParallelMLP", "ParallelAttention", "ParallelTransformerLayer",
            "ParallelTransformer", "Embedding", "TransformerLanguageModel",
@@ -79,6 +99,44 @@ def _check_cp(context_parallel_axis: Optional[str]) -> None:
     if context_parallel_axis is not None:
         raise _not_yet("context parallelism (ring attention)",
                        "multi-card slice")
+
+
+def _check_rate(rate: float, what: str) -> float:
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{what} must be in [0, 1), got {rate}")
+    return rate
+
+
+def _active(rate: float, deterministic: bool, generator) -> bool:
+    """Whether a dropout of ``rate`` draws masks in this call; raises when
+    it should and has no generator (flax raises without a dropout rng)."""
+    if rate == 0.0 or deterministic:
+        return False
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a "
+                         "dropout_generator (a torch.Generator on the "
+                         "activations' device)")
+    return True
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep each element with probability ``1 -
+    rate`` (a uniform draw from ``generator`` below it), kept values
+    divided by ``1 - rate``, the others 0."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def dropout_seed(generator: torch.Generator) -> int:
+    """The flash kernels' int seed for one call, drawn from ``generator``
+    (the JAX module's ``randint(make_rng("dropout"), (), 0, 2**31 - 1)``);
+    a generator on the card costs a host sync to read it."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device).item())
 
 
 class ParallelMLP(nn.Module):
@@ -101,7 +159,13 @@ class ParallelMLP(nn.Module):
 
     def forward(self, x):
         h, bias = self.dense_h_to_4h(x)
-        h = nn.functional.gelu(h + bias.to(h.dtype), approximate="tanh")
+        pre = h + bias.to(h.dtype)
+        gelu = nn.functional.gelu
+        # the largest activation of the layer; "except_activations"
+        # recomputes it from the saved pre-activation
+        h = recompute.checkpoint_name(
+            gelu(pre, approximate="tanh"), "mlp_act",
+            functools.partial(gelu, pre, approximate="tanh"), (pre,))
         return self.dense_4h_to_h(h)
 
 
@@ -130,9 +194,8 @@ class ParallelAttention(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_cp(context_parallel_axis)
-        if attention_dropout > 0.0:
-            raise _not_yet("attention dropout in the transformer layers",
-                           "training-options slice")
+        self.attention_dropout = _check_rate(attention_dropout,
+                                             "attention_dropout")
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
         self.head_dim = divide(hidden_size, num_attention_heads)
@@ -146,7 +209,13 @@ class ParallelAttention(nn.Module):
         self.dense = RowParallelLinear(hidden_size, hidden_size,
                                        input_is_parallel=True, **kw)
 
-    def forward(self, x, attention_mask=None, segment_ids=None):
+    def forward(self, x, attention_mask=None, segment_ids=None, *,
+                deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None):
+        """``deterministic=False`` with ``attention_dropout > 0`` drops
+        probabilities, its seed or mask drawn from ``dropout_generator``."""
+        drop = _active(self.attention_dropout, deterministic,
+                       dropout_generator)
         # the rank's heads, over the whole sequence (gathered by the column
         # linear under sequence parallelism)
         np_ = self.num_attention_heads // tp_world_size()
@@ -165,22 +234,32 @@ class ParallelAttention(nn.Module):
         use_flash = self.use_flash_attention and (
             segment_ids is not None or (causal and attention_mask is None))
         if use_flash:
+            rate, seed = 0.0, None
+            if drop:
+                rate, seed = (self.attention_dropout,
+                              dropout_seed(dropout_generator))
             ctx = flash_attention(qt, kt, vt, causal=causal,
-                                  segment_ids=segment_ids, scale=scale)
+                                  segment_ids=segment_ids, scale=scale,
+                                  dropout_rate=rate, dropout_seed=seed)
         else:
             scores = torch.matmul(qt, kt.transpose(-1, -2))  # [b, np, s, s]
             softmax = FusedScaleMaskSoftmax(
                 input_in_bf16=qt.dtype == torch.bfloat16,
                 input_in_fp16=qt.dtype == torch.float16,
                 attn_mask_type=self.attn_mask_type, scale=scale)
-            ctx = torch.matmul(softmax(scores, attention_mask), vt)
+            probs = softmax(scores, attention_mask)
+            if drop:
+                probs = dropout(probs, self.attention_dropout,
+                                dropout_generator)
+            ctx = torch.matmul(probs, vt)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
         return self.dense(ctx)
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN block: LN -> attention -> + residual -> LN -> MLP -> +
-    residual."""
+    """Pre-LN block: LN -> attention -> [dropout] + residual -> LN -> MLP
+    -> [dropout] + residual.  ``attention_dropout`` goes to the attention
+    (the port's addition: the JAX layer builds its attention without)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
@@ -189,12 +268,11 @@ class ParallelTransformerLayer(nn.Module):
                  sequence_parallel_enabled: bool = False,
                  context_parallel_axis: Optional[str] = None,
                  moe_num_experts: Optional[int] = None, *,
+                 attention_dropout: float = 0.0,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if hidden_dropout > 0.0:
-            raise _not_yet("hidden dropout in the transformer layers",
-                           "training-options slice")
+        self.hidden_dropout = _check_rate(hidden_dropout, "hidden_dropout")
         if moe_num_experts:
             raise _not_yet("mixture-of-experts MLPs", "expert-parallel slice")
         dev = resolve_device(device)
@@ -203,6 +281,7 @@ class ParallelTransformerLayer(nn.Module):
             device=dev)
         self.self_attention = ParallelAttention(
             hidden_size, num_attention_heads, attn_mask_type=attn_mask_type,
+            attention_dropout=attention_dropout,
             apply_rope=apply_rope, use_flash_attention=use_flash_attention,
             sequence_parallel_enabled=sequence_parallel_enabled,
             context_parallel_axis=context_parallel_axis,
@@ -214,16 +293,44 @@ class ParallelTransformerLayer(nn.Module):
             hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
             params_dtype=params_dtype, device=dev, generator=generator)
 
-    def forward(self, x, attention_mask=None, segment_ids=None):
-        attn = self.self_attention(self.input_layernorm(x), attention_mask,
-                                   segment_ids)
+    def forward(self, x, attention_mask=None, segment_ids=None, *,
+                deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None):
+        """The dropouts draw from ``dropout_generator`` in a fixed order
+        (the attention's seed or mask, then the two hidden masks)."""
+        drop = _active(self.hidden_dropout, deterministic, dropout_generator)
+        ln1 = self.input_layernorm(x)
+        # each recipe binds its input now: ``x`` is rebound below
+        ln1 = recompute.checkpoint_name(
+            ln1, "ln_out", functools.partial(self.input_layernorm, x),
+            (x, *self.input_layernorm.parameters()))
+        attn = self.self_attention(ln1, attention_mask, segment_ids,
+                                   deterministic=deterministic,
+                                   dropout_generator=dropout_generator)
+        if drop:
+            attn = dropout(attn, self.hidden_dropout, dropout_generator)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x))
+        ln2 = self.post_attention_layernorm(x)
+        ln2 = recompute.checkpoint_name(
+            ln2, "ln_out", functools.partial(self.post_attention_layernorm, x),
+            (x, *self.post_attention_layernorm.parameters()))
+        mlp = self.mlp(ln2)
+        if drop:
+            mlp = dropout(mlp, self.hidden_dropout, dropout_generator)
+        return x + mlp
 
 
 class ParallelTransformer(nn.Module):
     """A stack of ``num_layers`` layers (``layers.i``) and, with
-    ``final_layernorm``, the final LayerNorm."""
+    ``final_layernorm``, the final LayerNorm.
+
+    ``activations_checkpoint`` (or a policy, which implies it) recomputes
+    each layer in the backward under ``activations_checkpoint_policy``:
+    ``None`` the whole layer, ``"dots"`` / ``"dots_no_batch"`` all but the
+    products, ``"except_activations"`` only the norm outputs and the gelu
+    output (:mod:`apex_tpu_torch.transformer.recompute`).  Both attributes
+    may be changed after construction.  ``hidden_dropout`` and
+    ``attention_dropout`` go to every layer (the JAX stack has neither)."""
 
     def __init__(self, num_layers: int, hidden_size: int,
                  num_attention_heads: int,
@@ -235,17 +342,23 @@ class ParallelTransformer(nn.Module):
                  context_parallel_axis: Optional[str] = None,
                  moe_num_experts: Optional[int] = None,
                  final_layernorm: bool = True, *,
+                 hidden_dropout: float = 0.0, attention_dropout: float = 0.0,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if activations_checkpoint or activations_checkpoint_policy:
-            raise _not_yet("activation checkpointing (and its policies)",
-                           "memory slice")
+        if activations_checkpoint_policy not in recompute.POLICIES:
+            raise ValueError(
+                f"activations_checkpoint_policy "
+                f"{activations_checkpoint_policy!r} is not one of "
+                f"{recompute.POLICIES}")
+        self.activations_checkpoint = activations_checkpoint
+        self.activations_checkpoint_policy = activations_checkpoint_policy
         dev = resolve_device(device)
         self.layers = nn.ModuleList(
             ParallelTransformerLayer(
                 hidden_size, num_attention_heads,
-                attn_mask_type=attn_mask_type, apply_rope=apply_rope,
+                attn_mask_type=attn_mask_type, hidden_dropout=hidden_dropout,
+                attention_dropout=attention_dropout, apply_rope=apply_rope,
                 use_flash_attention=use_flash_attention,
                 sequence_parallel_enabled=sequence_parallel_enabled,
                 context_parallel_axis=context_parallel_axis,
@@ -258,9 +371,35 @@ class ParallelTransformer(nn.Module):
                            device=dev)
             if final_layernorm else None)
 
-    def forward(self, x, attention_mask=None, segment_ids=None):
+    def _layer(self, layer, x, attention_mask, segment_ids, deterministic,
+               dropout_generator):
+        def run(x, attention_mask, segment_ids, dropout_generator):
+            return layer(x, attention_mask, segment_ids,
+                         deterministic=deterministic,
+                         dropout_generator=dropout_generator)
+
+        # the generator among the arguments: a recompute draws the forward's
+        # masks again
+        args = (x, attention_mask, segment_ids, dropout_generator)
+        policy = self.activations_checkpoint_policy
+        if not ((self.activations_checkpoint or policy)
+                and torch.is_grad_enabled()):
+            return run(*args)
+        if policy == "except_activations":
+            with recompute.drop_named_activations(("ln_out", "mlp_act")):
+                return run(*args)
+        if policy is None:
+            return checkpoint(run, False, *args)
+        return checkpoint(run, False, *args,
+                          context_fn=recompute.dots_context(
+                              batched=policy == "dots"))
+
+    def forward(self, x, attention_mask=None, segment_ids=None, *,
+                deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, attention_mask, segment_ids)
+            x = self._layer(layer, x, attention_mask, segment_ids,
+                            deterministic, dropout_generator)
         if self.final_layernorm is not None:
             x = self.final_layernorm(x)
         return x
@@ -336,6 +475,9 @@ class TransformerLanguageModel(nn.Module):
             moe_num_experts=moe_num_experts, **kw)
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
-                segment_ids=None):
+                segment_ids=None, *, deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None):
         x = self.embedding(input_ids, position_ids)
-        return self.transformer(x, attention_mask, segment_ids)
+        return self.transformer(x, attention_mask, segment_ids,
+                                deterministic=deterministic,
+                                dropout_generator=dropout_generator)

@@ -17,7 +17,9 @@ ends the run with a non-zero exit and no result line:
    against the plain PyTorch version on the same inputs, at the stated
    tolerance (a softmax row above the kernel's maximum must raise).  Then
    the kernel, the plain version and the library call (``F.rms_norm``, and
-   ``F.layer_norm`` at GPT-2-large's and OpenFold's LayerNorm shapes;
+   ``F.layer_norm`` at GPT-2-large's, OpenFold's, BERT-large's and
+   ViT-L/16's LayerNorm shapes, the last two with fp32 weights and their
+   eps;
    ``F.scaled_dot_product_attention``; ``F.linear`` + ``F.cross_entropy``;
    ``torch.softmax`` and ``aten._softmax_backward_data``; none for LAMB;
    ``torch._fused_adamw_`` and ``torch._fused_adagrad_`` over one flat
@@ -31,7 +33,9 @@ ends the run with a non-zero exit and no result line:
    SFU rate: the largest).  The pair-bias kernels and the materialized
    route are also timed at the two routing shapes, N_res 256 and 1024.
    The flash forward and backward are also checked at GPT-2-large's
-   flagship shape and for the same bits on a repeated call at the main
+   flagship shape (and with the layers' dropout), BERT-large's (padding
+   segment ids, not causal), GPT-1.3B's, and for the same bits on a
+   repeated call at the main
    shape, and timed at both models' shapes with each kernel's TFLOP/s and
    the host side of a call.  The head forward is also checked at
    GPT-2-large's head shape (V 50257) and for the same bits on a repeated
@@ -123,8 +127,9 @@ ends the run with a non-zero exit and no result line:
      real-clock Poisson run's TTFT / TPOT / queue-wait percentiles, the
      telemetry's cost, and ``start_torch_profiler`` around three decode
      steps (the trace names the norm kernel; as many device-to-host copies
-     with the telemetry on as off).  Then the weight lifecycle, its
-     checkpoints (2.25 GB each, at most three) in a temporary directory
+     with the telemetry on as off).  Then the weight lifecycle, on
+     ``llama-1b``'s width at 4 of its 22 layers (``LIFECYCLE_LAYERS``), its
+     checkpoints (0.62 GB each, at most three) in a temporary directory
      under the checkout, removed however the run ends:
      ``phase3-serving-reload`` (save and restore walls, the restore split
      into read + CRC and host-to-device; the 12 requests served while an
@@ -281,6 +286,36 @@ ends the run with a non-zero exit and no result line:
      with bf16 moments: 73/73 norm, 36/36/36 flash, 1/1/1 head, 1
      ``mt_l2norm``, 1 ``mt_lamb``); a loss that falls every step,
      step wall, tokens/s, MFU, idle share, peak memory and a profile.
+   - *BERT and ViT* (``phase3-bert-reference``, ``phase3-vit-reference``,
+     ``phase3-train-bert-large``, ``phase3-train-vit-l16``): a small fp32
+     BERT (flash with padding segment ids, and the fused softmax with the
+     4-d mask) and a small fp32 ViT, loss, every gradient and 3 steps of
+     their optimizers on the card against the CPU; then BERT-large
+     (``tools/model_bench.py``'s card through ``examples/bert_pretrain.py``:
+     24 x 1024, b 16 x s 512, 15% masked, lengths in [0.9 s, s], O2,
+     ``FusedLAMB`` bf16 moments, over DDP at NCCL world 1) 1 + 8 steps with
+     50/50 norm, 24/24/24 flash, 1 ``mt_l2norm`` and 1 ``mt_lamb`` a step,
+     and ViT-L/16 (b 64 x 224^2 x 3 bf16, 1000 classes, ``FusedAdam(3e-4,
+     wd 0.05)``) 1 + 4 steps with 49/49 norm and 1 ``mt_adam``: a last loss
+     below the warm-up's, step wall, MFU, peak memory.
+   - *activation recompute* (``phase3-train-gpt-1.3b``,
+     ``phase3-train-gpt-policies``, ``phase3-train-llama-remat``):
+     ``bench.py``'s ``1.3b`` card (24 x 2048, b 8 x s 1024, O2, bf16 LAMB
+     moments) with whole-layer recompute beside the same model without: at
+     the same weights the loss and every gradient bit for bit and the
+     recompute's extra launches exactly 48 norm and 24 flash forwards; then
+     1 + 4 steps of each (step p50, MFU, peak; the recompute's peak below);
+     the three named policies at 4 layers of that width, each bit for bit
+     with its extra launches (8 norm + 4 flash, or 8 norm for
+     ``"except_activations"``); Llama at 4 layers of ``llama-1b`` with
+     ``activations_checkpoint``, bit for bit, 8 norm + 4 flash extra.
+   - *dropout* (``phase3-dropout``): 4 layers at GPT-2-large's width with
+     hidden and attention dropout 0.1: ``deterministic=True`` equal to the
+     stack without dropout bit for bit; the flash forward, dq and dk/dv
+     called with the rate and each layer's seed; the dropped shares of the
+     attention's probabilities and of the hidden activations within 6
+     binomial deviations of 0.1; whole-layer recompute under dropout bit
+     for bit.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -305,6 +340,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -323,7 +359,13 @@ MUFU_EXP_PER_S = 132 * 16 * 1.98e9
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    """One phase's line, with ``t_s``: the seconds since the script began
+    (where the run's time goes)."""
+    fields["t_s"] = round(time.perf_counter() - _T0, 1)
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
 
 
@@ -451,23 +493,29 @@ def check_layer_norm(device) -> float:
     # and GPT-2-large's h 1280
     for n, h in NORM_LN_SHAPES.values():
         cases.append((False, "bfloat16", True, True, "bfloat16", n, h, 0, False))
+    cases = [c + (1e-5,) for c in cases]
+    # BERT-large's, ViT-L/16's and GPT-1.3B's LayerNorms under O2: bf16
+    # rows, fp32 weight and bias, each model's eps
+    for n, h, eps in NORM_LN_O2_SHAPES.values():
+        cases.append((False, "bfloat16", True, True, "float32", n, h, 0, False,
+                      eps))
     worst_ulp, main_abs = 0.0, 0.0
     with torch.no_grad():
-        for rms, xdt, has_w, has_b, wdt, n, h, offset, main in cases:
+        for rms, xdt, has_w, has_b, wdt, n, h, offset, main, eps in cases:
             buf = torch.randn(n * h + offset, generator=g, device=device) * 2 + 0.5
             x = buf.to(dtypes[xdt])[offset:].view(n, h)
             w = ((1 + 0.1 * torch.randn(h, generator=g, device=device))
                  .to(dtypes[wdt]) if has_w else None)
             b = ((0.1 * torch.randn(h, generator=g, device=device))
                  .to(dtypes[wdt]) if has_b else None)
-            y, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-5, rms)
+            y, mean, rstd = ln.layer_norm_fwd(x, w, b, eps, rms)
             torch.cuda.synchronize()
-            ry, rmean, rrstd = ln._plain_forward(x, w, b, 1e-5, rms)
+            ry, rmean, rrstd = ln._plain_forward(x, w, b, eps, rms)
             ulp = _ulp_err(y, ry, xdt)
             stats = max(_ulp_err(mean, rmean, "float32"),
                         _ulp_err(rstd, rrstd, "float32"))
             case = dict(rms=rms, x=xdt, w=wdt if has_w else None,
-                        bias=has_b, n=n, h=h, offset=offset)
+                        bias=has_b, n=n, h=h, offset=offset, eps=eps)
             if ulp > 1.0 or stats > 1.0:
                 raise AssertionError(
                     f"layer_norm_fwd disagrees with its plain version: "
@@ -488,6 +536,13 @@ def check_layer_norm(device) -> float:
 # 256) and pair rows z (N_res^2, c_z 128)
 NORM_LN_SHAPES = {"gpt2_large": (8192, 1280), "openfold_m": (131072, 256),
                   "openfold_z": (1048576, 128)}
+# (n, h, eps) of the O2 models' LayerNorms (bf16 rows, fp32 weight and
+# bias): BERT-large's b 16 x s 512 (the transformer's eps 1e-5),
+# ViT-L/16's b 64 x 197 tokens (eps 1e-12) and GPT-1.3B's b 8 x s 1024
+# (bench.py:93-98, eps 1e-5)
+NORM_LN_O2_SHAPES = {"bert_large": (8192, 1024, 1e-5),
+                     "vit_l16": (12608, 1024, 1e-12),
+                     "gpt_1p3b": (8192, 2048, 1e-5)}
 
 
 def time_layer_norm(device):
@@ -503,19 +558,26 @@ def time_layer_norm(device):
 
     rows = []
     g = torch.Generator(device=device).manual_seed(2)
-    shapes = [(None, n, 2048, True) for n in (8, 512, 8192)] + [
-        (name, n, h, False) for name, (n, h) in NORM_LN_SHAPES.items()]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    shapes = [(None, n, 2048, True, 1e-5, bf16) for n in (8, 512, 8192)] + [
+        (name, n, h, False, 1e-5, bf16)
+        for name, (n, h) in NORM_LN_SHAPES.items()] + [
+        (name, n, h, False, eps, fp32)
+        for name, (n, h, eps) in NORM_LN_O2_SHAPES.items()]
     with torch.no_grad():
-        for name, n, h, rms in shapes:
+        for name, n, h, rms, eps, wdt in shapes:
             x = torch.randn(n, h, generator=g, device=device).to(torch.bfloat16)
-            w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(torch.bfloat16)
+            w = (1 + 0.1 * torch.randn(h, generator=g, device=device)).to(wdt)
             b = None if rms else (0.1 * torch.randn(h, generator=g, device=device)).to(
-                torch.bfloat16)
+                wdt)
+            # F.layer_norm takes a weight and bias of x's dtype only
+            wl = w.to(x.dtype)
+            bl = None if b is None else b.to(x.dtype)
             calls = {
-                "kernel": lambda: ln.layer_norm_fwd(x, w, b, 1e-5, rms),
-                "plain": lambda: ln._plain_forward(x, w, b, 1e-5, rms),
-                "library": (lambda: F.rms_norm(x, (h,), w, 1e-5)) if rms else
-                           (lambda: F.layer_norm(x, (h,), w, b, 1e-5))}
+                "kernel": lambda: ln.layer_norm_fwd(x, w, b, eps, rms),
+                "plain": lambda: ln._plain_forward(x, w, b, eps, rms),
+                "library": (lambda: F.rms_norm(x, (h,), wl, eps)) if rms else
+                           (lambda: F.layer_norm(x, (h,), wl, bl, eps))}
             # device times in turns (kernel, plain, library, kernel), then
             # the host-bound back-to-back times
             dev = {k: device_ms(fn) for k, fn in calls.items()}
@@ -523,12 +585,14 @@ def time_layer_norm(device):
             host = {k: time_ms(fn) for k, fn in calls.items()}
             # each input read once, each output written once: x, w (and
             # b); y, mean, rstd.  About 6 fp32 operations per element.
-            nbytes = 2 * n * h + 2 * h * (1 if rms else 2) + 2 * n * h + 2 * 4 * n
+            nbytes = (2 * n * h + wdt.itemsize * h * (1 if rms else 2)
+                      + 2 * n * h + 2 * 4 * n)
             ops = 6 * n * h
             bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ops = ops / FP32_OPS_PER_S * 1e3
             rows.append(dict(
                 n=n, h=h, norm="rms" if rms else "layer_norm", path=name,
+                eps=eps, weight=str(wdt).replace("torch.", ""),
                 grid=ln.fwd_grid(n, h, torch.bfloat16, torch.cuda.get_device_properties(
                     device).multi_processor_count),
                 library_call="F.rms_norm" if rms else "F.layer_norm",
@@ -558,9 +622,24 @@ FLASH_PP = dict(FLASH_MAIN, b=1)
 # GPT-2-large's flagship attention (bench.py:81-84): b 8, 20 heads of 64,
 # s 1024, no GQA
 FLASH_GPT = dict(b=8, h=20, hk=20, s=1024, d=64)
+# BERT-large (tools/model_bench.py:175-233): b 16, 16 heads of 64, s 512,
+# not causal, padding segment ids; GPT-1.3B (bench.py:93-98): b 8, 32
+# heads of 64, s 1024
+FLASH_BERT = dict(b=16, h=16, hk=16, s=512, d=64)
+FLASH_GPT13 = dict(b=8, h=32, hk=32, s=1024, d=64)
+# the model shapes of this slice, forward and backward: BERT's padding,
+# GPT-1.3B's, and GPT-2-large's with the layers' attention dropout
+FLASH_SLICE_CASES = (
+    dict(FLASH_BERT, dtype="bfloat16", causal=False, sq=512, sk=512,
+         seg="padding"),
+    dict(FLASH_GPT13, dtype="bfloat16", causal=True, sq=1024, sk=1024),
+    dict(FLASH_GPT, dtype="bfloat16", causal=True, sq=1024, sk=1024,
+         rate=0.1, seed=2 ** 31 - 2))
 HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
 # GPT-2-large's head at b 8, s 1024 (bench.py:81-84): vocab 50257, Vp 50304
 HEAD_GPT = dict(t=8192, hid=1280, vocab=50257)
+# GPT-1.3B's head at b 8, s 1024 (bench.py:93-98): hid 2048, V 50304
+HEAD_GPT13 = dict(t=8192, hid=2048, vocab=50304)
 
 
 def _tol_ratio(actual, expected, tol) -> float:
@@ -613,6 +692,13 @@ def _flash_inputs(case, g, device):
         seg = ((torch.arange(sq, device=device) >= sq // 3).int().expand(b, sq),
                (torch.arange(sk, device=device) >= sk // 3).int().expand(b, sk))
         seg = tuple(t.contiguous() for t in seg)
+    elif case.get("seg") == "padding":
+        # BERT's mask as segment ids: kept tokens 1, the pad tail 0, each
+        # row's length in [0.9 s, s]
+        lens = torch.randint(int(sq * 0.9), sq + 1, (b,), generator=g,
+                             device=device)
+        keep = (torch.arange(sq, device=device)[None, :] < lens[:, None]).int()
+        seg = (keep, keep)
     return q, k, v, seg
 
 
@@ -647,6 +733,7 @@ def check_flash_attention(device) -> dict:
                       sq=FLASH_PP["s"], sk=FLASH_PP["s"]))
     cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
                       sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
+    cases.extend(FLASH_SLICE_CASES)
     g = torch.Generator(device=device).manual_seed(11)
     worst_o = worst_lse = 0.0
     main = {}
@@ -732,7 +819,8 @@ def check_lm_head(device) -> dict:
     dtypes, token counts and vocabularies off the 128 and 256 tiles, hidden
     sizes, labels -100, vocab - 1 and vocab, the main path's shape,
     GPT-2-large's head shape (V 50257: 175 pad columns in the last vocab
-    tile), and a repeated call at the main shape equal bit for bit."""
+    tile), GPT-1.3B's (V 50304, h 2048), and a repeated call at the main
+    shape equal bit for bit."""
     import torch
     from apex_tpu_torch.ops import fused_lm_head as lh
 
@@ -742,6 +830,7 @@ def check_lm_head(device) -> dict:
                                    (257, 32000, 256), (128, 256, 2048))]
     cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True, model_init=True))
     cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
+    cases.append(dict(HEAD_GPT13, dtype="bfloat16", model_init=True))
     g = torch.Generator(device=device).manual_seed(12)
     worst, main = 0.0, {}
     with torch.inference_mode():
@@ -1027,7 +1116,15 @@ NORM_BWD_SHAPES = (("llama_1b", 8192, 2048, True, "float32", None, 45),
                    ("openfold_m", *NORM_LN_SHAPES["openfold_m"], False, "bfloat16",
                     "bfloat16", 4),
                    ("openfold_z", *NORM_LN_SHAPES["openfold_z"], False, "bfloat16",
-                    "bfloat16", 4))
+                    "bfloat16", 4),
+                   # O2 BERT-large (24 layers x 2, the final and the LM
+                   # head's), ViT-L/16 and GPT-1.3B (24 x 2 and the final)
+                   ("bert_large", *NORM_LN_O2_SHAPES["bert_large"][:2], False,
+                    "float32", "float32", 50),
+                   ("vit_l16", *NORM_LN_O2_SHAPES["vit_l16"][:2], False,
+                    "float32", "float32", 49),
+                   ("gpt_1p3b", *NORM_LN_O2_SHAPES["gpt_1p3b"][:2], False,
+                    "float32", "float32", 49))
 
 
 def check_layer_norm_bwd(device) -> dict:
@@ -1289,6 +1386,7 @@ def check_flash_attention_bwd(device) -> dict:
                       sq=FLASH_PP["s"], sk=FLASH_PP["s"]))
     cases.append(dict(FLASH_GPT, dtype="bfloat16", causal=True,
                       sq=FLASH_GPT["s"], sk=FLASH_GPT["s"]))
+    cases.extend(FLASH_SLICE_CASES)
     g = torch.Generator(device=device).manual_seed(22)
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     main = {}
@@ -1403,7 +1501,7 @@ def check_lm_head_bwd(device) -> dict:
     same (H, E, labels, lse, g) over the forward check's dtypes, token
     counts and vocabularies off the tile, hidden sizes, labels -100 and
     vocab, with a non-uniform g; the main path's shape in bf16 and fp16,
-    GPT-2-large's head shape, T, V and h off every tile edge of the wgmma
+    GPT-2-large's and GPT-1.3B's head shapes, T, V and h off every tile edge of the wgmma
     products (T 129, V 50257, h 1288), and two calls on the same inputs,
     which must give dH and dE bit for bit.  fp16 cases take the fp16 amp
     path's cotangent (times its loss scale), and every case's tolerance
@@ -1418,6 +1516,7 @@ def check_lm_head_bwd(device) -> dict:
     cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True, model_init=True))
     cases.append(dict(HEAD_MAIN, dtype="float16", model_init=True))
     cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
+    cases.append(dict(HEAD_GPT13, dtype="bfloat16", model_init=True))
     cases += [dict(dtype=dt, t=129, vocab=50257, hid=1288)
               for dt in ("bfloat16", "float16")]
     g = torch.Generator(device=device).manual_seed(23)
@@ -3319,6 +3418,199 @@ def _mt_time(kernel, plain, library, nbytes, graph_plain=True) -> dict:
     return row
 
 
+def _mt_sub(tensors, limit: int = 200_000_000) -> int:
+    """How many of ``tensors``, from the first, a check holds against the
+    plain version: whole tensors up to ``limit`` elements, at least one."""
+    total, k = 0, 0
+    for t in tensors:
+        if total + t.numel() > limit and k:
+            break
+        total, k = total + t.numel(), k + 1
+    return k
+
+
+def _mt_adam_kw(mode, device, **extra) -> dict:
+    """mt_adam's arguments at ``MT_ADAM_HYPER``, weight decay 0.01 and the
+    bias corrections of step 2 (0.19, 0.002)."""
+    import torch
+
+    h = MT_ADAM_HYPER
+    return dict(mode=mode, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
+                eps=h["eps"], weight_decay=0.01,
+                inv_scale=extra.pop("inv_scale", None),
+                bc1=torch.tensor(0.19, device=device),
+                bc2=torch.tensor(0.002, device=device), noop=None,
+                step=extra.pop("step", None),
+                n_averaged=extra.pop("n_averaged", None),
+                swa_weight=extra.pop("swa_weight", 0.0),
+                swa_start_step=0)
+
+
+def _mt_adam_err(g, p, m, v, copy, swa, kw, k) -> tuple:
+    """Max abs error and tolerance ratio (``_mt_adam_tols``) of mt_adam
+    against its plain version over the first ``k`` tensors (copies)."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    runs = []
+    for fn in (mt._kernel_adam, mt._plain_adam):
+        tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
+        tc = None if copy is None else [t.clone() for t in copy[:k]]
+        ts = None if swa is None else [t.clone() for t in swa[:k]]
+        fn(g[:k], tp, tm, tv, tc, ts, **kw)
+        torch.cuda.synchronize()
+        runs.append([dict(p=a, m=b, v=c, **({} if tc is None else
+                                            {"copy": tc[j]}),
+                          **({} if ts is None else {"swa": ts[j]}))
+                     for j, (a, b, c) in enumerate(zip(tp, tm, tv))])
+    got, ref = runs
+    case = dict(mode={mt.SWA_PYTORCH_ADAM: "pytorch"}.get(kw["mode"], "x"),
+                wd=kw["weight_decay"], n_averaged=1,
+                swa_weight=kw["swa_weight"])
+    inv = 1.0 if kw["inv_scale"] is None else float(kw["inv_scale"])
+    tols = [_mt_adam_tols(*x, r, case, inv, 0.19, 0.002)
+            for x, r in zip(zip(g[:k], p[:k], m[:k], v[:k]), ref)]
+    err = max(float((a[key].float() - b[key].float()).abs().max())
+              for a, b in zip(got, ref) for key in a)
+    return err, _mt_ratio(got, ref, tols)
+
+
+def _mt_lamb_kw(device) -> dict:
+    """mt_lamb's arguments as the unpacked ``FusedLAMB`` of the GPT and
+    BERT paths calls it (lr 1e-3, weight decay 0.01, AdamW mode, the trust
+    ratio), with a clip of 1.3 and the bias corrections of step 2."""
+    import torch
+
+    return dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                weight_decay=0.01, adam_w_mode=True, use_ratio=True,
+                inv_scale=None, clip=torch.tensor(1.3, device=device),
+                bc1=torch.tensor(0.19, device=device),
+                bc2=torch.tensor(0.002, device=device), noop=None)
+
+
+def _mt_lamb_err(g, p, m, v, kw, k) -> tuple:
+    """Max abs error and tolerance ratio (``_mt_lamb_tols``) of mt_lamb
+    against its plain version over the first ``k`` tensors (copies),
+    with ``kw`` from ``_mt_lamb_kw``."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    runs = []
+    for fn in (mt._kernel_lamb, mt._plain_lamb):
+        tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
+        fn(g[:k], tp, tm, tv, None, **kw)
+        torch.cuda.synchronize()
+        runs.append([dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)])
+    case = dict(wd=kw["weight_decay"], use_ratio=kw["use_ratio"],
+                adam_w=kw["adam_w_mode"])
+    rels = _mt_lamb_norm_rels([g[:k], p[:k], m[:k], v[:k]])
+    tols = [_mt_lamb_tols(*x, r, case, 1.0, float(kw["clip"]),
+                          float(kw["bc1"]), float(kw["bc2"]), rel)
+            for x, r, rel in zip(zip(g[:k], p[:k], m[:k], v[:k]), runs[1],
+                                 rels)]
+    ratio = _mt_ratio(runs[0], runs[1], tols)
+    err = max(float((a[key].float() - b[key].float()).abs().max())
+              for a, b in zip(*runs) for key in a)
+    return err, ratio
+
+
+def _o2_spec(model, layers: int) -> list:
+    """``[(shape, dtype)]`` of ``model`` (built with one layer, then O2
+    cast) at ``layers`` layers, in its parameter order: the parameters
+    under ``layers.0.`` repeated once a layer where they stand."""
+    import re
+
+    named = [(n, (tuple(p.shape), str(p.dtype).replace("torch.", "")))
+             for n, p in model.named_parameters()]
+    block = [i for i, (n, _) in enumerate(named)
+             if re.search(r"(^|\.)layers\.0\.", n)]
+    if not block or block != list(range(block[0], block[-1] + 1)):
+        raise AssertionError(f"no contiguous layers.0 block: {named}")
+    spec = [s for _, s in named]
+    return (spec[:block[0]] + spec[block[0]:block[-1] + 1] * layers
+            + spec[block[-1] + 1:])
+
+
+def mt_model_lists(device) -> dict:
+    """The parameter lists the optimizers of the BERT-large, GPT-1.3B
+    (mt_lamb) and ViT-L/16 (mt_adam) paths walk, each model built at one
+    layer of its full width and O2 cast (``_o2_spec``): ``name ->
+    [(shape, dtype)]``."""
+    import dataclasses
+
+    from apex_tpu_torch.examples import bert_pretrain as bp
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
+    from apex_tpu_torch.transformer.testing import BertModel, GPTModel
+
+    b, g = bp.LARGE, gpt_pretrain.CONFIGS["1.3b"]
+    vit = ViTConfig.vit_l16()
+    one = {
+        "bert_large": (BertModel(
+            num_layers=1, hidden_size=b["hidden"],
+            num_attention_heads=b["heads"], vocab_size=b["vocab"],
+            max_sequence_length=b["seq"], device=device), b["layers"]),
+        "gpt_1p3b": (GPTModel(
+            num_layers=1, hidden_size=g["hidden"],
+            num_attention_heads=g["heads"], vocab_size=g["vocab"],
+            max_sequence_length=g["seq"], device=device), g["layers"]),
+        "vit_l16": (ViTForImageClassification(
+            dataclasses.replace(vit, num_hidden_layers=1), device=device),
+            vit.num_hidden_layers)}
+    return {name: _o2_spec(o2_cast(model), layers)
+            for name, (model, layers) in one.items()}
+
+
+# the slice's lists are held against the plain version over their first
+# tensors up to this many elements: BERT-large's and ViT-L/16's whole,
+# GPT-1.3B's first 72 of 292 tensors (its embeddings and nearly six
+# layers, 390 M elements: for the whole list, the two runs' copies and
+# the fp32 tolerances would come to some 31 GB by arithmetic)
+MT_MODEL_CHECK_ELEMENTS = 400_000_000
+
+
+def check_multi_tensor_model_lists(device) -> dict:
+    """mt_lamb on BERT-large's and GPT-1.3B's O2 lists (bf16 moments, as
+    their ``FusedLAMB(state_dtype=bf16)``) and mt_adam on ViT-L/16's (its
+    ``FusedAdam``'s fp32 moments) against their plain versions, each list
+    from :func:`mt_model_lists`, at ``_mt_lamb_tols`` / ``_mt_adam_tols``."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=device).manual_seed(74)
+    out = {}
+    with torch.no_grad():
+        for name, spec in mt_model_lists(device).items():
+            lamb = name != "vit_l16"
+            moments = "bfloat16" if lamb else "float32"
+            p = _mt_list_tensors(spec, gen, device)
+            g = _mt_list_tensors(spec, gen, device, 0.01)
+            m = _mt_list_tensors(spec, gen, device, 1e-3, dtype=moments)
+            v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
+                                 dtype=moments)
+            k = _mt_sub(p, MT_MODEL_CHECK_ELEMENTS)
+            err, ratio = (_mt_lamb_err(g, p, m, v, _mt_lamb_kw(device), k)
+                          if lamb else
+                          _mt_adam_err(g, p, m, v, None, None,
+                                       _mt_adam_kw(mt.ADAMW, device), k))
+            kernel = "mt_lamb" if lamb else "mt_adam"
+            row = dict(kernel=kernel, list=f"{name} (O2, {moments} moments)",
+                       tensors=len(p), elements=sum(t.numel() for t in p),
+                       checked_tensors=k,
+                       checked_elements=sum(t.numel() for t in p[:k]),
+                       max_abs_err=err, tol_ratio=ratio,
+                       tolerance="_mt_lamb_tols" if lamb else "_mt_adam_tols")
+            if ratio > 1.0:
+                raise AssertionError(f"{kernel} at {name}'s list: "
+                                     f"{ratio:.3f} x tol")
+            out[name] = row
+            log("phase2-check", **row)
+            del p, g, m, v
+            torch.cuda.empty_cache()
+    return out
+
+
 def time_multi_tensor(device) -> dict:
     """The four multi-tensor kernels at the main paths' real parameter lists
     (``mt_param_lists``), each beside its bytes bound, its plain version,
@@ -3350,50 +3642,11 @@ def time_multi_tensor(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(73)
     h = MT_ADAM_HYPER
     out = {}
-
-    def sub(n_tensors_list):
-        total, k = 0, 0
-        for t in n_tensors_list:
-            if total + t.numel() > 200_000_000 and k:
-                break
-            total, k = total + t.numel(), k + 1
-        return k
+    sub = _mt_sub
+    adam_err = _mt_adam_err
 
     def adam_kw(mode, **extra):
-        return dict(mode=mode, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
-                    eps=h["eps"], weight_decay=0.01,
-                    inv_scale=extra.pop("inv_scale", None),
-                    bc1=torch.tensor(0.19, device=device),
-                    bc2=torch.tensor(0.002, device=device), noop=None,
-                    step=extra.pop("step", None),
-                    n_averaged=extra.pop("n_averaged", None),
-                    swa_weight=extra.pop("swa_weight", 0.0),
-                    swa_start_step=0)
-
-    def adam_err(g, p, m, v, copy, swa, kw, k):
-        """Max abs error and tolerance ratio of mt_adam against its plain
-        version over the first ``k`` tensors (copies)."""
-        runs = []
-        for fn in (mt._kernel_adam, mt._plain_adam):
-            tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
-            tc = None if copy is None else [t.clone() for t in copy[:k]]
-            ts = None if swa is None else [t.clone() for t in swa[:k]]
-            fn(g[:k], tp, tm, tv, tc, ts, **kw)
-            torch.cuda.synchronize()
-            runs.append([dict(p=a, m=b, v=c, **({} if tc is None else
-                                                {"copy": tc[j]}),
-                              **({} if ts is None else {"swa": ts[j]}))
-                         for j, (a, b, c) in enumerate(zip(tp, tm, tv))])
-        got, ref = runs
-        case = dict(mode={mt.SWA_PYTORCH_ADAM: "pytorch"}.get(kw["mode"], "x"),
-                    wd=kw["weight_decay"], n_averaged=1,
-                    swa_weight=kw["swa_weight"])
-        inv = 1.0 if kw["inv_scale"] is None else float(kw["inv_scale"])
-        tols = [_mt_adam_tols(*x, r, case, inv, 0.19, 0.002)
-                for x, r in zip(zip(g[:k], p[:k], m[:k], v[:k]), ref)]
-        err = max(float((a[key].float() - b[key].float()).abs().max())
-                  for a, b in zip(got, ref) for key in a)
-        return err, _mt_ratio(got, ref, tols)
+        return _mt_adam_kw(mode, device, **extra)
 
     with torch.no_grad():
         # -- Llama-1B bf16: mt_adam, bf16 moments ----------------------------
@@ -3523,28 +3776,9 @@ def time_multi_tensor(device) -> dict:
                                 "global norm not taken)")
         out["l2norm_gpt2_large"] = row
         log("phase2-time", kernel="mt_l2norm", **row)
-        clip = torch.tensor(1.3, device=device)
-        lkw = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
-                   weight_decay=0.01, adam_w_mode=True, use_ratio=True,
-                   inv_scale=None, clip=clip,
-                   bc1=torch.tensor(0.19, device=device),
-                   bc2=torch.tensor(0.002, device=device), noop=None)
+        lkw = _mt_lamb_kw(device)
         k = sub(p)
-        runs = []
-        for fn in (mt._kernel_lamb, mt._plain_lamb):
-            tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
-            fn(g[:k], tp, tm, tv, None, **lkw)
-            torch.cuda.synchronize()
-            runs.append([dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)])
-        case = dict(wd=0.01, use_ratio=True, adam_w=True)
-        rels = _mt_lamb_norm_rels([g[:k], p[:k], m[:k], v[:k]])
-        tols = [_mt_lamb_tols(*x, r, case, 1.0, 1.3, 0.19, 0.002, rel)
-                for x, r, rel in zip(zip(g[:k], p[:k], m[:k], v[:k]), runs[1],
-                                     rels)]
-        lamb_ratio = _mt_ratio(runs[0], runs[1], tols)
-        lamb_err = max(float((a[key].float() - b[key].float()).abs().max())
-                       for a, b in zip(*runs) for key in a)
-        del runs, tp, tm, tv
+        lamb_err, lamb_ratio = _mt_lamb_err(g, p, m, v, lkw, k)
         if lamb_ratio > 1.0:
             raise AssertionError(f"mt_lamb at GPT-2-large's list: "
                                  f"{lamb_ratio:.3f} x tol")
@@ -6081,16 +6315,19 @@ def small_reference_check(device) -> dict:
     return out
 
 
-def build_llama_1b(device):
-    """The ``llama-1b`` card, bf16, weights from a seeded generator on the
-    card; returns ``(model, init_s)``."""
+def build_llama_1b(device, layers=None):
+    """The ``llama-1b`` card (at ``layers`` layers if given), bf16, weights
+    from a seeded generator on the card; returns ``(model, init_s)``."""
     import torch
     from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     t0 = time.perf_counter()
+    cfg = LlamaConfig.llama_1b()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
     gen = torch.Generator(device=device).manual_seed(0)
-    model = LlamaForCausalLM(LlamaConfig.llama_1b(), dtype=torch.bfloat16,
-                             device=device, generator=gen)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device=device,
+                             generator=gen)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
@@ -6196,7 +6433,7 @@ def llama_1b(device, model, init_s, keep=None) -> dict:
     out["export"] = export_adopt_checks(model, requests[:kw["slots"]], sv,
                                         device, **kw)
     out["export_s"] = time.perf_counter() - t0
-    out.update(lifecycle_checks(model, requests, sv, device, **kw))
+    out.update(lifecycle_checks(requests, sv, device, **kw))
     return out
 
 
@@ -6209,15 +6446,25 @@ def _compact(record):
     return record
 
 
-def lifecycle_checks(model, requests, sv, device, **kw) -> dict:
-    """The weight lifecycle's four phases, their checkpoints in a
-    temporary directory under the checkout (at most three steps at once,
-    2.25 GB each), removed however the phases end."""
+# the weight lifecycle's depth: ``llama-1b``'s width at 4 of its 22
+# layers.  Its time is checkpoint I/O and host-bound serving steps, both
+# in proportion to the layers, and its gates (streams bit for bit across
+# the swaps, verdicts and virtual numbers equal to a CPU dry run's) hold
+# at any depth; the other serving phases keep all 22
+LIFECYCLE_LAYERS = 4
+
+
+def lifecycle_checks(requests, sv, device, **kw) -> dict:
+    """The weight lifecycle's four phases on ``llama-1b`` at
+    ``LIFECYCLE_LAYERS`` layers (bf16, the serving model's seed), their
+    checkpoints in a temporary directory under the checkout (at most three
+    steps at once, 0.62 GB each), removed however the phases end."""
     import shutil
     import tempfile
     import torch
 
-    out = {}
+    model, init_s = build_llama_1b(device, layers=LIFECYCLE_LAYERS)
+    out = {"lifecycle_layers": LIFECYCLE_LAYERS, "lifecycle_init_s": init_s}
     root = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT)
     try:
         out["reload"], live = reload_checks(model, requests, sv, device, root,
@@ -6235,6 +6482,7 @@ def lifecycle_checks(model, requests, sv, device, **kw) -> dict:
         log("phase3-serving-rollout", **_compact(out["rollout"]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    del model
     torch.cuda.empty_cache()
     out["lifecycle_s"] = sum(out[k]["wall_s"] for k in (
         "reload", "shadow", "fleet", "rollout"))
@@ -6787,14 +7035,107 @@ def profile_eval(model, ids, labels) -> dict:
     return out
 
 
+CARD_VS_CPU_STEPS = 3   # optimizer steps of the small models, card vs CPU
+
+
+def _grad_tol_ratio(got: dict, ref: dict) -> float:
+    """Each gradient against the reference within 1e-4 (max|g_ref| +
+    |g_ref|) (fp32 sums in another order), plus 1e-6 of the largest
+    gradient of the model: a gradient that is zero in exact arithmetic (a key bias
+    shifts every score of a query's row alike, and the softmax drops it)
+    is fp32 rounding noise on both sides (1e-8 beside gradients of 1e-2 in
+    the small ViT, 7 x its own relative limit on the CPU in fp32 against
+    fp64).  The worst ratio to it."""
+    floor = 1e-6 * max(float(r.abs().max()) for r in ref.values())
+    return max(float(((got[n] - ref[n]).abs()
+                      / (1e-4 * ref[n].abs().max() + 1e-4 * ref[n].abs()
+                         + floor + 1e-9)).max()) for n in ref)
+
+
+def _param_tol_ratio(got: dict, ref: dict, grads: dict, lr: float,
+                     steps: int) -> float:
+    """Each parameter after ``steps`` steps within 1e-5 + 2 steps lr ng /
+    (|g| + ng), ng = 1e-4 max|g_ref| + 1e-6 max over the model's |g_ref|
+    (``_grad_tol_ratio``'s limit): Adam and LAMB divide each gradient by
+    its own size, so an element whose gradient is within its noise may
+    step by up to lr either way on each side."""
+    ratio = 0.0
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads.values())
+    for n in ref:
+        ng = 1e-4 * grads[n].abs().max() + floor
+        tol = 1e-5 + 2 * steps * lr * ng / (grads[n].abs() + ng + 1e-30)
+        ratio = max(ratio, float(((got[n] - ref[n]).abs() / tol).max()))
+    return ratio
+
+
+def _card_vs_cpu(label: str, build, loss_of, make_opt, lr: float,
+                 device) -> dict:
+    """``build(dev)`` the same fp32 model on the CPU and on the card (the
+    card's loaded with the CPU's weights): the loss and every gradient,
+    then the losses and parameters of ``CARD_VS_CPU_STEPS`` optimizer steps
+    (``make_opt(params)``), each within its stated tolerance."""
+    res = {}
+    cpu_model = build("cpu")
+    gpu_model = build(device)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("cuda", gpu_model, device)):
+        loss = loss_of(model, dev)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        opt = make_opt(model.parameters())
+        losses = []
+        for _ in range(CARD_VS_CPU_STEPS):
+            opt.zero_grad(set_to_none=True)
+            step_loss = loss_of(model, dev)
+            step_loss.backward()
+            opt.step()
+            losses.append(float(step_loss.detach()))
+        params = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        res[name] = (float(loss.detach()), grads, losses, params)
+    c, d = res["cpu"], res["cuda"]
+    err = dict(loss=abs(c[0] - d[0]), grad_tol_ratio=_grad_tol_ratio(d[1], c[1]),
+               step_losses=max(abs(a - b) for a, b in zip(c[2], d[2])),
+               params_after_steps=max(float((d[3][n] - c[3][n]).abs().max())
+                                      for n in c[3]),
+               params_tol_ratio=_param_tol_ratio(d[3], c[3], c[1], lr,
+                                                 CARD_VS_CPU_STEPS),
+               params=len(c[1]), cpu_losses=c[2], card_losses=d[2])
+    if (err["loss"] > 1e-5 or err["grad_tol_ratio"] > 1.0
+            or err["step_losses"] > 1e-4 or err["params_tol_ratio"] > 1.0):
+        raise AssertionError(f"{label}: card against CPU {err}")
+    if not c[2][-1] < c[2][0]:
+        raise AssertionError(f"{label}: loss did not fall {c[2]}")
+    return err
+
+
+def _labels_loss(ids, model, dev):
+    """The mean ``labels=`` loss of ``ids`` (on ``dev``), labels the ids
+    rolled by one: the language models' training loss."""
+    import torch
+
+    x = ids.to(dev)
+    return model(x, labels=torch.roll(x, -1, dims=1)).mean()
+
+
+SMALL_CARD_TOL = ("loss 1e-5; each gradient within 1e-4 (max|g_ref| + "
+                  "|g_ref|) + 1e-6 max over the model's |g_ref| of the "
+                  "CPU's (fp32, sums in another order); the "
+                  "losses of 3 optimizer steps 1e-4; each parameter after "
+                  "them within 1e-5 + 2 x 3 lr ng / (|g| + ng), ng = 1e-4 "
+                  "max|g_ref| + 1e-6 max over the model's |g_ref|")
+
+
 def small_train_check(device) -> dict:
     """A small fp32 Llama at head dim 64 (so every kernel of the training
     path runs), with a separate head and with a tied embedding: the same
     weights on the card and on the CPU give the ``labels=`` loss and every
     parameter's gradient, then the losses and parameters of 3 FusedAdam
-    steps, each within its stated tolerance."""
+    steps (lr 1e-3), each within its stated tolerance
+    (:func:`_card_vs_cpu`)."""
     import torch
-    from apex_tpu_torch.examples.llama_pretrain import train_step
     from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from apex_tpu_torch.optimizers import FusedAdam
 
@@ -6806,61 +7147,17 @@ def small_train_check(device) -> dict:
                           num_attention_heads=2, num_key_value_heads=1,
                           max_position_embeddings=256,
                           tie_word_embeddings=tied)
-        cpu_model = LlamaForCausalLM(cfg, device="cpu",
-                                     generator=torch.Generator().manual_seed(10))
-        gpu_model = LlamaForCausalLM(cfg, device=device)
-        gpu_model.load_state_dict(cpu_model.state_dict())
-        res = {}
-        for name, model, dev in (("cpu", cpu_model, "cpu"),
-                                 ("cuda", gpu_model, device)):
-            x = ids.to(dev)
-            loss = model(x, labels=torch.roll(x, -1, dims=1)).mean()
-            loss.backward()
-            loss = loss.detach()
-            grads = {n: p.grad.detach().cpu().clone()
-                     for n, p in model.named_parameters()}
-            opt = FusedAdam(model.parameters(), lr=1e-3)
-            losses = [float(train_step(model, opt, x)) for _ in range(3)]
-            params = {n: p.detach().cpu().clone()
-                      for n, p in model.named_parameters()}
-            res[name] = (float(loss), grads, losses, params)
-        c, d = res["cpu"], res["cuda"]
-        lr, steps = 1e-3, 3
-        # Adam divides each gradient by its own size: a gradient error of
-        # up to the gradient tolerance ng moves an element's step by up to
-        # lr ng / (|g| + ng), so each parameter is held to 1e-5 plus that
-        param_ratio = 0.0
-        for n in c[3]:
-            ng = 1e-4 * c[1][n].abs().max()
-            tol = 1e-5 + steps * lr * ng / (c[1][n].abs() + ng + 1e-30)
-            param_ratio = max(param_ratio,
-                              float(((d[3][n] - c[3][n]).abs() / tol).max()))
-        grad_ratio = max(
-            float(((d[1][n] - c[1][n]).abs()
-                   / (1e-4 * c[1][n].abs().max() + 1e-4 * c[1][n].abs()
-                      + 1e-9)).max())
-            for n in c[1])
-        err = dict(loss=abs(c[0] - d[0]),
-                   grad_tol_ratio=grad_ratio,
-                   step_losses=max(abs(a - b) for a, b in zip(c[2], d[2])),
-                   params_after_3_steps=max(float((d[3][n] - c[3][n]).abs().max())
-                                            for n in c[3]),
-                   params_tol_ratio=param_ratio, params=len(c[1]))
-        if (err["loss"] > 1e-5 or grad_ratio > 1.0 or err["step_losses"] > 1e-4
-                or param_ratio > 1.0):
-            raise AssertionError(f"small Llama training (tied={tied}): card "
-                                 f"against CPU {err}")
-        if not c[2][-1] < c[2][0]:
-            raise AssertionError(f"small Llama: loss did not fall {c[2]}")
-        out["tied" if tied else "lm_head"] = err
-    out["tolerance"] = ("loss 1e-5; each gradient within 1e-4 (max|g_ref| + "
-                        "|g_ref|) of the CPU's (fp32, sums in another "
-                        "order); losses of 3 FusedAdam steps (lr 1e-3) 1e-4; "
-                        "each parameter after them within 1e-5 + 3 lr ng / "
-                        "(|g| + ng), ng = 1e-4 max|g_ref| the gradient "
-                        "tolerance: Adam divides each gradient by its own "
-                        "size, so a gradient near the noise of its fp32 "
-                        "sums moves its element by a larger share of lr")
+
+        def build(dev, cfg=cfg):
+            return LlamaForCausalLM(
+                cfg, device=dev, generator=torch.Generator().manual_seed(10)
+                if dev == "cpu" else None)
+
+        out["tied" if tied else "lm_head"] = _card_vs_cpu(
+            f"small Llama training (tied={tied})", build,
+            functools.partial(_labels_loss, ids),
+            lambda ps: FusedAdam(ps, lr=1e-3), 1e-3, device)
+    out["tolerance"] = SMALL_CARD_TOL
     log("phase3-train-reference", **out)
     return out
 
@@ -7021,12 +7318,72 @@ def _step_flops(model, b: int, s: int) -> float:
     return float(per_token * b * s)
 
 
+def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
+                 every_step: bool = False, after_step=None) -> dict:
+    """One warm-up call of ``step_fn`` (a training step returning its
+    loss), then ``steps`` timed calls with the launches of each checked
+    exactly against ``per_step``, the counts set to 0 just before them;
+    finite losses, the last below the warm-up's (``bench.py``'s gate) or,
+    with ``every_step``, each below the one before; the peak memory over
+    the timed steps, each step's wall and the host's time (wall and CPU)
+    to issue it.  ``after_step(i, losses)`` runs after step ``i``, with
+    the warm-up's loss and those so far."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0 = float(step_fn())
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
+    for i in range(steps):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        loss = step_fn()
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        step = {k: v - before[k] for k, v in _launch_counts().items()}
+        if _nonzero(step) != per_step:
+            raise AssertionError(f"{label} step {i} launched {_nonzero(step)}, "
+                                 f"expected {per_step}")
+        if after_step is not None:
+            after_step(i, [loss0] + losses)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    seq = [loss0] + losses
+    falling = (all(a > b for a, b in zip(seq, seq[1:])) if every_step
+               else losses[-1] < loss0)
+    if not all(map(math.isfinite, seq)) or not falling:
+        raise AssertionError(f"{label}: loss {loss0} then {losses}: not "
+                             f"finite and falling"
+                             + (" every step" if every_step else ""))
+    return dict(warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
+                step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+                # the host's time to issue each step (and its CPU time
+                # then): near step_ms, the step is host-bound
+                step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
+                device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
+                    "num_device_alloc", 0) - allocs0,
+                allocated_before_bytes=allocated_before, peak_mem_bytes=peak,
+                launches=launches, launches_per_step=per_step)
+
+
 def llama_1b_train(device, keep=None) -> dict:
     """Training: the ``llama-1b`` card, fp32 init from a seeded generator
     on the card, O2 cast (2-d parameters bf16, norm scales fp32),
     ``FusedAdam(lr=1e-3, state_dtype=bf16)``, one fixed batch b 4 x s 2048
     with labels the ids rolled by one; 1 warm-up step, then 6 timed steps
-    with the launches of each step checked exactly; a falling, finite loss;
+    with the launches of each step checked exactly; a finite loss falling
+    every step;
     step wall, tokens/s, MFU against 989 TFLOP/s, peak memory and a profile
     of one step.  ``keep`` (a dict) receives the losses of the warm-up and
     the first ``TP_TRAIN_STEPS`` steps and a host copy of every parameter
@@ -7034,7 +7391,6 @@ def llama_1b_train(device, keep=None) -> dict:
     import torch
     from apex_tpu_torch.examples.llama_pretrain import o2_cast, train_step
     from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
@@ -7058,60 +7414,28 @@ def llama_1b_train(device, keep=None) -> dict:
                 lh.FUSED_LM_HEAD_DH.name: 1,
                 lh.FUSED_LM_HEAD_DE.name: 1,
                 mt.MT_ADAM.name: 1}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss0 = float(train_step(model, opt, ids))       # warm-up, not counted
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    allocated_before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _dispatch.reset_launches()
-    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
-    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
-    for i in range(TRAIN_STEPS):
-        before = {k.name: k.launches for k in _dispatch.KERNELS}
-        torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), time.process_time()
-        loss = train_step(model, opt, ids)
-        issue_ms.append((time.perf_counter() - t0) * 1e3)
-        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
-        if _nonzero(step) != per_step:
-            raise AssertionError(f"training step {i} launched {step}, "
-                                 f"expected {per_step}")
-        if keep is not None and i == TP_TRAIN_STEPS - 1:
+
+    def keep_params(i, losses):
+        if i == TP_TRAIN_STEPS - 1:
             # to the host: a device copy would take memory and allocations
             # from the steps that follow
-            keep.update(losses=[loss0] + losses, per_step=per_step,
+            keep.update(losses=losses, per_step=per_step,
                         params={n: p.detach().cpu()
                                 for n, p in model.named_parameters()})
-    launches = {k.name: k.launches for k in _dispatch.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    if not all(map(math.isfinite, [loss0] + losses)) or not losses[-1] < loss0 \
-            or not all(a > b for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"llama-1b training loss {loss0} then {losses}: "
-                             f"not finite and falling")
+
+    run = _train_steps(lambda: train_step(model, opt, ids), TRAIN_STEPS,
+                       per_step, "llama-1b training", every_step=True,
+                       after_step=None if keep is None else keep_params)
     flops = _step_flops(model, b, s)
-    med = statistics.median(step_ms)
+    med = run["step_ms_median"]
     out = dict(config="llama-1b", batch=b, seq=s, tokens=b * s,
                precision="O2: 2-d parameters bf16, norm scales fp32; "
                          "FusedAdam(lr=1e-3, state_dtype=bf16)",
-               params=sum(p.numel() for p in model.parameters()),
-               warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
-               step_ms=step_ms, step_ms_median=med,
-               # the host's time to issue each step (and its CPU time
-               # then): near step_ms, the step is host-bound
-               step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
-               device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
-                   "num_device_alloc", 0) - allocs0,
+               params=sum(p.numel() for p in model.parameters()), **run,
                tokens_per_s=b * s / (med / 1e3), flops_per_step=flops,
                bound_ms=flops / 989e12 * 1e3,
-               mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
-               allocated_before_bytes=allocated_before,
-               mt_table_bytes=mt_table_bytes(),
-               launches=launches, launches_per_step=per_step)
+               mfu=flops / (med / 1e3) / 989e12,
+               mt_table_bytes=mt_table_bytes())
     log("phase3-train", **out)
     out["profile"] = profile_train(model, opt, ids, med)
     del model, opt
@@ -7827,9 +8151,10 @@ def _kernel_kind(name: str) -> str:
                       ("ln_bwd", "norm backward"), ("lm_head", "head forward"),
                       ("PartialsStore", "head forward"),
                       ("DlogStore", "head logits + dlog"),
-                      ("dlog_f32", "head logits + dlog"),
+                      ("namespace)::dlog_f32", "head logits + dlog"),
                       ("TileStore", "head dH/dE products"),
-                      ("gemm_f32", "head dH/dE products"),
+                      # not cuBLAS's xmma_gemm_f32f32 kernels
+                      ("namespace)::gemm_f32", "head dH/dE products"),
                       ("softmax_fwd_kernel", "softmax forward"),
                       ("softmax_bwd_kernel", "softmax backward"),
                       ("lamb_phase1_kernel", "LAMB phase 1")):
@@ -7918,10 +8243,9 @@ def small_gpt_check(device) -> dict:
     b 2 x s 128) in both attention cores, flash and the fused softmax: the
     same weights on the card and on the CPU give the ``labels=`` loss and
     every parameter's gradient (the tied embedding's included), then the
-    losses and parameters of 3 ``FusedLAMB(packed=True)`` steps, each
-    within its stated tolerance."""
+    losses and parameters of 3 ``FusedLAMB(packed=True)`` steps (lr 1e-3),
+    each within its stated tolerance (:func:`_card_vs_cpu`)."""
     import torch
-    from apex_tpu_torch.examples.gpt_pretrain import train_step
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.transformer.testing import GPTModel
 
@@ -7930,54 +8254,16 @@ def small_gpt_check(device) -> dict:
     ids = torch.randint(0, 512, (2, 128), generator=torch.Generator().manual_seed(35))
     out = {}
     for flash in (True, False):
-        cpu_model = GPTModel(**cfg, use_flash_attention=flash, device="cpu",
-                             generator=torch.Generator().manual_seed(36))
-        gpu_model = GPTModel(**cfg, use_flash_attention=flash, device=device)
-        gpu_model.load_state_dict(cpu_model.state_dict())
-        res = {}
-        for name, model, dev in (("cpu", cpu_model, "cpu"),
-                                 ("cuda", gpu_model, device)):
-            x = ids.to(dev)
-            loss = model(x, labels=torch.roll(x, -1, dims=1)).mean()
-            loss.backward()
-            grads = {n: p.grad.detach().cpu().clone()
-                     for n, p in model.named_parameters()}
-            opt = FusedLAMB(model.parameters(), lr=1e-3, packed=True)
-            losses = [float(train_step(model, opt, x)) for _ in range(3)]
-            params = {n: p.detach().cpu().clone()
-                      for n, p in model.named_parameters()}
-            res[name] = (float(loss.detach()), grads, losses, params)
-        c, d = res["cpu"], res["cuda"]
-        lr, steps = 1e-3, 3
-        # LAMB, like Adam, divides each gradient by its own size before the
-        # trust ratio (at most about 1 here) scales it: as small_train_check
-        param_ratio = 0.0
-        for n in c[3]:
-            ng = 1e-4 * c[1][n].abs().max()
-            tol = 1e-5 + steps * lr * ng / (c[1][n].abs() + ng + 1e-30)
-            param_ratio = max(param_ratio,
-                              float(((d[3][n] - c[3][n]).abs() / tol).max()))
-        grad_ratio = max(
-            float(((d[1][n] - c[1][n]).abs()
-                   / (1e-4 * c[1][n].abs().max() + 1e-4 * c[1][n].abs()
-                      + 1e-9)).max())
-            for n in c[1])
-        err = dict(loss=abs(c[0] - d[0]), grad_tol_ratio=grad_ratio,
-                   step_losses=max(abs(a - b) for a, b in zip(c[2], d[2])),
-                   params_after_3_steps=max(float((d[3][n] - c[3][n]).abs().max())
-                                            for n in c[3]),
-                   params_tol_ratio=param_ratio, params=len(c[1]))
-        if (err["loss"] > 1e-5 or grad_ratio > 1.0 or err["step_losses"] > 1e-4
-                or param_ratio > 1.0):
-            raise AssertionError(f"small GPT (flash={flash}): card against "
-                                 f"CPU {err}")
-        if not c[2][-1] < c[2][0]:
-            raise AssertionError(f"small GPT: loss did not fall {c[2]}")
-        out["flash" if flash else "fused_softmax"] = err
-    out["tolerance"] = ("loss 1e-5; each gradient within 1e-4 (max|g_ref| + "
-                        "|g_ref|); losses of 3 packed FusedLAMB steps (lr "
-                        "1e-3) 1e-4; each parameter within 1e-5 + 3 lr ng / "
-                        "(|g| + ng), ng = 1e-4 max|g_ref|")
+        def build(dev, flash=flash):
+            return GPTModel(**cfg, use_flash_attention=flash, device=dev,
+                            generator=torch.Generator().manual_seed(36)
+                            if dev == "cpu" else None)
+
+        out["flash" if flash else "fused_softmax"] = _card_vs_cpu(
+            f"small GPT (flash={flash})", build,
+            functools.partial(_labels_loss, ids),
+            lambda ps: FusedLAMB(ps, lr=1e-3, packed=True), 1e-3, device)
+    out["tolerance"] = SMALL_CARD_TOL
     log("phase3-gpt-reference", **out)
     return out
 
@@ -7994,11 +8280,10 @@ def gpt2_large_train(device, form: str) -> dict:
     - ``"flagship"``: flash attention and the unpacked LAMB with bf16
       moments, as ``bench.py`` runs it.
 
-    A falling, finite loss; step wall, tokens/s, MFU against 989 TFLOP/s,
-    peak memory and a profile of one step."""
+    A finite loss falling every step; step wall, tokens/s, MFU against
+    989 TFLOP/s, peak memory and a profile of one step."""
     import torch
     from apex_tpu_torch.examples import gpt_pretrain
-    from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fused_lm_head as lh
     from apex_tpu_torch.ops import layer_norm as ln
@@ -8031,35 +8316,9 @@ def gpt2_large_train(device, form: str) -> dict:
                          fa.FLASH_ATTENTION_DQ.name: layers,
                          fa.FLASH_ATTENTION_DKV.name: layers,
                          mt.MT_L2NORM.name: 1, mt.MT_LAMB.name: 1})
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss0 = float(gpt_pretrain.train_step(model, opt, ids))   # warm-up
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    allocated_before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _dispatch.reset_launches()
-    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
-    step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
-    for i in range(TRAIN_STEPS):
-        before = {k.name: k.launches for k in _dispatch.KERNELS}
-        torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), time.process_time()
-        loss = gpt_pretrain.train_step(model, opt, ids)
-        issue_ms.append((time.perf_counter() - t0) * 1e3)
-        issue_cpu_ms.append((time.process_time() - c0) * 1e3)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-        step = {k.name: k.launches - before[k.name] for k in _dispatch.KERNELS}
-        if _nonzero(step) != per_step:
-            raise AssertionError(f"GPT-2-large ({form}) step {i} launched "
-                                 f"{step}, expected {per_step}")
-    launches = {k.name: k.launches for k in _dispatch.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    if not all(map(math.isfinite, [loss0] + losses)) or not losses[0] < loss0 \
-            or not all(a > b for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"GPT-2-large ({form}) loss {loss0} then "
-                             f"{losses}: not finite and falling every step")
+    run = _train_steps(lambda: gpt_pretrain.train_step(model, opt, ids),
+                       TRAIN_STEPS, per_step, f"GPT-2-large ({form})",
+                       every_step=True)
     n = sum(p.numel() for p in model.parameters())
     if n != gpt2_large_numel()[0]:
         raise AssertionError(f"GPT-2-large has {n} parameters, the phase-2 "
@@ -8067,7 +8326,7 @@ def gpt2_large_train(device, form: str) -> dict:
     # bench.py:2423's model FLOPs: 6 N a token plus the causal attention
     # term 12 L h s / 2, times the tokens
     flops = float((6 * n + 12 * layers * c["hidden"] * s // 2) * b * s)
-    med = statistics.median(step_ms)
+    med = run["step_ms_median"]
     out = dict(config="gpt2-large", form=form,
                attention="materialized (fused softmax kernels)" if kernel_path
                else "flash", optimizer="FusedLAMB(lr=1e-3, packed=True), fp32 "
@@ -8075,19 +8334,11 @@ def gpt2_large_train(device, form: str) -> dict:
                "state_dtype=bf16), unpacked",
                batch=b, seq=s, tokens=b * s,
                precision="O2: 2-d parameters bf16, biases and LayerNorm fp32",
-               params=n, warmup_loss=loss0, losses=losses, warmup_ms=warm_ms,
-               step_ms=step_ms, step_ms_median=med,
-               # the host's time to issue each step (and its CPU time
-               # then): near step_ms, the step is host-bound
-               step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
-               device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
-                   "num_device_alloc", 0) - allocs0,
+               params=n, **run,
                tokens_per_s=b * s / (med / 1e3), flops_per_step=flops,
                bound_ms=flops / 989e12 * 1e3,
-               mfu=flops / (med / 1e3) / 989e12, peak_mem_bytes=peak,
-               allocated_before_bytes=allocated_before,
-               mt_table_bytes=mt_table_bytes(),
-               launches=launches, launches_per_step=per_step)
+               mfu=flops / (med / 1e3) / 989e12,
+               mt_table_bytes=mt_table_bytes())
     log(f"phase3-gpt-{form}", **out)
     out["profile"] = profile_train(model, opt, ids, med,
                                    tag=f"phase3-gpt-{form}-profile")
@@ -9728,6 +9979,558 @@ def larc_check(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3: BERT-large, ViT-L/16, activation recompute (GPT-1.3B, Llama) and
+# the transformer layers' dropout
+# ---------------------------------------------------------------------------
+
+SLICE_STEPS = 4         # timed steps after one warm-up, each training card
+# BERT-large's: its NSP term (16 random labels) swings under LAMB's first
+# steps (0.68, 2.59, 0.38, 0.25, 1.59 on an H100 at 700 W) while the
+# masked-LM term falls every step; by the 8th the sum is well below
+BERT_STEPS = 8
+POLICY_LAYERS = 4       # the named policies and Llama's recompute: depth
+DROPOUT_LAYERS = 4      # the dropout stack at GPT-2-large's width: depth
+DROPOUT_RATE = 0.1
+# the dropout stack's width and tokens: GPT-2-large's (bench.py:81-84)
+DROPOUT_SHAPE = dict(hidden=1280, heads=20, seq=1024, batch=8)
+
+
+def small_bert_check(device) -> dict:
+    """A small fp32 BERT (2 layers, hidden 128, 2 heads of 64, vocab 512, b
+    4 x s 128, ``tools/model_bench.py``'s batch: padding, 15% masked) on
+    the card and on the CPU, flash (padding segment ids) and the
+    materialized core (the 4-d mask through the fused softmax): the MLM +
+    NSP loss, every gradient and 3 ``FusedLAMB`` steps (lr 1e-3)."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.examples import bert_pretrain as bp
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    whole = bp.bench_batch(np.random.default_rng(41), 4, 128, 512)
+    out = {}
+    for flash in (True, False):
+        def build(dev, flash=flash):
+            return BertModel(num_layers=2, hidden_size=128,
+                             num_attention_heads=2, vocab_size=512,
+                             max_sequence_length=128,
+                             use_flash_attention=flash, device=dev,
+                             generator=torch.Generator().manual_seed(42)
+                             if dev == "cpu" else None)
+
+        def loss_of(model, dev):
+            return bp.loss_fn(model, *bp.to_device(whole, dev))
+
+        out["flash" if flash else "fused_softmax"] = _card_vs_cpu(
+            f"small BERT (flash={flash})", build, loss_of,
+            lambda ps: FusedLAMB(ps, lr=1e-3), 1e-3, device)
+    out["tolerance"] = SMALL_CARD_TOL
+    log("phase3-bert-reference", **out)
+    return out
+
+
+def small_vit_check(device) -> dict:
+    """A small fp32 ViT (image 32, patch 8, 2 layers of 128, 2 heads, 10
+    labels, b 8) on the card and on the CPU: the cross entropy, every
+    gradient and 3 ``FusedAdam(lr 3e-4, wd 0.05)`` steps."""
+    import torch
+    from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_size=128,
+                    num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, num_labels=10)
+    g = torch.Generator().manual_seed(43)
+    pixels = torch.randn(8, 32, 32, 3, generator=g)
+    labels = torch.randint(0, 10, (8,), generator=g)
+
+    def build(dev):
+        return ViTForImageClassification(
+            cfg, device=dev, generator=torch.Generator().manual_seed(44)
+            if dev == "cpu" else None)
+
+    def loss_of(model, dev):
+        logits = model(pixels.to(dev)).float()
+        return torch.nn.functional.cross_entropy(logits, labels.to(dev))
+
+    out = _card_vs_cpu("small ViT", build, loss_of,
+                       lambda ps: FusedAdam(ps, lr=3e-4, weight_decay=0.05),
+                       3e-4, device)
+    out["tolerance"] = SMALL_CARD_TOL
+    log("phase3-vit-reference", **out)
+    return out
+
+
+def _mfu(out: dict, flops: float, tokens: int) -> dict:
+    med = out["step_ms_median"]
+    out.update(flops_per_step=flops, bound_ms=flops / 989e12 * 1e3,
+               mfu=flops / (med / 1e3) / 989e12,
+               tokens_per_s=tokens / (med / 1e3))
+    return out
+
+
+def bert_large_train(device, smi: str) -> dict:
+    """BERT-large pretraining (``tools/model_bench.py``'s card through
+    :mod:`apex_tpu_torch.examples.bert_pretrain`: 24 x 1024, 16 heads,
+    vocab 30592, b 16 x s 512, 15% masked, lengths in [0.9 s, s], the O2
+    cast, ``FusedLAMB(lr 1e-3)`` with bf16 moments) over
+    ``DistributedDataParallel`` in an NCCL world of 1: one warm-up step,
+    then ``BERT_STEPS`` timed steps with exact launches a step."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.examples import bert_pretrain as bp
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.parallel import DistributedDataParallel
+
+    c = bp.LARGE
+    layers = c["layers"]
+    # per layer two LayerNorms and one flash attention (padding segment
+    # ids, not causal); the transformer's final LayerNorm and the LM
+    # head's; LAMB: the clip norm, then both stages in one call
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 2,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 2,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                fa.FLASH_ATTENTION_DQ.name: layers,
+                fa.FLASH_ATTENTION_DKV.name: layers,
+                mt.MT_L2NORM.name: 1, mt.MT_LAMB.name: 1}
+    with _nccl_world("bert_rdv_") as group:
+        model, opt = bp.build(c["layers"], c["hidden"], c["heads"], c["vocab"],
+                              c["seq"], o2=True, state_dtype=torch.bfloat16,
+                              device=device)
+        ddp = DistributedDataParallel(model, group)
+        whole = bp.bench_batch(np.random.default_rng(0), c["batch"], c["seq"],
+                               c["vocab"])
+        batch = ddp.shard_batch(bp.to_device(whole, device))
+        n = sum(p.numel() for p in model.parameters())
+        step = lambda: bp.train_step(ddp, opt, batch, group)
+        out = _train_steps(step, BERT_STEPS, per_step, "BERT-large")
+        out["profile"] = _profile(step, out["step_ms_median"])
+    tokens = c["batch"] * c["seq"]
+    # 6 N a token plus the attention's 12 L h s (not causal)
+    flops = float((6 * n + 12 * layers * c["hidden"] * c["seq"]) * tokens)
+    out = dict(config="bert-large", nvidia_smi=smi, params=n, **c,
+               masked_tokens=int(whole[3].sum()), tokens=tokens,
+               precision="O2: 2-d parameters bf16, biases and LayerNorm fp32",
+               optimizer="FusedLAMB(lr=1e-3, state_dtype=bf16) over "
+                         "DistributedDataParallel (NCCL world 1)", **out)
+    _mfu(out, flops, tokens)
+    log("phase3-train-bert-large", **out)
+    del model, opt, ddp, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_l16_train(device, smi: str) -> dict:
+    """ViT-L/16 training (``tools/model_bench.py``'s card: b 64 x 224^2 x 3
+    bf16 pixels, 1000 classes, every parameter of two or more dims bf16,
+    ``FusedAdam(lr 3e-4, wd 0.05)``, fp32 log-softmax cross entropy): one
+    warm-up step, then ``SLICE_STEPS`` timed steps with exact launches."""
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = ViTConfig.vit_l16()
+    batch = 64
+    model = ViTForImageClassification(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
+    o2_cast(model)
+    opt = FusedAdam(model.parameters(), lr=3e-4, weight_decay=0.05)
+    g = torch.Generator(device=device).manual_seed(1)
+    pixels = torch.randn(batch, 224, 224, 3, generator=g,
+                         device=device).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.num_labels, (batch,), generator=g,
+                           device=device)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = model(pixels).float()
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    layers = cfg.num_hidden_layers
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                mt.MT_ADAM.name: 1}
+    out = _train_steps(step, SLICE_STEPS, per_step, "ViT-L/16")
+    out["profile"] = _profile(step, out["step_ms_median"])
+    n = sum(p.numel() for p in model.parameters())
+    s = cfg.num_patches + 1
+    # 6 N a token plus the attention's 12 L h s (not causal); the patch
+    # embedding is among N
+    flops = float((6 * n + 12 * layers * cfg.hidden_size * s) * batch * s)
+    out = dict(config="vit-l16", nvidia_smi=smi, params=n, batch=batch,
+               tokens=batch * s, image=[224, 224, 3],
+               precision="bf16 pixels, 2-d+ parameters bf16, biases and "
+                         "LayerNorm fp32; the attention in fp32",
+               optimizer="FusedAdam(lr=3e-4, weight_decay=0.05)", **out)
+    _mfu(out, flops, batch * s)
+    log("phase3-train-vit-l16", **out)
+    del model, opt, pixels
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loss_and_grads(model, fn) -> tuple:
+    """``fn()``'s loss, its backward, every gradient (a copy on the card)
+    and the launches of the forward and the backward."""
+    for p in model.parameters():
+        p.grad = None
+    before = _launch_counts()
+    loss = fn()
+    loss.backward()
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads, _nonzero(launches)
+
+
+def _grads_equal(a: dict, b: dict) -> dict:
+    import torch
+
+    worst = max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+    equal = all(torch.equal(a[n], b[n]) for n in a)
+    return dict(max_abs_diff=worst, bit_equal=equal)
+
+
+def _extra(launches: dict, base: dict) -> dict:
+    return {k: launches.get(k, 0) - base.get(k, 0)
+            for k in set(launches) | set(base)
+            if launches.get(k, 0) != base.get(k, 0)}
+
+
+def gpt13b_train(device, smi: str) -> dict:
+    """``bench.py``'s ``1.3b`` card (24 x 2048, 32 heads, vocab 50304, b 8 x
+    s 1024, O2, ``FusedLAMB(lr 1e-3)`` with bf16 moments) through
+    :mod:`apex_tpu_torch.examples.gpt_pretrain`, with whole-layer
+    recompute beside the same model without it: at the initial weights
+    the loss and every gradient of both, equal bit for bit, the recompute's
+    extra launches exactly 48 LayerNorm forwards and 24 flash forwards;
+    then ``SLICE_STEPS`` timed steps of each after a warm-up (step p50,
+    MFU, peak memory), the recompute's peak below the plain step's.  Then
+    the named policies at ``POLICY_LAYERS`` layers of the same width."""
+    import torch
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    c = gpt_pretrain.CONFIGS["1.3b"]
+    layers, b, s = c["layers"], c["batch"], c["seq"]
+    model, opt = gpt_pretrain.build(c["layers"], c["hidden"], c["heads"],
+                                    c["vocab"], c["seq"], remat=c["remat"],
+                                    state_dtype=c["state_dtype"], device=device)
+    stack = model.language_model.transformer
+    ids = torch.randint(0, c["vocab"], (b, s),
+                        generator=torch.Generator().manual_seed(13)).to(device)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def fwd():
+        return model(ids, labels=labels).mean()
+
+    stack.activations_checkpoint = False
+    loss_p, grads_p, launch_p = _loss_and_grads(model, fwd)
+    stack.activations_checkpoint = True
+    loss_r, grads_r, launch_r = _loss_and_grads(model, fwd)
+    extra = _extra(launch_r, launch_p)
+    want = {ln.LAYER_NORM_FWD.name: 2 * layers, fa.FLASH_ATTENTION_FWD.name: layers}
+    same = _grads_equal(grads_r, grads_p)
+    del grads_p, grads_r
+    if extra != want or loss_r != loss_p or not same["bit_equal"]:
+        raise AssertionError(f"GPT-1.3B recompute: extra launches {extra} "
+                             f"(expected {want}), loss {loss_r} vs {loss_p}, "
+                             f"gradients {same}")
+    per_plain = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                 ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                 fa.FLASH_ATTENTION_FWD.name: layers,
+                 fa.FLASH_ATTENTION_DQ.name: layers,
+                 fa.FLASH_ATTENTION_DKV.name: layers,
+                 lh.FUSED_LM_HEAD_FWD.name: 1, lh.FUSED_LM_HEAD_DH.name: 1,
+                 lh.FUSED_LM_HEAD_DE.name: 1,
+                 mt.MT_L2NORM.name: 1, mt.MT_LAMB.name: 1}
+    per_remat = {k: v + want.get(k, 0) for k, v in per_plain.items()}
+    n = sum(p.numel() for p in model.parameters())
+    flops = float((6 * n + 12 * layers * c["hidden"] * s // 2) * b * s)
+    runs = {}
+    for name, remat, per_step in (("remat", True, per_remat),
+                                  ("plain", False, per_plain)):
+        stack.activations_checkpoint = remat
+        torch.cuda.empty_cache()
+        step = lambda: gpt_pretrain.train_step(model, opt, ids)
+        runs[name] = _mfu(_train_steps(step, SLICE_STEPS, per_step,
+                                       f"GPT-1.3B ({name})"), flops, b * s)
+        runs[name]["profile"] = _profile(step, runs[name]["step_ms_median"])
+    stack.activations_checkpoint = True
+    if not runs["remat"]["peak_mem_bytes"] < runs["plain"]["peak_mem_bytes"]:
+        raise AssertionError(f"GPT-1.3B: recompute peak "
+                             f"{runs['remat']['peak_mem_bytes']} not below "
+                             f"{runs['plain']['peak_mem_bytes']}")
+    out = dict(config="gpt-1.3b", nvidia_smi=smi, params=n, batch=b, seq=s,
+               precision="O2: 2-d parameters bf16, biases and LayerNorm fp32",
+               optimizer="FusedLAMB(lr=1e-3, state_dtype=bf16), unpacked",
+               recompute_check=dict(loss=loss_r, loss_plain=loss_p,
+                                    extra_launches=extra,
+                                    launches_remat=launch_r,
+                                    launches_plain=launch_p, **same),
+               remat=runs["remat"], plain=runs["plain"],
+               peak_saved_bytes=runs["plain"]["peak_mem_bytes"]
+               - runs["remat"]["peak_mem_bytes"],
+               step_cost=runs["remat"]["step_ms_median"]
+               / runs["plain"]["step_ms_median"],
+               tolerance="recomputed loss and every gradient equal to the "
+                         "plain step's bit for bit")
+    log("phase3-train-gpt-1.3b", **{k: v for k, v in out.items()
+                                    if k not in ("remat", "plain")},
+        remat={k: v for k, v in runs["remat"].items() if k != "launches"},
+        plain={k: v for k, v in runs["plain"].items() if k != "launches"})
+    del model, opt, stack
+    torch.cuda.empty_cache()
+    out["policies"] = gpt_policies(device, c, smi)
+    return out
+
+
+def gpt_policies(device, c: dict, smi: str) -> dict:
+    """The named recompute policies at ``POLICY_LAYERS`` layers of the
+    GPT-1.3B card's width (flash path, O2, b 8 x s 1024): for each, one
+    forward and backward at the same weights against no recompute, the
+    loss and every gradient bit for bit, and the extra launches of the
+    backward exactly what the policy recomputes: ``"dots"`` and
+    ``"dots_no_batch"`` both LayerNorms and the flash forward of every
+    layer, ``"except_activations"`` both LayerNorms and no flash."""
+    import torch
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    L = POLICY_LAYERS
+    model, _ = gpt_pretrain.build(L, c["hidden"], c["heads"], c["vocab"],
+                                  c["seq"], device=device)
+    stack = model.language_model.transformer
+    ids = torch.randint(0, c["vocab"], (c["batch"], c["seq"]),
+                        generator=torch.Generator().manual_seed(14)).to(device)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def fwd():
+        return model(ids, labels=labels).mean()
+
+    loss_p, grads_p, launch_p = _loss_and_grads(model, fwd)
+    want = {"dots": {ln.LAYER_NORM_FWD.name: 2 * L,
+                     fa.FLASH_ATTENTION_FWD.name: L},
+            "dots_no_batch": {ln.LAYER_NORM_FWD.name: 2 * L,
+                              fa.FLASH_ATTENTION_FWD.name: L},
+            "except_activations": {ln.LAYER_NORM_FWD.name: 2 * L}}
+    out = {}
+    for policy, expected in want.items():
+        stack.activations_checkpoint_policy = policy
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, launches = _loss_and_grads(model, fwd)
+        peak = torch.cuda.max_memory_allocated()
+        extra = _extra(launches, launch_p)
+        same = _grads_equal(grads, grads_p)
+        del grads
+        if extra != expected or loss != loss_p or not same["bit_equal"]:
+            raise AssertionError(f"policy {policy}: extra launches {extra} "
+                                 f"(expected {expected}), loss {loss} vs "
+                                 f"{loss_p}, gradients {same}")
+        out[policy] = dict(extra_launches=extra, peak_mem_bytes=peak, **same)
+    stack.activations_checkpoint_policy = None
+    stack.activations_checkpoint = False
+    torch.cuda.reset_peak_memory_stats()
+    _loss_and_grads(model, fwd)
+    out["none_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(layers=L, nvidia_smi=smi, launches_plain=launch_p,
+               tolerance="loss and every gradient equal to no recompute "
+                         "bit for bit")
+    log("phase3-train-gpt-policies", **out)
+    del model, grads_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_remat_check(device, smi: str) -> dict:
+    """``LlamaForCausalLM(activations_checkpoint=True)`` at ``POLICY_LAYERS``
+    layers of ``llama-1b``'s width (O2, b 4 x s 2048): the loss and every
+    gradient bit for bit those of the model without recompute, the extra
+    launches 2 RMSNorm forwards and 1 flash forward a layer."""
+    import dataclasses
+
+    import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    cfg = dataclasses.replace(LlamaConfig.llama_1b(),
+                              num_hidden_layers=POLICY_LAYERS)
+    model = o2_cast(LlamaForCausalLM(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(15)))
+    ids = torch.randint(0, cfg.vocab_size, (4, 2048),
+                        generator=torch.Generator().manual_seed(16)).to(device)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def fwd():
+        return model(ids, labels=labels).mean()
+
+    runs = {}
+    for remat in (False, True):
+        model.activations_checkpoint = remat
+        torch.cuda.reset_peak_memory_stats()
+        runs[remat] = _loss_and_grads(model, fwd) + (
+            torch.cuda.max_memory_allocated(),)
+    extra = _extra(runs[True][2], runs[False][2])
+    want = {ln.LAYER_NORM_FWD.name: 2 * POLICY_LAYERS,
+            fa.FLASH_ATTENTION_FWD.name: POLICY_LAYERS}
+    same = _grads_equal(runs[True][1], runs[False][1])
+    if extra != want or runs[True][0] != runs[False][0] or not same["bit_equal"]:
+        raise AssertionError(f"Llama recompute: extra launches {extra} "
+                             f"(expected {want}), loss {runs[True][0]} vs "
+                             f"{runs[False][0]}, gradients {same}")
+    out = dict(layers=POLICY_LAYERS, nvidia_smi=smi, loss=runs[True][0],
+               extra_launches=extra, launches_plain=runs[False][2],
+               peak_mem_bytes_remat=runs[True][3],
+               peak_mem_bytes_plain=runs[False][3], **same,
+               tolerance="loss and every gradient equal to no recompute bit "
+                         "for bit")
+    log("phase3-train-llama-remat", **out)
+    del model, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def dropout_check(device, smi: str) -> dict:
+    """A ``ParallelTransformer`` of ``DROPOUT_LAYERS`` layers at GPT-2-large's
+    width (1280, 20 heads, bf16, s 1024 x b 8) with ``hidden_dropout =
+    attention_dropout = 0.1``:
+
+    - ``deterministic=False``: the flash kernels launched with the dropout
+      rate forward, dq and dk/dv (each call's rate and seed recorded),
+      exact launches;
+    - ``deterministic=True`` equal bit for bit to the same weights without
+      dropout;
+    - the share of the attention's probabilities dropped (the keep bits of
+      each layer's seed over its causal pairs; phase 2 holds the kernel's
+      bits to them) and of the hidden activations zeroed, each within six
+      standard deviations of the binomial's 0.1;
+    - whole-layer recompute under dropout: the loss and every gradient
+      equal bit for bit to the step without recompute from the same
+      generator state (the recompute draws the same masks)."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.transformer.testing import standalone_transformer_lm as tlm
+
+    h, heads, s, b = (DROPOUT_SHAPE[k] for k in ("hidden", "heads", "seq",
+                                                  "batch"))
+    L, rate = DROPOUT_LAYERS, DROPOUT_RATE
+    gen = torch.Generator(device=device).manual_seed(17)
+    kw = dict(params_dtype=torch.bfloat16, device=device)
+    stack = tlm.ParallelTransformer(L, h, heads, hidden_dropout=rate,
+                                    attention_dropout=rate, generator=gen,
+                                    **kw)
+    plain = tlm.ParallelTransformer(L, h, heads, **kw)
+    plain.load_state_dict(stack.state_dict())
+    x = torch.randn(s, b, h, generator=gen, device=device).to(torch.bfloat16)
+    with torch.no_grad():
+        det_equal = torch.equal(stack(x), plain(x))
+    if not det_equal:
+        raise AssertionError("dropout stack: deterministic=True differs from "
+                             "the stack without dropout")
+    seen = {"fwd": [], "bwd": []}
+    zeros = []
+    orig_fwd, orig_bwd = fa._kernel_forward, fa._BwdLaunch.__init__
+    orig_drop = tlm.dropout
+
+    def spy_fwd(q, k, v, qseg, kseg, causal, scale, dropout_rate, dropout_seed):
+        seen["fwd"].append((dropout_rate, dropout_seed))
+        return orig_fwd(q, k, v, qseg, kseg, causal, scale, dropout_rate,
+                        dropout_seed)
+
+    def spy_bwd(self, *a):
+        seen["bwd"].append(tuple(a[-2:]))
+        orig_bwd(self, *a)
+
+    def spy_drop(t, r, g):
+        y = orig_drop(t, r, g)
+        zeros.append(float(((y == 0) & (t != 0)).float().sum()
+                           / (t != 0).float().sum()))
+        return y
+
+    def step(remat):
+        stack.activations_checkpoint = remat
+        xr = x.detach().requires_grad_()
+        g = torch.Generator(device=device).manual_seed(18)
+        return _loss_and_grads(
+            stack, lambda: stack(xr, deterministic=False,
+                                 dropout_generator=g).float().square().mean())
+
+    fa._kernel_forward, fa._BwdLaunch.__init__ = spy_fwd, spy_bwd
+    tlm.dropout = spy_drop
+    try:
+        loss_p, grads_p, launch_p = step(False)
+        seeds = [sd for r, sd in seen["fwd"]]
+        fwd_calls, bwd_calls = list(seen["fwd"]), list(seen["bwd"])
+        hidden_zero = list(zeros)
+        loss_r, grads_r, launch_r = step(True)
+    finally:
+        fa._kernel_forward, fa._BwdLaunch.__init__ = orig_fwd, orig_bwd
+        tlm.dropout = orig_drop
+    want = {fa.FLASH_ATTENTION_FWD.name: L, fa.FLASH_ATTENTION_DQ.name: L,
+            fa.FLASH_ATTENTION_DKV.name: L}
+    flash_counts = {k: launch_p.get(k, 0) for k in want}
+    if (flash_counts != want or len(bwd_calls) != L
+            or any(r != rate for r, _ in fwd_calls + bwd_calls)
+            or sorted(sd for _, sd in bwd_calls) != sorted(seeds)):
+        raise AssertionError(f"dropout stack: flash launches {flash_counts}, "
+                             f"forward calls {fwd_calls}, backward {bwd_calls}")
+    # the dropped share of the probabilities: the keep bits of each seed
+    # over the causal pairs of each (batch, head)
+    pairs = s * (s + 1) // 2
+    causal = (torch.arange(s, device=device)[None, :]
+              <= torch.arange(s, device=device)[:, None])
+    dropped = []
+    for sd in seeds:
+        keep = fa._keep(device, b, heads, s, s, sd, rate)
+        dropped.append(float((~keep & causal).sum()) / (b * heads * pairs))
+        del keep
+    n_attn = b * heads * pairs
+    n_hidden = s * b * h
+    bound_attn = 6 * (rate * (1 - rate) / n_attn) ** 0.5
+    bound_hidden = 6 * (rate * (1 - rate) / n_hidden) ** 0.5
+    same = _grads_equal(grads_r, grads_p)
+    extra = _extra(launch_r, launch_p)
+    if (any(abs(d - rate) > bound_attn for d in dropped)
+            or any(abs(z - rate) > bound_hidden for z in hidden_zero)
+            or len(hidden_zero) != 2 * L
+            or loss_r != loss_p or not same["bit_equal"]):
+        raise AssertionError(
+            f"dropout stack: attention dropped {dropped} (0.1 +- "
+            f"{bound_attn}), hidden zeroed {hidden_zero} (0.1 +- "
+            f"{bound_hidden}), recompute loss {loss_r} vs {loss_p}, "
+            f"gradients {same}")
+    out = dict(layers=L, hidden=h, heads=heads, seq=s, batch=b, rate=rate,
+               nvidia_smi=smi, deterministic_bit_equal=det_equal,
+               flash_calls_forward=fwd_calls, flash_calls_backward=bwd_calls,
+               launches=launch_p, attention_dropped_share=dropped,
+               attention_bound=bound_attn, hidden_zeroed_share=hidden_zero,
+               hidden_bound=bound_hidden, recompute_extra_launches=extra,
+               recompute=same,
+               tolerance="dropped shares within 6 binomial standard "
+                         "deviations of 0.1; deterministic=True and the "
+                         "recomputed gradients bit for bit")
+    log("phase3-dropout", **out)
+    del stack, plain, grads_p, grads_r
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9783,6 +10586,7 @@ def main() -> int:
     packed_time = time_packed_updates(device)
     mt_check = check_multi_tensor(device)
     mt_time = time_multi_tensor(device)
+    mt_model_check = check_multi_tensor_model_lists(device)
     pair_bias_check = check_pair_bias(device)
     pair_bias_time = time_pair_bias(device)
     routes_time = time_openfold_routes(device)
@@ -9792,6 +10596,8 @@ def main() -> int:
     eval_reference = small_eval_check(device)
     train_reference = small_train_check(device)
     gpt_reference = small_gpt_check(device)
+    bert_reference = small_bert_check(device)
+    vit_reference = small_vit_check(device)
     openfold_reference = small_openfold_check(device)
     amp_reference = small_amp_check(device)
     optimizer_reference = small_optimizer_checks(device)
@@ -9827,6 +10633,11 @@ def main() -> int:
                  for form in ("adam", "adagrad", "packed_adam")}
     gpt_kernel = gpt2_large_train(device, "kernel")
     gpt_flagship = gpt2_large_train(device, "flagship")
+    bert = bert_large_train(device, smi)
+    vit = vit_l16_train(device, smi)
+    gpt13 = gpt13b_train(device, smi)
+    llama_remat = llama_remat_check(device, smi)
+    dropout = dropout_check(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -9855,7 +10666,9 @@ def main() -> int:
                  resnet50_bf16=resnet["bf16"], resnet50_fp16=resnet["fp16"],
                  larc=larc,
                  **amp_paths, gpt_kernel_path=gpt_kernel,
-                 gpt_flagship=gpt_flagship, openfold=openfold)
+                 gpt_flagship=gpt_flagship, bert_large=bert, vit_l16=vit,
+                 gpt_1p3b_remat=gpt13["remat"], gpt_1p3b_plain=gpt13["plain"],
+                 openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -9868,9 +10681,10 @@ def main() -> int:
                     launches_by_path={p: r["launches"][k.name]
                                       for p, r in paths.items()}, **extra)
 
-    def mt_entry(k, key, main_path, others=()):
+    def mt_entry(k, key, main_path, others=(), checked=()):
         row = mt_time[key]
         return entry(k, row["max_abs_err"], row, main_path=main_path,
+                     checked_lists={o: mt_model_check[o] for o in checked},
                      list=row["list"], tensors=row["tensors"],
                      elements=row["elements"],
                      graph_plain_ms=row["graph_plain_ms"],
@@ -9955,8 +10769,10 @@ def main() -> int:
         mt_entry(mt.MT_L2NORM, "l2norm_gpt2_large", "gpt_flagship"),
         mt_entry(mt.MT_SCALE, "scale_llama_fp16_check", "amp_adam"),
         mt_entry(mt.MT_ADAM, "adam_llama_bf16", "training",
-                 ("adam_llama_fp16_masters", "adam_swa_openfold")),
-        mt_entry(mt.MT_LAMB, "lamb_gpt2_large", "gpt_flagship"),
+                 ("adam_llama_fp16_masters", "adam_swa_openfold"),
+                 checked=("vit_l16",)),
+        mt_entry(mt.MT_LAMB, "lamb_gpt2_large", "gpt_flagship",
+                 checked=("bert_large", "gpt_1p3b")),
     ]}
     if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
         raise AssertionError("the kernels line does not list every kernel")
@@ -9964,7 +10780,7 @@ def main() -> int:
                   kernel_checks=[flash_check, head_check, norm_bwd_check,
                                  flash_bwd_check, head_bwd_check,
                                  softmax_check, lamb_check, packed_check,
-                                 pair_bias_check, mt_check],
+                                 pair_bias_check, mt_check, mt_model_check],
                   kernel_times=[flash_time, head_time, norm_bwd_time,
                                 flash_bwd_time, head_bwd_time, softmax_time,
                                 lamb_time, packed_time, pair_bias_time,
@@ -9985,6 +10801,9 @@ def main() -> int:
                   **{f"llama_1b_{k}": v for k, v in amp_paths.items()},
                   gpt2_large_kernel_path=gpt_kernel,
                   gpt2_large_flagship=gpt_flagship, openfold=openfold,
+                  bert_reference=bert_reference, vit_reference=vit_reference,
+                  bert_large=bert, vit_l16=vit, gpt_1p3b=gpt13,
+                  llama_remat=llama_remat, dropout=dropout,
                   kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

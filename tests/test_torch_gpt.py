@@ -155,18 +155,23 @@ def test_qkv_split_keeps_each_heads_q_k_v_adjacent():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tlm.ParallelAttention(8, 2, attention_dropout=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tlm.ParallelTransformerLayer(8, 2, hidden_dropout=0.1, device="cpu")
     with pytest.raises(NotImplementedError, match="context parallelism"):
         tlm.ParallelAttention(8, 2, context_parallel_axis="cp", device="cpu")
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tlm.ParallelTransformerLayer(8, 2, moe_num_experts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        GPTModel(activations_checkpoint=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        GPTModel(activations_checkpoint_policy="dots", device="cpu")
+    # dropout and activation recompute are ported (tests/test_torch_remat.py
+    # and the dropout tests below); out-of-range rates and unknown policies
+    # raise
+    assert tlm.ParallelAttention(8, 2, attention_dropout=0.1,
+                                 device="cpu").attention_dropout == 0.1
+    assert tlm.ParallelTransformerLayer(8, 2, hidden_dropout=0.1,
+                                        device="cpu").hidden_dropout == 0.1
+    assert GPTModel(activations_checkpoint=True, device="cpu")
+    assert GPTModel(activations_checkpoint_policy="dots", device="cpu")
+    with pytest.raises(ValueError, match="hidden_dropout"):
+        tlm.ParallelTransformerLayer(8, 2, hidden_dropout=1.0, device="cpu")
+    with pytest.raises(ValueError, match="activations_checkpoint_policy"):
+        GPTModel(activations_checkpoint_policy="nothing", device="cpu")
     # sequence parallelism is ported: at world 1 (outside a tp region) it
     # is the model without it, the logits bit for bit and the loss (the
     # vocab-parallel cross entropy in place of the fused head) at 1e-5;
@@ -235,3 +240,78 @@ def test_gpt_pretrain_main_on_the_cpu():
                                   "--seq", "64", "--batch", "2", *argv])
         assert np.isfinite(last)
     assert ttesting.gpt_model_provider(device="cpu", num_layers=1).num_layers == 1
+
+
+def _attention_params(jparams):
+    """The JAX ``ParallelAttention``'s tree as the port module's
+    ``state_dict``."""
+    p = jparams["params"]
+    return {f"{m}.{k}": torch.from_numpy(
+                np.array(np.asarray(p[m][leaf]).T if k == "weight"
+                         else p[m][leaf]))
+            for m in ("query_key_value", "dense")
+            for k, leaf in (("weight", "kernel"), ("bias", "bias"))}
+
+
+def test_attention_dropout_keep_pattern_equals_jax_flash_dropout(monkeypatch):
+    """``ParallelAttention(attention_dropout=0.1)`` on the flash path with
+    ``deterministic=False``: the seed drawn from the port's generator,
+    given to the JAX module in place of its ``randint`` of the flax rng,
+    gives JAX's output (its in-kernel counter-hash dropout, interpret
+    mode) at ``atol = 1e-5``: the same keep bits."""
+    from apex_tpu.transformer.testing.standalone_transformer_lm import (
+        ParallelAttention as JaxAttention,
+    )
+
+    monkeypatch.setenv("APEX_TPU_KERNELS", "interpret")
+    s, b, h = 128, 2, 128
+    x = np.random.default_rng(11).standard_normal((s, b, h)).astype(np.float32)
+    jattn = JaxAttention(h, 2, attention_dropout=0.1)
+    jparams = jax.tree.map(np.asarray, jattn.init(
+        jax.random.PRNGKey(0), jnp.asarray(x)))
+    seed = tlm.dropout_seed(torch.Generator().manual_seed(5))
+    monkeypatch.setattr(jax.random, "randint",
+                        lambda *a, **k: jnp.asarray(seed, jnp.int32))
+    ref = np.asarray(jattn.apply(jparams, jnp.asarray(x), deterministic=False,
+                                 rngs={"dropout": jax.random.PRNGKey(1)}))
+    ref_det = np.asarray(jattn.apply(jparams, jnp.asarray(x)))
+    attn = tlm.ParallelAttention(h, 2, attention_dropout=0.1, device="cpu")
+    attn.load_state_dict(_attention_params(jparams))
+    with torch.no_grad():
+        out = attn(torch.from_numpy(x), deterministic=False,
+                   dropout_generator=torch.Generator().manual_seed(5))
+        det = attn(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(det.numpy(), ref_det, atol=1e-5, rtol=0)
+    assert np.abs(ref - ref_det).max() > 1e-2      # the dropout did act
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "fused-softmax"])
+def test_deterministic_layers_are_exact_and_dropout_needs_a_generator(flash):
+    """``deterministic=True`` (the default) is the layer without dropout,
+    bit for bit; ``deterministic=False`` draws from the caller's generator
+    (the same state, the same output) and zeroes about ``rate`` of the
+    hidden activations; without a generator it raises."""
+    kw = dict(use_flash_attention=flash, device="cpu")
+    drop = tlm.ParallelTransformerLayer(64, 2, hidden_dropout=0.25,
+                                        attention_dropout=0.25, **kw)
+    plain = tlm.ParallelTransformerLayer(64, 2, **kw)
+    plain.load_state_dict(drop.state_dict())
+    x = torch.randn(64, 4, 64, generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        assert torch.equal(drop(x), plain(x))
+        assert torch.equal(drop(x, deterministic=True,
+                                dropout_generator=torch.Generator()), plain(x))
+        a = drop(x, deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(1))
+        b = drop(x, deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(1))
+        c = drop(x, deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="dropout_generator"):
+        drop(x, deterministic=False)
+    y = tlm.dropout(torch.ones(100_000), 0.25, torch.Generator().manual_seed(3))
+    share = float((y == 0).float().mean())
+    assert abs(share - 0.25) < 6 * (0.25 * 0.75 / 100_000) ** 0.5
+    assert torch.equal(y[y != 0], torch.full_like(y[y != 0], 1 / 0.75))

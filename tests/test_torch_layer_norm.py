@@ -464,9 +464,10 @@ def test_backward_kernel_matches_plain_version_on_card():
 # ---------------------------------------------------------------------------
 
 # every (n, h) the card-side checks and timings run the backward at
-# (chip_smoke.py), the paths' shapes first
+# (chip_smoke.py), the paths' shapes first (BERT-large's and ViT-L/16's
+# h 1024; GPT-1.3B's is Llama's 8192 x 2048)
 _BWD_SHAPES = [(8192, 2048), (8192, 1280), (131072, 256), (1048576, 128),
-               (512, 2048), (3, 128), (16, 256), (3, 200), (16, 200),
+               (8192, 1024), (12608, 1024), (512, 2048), (3, 128), (16, 256), (3, 200), (16, 200),
                (5, 5000), (7, 256), (600, 256), (1000, 128), (1, 128),
                (5000, 128), (1001, 256), (999, 512), (77, 64), (1003, 32),
                (333, 1280),
@@ -621,10 +622,10 @@ def test_bwd_grid_tables_match_the_kernel_source():
 # ---------------------------------------------------------------------------
 
 # every (n, h) the card-side checks and timings run (chip_smoke.py), the
-# paths' shapes first: Llama's RMSNorm, GPT-2-large's and OpenFold's
-# LayerNorms
+# paths' shapes first: Llama's RMSNorm, GPT-2-large's, OpenFold's,
+# BERT-large's and ViT-L/16's LayerNorms (GPT-1.3B's is 8192 x 2048)
 _FWD_SHAPES = [(8, 2048), (512, 2048), (8192, 2048), (8192, 1280),
-               (131072, 256), (1048576, 128), (3, 128), (16, 256), (3, 200),
+               (131072, 256), (1048576, 128), (8192, 1024), (12608, 1024), (3, 128), (16, 256), (3, 200),
                (16, 200), (5, 5000), (7, 256), (1, 1), (37, 200), (3, 5)]
 
 

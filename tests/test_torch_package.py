@@ -91,7 +91,10 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.contrib.optimizers.distributed_fused_adam, "
         "apex_tpu_torch.contrib.optimizers.distributed_fused_lamb, "
         "apex_tpu_torch.examples.imagenet_main, "
-        "apex_tpu_torch.examples.imagenet_data\n"
+        "apex_tpu_torch.examples.imagenet_data, "
+        "apex_tpu_torch.examples.bert_pretrain, apex_tpu_torch.models.vit, "
+        "apex_tpu_torch.transformer.recompute, "
+        "apex_tpu_torch.transformer.testing.standalone_bert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -172,6 +175,16 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         imagenet_main.run_training(distributed=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         imagenet_main.main(["--steps", "1"])
+    from apex_tpu_torch.examples import bert_pretrain
+    from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertModel()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert_pretrain.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ViTForImageClassification(ViTConfig(num_hidden_layers=1))
 
 
 # every kernel of the port, module by module: (name, the JAX file:function
