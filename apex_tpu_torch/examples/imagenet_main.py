@@ -69,18 +69,13 @@ from apex_tpu_torch.optimizers import FusedSGD
 from apex_tpu_torch.optimizers._common import master_copy
 from apex_tpu_torch.parallel import DistributedDataParallel, SyncBatchNorm
 from apex_tpu_torch.resilience import checkpoint as ckpt
+from apex_tpu_torch.utils.conv import conv2d_same
+from apex_tpu_torch.utils.conv import same_pads as _same_pads
 
 __all__ = ["SameConv2d", "BottleneckBlock", "ResNet", "resnet50",
            "resnet18_ish", "resnet10_ish", "cross_entropy", "conv_flops",
            "forward_backward", "apply_update", "train_step",
            "synthetic_batch", "run_training", "main"]
-
-
-def _same_pads(size: int, kernel: int, stride: int):
-    """flax's / XLA's ``SAME`` padding of one dimension: ``(low, high)``."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
 
 
 class SameConv2d(nn.Conv2d):
@@ -94,14 +89,7 @@ class SameConv2d(nn.Conv2d):
                          device=device)
 
     def forward(self, x):
-        (t, b), (l, r) = (_same_pads(x.shape[2], self.kernel_size[0],
-                                     self.stride[0]),
-                          _same_pads(x.shape[3], self.kernel_size[1],
-                                     self.stride[1]))
-        if t == b and l == r:
-            return F.conv2d(x, self.weight, None, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), self.weight, None,
-                        self.stride)
+        return conv2d_same(x, self.weight, self.stride[0])
 
 
 def _max_pool_same(x):

@@ -88,6 +88,14 @@ and ``lm_head/layernorm``.  ViT (:func:`vit_params_from_jax`): the
 top-level leaves as they are, each layer's linears transposed and its two
 LayerNorms.
 
+A language model (:func:`transformer_lm_params_from_jax`): the GPT map
+at the tree's root (``embedding/...``, ``transformer/...``), an MoE
+layer's ``mlp/experts/{router, w_in, w_out}`` to
+``transformer.layers.i.mlp.experts.*`` unchanged, or rank ``ep_rank``'s
+slice of the experts.  A halo bottleneck
+(:func:`bottleneck_params_from_jax`): convolutions HWIO -> OIHW, the
+frozen scales and biases as they are.
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -108,7 +116,8 @@ from apex_tpu_torch.models.llama import LlamaConfig
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "vit_params_from_jax",
            "llama_pipeline_params_from_jax", "load_jax_optimizer_state",
-           "shard_state_dict", "resnet_params_from_jax"]
+           "shard_state_dict", "resnet_params_from_jax",
+           "transformer_lm_params_from_jax", "bottleneck_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -241,20 +250,23 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], rank: int,
     return out
 
 
-def _gpt_expected(num_layers: int, position_embedding: bool
-                  ) -> Dict[str, tuple]:
-    """flax path -> (torch key, transpose?) for a GPT of ``num_layers``."""
-    src, dst = "language_model", "language_model"
-    m = {f"{src}/embedding/word_embeddings/embedding":
-         (f"{dst}.embedding.word_embeddings.weight", False)}
+def _gpt_expected(num_layers: int, position_embedding: bool,
+                  src: str = "language_model/", dst: str = "language_model.",
+                  moe: bool = False) -> Dict[str, tuple]:
+    """flax path -> (torch key, transpose?) for a GPT of ``num_layers``
+    (its language model at ``src`` / ``dst``; with ``moe`` each layer's
+    MLP the experts' three leaves, kept as they are)."""
+    m = {f"{src}embedding/word_embeddings/embedding":
+         (f"{dst}embedding.word_embeddings.weight", False)}
     if position_embedding:
-        m[f"{src}/embedding/position_embeddings"] = (
-            f"{dst}.embedding.position_embeddings", False)
+        m[f"{src}embedding/position_embeddings"] = (
+            f"{dst}embedding.position_embeddings", False)
     norms = ("input_layernorm", "post_attention_layernorm")
-    linears = ("self_attention/query_key_value", "self_attention/dense",
-               "mlp/dense_h_to_4h", "mlp/dense_4h_to_h")
+    linears = ("self_attention/query_key_value", "self_attention/dense")
+    if not moe:
+        linears += ("mlp/dense_h_to_4h", "mlp/dense_4h_to_h")
     for i in range(num_layers):
-        s, d = f"{src}/transformer/layer_{i}", f"{dst}.transformer.layers.{i}"
+        s, d = f"{src}transformer/layer_{i}", f"{dst}transformer.layers.{i}"
         for norm in norms:
             for leaf in ("scale", "bias"):
                 m[f"{s}/{norm}/{leaf}"] = (f"{d}.{norm}.{leaf}", False)
@@ -262,10 +274,17 @@ def _gpt_expected(num_layers: int, position_embedding: bool
             key = lin.replace("/", ".")
             m[f"{s}/{lin}/kernel"] = (f"{d}.{key}.weight", True)
             m[f"{s}/{lin}/bias"] = (f"{d}.{key}.bias", False)
+        if moe:
+            for leaf in _EXPERT_LEAVES:
+                m[f"{s}/mlp/experts/{leaf}"] = (f"{d}.mlp.experts.{leaf}",
+                                                False)
     for leaf in ("scale", "bias"):
-        m[f"{src}/transformer/final_layernorm/{leaf}"] = (
-            f"{dst}.transformer.final_layernorm.{leaf}", False)
+        m[f"{src}transformer/final_layernorm/{leaf}"] = (
+            f"{dst}transformer.final_layernorm.{leaf}", False)
     return m
+
+
+_EXPERT_LEAVES = ("router", "w_in", "w_out")
 
 
 # the GPT linears the tensor-parallel layers shard, by module name
@@ -313,6 +332,59 @@ def gpt_params_from_jax(tree: Mapping, num_layers: int,
         n = t.shape[dim] // size
         out[name] = t.narrow(dim, rank * n, n).clone()
     return out
+
+
+def transformer_lm_params_from_jax(
+        tree: Mapping, num_layers: int, apply_rope: bool = False,
+        moe: bool = False, *, ep_rank: int = 0, ep: int = 1
+) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for ``TransformerLanguageModel(num_layers, ...,
+    apply_rope=apply_rope, moe_num_experts=...)`` (``moe`` says whether
+    the experts are set) from the JAX model's flax tree.  An MoE layer's
+    ``mlp/experts/{router, w_in, w_out}`` keep their layout (``[h, e]``,
+    ``[e, h, ffn]``, ``[e, ffn, h]``); with ``ep > 1``, ``w_in`` and
+    ``w_out`` are rank ``ep_rank``'s ``e / ep`` experts, those JAX's ep
+    ``shard_map`` gives that rank (the router whole)."""
+    state = _convert(tree, _gpt_expected(num_layers, not apply_rope, "", "",
+                                         moe),
+                     f"TransformerLanguageModel ({num_layers} layers, "
+                     f"apply_rope={apply_rope}, moe={moe})")
+    size, rank = int(ep), int(ep_rank)
+    if size == 1:
+        return state
+    for name, t in state.items():
+        if name.endswith(("experts.w_in", "experts.w_out")):
+            if t.shape[0] % size:
+                raise ValueError(f"{name}: {t.shape[0]} experts do not "
+                                 f"split over ep {size}")
+            n = t.shape[0] // size
+            state[name] = t[rank * n:(rank + 1) * n].clone()
+    return state
+
+
+_BOTTLENECK_CONVS = ("conv1", "conv2", "conv3", "conv_down")
+
+
+def bottleneck_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.contrib.halo.
+    Bottleneck` (or ``SpatialBottleneck``) from the JAX block's flax tree:
+    the convolutions ``conv1``, ``conv2``, ``conv3`` and ``conv_down`` HWIO
+    -> OIHW, the frozen batch norms' ``bn*_scale`` / ``bn*_bias`` as they
+    are.  Raises on a leaf it cannot place."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state = {}
+    for path, arr in _flatten(tree).items():
+        arr = np.asarray(arr)
+        if path in _BOTTLENECK_CONVS and arr.ndim == 4:
+            state[path] = _tensor(arr.transpose(3, 2, 0, 1))
+        elif (path.startswith("bn") and path.endswith(("_scale", "_bias"))
+              and arr.ndim == 1):
+            state[path] = _tensor(arr)
+        else:
+            raise ValueError(f"flax Bottleneck leaf {path!r} {arr.shape} "
+                             f"has no torch key")
+    return state
 
 
 def bert_params_from_jax(tree: Mapping, num_layers: int,

@@ -48,7 +48,12 @@ from typing import Optional, Sequence, Union
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops._dispatch import Kernel, kernel_path, register
+from apex_tpu_torch.ops._dispatch import (
+    Kernel,
+    kernel_path,
+    register,
+    resolve_device,
+)
 from apex_tpu_torch.utils.packing import PackedSpec
 
 __all__ = ["packed_adam_update", "packed_adagrad_update",
@@ -337,13 +342,14 @@ def packed_adagrad_update(flat_grad, flat_param, flat_h, *, lr, eps,
 # ---------------------------------------------------------------------------
 
 
-def segment_ids_for_spec(spec: PackedSpec, device="cpu") -> torch.Tensor:
+def segment_ids_for_spec(spec: PackedSpec, device="cuda") -> torch.Tensor:
     """The leaf index of each element of a flat buffer laid out by
     ``spec`` (int32, ``[padded_total]``); the padding gets the dead
-    segment ``spec.num_leaves``.  Made on ``device`` from the leaves' end
-    offsets (``searchsorted`` over an ``arange``), as the JAX function
-    makes it on its device: only the small boundary table crosses from
-    the host."""
+    segment ``spec.num_leaves``.  Made on ``device`` (the card unless the
+    caller asks for the CPU) from the leaves' end offsets
+    (``searchsorted`` over an ``arange``), as the JAX function makes it on
+    its device: only the small boundary table crosses from the host."""
+    device = resolve_device(device)
     if spec.padded_total >= 2 ** 31:
         raise NotImplementedError(
             f"packed buffer of {spec.padded_total} elements exceeds int32 "

@@ -54,7 +54,7 @@ __all__ = [
     "set_virtual_pipeline_model_parallel_rank",
     "get_pipeline_model_parallel_split_rank",
     "set_pipeline_model_parallel_split_rank", "get_rank_info",
-    "mesh_axis_sizes", "serving_group",
+    "mesh_axis_sizes", "serving_group", "axis_group",
 ]
 
 # canonical axis names (the reference's group names)
@@ -337,6 +337,20 @@ def serving_group(size: int):
             f"serving_group({size}): model parallel state is installed "
             f"at tp={_AXIS_SIZES[TENSOR_PARALLEL_AXIS]}")
     return _TP_GROUP
+
+
+def axis_group(group, keyword: str):
+    """``group`` as given for a mesh-axis keyword (``axis_name=``,
+    ``expert_parallel_axis=``, ``context_parallel_axis=``, ...): the JAX
+    modules take a mesh axis name there and run under ``shard_map``; the
+    port takes the ``torch.distributed.ProcessGroup`` the collectives run
+    over, or None for one rank.  A bare string raises ``ValueError``."""
+    if isinstance(group, str):
+        raise ValueError(
+            f"{keyword}={group!r}: the port takes a torch.distributed "
+            f"ProcessGroup here (or None for one rank), not a mesh axis "
+            f"name")
+    return group
 
 
 def _backend(group) -> str:

@@ -88,13 +88,16 @@ def normal_(shape, std: float, *, dtype, device, generator=None):
     return (out * std).to(dtype)
 
 
-def shard_init(generator: Optional[torch.Generator],
-               device) -> Optional[torch.Generator]:
+def shard_init(generator: Optional[torch.Generator], device,
+               rank: Optional[int] = None) -> Optional[torch.Generator]:
     """The generator a rank draws its shard from: ``generator`` itself
     outside a region; inside one, a fresh generator on ``device`` seeded
     with one draw of ``generator`` (every rank draws the same value)
-    folded with the rank, so shards draw independent values."""
-    rank = maybe_axis_index()
+    folded with the rank, so shards draw independent values.  ``rank``
+    names the shard of another group (an expert-parallel rank) in place
+    of the bound region's."""
+    if rank is None:
+        rank = maybe_axis_index()
     if rank is None:
         return generator
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,

@@ -54,8 +54,28 @@ under one of the JAX policies (:mod:`apex_tpu_torch.transformer.recompute`
 says what each re-runs and how); a recompute draws the forward's dropout
 masks again.
 
-Context parallelism and mixture-of-experts MLPs raise
-``NotImplementedError``, each with the slice of the port that brings it.
+**Context parallelism** (``context_parallel_axis``, a
+``torch.distributed`` process group, as every mesh-axis keyword of the
+port takes one): the activations are the rank's ``[s / cp, b, h]`` block
+of the sequence, rank ``r`` holding positions ``[r * s / cp, (r + 1) * s
+/ cp)``; the attention core is
+:func:`~apex_tpu_torch.transformer.context_parallel.ring_attention` over
+the group, and RoPE takes the block's global positions (offset ``r * s /
+cp``).  A mask, segment ids or active attention dropout raise under it,
+as in JAX.  :class:`Embedding`'s default position ids stay the local
+``0 .. s / cp - 1`` (JAX's default): with learned positions a cp caller
+passes the global ids.
+
+**Mixture of experts** (``moe_num_experts``): every layer's MLP is a
+:class:`MoEParallelMLP` (top-1 experts of
+:mod:`apex_tpu_torch.transformer.moe`, split over the
+``expert_parallel_axis`` group when one is given).  The JAX layer sows
+its load-balancing loss into flax's ``"moe_losses"`` collection; here
+each MoE layer keeps its last loss (``aux_loss``, in the autograd graph)
+and :meth:`ParallelTransformer.moe_losses` /
+:meth:`TransformerLanguageModel.moe_losses` return them, one a layer in
+order.  The trainer adds them to its objective itself.  MoE with
+sequence parallelism raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +84,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from apex_tpu_torch.transformer import recompute
@@ -71,9 +92,12 @@ from apex_tpu_torch.transformer import recompute
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb
+from apex_tpu_torch.transformer.context_parallel import ring_attention
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 from apex_tpu_torch.transformer.layers import FusedLayerNorm
+from apex_tpu_torch.transformer.moe import ExpertParallelMLP
+from apex_tpu_torch.transformer.parallel_state import axis_group
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -89,16 +113,6 @@ from apex_tpu_torch.transformer.tensor_parallel.random import checkpoint
 __all__ = ["ParallelMLP", "ParallelAttention", "ParallelTransformerLayer",
            "ParallelTransformer", "Embedding", "TransformerLanguageModel",
            "parallel_lm_logits"]
-
-
-def _not_yet(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the {slice_} of the port")
-
-
-def _check_cp(context_parallel_axis: Optional[str]) -> None:
-    if context_parallel_axis is not None:
-        raise _not_yet("context parallelism (ring attention)",
-                       "multi-card slice")
 
 
 def _check_rate(rate: float, what: str) -> float:
@@ -181,19 +195,21 @@ def _rope_freqs(s: int, dim: int, offset=0, *, device=None) -> torch.Tensor:
 
 class ParallelAttention(nn.Module):
     """Multi-head self-attention on ``[s, b, h]`` activations (``[s / tp,
-    b, h]`` under sequence parallelism); a rank attends with its ``heads /
-    tp`` heads over the whole sequence."""
+    b, h]`` under sequence parallelism, ``[s / cp, b, h]`` under context
+    parallelism); a rank attends with its ``heads / tp`` heads over the
+    whole sequence (around the ring under cp)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  attention_dropout: float = 0.0, apply_rope: bool = False,
                  use_flash_attention: bool = True,
                  sequence_parallel_enabled: bool = False,
-                 context_parallel_axis: Optional[str] = None, *,
+                 context_parallel_axis=None, *,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_cp(context_parallel_axis)
+        self.context_parallel_axis = axis_group(context_parallel_axis,
+                                                "context_parallel_axis")
         self.attention_dropout = _check_rate(attention_dropout,
                                              "attention_dropout")
         self.hidden_size = hidden_size
@@ -214,6 +230,16 @@ class ParallelAttention(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None):
         """``deterministic=False`` with ``attention_dropout > 0`` drops
         probabilities, its seed or mask drawn from ``dropout_generator``."""
+        cp = self.context_parallel_axis
+        if cp is not None:
+            if attention_mask is not None or segment_ids is not None:
+                raise NotImplementedError(
+                    "context parallelism composes with causal masking "
+                    "only; express padding by trimming the global sequence")
+            if not deterministic and self.attention_dropout > 0.0:
+                raise NotImplementedError(
+                    "attention dropout under context parallelism would "
+                    "need a ring-consistent RNG; disable it for cp training")
         drop = _active(self.attention_dropout, deterministic,
                        dropout_generator)
         # the rank's heads, over the whole sequence (gathered by the column
@@ -225,7 +251,9 @@ class ParallelAttention(nn.Module):
         qkv = qkv.view(s, b, np_, 3 * hd)
         q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd] each
         if self.apply_rope:
-            freqs = _rope_freqs(s, hd, device=x.device)
+            # under cp, the global positions of this rank's block
+            offset = 0 if cp is None else dist.get_rank(cp) * s
+            freqs = _rope_freqs(s, hd, offset, device=x.device)
             q = fused_apply_rotary_pos_emb(q, freqs)
             k = fused_apply_rotary_pos_emb(k, freqs)
         qt, kt, vt = (t.permute(1, 2, 0, 3) for t in (q, k, v))  # [b, np, s, hd]
@@ -233,7 +261,10 @@ class ParallelAttention(nn.Module):
         causal = self.attn_mask_type == AttnMaskType.causal
         use_flash = self.use_flash_attention and (
             segment_ids is not None or (causal and attention_mask is None))
-        if use_flash:
+        if cp is not None:
+            ctx = ring_attention(qt, kt, vt, axis_name=cp, causal=causal,
+                                 scale=scale)
+        elif use_flash:
             rate, seed = 0.0, None
             if drop:
                 rate, seed = (self.attention_dropout,
@@ -256,6 +287,35 @@ class ParallelAttention(nn.Module):
         return self.dense(ctx)
 
 
+class MoEParallelMLP(nn.Module):
+    """The MLP's drop-in replacement: ``[s, b, h]`` tokens through an
+    :class:`~apex_tpu_torch.transformer.moe.ExpertParallelMLP`
+    (``experts``), experts split over ``expert_parallel_axis`` when it is
+    a group.  The load-balancing loss of the last call is ``aux_loss``
+    (JAX sows it into ``"moe_losses"``)."""
+
+    def __init__(self, hidden_size: int, num_experts: int,
+                 ffn_hidden_size: Optional[int] = None,
+                 capacity_factor: float = 1.25, expert_parallel_axis=None, *,
+                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.experts = ExpertParallelMLP(
+            num_experts, hidden_size, ffn_hidden_size, capacity_factor,
+            axis_group(expert_parallel_axis, "expert_parallel_axis"),
+            param_dtype=params_dtype, device=device, generator=generator)
+        self.aux_loss = None
+
+    def forward(self, x):
+        s, b, h = x.shape
+        if h != self.hidden_size:
+            raise ValueError(f"input feature dim ({h}) != hidden_size "
+                             f"({self.hidden_size})")
+        out, self.aux_loss = self.experts(x.reshape(s * b, h))
+        return out.view(s, b, h)
+
+
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> [dropout] + residual -> LN -> MLP
     -> [dropout] + residual.  ``attention_dropout`` goes to the attention
@@ -266,15 +326,18 @@ class ParallelTransformerLayer(nn.Module):
                  hidden_dropout: float = 0.0, apply_rope: bool = False,
                  use_flash_attention: bool = True,
                  sequence_parallel_enabled: bool = False,
-                 context_parallel_axis: Optional[str] = None,
-                 moe_num_experts: Optional[int] = None, *,
-                 attention_dropout: float = 0.0,
+                 context_parallel_axis=None,
+                 moe_num_experts: Optional[int] = None,
+                 expert_parallel_axis=None, moe_capacity_factor: float = 1.25,
+                 *, attention_dropout: float = 0.0,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hidden_dropout = _check_rate(hidden_dropout, "hidden_dropout")
-        if moe_num_experts:
-            raise _not_yet("mixture-of-experts MLPs", "expert-parallel slice")
+        if moe_num_experts and sequence_parallel_enabled:
+            raise NotImplementedError(
+                "MoE + sequence parallelism needs tp-grad-synced replicated "
+                "experts; route tokens with expert_parallel_axis instead")
         dev = resolve_device(device)
         self.input_layernorm = FusedLayerNorm(
             hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
@@ -289,9 +352,17 @@ class ParallelTransformerLayer(nn.Module):
         self.post_attention_layernorm = FusedLayerNorm(
             hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
             device=dev)
-        self.mlp = ParallelMLP(
-            hidden_size, sequence_parallel_enabled=sequence_parallel_enabled,
-            params_dtype=params_dtype, device=dev, generator=generator)
+        self.mlp = (
+            MoEParallelMLP(hidden_size, moe_num_experts,
+                           capacity_factor=moe_capacity_factor,
+                           expert_parallel_axis=expert_parallel_axis,
+                           params_dtype=params_dtype, device=dev,
+                           generator=generator)
+            if moe_num_experts else
+            ParallelMLP(hidden_size,
+                        sequence_parallel_enabled=sequence_parallel_enabled,
+                        params_dtype=params_dtype, device=dev,
+                        generator=generator))
 
     def forward(self, x, attention_mask=None, segment_ids=None, *,
                 deterministic: bool = True,
@@ -330,7 +401,9 @@ class ParallelTransformer(nn.Module):
     products, ``"except_activations"`` only the norm outputs and the gelu
     output (:mod:`apex_tpu_torch.transformer.recompute`).  Both attributes
     may be changed after construction.  ``hidden_dropout`` and
-    ``attention_dropout`` go to every layer (the JAX stack has neither)."""
+    ``attention_dropout`` go to every layer (the JAX stack has neither).
+    With ``moe_num_experts``, :meth:`moe_losses` lists each layer's
+    load-balancing loss of the last forward."""
 
     def __init__(self, num_layers: int, hidden_size: int,
                  num_attention_heads: int,
@@ -339,8 +412,9 @@ class ParallelTransformer(nn.Module):
                  activations_checkpoint: bool = False,
                  activations_checkpoint_policy: Optional[str] = None,
                  sequence_parallel_enabled: bool = False,
-                 context_parallel_axis: Optional[str] = None,
+                 context_parallel_axis=None,
                  moe_num_experts: Optional[int] = None,
+                 expert_parallel_axis=None, moe_capacity_factor: float = 1.25,
                  final_layernorm: bool = True, *,
                  hidden_dropout: float = 0.0, attention_dropout: float = 0.0,
                  params_dtype: torch.dtype = torch.float32, device="cuda",
@@ -362,8 +436,10 @@ class ParallelTransformer(nn.Module):
                 use_flash_attention=use_flash_attention,
                 sequence_parallel_enabled=sequence_parallel_enabled,
                 context_parallel_axis=context_parallel_axis,
-                moe_num_experts=moe_num_experts, params_dtype=params_dtype,
-                device=dev, generator=generator)
+                moe_num_experts=moe_num_experts,
+                expert_parallel_axis=expert_parallel_axis,
+                moe_capacity_factor=moe_capacity_factor,
+                params_dtype=params_dtype, device=dev, generator=generator)
             for _ in range(num_layers))
         self.final_layernorm = (
             FusedLayerNorm(hidden_size,
@@ -393,6 +469,12 @@ class ParallelTransformer(nn.Module):
         return checkpoint(run, False, *args,
                           context_fn=recompute.dots_context(
                               batched=policy == "dots"))
+
+    def moe_losses(self) -> list:
+        """Each MoE layer's load-balancing loss of the last forward, in
+        layer order (empty without experts)."""
+        return [layer.mlp.aux_loss for layer in self.layers
+                if isinstance(layer.mlp, MoEParallelMLP)]
 
     def forward(self, x, attention_mask=None, segment_ids=None, *,
                 deterministic: bool = True,
@@ -443,7 +525,9 @@ class Embedding(nn.Module):
 
 class TransformerLanguageModel(nn.Module):
     """:class:`Embedding` then :class:`ParallelTransformer`: ``[b, s]`` ids
-    to ``[s, b, h]`` hidden states after the final norm."""
+    to ``[s, b, h]`` hidden states after the final norm.  With
+    ``moe_num_experts`` a training caller adds :meth:`moe_losses` to its
+    objective."""
 
     def __init__(self, num_layers: int, hidden_size: int,
                  num_attention_heads: int, vocab_size: int,
@@ -453,9 +537,10 @@ class TransformerLanguageModel(nn.Module):
                  activations_checkpoint: bool = False,
                  activations_checkpoint_policy: Optional[str] = None,
                  sequence_parallel_enabled: bool = False,
-                 context_parallel_axis: Optional[str] = None,
-                 moe_num_experts: Optional[int] = None, *,
-                 params_dtype: torch.dtype = torch.float32, device="cuda",
+                 context_parallel_axis=None,
+                 moe_num_experts: Optional[int] = None,
+                 expert_parallel_axis=None, moe_capacity_factor: float = 1.25,
+                 *, params_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
@@ -472,7 +557,13 @@ class TransformerLanguageModel(nn.Module):
             activations_checkpoint_policy=activations_checkpoint_policy,
             sequence_parallel_enabled=sequence_parallel_enabled,
             context_parallel_axis=context_parallel_axis,
-            moe_num_experts=moe_num_experts, **kw)
+            moe_num_experts=moe_num_experts,
+            expert_parallel_axis=expert_parallel_axis,
+            moe_capacity_factor=moe_capacity_factor, **kw)
+
+    def moe_losses(self) -> list:
+        """:meth:`ParallelTransformer.moe_losses` of the stack."""
+        return self.transformer.moe_losses()
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
                 segment_ids=None, *, deterministic: bool = True,

@@ -2,6 +2,7 @@
 """Drive apex_tpu_torch on one CUDA card: build, check, serve, measure.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only moe,cp   # phases of ``ALONE`` alone
 
 Needs one NVIDIA card (Hopper, sm_90a) and ``nvcc``; imports nothing of
 JAX or of ``apex_tpu``.  Four phases, each printed as it ends; any failure
@@ -34,7 +35,8 @@ ends the run with a non-zero exit and no result line:
    route are also timed at the two routing shapes, N_res 256 and 1024.
    The flash forward and backward are also checked at GPT-2-large's
    flagship shape (and with the layers' dropout), BERT-large's (padding
-   segment ids, not causal), GPT-1.3B's, and for the same bits on a
+   segment ids, not causal), GPT-1.3B's, GPT-2-medium's (the MoE
+   stack's), and for the same bits on a
    repeated call at the main
    shape, and timed at both models' shapes with each kernel's TFLOP/s and
    the host side of a call.  The head forward is also checked at
@@ -316,6 +318,17 @@ ends the run with a non-zero exit and no result line:
      attention's probabilities and of the hidden activations within 6
      binomial deviations of 0.1; whole-layer recompute under dropout bit
      for bit.
+   - *expert, context and spatial parallelism* (``phase3-moe-reference``,
+     ``phase3-ring-reference``, ``phase3-train-moe``, ``phase3-train-cp``,
+     ``phase3-halo``), each group an NCCL group of 1: a small fp32 MoE
+     language model and the ring attention on the card against the CPU;
+     GPT-2-medium's widths with every MLP 8 top-1 experts (O2,
+     ``FusedLAMB`` with fp32 masters) equal bit for bit to no group, 1 + 4
+     steps with exact launches, and 4 more with no group; the same widths
+     with RoPE at s 8192 through the ring, against the flash path's loss
+     and gradients, 1 + 4 steps; ``SpatialBottleneck`` against
+     ``Bottleneck`` at ResNet-50's stride-1 blocks.  Each training phase
+     also reports its threads' CPU time and a host yardstick.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -333,7 +346,9 @@ ends the run with a non-zero exit and no result line:
 
 The card's name and power limit (``nvidia-smi``) are printed on the line
 before the last; the last line is ``{"ok": true, "device": {...}}``.  A
-fuller report goes to ``build/chip_smoke.json``.
+fuller report goes to ``build/chip_smoke.json``.  With ``--only`` the
+build and the named phases run, their report goes to
+``build/chip_smoke_only.json``, and neither line is printed.
 """
 
 from __future__ import annotations
@@ -627,12 +642,17 @@ FLASH_GPT = dict(b=8, h=20, hk=20, s=1024, d=64)
 # heads of 64, s 1024
 FLASH_BERT = dict(b=16, h=16, hk=16, s=512, d=64)
 FLASH_GPT13 = dict(b=8, h=32, hk=32, s=1024, d=64)
-# the model shapes of this slice, forward and backward: BERT's padding,
-# GPT-1.3B's, and GPT-2-large's with the layers' attention dropout
+# GPT-2-medium's (bench.py:86-89), the MoE stack's: b 8, 16 heads of 64,
+# s 1024, causal
+FLASH_GPT2M = dict(b=8, h=16, hk=16, s=1024, d=64)
+# the model shapes of the later slices, forward and backward: BERT's
+# padding, GPT-1.3B's, GPT-2-large's with the layers' attention dropout
+# and the MoE stack's
 FLASH_SLICE_CASES = (
     dict(FLASH_BERT, dtype="bfloat16", causal=False, sq=512, sk=512,
          seg="padding"),
     dict(FLASH_GPT13, dtype="bfloat16", causal=True, sq=1024, sk=1024),
+    dict(FLASH_GPT2M, dtype="bfloat16", causal=True, sq=1024, sk=1024),
     dict(FLASH_GPT, dtype="bfloat16", causal=True, sq=1024, sk=1024,
          rate=0.1, seed=2 ** 31 - 2))
 HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
@@ -640,6 +660,9 @@ HEAD_MAIN = dict(t=8192, hid=2048, vocab=32000)
 HEAD_GPT = dict(t=8192, hid=1280, vocab=50257)
 # GPT-1.3B's head at b 8, s 1024 (bench.py:93-98): hid 2048, V 50304
 HEAD_GPT13 = dict(t=8192, hid=2048, vocab=50304)
+# GPT-2-medium's tied head, the MoE and cp stacks' (b 8 x s 1024 and b 1 x
+# s 8192): hid 1024, V 50304
+HEAD_GPT2M = dict(t=8192, hid=1024, vocab=50304)
 
 
 def _tol_ratio(actual, expected, tol) -> float:
@@ -819,8 +842,9 @@ def check_lm_head(device) -> dict:
     dtypes, token counts and vocabularies off the 128 and 256 tiles, hidden
     sizes, labels -100, vocab - 1 and vocab, the main path's shape,
     GPT-2-large's head shape (V 50257: 175 pad columns in the last vocab
-    tile), GPT-1.3B's (V 50304, h 2048), and a repeated call at the main
-    shape equal bit for bit."""
+    tile), GPT-1.3B's (V 50304, h 2048), GPT-2-medium's (V 50304, h 1024:
+    the MoE and cp stacks'), and a repeated call at the main shape equal
+    bit for bit."""
     import torch
     from apex_tpu_torch.ops import fused_lm_head as lh
 
@@ -831,6 +855,7 @@ def check_lm_head(device) -> dict:
     cases.append(dict(HEAD_MAIN, dtype="bfloat16", main=True, model_init=True))
     cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
     cases.append(dict(HEAD_GPT13, dtype="bfloat16", model_init=True))
+    cases.append(dict(HEAD_GPT2M, dtype="bfloat16", model_init=True))
     g = torch.Generator(device=device).manual_seed(12)
     worst, main = 0.0, {}
     with torch.inference_mode():
@@ -1501,7 +1526,8 @@ def check_lm_head_bwd(device) -> dict:
     same (H, E, labels, lse, g) over the forward check's dtypes, token
     counts and vocabularies off the tile, hidden sizes, labels -100 and
     vocab, with a non-uniform g; the main path's shape in bf16 and fp16,
-    GPT-2-large's and GPT-1.3B's head shapes, T, V and h off every tile edge of the wgmma
+    GPT-2-large's, GPT-1.3B's and GPT-2-medium's head shapes, T, V and h
+    off every tile edge of the wgmma
     products (T 129, V 50257, h 1288), and two calls on the same inputs,
     which must give dH and dE bit for bit.  fp16 cases take the fp16 amp
     path's cotangent (times its loss scale), and every case's tolerance
@@ -1517,6 +1543,7 @@ def check_lm_head_bwd(device) -> dict:
     cases.append(dict(HEAD_MAIN, dtype="float16", model_init=True))
     cases.append(dict(HEAD_GPT, dtype="bfloat16", model_init=True))
     cases.append(dict(HEAD_GPT13, dtype="bfloat16", model_init=True))
+    cases.append(dict(HEAD_GPT2M, dtype="bfloat16", model_init=True))
     cases += [dict(dtype=dt, t=129, vocab=50257, hid=1288)
               for dt in ("bfloat16", "float16")]
     g = torch.Generator(device=device).manual_seed(23)
@@ -3488,19 +3515,23 @@ def _mt_lamb_kw(device) -> dict:
                 bc2=torch.tensor(0.002, device=device), noop=None)
 
 
-def _mt_lamb_err(g, p, m, v, kw, k) -> tuple:
+def _mt_lamb_err(g, p, m, v, kw, k, copy=None) -> tuple:
     """Max abs error and tolerance ratio (``_mt_lamb_tols``) of mt_lamb
     against its plain version over the first ``k`` tensors (copies),
-    with ``kw`` from ``_mt_lamb_kw``."""
+    with ``kw`` from ``_mt_lamb_kw``; ``copy``, where given, the model
+    parameters the pass writes from fp32 masters ``p``."""
     import torch
     from apex_tpu_torch.ops import multi_tensor as mt
 
     runs = []
     for fn in (mt._kernel_lamb, mt._plain_lamb):
         tp, tm, tv = ([t.clone() for t in lst[:k]] for lst in (p, m, v))
-        fn(g[:k], tp, tm, tv, None, **kw)
+        tc = None if copy is None else [t.clone() for t in copy[:k]]
+        fn(g[:k], tp, tm, tv, tc, **kw)
         torch.cuda.synchronize()
-        runs.append([dict(p=a, m=b, v=c) for a, b, c in zip(tp, tm, tv)])
+        runs.append([dict(p=a, m=b, v=c, **({} if tc is None else
+                                            {"copy": tc[j]}))
+                     for j, (a, b, c) in enumerate(zip(tp, tm, tv))])
     case = dict(wd=kw["weight_decay"], use_ratio=kw["use_ratio"],
                 adam_w=kw["adam_w_mode"])
     rels = _mt_lamb_norm_rels([g[:k], p[:k], m[:k], v[:k]])
@@ -3532,10 +3563,10 @@ def _o2_spec(model, layers: int) -> list:
 
 
 def mt_model_lists(device) -> dict:
-    """The parameter lists the optimizers of the BERT-large, GPT-1.3B
-    (mt_lamb) and ViT-L/16 (mt_adam) paths walk, each model built at one
-    layer of its full width and O2 cast (``_o2_spec``): ``name ->
-    [(shape, dtype)]``."""
+    """The parameter lists the optimizers of the BERT-large, GPT-1.3B,
+    MoE GPT-2-medium (mt_lamb) and ViT-L/16 (mt_adam) paths walk, each
+    model built at one layer of its full width and O2 cast (``_o2_spec``):
+    ``name -> [(shape, dtype)]``."""
     import dataclasses
 
     from apex_tpu_torch.examples import bert_pretrain as bp
@@ -3543,8 +3574,11 @@ def mt_model_lists(device) -> dict:
     from apex_tpu_torch.examples.llama_pretrain import o2_cast
     from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
     from apex_tpu_torch.transformer.testing import BertModel, GPTModel
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerLanguageModel,
+    )
 
-    b, g = bp.LARGE, gpt_pretrain.CONFIGS["1.3b"]
+    b, g, c = bp.LARGE, gpt_pretrain.CONFIGS["1.3b"], MOE_CARD
     vit = ViTConfig.vit_l16()
     one = {
         "bert_large": (BertModel(
@@ -3555,6 +3589,11 @@ def mt_model_lists(device) -> dict:
             num_layers=1, hidden_size=g["hidden"],
             num_attention_heads=g["heads"], vocab_size=g["vocab"],
             max_sequence_length=g["seq"], device=device), g["layers"]),
+        "gpt2_medium_moe8": (TransformerLanguageModel(
+            1, c["hidden"], c["heads"], c["vocab"], c["seq"],
+            moe_num_experts=c["experts"],
+            moe_capacity_factor=c["capacity_factor"], device=device),
+            c["layers"]),
         "vit_l16": (ViTForImageClassification(
             dataclasses.replace(vit, num_hidden_layers=1), device=device),
             vit.num_hidden_layers)}
@@ -3562,17 +3601,22 @@ def mt_model_lists(device) -> dict:
             for name, (model, layers) in one.items()}
 
 
-# the slice's lists are held against the plain version over their first
-# tensors up to this many elements: BERT-large's and ViT-L/16's whole,
-# GPT-1.3B's first 72 of 292 tensors (its embeddings and nearly six
-# layers, 390 M elements: for the whole list, the two runs' copies and
-# the fp32 tolerances would come to some 31 GB by arithmetic)
+# the lists are held against the plain version over their first tensors
+# up to this many elements: BERT-large's and ViT-L/16's whole, GPT-1.3B's
+# first 72 of 292 tensors (its embeddings and nearly six layers, 390 M
+# elements), the MoE stack's first 56 of 268 (its embeddings, four layers
+# and the fifth's up to its w_in: nine expert tensors of 33.5 M, 376 M
+# elements; the whole list is 1.76 B); only
+# the tensors checked are made (for GPT-1.3B's whole list, the two runs'
+# copies and the fp32 tolerances would come to some 31 GB by arithmetic)
 MT_MODEL_CHECK_ELEMENTS = 400_000_000
 
 
 def check_multi_tensor_model_lists(device) -> dict:
     """mt_lamb on BERT-large's and GPT-1.3B's O2 lists (bf16 moments, as
-    their ``FusedLAMB(state_dtype=bf16)``) and mt_adam on ViT-L/16's (its
+    their ``FusedLAMB(state_dtype=bf16)``) and on the MoE GPT-2-medium's
+    (fp32 moments and fp32 masters, the pass writing the O2 parameters, as
+    its ``FusedLAMB(master_weights=True)``), and mt_adam on ViT-L/16's (its
     ``FusedAdam``'s fp32 moments) against their plain versions, each list
     from :func:`mt_model_lists`, at ``_mt_lamb_tols`` / ``_mt_adam_tols``."""
     import torch
@@ -3581,24 +3625,34 @@ def check_multi_tensor_model_lists(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(74)
     out = {}
     with torch.no_grad():
-        for name, spec in mt_model_lists(device).items():
+        for name, full in mt_model_lists(device).items():
             lamb = name != "vit_l16"
-            moments = "bfloat16" if lamb else "float32"
-            p = _mt_list_tensors(spec, gen, device)
+            masters = name == "gpt2_medium_moe8"
+            moments = "bfloat16" if lamb and not masters else "float32"
+            k = _mt_sub([torch.empty(shape, device="meta")
+                         for shape, _ in full], MT_MODEL_CHECK_ELEMENTS)
+            spec = full[:k]
+            p = _mt_list_tensors(spec, gen, device,
+                                 dtype="float32" if masters else None)
+            copy = ([t.to(getattr(torch, dt)) for t, (_, dt) in zip(p, spec)]
+                    if masters else None)
             g = _mt_list_tensors(spec, gen, device, 0.01)
             m = _mt_list_tensors(spec, gen, device, 1e-3, dtype=moments)
             v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
                                  dtype=moments)
-            k = _mt_sub(p, MT_MODEL_CHECK_ELEMENTS)
-            err, ratio = (_mt_lamb_err(g, p, m, v, _mt_lamb_kw(device), k)
+            err, ratio = (_mt_lamb_err(g, p, m, v, _mt_lamb_kw(device), k,
+                                       copy=copy)
                           if lamb else
                           _mt_adam_err(g, p, m, v, None, None,
                                        _mt_adam_kw(mt.ADAMW, device), k))
             kernel = "mt_lamb" if lamb else "mt_adam"
-            row = dict(kernel=kernel, list=f"{name} (O2, {moments} moments)",
-                       tensors=len(p), elements=sum(t.numel() for t in p),
+            row = dict(kernel=kernel,
+                       list=f"{name} (O2, {moments} moments"
+                            + (", fp32 masters)" if masters else ")"),
+                       tensors=len(full),
+                       elements=sum(math.prod(shape) for shape, _ in full),
                        checked_tensors=k,
-                       checked_elements=sum(t.numel() for t in p[:k]),
+                       checked_elements=sum(t.numel() for t in p),
                        max_abs_err=err, tol_ratio=ratio,
                        tolerance="_mt_lamb_tols" if lamb else "_mt_adam_tols")
             if ratio > 1.0:
@@ -3606,7 +3660,7 @@ def check_multi_tensor_model_lists(device) -> dict:
                                      f"{ratio:.3f} x tol")
             out[name] = row
             log("phase2-check", **row)
-            del p, g, m, v
+            del p, g, m, v, copy
             torch.cuda.empty_cache()
     return out
 
@@ -7318,6 +7372,39 @@ def _step_flops(model, b: int, s: int) -> float:
     return float(per_token * b * s)
 
 
+def _host_loop_ms() -> float:
+    """Wall ms of a fixed pure-Python loop (2 M integer additions): a
+    yardstick of the host CPU's speed at the moment, by which host-bound
+    step walls are read across phases and calls (the card's host is
+    shared, and its speed moves while a process runs)."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _thread_cpu_ms() -> dict:
+    """CPU ms each thread of this process has used, by thread name (the
+    calling thread as ``main``), from ``/proc/self/task``."""
+    import threading
+
+    main, tick = str(threading.get_native_id()), os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                name = "main" if tid == main else f.read().strip()
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue            # the thread ended meanwhile
+        # utime and stime, fields 14 and 15 of stat(5)
+        ms = (int(fields[11]) + int(fields[12])) * 1e3 / tick
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
 def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
                  every_step: bool = False, after_step=None) -> dict:
     """One warm-up call of ``step_fn`` (a training step returning its
@@ -7326,8 +7413,10 @@ def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
     finite losses, the last below the warm-up's (``bench.py``'s gate) or,
     with ``every_step``, each below the one before; the peak memory over
     the timed steps, each step's wall and the host's time (wall and CPU)
-    to issue it.  ``after_step(i, losses)`` runs after step ``i``, with
-    the warm-up's loss and those so far."""
+    to issue it; the CPU ms of each of the process's threads over the
+    timed steps, and the host yardstick (``_host_loop_ms``) just before
+    and after them.  ``after_step(i, losses)`` runs after step ``i``,
+    with the warm-up's loss and those so far."""
     import torch
     from apex_tpu_torch.ops import _dispatch
 
@@ -7340,6 +7429,8 @@ def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
     torch.cuda.reset_peak_memory_stats()
     _dispatch.reset_launches()
     allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    host_loop = [_host_loop_ms()]
+    threads0 = _thread_cpu_ms()
     step_ms, issue_ms, issue_cpu_ms, losses = [], [], [], []
     for i in range(steps):
         before = _launch_counts()
@@ -7357,6 +7448,9 @@ def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
                                  f"expected {per_step}")
         if after_step is not None:
             after_step(i, [loss0] + losses)
+    threads = {name: ms - threads0.get(name, 0.0)
+               for name, ms in _thread_cpu_ms().items()}
+    host_loop.append(_host_loop_ms())
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     seq = [loss0] + losses
@@ -7371,6 +7465,9 @@ def _train_steps(step_fn, steps: int, per_step: dict, label: str, *,
                 # the host's time to issue each step (and its CPU time
                 # then): near step_ms, the step is host-bound
                 step_issue_ms=issue_ms, step_issue_cpu_ms=issue_cpu_ms,
+                thread_cpu_ms_timed_steps={n: ms for n, ms in sorted(
+                    threads.items(), key=lambda kv: -kv[1]) if ms > 0},
+                host_loop_ms=host_loop,
                 device_allocs_in_timed_steps=torch.cuda.memory_stats().get(
                     "num_device_alloc", 0) - allocs0,
                 allocated_before_bytes=allocated_before, peak_mem_bytes=peak,
@@ -10531,8 +10628,482 @@ def dropout_check(device, smi: str) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# expert, context and spatial parallelism (world 1 under NCCL)
+# ---------------------------------------------------------------------------
+
+# GPT-2-medium's widths (bench.py:86-89), every MLP 8 experts of ffn 4096 at
+# capacity factor 1.25 (1280 slots of 8192 tokens an expert)
+MOE_CARD = dict(layers=24, hidden=1024, heads=16, vocab=50304, seq=1024,
+                batch=8, experts=8, capacity_factor=1.25)
+# the smoke trainer's weight on the summed load-balancing losses (Switch's
+# alpha); the package leaves the objective to its caller
+MOE_AUX_COEF = 0.01
+# the same widths, dense MLPs, RoPE, one sequence of 8192 tokens
+CP_CARD = dict(layers=24, hidden=1024, heads=16, vocab=50304, seq=8192,
+               batch=1)
+# the ring's loss and gradients against the flash path's: both bf16, the
+# ring's products in fp32; each gradient's relative norm of the difference
+CP_LOSS_TOL = 1e-4
+CP_GRAD_TOL = 5e-2
+RING_SMALL_TOL = 1e-4
+# ResNet-50's stride-1 bottlenecks (in, bottleneck, out, H = W), b 32, bf16
+HALO_BLOCKS = ((256, 64, 256, 56), (512, 128, 512, 28), (1024, 256, 1024, 14))
+HALO_BATCH = 32
+HALO_TOL = 1e-2
+HALO_REPEATS = 10
+
+
+def _lm_card(c: dict, device, **kw):
+    """``TransformerLanguageModel`` at card ``c``'s widths, fp32 init from a
+    seeded generator on the card, the O2 cast, and ``FusedLAMB(lr 1e-3)``
+    with fp32 moments and fp32 masters."""
     import torch
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerLanguageModel,
+    )
+
+    model = TransformerLanguageModel(
+        c["layers"], c["hidden"], c["heads"], c["vocab"], c["seq"],
+        device=device, generator=torch.Generator(device=device).manual_seed(0),
+        **kw)
+    o2_cast(model)
+    return model, FusedLAMB(model.parameters(), lr=1e-3, master_weights=True)
+
+
+def _lm_loss(model, ids, aux_coef: float = 0.0):
+    """The mean next-token loss through the tied embedding by
+    ``fused_lm_head_loss`` (``GPTModel``'s head at tp 1), plus ``aux_coef``
+    times the sum of the MoE layers' load-balancing losses."""
+    import torch
+    from apex_tpu_torch.ops.fused_lm_head import fused_lm_head_loss
+
+    hidden = model(ids)
+    emb = model.embedding.word_embeddings.weight
+    loss = fused_lm_head_loss(hidden, emb.to(hidden.dtype),
+                              torch.roll(ids, -1, dims=1).T).mean()
+    if aux_coef:
+        loss = loss + aux_coef * sum(model.moe_losses())
+    return loss
+
+
+def _lm_step(model, opt, ids, aux_coef: float = 0.0):
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _lm_loss(model, ids, aux_coef)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def _lm_per_step(layers: int, flash: bool) -> dict:
+    """A step's launches: two norms a layer and the final one, forward and
+    backward; flash forward, dq and dk/dv a layer (not under cp); the head
+    once each way; LAMB's clip norm and its one launch."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    per = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+           ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+           lh.FUSED_LM_HEAD_FWD.name: 1, lh.FUSED_LM_HEAD_DH.name: 1,
+           lh.FUSED_LM_HEAD_DE.name: 1, mt.MT_L2NORM.name: 1,
+           mt.MT_LAMB.name: 1}
+    if flash:
+        per.update({fa.FLASH_ATTENTION_FWD.name: layers,
+                    fa.FLASH_ATTENTION_DQ.name: layers,
+                    fa.FLASH_ATTENTION_DKV.name: layers})
+    return per
+
+
+def small_moe_check(device) -> dict:
+    """A small fp32 MoE language model (2 layers, hidden 128, 2 heads of
+    64, vocab 512, 4 experts at capacity factor 1.25, b 2 x s 128) on the
+    card and on the CPU: the head loss plus ``MOE_AUX_COEF`` times the
+    load-balancing losses, every gradient and 3 ``FusedLAMB`` steps."""
+    import torch
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerLanguageModel,
+    )
+
+    ids = torch.randint(0, 512, (2, 128),
+                        generator=torch.Generator().manual_seed(51))
+
+    def build(dev):
+        return TransformerLanguageModel(
+            2, 128, 2, 512, 128, moe_num_experts=4, device=dev,
+            generator=torch.Generator().manual_seed(52)
+            if dev == "cpu" else None)
+
+    def loss_of(model, dev):
+        return _lm_loss(model, ids.to(dev), MOE_AUX_COEF)
+
+    out = _card_vs_cpu("small MoE LM", build, loss_of,
+                       lambda ps: FusedLAMB(ps, lr=1e-3), 1e-3, device)
+    out["tolerance"] = SMALL_CARD_TOL
+    log("phase3-moe-reference", **out)
+    return out
+
+
+def _routing(model) -> dict:
+    """Layer 0's and the last layer's routing in the last forward: tokens
+    each expert drew and the share dropped past capacity."""
+    layers = model.transformer.layers
+    out = {}
+    for name, layer in (("layer_0", layers[0]),
+                        (f"layer_{len(layers) - 1}", layers[-1])):
+        ex = layer.mlp.experts
+        counts = [int(n) for n in ex.last_tokens_per_expert]
+        out[name] = dict(tokens_per_expert=counts,
+                         dropped_share=int(ex.last_dropped) / sum(counts))
+    return out
+
+
+def moe_train(device, smi: str) -> dict:
+    """``MOE_CARD``: every MLP of GPT-2-medium 8 experts (1.76 B parameters,
+    0.36 B active a token), O2, ``FusedLAMB`` with fp32 state and masters,
+    loss = the fused head's + ``MOE_AUX_COEF`` x the load-balancing losses,
+    ``expert_parallel_axis`` an NCCL group of 1.  Gates: at the initial
+    weights the loss and every gradient equal bit for bit to
+    ``expert_parallel_axis=None``'s; one load-balancing loss a layer; then
+    ``SLICE_STEPS`` timed steps with exact launches and a falling loss, and
+    as many with no group (``no_group``: the exchanges' host cost)."""
+    import torch
+
+    c = MOE_CARD
+    L, b, s = c["layers"], c["batch"], c["seq"]
+    with _nccl_world("moe_rdv_") as group:
+        model, opt = _lm_card(c, device, moe_num_experts=c["experts"],
+                              expert_parallel_axis=group,
+                              moe_capacity_factor=c["capacity_factor"])
+        experts = [layer.mlp.experts for layer in model.transformer.layers]
+        ids = torch.randint(0, c["vocab"], (b, s),
+                            generator=torch.Generator().manual_seed(53)
+                            ).to(device)
+        fwd = lambda: _lm_loss(model, ids, MOE_AUX_COEF)  # noqa: E731
+        loss_g, grads_g, launch_g = _loss_and_grads(model, fwd)
+        auxes = [float(a.detach()) for a in model.moe_losses()]
+        for ex in experts:
+            ex.axis_name = None
+        loss_n, grads_n, _ = _loss_and_grads(model, fwd)
+        for ex in experts:
+            ex.axis_name = group
+        same = _grads_equal(grads_g, grads_n)
+        del grads_g, grads_n
+        if (loss_g != loss_n or not same["bit_equal"] or len(auxes) != L
+                or not all(map(math.isfinite, auxes))):
+            raise AssertionError(f"MoE: ep group of 1 loss {loss_g} vs "
+                                 f"{loss_n}, gradients {same}, aux {auxes}")
+        step = _lm_step(model, opt, ids, MOE_AUX_COEF)
+        out = _train_steps(step, SLICE_STEPS, _lm_per_step(L, True),
+                           "MoE GPT-2-medium")
+        routing = _routing(model)
+        # the same steps with no group: the host's cost of the exchanges
+        for ex in experts:
+            ex.axis_name = None
+        alone = _train_steps(step, SLICE_STEPS, _lm_per_step(L, True),
+                             "MoE GPT-2-medium, no ep group")
+        for ex in experts:
+            ex.axis_name = group
+        out["no_group"] = {k: alone[k] for k in (
+            "step_ms", "step_ms_median", "step_issue_ms", "step_issue_cpu_ms",
+            "thread_cpu_ms_timed_steps", "host_loop_ms")}
+        out["profile"] = _profile(step, out["step_ms_median"])
+    n = sum(p.numel() for p in model.parameters())
+    n_experts = sum(ex.w_in.numel() + ex.w_out.numel() for ex in experts)
+    active = n - n_experts + n_experts // c["experts"]
+    tokens = b * s
+    # 6 N_active a token plus the causal attention's 12 L h s / 2
+    flops = float((6 * active + 12 * L * c["hidden"] * s // 2) * tokens)
+    out = dict(config="gpt2-medium-moe8", nvidia_smi=smi, params=n,
+               active_params=active, **c, tokens=tokens,
+               capacity=experts[0].capacity(tokens), aux_coef=MOE_AUX_COEF,
+               initial_aux_losses=auxes, routing=routing,
+               ep1_check=dict(loss=loss_g, launches=launch_g, **same),
+               precision="O2: 2-d+ parameters bf16 (router included; its "
+                         "product cast up to fp32), biases and LayerNorm "
+                         "fp32",
+               optimizer="FusedLAMB(lr=1e-3), fp32 moments and masters",
+               tolerance="ep group of 1 = no group bit for bit", **out)
+    _mfu(out, flops, tokens)
+    log("phase3-train-moe", **out)
+    del model, opt, experts
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_ring_check(device) -> dict:
+    """``ring_attention`` over an NCCL group of 1 on the card, fp32, causal
+    and not, ``[2, 4, 256, 64]``: the output and the q / k / v gradients
+    against dense attention in fp64 on the CPU, within
+    ``RING_SMALL_TOL`` of the largest reference value."""
+    import torch
+    from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+    g = torch.Generator().manual_seed(54)
+    q, k, v, ct = (torch.randn(2, 4, 256, 64, generator=g) for _ in range(4))
+    out = {}
+    with _nccl_world("ring_rdv_") as group:
+        for causal in (True, False):
+            ref_in = [t.double().requires_grad_() for t in (q, k, v)]
+            sc = ref_in[0] @ ref_in[1].transpose(-1, -2) / 8.0
+            if causal:
+                sc = sc.masked_fill(torch.ones(256, 256, dtype=torch.bool)
+                                    .triu(1), float("-inf"))
+            ref = torch.softmax(sc, -1) @ ref_in[2]
+            (ref * ct.double()).sum().backward()
+            card = [t.to(device, copy=True).requires_grad_()
+                    for t in (q, k, v)]
+            got = ring_attention(*card, axis_name=group, causal=causal)
+            (got * ct.to(device)).sum().backward()
+            errs = {name: float((a.detach().cpu().double() - b.detach()).abs()
+                                .max() / b.detach().abs().max())
+                    for name, a, b in (("out", got, ref),
+                                       *((f"d{n}", t.grad, r.grad) for n, t, r
+                                         in zip("qkv", card, ref_in)))}
+            if max(errs.values()) > RING_SMALL_TOL:
+                raise AssertionError(f"ring attention (causal={causal}) card "
+                                     f"against dense fp64: {errs}")
+            out["causal" if causal else "full"] = errs
+    out["tolerance"] = (f"max |card - fp64 dense| <= {RING_SMALL_TOL} max "
+                        f"|reference|, output and each gradient")
+    log("phase3-ring-reference", **out)
+    return out
+
+
+def _ring_ms(device, c: dict, group, repeats: int = 3) -> float:
+    """One layer's ring attention forward and backward at the card's
+    shapes (bf16), by CUDA events, the median of ``repeats``."""
+    import torch
+    from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+    shape = (c["batch"], c["heads"], c["seq"], c["hidden"] // c["heads"])
+    g = torch.Generator(device=device).manual_seed(55)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    times = []
+    for _ in range(repeats + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        ring_attention(q, k, v, axis_name=group).backward(do)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def cp_train(device, smi: str) -> dict:
+    """``CP_CARD``: GPT-2-medium's widths with RoPE and dense MLPs on one
+    sequence of 8192 tokens, O2, ``FusedLAMB`` with fp32 state and masters,
+    ``context_parallel_axis`` an NCCL group of 1 (the ring attention: its
+    own block, the causal triangle, no rotation).  Gates: at the initial
+    weights the loss within ``CP_LOSS_TOL`` (relative) and each gradient
+    within ``CP_GRAD_TOL`` (relative norm of the difference) of the flash
+    path's (``context_parallel_axis=None``); ``SLICE_STEPS`` timed steps
+    with exact launches (no flash under cp) and a falling loss."""
+    import torch
+
+    c = CP_CARD
+    L, b, s = c["layers"], c["batch"], c["seq"]
+    with _nccl_world("cp_rdv_") as group:
+        model, opt = _lm_card(c, device, apply_rope=True,
+                              context_parallel_axis=group)
+        attns = [layer.self_attention for layer in model.transformer.layers]
+        ids = torch.randint(0, c["vocab"], (b, s),
+                            generator=torch.Generator().manual_seed(56)
+                            ).to(device)
+        fwd = lambda: _lm_loss(model, ids)  # noqa: E731
+        loss_r, grads_r, launch_r = _loss_and_grads(model, fwd)
+        for a in attns:
+            a.context_parallel_axis = None
+        loss_f, grads_f, launch_f = _loss_and_grads(model, fwd)
+        for a in attns:
+            a.context_parallel_axis = group
+        rel = {n: float((grads_r[n].float() - grads_f[n].float()).norm()
+                        / grads_f[n].float().norm().clamp_min(1e-30))
+               for n in grads_f}
+        del grads_r, grads_f
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_r - loss_f) / abs(loss_f)
+        if loss_rel > CP_LOSS_TOL or rel[worst] > CP_GRAD_TOL:
+            raise AssertionError(f"cp: loss {loss_r} vs flash {loss_f}, "
+                                 f"worst gradient {worst} at {rel[worst]}")
+        step = _lm_step(model, opt, ids)
+        torch.cuda.empty_cache()
+        out = _train_steps(step, SLICE_STEPS, _lm_per_step(L, False),
+                           "cp GPT-2-medium s 8192")
+        out["profile"] = _profile(step, out["step_ms_median"])
+        del opt
+        torch.cuda.empty_cache()
+        ring_ms = _ring_ms(device, c, group)
+    busy = out["profile"]["device_busy_ms"]
+    n = sum(p.numel() for p in model.parameters())
+    tokens = b * s
+    flops = float((6 * n + 12 * L * c["hidden"] * s // 2) * tokens)
+    out = dict(config="gpt2-medium-rope-s8192-cp1", nvidia_smi=smi, params=n,
+               **c, tokens=tokens,
+               flash_check=dict(loss_ring=loss_r, loss_flash=loss_f,
+                                loss_rel=loss_rel, worst_grad=worst,
+                                worst_grad_rel=rel[worst],
+                                launches_ring=launch_r,
+                                launches_flash=launch_f),
+               ring_fwd_bwd_ms_a_layer=ring_ms,
+               ring_ms_a_step=ring_ms * L,
+               ring_share_of_busy=(ring_ms * L / busy
+                                   if isinstance(busy, float) else busy),
+               precision="O2: 2-d parameters bf16, biases and LayerNorm "
+                         "fp32; the ring's block products fp32",
+               optimizer="FusedLAMB(lr=1e-3), fp32 moments and masters",
+               tolerance=f"loss within {CP_LOSS_TOL} relative and each "
+                         f"gradient within {CP_GRAD_TOL} (relative norm of "
+                         f"the difference) of the flash path's", **out)
+    _mfu(out, flops, tokens)
+    log("phase3-train-cp", **out)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fwd_bwd_ms(model, x, ct, repeats: int) -> float:
+    import torch
+
+    times = []
+    for _ in range(repeats + 2):
+        xr = x.detach().requires_grad_()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model(xr).backward(ct)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[2:])
+
+
+def halo_check(device, smi: str) -> dict:
+    """``SpatialBottleneck`` over an NCCL group of 1 beside ``Bottleneck``
+    with the same weights (random frozen scales and biases), bf16, at
+    ResNet-50's stride-1 blocks, b ``HALO_BATCH``: the outputs and the
+    input and convolution gradients within ``HALO_TOL`` of the largest
+    reference value, no gradient to the frozen pairs, no kernel of the
+    port launched; fwd + bwd ms of each."""
+    import torch
+    from apex_tpu_torch.contrib.halo import Bottleneck, SpatialBottleneck
+    from apex_tpu_torch.ops import _dispatch
+
+    out = {"blocks": []}
+    _dispatch.reset_launches()
+    with _nccl_world("halo_rdv_") as group:
+        for cin, cb, cout, hw in HALO_BLOCKS:
+            g = torch.Generator(device=device).manual_seed(57 + hw)
+            kw = dict(param_dtype=torch.bfloat16, device=device)
+            plain = Bottleneck(cin, cb, cout, generator=g, **kw)
+            with torch.no_grad():
+                for name, p in plain.named_parameters():
+                    if name.startswith("bn"):
+                        p.copy_((1.0 if name.endswith("scale") else 0.0)
+                                + 0.1 * torch.randn(p.shape, generator=g,
+                                                    device=device))
+            spatial = SpatialBottleneck(cin, cb, cout, spatial_axis=group,
+                                        **kw)
+            spatial.load_state_dict(plain.state_dict())
+            x = torch.randn(HALO_BATCH, cin, hw, hw, generator=g,
+                            device=device).to(torch.bfloat16)
+            ct = torch.randn(HALO_BATCH, cout, hw, hw, generator=g,
+                             device=device).to(torch.bfloat16)
+            res = {}
+            for name, m in (("plain", plain), ("spatial", spatial)):
+                xr = x.detach().requires_grad_()
+                y = m(xr)
+                y.backward(ct)
+                res[name] = dict(y=y.detach(), dx=xr.grad,
+                                 **{n: p.grad for n, p in m.named_parameters()
+                                    if n.startswith("conv")})
+                frozen = [n for n, p in m.named_parameters()
+                          if n.startswith("bn") and p.grad is not None]
+                if frozen:
+                    raise AssertionError(f"halo {name}: frozen {frozen} got "
+                                         f"a gradient")
+            errs = {k: float((res["spatial"][k].float() - v.float()).abs().max()
+                             / v.float().abs().max())
+                    for k, v in res["plain"].items()}
+            if max(errs.values()) > HALO_TOL:
+                raise AssertionError(f"halo block {(cin, cb, cout, hw)}: "
+                                     f"spatial against plain {errs}")
+            times = {}
+            for turn in ("plain", "spatial", "spatial", "plain"):
+                m = plain if turn == "plain" else spatial
+                times.setdefault(turn, []).append(
+                    _fwd_bwd_ms(m, x, ct, HALO_REPEATS))
+            out["blocks"].append(dict(
+                block=[cin, cb, cout], hw=hw, batch=HALO_BATCH,
+                rel_errs=errs, fwd_bwd_ms=times))
+            del plain, spatial, res, x, ct
+            torch.cuda.empty_cache()
+    out["launches"] = _launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"halo: port kernels launched "
+                             f"{_nonzero(out['launches'])}")
+    out.update(nvidia_smi=smi,
+               tolerance=f"max |spatial - plain| <= {HALO_TOL} max |plain| "
+                         f"for the output and each gradient; frozen scales "
+                         f"and biases without a gradient")
+    log("phase3-halo", **out)
+    return out
+
+
+# the phases that stand alone, for ``chip_smoke.py --only NAME[,NAME]``:
+# each called with the card and the nvidia-smi line, in the order given,
+# in one process
+ALONE = {
+    "moe_reference": lambda device, smi: small_moe_check(device),
+    "ring_reference": lambda device, smi: small_ring_check(device),
+    "moe": lambda device, smi: moe_train(device, smi),
+    "cp": lambda device, smi: cp_train(device, smi),
+    "halo": lambda device, smi: halo_check(device, smi),
+    "llama_train": lambda device, smi: llama_1b_train(device),
+    "gpt_flagship": lambda device, smi: gpt2_large_train(device, "flagship"),
+    "bert": lambda device, smi: bert_large_train(device, smi),
+    "vit": lambda device, smi: vit_l16_train(device, smi),
+    "gpt_1p3b": lambda device, smi: gpt13b_train(device, smi),
+}
+
+
+def run_alone(names, device, smi) -> int:
+    """The ``ALONE`` phases ``names``, each's wall beside it, their results
+    in ``build/chip_smoke_only.json``; no kernels line and no result
+    line (the whole run alone gives those)."""
+    results = []
+    for name in names:
+        t0 = time.perf_counter()
+        res = ALONE[name](device, smi)
+        results.append(dict(phase=name, s=time.perf_counter() - t0,
+                            result=res))
+        log("only", name=name, s=results[-1]["s"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_only.json"), "w") as f:
+        json.dump(dict(nvidia_smi=smi, phases=results), f, indent=1,
+                  default=str)
+    return 0
+
+
+def main(argv=()) -> int:
+    import torch
+
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not all(
+                n in ALONE for n in argv[1].split(",")):
+            print(f"usage: chip_smoke.py [--only NAME[,NAME...]] with NAME "
+                  f"one of {', '.join(ALONE)}", file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -10564,6 +11135,8 @@ def main() -> int:
         built=[os.path.relpath(p, ROOT) for p in libs], build_s=build_s,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    if only:
+        return run_alone(only, device, smi)
 
     max_err = check_layer_norm(device)
     timings = time_layer_norm(device)
@@ -10598,6 +11171,8 @@ def main() -> int:
     gpt_reference = small_gpt_check(device)
     bert_reference = small_bert_check(device)
     vit_reference = small_vit_check(device)
+    moe_reference = small_moe_check(device)
+    ring_reference = small_ring_check(device)
     openfold_reference = small_openfold_check(device)
     amp_reference = small_amp_check(device)
     optimizer_reference = small_optimizer_checks(device)
@@ -10638,6 +11213,9 @@ def main() -> int:
     gpt13 = gpt13b_train(device, smi)
     llama_remat = llama_remat_check(device, smi)
     dropout = dropout_check(device, smi)
+    moe = moe_train(device, smi)
+    cp = cp_train(device, smi)
+    halo = halo_check(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -10668,7 +11246,7 @@ def main() -> int:
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, bert_large=bert, vit_l16=vit,
                  gpt_1p3b_remat=gpt13["remat"], gpt_1p3b_plain=gpt13["plain"],
-                 openfold=openfold)
+                 moe=moe, cp=cp, halo=halo, openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -10772,7 +11350,7 @@ def main() -> int:
                  ("adam_llama_fp16_masters", "adam_swa_openfold"),
                  checked=("vit_l16",)),
         mt_entry(mt.MT_LAMB, "lamb_gpt2_large", "gpt_flagship",
-                 checked=("bert_large", "gpt_1p3b")),
+                 checked=("bert_large", "gpt_1p3b", "gpt2_medium_moe8")),
     ]}
     if [k["name"] for k in kernels["kernels"]] != [k.name for k in _dispatch.KERNELS]:
         raise AssertionError("the kernels line does not list every kernel")
@@ -10804,6 +11382,8 @@ def main() -> int:
                   bert_reference=bert_reference, vit_reference=vit_reference,
                   bert_large=bert, vit_l16=vit, gpt_1p3b=gpt13,
                   llama_remat=llama_remat, dropout=dropout,
+                  moe_reference=moe_reference, ring_reference=ring_reference,
+                  moe=moe, cp=cp, halo=halo,
                   kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -10818,4 +11398,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

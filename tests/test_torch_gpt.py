@@ -154,11 +154,30 @@ def test_qkv_split_keeps_each_heads_q_k_v_adjacent():
     torch.testing.assert_close(seen["scores"], want)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="context parallelism"):
-        tlm.ParallelAttention(8, 2, context_parallel_axis="cp", device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tlm.ParallelTransformerLayer(8, 2, moe_num_experts=4, device="cpu")
+def test_unported_options_raise(tmp_path):
+    # context parallelism and MoE are ported (tests/test_torch_ring_attention.py
+    # and tests/test_torch_moe.py): over a group of one rank both build and
+    # run; a mesh-axis name in place of a process group raises
+    import torch.distributed as dist
+
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                                rank=0, world_size=1)
+    try:
+        one = dist.group.WORLD
+        layer = tlm.ParallelTransformerLayer(
+            8, 2, apply_rope=True, context_parallel_axis=one,
+            moe_num_experts=4, expert_parallel_axis=one, device="cpu")
+        assert layer(torch.randn(4, 2, 8)).shape == (4, 2, 8)
+        assert layer.mlp.aux_loss is not None
+    finally:
+        if own:
+            dist.destroy_process_group()
+    for kw in (dict(context_parallel_axis="cp"),
+               dict(moe_num_experts=4, expert_parallel_axis="ep")):
+        with pytest.raises(ValueError, match="ProcessGroup"):
+            tlm.ParallelTransformerLayer(8, 2, device="cpu", **kw)
     # dropout and activation recompute are ported (tests/test_torch_remat.py
     # and the dropout tests below); out-of-range rates and unknown policies
     # raise

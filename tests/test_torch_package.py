@@ -94,7 +94,12 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.examples.imagenet_data, "
         "apex_tpu_torch.examples.bert_pretrain, apex_tpu_torch.models.vit, "
         "apex_tpu_torch.transformer.recompute, "
-        "apex_tpu_torch.transformer.testing.standalone_bert\n"
+        "apex_tpu_torch.transformer.testing.standalone_bert, "
+        "apex_tpu_torch.transformer.moe, "
+        "apex_tpu_torch.transformer.context_parallel, "
+        "apex_tpu_torch.contrib.halo, apex_tpu_torch.contrib.halo.bottleneck, "
+        "apex_tpu_torch.utils.conv, "
+        "apex_tpu_torch.contrib.halo.halo_exchange\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -185,6 +190,46 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         bert_pretrain.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ViTForImageClassification(ViTConfig(num_hidden_layers=1))
+    from apex_tpu_torch.contrib.halo import SpatialBottleneck
+    from apex_tpu_torch.transformer.moe import ExpertParallelMLP
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ExpertParallelMLP(4, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialBottleneck(8, 4, 8, spatial_axis=None)
+
+
+@pytest.mark.parametrize("port,ref", [
+    ("apex_tpu_torch.transformer.moe", "apex_tpu/transformer/moe.py"),
+    ("apex_tpu_torch.transformer.context_parallel",
+     "apex_tpu/transformer/context_parallel.py"),
+    ("apex_tpu_torch.contrib.halo", "apex_tpu/contrib/halo/__init__.py"),
+    ("apex_tpu_torch.contrib.halo.halo_exchange",
+     "apex_tpu/contrib/halo/halo_exchange.py"),
+    ("apex_tpu_torch.contrib.halo.bottleneck",
+     "apex_tpu/contrib/halo/bottleneck.py"),
+])
+def test_parallel_axes_export_the_jax_names(port, ref):
+    """The expert-, context- and spatial-parallel modules carry the JAX
+    module's ``__all__`` (read from its source, so no JAX is imported),
+    every name defined; ``apex_tpu_torch.transformer`` reaches ``moe`` and
+    ``context_parallel`` as attributes, as the JAX package does."""
+    import ast
+    import importlib
+
+    import apex_tpu_torch.transformer as transformer
+
+    tree = ast.parse((ROOT / ref).read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets))
+    module = importlib.import_module(port)
+    assert list(module.__all__) == list(want)
+    assert all(hasattr(module, name) for name in want)
+    for name in ("moe", "context_parallel"):
+        assert getattr(transformer, name).__name__ == \
+            f"apex_tpu_torch.transformer.{name}"
 
 
 # every kernel of the port, module by module: (name, the JAX file:function

@@ -516,3 +516,20 @@ def test_packed_adam_matches_treewise(interpret):
         mm, vv = 0.1 * g, 0.001 * g * g
         ref = p - 1e-2 * ((mm / 0.1) / (np.sqrt(vv / 0.001) + 1e-8) + 0.01 * p)
         np.testing.assert_allclose(got[k].numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_segment_ids_for_spec_defaults_to_the_card():
+    """Like every entry point, ``segment_ids_for_spec`` makes its ids on
+    CUDA unless asked for the CPU: without a card the default raises, and
+    ``device="cpu"`` gives JAX's ids."""
+    leaves = [np.zeros(s, np.float32) for s in ((3, 5), (7,), (2, 2, 2))]
+    jspec = jpk.make_packed_spec([jnp.asarray(a) for a in leaves], pad_to=64)
+    spec = tpk.make_packed_spec([torch.from_numpy(a) for a in leaves],
+                                pad_to=64)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tpu.segment_ids_for_spec(spec)
+    got = tpu.segment_ids_for_spec(spec, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jpu.segment_ids_for_spec(jspec)))
