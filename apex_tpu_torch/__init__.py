@@ -31,8 +31,8 @@ MSA row attention with pair bias:
 the pair-bias attention kernels of
 :mod:`~apex_tpu_torch.ops.pair_bias_attention`, forward, dq, dk/dv and
 d(bias); ``LayerNormSmallShapeOptImpl``; ``FusedAdamSWA``); and mixed
-precision: :mod:`~apex_tpu_torch.amp` (``initialize`` with the O0, O2 and
-O3 policies, the dynamic loss scaler on the device),
+precision: :mod:`~apex_tpu_torch.amp` (``initialize`` with the O0-O3
+policies, the dynamic loss scaler on the device),
 :mod:`~apex_tpu_torch.fp16_utils` (``FP16Optimizer``), fp32 master
 weights and the capturable ``step(grad_scale=, found_inf=)`` in every
 fused optimizer, and :class:`~apex_tpu_torch.optimizers.FusedAdagrad`,
@@ -42,7 +42,12 @@ with the packed Adam and Adagrad kernels of
 parallelism: :mod:`~apex_tpu_torch.parallel` (``DistributedDataParallel``,
 ``SyncBatchNorm``, ``LARC``) and the ZeRO-2 optimizers of
 :mod:`~apex_tpu_torch.contrib.optimizers`, with the ImageNet ResNet
-trainer (:mod:`~apex_tpu_torch.examples.imagenet_main`).
+trainer (:mod:`~apex_tpu_torch.examples.imagenet_main`); and the Megatron
+harness (:mod:`~apex_tpu_torch.transformer.testing`'s arguments, global
+singletons and pipeline-stage GPT) with its dp x pp x tp GPT driver
+(:mod:`~apex_tpu_torch.examples.megatron_gpt_pretrain`), amp O1's op
+namespace (:mod:`~apex_tpu_torch.amp.functional`), and expert, context
+and spatial parallelism.
 """
 
 __version__ = "0.1.0"

@@ -23,9 +23,17 @@ The optimizer unscales the gradients in fp32 from ``grad_scale`` (the
 JAX flow's ``scaler.unscale`` before ``opt.step``: a half parameter's
 ``.grad`` cannot hold the fp32 unscaled gradient); ``scaler.unscale``
 gives the unscaled tree and ``found_inf`` together, for a caller that
-needs the gradients themselves.  O1 needs the policy-scoped op namespace
-(``amp/functional.py``, ``amp/lists.py``), which a later slice of the port
-brings; ``opt_level="O1"`` raises until then.
+needs the gradients themselves.
+
+O1 keeps the parameters fp32 and casts the model's floating inputs to
+the half dtype; the model's own layers take a mixed pair as the JAX
+package's flax layers do (the examples' ``SimpleMLP`` and ResNet promote
+it to fp32).  ``initialize(opt_level="O1")`` also installs the policy
+process-wide for the policy-scoped op namespace
+(:mod:`~apex_tpu_torch.amp.functional`, ops called as ``F.matmul(a, b)``
+follow the cast lists of :mod:`~apex_tpu_torch.amp.lists`); a later
+``initialize`` at another level leaves it installed, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from typing import List
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp import functional, lists
+from apex_tpu_torch.amp.functional import active_policy, set_active_policy
 from apex_tpu_torch.amp.policy import (
     O0,
     O1,
@@ -51,7 +61,8 @@ from apex_tpu_torch.amp.scaler import (
     static_loss_scaler,
 )
 
-__all__ = ["initialize", "AmpState", "AmpModule", "PrecisionPolicy",
+__all__ = ["initialize", "AmpState", "AmpModule", "functional", "lists",
+           "active_policy", "set_active_policy", "PrecisionPolicy",
            "get_policy", "O0", "O1", "O2", "O3", "LossScaler",
            "LossScalerState", "static_loss_scaler", "state_dict",
            "load_state_dict"]
@@ -80,15 +91,17 @@ def initialize(model: nn.Module, opt_level: str = "O1",
     cast its parameters by the level's policy, in place, and wrap it so its
     inputs and outputs follow the policy.  The scaler states live on the
     model's device.  ``loss_scale`` ("dynamic" or a number) and any policy
-    field given as a keyword override the level's."""
-    if opt_level == "O1":
-        raise NotImplementedError(
-            "opt_level='O1' needs the policy-scoped op namespace "
-            "(amp/functional.py, amp/lists.py), which comes with a later "
-            "slice of the port; use O0, O2 or O3")
+    field given as a keyword override the level's.  At O1 the policy is
+    also installed for :mod:`~apex_tpu_torch.amp.functional`."""
     if loss_scale is not None:
         overrides["loss_scale"] = loss_scale
     policy = get_policy(opt_level, half_dtype=half_dtype, **overrides)
+    # O1's patched-namespace semantics: ops called through amp.functional
+    # follow this policy's cast lists from now on.  The other levels patch
+    # nothing (apex's patch_torch_functions=False), and must not clobber
+    # an O1 policy an earlier initialize installed.
+    if opt_level == "O1":
+        set_active_policy(policy)
     device = next(model.parameters()).device
     scaler = policy.make_scaler()
     return AmpState(model=policy.wrap_module(policy.cast_params(model)),

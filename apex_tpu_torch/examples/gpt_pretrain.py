@@ -28,8 +28,8 @@ recompute, bf16 moments).  The named recompute policies of
 :mod:`apex_tpu_torch.transformer.recompute` are ``GPTModel``'s
 ``activations_checkpoint_policy``.  This is
 ``bench.py``'s GPT step; the repo's own GPT trainer,
-``examples/gpt/pretrain.py`` (the Megatron harness's tp x pp trainer), is
-not ported.
+``examples/gpt/pretrain.py`` (the Megatron harness's dp x pp x tp
+trainer), is :mod:`~apex_tpu_torch.examples.megatron_gpt_pretrain`.
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@ ResNet v1.5 (the torchvision ResNet-50 the apex example trains) with
   :class:`~apex_tpu_torch.parallel.DistributedDataParallel` (the
   gradients averaged over the group after each backward), at any world
   size, 1 included;
-- the precision of :func:`apex_tpu_torch.amp.get_policy` (O0, O2, O3; O2
+- the precision of :func:`apex_tpu_torch.amp.get_policy` (O0-O3; O2
   by default: half convolutions, fp32 batch norms kept by their names,
-  fp32 masters in the optimizer) and the policy's loss scaler (dynamic
-  for fp16);
+  fp32 masters in the optimizer; O1 the JAX model's: fp32 parameters, the
+  images cast to half and each convolution promoting the mixed pair to
+  fp32, as flax's layers do) and the policy's loss scaler (dynamic for
+  fp16);
 - :class:`~apex_tpu_torch.optimizers.FusedSGD` (momentum 0.9, weight
   decay 1e-4).
 
@@ -38,7 +40,7 @@ synthetic batch is the JAX driver's: one fixed global batch of
 orbax.
 
 Without a loss scale (bf16, O0) a step checks no gradient for overflow;
-with one (fp16 O2) one ``mt_scale`` check over every gradient decides
+with one (fp16 O1 or O2) one ``mt_scale`` check over every gradient decides
 whether the step is applied.  The CLI takes the caller's process group,
 else starts one from ``torchrun``'s environment, else a world of one
 process (NCCL on ``cuda``, gloo on ``cpu``).
@@ -89,6 +91,9 @@ class SameConv2d(nn.Conv2d):
                          device=device)
 
     def forward(self, x):
+        # flax's promote_dtype: a half input against fp32 weights (O1)
+        # runs in fp32, where conv2d would raise on the mixed pair
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         return conv2d_same(x, self.weight, self.stride[0])
 
 
@@ -382,11 +387,6 @@ def run_training(arch="resnet18", opt_level="O2", half="bf16", batch_size=64,
     their mean.  ``prof`` is a file for a ``torch.profiler`` trace of
     steps 5-10 (the JAX driver's ``--prof`` window)."""
     device = resolve_device(device)
-    if opt_level == "O1":
-        raise NotImplementedError(
-            "opt_level='O1' needs the policy-scoped op namespace "
-            "(amp/functional.py, amp/lists.py), which comes with a later "
-            "slice of the port; use O0, O2 or O3")
     world, rank = 1, 0
     if distributed:
         if not dist.is_initialized():

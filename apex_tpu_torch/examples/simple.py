@@ -3,6 +3,7 @@ the counterpart of ``examples/simple/main.py``.
 
     python -m apex_tpu_torch.examples.simple [--opt-level O2] [--half fp16|bf16]
     python -m apex_tpu_torch.examples.simple --device cpu --half fp16
+    python -m apex_tpu_torch.examples.simple --opt-level O1 --half fp16
 
 A two-layer tanh MLP regresses ``sin(sum(x))`` on one fixed batch of 512
 points: ``amp.initialize`` casts it by the opt level's policy,
@@ -26,7 +27,7 @@ from apex_tpu_torch import amp
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedAdam
 
-__all__ = ["SimpleMLP", "main"]
+__all__ = ["SimpleMLP", "train", "main"]
 
 
 class SimpleMLP(nn.Module):
@@ -41,7 +42,40 @@ class SimpleMLP(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(1, device=device))
 
     def forward(self, x):
+        # jnp's promotion of a mixed pair (O1's half input against fp32
+        # weights) to the wider dtype, where torch.matmul would raise
+        x = x.to(torch.promote_types(x.dtype, self.w1.dtype))
         return torch.tanh(x @ self.w1 + self.b1) @ self.w2 + self.b2
+
+
+def train(model: SimpleMLP, x: torch.Tensor, *, opt_level: str,
+          half: torch.dtype, steps: int, log_every: int = 50):
+    """``steps`` steps of the JAX example's loop on ``model`` and the batch
+    ``x`` (targets ``sin(sum(x))``): ``amp.initialize`` at ``opt_level``,
+    :class:`FusedAdam` (lr 1e-2, fp32 masters when the policy keeps them),
+    the scaled loss's backward, the overflow check and the scaler's
+    update.  Returns each step's loss (device tensors) and the last scaler
+    state; prints every ``log_every`` steps and the last."""
+    y = torch.sin(x.sum(dim=1, keepdim=True))
+    amped = amp.initialize(model, opt_level=opt_level, half_dtype=half)
+    scaler, state = amped.scaler, amped.scaler_state
+    params = list(model.parameters())
+    opt = FusedAdam(params, lr=1e-2,
+                    master_weights=amped.policy.master_weights)
+    losses = []
+    for step in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((amped.model(x).float() - y) ** 2)
+        scaler.scale_loss(loss, state).backward()
+        losses.append(loss.detach())
+        found_inf = scaler.has_overflow([p.grad for p in params])
+        opt.step(grad_scale=state.scale, found_inf=found_inf)
+        state = scaler.update(state, found_inf)
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:4d}  loss {float(losses[-1]):.6f}  "
+                  f"loss_scale {float(state.scale):.1f}  "
+                  f"device {x.device.type}", flush=True)
+    return losses, state
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:
@@ -60,28 +94,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     gen = torch.Generator(device=device).manual_seed(0)
     model = SimpleMLP(gen, device)
     x = torch.randn(512, 16, generator=gen, device=device)
-    y = torch.sin(x.sum(dim=1, keepdim=True))
-
-    amped = amp.initialize(model, opt_level=args.opt_level, half_dtype=half)
-    scaler, state = amped.scaler, amped.scaler_state
-    params = list(model.parameters())
-    opt = FusedAdam(params, lr=1e-2,
-                    master_weights=amped.policy.master_weights)
-
-    loss = None
-    for step in range(args.steps):
-        opt.zero_grad(set_to_none=True)
-        loss = torch.mean((amped.model(x).float() - y) ** 2)
-        scaler.scale_loss(loss, state).backward()
-        loss = loss.detach()
-        found_inf = scaler.has_overflow([p.grad for p in params])
-        opt.step(grad_scale=state.scale, found_inf=found_inf)
-        state = scaler.update(state, found_inf)
-        if step % 50 == 0 or step == args.steps - 1:
-            print(f"step {step:4d}  loss {float(loss):.6f}  "
-                  f"loss_scale {float(state.scale):.1f}  "
-                  f"device {device.type}", flush=True)
-    last = float(loss)
+    losses, _ = train(model, x, opt_level=args.opt_level, half=half,
+                      steps=args.steps)
+    last = float(losses[-1])
     if not last < 0.05:
         raise AssertionError(f"did not converge: {last}")
     print("converged OK")

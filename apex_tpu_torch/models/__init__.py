@@ -2,7 +2,7 @@
 :mod:`~apex_tpu_torch.models.llama` for serving and training,
 :mod:`~apex_tpu_torch.models.llama_pipeline` for its pipeline-parallel
 stages, and :mod:`~apex_tpu_torch.models.convert` to carry flax weights
-over (Llama, its pipeline stages, the GPT and BERT of
+over (Llama, its pipeline stages, the GPT, its pipeline stages and the BERT of
 :mod:`apex_tpu_torch.transformer.testing`, the ViT and the ImageNet
 example's ResNet); :mod:`~apex_tpu_torch.models.vit` is the Vision
 Transformer classifier."""
@@ -10,6 +10,7 @@ Transformer classifier."""
 from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
     gpt_params_from_jax,
+    gpt_pipeline_params_from_jax,
     llama_params_from_jax,
     llama_pipeline_params_from_jax,
     resnet_params_from_jax,
@@ -32,6 +33,7 @@ from apex_tpu_torch.models.vit import (
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipeConfig",
            "build_llama_pipeline", "init_llama_pipeline_params",
            "make_llama_3d_train_step", "gpt_params_from_jax",
+           "gpt_pipeline_params_from_jax",
            "llama_params_from_jax", "llama_pipeline_params_from_jax",
            "resnet_params_from_jax", "bert_params_from_jax",
            "vit_params_from_jax", "ViTConfig", "ViTForImageClassification",

@@ -62,6 +62,17 @@ kernels transposed as above), ``embed/embed_tokens/embedding`` as
 (both ``[vocab / tp, h]``).  The JAX tree holds the embedding and head on
 every stage; the other stages leave them.
 
+A GPT pipeline stage (:mod:`apex_tpu_torch.transformer.testing.commons`):
+:func:`gpt_pipeline_params_from_jax` takes one (pp, tp) rank's JAX tree
+``{"embed", "block", "head"}`` (``init_gpt_pipeline_params`` inside the
+JAX driver's ``shard_map``: already that rank's tp shard) and fills that
+rank's stage: ``block/layer_i/...`` as ``stage.layers.i....`` (as in the
+GPT table), ``embed/word_embeddings/embedding`` and
+``embed/position_embeddings`` as ``first.*`` on the first stage,
+``head/final_layernorm/{scale,bias}`` as ``last.final_layernorm.*`` on the
+last, and there, with pp > 1, the rank's ``embed`` word embeddings again
+as the tied copy ``last.word_embeddings.weight``.
+
 ResNet (:func:`resnet_params_from_jax`, the ImageNet example's model in
 :mod:`apex_tpu_torch.examples.imagenet_main`; ``B_i`` the flax
 ``BottleneckBlock_i``, its ``Conv_j`` / ``SyncBatchNorm_j`` the torch
@@ -115,7 +126,9 @@ from apex_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "vit_params_from_jax",
-           "llama_pipeline_params_from_jax", "load_jax_optimizer_state",
+           "llama_pipeline_params_from_jax", "gpt_pipeline_params_from_jax",
+           "shard_gpt_state_dict",
+           "load_jax_optimizer_state",
            "shard_state_dict", "resnet_params_from_jax",
            "transformer_lm_params_from_jax", "bottleneck_params_from_jax"]
 
@@ -287,6 +300,39 @@ def _gpt_expected(num_layers: int, position_embedding: bool,
 _EXPERT_LEAVES = ("router", "w_in", "w_out")
 
 
+def gpt_pipeline_params_from_jax(tree: Mapping, cfg, *, pp_rank: int,
+                                 pp_size: int) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for stage ``pp_rank`` of ``pp_size`` of
+    ``build_gpt_pipeline(cfg)`` from one (pp, tp) rank's JAX tree (see the
+    module docstring)."""
+    layers = {
+        path.replace("transformer/layer_", "layer_", 1): (
+            key.replace("transformer.layers.", "stage.layers.", 1), t)
+        for path, (key, t) in _gpt_expected(cfg.layers_per_stage, False, "",
+                                            "").items()
+        if path.startswith("transformer/layer_")}
+    state = _convert(tree["block"], layers,
+                     f"GPT stage block ({cfg.layers_per_stage} layers)")
+    words = {"word_embeddings/embedding": ("first.word_embeddings.weight",
+                                           False)}
+    if pp_rank == 0:
+        embed = dict(words)
+        if not cfg.apply_rope:
+            embed["position_embeddings"] = ("first.position_embeddings",
+                                            False)
+        state.update(_convert(tree["embed"], embed, "GPT stage embedding"))
+    if pp_rank == pp_size - 1:
+        state.update(_convert(tree["head"], {
+            f"final_layernorm/{leaf}": (f"last.final_layernorm.{leaf}", False)
+            for leaf in ("scale", "bias")}, "GPT stage head"))
+        if pp_size > 1:
+            embed = tree["embed"]
+            embed = embed["params"] if set(embed) == {"params"} else embed
+            state["last.word_embeddings.weight"] = _tensor(np.asarray(
+                embed["word_embeddings"]["embedding"]))
+    return state
+
+
 # the GPT linears the tensor-parallel layers shard, by module name
 _GPT_COLUMN = ("query_key_value", "dense_h_to_4h")
 _GPT_ROW = ("self_attention.dense", "dense_4h_to_h")
@@ -304,22 +350,17 @@ def _gpt_shard_dim(name: str):
     return None
 
 
-def gpt_params_from_jax(tree: Mapping, num_layers: int,
-                        apply_rope: bool = False, *, tp_rank: int = 0,
-                        tp_size: int = 1) -> Dict[str, torch.Tensor]:
-    """A CPU ``state_dict`` for ``GPTModel(num_layers=num_layers,
-    apply_rope=apply_rope, ...)`` from the flax tree of the JAX
-    ``GPTModel`` (with or without its ``"params"`` collection).  RoPE
-    models have no position table.  With ``tp_size > 1``, rank
-    ``tp_rank``'s slice of it: QKV and ``dense_h_to_4h`` on their output
-    rows (each rank whole heads: a head's q, k and v are adjacent), the
-    ``dense`` and ``dense_4h_to_h`` weights on their input columns, the
-    word embedding on its vocab rows."""
-    state = _convert(tree, _gpt_expected(num_layers, not apply_rope),
-                     f"GPT ({num_layers} layers, apply_rope={apply_rope})")
-    size, rank = int(tp_size), int(tp_rank)
+def shard_gpt_state_dict(state: Mapping[str, torch.Tensor], rank: int,
+                         size: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s slice of a whole GPT ``state_dict`` (a ``GPTModel``'s
+    or a pipeline stage's) for a tp world of ``size``: QKV and
+    ``dense_h_to_4h`` on their output rows (each rank whole heads: a
+    head's q, k and v are adjacent), the ``dense`` and ``dense_4h_to_h``
+    weights on their input columns, the word embeddings on their vocab
+    rows, each an owned copy; the rest as it is."""
+    size, rank = int(size), int(rank)
     if size == 1:
-        return state
+        return dict(state)
     out = {}
     for name, t in state.items():
         dim = _gpt_shard_dim(name)
@@ -332,6 +373,19 @@ def gpt_params_from_jax(tree: Mapping, num_layers: int,
         n = t.shape[dim] // size
         out[name] = t.narrow(dim, rank * n, n).clone()
     return out
+
+
+def gpt_params_from_jax(tree: Mapping, num_layers: int,
+                        apply_rope: bool = False, *, tp_rank: int = 0,
+                        tp_size: int = 1) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for ``GPTModel(num_layers=num_layers,
+    apply_rope=apply_rope, ...)`` from the flax tree of the JAX
+    ``GPTModel`` (with or without its ``"params"`` collection).  RoPE
+    models have no position table.  With ``tp_size > 1``, rank
+    ``tp_rank``'s slice of it (:func:`shard_gpt_state_dict`)."""
+    state = _convert(tree, _gpt_expected(num_layers, not apply_rope),
+                     f"GPT ({num_layers} layers, apply_rope={apply_rope})")
+    return shard_gpt_state_dict(state, tp_rank, tp_size)
 
 
 def transformer_lm_params_from_jax(

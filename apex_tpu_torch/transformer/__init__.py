@@ -7,7 +7,7 @@ import importlib as _importlib
 _SUBMODULES = ("parallel_state", "enums", "tensor_parallel",
                "pipeline_parallel", "context_parallel", "moe", "functional",
                "layers", "amp", "testing", "recompute", "microbatches",
-               "_data")
+               "log_util", "_data")
 
 
 def __getattr__(name):

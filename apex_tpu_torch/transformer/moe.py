@@ -30,8 +30,11 @@ autograd function whose backward is the same exchange, in JAX's
 ``[ep, local_e, capacity, h]`` layout.  Each rank cuts its own queues,
 so where capacity binds the drops differ from the one-rank module by
 design (as in JAX).  The router is replicated over the group and, as in
-JAX, its gradient on a rank is that rank's tokens' share only: a trainer
-that wants the whole router gradient all-reduces it over the group.
+JAX, its gradient on a rank is that rank's tokens' share only.  It
+carries ``expert_replicated = True``, and a trainer sums the tagged
+gradients over the group with
+:func:`~apex_tpu_torch.transformer.tensor_parallel.
+allreduce_expert_replicated_grads` (the JAX package has no such call).
 """
 
 from __future__ import annotations
@@ -159,6 +162,8 @@ class ExpertParallelMLP(nn.Module):
         self.router = nn.Parameter(_lecun_normal(
             (hidden_size, num_experts), dtype=torch.float32, device=dev,
             generator=generator))
+        # replicated over the ep group: each rank's gradient a share
+        self.router.expert_replicated = True
         # this rank's experts: a generator folded with the ep rank
         if ep > 1:
             generator = shard_init(generator, dev,

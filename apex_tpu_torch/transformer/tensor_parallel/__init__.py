@@ -13,6 +13,7 @@ from apex_tpu_torch.transformer.tensor_parallel.data import (
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     all_reduce_gradients,
+    allreduce_expert_replicated_grads,
     allreduce_sequence_parallel_grads,
     RowParallelLinear,
     VocabParallelEmbedding,
@@ -52,6 +53,7 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import (
 __all__ = [
     "vocab_parallel_cross_entropy",
     "ColumnParallelLinear",
+    "allreduce_expert_replicated_grads",
     "allreduce_sequence_parallel_grads",
     "all_reduce_gradients",
     "parallel_lm_logits",

@@ -36,7 +36,11 @@ parameter carries Megatron's ``sequence_parallel = True`` attribute, and
 :func:`allreduce_sequence_parallel_grads` sums their gradients over the
 tp group after the backward, so every rank holds the whole one.  The JAX
 package leaves them partial (``layers.py:214``); the port's trainers make
-the call (a deliberate difference).
+the call (a deliberate difference).  Expert parallelism has the same
+kind of parameter: the MoE router, replicated over the ep group, gets
+only its rank's tokens' share.  It carries ``expert_replicated = True``,
+and :func:`allreduce_expert_replicated_grads` sums those gradients over
+the ep group.
 
 The projections are plain ``torch.matmul``, as the JAX package leaves
 them to XLA.  Fresh weights are drawn from an explicit
@@ -287,21 +291,34 @@ def parallel_lm_logits(hidden, word_embeddings, group=None,
 def allreduce_sequence_parallel_grads(module, group=None) -> None:
     """Sum over ``group`` (the bound or ``parallel_state``'s tp group by
     default) the gradients of the parameters tagged ``sequence_parallel``
-    (see the module docstring), in place: one all-reduce a dtype, over
-    those gradients flattened.  ``module`` is an ``nn.Module`` or an
-    iterable of parameters.  Nothing is called when no tagged parameter
-    has a gradient."""
+    (see the module docstring), as :func:`_allreduce_tagged_grads` does."""
     from apex_tpu_torch.transformer.tensor_parallel.mappings import (
         current_tp_group,
     )
 
+    _allreduce_tagged_grads(module, "sequence_parallel",
+                            current_tp_group() if group is None else group)
+
+
+def allreduce_expert_replicated_grads(module, group) -> None:
+    """Sum over the expert-parallel ``group`` the gradients of the
+    parameters tagged ``expert_replicated`` (the MoE router), as
+    :func:`_allreduce_tagged_grads` does."""
+    _allreduce_tagged_grads(module, "expert_replicated", group)
+
+
+def _allreduce_tagged_grads(module, tag: str, group) -> None:
+    """Sum over ``group`` the gradients of the parameters whose attribute
+    ``tag`` is true, in place: one all-reduce a dtype, over those
+    gradients flattened.  ``module`` is an ``nn.Module`` or an iterable of
+    parameters.  Nothing is called when no tagged parameter has a
+    gradient."""
     params = (module.parameters() if isinstance(module, nn.Module)
               else module)
     grads = [p.grad for p in params
-             if getattr(p, "sequence_parallel", False) and p.grad is not None]
+             if getattr(p, tag, False) and p.grad is not None]
     if grads:
-        all_reduce_gradients(
-            grads, current_tp_group() if group is None else group)
+        all_reduce_gradients(grads, group)
 
 
 def all_reduce_gradients(grads, group, *, average: bool = False) -> None:

@@ -3,8 +3,7 @@
 Counterpart of ``apex_tpu/utils/packing.py`` (``PackedSpec``,
 ``make_packed_spec``, ``pack_pytree``, ``unpack_pytree``): the flat layout
 the packed optimizer kernels sweep in one launch, where the CUDA original
-(``multi_tensor_apply``) walks a table of tensor pointers.  The host/C++
-flatten helpers of the JAX module are not ported.
+(``multi_tensor_apply``) walks a table of tensor pointers.
 
 A tree is a tensor, or a list, tuple or dict of trees; dict keys are taken
 in sorted order, as ``jax.tree_util`` takes them, so a flat buffer packed
@@ -15,6 +14,11 @@ zeros to a multiple of ``pad_to`` elements.
 :func:`flatten_dense_tensors` / :func:`unflatten_dense_tensors` are the
 unpadded pair of ``apex_C.flatten`` / ``unflatten`` that the data-parallel
 wrapper's gradient buckets use (:mod:`apex_tpu_torch.parallel.distributed`).
+
+:func:`host_flatten_dense_tensors` / :func:`host_unflatten_dense_tensors`
+are the same pair over numpy arrays on the host (checkpoint shards,
+staged batches), copied by the C++ runtime ``csrc/packing.cpp``
+(:mod:`apex_tpu_torch.utils._native`), with the JAX module's checks.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ import dataclasses
 import math
 from typing import Any, Callable, List, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["PackedSpec", "PackedBuffer", "make_packed_spec", "pack_pytree",
            "unpack_pytree", "tree_leaves", "tree_map",
-           "flatten_dense_tensors", "unflatten_dense_tensors"]
+           "flatten_dense_tensors", "unflatten_dense_tensors",
+           "host_flatten_dense_tensors", "host_unflatten_dense_tensors"]
 
 
 def _flatten(tree: Any, out: List[torch.Tensor]):
@@ -162,3 +168,53 @@ def unflatten_dense_tensors(flat: torch.Tensor, like) -> List[torch.Tensor]:
         out.append(flat[at:at + n].view(t.shape))
         at += n
     return out
+
+
+def host_flatten_dense_tensors(arrays) -> np.ndarray:
+    """Host ``apex_C.flatten``: numpy arrays of one dtype, each in row-major
+    order, end to end in one new 1-D array (an empty list gives an empty
+    fp32 array), copied by ``csrc/packing.cpp``.  Non-contiguous arrays
+    are made contiguous first."""
+    from apex_tpu_torch.utils import _native
+
+    if not arrays:
+        return np.empty((0,), np.float32)
+    dtype = arrays[0].dtype
+    if any(a.dtype != dtype for a in arrays):
+        raise ValueError("host flatten requires a single dtype")
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    out = np.empty((sum(a.size for a in arrays),), dtype)
+    _native.flatten_into(arrays, out)
+    return out
+
+
+def host_unflatten_dense_tensors(flat: np.ndarray, like) -> List[np.ndarray]:
+    """Host ``apex_C.unflatten``: ``flat`` cut, in order, into new arrays
+    shaped like ``like``, copied by ``csrc/packing.cpp``.  Raises if
+    ``flat`` is shorter than ``like`` needs, or if an array of ``like`` is
+    not of ``flat``'s dtype (the outputs are ``flat``'s)."""
+    from apex_tpu_torch.utils import _native
+
+    flat, outs = _unflatten_checked(flat, like)
+    _native.unflatten_from(flat, outs)
+    return outs
+
+
+def _unflatten_checked(flat, like):
+    """``flat`` contiguous and the empty outputs of an unflatten, after
+    the JAX module's checks."""
+    flat = np.ascontiguousarray(flat)
+    need = sum(int(np.prod(np.shape(t))) for t in like)
+    if flat.size < need:
+        raise ValueError(
+            f"flat buffer has {flat.size} elements; 'like' needs {need}")
+    # apex_C.unflatten returns like-typed tensors; the outputs here take
+    # flat's dtype, so a mixed-dtype 'like' would change dtypes quietly
+    bad = {str(np.asarray(t).dtype) for t in like} - {str(flat.dtype)}
+    if bad:
+        raise ValueError(
+            f"'like' arrays have dtypes {sorted(bad)} != flat buffer dtype "
+            f"{flat.dtype}; unflatten preserves the flat dtype (flatten "
+            "likewise requires a single dtype)")
+    return flat, [np.empty(np.shape(t), flat.dtype) for t in like]
+

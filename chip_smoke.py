@@ -75,7 +75,7 @@ ends the run with a non-zero exit and no result line:
    ``torch._amp_foreach_non_finite_check_and_unscale_``,
    ``torch._foreach_norm``), each also held against its plain version on a
    sub-list of its real list.
-3. **End to end**, nine paths, each with the launch counts set to 0 just
+3. **End to end**, the paths below, each with the launch counts set to 0 just
    before it and read just after:
 
    - *serving*: a small fp32 Llama served on the card against the same
@@ -329,6 +329,18 @@ ends the run with a non-zero exit and no result line:
      and gradients, 1 + 4 steps; ``SpatialBottleneck`` against
      ``Bottleneck`` at ResNet-50's stride-1 blocks.  Each training phase
      also reports its threads' CPU time and a host yardstick.
+   - *the Megatron GPT driver* (``phase3-megatron-reference``,
+     ``phase3-megatron-gpt``): ``examples/megatron_gpt_pretrain.py``'s
+     ``main`` at 2 layers on the card (NCCL) and on the CPU (gloo) from one
+     init, within ``SMALL_CARD_TOL``; then at GPT-2-large's widths (36 x
+     1280, s 1024, V 50304, micro-batch 4, global 8: 2 microbatches
+     under ``no_pipelining``, bf16, ``FusedAdam``) 1 + 4 iterations with
+     146/146 norm, 72/72/72 flash and 1 ``mt_adam`` launches each, a
+     falling loss, iteration p50, MFU, peak, and one traced iteration.
+   - *amp O1* (``phase3-amp-o1``): ``amp.functional``'s rules on CUDA
+     tensors against the CPU's (dtypes equal, values within two half
+     ulps), and ``examples/simple.py --opt-level O1 --half fp16``
+     converging under the dynamic scaler.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -553,11 +565,14 @@ NORM_LN_SHAPES = {"gpt2_large": (8192, 1280), "openfold_m": (131072, 256),
                   "openfold_z": (1048576, 128)}
 # (n, h, eps) of the O2 models' LayerNorms (bf16 rows, fp32 weight and
 # bias): BERT-large's b 16 x s 512 (the transformer's eps 1e-5),
-# ViT-L/16's b 64 x 197 tokens (eps 1e-12) and GPT-1.3B's b 8 x s 1024
-# (bench.py:93-98, eps 1e-5)
+# ViT-L/16's b 64 x 197 tokens (eps 1e-12), GPT-1.3B's b 8 x s 1024
+# (bench.py:93-98, eps 1e-5), GPT-2-large's O2 flagship (b 8 x s 1024) and
+# the Megatron driver's GPT-2-large under --bf16 (micro-batch 4 x s 1024)
 NORM_LN_O2_SHAPES = {"bert_large": (8192, 1024, 1e-5),
                      "vit_l16": (12608, 1024, 1e-12),
-                     "gpt_1p3b": (8192, 2048, 1e-5)}
+                     "gpt_1p3b": (8192, 2048, 1e-5),
+                     "gpt2_large_o2": (8192, 1280, 1e-5),
+                     "megatron_gpt2_large": (4096, 1280, 1e-5)}
 
 
 def time_layer_norm(device):
@@ -1970,7 +1985,6 @@ def _traced_kernels(fn, reps: int = 1):
     user annotations such as the optimizer's step, which span kernels on
     the device timeline: either would count them twice)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1981,12 +1995,19 @@ def _traced_kernels(fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
-    return traced_ms, kernels
+    return traced_ms, _kernel_rows(prof)
+
+
+def _kernel_rows(prof) -> list:
+    """A finished ``torch.profiler`` run's device-side kernel rows with time
+    of their own (see ``_traced_kernels``)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
 
 
 def _kernel_device_ms(fn, calls: int = 5) -> dict:
@@ -8304,7 +8325,11 @@ def _profile(step_fn, step_ms: float) -> dict:
     ``torch.profiler``: device busy time (the kernels' summed self time)
     against the traced wall and the unprofiled median step (``step_ms``),
     device time by kind of kernel, and the kernels that take most."""
-    traced_ms, kernels = _traced_kernels(step_fn)
+    return _device_profile(*_traced_kernels(step_fn), step_ms)
+
+
+def _device_profile(traced_ms: float, kernels: list, step_ms: float) -> dict:
+    """``_profile``'s reading of one traced step's kernel rows."""
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
     by_kind = {}
@@ -11058,10 +11083,247 @@ def halo_check(device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Megatron GPT driver (dp x pp x tp = 1 under NCCL) and amp O1
+# ---------------------------------------------------------------------------
+
+# GPT-2-large's widths (bench.py:81-84) through the Megatron driver: b 4 a
+# microbatch, global batch 8 (2 microbatches, no_pipelining at pp 1), bf16
+# parameters, the default FusedAdam at lr 1e-4 (the driver's fresh random
+# batches fall ~0.005 a step toward ln V there; at 1e-3 the loss rose)
+MEGATRON_GPT_FLAGS = [
+    "--num-layers", "36", "--hidden-size", "1280",
+    "--num-attention-heads", "20", "--seq-length", "1024",
+    "--max-position-embeddings", "1024", "--vocab-size", "50304",
+    "--micro-batch-size", "4", "--global-batch-size", "8", "--bf16",
+    "--lr", "1e-4"]
+MEGATRON_STEPS = SLICE_STEPS   # timed iterations after one warm-up
+# the card-against-CPU run: 2 layers of hidden 128 (2 heads of 64, so the
+# flash kernels run), fp32, 2 microbatches of 2 x 128, 3 iterations
+MEGATRON_SMALL_FLAGS = [
+    "--num-layers", "2", "--hidden-size", "128", "--num-attention-heads",
+    "2", "--seq-length", "128", "--max-position-embeddings", "128",
+    "--vocab-size", "512", "--micro-batch-size", "2", "--global-batch-size",
+    "4", "--lr", "1e-3", "--train-iters", str(CARD_VS_CPU_STEPS)]
+
+
+def _megatron_per_step(layers: int, n_micro: int) -> dict:
+    """A driver iteration's launches at pp 1: each microbatch's two norms a
+    layer and the final one, forward and backward, and its flash forward,
+    dq and dk/dv a layer (the head is ``parallel_lm_logits`` and the
+    vocab-parallel loss, no kernel); one ``mt_adam`` over every
+    parameter."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    return {ln.LAYER_NORM_FWD.name: (2 * layers + 1) * n_micro,
+            ln.LAYER_NORM_BWD.name: (2 * layers + 1) * n_micro,
+            fa.FLASH_ATTENTION_FWD.name: layers * n_micro,
+            fa.FLASH_ATTENTION_DQ.name: layers * n_micro,
+            fa.FLASH_ATTENTION_DKV.name: layers * n_micro,
+            mt.MT_ADAM.name: 1}
+
+
+def small_megatron_check(device) -> dict:
+    """``megatron_gpt_pretrain.main`` at ``MEGATRON_SMALL_FLAGS`` on the CPU
+    (a gloo world of 1) and on the card (NCCL), from one seeded CPU init:
+    the first iteration's gradients, each iteration's loss and the
+    parameters after, within ``SMALL_CARD_TOL``."""
+    import torch
+    from apex_tpu_torch.examples import megatron_gpt_pretrain as mgp
+    from apex_tpu_torch.transformer.testing.commons import (
+        GPTPipeConfig,
+        init_gpt_pipeline_params,
+    )
+
+    cfg = GPTPipeConfig(vocab_size=512, hidden_size=128, num_attention_heads=2,
+                        layers_per_stage=2, max_sequence_length=128)
+    state = init_gpt_pipeline_params(cfg, seed=5, pp_rank=0, pp_size=1,
+                                     device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        rec = dict(losses=[])
+
+        def on_iteration(it, loss, spec, rec=rec):
+            rec["losses"].append(loss)
+            named = spec.named_parameters()
+            if it == 0:
+                rec["grads"] = {n: p.grad.detach().float().cpu().clone()
+                                for n, p in named}
+            rec["params"] = {n: p.detach().float().cpu().clone()
+                             for n, p in spec.named_parameters()}
+
+        mgp.main(["--device", dev] + MEGATRON_SMALL_FLAGS, init_state=state,
+                 on_iteration=on_iteration)
+        runs[dev] = rec
+    c, d = runs["cpu"], runs["cuda"]
+    err = dict(losses=max(abs(a - b) for a, b in zip(c["losses"],
+                                                     d["losses"])),
+               grad_tol_ratio=_grad_tol_ratio(d["grads"], c["grads"]),
+               params_tol_ratio=_param_tol_ratio(
+                   d["params"], c["params"], c["grads"], 1e-3,
+                   CARD_VS_CPU_STEPS),
+               params=len(c["params"]), cpu_losses=c["losses"],
+               card_losses=d["losses"], tolerance=SMALL_CARD_TOL)
+    if (err["losses"] > 1e-4 or err["grad_tol_ratio"] > 1.0
+            or err["params_tol_ratio"] > 1.0):
+        raise AssertionError(f"small Megatron GPT: card against CPU {err}")
+    log("phase3-megatron-reference", **err)
+    return err
+
+
+def megatron_gpt_train(device, smi: str) -> dict:
+    """The Megatron GPT driver (:mod:`apex_tpu_torch.examples.
+    megatron_gpt_pretrain`) at GPT-2-large's full width in an NCCL world of
+    1 (dp = pp = tp = 1, ``no_pipelining``), through its ``main``: one
+    warm-up iteration, ``MEGATRON_STEPS`` timed ones with the launches of
+    every iteration checked exactly (:func:`_megatron_per_step`), then one
+    traced with ``torch.profiler``; the loss finite and falling (the last
+    timed below the warm-up's); step p50, MFU, idle share, peak memory.
+    First the same driver card against CPU at 2 layers
+    (:func:`small_megatron_check`)."""
+    import torch
+    from apex_tpu_torch.examples import megatron_gpt_pretrain as mgp
+    from apex_tpu_torch.ops import _dispatch
+    from torch.profiler import ProfilerActivity, profile
+
+    reference = small_megatron_check(device)
+    torch.cuda.empty_cache()
+    layers, n_micro = 36, 2
+    per_step = _megatron_per_step(layers, n_micro)
+    rec = dict(t=[], launches=[], losses=[])
+    traced = {}
+
+    def on_iteration(it, loss, spec):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["launches"].append(_launch_counts())
+        rec["losses"].append(loss)
+        if it == 0:
+            torch.cuda.reset_peak_memory_stats()
+            rec["params"] = sum(p.numel() for p in spec.parameters())
+        if it == MEGATRON_STEPS:
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            traced["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            traced["prof"].__enter__()
+        if it == MEGATRON_STEPS + 1:
+            traced["prof"].__exit__(None, None, None)
+
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    final = mgp.main(MEGATRON_GPT_FLAGS + ["--train-iters",
+                                           str(MEGATRON_STEPS + 2)],
+                     on_iteration=on_iteration)
+    launches = _launch_counts()
+    counts = [{k: v - (rec["launches"][i - 1][k] if i else 0)
+               for k, v in c.items()} for i, c in enumerate(rec["launches"])]
+    bad = [i for i, c in enumerate(counts) if _nonzero(c) != per_step]
+    losses = rec["losses"]
+    if bad or not all(map(math.isfinite, losses)) or not (
+            losses[MEGATRON_STEPS] < losses[0]) or final != losses[-1]:
+        raise AssertionError(
+            f"Megatron GPT-2-large: iterations {bad} launched "
+            f"{[_nonzero(counts[i]) for i in bad]}, expected {per_step}; "
+            f"losses {losses}")
+    step_ms = [(rec["t"][i] - rec["t"][i - 1]) * 1e3
+               for i in range(1, MEGATRON_STEPS + 1)]
+    med = statistics.median(step_ms)
+    s, tokens = 1024, 8 * 1024
+    n = rec["params"]
+    flops = float((6 * n + 12 * layers * 1280 * s // 2) * tokens)
+    out = dict(config="gpt2-large (Megatron driver)", nvidia_smi=smi,
+               flags=MEGATRON_GPT_FLAGS, params=n, tokens=tokens,
+               n_micro=n_micro, schedule="forward_backward_no_pipelining",
+               precision="--bf16: parameters bf16 (LayerNorm fp32), the "
+                         "logits and loss fp32",
+               optimizer="FusedAdam(lr=1e-4), fp32 moments, no masters",
+               warmup_loss=losses[0], losses=losses[1:], step_ms=step_ms,
+               step_ms_median=med, total_s=time.perf_counter() - t0,
+               peak_mem_bytes=rec["peak"], launches=launches,
+               launches_per_step=per_step,
+               profile=_device_profile((rec["t"][-1] - rec["t"][-2]) * 1e3,
+                                       _kernel_rows(traced["prof"]), med),
+               reference=reference)
+    _mfu(out, flops, tokens)
+    log("phase3-megatron-gpt", **{k: v for k, v in out.items()
+                                  if k != "launches"})
+    torch.cuda.empty_cache()
+    return out
+
+
+# the amp.functional rules on the card: (op, positional args' dtypes,
+# keyword arguments); values against the CPU's
+AMP_O1_CASES = (
+    ("matmul", ("float32", "float32"), {}),
+    ("linear", ("float32", "float32"), {}),
+    ("exp", ("bfloat16",), {}),
+    ("softmax", ("float16",), {"dim": -1}),
+    ("sum", ("bfloat16",), {}),
+    ("linalg_norm", ("float16",), {}),
+    ("add", ("float16", "bfloat16"), {}),
+    ("mul", ("bfloat16", "float32"), {}),
+    ("atan2", ("float16", "float16"), {}),
+)
+
+
+def amp_o1_check(device, smi: str) -> dict:
+    """amp O1 on the card: the ``amp.functional`` rules (half, float and
+    promote ops, and ``cat`` of a sequence) on CUDA tensors under the O1
+    policy, each output's dtype the CPU's and its values within 1e-5
+    relative where fp32 (two units in the last place in bf16 and fp16,
+    2**-6 and 2**-9 relative: a half result rounded from another fp32
+    sum); then ``examples/simple.py --opt-level O1 --half
+    fp16`` converging under the dynamic loss scaler."""
+    import torch
+    from apex_tpu_torch.amp import functional as F
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import simple
+
+    gen = torch.Generator().manual_seed(31)
+    rel = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6,
+           torch.float16: 2.0 ** -9}
+    cases = {}
+    with F.active_policy(get_policy("O1", half_dtype=torch.bfloat16)):
+        for name, dtypes, kw in AMP_O1_CASES:
+            args = [torch.rand(64, 64, generator=gen).add_(0.5).to(
+                getattr(torch, d)) for d in dtypes]
+            cpu = getattr(F, name)(*args, **kw)
+            card = getattr(F, name)(*[a.to(device) for a in args], **kw)
+            err = float(((card.cpu().float() - cpu.float()).abs()
+                         / cpu.float().abs().clamp_min(1e-6)).max())
+            cases[name] = dict(dtype=str(card.dtype).rsplit(".", 1)[-1],
+                               max_rel_err=err, tol=rel[cpu.dtype])
+            if card.dtype != cpu.dtype or err > rel[cpu.dtype]:
+                raise AssertionError(f"amp.functional.{name} on the card: "
+                                     f"{card.dtype} vs {cpu.dtype}, "
+                                     f"relative error {err}")
+        seq = [torch.ones(4, dtype=torch.bfloat16, device=device),
+               torch.ones(4, device=device)]
+        if F.cat(seq).dtype != torch.float32:
+            raise AssertionError("amp.functional.cat did not promote")
+    t0 = time.perf_counter()
+    try:
+        last = simple.main(["--opt-level", "O1", "--half", "fp16"])
+    finally:
+        F.set_active_policy(None)
+    out = dict(nvidia_smi=smi, cases=cases, simple_o1_fp16_last_loss=last,
+               simple_s=time.perf_counter() - t0,
+               tolerance="dtypes the CPU's; values within 1e-5 relative in "
+                         "fp32, 2**-6 in bf16, 2**-9 in fp16; simple.py "
+                         "below 0.05 after 200 steps")
+    log("phase3-amp-o1", **out)
+    return out
+
+
 # the phases that stand alone, for ``chip_smoke.py --only NAME[,NAME]``:
 # each called with the card and the nvidia-smi line, in the order given,
 # in one process
 ALONE = {
+    "layer_norm": lambda device, smi: dict(
+        main_path_max_abs_err=check_layer_norm(device),
+        rows=time_layer_norm(device)),
     "moe_reference": lambda device, smi: small_moe_check(device),
     "ring_reference": lambda device, smi: small_ring_check(device),
     "moe": lambda device, smi: moe_train(device, smi),
@@ -11072,6 +11334,8 @@ ALONE = {
     "bert": lambda device, smi: bert_large_train(device, smi),
     "vit": lambda device, smi: vit_l16_train(device, smi),
     "gpt_1p3b": lambda device, smi: gpt13b_train(device, smi),
+    "megatron_gpt": lambda device, smi: megatron_gpt_train(device, smi),
+    "amp_o1": amp_o1_check,
 }
 
 
@@ -11216,6 +11480,8 @@ def main(argv=()) -> int:
     moe = moe_train(device, smi)
     cp = cp_train(device, smi)
     halo = halo_check(device, smi)
+    megatron = megatron_gpt_train(device, smi)
+    amp_o1 = amp_o1_check(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -11246,7 +11512,8 @@ def main(argv=()) -> int:
                  **amp_paths, gpt_kernel_path=gpt_kernel,
                  gpt_flagship=gpt_flagship, bert_large=bert, vit_l16=vit,
                  gpt_1p3b_remat=gpt13["remat"], gpt_1p3b_plain=gpt13["plain"],
-                 moe=moe, cp=cp, halo=halo, openfold=openfold)
+                 moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
+                 openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -11383,8 +11650,8 @@ def main(argv=()) -> int:
                   bert_large=bert, vit_l16=vit, gpt_1p3b=gpt13,
                   llama_remat=llama_remat, dropout=dropout,
                   moe_reference=moe_reference, ring_reference=ring_reference,
-                  moe=moe, cp=cp, halo=halo,
-                  kernels=kernels,
+                  moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
+                  amp_o1=amp_o1, kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -242,7 +242,8 @@ def test_initialize_levels_like_jax():
     """The JAX test_amp.py cases on the port: O0 leaves fp32, O2 halves
     all but the norm-like parameter and returns half outputs, O3 halves
     everything, fp16 gets the dynamic scaler at 2**16, bf16 the unit
-    static one, ``loss_scale=`` overrides, O1 raises."""
+    static one, ``loss_scale=`` overrides, O1 keeps the parameters fp32
+    and installs its policy for ``amp.functional``."""
     x = torch.ones(2, 4)
     amped = amp.initialize(_Affine(), opt_level="O0")
     assert amped.model.module.w.dtype == torch.float32
@@ -265,8 +266,15 @@ def test_initialize_levels_like_jax():
     assert not amped.scaler.dynamic and float(amped.scaler_state.scale) == 1.0
     amped = amp.initialize(_Affine(), opt_level="O2", loss_scale=128.0)
     assert float(amped.scaler_state.scale) == 128.0
-    with pytest.raises(NotImplementedError, match="amp/functional.py"):
-        amp.initialize(_Affine(), opt_level="O1")
+    # O1: fp32 parameters, half compute, and the policy installed for
+    # amp.functional (removed again: it is process-wide)
+    try:
+        amped = amp.initialize(_Affine(), opt_level="O1")
+        assert amped.model.module.w.dtype == torch.float32
+        assert amped.policy.compute_dtype == torch.bfloat16
+        assert amp.functional._current() is amped.policy
+    finally:
+        amp.set_active_policy(None)
     with pytest.raises(ValueError):
         amp.initialize(_Affine(), opt_level="O4")
 

@@ -15,7 +15,7 @@
   the JAX module's bit for bit, a decode error reaches the loop through
   the prefetcher, workers match the serial path, and ``run_training``
   trains on it;
-- the port's own: the FLOP count, O2's fp32 batch norms, O1's refusal,
+- the port's own: the FLOP count, O2's fp32 batch norms, O1's fp32 run,
   and ``--save`` / ``--resume`` on the checkpoint layer against an
   uninterrupted run, bit for bit.
 
@@ -171,8 +171,17 @@ def test_bf16_steps_check_no_overflow_and_fp16_steps_do():
 
 
 def test_o1_raises():
-    with pytest.raises(NotImplementedError, match="O1"):
-        im.run_training(opt_level="O1", device="cpu", distributed=False)
+    """``run_training`` at O1 raises nothing: it trains in fp32 from half
+    images (the JAX model's promotion), its parameters fp32, and with fp16
+    under the dynamic scaler.  ``tests/test_torch_amp_o1.py`` holds its
+    losses to JAX's."""
+    out = im.run_training(arch="resnet10", opt_level="O1", half="fp16",
+                          batch_size=4, image_size=16, num_classes=5,
+                          steps=2, device="cpu", distributed=False,
+                          verbose=False)
+    assert all(np.isfinite(out["losses"])) and len(out["losses"]) == 2
+    assert {p.dtype for p in out["model"].parameters()} == {torch.float32}
+    assert out["final_scale"] == 2.0 ** 16
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,10 @@ apex_tpu's, on weights initialised in JAX and carried over as numpy.
   ep 4 at capacity factor 4.0, and at ep 4 with 1.25, where each rank's
   queues overflow, against JAX's ``shard_map`` runs on 2 and 4 virtual
   devices: each rank's output and its gradients of ``x``, ``router`` (its
-  own tokens' share, as JAX leaves it), ``w_in`` and ``w_out``; and a
-  group of one rank equal to ``axis_name=None`` bit for bit.
+  own tokens' share, as JAX leaves it), ``w_in`` and ``w_out``; the
+  router's gradient after ``allreduce_expert_replicated_grads``, the sum
+  of the shares on every rank; and a group of one rank equal to
+  ``axis_name=None`` bit for bit.
 
 Tolerances: fp32 ``rtol 1e-4, atol 1e-5`` (JAX's own for this module);
 the O2 outputs at bf16's ``rtol 0.1, atol 0.05``.  This module imports
@@ -98,6 +100,18 @@ def _moe_world(rank, world, cases):
         r = dist.get_rank(group)
         out[name] = _run_mlp(_port_mlp(cases[name], group, r, ep), cases[name],
                              slice(r * T, (r + 1) * T))
+    # the repair: the tagged router's gradient summed over the ep group
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        allreduce_expert_replicated_grads,
+    )
+
+    m = _port_mlp(cases["ep4"], dist.group.WORLD, rank, world)
+    _run_mlp(m, cases["ep4"], slice(rank * T, (rank + 1) * T))
+    allreduce_expert_replicated_grads(m, dist.group.WORLD)
+    out["ep4_repaired"] = dict(
+        router=m.router.grad.numpy().copy(),
+        tagged=sorted(n for n, p in m.named_parameters()
+                      if getattr(p, "expert_replicated", False)))
     # a group of one rank against no group, on this rank's tokens
     case = cases["ep4_bind"]
     rows = slice(rank * T, (rank + 1) * T)
@@ -209,6 +223,29 @@ def test_router_grad_is_each_ranks_share_at_ep4(ep_world):
     np.testing.assert_allclose(sum(shares), whole, **TOL)
     for share in shares:
         assert np.abs(share - whole).max() > 1e-3
+
+
+def test_router_grad_repair_gives_every_rank_the_sum_at_ep4(ep_world):
+    """``allreduce_expert_replicated_grads`` over the ep group of 4: the
+    router (the one tagged parameter) holds on every rank the sum of the
+    four shares of the test above, bit for bit the same on each rank;
+    with nothing tagged it calls no collective (here, outside any
+    world, one would raise)."""
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        allreduce_expert_replicated_grads,
+    )
+
+    _, ranks = ep_world
+    shares = [ranks[r]["ep4"]["router"] for r in range(4)]
+    repaired = [ranks[r]["ep4_repaired"] for r in range(4)]
+    for r in range(4):
+        assert repaired[r]["tagged"] == ["router"]
+        np.testing.assert_allclose(repaired[r]["router"], sum(shares), **TOL)
+        np.testing.assert_array_equal(repaired[r]["router"],
+                                      repaired[0]["router"])
+    lin = torch.nn.Linear(2, 2)
+    lin(torch.ones(1, 2)).sum().backward()
+    allreduce_expert_replicated_grads(lin, None)
 
 
 def test_ep_group_of_one_equals_no_group_bit_for_bit(ep_world):

@@ -99,7 +99,15 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.context_parallel, "
         "apex_tpu_torch.contrib.halo, apex_tpu_torch.contrib.halo.bottleneck, "
         "apex_tpu_torch.utils.conv, "
-        "apex_tpu_torch.contrib.halo.halo_exchange\n"
+        "apex_tpu_torch.contrib.halo.halo_exchange, "
+        "apex_tpu_torch.transformer.log_util, "
+        "apex_tpu_torch.transformer.testing.arguments, "
+        "apex_tpu_torch.transformer.testing.global_vars, "
+        "apex_tpu_torch.transformer.testing.commons, "
+        "apex_tpu_torch.examples.megatron_gpt_pretrain, "
+        "apex_tpu_torch.amp.lists, apex_tpu_torch.amp.functional, "
+        "apex_tpu_torch.utils._native, apex_tpu_torch.utils.nvtx, "
+        "apex_tpu_torch.feature_registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -197,6 +205,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         ExpertParallelMLP(4, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpatialBottleneck(8, 4, 8, spatial_axis=None)
+    from apex_tpu_torch.examples import megatron_gpt_pretrain
+    from apex_tpu_torch.transformer.testing.commons import (
+        GPTPipeConfig,
+        build_gpt_pipeline,
+        init_gpt_pipeline_params,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        megatron_gpt_pretrain.main(["--num-layers", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_gpt_pipeline(GPTPipeConfig(), pp_rank=0, pp_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_gpt_pipeline_params(GPTPipeConfig(), pp_rank=0, pp_size=1)
 
 
 @pytest.mark.parametrize("port,ref", [
