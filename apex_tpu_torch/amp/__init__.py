@@ -44,8 +44,13 @@ from typing import List
 import torch
 from torch import nn
 
-from apex_tpu_torch.amp import functional, lists
+from apex_tpu_torch.amp import functional, lists, quant
 from apex_tpu_torch.amp.functional import active_policy, set_active_policy
+from apex_tpu_torch.amp.quant import (
+    INT8_QMAX,
+    dequantize_int8,
+    quantize_int8,
+)
 from apex_tpu_torch.amp.policy import (
     O0,
     O1,
@@ -65,7 +70,8 @@ __all__ = ["initialize", "AmpState", "AmpModule", "functional", "lists",
            "active_policy", "set_active_policy", "PrecisionPolicy",
            "get_policy", "O0", "O1", "O2", "O3", "LossScaler",
            "LossScalerState", "static_loss_scaler", "state_dict",
-           "load_state_dict"]
+           "load_state_dict", "quant", "INT8_QMAX", "quantize_int8",
+           "dequantize_int8"]
 
 
 @dataclasses.dataclass

@@ -79,6 +79,9 @@ from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.pipeline_parallel import (
     get_forward_backward_func,
 )
+from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+    grads_by_param,
+)
 from apex_tpu_torch.transformer.pipeline_parallel.utils import (
     average_losses_across_data_parallel_group,
 )
@@ -208,16 +211,17 @@ def _train(args, device, init_state, on_iteration) -> float:
 
     def train_step(batches):
         with tensor_parallel_region(tp_group):
-            loss, _ = fwd_bwd(model, batches, group=pp_group,
-                              tensor_shape=wire, dtype=cfg.params_dtype,
-                              **chunk_kw)
-        allreduce_sequence_parallel_grads(params, tp_group)
+            loss, grads = fwd_bwd(model, batches, group=pp_group,
+                                  tensor_shape=wire, dtype=cfg.params_dtype,
+                                  **chunk_kw)
+        # what the schedule returned: .grad, or at pp 1 the fp32 sums
+        grads = grads_by_param(model, grads)
+        allreduce_sequence_parallel_grads(params, tp_group, grads=grads)
         for spec in chunks:
             allreduce_word_embedding_grads(spec)
-        all_reduce_gradients([p.grad for p in params if p.grad is not None],
-                             dp_group, average=True)
+        all_reduce_gradients(list(grads.values()), dp_group, average=True)
         loss = average_losses_across_data_parallel_group([loss], dp_group)[0]
-        opt.step()
+        opt.step(grads=grads)
         return loss
 
     speak = dist.get_rank() == 0

@@ -130,7 +130,8 @@ __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "shard_gpt_state_dict",
            "load_jax_optimizer_state",
            "shard_state_dict", "resnet_params_from_jax",
-           "transformer_lm_params_from_jax", "bottleneck_params_from_jax"]
+           "transformer_lm_params_from_jax", "bottleneck_params_from_jax",
+           "dense_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -604,3 +605,21 @@ def resnet_params_from_jax(params: Mapping,
         bn = key.rsplit(".", 1)[0]
         state[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     return state
+
+
+def dense_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.fused_dense.
+    FusedDense`, ``DenseNoBias``, ``FusedDenseGeluDense`` or
+    :class:`~apex_tpu_torch.mlp.MLP` from the flax module's tree: each
+    ``kernel<suffix>`` ``[in, out]`` becomes ``weight<suffix>`` ``[out,
+    in]`` (``kernel1`` -> ``weight1``, ``kernel_0`` -> ``weight_0``) and
+    each ``bias<suffix>`` keeps its name.  Raises on any other leaf."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    expected = {}
+    for name in _flatten(tree):
+        if name.startswith("kernel"):
+            expected[name] = ("weight" + name[len("kernel"):], True)
+        elif name.startswith("bias"):
+            expected[name] = (name, False)
+    return _convert(tree, expected, "dense")

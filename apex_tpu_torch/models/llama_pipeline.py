@@ -50,6 +50,7 @@ from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
     PipelineStageSpec,
+    grads_by_param,
 )
 from apex_tpu_torch.transformer.pipeline_parallel.utils import (
     average_losses_across_data_parallel_group,
@@ -251,7 +252,10 @@ def make_llama_3d_train_step(pcfg: LlamaPipeConfig, opt: Callable, schedule,
       (``all_reduce_gradients(average=True)`` and
       ``average_losses_across_data_parallel_group``, the JAX step's
       ``pmean``);
-      the optimizer's step.  The embedding and head gradients need no
+      the optimizer's step, from the gradients the schedule returned
+      (``FusedOptimizer.step(grads=)``: ``.grad``, or the fp32 microbatch
+      sums of ``forward_backward_no_pipelining``, checked by the
+      scaler before any cast, as JAX's are).  The embedding and head gradients need no
       reduction over pp: each lives on its one stage.  Returns the loss;
       with ``grad_scaler`` (a :class:`~apex_tpu_torch.transformer.amp.
       GradScaler`) ``(loss, found_inf, new_scaler_state)``, the
@@ -282,22 +286,24 @@ def make_llama_3d_train_step(pcfg: LlamaPipeConfig, opt: Callable, schedule,
         s = ids.shape[-1] // (dist.get_world_size(tp_group)
                               if pcfg.sequence_parallel_enabled else 1)
         with tensor_parallel_region(tp_group):
-            loss, _ = schedule(
+            loss, grads = schedule(
                 spec, batches, grad_scaler=grad_scaler,
                 scaler_state=scaler_state,
                 group=ps.get_pipeline_model_parallel_group(),
                 tensor_shape=(s, ids.shape[1], pcfg.config.hidden_size),
                 dtype=_wire_dtype(spec))
-        params = spec.parameters()
-        allreduce_sequence_parallel_grads(params, tp_group)
-        all_reduce_gradients([p.grad for p in params if p.grad is not None],
-                             dp_group, average=True)
+        # what the schedule returned: .grad, or at pp 1 the fp32 sums
+        grads = grads_by_param(spec, grads)
+        allreduce_sequence_parallel_grads(spec.parameters(), tp_group,
+                                          grads=grads)
+        all_reduce_gradients(list(grads.values()), dp_group, average=True)
         loss = average_losses_across_data_parallel_group([loss], dp_group)[0]
         if grad_scaler is None:
-            optimizer.step()
+            optimizer.step(grads=grads)
             return loss
-        found_inf = grad_scaler.has_overflow([p.grad for p in params])
-        optimizer.step(grad_scale=scaler_state.scale, found_inf=found_inf)
+        found_inf = grad_scaler.has_overflow(list(grads.values()))
+        optimizer.step(grad_scale=scaler_state.scale, found_inf=found_inf,
+                       grads=grads)
         return loss, found_inf, grad_scaler.update(scaler_state, found_inf)
 
     return init_fn, train_step

@@ -29,7 +29,8 @@ own.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -161,12 +162,17 @@ class FusedOptimizer(torch.optim.Optimizer):
         self.master_weights = master_weights
         self.packed = packed
 
-    def _params_to_update(self, group: dict) -> List[torch.Tensor]:
-        """The parameters a step updates: those with a gradient (with
-        ``packed``, all of the group's, raising if one has none)."""
+    def _params_to_update(self, group: dict, grads=None
+                          ) -> List[torch.Tensor]:
+        """The parameters a step updates: those with a gradient, in
+        ``grads`` when it is given, else in ``.grad`` (with ``packed``,
+        all of the group's, raising if one has none)."""
+        def has(p):
+            return p.grad is not None if grads is None else p in grads
+
         if not self.packed:
-            return [p for p in group["params"] if p.grad is not None]
-        if any(p.grad is None for p in group["params"]):
+            return [p for p in group["params"] if has(p)]
+        if not all(has(p) for p in group["params"]):
             raise ValueError(f"{type(self).__name__}(packed=True) updates "
                              f"every parameter of a group: each needs a "
                              f"gradient")
@@ -179,13 +185,19 @@ class FusedOptimizer(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure: Optional[Callable] = None, *,
              grad_scale: Union[None, float, torch.Tensor] = None,
-             found_inf: Union[None, bool, torch.Tensor] = None):
+             found_inf: Union[None, bool, torch.Tensor] = None,
+             grads: Optional[Mapping[torch.Tensor, torch.Tensor]] = None):
         """One update of every parameter that has a gradient; returns the
         closure's loss when one is given.  ``grad_scale`` divides the
         (loss-scaled) gradients in fp32 before the update; a true
         ``found_inf`` (a 0-d tensor on the device, never read on the host)
         leaves the parameters, the masters, the optimizer state and the
-        step counter as they were."""
+        step counter as they were.  ``grads`` maps a parameter to the
+        gradient to step from in place of its ``.grad``, of any float
+        dtype: the fp32 microbatch sums of
+        ``forward_backward_no_pipelining``, whose cast to a half
+        ``.grad`` may overflow where the sums do not (the JAX optimizer
+        steps from the sums)."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -197,12 +209,14 @@ class FusedOptimizer(torch.optim.Optimizer):
         skip = None if found_inf is None else found_inf.to(torch.bool)
         work = []
         for group in self.param_groups:
-            params = self._params_to_update(group)
+            params = self._params_to_update(group, grads)
             if not params:
                 continue
             targets = ([self._master(p) for p in params]
                        if self.master_weights else params)
-            work.append((group, params, [p.grad for p in params], targets))
+            work.append((group, params, [p.grad if grads is None
+                                         else grads[p] for p in params],
+                         targets))
         self._update(work, skip, grad_scale)
         return loss
 

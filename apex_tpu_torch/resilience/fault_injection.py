@@ -38,25 +38,51 @@ rollout controller:
 :func:`corrupt_checkpoint` is the storage corruption of the JAX
 ``FaultInjector.corrupt_checkpoint`` (same offsets for the same seed).
 ``CorruptShardFile`` flips bytes inside one shard record of a sharded
-(v2) checkpoint.  The JAX module's training faults (``FaultPlan`` /
-``FaultInjector``, ``SlowStep``, ``FlakyIterator``, ``CorruptBatch``) and
-``DesyncReplica`` wait for the training-side resilience slice.
+(v2) checkpoint.
+
+The training faults, each placed as the JAX package's for the same seed
+over the same leaf order (``jax.tree_util``'s: dict keys sorted):
+
+- **Numerical**: :meth:`FaultInjector.inject_grads` plants NaN/Inf
+  gradient elements at configured steps (functional; the step may be a
+  0-d tensor on the device, compared there without a host read).
+- **Preemption**: :meth:`FaultInjector.check_preemption` raises
+  :class:`SimulatedPreemption` at the host step boundary.
+- **Storage**: :meth:`FaultInjector.corrupt_checkpoint` /
+  :meth:`~FaultInjector.truncate_checkpoint`.
+- **Stragglers**: :class:`SlowStep` stalls the host step body.
+- **Flaky producers**: :class:`FlakyIterator` makes a chosen fetch raise
+  a transient error N times, then succeed without consuming the item.
+- **Corrupt records**: :class:`CorruptBatch` inserts a damaged copy of a
+  chosen batch ahead of the clean one (NaN / shape / dtype damage).
+- **Replica divergence**: :class:`DesyncReplica` perturbs one element of
+  one leaf of one data-parallel rank's own copy (JAX perturbs that
+  rank's slice of the stacked state).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Iterable, Optional
+import time
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Tuple, Type)
 
 import numpy as np
 import torch
 
 from apex_tpu_torch._logging import emit_event
+from apex_tpu_torch.utils.serialization import (
+    tree_flatten_with_path,
+    tree_map_with_path,
+)
 
-__all__ = ["CancelStorm", "CorruptCandidateMidRollout",
-           "CorruptShardFile", "CrashCheckpointWriter", "KillCanary", "KillReplica",
-           "RegressingWeights", "ReloadStorm", "SimulatedWriterCrash",
-           "SlowDecodeStep", "SlowReplica", "StallStream", "WedgeReplica",
+__all__ = ["CancelStorm", "CorruptBatch", "CorruptCandidateMidRollout",
+           "CorruptShardFile", "CrashCheckpointWriter", "DesyncReplica",
+           "FaultInjector", "FaultPlan", "FlakyIterator", "KillCanary",
+           "KillReplica", "RegressingWeights", "ReloadStorm",
+           "SimulatedPreemption", "SimulatedWriterCrash", "SlowDecodeStep",
+           "SlowReplica", "SlowStep", "StallStream", "WedgeReplica",
            "corrupt_checkpoint"]
 
 
@@ -81,6 +107,355 @@ def corrupt_checkpoint(ckpt_dir: str, *, seed: int = 0,
     emit_event("fault_injected", fault="checkpoint_corruption",
                path=path, offsets=offsets)
     return offsets
+
+
+def _rebuild(tree: Any, leaves: list) -> Any:
+    """``tree`` with its leaves, in flatten order, replaced by ``leaves``."""
+    it = iter(leaves)
+    return tree_map_with_path(lambda _, __: next(it), tree)
+
+
+class SimulatedPreemption(RuntimeError):
+    """Raised at an injected preemption boundary (stands in for SIGTERM)."""
+
+    def __init__(self, step: int):
+        super().__init__(f"simulated preemption at step {step}")
+        self.step = step
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """What to break, and when (all step indices are host step numbers).
+
+    ``nan_grad_steps`` / ``inf_grad_steps``: steps whose gradients get
+    deterministic NaN / Inf elements injected.  ``preempt_steps``: steps
+    whose host boundary raises :class:`SimulatedPreemption`.  ``seed``
+    drives every placement choice.
+    """
+
+    seed: int = 0
+    nan_grad_steps: Tuple[int, ...] = ()
+    inf_grad_steps: Tuple[int, ...] = ()
+    preempt_steps: Tuple[int, ...] = ()
+
+
+class FaultInjector:
+    """Executes a :class:`FaultPlan` against a training loop."""
+
+    def __init__(self, plan: FaultPlan):
+        self.plan = plan
+
+    def placements(self, grads: Any) -> list:
+        """Where :meth:`inject_grads` plants its faults in a tree shaped
+        like ``grads``: ``[(value, leaf path, flat element, steps)]`` for
+        each configured class, NaN before Inf — JAX's leaf and element
+        for the same seed: the candidates are the non-empty floating
+        leaves in flatten order, and the seed stream is consumed for both
+        classes even when one is not configured."""
+        plan = self.plan
+        if not plan.nan_grad_steps and not plan.inf_grad_steps:
+            return []
+        flat = tree_flatten_with_path(grads)
+        candidates = [i for i, (_, l) in enumerate(flat)
+                      if isinstance(l, torch.Tensor) and l.numel()
+                      and (l.is_floating_point() or l.is_complex())]
+        if not candidates:
+            return []
+        rng = np.random.default_rng(plan.seed)
+        out = []
+        for bad, steps in ((float("nan"), plan.nan_grad_steps),
+                           (float("inf"), plan.inf_grad_steps)):
+            idx = candidates[int(rng.integers(len(candidates)))]
+            pos = int(rng.integers(flat[idx][1].numel()))
+            if steps:
+                out.append((bad, flat[idx][0], pos, tuple(steps)))
+        return out
+
+    def inject_grads(self, grads: Any, step) -> Any:
+        """``grads`` with NaN/Inf planted when ``step`` is a configured
+        fault step (at :meth:`placements`); the same tensors otherwise.
+
+        The fault is planted in the leaf's own dtype, in a copy of that
+        leaf (the tree given is never written).  ``step`` is a host int,
+        or a 0-d tensor on the device, where the hit is a ``torch.where``
+        (no host read; the target leaf is then copied on every call, as
+        JAX's is).
+        """
+        sites = self.placements(grads)
+        if not sites:
+            return grads
+        flat = tree_flatten_with_path(grads)
+        index = {path: i for i, (path, _) in enumerate(flat)}
+        leaves = [l for _, l in flat]
+        for bad, path, pos, steps in sites:
+            if isinstance(step, torch.Tensor):
+                hit = (step.reshape(()) == torch.tensor(
+                    steps, device=step.device, dtype=step.dtype)).any()
+            elif int(step) in steps:
+                hit = None
+            else:
+                continue
+            leaf = leaves[index[path]]
+            cell = leaf.detach().reshape(-1).clone()
+            if hit is None:
+                cell[pos:pos + 1].fill_(bad)      # a fill: no host copy
+            else:
+                cell[pos] = torch.where(hit, torch.full_like(cell[pos], bad),
+                                        cell[pos])
+            leaves[index[path]] = cell.view(leaf.shape)
+        return _rebuild(grads, leaves)
+
+    def check_preemption(self, step: int) -> None:
+        """Host-side step boundary: raises :class:`SimulatedPreemption`
+        when ``step`` is a configured preemption step."""
+        if int(step) in self.plan.preempt_steps:
+            emit_event("fault_injected", fault="preemption", step=int(step))
+            raise SimulatedPreemption(int(step))
+
+    def corrupt_checkpoint(self, ckpt_dir: str, *,
+                           nbytes: int = 8) -> list[int]:
+        """Flip ``nbytes`` seed-chosen bytes of ``<ckpt_dir>/data.bin``
+        in place; returns the corrupted offsets (:func:`corrupt_checkpoint`
+        with the plan's seed)."""
+        return corrupt_checkpoint(ckpt_dir, seed=self.plan.seed,
+                                  nbytes=nbytes)
+
+    def truncate_checkpoint(self, ckpt_dir: str, *,
+                            drop_bytes: int = 1) -> None:
+        """Truncate ``data.bin`` by ``drop_bytes`` (half-written writer)."""
+        path = os.path.join(ckpt_dir, "data.bin")
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.truncate(max(size - drop_bytes, 0))
+        emit_event("fault_injected", fault="checkpoint_truncation",
+                   path=path, dropped=drop_bytes)
+
+
+class SlowStep:
+    """Host-side straggler: stall the step body at configured steps.
+
+    Call ``slow(step)`` inside the watchdog's armed window to block for
+    ``duration_s`` on the chosen steps; the computation itself is
+    untouched.  ``sleep`` is injectable for wait-free tests.
+    """
+
+    def __init__(self, steps: Iterable[int], duration_s: float = 0.3, *,
+                 sleep: Callable[[float], None] = time.sleep):
+        self.steps = frozenset(int(s) for s in steps)
+        self.duration_s = float(duration_s)
+        self._sleep = sleep
+
+    def __call__(self, step: int) -> None:
+        if int(step) in self.steps:
+            emit_event("fault_injected", fault="slow_step", step=int(step),
+                       duration_s=self.duration_s)
+            self._sleep(self.duration_s)
+
+
+class FlakyIterator:
+    """Transiently failing producer: chosen fetches raise, then succeed.
+
+    The fetch at (0-based) index ``i`` for each ``i`` in ``fail_at``
+    raises ``exc_type`` ``failures`` times before succeeding, and the
+    failures do NOT consume the underlying item, so a retry wrapper
+    recovers the identical stream.
+    """
+
+    def __init__(self, it: Iterable, *, fail_at: Iterable[int] = (),
+                 failures: int = 2,
+                 exc_type: Type[Exception] = OSError,
+                 message: str = "injected flaky fetch"):
+        if failures < 1:
+            raise ValueError(f"failures must be >= 1, got {failures}")
+        self._it = iter(it)
+        self.fail_at = frozenset(int(i) for i in fail_at)
+        self.failures = failures
+        self.exc_type = exc_type
+        self.message = message
+        self._idx = 0      # index of the next successful fetch
+        self._raised = 0   # failures already raised at the current index
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        if self._idx in self.fail_at and self._raised < self.failures:
+            self._raised += 1
+            emit_event("fault_injected", fault="flaky_iterator",
+                       index=self._idx, failure=self._raised,
+                       failures=self.failures)
+            raise self.exc_type(
+                f"{self.message} (index {self._idx}, "
+                f"failure {self._raised}/{self.failures})")
+        item = next(self._it)
+        self._idx += 1
+        self._raised = 0
+        return item
+
+
+def _numel(leaf: Any) -> int:
+    return leaf.numel() if isinstance(leaf, torch.Tensor) else np.size(leaf)
+
+
+def _floating(leaf: Any) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.is_floating_point()
+    return np.issubdtype(np.asarray(leaf).dtype, np.floating)
+
+
+class CorruptBatch:
+    """Insert a corrupted COPY of chosen batches ahead of the clean ones.
+
+    A guarded run that drops every corrupted copy consumes the exact
+    clean stream an unfaulted run consumes.  ``at`` indexes the clean
+    stream (0-based).  Damage modes, applied to a copy of the first
+    array leaf (a tensor stays a tensor, on its device):
+
+    - ``"nan"``    — plant NaNs at seed-chosen elements (JAX's for the
+      seed) of the first floating leaf,
+    - ``"shape"``  — drop the leading row,
+    - ``"dtype"``  — cast to float64 (float32 when it is float64).
+    """
+
+    _MODES = ("nan", "shape", "dtype")
+
+    def __init__(self, it: Iterable, *, at: Iterable[int] = (),
+                 mode: str = "nan", seed: int = 0, n_elements: int = 3):
+        if mode not in self._MODES:
+            raise ValueError(f"mode must be one of {self._MODES}, got {mode!r}")
+        self._it = iter(it)
+        self.at = frozenset(int(i) for i in at)
+        self.mode = mode
+        self.seed = seed
+        self.n_elements = n_elements
+        self._idx = 0             # clean items fetched from the source
+        self._pending = None      # clean item to deliver after its corrupt copy
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def _corrupt(self, batch: Any) -> Any:
+        leaves = [l for _, l in tree_flatten_with_path(batch)]
+        if self.mode == "nan":
+            target = next((i for i, l in enumerate(leaves)
+                           if _numel(l) and _floating(l)), None)
+        else:
+            target = next((i for i, l in enumerate(leaves) if _numel(l)),
+                          None)
+        if target is None:
+            raise ValueError(
+                f"CorruptBatch(mode={self.mode!r}): batch has no "
+                f"{'floating-point ' if self.mode == 'nan' else ''}"
+                "non-empty array leaf to corrupt")
+        leaf = leaves[target]
+        tensor = isinstance(leaf, torch.Tensor)
+        arr = leaf.detach().clone() if tensor else np.array(leaf)
+        if self.mode == "nan":
+            rng = np.random.default_rng(self.seed)
+            flat = arr.reshape(-1)
+            n = _numel(arr)
+            pos = rng.choice(n, size=min(self.n_elements, n), replace=False)
+            flat[torch.from_numpy(pos) if tensor else pos] = float("nan")
+            arr = flat.reshape(arr.shape)
+        elif self.mode == "shape":
+            arr = arr[1:] if arr.ndim and arr.shape[0] > 0 else arr.reshape(-1)
+        elif tensor:
+            arr = arr.to(torch.float64 if arr.dtype != torch.float64
+                         else torch.float32)
+        else:
+            arr = arr.astype(np.float64 if arr.dtype != np.float64
+                             else np.float32)
+        leaves[target] = arr
+        return _rebuild(batch, leaves)
+
+    def __next__(self):
+        if self._pending is not None:
+            item, self._pending = self._pending, None
+            return item
+        item = next(self._it)
+        idx = self._idx
+        self._idx += 1
+        if idx in self.at:
+            corrupted = self._corrupt(item)  # before touching _pending
+            emit_event("fault_injected", fault="corrupt_batch", index=idx,
+                       mode=self.mode)
+            self._pending = item
+            return corrupted
+        return item
+
+
+_SAME_SIZE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                  8: torch.int64}
+
+
+class DesyncReplica:
+    """Silently diverge ONE data-parallel rank's copy of one leaf at
+    chosen steps.
+
+    Each rank calls ``desync(state, step)`` on its own copy; on rank
+    ``rank`` of the data-parallel group ``axis_name`` (None: rank 0 of
+    one) and a configured step it adds ``delta`` to one element of the
+    chosen leaf, in place, and returns ``state`` (every other call leaves
+    it untouched).  No collective runs and no event fires beyond
+    ``fault_injected``: the silent divergence a cross-replica hash pass
+    exists to catch.
+
+    ``leaf`` selects the victim by keystr substring; None picks
+    seed-deterministically among the non-empty floating leaves, as JAX
+    picks among its stacked ones.  The element offset is seed-chosen
+    within this rank's own copy of the leaf (its local shard under tp,
+    where JAX's offset is within the replica's whole slice).  When
+    ``delta`` rounds away in the leaf's dtype, the element's lowest bit
+    flips instead, so the injection is always a real byte divergence.
+    """
+
+    def __init__(self, steps: Iterable[int], *, rank: int = 1,
+                 leaf: Any = None, seed: int = 0, delta: float = 1e-3,
+                 axis_name=None):
+        self.steps = frozenset(int(s) for s in steps)
+        self.rank = int(rank)
+        self.leaf = leaf
+        self.seed = int(seed)
+        self.delta = float(delta)
+        self.axis_name = axis_name
+
+    def _my_rank(self) -> int:
+        import torch.distributed as dist
+
+        from apex_tpu_torch.resilience.consistency import _groups
+
+        group, _ = _groups(self.axis_name, None)
+        if group is None or not dist.is_initialized():
+            return 0
+        return dist.get_rank(group)
+
+    def __call__(self, state: Any, step: int) -> Any:
+        if int(step) not in self.steps or self._my_rank() != self.rank:
+            return state
+        candidates = [
+            (path, leaf) for path, leaf in tree_flatten_with_path(state)
+            if isinstance(leaf, torch.Tensor) and leaf.numel()
+            and leaf.is_floating_point()
+            and (self.leaf is None or str(self.leaf) in path)]
+        if not candidates:
+            raise ValueError(
+                f"DesyncReplica(leaf={self.leaf!r}): no non-empty floating "
+                f"leaf to perturb")
+        rng = np.random.default_rng(self.seed)
+        key, victim = candidates[int(rng.integers(len(candidates)))]
+        pos = int(rng.integers(victim.numel()))
+        at = tuple(int(i) for i in np.unravel_index(pos, tuple(victim.shape)))
+        with torch.no_grad():
+            cell = victim[at].clone()
+            new = cell + torch.tensor(self.delta, dtype=victim.dtype,
+                                      device=victim.device)
+            bits = _SAME_SIZE_INT[victim.element_size()]
+            if torch.equal(new.view(bits), cell.view(bits)):
+                new = (new.view(bits) ^ 1).view(victim.dtype)
+            victim[at] = new
+        emit_event("fault_injected", fault="desync_replica", step=int(step),
+                   leaf=key, rank=self.rank, element=pos, delta=self.delta)
+        return state
 
 
 class SlowDecodeStep:

@@ -1,8 +1,16 @@
 """Megatron-style transformer building blocks (counterpart of
 ``apex_tpu.transformer``).  The submodules load on first use, as
-attributes of this package too (``apex_tpu_torch.transformer.moe``)."""
+attributes of this package too (``apex_tpu_torch.transformer.moe``); the
+four enums are imported with it, as JAX's package imports them."""
 
 import importlib as _importlib
+
+from apex_tpu_torch.transformer.enums import (
+    AttnMaskType,
+    AttnType,
+    LayerType,
+    ModelType,
+)
 
 _SUBMODULES = ("parallel_state", "enums", "tensor_parallel",
                "pipeline_parallel", "context_parallel", "moe", "functional",

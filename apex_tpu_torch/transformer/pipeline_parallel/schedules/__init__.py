@@ -5,6 +5,7 @@ from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
     PipelineStageSpec,
     accumulated_found_inf,
     build_model,
+    grads_by_param,
 )
 from apex_tpu_torch.transformer.pipeline_parallel.schedules.fwd_bwd_1f1b import (
     forward_backward_pipelining_1f1b,
@@ -27,6 +28,7 @@ __all__ = [
     "PipelineStageSpec",
     "accumulated_found_inf",
     "build_model",
+    "grads_by_param",
     "forward_backward_no_pipelining",
     "forward_backward_pipelining_1f1b",
     "forward_backward_pipelining_1f1b_interleaved",

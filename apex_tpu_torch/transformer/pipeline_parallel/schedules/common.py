@@ -53,7 +53,7 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = ["PipelineStageSpec", "accumulated_found_inf", "build_model",
-           "listify_model", "run_pipeline", "pipelined"]
+           "grads_by_param", "listify_model", "run_pipeline", "pipelined"]
 
 
 @dataclasses.dataclass
@@ -188,6 +188,27 @@ def grads_of(chunks):
     out = [{n: p.grad for n, p in spec.named_parameters()}
            for spec in chunks]
     return out if len(out) > 1 else out[0]
+
+
+def grads_by_param(model, grads) -> Dict[torch.Tensor, torch.Tensor]:
+    """A schedule's returned ``grads`` keyed by parameter: what a step
+    reduces and what the optimizer steps from
+    (``FusedOptimizer.step(grads=)``).  ``model`` is the spec (or
+    module) the schedule ran, or the list of chunks under a virtual
+    pipeline, whose ``grads`` is then a list of dicts.  The pipelined
+    schedules' gradients are the parameters' ``.grad``;
+    ``forward_backward_no_pipelining``'s are the fp32 sums, of which
+    ``.grad`` holds the cast.  Parameters without a gradient are left
+    out."""
+    chunks = model if isinstance(model, (list, tuple)) else [model]
+    dicts = grads if isinstance(grads, (list, tuple)) else [grads]
+    out: Dict[torch.Tensor, torch.Tensor] = {}
+    for spec, named in zip(chunks, dicts):
+        for name, p in spec.named_parameters():
+            g = named.get(name)
+            if g is not None:
+                out[p] = g
+    return out
 
 
 class _Bank:

@@ -5,8 +5,15 @@ schedules/fwd_bwd_no_pipelining.py``, apex's
 
 Each microbatch's forward and backward run before the next one's; the
 gradients are summed over the microbatches in fp32, as the JAX scan sums
-them into fp32 zeros (``:80``), and then left in each parameter's
-``.grad`` in its dtype, still scaled when a scaler is given.  The
+them into fp32 zeros (``:80``), still scaled when a scaler is given.
+The fp32 sums are what the function returns and what ``found_inf``
+checks, as JAX returns and checks them: a sum past the half range
+(65504 in fp16) whose every microbatch's part is in range is finite
+here, as it is there.  Each parameter's ``.grad`` holds the sum cast to
+the parameter's dtype (PyTorch keeps a gradient in its parameter's
+dtype), so a caller steps from the returned sums
+(``FusedOptimizer.step(grads=)``, keyed by :func:`~.common.grads_by_param`),
+never from a ``.grad`` that the cast may have overflowed.  The
 data-parallel reduction is the caller's, once on the sums (the
 reference's deferred ``no_sync``).
 
@@ -59,8 +66,10 @@ def forward_backward_no_pipelining(
     :func:`~.common.accumulated_found_inf`).
 
     ``microbatches``: tensors (or dicts / lists of them) with a leading
-    ``[n_micro]`` dim.  ``grads`` is ``{name: .grad}`` over ``model``'s
-    named parameters (the spec's for a spec).  ``group``,
+    ``[n_micro]`` dim.  ``grads`` is ``{name: fp32 sum}`` over ``model``'s
+    named parameters (the spec's for a spec), None for a parameter no
+    microbatch reached; each ``.grad`` is its sum in the parameter's
+    dtype.  ``group``,
     ``tensor_shape`` and ``dtype`` are ignored (there is no wire)."""
     del group, tensor_shape, dtype
     spec = loss_fn if isinstance(loss_fn, PipelineStageSpec) else None
@@ -104,18 +113,22 @@ def forward_backward_no_pipelining(
             loss, params, torch.as_tensor(seed, dtype=loss.dtype,
                                           device=loss.device),
             allow_unused=True)
+        if i == 0:
+            sums = [None if g is None else g.float() for g in grads]
+            continue
         for j, g in enumerate(grads):
-            if g is None:
-                continue
-            if sums[j] is None:
-                sums[j] = g.float()
-            else:
-                sums[j].add_(g)
+            if g is not None and sums[j] is None:
+                sums[j] = torch.zeros_like(g, dtype=torch.float32)
+        # one fused add over the sums (a half gradient adds into its fp32
+        # sum), not a Python loop of adds
+        both = [(s, g) for s, g in zip(sums, grads) if g is not None]
+        torch._foreach_add_([s for s, _ in both], [g for _, g in both])
     for p, g in zip(params, sums):
         p.grad = None if g is None else g.to(p.dtype)
-    grads = {name: p.grad for name, p in named}
+    grads = {name: g for (name, _), g in zip(named, sums)}
     loss = total / n_micro
     if with_found_inf:
+        # the fp32 sums, before any cast (JAX's check of its fp32 scan)
         return loss, grads, accumulated_found_inf(
-            [g for g in grads.values() if g is not None])
+            [g for g in sums if g is not None])
     return loss, grads

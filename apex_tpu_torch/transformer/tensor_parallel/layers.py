@@ -288,16 +288,19 @@ def parallel_lm_logits(hidden, word_embeddings, group=None,
     return logits
 
 
-def allreduce_sequence_parallel_grads(module, group=None) -> None:
+def allreduce_sequence_parallel_grads(module, group=None, *,
+                                      grads=None) -> None:
     """Sum over ``group`` (the bound or ``parallel_state``'s tp group by
     default) the gradients of the parameters tagged ``sequence_parallel``
-    (see the module docstring), as :func:`_allreduce_tagged_grads` does."""
+    (see the module docstring), as :func:`_allreduce_tagged_grads` does;
+    ``grads`` (a parameter-to-gradient mapping) stands in for ``.grad``."""
     from apex_tpu_torch.transformer.tensor_parallel.mappings import (
         current_tp_group,
     )
 
     _allreduce_tagged_grads(module, "sequence_parallel",
-                            current_tp_group() if group is None else group)
+                            current_tp_group() if group is None else group,
+                            grads)
 
 
 def allreduce_expert_replicated_grads(module, group) -> None:
@@ -307,18 +310,21 @@ def allreduce_expert_replicated_grads(module, group) -> None:
     _allreduce_tagged_grads(module, "expert_replicated", group)
 
 
-def _allreduce_tagged_grads(module, tag: str, group) -> None:
+def _allreduce_tagged_grads(module, tag: str, group, grads=None) -> None:
     """Sum over ``group`` the gradients of the parameters whose attribute
     ``tag`` is true, in place: one all-reduce a dtype, over those
     gradients flattened.  ``module`` is an ``nn.Module`` or an iterable of
-    parameters.  Nothing is called when no tagged parameter has a
+    parameters; ``grads`` maps a parameter to its gradient (default: its
+    ``.grad``).  Nothing is called when no tagged parameter has a
     gradient."""
     params = (module.parameters() if isinstance(module, nn.Module)
               else module)
-    grads = [p.grad for p in params
-             if getattr(p, tag, False) and p.grad is not None]
-    if grads:
-        all_reduce_gradients(grads, group)
+    of = ((lambda p: p.grad) if grads is None
+          else (lambda p: grads.get(p)))
+    tagged = [of(p) for p in params if getattr(p, tag, False)]
+    tagged = [g for g in tagged if g is not None]
+    if tagged:
+        all_reduce_gradients(tagged, group)
 
 
 def all_reduce_gradients(grads, group, *, average: bool = False) -> None:

@@ -163,14 +163,16 @@ def leaf_from_numpy(arr: np.ndarray, like: Any) -> Any:
     a numpy array of ``like``'s dtype, or a Python or numpy scalar of
     ``like``'s type.  On the CPU the tensor may share ``arr``'s memory."""
     if isinstance(like, torch.Tensor):
+        # ascontiguousarray returns a 0-d array as 1-d: keep the shape
+        arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
         raw = _TORCH_ONLY.get(like.dtype)
         if raw is not None:
             bits = _RAW_BITS[raw]
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(
+            t = torch.from_numpy(arr.view(
                 np.dtype(str(bits[1]).removeprefix("torch."))))
             t = t.view(bits[2])
         else:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            t = torch.from_numpy(arr)
         return t.to(like.device)
     if isinstance(like, np.ndarray):
         if arr.dtype != like.dtype and arr.dtype.itemsize == \

@@ -170,8 +170,8 @@ ends the run with a non-zero exit and no result line:
      kv=True, allreduce=True)`` (max |logit error| < 0.5, agreement
      printed); the evaluation forward at b 4, s 2048 inside the tp region
      equal to the plain one bit for bit, with its exact launches; then
-     v2 checkpoints: the weights saved on a tp-4 grid from this one
-     process and validated, restored whole (equal to a v1 restore bit for
+     v2 checkpoints (of llama-1b at ``CUT_LAYERS`` layers): the weights
+     saved on a tp-4 grid from this one process and validated, restored whole (equal to a v1 restore bit for
      bit) and served by the tp engine, rank 2-of-4's block restored alone
      (bytes read against a quarter of the sharded weights' bytes), and a
      ``CorruptShardFile``-damaged newer step passed over by the
@@ -341,6 +341,19 @@ ends the run with a non-zero exit and no result line:
      tensors against the CPU's (dtypes equal, values within two half
      ulps), and ``examples/simple.py --opt-level O1 --half fp16``
      converging under the dynamic scaler.
+   - *supervised* (``phase3-supervised``, ``supervised_train``): the
+     ``no_pipelining`` fp16 witness (fp32 sums of 80000, no overflow),
+     ``fused_dense`` / ``mlp`` card against CPU and timed at
+     GPT-2-large's MLP; then llama-1b fp16 O2 through ``resilience``'s
+     guarded step: an unsupervised reference of 12 steps with one
+     planted inf (its leaves' CRC32 kept), the faulted run under
+     ``TrainingSupervisor`` (the inf skipped and named, a corrupt batch
+     skipped, a flaky fetch retried, two slow steps escalating to a
+     validated emergency checkpoint under ``build/`` and
+     ``TrainingAborted``), and a restart from that checkpoint that must
+     end bit for bit (CRC32 of every leaf) on the reference;
+     ``replica_hashes`` on the card against the CPU's; the launches of
+     every step exact.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -6527,6 +6540,11 @@ def _compact(record):
 # the swaps, verdicts and virtual numbers equal to a CPU dry run's) hold
 # at any depth; the other serving phases keep all 22
 LIFECYCLE_LAYERS = 4
+# the depth of the tp-4 checkpoints, cut from 22 to keep the whole run's
+# time near where it was before the supervised phase joined it (the
+# speculation and control runs keep 22: their logit tolerances scale
+# with the depth, and at 4 layers the forced-draft check fails them)
+CUT_LAYERS = 4
 
 
 def lifecycle_checks(requests, sv, device, **kw) -> dict:
@@ -6871,9 +6889,13 @@ def tp_checks(model, qmodel, dense_ref, int8_ref, probe, sv, device, smi,
                                  tok_s=b * s / wall,
                                  launches=_nonzero(launches))
         del plain_loss, tp_loss, ids, labels
-        # ---- v2 checkpoints ---------------------------------------------
-        out["checkpoints"] = tp_checkpoint_checks(model, requests, sv, device,
-                                                  root, tp, **kw)
+        # ---- v2 checkpoints, at CUT_LAYERS layers ---------------------
+        ck_model, _ = build_llama_1b(device, layers=CUT_LAYERS)
+        out["checkpoints"] = dict(
+            tp_checkpoint_checks(ck_model, requests, sv, device, root, tp,
+                                 **kw), layers=CUT_LAYERS)
+        del ck_model
+        torch.cuda.empty_cache()
     finally:
         ps.destroy_model_parallel()
         dist.destroy_process_group()
@@ -11320,6 +11342,571 @@ def amp_o1_check(device, smi: str) -> dict:
 # the phases that stand alone, for ``chip_smoke.py --only NAME[,NAME]``:
 # each called with the card and the nvidia-smi line, in the order given,
 # in one process
+# ---------------------------------------------------------------------------
+# phase 3: supervised fp16 training (resilience/ on the llama-1b card)
+# ---------------------------------------------------------------------------
+
+SUP_STEPS = 12          # steps of the faulted run, and of its reference
+SUP_SCALE = 2.0 ** 14   # the dynamic scaler's start (no warm-up overflow)
+SUP_FAULT_SEED = 11     # FaultPlan seed: the planted inf's leaf and element
+SUP_INF_STEP = 2        # inject_grads plants one inf in this step's grads
+SUP_CORRUPT_AT = 4      # CorruptBatch: a NaN copy ahead of clean batch 4
+SUP_FLAKY_AT = 6        # FlakyIterator: fetch 6 fails twice, then succeeds
+SUP_SLOW = (8, 9)       # SlowStep past the deadline: escalation at step 9
+SUP_DEADLINE_X = 10.0   # the deadline: this multiple of the warm step p50
+                        # (a fresh model's first steps take up to 7.3 x)
+SUP_SLOW_X = 1.5        # a slow step sleeps this multiple of the deadline
+SUP_SMALL_TOL = 1e-5    # fused_dense / mlp card against CPU, fp32, relative
+SUP_SMALL_TOL_BF16 = 2e-2
+
+
+def _sup_batch(i: int, vocab: int) -> dict:
+    """Clean batch ``i`` of the stream, fixed by its index, on the host
+    (where the data guard reads it): ids and labels of b 4 x s 2048 and a
+    float32 token-weight mask of ones (the leaf ``CorruptBatch`` damages)."""
+    import torch
+
+    ids = torch.randint(0, vocab, (4, 2048),
+                        generator=torch.Generator().manual_seed(1000 + i))
+    return {"ids": ids, "labels": torch.roll(ids, -1, dims=1),
+            "mask": torch.ones(4, 2048, dtype=torch.float32)}
+
+
+class _SupervisedLlama:
+    """The llama-1b card in fp16 O2 (``amp.initialize``, norm scales fp32)
+    with ``FusedAdam(master_weights=True)`` under the dynamic scaler from
+    ``SUP_SCALE``, stepped by ``resilience.make_guarded_step`` with the
+    fault plan's ``inject_grads`` as its ``grad_hook``: the found_inf,
+    census, optimizer and update part runs under
+    ``set_sync_debug_mode("error")``, and the step ends on the host's one
+    read of its metrics (``fetch_metrics``)."""
+
+    def __init__(self, device, cfg, per_step: dict):
+        import torch
+        from apex_tpu_torch import amp
+        from apex_tpu_torch import resilience as rz
+        from apex_tpu_torch.amp import LossScaler
+        from apex_tpu_torch.examples.llama_pretrain import build_model
+        from apex_tpu_torch.ops import _dispatch
+        from apex_tpu_torch.optimizers import FusedAdam
+
+        self.device, self.cfg, self.per_step = device, cfg, per_step
+        self.amped = amp.initialize(build_model(cfg, device=device, seed=0),
+                                    "O2", half_dtype=torch.float16)
+        self.model = self.amped.model
+        self.params = dict(self.model.named_parameters())
+        self.opt = FusedAdam(list(self.params.values()), lr=AMP_LR,
+                             master_weights=True)
+        self.scaler = LossScaler(init_scale=SUP_SCALE)
+        self.injector = rz.FaultInjector(rz.FaultPlan(
+            seed=SUP_FAULT_SEED, inf_grad_steps=(SUP_INF_STEP,)))
+        self.state = {"scaler": self.scaler.init(device),
+                      "guard": rz.init_guard_state(self.scaler, device),
+                      "step": 0}
+        self.metrics, self.step_ms, self.launch_errors = [], [], []
+        self._index = 0
+
+        def hook(grads):
+            out = self.injector.inject_grads(grads, self._index)
+            torch.cuda.set_sync_debug_mode("error")
+            return out
+
+        def loss_fn(model, batch):
+            per_tok = model(batch["ids"], labels=batch["labels"])
+            mask = batch["mask"]
+            return (per_tok.float() * mask).sum() / mask.sum()
+
+        self._dispatch = _dispatch
+        self.gstep = rz.make_guarded_step(loss_fn, self.opt, self.scaler,
+                                          grad_hook=hook)
+
+    def step(self, batch: dict, index: int) -> dict:
+        """One guarded step on host batch ``batch`` as step ``index``;
+        returns its metrics as the host reads them."""
+        import torch
+        from apex_tpu_torch import resilience as rz
+
+        before = {k.name: k.launches for k in self._dispatch.KERNELS}
+        t0 = time.perf_counter()
+        dev = {k: v.to(self.device, non_blocking=True)
+               for k, v in batch.items()}
+        self._index = index
+        try:
+            sstate, gstate, metrics = self.gstep(
+                self.model, None, self.state["scaler"], self.state["guard"],
+                dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = rz.fetch_metrics(metrics)           # the host read: step ends
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self.state.update(scaler=sstate, guard=gstate, step=index + 1)
+        launched = {k.name: k.launches - before[k.name]
+                    for k in self._dispatch.KERNELS}
+        if _nonzero(launched) != self.per_step:
+            self.launch_errors.append((index, _nonzero(launched)))
+        got["index"] = index
+        self.metrics.append(got)
+        return got
+
+    def opt_step_tensor(self):
+        return self.opt.state[next(iter(self.params.values()))]["step"]
+
+    def tree(self) -> dict:
+        """Every leaf a step writes: parameters, masters, both moments, the
+        optimizer's step counter, the scaler and guard states, the step."""
+        opt = {n: {k: self.opt.state[p][k] for k in
+                   ("master_param", "exp_avg", "exp_avg_sq")}
+               for n, p in self.params.items()}
+        return {"params": self.params, "opt": opt,
+                "opt_step": self.opt_step_tensor(),
+                "scaler": self.state["scaler"], "guard": self.state["guard"],
+                "step": self.state["step"]}
+
+    def init_opt_state(self):
+        """The optimizer's state as its first step makes it (masters, zero
+        moments, one shared step counter), to restore a checkpoint into."""
+        import torch
+
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        for p in self.params.values():
+            st = self.opt.state[p]
+            st["step"] = step
+            st["master_param"] = self.opt._master(p)
+            st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+            st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+
+    def load(self, tree: dict) -> None:
+        """Copy a restored (host) tree into the live tensors."""
+        import torch
+
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(tree["params"][n])
+                for k, t in tree["opt"][n].items():
+                    self.opt.state[p][k].copy_(t)
+            self.opt_step_tensor().copy_(tree["opt_step"])
+        self.state.update(
+            scaler=type(self.state["scaler"])(
+                *[t.to(self.device) for t in tree["scaler"]]),
+            guard=type(self.state["guard"])(
+                *[t.to(self.device) for t in tree["guard"]]),
+            step=int(tree["step"]))
+
+
+def _cpu_like(tree):
+    """A CPU template of ``tree`` (uninitialized tensors of each leaf's
+    shape and dtype): what a checkpoint restores into on the host."""
+    import torch
+    from apex_tpu_torch.utils.serialization import tree_map_with_path
+
+    return tree_map_with_path(
+        lambda _, l: torch.empty(l.shape, dtype=l.dtype)
+        if isinstance(l, torch.Tensor) else l, tree)
+
+
+def _crcs_and_hashes(tree, hashes: bool = True) -> tuple:
+    """``({path: crc32}, {path: u32 hash on the CPU copy}, bytes, the
+    hashes' seconds)`` of every leaf, one device-to-host copy a leaf
+    (without ``hashes``, no hash)."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.resilience.consistency import _shard_hash
+    from apex_tpu_torch.utils.serialization import (
+        leaf_crc32,
+        leaf_to_numpy,
+        tree_flatten_with_path,
+    )
+
+    crcs, cpu, nbytes, hash_s = {}, {}, 0, 0.0
+    for path, leaf in tree_flatten_with_path(tree):
+        host = leaf_to_numpy(leaf)
+        crcs[path] = leaf_crc32(host)
+        nbytes += host.nbytes
+        if hashes and isinstance(leaf, torch.Tensor):
+            t0 = time.perf_counter()
+            cpu[path] = int(_shard_hash(torch.from_numpy(
+                np.ascontiguousarray(host).reshape(host.shape))))
+            hash_s += time.perf_counter() - t0
+    return crcs, cpu, nbytes, hash_s
+
+
+def _queue_c_witness(device) -> dict:
+    """``forward_backward_no_pipelining`` at fp16 on the card: two
+    microbatches of ones, ``(w * mb).sum()`` under
+    ``LossScaler(init_scale=40000)``: found_inf False and fp32 sums of
+    80000 (each microbatch's 40000 in the half range, their sum not)."""
+    import torch
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining,
+    )
+
+    w = torch.nn.Parameter(torch.ones(4, dtype=torch.float16, device=device))
+    scaler = LossScaler(init_scale=40000.0)
+    _, grads, found = forward_backward_no_pipelining(
+        lambda m: (w * m).sum(),
+        torch.ones(2, 4, dtype=torch.float16, device=device), model=[w],
+        grad_scaler=scaler, scaler_state=scaler.init(device),
+        with_found_inf=True)
+    out = dict(found_inf=bool(found), sums=grads["0"].tolist(),
+               sum_dtype=str(grads["0"].dtype), grad=w.grad.tolist(),
+               grad_dtype=str(w.grad.dtype))
+    if out["found_inf"] or out["sums"] != [80000.0] * 4 or \
+            out["sum_dtype"] != "torch.float32":
+        raise AssertionError(f"no_pipelining fp16 witness: {out}")
+    return out
+
+
+def _dense_checks(device) -> dict:
+    """``fused_dense`` and ``mlp`` forward and backward on the card against
+    the same modules on the CPU (the same weights) at a small size, fp32
+    (TF32 off) within ``SUP_SMALL_TOL`` and bf16 within
+    ``SUP_SMALL_TOL_BF16`` of the largest magnitude; then
+    ``FusedDenseGeluDense`` timed at GPT-2-large's MLP (h 1280 -> 5120 ->
+    1280, 8192 tokens, bf16), forward and forward + backward."""
+    import torch
+    from apex_tpu_torch.fused_dense import (
+        DenseNoBias,
+        FusedDense,
+        FusedDenseGeluDense,
+    )
+    from apex_tpu_torch.mlp import MLP
+
+    def pair(make, dtype):
+        cpu = make("cpu")
+        card = make(device)
+        card.load_state_dict(cpu.state_dict())
+        x = torch.randn(64, 96, generator=torch.Generator().manual_seed(3))
+        out = []
+        for mod, dev in ((cpu, "cpu"), (card, device)):
+            xi = x.to(dev, dtype).detach().clone().requires_grad_(True)
+            y = mod(xi)
+            (y.float() ** 2).sum().backward()
+            out.append([y.detach().float().cpu(), xi.grad.float().cpu()] + [
+                p.grad.float().cpu() for p in mod.parameters()])
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(out[1], out[0]))
+
+    makes = {
+        "FusedDense": lambda d: FusedDense(96, 128, device=d),
+        "DenseNoBias": lambda d: DenseNoBias(96, 128, device=d),
+        "FusedDenseGeluDense": lambda d: FusedDenseGeluDense(
+            96, 256, 96, device=d),
+        "MLP": lambda d: MLP([96, 256, 128, 32], device=d)}
+    errs = {f"{name}_{dt}": pair(make, getattr(torch, dt))
+            for name, make in makes.items()
+            for dt in ("float32", "bfloat16")}
+    bad = {k: v for k, v in errs.items()
+           if v > (SUP_SMALL_TOL if k.endswith("float32")
+                   else SUP_SMALL_TOL_BF16)}
+    if bad:
+        raise AssertionError(f"fused_dense / mlp card against CPU: {bad}")
+    mod = FusedDenseGeluDense(1280, 5120, 1280, device=device,
+                              dtype=torch.bfloat16)
+    x = torch.randn(8192, 1280, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    dy = torch.randn(8192, 1280, device=device, dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            mod(x)
+
+    def fwd_bwd():
+        x.grad = None
+        for p in mod.parameters():
+            p.grad = None
+        mod(x).backward(dy)
+
+    flops = 2 * 2 * 8192 * 1280 * 5120
+    fms, bms = time_ms(fwd, iters=20, warmup=3), time_ms(fwd_bwd, iters=10,
+                                                         warmup=2)
+    return dict(max_rel_err=errs, tol_fp32=SUP_SMALL_TOL,
+                tol_bf16=SUP_SMALL_TOL_BF16,
+                gpt2_large_mlp=dict(tokens=8192, hidden=1280, ffn=5120,
+                                    dtype="bfloat16", fwd_ms=fms,
+                                    fwd_tflops=flops / fms / 1e9,
+                                    fwd_bwd_ms=bms,
+                                    fwd_bwd_tflops=3 * flops / bms / 1e9))
+
+
+def supervised_train(device, smi: str) -> dict:
+    """Supervised fp16 training of ``llama-1b`` at full width and depth
+    (``_SupervisedLlama``, b 4 x s 2048), through ``resilience``:
+
+    1. an unsupervised reference: ``SUP_STEPS`` guarded steps over the
+       clean stream with the planted inf at ``SUP_INF_STEP``; its step
+       p50 sets the deadline; only the CRC32 of each leaf of its final
+       state is kept (two 1.1 B states never sit on the card at once);
+    2. the faulted run under ``TrainingSupervisor`` (a
+       ``CheckpointManager`` under ``build/``, the ``StepWatchdog`` at
+       ``SUP_DEADLINE_X`` x the p50, a heartbeat file) over a
+       ``GuardedIterator`` of ``FlakyIterator(CorruptBatch(stream))``
+       with ``SlowStep`` on ``SUP_SLOW``: the planted inf skipped with
+       the census naming its one leaf and element, the corrupt copy
+       skipped within the budget, the flaky fetch retried (no failure),
+       the two slow steps escalating to one validated emergency
+       checkpoint and ``TrainingAborted``; each fault's event once;
+    3. the restart: a fresh model and optimizer restore the newest valid
+       step and run to ``SUP_STEPS``: every leaf's CRC32 must equal the
+       reference's, and each restarted loss its loss;
+    4. ``replica_hashes`` (a world of one) over every leaf on the card
+       against ``_shard_hash`` of its host copy; the ``no_pipelining``
+       fp16 witness; ``fused_dense`` / ``mlp``.
+
+    Launches are checked every step against ``llama_1b_amp_train``'s
+    ``adam`` form.  Free disk under ``build/`` is checked against twice
+    the state's bytes before anything is written."""
+    import shutil
+
+    import torch
+    from apex_tpu_torch import resilience as rz
+    from apex_tpu_torch.models import LlamaConfig
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fused_lm_head as lh
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    t_phase = time.perf_counter()
+    witness = _queue_c_witness(device)
+    dense = _dense_checks(device)
+    cfg = LlamaConfig.llama_1b()
+    layers = cfg.num_hidden_layers
+    per_step = {ln.LAYER_NORM_FWD.name: 2 * layers + 1,
+                ln.LAYER_NORM_BWD.name: 2 * layers + 1,
+                fa.FLASH_ATTENTION_FWD.name: layers,
+                fa.FLASH_ATTENTION_DQ.name: layers,
+                fa.FLASH_ATTENTION_DKV.name: layers,
+                lh.FUSED_LM_HEAD_FWD.name: 1, lh.FUSED_LM_HEAD_DH.name: 1,
+                lh.FUSED_LM_HEAD_DE.name: 1,
+                mt.MT_SCALE.name: 1,          # has_overflow: found_inf
+                mt.MT_ADAM.name: 1}
+    batches = [_sup_batch(i, cfg.vocab_size) for i in range(SUP_STEPS)]
+    root = os.path.join(ROOT, "build", "supervised")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # 1. the unsupervised reference ----------------------------------------
+    t0 = time.perf_counter()
+    ref = _SupervisedLlama(device, cfg, per_step)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    planted = ref.injector.placements(
+        {n: p for n, p in ref.params.items()})
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        ref.step(b, i)
+    peak = torch.cuda.max_memory_allocated()
+    ref_p50 = statistics.median(ref.step_ms[1:])
+    grads = [p.grad for p in ref.params.values()]
+    census_ms = device_ms(lambda: rz.nonfinite_counts(grads), iters=10)
+    check_ms = device_ms(lambda: ref.scaler.has_overflow(grads), iters=10)
+    del grads
+    t0 = time.perf_counter()
+    ref_crcs, _, state_bytes, _ = _crcs_and_hashes(ref.tree(), hashes=False)
+    crc_s = time.perf_counter() - t0
+    ref_losses = [m["loss"] for m in ref.metrics]
+    ref_ms = list(ref.step_ms)
+    ref_launch_errors = ref.launch_errors
+    del ref
+    torch.cuda.empty_cache()
+    free = shutil.disk_usage(root).free
+    if free < 2 * state_bytes:
+        raise AssertionError(f"supervised: {free} bytes free under build/, "
+                             f"the checkpoints need {2 * state_bytes}")
+
+    # 2. the faulted, supervised run ---------------------------------------
+    deadline = SUP_DEADLINE_X * ref_p50 / 1e3
+    events = []
+    rz_sink = events.append
+    from apex_tpu_torch._logging import add_event_sink, remove_event_sink
+
+    add_event_sink(rz_sink)
+    run = _SupervisedLlama(device, cfg, per_step)
+    saves = []
+
+    class TimedManager(rz.CheckpointManager):
+        def save(self, step, tree):
+            t = time.perf_counter()
+            path = super().save(step, tree)
+            saves.append(dict(step=step, s=time.perf_counter() - t))
+            return path
+
+    mgr = TimedManager(os.path.join(root, "ckpt"), keep=1)
+    hb = os.path.join(root, "heartbeat.json")
+    stream = rz.GuardedIterator(
+        rz.FlakyIterator(
+            rz.CorruptBatch(iter(batches), at=(SUP_CORRUPT_AT,), mode="nan",
+                            seed=SUP_FAULT_SEED),
+            fail_at=(SUP_FLAKY_AT,), failures=2),
+        spec=rz.spec_of(batches[0]), skip_budget=2)
+    slow = rz.SlowStep(SUP_SLOW, SUP_SLOW_X * deadline)
+    sup = rz.TrainingSupervisor(
+        mgr, rz.SupervisorConfig(
+            step_deadline_s=deadline, max_consecutive_failures=2,
+            checkpoint_every=10 * SUP_STEPS, heartbeat_path=hb,
+            retry=rz.RetryPolicy(max_attempts=4, base_delay_s=0.0)),
+        persist_transform=lambda _: run.tree())
+
+    def step_fn(state, batch, i):
+        slow(i)
+        run.step(batch, i)
+        return run.state
+
+    # the escalation's validation, timed where the supervisor calls it
+    validated = []
+    plain_validate = rz.supervisor.validate_checkpoint
+
+    def timed_validate(path):
+        t = time.perf_counter()
+        plain_validate(path)
+        validated.append(time.perf_counter() - t)
+
+    rz.supervisor.validate_checkpoint = timed_validate
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        sup.run(step_fn, run.state, stream, num_steps=SUP_STEPS)
+    except rz.TrainingAborted as e:
+        aborted = e
+    else:
+        raise AssertionError("supervised: the slow steps did not escalate")
+    finally:
+        remove_event_sink(rz_sink)
+        rz.supervisor.validate_checkpoint = plain_validate
+    abort_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _dispatch.KERNELS}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    sup_metrics = list(run.metrics)
+    run_ms = list(run.step_ms)
+    sup_ms = [m for i, m in enumerate(run_ms)
+              if sup_metrics[i]["index"] not in SUP_SLOW]
+    run_launch_errors = run.launch_errors
+    del run, sup
+    torch.cuda.empty_cache()
+    ckpt_bytes = sum(os.path.getsize(os.path.join(aborted.checkpoint_path, f))
+                     for f in os.listdir(aborted.checkpoint_path))
+
+    # 3. the restart ---------------------------------------------------------
+    t0 = time.perf_counter()
+    again = _SupervisedLlama(device, cfg, per_step)
+    again.init_opt_state()
+    restored, at = mgr.restore(like=_cpu_like(again.tree()))
+    again.load(restored)
+    del restored
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    rz.TrainingSupervisor(None, rz.SupervisorConfig(
+        step_deadline_s=deadline * SUP_SLOW_X * 4)).run(
+        lambda s, b, i: (again.step(b, i), again.state)[1], again.state,
+        rz.GuardedIterator(iter(batches[at + 1:]),
+                           spec=rz.spec_of(batches[0])),
+        num_steps=SUP_STEPS, start_step=at + 1)
+    tree = again.tree()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = rz.replica_hashes(tree)
+    torch.cuda.synchronize()
+    hash_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    crcs, cpu_hashes, _, cpu_hash_s = _crcs_and_hashes(tree)
+    crc_hash_s = time.perf_counter() - t0
+    restart_losses = [m["loss"] for m in again.metrics]
+    restart_ms = list(again.step_ms)
+    launch_errors = ref_launch_errors + run_launch_errors + \
+        again.launch_errors
+    del again, tree
+    torch.cuda.empty_cache()
+
+    # the checks -------------------------------------------------------------
+    kinds = [e["event"] for e in events]
+    faults = [e.get("fault") for e in events if e["event"] == "fault_injected"]
+    by_index = {m["index"]: m for m in sup_metrics}
+    [(_, planted_path, planted_pos, _)] = planted
+    diverged = sorted(p for p in crcs if crcs[p] != ref_crcs[p])
+    hash_diff = sorted(p for p in cpu_hashes
+                       if int(card[p]["hashes"][0]) != cpu_hashes[p])
+    beat = rz.read_heartbeat(hb)
+    checks = {
+        "inf_step_skipped_and_named": (
+            by_index[SUP_INF_STEP]["found_inf"]
+            and by_index[SUP_INF_STEP]["nonfinite"] == {planted_path: 1}),
+        "corrupt_batch_skipped": (stream.skipped == 1
+                                  and kinds.count("batch_skipped") == 1),
+        "flaky_fetch_retried": (kinds.count("retry_attempt") == 2
+                                and kinds.count("retry_recovered") == 1),
+        "slow_steps_stalled": kinds.count("watchdog_stall") == 2,
+        "failures_then_abort": (kinds.count("supervisor_failure") == 2
+                                and kinds.count("supervisor_abort") == 1),
+        "faults_each_once": sorted(faults) == sorted(
+            ["corrupt_batch", "flaky_iterator", "flaky_iterator",
+             "slow_step", "slow_step"]),
+        "aborted_at_last_slow_step": (aborted.step == SUP_SLOW[-1]
+                                      and at == SUP_SLOW[-1]),
+        "one_emergency_checkpoint": ([s["step"] for s in saves] == [at]
+                                     and len(validated) == 1),
+        "heartbeat_names_it": (beat["step"] == at and beat["ckpt_path"]
+                               == aborted.checkpoint_path),
+        "steps_before_abort": sorted(by_index) == list(range(at + 1)),
+        "restart_bit_identical": not diverged and len(crcs) == len(ref_crcs),
+        "restart_losses_equal": restart_losses == ref_losses[at + 1:],
+        "faulted_losses_equal": [by_index[i]["loss"] for i in range(at + 1)]
+        == ref_losses[:at + 1],
+        "card_hash_equals_cpu": not hash_diff,
+        "launches_exact": not launch_errors,
+    }
+    wd = rz.StepWatchdog(1.0)
+    t0 = time.perf_counter()
+    for i in range(10000):
+        wd.arm(i)
+        wd.disarm()
+    arm_us = (time.perf_counter() - t0) / 10000 * 1e6
+    t0 = time.perf_counter()
+    for i in range(20):
+        rz.write_heartbeat(os.path.join(root, "probe.json"), i)
+    beat_ms = (time.perf_counter() - t0) / 20 * 1e3
+    out = dict(
+        config="llama-1b", batch=4, seq=2048, steps=SUP_STEPS,
+        precision="amp O2 fp16 (norm scales fp32), fp32 masters, dynamic "
+                  f"loss scaler from {SUP_SCALE}",
+        optimizer="FusedAdam(lr=1e-3, master_weights=True)",
+        nvidia_smi=smi, init_s=init_s, queue_c_witness=witness,
+        fused_dense_mlp=dense, planted=dict(path=planted_path,
+                                            element=planted_pos,
+                                            step=SUP_INF_STEP),
+        unsupervised_step_ms=ref_ms, supervised_step_ms=run_ms,
+        restart_step_ms=restart_ms,
+        unsupervised_p50_ms=ref_p50,
+        supervised_p50_ms=statistics.median(sup_ms[1:]),
+        deadline_s=deadline, slow_s=SUP_SLOW_X * deadline,
+        census_device_ms=census_ms, found_inf_check_device_ms=check_ms,
+        watchdog_arm_disarm_us=arm_us, heartbeat_write_ms=beat_ms,
+        state_bytes=state_bytes, checkpoint_bytes=ckpt_bytes,
+        disk_free_bytes=free, save_s=[s["s"] for s in saves],
+        abort_wall_s=abort_s, validate_s=validated, restore_s=restore_s,
+        crc_s=crc_s, final_crc_and_cpu_hash_s=crc_hash_s,
+        cpu_hash_s=cpu_hash_s, hash_ms=hash_ms,
+        hashed_leaves=len(card), crc_leaves=len(crcs),
+        peak_mem_bytes=peak,
+        losses=ref_losses, found_inf=[m["found_inf"] for m in sup_metrics],
+        real_overflow_steps=[m["index"] for m in sup_metrics
+                             if m["found_inf"]
+                             and m["index"] != SUP_INF_STEP],
+        scales=[m["scale"] for m in sup_metrics],
+        launches=launches, launches_per_step=per_step,
+        launch_errors=launch_errors[:5],
+        diverged_leaves=diverged[:10], hash_mismatches=hash_diff[:10],
+        events={k: kinds.count(k) for k in sorted(set(kinds))},
+        checks=checks, s=time.perf_counter() - t_phase)
+    log("phase3-supervised", **out)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"supervised: failed {failed}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 ALONE = {
     "layer_norm": lambda device, smi: dict(
         main_path_max_abs_err=check_layer_norm(device),
@@ -11336,6 +11923,7 @@ ALONE = {
     "gpt_1p3b": lambda device, smi: gpt13b_train(device, smi),
     "megatron_gpt": lambda device, smi: megatron_gpt_train(device, smi),
     "amp_o1": amp_o1_check,
+    "supervised": supervised_train,
 }
 
 
@@ -11482,6 +12070,7 @@ def main(argv=()) -> int:
     halo = halo_check(device, smi)
     megatron = megatron_gpt_train(device, smi)
     amp_o1 = amp_o1_check(device, smi)
+    supervised = supervised_train(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -11513,7 +12102,7 @@ def main(argv=()) -> int:
                  gpt_flagship=gpt_flagship, bert_large=bert, vit_l16=vit,
                  gpt_1p3b_remat=gpt13["remat"], gpt_1p3b_plain=gpt13["plain"],
                  moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
-                 openfold=openfold)
+                 supervised=supervised, openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -11651,7 +12240,7 @@ def main(argv=()) -> int:
                   llama_remat=llama_remat, dropout=dropout,
                   moe_reference=moe_reference, ring_reference=ring_reference,
                   moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
-                  amp_o1=amp_o1, kernels=kernels,
+                  amp_o1=amp_o1, supervised=supervised, kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

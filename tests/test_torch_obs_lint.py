@@ -11,8 +11,8 @@ files instead, and hold the port's inventory to the JAX package's:
   kind, labels, scope labels and help in the twin of the same file, and
   every metric the JAX bridge declares the port's bridge declares too;
 - the metrics JAX registers outside its bridge are registered by the
-  port's twin of their file (the checkpoint layer's), or wait for the
-  slice that ports it (the supervisor's), listed here;
+  port's twin of their file (the checkpoint layer's and the
+  supervisor's), or wait for the slice that ports it, listed here;
 - every event kind the port emits is one the JAX package emits, and has
   a bridge handler or an entry in the event lint's allowlist.
 """
@@ -35,23 +35,19 @@ PORTED_ELSEWHERE = {
     "apex_tpu/resilience/checkpoint.py": {"apex_checkpoint_duration_seconds"},
     "apex_tpu/resilience/async_checkpoint.py": {
         "apex_checkpoint_inflight", "apex_checkpoint_backpressure_total"},
-}
-
-#: ...and those whose file waits for a later slice: the supervisor's own
-#: instruments, which come with the training-side resilience slice
-WAITING = {
     "apex_tpu/resilience/supervisor.py": {
         "apex_step_duration_seconds", "apex_supervisor_steps_total",
         "apex_heartbeat_age_seconds"},
 }
 
-#: event kinds the port's bridge handles that nothing in the port emits
-#: yet: their emitters (the guarded step, replica consistency and the
-#: supervisor's watchdog) come with the training-side resilience slice
-HANDLED_NOT_YET_EMITTED = {
-    "batch_skipped", "replica_desync", "supervisor_failure",
-    "watchdog_stall",
-}
+#: ...and those whose file waits for a later slice: none since the
+#: training-side resilience slice ported the supervisor's instruments
+WAITING = {}
+
+#: event kinds the port's bridge handles that nothing in the port emits:
+#: none since the guarded step, replica consistency and the supervisor's
+#: watchdog came with the training-side resilience slice
+HANDLED_NOT_YET_EMITTED = set()
 
 
 def _sources(package):
@@ -218,4 +214,9 @@ def test_serving_kinds_the_port_emits():
         "checkpoint_snapshot", "checkpoint_saved", "checkpoint_rejected",
         "checkpoint_restored", "checkpoint_backpressure",
         "checkpoint_commit_vetoed", "retry_attempt", "retry_exhausted",
-        "retry_recovered"}
+        "retry_recovered",
+        # the training side: the data guard, replica consistency, the
+        # supervisor and its watchdog, the guarded step's floor trip
+        "batch_skipped", "data_stall", "replica_desync",
+        "replica_verify_failed", "replica_resync", "supervisor_failure",
+        "supervisor_abort", "watchdog_stall", "loss_scale_floor_halved"}

@@ -107,7 +107,11 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.examples.megatron_gpt_pretrain, "
         "apex_tpu_torch.amp.lists, apex_tpu_torch.amp.functional, "
         "apex_tpu_torch.utils._native, apex_tpu_torch.utils.nvtx, "
-        "apex_tpu_torch.feature_registry\n"
+        "apex_tpu_torch.feature_registry, "
+        "apex_tpu_torch.resilience.guarded, "
+        "apex_tpu_torch.resilience.data_guard, "
+        "apex_tpu_torch.resilience.consistency, "
+        "apex_tpu_torch.fused_dense, apex_tpu_torch.mlp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -343,3 +347,98 @@ def test_port_kernel_registry(name, jax_file, jax_fn):
             break
         body.append(text)
     assert body and not any("pallas_call" in t for t in body)
+
+
+def _jax_all(ref: str) -> list:
+    """A JAX module's ``__all__``, read from its source (no JAX import)."""
+    import ast
+
+    tree = ast.parse((ROOT / ref).read_text())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets))
+
+
+def test_resilience_exports_every_jax_name():
+    """``apex_tpu_torch.resilience`` holds every name of
+    ``apex_tpu.resilience.__all__``, in its order, each defined; the
+    training side's modules carry their JAX twins' ``__all__``."""
+    import importlib
+
+    import apex_tpu_torch.resilience as rz
+
+    want = _jax_all("apex_tpu/resilience/__init__.py")
+    assert list(rz.__all__[:len(want)]) == list(want)
+    assert [n for n in want if not hasattr(rz, n)] == []
+    for mod in ("data_guard", "consistency", "supervisor"):
+        port = importlib.import_module(f"apex_tpu_torch.resilience.{mod}")
+        names = _jax_all(f"apex_tpu/resilience/{mod}.py")
+        assert set(names) <= set(port.__all__), mod
+        assert all(hasattr(port, n) for n in names), mod
+    guarded = importlib.import_module("apex_tpu_torch.resilience.guarded")
+    assert set(_jax_all("apex_tpu/resilience/guarded.py")) <= set(
+        guarded.__all__)
+    faults = importlib.import_module(
+        "apex_tpu_torch.resilience.fault_injection")
+    assert set(_jax_all("apex_tpu/resilience/fault_injection.py")) <= set(
+        faults.__all__)
+
+
+@pytest.mark.parametrize("port,names", [
+    ("apex_tpu_torch.transformer",
+     ["AttnMaskType", "AttnType", "LayerType", "ModelType"]),
+    ("apex_tpu_torch.transformer.functional",
+     _jax_all("apex_tpu/transformer/functional/__init__.py")),
+    ("apex_tpu_torch.amp",
+     ["quant", "INT8_QMAX", "quantize_int8", "dequantize_int8"]),
+    ("apex_tpu_torch.utils",
+     ["PackedBuffer", "pack_pytree", "unpack_pytree",
+      "flatten_dense_tensors", "unflatten_dense_tensors", "tree_paths",
+      "leaf_crc32", "tree_to_host_dict", "tree_from_host_dict"]),
+    ("apex_tpu_torch.fused_dense",
+     _jax_all("apex_tpu/fused_dense/__init__.py")),
+    ("apex_tpu_torch.mlp", _jax_all("apex_tpu/mlp/__init__.py")),
+])
+def test_namespaces_hold_the_jax_names(port, names):
+    """Each name by ``getattr`` on the package; the enums are the
+    ``transformer.enums`` classes, the rope forms ``ops.rope``'s and the
+    quantizers ``amp.quant``'s.  The JAX pytree math (``tree_add`` ...)
+    stays out of ``utils``."""
+    import importlib
+
+    module = importlib.import_module(port)
+    assert [n for n in names if not hasattr(module, n)] == []
+    if port == "apex_tpu_torch.transformer":
+        from apex_tpu_torch.transformer import enums
+
+        assert module.AttnMaskType is enums.AttnMaskType
+    if port == "apex_tpu_torch.transformer.functional":
+        from apex_tpu_torch.ops import rope
+
+        assert module.fused_apply_rotary_pos_emb is \
+            rope.fused_apply_rotary_pos_emb
+    if port == "apex_tpu_torch.amp":
+        assert module.quantize_int8 is module.quant.quantize_int8
+    if port == "apex_tpu_torch.utils":
+        assert not hasattr(module, "tree_add")
+
+
+def test_new_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable")
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.fused_dense import (
+        DenseNoBias,
+        FusedDense,
+        FusedDenseGeluDense,
+    )
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.resilience import init_guard_state
+
+    for make in (lambda: init_guard_state(LossScaler()),
+                 lambda: FusedDense(2, 2), lambda: DenseNoBias(2, 2),
+                 lambda: FusedDenseGeluDense(2, 4, 2),
+                 lambda: MLP([2, 2])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

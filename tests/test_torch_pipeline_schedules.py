@@ -408,3 +408,84 @@ def test_get_forward_backward_func_picks_jax_schedules():
     assert get_forward_backward_func(None, 4) is forward_backward_pipelining_1f1b
     assert (get_forward_backward_func(2, 4)
             is forward_backward_pipelining_1f1b_interleaved)
+
+
+def test_no_pipelining_fp16_sums_past_the_half_range_stay_finite():
+    """Two fp16 microbatches whose gradient parts (40000 each, under
+    ``LossScaler(init_scale=40000)``, loss ``(w * mb).sum()``) are in the
+    fp16 range and whose sum (80000) is not: ``found_inf`` is False and
+    the returned sums are JAX's fp32 ``[80000., ...]``; ``.grad`` keeps
+    the parameter's dtype (the cast, which overflows, is what a caller
+    must not step from)."""
+    import jax.numpy as jnp
+
+    from apex_tpu.amp.scaler import LossScaler as JScaler
+    from apex_tpu.transformer import pipeline_parallel as jpp
+    from apex_tpu_torch.amp import LossScaler
+
+    mb = np.ones((2, 4), np.float16)
+    w = torch.nn.Parameter(torch.ones(4, dtype=torch.float16))
+    scaler = LossScaler(init_scale=40000.0)
+    _, grads, found = forward_backward_no_pipelining(
+        lambda m: (w * m).sum(), torch.from_numpy(mb), model=[w],
+        grad_scaler=scaler, scaler_state=scaler.init("cpu"),
+        with_found_inf=True)
+    jscaler = JScaler(init_scale=40000.0)
+    _, jgrads, jfound = jpp.forward_backward_no_pipelining(
+        lambda p, m: jnp.sum(p["w"] * m),
+        {"w": jnp.ones(4, jnp.float16)}, jnp.asarray(mb),
+        grad_scaler=jscaler, scaler_state=jscaler.init(),
+        with_found_inf=True)
+    assert not bool(found) and not bool(jfound)
+    assert grads["0"].dtype == torch.float32
+    np.testing.assert_array_equal(grads["0"].numpy(),
+                                  np.asarray(jgrads["w"]))
+    np.testing.assert_array_equal(grads["0"].numpy(), np.full(4, 80000.0))
+    assert w.grad.dtype == torch.float16
+
+
+def test_llama_pp1_fp16_step_takes_the_step_jax_takes(devices):
+    """The 3-d step at pp 1 (``get_forward_backward_func(None, 1)``) in
+    fp16 O2 under ``GradScaler``, at the largest scale of a grid (2**20
+    down to 2**19 in 32 steps) where JAX's ``no_pipelining`` finds no
+    overflow while a sum passes 65504 (so the sums' fp16 cast
+    overflows): the port's schedule returns fp32
+    sums within 1e-2 of their largest magnitude of JAX's, ``found_inf``
+    False on both, and the step from them is JAX's
+    ``FusedAdam(master_weights=True)`` step: the same scaler state, every
+    parameter moved, and the master update within 1e-2 of the learning
+    rate of JAX's wherever the sum is a tenth of its leaf's largest or
+    more.  Before the repair the port found an overflow and
+    skipped the step."""
+    import torch_pipeline_helpers as h
+
+    batches = h.batches_of(1)
+    ref = h.jax_pp1_fp16(devices, batches, [
+        2.0 ** 20 * (1 - j / 64) for j in range(33)])
+    assert not ref["found"] and not ref["found_step"]
+    assert ref["peak"] > 65504.0
+    [got] = run_world(h.pp1_fp16_world, 1,
+                      args=(ref["params0"], batches, ref["scale"]),
+                      timeout=150)
+    assert not got["found_alone"] and not got["found"]
+    assert set(got["sum_dtypes"].values()) == {"torch.float32"}
+    assert got["grad_nonfinite"] > 0          # the cast overflows ...
+    assert "torch.float16" in got["grad_dtypes"].values()
+    want = h.stage1_of(ref["sums"])           # ... the sums do not
+    for name, r in want.items():
+        np.testing.assert_allclose(got["sums"][name], r, rtol=0,
+                                   atol=1e-2 * np.abs(r).max(),
+                                   err_msg=name)
+    assert got["scaler"] == ref["scaler"]
+    p0 = h.stage1_of(ref["params0"])
+    jm = h.stage1_of(ref["masters"])
+    for name, r in want.items():
+        d_port = got["masters"][name] - p0[name]
+        d_jax = jm[name] - p0[name]
+        assert np.abs(d_port).max() > 0, name
+        # Adam's first update is -lr g / (|g| + eps): where the sum is a
+        # tenth of its leaf's largest or more, the 1e-2 agreement above
+        # fixes its sign, and the update agrees to 1e-2 of lr
+        held = np.abs(r) >= 0.1 * np.abs(r).max()
+        np.testing.assert_allclose(d_port[held], d_jax[held], rtol=0,
+                                   atol=1e-2 * h.AMP_LR, err_msg=name)

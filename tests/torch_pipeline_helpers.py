@@ -328,3 +328,156 @@ def leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# pp 1 in fp16: forward_backward_no_pipelining's fp32 sums
+# ---------------------------------------------------------------------------
+
+AMP_LR = 1e-4
+
+
+def pcfg1():
+    """The configuration on one stage (pp 1)."""
+    return LlamaPipeConfig(config=LlamaConfig(**CFG),
+                           layers_per_stage=CFG["num_hidden_layers"])
+
+
+def pp1_fp16_world(rank, world, tree, batches, scale):
+    """dp = pp = tp = 1: the 3-d step over ``get_forward_backward_func(
+    None, 1)`` (``no_pipelining``) in fp16 O2 (``o2_cast``: the matrices
+    fp16, the norm scales fp32) under ``GradScaler(init_scale=scale)``
+    with ``FusedAdam(master_weights=True)``: the schedule's sums and
+    found_inf alone, then one step's found_inf, scaler state and
+    masters."""
+    from apex_tpu_torch.examples.llama_pretrain import o2_cast
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_forward_backward_func,
+    )
+
+    tps.initialize_model_parallel(1, 1)
+    state = llama_pipeline_params_from_jax(tree, pcfg1(), pp_rank=0,
+                                           pp_size=1)
+    scaler = GradScaler(init_scale=scale)
+    schedule = get_forward_backward_func(None, 1)
+    init_fn, train_step = make_llama_3d_train_step(
+        pcfg1(), functools.partial(FusedAdam, lr=AMP_LR,
+                                   master_weights=True),
+        schedule, device="cpu",
+        cast=functools.partial(o2_cast, dtype=torch.float16),
+        grad_scaler=scaler)
+    spec, opt = init_fn(state=state)
+    sstate = scaler.init("cpu")
+    mb = rows(batches, 0)
+    _, sums, found_alone = schedule(spec, mb, grad_scaler=scaler,
+                                    scaler_state=sstate, with_found_inf=True)
+    out = dict(sums={k: v.numpy().copy() for k, v in sums.items()},
+               sum_dtypes={k: str(v.dtype) for k, v in sums.items()},
+               grad_dtypes={n: str(p.grad.dtype)
+                            for n, p in spec.named_parameters()},
+               grad_nonfinite=sum(int((~torch.isfinite(p.grad)).sum())
+                                  for p in spec.parameters()),
+               found_alone=bool(found_alone),
+               params0=to_np(spec.named_parameters()))
+    loss, found, sstate = train_step(spec, opt, mb, sstate)
+    out.update(loss=float(loss), found=bool(found),
+               scaler=[float(t) for t in sstate],
+               masters={n: opt.state[p]["master_param"].numpy().copy()
+                        for n, p in spec.named_parameters()},
+               params=to_np(spec.named_parameters()))
+    return out
+
+
+def jax_pp1_fp16(devices, batches, scales):
+    """JAX's pp-1 fp16 step on one device: the weights of the seeded init
+    (O2: the matrices fp16), then for the first of ``scales`` at which
+    ``forward_backward_no_pipelining`` over the spec's mean loss finds no
+    overflow while some fp32 sum passes 65504: its sums, found_inf, the
+    scale, and ``FusedAdam(master_weights=True).step`` from the unscaled
+    sums (the masters after, the scaler state after)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from apex_tpu.amp.scaler import LossScaler as JScaler
+    from apex_tpu.models import LlamaConfig as JCfg
+    from apex_tpu.models import LlamaPipeConfig as JPipe
+    from apex_tpu.models import build_llama_pipeline
+    from apex_tpu.models.llama_pipeline import init_llama_pipeline_params
+    from apex_tpu.optimizers import FusedAdam as JAdam
+    from apex_tpu.transformer import parallel_state as jps
+    from apex_tpu.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining as jnopipe,
+    )
+    from apex_tpu.utils.compat import NO_REP_CHECK, shard_map
+
+    mesh = jps.initialize_model_parallel(1, 1, devices=devices[:1])
+    pcfg = JPipe(config=JCfg(**CFG),
+                 layers_per_stage=CFG["num_hidden_layers"])
+    spec = build_llama_pipeline(pcfg)
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in batches.items()}
+    bspecs = {"ids": P(None, "dp"), "labels": P(None, "dp")}
+    opt = JAdam(lr=AMP_LR, master_weights=True)
+
+    def loss_fn(p, mb):
+        return spec.last_fn(p, spec.stage_fn(p, spec.first_fn(p, mb)),
+                            mb) / N_MICRO
+
+    def cast(p):
+        return jax.tree.map(
+            lambda l: l.astype(jnp.float16) if l.ndim >= 2 else l, p)
+
+    out = {}
+    try:
+        with mesh:
+            params = jax.jit(shard_map(
+                lambda b: cast(init_llama_pipeline_params(
+                    pcfg, jax.random.PRNGKey(0), b["ids"][0])),
+                mesh=mesh, in_specs=(bspecs,), out_specs=P(),
+                **NO_REP_CHECK))(jb)
+            out["params0"] = jax.tree.map(np.asarray, params)
+
+            def sums_fn(params, scale, batches):
+                scaler = JScaler()
+                sstate = scaler.init()._replace(scale=scale)
+                return jnopipe(loss_fn, params, batches,
+                               grad_scaler=scaler, scaler_state=sstate,
+                               with_found_inf=True)[1:]
+
+            sums_step = jax.jit(shard_map(
+                sums_fn, mesh=mesh, in_specs=(P(), P(), bspecs),
+                out_specs=(P(), P()), **NO_REP_CHECK))
+            for scale in scales:
+                sums, found = sums_step(params, jnp.float32(scale), jb)
+                peak = max(float(jnp.abs(l).max())
+                           for l in jax.tree.leaves(sums))
+                if not bool(found) and peak > 65504.0:
+                    break
+            else:
+                raise AssertionError("no scale gives finite sums past the "
+                                     "fp16 range")
+
+            def step_fn(params, scale, sums):
+                scaler = JScaler(init_scale=scale)
+                sstate = scaler.init()
+                grads, found = scaler.unscale(sums, sstate)
+                new_p, new_s = opt.step(grads, params, opt.init(params),
+                                        found_inf=found)
+                return (new_s[1].master_params, found,
+                        tuple(scaler.update(sstate, found)))
+
+            masters, found2, sstate = jax.jit(
+                step_fn, static_argnums=1)(params, scale, sums)
+            out.update(scale=scale, sums=jax.tree.map(np.asarray, sums),
+                       found=bool(found), found_step=bool(found2),
+                       masters=jax.tree.map(np.asarray, masters),
+                       scaler=[float(t) for t in sstate], peak=peak)
+    finally:
+        jps.destroy_model_parallel()
+    return out
+
+
+def stage1_of(tree):
+    """The pp-1 port ``state_dict`` (numpy) of a JAX tree."""
+    return {k: v.float().numpy() for k, v in llama_pipeline_params_from_jax(
+        tree, pcfg1(), pp_rank=0, pp_size=1).items()}
