@@ -107,6 +107,16 @@ slice of the experts.  A halo bottleneck
 (:func:`bottleneck_params_from_jax`): convolutions HWIO -> OIHW, the
 frozen scales and biases as they are.
 
+The contrib modules: :func:`multihead_attn_params_from_jax` (the JAX
+``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` weights are ``[out, in]``
+already: every leaf keeps its name and layout),
+:func:`group_norm_params_from_jax` (``weight``, ``bias``),
+:func:`groupbn_params_from_jax` (a batch norm's ``scale``, ``bias``,
+``mean`` and ``var``, under ``SyncBatchNorm_0/`` for ``BatchNorm2d_NHWC``,
+to ``weight``, ``bias``, ``running_mean`` and ``running_var``) and
+:func:`conv_params_from_jax` (HWIO -> OIHW, the ``conv_bias_relu``
+layout).
+
 Optimizer and scaler state: :func:`load_jax_optimizer_state` puts the JAX
 ``FusedAdam`` / ``FusedLAMB`` / ``FusedAdagrad`` state (its step, each
 moment tree, and the fp32 masters when it keeps them) into a port
@@ -131,7 +141,9 @@ __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "load_jax_optimizer_state",
            "shard_state_dict", "resnet_params_from_jax",
            "transformer_lm_params_from_jax", "bottleneck_params_from_jax",
-           "dense_params_from_jax"]
+           "dense_params_from_jax", "multihead_attn_params_from_jax",
+           "group_norm_params_from_jax", "groupbn_params_from_jax",
+           "conv_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -623,3 +635,65 @@ def dense_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         elif name.startswith("bias"):
             expected[name] = (name, False)
     return _convert(tree, expected, "dense")
+
+
+_MHA_LEAVES = frozenset(
+    ["in_proj_weight", "in_proj_bias", "in_proj_weight_q", "in_proj_bias_q",
+     "in_proj_weight_kv", "in_proj_bias_kv", "out_proj_weight",
+     "out_proj_bias", "lyr_nrm_gamma_weights", "lyr_nrm_beta_weights"]
+    + [f"{n}_{leaf}" for n in "qkv" for leaf in ("weight", "bias")])
+
+
+def multihead_attn_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.contrib.
+    multihead_attn.SelfMultiheadAttn` or ``EncdecMultiheadAttn`` from the
+    flax module's tree: every leaf under its own name, as it is (the JAX
+    weights are ``[out, in]`` already).  Raises on any other leaf."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return _convert(tree, {name: (name, False) for name in _flatten(tree)
+                           if name in _MHA_LEAVES}, "multihead attention")
+
+
+def group_norm_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.contrib.group_norm.
+    GroupNorm` from the flax ``GroupNorm``'s tree (``weight``, ``bias``)."""
+    return _convert(tree, {"weight": ("weight", False),
+                           "bias": ("bias", False)}, "GroupNorm")
+
+
+def groupbn_params_from_jax(params: Mapping,
+                            batch_stats: Optional[Mapping] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.contrib.groupbn.
+    BatchNorm2d_NHWC` or :class:`~apex_tpu_torch.contrib.cudnn_gbn.
+    GroupBatchNorm2d` from the flax module's ``params`` and
+    ``batch_stats`` (a variables dict may come alone as ``params``):
+    ``scale``, ``bias``, ``mean``, ``var`` (under ``SyncBatchNorm_0/`` for
+    ``BatchNorm2d_NHWC``) to ``weight``, ``bias``, ``running_mean``,
+    ``running_var``; ``num_batches_tracked`` 0.  Raises on any other
+    leaf."""
+    if batch_stats is None and set(params) == {"params", "batch_stats"}:
+        params, batch_stats = params["params"], params["batch_stats"]
+    names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+    state = {}
+    for path, arr in {**_flatten(params), **_flatten(batch_stats or {})
+                      }.items():
+        leaf = path[len("SyncBatchNorm_0/"):] if path.startswith(
+            "SyncBatchNorm_0/") else path
+        if leaf not in names:
+            raise ValueError(f"flax batch norm leaf {path!r} has no torch key")
+        state[names[leaf]] = _tensor(np.asarray(arr))
+    if batch_stats is not None:
+        state["num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return state
+
+
+def conv_params_from_jax(kernel) -> torch.Tensor:
+    """An HWIO convolution kernel (numpy) as the OIHW CPU tensor the
+    port's ``conv_bias_relu`` functions take."""
+    arr = np.asarray(kernel)
+    if arr.ndim != 4:
+        raise ValueError(f"an HWIO kernel is 4-d, got shape {arr.shape}")
+    return _tensor(arr.transpose(3, 2, 0, 1))

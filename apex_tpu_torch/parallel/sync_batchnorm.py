@@ -166,6 +166,9 @@ class SyncBatchNorm(_BatchNorm):
                              f"got {x.dim()}-d")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._normalize(x, self.fuse_relu)
+
+    def _normalize(self, x: torch.Tensor, fuse_relu: bool) -> torch.Tensor:
         self._check_input_dim(x)
         ca = self.channel_axis % x.dim()
         if x.shape[ca] != self.num_features:
@@ -184,8 +187,8 @@ class SyncBatchNorm(_BatchNorm):
                     self.num_batches_tracked.add_(1)
                 invstd = torch.rsqrt(var + self.eps)
             return _SyncBatchNormFn.apply(
-                x, self.weight, self.bias, mean, invstd, n, ca,
-                self.fuse_relu, group)
+                x, self.weight, self.bias, mean, invstd, n, ca, fuse_relu,
+                group)
         _, shape = _dims(x, ca)
         y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
             self.running_var.view(shape) + self.eps)
@@ -193,7 +196,7 @@ class SyncBatchNorm(_BatchNorm):
             y = y * self.weight.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
-        if self.fuse_relu:
+        if fuse_relu:
             y = torch.relu(y)
         return y.to(x.dtype)
 

@@ -109,6 +109,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import normal_
 from apex_tpu_torch.transformer.tensor_parallel.random import checkpoint
+from apex_tpu_torch.utils.dropout import dropout, dropout_seed
 
 __all__ = ["ParallelMLP", "ParallelAttention", "ParallelTransformerLayer",
            "ParallelTransformer", "Embedding", "TransformerLanguageModel",
@@ -132,25 +133,6 @@ def _active(rate: float, deterministic: bool, generator) -> bool:
                          "dropout_generator (a torch.Generator on the "
                          "activations' device)")
     return True
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
-    """flax's ``nn.Dropout``: keep each element with probability ``1 -
-    rate`` (a uniform draw from ``generator`` below it), kept values
-    divided by ``1 - rate``, the others 0."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-
-
-def dropout_seed(generator: torch.Generator) -> int:
-    """The flash kernels' int seed for one call, drawn from ``generator``
-    (the JAX module's ``randint(make_rng("dropout"), (), 0, 2**31 - 1)``);
-    a generator on the card costs a host sync to read it."""
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=generator.device).item())
 
 
 class ParallelMLP(nn.Module):

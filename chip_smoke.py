@@ -354,6 +354,27 @@ ends the run with a non-zero exit and no result line:
      end bit for bit (CRC32 of every leaf) on the reference;
      ``replica_hashes`` on the card against the CPU's; the launches of
      every step exact.
+   - *the contrib zoo* (``phase3-contrib-*``, ``phase3-sparsity``):
+     ``SelfMultiheadAttn`` (norm-add, bias) and ``EncdecMultiheadAttn``
+     (sq 256 against sk 320) at BERT-large's widths, bf16, keys padded,
+     forward and backward with flash forward, dq and dk/dv once each,
+     the fast route against the default one; the masked softmax on
+     ``[256, 512, 512]`` (binary and additive masks, softmax forward and
+     backward once each); flash dropout's bits against the plain
+     forward; ``fmha_varlen`` over 32 packed sequences against the
+     plain versions and per-sequence calls, both timed beside the work
+     ratio; the flash and
+     softmax kernels timed at these shapes beside SDPA and the library
+     softmax; card against CPU at small sizes.  The losses: smoothed
+     cross-entropy on ``[8192, 32000]`` against ``F.cross_entropy`` (no
+     fp32 ``[N, V]`` saved), the focal loss at RetinaNet's level 3
+     against fp64, the RNN-T joint and loss at MLPerf's widths against
+     float64 on two sequences.  The norms: GroupNorm at Stable
+     Diffusion's UNet shapes against ``F.group_norm``, the NHWC and group
+     batch norms at ResNet-50's first stage (NCCL world 1), the four
+     convolution forms in bf16 and fp32, ``index_mul_2d``.  ASP on
+     BERT-large: masks on the card equal to the CPU's, 3 LAMB steps
+     keeping 2 of every 4, the permutation search timed on the host.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -753,6 +774,36 @@ def _flash_inputs(case, g, device):
     return q, k, v, seg
 
 
+def _flash_o_tol(q, k, v, ro, case, seg):
+    """Per-element bound of the forward's ``o`` against the plain ``ro``
+    on the same inputs (``case``: dtype, causal, sk, and dropout's rate and
+    seed if any; ``seg`` None or a (q, kv) segment-id pair)."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    if case["dtype"] == "float32":
+        return 1e-5 + 1e-5 * ro.float().abs()
+    # the kernel rounds each (kept, rescaled) p to the operand dtype before
+    # p v: at most half an epsilon of it, so the error is within half an
+    # epsilon of sum_j p_ij |v_j| (the plain version on |v|, in fp32, with
+    # the same keep bits); below the normal range the rounding is absolute
+    # (fp16's subnormal half-spacing, fp32's flush for bf16); and each side
+    # rounds o once: two ulp of the output
+    rate, seed = case.get("rate", 0.0), case.get("seed")
+    dt = getattr(torch, case["dtype"])
+    half_eps = 2.0 ** -(_MANTISSA_BITS[case["dtype"]] + 1)
+    floor = max(torch.finfo(dt).tiny * half_eps,
+                torch.finfo(torch.float32).tiny)
+    pv_abs, _ = fa._plain_forward(
+        q.float(), k.float(), v.float().abs(), causal=case["causal"],
+        q_segment_ids=None if seg is None else seg[0],
+        kv_segment_ids=None if seg is None else seg[1],
+        dropout_rate=rate, dropout_seed=seed)
+    vmax = float(v.float().abs().max())
+    return (half_eps * pv_abs + floor * case["sk"] * vmax / (1.0 - rate)
+            + 2 * _ulp(ro, case["dtype"]))
+
+
 def check_flash_attention(device) -> dict:
     """The flash forward kernel on the card against its plain version over
     dtypes, head dims, causal and not, sq = sk / sq < sk / sq > sk with
@@ -802,31 +853,7 @@ def check_flash_attention(device) -> dict:
                 q_segment_ids=None if seg is None else seg[0],
                 kv_segment_ids=None if seg is None else seg[1],
                 dropout_rate=rate, dropout_seed=seed)
-            if case["dtype"] == "float32":
-                o_tol = 1e-5 + 1e-5 * ro.float().abs()
-            else:
-                # the kernel rounds each (kept, rescaled) p to the operand
-                # dtype before p v: at most half an epsilon of it, so the
-                # error is within half an epsilon of sum_j p_ij |v_j| (the
-                # plain version on |v|, in fp32, with the same keep bits);
-                # below the normal range the rounding is absolute (fp16's
-                # subnormal half-spacing, fp32's flush for bf16); and each
-                # side rounds o once: two ulp of the output
-                dt = getattr(torch, case["dtype"])
-                half_eps = 2.0 ** -(_MANTISSA_BITS[case["dtype"]] + 1)
-                floor = max(torch.finfo(dt).tiny * half_eps,
-                            torch.finfo(torch.float32).tiny)
-                pv_abs, _ = fa._plain_forward(
-                    q.float(), k.float(), v.float().abs(),
-                    causal=case["causal"],
-                    q_segment_ids=None if seg is None else seg[0],
-                    kv_segment_ids=None if seg is None else seg[1],
-                    dropout_rate=rate, dropout_seed=seed)
-                vmax = float(v.float().abs().max())
-                o_tol = (half_eps * pv_abs
-                         + floor * case["sk"] * vmax / (1.0 - rate)
-                         + 2 * _ulp(ro, case["dtype"]))
-                del pv_abs
+            o_tol = _flash_o_tol(q, k, v, ro, case, seg)
             r_o = _tol_ratio(o, ro, o_tol)
             r_lse = _tol_ratio(lse, rlse, 1e-5 + 1e-5 * rlse.abs())
             pattern_ok = (not case.get("probe")
@@ -1070,22 +1097,29 @@ def time_lm_head(device) -> dict:
     return row
 
 
-def _row(dev: dict, host_ms: float, flops: float, nbytes: float,
-         peak_flops: float, exps: float = 0.0, timing: str = None) -> dict:
-    """A kernel's times beside its bound: the largest of its bytes over
+def _bound(flops: float, nbytes: float, peak_flops: float,
+           exps: float = 0.0) -> dict:
+    """The least time for a piece of work: the largest of its bytes over
     the memory rate, its products over ``peak_flops`` and its
-    exponentials (``exps``) over the SFU rate.  ``bound_by`` is
-    ``"bytes"`` or ``"operations"``; ``bound_term`` says which."""
+    exponentials over the SFU rate, with the term that sets it."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "products": flops / peak_flops * 1e3,
              "exponentials": exps / MUFU_EXP_PER_S * 1e3}
     term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term)
+
+
+def _row(dev: dict, host_ms: float, flops: float, nbytes: float,
+         peak_flops: float, exps: float = 0.0, timing: str = None) -> dict:
+    """A kernel's times beside its bound (:func:`_bound` of its products,
+    bytes and exponentials ``exps``)."""
     return dict(ms=min(dev["kernel"], dev["kernel_again"]),
                 ms_runs=[dev["kernel"], dev["kernel_again"]],
                 plain_ms=dev["plain"], library_ms=dev["library"],
-                host_issued_ms=host_ms, bound_ms=terms[term],
-                bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term,
+                host_issued_ms=host_ms,
+                **_bound(flops, nbytes, peak_flops, exps),
                 timing=timing or
                 "ms/library_ms: device time, 20 calls in one CUDA "
                 "graph between CUDA events; plain_ms: 3 eager calls "
@@ -11907,6 +11941,1278 @@ def supervised_train(device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the contrib zoo: attention blocks, losses, norms and ASP
+# ---------------------------------------------------------------------------
+
+# BERT-large's attention (PERF.md section 4, tools/model_bench.py's
+# bert-large card): e 1024, 16 heads of 64, s 512, b 16; 10-25 % of each
+# sequence's keys padded
+CONTRIB_ATTN = dict(embed=1024, heads=16, seq=512, batch=16, pad_lo=0.10,
+                    pad_hi=0.25)
+CONTRIB_ENCDEC = dict(sq=256, sk=320)
+CONTRIB_DROPOUT = 0.1
+# packed varlen: 32 sequences of 128-512 tokens (seeded lengths), 16 heads
+FMHA_CARD = dict(seqs=32, lo=128, hi=512, heads=16, d=64)
+CONTRIB_SMALL = dict(embed=128, heads=2, seq=64, sk=80, batch=2)
+CONTRIB_SMALL_TOL = 1e-4     # card against CPU, fp32 (TF32 off), of max |ref|
+ROUTE_TOL = 2.0 ** -6        # bf16 fast against default route, of max |ref|
+ROUTE_GRAD_TOL = 2.0 ** -6   # their gradients, of max |ref|
+FMHA_TOL = 2.0 ** -7         # packed against per-sequence, of max |ref|
+FMHA_GRAD_TOL = 2.0 ** -6
+SOFTMAX_Y_TOL = 2.0 ** -8    # bf16 probabilities against the plain version:
+#                              one bf16 ulp in [1/2, 1)
+SOFTMAX_DX_TOL = 2.0 ** -7   # of max |ref|
+# the losses: llama-1b's vocabulary at b 4 x s 2048; RetinaNet's level-3
+# head at 640^2 (80^2 anchors positions x 9 anchors, 90 classes padded to
+# 96); RNN-T at the MLPerf Training rnnt.yaml widths (joint 512, V 1024)
+XENT_CARD = dict(rows=8192, vocab=32000, smoothing=0.1, pad_share=0.05)
+FOCAL_CARD = dict(batch=8, hw=80, anchors=9, real=90, padded=96, alpha=0.25,
+                  gamma=2.0, positives=0.01)
+RNNT_CARD = dict(batch=16, t_lo=150, t_hi=280, y_lo=40, y_hi=100, hidden=512,
+                 vocab=1024, checked=2)
+LOSS_TOL = dict(xent=1e-5, xent_grad=2.0 ** -7, focal=1e-4,
+                focal_grad=2.0 ** -7, rnnt=1e-4, rnnt_grad=2.0 ** -6)
+# the norms: Stable Diffusion v1.5's UNet (block_out_channels 320 / 640 /
+# 1280 / 1280, norm_num_groups 32, latent 64^2) at b 8; ResNet-50's first
+# stage (b 128, 56^2, 256; its 3x3 64 -> 64 convolution)
+GN_SHAPES = ((64, 320), (32, 640), (16, 1280), (8, 1280))
+GN_BATCH = 8
+BN_CARD = dict(batch=128, hw=56, channels=256)
+CONV_CARD = dict(batch=128, hw=56, cin=64, cout=64)
+INDEX_MUL_CARD = dict(rows=65536, n=1048576, hidden=256)
+NORM_TOL = 2.0 ** -7         # bf16 against the library or fp32, of max |ref|
+INDEX_MUL_TOL = 1e-5         # fp32 against fp64 (atomics), of max |ref|
+SPARSITY_STEPS = 3
+# the permutation search (numpy, host): one [1024, 1024] weight's first 64
+# input channels, 2 rounds a phase (~4 s on a host core; the whole weight
+# would take two 8.5 GB arrays a greedy round)
+PERM_CARD = dict(rows=1024, cols=64, options={"max_rounds": 2})
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _launch_gate(label: str, got: dict, want: dict) -> None:
+    """The port's kernels launched in one call (``got``, every kernel's
+    count): exactly ``want``'s nonzero counts."""
+    if _nonzero(got) != want:
+        raise AssertionError(f"{label}: launches {_nonzero(got)}, expected "
+                             f"{want}")
+
+
+def _failed(label: str, checks: dict) -> None:
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{label}: failed {bad}")
+
+
+def _pad_mask(g, b: int, s: int, lo: float, hi: float):
+    """``[b, s]`` int32, 1 on padded keys: each sequence's last
+    ``lo``-``hi`` of its keys (the share drawn from ``g``)."""
+    import torch
+
+    share = lo + (hi - lo) * torch.rand(b, generator=g, device=g.device)
+    lengths = s - (share * s).round().long()
+    pos = torch.arange(s, device=g.device)[None, :]
+    return (pos >= lengths[:, None]).to(torch.int32), lengths
+
+
+def _fwd_bwd(m, args, ct, **kw):
+    """``m(*args, **kw)`` and its backward of ``sum(out * ct)``: the
+    output, the first argument's gradient, the parameters' gradients and
+    every kernel's launches in the call (counted from 0)."""
+    import torch
+    from apex_tpu_torch.ops import _dispatch
+
+    for p in m.parameters():
+        p.grad = None
+    x = args[0].detach().requires_grad_()
+    _dispatch.reset_launches()
+    out = m(x, *args[1:], **kw)
+    out.backward(ct.to(out.dtype))
+    launches = _launch_counts()
+    torch.cuda.synchronize()
+    return (out.detach(), x.grad,
+            {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+            launches)
+
+
+def small_contrib_attention_check(device) -> dict:
+    """``SelfMultiheadAttn`` (norm-add, bias; both routes) and
+    ``EncdecMultiheadAttn`` (sq 64 against sk 80) at e 128, 2 heads, fp32,
+    card against CPU with the same weights, a padded key tail and a fully
+    padded batch row: the output and every gradient within
+    ``CONTRIB_SMALL_TOL`` of the largest reference value; the fast routes
+    launch the flash forward, dq and dk/dv once."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    c = CONTRIB_SMALL
+    e, h, s, sk, b = (c[k] for k in ("embed", "heads", "seq", "sk", "batch"))
+    g = torch.Generator().manual_seed(40)
+    x = torch.randn(s, b, e, generator=g)
+    kv = torch.randn(sk, b, e, generator=g)
+    ct = torch.randn(s, b, e, generator=g)
+    pad_q = torch.zeros(b, s, dtype=torch.int32)
+    pad_q[0, 48:] = 1
+    pad_q[1] = 1
+    pad_k = torch.zeros(b, sk, dtype=torch.int32)
+    pad_k[0, 70:] = 1
+    flash = {fa.FLASH_ATTENTION_FWD.name: 1, fa.FLASH_ATTENTION_DQ.name: 1,
+             fa.FLASH_ATTENTION_DKV.name: 1}
+    out, checks = {}, {}
+    for name, cls, kw, extra, pad in (
+            ("self_fast", SelfMultiheadAttn,
+             dict(bias=True, include_norm_add=True), (), pad_q),
+            ("self_default", SelfMultiheadAttn,
+             dict(bias=True, include_norm_add=True, impl="default"), (), pad_q),
+            ("encdec_fast", EncdecMultiheadAttn, dict(bias=True), (kv,),
+             pad_k)):
+        cpu = cls(e, h, device="cpu", generator=torch.Generator()
+                  .manual_seed(41), **kw)
+        card = cls(e, h, device=device, **kw)
+        card.load_state_dict(cpu.state_dict())
+        ref = _fwd_bwd(cpu, (x, *extra), ct, key_padding_mask=pad,
+                       is_training=False)
+        got = _fwd_bwd(card, tuple(t.to(device) for t in (x, *extra)),
+                       ct.to(device), key_padding_mask=pad.to(device),
+                       is_training=False)
+        errs = dict(out=_rel(got[0].cpu(), ref[0]), dx=_rel(got[1].cpu(),
+                                                           ref[1]),
+                    **{n: _rel(got[2][n].cpu(), ref[2][n]) for n in ref[2]})
+        want = {} if kw.get("impl") == "default" else flash
+        checks[name] = max(errs.values()) <= CONTRIB_SMALL_TOL
+        _launch_gate(f"small contrib {name}", got[3], want)
+        out[name] = dict(rel_errs=errs, launches=_nonzero(got[3]))
+    out.update(checks=checks, tolerance=f"max |card - cpu| <= "
+               f"{CONTRIB_SMALL_TOL} max |cpu|, fp32, TF32 off")
+    log("phase3-contrib-attention-small", **out)
+    _failed("small contrib attention", checks)
+    return out
+
+
+def _flash_padded_rows(q, k, v, qseg, kseg, do, lengths, smi) -> dict:
+    """The flash forward, dq and dk/dv at BERT-large's padded shape (not
+    causal, a (q, kv) segment-id pair) beside the plain version and SDPA
+    with the padding as a boolean mask; the bound counts what the data
+    needs: each query against its row's unpadded keys, and k and v read
+    at the unpadded keys only."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = q.shape
+    scale = 1.0 / d ** 0.5
+    seg = (qseg, kseg)
+    keep = (kseg == 1)[:, None, None, :]
+    pairs = int(lengths.sum()) * s * h
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, segment_ids=seg)
+        calls = {"kernel": lambda: fa.flash_attention_fwd(q, k, v,
+                                                          segment_ids=seg),
+                 "plain": lambda: fa._plain_forward(
+                     q, k, v, q_segment_ids=qseg, kv_segment_ids=kseg),
+                 "library": lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=keep)}
+        dev = _timed(calls, 20, big=("plain",))
+        host = time_ms(calls["kernel"], iters=20, warmup=3)
+        call = fa._BwdLaunch(q, k, v, o, lse, do, qseg, kseg, False, scale,
+                             0.0, None)
+        call.launch(fa.FLASH_ATTENTION_DQ)
+        bwd = {}
+        for name, kern in (("dq", fa.FLASH_ATTENTION_DQ),
+                           ("dkv", fa.FLASH_ATTENTION_DKV)):
+            fn = lambda kern=kern: call.launch(kern)
+            bwd[name] = dict(kernel=device_ms(fn, iters=20),
+                             kernel_again=device_ms(fn, iters=20),
+                             host=time_ms(fn, iters=20, warmup=3))
+        plain_bwd = time_ms(lambda: fa._plain_backward(
+            q, k, v, o, lse, do, q_segment_ids=qseg, kv_segment_ids=kseg),
+            iters=3, warmup=1)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    library_bwd = _fwd_bwd_minus_fwd(
+        lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep),
+        ((qr, kr, vr), do))
+    prod = 2 * pairs * d
+    io = 2 * b * h * s * d                  # one bf16 [b, h, s, d] operand
+    kv = 2 * h * d * int(lengths.sum())     # one operand's unpadded keys
+    stats = 4 * b * h * s                   # one fp32 [b, h, s]
+    segs = 8 * b * s                        # the two int32 segment rows
+    shape = dict(b=b, h=h, sq=s, sk=s, d=d, causal=False, dtype="bfloat16",
+                 segments="(q, kv) pair, keys padded", valid_pairs=pairs)
+    nbytes = {
+        # q, k, v (unpadded keys), segments read; o, lse written
+        "fwd": 2 * io + 2 * kv + stats + segs,
+        # q, o, do, k, v (unpadded keys), lse, segments read; dq, delta
+        # written
+        "dq": 4 * io + 2 * kv + 2 * stats + segs,
+        # q, do, k, v (unpadded keys), lse, delta, segments read; dk, dv
+        # written at every key
+        "dkv": 4 * io + 2 * kv + 2 * stats + segs}
+    rows = {"fwd": _row(dev, host, 2 * prod, nbytes["fwd"], 989e12,
+                        exps=pairs)}
+    rows["fwd"]["library_call"] = "F.scaled_dot_product_attention(attn_mask)"
+    for name, nprod in (("dq", 3), ("dkv", 4)):
+        r = bwd[name]
+        rows[name] = _row(dict(kernel=r["kernel"],
+                               kernel_again=r["kernel_again"],
+                               plain=plain_bwd, library=library_bwd),
+                          r["host"], nprod * prod, nbytes[name], 989e12,
+                          exps=pairs)
+        rows[name].update(
+            plain_and_library_compute="dq, dk and dv together",
+            library_call="F.scaled_dot_product_attention(attn_mask) forward "
+                         "+ backward minus forward (CUDA graphs of 10)")
+    for name, row in rows.items():
+        row.update(shape=shape, nvidia_smi=smi, bytes=nbytes[name],
+                   tflops=(2 if name == "fwd" else 3 if name == "dq" else 4)
+                   * prod / row["ms"] / 1e9)
+        log("phase3-contrib-time", kernel=f"flash_attention_{name}",
+            at="bert_large_padded", **row)
+    return rows
+
+
+def _mask_softmax_rows(x4, mask4, dy, smi) -> dict:
+    """The softmax kernels at ``fast_mask_softmax_dropout_func``'s shape
+    (bf16 ``[16, 16, 512, 512]``, a broadcast ``[b, 1, 1, sk]`` pad mask,
+    scale 1) beside the plain versions, ``torch.softmax`` of the
+    pre-masked scores and ``aten._softmax_backward_data``."""
+    import torch
+    from apex_tpu_torch.ops import softmax as sm
+
+    b, h, sq, sk = x4.shape
+    elems = x4.numel()
+    x_masked = torch.where(mask4, -10000.0, x4.float()).to(x4.dtype)
+    rows = {}
+    with torch.inference_mode():
+        y = sm.softmax_fwd(x4, 1.0, mask4, False)
+        for name, calls, nbytes, flops in (
+                ("fwd", {"kernel": lambda: sm.softmax_fwd(x4, 1.0, mask4,
+                                                          False),
+                         "plain": lambda: sm._plain_forward(x4, 1.0, mask4),
+                         "library": lambda: torch.softmax(x_masked, -1)},
+                 4 * elems + b * sk, 8 * elems),
+                ("bwd", {"kernel": lambda: sm.softmax_bwd(y, dy, 1.0),
+                         "plain": lambda: sm._plain_backward(y, dy, 1.0),
+                         "library": lambda: torch.ops.aten._softmax_backward_data(
+                             dy, y, -1, x4.dtype)},
+                 6 * elems, 5 * elems)):
+            dev = _timed(calls, 20, big=("plain",))
+            host = time_ms(calls["kernel"], iters=20, warmup=3)
+            row = _row(dev, host, flops, nbytes, FP32_OPS_PER_S)
+            row.update(shape=dict(b=b, np=h, sq=sq, sk=sk, dtype="bfloat16",
+                                  mask="[b, 1, 1, sk] broadcast"),
+                       bytes=nbytes, flops=flops, nvidia_smi=smi,
+                       library_call=("torch.softmax of the pre-masked scores"
+                                     if name == "fwd" else
+                                     "aten._softmax_backward_data"))
+            log("phase3-contrib-time", kernel=f"scaled_softmax_{name}",
+                at="mask_softmax_dropout", **row)
+            rows[name] = row
+    return rows
+
+
+def _fmha_plain_ratios(q, k, v, o, lse, do, grads, seg, heads: int):
+    """The flash forward's ``(o, lse)`` and backward's ``grads`` (dq, dk,
+    dv) against the plain versions on the same inputs (the backward's with
+    the forward's ``o`` and ``lse``), in units of phases 1 and 2's
+    per-element tolerances; ``heads`` heads at a time (the plain versions'
+    fp32 scores of the packed problem are 5.4 GB for all 16)."""
+    import torch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    sk = k.shape[2]
+    case = dict(dtype="bfloat16", causal=False, sk=sk)
+    pair = None if seg is None else (seg, seg)
+    worst = dict(o=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
+    abs_err = dict(worst)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    for h0 in range(0, q.shape[1], heads):
+        hs = slice(h0, h0 + heads)
+        qh, kh, vh, oh, lh, dh = (t[:, hs] for t in (q, k, v, o, lse, do))
+        ro, rlse = fa._plain_forward(qh, kh, vh, q_segment_ids=seg,
+                                     kv_segment_ids=seg)
+        ratios = dict(o=_tol_ratio(oh, ro, _flash_o_tol(qh, kh, vh, ro, case,
+                                                        pair)),
+                      lse=_tol_ratio(lh, rlse, 1e-5 + 1e-5 * rlse.abs()))
+        errs = dict(o=(oh.float() - ro.float()).abs().max(),
+                    lse=(lh - rlse).abs().max())
+        del ro, rlse
+        ref = fa._plain_backward(qh, kh, vh, oh, lh, dh, q_segment_ids=seg,
+                                 kv_segment_ids=seg)
+        delta = (dh.float() * oh.float()).sum(-1)
+        tols = _flash_bwd_tol(qh, kh, vh, lh, dh, delta, *ref, case, scale,
+                              seg, seg)
+        for n, got, r, t in zip(("dq", "dk", "dv"), grads, ref, tols):
+            ratios[n] = _tol_ratio(got[:, hs], r, t)
+            errs[n] = (got[:, hs].float() - r.float()).abs().max()
+        del ref, tols, delta
+        for n in worst:
+            worst[n] = max(worst[n], ratios[n])
+            abs_err[n] = max(abs_err[n], float(errs[n]))
+    return worst, abs_err
+
+
+def _fmha_check(device, smi) -> dict:
+    """``fmha_varlen`` on ``FMHA_CARD["seqs"]`` packed sequences (bf16,
+    forward and backward): launches 1/1/1 for the packed call; the packed
+    problem's flash forward and backward, and each sequence's own flash
+    calls, held to the plain versions on the same inputs at phases 1 and
+    2's per-element tolerances (``_fmha_plain_ratios``); ``fmha_varlen``'s
+    output and qkv gradient within the same tolerances of the plain
+    versions, and within ``FMHA_TOL`` / ``FMHA_GRAD_TOL`` of the largest
+    value of the per-sequence calls'; both forms timed on the device
+    beside the work ratio total^2 / sum(L_i^2) (the kernels skip no block
+    between segments) and the bounds of the work the data needs."""
+    import torch
+    from apex_tpu_torch.contrib.fmha import (
+        fmha_varlen,
+        segment_ids_from_cu_seqlens,
+    )
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    c = FMHA_CARD
+    gl = torch.Generator().manual_seed(44)
+    lens = torch.randint(c["lo"], c["hi"] + 1, (c["seqs"],), generator=gl)
+    cu = torch.cat([torch.zeros(1, dtype=torch.int64), lens.cumsum(0)])
+    total = int(cu[-1])
+    g = torch.Generator(device=device).manual_seed(45)
+    qkv = torch.randn(total, 3, c["heads"], c["d"], generator=g,
+                      device=device).to(torch.bfloat16)
+    ct = torch.randn(total, c["heads"], c["d"], generator=g,
+                     device=device).to(torch.bfloat16)
+    cu_d = cu.to(device)
+    packed = qkv.detach().requires_grad_()
+    _dispatch.reset_launches()
+    out = fmha_varlen(packed, cu_d)
+    out.backward(ct)
+    launches = _launch_counts()
+    _launch_gate("fmha_varlen", launches, {
+        fa.FLASH_ATTENTION_FWD.name: 1, fa.FLASH_ATTENTION_DQ.name: 1,
+        fa.FLASH_ATTENTION_DKV.name: 1})
+    spans = [(int(cu[i]), int(lens[i])) for i in range(c["seqs"])]
+    loop = qkv.detach().requires_grad_()
+    outs = []
+    for a, n in spans:
+        q, k, v = (loop[a:a + n, i].transpose(0, 1)[None] for i in range(3))
+        outs.append(fa.flash_attention(q, k, v)[0].transpose(0, 1))
+    ref = torch.cat(outs)
+    ref.backward(ct)
+    errs = dict(out=_rel(out.detach(), ref.detach()),
+                dqkv=_rel(packed.grad, loop.grad))
+    checks = dict(out=errs["out"] <= FMHA_TOL,
+                  dqkv=errs["dqkv"] <= FMHA_GRAD_TOL,
+                  finite=bool(torch.isfinite(out).all()))
+    # the kernels against the plain versions: the packed problem (one
+    # segment-id row), fmha_varlen's own output and gradient, and each
+    # sequence's calls
+    seg = segment_ids_from_cu_seqlens(cu_d, total)[None]
+    q, k, v = (qkv[:, i].transpose(0, 1)[None] for i in range(3))
+    do = ct.transpose(0, 1)[None]
+    per = [tuple(qkv[a:a + n, i].transpose(0, 1)[None] for i in range(3))
+           + (ct[a:a + n].transpose(0, 1)[None],) for a, n in spans]
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, segment_ids=seg)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, segment_ids=seg)
+        torch.cuda.synchronize()
+        packed_ratio, packed_abs = _fmha_plain_ratios(q, k, v, o, lse, do,
+                                                      grads, seg, 4)
+        gq = packed.grad.permute(1, 2, 0, 3)[None]   # [1, 3, h, total, d]
+        varlen_ratio, _ = _fmha_plain_ratios(
+            q, k, v, out.detach().transpose(0, 1)[None], lse, do,
+            (gq[:, 0], gq[:, 1], gq[:, 2]), seg, 4)
+        saved, seq_ratio = [], {}
+        for t in per:
+            so = fa.flash_attention_fwd(*t[:3])
+            sg = fa.flash_attention_bwd(*t[:3], *so, t[3])
+            r, _ = _fmha_plain_ratios(*t[:3], *so, t[3], sg, None, 16)
+            seq_ratio = {n: max(seq_ratio.get(n, 0.0), x)
+                         for n, x in r.items()}
+            saved.append(so)
+        del grads, gq
+        # device times: the packed problem against the loop, forward and
+        # backward (flash_attention_fwd / _bwd, no autograd)
+        times = dict(
+            packed_fwd=device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, segment_ids=seg), iters=5),
+            loop_fwd=device_ms(lambda: [fa.flash_attention_fwd(*t[:3])
+                                        for t in per], iters=5),
+            packed_bwd=device_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, segment_ids=seg), iters=5),
+            loop_bwd=device_ms(lambda: [fa.flash_attention_bwd(
+                *t[:3], so[0], so[1], t[3]) for t, so in zip(per, saved)],
+                iters=5))
+    checks.update(
+        packed_vs_plain=max(packed_ratio.values()) <= 1.0,
+        varlen_vs_plain=max(varlen_ratio.values()) <= 1.0,
+        sequences_vs_plain=max(seq_ratio.values()) <= 1.0)
+    need = int((lens * lens).sum())
+    h, d = c["heads"], c["d"]
+    io = 2 * total * h * d                    # one bf16 [total, h, d]
+    stats, segs = 4 * h * total, 4 * total
+    # what the data needs: each query against its own sequence's keys;
+    # forward: q, k, v, segments read, o, lse written; backward (dq, dk and
+    # dv together): q, k, v, o, do, lse, segments read, dq, dk, dv written,
+    # its five products (s, dp, dv, dq, dk) and p's exponentials once
+    bounds = dict(fwd=_bound(4 * h * d * need, 4 * io + stats + segs, 989e12,
+                             exps=h * need),
+                  bwd=_bound(10 * h * d * need, 8 * io + stats + segs,
+                             989e12, exps=h * need))
+    out_d = dict(sequences=c["seqs"], lengths=lens.tolist(), total=total,
+                 heads=h, d=d, dtype="bfloat16", launches=launches,
+                 rel_errs=errs, device_ms=times,
+                 plain_tol_ratios=dict(packed=packed_ratio,
+                                       fmha_varlen=varlen_ratio,
+                                       sequences=seq_ratio),
+                 packed_max_abs_err=packed_abs,
+                 work_ratio=total * total / need,
+                 packed_fwd_flops=4 * h * d * total * total,
+                 needed_fwd_flops=4 * h * d * need,
+                 packed_fwd_bound_ms=bounds["fwd"]["bound_ms"],
+                 packed_bwd_bound_ms=bounds["bwd"]["bound_ms"],
+                 bounds=bounds, nvidia_smi=smi, checks=checks,
+                 tolerance=f"the packed problem's kernels, fmha_varlen's "
+                           f"output and qkv gradient, and each sequence's "
+                           f"kernels against the plain versions: phases 1 "
+                           f"and 2's per-element tolerances (ratios <= 1); "
+                           f"packed against per-sequence flash calls: output "
+                           f"<= {FMHA_TOL}, qkv gradient <= {FMHA_GRAD_TOL} "
+                           f"of max |ref|")
+    log("phase3-contrib-fmha", **out_d)
+    _failed("fmha_varlen", checks)
+    return out_d
+
+
+def contrib_attention(device, smi: str) -> dict:
+    """The attention blocks at BERT-large's widths (``CONTRIB_ATTN``, bf16
+    parameters and activations):
+
+    - ``SelfMultiheadAttn`` (packed QKV, bias, ``include_norm_add``) on
+      ``[s, b, e]`` with 10-25 % of each sequence's keys padded, forward and
+      backward: flash forward, dq and dk/dv once each and nothing else;
+      the fast route against the default route on the card (output within
+      ``ROUTE_TOL``, input and parameter gradients within
+      ``ROUTE_GRAD_TOL`` of the largest reference value);
+    - ``EncdecMultiheadAttn`` at sq 256 against sk 320 (the kernels'
+      non-causal sq != sk case), the same launches and route check;
+    - ``fast_mask_softmax_dropout_func`` on ``[b * h, s, s]`` with a binary
+      and an additive pad mask: softmax forward and backward once each,
+      held to the plain versions;
+    - attention dropout 0.1 on the flash route: the kernel's output
+      against the plain forward with the same keep bits, and the dropped
+      share within 6 binomial deviations;
+    - ``fmha_varlen`` (``_fmha_check``), the small card-against-CPU check,
+      and the flash and softmax kernels timed at these shapes beside SDPA
+      and the library softmax."""
+    import torch
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+        fast_mask_softmax_dropout_func,
+    )
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import softmax as sm
+
+    t_phase = time.perf_counter()
+    c = CONTRIB_ATTN
+    e, h, s, b = (c[k] for k in ("embed", "heads", "seq", "batch"))
+    d = e // h
+    bf = torch.bfloat16
+    flash = {fa.FLASH_ATTENTION_FWD.name: 1, fa.FLASH_ATTENTION_DQ.name: 1,
+             fa.FLASH_ATTENTION_DKV.name: 1}
+    out = dict(nvidia_smi=smi, shape=dict(c, dtype="bfloat16"),
+               tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                         cudnn=torch.backends.cudnn.allow_tf32))
+    checks = {}
+    out["small"] = small_contrib_attention_check(device)
+    g = torch.Generator(device=device).manual_seed(42)
+    kw = dict(bias=True, include_norm_add=True, params_dtype=bf,
+              device=device)
+    fast = SelfMultiheadAttn(e, h, generator=g, **kw)
+    default = SelfMultiheadAttn(e, h, impl="default", **kw)
+    default.load_state_dict(fast.state_dict())
+    x = torch.randn(s, b, e, generator=g, device=device).to(bf)
+    ct = torch.randn(s, b, e, generator=g, device=device).to(bf)
+    pad, lengths = _pad_mask(g, b, s, c["pad_lo"], c["pad_hi"])
+    res = {}
+    for name, m in (("fast", fast), ("default", default)):
+        res[name] = _fwd_bwd(m, (x,), ct, key_padding_mask=pad,
+                             is_training=False)
+    _launch_gate("SelfMultiheadAttn fast", res["fast"][3], flash)
+    _launch_gate("SelfMultiheadAttn default", res["default"][3], {})
+    errs = dict(out=_rel(res["fast"][0], res["default"][0]),
+                dx=_rel(res["fast"][1], res["default"][1]),
+                **{n: _rel(res["fast"][2][n], res["default"][2][n])
+                   for n in res["fast"][2]})
+    checks["self_out"] = errs["out"] <= ROUTE_TOL
+    checks["self_grads"] = max(v for k, v in errs.items()
+                               if k != "out") <= ROUTE_GRAD_TOL
+    checks["self_finite"] = bool(torch.isfinite(res["fast"][0]).all())
+    out["self"] = dict(launches=res["fast"][3], fast_vs_default=errs,
+                       padded_share=float(pad.float().mean()),
+                       fwd_bwd_ms={name: _fb_ms(lambda t, m=m: m(
+                           t, key_padding_mask=pad, is_training=False),
+                           x.detach().requires_grad_())
+                           for name, m in (("fast", fast),
+                                           ("default", default))})
+    del res, default
+
+    # encoder-decoder: 256 queries against 320 keys, keys padded
+    sq, sk = CONTRIB_ENCDEC["sq"], CONTRIB_ENCDEC["sk"]
+    kw_ed = dict(bias=True, params_dtype=bf, device=device)
+    ed = EncdecMultiheadAttn(e, h, generator=g, **kw_ed)
+    ed_def = EncdecMultiheadAttn(e, h, impl="default", **kw_ed)
+    ed_def.load_state_dict(ed.state_dict())
+    xq = torch.randn(sq, b, e, generator=g, device=device).to(bf)
+    xk = torch.randn(sk, b, e, generator=g, device=device).to(bf)
+    ctq = torch.randn(sq, b, e, generator=g, device=device).to(bf)
+    pad_k, _ = _pad_mask(g, b, sk, c["pad_lo"], c["pad_hi"])
+    r_fast = _fwd_bwd(ed, (xq, xk), ctq, key_padding_mask=pad_k,
+                      is_training=False)
+    r_def = _fwd_bwd(ed_def, (xq, xk), ctq, key_padding_mask=pad_k,
+                     is_training=False)
+    _launch_gate("EncdecMultiheadAttn fast", r_fast[3], flash)
+    ed_errs = dict(out=_rel(r_fast[0], r_def[0]), dq=_rel(r_fast[1], r_def[1]),
+                   **{n: _rel(r_fast[2][n], r_def[2][n]) for n in r_fast[2]})
+    checks["encdec_out"] = ed_errs["out"] <= ROUTE_TOL
+    checks["encdec_grads"] = max(v for k, v in ed_errs.items()
+                                 if k != "out") <= ROUTE_GRAD_TOL
+    out["encdec"] = dict(sq=sq, sk=sk, launches=r_fast[3],
+                         fast_vs_default=ed_errs)
+    del ed, ed_def, r_fast, r_def
+
+    # the standalone masked softmax on [b * h, s, s] scores
+    scores = (torch.randn(b * h, s, s, generator=g, device=device) * 3).to(bf)
+    dy = torch.randn(b * h, s, s, generator=g, device=device).to(bf)
+    additive = torch.where(pad == 1, -10000.0, 0.0)
+    out["mask_softmax"] = {}
+    for form, mask, is_add in (("binary", pad, False),
+                               ("additive", additive, True)):
+        xs = scores.detach().requires_grad_()
+        _dispatch.reset_launches()
+        probs = fast_mask_softmax_dropout_func(False, h, xs, mask, is_add,
+                                               0.0)
+        probs.backward(dy)
+        launches = _launch_counts()
+        _launch_gate(f"mask softmax {form}", launches, {
+            sm.SCALED_SOFTMAX_FWD.name: 1, sm.SCALED_SOFTMAX_BWD.name: 1})
+        x4 = scores.reshape(b, h, s, s)
+        if is_add:
+            x4 = x4 + additive[:, None, None, :].to(bf)
+        m4 = None if is_add else (pad == 1)[:, None, None, :].expand(
+            b, 1, s, s)
+        with torch.no_grad():
+            y_ref = sm._plain_forward(x4, 1.0, m4)
+            dx_ref = sm._plain_backward(probs.detach().reshape(b, h, s, s),
+                                        dy.reshape(b, h, s, s), 1.0)
+        y_err = float((probs.detach().reshape(b, h, s, s).float()
+                       - y_ref.float()).abs().max())
+        dx_err = _rel(xs.grad.reshape(b, h, s, s), dx_ref)
+        checks[f"softmax_{form}"] = (y_err <= SOFTMAX_Y_TOL
+                                     and dx_err <= SOFTMAX_DX_TOL)
+        out["mask_softmax"][form] = dict(launches=launches,
+                                         y_max_abs_err=y_err,
+                                         dx_rel_err=dx_err)
+    out["mask_softmax"]["rows"] = _mask_softmax_rows(
+        scores.reshape(b, h, s, s), (pad == 1)[:, None, None, :],
+        dy.reshape(b, h, s, s), smi)
+    del scores, dy, xs, probs
+
+    # attention dropout in the flash kernel: the kernel's output against
+    # the plain forward with the same keep bits
+    drop = SelfMultiheadAttn(e, h, dropout=CONTRIB_DROPOUT,
+                             generator=torch.Generator(device=device)
+                             .manual_seed(43), **kw)
+    drop.load_state_dict(fast.state_dict())
+    seen = []
+    orig = fa._forward
+
+    def spy(q, k, v, qseg, kseg, causal, scale, rate, seed):
+        o, lse = orig(q, k, v, qseg, kseg, causal, scale, rate, seed)
+        seen.append((q, k, v, qseg, kseg, rate, seed, o))
+        return o, lse
+
+    fa._forward = spy
+    _dispatch.reset_launches()
+    try:
+        with torch.no_grad():
+            drop(x, key_padding_mask=pad, is_training=True)
+    finally:
+        fa._forward = orig
+    _launch_gate("SelfMultiheadAttn dropout", _launch_counts(),
+                 {fa.FLASH_ATTENTION_FWD.name: 1})
+    q, k, v, qseg, kseg, rate, seed, o = seen[0]
+    with torch.no_grad():
+        ref_o = fa._plain_forward(q, k, v, q_segment_ids=qseg,
+                                  kv_segment_ids=kseg, dropout_rate=rate,
+                                  dropout_seed=seed)[0]
+        keep = fa._keep(device, b, h, s, s, seed, rate)
+        dropped = 1.0 - float(keep.float().mean())
+    n = keep.numel()
+    bound = 6 * (rate * (1 - rate) / n) ** 0.5
+    drop_err = _rel(o, ref_o)
+    checks["dropout_bits"] = drop_err <= ROUTE_TOL and rate == CONTRIB_DROPOUT
+    checks["dropout_share"] = abs(dropped - rate) <= bound
+    out["dropout"] = dict(rate=rate, seed=seed, dropped_share=dropped,
+                          bound=bound, kernel_vs_plain=drop_err)
+    del drop, keep, ref_o, seen
+
+    # the flash rows at the padded shape, in the model's layout
+    qkv = torch.randn(s, b, 3, h, d, generator=g, device=device).to(bf)
+    q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+    do = torch.randn(s, b, h, d, generator=g, device=device).to(bf).permute(
+        1, 2, 0, 3)
+    qseg = torch.ones(b, s, dtype=torch.int32, device=device)
+    kseg = (1 - pad).to(torch.int32)
+    out["flash_rows"] = _flash_padded_rows(q, k, v, qseg, kseg, do, lengths,
+                                           smi)
+    del qkv, q, k, v, do, fast
+    out["fmha"] = _fmha_check(device, smi)
+    out.update(checks=checks, s=time.perf_counter() - t_phase,
+               tolerance=f"fast against default route: output <= "
+                         f"{ROUTE_TOL}, gradients <= {ROUTE_GRAD_TOL} of max "
+                         f"|default|; softmax y <= {SOFTMAX_Y_TOL} absolute, "
+                         f"dx <= {SOFTMAX_DX_TOL} of max |plain|; dropout: "
+                         f"kernel <= {ROUTE_TOL} of max |plain with the same "
+                         f"bits|, dropped share within 6 binomial deviations")
+    log("phase3-contrib-attention", **{k: v for k, v in out.items()
+                                       if k not in ("small", "fmha")})
+    _failed("contrib attention", checks)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _focal_fp64(x, cls, npos, real, alpha, gamma):
+    """The sigmoid focal loss in fp64 (torchvision's formula)."""
+    import torch
+
+    x = x[..., :real].double()
+    y = (cls[..., None] == torch.arange(real, device=x.device)).double()
+    p = torch.sigmoid(x)
+    ce = -(y * torch.nn.functional.logsigmoid(x)
+           + (1 - y) * torch.nn.functional.logsigmoid(-x))
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    return (a_t * (1 - p_t) ** gamma * ce).sum() / npos
+
+
+def _rnnt_fp64(x, label, fl: int, yl: int, blank: int = 0):
+    """One sequence's RNN-T loss and logit gradient in float64 on the
+    host (the DP of the reference's ``_transducer_ref.py``, rows
+    vectorized over u)."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)[:fl, :yl + 1]
+    m = x.max(-1, keepdims=True)
+    logp = x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+    T, U = fl, yl + 1
+    blank_lp = logp[:, :, blank]
+    lab_lp = np.take_along_axis(logp[:, :yl], np.asarray(label[:yl])[None, :,
+                                                                     None],
+                                axis=-1)[..., 0]                 # [T, yl]
+    alpha = np.full((T, U), -np.inf)
+    alpha[0, 0] = 0.0
+    for t in range(T):
+        for u in range(U):
+            if t == 0 and u == 0:
+                continue
+            a = alpha[t - 1, u] + blank_lp[t - 1, u] if t else -np.inf
+            bb = alpha[t, u - 1] + lab_lp[t, u - 1] if u else -np.inf
+            alpha[t, u] = np.logaddexp(a, bb)
+    beta = np.full((T, U), -np.inf)
+    beta[T - 1, U - 1] = blank_lp[T - 1, U - 1]
+    for t in range(T - 1, -1, -1):
+        for u in range(U - 1, -1, -1):
+            if t == T - 1 and u == U - 1:
+                continue
+            a = beta[t + 1, u] + blank_lp[t, u] if t + 1 < T else -np.inf
+            bb = beta[t, u + 1] + lab_lp[t, u] if u + 1 < U else -np.inf
+            beta[t, u] = np.logaddexp(a, bb)
+    loss = -beta[0, 0]
+    com = alpha + loss
+    dlogp = np.zeros_like(logp)
+    lab = np.asarray(label[:yl])
+    nxt_u = np.concatenate([beta[:, 1:], np.full((T, 1), -np.inf)], 1)
+    dlogp[:, np.arange(yl), lab] = -np.exp(com[:, :yl] + nxt_u[:, :yl]
+                                           + lab_lp)
+    nxt_t = np.concatenate([beta[1:], np.full((1, U), -np.inf)], 0)
+    db = -np.exp(com + nxt_t + blank_lp)
+    db[T - 1, U - 1] = -np.exp(com[T - 1, U - 1] + blank_lp[T - 1, U - 1])
+    dlogp[:, :, blank] += db
+    dx = dlogp - np.exp(logp) * dlogp.sum(-1, keepdims=True)
+    return loss, dx
+
+
+def _kernel_launches(fn) -> int:
+    """The device kernels ``fn`` launches, counted under
+    ``torch.profiler``."""
+    fn()
+    _, rows = _traced_kernels(fn)
+    return int(sum(e.count for e in rows))
+
+
+def contrib_losses(device, smi: str) -> dict:
+    """The losses at their users' sizes:
+
+    - ``SoftmaxCrossEntropyLoss`` on ``[8192, 32000]`` bf16 logits,
+      smoothing 0.1, ~5 % of the rows at ``padding_idx``: the losses within
+      ``LOSS_TOL["xent"]`` (+ the same relative) of fp32
+      ``F.cross_entropy(label_smoothing, ignore_index)`` on the card, the
+      gradient within ``LOSS_TOL["xent_grad"]`` of its largest value; no
+      fp32 ``[N, V]`` tensor saved for the backward; both timed, with the
+      peak memory over forward and backward;
+    - ``focal_loss`` at RetinaNet's level-3 head for 640^2 inputs: the loss
+      against fp64 on the card, its gradient, timed;
+    - ``TransducerJoint`` + a linear to V + ``TransducerLoss`` at RNN-T's
+      widths: forward and backward, losses finite, ``RNNT_CARD["checked"]``
+      sequences' losses and logit gradients against float64 on the host,
+      the device kernels a loss takes (forward + backward) counted."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+    from apex_tpu_torch.contrib.transducer import (
+        TransducerJoint,
+        TransducerLoss,
+    )
+    from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+
+    t_phase = time.perf_counter()
+    out, checks = dict(nvidia_smi=smi), {}
+    g = torch.Generator(device=device).manual_seed(50)
+
+    # cross-entropy
+    c = XENT_CARD
+    n, vocab, smooth = c["rows"], c["vocab"], c["smoothing"]
+    logits = (torch.randn(n, vocab, generator=g, device=device) * 2).to(
+        torch.bfloat16)
+    labels = torch.randint(1, vocab, (n,), generator=g, device=device)
+    labels[torch.rand(n, generator=g, device=device) < c["pad_share"]] = 0
+    w = torch.randn(n, generator=g, device=device)
+    saved = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xl = logits.detach().requires_grad_()
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append((tuple(t.shape), str(t.dtype))) or t,
+            lambda t: t):
+        loss = SoftmaxCrossEntropyLoss.apply(xl, labels, smooth, 0)
+    (loss * w).sum().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    xr = logits.float().requires_grad_()
+    ref = F.cross_entropy(xr, labels, label_smoothing=smooth, ignore_index=0,
+                          reduction="none")
+    (ref * w).sum().backward()
+    loss_err = float(((loss - ref).abs() / (1.0 + ref.abs())).max()
+                     .detach())
+    grad_err = _rel(xl.grad, xr.grad)
+    big_fp32 = [s for s in saved if s[1] == "torch.float32"
+                and int(np.prod(s[0])) >= n * vocab]
+    del xr, ref
+    torch.cuda.empty_cache()
+    xb = logits.detach().requires_grad_()
+
+    def lib_step():
+        xb.grad = None
+        (F.cross_entropy(xb, labels, label_smoothing=smooth, ignore_index=0,
+                         reduction="none") * w).sum().backward()
+
+    def port_step():
+        xl.grad = None
+        (SoftmaxCrossEntropyLoss.apply(xl, labels, smooth, 0)
+         * w).sum().backward()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lib_step()
+    torch.cuda.synchronize()
+    lib_peak = torch.cuda.max_memory_allocated() - base
+    checks.update(xent_loss=loss_err <= LOSS_TOL["xent"],
+                  xent_grad=grad_err <= LOSS_TOL["xent_grad"],
+                  xent_no_fp32_nv_saved=not big_fp32,
+                  xent_padding_zero=bool((loss[labels == 0] == 0).all()))
+    out["xentropy"] = dict(
+        rows=n, vocab=vocab, smoothing=smooth,
+        padded_rows=int((labels == 0).sum()), loss_rel_err=loss_err,
+        grad_rel_err=grad_err, saved_for_backward=saved,
+        peak_bytes_fwd_bwd=peak, library_peak_bytes_fwd_bwd=lib_peak,
+        logits_bytes=logits.numel() * 2,
+        fwd_bwd_ms=time_ms(port_step, iters=5, warmup=1),
+        library_fwd_bwd_ms=time_ms(lib_step, iters=5, warmup=1),
+        library_call="F.cross_entropy(bf16 logits, label_smoothing, "
+                     "ignore_index, reduction='none')")
+    del logits, xl, xb, w
+    torch.cuda.empty_cache()
+
+    # focal loss at RetinaNet's level 3
+    c = FOCAL_CARD
+    b, hw, an, real, padded = (c[k] for k in ("batch", "hw", "anchors",
+                                              "real", "padded"))
+    logits = (torch.randn(b, hw, hw, an, padded, generator=g, device=device)
+              * 2 - 4).to(torch.bfloat16)
+    r = torch.rand(b, hw, hw, an, generator=g, device=device)
+    cls = torch.where(r < c["positives"],
+                      torch.randint(0, real, r.shape, generator=g,
+                                    device=device),
+                      torch.where(r < 0.9, -1, -2))
+    npos = float((cls >= 0).sum())
+    xf = logits.detach().requires_grad_()
+    fl = focal_loss(xf, cls, npos, real, c["alpha"], c["gamma"])
+    fl.backward()
+    x64 = logits.detach().double().requires_grad_()
+    ref = _focal_fp64(x64, cls, npos, real, c["alpha"], c["gamma"])
+    ref.backward()
+    f_err = abs(float(fl.detach()) - float(ref.detach())) / abs(
+        float(ref.detach()))
+    f_grad = _rel(xf.grad, x64.grad)
+    checks.update(focal_loss=f_err <= LOSS_TOL["focal"],
+                  focal_grad=f_grad <= LOSS_TOL["focal_grad"],
+                  focal_padded_zero=bool((xf.grad[..., real:] == 0).all()))
+
+    def focal_step():
+        xf.grad = None
+        focal_loss(xf, cls, npos, real, c["alpha"], c["gamma"]).backward()
+
+    out["focal"] = dict(shape=list(logits.shape), real_classes=real,
+                        positives=npos, loss=float(fl.detach()), rel_err=f_err,
+                        grad_rel_err=f_grad,
+                        fwd_bwd_ms=time_ms(focal_step, iters=5, warmup=1))
+    del logits, xf, x64, r, cls
+    torch.cuda.empty_cache()
+
+    # RNN-T joint + loss
+    c = RNNT_CARD
+    gl = torch.Generator().manual_seed(51)
+    B = c["batch"]
+    f_len = torch.randint(c["t_lo"], c["t_hi"] + 1, (B,), generator=gl)
+    y_len = torch.randint(c["y_lo"], c["y_hi"] + 1, (B,), generator=gl)
+    T, U = int(f_len.max()), int(y_len.max()) + 1
+    H, V = c["hidden"], c["vocab"]
+    label = torch.randint(1, V, (B, U - 1), generator=gl)
+    f = (torch.randn(B, T, H, generator=g, device=device) * 0.5).to(
+        torch.bfloat16).requires_grad_()
+    gp = (torch.randn(B, U, H, generator=g, device=device) * 0.5).to(
+        torch.bfloat16).requires_grad_()
+    proj = torch.nn.Linear(H, V, device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        proj.weight.normal_(0.0, 0.05, generator=g)
+        proj.bias.zero_()
+    joint, loss_fn = TransducerJoint(relu=True), TransducerLoss()
+    fl_d, yl_d, lab_d = (t.to(device) for t in (f_len, y_len, label))
+
+    def logits_of():
+        return proj(joint(f, gp, fl_d, yl_d))
+
+    xj = logits_of().detach().requires_grad_()
+    losses = loss_fn(xj, lab_d, fl_d, yl_d, 0)
+    losses.sum().backward()
+    rn_checks = dict(finite=bool(torch.isfinite(losses).all()))
+    compared = []
+    for i in range(c["checked"]):
+        ref_loss, ref_dx = _rnnt_fp64(
+            xj[i].detach().float().cpu().numpy(), label[i].numpy(),
+            int(f_len[i]), int(y_len[i]))
+        fl_i, yl_i = int(f_len[i]), int(y_len[i])
+        got_dx = xj.grad[i, :fl_i, :yl_i + 1].float().cpu().numpy()
+        compared.append(dict(
+            seq=i, f_len=fl_i, y_len=yl_i, loss=float(losses[i]),
+            ref_loss=float(ref_loss),
+            loss_rel_err=abs(float(losses[i]) - ref_loss) / abs(ref_loss),
+            grad_rel_err=float(np.abs(got_dx - ref_dx).max()
+                               / np.abs(ref_dx).max())))
+    rn_checks["loss_fp64"] = all(r["loss_rel_err"] <= LOSS_TOL["rnnt"]
+                                 for r in compared)
+    rn_checks["grad_fp64"] = all(r["grad_rel_err"] <= LOSS_TOL["rnnt_grad"]
+                                 for r in compared)
+    for k, ok in rn_checks.items():
+        checks[f"rnnt_{k}"] = ok
+
+    def rnnt_loss_step():
+        xj.grad = None
+        loss_fn(xj, lab_d, fl_d, yl_d, 0).sum().backward()
+
+    def rnnt_full_step():
+        for p in (f, gp, *proj.parameters()):
+            p.grad = None
+        loss_fn(logits_of(), lab_d, fl_d, yl_d, 0).mean().backward()
+
+    out["transducer"] = dict(
+        batch=B, T=T, U=U, hidden=H, vocab=V, f_len=f_len.tolist(),
+        y_len=y_len.tolist(), losses_finite=rn_checks["finite"],
+        compared=compared,
+        loss_fwd_bwd_ms=time_ms(rnnt_loss_step, iters=3, warmup=1),
+        joint_proj_loss_fwd_bwd_ms=time_ms(rnnt_full_step, iters=3, warmup=1),
+        loss_fwd_bwd_device_kernels=_kernel_launches(rnnt_loss_step),
+        lattice_note="the DP loops over T: a fixed handful of launches a "
+                     "row of alpha and of beta")
+    del f, gp, proj, xj
+    torch.cuda.empty_cache()
+    out.update(checks=checks, s=time.perf_counter() - t_phase,
+               tolerance=f"xentropy: |loss - ref| <= {LOSS_TOL['xent']} "
+                         f"(1 + |ref|), gradient <= {LOSS_TOL['xent_grad']} "
+                         f"of max |ref| (fp32 F.cross_entropy); focal: loss "
+                         f"<= {LOSS_TOL['focal']} relative, gradient <= "
+                         f"{LOSS_TOL['focal_grad']} of max |ref| (fp64); "
+                         f"RNN-T: loss <= {LOSS_TOL['rnnt']} relative, logit "
+                         f"gradient <= {LOSS_TOL['rnnt_grad']} of max |ref| "
+                         f"(float64 on the host)")
+    log("phase3-contrib-losses", **out)
+    _failed("contrib losses", checks)
+    return out
+
+
+def small_contrib_norms_check(device) -> dict:
+    """GroupNorm (swish), BatchNorm2d_NHWC (with z), the four convolution
+    forms and ``index_mul_2d`` at small sizes, fp32, card against CPU: the
+    output and every gradient within ``CONTRIB_SMALL_TOL`` of the largest
+    reference value."""
+    import torch
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+
+    gc = torch.Generator().manual_seed(60)
+    rnd = lambda *s: torch.randn(*s, generator=gc)  # noqa: E731
+    x_gn, x_bn, z_bn = rnd(2, 8, 8, 64), rnd(4, 5, 5, 16), rnd(4, 5, 5, 16)
+    x_c, w_c, b_c = rnd(2, 8, 8, 8), rnd(8, 8, 3, 3), rnd(8)
+    s_c, m_c = rnd(8), (rnd(2, 8, 8, 8) > 0).float()
+    in1, in2 = rnd(10, 16), rnd(32, 16)
+    idx = torch.randint(0, 10, (32,), generator=gc)
+
+    def run(dev):
+        res = {}
+        gn = GroupNorm(32, 64, act="swish", device=dev)
+        bn = BatchNorm2d_NHWC(16, fuse_relu=True, device=dev)
+        with torch.no_grad():
+            gn.weight.copy_(torch.linspace(0.5, 1.5, 64))
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 16))
+        cases = {
+            "group_norm": (lambda x: gn(x), (x_gn,)),
+            "bn_addrelu": (lambda x, z: bn(x, z), (x_bn, z_bn)),
+            "conv_bias": (lambda x, w: cbr.ConvBias(x, w, b_c.to(dev), 1),
+                          (x_c, w_c)),
+            "conv_bias_relu": (lambda x, w: cbr.ConvBiasReLU(
+                x, w, b_c.to(dev), 1), (x_c, w_c)),
+            "conv_bias_mask_relu": (lambda x, w: cbr.ConvBiasMaskReLU(
+                x, w, b_c.to(dev), m_c.to(dev), 1), (x_c, w_c)),
+            "conv_frozen": (lambda x, w: cbr.ConvFrozenScaleBiasReLU(
+                x, w, s_c.to(dev), b_c.to(dev), 1), (x_c, w_c)),
+            "index_mul_2d": (lambda a, c: index_mul_2d(a, c, idx.to(dev)),
+                             (in1, in2))}
+        for name, (fn, args) in cases.items():
+            ins = [a.detach().to(dev).requires_grad_() for a in args]
+            y = fn(*ins)
+            y.backward(torch.ones_like(y) * 0.5 + y.detach() * 0.1)
+            res[name] = [y.detach().cpu()] + [a.grad.cpu() for a in ins]
+        for n, p in list(gn.named_parameters()) + list(bn.named_parameters()):
+            res[f"param_{n}_{p.numel()}"] = [p.grad.cpu()]
+        return res
+
+    cpu, card = run("cpu"), run(device)
+    errs = {k: max(_rel(a, b) for a, b in zip(card[k], cpu[k])) for k in cpu}
+    checks = {k: v <= CONTRIB_SMALL_TOL for k, v in errs.items()}
+    out = dict(rel_errs=errs, checks=checks,
+               tolerance=f"max |card - cpu| <= {CONTRIB_SMALL_TOL} max |cpu|, "
+                         f"fp32, TF32 off")
+    log("phase3-contrib-norms-small", **out)
+    _failed("small contrib norms", checks)
+    return out
+
+
+def _fb_ms(fn, *ins, iters=5):
+    """Eager ms of ``fn(*ins)``'s forward and backward (of its sum)."""
+    def step():
+        for t in ins:
+            t.grad = None
+        fn(*ins).float().sum().backward()
+
+    return time_ms(step, iters=iters, warmup=1)
+
+
+def contrib_norms(device, smi: str) -> dict:
+    """The norms and the convolution and gather epilogues at their users'
+    shapes, bf16 unless said, each forward and backward, none launching a
+    kernel of the port:
+
+    - ``GroupNorm(32, act="swish")`` at Stable Diffusion v1.5's UNet
+      resolutions (``GN_SHAPES`` at b 8, channels last) against
+      ``F.group_norm`` + SiLU on the same tensors (an NCHW view), within
+      ``NORM_TOL`` of the largest value, both timed;
+    - ``BatchNorm2d_NHWC`` (with z) and ``GroupBatchNorm2d`` at ResNet-50's
+      first stage over an NCCL group of 1, against fp32 training-mode
+      ``F.batch_norm``;
+    - the four ``conv_bias_relu`` forms at ResNet-50's 3x3 64 -> 64 in
+      bf16 and fp32 (TF32 as the card phase leaves it: off), timed;
+    - ``index_mul_2d`` at ``INDEX_MUL_CARD`` in fp32 against fp64, its
+      scatter-add's bits over two backward calls reported;
+    - the small card-against-CPU check."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib.cudnn_gbn import (
+        GroupBatchNorm2d,
+        bn_group_index_groups,
+    )
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+    from apex_tpu_torch.ops import _dispatch
+
+    t_phase = time.perf_counter()
+    out = dict(nvidia_smi=smi, tf32=dict(
+        matmul=torch.backends.cuda.matmul.allow_tf32,
+        cudnn=torch.backends.cudnn.allow_tf32))
+    checks = {}
+    out["small"] = small_contrib_norms_check(device)
+    _dispatch.reset_launches()
+    g = torch.Generator(device=device).manual_seed(61)
+    bf = torch.bfloat16
+
+    # GroupNorm over the UNet's shapes
+    out["group_norm"] = []
+    for hw, ch in GN_SHAPES:
+        gn = GroupNorm(32, ch, act="swish", device=device)
+        with torch.no_grad():
+            gn.weight.normal_(1.0, 0.1, generator=g)
+            gn.bias.normal_(0.0, 0.1, generator=g)
+        x = torch.randn(GN_BATCH, hw, hw, ch, generator=g, device=device).to(bf)
+        lib = lambda t: F.silu(F.group_norm(  # noqa: E731
+            t.permute(0, 3, 1, 2), 32, gn.weight.to(bf), gn.bias.to(bf),
+            gn.eps))
+        xa = x.detach().requires_grad_()
+        xb = x.detach().requires_grad_()
+        ya, yb = gn(xa), lib(xb).permute(0, 2, 3, 1)
+        ya.float().sum().backward()
+        yb.float().sum().backward()
+        ref = F.silu(F.group_norm(x.float().permute(0, 3, 1, 2), 32,
+                                  gn.weight, gn.bias, gn.eps)).permute(
+                                      0, 2, 3, 1)
+        errs = dict(out=_rel(ya, ref), library_out=_rel(yb, ref),
+                    dx_vs_library=_rel(xa.grad, xb.grad))
+        checks[f"group_norm_{hw}_{ch}"] = (errs["out"] <= NORM_TOL
+                                           and errs["dx_vs_library"]
+                                           <= 4 * NORM_TOL)
+        out["group_norm"].append(dict(
+            shape=[GN_BATCH, hw, hw, ch], rel_errs=errs,
+            fwd_bwd_ms=_fb_ms(gn, xa), library_fwd_bwd_ms=_fb_ms(lib, xb),
+            library_call="F.silu(F.group_norm(NCHW view))"))
+        del gn, x, xa, xb, ya, yb, ref
+    torch.cuda.empty_cache()
+
+    # the batch norms at ResNet-50's first stage, NCCL world of 1
+    c = BN_CARD
+    shape = (c["batch"], c["hw"], c["hw"], c["channels"])
+    x = torch.randn(*shape, generator=g, device=device).to(bf)
+    z = torch.randn(*shape, generator=g, device=device).to(bf)
+    ref = F.batch_norm(x.float().permute(0, 3, 1, 2), None, None,
+                       training=True).permute(0, 2, 3, 1)
+    out["batch_norm"] = {}
+    with _nccl_world("gbn_rdv_") as group:
+        nhwc = BatchNorm2d_NHWC(c["channels"], fuse_relu=True,
+                                process_group=group, device=device)
+        gbn = GroupBatchNorm2d(
+            c["channels"], process_group=group, device=device,
+            axis_index_groups=bn_group_index_groups(1, 1))
+        for name, m, args, want in (
+                ("bn_nhwc_addrelu", nhwc, (x, z),
+                 torch.relu(ref + z.float())),
+                ("group_bn", gbn, (x,), ref)):
+            ins = [a.detach().requires_grad_() for a in args]
+            y = m(*ins)
+            y.float().sum().backward()
+            err = _rel(y, want)
+            checks[name] = err <= NORM_TOL and bool(
+                torch.isfinite(ins[0].grad).all())
+            out["batch_norm"][name] = dict(
+                shape=list(shape), rel_err=err,
+                fwd_bwd_ms=_fb_ms(m, *ins))
+        del nhwc, gbn
+    del x, z, ref
+    torch.cuda.empty_cache()
+
+    # the convolution forms at ResNet-50's 3x3, bf16 and fp32
+    c = CONV_CARD
+    out["conv"] = {}
+    for dt in (bf, torch.float32):
+        x = torch.randn(c["batch"], c["cin"], c["hw"], c["hw"], generator=g,
+                        device=device).to(dt).to(
+                            memory_format=torch.channels_last)
+        w = (torch.randn(c["cout"], c["cin"], 3, 3, generator=g, device=device)
+             * 0.05).to(dt).to(memory_format=torch.channels_last)
+        bias = torch.randn(c["cout"], generator=g, device=device).to(dt)
+        scale = torch.rand(c["cout"], generator=g, device=device).to(dt)
+        mask = (torch.rand(c["batch"], c["cout"], c["hw"], c["hw"],
+                           generator=g, device=device) > 0.1).to(dt)
+        forms = {
+            "ConvBias": lambda x, w: cbr.ConvBias(x, w, bias, 1),
+            "ConvBiasReLU": lambda x, w: cbr.ConvBiasReLU(x, w, bias, 1),
+            "ConvBiasMaskReLU": lambda x, w: cbr.ConvBiasMaskReLU(
+                x, w, bias, mask, 1),
+            "ConvFrozenScaleBiasReLU": lambda x, w: cbr.ConvFrozenScaleBiasReLU(
+                x, w, scale, bias, 1)}
+        x64 = x.double()
+        y_ref = F.conv2d(x64, w.double(), padding=1)
+        name_dt = str(dt).split(".")[-1]
+        for name, fn in forms.items():
+            xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
+            y = fn(xi, wi)
+            y.float().sum().backward()
+            pre = {"ConvBias": y_ref + bias.double()[:, None, None],
+                   "ConvBiasReLU": torch.relu(y_ref
+                                              + bias.double()[:, None, None]),
+                   "ConvBiasMaskReLU": torch.relu(
+                       (y_ref + bias.double()[:, None, None]) * mask.double()),
+                   "ConvFrozenScaleBiasReLU": torch.relu(
+                       y_ref * scale.double()[:, None, None]
+                       + bias.double()[:, None, None])}[name]
+            err = _rel(y, pre)
+            checks[f"{name}_{name_dt}"] = err <= (
+                NORM_TOL if dt == bf else 1e-5)
+            out["conv"][f"{name}_{name_dt}"] = dict(
+                rel_err_vs_fp64=err, fwd_bwd_ms=_fb_ms(fn, xi, wi),
+                shape=[c["batch"], c["cin"], c["hw"], c["hw"], c["cout"]],
+                layout="NCHW-logical, channels_last memory, OIHW weights")
+        del x, w, x64, y_ref, mask
+    torch.cuda.empty_cache()
+
+    # index_mul_2d
+    c = INDEX_MUL_CARD
+    in1 = torch.randn(c["rows"], c["hidden"], generator=g, device=device)
+    in2 = torch.randn(c["n"], c["hidden"], generator=g, device=device)
+    idx = torch.randint(0, c["rows"], (c["n"],), generator=g, device=device)
+    a, b2 = in1.detach().requires_grad_(), in2.detach().requires_grad_()
+    y = index_mul_2d(a, b2, idx)
+    y.backward(in2)
+    first = a.grad.clone()
+    a.grad = b2.grad = None
+    index_mul_2d(a, b2, idx).backward(in2)
+    ref1 = torch.zeros_like(in1, dtype=torch.float64).index_add_(
+        0, idx, in2.double() * in2.double())
+    err_f = _rel(y, in1[idx] * in2)
+    err_b = _rel(a.grad, ref1)
+    checks["index_mul_2d"] = err_f == 0.0 and err_b <= INDEX_MUL_TOL
+    out["index_mul_2d"] = dict(
+        **c, dtype="float32", fwd_max_rel_err=err_f, grad_in1_rel_err=err_b,
+        grad_in1_bits_equal_over_two_calls=bool(torch.equal(first, a.grad)),
+        fwd_bwd_ms=_fb_ms(lambda p, q: index_mul_2d(p, q, idx), a, b2))
+    del in1, in2, idx, a, b2, y, first, ref1
+    torch.cuda.empty_cache()
+    out["launches"] = _launch_counts()
+    _launch_gate("contrib norms", out["launches"], {})
+    out.update(checks=checks, s=time.perf_counter() - t_phase,
+               tolerance=f"bf16: <= {NORM_TOL} of max |fp32 or fp64 ref| "
+                         f"(the group norm's input gradient against the "
+                         f"library's <= {4 * NORM_TOL}); fp32 convolutions "
+                         f"<= 1e-5 of max |fp64|; index_mul_2d forward "
+                         f"exact, grad_in1 <= {INDEX_MUL_TOL} of max |fp64| "
+                         f"(atomics)")
+    log("phase3-contrib-norms", **{k: v for k, v in out.items()
+                                   if k != "small"})
+    _failed("contrib norms", checks)
+    return out
+
+
+def sparsity_check(device, smi: str) -> dict:
+    """ASP on BERT-large (``bert_pretrain.LARGE``, O2 bf16, FusedLAMB with
+    bf16 moments): ``init_model_for_pruning("m4n2_1d")`` over the
+    transformer layers' linear weights, the optimizer wrapped, then
+    ``compute_sparse_masks`` on the card, each mask equal to the one
+    computed on the CPU copy of the same weight; ``SPARSITY_STEPS``
+    fine-tuning steps, after each every masked group of 4 holding at most
+    2 nonzeros and the loss finite; the permutation search on one weight's
+    ``PERM_CARD`` slice, its host seconds."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.contrib.sparsity import (
+        ASP,
+        accelerated_search_for_good_permutation,
+        apply_permutation,
+        create_mask,
+        sum_after_2_to_4,
+    )
+    from apex_tpu_torch.examples import bert_pretrain as bp
+
+    t_phase = time.perf_counter()
+    c = bp.LARGE
+    model, opt = bp.build(c["layers"], c["hidden"], c["heads"], c["vocab"],
+                          c["seq"], o2=True, state_dtype=torch.bfloat16,
+                          device=device)
+    batch = bp.to_device(bp.bench_batch(np.random.default_rng(0), c["batch"],
+                                        c["seq"], c["vocab"]), device)
+    checks = {}
+    ASP.reset()
+    try:
+        ASP.init_model_for_pruning(model, "m4n2_1d", verbosity=0,
+                                   allowed_layer_names=["transformer.layers"])
+        ASP.init_optimizer_for_pruning(opt)
+        params = dict(model.named_parameters())
+        host = {n: params[n].detach().cpu() for n in ASP.masks()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = ASP.compute_sparse_masks()
+        torch.cuda.synchronize()
+        mask_s = time.perf_counter() - t0
+        differ = [n for n, w in host.items()
+                  if not torch.equal(create_mask(w), masks[n].cpu())]
+        checks["masks_equal_cpu"] = not differ
+        checks["pruned_half"] = all(
+            float((params[n] == 0).float().mean()) >= 0.5 for n in masks)
+        losses, worst = [], []
+        for _ in range(SPARSITY_STEPS):
+            losses.append(float(bp.train_step(model, opt, batch)))
+            worst.append(max(int((params[n].detach().reshape(-1, 4) != 0)
+                                 .sum(-1).max()) for n in masks))
+        checks["two_of_four"] = max(worst) <= 2
+        checks["finite"] = all(np.isfinite(losses))
+        checks["masked_zero"] = all(
+            bool((params[n][~m] == 0).all()) for n, m in masks.items())
+        shapes = sorted({tuple(params[n].shape) for n in masks})
+        n_masked = sum(params[n].numel() for n in masks)
+    finally:
+        ASP.reset()
+    name = "language_model.transformer.layers.0.self_attention.dense.weight"
+    w = host[name].float().numpy()[:PERM_CARD["rows"], :PERM_CARD["cols"]]
+    t0 = time.perf_counter()
+    perm = accelerated_search_for_good_permutation(w, PERM_CARD["options"])
+    perm_s = time.perf_counter() - t0
+    before, after = sum_after_2_to_4(w), sum_after_2_to_4(
+        apply_permutation(w, perm))
+    checks["permutation"] = (sorted(perm.tolist()) == list(range(w.shape[1]))
+                             and after >= before)
+    out = dict(nvidia_smi=smi, config="bert-large", layers=c["layers"],
+               masked_weights=len(host), masked_elements=n_masked,
+               weight_shapes=[list(s) for s in shapes],
+               compute_masks_s=mask_s, masks_differ_from_cpu=differ,
+               losses=losses, max_nonzeros_per_group_of_4=worst,
+               permutation_search=dict(
+                   weight=name, slice=[PERM_CARD["rows"], PERM_CARD["cols"]],
+                   options=PERM_CARD["options"], host_s=perm_s,
+                   retained_before=before, retained_after=after,
+                   note="numpy on the host; a greedy round over all 1024 "
+                        "columns would allocate two [C(256, 2), 16, 1024, "
+                        "4] fp32 arrays (8.5 GB each)"),
+               checks=checks, s=time.perf_counter() - t_phase)
+    log("phase3-sparsity", **out)
+    del model, opt, batch, host
+    torch.cuda.empty_cache()
+    _failed("sparsity", checks)
+    return out
+
+
 ALONE = {
     "layer_norm": lambda device, smi: dict(
         main_path_max_abs_err=check_layer_norm(device),
@@ -11924,6 +13230,10 @@ ALONE = {
     "megatron_gpt": lambda device, smi: megatron_gpt_train(device, smi),
     "amp_o1": amp_o1_check,
     "supervised": supervised_train,
+    "contrib_attention": contrib_attention,
+    "contrib_losses": contrib_losses,
+    "contrib_norms": contrib_norms,
+    "sparsity": sparsity_check,
 }
 
 
@@ -12071,6 +13381,10 @@ def main(argv=()) -> int:
     megatron = megatron_gpt_train(device, smi)
     amp_o1 = amp_o1_check(device, smi)
     supervised = supervised_train(device, smi)
+    contrib_attn = contrib_attention(device, smi)
+    contrib_loss = contrib_losses(device, smi)
+    contrib_norm = contrib_norms(device, smi)
+    sparsity = sparsity_check(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -12102,7 +13416,15 @@ def main(argv=()) -> int:
                  gpt_flagship=gpt_flagship, bert_large=bert, vit_l16=vit,
                  gpt_1p3b_remat=gpt13["remat"], gpt_1p3b_plain=gpt13["plain"],
                  moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
-                 supervised=supervised, openfold=openfold)
+                 supervised=supervised,
+                 contrib_self_attn=contrib_attn["self"],
+                 contrib_encdec_attn=contrib_attn["encdec"],
+                 contrib_mask_softmax_binary=contrib_attn["mask_softmax"][
+                     "binary"],
+                 contrib_mask_softmax_additive=contrib_attn["mask_softmax"][
+                     "additive"],
+                 contrib_fmha_varlen=contrib_attn["fmha"],
+                 contrib_norms=contrib_norm, openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -12114,6 +13436,11 @@ def main(argv=()) -> int:
                     library_ms=row["library_ms"], main_path=main_path,
                     launches_by_path={p: r["launches"][k.name]
                                       for p, r in paths.items()}, **extra)
+
+    def contrib_row(row):
+        """A kernel's row at a contrib shape, with the launches a call."""
+        return {f: row[f] for f in ("shape", "ms", "bound_ms", "bound_by",
+                                    "plain_ms", "library_ms", "library_call")}
 
     def mt_entry(k, key, main_path, others=(), checked=()):
         row = mt_time[key]
@@ -12145,13 +13472,25 @@ def main(argv=()) -> int:
         entry(fa.FLASH_ATTENTION_FWD, flash_check["main_shape"]["o_max_abs_err"],
               flash_time, shape=flash_time["shape"], tflops=flash_time["tflops"],
               gpt2_large={k: flash_time["gpt2_large"][k] for k in (
-                  "ms", "tflops", "bound_ms", "library_ms", "library_tflops")}),
+                  "ms", "tflops", "bound_ms", "library_ms", "library_tflops")},
+              contrib_bert_padded=dict(
+                  contrib_row(contrib_attn["flash_rows"]["fwd"]),
+                  launches_per_call=1),
+              fmha_varlen={k: contrib_attn["fmha"][k] for k in (
+                  "total", "device_ms", "work_ratio", "packed_fwd_bound_ms",
+                  "packed_bwd_bound_ms", "plain_tol_ratios")}),
         entry(fa.FLASH_ATTENTION_DQ, fb["dq_max_abs_err"], flash_bwd_time["dq"],
               shape=flash_bwd_time["dq"]["shape"],
-              tflops=flash_bwd_time["dq"]["tflops"]),
+              tflops=flash_bwd_time["dq"]["tflops"],
+              contrib_bert_padded=dict(
+                  contrib_row(contrib_attn["flash_rows"]["dq"]),
+                  launches_per_call=1)),
         entry(fa.FLASH_ATTENTION_DKV, max(fb["dk_max_abs_err"], fb["dv_max_abs_err"]),
               flash_bwd_time["dkv"], shape=flash_bwd_time["dkv"]["shape"],
-              tflops=flash_bwd_time["dkv"]["tflops"]),
+              tflops=flash_bwd_time["dkv"]["tflops"],
+              contrib_bert_padded=dict(
+                  contrib_row(contrib_attn["flash_rows"]["dkv"]),
+                  launches_per_call=1)),
         entry(lh.FUSED_LM_HEAD_FWD, head_check["main_shape"]["loss_max_abs_err"],
               head_time, shape=head_time["shape"], tflops=head_time["tflops"],
               cublas_matmul_ms=head_time["cublas_matmul_ms"],
@@ -12167,10 +13506,16 @@ def main(argv=()) -> int:
               **{k: head_bwd_time["de"][k] for k in ("tflops", "cublas_matmul_ms")}),
         entry(sm.SCALED_SOFTMAX_FWD, softmax_check["main_shape"]["y_max_abs_err"],
               softmax_time["fwd"], main_path="gpt_kernel_path",
-              shape=softmax_time["fwd"]["shape"]),
+              shape=softmax_time["fwd"]["shape"],
+              contrib_mask_softmax=dict(
+                  contrib_row(contrib_attn["mask_softmax"]["rows"]["fwd"]),
+                  launches_per_call=1)),
         entry(sm.SCALED_SOFTMAX_BWD, softmax_check["main_shape"]["dx_max_abs_err"],
               softmax_time["bwd"], main_path="gpt_kernel_path",
-              shape=softmax_time["bwd"]["shape"]),
+              shape=softmax_time["bwd"]["shape"],
+              contrib_mask_softmax=dict(
+                  contrib_row(contrib_attn["mask_softmax"]["rows"]["bwd"]),
+                  launches_per_call=1)),
         entry(pu.LAMB_PHASE1, max(lamb_check["main_shape"][k] for k in (
             "m_max_abs_err", "v_max_abs_err", "u_max_abs_err")),
               lamb_time, main_path="gpt_kernel_path", shape=lamb_time["shape"]),
@@ -12240,7 +13585,10 @@ def main(argv=()) -> int:
                   llama_remat=llama_remat, dropout=dropout,
                   moe_reference=moe_reference, ring_reference=ring_reference,
                   moe=moe, cp=cp, halo=halo, megatron_gpt=megatron,
-                  amp_o1=amp_o1, supervised=supervised, kernels=kernels,
+                  amp_o1=amp_o1, supervised=supervised,
+                  contrib_attention=contrib_attn, contrib_losses=contrib_loss,
+                  contrib_norms=contrib_norm, sparsity=sparsity,
+                  kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -98,7 +98,7 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.transformer.moe, "
         "apex_tpu_torch.transformer.context_parallel, "
         "apex_tpu_torch.contrib.halo, apex_tpu_torch.contrib.halo.bottleneck, "
-        "apex_tpu_torch.utils.conv, "
+        "apex_tpu_torch.utils.conv, apex_tpu_torch.utils.dropout, "
         "apex_tpu_torch.contrib.halo.halo_exchange, "
         "apex_tpu_torch.transformer.log_util, "
         "apex_tpu_torch.transformer.testing.arguments, "
@@ -111,7 +111,15 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.resilience.guarded, "
         "apex_tpu_torch.resilience.data_guard, "
         "apex_tpu_torch.resilience.consistency, "
-        "apex_tpu_torch.fused_dense, apex_tpu_torch.mlp\n"
+        "apex_tpu_torch.fused_dense, apex_tpu_torch.mlp, "
+        "apex_tpu_torch.contrib.multihead_attn, apex_tpu_torch.contrib.fmha, "
+        "apex_tpu_torch.contrib.xentropy, apex_tpu_torch.contrib.focal_loss, "
+        "apex_tpu_torch.contrib.transducer, "
+        "apex_tpu_torch.contrib.group_norm, apex_tpu_torch.contrib.groupbn, "
+        "apex_tpu_torch.contrib.cudnn_gbn, "
+        "apex_tpu_torch.contrib.conv_bias_relu, "
+        "apex_tpu_torch.contrib.index_mul_2d, "
+        "apex_tpu_torch.contrib.sparsity\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -440,5 +448,88 @@ def test_new_entry_points_default_to_cuda():
                  lambda: FusedDense(2, 2), lambda: DenseNoBias(2, 2),
                  lambda: FusedDenseGeluDense(2, 4, 2),
                  lambda: MLP([2, 2])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+# the contrib modules of the zoo: (port module, its JAX twin's source)
+_CONTRIB = [
+    ("multihead_attn", "multihead_attn/__init__.py"),
+    ("fmha", "fmha.py"),
+    ("xentropy", "xentropy/__init__.py"),
+    ("xentropy.softmax_xentropy", "xentropy/softmax_xentropy.py"),
+    ("focal_loss", "focal_loss/__init__.py"),
+    ("focal_loss.focal_loss", "focal_loss/focal_loss.py"),
+    ("transducer", "transducer/__init__.py"),
+    ("transducer.transducer", "transducer/transducer.py"),
+    ("group_norm", "group_norm/__init__.py"),
+    ("group_norm.group_norm", "group_norm/group_norm.py"),
+    ("groupbn", "groupbn/__init__.py"),
+    ("groupbn.batch_norm", "groupbn/batch_norm.py"),
+    ("cudnn_gbn", "cudnn_gbn/__init__.py"),
+    ("cudnn_gbn.batch_norm", "cudnn_gbn/batch_norm.py"),
+    ("conv_bias_relu", "conv_bias_relu/__init__.py"),
+    ("conv_bias_relu.conv_bias_relu", "conv_bias_relu/conv_bias_relu.py"),
+    ("index_mul_2d", "index_mul_2d/__init__.py"),
+    ("index_mul_2d.index_mul_2d", "index_mul_2d/index_mul_2d.py"),
+    ("sparsity", "sparsity/__init__.py"),
+    ("sparsity.asp", "sparsity/asp.py"),
+    ("sparsity.sparse_masklib", "sparsity/sparse_masklib.py"),
+    ("sparsity.permutation_search", "sparsity/permutation_search.py"),
+]
+
+
+@pytest.mark.parametrize("port,ref", _CONTRIB, ids=[c[0] for c in _CONTRIB])
+def test_contrib_modules_export_the_jax_names(port, ref):
+    """Each contrib module carries its JAX twin's ``__all__`` (read from
+    the source, so no JAX is imported), in its order, every name reached
+    by ``getattr``; the module also reaches the JAX names that its twin
+    defines outside ``__all__`` (``segment_ids_from_cu_seqlens``,
+    ``pack_joint_output``)."""
+    import importlib
+
+    module = importlib.import_module(f"apex_tpu_torch.contrib.{port}")
+    want = _jax_all(f"apex_tpu/contrib/{ref}")
+    assert list(module.__all__) == list(want)
+    assert [n for n in want if getattr(module, n, None) is None] == []
+    extra = {"fmha": ["segment_ids_from_cu_seqlens"],
+             "transducer.transducer": ["pack_joint_output"]}
+    assert all(callable(getattr(module, n)) for n in extra.get(port, ()))
+
+
+def test_contrib_lists_the_jax_submodules():
+    """``apex_tpu_torch.contrib`` lists JAX's ``_SUBMODULES`` (read from its
+    source), and each loads as an attribute of the package."""
+    import ast
+
+    import apex_tpu_torch.contrib as contrib
+
+    tree = ast.parse((ROOT / "apex_tpu/contrib/__init__.py").read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "_SUBMODULES"
+                        for t in node.targets))
+    assert "RNN" not in want
+    assert tuple(contrib._SUBMODULES) == tuple(want)
+    for name in want:
+        assert getattr(contrib, name).__name__ == \
+            f"apex_tpu_torch.contrib.{name}"
+        assert name in dir(contrib)
+    with pytest.raises(AttributeError):
+        contrib.RNN
+
+
+def test_contrib_modules_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable")
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+
+    for make in (lambda: SelfMultiheadAttn(64, 2),
+                 lambda: EncdecMultiheadAttn(64, 2),
+                 lambda: GroupNorm(4, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
