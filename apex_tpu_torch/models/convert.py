@@ -127,7 +127,8 @@ optimizer's ``state``, by the same name map as the weights; a JAX
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+import re
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,7 +144,8 @@ __all__ = ["llama_params_from_jax", "gpt_params_from_jax",
            "transformer_lm_params_from_jax", "bottleneck_params_from_jax",
            "dense_params_from_jax", "multihead_attn_params_from_jax",
            "group_norm_params_from_jax", "groupbn_params_from_jax",
-           "conv_params_from_jax"]
+           "conv_params_from_jax", "conv_transpose_params_from_jax",
+           "rnn_params_from_jax", "dcgan_params_from_jax"]
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
@@ -697,3 +699,98 @@ def conv_params_from_jax(kernel) -> torch.Tensor:
     if arr.ndim != 4:
         raise ValueError(f"an HWIO kernel is 4-d, got shape {arr.shape}")
     return _tensor(arr.transpose(3, 2, 0, 1))
+
+
+_RNN_LEAVES = ("w_ih", "w_hh", "b_ih", "b_hh", "w_mih", "w_mhh")
+
+
+def rnn_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A CPU ``state_dict`` for :class:`~apex_tpu_torch.RNN.RNNBackend`
+    (any factory of ``apex_tpu_torch.RNN``) from the flax module's tree:
+    ``layer{l}_dir{d}/<leaf>`` to ``layer{l}_dir{d}.<leaf>``, every leaf
+    in the JAX layout (``w_ih`` ``[in, gate]``, ``w_hh`` ``[hidden,
+    gate]``, ...).  Raises on any other leaf."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    expected = {}
+    for path in _flatten(tree):
+        layer, _, leaf = path.partition("/")
+        if re.fullmatch(r"layer\d+_dir[01]", layer) and leaf in _RNN_LEAVES:
+            expected[path] = (f"{layer}.{leaf}", False)
+    return _convert(tree, expected, "RNN")
+
+
+def _dense_hwc_out(kernel, bias, hw: int) -> tuple:
+    """A flax ``Dense`` whose output features are an NHWC ``[hw, hw, C]``
+    flatten, as the ``[out, in]`` weight and bias of a linear layer whose
+    outputs are the NCHW ``[C, hw, hw]`` flatten."""
+    k = np.asarray(kernel)
+    c = k.shape[1] // (hw * hw)
+    w = k.reshape(k.shape[0], hw, hw, c).transpose(3, 1, 2, 0)
+    b = np.asarray(bias).reshape(hw, hw, c).transpose(2, 0, 1)
+    return _tensor(w.reshape(-1, k.shape[0])), _tensor(b.reshape(-1))
+
+
+def _dense_hwc_in(kernel, hw: int) -> torch.Tensor:
+    """A flax ``Dense`` kernel over an NHWC ``[hw, hw, C]`` flatten, as the
+    ``[out, in]`` weight of a linear layer over the NCHW flatten."""
+    k = np.asarray(kernel)
+    c = k.shape[0] // (hw * hw)
+    w = k.reshape(hw, hw, c, k.shape[1]).transpose(3, 2, 0, 1)
+    return _tensor(w.reshape(k.shape[1], -1))
+
+
+def conv_transpose_params_from_jax(kernel) -> torch.Tensor:
+    """A flax ``ConvTranspose`` kernel ``[kh, kw, in, out]`` (numpy) as the
+    ``[in, out, kh, kw]`` weight of ``nn.ConvTranspose2d``, flipped in
+    both spatial axes: flax's transposed convolution does not flip its
+    kernel, PyTorch's (the gradient of a convolution) does."""
+    arr = np.asarray(kernel)
+    if arr.ndim != 4:
+        raise ValueError(f"a [kh, kw, in, out] kernel is 4-d, got shape "
+                         f"{arr.shape}")
+    return _tensor(arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+
+
+def dcgan_params_from_jax(g_tree: Mapping, d_tree: Mapping
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]:
+    """CPU ``state_dict``s ``(generator, discriminator)`` for
+    :mod:`apex_tpu_torch.examples.dcgan_main_amp` from the flax
+    ``Generator``'s and ``Discriminator``'s trees (NHWC there, NCHW
+    here): each ``Dense_0`` reordered between the NHWC and NCHW flattens
+    of its ``4 x 4`` side, each ``ConvTranspose_i`` kernel through
+    :func:`conv_transpose_params_from_jax`, each ``Conv_i`` kernel
+    through :func:`conv_params_from_jax`, ``LayerNorm_i`` ``scale`` and
+    ``bias`` as they are.  Raises on a leaf it does not consume."""
+    g = dict(_flatten(g_tree["params"] if set(g_tree) == {"params"}
+                      else g_tree))
+    d = dict(_flatten(d_tree["params"] if set(d_tree) == {"params"}
+                      else d_tree))
+
+    def take(flat, path):
+        if path not in flat:
+            raise ValueError(f"flax DCGAN tree has no leaf {path!r}")
+        return flat.pop(path)
+
+    gs, ds = {}, {}
+    gs["Dense_0.weight"], gs["Dense_0.bias"] = _dense_hwc_out(
+        take(g, "Dense_0/kernel"), take(g, "Dense_0/bias"), 4)
+    for i in range(3):
+        gs[f"ConvTranspose_{i}.weight"] = conv_transpose_params_from_jax(
+            take(g, f"ConvTranspose_{i}/kernel"))
+        gs[f"ConvTranspose_{i}.bias"] = _tensor(np.asarray(
+            take(g, f"ConvTranspose_{i}/bias")))
+    for i in range(2):
+        for leaf in ("scale", "bias"):
+            gs[f"LayerNorm_{i}.{leaf}"] = _tensor(np.asarray(
+                take(g, f"LayerNorm_{i}/{leaf}")))
+    for i in range(3):
+        ds[f"Conv_{i}.weight"] = conv_params_from_jax(take(d, f"Conv_{i}/kernel"))
+        ds[f"Conv_{i}.bias"] = _tensor(np.asarray(take(d, f"Conv_{i}/bias")))
+    ds["Dense_0.weight"] = _dense_hwc_in(take(d, "Dense_0/kernel"), 4)
+    ds["Dense_0.bias"] = _tensor(np.asarray(take(d, "Dense_0/bias")))
+    if g or d:
+        raise ValueError(f"flax DCGAN trees do not match: unconsumed "
+                         f"{sorted(g)} {sorted(d)}")
+    return gs, ds

@@ -74,7 +74,11 @@ ends the run with a non-zero exit and no result line:
    library's list call (``torch._fused_adamw_``,
    ``torch._amp_foreach_non_finite_check_and_unscale_``,
    ``torch._foreach_norm``), each also held against its plain version on a
-   sub-list of its real list.
+   sub-list of its real list.  ``mt_lamb`` and ``mt_adam`` are also held
+   on the lists of the other paths that step them (BERT-large, GPT-1.3B,
+   the MoE GPT-2-medium; ViT-L/16, the mLSTM, the DCGAN's two with fp16
+   masters), and ``mt_scale``'s overflow check on the DCGAN's and
+   ResNet-50's O1-O3 gradients (``check_multi_tensor_model_lists``).
 3. **End to end**, the paths below, each with the launch counts set to 0 just
    before it and read just after:
 
@@ -375,6 +379,30 @@ ends the run with a non-zero exit and no result line:
      convolution forms in bf16 and fp32, ``index_mul_2d``.  ASP on
      BERT-large: masks on the card equal to the CPU's, 3 LAMB steps
      keeping 2 of every 4, the permutation search timed on the host.
+   - *RNN* (``phase3-rnn``): every cell type of ``apex_tpu_torch.RNN``,
+     one-way and bidirectional, 2 layers, card against CPU (output,
+     finals, every gradient within ``RNN_SMALL_TOL``); then a byte-level
+     language model at Radford et al. 2017's widths (a 64-wide byte
+     embedding, ``mLSTM(64, 4096)``, a 4096 -> 256 head; 256 bytes x 128,
+     fp32) trained 1 + 4 steps under ``FusedAdam``: exactly 1 ``mt_adam``
+     a step, a falling loss, step p50 with its forward / backward /
+     update split on CUDA events, idle share, peak; and one sequence
+     run in two halves through the returned hidden state against it whole.
+   - *DCGAN* (``phase3-dcgan``): ``examples/dcgan_main_amp.py``'s
+     ``train`` at JAX's sizes on the card and on the CPU (O0 and fp16
+     O2, 4 steps); then at the DCGAN paper's widths (32 x 32 x 3, nz
+     100, ngf = ndf = 64, batch 128) 20 fp16 O2 steps with three scalers:
+     2 ``mt_adam`` and 3 ``mt_scale`` launches a step, finite losses and
+     scales, step p50, idle share, peak; an inf written into loss 1's
+     gradients keeps every discriminator bit, steps the generator and
+     halves scaler 1 alone.
+   - *convergence* (``phase3-convergence``):
+     ``examples/imagenet_run_convergence.py``'s cross product at
+     ResNet-50's width (224^2, batch 128, 1000 classes, bf16 half, 12
+     steps, lr 0.05): O0 and O1-O3 x 4 loss scales, every combination
+     within rtol 0.15 / atol 0.25 of O0 and falling; ``mt_scale`` once a
+     step where a scale is set, nothing else; each run's wall, step p50,
+     peak, and an O0 and an O2 step profiled.
    - *openfold*: a small fp32 MSA-row attention block with pair bias at
      N_res 1024 (routed to the pair-bias kernels): loss, every gradient
      (z's through the bias) and 3 ``FusedAdamSWA`` steps on the card
@@ -3534,7 +3562,8 @@ def _mt_adam_kw(mode, device, **extra) -> dict:
                 eps=h["eps"], weight_decay=0.01,
                 inv_scale=extra.pop("inv_scale", None),
                 bc1=torch.tensor(0.19, device=device),
-                bc2=torch.tensor(0.002, device=device), noop=None,
+                bc2=torch.tensor(0.002, device=device),
+                noop=extra.pop("noop", None),
                 step=extra.pop("step", None),
                 n_averaged=extra.pop("n_averaged", None),
                 swa_weight=extra.pop("swa_weight", 0.0),
@@ -3630,14 +3659,28 @@ def _o2_spec(model, layers: int) -> list:
             + spec[block[-1] + 1:])
 
 
+def _param_spec(params) -> list:
+    """``[(shape, dtype)]`` of ``params`` in their order."""
+    return [(tuple(p.shape), str(p.dtype).replace("torch.", ""))
+            for p in params]
+
+
 def mt_model_lists(device) -> dict:
     """The parameter lists the optimizers of the BERT-large, GPT-1.3B,
     MoE GPT-2-medium (mt_lamb) and ViT-L/16 (mt_adam) paths walk, each
-    model built at one layer of its full width and O2 cast (``_o2_spec``):
-    ``name -> [(shape, dtype)]``."""
+    model built at one layer of its full width and O2 cast (``_o2_spec``),
+    the mLSTM's (``RNN_CARD``: embedding, RNN, head, fp32) and the DCGAN's
+    two at ``DCGAN_CARD`` (fp16 O2) as their ``FusedAdam``s walk them, and
+    ResNet-50's at O1-O3 (bf16) as the cross product's overflow check
+    walks its gradients: ``name -> [(shape, dtype)]``."""
     import dataclasses
 
+    import torch
+    from apex_tpu_torch import RNN
+    from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.examples import bert_pretrain as bp
+    from apex_tpu_torch.examples import dcgan_main_amp as dc
+    from apex_tpu_torch.examples import imagenet_main as im
     from apex_tpu_torch.examples import gpt_pretrain
     from apex_tpu_torch.examples.llama_pretrain import o2_cast
     from apex_tpu_torch.models import ViTConfig, ViTForImageClassification
@@ -3665,8 +3708,74 @@ def mt_model_lists(device) -> dict:
         "vit_l16": (ViTForImageClassification(
             dataclasses.replace(vit, num_hidden_layers=1), device=device),
             vit.num_hidden_layers)}
-    return {name: _o2_spec(o2_cast(model), layers)
-            for name, (model, layers) in one.items()}
+    lists = {name: _o2_spec(o2_cast(model), layers)
+             for name, (model, layers) in one.items()}
+    r = RNN_CARD
+    lists["mlstm_4096"] = (
+        [((r["vocab"], r["embed"]), "float32")]
+        + _param_spec(RNN.mLSTM(r["embed"], r["hidden"], 1,
+                                device=device).parameters())
+        + [((r["vocab"], r["hidden"]), "float32"), ((r["vocab"],), "float32")])
+    d = DCGAN_CARD
+    tr = dc.DCGANTrainer(nz=d["nz"], ngf=d["ngf"], ndf=d["ndf"],
+                         opt_level="O2", half=torch.float16, device=device)
+    lists["dcgan64_d"] = _param_spec(tr.d_params)
+    lists["dcgan64_g"] = _param_spec(tr.g_params)
+    for level in ("O1", "O2", "O3"):
+        net = get_policy(level, half_dtype=torch.bfloat16).cast_params(
+            im.resnet50(CONVERGENCE_CARD["num_classes"], device=device))
+        lists[f"resnet50_{level.lower()}"] = _param_spec(net.parameters())
+    return lists
+
+
+# how each path walks its list: the kernel, the moments' dtype, whether
+# fp32 masters write the model's parameters, the gradients' dtype (None:
+# the parameters'), whether the step takes its overflow flag as noop, and
+# whether mt_scale's overflow check walks the gradients too
+MT_MODEL_USE = {
+    "bert_large": ("mt_lamb", "bfloat16", False, None, False, False),
+    "gpt_1p3b": ("mt_lamb", "bfloat16", False, None, False, False),
+    "gpt2_medium_moe8": ("mt_lamb", "float32", True, None, False, False),
+    "vit_l16": ("mt_adam", "float32", False, None, False, False),
+    "mlstm_4096": ("mt_adam", "float32", False, None, False, False),
+    # the scaler's unscale hands FusedAdam fp32 gradients
+    "dcgan64_d": ("mt_adam", "float32", True, "float32", True, True),
+    "dcgan64_g": ("mt_adam", "float32", True, "float32", True, True),
+    "resnet50_o1": (None, None, False, None, False, True),
+    "resnet50_o2": (None, None, False, None, False, True),
+    "resnet50_o3": (None, None, False, None, False, True),
+}
+
+
+def _mt_overflow_check(spec, gen, device) -> int:
+    """mt_scale's overflow check alone (no output, scale 1: the amp
+    scaler's ``has_overflow``) against its plain version on gradients of
+    ``spec``: clean, then an inf at the first element of the first
+    tensor, a NaN at the last element of the largest and an inf in the
+    middle of the last, one at a time; the flags must be equal.  Returns
+    the cases."""
+    import torch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    g = _mt_list_tensors(spec, gen, device, 0.01)
+    big = max(range(len(g)), key=lambda i: g[i].numel())
+    places = [None, (0, 0, float("inf")), (big, -1, float("nan")),
+              (len(g) - 1, g[-1].numel() // 2, float("inf"))]
+    for place in places:
+        saved = None
+        if place is not None:
+            i, j, val = place
+            saved = g[i].view(-1)[j].clone()
+            g[i].view(-1)[j] = val
+        got = bool(mt._kernel_scale(g, None, 1.0, True))
+        want = bool(mt._plain_scale(g, None, 1.0, True))
+        if got != want or got != (place is not None):
+            raise AssertionError(f"mt_scale's overflow check on {place}: "
+                                 f"kernel {got}, plain {want}")
+        if place is not None:
+            g[i].view(-1)[j] = saved
+    del g
+    return len(places)
 
 
 # the lists are held against the plain version over their first tensors
@@ -3684,9 +3793,13 @@ def check_multi_tensor_model_lists(device) -> dict:
     """mt_lamb on BERT-large's and GPT-1.3B's O2 lists (bf16 moments, as
     their ``FusedLAMB(state_dtype=bf16)``) and on the MoE GPT-2-medium's
     (fp32 moments and fp32 masters, the pass writing the O2 parameters, as
-    its ``FusedLAMB(master_weights=True)``), and mt_adam on ViT-L/16's (its
-    ``FusedAdam``'s fp32 moments) against their plain versions, each list
-    from :func:`mt_model_lists`, at ``_mt_lamb_tols`` / ``_mt_adam_tols``."""
+    its ``FusedLAMB(master_weights=True)``), mt_adam on ViT-L/16's and the
+    mLSTM's (fp32 moments) and on the DCGAN's two (fp32 gradients, moments
+    and masters, the pass writing the fp16 parameters, a false overflow
+    flag as noop), and mt_scale's overflow check on the DCGAN's fp16 and
+    ResNet-50's O1-O3 gradients, against their plain versions, each list
+    from :func:`mt_model_lists` (``MT_MODEL_USE``), at ``_mt_lamb_tols`` /
+    ``_mt_adam_tols`` / equal flags."""
     import torch
     from apex_tpu_torch.ops import multi_tensor as mt
 
@@ -3694,9 +3807,20 @@ def check_multi_tensor_model_lists(device) -> dict:
     out = {}
     with torch.no_grad():
         for name, full in mt_model_lists(device).items():
-            lamb = name != "vit_l16"
-            masters = name == "gpt2_medium_moe8"
-            moments = "bfloat16" if lamb and not masters else "float32"
+            kernel, moments, masters, grads, noop, overflow = \
+                MT_MODEL_USE[name]
+            elements = sum(math.prod(shape) for shape, _ in full)
+            if overflow:
+                row = dict(kernel="mt_scale", list=f"{name} gradients "
+                           f"(overflow check)", tensors=len(full),
+                           elements=elements,
+                           cases=_mt_overflow_check(full, gen, device),
+                           tol_ratio=0.0, tolerance="equal flags")
+                out[f"{name}_overflow_check"] = row
+                log("phase2-check", **row)
+            if kernel is None:
+                continue
+            lamb = kernel == "mt_lamb"
             k = _mt_sub([torch.empty(shape, device="meta")
                          for shape, _ in full], MT_MODEL_CHECK_ELEMENTS)
             spec = full[:k]
@@ -3704,21 +3828,22 @@ def check_multi_tensor_model_lists(device) -> dict:
                                  dtype="float32" if masters else None)
             copy = ([t.to(getattr(torch, dt)) for t, (_, dt) in zip(p, spec)]
                     if masters else None)
-            g = _mt_list_tensors(spec, gen, device, 0.01)
+            g = _mt_list_tensors(spec, gen, device, 0.01, dtype=grads)
             m = _mt_list_tensors(spec, gen, device, 1e-3, dtype=moments)
             v = _mt_list_tensors(spec, gen, device, 1e-5, positive=True,
                                  dtype=moments)
             err, ratio = (_mt_lamb_err(g, p, m, v, _mt_lamb_kw(device), k,
                                        copy=copy)
                           if lamb else
-                          _mt_adam_err(g, p, m, v, None, None,
-                                       _mt_adam_kw(mt.ADAMW, device), k))
-            kernel = "mt_lamb" if lamb else "mt_adam"
+                          _mt_adam_err(g, p, m, v, copy, None, _mt_adam_kw(
+                              mt.ADAMW, device, noop=torch.tensor(
+                                  False, device=device) if noop else None),
+                                       k))
             row = dict(kernel=kernel,
-                       list=f"{name} (O2, {moments} moments"
-                            + (", fp32 masters)" if masters else ")"),
-                       tensors=len(full),
-                       elements=sum(math.prod(shape) for shape, _ in full),
+                       list=f"{name} ({moments} moments"
+                            + (", fp32 masters" if masters else "")
+                            + (", noop" if noop else "") + ")",
+                       tensors=len(full), elements=elements,
                        checked_tensors=k,
                        checked_elements=sum(t.numel() for t in p),
                        max_abs_err=err, tol_ratio=ratio,
@@ -13213,6 +13338,448 @@ def sparsity_check(device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3: apex_tpu_torch.RNN (a byte-level mLSTM), the DCGAN and the
+# convergence cross product
+# ---------------------------------------------------------------------------
+
+# Radford et al. 2017 (arXiv:1704.01444): a 64-wide embedding of the 256
+# byte values, one mLSTM of 4096, a 4096 -> 256 head; 256-byte
+# subsequences in batches of 128, fp32 (the JAX RNN's param_dtype)
+RNN_CARD = dict(vocab=256, embed=64, hidden=4096, seq=256, batch=128)
+RNN_STEPS = 4           # timed steps after one warm-up
+RNN_LR = 5e-4           # Adam's, as in the paper
+RNN_SMALL = dict(T=8, B=4, F=16, H=32, L=2)   # the card-against-CPU cells
+RNN_SMALL_TOL = 1e-5    # fp32, TF32 off: of the largest CPU value
+RNN_HALVES_TOL = 1e-5   # the sequence in two halves against whole, absolute
+# DCGAN (Radford, Metz and Chintala 2016, arXiv:1511.06434) at CIFAR-10's
+# 32 x 32 x 3: nz 100, ngf = ndf = 64, batch 128; fp16 O2, three scalers
+DCGAN_CARD = dict(nz=100, ngf=64, ndf=64, batch=128, steps=20)
+DCGAN_FORCED_AT = 3     # steps before the forced overflow
+DCGAN_SMALL = dict(nz=64, ngf=32, ndf=32, batch=16, steps=4)  # JAX's sizes
+DCGAN_SMALL_TOL = {"O0": 1e-4, "O2": 2e-3}   # losses, relative
+# the L1 cross product at ResNet-50's width (bench.py's resnet50 card):
+# the harness's own lr and tolerances
+CONVERGENCE_CARD = dict(arch="resnet50", image_size=224, batch_size=128,
+                        num_classes=1000, steps=12, half="bf16", lr=0.05,
+                        rtol=0.15, atol=0.25)
+
+
+def _rnn_small_check(device) -> dict:
+    """Every cell type, one-way and bidirectional, at ``RNN_SMALL``: the
+    same weights (a seeded CPU init copied to the card) and input on the
+    card and on the CPU; output, every final hidden tensor and every
+    gradient of ``sum(output ** 2)`` within ``RNN_SMALL_TOL`` of the
+    largest CPU value."""
+    import torch
+    from apex_tpu_torch import RNN
+
+    c = RNN_SMALL
+    worst = {}
+    for kind in ("LSTM", "GRU", "ReLU", "Tanh", "mLSTM"):
+        for bi in (False, True):
+            x = torch.randn(c["T"], c["B"], c["F"],
+                            generator=torch.Generator().manual_seed(5))
+            runs = {}
+            for where, dev in (("cpu", "cpu"), ("card", device)):
+                model = getattr(RNN, kind)(
+                    c["F"], c["H"], c["L"], bidirectional=bi, device=dev,
+                    generator=torch.Generator().manual_seed(6)
+                    if where == "cpu" else None)
+                if where == "card":
+                    model.load_state_dict(runs["cpu"]["state"])
+                out, finals = model(x.to(dev))
+                (out ** 2).sum().backward()
+                runs[where] = dict(
+                    state=model.state_dict(),
+                    vals=dict(out=out.detach(),
+                              **{f"final{i}_{j}": t.detach()
+                                 for i, f in enumerate(finals)
+                                 for j, t in enumerate(f)},
+                              **{f"grad_{n}": p.grad
+                                 for n, p in model.named_parameters()}))
+            errs = {k: _rel(runs["card"]["vals"][k].cpu(), v)
+                    for k, v in runs["cpu"]["vals"].items()}
+            name = f"{kind}_{'bidirectional' if bi else 'one_way'}"
+            worst[name] = max(errs.values())
+            if worst[name] > RNN_SMALL_TOL:
+                raise AssertionError(f"rnn {name} card against CPU: {errs}")
+    return dict(shape=c, tol=RNN_SMALL_TOL, worst_rel_err=worst)
+
+
+def rnn_train(device, smi: str) -> dict:
+    """Phase ``phase3-rnn`` (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch import RNN
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    t_phase = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    out = dict(nvidia_smi=smi, config=RNN_CARD, steps=f"1 warm-up + "
+               f"{RNN_STEPS}", precision="fp32, TF32 off; FusedAdam "
+               f"lr {RNN_LR}; one fixed seeded batch")
+    out["small"] = _rnn_small_check(device)
+    log("phase3-rnn-small", **out["small"])
+    c = RNN_CARD
+    V, E, H, T, B = c["vocab"], c["embed"], c["hidden"], c["seq"], c["batch"]
+    gen = torch.Generator(device=device).manual_seed(28)
+    rnn = RNN.mLSTM(E, H, 1, device=device, generator=gen)
+    embed = torch.nn.Parameter(torch.randn(V, E, generator=gen,
+                                           device=device))
+    head_w = torch.nn.Parameter(torch.randn(V, H, generator=gen,
+                                            device=device) * H ** -0.5)
+    head_b = torch.nn.Parameter(torch.zeros(V, device=device))
+    params = [embed, *rnn.parameters(), head_w, head_b]
+    opt = FusedAdam(params, lr=RNN_LR)
+    data = torch.randint(0, V, (T + 1, B), generator=gen, device=device)
+    x, y = data[:-1], data[1:]
+    events = []
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        h, _ = rnn(F.embedding(x, embed))
+        loss = F.cross_entropy(F.linear(h.reshape(T * B, H), head_w, head_b),
+                               y.reshape(-1))
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        events.append(ev)
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    warm = float(step())
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    events.clear()
+    _dispatch.reset_launches()
+    for i in range(RNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        _launch_gate(f"rnn step {i}", _launch_counts(),
+                     {mt.MT_ADAM.name: i + 1})
+    peak = torch.cuda.max_memory_allocated()
+    split = [[a.elapsed_time(b) for a, b in zip(ev, ev[1:])] for ev in events]
+    p50 = statistics.median(step_ms)
+    # products a step: the hoisted [T*B, E] projections, the recurrent
+    # h @ w_mhh and m @ w_hh a timestep, the head; backward twice that
+    fwd_flops = 2 * T * B * (E * 4 * H + E * H + H * H + H * 4 * H + H * V)
+    out.update(
+        warmup_loss=warm, losses=losses, step_ms=step_ms, step_ms_p50=p50,
+        fwd_bwd_opt_device_ms=split,
+        fwd_ms_p50=statistics.median(s[0] for s in split),
+        bwd_ms_p50=statistics.median(s[1] for s in split),
+        opt_ms_p50=statistics.median(s[2] for s in split),
+        flops_per_step=3 * fwd_flops,
+        fp32_tflops=3 * fwd_flops / (p50 / 1e3) / 1e12,
+        fp32_peak_share=3 * fwd_flops / (p50 / 1e3) / FP32_OPS_PER_S,
+        parameters=sum(p.numel() for p in params), peak_mem_bytes=peak,
+        live_at_start_bytes=live,
+        launches=_launch_counts(),
+        launches_per_step={mt.MT_ADAM.name: 1})
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and losses[0] < warm):
+        raise AssertionError(f"rnn: loss {warm} then {losses} is not finite "
+                             f"and falling")
+    traced_ms, kernels = _traced_kernels(step)
+    out["profile"] = _device_profile(traced_ms, kernels, p50)
+    out["profile"]["device_kernels_per_step"] = int(sum(e.count
+                                                        for e in kernels))
+    with torch.no_grad():
+        emb = F.embedding(x, embed)
+        whole, _ = rnn(emb)
+        a, hid = rnn(emb[:T // 2])
+        b, _ = rnn(emb[T // 2:], hid)
+    out["halves_max_abs_diff"] = float((torch.cat([a, b]) - whole).abs().max())
+    if not out["halves_max_abs_diff"] <= RNN_HALVES_TOL:
+        raise AssertionError(f"rnn: the sequence in two halves differs from "
+                             f"it whole by {out['halves_max_abs_diff']}")
+    del rnn, opt, params, embed, head_w, head_b, emb, whole, a, b, hid
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-rnn", **{k: v for k, v in out.items()
+                         if k not in ("launches", "small")})
+    return out
+
+
+def _dcgan_state(trainer) -> list:
+    """Every discriminator parameter, master, moment and step, as bytes."""
+    import torch
+
+    def bits(t):
+        return t.detach().reshape(-1).view(torch.uint8).clone()
+
+    return ([bits(p) for p in trainer.d_params]
+            + [bits(v) for p in trainer.d_params
+               for v in trainer.optD.state[p].values() if torch.is_tensor(v)])
+
+
+def _dcgan_forced_overflow(device) -> dict:
+    """fp16 O2 at ``DCGAN_CARD``'s widths: after ``DCGAN_FORCED_AT``
+    steps, an inf written into loss 1's scaled gradients leaves every
+    discriminator parameter, master, moment and its step bit for bit,
+    takes the generator's step, and halves scaler 1 alone."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.examples import dcgan_main_amp as dc
+
+    c = DCGAN_CARD
+    tr = dc.DCGANTrainer(nz=c["nz"], ngf=c["ngf"], ndf=c["ndf"],
+                         opt_level="O2", half=torch.float16, device=device)
+    rng = np.random.default_rng(0)
+    for _ in range(DCGAN_FORCED_AT):
+        tr.step(*dc.synthetic_batch(rng, c["batch"], c["nz"], device))
+    before = _dcgan_state(tr)
+    g_before = [p.detach().clone() for p in tr.g_params]
+    scales = [float(s.scale) for s in tr.states]
+
+    def hook(loss_id, grads):
+        if loss_id == 1:
+            grads[0].view(-1)[0].fill_(float("inf"))
+
+    _, flags = tr.step(*dc.synthetic_batch(rng, c["batch"], c["nz"], device),
+                       grad_hook=hook)
+    after = _dcgan_state(tr)
+    out = dict(
+        found_inf=[bool(f) for f in flags],
+        d_bits_kept=all(torch.equal(a, b) for a, b in zip(before, after)),
+        g_stepped=any(not torch.equal(a, p) for a, p in zip(g_before,
+                                                            tr.g_params)),
+        scales_before=scales, scales_after=[float(s.scale)
+                                            for s in tr.states])
+    want = [scales[0], scales[1] / 2, scales[2]]
+    if not (out["found_inf"] == [False, True, False] and out["d_bits_kept"]
+            and out["g_stepped"] and out["scales_after"] == want):
+        raise AssertionError(f"dcgan forced overflow: {out}")
+    return out
+
+
+def _dcgan_small_check(device) -> dict:
+    """``train`` at the JAX example's sizes (``DCGAN_SMALL``) on the card
+    and on the CPU from the same seeded CPU init: each step's three
+    losses within ``DCGAN_SMALL_TOL`` (relative) at O0 and at fp16 O2,
+    the scales equal; 2 ``mt_adam`` and 3 ``mt_scale`` launches a step."""
+    import torch
+    from apex_tpu_torch.examples import dcgan_main_amp as dc
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    c = DCGAN_SMALL
+    gen = torch.Generator().manual_seed(16)
+    init = (dc.Generator(c["nz"], c["ngf"], device="cpu",
+                         generator=gen).state_dict(),
+            dc.Discriminator(c["ndf"], device="cpu",
+                             generator=gen).state_dict())
+    out = {}
+    for level, half in (("O0", torch.float32), ("O2", torch.float16)):
+        runs = {}
+        for where, dev in (("cpu", "cpu"), ("card", device)):
+            _dispatch.reset_launches()
+            runs[where] = dc.train(
+                steps=c["steps"], batch=c["batch"], nz=c["nz"], ngf=c["ngf"],
+                ndf=c["ndf"], opt_level=level, half=half, device=dev,
+                init=init, verbose=False)
+            runs[where]["launches"] = _launch_counts()
+        cpu, card = runs["cpu"], runs["card"]
+        err = max(abs(a - b) / abs(b) for la, lb in zip(card["losses"],
+                                                       cpu["losses"])
+                  for a, b in zip(la, lb))
+        row = dict(losses_card=card["losses"], losses_cpu=cpu["losses"],
+                   max_rel_err=err, tol=DCGAN_SMALL_TOL[level],
+                   scales_equal=card["scales"] == cpu["scales"])
+        if not (err <= DCGAN_SMALL_TOL[level] and row["scales_equal"]):
+            raise AssertionError(f"dcgan {level} card against CPU: {row}")
+        _launch_gate(f"dcgan small {level}", card["launches"],
+                     {mt.MT_ADAM.name: 2 * c["steps"],
+                      mt.MT_SCALE.name: 3 * c["steps"]})
+        out[level] = row
+    return out
+
+
+def dcgan_train(device, smi: str) -> dict:
+    """Phase ``phase3-dcgan`` (see the module docstring)."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.examples import dcgan_main_amp as dc
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    t_phase = time.perf_counter()
+    c = DCGAN_CARD
+    out = dict(nvidia_smi=smi, config=c, precision="fp16 O2, three dynamic "
+               "scalers, FusedAdam (lr 2e-4, betas 0.5, 0.999) fp32 masters")
+    out["small"] = _dcgan_small_check(device)
+    log("phase3-dcgan-small", **out["small"])
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res = dc.train(steps=c["steps"], batch=c["batch"], nz=c["nz"],
+                   ngf=c["ngf"], ndf=c["ndf"], opt_level="O2",
+                   half=torch.float16, device=device, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    _launch_gate("dcgan", launches, {mt.MT_ADAM.name: 2 * c["steps"],
+                                     mt.MT_SCALE.name: 3 * c["steps"]})
+    flat = [x for step in res["losses"] + res["scales"] for x in step]
+    if not all(map(math.isfinite, flat)):
+        raise AssertionError(f"dcgan: losses {res['losses']} or scales "
+                             f"{res['scales']} not finite")
+    p50 = statistics.median(res["step_ms"][1:])
+    tr = res["trainer"]
+    batch = dc.synthetic_batch(np.random.default_rng(1), c["batch"],
+                               c["nz"], device)
+    out.update(
+        losses_first=res["losses"][0], losses_last=res["losses"][-1],
+        scales_last=res["scales"][-1],
+        real_overflows=[sum(f[i] for f in res["found_inf"])
+                        for i in range(3)],
+        wall_s=wall, step_ms=res["step_ms"], step_ms_p50=p50,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        live_at_start_bytes=live, launches=launches,
+        launches_per_step={mt.MT_ADAM.name: 2, mt.MT_SCALE.name: 3})
+    traced_ms, kernels = _traced_kernels(lambda: tr.step(*batch))
+    out["profile"] = _device_profile(traced_ms, kernels, p50)
+    out["profile"]["device_kernels_per_step"] = int(sum(e.count
+                                                        for e in kernels))
+    del res, tr, batch
+    out["forced_overflow"] = _dcgan_forced_overflow(device)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("phase3-dcgan", **{k: v for k, v in out.items()
+                           if k not in ("launches", "small")})
+    return out
+
+
+def convergence_check(device, smi: str) -> dict:
+    """Phase ``phase3-convergence`` (see the module docstring)."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import imagenet_main as im
+    from apex_tpu_torch.examples import imagenet_run_convergence as rc
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    t_phase = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    c = CONVERGENCE_CARD
+    runs, total = {}, {k: 0 for k in _launch_counts()}
+    images, labels = im._to_device(*im.synthetic_batch(
+        c["batch_size"], c["image_size"], c["num_classes"], 0), device)
+    clock = [time.perf_counter()]
+
+    def on_run(name, res):
+        now = time.perf_counter()
+        launches = _launch_counts()
+        scale = name.split("/")[1]
+        _launch_gate(f"convergence {name}", launches,
+                     {} if scale == "none" else {mt.MT_SCALE.name: c["steps"]})
+        row = dict(losses=res["losses"], wall_s=now - clock[0],
+                   step_ms_p50=statistics.median(res["step_ms"]),
+                   real_overflows=sum(res["found_inf"]),
+                   final_scale=res["final_scale"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches=_nonzero(launches))
+        if name in ("O0/none", "O2/dynamic"):
+            level = name.split("/")[0]
+            policy = get_policy(level, half_dtype=torch.bfloat16,
+                                **({} if scale == "none"
+                                   else {"loss_scale": scale}))
+            scaler = policy.make_scaler()
+            state = res["scaler_state"]
+            row["profile"] = _profile(
+                lambda: im.train_step(res["net"], res["optimizer"], images,
+                                      labels, policy, scaler, state),
+                row["step_ms_p50"])
+        runs[name] = row
+        for k, n in launches.items():
+            total[k] += n
+        _dispatch.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        clock[0] = time.perf_counter()
+
+    _dispatch.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    results, failures = rc.run_cross_product(
+        **c, verbose=False, device=device, on_run=on_run)
+    baseline = np.array(results["O0/none"])
+    for name, row in runs.items():
+        trace = np.array(row["losses"])
+        skips = rc.count_scaler_skips(row["losses"])
+        ref = baseline[:len(baseline) - skips]
+        # the harness's allclose as a ratio: 1 at its limit
+        ratio = np.abs(trace[skips:] - ref) / (c["atol"] + c["rtol"]
+                                               * np.abs(ref))
+        row.update(skips=skips,
+                   max_abs_diff_from_o0=float(np.abs(trace - baseline).max()),
+                   worst_tol_ratio=float(ratio.max()),
+                   status="DIVERGED" if name in failures else "OK")
+    out = dict(nvidia_smi=smi, config=c, runs=runs, failures=failures,
+               launches=total, live_at_start_bytes=live,
+               phase_s=time.perf_counter() - t_phase)
+    log("phase3-convergence", **{k: v for k, v in out.items()
+                                 if k != "launches"})
+    del images, labels
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"convergence: combinations diverged from O0: "
+                             f"{failures}")
+    return out
+
+
+def convergence_determinism(device, smi: str) -> dict:
+    """Whether cuDNN's algorithms are why the cross product's fp32 runs
+    do not repeat: at ``CONVERGENCE_CARD``, O0 twice, O1 unscaled and O1
+    at scale 1.0 (an exact unscale), first with cuDNN's defaults as the
+    phase runs them, then with its deterministic algorithms
+    (``cudnn.deterministic``, no ``benchmark``); each pair's largest loss
+    difference and whether its traces are equal bit for bit.  Not part of
+    the whole run: ``--only convergence_determinism``."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main as im
+
+    c = CONVERGENCE_CARD
+    common = dict(arch=c["arch"], steps=c["steps"], image_size=c["image_size"],
+                  batch_size=c["batch_size"], num_classes=c["num_classes"],
+                  half=c["half"], lr=c["lr"], verbose=False, device=device,
+                  distributed=False)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    out = dict(nvidia_smi=smi, config=c)
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = False
+        runs = {name: [float(x) for x in im.run_training(
+                    opt_level=level, loss_scale=scale, **common)["losses"]]
+                for name, level, scale in (("O0", "O0", None),
+                                           ("O0 again", "O0", None),
+                                           ("O1/none", "O1", None),
+                                           ("O1/1.0", "O1", 1.0))}
+
+        def diff(a, b):
+            return max(abs(x - y) for x, y in zip(runs[a], runs[b]))
+
+        out["deterministic" if det else "cudnn_defaults"] = row = dict(
+            losses=runs, o0_repeat_max_diff=diff("O0", "O0 again"),
+            o0_repeats_bitwise=runs["O0"] == runs["O0 again"],
+            o1_none_vs_1_max_diff=diff("O1/none", "O1/1.0"),
+            o1_none_equals_1_bitwise=runs["O1/none"] == runs["O1/1.0"])
+        log("convergence-determinism", deterministic=det,
+            **{k: v for k, v in row.items() if k != "losses"})
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return out
+
+
 ALONE = {
     "layer_norm": lambda device, smi: dict(
         main_path_max_abs_err=check_layer_norm(device),
@@ -13234,6 +13801,11 @@ ALONE = {
     "contrib_losses": contrib_losses,
     "contrib_norms": contrib_norms,
     "sparsity": sparsity_check,
+    "rnn": rnn_train,
+    "dcgan": dcgan_train,
+    "convergence": convergence_check,
+    "convergence_determinism": convergence_determinism,
+    "mt_lists": lambda device, smi: check_multi_tensor_model_lists(device),
 }
 
 
@@ -13385,6 +13957,9 @@ def main(argv=()) -> int:
     contrib_loss = contrib_losses(device, smi)
     contrib_norm = contrib_norms(device, smi)
     sparsity = sparsity_check(device, smi)
+    rnn = rnn_train(device, smi)
+    dcgan = dcgan_train(device, smi)
+    convergence = convergence_check(device, smi)
     openfold = openfold_train(device)
     paths = dict(serving=e2e, serving_paged=e2e["paged"]["default_pool"],
                  serving_paged_tight=e2e["paged"]["tight_pool"],
@@ -13424,7 +13999,8 @@ def main(argv=()) -> int:
                  contrib_mask_softmax_additive=contrib_attn["mask_softmax"][
                      "additive"],
                  contrib_fmha_varlen=contrib_attn["fmha"],
-                 contrib_norms=contrib_norm, openfold=openfold)
+                 contrib_norms=contrib_norm, rnn=rnn, dcgan=dcgan,
+                 convergence=convergence, openfold=openfold)
 
     def entry(k, err, row, main_path="training", **extra):
         return dict(name=k.name, route="cuda",
@@ -13546,10 +14122,13 @@ def main(argv=()) -> int:
         # the multi-tensor kernels, with no pallas_call counterpart: each
         # timed at its main path's list, the others in lists
         mt_entry(mt.MT_L2NORM, "l2norm_gpt2_large", "gpt_flagship"),
-        mt_entry(mt.MT_SCALE, "scale_llama_fp16_check", "amp_adam"),
+        mt_entry(mt.MT_SCALE, "scale_llama_fp16_check", "amp_adam",
+                 checked=tuple(f"{n}_overflow_check" for n in (
+                     "dcgan64_d", "dcgan64_g", "resnet50_o1", "resnet50_o2",
+                     "resnet50_o3"))),
         mt_entry(mt.MT_ADAM, "adam_llama_bf16", "training",
                  ("adam_llama_fp16_masters", "adam_swa_openfold"),
-                 checked=("vit_l16",)),
+                 checked=("vit_l16", "mlstm_4096", "dcgan64_d", "dcgan64_g")),
         mt_entry(mt.MT_LAMB, "lamb_gpt2_large", "gpt_flagship",
                  checked=("bert_large", "gpt_1p3b", "gpt2_medium_moe8")),
     ]}
@@ -13588,6 +14167,7 @@ def main(argv=()) -> int:
                   amp_o1=amp_o1, supervised=supervised,
                   contrib_attention=contrib_attn, contrib_losses=contrib_loss,
                   contrib_norms=contrib_norm, sparsity=sparsity,
+                  rnn=rnn, dcgan=dcgan, convergence=convergence,
                   kernels=kernels,
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -119,7 +119,10 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
         "apex_tpu_torch.contrib.cudnn_gbn, "
         "apex_tpu_torch.contrib.conv_bias_relu, "
         "apex_tpu_torch.contrib.index_mul_2d, "
-        "apex_tpu_torch.contrib.sparsity\n"
+        "apex_tpu_torch.contrib.sparsity, apex_tpu_torch.RNN, "
+        "apex_tpu_torch.RNN.cells, apex_tpu_torch.RNN.rnn, "
+        "apex_tpu_torch.RNN.models, apex_tpu_torch.examples.dcgan_main_amp, "
+        "apex_tpu_torch.examples.imagenet_run_convergence\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'apex_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -407,6 +410,8 @@ def test_resilience_exports_every_jax_name():
     ("apex_tpu_torch.fused_dense",
      _jax_all("apex_tpu/fused_dense/__init__.py")),
     ("apex_tpu_torch.mlp", _jax_all("apex_tpu/mlp/__init__.py")),
+    ("apex_tpu_torch.RNN", _jax_all("apex_tpu/RNN/__init__.py")),
+    ("apex_tpu_torch.RNN.cells", _jax_all("apex_tpu/RNN/cells.py")),
 ])
 def test_namespaces_hold_the_jax_names(port, names):
     """Each name by ``getattr`` on the package; the enums are the
@@ -430,6 +435,42 @@ def test_namespaces_hold_the_jax_names(port, names):
         assert module.quantize_int8 is module.quant.quantize_int8
     if port == "apex_tpu_torch.utils":
         assert not hasattr(module, "tree_add")
+    if port == "apex_tpu_torch.RNN":
+        assert module.models.__name__ == "apex_tpu_torch.RNN.models"
+
+
+# the JAX package's modules with no twin in the port, and why
+_NO_TWIN = {
+    "utils/compat.py": "JAX version shims (the shard_map import, a jit "
+                       "cache-size probe): nothing of PyTorch to port",
+}
+# each example of the repo and its twin under apex_tpu_torch/examples/
+_EXAMPLE_TWINS = {
+    "simple/main.py": "simple.py",
+    "gpt/pretrain.py": "megatron_gpt_pretrain.py",
+    "llama/pretrain.py": "llama_pretrain.py",
+    "bert/pretrain.py": "bert_pretrain.py",
+    "imagenet/main.py": "imagenet_main.py",
+    "imagenet/data.py": "imagenet_data.py",
+    "imagenet/run_convergence.py": "imagenet_run_convergence.py",
+    "dcgan/main_amp.py": "dcgan_main_amp.py",
+}
+
+
+def test_every_jax_module_and_example_has_a_port_twin():
+    """Every ``apex_tpu/**/*.py`` has a file at the same path under
+    ``apex_tpu_torch/`` but those of ``_NO_TWIN``; every
+    ``examples/<dir>/<file>.py`` has its twin by ``_EXAMPLE_TWINS``."""
+    jax_pkg, port = ROOT / "apex_tpu", ROOT / "apex_tpu_torch"
+    missing = sorted(str(p.relative_to(jax_pkg))
+                     for p in jax_pkg.rglob("*.py")
+                     if not (port / p.relative_to(jax_pkg)).is_file())
+    assert missing == sorted(_NO_TWIN)
+    examples = sorted(str(p.relative_to(ROOT / "examples"))
+                      for p in (ROOT / "examples").glob("*/*.py"))
+    assert examples == sorted(_EXAMPLE_TWINS)
+    assert [t for t in _EXAMPLE_TWINS.values()
+            if not (port / "examples" / t).is_file()] == []
 
 
 def test_new_entry_points_default_to_cuda():
